@@ -1,0 +1,280 @@
+"""Closest-hit and any-hit intersection over the flat scene SoA.
+
+Port of ``path_tracer_tpu/ops/intersect.py`` for the brute-force slice.
+
+Semantics:
+- Möller-Trumbore with det cutoff 1e-6, no backface culling, u in [0,1],
+  v >= 0, u+v <= 1, t > max(1e-6, t_prev); backface flag = det < 0.
+- Analytic sphere quadratic in the centered oc = o - c form: each root valid
+  iff >= 0 and > t_prev; the far root's normal is negated (inside hit).
+- Ties keep the lowest primitive index.
+
+``moller_trumbore``, ``closest_hit_triangles`` and ``closest_hit_spheres``
+are the plain PyTorch versions: the port of the jnp reference path, used for
+tensors on the CPU and as the reference the CUDA kernels are held against.
+``closest_hit`` and ``occluded`` dispatch on the tensors' device: CUDA
+tensors go to the hand-written kernels (``cuda_intersect``,
+``cuda_spheres``), CPU tensors to the plain versions. Sphere any-hit stays
+plain torch on both, as it stays XLA in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+DET_EPS = 1e-6
+T_MIN = 1e-6
+
+KIND_NONE = 0
+KIND_TRIANGLE = 1
+KIND_SPHERE = 2
+
+# Rays per slice of the plain versions: bounds their [R, B] intermediates
+# (about 30 of them) to a few GB at any wavefront size.
+PLAIN_RAY_CHUNK = 1 << 16
+
+
+class HitRecord(NamedTuple):
+    """SoA closest-hit record for a ray wavefront. t = +inf means miss."""
+
+    t: torch.Tensor  # [R] f32
+    kind: torch.Tensor  # [R] int32 (0 none / 1 triangle / 2 sphere)
+    prim: torch.Tensor  # [R] int32 index into tri_* or sph_* arrays
+    u: torch.Tensor  # [R] f32 barycentric (triangles)
+    v: torch.Tensor  # [R] f32
+    backface: torch.Tensor  # [R] bool: tri det<0 | sphere far-root hit
+
+    @property
+    def valid(self):
+        return self.kind != KIND_NONE
+
+
+def _dot(a, b):
+    return (a * b).sum(-1)
+
+
+def _kind(t: torch.Tensor, kind: int) -> torch.Tensor:
+    return torch.where(torch.isfinite(t), kind, KIND_NONE).to(torch.int32)
+
+
+def moller_trumbore(o, d, v0, e1, e2, t_prev):
+    """MT for [R] rays x [B] triangles → (t, u, v, back, valid), each [R,B].
+    o,d: [R,3]; v0,e1,e2: [B,3]; t_prev: [R]. Component-wise, so only [R,B]
+    intermediates exist."""
+    ox, oy, oz = (o[:, k:k + 1] for k in range(3))
+    dx, dy, dz = (d[:, k:k + 1] for k in range(3))
+    v0x, v0y, v0z = (v0[None, :, k] for k in range(3))
+    e1x, e1y, e1z = (e1[None, :, k] for k in range(3))
+    e2x, e2y, e2z = (e2[None, :, k] for k in range(3))
+
+    pvx = dy * e2z - dz * e2y  # pvec = d x e2
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    valid = det.abs() >= DET_EPS
+    invdet = 1.0 / torch.where(valid, det, 1.0)
+
+    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z  # tvec = o - v0
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * invdet
+    valid &= (u >= 0.0) & (u <= 1.0)
+
+    qvx = tvy * e1z - tvz * e1y  # qvec = tvec x e1
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * invdet
+    valid &= (v >= 0.0) & (u + v <= 1.0)
+
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * invdet
+    valid &= (t >= T_MIN) & (t > t_prev[:, None])
+    return t, u, v, det < 0.0, valid
+
+
+def _ray_chunks(n: int):
+    return [slice(a, min(n, a + PLAIN_RAY_CHUNK))
+            for a in range(0, max(n, 1), PLAIN_RAY_CHUNK)]
+
+
+def closest_hit_triangles(o, d, t_prev, scene, block: int = 512) -> HitRecord:
+    """Plain version: scan triangle blocks keeping a running argmin (a later
+    block wins only on a strictly smaller t, so ties keep the lowest index).
+    o,d: [R,3]; t_prev: [R]."""
+    n = scene.tri_v0.shape[0]
+    block = min(block, n)
+    while n % block:  # n is padded to a multiple of 256
+        block //= 2
+    parts = []
+    for rs in _ray_chunks(o.shape[0]):
+        oc, dc, tpc = o[rs], d[rs], t_prev[rs]
+        r = oc.shape[0]
+        bt = torch.full((r,), float("inf"), device=o.device)
+        bi = torch.full((r,), -1, dtype=torch.int32, device=o.device)
+        bu = torch.zeros((r,), device=o.device)
+        bv = torch.zeros((r,), device=o.device)
+        bb = torch.zeros((r,), dtype=torch.bool, device=o.device)
+        for a in range(0, n, block):
+            t, u, v, back, valid = moller_trumbore(
+                oc, dc, scene.tri_v0[a:a + block], scene.tri_e1[a:a + block],
+                scene.tri_e2[a:a + block], tpc)
+            t = torch.where(valid, t, float("inf"))
+            tj, j = t.min(dim=1)  # first index among equal minima
+            jj = j[:, None]
+            better = tj < bt
+            bt = torch.where(better, tj, bt)
+            bi = torch.where(better, (j + a).to(torch.int32), bi)
+            bu = torch.where(better, u.gather(1, jj)[:, 0], bu)
+            bv = torch.where(better, v.gather(1, jj)[:, 0], bv)
+            bb = torch.where(better, back.gather(1, jj)[:, 0], bb)
+        parts.append((bt, bi, bu, bv, bb))
+    bt, bi, bu, bv, bb = (torch.cat(x) for x in zip(*parts))
+    return HitRecord(t=bt, kind=_kind(bt, KIND_TRIANGLE), prim=bi, u=bu, v=bv,
+                     backface=bb)
+
+
+def _sphere_quadratic(o, d, scene):
+    """(a [R,1], b [R,S], cc [R,S]) of the per-sphere quadratic in the
+    reference's centered oc = o - c form, component-wise so only [R,S]
+    intermediates materialize.
+
+    Do NOT rewrite this as |o|^2 - 2 o.c + |c|^2 - r^2 matmuls: that
+    expansion cancels catastrophically in f32 for rays originating ON a
+    sphere (shadow/bounce rays biased 1e-5 off the surface), producing
+    spurious self-occlusion."""
+    c = scene.sph_center  # [S,3]
+    radius = scene.sph_radius  # [S]
+    # a summed left to right, exactly as the kernel sums it.
+    a = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2])[:, None]
+    ocx = o[:, 0:1] - c[None, :, 0]  # [R,S]
+    ocy = o[:, 1:2] - c[None, :, 1]
+    ocz = o[:, 2:3] - c[None, :, 2]
+    b = 2.0 * (ocx * d[:, 0:1] + ocy * d[:, 1:2] + ocz * d[:, 2:3])
+    cc = ocx * ocx + ocy * ocy + ocz * ocz - (radius * radius)[None, :]
+    return a, b, cc
+
+
+def _sphere_roots(o, d, scene):
+    """(has [R,S], t1, t2): the two roots, t1 <= t2, dividing by 2a."""
+    a, b, cc = _sphere_quadratic(o, d, scene)
+    disc = b * b - 4.0 * a * cc
+    has = disc >= 0.0
+    sq = torch.sqrt(torch.where(has, disc, 0.0))
+    return has, (-b - sq) / (2.0 * a), (-b + sq) / (2.0 * a)
+
+
+def closest_hit_spheres(o, d, t_prev, scene) -> HitRecord:
+    """Plain version: nearest valid sphere root per ray. A root is valid iff
+    >= 0 and > t_prev; the far root carries backface (inside hit)."""
+    parts = []
+    for rs in _ray_chunks(o.shape[0]):
+        has, t1, t2 = _sphere_roots(o[rs], d[rs], scene)
+        tp = t_prev[rs][:, None]
+        v1 = has & (t1 >= 0.0) & (t1 > tp)
+        v2 = has & (t2 >= 0.0) & (t2 > tp)
+        t_near = torch.where(v1, t1, torch.where(v2, t2, float("inf")))
+        far_root = ~v1 & v2
+        tj, j = t_near.min(dim=1)
+        parts.append((tj, j.to(torch.int32),
+                      far_root.gather(1, j[:, None])[:, 0]))
+    tj, j, back = (torch.cat(x) for x in zip(*parts))
+    zeros = torch.zeros_like(tj)
+    return HitRecord(t=tj, kind=_kind(tj, KIND_SPHERE), prim=j, u=zeros,
+                     v=zeros, backface=back)
+
+
+def _miss_record(r: int, device) -> HitRecord:
+    zeros = torch.zeros((r,), device=device)
+    zi = torch.zeros((r,), dtype=torch.int32, device=device)
+    return HitRecord(t=torch.full((r,), float("inf"), device=device), kind=zi,
+                     prim=zi, u=zeros, v=zeros,
+                     backface=torch.zeros((r,), dtype=torch.bool,
+                                          device=device))
+
+
+def _require_brute(scene):
+    """The BVH walks and the sphere block walk are later slices."""
+    if scene.use_bvh:
+        raise NotImplementedError(
+            "scene uses the triangle BVH (>= 4096 triangles); the BVH walks "
+            "come with the flat-BVH slice of the port")
+    if scene.sph_use_blocks:
+        raise NotImplementedError(
+            "scene has more than 512 spheres (sphere block walk); it comes "
+            "with a later slice of the port")
+
+
+def _closest_hit_tris_dispatch(o, d, t_prev, scene) -> HitRecord:
+    from path_tracer_torch.ops.cuda_intersect import closest_hit_triangles_cuda
+
+    return closest_hit_triangles_cuda(o.contiguous(), d.contiguous(), t_prev,
+                                      scene)
+
+
+def closest_hit(o, d, t_prev, scene, active=None) -> HitRecord:
+    """Closest hit among all primitives with t > t_prev (t_prev = -1 for a
+    fresh cast: triangles still enforce t > 1e-6, spheres allow t >= 0).
+    ``active`` marks dead lanes t_prev = +inf, which no test passes."""
+    from path_tracer_torch.ops.cuda_spheres import closest_hit_spheres_cuda
+
+    r = o.shape[0]
+    has_tris = scene.num_real_triangles != 0
+    has_sphs = scene.num_real_spheres != 0
+    if active is not None:
+        t_prev = torch.where(active, t_prev, float("inf"))
+    _require_brute(scene)
+    tri = (_closest_hit_tris_dispatch(o, d, t_prev, scene) if has_tris
+           else _miss_record(r, o.device))
+    sph = (closest_hit_spheres_cuda(o.contiguous(), d.contiguous(), t_prev,
+                                    scene) if has_sphs
+           else _miss_record(r, o.device))
+    if not has_tris:
+        return sph
+    if not has_sphs:
+        return tri
+    tri_wins = tri.t <= sph.t  # both inf → KIND_NONE either way
+    return HitRecord(*[torch.where(tri_wins, a, b) for a, b in zip(tri, sph)])
+
+
+def occluded(o, d, scene, surf_pos=None, max_dist=None,
+             active=None) -> torch.Tensor:
+    """[R] bool any-hit occlusion for fully opaque scenes.
+
+    For point lights pass surf_pos [R,3] and max_dist [R]: an occluder
+    counts only when its distance FROM THE SURFACE POINT is <= max_dist,
+    with dist^2 = t^2|d|^2 + 2t(b.d) + |b|^2, b = o - surf_pos. Triangles
+    take the nearest hit through the closest-hit dispatch (the brute-force
+    kernel on CUDA): dist(t) is monotone in t, so if the nearest hit is out
+    of range no hit is in range. Spheres test both roots elementwise.
+    ``active``: dead lanes are cast with t_prev = +inf and report False."""
+    r = o.shape[0]
+    if max_dist is not None:
+        bvec = o - surf_pos
+        b_dot_d = _dot(bvec, d)[:, None]
+        b_sq = _dot(bvec, bvec)[:, None]
+        d_sq = _dot(d, d)[:, None]
+        limit_sq = (max_dist * max_dist)[:, None]
+
+        def in_range(t, rs=slice(None)):
+            return (t * t * d_sq[rs] + 2.0 * t * b_dot_d[rs] + b_sq[rs]
+                    <= limit_sq[rs])
+    else:
+        def in_range(t, rs=slice(None)):
+            return torch.ones_like(t, dtype=torch.bool)
+
+    _require_brute(scene)
+    hit = torch.zeros((r,), dtype=torch.bool, device=o.device)
+    if scene.num_real_triangles != 0:
+        t_prev = torch.full((r,), -1.0, device=o.device)
+        if active is not None:
+            t_prev = torch.where(active, t_prev, float("inf"))
+        tri = _closest_hit_tris_dispatch(o, d, t_prev, scene)
+        hit = hit | (tri.valid & in_range(tri.t[:, None])[:, 0])
+
+    if scene.num_real_spheres != 0:
+        for rs in _ray_chunks(r):
+            has, t1, t2 = _sphere_roots(o[rs], d[rs], scene)
+            v1 = has & (t1 >= 0.0) & in_range(t1, rs)
+            v2 = has & (t2 >= 0.0) & in_range(t2, rs)
+            hit[rs] |= (v1 | v2).any(dim=1)
+        if active is not None:
+            hit &= active
+    return hit

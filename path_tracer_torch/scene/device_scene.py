@@ -1,0 +1,353 @@
+"""Device scene: flat SoA tensors for the wavefront renderer.
+
+Port of the parts of ``path_tracer_tpu/scene/device_scene.py`` that the
+brute-force opaque slice reads:
+
+- all mesh triangles in ONE global array (v0, edges, vertex normals, UVs,
+  tangent, model id), padded to a multiple of 256 with degenerate rows
+  (det = 0 rejects them), plus the component-major [9, N] table
+  ``tri_packed_t`` the MT kernel reads;
+- analytic spheres, padded to >= 1 with a far-away zero-radius entry, plus
+  the [4, S] table ``sph_packed_t`` (S a multiple of 128 up to 384, of 512
+  above) whose padding spheres (center 1e30) never hit;
+- per-model material factor + texture-id tables and the flat RGB atlas;
+- lights split by type, camera, background;
+- the statics the integrator branches on.
+
+Triangle order: the JAX builder stores every triangle array in the leaf
+order of its C++ binned-SAH BVH (leaf size 4), even for scenes that never
+walk the BVH. ``build_scene`` builds the same ``bvh.cpp`` with the same
+flags (``native.bvh_prim_order``), so prim ids and tie-breaks match the
+JAX package exactly.
+"""
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from path_tracer_torch.scene import isf
+
+_TRI_PAD = 256  # triangle count padded to a multiple of this
+BVH_MIN_TRIANGLES = 4096  # the JAX package's use_bvh threshold
+SPH_BLOCKS_MIN = 512  # more spheres than this take the sphere block walk
+
+_FLOAT_FIELDS = (
+    "tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
+    "tri_uv0", "tri_uv1", "tri_uv2", "tri_tangent", "tri_packed_t",
+    "sph_center", "sph_radius", "sph_packed_t",
+    "mat_albedo_factor", "mat_emissive_factor", "mat_opacity_factor",
+    "mat_metalness_factor", "mat_roughness_factor", "mat_ior",
+    "tex_data", "point_pos", "point_color", "dir_dir", "dir_color",
+    "cam_to_world", "cam_fov", "background",
+)
+_INT_FIELDS = (
+    "tri_model", "sph_model",
+    "mat_albedo_tex", "mat_emissive_tex", "mat_opacity_tex",
+    "mat_metalness_tex", "mat_roughness_tex", "mat_normal_tex",
+    "tex_offset", "tex_width", "tex_height",
+)
+ARRAY_FIELDS = _FLOAT_FIELDS + _INT_FIELDS
+STATIC_FIELDS = ("all_opaque", "no_textures", "no_emissive", "has_tex",
+                 "num_real_triangles", "num_real_spheres", "use_bvh",
+                 "sph_use_blocks")
+
+
+@dataclasses.dataclass(frozen=True)
+class TorchScene:
+    """Scene tensors on one device, plus static facts.
+
+    Shapes: triangles [N,3] / [N,2] / [N] with N a multiple of 256;
+    ``tri_packed_t`` [9,N] (v0, e1, e2 rows); spheres [S',3] / [S'];
+    ``sph_packed_t`` [4,S]; materials [M,3] / [M]; atlas ``tex_data`` [P,3]
+    with [T] offset/width/height tables; lights [L,3]; ``cam_to_world``
+    [4,4] row-major world-from-camera; ``cam_fov`` [] vertical radians."""
+
+    tri_v0: torch.Tensor
+    tri_e1: torch.Tensor
+    tri_e2: torch.Tensor
+    tri_n0: torch.Tensor
+    tri_n1: torch.Tensor
+    tri_n2: torch.Tensor
+    tri_uv0: torch.Tensor
+    tri_uv1: torch.Tensor
+    tri_uv2: torch.Tensor
+    tri_tangent: torch.Tensor
+    tri_packed_t: torch.Tensor
+    sph_center: torch.Tensor
+    sph_radius: torch.Tensor
+    sph_packed_t: torch.Tensor
+    mat_albedo_factor: torch.Tensor
+    mat_emissive_factor: torch.Tensor
+    mat_opacity_factor: torch.Tensor
+    mat_metalness_factor: torch.Tensor
+    mat_roughness_factor: torch.Tensor
+    mat_ior: torch.Tensor
+    tex_data: torch.Tensor
+    point_pos: torch.Tensor
+    point_color: torch.Tensor
+    dir_dir: torch.Tensor
+    dir_color: torch.Tensor
+    cam_to_world: torch.Tensor
+    cam_fov: torch.Tensor
+    background: torch.Tensor
+    tri_model: torch.Tensor
+    sph_model: torch.Tensor
+    mat_albedo_tex: torch.Tensor
+    mat_emissive_tex: torch.Tensor
+    mat_opacity_tex: torch.Tensor
+    mat_metalness_tex: torch.Tensor
+    mat_roughness_tex: torch.Tensor
+    mat_normal_tex: torch.Tensor
+    tex_offset: torch.Tensor
+    tex_width: torch.Tensor
+    tex_height: torch.Tensor
+    # --- statics ---
+    all_opaque: bool  # every material has opacity factor >= 1, no texture
+    no_textures: bool
+    no_emissive: bool
+    has_tex: tuple  # (albedo, emissive, opacity, metal, rough, normal)
+    num_real_triangles: int
+    num_real_spheres: int
+    use_bvh: bool
+    sph_use_blocks: bool
+
+    @property
+    def device(self) -> torch.device:
+        return self.tri_v0.device
+
+    @property
+    def num_point_lights(self) -> int:
+        return self.point_pos.shape[0]
+
+    @property
+    def num_dir_lights(self) -> int:
+        return self.dir_dir.shape[0]
+
+
+def from_numpy(fields: dict, statics: dict, device) -> TorchScene:
+    """Carry numpy arrays (e.g. ``np.asarray`` of each field of the JAX
+    package's ``DeviceScene``) onto ``device``. Reads the names in
+    ``ARRAY_FIELDS`` and ``STATIC_FIELDS``, ignores other keys, and checks
+    nothing else, so any scene's tables can be carried across."""
+    kw = {}
+    for name in ARRAY_FIELDS:
+        dtype = np.float32 if name in _FLOAT_FIELDS else np.int32
+        arr = np.array(fields[name], dtype=dtype, order="C")  # a fresh copy
+        kw[name] = torch.from_numpy(arr).to(device)
+    for name in STATIC_FIELDS:
+        value = statics[name]
+        kw[name] = tuple(bool(x) for x in value) if name == "has_tex" else value
+    return TorchScene(**kw)
+
+
+class _AtlasBuilder:
+    """Packs textures into one flat RGB array, deduplicating by path+kind
+    (the same file loaded as RGB and as gray are distinct entries)."""
+
+    def __init__(self, root: Path):
+        self.root = Path(root)
+        self.chunks = [np.zeros((1, 3), np.float32)]  # dummy texel at offset 0
+        self.offsets = [0]
+        self.widths = [1]
+        self.heights = [1]
+        self.next_offset = 1
+        self.cache = {}
+
+    def add(self, rel_path: Optional[str], kind: str) -> int:
+        """Texture id, or -1 if rel_path is None. kind: 'rgb' | 'gray'."""
+        from path_tracer_torch.utils.image_io import (
+            load_texture_gray,
+            load_texture_rgb,
+        )
+
+        if rel_path is None:
+            return -1
+        key = (kind, rel_path)
+        if key in self.cache:
+            return self.cache[key]
+        path = self.root / rel_path
+        if kind == "rgb":
+            img = load_texture_rgb(path)
+        else:
+            img = np.repeat(load_texture_gray(path)[:, :, None], 3, axis=2)
+        h, w = img.shape[:2]
+        tex_id = len(self.offsets)
+        self.chunks.append(img.reshape(h * w, 3).astype(np.float32))
+        self.offsets.append(self.next_offset)
+        self.widths.append(w)
+        self.heights.append(h)
+        self.next_offset += h * w
+        self.cache[key] = tex_id
+        return tex_id
+
+
+def _pad_to(n: int, m: int) -> int:
+    return max(m, ((n + m - 1) // m) * m)
+
+
+def _pack_spheres(centers: np.ndarray, radii: np.ndarray) -> np.ndarray:
+    """[4, S_pad] sphere table padded with guaranteed misses (128-multiple
+    up to 384 spheres, 512-multiple above)."""
+    s = centers.shape[0]
+    s_pad = _pad_to(s, 128) if s <= 384 else _pad_to(s, 512)
+    out = np.full((4, s_pad), 1e30, np.float32)
+    out[3, :] = 0.0
+    out[0:3, :s] = centers.T
+    out[3, :s] = radii
+    return out
+
+
+def build_scene(scene: isf.Scene, root, device) -> TorchScene:
+    """Flatten an ISF scene into device tensors, as ``build_device_scene``
+    of the JAX package does for the fields above.
+
+    Raises NotImplementedError for what later slices of the port bring:
+    non-opaque materials (the alpha and shadow-transmittance walks), scenes
+    of >= 4096 triangles (the BVH walks) and of > 512 spheres (the sphere
+    block walk)."""
+    root = Path(root)
+    if not all(m.material.opacity.factor >= 1.0
+               and m.material.opacity.texture is None for m in scene.models):
+        raise NotImplementedError(
+            "scene has non-opaque materials; alpha transparency comes with "
+            "the transparency slice of the port")
+    meshes = [m for m in scene.models if isinstance(m, isf.Mesh)]
+    n_tris = sum(len(m.triangles) for m in meshes)
+    n_real_sph = len(scene.models) - len(meshes)
+    if n_tris >= BVH_MIN_TRIANGLES:
+        raise NotImplementedError(
+            f"scene has {n_tris} triangles (>= {BVH_MIN_TRIANGLES}: BVH walk); "
+            "the BVH walks come with the flat-BVH slice of the port")
+    if n_real_sph > SPH_BLOCKS_MIN:
+        raise NotImplementedError(
+            f"scene has {n_real_sph} spheres (> {SPH_BLOCKS_MIN}: sphere "
+            "block walk); it comes with a later slice of the port")
+
+    atlas = _AtlasBuilder(root)
+    keys = ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2")
+    tri_rows = {k: [] for k in keys}
+    tri_model = []
+    sph_center, sph_radius, sph_model = [], [], []
+    mats = {k: [] for k in (
+        "albedo_f", "emissive_f", "opacity_f", "metal_f", "rough_f", "ior",
+        "albedo_t", "emissive_t", "opacity_t", "metal_t", "rough_t",
+        "normal_t")}
+    for model_id, model in enumerate(scene.models):
+        m = model.material
+        mats["albedo_f"].append(m.albedo.factor)
+        mats["emissive_f"].append(m.emissive.factor)
+        mats["opacity_f"].append(m.opacity.factor)
+        mats["metal_f"].append(m.metalness.factor)
+        mats["rough_f"].append(m.roughness.factor)
+        mats["ior"].append(m.ior)
+        mats["albedo_t"].append(atlas.add(m.albedo.texture, "rgb"))
+        mats["emissive_t"].append(atlas.add(m.emissive.texture, "rgb"))
+        mats["opacity_t"].append(atlas.add(m.opacity.texture, "gray"))
+        mats["metal_t"].append(atlas.add(m.metalness.texture, "gray"))
+        mats["rough_t"].append(atlas.add(m.roughness.texture, "gray"))
+        mats["normal_t"].append(atlas.add(m.normal_texture, "rgb"))
+        if isinstance(model, isf.Mesh):
+            for v0, v1, v2 in model.triangles:
+                for k, vert in (("0", v0), ("1", v1), ("2", v2)):
+                    tri_rows["v" + k].append(vert.position)
+                    tri_rows["n" + k].append(vert.normal)
+                    tri_rows["uv" + k].append(vert.tex_coords)
+                tri_model.append(model_id)
+        else:
+            sph_center.append(model.center)
+            sph_radius.append(model.radius)
+            sph_model.append(model_id)
+
+    n_pad = _pad_to(n_tris, _TRI_PAD)
+
+    def pad(rows, dim):
+        arr = np.zeros((n_pad, dim), np.float32)
+        if rows:
+            arr[:n_tris] = np.asarray(rows, np.float32)
+        return arr
+
+    v0, v1, v2 = pad(tri_rows["v0"], 3), pad(tri_rows["v1"], 3), pad(tri_rows["v2"], 3)
+    e1 = v1 - v0
+    e2 = v2 - v0
+    uv0, uv1, uv2 = (pad(tri_rows[k], 2) for k in ("uv0", "uv1", "uv2"))
+    n0, n1, n2 = (pad(tri_rows[k], 3) for k in ("n0", "n1", "n2"))
+    # Per-triangle tangent from UV deltas; NaN (degenerate UVs) → 0.
+    du1 = uv1 - uv0
+    du2 = uv2 - uv0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        f = 1.0 / (du1[:, 0] * du2[:, 1] - du2[:, 0] * du1[:, 1])
+        tangent = f[:, None] * (du2[:, 1:2] * e1 - du1[:, 1:2] * e2)
+        tangent = tangent / np.sqrt((tangent * tangent).sum(-1, keepdims=True))
+    tangent = np.where(np.isfinite(tangent), tangent, 0.0).astype(np.float32)
+    tri_model_arr = np.zeros(n_pad, np.int32)
+    tri_model_arr[:n_tris] = np.asarray(tri_model, np.int32).reshape(-1)
+
+    if n_tris:
+        from path_tracer_torch.native import bvh_prim_order
+
+        p0, p1, p2 = v0[:n_tris], v0[:n_tris] + e1[:n_tris], v0[:n_tris] + e2[:n_tris]
+        perm = bvh_prim_order(np.minimum(np.minimum(p0, p1), p2),
+                              np.maximum(np.maximum(p0, p1), p2), leaf_size=4)
+        for arr in (v0, e1, e2, uv0, uv1, uv2, tangent, n0, n1, n2):
+            arr[:n_tris] = arr[:n_tris][perm]
+        tri_model_arr[:n_tris] = tri_model_arr[:n_tris][perm]
+
+    n_sph = max(1, n_real_sph)
+    centers = np.full((n_sph, 3), 1e30, np.float32)
+    radii = np.zeros(n_sph, np.float32)
+    sph_model_arr = np.zeros(n_sph, np.int32)
+    if n_real_sph:
+        centers[:n_real_sph] = np.asarray(sph_center, np.float32)
+        radii[:n_real_sph] = np.asarray(sph_radius, np.float32)
+        sph_model_arr[:n_real_sph] = np.asarray(sph_model, np.int32)
+
+    points = [l for l in scene.lights if isinstance(l, isf.PointLight)]
+    dirs = [l for l in scene.lights if isinstance(l, isf.DirectionalLight)]
+    f32 = lambda x: np.asarray(x, np.float32)
+    fields = dict(
+        tri_v0=v0, tri_e1=e1, tri_e2=e2, tri_n0=n0, tri_n1=n1, tri_n2=n2,
+        tri_uv0=uv0, tri_uv1=uv1, tri_uv2=uv2, tri_tangent=tangent,
+        tri_model=tri_model_arr,
+        tri_packed_t=np.concatenate([v0, e1, e2], axis=1).T,
+        sph_center=centers, sph_radius=radii, sph_model=sph_model_arr,
+        sph_packed_t=_pack_spheres(centers, radii),
+        mat_albedo_factor=f32(mats["albedo_f"]).reshape(-1, 3),
+        mat_emissive_factor=f32(mats["emissive_f"]).reshape(-1, 3),
+        mat_opacity_factor=f32(mats["opacity_f"]),
+        mat_metalness_factor=f32(mats["metal_f"]),
+        mat_roughness_factor=f32(mats["rough_f"]),
+        mat_ior=f32(mats["ior"]),
+        mat_albedo_tex=mats["albedo_t"], mat_emissive_tex=mats["emissive_t"],
+        mat_opacity_tex=mats["opacity_t"], mat_metalness_tex=mats["metal_t"],
+        mat_roughness_tex=mats["rough_t"], mat_normal_tex=mats["normal_t"],
+        tex_data=np.concatenate(atlas.chunks, axis=0),
+        tex_offset=atlas.offsets, tex_width=atlas.widths,
+        tex_height=atlas.heights,
+        point_pos=f32([l.position for l in points]).reshape(-1, 3),
+        point_color=f32([l.color for l in points]).reshape(-1, 3),
+        dir_dir=f32([l.direction for l in dirs]).reshape(-1, 3),
+        dir_color=f32([l.color for l in dirs]).reshape(-1, 3),
+        # ISF stores the COLUMN-major matrix: transpose to row-major.
+        cam_to_world=f32(scene.camera.transform).T,
+        cam_fov=f32(scene.camera.fov),
+        background=f32(scene.background),
+    )
+    statics = dict(
+        all_opaque=True,
+        no_textures=len(atlas.offsets) == 1,
+        no_emissive=all(
+            tuple(m.material.emissive.factor) == (0.0, 0.0, 0.0)
+            and m.material.emissive.texture is None for m in scene.models),
+        has_tex=tuple(any(t >= 0 for t in mats[k]) for k in (
+            "albedo_t", "emissive_t", "opacity_t", "metal_t", "rough_t",
+            "normal_t")),
+        num_real_triangles=n_tris,
+        num_real_spheres=n_real_sph,
+        use_bvh=False,
+        sph_use_blocks=False,
+    )
+    return from_numpy(fields, statics, device)
