@@ -1,0 +1,251 @@
+// Device helpers shared by the flat block-walk kernels and the dense sphere
+// kernel: the one place where the block slab test, the block walk, the
+// Baldwin-Weber (BW) triangle test and the sphere root rules are written.
+//
+// Every expression is written in the order of the plain PyTorch versions
+// (ops/cuda_bvh.py, ops/intersect.py), and the library is built -fmad=false,
+// so each operation rounds as it does there.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace ptt {
+
+constexpr float kDetEps = 1e-6f;  // |d.n| (= |MT det|) cutoff
+constexpr float kTMin = 1e-6f;    // triangle hits need t >= kTMin
+
+// min/max that return NaN when either operand is NaN, as torch.minimum,
+// torch.maximum and jnp.minimum do (fminf would drop the NaN).
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// Reciprocal of a direction component; a zero component gives 1e30, not
+// inf: (bound - o) * inf is NaN when the origin lies on a block plane,
+// which would drop the block (pallas_bvh.py:582-590).
+__device__ __forceinline__ float safe_inv(float x) {
+  return x == 0.f ? 1e30f : 1.0f / x;
+}
+
+// One block AABB: column c of the [8, bpad] table (rows min.xyz, max.xyz).
+struct Box {
+  float x0, y0, z0, x1, y1, z1;
+};
+
+__device__ __forceinline__ Box load_box(const float* __restrict__ blk,
+                                        int bpad, int c) {
+  return Box{blk[c], blk[bpad + c], blk[2 * bpad + c],
+             blk[3 * bpad + c], blk[4 * bpad + c], blk[5 * bpad + c]};
+}
+
+// Slab entry tn and exit tf of one ray (origin o, inverted direction i)
+// against one box.
+__device__ __forceinline__ void slab(const Box& b, float ox, float oy,
+                                     float oz, float ix, float iy, float iz,
+                                     float& tn, float& tf) {
+  const float t0x = (b.x0 - ox) * ix;
+  const float t1x = (b.x1 - ox) * ix;
+  const float t0y = (b.y0 - oy) * iy;
+  const float t1y = (b.y1 - oy) * iy;
+  const float t0z = (b.z0 - oz) * iz;
+  const float t1z = (b.z1 - oz) * iz;
+  tn = max_nan(max_nan(min_nan(t0x, t1x), min_nan(t0y, t1y)),
+               min_nan(t0z, t1z));
+  tf = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)),
+               max_nan(t0z, t1z));
+}
+
+// BW plane test of one triangle (rows n.xyz, c of the BW table at s[0..3]
+// with row stride ld): returns t = (c - o.n) / (d.n) through the
+// reciprocal, and d.n in dn; *ok is false when |d.n| < kDetEps.
+__device__ __forceinline__ float bw_plane(const float* s, int ld, float ox,
+                                          float oy, float oz, float dx,
+                                          float dy, float dz, float& dn,
+                                          bool& ok) {
+  const float n0 = s[0], n1 = s[ld], n2 = s[2 * ld];
+  dn = dx * n0 + dy * n1 + dz * n2;
+  ok = fabsf(dn) >= kDetEps;
+  if (!ok) return 0.f;
+  const float invdn = 1.0f / dn;
+  const float on = ox * n0 + oy * n1 + oz * n2;
+  return (s[3 * ld] - on) * invdn;
+}
+
+// BW barycentrics at the hit point h = o + t d (rows Au.xyz, au at s[4..7],
+// Av.xyz, av at s[8..11]); true when u >= 0, v >= 0 and u + v <= 1.
+__device__ __forceinline__ bool bw_inside(const float* s, int ld, float ox,
+                                          float oy, float oz, float dx,
+                                          float dy, float dz, float t,
+                                          float& u, float& v) {
+  const float hx = ox + t * dx;
+  const float hy = oy + t * dy;
+  const float hz = oz + t * dz;
+  u = hx * s[4 * ld] + hy * s[5 * ld] + hz * s[6 * ld] + s[7 * ld];
+  if (!(u >= 0.f)) return false;
+  v = hx * s[8 * ld] + hy * s[9 * ld] + hz * s[10 * ld] + s[11 * ld];
+  return v >= 0.f && u + v <= 1.f;
+}
+
+// Nearest valid root of one sphere in the reference's centered form
+// oc = o - c (never the expanded |o|^2 - 2 o.c + |c|^2, which cancels for
+// rays that start on a sphere). A root is valid iff >= 0 and > tp; the
+// near root wins, a valid far root alone is an inside hit (*far = true).
+// The roots DIVIDE by 2a, as the plain version does. Returns +inf on a
+// miss; padding spheres (center 1e30, radius 0) overflow to inf/NaN and
+// never hit.
+__device__ __forceinline__ float sphere_nearest(float ox, float oy, float oz,
+                                                float dx, float dy, float dz,
+                                                float a, float two_a,
+                                                float tp, float cx, float cy,
+                                                float cz, float rad,
+                                                bool& far) {
+  const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+  const float b = 2.0f * (ocx * dx + ocy * dy + ocz * dz);
+  const float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  const float disc = b * b - 4.0f * a * cc;
+  far = false;
+  if (!(disc >= 0.f)) return CUDART_INF_F;
+  const float sq = sqrtf(disc);
+  const float t1 = (-b - sq) / two_a;
+  const float t2 = (-b + sq) / two_a;
+  const bool v1 = t1 >= 0.f && t1 > tp;
+  const bool v2 = t2 >= 0.f && t2 > tp;
+  far = !v1;
+  return v1 ? t1 : (v2 ? t2 : CUDART_INF_F);
+}
+
+// CTA-wide reduction of (key, column) to the lexicographic minimum and of
+// m to its maximum; every thread gets the result. red must hold 3 * warps
+// words. Contains two __syncthreads().
+template <int kThreads>
+__device__ __forceinline__ void cta_min_key_max(float& key, int& col,
+                                                float& m, float* red) {
+  constexpr int kWarps = kThreads / 32;
+  for (int off = 16; off > 0; off >>= 1) {
+    const float k2 = __shfl_xor_sync(0xffffffffu, key, off);
+    const int c2 = __shfl_xor_sync(0xffffffffu, col, off);
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
+    if (k2 < key || (k2 == key && c2 < col)) { key = k2; col = c2; }
+    m = fmaxf(m, m2);
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[warp] = key;
+    red[kWarps + warp] = __int_as_float(col);
+    red[2 * kWarps + warp] = m;
+  }
+  __syncthreads();
+  key = red[0];
+  col = __float_as_int(red[kWarps]);
+  m = red[2 * kWarps];
+  for (int w = 1; w < kWarps; ++w) {
+    const float k2 = red[w];
+    const int c2 = __float_as_int(red[kWarps + w]);
+    if (k2 < key || (k2 == key && c2 < col)) { key = k2; col = c2; }
+    m = fmaxf(m, red[2 * kWarps + w]);
+  }
+  __syncthreads();
+}
+
+// The block walk shared by the flat closest hit and the flat any-hit. A CTA
+// of kCtaRays consecutive rays shares one walk; its dynamic shared memory is
+// s_bw [12][block] (one staged block), s_key [bpad] (nearest slab entry per
+// column) and s_ray [kRayRows][kCtaRays] (origin, inverted direction and
+// the lane's gate value g: t_prev for the closest hit, t_max for the
+// any-hit). A Gate has live(g), whether a lane takes part, and
+// pass(tn, tf, g), the block slab gate of a live lane.
+constexpr int kCtaRays = 128;
+constexpr int kRayRows = 7;  // ox, oy, oz, 1/dx, 1/dy, 1/dz, g
+
+// Dynamic shared memory of a walk over 'block'-slot blocks and bpad
+// columns; raises the kernel's limit when it exceeds the default 48 KB.
+template <class Kernel>
+inline cudaError_t walk_smem(Kernel kernel, int block, int bpad,
+                             size_t& bytes) {
+  bytes = (size_t)(12 * block + bpad + kRayRows * kCtaRays) * sizeof(float);
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Writes this thread's ray into s_ray, then waits for the whole CTA.
+__device__ __forceinline__ void stage_ray(float* s_ray, float ox, float oy,
+                                          float oz, float ix, float iy,
+                                          float iz, float g) {
+  const int t = threadIdx.x;
+  s_ray[0 * kCtaRays + t] = ox;
+  s_ray[1 * kCtaRays + t] = oy;
+  s_ray[2 * kCtaRays + t] = oz;
+  s_ray[3 * kCtaRays + t] = ix;
+  s_ray[4 * kCtaRays + t] = iy;
+  s_ray[5 * kCtaRays + t] = iz;
+  s_ray[6 * kCtaRays + t] = g;
+  __syncthreads();
+}
+
+// s_key[c] = the nearest slab entry, clamped at 0, over the CTA's live
+// lanes whose gate column c passes (+inf for none and for pad columns);
+// then waits for the whole CTA.
+template <class Gate>
+__device__ __forceinline__ void column_keys(const float* __restrict__ blk,
+                                            const int* __restrict__ blkid,
+                                            int bpad, const float* s_ray,
+                                            float* s_key, Gate gate) {
+  for (int c = threadIdx.x; c < bpad; c += kCtaRays) {
+    float key = CUDART_INF_F;
+    if (blkid[c] >= 0) {
+      const Box box = load_box(blk, bpad, c);
+      for (int k = 0; k < kCtaRays; ++k) {
+        const float g = s_ray[6 * kCtaRays + k];
+        if (!gate.live(g)) continue;
+        float tn, tf;
+        slab(box, s_ray[k], s_ray[kCtaRays + k], s_ray[2 * kCtaRays + k],
+             s_ray[3 * kCtaRays + k], s_ray[4 * kCtaRays + k],
+             s_ray[5 * kCtaRays + k], tn, tf);
+        if (gate.pass(tn, tf, g)) key = fminf(key, max_nan(tn, 0.f));
+      }
+    }
+    s_key[c] = key;
+  }
+  __syncthreads();
+}
+
+// The unvisited column of nearest entry (key, col; col = bpad when none is
+// left), marked visited, and the CTA maximum of m. The caller reaches a
+// barrier before s_key is read again.
+__device__ __forceinline__ void next_column(float* s_key, int bpad,
+                                            float& key, int& col, float& m,
+                                            float* red) {
+  key = CUDART_INF_F;
+  col = bpad;
+  for (int c = threadIdx.x; c < bpad; c += kCtaRays) {
+    const float k = s_key[c];
+    if (k < key) { key = k; col = c; }
+  }
+  cta_min_key_max<kCtaRays>(key, col, m, red);
+  if (threadIdx.x == 0 && col < bpad) s_key[col] = CUDART_INF_F;
+}
+
+// Stages the 12 used BW rows of block b (columns [b*block, (b+1)*block) of
+// the [16, n_cols] table) into s_bw, then waits for the whole CTA.
+__device__ __forceinline__ void stage_block(const float* __restrict__ bw,
+                                            int b, int block, int n_cols,
+                                            float* s_bw) {
+  const float* src = bw + (size_t)b * block;
+  for (int idx = threadIdx.x; idx < 12 * block; idx += kCtaRays) {
+    const int r = idx / block;
+    s_bw[idx] = src[(size_t)r * n_cols + (idx - r * block)];
+  }
+  __syncthreads();
+}
+
+}  // namespace ptt

@@ -23,8 +23,8 @@
 // Inputs:  o, d [R,3] f32; t_prev [R] f32; sph [4,S] f32 rows (cx, cy, cz, r).
 // Outputs: fout [2,R] f32 rows (t, backface 0/1); iout [R] i32 prim.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "flat_common.cuh"  // sphere_nearest: the root rules, shared with
+                             // the fused sphere pass of flat_closest_hit.cu
 
 namespace {
 
@@ -63,20 +63,12 @@ sphere_closest_hit_kernel(const float* __restrict__ o,
     __syncthreads();
     if (!live) continue;
     for (int j = 0; j < n; ++j) {
-      const float ocx = ox - s[0][j], ocy = oy - s[1][j], ocz = oz - s[2][j];
-      const float rad = s[3][j];
-      const float b = 2.0f * (ocx * dx + ocy * dy + ocz * dz);
-      const float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-      const float disc = b * b - 4.0f * a * cc;
-      if (!(disc >= 0.f)) continue;
-      const float sq = sqrtf(disc);
-      const float t1 = (-b - sq) / two_a;
-      const float t2 = (-b + sq) / two_a;
-      const bool v1 = t1 >= 0.f && t1 > tp;
-      const bool v2 = t2 >= 0.f && t2 > tp;
-      const float t_near = v1 ? t1 : (v2 ? t2 : CUDART_INF_F);
+      bool far;
+      const float t_near = ptt::sphere_nearest(ox, oy, oz, dx, dy, dz, a,
+                                               two_a, tp, s[0][j], s[1][j],
+                                               s[2][j], s[3][j], far);
       if (t_near < bt) {
-        bt = t_near; bb = v1 ? 0.f : 1.f; bi = base + j;
+        bt = t_near; bb = far ? 1.f : 0.f; bi = base + j;
       }
     }
   }

@@ -1,7 +1,7 @@
 """Wavefront unidirectional Monte Carlo path-tracing integrator.
 
 Port of ``path_tracer_tpu/models/integrator.py`` for fully opaque scenes
-on the brute-force intersection path. Path state lives in [R]-batched
+(brute-force and flat-BVH intersection). Path state lives in [R]-batched
 tensors over a ray wavefront; the JAX package's ``lax.scan`` over bounces
 is a Python loop here (PyTorch runs eagerly).
 
@@ -12,7 +12,10 @@ Semantics reproduced exactly (reference quirks included):
   color + throughput*background.
 - All-opaque alpha walk: every visited hit accepts (op >= 1 short-circuits
   the stochastic test), so the walk is exactly ONE closest-hit cast with no
-  opacity sampling or rng draw; shadow attenuation is a binary any-hit.
+  opacity sampling or rng draw; shadow attenuation is a binary any-hit,
+  cast for every light at once per bounce (``occluded_multi``: one
+  any-hit launch on BVH scenes, light by light on brute-force scenes),
+  directional lights first, then point lights, as in the JAX package.
 - Emissive adds throughput*emissive each bounce, and AGAIN inside
   eval_direct scaled by light radiance (reference quirk).
 - Point lights: radiance = color/(4*pi*r^2); only occluders nearer to the
@@ -45,7 +48,7 @@ from path_tracer_torch.ops.intersect import (
     KIND_TRIANGLE,
     HitRecord,
     closest_hit,
-    occluded,
+    occluded_multi,
 )
 
 NORMAL_BIAS = 1e-5
@@ -79,7 +82,8 @@ def _dot(a, b):
 
 def _require_opaque(scene):
     """The alpha and shadow-transmittance walks are a later slice (the
-    intersection dispatch refuses the BVH and sphere-block scenes)."""
+    intersection dispatch refuses the flat2-sized BVH and sphere-block
+    scenes)."""
     if not scene.all_opaque:
         raise NotImplementedError(
             "scene has non-opaque materials; the alpha and shadow-"
@@ -179,16 +183,15 @@ def _alpha_walk(scene, o, d, walking):
     return sel, found, walking & ~found
 
 
-def _shadow_attenuation(scene, s_o, s_d, active, light_color,
-                        point_dist=None, surf_pos=None):
+def _shadow_attenuation(active, light_color, blocked):
     """All-opaque shadow attenuation: every occluder multiplies by
     (1 - 1) = 0, so it is the light color where no occluder (within range,
-    for point lights) blocks the ray, else 0."""
+    for point lights) blocks the ray, else 0. ``blocked`` is the light's
+    any-hit result from ``occluded_multi``."""
     att0 = torch.where(active[:, None],
                        torch.as_tensor(light_color, dtype=torch.float32,
-                                       device=s_o.device).expand_as(s_o), 0.0)
-    blocked = occluded(s_o, s_d, scene, surf_pos=surf_pos,
-                       max_dist=point_dist, active=active)
+                                       device=active.device)
+                       .expand(active.shape[0], 3), 0.0)
     return torch.where(blocked[:, None], 0.0, att0)
 
 
@@ -239,28 +242,35 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
                 facing = facing | emissive_lane
             return alive & facing
 
-        # Directional lights.
-        for li in range(scene.num_dir_lights):
-            to_light = (-scene.dir_dir[li]).expand_as(d)  # raw, unnormalized
-            radiance = _shadow_attenuation(
-                scene, shadow_o, to_light, shadow_active(to_light),
-                scene.dir_color[li])
-            lit = alive & (radiance.sum(-1) != 0.0)
-            ev = brdf.eval_direct(mat, f0, surf.normal, view, to_light)
-            color = torch.where(lit[:, None],
-                                color + throughput * ev * radiance, color)
-
-        # Point lights.
+        # Every light's shadow cast in one call: directional lights (raw,
+        # unnormalized direction), then point lights (toward the light).
+        n_dir = scene.num_dir_lights
+        dists = []
+        to_lights = [(-scene.dir_dir[li]).expand_as(d) for li in range(n_dir)]
         for li in range(scene.num_point_lights):
             to_surf = surf.pos - scene.point_pos[li]
             dist = torch.sqrt((to_surf * to_surf).sum(-1))
-            ldir = to_surf / dist[:, None]  # light → surface
-            dissipated = scene.point_color[li] / (4.0 * PI * dist * dist)[:, None]
-            radiance = _shadow_attenuation(
-                scene, shadow_o, -ldir, shadow_active(-ldir), 1.0,
-                point_dist=dist, surf_pos=surf.pos) * dissipated
+            to_lights.append(-(to_surf / dist[:, None]))
+            dists.append(dist)
+        actives = [shadow_active(ld) for ld in to_lights]
+        blocked = (occluded_multi(shadow_o, to_lights, scene,
+                                  surf_pos=surf.pos,
+                                  max_dists=[None] * n_dir + dists,
+                                  actives=actives) if to_lights else [])
+
+        for li, to_light in enumerate(to_lights):
+            if li < n_dir:
+                radiance = _shadow_attenuation(actives[li],
+                                               scene.dir_color[li],
+                                               blocked[li])
+            else:
+                dist = dists[li - n_dir]
+                dissipated = (scene.point_color[li - n_dir]
+                              / (4.0 * PI * dist * dist)[:, None])
+                radiance = _shadow_attenuation(actives[li], 1.0,
+                                               blocked[li]) * dissipated
             lit = alive & (radiance.sum(-1) != 0.0)
-            ev = brdf.eval_direct(mat, f0, surf.normal, view, -ldir)
+            ev = brdf.eval_direct(mat, f0, surf.normal, view, to_light)
             color = torch.where(lit[:, None],
                                 color + throughput * ev * radiance, color)
 

@@ -5,11 +5,13 @@ Both are plain-C-ABI shared libraries loaded with ``ctypes`` and cached in
 flags, so a fresh checkout builds them on first call and later processes
 reuse the files.
 
-- ``bvh_prim_order`` compiles the JAX package's ``native/bvh.cpp`` with the
+- ``build_bvh`` compiles the JAX package's ``native/bvh.cpp`` with the
   same ``g++`` flags (``path_tracer_tpu/native/build.py``) and returns the
-  binned-SAH leaf order the JAX scene builder stores every triangle array
-  in. The source file is read by path; no module of the JAX package is
-  imported.
+  whole flattened binned-SAH BVH (``Bvh``): the leaf-4 tree gives the
+  order the scene builder stores every triangle array in, the superleaf
+  tree (one leaf per block of ``sl_block`` triangles) gives the flat
+  walk's block tables. The source file is read by path; no module of the
+  JAX package is imported.
 - ``kernels`` compiles ``csrc/*.cu`` with ``nvcc`` for ``sm_90a``. No
   ``--use_fast_math``: the 1e-6 intersection cutoffs and the sphere table's
   1e30 padding rely on IEEE division, sqrt and denormals. ``-fmad=false``
@@ -29,6 +31,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -72,9 +75,19 @@ def _cached_build(name: str, sources: list[Path], cmd) -> tuple[Path, str]:
     return so_path, proc.stdout + proc.stderr
 
 
-def bvh_prim_order(bb_min: np.ndarray, bb_max: np.ndarray,
-                   leaf_size: int = 4) -> np.ndarray:
-    """Leaf order [n] int32 of the binned-SAH BVH over n primitive AABBs."""
+class Bvh(NamedTuple):
+    """Flattened skip-pointer BVH (DFS order; hit -> i+1, miss -> skip[i]),
+    as ``path_tracer_tpu/native/build.py`` returns it."""
+
+    node_min: np.ndarray  # [N,3] f32
+    node_max: np.ndarray  # [N,3] f32
+    first_prim: np.ndarray  # [N] i32 (leaves; 0 for internal)
+    prim_count: np.ndarray  # [N] i32 (0 for internal nodes)
+    skip: np.ndarray  # [N] i32 escape index (N at the root tail)
+    prim_order: np.ndarray  # [n_prims] i32 permutation into the input prims
+
+
+def _bvh_library() -> ctypes.CDLL:
     global _bvh_lib
     if _bvh_lib is None:
         path, _ = _cached_build(
@@ -87,6 +100,13 @@ def bvh_prim_order(bb_min: np.ndarray, bb_max: np.ndarray,
         lib.ptt_build_bvh.argtypes = [f32p, f32p, ctypes.c_int, ctypes.c_int,
                                       f32p, f32p, i32p, i32p, i32p, i32p]
         _bvh_lib = lib
+    return _bvh_lib
+
+
+def build_bvh(bb_min: np.ndarray, bb_max: np.ndarray,
+              leaf_size: int = 4) -> Bvh:
+    """Binned-SAH BVH over n primitive AABBs ([n,3] f32 min/max)."""
+    lib = _bvh_library()
     bb_min = np.ascontiguousarray(bb_min, np.float32)
     bb_max = np.ascontiguousarray(bb_max, np.float32)
     n = bb_min.shape[0]
@@ -95,13 +115,17 @@ def bvh_prim_order(bb_min: np.ndarray, bb_max: np.ndarray,
     cap = 2 * n
     node_min = np.empty((cap, 3), np.float32)
     node_max = np.empty((cap, 3), np.float32)
-    ints = [np.empty(cap, np.int32) for _ in range(3)]
+    first_prim, prim_count, skip = (np.empty(cap, np.int32) for _ in range(3))
     order = np.empty(n, np.int32)
-    n_nodes = _bvh_lib.ptt_build_bvh(bb_min, bb_max, n, int(leaf_size),
-                                     node_min, node_max, *ints, order)
+    n_nodes = lib.ptt_build_bvh(bb_min, bb_max, n, int(leaf_size), node_min,
+                                node_max, first_prim, prim_count, skip, order)
     if not 0 < n_nodes <= cap:
         raise RuntimeError(f"BVH build returned {n_nodes} nodes for {n} prims")
-    return order
+    return Bvh(node_min=node_min[:n_nodes].copy(),
+               node_max=node_max[:n_nodes].copy(),
+               first_prim=first_prim[:n_nodes].copy(),
+               prim_count=prim_count[:n_nodes].copy(),
+               skip=skip[:n_nodes].copy(), prim_order=order)
 
 
 def _nvcc() -> str:
@@ -140,6 +164,15 @@ def kernels() -> Kernels:
         for fn in (lib.ptt_mt_closest_hit, lib.ptt_sphere_closest_hit):
             fn.restype = ci
             fn.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, ci, vp]
+        # (o, d, t_prev, blkflat, blkid, bw, sph, R, bpad, block, n_cols, S,
+        #  sph_row_base, fout, iout, device, stream)
+        lib.ptt_flat_closest_hit.restype = ci
+        lib.ptt_flat_closest_hit.argtypes = [vp] * 7 + [ci] * 6 + [vp, vp,
+                                                                  ci, vp]
+        # (o, d, t_max, blkflat, blkid, bw, R, L, bpad, block, n_cols, out,
+        #  device, stream)
+        lib.ptt_flat_occluded.restype = ci
+        lib.ptt_flat_occluded.argtypes = [vp] * 6 + [ci] * 5 + [vp, ci, vp]
         _kernels = Kernels(lib, seconds, log)
     return _kernels
 
@@ -185,3 +218,87 @@ def launch_closest_hit(fn: str, o, d, t_prev, table, table_rows: int,
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return fout, iout
+
+
+def _check_flat_tables(fn: str, blkflat, blkid, bw, block: int, device):
+    """The superleaf tables a flat kernel reads; returns (bpad, n_cols)."""
+    bpad = blkflat.shape[1] if blkflat.dim() == 2 else -1
+    n_cols = bw.shape[1] if bw.dim() == 2 else -1
+    _check("blkflat", blkflat, (8, bpad), torch.float32, device)
+    _check("blkid", blkid, (1, bpad), torch.int32, device)
+    _check("bw", bw, (16, n_cols), torch.float32, device)
+    if block <= 0 or n_cols % block:
+        raise ValueError(f"{fn}: bw has {n_cols} columns, not a multiple of "
+                         f"the block size {block}")
+    if 16 * n_cols >= 2**31:
+        raise ValueError(f"{fn}: {n_cols} BW columns exceed int32 indexing")
+    return bpad, n_cols
+
+
+def launch_flat_closest_hit(o, d, t_prev, blkflat, blkid, bw, block: int,
+                            sph=None, sph_row_base: int = 0):
+    """Check the operands of the flat closest-hit kernel, allocate its
+    outputs and launch it on the current stream (no synchronisation).
+
+    o, d: [R,3] f32; t_prev: [R] f32; blkflat [8,Bpad] f32, blkid [1,Bpad]
+    i32, bw [16, n_blocks*block] f32; sph: None or [4,S] f32 (the fused
+    sphere pass). Returns (fout [4 or 5, R] f32, iout [R] i32)."""
+    fn = "ptt_flat_closest_hit"
+    device = o.device
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
+    r = o.shape[0]
+    _check("o", o, (r, 3), torch.float32, device)
+    _check("d", d, (r, 3), torch.float32, device)
+    _check("t_prev", t_prev, (r,), torch.float32, device)
+    bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
+    n_sph = 0
+    if sph is not None:
+        n_sph = sph.shape[1] if sph.dim() == 2 else -1
+        _check("sph", sph, (4, n_sph), torch.float32, device)
+    if 5 * r >= 2**31:
+        raise ValueError(f"{fn}: {r} rays exceed int32 indexing")
+    lib = kernels().lib
+    fout = torch.empty((5 if n_sph else 4, r), dtype=torch.float32,
+                       device=device)
+    iout = torch.empty((r,), dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.ptt_flat_closest_hit(
+        o.data_ptr(), d.data_ptr(), t_prev.data_ptr(), blkflat.data_ptr(),
+        blkid.data_ptr(), bw.data_ptr(), sph.data_ptr() if n_sph else None,
+        r, bpad, block, n_cols, n_sph, sph_row_base, fout.data_ptr(),
+        iout.data_ptr(), device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    return fout, iout
+
+
+def launch_flat_occluded(o, ds, t_maxes, blkflat, blkid, bw, block: int):
+    """Check the operands of the flat any-hit kernel, allocate its output
+    and launch it on the current stream (no synchronisation).
+
+    o: [R,3] f32; ds: [L,R,3] f32; t_maxes: [L,R] f32 (< 0 = dead lane);
+    tables as for ``launch_flat_closest_hit``. Returns out [L,R] f32
+    (1 = occluded or dead)."""
+    fn = "ptt_flat_occluded"
+    device = o.device
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
+    r = o.shape[0]
+    n_sets = ds.shape[0] if ds.dim() == 3 else -1
+    _check("o", o, (r, 3), torch.float32, device)
+    _check("ds", ds, (n_sets, r, 3), torch.float32, device)
+    _check("t_maxes", t_maxes, (n_sets, r), torch.float32, device)
+    bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
+    if not 0 < n_sets < 65536 or 3 * n_sets * r >= 2**31:
+        raise ValueError(f"{fn}: {n_sets} sets x {r} rays out of range")
+    lib = kernels().lib
+    out = torch.empty((n_sets, r), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.ptt_flat_occluded(
+        o.data_ptr(), ds.data_ptr(), t_maxes.data_ptr(), blkflat.data_ptr(),
+        blkid.data_ptr(), bw.data_ptr(), r, n_sets, bpad, block, n_cols,
+        out.data_ptr(), device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    return out

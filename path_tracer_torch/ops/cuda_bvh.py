@@ -1,0 +1,238 @@
+"""Flat superleaf block walk: closest hit and batched any-hit, the CUDA
+kernels' wrappers and their plain PyTorch versions.
+
+Counterpart of the flat half of ``path_tracer_tpu/ops/pallas_bvh.py``:
+
+- ``csrc/flat_closest_hit.cu`` replaces ``pallas_bvh._flat_kernel``
+  (entry ``closest_hit_triangles_flat``), with its fused dense sphere pass;
+- ``csrc/flat_occluded.cu`` replaces ``pallas_bvh._flat_occ_kernel`` and
+  ``flat_occ_set`` (entries ``occluded_triangles_flat[_multi]``).
+
+They serve every scene with ``use_bvh`` and at most ``FLAT_MAX_BLOCKS``
+superleaf blocks (``ops/intersect.py`` dispatches). Bound on the card:
+arithmetic in the dense Baldwin-Weber visits of the blocks a ray's slab
+test admits; see the sources for the design.
+
+Semantics (kernel and plain version alike):
+
+- block gate: slab entry tn and exit tf of the block AABB, with zero
+  direction components inverted to 1e30; closest hit needs
+  tf >= max(tn, 0) and tf > t_prev, any-hit tf >= max(tn, 0),
+  tn <= t_max and t_max >= 0; pad columns (block id < 0) never pass;
+- Baldwin-Weber test per packed slot: |d.n| >= 1e-6,
+  t = (c - o.n) * (1 / d.n), u = Au.h + au, v = Av.h + av on h = o + t d,
+  u >= 0, v >= 0, u + v <= 1; closest hit keeps t >= 1e-6 and t > t_prev
+  (backface = d.n > 0), any-hit 1e-6 <= t <= t_max;
+- TIE RULE: the smallest t wins, among equal t the lowest packed slot;
+- dead lanes: t_prev = +inf (closest hit, all-miss record) and
+  t_max < 0 (any-hit, reported occluded for the caller to mask).
+
+The plain versions visit every block a lane's slab test admits, in column
+order, with no best-t pruning; the kernel also prunes blocks whose entry
+lies beyond the lane's best t. The two can differ only where rounding puts
+a hit a few ulps before its block's slab entry, at a near-tie.
+"""
+from __future__ import annotations
+
+import torch
+
+from path_tracer_torch import native
+from path_tracer_torch.ops.intersect import (
+    DET_EPS,
+    KIND_NONE,
+    KIND_SPHERE,
+    KIND_TRIANGLE,
+    T_MIN,
+    HitRecord,
+    _ray_chunks,
+    closest_hit_spheres,
+)
+
+# Kernel launches made by the wrappers in this process.
+closest_hit_launches = 0
+occluded_launches = 0
+
+
+def _safe_inv(d):
+    zero = d == 0.0
+    return torch.where(zero, 1e30, 1.0 / torch.where(zero, 1.0, d))
+
+
+def _slab(o, inv, blkflat):
+    """Slab entry and exit [R, Bpad] of every ray against every block."""
+    t0 = [(blkflat[k][None, :] - o[:, k:k + 1]) * inv[:, k:k + 1]
+          for k in range(3)]
+    t1 = [(blkflat[3 + k][None, :] - o[:, k:k + 1]) * inv[:, k:k + 1]
+          for k in range(3)]
+    lo = [torch.minimum(a, b) for a, b in zip(t0, t1)]
+    hi = [torch.maximum(a, b) for a, b in zip(t0, t1)]
+    tn = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
+    tf = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
+    return tn, tf
+
+
+def _bw_test(o, d, rows):
+    """Baldwin-Weber test of [n] rays against one block's [16, block] rows:
+    (t, u, v, dn, ok) each [n, block], ``ok`` before the caller's t range."""
+    def dot(v, r0):
+        return (v[:, 0:1] * rows[r0] + v[:, 1:2] * rows[r0 + 1]
+                + v[:, 2:3] * rows[r0 + 2])
+
+    dn = dot(d, 0)
+    ok = dn.abs() >= DET_EPS
+    invdn = 1.0 / torch.where(ok, dn, 1.0)
+    t = (rows[3] - dot(o, 0)) * invdn
+    h = [o[:, k:k + 1] + t * d[:, k:k + 1] for k in range(3)]
+    u = h[0] * rows[4] + h[1] * rows[5] + h[2] * rows[6] + rows[7]
+    v = h[0] * rows[8] + h[1] * rows[9] + h[2] * rows[10] + rows[11]
+    ok = ok & (t >= T_MIN) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+    return t, u, v, dn, ok
+
+
+def _block_rows(scene, col: int):
+    """(first packed slot, [16, block] BW rows) of block column ``col``."""
+    bid = int(scene.sl_blkid[0, col])
+    start = bid * scene.sl_block
+    return start, scene.sl_bw_t[:, start:start + scene.sl_block]
+
+
+def _live_columns(gate):
+    """Columns of a [R, Bpad] gate some lane passes (one host sync)."""
+    return torch.nonzero(gate.any(dim=0))[:, 0].tolist()
+
+
+def _flat_walk_plain(o, d, t_prev, scene):
+    """The plain flat walk → (t, u, v, backface, slot), each [R] (slot -1
+    and t = +inf on a miss)."""
+    valid_col = (scene.sl_blkid[0] >= 0)[None, :]
+    parts = []
+    for rs in _ray_chunks(o.shape[0]):
+        oc, dc, tpc = o[rs], d[rs], t_prev[rs]
+        r = oc.shape[0]
+        tn, tf = _slab(oc, _safe_inv(dc), scene.sl_blkflat)
+        gate = ((tf >= torch.maximum(tn, torch.zeros_like(tn)))
+                & (tf > tpc[:, None]) & valid_col)
+        bt = torch.full((r,), float("inf"), device=o.device)
+        bi = torch.full((r,), -1, dtype=torch.int32, device=o.device)
+        bu = torch.zeros((r,), device=o.device)
+        bv = torch.zeros((r,), device=o.device)
+        bb = torch.zeros((r,), dtype=torch.bool, device=o.device)
+        for col in _live_columns(gate):
+            lanes = torch.nonzero(gate[:, col])[:, 0]
+            start, rows = _block_rows(scene, col)
+            t, u, v, dn, ok = _bw_test(oc[lanes], dc[lanes], rows)
+            t = torch.where(ok & (t > tpc[lanes][:, None]), t, float("inf"))
+            tj, j = t.min(dim=1)  # first (lowest) slot among equal minima
+            jj = j[:, None]
+            slot = (j + start).to(torch.int32)
+            cur_t, cur_i = bt[lanes], bi[lanes]
+            better = (tj < cur_t) | ((tj == cur_t) & (slot < cur_i))
+            bt[lanes] = torch.where(better, tj, cur_t)
+            bi[lanes] = torch.where(better, slot, cur_i)
+            bu[lanes] = torch.where(better, u.gather(1, jj)[:, 0], bu[lanes])
+            bv[lanes] = torch.where(better, v.gather(1, jj)[:, 0], bv[lanes])
+            bb[lanes] = torch.where(better, dn.gather(1, jj)[:, 0] > 0.0,
+                                    bb[lanes])
+        parts.append((bt, bu, bv, bb, bi))
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def occluded_triangles_flat_plain(o, d, t_max, scene):
+    """Plain version of the flat any-hit → [R] bool (dead lanes True)."""
+    valid_col = (scene.sl_blkid[0] >= 0)[None, :]
+    parts = []
+    for rs in _ray_chunks(o.shape[0]):
+        oc, dc, tmc = o[rs], d[rs], t_max[rs]
+        tn, tf = _slab(oc, _safe_inv(dc), scene.sl_blkflat)
+        gate = ((tf >= torch.maximum(tn, torch.zeros_like(tn)))
+                & (tn <= tmc[:, None]) & (tmc >= 0.0)[:, None] & valid_col)
+        occ = tmc < 0.0
+        for col in _live_columns(gate):
+            lanes = torch.nonzero(gate[:, col] & ~occ)[:, 0]
+            if lanes.numel() == 0:
+                continue
+            _, rows = _block_rows(scene, col)
+            t, _, _, _, ok = _bw_test(oc[lanes], dc[lanes], rows)
+            occ[lanes] = (ok & (t <= tmc[lanes][:, None])).any(dim=1)
+        parts.append(occ)
+    return torch.cat(parts)
+
+
+def _record(t, u, v, back, slot, kind, scene) -> HitRecord:
+    """HitRecord of a flat cast: ``prim`` is the global triangle id
+    (``sl_map`` of the packed slot) or, on sphere lanes, the sphere index."""
+    kind = kind.to(torch.int32)
+    n_slots = scene.sl_map.shape[0]
+    tri_prim = torch.where(
+        (slot >= 0) & (slot < n_slots),
+        scene.sl_map[torch.clamp(slot, 0, n_slots - 1).long()], -1)
+    prim = torch.where(kind == KIND_SPHERE, slot - scene.sph_row_base,
+                       tri_prim).to(torch.int32)
+    return HitRecord(t=t, kind=kind, prim=prim, u=u, v=v, backface=back)
+
+
+def closest_hit_triangles_flat_plain(o, d, t_prev, scene,
+                                     spheres: bool = False) -> HitRecord:
+    """Plain version of ``closest_hit_triangles_flat``, on any device: the
+    walk, and with ``spheres`` the dense sphere cast merged after it."""
+    t, u, v, back, slot = _flat_walk_plain(o, d, t_prev, scene)
+    kind = torch.where(torch.isfinite(t), KIND_TRIANGLE, KIND_NONE)
+    if spheres:
+        sph = closest_hit_spheres(o, d, t_prev, scene)
+        wins = sph.t < t  # the triangle wins ties
+        t = torch.where(wins, sph.t, t)
+        u = torch.where(wins, 0.0, u)
+        v = torch.where(wins, 0.0, v)
+        back = torch.where(wins, sph.backface, back)
+        slot = torch.where(wins, scene.sph_row_base + sph.prim, slot)
+        kind = torch.where(wins, KIND_SPHERE, kind)
+    return _record(t, u, v, back, slot, kind, scene)
+
+
+def occluded_triangles_flat_multi_plain(o, ds, t_maxes, scene):
+    """Plain version of ``occluded_triangles_flat_multi``: [L,R] bool."""
+    return torch.stack([occluded_triangles_flat_plain(o, d, tm, scene)
+                        for d, tm in zip(ds, t_maxes)])
+
+
+def closest_hit_triangles_flat(o, d, t_prev, scene,
+                               spheres: bool = False) -> HitRecord:
+    """Closest hit over the superleaf blocks; with ``spheres`` the dense
+    sphere pass too, merged (a sphere wins only on a strictly smaller t).
+
+    o, d: [R,3] f32; t_prev: [R] f32 (+inf marks a dead lane). CUDA tensors
+    launch the kernel (or raise); CPU tensors take the plain version."""
+    global closest_hit_launches
+    if o.device.type == "cpu":
+        return closest_hit_triangles_flat_plain(o, d, t_prev, scene, spheres)
+    fout, slot = native.launch_flat_closest_hit(
+        o, d, t_prev, scene.sl_blkflat, scene.sl_blkid, scene.sl_bw_t,
+        scene.sl_block, sph=scene.sph_packed_t if spheres else None,
+        sph_row_base=scene.sph_row_base)
+    closest_hit_launches += 1
+    t = fout[0]
+    kind = (fout[4] if spheres
+            else torch.where(torch.isfinite(t), KIND_TRIANGLE, KIND_NONE))
+    return _record(t, fout[1], fout[2], fout[3] != 0.0, slot, kind, scene)
+
+
+def occluded_triangles_flat_multi(o, ds, t_maxes, scene) -> torch.Tensor:
+    """Any-hit for L direction sets sharing one origin set, in one launch.
+
+    o: [R,3]; ds: list of L [R,3]; t_maxes: list of L [R] (< 0 marks a dead
+    lane, reported occluded). Returns [L,R] bool. CUDA tensors launch the
+    kernel (or raise); CPU tensors take the plain version, set by set."""
+    global occluded_launches
+    if o.device.type == "cpu":
+        return occluded_triangles_flat_multi_plain(o, ds, t_maxes, scene)
+    out = native.launch_flat_occluded(
+        o.contiguous(), torch.stack(list(ds)).contiguous(),
+        torch.stack(list(t_maxes)).contiguous(), scene.sl_blkflat,
+        scene.sl_blkid, scene.sl_bw_t, scene.sl_block)
+    occluded_launches += 1
+    return out > 0.0
+
+
+def occluded_triangles_flat(o, d, t_max, scene) -> torch.Tensor:
+    """[R] bool any-hit: the multi-set launch with one set."""
+    return occluded_triangles_flat_multi(o, [d], [t_max], scene)[0]

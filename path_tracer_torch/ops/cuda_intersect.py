@@ -4,7 +4,8 @@ Counterpart of ``path_tracer_tpu/ops/pallas_intersect.py``: the kernel
 ``csrc/mt_closest_hit.cu`` replaces ``pallas_intersect._kernel`` (entry
 ``closest_hit_triangles_pallas``). It serves every scene under the BVH
 threshold (4,096 triangles), for the closest hit and, through
-``intersect.occluded``, the shadow cast's nearest-hit check.
+``intersect.occluded_multi`` (light by light), the shadow cast's
+nearest-hit check.
 
 Bound on the card: arithmetic — about 30 flops and one IEEE reciprocal per
 ray-triangle test, R*N tests; the [9, N] table is a broadcast read. The

@@ -1,6 +1,7 @@
 """Closest-hit and any-hit intersection over the flat scene SoA.
 
-Port of ``path_tracer_tpu/ops/intersect.py`` for the brute-force slice.
+Port of ``path_tracer_tpu/ops/intersect.py`` for the opaque slices: brute
+force under the BVH threshold, the flat superleaf block walk above it.
 
 Semantics:
 - Möller-Trumbore with det cutoff 1e-6, no backface culling, u in [0,1],
@@ -12,10 +13,19 @@ Semantics:
 ``moller_trumbore``, ``closest_hit_triangles`` and ``closest_hit_spheres``
 are the plain PyTorch versions: the port of the jnp reference path, used for
 tensors on the CPU and as the reference the CUDA kernels are held against.
-``closest_hit`` and ``occluded`` dispatch on the tensors' device: CUDA
-tensors go to the hand-written kernels (``cuda_intersect``,
-``cuda_spheres``), CPU tensors to the plain versions. Sphere any-hit stays
-plain torch on both, as it stays XLA in the JAX package.
+``closest_hit``, ``occluded`` and ``occluded_multi`` dispatch on the scene
+and the tensors' device:
+
+- brute-force scenes (``use_bvh`` False): ``cuda_intersect`` (MT) and
+  ``cuda_spheres``; shadows take the nearest triangle hit, light by light;
+- BVH scenes (``use_bvh``, at most ``FLAT_MAX_BLOCKS`` blocks):
+  ``cuda_bvh``'s flat walk with the dense sphere pass fused in (the JAX
+  bench's ``PT_SPH_FUSE`` mode), and shadows through the exact-t_max
+  any-hit, one launch for all of a bounce's lights.
+
+CUDA tensors go to the hand-written kernels, CPU tensors to their plain
+versions. Sphere any-hit stays plain torch on both, as it stays XLA in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -190,12 +200,33 @@ def _miss_record(r: int, device) -> HitRecord:
                                           device=device))
 
 
-def _require_brute(scene):
-    """The BVH walks and the sphere block walk are later slices."""
-    if scene.use_bvh:
+# Superleaf blocks the flat walk serves (``FLAT_MAX_BLOCKS`` of the JAX
+# package: about 1M triangles at 512-triangle blocks); larger scenes take
+# the two-level flat2 walk there.
+FLAT_MAX_BLOCKS = 2048
+
+
+def _walk_variant(scene) -> str:
+    """The triangle walk of a BVH scene: "flat" up to FLAT_MAX_BLOCKS
+    blocks. The JAX package's "flat2" (more blocks) and "tree" walks are
+    later slices of the port and raise."""
+    n = scene.sl_n_blocks
+    if n <= 0:
         raise NotImplementedError(
-            "scene uses the triangle BVH (>= 4096 triangles); the BVH walks "
-            "come with the flat-BVH slice of the port")
+            "BVH scene without superleaf blocks (the tree walk); it comes "
+            "with a later slice of the port")
+    if n > FLAT_MAX_BLOCKS:
+        raise NotImplementedError(
+            f"scene has {n} superleaf blocks (> {FLAT_MAX_BLOCKS}: the flat2 "
+            "walk); it comes with a later slice of the port")
+    return "flat"
+
+
+def _require_ported_walks(scene):
+    """Refuse the walks a later slice brings: flat2-sized BVH scenes and
+    the sphere block walk."""
+    if scene.use_bvh and scene.num_real_triangles != 0:
+        _walk_variant(scene)
     if scene.sph_use_blocks:
         raise NotImplementedError(
             "scene has more than 512 spheres (sphere block walk); it comes "
@@ -203,10 +234,14 @@ def _require_brute(scene):
 
 
 def _closest_hit_tris_dispatch(o, d, t_prev, scene) -> HitRecord:
+    o, d = o.contiguous(), d.contiguous()
+    if scene.use_bvh:
+        from path_tracer_torch.ops.cuda_bvh import closest_hit_triangles_flat
+
+        return closest_hit_triangles_flat(o, d, t_prev, scene)
     from path_tracer_torch.ops.cuda_intersect import closest_hit_triangles_cuda
 
-    return closest_hit_triangles_cuda(o.contiguous(), d.contiguous(), t_prev,
-                                      scene)
+    return closest_hit_triangles_cuda(o, d, t_prev, scene)
 
 
 def closest_hit(o, d, t_prev, scene, active=None) -> HitRecord:
@@ -220,7 +255,14 @@ def closest_hit(o, d, t_prev, scene, active=None) -> HitRecord:
     has_sphs = scene.num_real_spheres != 0
     if active is not None:
         t_prev = torch.where(active, t_prev, float("inf"))
-    _require_brute(scene)
+    _require_ported_walks(scene)
+    if has_tris and has_sphs and scene.use_bvh:
+        # The dense sphere pass runs inside the flat walk's launch and the
+        # records merge there (a sphere wins only on a smaller t).
+        from path_tracer_torch.ops.cuda_bvh import closest_hit_triangles_flat
+
+        return closest_hit_triangles_flat(o.contiguous(), d.contiguous(),
+                                          t_prev, scene, spheres=True)
     tri = (_closest_hit_tris_dispatch(o, d, t_prev, scene) if has_tris
            else _miss_record(r, o.device))
     sph = (closest_hit_spheres_cuda(o.contiguous(), d.contiguous(), t_prev,
@@ -236,45 +278,84 @@ def closest_hit(o, d, t_prev, scene, active=None) -> HitRecord:
 
 def occluded(o, d, scene, surf_pos=None, max_dist=None,
              active=None) -> torch.Tensor:
-    """[R] bool any-hit occlusion for fully opaque scenes.
+    """[R] bool any-hit occlusion for fully opaque scenes: ``occluded_multi``
+    with one light."""
+    return occluded_multi(o, [d], scene, surf_pos=surf_pos,
+                          max_dists=[max_dist], actives=[active])[0]
 
-    For point lights pass surf_pos [R,3] and max_dist [R]: an occluder
+
+def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
+                   actives=None) -> list:
+    """Any-hit occlusion for L direction sets sharing one origin set (a
+    bounce's shadow casts toward L lights). Returns L [R] bool.
+
+    dirs: L [R,3]; max_dists: None or L entries ([R] or None); actives:
+    None or L entries ([R] bool or None; dead lanes report False). For a
+    point light pass surf_pos [R,3] and its max_dist [R]: an occluder
     counts only when its distance FROM THE SURFACE POINT is <= max_dist,
-    with dist^2 = t^2|d|^2 + 2t(b.d) + |b|^2, b = o - surf_pos. Triangles
-    take the nearest hit through the closest-hit dispatch (the brute-force
-    kernel on CUDA): dist(t) is monotone in t, so if the nearest hit is out
-    of range no hit is in range. Spheres test both roots elementwise.
-    ``active``: dead lanes are cast with t_prev = +inf and report False."""
+    with dist^2 = t^2|d|^2 + 2t(b.d) + |b|^2, b = o - surf_pos.
+
+    Triangles: BVH scenes cast all L sets in one any-hit launch, the range
+    limit turned into the exact t_max (the positive root of dist = max_dist,
+    dead lanes t_max = -1); brute-force scenes take the nearest hit light
+    by light (dist(t) is monotone in t, so if the nearest hit is out of
+    range no hit is). Spheres test both roots elementwise, light by light.
+    """
+    n_lights = len(dirs)
+    max_dists = max_dists or [None] * n_lights
+    actives = actives or [None] * n_lights
     r = o.shape[0]
-    if max_dist is not None:
+    _require_ported_walks(scene)
+
+    ranges = []  # per light: None or (b.d, |b|^2, |d|^2, max_dist^2), [R,1]
+    for d, md in zip(dirs, max_dists):
+        if md is None:
+            ranges.append(None)
+            continue
         bvec = o - surf_pos
-        b_dot_d = _dot(bvec, d)[:, None]
-        b_sq = _dot(bvec, bvec)[:, None]
-        d_sq = _dot(d, d)[:, None]
-        limit_sq = (max_dist * max_dist)[:, None]
+        ranges.append((_dot(bvec, d)[:, None], _dot(bvec, bvec)[:, None],
+                       _dot(d, d)[:, None], (md * md)[:, None]))
 
-        def in_range(t, rs=slice(None)):
-            return (t * t * d_sq[rs] + 2.0 * t * b_dot_d[rs] + b_sq[rs]
-                    <= limit_sq[rs])
-    else:
-        def in_range(t, rs=slice(None)):
+    def in_range(t, rng, rs=slice(None)):
+        if rng is None:
             return torch.ones_like(t, dtype=torch.bool)
+        b_dot_d, b_sq, d_sq, limit_sq = (x[rs] for x in rng)
+        return t * t * d_sq + 2.0 * t * b_dot_d + b_sq <= limit_sq
 
-    _require_brute(scene)
-    hit = torch.zeros((r,), dtype=torch.bool, device=o.device)
-    if scene.num_real_triangles != 0:
-        t_prev = torch.full((r,), -1.0, device=o.device)
-        if active is not None:
-            t_prev = torch.where(active, t_prev, float("inf"))
-        tri = _closest_hit_tris_dispatch(o, d, t_prev, scene)
-        hit = hit | (tri.valid & in_range(tri.t[:, None])[:, 0])
+    hits = [torch.zeros((r,), dtype=torch.bool, device=o.device)
+            for _ in range(n_lights)]
+    if scene.num_real_triangles != 0 and scene.use_bvh:
+        from path_tracer_torch.ops.cuda_bvh import (
+            occluded_triangles_flat_multi,
+        )
 
-    if scene.num_real_spheres != 0:
-        for rs in _ray_chunks(r):
-            has, t1, t2 = _sphere_roots(o[rs], d[rs], scene)
-            v1 = has & (t1 >= 0.0) & in_range(t1, rs)
-            v2 = has & (t2 >= 0.0) & in_range(t2, rs)
-            hit[rs] |= (v1 | v2).any(dim=1)
-        if active is not None:
-            hit &= active
-    return hit
+        t_maxes = []
+        for rng, act in zip(ranges, actives):
+            if rng is None:
+                tm = torch.full((r,), float("inf"), device=o.device)
+            else:
+                b_dot_d, b_sq, d_sq, limit_sq = (x[:, 0] for x in rng)
+                disc = b_dot_d * b_dot_d - d_sq * (b_sq - limit_sq)
+                tm = (-b_dot_d + torch.sqrt(torch.clamp(disc, min=0.0))) / d_sq
+            if act is not None:
+                tm = torch.where(act, tm, -1.0)
+            t_maxes.append(tm)
+        hits = list(occluded_triangles_flat_multi(o, dirs, t_maxes, scene))
+    elif scene.num_real_triangles != 0:
+        for i, (d, rng, act) in enumerate(zip(dirs, ranges, actives)):
+            t_prev = torch.full((r,), -1.0, device=o.device)
+            if act is not None:
+                t_prev = torch.where(act, t_prev, float("inf"))
+            tri = _closest_hit_tris_dispatch(o, d, t_prev, scene)
+            hits[i] = tri.valid & in_range(tri.t[:, None], rng)[:, 0]
+
+    for i, (d, rng, act) in enumerate(zip(dirs, ranges, actives)):
+        if scene.num_real_spheres != 0:
+            for rs in _ray_chunks(r):
+                has, t1, t2 = _sphere_roots(o[rs], d[rs], scene)
+                v1 = has & (t1 >= 0.0) & in_range(t1, rng, rs)
+                v2 = has & (t2 >= 0.0) & in_range(t2, rng, rs)
+                hits[i][rs] |= (v1 | v2).any(dim=1)
+        if act is not None:
+            hits[i] = hits[i] & act
+    return hits

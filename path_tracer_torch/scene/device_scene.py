@@ -1,7 +1,7 @@
 """Device scene: flat SoA tensors for the wavefront renderer.
 
 Port of the parts of ``path_tracer_tpu/scene/device_scene.py`` that the
-brute-force opaque slice reads:
+opaque slices (brute force and the flat BVH walk) read:
 
 - all mesh triangles in ONE global array (v0, edges, vertex normals, UVs,
   tangent, model id), padded to a multiple of 256 with degenerate rows
@@ -12,13 +12,29 @@ brute-force opaque slice reads:
   above) whose padding spheres (center 1e30) never hit;
 - per-model material factor + texture-id tables and the flat RGB atlas;
 - lights split by type, camera, background;
+- the superleaf block tables of the flat BVH walk (``sl_*``, below);
 - the statics the integrator branches on.
 
 Triangle order: the JAX builder stores every triangle array in the leaf
 order of its C++ binned-SAH BVH (leaf size 4), even for scenes that never
 walk the BVH. ``build_scene`` builds the same ``bvh.cpp`` with the same
-flags (``native.bvh_prim_order``), so prim ids and tie-breaks match the
-JAX package exactly.
+flags (``native.build_bvh``), so prim ids and tie-breaks match the JAX
+package exactly.
+
+Superleaf tables (all-opaque scenes are one partition): a second SAH BVH
+with leaf size ``sl_block`` over the leaf-4-permuted triangles; each of its
+``sl_n_blocks`` leaves is one block of ``sl_block`` packed slots (block b
+owns slots [b*sl_block, (b+1)*sl_block), unused slots are zero rows):
+
+- ``sl_bw_t`` [16, n_blocks*sl_block]: Baldwin-Weber rows n.xyz, c, Au.xyz,
+  au, Av.xyz, av, then 4 zero rows (computed in float64, stored float32);
+- ``sl_blkflat`` [8, Bpad]: rows 0-2 block AABB min, 3-5 max, 6-7 zero;
+  Bpad is the block count rounded up to a multiple of 128 (>= 128);
+- ``sl_blkid`` [1, Bpad]: block id per column, -1 on pad columns;
+- ``sl_map`` [n_blocks*sl_block]: packed slot -> global triangle id;
+- ``sl_inv`` [N]: global triangle id -> packed slot;
+- ``sph_row_base``: n_blocks*sl_block (the JAX package's first sphere row
+  of its wide attribute table; fused sphere hits report this + index).
 """
 from __future__ import annotations
 
@@ -42,18 +58,18 @@ _FLOAT_FIELDS = (
     "mat_albedo_factor", "mat_emissive_factor", "mat_opacity_factor",
     "mat_metalness_factor", "mat_roughness_factor", "mat_ior",
     "tex_data", "point_pos", "point_color", "dir_dir", "dir_color",
-    "cam_to_world", "cam_fov", "background",
+    "cam_to_world", "cam_fov", "background", "sl_bw_t", "sl_blkflat",
 )
 _INT_FIELDS = (
     "tri_model", "sph_model",
     "mat_albedo_tex", "mat_emissive_tex", "mat_opacity_tex",
     "mat_metalness_tex", "mat_roughness_tex", "mat_normal_tex",
-    "tex_offset", "tex_width", "tex_height",
+    "tex_offset", "tex_width", "tex_height", "sl_blkid", "sl_map", "sl_inv",
 )
 ARRAY_FIELDS = _FLOAT_FIELDS + _INT_FIELDS
 STATIC_FIELDS = ("all_opaque", "no_textures", "no_emissive", "has_tex",
                  "num_real_triangles", "num_real_spheres", "use_bvh",
-                 "sph_use_blocks")
+                 "sph_use_blocks", "sl_block", "sl_n_blocks", "sph_row_base")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +80,8 @@ class TorchScene:
     ``tri_packed_t`` [9,N] (v0, e1, e2 rows); spheres [S',3] / [S'];
     ``sph_packed_t`` [4,S]; materials [M,3] / [M]; atlas ``tex_data`` [P,3]
     with [T] offset/width/height tables; lights [L,3]; ``cam_to_world``
-    [4,4] row-major world-from-camera; ``cam_fov`` [] vertical radians."""
+    [4,4] row-major world-from-camera; ``cam_fov`` [] vertical radians;
+    superleaf tables ``sl_*`` as in the module docstring."""
 
     tri_v0: torch.Tensor
     tri_e1: torch.Tensor
@@ -105,6 +122,11 @@ class TorchScene:
     tex_offset: torch.Tensor
     tex_width: torch.Tensor
     tex_height: torch.Tensor
+    sl_bw_t: torch.Tensor
+    sl_blkflat: torch.Tensor
+    sl_blkid: torch.Tensor
+    sl_map: torch.Tensor
+    sl_inv: torch.Tensor
     # --- statics ---
     all_opaque: bool  # every material has opacity factor >= 1, no texture
     no_textures: bool
@@ -114,6 +136,9 @@ class TorchScene:
     num_real_spheres: int
     use_bvh: bool
     sph_use_blocks: bool
+    sl_block: int  # triangles per superleaf block
+    sl_n_blocks: int  # real blocks (columns of sl_blkflat with id >= 0)
+    sph_row_base: int
 
     @property
     def device(self) -> torch.device:
@@ -201,14 +226,91 @@ def _pack_spheres(centers: np.ndarray, radii: np.ndarray) -> np.ndarray:
     return out
 
 
-def build_scene(scene: isf.Scene, root, device) -> TorchScene:
+def _baldwin_weber_rows(sl_tris: np.ndarray) -> np.ndarray:
+    """[16, n] Baldwin-Weber rows from packed (v0, e1, e2) rows [n, 9], as
+    the JAX builder computes them (``_baldwin_weber_rows``).
+
+    t = (c - o.n)/(d.n) with n = e1 x e2, c = v0.n (so d.n = -MT det: the
+    same DET_EPS reject and backface sign); u = Au.h + au, v = Av.h + av on
+    the hit point h = o + t d, with Au = (e2 x n)/(n.n), Av = (n x e1)/(n.n).
+    Computed in float64 and rounded once to float32; all-zero (unused)
+    slots give all-zero rows, which d.n = 0 rejects. Rows 12-15 are zero."""
+    v0 = sl_tris[:, 0:3].astype(np.float64)
+    e1 = sl_tris[:, 3:6].astype(np.float64)
+    e2 = sl_tris[:, 6:9].astype(np.float64)
+    n = np.cross(e1, e2)
+    nn = (n * n).sum(axis=1, keepdims=True)
+    inv = np.where(nn > 0.0, 1.0 / np.where(nn > 0.0, nn, 1.0), 0.0)
+    au3 = np.cross(e2, n) * inv
+    av3 = np.cross(n, e1) * inv
+    out = np.zeros((16, sl_tris.shape[0]), np.float32)
+    out[0:3] = n.T
+    out[3] = (v0 * n).sum(axis=1)
+    out[4:7] = au3.T
+    out[7] = -(au3 * v0).sum(axis=1)
+    out[8:11] = av3.T
+    out[11] = -(av3 * v0).sum(axis=1)
+    return out
+
+
+def _superleaf_tables(v0, e1, e2, n_tris: int, n_pad: int,
+                      sl_block: int) -> dict:
+    """The flat walk's block tables over the (leaf-4-permuted) triangles,
+    for one opacity partition (``device_scene.py:1035-1134`` of the JAX
+    package with every triangle opaque)."""
+    from path_tracer_torch.native import build_bvh
+
+    if sl_block <= 0 or sl_block % 128:
+        raise ValueError(f"sl_block must be a positive multiple of 128, "
+                         f"got {sl_block}")
+    if n_tris == 0:  # the JAX builder's placeholders
+        return dict(sl_bw_t=_baldwin_weber_rows(np.zeros((sl_block, 9),
+                                                         np.float32)),
+                    sl_map=np.zeros(sl_block, np.int32),
+                    sl_inv=np.zeros(n_pad, np.int32),
+                    sl_blkflat=np.zeros((8, 128), np.float32),
+                    sl_blkid=np.full((1, 128), -1, np.int32),
+                    sl_n_blocks=0, sph_row_base=sl_block)
+    q0 = v0[:n_tris]
+    q1 = q0 + e1[:n_tris]
+    q2 = q0 + e2[:n_tris]
+    slp = build_bvh(np.minimum(np.minimum(q0, q1), q2),
+                    np.maximum(np.maximum(q0, q1), q2), leaf_size=sl_block)
+    leaves = np.nonzero(slp.prim_count > 0)[0]
+    n_blocks = len(leaves)
+    sl_tris = np.zeros((n_blocks * sl_block, 9), np.float32)
+    sl_map = np.zeros(n_blocks * sl_block, np.int32)
+    sl_inv = np.zeros(n_pad, np.int32)
+    for b, node in enumerate(leaves):
+        f, c = int(slp.first_prim[node]), int(slp.prim_count[node])
+        ids = slp.prim_order[f:f + c]
+        base = b * sl_block
+        sl_tris[base:base + c] = np.concatenate([v0[ids], e1[ids], e2[ids]],
+                                                axis=1)
+        sl_map[base:base + c] = ids
+        sl_inv[ids] = np.arange(base, base + c, dtype=np.int32)
+    b_pad = max(128, ((n_blocks + 127) // 128) * 128)
+    sl_blkflat = np.zeros((8, b_pad), np.float32)
+    sl_blkflat[0:3, :n_blocks] = slp.node_min[leaves].T
+    sl_blkflat[3:6, :n_blocks] = slp.node_max[leaves].T
+    sl_blkid = np.full((1, b_pad), -1, np.int32)
+    sl_blkid[0, :n_blocks] = np.arange(n_blocks)
+    return dict(sl_bw_t=_baldwin_weber_rows(sl_tris), sl_map=sl_map,
+                sl_inv=sl_inv, sl_blkflat=sl_blkflat, sl_blkid=sl_blkid,
+                sl_n_blocks=n_blocks, sph_row_base=n_blocks * sl_block)
+
+
+def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
+                sl_block: int = 512) -> TorchScene:
     """Flatten an ISF scene into device tensors, as ``build_device_scene``
-    of the JAX package does for the fields above.
+    of the JAX package does for the fields above (same signature:
+    ``use_bvh=None`` walks the BVH from 4,096 triangles on; ``sl_block``
+    triangles per superleaf block, a multiple of 128).
 
     Raises NotImplementedError for what later slices of the port bring:
-    non-opaque materials (the alpha and shadow-transmittance walks), scenes
-    of >= 4096 triangles (the BVH walks) and of > 512 spheres (the sphere
-    block walk)."""
+    non-opaque materials (the alpha and shadow-transmittance walks) and
+    more than 512 spheres (the sphere block walk). Scenes of more than
+    2,048 blocks build, and their casts refuse them (the flat2 walk)."""
     root = Path(root)
     if not all(m.material.opacity.factor >= 1.0
                and m.material.opacity.texture is None for m in scene.models):
@@ -218,10 +320,6 @@ def build_scene(scene: isf.Scene, root, device) -> TorchScene:
     meshes = [m for m in scene.models if isinstance(m, isf.Mesh)]
     n_tris = sum(len(m.triangles) for m in meshes)
     n_real_sph = len(scene.models) - len(meshes)
-    if n_tris >= BVH_MIN_TRIANGLES:
-        raise NotImplementedError(
-            f"scene has {n_tris} triangles (>= {BVH_MIN_TRIANGLES}: BVH walk); "
-            "the BVH walks come with the flat-BVH slice of the port")
     if n_real_sph > SPH_BLOCKS_MIN:
         raise NotImplementedError(
             f"scene has {n_real_sph} spheres (> {SPH_BLOCKS_MIN}: sphere "
@@ -287,14 +385,16 @@ def build_scene(scene: isf.Scene, root, device) -> TorchScene:
     tri_model_arr[:n_tris] = np.asarray(tri_model, np.int32).reshape(-1)
 
     if n_tris:
-        from path_tracer_torch.native import bvh_prim_order
+        from path_tracer_torch.native import build_bvh
 
         p0, p1, p2 = v0[:n_tris], v0[:n_tris] + e1[:n_tris], v0[:n_tris] + e2[:n_tris]
-        perm = bvh_prim_order(np.minimum(np.minimum(p0, p1), p2),
-                              np.maximum(np.maximum(p0, p1), p2), leaf_size=4)
+        perm = build_bvh(np.minimum(np.minimum(p0, p1), p2),
+                         np.maximum(np.maximum(p0, p1), p2),
+                         leaf_size=4).prim_order
         for arr in (v0, e1, e2, uv0, uv1, uv2, tangent, n0, n1, n2):
             arr[:n_tris] = arr[:n_tris][perm]
         tri_model_arr[:n_tris] = tri_model_arr[:n_tris][perm]
+    sl = _superleaf_tables(v0, e1, e2, n_tris, n_pad, sl_block)
 
     n_sph = max(1, n_real_sph)
     centers = np.full((n_sph, 3), 1e30, np.float32)
@@ -335,6 +435,8 @@ def build_scene(scene: isf.Scene, root, device) -> TorchScene:
         cam_to_world=f32(scene.camera.transform).T,
         cam_fov=f32(scene.camera.fov),
         background=f32(scene.background),
+        **{k: sl[k] for k in ("sl_bw_t", "sl_blkflat", "sl_blkid", "sl_map",
+                              "sl_inv")},
     )
     statics = dict(
         all_opaque=True,
@@ -347,7 +449,11 @@ def build_scene(scene: isf.Scene, root, device) -> TorchScene:
             "normal_t")),
         num_real_triangles=n_tris,
         num_real_spheres=n_real_sph,
-        use_bvh=False,
+        use_bvh=(n_tris >= BVH_MIN_TRIANGLES if use_bvh is None
+                 else bool(use_bvh)),
         sph_use_blocks=False,
+        sl_block=sl_block,
+        sl_n_blocks=sl["sl_n_blocks"],
+        sph_row_base=sl["sph_row_base"],
     )
     return from_numpy(fields, statics, device)

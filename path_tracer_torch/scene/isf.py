@@ -1,8 +1,9 @@
-"""ISF ("Internal Scene Format") loader — JSON scene files, stdlib only.
+"""ISF ("Internal Scene Format") loader and writer — JSON scene files,
+stdlib only.
 
-Port of the parsing half of ``path_tracer_tpu/scene/isf.py`` (the writer
-belongs to ``convert``, which this package does not carry yet). A scene is
-one JSON object::
+Port of ``path_tracer_tpu/scene/isf.py``: ``load``/``from_dict`` parse,
+``to_dict``/``save`` write (what ``scene.showcase`` uses to put a scene on
+disk for the CLI). A scene is one JSON object::
 
     {
       "models":  [ {"type": "Mesh", "triangles": [...], "material": {...}}
@@ -202,3 +203,67 @@ def from_dict(raw: dict) -> Scene:
 def load(path: Union[str, Path]) -> Scene:
     with open(path) as f:
         return from_dict(json.load(f))
+
+
+def _channel3_dict(c: Channel3) -> dict:
+    return {"factor": list(c.factor), "texture": c.texture}
+
+
+def _channel1_dict(c: Channel1) -> dict:
+    return {"factor": c.factor, "texture": c.texture}
+
+
+def _material_dict(m: Material) -> dict:
+    return {
+        "albedo": _channel3_dict(m.albedo),
+        "emissive": _channel3_dict(m.emissive),
+        "opacity": _channel1_dict(m.opacity),
+        "metalness": _channel1_dict(m.metalness),
+        "roughness": _channel1_dict(m.roughness),
+        "ior": m.ior,
+        "normal_texture": m.normal_texture,
+    }
+
+
+def _vertex_dict(v: Vertex) -> dict:
+    return {"position": list(v.position), "normal": list(v.normal),
+            "tex_coords": list(v.tex_coords)}
+
+
+def _model_dict(model: Model) -> dict:
+    if isinstance(model, Mesh):
+        return {"type": "Mesh",
+                "triangles": [[_vertex_dict(v) for v in tri]
+                              for tri in model.triangles],
+                "material": _material_dict(model.material)}
+    return {"type": "Sphere", "radius": model.radius,
+            "center": list(model.center),
+            "material": _material_dict(model.material)}
+
+
+def _light_dict(light: Light) -> dict:
+    if isinstance(light, PointLight):
+        return {"type": "Point", "position": list(light.position),
+                "color": list(light.color), "size": light.size}
+    return {"type": "Directional", "direction": list(light.direction),
+            "color": list(light.color)}
+
+
+def to_dict(scene: Scene) -> dict:
+    """The JSON object ``save`` writes (the JAX package's ``to_dict``)."""
+    return {
+        "models": [_model_dict(m) for m in scene.models],
+        "camera": {
+            "transform": scene.camera.transform,
+            "fov": scene.camera.fov,
+            "zfar": scene.camera.zfar,
+            "znear": scene.camera.znear,
+        },
+        "lights": [_light_dict(l) for l in scene.lights],
+        "background": list(scene.background),
+    }
+
+
+def save(scene: Scene, path: Union[str, Path]) -> None:
+    with open(path, "w") as f:
+        json.dump(to_dict(scene), f)

@@ -8,7 +8,10 @@ imports no JAX, so it runs on a machine without it::
 (``--noconftest``: the suite's conftest.py configures JAX.)
 
 Tolerances: the kernels are built -fmad=false and round every operation as
-the plain versions do, so records must agree exactly. The card render uses
+the plain versions do, so records must agree exactly; the flat closest hit
+may differ from its plain version, which does not prune by best t, only
+where rounding puts a hit a few ulps before its block's slab entry (at most
+1e-4 of lanes, the repo's divergence bound). The card render uses
 the same kernels' results and ATen's CUDA elementwise ops, whose float32
 rsqrt (not correctly rounded on the card) and transcendentals differ from
 the CPU's by an ulp or two: rtol 1e-3, atol 1e-4 per pixel (the golden
@@ -112,3 +115,83 @@ def test_card_render_matches_cpu(cuda, name):
         np.testing.assert_allclose(on_card.mean(), on_cpu.mean(), rtol=0.01)
     else:
         assert not outside.any()
+
+
+def _flat_scenes(device):
+    """Forced-BVH ``reflection`` (512-slot blocks) and the plain showcase
+    at grid 48 (256-slot blocks), with rays from each scene's camera and
+    from around its bounds."""
+    from path_tracer_torch.scene import build_scene, load_scene
+    from path_tracer_torch.scene.showcase import showcase_scene
+
+    return {
+        "reflection": load_scene(SCENES / "reflection" / "scene.isf", device,
+                                 use_bvh=True),
+        "showcase48": build_scene(showcase_scene(48), ".", device,
+                                  use_bvh=True, sl_block=256),
+    }
+
+
+def _flat_rays(sc, seed, r, device):
+    v = sc.tri_v0[: sc.num_real_triangles].cpu().numpy()
+    o, d = _rays(seed, r, v.min(0), v.max(0), device)
+    o[: r // 2] = sc.cam_to_world[:3, 3]
+    tgt = torch.from_numpy(np.random.default_rng(seed + 1).uniform(
+        v.min(0), v.max(0), (r // 2, 3)).astype(np.float32)).to(device)
+    d[: r // 2] = torch.nn.functional.normalize(tgt - o[: r // 2], dim=1)
+    return o, d
+
+
+def _mismatch(got, want):
+    return ((got.kind != want.kind) | (got.prim != want.prim)
+            | (got.backface != want.backface)).float().mean().item()
+
+
+@pytest.mark.parametrize("name", ["reflection", "showcase48"])
+def test_flat_closest_hit_equals_plain(cuda, name):
+    from path_tracer_torch.ops import cuda_bvh
+
+    sc = _flat_scenes(cuda)[name]
+    r = 5003  # ragged: no multiple of the 128-ray CTA
+    o, d = _flat_rays(sc, 5, r, cuda)
+    for spheres in (False, True):
+        for tpv in (-1.0, 0.5):
+            tp = torch.full((r,), tpv, device=cuda)
+            tp[::9] = float("inf")  # dead lanes
+            before = cuda_bvh.closest_hit_launches
+            got = cuda_bvh.closest_hit_triangles_flat(o, d, tp, sc, spheres)
+            assert cuda_bvh.closest_hit_launches == before + 1
+            want = cuda_bvh.closest_hit_triangles_flat_plain(o, d, tp, sc,
+                                                             spheres)
+            assert _mismatch(got, want) <= 1e-4
+            same = (got.prim == want.prim) & (got.kind == want.kind)
+            for field in ("t", "u", "v", "backface"):
+                assert torch.equal(getattr(got, field)[same],
+                                   getattr(want, field)[same]), field
+            assert not got.valid[::9].any()
+            assert got.valid.float().mean() > 0.3
+
+
+@pytest.mark.parametrize("name", ["reflection", "showcase48"])
+def test_flat_occluded_equals_plain(cuda, name):
+    from path_tracer_torch.ops import cuda_bvh
+
+    sc = _flat_scenes(cuda)[name]
+    r = 5003
+    o, d0 = _flat_rays(sc, 6, r, cuda)
+    _, d1 = _flat_rays(sc, 7, r, cuda)
+    g = np.random.default_rng(8)
+    tm = torch.from_numpy(g.uniform(0.1, 40.0, r).astype(np.float32)).to(cuda)
+    tm_dead = tm.clone()
+    tm_dead[::3] = -1.0
+    ds = [d0, d1, d0]
+    tms = [torch.full((r,), float("inf"), device=cuda), tm, tm_dead]
+    before = cuda_bvh.occluded_launches
+    multi = cuda_bvh.occluded_triangles_flat_multi(o, ds, tms, sc)
+    assert cuda_bvh.occluded_launches == before + 1
+    for i in range(3):
+        single = cuda_bvh.occluded_triangles_flat(o, ds[i], tms[i], sc)
+        plain = cuda_bvh.occluded_triangles_flat_plain(o, ds[i], tms[i], sc)
+        assert torch.equal(multi[i], single) and torch.equal(single, plain)
+    assert multi[2][::3].all()
+    assert 0.05 < multi[1].float().mean() < 0.95

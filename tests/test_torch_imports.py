@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, no JAX-package module, no PyYAML and no
-Pillow on its main path, and its CUDA wrappers never fall back to the plain
-versions for a tensor on the card."""
+Pillow on its main path (a reference scene and the showcase, built and
+rendered), and its CUDA wrappers never fall back to the plain versions for
+a tensor on the card."""
 import subprocess
 import sys
 from pathlib import Path
@@ -22,6 +23,15 @@ scene = load_scene(sys.argv[1], device="cpu")
 img = render(scene, Profile(resolution=Resolution(16, 12), samples=1,
                             bounces=2))
 assert img.shape == (12, 16, 3) and img.dtype == np.uint8 and img.std() > 0
+
+from path_tracer_torch.scene import build_scene
+from path_tracer_torch.scene.showcase import showcase_scene
+
+showcase = build_scene(showcase_scene(48), ".", "cpu", sl_block=256)
+assert showcase.use_bvh and showcase.sl_n_blocks == 31
+img = render(showcase, Profile(resolution=Resolution(16, 12), samples=1,
+                               bounces=2))
+assert img.shape == (12, 16, 3) and img.std() > 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "path_tracer_tpu",
                                     "yaml", "PIL"))
@@ -71,14 +81,41 @@ def _fake_cuda_operands(n_rays: int, table_rows: int):
     return mode, o, d, tp, table
 
 
-@pytest.mark.parametrize("kernel", ["triangles", "spheres"])
+def _fake_flat_scene(mode):
+    from types import SimpleNamespace
+
+    with mode:
+        cuda = dict(device="cuda")
+        return SimpleNamespace(
+            sl_blkflat=torch.empty((8, 128), **cuda),
+            sl_blkid=torch.empty((1, 128), dtype=torch.int32, **cuda),
+            sl_bw_t=torch.empty((16, 512), **cuda),
+            sl_map=torch.empty((512,), dtype=torch.int32, **cuda),
+            sph_packed_t=torch.empty((4, 128), **cuda), sl_block=256,
+            sph_row_base=512)
+
+
+def _launch_counts():
+    from path_tracer_torch.ops import cuda_bvh, cuda_intersect, cuda_spheres
+
+    return (cuda_intersect.launches, cuda_spheres.launches,
+            cuda_bvh.closest_hit_launches, cuda_bvh.occluded_launches)
+
+
+@pytest.mark.parametrize("kernel", ["triangles", "spheres", "flat",
+                                    "flat_spheres", "flat_occluded"])
 def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
     """Handed CUDA tensors where the kernel cannot be built or launched,
     a wrapper raises; it never returns the plain version's result."""
     from types import SimpleNamespace
 
     from path_tracer_torch import native
-    from path_tracer_torch.ops import cuda_intersect, cuda_spheres, intersect
+    from path_tracer_torch.ops import (
+        cuda_bvh,
+        cuda_intersect,
+        cuda_spheres,
+        intersect,
+    )
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the card tests cover it")
@@ -91,22 +128,33 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
     monkeypatch.setattr(cuda_spheres, "closest_hit_spheres",
                         _plain_must_not_run)
     monkeypatch.setattr(intersect, "closest_hit_triangles", _plain_must_not_run)
+    for name in ("closest_hit_triangles_flat_plain", "_flat_walk_plain",
+                 "occluded_triangles_flat_plain",
+                 "occluded_triangles_flat_multi_plain"):
+        monkeypatch.setattr(cuda_bvh, name, _plain_must_not_run)
     rows = 9 if kernel == "triangles" else 4
     mode, o, d, tp, table = _fake_cuda_operands(300, rows)
     scene = SimpleNamespace(tri_packed_t=table, sph_packed_t=table)
-    wrapper = (cuda_intersect.closest_hit_triangles_cuda
-               if kernel == "triangles"
-               else cuda_spheres.closest_hit_spheres_cuda)
+    wrapper = {
+        "triangles": cuda_intersect.closest_hit_triangles_cuda,
+        "spheres": cuda_spheres.closest_hit_spheres_cuda,
+        "flat": cuda_bvh.closest_hit_triangles_flat,
+        "flat_spheres": lambda *a: cuda_bvh.closest_hit_triangles_flat(
+            *a, spheres=True),
+        "flat_occluded": cuda_bvh.occluded_triangles_flat,
+    }[kernel]
+    if kernel.startswith("flat"):
+        scene = _fake_flat_scene(mode)
 
     def _no_toolkit():
         raise RuntimeError("nvcc not found")
 
     monkeypatch.setattr(native, "_kernels", None)  # not built yet
     monkeypatch.setattr(native, "_nvcc", _no_toolkit)
-    before = (cuda_intersect.launches, cuda_spheres.launches)
+    before = _launch_counts()
     with mode, pytest.raises(RuntimeError, match="nvcc"):
         wrapper(o, d, tp, scene)
-    assert (cuda_intersect.launches, cuda_spheres.launches) == before
+    assert _launch_counts() == before
 
 
 def test_cuda_wrapper_checks_operands():
@@ -130,3 +178,36 @@ def test_cuda_wrapper_checks_operands():
         native.launch_closest_hit(
             "ptt_mt_closest_hit", torch.zeros(4, 3), torch.zeros(4, 3),
             torch.zeros(4), torch.zeros(9, 256), table_rows=9, out_rows=4)
+
+
+def test_flat_wrappers_check_operands():
+    """The flat kernels' launchers raise on a wrong table, ray or set
+    layout before any launch."""
+    from path_tracer_torch import native
+
+    mode, o, d, tp, _ = _fake_cuda_operands(64, 4)
+    sc = _fake_flat_scene(mode)
+    tables = (sc.sl_blkflat, sc.sl_blkid, sc.sl_bw_t)
+    with mode:
+        cuda = dict(device="cuda")
+        bad_closest = [
+            (o, d, tp, sc.sl_blkflat, sc.sl_blkid.float(), sc.sl_bw_t),
+            (o, d, tp, torch.empty((6, 128), **cuda), sc.sl_blkid,
+             sc.sl_bw_t),
+            (o, d, tp, sc.sl_blkflat, sc.sl_blkid,
+             torch.empty((16, 300), **cuda)),  # not whole blocks
+            (o, d, torch.empty((63,), **cuda), *tables),
+        ]
+        ds = torch.empty((2, 64, 3), **cuda)
+        tms = torch.empty((2, 64), **cuda)
+        bad_occluded = [
+            (o, torch.empty((2, 64, 4), **cuda), tms, *tables),
+            (o, ds, torch.empty((3, 64), **cuda), *tables),
+            (o, ds.transpose(0, 1), tms, *tables),
+        ]
+    for args in bad_closest:
+        with mode, pytest.raises(ValueError):
+            native.launch_flat_closest_hit(*args, block=256)
+    for args in bad_occluded:
+        with mode, pytest.raises(ValueError):
+            native.launch_flat_occluded(*args, block=256)

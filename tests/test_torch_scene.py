@@ -51,21 +51,57 @@ def test_later_slices_are_refused(reference_scenes, name):
         render_pixel_sums(carried, 8, 6, 1, 1, IntegratorSpec(bounces=1))
 
 
-def test_bvh_scene_is_refused():
-    """>= 4096 triangles means the BVH walk: a later slice."""
-    from path_tracer_torch.scene import build_scene, isf
+def _flat_triangles_scene(n: int):
+    """n copies of one lit triangle in front of the camera."""
+    from path_tracer_torch.scene import isf
 
     vert = {"position": [0, 0, 0], "normal": [0, 0, 1], "tex_coords": [0, 0]}
     tri = [vert, dict(vert, position=[1, 0, 0]), dict(vert, position=[0, 1, 0])]
+    cam = np.eye(4)
+    cam[3, :3] = [0.3, 0.3, 2.0]  # column-major: translation in column 3
     raw = {
-        "models": [{"type": "Mesh", "triangles": [tri] * 4096,
+        "models": [{"type": "Mesh", "triangles": [tri] * n,
                     "material": {"albedo": {"factor": [1, 1, 1]}}}],
-        "camera": {"transform": np.eye(4).tolist(), "fov": 1.0, "zfar": 10.0,
+        "camera": {"transform": cam.tolist(), "fov": 1.0, "zfar": 10.0,
                    "znear": 0.1},
-        "lights": [], "background": [0, 0, 0],
+        "lights": [{"type": "Directional", "direction": [0, 0, -1],
+                    "color": [1, 1, 1]}],
+        "background": [0.2, 0.2, 0.2],
     }
-    with pytest.raises(NotImplementedError, match="BVH"):
-        build_scene(isf.from_dict(raw), root=".", device="cpu")
+    return isf.from_dict(raw)
+
+
+def test_bvh_scene_builds_and_renders():
+    """>= 4096 triangles takes the flat BVH walk (auto use_bvh), which
+    builds and renders on the CPU through the plain versions."""
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.scene import build_scene
+
+    sc = build_scene(_flat_triangles_scene(4096), root=".", device="cpu")
+    assert sc.use_bvh and sc.sl_n_blocks >= 8 and sc.sl_block == 512
+    img = render_pixel_sums(sc, 8, 6, 1, 1, IntegratorSpec(bounces=1))
+    assert img.shape == (48, 3) and np.isfinite(img).all() and img.std() > 0
+
+
+def test_bvh_scene_is_refused(reference_scenes):
+    """A BVH scene of more than FLAT_MAX_BLOCKS = 2,048 superleaf blocks
+    needs the flat2 walk, a later slice: its casts refuse it by name."""
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.models.renderer import render_pixel_sums
+
+    sc = load_scene(reference_scenes / "cube" / "scene.isf", device="cpu",
+                    use_bvh=True)
+    fields = {f: getattr(sc, f).numpy() for f in ARRAY_FIELDS}
+    statics = {s: getattr(sc, s) for s in STATIC_FIELDS}
+    n_blocks, bpad = 2049, 2176
+    fields["sl_blkflat"] = np.zeros((8, bpad), np.float32)
+    fields["sl_blkid"] = np.full((1, bpad), -1, np.int32)
+    fields["sl_blkid"][0, :n_blocks] = np.arange(n_blocks)
+    statics["sl_n_blocks"] = n_blocks
+    big = from_numpy(fields, statics, "cpu")
+    with pytest.raises(NotImplementedError, match="flat2"):
+        render_pixel_sums(big, 8, 6, 1, 1, IntegratorSpec(bounces=1))
 
 
 def test_isf_loader_matches_jax(reference_scenes):

@@ -1,10 +1,13 @@
 """Where the time goes in one 1080p sample of the PyTorch port, on the card.
 
     python tests/tools/torch_profile.py [scene ...]   (default: cube spheres
-                                                       reflection)
+                                                       reflection showcase)
 
 For each scene: one warm-up sample, then one sample (every 2^18-lane tile
-of a 1920x1080 frame, 4 bounces) under ``torch.profiler``. Prints the wall
+of a 1920x1080 frame) under ``torch.profiler``: 4 bounces for the
+reference scenes of ``tests/scenes``, 5 for ``showcase`` (the plain
+100k-triangle showcase in 256-slot blocks, as the JAX bench renders it).
+Prints the wall
 time (host clock around work that ends in a synchronize), the summed device
 time of all kernels, the device busy share (device time / wall; kernels
 run on one stream, so they do not overlap), the number of kernel launches,
@@ -30,8 +33,16 @@ def profile_scene(name: str, top: int = 14) -> None:
     from path_tracer_torch.scene import load_scene
 
     device = torch.device("cuda", 0)
-    scene = load_scene(REPO / "tests" / "scenes" / name / "scene.isf", device)
-    spec = IntegratorSpec(bounces=4)
+    if name == "showcase":
+        from path_tracer_torch.scene import build_scene
+        from path_tracer_torch.scene.showcase import showcase_scene
+
+        scene = build_scene(showcase_scene(), ".", device, sl_block=256)
+        spec = IntegratorSpec(bounces=5)
+    else:
+        scene = load_scene(REPO / "tests" / "scenes" / name / "scene.isf",
+                           device)
+        spec = IntegratorSpec(bounces=4)
     render_pixel_sums(scene, 1920, 1080, 1, 1, spec, tile_rays=1 << 18)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -67,4 +78,5 @@ def main(names) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or ["cube", "spheres", "reflection"]))
+    sys.exit(main(sys.argv[1:] or ["cube", "spheres", "reflection",
+                                   "showcase"]))
