@@ -9,7 +9,9 @@ this file. Phases, each printing one line of numbers and failing the run on
 any error:
 
 1. environment: card name and power limit, torch/CUDA versions, capability;
-2. build: the kernels from ``path_tracer_torch/csrc`` with nvcc, timed;
+2. build: the kernels from ``path_tracer_torch/csrc`` with nvcc (one
+   process per source, side by side), timed; the plain showcase and the
+   textured showcase (its textures written and read by the port) built;
 3. each kernel against its plain PyTorch version on the card: the 6,024
    Möller-Trumbore fixtures, seeded random rays against the ``cube`` and
    ``reflection`` tables and a random 2,500-triangle soup, the ``spheres``
@@ -18,20 +20,30 @@ any error:
    closest hit (alone and with the fused sphere pass) and the flat any-hit
    on the 100k-triangle showcase (grid 224, 256-slot blocks) and forced-BVH
    ``reflection``, with random, camera and terrain-bounce rays, against
-   their plain versions and the MT kernel; then each kernel's time beside
-   its plain version's at the main path's shapes;
+   their plain versions and the MT kernel (3b); the alpha and
+   transmittance walk kernels on the textured showcase, with camera lanes
+   whose terminator comes from the opaque cast, random rays through the
+   foliage, the three lights' stacked shadow lanes of the first bounce and
+   dead lanes, at step caps 8 and 1 (3c); then each kernel's time beside
+   its plain version's and its bound at the main path's shapes;
 4. the main path at full size: ``cube``, ``spheres`` and ``reflection`` at
    1920x1080, 4 bounces, 16 spp through ``render_pixel_sums``, and one
    reference-default frame of ``reflection`` (1920x1080, 64 spp, 4
    bounces) through the CLI; then the plain showcase at 1920x1080, 5
-   bounces, 16 spp (the JAX bench's scene), and one reference-default frame
-   of it written to disk and rendered through the CLI. Launch counts are
-   set to 0 before each path and read after it;
+   bounces, 16 spp (the JAX bench's ``showcase_plain``), and one
+   reference-default frame of it written to disk and rendered through the
+   CLI; then the textured showcase (the JAX bench's default workload) at
+   1920x1080, 5 bounces, TEX_SPP spp, through ``render_pixel_sums`` and
+   through the CLI. Launch counts are set to 0 before each path and read
+   after it;
 4b. the showcase at 480x270, 4 spp, 5 bounces through the flat walk and
    through brute-force MT over all 100,352 triangles, same seed;
-5. the scalar-oracle gate: seven cases against ``tests/goldens/oracle`` at
-   each golden's own size, and four of them again with the BVH forced
-   (the flat kernels), with the CPU gate's statistics and tolerances.
+4c. the textured showcase at 480x270, 2 spp, 5 bounces through the walk
+   kernels and through the cast walks alone (step cap 0), same seed;
+5. the scalar-oracle gate: eleven cases against ``tests/goldens/oracle``
+   at each golden's own size, and five of them again with the BVH forced
+   (the flat kernels; ``alpha_transparency`` then partitions and takes the
+   walk kernels), with the CPU gate's statistics and tolerances.
 
 The last lines are a JSON object of kernel numbers, the ``nvidia-smi`` card
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -83,10 +95,30 @@ ORACLE_CASES = {
     "white_furnace_direct": (2.0, 0.02),
     "white_furnace_indirect": (2.5, 0.02),
     "cube_rr_b6": (2.0, 0.02), "spheres_rr_b6": (2.5, 0.04),
+    "alpha_transparency": (3.1, 0.02), "head": (2.5, 0.02),
+    "deep_alpha": (2.5, 0.02), "showcase_tex": (3.2, 0.02),
 }
-# The triangle cases, rendered again with the BVH forced (the flat walk).
+# Cases rendered again with the BVH forced: the triangle cases (the flat
+# walk) and alpha_transparency, which then partitions (the walk kernels).
 ORACLE_BVH_CASES = ("cube", "reflection", "white_furnace_direct",
-                    "cube_rr_b6")
+                    "cube_rr_b6", "alpha_transparency")
+# The walk kernels against their plain versions: lanes whose results
+# differ at all (a texel-index flip would be one), as a share of lanes.
+MAX_WALK_MISMATCH = 1e-4
+# Kernel walks against forced cast walks, whole render (the gate of
+# tests/test_trwalk.py:44-65): share of pixels beyond 1e-3.
+MAX_WALK_PIXELS = 0.005
+TEX_SPP = 4  # samples of the textured showcase's 1080p render
+WAVE = 1 << 18  # lanes of one wavefront of the main path (Profile.tile_rays)
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): float32
+# outside the tensor cores, and HBM bandwidth. A kernel's bound is the
+# larger of its operations over the first and its bytes over the second.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations (adds, multiplies, one division) per test, counted from
+# the kernels' expressions: Moller-Trumbore, the centered sphere
+# quadratic, one Baldwin-Weber test and one slab test of a block AABB.
+OPS_MT, OPS_SPHERE, OPS_BW, OPS_SLAB = 45, 25, 32, 22
 
 
 def log(msg: str) -> None:
@@ -194,6 +226,207 @@ def check_pair(label, wrapper, plain, scene, o, d, stats):
     tp2[::7] = float("inf")
     stats.append(compare(f"{label} t_prev=first hit, dead lanes",
                          wrapper(o, d, tp2, scene), plain(o, d, tp2, scene)))
+
+
+def bound(ops: float, n_bytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time the card could take for work
+    of ``ops`` FP32 operations moving ``n_bytes`` (inputs read once,
+    outputs written once)."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def compare_walk(label: str, got, want) -> tuple[float, float]:
+    """(mismatch fraction, max abs err on agreeing lanes) of two walk
+    results (NamedTuples of [R] tensors); fails the run when more than
+    MAX_WALK_MISMATCH of the lanes differ in any field."""
+    import torch
+
+    diff = torch.zeros_like(got[0], dtype=torch.bool)
+    for a, b in zip(got, want):
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b)) \
+            if a.is_floating_point() else a == b
+        diff |= ~same
+    errs = [((a - b).abs()[~diff & torch.isfinite(b)])
+            for a, b in zip(got, want) if a.is_floating_point()]
+    max_abs = max([float(e.max()) if e.numel() else 0.0 for e in errs])
+    frac = float(diff.float().mean())
+    log(f"  {label}: lanes={diff.numel()} mismatch={frac:.2e} (<= "
+        f"{MAX_WALK_MISMATCH:g}) max_abs_err={max_abs:.2e}")
+    if frac > MAX_WALK_MISMATCH:
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             "version")
+    return frac, max_abs
+
+
+def foliage_rays(rng, sc, n: int, device):
+    """Rays from around the transparent triangles' bounds through them."""
+    v = sc.tri_v0[sc.n_tris_opaque: sc.num_real_triangles].cpu().numpy()
+    return random_rays(rng, n, v.min(0), v.max(0), device)
+
+
+def alpha_lanes(sc, n: int, device, rng=None):
+    """Alpha-walk lanes of the main path's middle 1080p wavefront: camera
+    rays, t_op from the opaque cast (spheres fused), lanes whose segment
+    misses every transparent cluster dead (t_op = -1), as the integrator
+    encodes them; with ``rng``, the second half random rays through the
+    foliage with random t_op, and every 7th lane dead."""
+    import torch
+
+    from path_tracer_torch.ops.intersect import closest_hit
+    from path_tracer_torch.ops.trwalk import hits_transparent_bounds
+    from path_tracer_torch.scene.device_scene import opaque_view
+
+    m = n if rng is None else n // 2
+    o, d = camera_rays(sc, m, device)
+    hit = closest_hit(o, d, torch.full((m,), -1.0, device=device),
+                      opaque_view(sc))
+    t_op = torch.where(hit.valid, hit.t, float("inf"))
+    t_op = torch.where(hits_transparent_bounds(sc, o, d, t_op), t_op, -1.0)
+    if rng is not None:
+        fo, fd = foliage_rays(rng, sc, n - m, device)
+        o, d = torch.cat([o, fo]).contiguous(), torch.cat([d, fd]).contiguous()
+        t_op = torch.cat([t_op, as_cuda(rng.uniform(0.5, 60.0, n - m),
+                                        device)])
+        t_op[::7] = -1.0
+    return o, d, t_op
+
+
+def shadow_lanes(sc, n: int, device, rng=None):
+    """The stacked [3n] shadow lanes of the first bounce of n camera lanes
+    of the middle 1080p wavefront, as the integrator builds them:
+    directional light first (raw direction, pd = +inf), then the point
+    lights (unit direction, pd = the distance); lanes live where the
+    camera ray hit, the surface faces the light, no opaque occluder is in
+    range and the segment enters a transparent cluster. With ``rng``,
+    every tenth lane on average is killed besides. Returns the walk's
+    arguments (o, d, pd, is_pt, surf_pos, orig_uv, orig_simple,
+    walking0)."""
+    import torch
+
+    from path_tracer_torch.models.integrator import NORMAL_BIAS, _surface
+    from path_tracer_torch.ops.intersect import closest_hit, occluded_multi
+    from path_tracer_torch.ops.trwalk import hits_transparent_bounds
+    from path_tracer_torch.scene.device_scene import opaque_view
+
+    o, d = camera_rays(sc, n, device)
+    hit = closest_hit(o, d, torch.full((n,), -1.0, device=device), sc)
+    surf = _surface(sc, hit, o, d)
+    so = (surf.pos + surf.geom_normal * NORMAL_BIAS).contiguous()
+    ds, pds = [], []
+    for k in range(sc.num_dir_lights):
+        ds.append((-sc.dir_dir[k]).expand(n, 3))
+        pds.append(torch.full((n,), float("inf"), device=device))
+    for k in range(sc.num_point_lights):
+        to_surf = surf.pos - sc.point_pos[k]
+        dist = torch.sqrt((to_surf * to_surf).sum(-1))
+        ds.append(-(to_surf / dist[:, None]))
+        pds.append(dist)
+    actives = [hit.valid & ((surf.normal * x).sum(-1) > 0.0) for x in ds]
+    blocked = occluded_multi(so, ds, opaque_view(sc), surf_pos=surf.pos,
+                             max_dists=[None] * sc.num_dir_lights
+                             + pds[sc.num_dir_lights:], actives=actives)
+    n_l = len(ds)
+    o3, d3, pd3 = so.repeat(n_l, 1), torch.cat(ds).contiguous(), torch.cat(pds)
+    walking0 = torch.cat([a & ~b for a, b in zip(actives, blocked)])
+    walking0 &= hits_transparent_bounds(sc, o3, d3, pd3 * 1.0001 + 1e-3)
+    if rng is not None:
+        walking0 &= as_cuda(rng.uniform(size=n_l * n) > 0.1, device, bool)
+    is_pt = torch.arange(n_l * n, device=device) >= sc.num_dir_lights * n
+    return (o3, d3, pd3, is_pt, surf.pos.repeat(n_l, 1),
+            surf.uv.repeat(n_l, 1), surf.simple.repeat(n_l), walking0)
+
+
+def walk_rnd(n: int, cap: int, device):
+    """The alpha walk's uniforms of sample 1, bounce 0 over n lanes, at the
+    sites the integrator draws them (SITE_ALPHA + k)."""
+    import torch
+
+    from path_tracer_torch.ops import rng
+
+    pix = torch.arange(n, dtype=torch.int32, device=device)
+    return torch.stack([rng.uniform(pix, 1, rng.SITE_ALPHA + k, 0)
+                        for k in range(cap)]).contiguous()
+
+
+def phase_walk_kernels(device, tex):
+    """The walk kernels against their plain versions on the textured
+    showcase (grid 224, 256-slot blocks): caps 8 and 1, dead lanes."""
+    from path_tracer_torch.ops import cuda_trwalk, trwalk
+
+    log(f"phase 3c: walk kernels (textured showcase: "
+        f"{tex.num_real_triangles - tex.n_tris_opaque} transparent "
+        f"triangles in {tex.tr_bw.shape[1]} columns, "
+        f"{len(tex.tr_pages)} opacity page(s))")
+    rng = np.random.default_rng(20261018)
+    n = (1 << 16) - 37  # no multiple of the 128-lane CTA
+    o, d, t_op = alpha_lanes(tex, n, device, rng)
+    sh = shadow_lanes(tex, n, device, rng)
+    alpha_stats, trans_stats = [], []
+    for cap in (8, 1):
+        rnd = as_cuda(rng.uniform(size=(cap, n)), device)
+        alpha_stats.append(compare_walk(
+            f"alpha walk cap {cap} (live {float((t_op >= 0).float().mean()):.3f})",
+            cuda_trwalk.alpha_walk(tex, o, d, t_op, rnd, cap),
+            trwalk.alpha_walk_plain(tex, o, d, t_op, rnd, cap)))
+        trans_stats.append(compare_walk(
+            f"transmittance walk cap {cap}, 3 x {n} lanes (live "
+            f"{float(sh[-1].float().mean()):.3f})",
+            cuda_trwalk.trans_walk(tex, *sh, cap),
+            trwalk.trans_walk_plain(tex, *sh, cap)))
+    return alpha_stats, trans_stats
+
+
+def phase_walk_timing(device, tex):
+    """Walk kernel and plain-version milliseconds at the main path's
+    shapes: the alpha walk on the middle wavefront's 2^18 camera lanes,
+    the transmittance walk on its first bounce's 3 x 2^18 shadow lanes
+    (cap 8, lanes encoded as the integrator encodes them). Returns
+    {name: (ms, plain_ms, bound_ms, bound_by)}."""
+    import torch
+
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import cuda_trwalk, trwalk
+
+    n = WAVE
+    cap = trwalk.TRWALK_K
+    tp_real = int((tex.tr_bw[0:3].abs().sum(0) > 0).sum())
+    tables = (tex.tr_bw, tex.tr_rows, tex.tr_tex8, tex.tr_lut,
+              tex.tr_page_table)
+    o, d, t_op = alpha_lanes(tex, n, device)
+    rnd = walk_rnd(n, cap, device)
+    run = lambda: cuda_trwalk.alpha_walk(tex, o, d, t_op, rnd, cap)
+    plain = lambda: trwalk.alpha_walk_plain(tex, o, d, t_op, rnd, cap)
+    ms, plain_ms, ms2 = cuda_ms(run, 20), cuda_ms(plain, 2), cuda_ms(run, 20)
+    live = int((t_op >= 0).sum())
+    out = {"alpha_walk": (min(ms, ms2), plain_ms) + bound(
+        live * tp_real * OPS_BW,
+        nbytes(o, d, t_op, rnd, *tables) + n * (8 * 4 + 4))}
+    log(f"  time alpha walk, {n} camera lanes ({live} live) x {tp_real} "
+        f"columns: kernel {ms:.4f} ms, {ms2:.4f} ms (repeat); plain "
+        f"{plain_ms:.4f} ms; bound {out['alpha_walk'][2]:.4f} ms "
+        f"({out['alpha_walk'][3]})")
+    sh = shadow_lanes(tex, n, device)
+    o3, d3, pd3, is_pt, sp3, ouv3, os3, w0 = sh
+    row = lambda x: x.to(torch.float32).unsqueeze(0)
+    aux = torch.cat([row(torch.where(w0, pd3, -1.0)), row(is_pt), sp3.T,
+                     ouv3.T, row(os3)]).contiguous()
+    run = lambda: native.launch_trans_walk(o3, d3, aux, tex, cap)
+    plain = lambda: trwalk.trans_walk_plain(tex, *sh, cap)
+    ms, plain_ms, ms2 = cuda_ms(run, 20), cuda_ms(plain, 2), cuda_ms(run, 20)
+    live = int(w0.sum())
+    out["trans_walk"] = (min(ms, ms2), plain_ms) + bound(
+        live * tp_real * OPS_BW,
+        nbytes(o3, d3, aux, *tables) + 3 * 4 * o3.shape[0])
+    log(f"  time transmittance walk, {o3.shape[0]} shadow lanes ({live} "
+        f"live) x {tp_real} columns: kernel {ms:.4f} ms, {ms2:.4f} ms "
+        f"(repeat); plain {plain_ms:.4f} ms; bound "
+        f"{out['trans_walk'][2]:.4f} ms ({out['trans_walk'][3]})")
+    return out
 
 
 def phase_kernels(device):
@@ -473,6 +706,40 @@ def first_bounce(sc, n: int, device):
     return (origin, bd, tp), (origin, ds, tms)
 
 
+def flat_work(o, d, sc, t_prev, t_max, occluded=None) -> tuple[int, int]:
+    """(slab tests, triangle tests) the flat walk needs on these rays: a
+    slab test of every real block per live ray, and a Baldwin-Weber test
+    of every real slot of each block whose slab the ray enters before its
+    result's t (closest hit: t_max = the hit's t, +inf on a miss) or
+    within t_max (any-hit; an occluded ray needs one test). ``t_prev``
+    None marks the any-hit; dead lanes test nothing."""
+    import torch
+
+    from path_tracer_torch.ops import cuda_bvh
+
+    valid = sc.sl_blkid[0] >= 0
+    per_block = (sc.sl_bw_t[0:3].abs().sum(0) > 0).view(
+        -1, sc.sl_block).sum(1)
+    real = torch.where(valid, per_block[sc.sl_blkid[0].clamp(min=0).long()],
+                       0)
+    live = (t_max >= 0.0) if t_prev is None else torch.isfinite(t_prev)
+    slabs = int(live.sum()) * sc.sl_n_blocks
+    tests = 0
+    for a in range(0, o.shape[0], 1 << 15):
+        rs = slice(a, a + (1 << 15))
+        tn, tf = cuda_bvh._slab(o[rs], cuda_bvh._safe_inv(d[rs]),
+                                sc.sl_blkflat)
+        gate = (tf >= tn.clamp(min=0.0)) & (tn <= t_max[rs, None]) & valid
+        gate &= live[rs, None]
+        if t_prev is not None:
+            gate &= tf > t_prev[rs, None]
+        else:
+            gate &= ~occluded[rs, None]
+            tests += int((occluded[rs] & live[rs]).sum())
+        tests += int((gate * real).sum())
+    return slabs, tests
+
+
 def phase_flat_timing(device, showcase):
     """Flat kernel and plain-version milliseconds at the main path's
     shapes: 2^18 lanes (the middle wavefront) of showcase camera rays, of
@@ -483,7 +750,7 @@ def phase_flat_timing(device, showcase):
 
     from path_tracer_torch.ops import cuda_bvh
 
-    n = 1 << 18
+    n = WAVE
     (bo, bd, btp), (so, sds, stms) = first_bounce(showcase, n, device)
     o, d = camera_rays(showcase, n, device)
     out = {}
@@ -495,18 +762,37 @@ def phase_flat_timing(device, showcase):
         plain = lambda: cuda_bvh.closest_hit_triangles_flat_plain(
             ro, rd, tp, showcase, spheres=True)
         ms, plain_ms, ms2 = cuda_ms(run, 20), cuda_ms(plain, 2), cuda_ms(run, 20)
+        t_out = run().t
+        slabs, tests = flat_work(ro, rd, showcase, tp, t_out)
+        work = bound(slabs * OPS_SLAB + tests * OPS_BW
+                     + n * showcase.num_real_spheres * OPS_SPHERE,
+                     nbytes(ro, rd, tp, showcase.sl_blkflat,
+                            showcase.sl_blkid, showcase.sl_bw_t,
+                            showcase.sph_packed_t) + n * (5 * 4 + 4))
         log(f"  time flat closest hit + spheres, {n} {label} rays x "
             f"{showcase.sl_n_blocks} blocks: kernel {ms:.4f} ms, {ms2:.4f} ms "
-            f"(repeat); plain {plain_ms:.4f} ms")
-        out[label] = (min(ms, ms2), plain_ms)
+            f"(repeat); plain {plain_ms:.4f} ms; bound {work[0]:.4f} ms "
+            f"({work[1]}: {slabs} slab tests, {tests} triangle tests)")
+        out[label] = (min(ms, ms2), plain_ms) + work
     run = lambda: cuda_bvh.occluded_triangles_flat_multi(so, sds, stms,
                                                          showcase)
     plain = lambda: cuda_bvh.occluded_triangles_flat_multi_plain(so, sds, stms,
                                                                  showcase)
     ms, plain_ms, ms2 = cuda_ms(run, 20), cuda_ms(plain, 2), cuda_ms(run, 20)
+    occ = run()
+    slabs = tests = 0
+    for k, (sd, tm) in enumerate(zip(sds, stms)):
+        a, b = flat_work(so, sd, showcase, None, tm, occ[k])
+        slabs, tests = slabs + a, tests + b
+    work = bound(slabs * OPS_SLAB + tests * OPS_BW,
+                 nbytes(so, *sds, *stms, showcase.sl_blkflat,
+                        showcase.sl_blkid, showcase.sl_bw_t)
+                 + 4 * n * len(sds))
     log(f"  time flat any-hit, {n} first-bounce shadow rays x L={len(sds)}: "
-        f"kernel {ms:.4f} ms, {ms2:.4f} ms (repeat); plain {plain_ms:.4f} ms")
-    out["occluded"] = (min(ms, ms2), plain_ms)
+        f"kernel {ms:.4f} ms, {ms2:.4f} ms (repeat); plain {plain_ms:.4f} ms; "
+        f"bound {work[0]:.4f} ms ({work[1]}: {slabs} slab tests, {tests} "
+        "triangle tests)")
+    out["occluded"] = (min(ms, ms2), plain_ms) + work
 
     rng = np.random.default_rng(7)
     ro, rd = bounce_rays(rng, showcase, n, device)
@@ -532,7 +818,7 @@ def phase_timing(device):
     from path_tracer_torch.ops.sorting import morton_pixel_order
     from path_tracer_torch.scene import load_scene
 
-    pix = torch.from_numpy(morton_pixel_order(1920, 1080)[: 1 << 18].copy())
+    pix = torch.from_numpy(morton_pixel_order(1920, 1080)[:WAVE].copy())
     out = {}
     for key, name, wrapper, plain in (
             ("mt", "reflection", cuda_intersect.closest_hit_triangles_cuda,
@@ -546,10 +832,18 @@ def phase_timing(device):
         ms = cuda_ms(lambda: wrapper(o, d, tp, sc), 20)
         plain_ms = cuda_ms(lambda: plain(o, d, tp, sc), 3)
         ms2 = cuda_ms(lambda: wrapper(o, d, tp, sc), 20)
-        table = (sc.tri_packed_t if key == "mt" else sc.sph_packed_t).shape
-        log(f"  time {key}: {o.shape[0]} lanes x {table[1]} columns: kernel "
-            f"{ms:.4f} ms, {ms2:.4f} ms (repeat); plain {plain_ms:.4f} ms")
-        out[key] = (min(ms, ms2), plain_ms)
+        table = sc.tri_packed_t if key == "mt" else sc.sph_packed_t
+        r = o.shape[0]
+        if key == "mt":
+            work = bound(r * sc.num_real_triangles * OPS_MT,
+                         nbytes(o, d, tp, table) + r * (4 * 4 + 4))
+        else:
+            work = bound(r * sc.num_real_spheres * OPS_SPHERE,
+                         nbytes(o, d, tp, table) + r * (2 * 4 + 4))
+        log(f"  time {key}: {r} lanes x {table.shape[1]} columns: kernel "
+            f"{ms:.4f} ms, {ms2:.4f} ms (repeat); plain {plain_ms:.4f} ms; "
+            f"bound {work[0]:.4f} ms ({work[1]})")
+        out[key] = (min(ms, ms2), plain_ms) + work
     return out
 
 
@@ -615,19 +909,32 @@ def phase_main_path(device):
 
 
 def launch_counts() -> dict:
-    from path_tracer_torch.ops import cuda_bvh, cuda_intersect, cuda_spheres
+    from path_tracer_torch.ops import (
+        cuda_bvh,
+        cuda_intersect,
+        cuda_spheres,
+        cuda_trwalk,
+    )
 
     return {"mt_closest_hit": cuda_intersect.launches,
             "sphere_closest_hit": cuda_spheres.launches,
             "flat_closest_hit": cuda_bvh.closest_hit_launches,
-            "flat_occluded": cuda_bvh.occluded_launches}
+            "flat_occluded": cuda_bvh.occluded_launches,
+            "alpha_walk": cuda_trwalk.alpha_launches,
+            "trans_walk": cuda_trwalk.trans_launches}
 
 
 def reset_launch_counts() -> None:
-    from path_tracer_torch.ops import cuda_bvh, cuda_intersect, cuda_spheres
+    from path_tracer_torch.ops import (
+        cuda_bvh,
+        cuda_intersect,
+        cuda_spheres,
+        cuda_trwalk,
+    )
 
     cuda_intersect.launches = cuda_spheres.launches = 0
     cuda_bvh.closest_hit_launches = cuda_bvh.occluded_launches = 0
+    cuda_trwalk.alpha_launches = cuda_trwalk.trans_launches = 0
 
 
 def phase_showcase(device, showcase):
@@ -698,6 +1005,120 @@ def phase_showcase(device, showcase):
     return counts
 
 
+def phase_showcase_tex(device, tex):
+    """The main path of the transparency slice: the textured showcase
+    (the JAX bench's default workload) at 1920x1080, 5 bounces, TEX_SPP
+    spp through ``render_pixel_sums``, then the same frame through the
+    CLI. Returns the launch counts of the first; fails unless the flat
+    kernels and both walk kernels launched."""
+    import torch
+
+    from path_tracer_torch import cli
+    from path_tracer_torch.config import Profile, Resolution
+    from path_tracer_torch.models.renderer import (
+        finalize,
+        integrator_spec,
+        render_pixel_sums,
+    )
+    from path_tracer_torch.scene.showcase import write_showcase_scene_dir
+    from path_tracer_torch.utils.image_io import save_png
+
+    w, h, spp, bounces = 1920, 1080, TEX_SPP, 5
+    log(f"phase 4 (textured showcase): {tex.num_real_triangles} triangles "
+        f"({tex.n_tris_opaque} opaque), {tex.num_real_spheres} spheres, "
+        f"{tex.sl_n_blocks} blocks ({tex.sl_n_blocks_opaque} opaque) of "
+        f"{tex.sl_block}, walk bound {tex.num_transparent_hits + 1}; {w}x{h},"
+        f" {bounces} bounces, {spp} spp")
+    profile = Profile(resolution=Resolution(w, h), bounces=bounces,
+                      samples=spp)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sums = render_pixel_sums(tex, w, h, 1, spp, integrator_spec(profile),
+                             tile_rays=profile.tile_rays)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    img = finalize(sums, spp, profile, w, h)
+    save_png(img, OUT / f"showcase_tex_1080p_{spp}spp_b5.png")
+    rays = w * h * spp * (bounces + 1)
+    log(f"  textured showcase: {secs:.3f} s, {rays / secs / 1e6:.2f} Mray/s, "
+        f"launches {counts}, finite {bool(np.isfinite(sums).all())}, image "
+        f"mean {img.mean():.2f} std {img.std():.2f}")
+    if not (np.isfinite(sums).all() and img.std() > 0):
+        raise AssertionError("textured showcase: image not finite or constant")
+    if not all(counts[k] for k in ("flat_closest_hit", "flat_occluded",
+                                   "alpha_walk", "trans_walk")) \
+            or counts["mt_closest_hit"]:
+        raise AssertionError(f"textured showcase did not take the flat and "
+                             f"walk kernels: {counts}")
+
+    # The same frame through the command line, on the scene written to
+    # disk (PNGs by the port's writer, under the git-ignored build/) and
+    # loaded anew (512-slot blocks), with a profile file.
+    scene_dir = REPO / "build" / "chip_smoke_showcase_tex"
+    path = write_showcase_scene_dir(scene_dir, grid=SHOWCASE_GRID,
+                                    textured=True)
+    prof = scene_dir / "profile.yaml"
+    prof.write_text(f"resolution: {{width: {w}, height: {h}}}\n"
+                    f"samples: {spp}\nbounces: {bounces}\n")
+    png = OUT / "showcase_tex_cli.png"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(["render", str(path), "-o", str(png), "-q", "-p", str(prof),
+              "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cli_counts = launch_counts()
+    size = path.stat().st_size
+    shutil.rmtree(scene_dir)
+    log(f"  textured showcase via the CLI ({w}x{h}, {spp} spp, {bounces} "
+        f"bounces, {size} bytes of scene.isf and its PNGs loaded and built "
+        f"in the timing): {secs:.3f} s, {rays / secs / 1e6:.2f} Mray/s, "
+        f"launches {cli_counts}, png {png.stat().st_size} bytes")
+    if not (cli_counts["alpha_walk"] and cli_counts["trans_walk"]):
+        raise AssertionError(f"CLI frame did not take the walk kernels: "
+                             f"{cli_counts}")
+    return counts
+
+
+def phase_walks_vs_cast(device, tex):
+    """The textured showcase at 480x270, 2 spp, 5 bounces through the walk
+    kernels and with their step cap set to 0 (every lane walks in the
+    cast residual), same seed: at most MAX_WALK_PIXELS of the pixels
+    beyond 1e-3."""
+    import torch
+
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.ops import trwalk
+
+    log("phase 4c: textured showcase, walk kernels against cast walks, "
+        "480x270, 2 spp, 5 bounces")
+    spec = IntegratorSpec(bounces=5)
+    out = {}
+    cap = trwalk.TRWALK_K
+    for label, k in (("kernel walks", cap), ("cast walks", 0)):
+        trwalk.TRWALK_K = k
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out[label] = render_pixel_sums(tex, 480, 270, 1, 2, spec,
+                                           tile_rays=1 << 18) / 2
+            torch.cuda.synchronize()
+        finally:
+            trwalk.TRWALK_K = cap
+        log(f"  {label} (step cap {k}): {time.perf_counter() - t0:.3f} s, "
+            f"launches {launch_counts()}")
+    diff = np.abs(out["kernel walks"] - out["cast walks"]).max(axis=-1)
+    frac = float((diff > 1e-3).mean())
+    log(f"  pixels beyond 1e-3: {frac:.5f} (<= {MAX_WALK_PIXELS}); max "
+        f"{diff.max():.3e}; mean energy {out['kernel walks'].mean():.6f} vs "
+        f"{out['cast walks'].mean():.6f}")
+    if frac > MAX_WALK_PIXELS:
+        raise AssertionError("kernel walks and cast walks disagree")
+
+
 def phase_bvh_vs_brute(device, showcase):
     """The showcase at 480x270, 4 spp, 5 bounces through the flat walk and
     through brute-force MT over every triangle, same seed."""
@@ -732,6 +1153,20 @@ def phase_bvh_vs_brute(device, showcase):
         raise AssertionError("showcase: BVH and brute renders disagree")
 
 
+def oracle_scene(spec: str) -> Path:
+    """An oracle case's scene file: a path in the repo, or ``@showcase_tex_g64``
+    (the textured showcase at grid 64), written here by the port's own
+    showcase writer under the git-ignored build/."""
+    if not spec.startswith("@"):
+        return REPO / spec
+    if spec != "@showcase_tex_g64":
+        raise ValueError(f"unknown generated scene {spec}")
+    from path_tracer_torch.scene.showcase import write_showcase_scene_dir
+
+    return write_showcase_scene_dir(REPO / "build" / "chip_smoke_tex_g64",
+                                    grid=64, textured=True)
+
+
 def phase_oracle(device):
     import importlib.util
 
@@ -759,7 +1194,8 @@ def phase_oracle(device):
         z = np.load(REPO / "tests" / "goldens" / "oracle" / f"{case}.npz")
         oracle = z["radiance"].astype(np.float64)
         w, h, spp, b = (int(z[k]) for k in ("width", "height", "spp", "bounces"))
-        sc = load_scene(REPO / str(z["scene"]), device, use_bvh=bvh)
+        sc = load_scene(oracle_scene(str(z["scene"])), device,
+                        use_bvh=True if bvh else None)
         label = f"{case} [bvh]" if bvh else case
         t0 = time.perf_counter()
         wave = render_pixel_sums(sc, w, h, 1, spp, IntegratorSpec(bounces=b))
@@ -810,49 +1246,64 @@ def main() -> int:
         f"({' | '.join(regs)})")
 
     from path_tracer_torch.scene import build_scene
-    from path_tracer_torch.scene.showcase import showcase_scene
+    from path_tracer_torch.scene.showcase import (
+        showcase_device_scene,
+        showcase_scene,
+    )
 
     t0 = time.perf_counter()
     showcase = build_scene(showcase_scene(SHOWCASE_GRID), ".", device,
                            sl_block=SHOWCASE_BLOCK)
     log(f"  showcase (grid {SHOWCASE_GRID}, {SHOWCASE_BLOCK}-slot blocks) "
         f"built in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    tex = showcase_device_scene(SHOWCASE_GRID, device,
+                                sl_block=SHOWCASE_BLOCK, textured=True)
+    log(f"  textured showcase built (textures written and read) in "
+        f"{time.perf_counter() - t0:.2f} s; tr_kernel_ok {tex.tr_kernel_ok}")
+    if not tex.tr_kernel_ok:
+        raise AssertionError("textured showcase: no walk-kernel tables")
 
     tri_stats, sph_stats = phase_kernels(device)
     flat_stats, occ_err = phase_flat_kernels(device, showcase)
+    alpha_stats, trans_stats = phase_walk_kernels(device, tex)
     times = phase_timing(device)
     flat_times = phase_flat_timing(device, showcase)
+    walk_times = phase_walk_timing(device, tex)
     launches = phase_main_path(device)
     flat_launches = phase_showcase(device, showcase)
+    walk_launches = phase_showcase_tex(device, tex)
     phase_bvh_vs_brute(device, showcase)
+    phase_walks_vs_cast(device, tex)
     phase_oracle(device)
 
+    def entry(name, source, replaces, launches, err, t):
+        return {"name": name, "route": "cuda",
+                "source": f"path_tracer_torch/csrc/{source}",
+                "replaces": f"path_tracer_tpu/ops/{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": t[0],
+                "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
+                "library_ms": None}
+
     kernels = [
-        {"name": "mt_closest_hit", "route": "cuda",
-         "source": "path_tracer_torch/csrc/mt_closest_hit.cu",
-         "replaces": "path_tracer_tpu/ops/pallas_intersect.py:39",
-         "launches": launches["mt_closest_hit"],
-         "max_abs_err": max(s[1] for s in tri_stats),
-         "ms": times["mt"][0], "plain_ms": times["mt"][1]},
-        {"name": "sphere_closest_hit", "route": "cuda",
-         "source": "path_tracer_torch/csrc/sphere_closest_hit.cu",
-         "replaces": "path_tracer_tpu/ops/pallas_spheres.py:34",
-         "launches": launches["sphere_closest_hit"],
-         "max_abs_err": max(s[1] for s in sph_stats),
-         "ms": times["sphere"][0], "plain_ms": times["sphere"][1]},
-        {"name": "flat_closest_hit", "route": "cuda",
-         "source": "path_tracer_torch/csrc/flat_closest_hit.cu",
-         "replaces": "path_tracer_tpu/ops/pallas_bvh.py:549",
-         "launches": flat_launches["flat_closest_hit"],
-         "max_abs_err": max(s[1] for s in flat_stats),
-         "ms": flat_times["camera"][0], "plain_ms": flat_times["camera"][1]},
-        {"name": "flat_occluded", "route": "cuda",
-         "source": "path_tracer_torch/csrc/flat_occluded.cu",
-         "replaces": "path_tracer_tpu/ops/pallas_bvh.py:1058",
-         "launches": flat_launches["flat_occluded"],
-         "max_abs_err": occ_err,
-         "ms": flat_times["occluded"][0],
-         "plain_ms": flat_times["occluded"][1]},
+        entry("mt_closest_hit", "mt_closest_hit.cu", "pallas_intersect.py:39",
+              launches["mt_closest_hit"], max(s[1] for s in tri_stats),
+              times["mt"]),
+        entry("sphere_closest_hit", "sphere_closest_hit.cu",
+              "pallas_spheres.py:34", launches["sphere_closest_hit"],
+              max(s[1] for s in sph_stats), times["sphere"]),
+        entry("flat_closest_hit", "flat_closest_hit.cu", "pallas_bvh.py:549",
+              flat_launches["flat_closest_hit"],
+              max(s[1] for s in flat_stats), flat_times["camera"]),
+        entry("flat_occluded", "flat_occluded.cu", "pallas_bvh.py:1058",
+              flat_launches["flat_occluded"], occ_err,
+              flat_times["occluded"]),
+        entry("alpha_walk", "alpha_walk.cu", "pallas_trwalk.py:305",
+              walk_launches["alpha_walk"], max(s[1] for s in alpha_stats),
+              walk_times["alpha_walk"]),
+        entry("trans_walk", "trans_walk.cu", "pallas_trwalk.py:600",
+              walk_launches["trans_walk"], max(s[1] for s in trans_stats),
+              walk_times["trans_walk"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

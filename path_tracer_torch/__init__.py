@@ -7,16 +7,17 @@ counterpart:
 
 - ``config``  — render profile + resolution
 - ``scene``   — ISF loader (stdlib) and the device scene (``TorchScene``)
-- ``ops``     — RNG, camera, BRDF, texturing, tonemap, intersection; the
-                CUDA kernels' wrappers live in ``ops/cuda_*.py`` and their
-                sources in ``csrc/``
+- ``ops``     — RNG, camera, BRDF, texturing, tonemap, intersection and
+                the transparent walks; the CUDA kernels' wrappers live in
+                ``ops/cuda_*.py`` and their sources in ``csrc/``
 - ``models``  — the wavefront integrator and the render driver
-- ``utils``   — PNG writer
+- ``utils``   — PNG reader and writers
 - ``cli``     — ``path-tracer-torch render``
 
 Importing the package imports nothing but ``torch`` and ``numpy``; PyYAML
-and Pillow are imported only where a profile file or a texture is read, and
-the kernels are built with ``nvcc`` at their first launch.
+is imported only where a profile file is read (textures are decoded with
+the standard library's zlib), and the kernels are built with ``nvcc`` at
+their first launch.
 """
 
 __version__ = "0.1.0"

@@ -32,9 +32,9 @@ class Profile:
     samples: int = 64
     brdf: str = "COOK_TORRANCE"
     tonemap: str = "FILMIC"
-    # Walk bounds of the transparent walks (None = auto-size from the
-    # scene). Kept for profile compatibility; the opaque slice collapses
-    # both walks to one cast and never reads them.
+    # Step bounds of the alpha and shadow-transmittance walks (None =
+    # auto: the scene's num_transparent_hits + 1, the reference's
+    # unbounded walk; all-opaque scenes collapse both to one cast).
     alpha_walk_steps: int | None = None
     shadow_walk_steps: int | None = None
     # Rays per wavefront (pixel tile size, flattened).

@@ -1,25 +1,39 @@
 """Wavefront unidirectional Monte Carlo path-tracing integrator.
 
-Port of ``path_tracer_tpu/models/integrator.py`` for fully opaque scenes
-(brute-force and flat-BVH intersection). Path state lives in [R]-batched
-tensors over a ray wavefront; the JAX package's ``lax.scan`` over bounces
-is a Python loop here (PyTorch runs eagerly).
+Port of ``path_tracer_tpu/models/integrator.py`` (forward rendering). Path
+state lives in [R]-batched tensors over a ray wavefront; the JAX package's
+``lax.scan`` over bounces and its ``while_loop`` walks are Python loops
+here (PyTorch runs eagerly), and its ``lax.cond(any(...))`` gates are host
+checks.
 
 Semantics reproduced exactly (reference quirks included):
 
 - Bounce loop runs bounces+1 iterations.
 - A ray that hits nothing on the FIRST cast of a bounce returns
   color + throughput*background.
-- All-opaque alpha walk: every visited hit accepts (op >= 1 short-circuits
-  the stochastic test), so the walk is exactly ONE closest-hit cast with no
-  opacity sampling or rng draw; shadow attenuation is a binary any-hit,
-  cast for every light at once per bounce (``occluded_multi``: one
-  any-hit launch on BVH scenes, light by light on brute-force scenes),
+- Stochastic alpha walk: hits are visited in distance order; a hit is
+  accepted when ``op >= 1 || (op > 0.001 && rand < op)``, with the uniform
+  of site SITE_ALPHA + k at step k. If NO hit accepts, the FARTHEST
+  visited hit still shades. All-opaque scenes collapse it to ONE
+  closest-hit cast with no opacity sampling or rng draw.
+- Shadows: directional lights multiply (1 - opacity) over ALL occluders,
+  stopping at zero; point lights stop at the first occluder farther from
+  the surface than the light and sample its opacity at the ORIGINAL hit's
+  UV and type (reference quirk). All-opaque scenes make this a binary
+  any-hit, cast for every light at once per bounce (``occluded_multi``),
   directional lights first, then point lights, as in the JAX package.
+- Partitioned scenes (``device_scene.partitioned``: a BVH scene with
+  opaque and possibly-transparent triangles, opaque spheres) cast the
+  opaque half once (the alpha walk's terminator, the lights' any-hit) and
+  walk only the transparent triangles, through the walk kernels
+  (``ops/cuda_trwalk.py``) for the first ``TRWALK_K`` steps and the exact
+  cast walk after them. Other non-opaque scenes take the re-cast walks
+  over the whole scene. The walk bounds default to the scene's
+  ``num_transparent_hits`` + 1, which reproduces the reference's unbounded
+  sorted-hit iteration.
 - Emissive adds throughput*emissive each bounce, and AGAIN inside
   eval_direct scaled by light radiance (reference quirk).
-- Point lights: radiance = color/(4*pi*r^2); only occluders nearer to the
-  surface than the light count.
+- Point lights: radiance = color/(4*pi*r^2).
 - Lights whose radiance is exactly zero are skipped (masked, so NaNs from
   eval_direct cannot leak through a zero light).
 - Indirect bounce: new origin = hit + geometric_normal*1e-5,
@@ -33,22 +47,29 @@ Semantics reproduced exactly (reference quirks included):
   interpolated normal.
 
 The RNG site layout (``rng.site_layout``) is the JAX package's, so the
-port draws the same uniforms for every (pixel, sample, bounce) and renders
-the same image up to float rounding.
+port draws the same uniforms for every (pixel, sample, bounce, walk step)
+and renders the same image up to float rounding.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from path_tracer_torch.ops import brdf, rng, texturing
+from path_tracer_torch.ops import brdf, cuda_trwalk, rng, texturing, trwalk
 from path_tracer_torch.ops.intersect import (
     KIND_TRIANGLE,
     HitRecord,
+    _miss_record,
     closest_hit,
     occluded_multi,
+)
+from path_tracer_torch.ops.trwalk import ALPHA_MIN_OPACITY
+from path_tracer_torch.scene.device_scene import (
+    opaque_view,
+    partitioned,
+    transparent_view,
 )
 
 NORMAL_BIAS = 1e-5
@@ -58,10 +79,13 @@ PI = 3.14159265358979323846
 
 @dataclasses.dataclass(frozen=True)
 class IntegratorSpec:
-    """Static integrator parameters (forward rendering only; the walk
-    bounds of the JAX package's spec come with the transparency slice)."""
+    """Static integrator parameters (forward rendering only)."""
 
     bounces: int = 4
+    # None = auto: the scene's num_transparent_hits + 1 (exactly the
+    # reference's unbounded walk); an int truncates the walk.
+    alpha_walk_steps: Optional[int] = None
+    shadow_walk_steps: Optional[int] = None
     seed: int = 0
 
 
@@ -78,16 +102,6 @@ class Surface(NamedTuple):
 
 def _dot(a, b):
     return (a * b).sum(-1)
-
-
-def _require_opaque(scene):
-    """The alpha and shadow-transmittance walks are a later slice (the
-    intersection dispatch refuses the flat2-sized BVH and sphere-block
-    scenes)."""
-    if not scene.all_opaque:
-        raise NotImplementedError(
-            "scene has non-opaque materials; the alpha and shadow-"
-            "transmittance walks come with the transparency slice of the port")
 
 
 def _hit_model_uv(scene, hit: HitRecord):
@@ -168,31 +182,232 @@ def _surface(scene, hit: HitRecord, o, d) -> Surface:
                    model=model, simple=simple)
 
 
-def _alpha_walk(scene, o, d, walking):
-    """The all-opaque alpha walk: one closest-hit cast (the first hit always
-    accepts). Returns (sel: the shading hit, found [R], first_missed [R]);
-    first_missed = the cast found nothing → background path. Dead lanes are
-    cast as t_prev = +inf (the kernels skip them); their records are
-    replaced by the miss record either way."""
+def _select(mask, a: HitRecord, b: HitRecord) -> HitRecord:
+    """Per lane, record ``a`` where ``mask`` else ``b``."""
+    return HitRecord(*[torch.where(mask, x, y) for x, y in zip(a, b)])
+
+
+def _alpha_cast_walk(scene, cast_scene, o, d, pix, sample_id, bounce, spec,
+                     steps, k0, state, t_op=None):
+    """Steps k0 .. steps-1 of the alpha re-cast walk, stopping when no lane
+    walks. ``state`` = (sel, seen, accepted, t_prev, active). Step k casts
+    against ``cast_scene`` past t_prev, takes the hit (within t_op, when
+    given: the partitioned walk's opaque terminator, whose transparent
+    view holds no spheres) and accepts it with uniform site SITE_ALPHA + k.
+    Returns (sel, seen, accepted)."""
+    sel, seen, accepted, t_prev, active = state
+    stride = rng.site_layout(steps)[3]
+    for k in range(k0, steps):
+        if not bool(active.any()):
+            break
+        hit = closest_hit(o, d, t_prev, cast_scene, active=active,
+                          include_spheres=t_op is None)
+        found = active & hit.valid
+        if t_op is not None:
+            found = found & (hit.t < t_op)
+        model, uv, simple = _hit_model_uv(scene, hit)
+        op = texturing.sample_opacity(scene, model, uv, simple)
+        rnd = rng.uniform(pix, sample_id, rng.SITE_ALPHA + k + stride * bounce,
+                          spec.seed)
+        accept = (op >= 1.0) | ((op > ALPHA_MIN_OPACITY) & (rnd < op))
+        # The walk records every visited hit; the last one shades if none
+        # accepts.
+        sel = _select(found, hit, sel)
+        seen = seen | found
+        accepted = accepted | (found & accept)
+        active = found & ~accept
+        t_prev = torch.where(active, hit.t, t_prev)
+    return sel, seen, accepted
+
+
+def _alpha_walk(scene, o, d, walking, pix, sample_id, bounce, spec,
+                steps: int):
+    """The stochastic alpha walk. Returns (sel: the shading hit, seen [R],
+    first_missed [R]); first_missed = the walk found nothing → background
+    path. Dead lanes are cast as t_prev = +inf (the kernels skip them).
+
+    All-opaque scenes (``steps`` 1): one closest-hit cast, the first hit
+    always accepts. Partitioned scenes: ``_alpha_walk_partitioned``.
+    Otherwise the re-cast walk over the whole scene."""
     r = o.shape[0]
+    miss = _miss_record(r, o.device)
     t_prev = torch.full((r,), -1.0, device=o.device)
-    hit = closest_hit(o, d, t_prev, scene, active=walking)
-    found = walking & hit.valid
-    miss = (float("inf"), 0, 0, 0.0, 0.0, False)
-    sel = HitRecord(*[torch.where(found, h, m) for h, m in zip(hit, miss)])
-    return sel, found, walking & ~found
+    if steps == 1 and scene.all_opaque:
+        hit = closest_hit(o, d, t_prev, scene, active=walking)
+        found = walking & hit.valid
+        return _select(found, hit, miss), found, walking & ~found
+    if partitioned(scene):
+        return _alpha_walk_partitioned(scene, o, d, walking, pix, sample_id,
+                                       bounce, spec, steps)
+    no = torch.zeros_like(walking)
+    sel, seen, _ = _alpha_cast_walk(scene, scene, o, d, pix, sample_id,
+                                    bounce, spec, steps, 0,
+                                    (miss, no, no, t_prev, walking))
+    return sel, seen, walking & ~seen
 
 
-def _shadow_attenuation(active, light_color, blocked):
-    """All-opaque shadow attenuation: every occluder multiplies by
-    (1 - 1) = 0, so it is the light color where no occluder (within range,
-    for point lights) blocks the ray, else 0. ``blocked`` is the light's
-    any-hit result from ``occluded_multi``."""
-    att0 = torch.where(active[:, None],
+def _alpha_walk_partitioned(scene, o, d, walking, pix, sample_id, bounce,
+                            spec, steps: int):
+    """The alpha walk of a partitioned scene: one closest-hit cast against
+    the opaque view (all spheres included) gives the terminator t_op; the
+    walk visits only transparent triangles in front of it, at the same
+    step indices as the whole-scene walk (the opaque hit accepts without
+    drawing). With ``tr_kernel_ok`` the first ``TRWALK_K`` steps run in the
+    alpha walk kernel and lanes still walking go on in the exact cast walk
+    over the transparent view; without it the cast walk does every step.
+    If no hit accepts, the opaque hit shades where there is one, else the
+    farthest transparent hit visited."""
+    r = o.shape[0]
+    dev = o.device
+    hit_op = closest_hit(o, d, torch.full((r,), -1.0, device=dev),
+                         opaque_view(scene), active=walking)
+    t_op = torch.where(hit_op.valid, hit_op.t, float("inf"))
+    # Lanes whose segment to the terminator misses every transparent
+    # cluster skip the walk (``walking`` still drives the background).
+    walk_active = walking & trwalk.hits_transparent_bounds(scene, o, d, t_op)
+    sel = _miss_record(r, dev)
+    no = torch.zeros_like(walking)
+    seen, accepted, still = no, no, walk_active
+    t_prev = torch.full((r,), -1.0, device=dev)
+    k0 = 0
+    if scene.tr_kernel_ok:
+        k0 = min(steps, trwalk.TRWALK_K)
+        still = no
+        if bool(walk_active.any()):
+            stride = rng.site_layout(steps)[3]
+            uniforms = [rng.uniform(pix, sample_id,
+                                    rng.SITE_ALPHA + k + stride * bounce,
+                                    spec.seed) for k in range(k0)]
+            rnd = (torch.stack(uniforms) if uniforms
+                   else torch.empty((0, r), device=dev))
+            w = cuda_trwalk.alpha_walk(
+                scene, o, d, torch.where(walk_active, t_op, -1.0), rnd, k0)
+            found = w.col >= 0
+            slot = scene.tr_colmap[torch.clamp(w.col, min=0).long()]
+            prim = torch.where(found, scene.sl_map[slot.long()], 0)
+            sel = HitRecord(
+                t=w.t, kind=torch.where(found, KIND_TRIANGLE, 0).to(
+                    torch.int32),
+                prim=prim.to(torch.int32), u=w.u, v=w.v, backface=w.dn > 0.0)
+            seen, accepted, still, t_prev = (w.seen, w.accepted, w.still,
+                                             w.t_prev)
+    if k0 < steps:
+        sel, seen, accepted = _alpha_cast_walk(
+            scene, transparent_view(scene), o, d, pix, sample_id, bounce,
+            spec, steps, k0, (sel, seen, accepted, t_prev, still), t_op)
+    op_found = walking & hit_op.valid
+    sel = _select(op_found & ~accepted, hit_op, sel)
+    seen = seen | op_found
+    return sel, seen, walking & ~seen
+
+
+def _trans_cast_walk(scene, cast_scene, s_o, s_d, pd, is_pt, surf_pos,
+                     orig_uv, orig_simple, steps, k0, trans, t_prev,
+                     walking, include_spheres: bool):
+    """Steps k0 .. steps-1 of the transmittance re-cast walk, stopping when
+    no lane walks: trans *= 1 - op per occluder in distance order, until
+    trans == 0. Point lanes (``is_pt``) stop at the first occluder farther
+    from the surface point than pd and sample the occluder's material at
+    the ORIGINAL hit's uv and type; other lanes at the occluder's own."""
+    for _ in range(k0, steps):
+        if not bool(walking.any()):
+            break
+        hit = closest_hit(s_o, s_d, t_prev, cast_scene, active=walking,
+                          include_spheres=include_spheres)
+        found = walking & hit.valid
+        model, uv, simple = _hit_model_uv(scene, hit)
+        t = torch.where(torch.isfinite(hit.t), hit.t, 0.0)
+        oc = s_o + s_d * t[:, None] - surf_pos
+        occ_dist = torch.sqrt(oc[:, 0] * oc[:, 0] + oc[:, 1] * oc[:, 1]
+                              + oc[:, 2] * oc[:, 2])
+        found = found & ~(is_pt & (occ_dist > pd))
+        uv = torch.where(is_pt[:, None], orig_uv, uv)
+        simple = torch.where(is_pt, orig_simple, simple)
+        op = texturing.sample_opacity(scene, model, uv, simple)
+        trans = torch.where(found, trans * (1.0 - op), trans)
+        walking = found & (trans != 0.0)
+        t_prev = torch.where(walking, hit.t, t_prev)
+    return trans
+
+
+def _light_att0(active, light_color):
+    """[R,3] the light colour on active lanes, else 0."""
+    return torch.where(active[:, None],
                        torch.as_tensor(light_color, dtype=torch.float32,
                                        device=active.device)
                        .expand(active.shape[0], 3), 0.0)
-    return torch.where(blocked[:, None], 0.0, att0)
+
+
+def _shadow_attenuation(scene, s_o, s_d, active, light_color, steps,
+                        point_dist=None, surf_pos=None, orig_uv=None,
+                        orig_simple=None):
+    """One light's attenuation in a scene that is neither all opaque nor
+    partitioned: the transmittance re-cast walk over the whole scene
+    (spheres included). Pass point_dist [R], surf_pos [R,3] and the
+    original hit's uv [R,2] and simple [R] for a point light."""
+    att0 = _light_att0(active, light_color)
+    r = s_o.shape[0]
+    dev = s_o.device
+    is_pt = torch.full((r,), point_dist is not None, device=dev)
+    if point_dist is None:
+        point_dist = torch.full((r,), float("inf"), device=dev)
+        surf_pos, orig_uv = s_o, torch.zeros((r, 2), device=dev)
+        orig_simple = torch.zeros_like(active)
+    trans = _trans_cast_walk(
+        scene, scene, s_o, s_d, point_dist, is_pt, surf_pos, orig_uv,
+        orig_simple, steps, 0, torch.ones((r,), device=dev),
+        torch.full((r,), -1.0, device=dev),
+        active & (att0.abs().sum(-1) != 0.0), include_spheres=True)
+    return att0 * trans[:, None]
+
+
+def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, steps,
+                              point_dists, surf_pos, orig_uv, orig_simple,
+                              blockeds):
+    """All L lights' attenuations in a partitioned scene. ``blockeds``: the
+    lights' any-hit results against the opaque view (an opaque occluder
+    in range zeroes the product whatever the order); the transparent
+    transmittance walks of all lights run as one stacked [L*R] walk: the
+    transmittance walk kernel for the first ``TRWALK_K`` steps when
+    ``tr_kernel_ok``, then the exact cast walk over the transparent view.
+    Directional lanes have pd = +inf; point lanes stop behind the light
+    and sample the original hit's uv (see ``_trans_cast_walk``). One light
+    (L = 1) gives the JAX package's single-light partitioned form."""
+    n_l = len(dirs)
+    r = s_o.shape[0]
+    dev = s_o.device
+    att0s = [_light_att0(a, c) for a, c in zip(actives, colors)]
+    inf = torch.full((r,), float("inf"), device=dev)
+    o3 = s_o.repeat(n_l, 1)
+    d3 = torch.cat(dirs)
+    pd3 = torch.cat([inf if pd is None else pd for pd in point_dists])
+    is_pt = torch.cat([torch.full((r,), pd is not None, device=dev)
+                       for pd in point_dists])
+    sp3, ouv3 = surf_pos.repeat(n_l, 1), orig_uv.repeat(n_l, 1)
+    os3 = orig_simple.repeat(n_l)
+    walking0 = torch.cat([a & ~b & (att0.abs().sum(-1) != 0.0)
+                          for a, b, att0 in zip(actives, blockeds, att0s)])
+    # Segments that miss every transparent cluster keep trans 1 (t_max the
+    # distance to the light, with a margin for the shadow bias).
+    walking0 = walking0 & trwalk.hits_transparent_bounds(
+        scene, o3, d3, pd3 * 1.0001 + 1e-3)
+    n = n_l * r
+    trans = torch.ones((n,), device=dev)
+    t_prev = torch.full((n,), -1.0, device=dev)
+    still = walking0
+    k0 = 0
+    if scene.tr_kernel_ok:
+        k0 = min(steps, trwalk.TRWALK_K)
+        still = torch.zeros_like(walking0)
+        if bool(walking0.any()):
+            trans, t_prev, still = cuda_trwalk.trans_walk(
+                scene, o3, d3, pd3, is_pt, sp3, ouv3, os3, walking0, k0)
+    if k0 < steps:
+        trans = _trans_cast_walk(scene, transparent_view(scene), o3, d3, pd3,
+                                 is_pt, sp3, ouv3, os3, steps, k0, trans,
+                                 t_prev, still, include_spheres=False)
+    return [torch.where(b[:, None], 0.0, att0 * trans[i * r:(i + 1) * r, None])
+            for i, (att0, b) in enumerate(zip(att0s, blockeds))]
 
 
 def render_wavefront(scene, pixel_ids, width: int, height: int,
@@ -201,7 +416,6 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
     pixel_ids: [R] int32 (y*width+x) on the scene's device."""
     from path_tracer_torch.ops.camera import generate_rays
 
-    _require_opaque(scene)
     o, d = generate_rays(pixel_ids, width, height, scene, sample_id, spec.seed)
     r = o.shape[0]
     dev = o.device
@@ -209,11 +423,20 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
     throughput = torch.ones((r, 3), device=dev)
     alive = torch.ones((r,), dtype=torch.bool, device=dev)
     pix = pixel_ids
-    # All-opaque: the alpha walk is one cast, so the historical site layout.
-    s_g1, s_g2, s_rr, s_stride = rng.site_layout(1)
+    # Fully opaque scenes collapse both walks to one cast each.
+    auto_steps = scene.num_transparent_hits + 1
+    alpha_steps = 1 if scene.all_opaque else (
+        spec.alpha_walk_steps if spec.alpha_walk_steps is not None
+        else auto_steps)
+    shadow_steps = 1 if scene.all_opaque else (
+        spec.shadow_walk_steps if spec.shadow_walk_steps is not None
+        else auto_steps)
+    s_g1, s_g2, s_rr, s_stride = rng.site_layout(alpha_steps)
+    part = partitioned(scene)
 
     for bounce in range(spec.bounces + 1):
-        sel, _, first_missed = _alpha_walk(scene, o, d, alive)
+        sel, _, first_missed = _alpha_walk(scene, o, d, alive, pix, sample_id,
+                                           bounce, spec, alpha_steps)
 
         # Background: only rays whose first cast this bounce missed.
         color = torch.where(first_missed[:, None],
@@ -242,8 +465,8 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
                 facing = facing | emissive_lane
             return alive & facing
 
-        # Every light's shadow cast in one call: directional lights (raw,
-        # unnormalized direction), then point lights (toward the light).
+        # Every light's shadow, directional lights (raw, unnormalized
+        # direction) first, then point lights (toward the light).
         n_dir = scene.num_dir_lights
         dists = []
         to_lights = [(-scene.dir_dir[li]).expand_as(d) for li in range(n_dir)]
@@ -253,22 +476,38 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
             to_lights.append(-(to_surf / dist[:, None]))
             dists.append(dist)
         actives = [shadow_active(ld) for ld in to_lights]
-        blocked = (occluded_multi(shadow_o, to_lights, scene,
-                                  surf_pos=surf.pos,
-                                  max_dists=[None] * n_dir + dists,
-                                  actives=actives) if to_lights else [])
+        max_dists = [None] * n_dir + dists
+        colors = ([scene.dir_color[li] for li in range(n_dir)]
+                  + [1.0] * scene.num_point_lights)
+        if scene.all_opaque or part:
+            # One any-hit launch for all lights (against the opaque view of
+            # a partitioned scene: any opaque occluder in range zeroes the
+            # product whatever the order).
+            blocked = (occluded_multi(
+                shadow_o, to_lights, opaque_view(scene) if part else scene,
+                surf_pos=surf.pos, max_dists=max_dists, actives=actives)
+                if to_lights else [])
+        if scene.all_opaque:
+            atts = [torch.where(b[:, None], 0.0, _light_att0(a, c))
+                    for a, b, c in zip(actives, blocked, colors)]
+        elif part:
+            atts = (_shadow_attenuation_multi(
+                scene, shadow_o, to_lights, actives, colors, shadow_steps,
+                max_dists, surf.pos, surf.uv, surf.simple, blocked)
+                if to_lights else [])
+        else:
+            atts = [_shadow_attenuation(scene, shadow_o, ld, a, c,
+                                        shadow_steps, md, surf.pos, surf.uv,
+                                        surf.simple)
+                    for ld, a, c, md in zip(to_lights, actives, colors,
+                                            max_dists)]
 
         for li, to_light in enumerate(to_lights):
-            if li < n_dir:
-                radiance = _shadow_attenuation(actives[li],
-                                               scene.dir_color[li],
-                                               blocked[li])
-            else:
+            radiance = atts[li]
+            if li >= n_dir:
                 dist = dists[li - n_dir]
-                dissipated = (scene.point_color[li - n_dir]
-                              / (4.0 * PI * dist * dist)[:, None])
-                radiance = _shadow_attenuation(actives[li], 1.0,
-                                               blocked[li]) * dissipated
+                radiance = radiance * (scene.point_color[li - n_dir]
+                                       / (4.0 * PI * dist * dist)[:, None])
             lit = alive & (radiance.sum(-1) != 0.0)
             ev = brdf.eval_direct(mat, f0, surf.normal, view, to_light)
             color = torch.where(lit[:, None],

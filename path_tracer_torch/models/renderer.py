@@ -21,7 +21,10 @@ from path_tracer_torch.ops.sorting import morton_pixel_order
 
 
 def integrator_spec(profile: Profile) -> IntegratorSpec:
-    return IntegratorSpec(bounces=profile.bounces, seed=profile.seed)
+    return IntegratorSpec(bounces=profile.bounces,
+                          alpha_walk_steps=profile.alpha_walk_steps,
+                          shadow_walk_steps=profile.shadow_walk_steps,
+                          seed=profile.seed)
 
 
 def render_pixel_sums(scene, width: int, height: int, sample_start: int,

@@ -5,14 +5,14 @@ Both are plain-C-ABI shared libraries loaded with ``ctypes`` and cached in
 flags, so a fresh checkout builds them on first call and later processes
 reuse the files.
 
-- ``build_bvh`` compiles the JAX package's ``native/bvh.cpp`` with the
-  same ``g++`` flags (``path_tracer_tpu/native/build.py``) and returns the
-  whole flattened binned-SAH BVH (``Bvh``): the leaf-4 tree gives the
-  order the scene builder stores every triangle array in, the superleaf
-  tree (one leaf per block of ``sl_block`` triangles) gives the flat
-  walk's block tables. The source file is read by path; no module of the
-  JAX package is imported.
-- ``kernels`` compiles ``csrc/*.cu`` with ``nvcc`` for ``sm_90a``. No
+- ``build_bvh`` compiles ``csrc/bvh.cpp`` (a byte-for-byte copy of the
+  JAX package's ``native/bvh.cpp``) with the same ``g++`` flags as the
+  JAX package's builder and returns the whole flattened binned-SAH BVH
+  (``Bvh``): the leaf-4 tree gives the order the scene builder stores
+  every triangle array in, the superleaf tree (one leaf per block of
+  ``sl_block`` triangles) gives the flat walk's block tables.
+- ``kernels`` compiles ``csrc/*.cu`` with ``nvcc`` for ``sm_90a``, one
+  ``nvcc`` process per source, all started together, then links them. No
   ``--use_fast_math``: the 1e-6 intersection cutoffs and the sphere table's
   1e30 padding rely on IEEE division, sqrt and denormals. ``-fmad=false``
   keeps every multiply and add separately rounded, as the plain PyTorch
@@ -39,40 +39,52 @@ import torch
 _PKG = Path(__file__).resolve().parent
 _REPO = _PKG.parent
 BUILD_DIR = _REPO / "build" / "path_tracer_torch"
-BVH_SRC = _REPO / "path_tracer_tpu" / "native" / "bvh.cpp"
 CSRC = _PKG / "csrc"
+BVH_SRC = CSRC / "bvh.cpp"
 
 # Same flags as the JAX package's builder, so both give one permutation.
 BVH_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _bvh_lib = None
 _kernels = None
 
 
-def _cached_build(name: str, sources: list[Path], cmd) -> tuple[Path, str]:
+def _run(cmds: list) -> str:
+    """Run the commands side by side; raise with their output if any
+    fails, else return their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed:\n{out}")
+    return "".join(outs)
+
+
+def _cached_build(name: str, sources: list[Path], flags: list,
+                  build) -> tuple[Path, str]:
     """Build ``sources`` into BUILD_DIR/lib<name>_<hash>.so unless present.
 
-    ``cmd(out)`` gives the compiler command line. Returns (path, compiler
+    ``build(out)`` compiles into ``out`` and returns the compilers' output;
+    the hash covers the sources and ``flags``. Returns (path, compiler
     output). Concurrent builders each write a private temp file and rename
     it into place, so a reader never sees a partial library."""
     h = hashlib.sha1()
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(cmd(Path("out.so"))).encode())
+    h.update(" ".join(flags).encode())
     so_path = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
     if so_path.exists():
         return so_path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so_path.with_suffix(f".{os.getpid()}.tmp.so")
-    proc = subprocess.run(cmd(tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building {name} failed:\n{proc.stdout}{proc.stderr}")
+    log = build(tmp)
     tmp.replace(so_path)
-    return so_path, proc.stdout + proc.stderr
+    return so_path, log
 
 
 class Bvh(NamedTuple):
@@ -91,8 +103,9 @@ def _bvh_library() -> ctypes.CDLL:
     global _bvh_lib
     if _bvh_lib is None:
         path, _ = _cached_build(
-            "ptt_torch_bvh", [BVH_SRC],
-            lambda out: ["g++", *BVH_FLAGS, str(BVH_SRC), "-o", str(out)])
+            "ptt_torch_bvh", [BVH_SRC], BVH_FLAGS,
+            lambda out: _run([["g++", *BVH_FLAGS, str(BVH_SRC), "-o",
+                               str(out)]]))
         lib = ctypes.CDLL(str(path))
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -147,16 +160,29 @@ class Kernels:
         self.build_log = log
 
 
+def _build_kernels(out: Path) -> str:
+    """One nvcc per ``csrc/*.cu``, all started together, then the link."""
+    nvcc = _nvcc()
+    cus = sorted(CSRC.glob("*.cu"))
+    objs = [out.with_suffix(f".{cu.stem}.o") for cu in cus]
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", str(cu), "-o", str(obj)]
+                    for cu, obj in zip(cus, objs)])
+        return log + _run([[nvcc, "-shared", *NVCC_FLAGS[:2],
+                            *map(str, objs), "-o", str(out)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+
+
 def kernels() -> Kernels:
     """Build (once per source hash) and load ``csrc/*.cu``."""
     global _kernels
     if _kernels is None:
         sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-        cus = [str(s) for s in sources if s.suffix == ".cu"]
         t0 = time.perf_counter()
-        path, log = _cached_build(
-            "ptt_torch_kernels", sources,
-            lambda out: [_nvcc(), *NVCC_FLAGS, *cus, "-o", str(out)])
+        path, log = _cached_build("ptt_torch_kernels", sources, NVCC_FLAGS,
+                                  _build_kernels)
         seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -173,6 +199,14 @@ def kernels() -> Kernels:
         #  device, stream)
         lib.ptt_flat_occluded.restype = ci
         lib.ptt_flat_occluded.argtypes = [vp] * 6 + [ci] * 5 + [vp, ci, vp]
+        # (o, d, t_op, rnd, bw, rows, tex, lut, pages, R, T, wp, steps_cap,
+        #  textured, fout, iout, device, stream)
+        lib.ptt_alpha_walk.restype = ci
+        lib.ptt_alpha_walk.argtypes = [vp] * 9 + [ci] * 5 + [vp, vp, ci, vp]
+        # (o, d, aux, bw, rows, tex, lut, pages, R, T, wp, steps_cap,
+        #  textured, fout, device, stream)
+        lib.ptt_trans_walk.restype = ci
+        lib.ptt_trans_walk.argtypes = [vp] * 8 + [ci] * 5 + [vp, ci, vp]
         _kernels = Kernels(lib, seconds, log)
     return _kernels
 
@@ -302,3 +336,87 @@ def launch_flat_occluded(o, ds, t_maxes, blkflat, blkid, bw, block: int):
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return out
+
+
+def _check_tr_tables(fn: str, scene, device):
+    """The transparent table a walk kernel reads; returns (T, wp)."""
+    n_cols = scene.tr_bw.shape[1] if scene.tr_bw.dim() == 2 else -1
+    wp = scene.tr_tex8.shape[1] if scene.tr_tex8.dim() == 2 else -1
+    n_pages = scene.tr_page_table.shape[0]
+    _check("tr_bw", scene.tr_bw, (16, n_cols), torch.float32, device)
+    _check("tr_rows", scene.tr_rows, (9, n_cols), torch.float32, device)
+    _check("tr_tex8", scene.tr_tex8, (scene.tr_tex8.shape[0], wp),
+           torch.uint8, device)
+    _check("tr_lut", scene.tr_lut, (1, 256), torch.float32, device)
+    _check("tr_page_table", scene.tr_page_table, (n_pages, 3), torch.int32,
+           device)
+    if n_cols <= 0 or n_cols % 128 or 16 * n_cols >= 2**31 or n_pages < 1:
+        raise ValueError(f"{fn}: a table of {n_cols} columns and {n_pages} "
+                         "pages is not a walk table")
+    return n_cols, wp
+
+
+def launch_alpha_walk(o, d, t_op, rnd, scene, steps_cap: int):
+    """Check the operands of the alpha walk kernel, allocate its outputs
+    and launch it on the current stream (no synchronisation).
+
+    o, d: [R,3] f32; t_op: [R] f32 (< 0 dead); rnd: [steps_cap, R] f32;
+    the scene's tr_* tables. Returns (fout [8,R] f32, iout [R] i32)."""
+    fn = "ptt_alpha_walk"
+    device = o.device
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
+    r = o.shape[0]
+    _check("o", o, (r, 3), torch.float32, device)
+    _check("d", d, (r, 3), torch.float32, device)
+    _check("t_op", t_op, (r,), torch.float32, device)
+    _check("rnd", rnd, (steps_cap, r), torch.float32, device)
+    n_cols, wp = _check_tr_tables(fn, scene, device)
+    if steps_cap < 0 or 8 * r >= 2**31 or steps_cap * r >= 2**31:
+        raise ValueError(f"{fn}: {r} rays x {steps_cap} steps out of range")
+    lib = kernels().lib
+    fout = torch.empty((8, r), dtype=torch.float32, device=device)
+    iout = torch.empty((r,), dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.ptt_alpha_walk(
+        o.data_ptr(), d.data_ptr(), t_op.data_ptr(), rnd.data_ptr(),
+        scene.tr_bw.data_ptr(), scene.tr_rows.data_ptr(),
+        scene.tr_tex8.data_ptr(), scene.tr_lut.data_ptr(),
+        scene.tr_page_table.data_ptr(), r, n_cols, wp, steps_cap,
+        int(scene.tr_textured), fout.data_ptr(), iout.data_ptr(),
+        device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    return fout, iout
+
+
+def launch_trans_walk(o, d, aux, scene, steps_cap: int):
+    """Check the operands of the transmittance walk kernel, allocate its
+    output and launch it on the current stream (no synchronisation).
+
+    o, d: [R,3] f32; aux: [8,R] f32 (pd, is point, surface xyz, original
+    uv, original is sphere); the scene's tr_* tables. Returns fout [3,R]
+    f32 (trans, t_prev, still walking)."""
+    fn = "ptt_trans_walk"
+    device = o.device
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
+    r = o.shape[0]
+    _check("o", o, (r, 3), torch.float32, device)
+    _check("d", d, (r, 3), torch.float32, device)
+    _check("aux", aux, (8, r), torch.float32, device)
+    n_cols, wp = _check_tr_tables(fn, scene, device)
+    if steps_cap < 0 or 8 * r >= 2**31:
+        raise ValueError(f"{fn}: {r} rays out of range")
+    lib = kernels().lib
+    fout = torch.empty((3, r), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.ptt_trans_walk(
+        o.data_ptr(), d.data_ptr(), aux.data_ptr(), scene.tr_bw.data_ptr(),
+        scene.tr_rows.data_ptr(), scene.tr_tex8.data_ptr(),
+        scene.tr_lut.data_ptr(), scene.tr_page_table.data_ptr(), r, n_cols,
+        wp, steps_cap, int(scene.tr_textured), fout.data_ptr(),
+        device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    return fout

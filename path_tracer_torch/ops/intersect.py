@@ -13,8 +13,8 @@ Semantics:
 ``moller_trumbore``, ``closest_hit_triangles`` and ``closest_hit_spheres``
 are the plain PyTorch versions: the port of the jnp reference path, used for
 tensors on the CPU and as the reference the CUDA kernels are held against.
-``closest_hit``, ``occluded`` and ``occluded_multi`` dispatch on the scene
-and the tensors' device:
+``closest_hit`` and ``occluded_multi`` dispatch on the scene and the
+tensors' device:
 
 - brute-force scenes (``use_bvh`` False): ``cuda_intersect`` (MT) and
   ``cuda_spheres``; shadows take the nearest triangle hit, light by light;
@@ -244,15 +244,19 @@ def _closest_hit_tris_dispatch(o, d, t_prev, scene) -> HitRecord:
     return closest_hit_triangles_cuda(o, d, t_prev, scene)
 
 
-def closest_hit(o, d, t_prev, scene, active=None) -> HitRecord:
+def closest_hit(o, d, t_prev, scene, active=None,
+                include_spheres: bool = True) -> HitRecord:
     """Closest hit among all primitives with t > t_prev (t_prev = -1 for a
     fresh cast: triangles still enforce t > 1e-6, spheres allow t >= 0).
-    ``active`` marks dead lanes t_prev = +inf, which no test passes."""
+    ``active`` marks dead lanes t_prev = +inf, which no test passes.
+    ``include_spheres=False`` casts against the triangles alone (the
+    partitioned walks over the transparent view: every sphere is opaque
+    and lives in the opaque cast)."""
     from path_tracer_torch.ops.cuda_spheres import closest_hit_spheres_cuda
 
     r = o.shape[0]
     has_tris = scene.num_real_triangles != 0
-    has_sphs = scene.num_real_spheres != 0
+    has_sphs = include_spheres and scene.num_real_spheres != 0
     if active is not None:
         t_prev = torch.where(active, t_prev, float("inf"))
     _require_ported_walks(scene)
@@ -274,14 +278,6 @@ def closest_hit(o, d, t_prev, scene, active=None) -> HitRecord:
         return tri
     tri_wins = tri.t <= sph.t  # both inf → KIND_NONE either way
     return HitRecord(*[torch.where(tri_wins, a, b) for a, b in zip(tri, sph)])
-
-
-def occluded(o, d, scene, surf_pos=None, max_dist=None,
-             active=None) -> torch.Tensor:
-    """[R] bool any-hit occlusion for fully opaque scenes: ``occluded_multi``
-    with one light."""
-    return occluded_multi(o, [d], scene, surf_pos=surf_pos,
-                          max_dists=[max_dist], actives=[active])[0]
 
 
 def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,

@@ -68,6 +68,15 @@ class MaterialSample(NamedTuple):
     ior: torch.Tensor  # [R]
 
 
+def sample_opacity(scene, model_id, uv, simple):
+    """Opacity [R] alone (what the alpha and transmittance walks read)."""
+    m = model_id.long()
+    if not _has(scene, _OPACITY):
+        return scene.mat_opacity_factor[m]
+    return sample_gray(scene, scene.mat_opacity_tex[m], uv,
+                       scene.mat_opacity_factor[m], simple)
+
+
 def sample_material(scene, model_id, uv, simple) -> MaterialSample:
     """Full material sample through the per-model factor/texture tables."""
     m = model_id.long()

@@ -1,7 +1,7 @@
 """Device scene: flat SoA tensors for the wavefront renderer.
 
 Port of the parts of ``path_tracer_tpu/scene/device_scene.py`` that the
-opaque slices (brute force and the flat BVH walk) read:
+brute-force and flat-BVH walks, opaque and transparent, read:
 
 - all mesh triangles in ONE global array (v0, edges, vertex normals, UVs,
   tangent, model id), padded to a multiple of 256 with degenerate rows
@@ -13,6 +13,8 @@ opaque slices (brute force and the flat BVH walk) read:
 - per-model material factor + texture-id tables and the flat RGB atlas;
 - lights split by type, camera, background;
 - the superleaf block tables of the flat BVH walk (``sl_*``, below);
+- the opacity partition and the transparent walks' tables (``tr_*``,
+  below);
 - the statics the integrator branches on.
 
 Triangle order: the JAX builder stores every triangle array in the leaf
@@ -21,20 +23,47 @@ walk the BVH. ``build_scene`` builds the same ``bvh.cpp`` with the same
 flags (``native.build_bvh``), so prim ids and tie-breaks match the JAX
 package exactly.
 
-Superleaf tables (all-opaque scenes are one partition): a second SAH BVH
-with leaf size ``sl_block`` over the leaf-4-permuted triangles; each of its
-``sl_n_blocks`` leaves is one block of ``sl_block`` packed slots (block b
-owns slots [b*sl_block, (b+1)*sl_block), unused slots are zero rows):
+Opacity partition: a triangle is "possibly transparent" when its model's
+opacity factor is < 1 or it has an opacity texture, unless the texture's
+footprint over the triangle's wrapped UV box (one texel wider each way) is
+>= 1 everywhere. When a scene has both kinds, the triangles are stored
+opaque first (``n_tris_opaque`` of them), and each partition gets its own
+leaf-4 BVH and superleaf BVH.
+
+Superleaf tables: per partition, a second SAH BVH with leaf size
+``sl_block`` over the leaf-4-permuted triangles; each of its leaves is one
+block of ``sl_block`` packed slots, numbered opaque partition first (block
+b owns slots [b*sl_block, (b+1)*sl_block), unused slots are zero rows):
 
 - ``sl_bw_t`` [16, n_blocks*sl_block]: Baldwin-Weber rows n.xyz, c, Au.xyz,
   au, Av.xyz, av, then 4 zero rows (computed in float64, stored float32);
 - ``sl_blkflat`` [8, Bpad]: rows 0-2 block AABB min, 3-5 max, 6-7 zero;
-  Bpad is the block count rounded up to a multiple of 128 (>= 128);
+  opaque blocks fill columns [0, sl_cols_opaque), transparent blocks
+  start at ``sl_cols_opaque`` (each partition's column count rounded up
+  to a multiple of 128; Bpad >= 128);
 - ``sl_blkid`` [1, Bpad]: block id per column, -1 on pad columns;
 - ``sl_map`` [n_blocks*sl_block]: packed slot -> global triangle id;
 - ``sl_inv`` [N]: global triangle id -> packed slot;
 - ``sph_row_base``: n_blocks*sl_block (the JAX package's first sphere row
-  of its wide attribute table; fused sphere hits report this + index).
+  of its wide attribute table; fused sphere hits report this + index);
+- ``tr_prefilter`` [32, 6]: up to 32 AABBs (min, max) over the
+  transparent triangles, padding boxes at 1e30.
+
+Transparent-walk tables (``_build_tr_walk_tables``; ``tr_kernel_ok``
+False leaves placeholders): the real transparent slots as compact columns
+in Morton order of their centroids:
+
+- ``tr_bw`` [16, Tp]: their Baldwin-Weber rows (Tp >= 256, a multiple of
+  128; pad columns all zero);
+- ``tr_rows`` [9, Tp]: uv0.xy, (uv1-uv0).xy, (uv2-uv0).xy, opacity
+  factor, has-opacity-texture, page index;
+- ``tr_grp`` [7, GP]: AABB of each 128-column group and a valid flag;
+- ``tr_colmap`` / ``tr_model`` [Tp]: packed slot and model of a column;
+- ``tr_tex8`` [Hp, Wp] uint8: the distinct opacity textures stacked as
+  pages (``tr_pages``: (atlas offset, w, h, ybase) each;
+  ``tr_page_table`` [P, 3] int32 (w, h, ybase) on the device, a 1x1
+  dummy page for factor-only scenes); ``tr_lut`` [1, 256]: v/255 as the
+  atlas rounds it.
 """
 from __future__ import annotations
 
@@ -59,17 +88,23 @@ _FLOAT_FIELDS = (
     "mat_metalness_factor", "mat_roughness_factor", "mat_ior",
     "tex_data", "point_pos", "point_color", "dir_dir", "dir_color",
     "cam_to_world", "cam_fov", "background", "sl_bw_t", "sl_blkflat",
+    "tr_prefilter", "tr_bw", "tr_rows", "tr_grp", "tr_lut",
 )
 _INT_FIELDS = (
     "tri_model", "sph_model",
     "mat_albedo_tex", "mat_emissive_tex", "mat_opacity_tex",
     "mat_metalness_tex", "mat_roughness_tex", "mat_normal_tex",
     "tex_offset", "tex_width", "tex_height", "sl_blkid", "sl_map", "sl_inv",
+    "tr_colmap", "tr_model",
 )
-ARRAY_FIELDS = _FLOAT_FIELDS + _INT_FIELDS
+_U8_FIELDS = ("tr_tex8",)
+ARRAY_FIELDS = _FLOAT_FIELDS + _INT_FIELDS + _U8_FIELDS
 STATIC_FIELDS = ("all_opaque", "no_textures", "no_emissive", "has_tex",
                  "num_real_triangles", "num_real_spheres", "use_bvh",
-                 "sph_use_blocks", "sl_block", "sl_n_blocks", "sph_row_base")
+                 "sph_use_blocks", "sl_block", "sl_n_blocks", "sph_row_base",
+                 "n_tris_opaque", "sl_n_blocks_opaque", "sl_cols_opaque",
+                 "num_transparent_hits", "sph_all_opaque", "tr_kernel_ok",
+                 "tr_textured", "tr_pages")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +162,15 @@ class TorchScene:
     sl_blkid: torch.Tensor
     sl_map: torch.Tensor
     sl_inv: torch.Tensor
+    tr_prefilter: torch.Tensor
+    tr_bw: torch.Tensor
+    tr_rows: torch.Tensor
+    tr_grp: torch.Tensor
+    tr_lut: torch.Tensor
+    tr_colmap: torch.Tensor
+    tr_model: torch.Tensor
+    tr_tex8: torch.Tensor
+    tr_page_table: torch.Tensor
     # --- statics ---
     all_opaque: bool  # every material has opacity factor >= 1, no texture
     no_textures: bool
@@ -139,6 +183,16 @@ class TorchScene:
     sl_block: int  # triangles per superleaf block
     sl_n_blocks: int  # real blocks (columns of sl_blkflat with id >= 0)
     sph_row_base: int
+    n_tris_opaque: int  # triangles [0, n_tris_opaque) are certainly opaque
+    sl_n_blocks_opaque: int
+    sl_cols_opaque: int  # first transparent column of sl_blkflat
+    # Bound on the possibly-transparent hits of one ray line (transparent
+    # triangles once, transparent spheres twice); walks take this + 1 steps.
+    num_transparent_hits: int
+    sph_all_opaque: bool
+    tr_kernel_ok: bool  # the tr_* tables are valid for the walk kernels
+    tr_textured: bool  # some transparent column samples an opacity texture
+    tr_pages: tuple  # (atlas offset, w, h, ybase) per opacity texture
 
     @property
     def device(self) -> torch.device:
@@ -160,12 +214,22 @@ def from_numpy(fields: dict, statics: dict, device) -> TorchScene:
     nothing else, so any scene's tables can be carried across."""
     kw = {}
     for name in ARRAY_FIELDS:
-        dtype = np.float32 if name in _FLOAT_FIELDS else np.int32
-        arr = np.array(fields[name], dtype=dtype, order="C")  # a fresh copy
+        if name in _U8_FIELDS:  # the JAX package keeps these values in bf16
+            arr = np.array(np.asarray(fields[name], np.float32), np.uint8)
+        else:
+            dtype = np.float32 if name in _FLOAT_FIELDS else np.int32
+            arr = np.array(fields[name], dtype=dtype, order="C")  # a copy
         kw[name] = torch.from_numpy(arr).to(device)
     for name in STATIC_FIELDS:
         value = statics[name]
-        kw[name] = tuple(bool(x) for x in value) if name == "has_tex" else value
+        if name == "has_tex":
+            value = tuple(bool(x) for x in value)
+        elif name == "tr_pages":
+            value = tuple(tuple(int(x) for x in p) for p in value)
+        kw[name] = value
+    pages = [p[1:] for p in kw["tr_pages"]] or [(1, 1, 0)]
+    kw["tr_page_table"] = torch.tensor(pages, dtype=torch.int32,
+                                       device=device)
     return TorchScene(**kw)
 
 
@@ -253,51 +317,231 @@ def _baldwin_weber_rows(sl_tris: np.ndarray) -> np.ndarray:
     return out
 
 
-def _superleaf_tables(v0, e1, e2, n_tris: int, n_pad: int,
+def _superleaf_tables(v0, e1, e2, ranges: list, n_pad: int,
                       sl_block: int) -> dict:
     """The flat walk's block tables over the (leaf-4-permuted) triangles,
-    for one opacity partition (``device_scene.py:1035-1134`` of the JAX
-    package with every triangle opaque)."""
+    one superleaf BVH per opacity partition in ``ranges`` ([start, end)
+    triangle ranges, opaque first), as ``device_scene.py:1035-1138`` of
+    the JAX package builds them. Also returns the packed (v0, e1, e2) rows
+    ``sl_tris`` [n_blocks*sl_block, 9] and each partition's block count."""
     from path_tracer_torch.native import build_bvh
 
     if sl_block <= 0 or sl_block % 128:
         raise ValueError(f"sl_block must be a positive multiple of 128, "
                          f"got {sl_block}")
-    if n_tris == 0:  # the JAX builder's placeholders
-        return dict(sl_bw_t=_baldwin_weber_rows(np.zeros((sl_block, 9),
-                                                         np.float32)),
+    if not ranges:  # the JAX builder's placeholders
+        sl_tris = np.zeros((sl_block, 9), np.float32)
+        return dict(sl_tris=sl_tris, sl_bw_t=_baldwin_weber_rows(sl_tris),
                     sl_map=np.zeros(sl_block, np.int32),
                     sl_inv=np.zeros(n_pad, np.int32),
                     sl_blkflat=np.zeros((8, 128), np.float32),
                     sl_blkid=np.full((1, 128), -1, np.int32),
-                    sl_n_blocks=0, sph_row_base=sl_block)
+                    part_blocks=[], sl_n_blocks=0, sph_row_base=sl_block)
+    n_tris = ranges[-1][1]
     q0 = v0[:n_tris]
     q1 = q0 + e1[:n_tris]
     q2 = q0 + e2[:n_tris]
-    slp = build_bvh(np.minimum(np.minimum(q0, q1), q2),
-                    np.maximum(np.maximum(q0, q1), q2), leaf_size=sl_block)
-    leaves = np.nonzero(slp.prim_count > 0)[0]
-    n_blocks = len(leaves)
+    qmin = np.minimum(np.minimum(q0, q1), q2)
+    qmax = np.maximum(np.maximum(q0, q1), q2)
+    trees = [build_bvh(qmin[a:b], qmax[a:b], leaf_size=sl_block)
+             for a, b in ranges]
+    leaves = [np.nonzero(t.prim_count > 0)[0] for t in trees]
+    part_blocks = [len(lv) for lv in leaves]
+    n_blocks = sum(part_blocks)
     sl_tris = np.zeros((n_blocks * sl_block, 9), np.float32)
     sl_map = np.zeros(n_blocks * sl_block, np.int32)
     sl_inv = np.zeros(n_pad, np.int32)
-    for b, node in enumerate(leaves):
-        f, c = int(slp.first_prim[node]), int(slp.prim_count[node])
-        ids = slp.prim_order[f:f + c]
-        base = b * sl_block
-        sl_tris[base:base + c] = np.concatenate([v0[ids], e1[ids], e2[ids]],
-                                                axis=1)
-        sl_map[base:base + c] = ids
-        sl_inv[ids] = np.arange(base, base + c, dtype=np.int32)
-    b_pad = max(128, ((n_blocks + 127) // 128) * 128)
+    # Opaque blocks fill columns [0, cols_op), transparent ones follow at
+    # the next multiple of 128; pad columns carry block id -1.
+    col0 = [0]
+    if len(ranges) == 2:
+        col0.append(((part_blocks[0] + 127) // 128) * 128)
+    b_pad = max(128, sum(((n + 127) // 128) * 128 for n in part_blocks))
     sl_blkflat = np.zeros((8, b_pad), np.float32)
-    sl_blkflat[0:3, :n_blocks] = slp.node_min[leaves].T
-    sl_blkflat[3:6, :n_blocks] = slp.node_max[leaves].T
     sl_blkid = np.full((1, b_pad), -1, np.int32)
-    sl_blkid[0, :n_blocks] = np.arange(n_blocks)
-    return dict(sl_bw_t=_baldwin_weber_rows(sl_tris), sl_map=sl_map,
-                sl_inv=sl_inv, sl_blkflat=sl_blkflat, sl_blkid=sl_blkid,
+    bg = 0
+    for (a, _), slp, lv, c0 in zip(ranges, trees, leaves, col0):
+        for k, node in enumerate(lv):
+            f, c = int(slp.first_prim[node]), int(slp.prim_count[node])
+            ids = a + slp.prim_order[f:f + c]
+            base = (bg + k) * sl_block
+            sl_tris[base:base + c] = np.concatenate([v0[ids], e1[ids],
+                                                     e2[ids]], axis=1)
+            sl_map[base:base + c] = ids
+            sl_inv[ids] = np.arange(base, base + c, dtype=np.int32)
+        sl_blkflat[0:3, c0:c0 + len(lv)] = slp.node_min[lv].T
+        sl_blkflat[3:6, c0:c0 + len(lv)] = slp.node_max[lv].T
+        sl_blkid[0, c0:c0 + len(lv)] = np.arange(bg, bg + len(lv))
+        bg += len(lv)
+    return dict(sl_tris=sl_tris, sl_bw_t=_baldwin_weber_rows(sl_tris),
+                sl_map=sl_map, sl_inv=sl_inv, sl_blkflat=sl_blkflat,
+                sl_blkid=sl_blkid, part_blocks=part_blocks,
                 sl_n_blocks=n_blocks, sph_row_base=n_blocks * sl_block)
+
+
+def _tr_prefilter(v0, e1, e2, a: int, b: int) -> np.ndarray:
+    """[32, 6] boxes (min, max) covering triangles [a, b): the leaves of a
+    BVH with about 32 leaves, overflow leaves merged into the last box;
+    padding boxes are degenerate points at 1e30."""
+    from path_tracer_torch.native import build_bvh
+
+    out = np.full((32, 6), 1e30, np.float32)
+    if b <= a:
+        return out
+    q0 = v0[a:b]
+    q1, q2 = q0 + e1[a:b], q0 + e2[a:b]
+    tb = build_bvh(np.minimum(np.minimum(q0, q1), q2),
+                   np.maximum(np.maximum(q0, q1), q2),
+                   leaf_size=max(4, (b - a + 31) // 32))
+    leaf = np.nonzero(tb.prim_count > 0)[0]
+    lmin, lmax = tb.node_min[leaf], tb.node_max[leaf]
+    if len(leaf) > 32:
+        lmin = np.concatenate([lmin[:31], lmin[31:].min(axis=0, keepdims=True)])
+        lmax = np.concatenate([lmax[:31], lmax[31:].max(axis=0, keepdims=True)])
+    out[:len(lmin), 0:3] = lmin
+    out[:len(lmin), 3:6] = lmax
+    return out
+
+
+# The JAX package's routing limits of the walk kernels' tables: at most
+# this many transparent columns, distinct opacity textures and page-plane
+# texels (the kernels here have no such cap; the limits keep both
+# packages on the same path).
+TRWALK_MAX_COLUMNS = 4096
+TRWALK_MAX_PAGES = 8
+TRWALK_MAX_TEXELS = 1 << 21
+
+
+def _spread10(b):
+    """Interleave the low 10 bits of b with 2-bit gaps (Morton)."""
+    b = (b | (b << 16)) & 0x030000FF
+    b = (b | (b << 8)) & 0x0300F00F
+    b = (b | (b << 4)) & 0x030C30C3
+    return (b | (b << 2)) & 0x09249249
+
+
+def _build_tr_walk_tables(sl_bw, sl_tris, slot_tri, uv0, uv1, uv2,
+                          tri_model, opacity_f, opacity_t, lo: int, hi: int,
+                          atlas_data, offsets, widths, heights) -> dict:
+    """The transparent walks' compact tables over packed slots [lo, hi)
+    (``_build_tr_walk_tables`` of the JAX package, fed from the per-slot
+    triangle ids ``slot_tri`` instead of its wide attribute table).
+    ``tr_kernel_ok`` False returns placeholders."""
+    lut = (np.arange(256).astype(np.float64) / 255.0).astype(np.float32)
+    out = dict(tr_bw=np.zeros((16, 128), np.float32),
+               tr_rows=np.zeros((9, 128), np.float32),
+               tr_grp=np.zeros((7, 128), np.float32),
+               tr_colmap=np.zeros(128, np.int32),
+               tr_model=np.zeros(128, np.int32),
+               tr_tex8=np.zeros((8, 128), np.uint8), tr_lut=lut[None, :],
+               tr_pages=(), tr_textured=False, tr_kernel_ok=False)
+    if hi - lo <= 0:
+        return out
+    # Real slots: nonzero edges (pad slots are all-zero rows).
+    real = np.abs(sl_tris[lo:hi, 3:9]).sum(axis=1) > 0
+    idx = np.nonzero(real)[0]
+    tp = len(idx)
+    if tp == 0 or tp > TRWALK_MAX_COLUMNS:
+        return out
+    tris = sl_tris[lo:hi][idx]
+    v0 = tris[:, 0:3]
+    v1 = v0 + tris[:, 3:6]
+    v2 = v0 + tris[:, 6:9]
+    cen = (v0 + v1 + v2) / 3.0
+    mn = cen.min(axis=0)
+    ext = max(float((cen.max(axis=0) - mn).max()), 1e-12)
+    q = np.clip((cen - mn) / ext * 1023.0, 0, 1023).astype(np.int64)
+    code = (_spread10(q[:, 0]) | (_spread10(q[:, 1]) << 1)
+            | (_spread10(q[:, 2]) << 2))
+    order = np.argsort(code, kind="stable")  # ties keep slot order
+    idx = idx[order]
+    v0, v1, v2 = v0[order], v1[order], v2[order]
+
+    tp_pad = max(256, ((tp + 127) // 128) * 128)
+    tr_bw = np.zeros((16, tp_pad), np.float32)
+    tr_bw[:, :tp] = sl_bw[:, lo:hi][:, idx]
+    tmin = np.minimum(np.minimum(v0, v1), v2)
+    tmax = np.maximum(np.maximum(v0, v1), v2)
+    tr_grp = np.zeros((7, max(128, ((tp_pad // 128 + 127) // 128) * 128)),
+                      np.float32)
+    for g in range((tp + 127) // 128):
+        sl = slice(g * 128, min((g + 1) * 128, tp))
+        tr_grp[0:3, g] = tmin[sl].min(axis=0)
+        tr_grp[3:6, g] = tmax[sl].max(axis=0)
+        tr_grp[6, g] = 1.0
+    tri = slot_tri[lo + idx]
+    model = tri_model[tri]
+    colmap = np.zeros(tp_pad, np.int32)
+    colmap[:tp] = lo + idx
+    modelmap = np.zeros(tp_pad, np.int32)
+    modelmap[:tp] = model
+    rows = np.zeros((9, tp_pad), np.float32)
+    u0, u1, u2 = uv0[tri], uv1[tri], uv2[tri]
+    rows[0:2, :tp] = u0.T
+    rows[2:4, :tp] = (u1 - u0).T  # f32 differences, as shading takes them
+    rows[4:6, :tp] = (u2 - u0).T
+    rows[6, :tp] = np.asarray(opacity_f, np.float32)[model]
+    tids = np.asarray(opacity_t, np.int32)[model]
+    used = np.unique(tids[tids >= 0])
+    if len(used) > TRWALK_MAX_PAGES:
+        return out
+    pages = []
+    tex8 = np.zeros((8, 128), np.uint8)
+    if len(used):
+        planes, ybase, wp = [], 0, 128
+        for t in (int(t) for t in used):
+            w, h, off = int(widths[t]), int(heights[t]), int(offsets[t])
+            plane = atlas_data[off:off + w * h, 0]
+            r255 = plane.astype(np.float64) * 255.0
+            ru = np.round(r255)
+            if (np.abs(r255 - ru).max() > 1e-3
+                    or not np.array_equal(plane, lut[ru.astype(np.int32)])):
+                return out  # not u8/255 exactly: the LUT fetch would differ
+            planes.append(ru.astype(np.uint8).reshape(h, w))
+            pages.append((off, w, h, ybase))
+            ybase += h
+            wp = max(wp, ((w + 127) // 128) * 128)
+        hp = ((ybase + 127) // 128) * 128
+        if hp * wp > TRWALK_MAX_TEXELS:
+            return out
+        tex8 = np.zeros((hp, wp), np.uint8)
+        for (_, w, h, yb), pl in zip(pages, planes):
+            tex8[yb:yb + h, :w] = pl
+        rows[7, :tp] = (tids >= 0).astype(np.float32)
+        page_of = {int(t): p for p, t in enumerate(used)}
+        rows[8, :tp] = [float(page_of[int(t)]) if t >= 0 else 0.0
+                        for t in tids]
+    out.update(tr_bw=tr_bw, tr_rows=rows, tr_grp=tr_grp, tr_colmap=colmap,
+               tr_model=modelmap, tr_tex8=tex8, tr_pages=tuple(pages),
+               tr_textured=bool(len(used)), tr_kernel_ok=True)
+    return out
+
+
+def _certainly_opaque(model, root: Path) -> list:
+    """Per triangle of a transparent-material mesh: True when the opacity
+    texture's minimum over the triangle's wrapped UV box, one texel wider
+    each way, times the factor is >= 1 (the walks then accept it without a
+    random number, so it behaves as opaque geometry)."""
+    from path_tracer_torch.utils.image_io import load_texture_gray
+
+    m = model.material
+    if m.opacity.factor < 1.0 or m.opacity.texture is None:
+        return [False] * len(model.triangles)
+    gray = load_texture_gray(root / m.opacity.texture)
+    th, tw = gray.shape
+    out = []
+    for tri in model.triangles:
+        us = [v.tex_coords[0] for v in tri]
+        vs = [v.tex_coords[1] for v in tri]
+        x0 = int(np.floor(min(us) * tw)) - 1
+        x1 = int(np.floor(max(us) * tw)) + 1
+        y0 = int(np.floor(min(vs) * th)) - 1
+        y1 = int(np.floor(max(vs) * th)) + 1
+        xs = np.arange(x0, min(x1, x0 + tw) + 1) % tw
+        ys = np.arange(y0, min(y1, y0 + th) + 1) % th
+        out.append(float(gray[np.ix_(ys, xs)].min()) * m.opacity.factor
+                   >= 1.0)
+    return out
 
 
 def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
@@ -307,16 +551,10 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
     ``use_bvh=None`` walks the BVH from 4,096 triangles on; ``sl_block``
     triangles per superleaf block, a multiple of 128).
 
-    Raises NotImplementedError for what later slices of the port bring:
-    non-opaque materials (the alpha and shadow-transmittance walks) and
-    more than 512 spheres (the sphere block walk). Scenes of more than
-    2,048 blocks build, and their casts refuse them (the flat2 walk)."""
+    Raises NotImplementedError for more than 512 spheres (the sphere
+    block walk, a later slice of the port). Scenes of more than 2,048
+    blocks build, and their casts refuse them (the flat2 walk)."""
     root = Path(root)
-    if not all(m.material.opacity.factor >= 1.0
-               and m.material.opacity.texture is None for m in scene.models):
-        raise NotImplementedError(
-            "scene has non-opaque materials; alpha transparency comes with "
-            "the transparency slice of the port")
     meshes = [m for m in scene.models if isinstance(m, isf.Mesh)]
     n_tris = sum(len(m.triangles) for m in meshes)
     n_real_sph = len(scene.models) - len(meshes)
@@ -328,14 +566,17 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
     atlas = _AtlasBuilder(root)
     keys = ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2")
     tri_rows = {k: [] for k in keys}
-    tri_model = []
+    tri_model, tri_transparent = [], []
     sph_center, sph_radius, sph_model = [], [], []
+    sph_all_opaque = True
+    n_transparent_hits = 0
     mats = {k: [] for k in (
         "albedo_f", "emissive_f", "opacity_f", "metal_f", "rough_f", "ior",
         "albedo_t", "emissive_t", "opacity_t", "metal_t", "rough_t",
         "normal_t")}
     for model_id, model in enumerate(scene.models):
         m = model.material
+        transparent = m.opacity.factor < 1.0 or m.opacity.texture is not None
         mats["albedo_f"].append(m.albedo.factor)
         mats["emissive_f"].append(m.emissive.factor)
         mats["opacity_f"].append(m.opacity.factor)
@@ -349,16 +590,35 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
         mats["rough_t"].append(atlas.add(m.roughness.texture, "gray"))
         mats["normal_t"].append(atlas.add(m.normal_texture, "rgb"))
         if isinstance(model, isf.Mesh):
-            for v0, v1, v2 in model.triangles:
+            certain = (_certainly_opaque(model, root) if transparent
+                       else [True] * len(model.triangles))
+            for (v0, v1, v2), sure in zip(model.triangles, certain):
                 for k, vert in (("0", v0), ("1", v1), ("2", v2)):
                     tri_rows["v" + k].append(vert.position)
                     tri_rows["n" + k].append(vert.normal)
                     tri_rows["uv" + k].append(vert.tex_coords)
                 tri_model.append(model_id)
+                tri_transparent.append(not sure)
+                n_transparent_hits += int(not sure)
         else:
+            if transparent:  # near and far root on a re-cast
+                n_transparent_hits += 2
+                sph_all_opaque = False
             sph_center.append(model.center)
             sph_radius.append(model.radius)
             sph_model.append(model_id)
+
+    # Opacity partition: opaque triangles first (stable within each kind).
+    tr_mask = np.asarray(tri_transparent, np.bool_)
+    n_op = int((~tr_mask).sum())
+    if 0 < n_op < n_tris:
+        order = np.concatenate([np.nonzero(~tr_mask)[0],
+                                np.nonzero(tr_mask)[0]])
+        tri_rows = {k: [rows[i] for i in order] for k, rows in tri_rows.items()}
+        tri_model = [tri_model[i] for i in order]
+        ranges = [(0, n_op), (n_op, n_tris)]
+    else:
+        ranges = [(0, n_tris)] if n_tris else []
 
     n_pad = _pad_to(n_tris, _TRI_PAD)
 
@@ -388,13 +648,27 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
         from path_tracer_torch.native import build_bvh
 
         p0, p1, p2 = v0[:n_tris], v0[:n_tris] + e1[:n_tris], v0[:n_tris] + e2[:n_tris]
-        perm = build_bvh(np.minimum(np.minimum(p0, p1), p2),
-                         np.maximum(np.maximum(p0, p1), p2),
-                         leaf_size=4).prim_order
+        bmin = np.minimum(np.minimum(p0, p1), p2)
+        bmax = np.maximum(np.maximum(p0, p1), p2)
+        # One leaf-4 BVH per partition; each permutes within its range.
+        perm = np.concatenate([
+            a + build_bvh(bmin[a:b], bmax[a:b], leaf_size=4).prim_order
+            for a, b in ranges])
         for arr in (v0, e1, e2, uv0, uv1, uv2, tangent, n0, n1, n2):
             arr[:n_tris] = arr[:n_tris][perm]
         tri_model_arr[:n_tris] = tri_model_arr[:n_tris][perm]
-    sl = _superleaf_tables(v0, e1, e2, n_tris, n_pad, sl_block)
+    sl = _superleaf_tables(v0, e1, e2, ranges, n_pad, sl_block)
+    part_blocks = sl["part_blocks"]
+    if len(ranges) == 2 or n_op == n_tris:
+        nblk_op = part_blocks[0] if part_blocks else 0
+    else:  # every triangle possibly transparent
+        nblk_op = 0
+    atlas_data = np.concatenate(atlas.chunks, axis=0)
+    tr = _build_tr_walk_tables(
+        sl["sl_bw_t"], sl["sl_tris"], sl["sl_map"], uv0, uv1, uv2,
+        tri_model_arr, mats["opacity_f"], mats["opacity_t"],
+        nblk_op * sl_block, sl["sl_n_blocks"] * sl_block, atlas_data,
+        atlas.offsets, atlas.widths, atlas.heights)
 
     n_sph = max(1, n_real_sph)
     centers = np.full((n_sph, 3), 1e30, np.float32)
@@ -424,7 +698,7 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
         mat_albedo_tex=mats["albedo_t"], mat_emissive_tex=mats["emissive_t"],
         mat_opacity_tex=mats["opacity_t"], mat_metalness_tex=mats["metal_t"],
         mat_roughness_tex=mats["rough_t"], mat_normal_tex=mats["normal_t"],
-        tex_data=np.concatenate(atlas.chunks, axis=0),
+        tex_data=atlas_data,
         tex_offset=atlas.offsets, tex_width=atlas.widths,
         tex_height=atlas.heights,
         point_pos=f32([l.position for l in points]).reshape(-1, 3),
@@ -435,11 +709,16 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
         cam_to_world=f32(scene.camera.transform).T,
         cam_fov=f32(scene.camera.fov),
         background=f32(scene.background),
+        tr_prefilter=_tr_prefilter(v0, e1, e2, n_op, n_tris),
         **{k: sl[k] for k in ("sl_bw_t", "sl_blkflat", "sl_blkid", "sl_map",
                               "sl_inv")},
+        **{k: tr[k] for k in ("tr_bw", "tr_rows", "tr_grp", "tr_colmap",
+                              "tr_model", "tr_tex8", "tr_lut")},
     )
     statics = dict(
-        all_opaque=True,
+        all_opaque=all(m.material.opacity.factor >= 1.0
+                       and m.material.opacity.texture is None
+                       for m in scene.models),
         no_textures=len(atlas.offsets) == 1,
         no_emissive=all(
             tuple(m.material.emissive.factor) == (0.0, 0.0, 0.0)
@@ -455,5 +734,49 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
         sl_block=sl_block,
         sl_n_blocks=sl["sl_n_blocks"],
         sph_row_base=sl["sph_row_base"],
+        n_tris_opaque=n_op,
+        sl_n_blocks_opaque=nblk_op,
+        sl_cols_opaque=((nblk_op + 127) // 128) * 128,
+        num_transparent_hits=n_transparent_hits,
+        sph_all_opaque=sph_all_opaque,
+        tr_kernel_ok=tr["tr_kernel_ok"],
+        tr_textured=tr["tr_textured"],
+        tr_pages=tr["tr_pages"],
     )
     return from_numpy(fields, statics, device)
+
+
+# ---------------------------------------------------------------------------
+# Opacity-partition views
+# ---------------------------------------------------------------------------
+
+
+def partitioned(scene) -> bool:
+    """True when the partitioned walks apply: a BVH scene with both opaque
+    and possibly-transparent triangles and only opaque spheres. The walks
+    then cast once against the opaque blocks (the terminator, or a binary
+    any-hit) and walk only the transparent blocks."""
+    return bool(scene.use_bvh and not scene.all_opaque
+                and scene.sph_all_opaque
+                and scene.sl_n_blocks_opaque > 0
+                and scene.sl_n_blocks > scene.sl_n_blocks_opaque)
+
+
+def opaque_view(scene) -> TorchScene:
+    """The scene with its block tables cut to the opaque partition's
+    columns (block and triangle ids stay global; spheres unchanged)."""
+    c = scene.sl_cols_opaque
+    return dataclasses.replace(
+        scene, sl_blkflat=scene.sl_blkflat[:, :c].contiguous(),
+        sl_blkid=scene.sl_blkid[:, :c].contiguous(),
+        sl_n_blocks=scene.sl_n_blocks_opaque)
+
+
+def transparent_view(scene) -> TorchScene:
+    """The scene with its block tables cut to the possibly-transparent
+    partition's columns."""
+    c = scene.sl_cols_opaque
+    return dataclasses.replace(
+        scene, sl_blkflat=scene.sl_blkflat[:, c:].contiguous(),
+        sl_blkid=scene.sl_blkid[:, c:].contiguous(),
+        sl_n_blocks=scene.sl_n_blocks - scene.sl_n_blocks_opaque)

@@ -145,8 +145,8 @@ def test_showcase_scene_equals_jax():
     assert isf.to_dict(scene) == jisf.to_dict(jax_showcase(48))
     assert sum(len(m.triangles) for m in scene.models
                if isinstance(m, isf.Mesh)) == 2 * 48 * 48
-    with pytest.raises(NotImplementedError, match="transparency"):
-        showcase_scene(48, textured=True)
+    assert isf.to_dict(showcase_scene(48, textured=True)) == jisf.to_dict(
+        jax_showcase(48, textured=True))
 
 
 def test_isf_writer_round_trips(reference_scenes, tmp_path):

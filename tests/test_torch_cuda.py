@@ -195,3 +195,82 @@ def test_flat_occluded_equals_plain(cuda, name):
         assert torch.equal(multi[i], single) and torch.equal(single, plain)
     assert multi[2][::3].all()
     assert 0.05 < multi[1].float().mean() < 0.95
+
+
+@pytest.fixture(scope="module")
+def showcase_tex48(cuda):
+    """The textured showcase at grid 48 in 256-slot blocks on the card."""
+    from path_tracer_torch.scene.showcase import showcase_device_scene
+
+    sc = showcase_device_scene(48, cuda, sl_block=256, textured=True)
+    assert sc.tr_kernel_ok and sc.tr_textured
+    return sc
+
+
+def _foliage_rays(sc, seed, r, device):
+    """Rays from around the transparent triangles' bounds through them."""
+    v = sc.tri_v0[sc.n_tris_opaque: sc.num_real_triangles].cpu().numpy()
+    g = np.random.default_rng(seed)
+    o = g.uniform(v.min(0) - 2, v.max(0) + 2, (r, 3))
+    d = g.uniform(v.min(0), v.max(0), (r, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)
+    return t(o), t(d), g
+
+
+@pytest.mark.parametrize("steps_cap", [8, 1])
+def test_alpha_walk_kernel_equals_plain(cuda, showcase_tex48, steps_cap):
+    from path_tracer_torch.ops import cuda_trwalk, trwalk
+
+    sc = showcase_tex48
+    r = 5003
+    o, d, g = _foliage_rays(sc, 11, r, cuda)
+    t_op = g.uniform(0.5, 60.0, r).astype(np.float32)
+    t_op[::5] = np.inf
+    t_op[::7] = -1.0  # dead lanes
+    t_op = torch.from_numpy(t_op).to(cuda)
+    rnd = torch.from_numpy(g.uniform(size=(steps_cap, r)).astype(
+        np.float32)).to(cuda)
+    before = cuda_trwalk.alpha_launches
+    got = cuda_trwalk.alpha_walk(sc, o, d, t_op, rnd, steps_cap)
+    assert cuda_trwalk.alpha_launches == before + 1
+    want = trwalk.alpha_walk_plain(sc, o, d, t_op, rnd, steps_cap)
+    _assert_same(got, want)
+    assert got.seen.float().mean() > 0.2 and not got.seen[::7].any()
+
+
+@pytest.mark.parametrize("steps_cap", [8, 1])
+def test_trans_walk_kernel_equals_plain(cuda, showcase_tex48, steps_cap):
+    """Stacked lanes of a directional and two point lights, one light per
+    run of lanes, with dead lanes and sphere originals mixed in."""
+    from path_tracer_torch.ops import cuda_trwalk, trwalk
+
+    sc = showcase_tex48
+    r = 2048
+    o, _, g = _foliage_rays(sc, 12, r, cuda)
+    sp = o.clone()
+    ds = [(-sc.dir_dir[0] / sc.dir_dir[0].norm()).expand(r, 3)]
+    pds = [torch.full((r,), float("inf"), device=cuda)]
+    for k in range(sc.num_point_lights):
+        to = sc.point_pos[k] - o
+        dist = to.norm(dim=1)
+        ds.append(to / dist[:, None])
+        pds.append(dist)
+    n = len(ds) * r
+    o3, sp3 = o.repeat(len(ds), 1), sp.repeat(len(ds), 1)
+    d3 = torch.cat(ds).contiguous()
+    pd3 = torch.cat(pds)
+    is_pt = torch.arange(n, device=cuda) >= r
+    t = lambda x, dt=np.float32: torch.from_numpy(np.asarray(x, dt)).to(cuda)
+    ouv = t(g.uniform(-1.0, 2.0, (n, 2)))
+    osimple = t(g.uniform(size=n) < 0.2, bool)
+    walking0 = t(g.uniform(size=n) > 0.1, bool)
+    before = cuda_trwalk.trans_launches
+    got = cuda_trwalk.trans_walk(sc, o3, d3, pd3, is_pt, sp3, ouv, osimple,
+                                 walking0, steps_cap)
+    assert cuda_trwalk.trans_launches == before + 1
+    want = trwalk.trans_walk_plain(sc, o3, d3, pd3, is_pt, sp3, ouv,
+                                   osimple, walking0, steps_cap)
+    _assert_same(got, want)
+    assert (got.trans < 1.0).float().mean() > 0.02
+    assert bool((got.trans[~walking0] == 1.0).all())

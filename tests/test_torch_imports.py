@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no JAX-package module, no PyYAML and no
-Pillow on its main path (a reference scene and the showcase, built and
-rendered), and its CUDA wrappers never fall back to the plain versions for
-a tensor on the card."""
+Pillow on its main path (a reference scene, the showcase and the textured
+showcase with its textures written and read, built and rendered), and its
+CUDA wrappers never fall back to the plain versions for a tensor on the
+card."""
 import subprocess
 import sys
 from pathlib import Path
@@ -30,6 +31,16 @@ from path_tracer_torch.scene.showcase import showcase_scene
 showcase = build_scene(showcase_scene(48), ".", "cpu", sl_block=256)
 assert showcase.use_bvh and showcase.sl_n_blocks == 31
 img = render(showcase, Profile(resolution=Resolution(16, 12), samples=1,
+                               bounces=2))
+assert img.shape == (12, 16, 3) and img.std() > 0
+
+from path_tracer_torch.scene.device_scene import partitioned
+from path_tracer_torch.scene.showcase import showcase_device_scene
+
+textured = showcase_device_scene(16, "cpu", use_bvh=True, sl_block=256,
+                                 textured=True)
+assert partitioned(textured) and textured.tr_kernel_ok
+img = render(textured, Profile(resolution=Resolution(16, 12), samples=1,
                                bounces=2))
 assert img.shape == (12, 16, 3) and img.std() > 0
 bad = sorted(m for m in sys.modules
@@ -95,15 +106,37 @@ def _fake_flat_scene(mode):
             sph_row_base=512)
 
 
+def _fake_tr_scene(mode):
+    """The walk kernels' tables as CUDA-device fakes."""
+    from types import SimpleNamespace
+
+    with mode:
+        cuda = dict(device="cuda")
+        return SimpleNamespace(
+            tr_bw=torch.empty((16, 256), **cuda),
+            tr_rows=torch.empty((9, 256), **cuda),
+            tr_tex8=torch.empty((128, 128), dtype=torch.uint8, **cuda),
+            tr_lut=torch.empty((1, 256), **cuda),
+            tr_page_table=torch.empty((1, 3), dtype=torch.int32, **cuda),
+            tr_textured=True)
+
+
 def _launch_counts():
-    from path_tracer_torch.ops import cuda_bvh, cuda_intersect, cuda_spheres
+    from path_tracer_torch.ops import (
+        cuda_bvh,
+        cuda_intersect,
+        cuda_spheres,
+        cuda_trwalk,
+    )
 
     return (cuda_intersect.launches, cuda_spheres.launches,
-            cuda_bvh.closest_hit_launches, cuda_bvh.occluded_launches)
+            cuda_bvh.closest_hit_launches, cuda_bvh.occluded_launches,
+            cuda_trwalk.alpha_launches, cuda_trwalk.trans_launches)
 
 
 @pytest.mark.parametrize("kernel", ["triangles", "spheres", "flat",
-                                    "flat_spheres", "flat_occluded"])
+                                    "flat_spheres", "flat_occluded",
+                                    "alpha_walk", "trans_walk"])
 def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
     """Handed CUDA tensors where the kernel cannot be built or launched,
     a wrapper raises; it never returns the plain version's result."""
@@ -114,6 +147,7 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
         cuda_bvh,
         cuda_intersect,
         cuda_spheres,
+        cuda_trwalk,
         intersect,
     )
 
@@ -132,6 +166,8 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
                  "occluded_triangles_flat_plain",
                  "occluded_triangles_flat_multi_plain"):
         monkeypatch.setattr(cuda_bvh, name, _plain_must_not_run)
+    for name in ("alpha_walk_plain", "trans_walk_plain"):
+        monkeypatch.setattr(cuda_trwalk, name, _plain_must_not_run)
     rows = 9 if kernel == "triangles" else 4
     mode, o, d, tp, table = _fake_cuda_operands(300, rows)
     scene = SimpleNamespace(tri_packed_t=table, sph_packed_t=table)
@@ -142,9 +178,15 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
         "flat_spheres": lambda *a: cuda_bvh.closest_hit_triangles_flat(
             *a, spheres=True),
         "flat_occluded": cuda_bvh.occluded_triangles_flat,
+        "alpha_walk": lambda o, d, tp, sc: cuda_trwalk.alpha_walk(
+            sc, o, d, tp, torch.empty((2, 300), device="cuda"), 2),
+        "trans_walk": lambda o, d, tp, sc: cuda_trwalk.trans_walk(
+            sc, o, d, tp, tp > 0, o, o.narrow(1, 0, 2), tp > 1, tp >= 0, 2),
     }[kernel]
     if kernel.startswith("flat"):
         scene = _fake_flat_scene(mode)
+    elif kernel.endswith("walk"):
+        scene = _fake_tr_scene(mode)
 
     def _no_toolkit():
         raise RuntimeError("nvcc not found")
@@ -211,3 +253,44 @@ def test_flat_wrappers_check_operands():
     for args in bad_occluded:
         with mode, pytest.raises(ValueError):
             native.launch_flat_occluded(*args, block=256)
+
+
+def test_walk_launchers_check_operands():
+    """The walk kernels' launchers raise on a wrong lane or table layout
+    before any launch."""
+    from types import SimpleNamespace
+
+    from path_tracer_torch import native
+
+    mode, o, d, tp, _ = _fake_cuda_operands(64, 4)
+    sc = _fake_tr_scene(mode)
+    with mode:
+        cuda = dict(device="cuda")
+        rnd = torch.empty((2, 64), **cuda)
+        aux = torch.empty((8, 64), **cuda)
+        bad_tables = [
+            dict(tr_bw=torch.empty((16, 200), **cuda),
+                 tr_rows=torch.empty((9, 200), **cuda)),  # not 128 columns
+            dict(tr_tex8=torch.empty((128, 128), **cuda)),  # not uint8
+            dict(tr_lut=torch.empty((1, 255), **cuda)),
+            dict(tr_page_table=torch.empty((1, 3), **cuda)),  # not int32
+        ]
+        bad_alpha = [
+            (o, d, tp.double(), rnd),
+            (o, d, tp, torch.empty((3, 64), **cuda)),  # rnd rows != cap
+            (o, torch.empty((64, 4), **cuda), tp, rnd),
+        ]
+        bad_trans = [(o, d, torch.empty((7, 64), **cuda)),
+                     (o, d, torch.empty_strided((8, 64), (1, 8), **cuda))]
+    for fields in bad_tables:
+        bad = SimpleNamespace(**{**vars(sc), **fields})
+        with mode, pytest.raises(ValueError):
+            native.launch_alpha_walk(o, d, tp, rnd, bad, 2)
+        with mode, pytest.raises(ValueError):
+            native.launch_trans_walk(o, d, aux, bad, 2)
+    for args in bad_alpha:
+        with mode, pytest.raises(ValueError):
+            native.launch_alpha_walk(*args, sc, 2)
+    for args in bad_trans:
+        with mode, pytest.raises(ValueError):
+            native.launch_trans_walk(*args, sc, 2)

@@ -163,9 +163,11 @@ def test_spheres_match_jnp_and_pallas(reference_scenes, name):
 @pytest.mark.parametrize("name", ["cube", "spheres"])
 def test_occluded_matches_jax(reference_scenes, name):
     """Point-light style occlusion (range-limited) and unlimited, against
-    the JAX package's any-hit. The port takes the nearest triangle hit (the
-    TPU path's form); equal by monotonicity of the distance in t."""
-    from path_tracer_torch.ops.intersect import occluded as tocc
+    the JAX package's any-hit, through the port's ``occluded_multi`` with
+    one light (the port has no single-light form). The port takes the
+    nearest triangle hit (the TPU path's form); equal by monotonicity of
+    the distance in t."""
+    from path_tracer_torch.ops.intersect import occluded_multi
     from path_tracer_tpu.ops.intersect import occluded as jocc
 
     js, ts = _scenes(reference_scenes, name)
@@ -179,9 +181,9 @@ def test_occluded_matches_jax(reference_scenes, name):
     max_dist = g.uniform(0.1, 6.0, r).astype(np.float32)
     T, J = torch.from_numpy, jnp.asarray
     for kw_t, kw_j in (({}, {}),
-                       (dict(surf_pos=T(surf), max_dist=T(max_dist)),
+                       (dict(surf_pos=T(surf), max_dists=[T(max_dist)]),
                         dict(surf_pos=J(surf), max_dist=J(max_dist)))):
-        got = tocc(T(o), T(d), ts, **kw_t).numpy()
+        got = occluded_multi(T(o), [T(d)], ts, **kw_t)[0].numpy()
         want = np.asarray(jocc(J(o), J(d), js, **kw_j))
         np.testing.assert_array_equal(got, want)
         assert 0.05 < want.mean() < 0.95

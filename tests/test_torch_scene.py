@@ -35,20 +35,22 @@ def test_build_scene_equals_jax_scene(reference_scenes, name):
 
 @pytest.mark.parametrize("name", ["head", "alpha_transparency"])
 def test_later_slices_are_refused(reference_scenes, name):
-    """Non-opaque scenes are refused by the builder AND by the renderer
-    (for a scene carried across from the JAX package), never rendered
-    through another path."""
+    """The non-opaque reference scenes build and render, and what a later
+    slice brings is still refused by name, never rendered through another
+    path: the same scene marked as one of more than 512 spheres (the
+    sphere block walk) fails in its casts."""
+    import dataclasses
+
     from path_tracer_torch.models.integrator import IntegratorSpec
     from path_tracer_torch.models.renderer import render_pixel_sums
-    from path_tracer_tpu.scene import load_scene as jax_load
 
-    with pytest.raises(NotImplementedError, match="transparency"):
-        load_scene(reference_scenes / name / "scene.isf", device="cpu")
-    js = jax_load(reference_scenes / name / "scene.isf")
-    carried = from_numpy({f: np.asarray(getattr(js, f)) for f in ARRAY_FIELDS},
-                         {s: getattr(js, s) for s in STATIC_FIELDS}, "cpu")
-    with pytest.raises(NotImplementedError, match="transparency"):
-        render_pixel_sums(carried, 8, 6, 1, 1, IntegratorSpec(bounces=1))
+    sc = load_scene(reference_scenes / name / "scene.isf", device="cpu")
+    assert not sc.all_opaque
+    img = render_pixel_sums(sc, 8, 6, 1, 1, IntegratorSpec(bounces=1))
+    assert img.shape == (48, 3) and np.isfinite(img).all() and img.std() > 0
+    big = dataclasses.replace(sc, sph_use_blocks=True)
+    with pytest.raises(NotImplementedError, match="sphere block walk"):
+        render_pixel_sums(big, 8, 6, 1, 1, IntegratorSpec(bounces=1))
 
 
 def _flat_triangles_scene(n: int):

@@ -1,13 +1,15 @@
 """Where the time goes in one 1080p sample of the PyTorch port, on the card.
 
     python tests/tools/torch_profile.py [scene ...]   (default: cube spheres
-                                                       reflection showcase)
+                                                       reflection showcase
+                                                       showcase_tex)
 
 For each scene: one warm-up sample, then one sample (every 2^18-lane tile
 of a 1920x1080 frame) under ``torch.profiler``: 4 bounces for the
 reference scenes of ``tests/scenes``, 5 for ``showcase`` (the plain
-100k-triangle showcase in 256-slot blocks, as the JAX bench renders it).
-Prints the wall
+100k-triangle showcase in 256-slot blocks, as the JAX bench renders it
+with ``BENCH_SCENE=showcase_plain``) and ``showcase_tex`` (the textured
+showcase, the JAX bench's default scene). Prints the wall
 time (host clock around work that ends in a synchronize), the summed device
 time of all kernels, the device busy share (device time / wall; kernels
 run on one stream, so they do not overlap), the number of kernel launches,
@@ -33,11 +35,11 @@ def profile_scene(name: str, top: int = 14) -> None:
     from path_tracer_torch.scene import load_scene
 
     device = torch.device("cuda", 0)
-    if name == "showcase":
-        from path_tracer_torch.scene import build_scene
-        from path_tracer_torch.scene.showcase import showcase_scene
+    if name in ("showcase", "showcase_tex"):
+        from path_tracer_torch.scene.showcase import showcase_device_scene
 
-        scene = build_scene(showcase_scene(), ".", device, sl_block=256)
+        scene = showcase_device_scene(224, device, sl_block=256,
+                                      textured=name == "showcase_tex")
         spec = IntegratorSpec(bounces=5)
     else:
         scene = load_scene(REPO / "tests" / "scenes" / name / "scene.isf",
@@ -79,4 +81,4 @@ def main(names) -> int:
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:] or ["cube", "spheres", "reflection",
-                                   "showcase"]))
+                                   "showcase", "showcase_tex"]))
