@@ -10,8 +10,10 @@ any error:
 
 1. environment: card name and power limit, torch/CUDA versions, capability;
 2. build: the kernels from ``path_tracer_torch/csrc`` with nvcc (one
-   process per source, side by side), timed; the plain showcase and the
-   textured showcase (its textures written and read by the port) built;
+   process per source, side by side), timed; the plain showcase, the
+   textured showcase (its textures written and read by the port), the
+   textured showcase at grid 704 (its opaque view routed to flat2, its
+   transparent view to flat) and the 4,900-sphere grid built;
 3. each kernel against its plain PyTorch version on the card: the 6,024
    Möller-Trumbore fixtures, seeded random rays against the ``cube`` and
    ``reflection`` tables and a random 2,500-triangle soup, the ``spheres``
@@ -24,8 +26,19 @@ any error:
    transmittance walk kernels on the textured showcase, with camera lanes
    whose terminator comes from the opaque cast, random rays through the
    foliage, the three lights' stacked shadow lanes of the first bounce and
-   dead lanes, at step caps 8 and 1 (3c); then each kernel's time beside
-   its plain version's and its bound at the main path's shapes;
+   dead lanes, at step caps 8 and 1 (3c); the flat2 closest hit and
+   any-hit on the 991k-triangle textured showcase's opaque view (camera
+   and random lanes with dead lanes, the first bounce's three shadow sets
+   with 10% killed), against their plain versions and the flat kernels on
+   the same tables, and flat2 against the MT kernel over all 991,834
+   triangles on 2^17 random rays, the divergence gate of
+   tests/tools/tpu_kernel_check.py (3d); the sphere block walk on the
+   4,900-sphere grid against its plain version and the dense sphere
+   kernel (3e); then each kernel's time beside its plain version's and
+   its bound at the main path's shapes, and the flat kernels' on the flat2
+   scene's tables; there the flat2 and sphere-walk kernels must also equal
+   their timed plain versions on every one of the 2^18 lanes (3 x 2^18
+   for the any-hit);
 4. the main path at full size: ``cube``, ``spheres`` and ``reflection`` at
    1920x1080, 4 bounces, 16 spp through ``render_pixel_sums``, and one
    reference-default frame of ``reflection`` (1920x1080, 64 spp, 4
@@ -34,8 +47,14 @@ any error:
    reference-default frame of it written to disk and rendered through the
    CLI; then the textured showcase (the JAX bench's default workload) at
    1920x1080, 5 bounces, TEX_SPP spp, through ``render_pixel_sums`` and
-   through the CLI. Launch counts are set to 0 before each path and read
-   after it;
+   through the CLI; then (4d) the textured showcase at grid 704 (991,834
+   triangles in 256-slot blocks: flat2 for the opaque partition) at
+   1920x1080, 5 bounces, BIG_SPP spp through ``render_pixel_sums`` and one
+   sample through ``render`` to a PNG; then (4e) the 4,900-sphere grid
+   (the sphere block walk) written as an ISF file and rendered through the
+   CLI at 1920x1080, 5 bounces, 1 spp, and at 480x270 through the walk
+   and through the dense sphere kernel, same seed. Launch counts are set
+   to 0 before each path and read after it;
 4b. the showcase at 480x270, 4 spp, 5 bounces through the flat walk and
    through brute-force MT over all 100,352 triangles, same seed;
 4c. the textured showcase at 480x270, 2 spp, 5 bounces through the walk
@@ -109,6 +128,18 @@ MAX_WALK_MISMATCH = 1e-4
 # tests/test_trwalk.py:44-65): share of pixels beyond 1e-3.
 MAX_WALK_PIXELS = 0.005
 TEX_SPP = 4  # samples of the textured showcase's 1080p render
+# The flat2 scene (scene A): the textured showcase at grid 704 (991,834
+# triangles, 5,518 blocks of 256), rendered at BIG_SPP; and the sphere
+# block walk's scene (scene B): the 70 x 70 sphere grid.
+BIG_GRID, BIG_SPP = 704, 2
+SPHERE_GRID = 70
+# flat2 against the MT kernel at 991k triangles (tpu_kernel_check.py's
+# gate): a lane diverges on a hit/miss flip or, both hitting, a t apart by
+# more than rtol/atol 5e-5; at most this share of lanes may.
+MAX_DIVERGENCE = 1e-4
+# The sphere walk against the dense sphere kernel (two root forms): the
+# prim flip rate and the t bound of tests/test_pallas_spheres.py.
+MAX_SPHERE_FLIPS, SPHERE_RTOL = 0.01, 1e-3
 WAVE = 1 << 18  # lanes of one wavefront of the main path (Profile.tile_rays)
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): float32
 # outside the tensor cores, and HBM bandwidth. A kernel's bound is the
@@ -136,11 +167,13 @@ def scene_path(name: str) -> Path:
     return REPO / "tests" / "scenes" / name / "scene.isf"
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call on the card, after one warm-up call."""
+def cuda_ms(fn, iters: int, warm_up: bool = True) -> float:
+    """Mean milliseconds per call on the card, after one warm-up call
+    (none with ``warm_up`` False: for plain versions that take seconds)."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -149,6 +182,20 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_once(fn):
+    """(milliseconds, result) of one call on the card with no warm-up: for
+    plain versions, which take seconds and whose result is compared."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
 
 
 def compare(label: str, got, want, t_diverges: bool = False
@@ -706,6 +753,28 @@ def first_bounce(sc, n: int, device):
     return (origin, bd, tp), (origin, ds, tms)
 
 
+def real_per_column(real, block: int, ids):
+    """Real slots of each column: ``real`` [slots] bool marks the real
+    slots of the packed table, ``block`` slots a block, ``ids`` [C] the
+    columns' block ids (< 0: a pad column, 0)."""
+    import torch
+
+    per_block = real.view(-1, block).sum(1)
+    return torch.where(ids >= 0, per_block[ids.clamp(min=0).long()], 0)
+
+
+def needed_gate(tn, tf, ids, t_prev, t_max, occluded):
+    """The walk's slab gate (ops/slab.py) of these lanes on columns ``ids``,
+    cut to what the result needs: a closest hit (``t_prev`` given) enters
+    only columns whose entry lies before the hit's t (``t_max``, +inf on a
+    miss); an any-hit lane already ``occluded`` enters none."""
+    from path_tracer_torch.ops import slab
+
+    if t_prev is None:
+        return slab.occluded_gate(tn, tf, t_max, ids) & ~occluded[:, None]
+    return slab.closest_gate(tn, tf, t_prev, ids) & (tn <= t_max[:, None])
+
+
 def flat_work(o, d, sc, t_prev, t_max, occluded=None) -> tuple[int, int]:
     """(slab tests, triangle tests) the flat walk needs on these rays: a
     slab test of every real block per live ray, and a Baldwin-Weber test
@@ -715,27 +784,18 @@ def flat_work(o, d, sc, t_prev, t_max, occluded=None) -> tuple[int, int]:
     None marks the any-hit; dead lanes test nothing."""
     import torch
 
-    from path_tracer_torch.ops import cuda_bvh
+    from path_tracer_torch.ops import slab
 
-    valid = sc.sl_blkid[0] >= 0
-    per_block = (sc.sl_bw_t[0:3].abs().sum(0) > 0).view(
-        -1, sc.sl_block).sum(1)
-    real = torch.where(valid, per_block[sc.sl_blkid[0].clamp(min=0).long()],
-                       0)
+    ids = sc.sl_blkid[0]
+    real = real_per_column(sc.sl_bw_t[0:3].abs().sum(0) > 0, sc.sl_block, ids)
     live = (t_max >= 0.0) if t_prev is None else torch.isfinite(t_prev)
     slabs = int(live.sum()) * sc.sl_n_blocks
-    tests = 0
+    tests = 0 if t_prev is not None else int((occluded & live).sum())
     for a in range(0, o.shape[0], 1 << 15):
         rs = slice(a, a + (1 << 15))
-        tn, tf = cuda_bvh._slab(o[rs], cuda_bvh._safe_inv(d[rs]),
-                                sc.sl_blkflat)
-        gate = (tf >= tn.clamp(min=0.0)) & (tn <= t_max[rs, None]) & valid
-        gate &= live[rs, None]
-        if t_prev is not None:
-            gate &= tf > t_prev[rs, None]
-        else:
-            gate &= ~occluded[rs, None]
-            tests += int((occluded[rs] & live[rs]).sum())
+        tn, tf = slab.slab(o[rs], slab.safe_inv(d[rs]), sc.sl_blkflat)
+        gate = needed_gate(tn, tf, ids, None if t_prev is None else t_prev[rs],
+                           t_max[rs], None if occluded is None else occluded[rs])
         tests += int((gate * real).sum())
     return slabs, tests
 
@@ -805,6 +865,300 @@ def phase_flat_timing(device, showcase):
     log(f"  time on incoherent rays from random terrain points: closest hit "
         f"+ spheres {ms:.4f} ms, any-hit L={len(sds)} {occ_ms:.4f} ms")
     return out
+
+
+def phase_flat2_kernels(device, big):
+    """3d: the flat2 closest hit and any-hit against their plain versions
+    and the flat kernels on the 991k-triangle showcase's opaque view (the
+    tables the main path casts on), then flat2 against the MT kernel over
+    the whole scene's triangles. Returns (closest-hit stats, any-hit max
+    error)."""
+    import torch
+
+    from path_tracer_torch.ops import cuda_bvh, cuda_intersect
+    from path_tracer_torch.scene.device_scene import opaque_view
+
+    op = opaque_view(big)
+    log(f"phase 3d: flat2 kernels (textured showcase grid {BIG_GRID}: "
+        f"{big.num_real_triangles} triangles, opaque view {op.sl_n_blocks} "
+        f"blocks of {big.sl_block} in {int((op.sl_sbid >= 0).sum())} "
+        f"superblocks, {nbytes(big.sl_bw_t) / 1e6:.1f} MB of BW rows)")
+    rng = np.random.default_rng(20261019)
+    n = (1 << 16) - 37  # no multiple of the 128-ray CTA
+    half = n // 2
+    co, cd = camera_rays(big, half, device)
+    v = big.tri_v0[: big.num_real_triangles].cpu().numpy()
+    ro, rd = random_rays(rng, n - half, v.min(0), v.max(0), device)
+    o, d = torch.cat([co, ro]).contiguous(), torch.cat([cd, rd]).contiguous()
+    stats = []
+    tp = torch.full((n,), -1.0, device=device)
+    tp[::7] = float("inf")  # dead lanes
+    for label in ("t_prev=-1", "t_prev=first hit"):
+        want = cuda_bvh.closest_hit_triangles_flat2_plain(o, d, tp, op)
+        got = cuda_bvh.closest_hit_triangles_flat2(o, d, tp, op)
+        stats.append(compare(f"flat2 vs plain, {label}, every 7th lane dead",
+                             got, want))
+        if stats[-1][0] != 0.0:
+            raise AssertionError("flat2 closest hit: mismatching lanes")
+        flat = cuda_bvh.closest_hit_triangles_flat(o, d, tp, op)
+        same = all(torch.equal(a, b) for a, b in zip(got, flat))
+        log(f"  flat2 vs the flat kernel on the same tables: "
+            f"{'equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError("flat2 and flat records differ")
+        tp = torch.where(torch.isfinite(got.t), got.t, -1.0)
+        tp[::7] = float("inf")
+
+    _, (so, sds, stms) = first_bounce(big, n, device)
+    kill = as_cuda(rng.uniform(size=(len(stms), n)) < 0.1, device, bool)
+    stms = [torch.where(k, -1.0, tm) for k, tm in zip(kill, stms)]
+    multi = cuda_bvh.occluded_triangles_flat2_multi(so, sds, stms, op)
+    plain = cuda_bvh.occluded_triangles_flat2_multi_plain(so, sds, stms, op)
+    flat = cuda_bvh.occluded_triangles_flat_multi(so, sds, stms, op)
+    n_off = int((multi != plain).sum())
+    log(f"  flat2 any-hit, {len(sds)} first-bounce shadow sets x {n} lanes "
+        f"(10% killed): mismatching lanes vs plain {n_off}, vs the flat "
+        f"kernel {int((multi != flat).sum())}; occluded "
+        f"{float(multi.float().mean()):.3f}")
+    if n_off or not torch.equal(multi, flat) \
+            or not bool(multi[torch.stack(stms) < 0].all()):
+        raise AssertionError("flat2 any-hit disagrees")
+
+    # The divergence gate at 991k triangles (tpu_kernel_check.py:163-194):
+    # the Baldwin-Weber walk against brute-force Moller-Trumbore.
+    rb = 1 << 17
+    ob = as_cuda(rng.uniform(v.min(0) - 5, v.max(0) + 5, (rb, 3)), device)
+    tgt = as_cuda(rng.uniform(v.min(0), v.max(0), (rb, 3)), device)
+    db = torch.nn.functional.normalize(tgt - ob, dim=1).contiguous()
+    tpb = torch.full((rb,), -1.0, device=device)
+    got = cuda_bvh.closest_hit_triangles_flat2(ob, db, tpb, big)
+    ref = cuda_intersect.closest_hit_triangles_cuda(ob, db, tpb, big)
+    hit_got, hit_ref = torch.isfinite(got.t), torch.isfinite(ref.t)
+    t_far = hit_got & hit_ref & ~torch.isclose(got.t, ref.t, rtol=5e-5,
+                                               atol=5e-5)
+    rate = float(((hit_got != hit_ref) | t_far).float().mean())
+    log(f"  flat2 vs MT kernel, {rb} random rays over {big.num_real_triangles}"
+        f" triangles ({big.sl_n_blocks} blocks): divergence rate {rate:.2e} "
+        f"(<= {MAX_DIVERGENCE:g}), hit {float(hit_ref.float().mean()):.3f}, "
+        f"prim differs on {int((got.prim != ref.prim).sum())} lanes")
+    if rate > MAX_DIVERGENCE:
+        raise AssertionError("flat2 diverges from MT")
+    return stats, float((multi != plain).float().max())
+
+
+def phase_sph_walk_kernel(device, grid):
+    """3e: the sphere block walk against its plain version and the dense
+    sphere kernel on the 4,900-sphere grid. Returns the stats."""
+    import dataclasses
+
+    import torch
+
+    from path_tracer_torch.ops import cuda_spheres
+
+    log(f"phase 3e: sphere block walk ({grid.num_real_spheres} spheres in "
+        f"{int((grid.sph_blkid >= 0).sum())} blocks of 128)")
+    rng = np.random.default_rng(20261020)
+    n = (1 << 16) - 37
+    half = n // 2
+    co, cd = camera_rays(grid, half, device)
+    ro, rd = random_rays(rng, n - half, np.full(3, -38.0), np.full(3, 38.0),
+                         device)
+    o, d = torch.cat([co, ro]).contiguous(), torch.cat([cd, rd]).contiguous()
+    dense = dataclasses.replace(grid, sph_use_blocks=False)
+    stats = []
+    tp = torch.full((n,), -1.0, device=device)
+    tp[::7] = float("inf")
+    for label in ("t_prev=-1", "t_prev=first hit"):
+        got = cuda_spheres.closest_hit_spheres_cuda(o, d, tp, grid)
+        stats.append(compare(f"sphere walk vs plain, {label}, every 7th lane "
+                             "dead", got, cuda_spheres.
+                             closest_hit_spheres_walk_plain(o, d, tp, grid)))
+        if stats[-1][0] != 0.0:
+            raise AssertionError("sphere walk: mismatching lanes")
+        ref = cuda_spheres.closest_hit_spheres_cuda(o, d, tp, dense)
+        flip = (got.prim != ref.prim) | (got.kind != ref.kind)
+        ok = ~flip & ref.valid
+        rel = float(((got.t - ref.t).abs() / ref.t.abs())[ok].max())
+        log(f"  sphere walk vs dense kernel, {label}: prim flip rate "
+            f"{float(flip.float().mean()):.2e} (<= {MAX_SPHERE_FLIPS}), max "
+            f"rel t {rel:.2e} (<= {SPHERE_RTOL}), hit "
+            f"{float(ref.valid.float().mean()):.3f}")
+        if float(flip.float().mean()) > MAX_SPHERE_FLIPS or rel > SPHERE_RTOL:
+            raise AssertionError("sphere walk disagrees with the dense kernel")
+        tp = torch.where(torch.isfinite(got.t), got.t, -1.0)
+        tp[::7] = float("inf")
+    return stats
+
+
+def flat2_work(o, d, sc, t_prev, t_max, occluded=None):
+    """(slab tests, triangle tests, block columns entered [bpad] bool) the
+    flat2 walk needs on these rays: a slab test of every real superblock
+    per live ray and of the 128 columns of each superblock it enters
+    before its result's t (closest hit: t_max = the hit's t; any-hit:
+    within t_max), and a Baldwin-Weber test of every real slot of each
+    block it enters in those. ``t_prev`` None marks the any-hit (an
+    occluded ray needs one test)."""
+    import torch
+
+    from path_tracer_torch.ops import slab
+
+    ids, sb_ids = sc.sl_blkid[0], sc.sl_sbid[0]
+    real = real_per_column(sc.sl_bw_t[0:3].abs().sum(0) > 0, sc.sl_block, ids)
+    bpad = sc.sl_blkflat.shape[1]
+    live = (t_max >= 0.0) if t_prev is None else torch.isfinite(t_prev)
+    slabs = int(live.sum()) * int((sb_ids >= 0).sum())
+    tests = 0 if t_prev is not None else int((occluded & live).sum())
+    needed = torch.zeros_like(ids, dtype=torch.bool)
+    for a in range(0, o.shape[0], 1 << 13):
+        rs = slice(a, a + (1 << 13))
+        inv = slab.safe_inv(d[rs])
+        g_sb, g = (needed_gate(*slab.slab(o[rs], inv, table), table_ids,
+                               None if t_prev is None else t_prev[rs],
+                               t_max[rs],
+                               None if occluded is None else occluded[rs])
+                   for table, table_ids in ((sc.sl_sbflat, sb_ids),
+                                            (sc.sl_blkflat, ids)))
+        g &= g_sb.repeat_interleave(128, dim=1)[:, :bpad]
+        slabs += 128 * int(g_sb.sum())
+        tests += int((g * real).sum())
+        needed |= g.any(0)
+    return slabs, tests, needed
+
+
+def rows_bytes(sc, needed) -> int:
+    """Bytes of the 12 used BW rows of the blocks in ``needed``, each read
+    once."""
+    return int(needed.sum()) * 12 * sc.sl_block * 4
+
+
+def phase_flat2_timing(device, big):
+    """Flat2 kernel and plain-version milliseconds at the main path's
+    shapes on the 991k-triangle showcase's opaque view: 2^18 camera lanes
+    of the middle wavefront, its first bounce's rays and its three shadow
+    sets; beside each, the flat kernel on the same tables and rays (the
+    A/B of whether flat2 is still needed on this card). The kernels'
+    results must equal the timed plain versions' on every lane."""
+    import torch
+
+    from path_tracer_torch.ops import cuda_bvh
+    from path_tracer_torch.scene.device_scene import opaque_view
+
+    op = opaque_view(big)
+    n = WAVE
+    (bo, bd, btp), (so, sds, stms) = first_bounce(big, n, device)
+    o, d = camera_rays(big, n, device)
+    tables = (op.sl_sbflat, op.sl_sbid, op.sl_blkflat, op.sl_blkid)
+    out = {"stats": []}
+    for label, (ro, rd, tp) in (
+            ("camera", (o, d, torch.full((n,), -1.0, device=device))),
+            ("first bounce", (bo, bd, btp))):
+        run = lambda: cuda_bvh.closest_hit_triangles_flat2(ro, rd, tp, op)
+        flat = lambda: cuda_bvh.closest_hit_triangles_flat(ro, rd, tp, op)
+        plain = lambda: cuda_bvh.closest_hit_triangles_flat2_plain(ro, rd, tp,
+                                                                   op)
+        ms, flat_ms = cuda_ms(run, 10), cuda_ms(flat, 10)
+        plain_ms, want = timed_once(plain)
+        ms2, flat_ms2 = cuda_ms(run, 10), cuda_ms(flat, 10)
+        got = run()
+        out["stats"].append(compare(f"flat2 vs plain, {n} {label} lanes",
+                                    got, want))
+        if out["stats"][-1][0] != 0.0:
+            raise AssertionError("flat2 closest hit: mismatching lanes")
+        slabs, tests, needed = flat2_work(ro, rd, op, tp, got.t)
+        rows = rows_bytes(op, needed)
+        work = bound(slabs * OPS_SLAB + tests * OPS_BW,
+                     nbytes(ro, rd, tp, *tables) + rows + n * (4 * 4 + 4))
+        log(f"  time flat2 closest hit, {n} {label} rays x {op.sl_n_blocks} "
+            f"blocks: kernel {ms:.4f} ms, {ms2:.4f} ms (repeat); the flat "
+            f"kernel on the same tables {flat_ms:.4f} ms, {flat_ms2:.4f} ms; "
+            f"plain {plain_ms:.4f} ms; bound {work[0]:.4f} ms ({work[1]}: "
+            f"{slabs} slab tests, {tests} triangle tests, {rows / 1e6:.1f} MB "
+            "of BW rows)")
+        out[label] = (min(ms, ms2), plain_ms) + work
+        out[f"flat {label}"] = min(flat_ms, flat_ms2)
+    run = lambda: cuda_bvh.occluded_triangles_flat2_multi(so, sds, stms, op)
+    flat = lambda: cuda_bvh.occluded_triangles_flat_multi(so, sds, stms, op)
+    plain = lambda: cuda_bvh.occluded_triangles_flat2_multi_plain(so, sds,
+                                                                  stms, op)
+    ms, flat_ms = cuda_ms(run, 10), cuda_ms(flat, 10)
+    plain_ms, want = timed_once(plain)
+    ms2, flat_ms2 = cuda_ms(run, 10), cuda_ms(flat, 10)
+    occ = run()
+    n_off = int((occ != want).sum())
+    log(f"  flat2 any-hit vs plain, {len(sds)} first-bounce shadow sets x "
+        f"{n} lanes: mismatching lanes {n_off}")
+    if n_off:
+        raise AssertionError("flat2 any-hit: mismatching lanes")
+    out["occluded err"] = float((occ != want).float().max())
+    slabs = tests = 0
+    needed = torch.zeros_like(op.sl_blkid[0], dtype=torch.bool)
+    for k, (sd, tm) in enumerate(zip(sds, stms)):
+        a, b, c = flat2_work(so, sd, op, None, tm, occ[k])
+        slabs, tests, needed = slabs + a, tests + b, needed | c
+    rows = rows_bytes(op, needed)
+    work = bound(slabs * OPS_SLAB + tests * OPS_BW,
+                 nbytes(so, *sds, *stms, *tables) + rows + 4 * n * len(sds))
+    log(f"  time flat2 any-hit, {n} first-bounce shadow rays x L={len(sds)}: "
+        f"kernel {ms:.4f} ms, {ms2:.4f} ms (repeat); the flat kernel "
+        f"{flat_ms:.4f} ms, {flat_ms2:.4f} ms; plain {plain_ms:.4f} ms; bound "
+        f"{work[0]:.4f} ms ({work[1]}: {slabs} slab tests, {tests} triangle "
+        f"tests)")
+    out["occluded"] = (min(ms, ms2), plain_ms) + work
+    out["flat occluded"] = min(flat_ms, flat_ms2)
+    return out
+
+
+def phase_sph_timing(device, grid):
+    """Sphere walk and plain-version milliseconds on the 4,900-sphere
+    grid's middle 2^18-lane camera wavefront at 1080p, beside the dense
+    sphere kernel on the same rays; the walk must equal the timed plain
+    version on every lane. Returns ((ms, plain ms, bound ms, bound by),
+    the comparison's stats)."""
+    import dataclasses
+
+    import torch
+
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import cuda_spheres, slab
+
+    n = WAVE
+    o, d = camera_rays(grid, n, device)
+    tp = torch.full((n,), -1.0, device=device)
+    dense = dataclasses.replace(grid, sph_use_blocks=False)
+    run = lambda: cuda_spheres.closest_hit_spheres_cuda(o, d, tp, grid)
+    plain = lambda: cuda_spheres.closest_hit_spheres_walk_plain(o, d, tp, grid)
+    dense_run = lambda: cuda_spheres.closest_hit_spheres_cuda(o, d, tp, dense)
+    # The launch alone, without the wrapper's record mapping: its few
+    # small host-launched ops weigh on a sub-millisecond kernel.
+    bare = lambda: native.launch_sph_walk(o, d, tp, grid.sph_blk,
+                                          grid.sph_blkid, grid.sph_sorted_t)
+    ms, bare_ms, dense_ms = (cuda_ms(run, 20), cuda_ms(bare, 20),
+                             cuda_ms(dense_run, 5))
+    plain_ms, want = timed_once(plain)
+    ms2, bare_ms2, dense_ms2 = (cuda_ms(run, 20), cuda_ms(bare, 20),
+                                cuda_ms(dense_run, 5))
+    got = run()
+    stats = [compare(f"sphere walk vs plain, {n} camera lanes", got, want)]
+    if stats[0][0] != 0.0:
+        raise AssertionError("sphere walk: mismatching lanes")
+    # Solves: the real spheres of every block a lane enters before its hit.
+    ids = grid.sph_blkid[0]
+    real = real_per_column(grid.sph_sorted_t[3] > 0.0, 128, ids)
+    tn, tf = slab.slab(o, slab.safe_inv(d), grid.sph_blk)
+    gate = needed_gate(tn, tf, ids, tp, got.t, None)
+    n_blk = int((ids >= 0).sum())
+    solves = int((gate * real).sum())
+    work = bound(n * n_blk * OPS_SLAB + solves * OPS_SPHERE,
+                 nbytes(o, d, tp, grid.sph_blk, grid.sph_blkid,
+                        grid.sph_sorted_t) + n * (2 * 4 + 4))
+    log(f"  time sphere walk, {n} camera rays x {grid.num_real_spheres} "
+        f"spheres ({n_blk} blocks): kernel {ms:.4f} ms, {ms2:.4f} ms "
+        f"(repeat); the launch alone {bare_ms:.4f} ms, {bare_ms2:.4f} ms; "
+        f"plain {plain_ms:.4f} ms; the dense sphere kernel "
+        f"{dense_ms:.4f} ms, {dense_ms2:.4f} ms; bound {work[0]:.4f} ms "
+        f"({work[1]}: {solves} sphere tests, {int(gate.sum())} blocks "
+        "entered)")
+    return (min(ms, ms2), plain_ms) + work, stats
 
 
 def phase_timing(device):
@@ -918,8 +1272,11 @@ def launch_counts() -> dict:
 
     return {"mt_closest_hit": cuda_intersect.launches,
             "sphere_closest_hit": cuda_spheres.launches,
+            "sph_walk": cuda_spheres.sph_walk_launches,
             "flat_closest_hit": cuda_bvh.closest_hit_launches,
             "flat_occluded": cuda_bvh.occluded_launches,
+            "flat2_closest_hit": cuda_bvh.flat2_closest_hit_launches,
+            "flat2_occluded": cuda_bvh.flat2_occluded_launches,
             "alpha_walk": cuda_trwalk.alpha_launches,
             "trans_walk": cuda_trwalk.trans_launches}
 
@@ -933,7 +1290,9 @@ def reset_launch_counts() -> None:
     )
 
     cuda_intersect.launches = cuda_spheres.launches = 0
+    cuda_spheres.sph_walk_launches = 0
     cuda_bvh.closest_hit_launches = cuda_bvh.occluded_launches = 0
+    cuda_bvh.flat2_closest_hit_launches = cuda_bvh.flat2_occluded_launches = 0
     cuda_trwalk.alpha_launches = cuda_trwalk.trans_launches = 0
 
 
@@ -1082,6 +1441,132 @@ def phase_showcase_tex(device, tex):
     return counts
 
 
+def phase_big_showcase(device, big):
+    """4d: the 991k-triangle textured showcase at 1920x1080, 5 bounces,
+    BIG_SPP spp through ``render_pixel_sums``, then one sample through
+    ``render`` written as a PNG. Returns the launch counts of the first;
+    fails unless the flat2 kernels, the dense sphere kernel and both walk
+    kernels launched."""
+    import torch
+
+    from path_tracer_torch.config import Profile, Resolution
+    from path_tracer_torch.models.renderer import (
+        finalize,
+        integrator_spec,
+        render,
+        render_pixel_sums,
+    )
+    from path_tracer_torch.utils.image_io import save_png
+
+    w, h, spp, bounces = 1920, 1080, BIG_SPP, 5
+    log(f"phase 4d (textured showcase grid {BIG_GRID}): "
+        f"{big.num_real_triangles} triangles ({big.n_tris_opaque} opaque), "
+        f"{big.num_real_spheres} spheres, {big.sl_n_blocks} blocks "
+        f"({big.sl_n_blocks_opaque} opaque) of {big.sl_block}; {w}x{h}, "
+        f"{bounces} bounces, {spp} spp")
+    profile = Profile(resolution=Resolution(w, h), bounces=bounces,
+                      samples=spp)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sums = render_pixel_sums(big, w, h, 1, spp, integrator_spec(profile),
+                             tile_rays=profile.tile_rays)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    img = finalize(sums, spp, profile, w, h)
+    save_png(img, OUT / f"showcase_tex{BIG_GRID}_1080p_{spp}spp_b5.png")
+    rays = w * h * spp * (bounces + 1)
+    log(f"  render_pixel_sums: {secs:.3f} s ({secs / spp:.3f} s per sample), "
+        f"{rays / secs / 1e6:.2f} Mray/s, launches {counts}, finite "
+        f"{bool(np.isfinite(sums).all())}, image mean {img.mean():.2f} std "
+        f"{img.std():.2f}")
+    if not (np.isfinite(sums).all() and img.std() > 0):
+        raise AssertionError("scene A: image not finite or constant")
+    if not all(counts[k] for k in ("flat2_closest_hit", "flat2_occluded",
+                                   "sphere_closest_hit", "alpha_walk",
+                                   "trans_walk")) or counts["mt_closest_hit"]:
+        raise AssertionError(f"scene A did not take the flat2, sphere and "
+                             f"walk kernels: {counts}")
+    png = OUT / f"showcase_tex{BIG_GRID}_render_1spp.png"
+    one = Profile(resolution=Resolution(w, h), bounces=bounces, samples=1)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    save_png(render(big, one), png)
+    secs = time.perf_counter() - t0
+    log(f"  render to PNG, 1 spp: {secs:.3f} s, "
+        f"{w * h * (bounces + 1) / secs / 1e6:.2f} Mray/s, launches "
+        f"{launch_counts()}, png {png.stat().st_size} bytes")
+    return counts
+
+
+def phase_sphere_grid(device, grid):
+    """4e: the 4,900-sphere grid written as an ISF file by the port and
+    rendered through the CLI at 1920x1080, 5 bounces, 1 spp; then at
+    480x270, 2 spp through the walk and through the dense sphere kernel,
+    same seed: mean energy within MAX_ENERGY_REL. Returns the CLI run's
+    launch counts."""
+    import dataclasses
+
+    import torch
+
+    from path_tracer_torch import cli
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.scene import isf
+    from path_tracer_torch.scene.procedural import sphere_grid_scene
+
+    w, h, spp, bounces = 1920, 1080, 1, 5
+    log(f"phase 4e (sphere grid): {grid.num_real_spheres} spheres, "
+        f"{grid.num_point_lights} point lights; CLI {w}x{h}, {bounces} "
+        f"bounces, {spp} spp")
+    scene_dir = REPO / "build" / "chip_smoke_sphere_grid"
+    scene_dir.mkdir(parents=True, exist_ok=True)
+    path = scene_dir / "scene.isf"
+    isf.save(sphere_grid_scene(SPHERE_GRID), path)
+    prof = scene_dir / "profile.yaml"
+    prof.write_text(f"resolution: {{width: {w}, height: {h}}}\n"
+                    f"samples: {spp}\nbounces: {bounces}\n")
+    png = OUT / "sphere_grid_cli.png"
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(["render", str(path), "-o", str(png), "-q", "-p", str(prof),
+              "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    size = path.stat().st_size
+    shutil.rmtree(scene_dir)
+    rays = w * h * spp * (bounces + 1)
+    log(f"  via the CLI ({size} bytes of scene.isf loaded and built in the "
+        f"timing): {secs:.3f} s, {rays / secs / 1e6:.2f} Mray/s, launches "
+        f"{counts}, png {png.stat().st_size} bytes")
+    if not counts["sph_walk"] or counts["sphere_closest_hit"]:
+        raise AssertionError(f"sphere grid did not take the walk: {counts}")
+
+    spec = IntegratorSpec(bounces=bounces)
+    out = {}
+    for label, sc in (("walk", grid), ("dense", dataclasses.replace(
+            grid, sph_use_blocks=False))):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out[label] = render_pixel_sums(sc, 480, 270, 1, 2, spec,
+                                       tile_rays=1 << 18) / 2
+        torch.cuda.synchronize()
+        log(f"  480x270, 2 spp, {label}: {time.perf_counter() - t0:.3f} s, "
+            f"launches {launch_counts()}")
+    got, want = out["walk"], out["dense"]
+    within = float((np.abs(got - want) <= 1e-4 + 1e-3 * np.abs(want)).mean())
+    energy = abs(float(got.mean()) - float(want.mean())) / float(want.mean())
+    log(f"  walk vs dense: values within rtol 1e-3 / atol 1e-4 {within:.5f};"
+        f" mean energy {got.mean():.6f} vs {want.mean():.6f}, rel diff "
+        f"{energy:.2e} (<= {MAX_ENERGY_REL})")
+    if energy > MAX_ENERGY_REL:
+        raise AssertionError("sphere walk and dense renders disagree")
+    return counts
+
+
 def phase_walks_vs_cast(device, tex):
     """The textured showcase at 480x270, 2 spp, 5 bounces through the walk
     kernels and with their step cap set to 0 (every lane walks in the
@@ -1224,6 +1709,7 @@ def phase_oracle(device):
 def main() -> int:
     import torch
 
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1263,16 +1749,42 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s; tr_kernel_ok {tex.tr_kernel_ok}")
     if not tex.tr_kernel_ok:
         raise AssertionError("textured showcase: no walk-kernel tables")
+    from path_tracer_torch.ops.intersect import _walk_variant
+    from path_tracer_torch.scene.device_scene import (
+        opaque_view,
+        transparent_view,
+    )
+    from path_tracer_torch.scene.procedural import sphere_grid_device_scene
+
+    t0 = time.perf_counter()
+    big = showcase_device_scene(BIG_GRID, device, sl_block=SHOWCASE_BLOCK,
+                                textured=True)
+    walks = [_walk_variant(v(big)) for v in (opaque_view, transparent_view)]
+    log(f"  textured showcase grid {BIG_GRID} built in "
+        f"{time.perf_counter() - t0:.2f} s: {big.num_real_triangles} "
+        f"triangles, {big.sl_n_blocks} blocks, walks (opaque, transparent) "
+        f"{walks}, tr_kernel_ok {big.tr_kernel_ok}")
+    if walks != ["flat2", "flat"] or not big.tr_kernel_ok:
+        raise AssertionError("scene A does not route as the JAX package's")
+    grid = sphere_grid_device_scene(SPHERE_GRID, device)
+    if not grid.sph_use_blocks:
+        raise AssertionError("the sphere grid does not take the walk")
 
     tri_stats, sph_stats = phase_kernels(device)
     flat_stats, occ_err = phase_flat_kernels(device, showcase)
     alpha_stats, trans_stats = phase_walk_kernels(device, tex)
+    flat2_stats, occ2_err = phase_flat2_kernels(device, big)
+    walk_stats = phase_sph_walk_kernel(device, grid)
     times = phase_timing(device)
     flat_times = phase_flat_timing(device, showcase)
     walk_times = phase_walk_timing(device, tex)
+    flat2_times = phase_flat2_timing(device, big)
+    sph_time, sph_timing_stats = phase_sph_timing(device, grid)
     launches = phase_main_path(device)
     flat_launches = phase_showcase(device, showcase)
     walk_launches = phase_showcase_tex(device, tex)
+    big_launches = phase_big_showcase(device, big)
+    grid_launches = phase_sphere_grid(device, grid)
     phase_bvh_vs_brute(device, showcase)
     phase_walks_vs_cast(device, tex)
     phase_oracle(device)
@@ -1304,7 +1816,20 @@ def main() -> int:
         entry("trans_walk", "trans_walk.cu", "pallas_trwalk.py:600",
               walk_launches["trans_walk"], max(s[1] for s in trans_stats),
               walk_times["trans_walk"]),
+        entry("flat2_closest_hit", "flat2_closest_hit.cu",
+              "pallas_bvh.py:1217", big_launches["flat2_closest_hit"],
+              max(s[1] for s in flat2_stats + flat2_times["stats"]),
+              flat2_times["camera"]),
+        entry("flat2_occluded", "flat2_occluded.cu", "pallas_bvh.py:1464",
+              big_launches["flat2_occluded"],
+              max(occ2_err, flat2_times["occluded err"]),
+              flat2_times["occluded"]),
+        entry("sph_walk", "sph_walk.cu", "pallas_spheres.py:385",
+              grid_launches["sph_walk"],
+              max(s[1] for s in walk_stats + sph_timing_stats), sph_time),
     ]
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} "
+        "s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -46,15 +46,6 @@ namespace {
 
 using ptt::kCtaRays;
 
-// Block slab gate of a live lane (t_prev < +inf): the block lies ahead of
-// the ray and beyond t_prev.
-struct ClosestGate {
-  __device__ bool live(float tp) const { return tp < CUDART_INF_F; }
-  __device__ bool pass(float tn, float tf, float tp) const {
-    return tf >= ptt::max_nan(tn, 0.f) && tf > tp;
-  }
-};
-
 __global__ void __launch_bounds__(kCtaRays)
 flat_closest_hit_kernel(const float* __restrict__ o,
                         const float* __restrict__ d,
@@ -80,7 +71,7 @@ flat_closest_hit_kernel(const float* __restrict__ o,
     dx = d[3 * i]; dy = d[3 * i + 1]; dz = d[3 * i + 2];
     tp = t_prev[i];
   }
-  const ClosestGate gate;
+  const ptt::ClosestGate gate;
   const bool live = gate.live(tp);  // +inf (or NaN) marks a dead lane
   const int n_rows = S > 0 ? 5 : 4;
 
@@ -90,7 +81,7 @@ flat_closest_hit_kernel(const float* __restrict__ o,
     const float ix = ptt::safe_inv(dx), iy = ptt::safe_inv(dy),
                 iz = ptt::safe_inv(dz);
     ptt::stage_ray(s_ray, ox, oy, oz, ix, iy, iz, tp);
-    ptt::column_keys(blk, blkid, bpad, s_ray, s_key, gate);
+    ptt::column_keys(blk, blkid, bpad, bpad, s_ray, s_key, gate);
     while (true) {
       float key, reach = live ? bt : -CUDART_INF_F;  // farthest best t
       int col;
@@ -107,23 +98,9 @@ flat_closest_hit_kernel(const float* __restrict__ o,
       if (!__syncthreads_or(need)) continue;
       const int b = blkid[col];
       ptt::stage_block(bw, b, block, n_cols, s_bw);
-      if (need) {
-        for (int j = 0; j < block; ++j) {
-          float dn;
-          bool ok;
-          const float t = ptt::bw_plane(s_bw + j, block, ox, oy, oz, dx, dy,
-                                        dz, dn, ok);
-          if (!(ok && t >= ptt::kTMin && t > tp && t <= bt)) continue;
-          float u, v;
-          if (!ptt::bw_inside(s_bw + j, block, ox, oy, oz, dx, dy, dz, t, u,
-                              v))
-            continue;
-          const int slot = b * block + j;
-          if (t < bt || slot < bi) {  // t == bt here: the lower slot wins
-            bt = t; bu = u; bv = v; bb = dn > 0.f ? 1.f : 0.f; bi = slot;
-          }
-        }
-      }
+      if (need)
+        ptt::closest_block(s_bw, b, block, ox, oy, oz, dx, dy, dz, tp, bt, bu,
+                           bv, bb, bi);
       __syncthreads();  // s_bw is restaged by the next visit
     }
   }
@@ -182,7 +159,7 @@ extern "C" int ptt_flat_closest_hit(const float* o, const float* d,
   if (err != cudaSuccess) return (int)err;
   if (R <= 0) return 0;
   size_t smem;
-  err = ptt::walk_smem(flat_closest_hit_kernel, block, bpad, smem);
+  err = ptt::walk_smem(flat_closest_hit_kernel, 12 * block, bpad, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (R + kCtaRays - 1) / kCtaRays;
   flat_closest_hit_kernel<<<blocks, kCtaRays, smem, stream>>>(

@@ -1,6 +1,7 @@
-// Device helpers shared by the flat block-walk kernels and the dense sphere
-// kernel: the one place where the block slab test, the block walk, the
-// Baldwin-Weber (BW) triangle test and the sphere root rules are written.
+// Device helpers shared by the flat and flat2 block-walk kernels, the dense
+// sphere kernel and the sphere block walk: the one place where the block
+// slab test, the block walk, the Baldwin-Weber (BW) triangle test and the
+// sphere root rules are written.
 //
 // Every expression is written in the order of the plain PyTorch versions
 // (ops/cuda_bvh.py, ops/intersect.py), and the library is built -fmad=false,
@@ -36,7 +37,7 @@ __device__ __forceinline__ float safe_inv(float x) {
   return x == 0.f ? 1e30f : 1.0f / x;
 }
 
-// One block AABB: column c of the [8, bpad] table (rows min.xyz, max.xyz).
+// One block AABB: column c of an [8, bpad] table (rows min.xyz, max.xyz).
 struct Box {
   float x0, y0, z0, x1, y1, z1;
 };
@@ -166,16 +167,34 @@ __device__ __forceinline__ void cta_min_key_max(float& key, int& col,
 constexpr int kCtaRays = 128;
 constexpr int kRayRows = 7;  // ox, oy, oz, 1/dx, 1/dy, 1/dz, g
 
-// Dynamic shared memory of a walk over 'block'-slot blocks and bpad
-// columns; raises the kernel's limit when it exceeds the default 48 KB.
+// Dynamic shared memory of a walk that stages 'staged' floats (a block's
+// rows) and keeps 'keys' column keys beside the CTA's rays; raises the
+// kernel's limit when it exceeds the default 48 KB.
 template <class Kernel>
-inline cudaError_t walk_smem(Kernel kernel, int block, int bpad,
+inline cudaError_t walk_smem(Kernel kernel, int staged, int keys,
                              size_t& bytes) {
-  bytes = (size_t)(12 * block + bpad + kRayRows * kCtaRays) * sizeof(float);
+  bytes = (size_t)(staged + keys + kRayRows * kCtaRays) * sizeof(float);
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
+
+// Slab gates of a live lane. Closest hit (g = t_prev, live while < +inf):
+// the box lies ahead of the ray and beyond t_prev. Any-hit (g = t_max, live
+// while >= 0): the box lies ahead and its entry no farther than t_max.
+struct ClosestGate {
+  __device__ bool live(float tp) const { return tp < CUDART_INF_F; }
+  __device__ bool pass(float tn, float tf, float tp) const {
+    return tf >= max_nan(tn, 0.f) && tf > tp;
+  }
+};
+
+struct OccludedGate {
+  __device__ bool live(float tm) const { return tm >= 0.f; }
+  __device__ bool pass(float tn, float tf, float tm) const {
+    return tf >= max_nan(tn, 0.f) && tn <= tm;
+  }
+};
 
 // Writes this thread's ray into s_ray, then waits for the whole CTA.
 __device__ __forceinline__ void stage_ray(float* s_ray, float ox, float oy,
@@ -193,17 +212,18 @@ __device__ __forceinline__ void stage_ray(float* s_ray, float ox, float oy,
 }
 
 // s_key[c] = the nearest slab entry, clamped at 0, over the CTA's live
-// lanes whose gate column c passes (+inf for none and for pad columns);
-// then waits for the whole CTA.
+// lanes whose gate column c passes (+inf for none and for pad columns), for
+// the n columns starting at blk / blkid of a table with row stride ld; then
+// waits for the whole CTA.
 template <class Gate>
 __device__ __forceinline__ void column_keys(const float* __restrict__ blk,
                                             const int* __restrict__ blkid,
-                                            int bpad, const float* s_ray,
+                                            int ld, int n, const float* s_ray,
                                             float* s_key, Gate gate) {
-  for (int c = threadIdx.x; c < bpad; c += kCtaRays) {
+  for (int c = threadIdx.x; c < n; c += kCtaRays) {
     float key = CUDART_INF_F;
     if (blkid[c] >= 0) {
-      const Box box = load_box(blk, bpad, c);
+      const Box box = load_box(blk, ld, c);
       for (int k = 0; k < kCtaRays; ++k) {
         const float g = s_ray[6 * kCtaRays + k];
         if (!gate.live(g)) continue;
@@ -246,6 +266,48 @@ __device__ __forceinline__ void stage_block(const float* __restrict__ bw,
     s_bw[idx] = src[(size_t)r * n_cols + (idx - r * block)];
   }
   __syncthreads();
+}
+
+// Closest-hit BW test of one lane against the block staged in s_bw (block
+// id b, 'block' slots): keeps the lexicographic (t, packed slot) minimum of
+// (bt, bi) and the hits with t >= kTMin and t > tp.
+__device__ __forceinline__ void closest_block(const float* s_bw, int b,
+                                              int block, float ox, float oy,
+                                              float oz, float dx, float dy,
+                                              float dz, float tp, float& bt,
+                                              float& bu, float& bv, float& bb,
+                                              int& bi) {
+  for (int j = 0; j < block; ++j) {
+    float dn;
+    bool ok;
+    const float t = bw_plane(s_bw + j, block, ox, oy, oz, dx, dy, dz, dn, ok);
+    if (!(ok && t >= kTMin && t > tp && t <= bt)) continue;
+    float u, v;
+    if (!bw_inside(s_bw + j, block, ox, oy, oz, dx, dy, dz, t, u, v))
+      continue;
+    const int slot = b * block + j;
+    if (t < bt || slot < bi) {  // t == bt here: the lower slot wins
+      bt = t; bu = u; bv = v; bb = dn > 0.f ? 1.f : 0.f; bi = slot;
+    }
+  }
+}
+
+// Any-hit BW test of one lane against the block staged in s_bw: true at the
+// first hit with kTMin <= t <= tm.
+__device__ __forceinline__ bool occluded_block(const float* s_bw, int block,
+                                               float ox, float oy, float oz,
+                                               float dx, float dy, float dz,
+                                               float tm) {
+  for (int j = 0; j < block; ++j) {
+    float dn;
+    bool ok;
+    const float t = bw_plane(s_bw + j, block, ox, oy, oz, dx, dy, dz, dn, ok);
+    if (!(ok && t >= kTMin && t <= tm)) continue;
+    float u, v;
+    if (bw_inside(s_bw + j, block, ox, oy, oz, dx, dy, dz, t, u, v))
+      return true;
+  }
+  return false;
 }
 
 }  // namespace ptt

@@ -33,15 +33,6 @@ namespace {
 
 using ptt::kCtaRays;
 
-// Block slab gate of a live lane (t_max >= 0): the block lies ahead of the
-// ray and its entry no farther than t_max.
-struct OccludedGate {
-  __device__ bool live(float tm) const { return tm >= 0.f; }
-  __device__ bool pass(float tn, float tf, float tm) const {
-    return tf >= ptt::max_nan(tn, 0.f) && tn <= tm;
-  }
-};
-
 __global__ void __launch_bounds__(kCtaRays)
 flat_occluded_kernel(const float* __restrict__ o, const float* __restrict__ d,
                      const float* __restrict__ t_max,
@@ -65,7 +56,7 @@ flat_occluded_kernel(const float* __restrict__ o, const float* __restrict__ d,
     dx = d[3 * lane]; dy = d[3 * lane + 1]; dz = d[3 * lane + 2];
     tm = t_max[lane];
   }
-  const OccludedGate gate;
+  const ptt::OccludedGate gate;
   const bool live = gate.live(tm);  // lanes that may be occluded
   bool occ = tm < 0.f;              // dead lanes report occluded
 
@@ -73,7 +64,7 @@ flat_occluded_kernel(const float* __restrict__ o, const float* __restrict__ d,
     const float ix = ptt::safe_inv(dx), iy = ptt::safe_inv(dy),
                 iz = ptt::safe_inv(dz);
     ptt::stage_ray(s_ray, ox, oy, oz, ix, iy, iz, tm);
-    ptt::column_keys(blk, blkid, bpad, s_ray, s_key, gate);
+    ptt::column_keys(blk, blkid, bpad, bpad, s_ray, s_key, gate);
     while (true) {
       float key, open = (live && !occ) ? 1.f : 0.f;  // any lane still open?
       int col;
@@ -88,21 +79,8 @@ flat_occluded_kernel(const float* __restrict__ o, const float* __restrict__ d,
       }
       if (!__syncthreads_or(need)) continue;
       ptt::stage_block(bw, blkid[col], block, n_cols, s_bw);
-      if (need) {
-        for (int j = 0; j < block; ++j) {
-          float dn;
-          bool ok;
-          const float t = ptt::bw_plane(s_bw + j, block, ox, oy, oz, dx, dy,
-                                        dz, dn, ok);
-          if (!(ok && t >= ptt::kTMin && t <= tm)) continue;
-          float u, v;
-          if (ptt::bw_inside(s_bw + j, block, ox, oy, oz, dx, dy, dz, t, u,
-                             v)) {
-            occ = true;
-            break;
-          }
-        }
-      }
+      if (need)
+        occ = ptt::occluded_block(s_bw, block, ox, oy, oz, dx, dy, dz, tm);
       __syncthreads();  // s_bw is restaged by the next visit
     }
   }
@@ -121,7 +99,7 @@ extern "C" int ptt_flat_occluded(const float* o, const float* d,
   if (err != cudaSuccess) return (int)err;
   if (R <= 0 || L <= 0) return 0;
   size_t smem;
-  err = ptt::walk_smem(flat_occluded_kernel, block, bpad, smem);
+  err = ptt::walk_smem(flat_occluded_kernel, 12 * block, bpad, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((R + kCtaRays - 1) / kCtaRays, L);
   flat_occluded_kernel<<<grid, kCtaRays, smem, stream>>>(

@@ -104,6 +104,13 @@ def _dot(a, b):
     return (a * b).sum(-1)
 
 
+def _tri_index(scene, prim):
+    """Triangle gather index of clamped prims [R]: a sphere lane's prim may
+    exceed the triangle count; clamped as the JAX package's gathers clamp
+    (those lanes' values are discarded)."""
+    return torch.clamp(prim, max=scene.tri_v0.shape[0] - 1)
+
+
 def _hit_model_uv(scene, hit: HitRecord):
     """(model_id [R], uv [R,2], simple [R]) for any hit record. Scenes with a
     single primitive class skip the other class's gathers."""
@@ -115,11 +122,13 @@ def _hit_model_uv(scene, hit: HitRecord):
                 torch.zeros((r, 2), device=prim.device),
                 torch.ones((r,), dtype=torch.bool, device=prim.device))
     is_tri = hit.kind == KIND_TRIANGLE
+    tri_i = _tri_index(scene, prim)
     w = hit.u[:, None]
     ww = hit.v[:, None]
-    uv0 = scene.tri_uv0[prim]
-    uv = uv0 + w * (scene.tri_uv1[prim] - uv0) + ww * (scene.tri_uv2[prim] - uv0)
-    tri_model = scene.tri_model[prim]
+    uv0 = scene.tri_uv0[tri_i]
+    uv = (uv0 + w * (scene.tri_uv1[tri_i] - uv0)
+          + ww * (scene.tri_uv2[tri_i] - uv0))
+    tri_model = scene.tri_model[tri_i]
     if scene.num_real_spheres == 0:
         return tri_model, uv, torch.zeros_like(is_tri)
     sph_i = torch.clamp(prim, max=scene.sph_model.shape[0] - 1)
@@ -141,11 +150,12 @@ def _surface(scene, hit: HitRecord, o, d) -> Surface:
 
     # Triangle: barycentric vertex-normal interpolation (NOT normalized).
     n_interp = None
+    tri_i = _tri_index(scene, prim)
     if scene.num_real_triangles != 0:
         w1 = hit.u[:, None]
         w2 = hit.v[:, None]
-        n_interp = ((1.0 - w1 - w2) * scene.tri_n0[prim]
-                    + w1 * scene.tri_n1[prim] + w2 * scene.tri_n2[prim])
+        n_interp = ((1.0 - w1 - w2) * scene.tri_n0[tri_i]
+                    + w1 * scene.tri_n1[tri_i] + w2 * scene.tri_n2[tri_i])
 
     # Sphere geometric normal: outward, negated for far-root (inside) hits.
     sph_n = None
@@ -165,7 +175,7 @@ def _surface(scene, hit: HitRecord, o, d) -> Surface:
     if nm is None:
         tri_shading_n = n_interp
     else:
-        tangent = scene.tri_tangent[prim]
+        tangent = scene.tri_tangent[tri_i]
         bitangent = torch.linalg.cross(n_interp, tangent)
         mapped = (tangent * nm[:, 0:1] + bitangent * nm[:, 1:2]
                   + n_interp * nm[:, 2:3])

@@ -199,6 +199,19 @@ def kernels() -> Kernels:
         #  device, stream)
         lib.ptt_flat_occluded.restype = ci
         lib.ptt_flat_occluded.argtypes = [vp] * 6 + [ci] * 5 + [vp, ci, vp]
+        # (o, d, t_prev, sbflat, sbid, blkflat, blkid, bw, R, sbpad, bpad,
+        #  block, n_cols, fout, iout, device, stream)
+        lib.ptt_flat2_closest_hit.restype = ci
+        lib.ptt_flat2_closest_hit.argtypes = [vp] * 8 + [ci] * 5 + [vp, vp,
+                                                                   ci, vp]
+        # (o, d, t_max, sbflat, sbid, blkflat, blkid, bw, R, L, sbpad, bpad,
+        #  block, n_cols, out, device, stream)
+        lib.ptt_flat2_occluded.restype = ci
+        lib.ptt_flat2_occluded.argtypes = [vp] * 8 + [ci] * 6 + [vp, ci, vp]
+        # (o, d, t_prev, blk, blkid, sph, R, sbpad, n_slots, fout, iout,
+        #  device, stream)
+        lib.ptt_sph_walk.restype = ci
+        lib.ptt_sph_walk.argtypes = [vp] * 6 + [ci] * 3 + [vp, vp, ci, vp]
         # (o, d, t_op, rnd, bw, rows, tex, lut, pages, R, T, wp, steps_cap,
         #  textured, fout, iout, device, stream)
         lib.ptt_alpha_walk.restype = ci
@@ -336,6 +349,124 @@ def launch_flat_occluded(o, ds, t_maxes, blkflat, blkid, bw, block: int):
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return out
+
+
+def _check_superblocks(fn: str, sbflat, sbid, bpad: int, device) -> int:
+    """The superblock tables a flat2 kernel reads; returns sbpad."""
+    sbpad = sbflat.shape[1] if sbflat.dim() == 2 else -1
+    _check("sbflat", sbflat, (8, sbpad), torch.float32, device)
+    _check("sbid", sbid, (1, sbpad), torch.int32, device)
+    if sbpad <= 0 or bpad % 128 or sbpad * 128 < bpad:
+        raise ValueError(f"{fn}: {sbpad} superblocks do not cover {bpad} "
+                         "block columns in groups of 128")
+    return sbpad
+
+
+def launch_flat2_closest_hit(o, d, t_prev, sbflat, sbid, blkflat, blkid, bw,
+                             block: int):
+    """Check the operands of the flat2 closest-hit kernel, allocate its
+    outputs and launch it on the current stream (no synchronisation).
+
+    o, d: [R,3] f32; t_prev: [R] f32; sbflat [8,SBpad] f32, sbid [1,SBpad]
+    i32 (superblock g covers block columns [128g, 128g + 128)); blkflat,
+    blkid, bw as for ``launch_flat_closest_hit``. Returns (fout [4, R] f32,
+    iout [R] i32)."""
+    fn = "ptt_flat2_closest_hit"
+    device = o.device
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
+    r = o.shape[0]
+    _check("o", o, (r, 3), torch.float32, device)
+    _check("d", d, (r, 3), torch.float32, device)
+    _check("t_prev", t_prev, (r,), torch.float32, device)
+    bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
+    sbpad = _check_superblocks(fn, sbflat, sbid, bpad, device)
+    if 4 * r >= 2**31:
+        raise ValueError(f"{fn}: {r} rays exceed int32 indexing")
+    lib = kernels().lib
+    fout = torch.empty((4, r), dtype=torch.float32, device=device)
+    iout = torch.empty((r,), dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.ptt_flat2_closest_hit(
+        o.data_ptr(), d.data_ptr(), t_prev.data_ptr(), sbflat.data_ptr(),
+        sbid.data_ptr(), blkflat.data_ptr(), blkid.data_ptr(), bw.data_ptr(),
+        r, sbpad, bpad, block, n_cols, fout.data_ptr(), iout.data_ptr(),
+        device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    return fout, iout
+
+
+def launch_flat2_occluded(o, ds, t_maxes, sbflat, sbid, blkflat, blkid, bw,
+                          block: int):
+    """Check the operands of the flat2 any-hit kernel, allocate its output
+    and launch it on the current stream (no synchronisation).
+
+    o: [R,3] f32; ds: [L,R,3] f32; t_maxes: [L,R] f32 (< 0 = dead lane);
+    tables as for ``launch_flat2_closest_hit``. Returns out [L,R] f32
+    (1 = occluded or dead)."""
+    fn = "ptt_flat2_occluded"
+    device = o.device
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
+    r = o.shape[0]
+    n_sets = ds.shape[0] if ds.dim() == 3 else -1
+    _check("o", o, (r, 3), torch.float32, device)
+    _check("ds", ds, (n_sets, r, 3), torch.float32, device)
+    _check("t_maxes", t_maxes, (n_sets, r), torch.float32, device)
+    bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
+    sbpad = _check_superblocks(fn, sbflat, sbid, bpad, device)
+    if not 0 < n_sets < 65536 or 3 * n_sets * r >= 2**31:
+        raise ValueError(f"{fn}: {n_sets} sets x {r} rays out of range")
+    lib = kernels().lib
+    out = torch.empty((n_sets, r), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.ptt_flat2_occluded(
+        o.data_ptr(), ds.data_ptr(), t_maxes.data_ptr(), sbflat.data_ptr(),
+        sbid.data_ptr(), blkflat.data_ptr(), blkid.data_ptr(), bw.data_ptr(),
+        r, n_sets, sbpad, bpad, block, n_cols, out.data_ptr(), device.index,
+        stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    return out
+
+
+def launch_sph_walk(o, d, t_prev, blk, blkid, sph):
+    """Check the operands of the sphere block-walk kernel, allocate its
+    outputs and launch it on the current stream (no synchronisation).
+
+    o, d: [R,3] f32; t_prev: [R] f32; blk [8,SBpad] f32 block AABBs, blkid
+    [1,SBpad] i32, sph [4, nblk*128] f32 sorted spheres. Returns
+    (fout [2, R] f32 (t, backface), iout [R] i32 sorted slot)."""
+    fn = "ptt_sph_walk"
+    device = o.device
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
+    r = o.shape[0]
+    sbpad = blk.shape[1] if blk.dim() == 2 else -1
+    n_slots = sph.shape[1] if sph.dim() == 2 else -1
+    _check("o", o, (r, 3), torch.float32, device)
+    _check("d", d, (r, 3), torch.float32, device)
+    _check("t_prev", t_prev, (r,), torch.float32, device)
+    _check("blk", blk, (8, sbpad), torch.float32, device)
+    _check("blkid", blkid, (1, sbpad), torch.int32, device)
+    _check("sph", sph, (4, n_slots), torch.float32, device)
+    if sbpad <= 0 or n_slots <= 0 or n_slots % 128 or 4 * n_slots >= 2**31:
+        raise ValueError(f"{fn}: {n_slots} sphere slots are not whole "
+                         "blocks of 128")
+    if 3 * r >= 2**31:
+        raise ValueError(f"{fn}: {r} rays exceed int32 indexing")
+    lib = kernels().lib
+    fout = torch.empty((2, r), dtype=torch.float32, device=device)
+    iout = torch.empty((r,), dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.ptt_sph_walk(
+        o.data_ptr(), d.data_ptr(), t_prev.data_ptr(), blk.data_ptr(),
+        blkid.data_ptr(), sph.data_ptr(), r, sbpad, n_slots, fout.data_ptr(),
+        iout.data_ptr(), device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    return fout, iout
 
 
 def _check_tr_tables(fn: str, scene, device):

@@ -1,17 +1,24 @@
-"""Flat superleaf block walk: closest hit and batched any-hit, the CUDA
-kernels' wrappers and their plain PyTorch versions.
+"""Flat superleaf block walks: closest hit and batched any-hit, one level
+and two, the CUDA kernels' wrappers and their plain PyTorch versions.
 
-Counterpart of the flat half of ``path_tracer_tpu/ops/pallas_bvh.py``:
+Counterpart of the flat and flat2 halves of
+``path_tracer_tpu/ops/pallas_bvh.py``:
 
 - ``csrc/flat_closest_hit.cu`` replaces ``pallas_bvh._flat_kernel``
   (entry ``closest_hit_triangles_flat``), with its fused dense sphere pass;
 - ``csrc/flat_occluded.cu`` replaces ``pallas_bvh._flat_occ_kernel`` and
-  ``flat_occ_set`` (entries ``occluded_triangles_flat[_multi]``).
+  ``flat_occ_set`` (entries ``occluded_triangles_flat[_multi]``);
+- ``csrc/flat2_closest_hit.cu`` replaces ``pallas_bvh._flat2_kernel``
+  (entry ``closest_hit_triangles_flat2``);
+- ``csrc/flat2_occluded.cu`` replaces ``pallas_bvh._flat2_occ_kernel``
+  (entries ``occluded_triangles_flat2[_multi]``).
 
-They serve every scene with ``use_bvh`` and at most ``FLAT_MAX_BLOCKS``
-superleaf blocks (``ops/intersect.py`` dispatches). Bound on the card:
-arithmetic in the dense Baldwin-Weber visits of the blocks a ray's slab
-test admits; see the sources for the design.
+The flat walks serve scenes (or opacity-partition views) with ``use_bvh``
+and at most ``FLAT_MAX_BLOCKS`` superleaf blocks, the flat2 walks larger
+ones (``ops/intersect.py`` dispatches). Bound on the card: arithmetic in
+the dense Baldwin-Weber visits of the blocks a ray's slab test admits,
+and for flat2 at 1M triangles the HBM reads of those blocks' rows (the
+tables outgrow the L2); see the sources for the design.
 
 Semantics (kernel and plain version alike):
 
@@ -19,6 +26,10 @@ Semantics (kernel and plain version alike):
   direction components inverted to 1e30; closest hit needs
   tf >= max(tn, 0) and tf > t_prev, any-hit tf >= max(tn, 0),
   tn <= t_max and t_max >= 0; pad columns (block id < 0) never pass;
+- flat2: the same gate first on the superblock AABBs (``sl_sbflat``, the
+  union of 128 block columns; id < 0 never passes), then on the block
+  columns of each superblock that passed; a block's rows are addressed by
+  its id (``sl_blkid``), never by its column;
 - Baldwin-Weber test per packed slot: |d.n| >= 1e-6,
   t = (c - o.n) * (1 / d.n), u = Au.h + au, v = Av.h + av on h = o + t d,
   u >= 0, v >= 0, u + v <= 1; closest hit keeps t >= 1e-6 and t > t_prev
@@ -30,7 +41,10 @@ Semantics (kernel and plain version alike):
 The plain versions visit every block a lane's slab test admits, in column
 order, with no best-t pruning; the kernel also prunes blocks whose entry
 lies beyond the lane's best t. The two can differ only where rounding puts
-a hit a few ulps before its block's slab entry, at a near-tie.
+a hit a few ulps before its block's slab entry, at a near-tie. A block box
+lies inside its superblock box and slab rounding is monotone, so a block
+that passes its gate always lies in a superblock that passes: on the same
+tables flat2 gives the flat walk's record exactly.
 """
 from __future__ import annotations
 
@@ -47,28 +61,20 @@ from path_tracer_torch.ops.intersect import (
     _ray_chunks,
     closest_hit_spheres,
 )
+from path_tracer_torch.ops.slab import (
+    closest_gate,
+    live_columns,
+    merge_nearest,
+    occluded_gate,
+    safe_inv,
+    slab,
+)
 
 # Kernel launches made by the wrappers in this process.
 closest_hit_launches = 0
 occluded_launches = 0
-
-
-def _safe_inv(d):
-    zero = d == 0.0
-    return torch.where(zero, 1e30, 1.0 / torch.where(zero, 1.0, d))
-
-
-def _slab(o, inv, blkflat):
-    """Slab entry and exit [R, Bpad] of every ray against every block."""
-    t0 = [(blkflat[k][None, :] - o[:, k:k + 1]) * inv[:, k:k + 1]
-          for k in range(3)]
-    t1 = [(blkflat[3 + k][None, :] - o[:, k:k + 1]) * inv[:, k:k + 1]
-          for k in range(3)]
-    lo = [torch.minimum(a, b) for a, b in zip(t0, t1)]
-    hi = [torch.maximum(a, b) for a, b in zip(t0, t1)]
-    tn = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
-    tf = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
-    return tn, tf
+flat2_closest_hit_launches = 0
+flat2_occluded_launches = 0
 
 
 def _bw_test(o, d, rows):
@@ -96,64 +102,122 @@ def _block_rows(scene, col: int):
     return start, scene.sl_bw_t[:, start:start + scene.sl_block]
 
 
-def _live_columns(gate):
-    """Columns of a [R, Bpad] gate some lane passes (one host sync)."""
-    return torch.nonzero(gate.any(dim=0))[:, 0].tolist()
+def _miss_best(r: int, device):
+    """(t, u, v, backface, slot) of r lanes that hit nothing yet."""
+    return (torch.full((r,), float("inf"), device=device),
+            torch.zeros((r,), device=device), torch.zeros((r,), device=device),
+            torch.zeros((r,), dtype=torch.bool, device=device),
+            torch.full((r,), -1, dtype=torch.int32, device=device))
+
+
+def _closest_visit(scene, col: int, lanes, o, d, t_prev, best):
+    """Baldwin-Weber test of ``lanes`` (indices into o, d, t_prev and the
+    best record) against block column ``col``: the lexicographic (t,
+    packed slot) minimum of the record and the block's hits past t_prev."""
+    bt, bu, bv, bb, bi = best
+    start, rows = _block_rows(scene, col)
+    t, u, v, dn, ok = _bw_test(o[lanes], d[lanes], rows)
+    t = torch.where(ok & (t > t_prev[lanes][:, None]), t, float("inf"))
+    j, better = merge_nearest(t, start, lanes, bt, bi)
+    jj = j[:, None]
+    bu[lanes] = torch.where(better, u.gather(1, jj)[:, 0], bu[lanes])
+    bv[lanes] = torch.where(better, v.gather(1, jj)[:, 0], bv[lanes])
+    bb[lanes] = torch.where(better, dn.gather(1, jj)[:, 0] > 0.0, bb[lanes])
+
+
+def _occluded_visit(scene, col: int, lanes, o, d, t_max, occ):
+    """Any-hit of ``lanes`` against block column ``col``, into ``occ``."""
+    _, rows = _block_rows(scene, col)
+    t, _, _, _, ok = _bw_test(o[lanes], d[lanes], rows)
+    occ[lanes] = (ok & (t <= t_max[lanes][:, None])).any(dim=1)
 
 
 def _flat_walk_plain(o, d, t_prev, scene):
     """The plain flat walk → (t, u, v, backface, slot), each [R] (slot -1
     and t = +inf on a miss)."""
-    valid_col = (scene.sl_blkid[0] >= 0)[None, :]
     parts = []
     for rs in _ray_chunks(o.shape[0]):
         oc, dc, tpc = o[rs], d[rs], t_prev[rs]
-        r = oc.shape[0]
-        tn, tf = _slab(oc, _safe_inv(dc), scene.sl_blkflat)
-        gate = ((tf >= torch.maximum(tn, torch.zeros_like(tn)))
-                & (tf > tpc[:, None]) & valid_col)
-        bt = torch.full((r,), float("inf"), device=o.device)
-        bi = torch.full((r,), -1, dtype=torch.int32, device=o.device)
-        bu = torch.zeros((r,), device=o.device)
-        bv = torch.zeros((r,), device=o.device)
-        bb = torch.zeros((r,), dtype=torch.bool, device=o.device)
-        for col in _live_columns(gate):
+        tn, tf = slab(oc, safe_inv(dc), scene.sl_blkflat)
+        gate = closest_gate(tn, tf, tpc, scene.sl_blkid[0])
+        best = _miss_best(oc.shape[0], o.device)
+        for col in live_columns(gate):
             lanes = torch.nonzero(gate[:, col])[:, 0]
-            start, rows = _block_rows(scene, col)
-            t, u, v, dn, ok = _bw_test(oc[lanes], dc[lanes], rows)
-            t = torch.where(ok & (t > tpc[lanes][:, None]), t, float("inf"))
-            tj, j = t.min(dim=1)  # first (lowest) slot among equal minima
-            jj = j[:, None]
-            slot = (j + start).to(torch.int32)
-            cur_t, cur_i = bt[lanes], bi[lanes]
-            better = (tj < cur_t) | ((tj == cur_t) & (slot < cur_i))
-            bt[lanes] = torch.where(better, tj, cur_t)
-            bi[lanes] = torch.where(better, slot, cur_i)
-            bu[lanes] = torch.where(better, u.gather(1, jj)[:, 0], bu[lanes])
-            bv[lanes] = torch.where(better, v.gather(1, jj)[:, 0], bv[lanes])
-            bb[lanes] = torch.where(better, dn.gather(1, jj)[:, 0] > 0.0,
-                                    bb[lanes])
-        parts.append((bt, bu, bv, bb, bi))
+            _closest_visit(scene, col, lanes, oc, dc, tpc, best)
+        parts.append(best)
     return tuple(torch.cat(x) for x in zip(*parts))
 
 
 def occluded_triangles_flat_plain(o, d, t_max, scene):
     """Plain version of the flat any-hit → [R] bool (dead lanes True)."""
-    valid_col = (scene.sl_blkid[0] >= 0)[None, :]
     parts = []
     for rs in _ray_chunks(o.shape[0]):
         oc, dc, tmc = o[rs], d[rs], t_max[rs]
-        tn, tf = _slab(oc, _safe_inv(dc), scene.sl_blkflat)
-        gate = ((tf >= torch.maximum(tn, torch.zeros_like(tn)))
-                & (tn <= tmc[:, None]) & (tmc >= 0.0)[:, None] & valid_col)
+        tn, tf = slab(oc, safe_inv(dc), scene.sl_blkflat)
+        gate = occluded_gate(tn, tf, tmc, scene.sl_blkid[0])
         occ = tmc < 0.0
-        for col in _live_columns(gate):
+        for col in live_columns(gate):
             lanes = torch.nonzero(gate[:, col] & ~occ)[:, 0]
-            if lanes.numel() == 0:
-                continue
-            _, rows = _block_rows(scene, col)
-            t, _, _, _, ok = _bw_test(oc[lanes], dc[lanes], rows)
-            occ[lanes] = (ok & (t <= tmc[lanes][:, None])).any(dim=1)
+            if lanes.numel():
+                _occluded_visit(scene, col, lanes, oc, dc, tmc, occ)
+        parts.append(occ)
+    return torch.cat(parts)
+
+
+def _superblock_lanes(scene, sb_gate, gate_fn, o, inv, g, skip=None):
+    """Per superblock some lane passes: (first block column, lanes that
+    pass it, their [n, 128] gate on its 128 block columns). ``gate_fn`` is
+    ``closest_gate`` or ``occluded_gate`` with g its t_prev or t_max;
+    lanes in ``skip`` (the occluded ones, read when the superblock is
+    reached) sit the superblock out."""
+    for sb in live_columns(sb_gate):
+        keep = sb_gate[:, sb] if skip is None else sb_gate[:, sb] & ~skip
+        lanes = torch.nonzero(keep)[:, 0]
+        if lanes.numel() == 0:
+            continue
+        w = sb * 128
+        tn, tf = slab(o[lanes], inv[lanes], scene.sl_blkflat[:, w:w + 128])
+        yield w, lanes, gate_fn(tn, tf, g[lanes], scene.sl_blkid[0, w:w + 128])
+
+
+def _flat2_walk_plain(o, d, t_prev, scene):
+    """The plain two-level walk → (t, u, v, backface, slot) as
+    ``_flat_walk_plain``: the superblock gate, then the block gate of each
+    admitted superblock's 128 columns, then the Baldwin-Weber test. Gates
+    are [chunk, SBpad] and [lanes, 128], never [R, Bpad]."""
+    parts = []
+    for rs in _ray_chunks(o.shape[0]):
+        oc, dc, tpc = o[rs], d[rs], t_prev[rs]
+        inv = safe_inv(dc)
+        tn, tf = slab(oc, inv, scene.sl_sbflat)
+        sb_gate = closest_gate(tn, tf, tpc, scene.sl_sbid[0])
+        best = _miss_best(oc.shape[0], o.device)
+        for w, sb_lanes, gate in _superblock_lanes(
+                scene, sb_gate, closest_gate, oc, inv, tpc):
+            for col in live_columns(gate):
+                lanes = sb_lanes[torch.nonzero(gate[:, col])[:, 0]]
+                _closest_visit(scene, w + col, lanes, oc, dc, tpc, best)
+        parts.append(best)
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def occluded_triangles_flat2_plain(o, d, t_max, scene):
+    """Plain version of the two-level any-hit → [R] bool (dead lanes
+    True)."""
+    parts = []
+    for rs in _ray_chunks(o.shape[0]):
+        oc, dc, tmc = o[rs], d[rs], t_max[rs]
+        inv = safe_inv(dc)
+        tn, tf = slab(oc, inv, scene.sl_sbflat)
+        sb_gate = occluded_gate(tn, tf, tmc, scene.sl_sbid[0])
+        occ = tmc < 0.0
+        for w, sb_lanes, gate in _superblock_lanes(
+                scene, sb_gate, occluded_gate, oc, inv, tmc, skip=occ):
+            for col in live_columns(gate):
+                lanes = sb_lanes[torch.nonzero(gate[:, col])[:, 0]]
+                lanes = lanes[~occ[lanes]]
+                if lanes.numel():
+                    _occluded_visit(scene, w + col, lanes, oc, dc, tmc, occ)
         parts.append(occ)
     return torch.cat(parts)
 
@@ -192,6 +256,19 @@ def closest_hit_triangles_flat_plain(o, d, t_prev, scene,
 def occluded_triangles_flat_multi_plain(o, ds, t_maxes, scene):
     """Plain version of ``occluded_triangles_flat_multi``: [L,R] bool."""
     return torch.stack([occluded_triangles_flat_plain(o, d, tm, scene)
+                        for d, tm in zip(ds, t_maxes)])
+
+
+def closest_hit_triangles_flat2_plain(o, d, t_prev, scene) -> HitRecord:
+    """Plain version of ``closest_hit_triangles_flat2``, on any device."""
+    t, u, v, back, slot = _flat2_walk_plain(o, d, t_prev, scene)
+    kind = torch.where(torch.isfinite(t), KIND_TRIANGLE, KIND_NONE)
+    return _record(t, u, v, back, slot, kind, scene)
+
+
+def occluded_triangles_flat2_multi_plain(o, ds, t_maxes, scene):
+    """Plain version of ``occluded_triangles_flat2_multi``: [L,R] bool."""
+    return torch.stack([occluded_triangles_flat2_plain(o, d, tm, scene)
                         for d, tm in zip(ds, t_maxes)])
 
 
@@ -236,3 +313,38 @@ def occluded_triangles_flat_multi(o, ds, t_maxes, scene) -> torch.Tensor:
 def occluded_triangles_flat(o, d, t_max, scene) -> torch.Tensor:
     """[R] bool any-hit: the multi-set launch with one set."""
     return occluded_triangles_flat_multi(o, [d], [t_max], scene)[0]
+
+
+def closest_hit_triangles_flat2(o, d, t_prev, scene) -> HitRecord:
+    """Closest hit over the superleaf blocks through the two-level
+    superblock walk (scenes of more than ``FLAT_MAX_BLOCKS`` blocks).
+
+    o, d: [R,3] f32; t_prev: [R] f32 (+inf marks a dead lane). CUDA tensors
+    launch the kernel (or raise); CPU tensors take the plain version."""
+    global flat2_closest_hit_launches
+    if o.device.type == "cpu":
+        return closest_hit_triangles_flat2_plain(o, d, t_prev, scene)
+    fout, slot = native.launch_flat2_closest_hit(
+        o, d, t_prev, scene.sl_sbflat, scene.sl_sbid, scene.sl_blkflat,
+        scene.sl_blkid, scene.sl_bw_t, scene.sl_block)
+    flat2_closest_hit_launches += 1
+    t = fout[0]
+    kind = torch.where(torch.isfinite(t), KIND_TRIANGLE, KIND_NONE)
+    return _record(t, fout[1], fout[2], fout[3] != 0.0, slot, kind, scene)
+
+
+def occluded_triangles_flat2_multi(o, ds, t_maxes, scene) -> torch.Tensor:
+    """Two-level any-hit for L direction sets sharing one origin set, in
+    one launch; arguments and result as ``occluded_triangles_flat_multi``.
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version, set by set."""
+    global flat2_occluded_launches
+    if o.device.type == "cpu":
+        return occluded_triangles_flat2_multi_plain(o, ds, t_maxes, scene)
+    out = native.launch_flat2_occluded(
+        o.contiguous(), torch.stack(list(ds)).contiguous(),
+        torch.stack(list(t_maxes)).contiguous(), scene.sl_sbflat,
+        scene.sl_sbid, scene.sl_blkflat, scene.sl_blkid, scene.sl_bw_t,
+        scene.sl_block)
+    flat2_occluded_launches += 1
+    return out > 0.0

@@ -1,19 +1,41 @@
-"""Dense sphere closest hit: the CUDA kernel's wrapper.
+"""Sphere closest hit: the CUDA kernels' wrapper, and the sphere block
+walk's plain version.
 
-Counterpart of ``path_tracer_tpu/ops/pallas_spheres.py``: the kernel
-``csrc/sphere_closest_hit.cu`` replaces ``pallas_spheres._kernel`` (entry
-``closest_hit_spheres_pallas``) for scenes of at most 512 spheres.
+Counterpart of ``path_tracer_tpu/ops/pallas_spheres.py``:
 
-Bound on the card: arithmetic — R*S quadratic solves (about 25 flops, a
-sqrt and two IEEE divisions per valid discriminant); the [4, S] table is
-staged in shared memory and read as a broadcast.
+- ``csrc/sphere_closest_hit.cu`` replaces ``pallas_spheres._kernel``
+  (entry ``closest_hit_spheres_pallas``) for scenes of at most 512
+  spheres: dense, every ray against every sphere;
+- ``csrc/sph_walk.cu`` replaces ``pallas_spheres._sph_walk_kernel``
+  (``_sph_walk_launch``, the same entry with ``sph_use_blocks``) for
+  larger scenes: a walk over SAH blocks of 128 spheres.
 
-Tolerance against the plain version (``intersect.closest_hit_spheres``):
-both divide by 2a (the TPU kernel multiplies by 1/(2a)), sum in the same
-order, and the library is built with ``-fmad=false``, so every operation
-rounds the same way and the two should agree exactly. The bounds held on
-the card are the repo's own: at most 1e-4 of lanes differing in kind or
-prim, and 5e-5 relative t error on agreeing lanes.
+Bound on the card: arithmetic. The dense kernel does R*S quadratic solves
+(about 25 flops, a sqrt and two IEEE divisions per valid discriminant),
+the walk a slab test per block and the solves of the blocks a ray's slab
+test admits; both stage their tables in shared memory, read as
+broadcasts.
+
+Two root forms, as in the JAX package. The dense kernel and
+``intersect.closest_hit_spheres`` divide by 2a; the block walk and
+``closest_hit_spheres_walk_plain`` keep the TPU walk's naive quadratic
+(oc = o - c, a = |d|^2, b = 2 oc.d, c = |oc|^2 - r^2, disc = b^2 - 4ac)
+and multiply by inv2a = 1 / (2a). Sphere walk semantics:
+
+- block gate: slab entry tn and exit tf of the block AABB (zero direction
+  components inverted to 1e30), tf >= max(tn, 0), tf > t_prev, id >= 0;
+- per sphere: has = disc >= 0, sq = sqrt(has ? disc : 0),
+  t1 = (-b - sq) inv2a, t2 = (-b + sq) inv2a; root k valid iff has,
+  tk >= 0 and tk > t_prev; t = t1 if valid, else t2 if valid, else +inf;
+  backface = the far root alone is valid;
+- TIE RULE: the lexicographic (t, sorted slot) minimum;
+- pad slots (center 1e30, radius 0) overflow: disc is NaN, has false;
+- a dead lane is t_prev = +inf; a miss is t = +inf, slot -1.
+
+The wrapper maps the sorted slot to the sphere index through
+``sph_smap`` (0 on a miss) with u = v = 0. Each kernel is built
+-fmad=false and sums in its plain version's order, so the two agree
+exactly.
 """
 from __future__ import annotations
 
@@ -24,20 +46,103 @@ from path_tracer_torch.ops.intersect import (
     KIND_SPHERE,
     HitRecord,
     _kind,
+    _ray_chunks,
     closest_hit_spheres,
 )
+from path_tracer_torch.ops.slab import (
+    closest_gate,
+    live_columns,
+    merge_nearest,
+    safe_inv,
+    slab,
+)
 
-# Kernel launches made by closest_hit_spheres_cuda in this process.
+# Kernel launches made by closest_hit_spheres_cuda in this process: the
+# dense kernel and the block walk.
 launches = 0
+sph_walk_launches = 0
+
+
+def _sqrt_rn(x):
+    """float32 square root rounded to nearest, as the kernel's IEEE sqrtf:
+    the float64 root of a float32 operand, rounded once to float32, is the
+    correctly rounded float32 root. The CPU's vectorised float32 sqrt can
+    land an ulp off."""
+    return torch.sqrt(x.double()).float()
+
+
+def _sph_walk_plain(o, d, t_prev, scene):
+    """The plain sphere block walk → (t, backface, sorted slot), each [R]
+    (t = +inf and slot -1 on a miss)."""
+    sph, blkid = scene.sph_sorted_t, scene.sph_blkid[0]
+    parts = []
+    for rs in _ray_chunks(o.shape[0]):
+        oc, dc, tpc = o[rs], d[rs], t_prev[rs]
+        r = oc.shape[0]
+        tn, tf = slab(oc, safe_inv(dc), scene.sph_blk)
+        gate = closest_gate(tn, tf, tpc, blkid)
+        a = dc[:, 0] * dc[:, 0] + dc[:, 1] * dc[:, 1] + dc[:, 2] * dc[:, 2]
+        inv2a = 1.0 / (2.0 * a)
+        bt = torch.full((r,), float("inf"), device=o.device)
+        bs = torch.full((r,), -1, dtype=torch.int32, device=o.device)
+        bb = torch.zeros((r,), dtype=torch.bool, device=o.device)
+        for col in live_columns(gate):
+            lanes = torch.nonzero(gate[:, col])[:, 0]
+            start = int(blkid[col]) * 128
+            c = sph[:, start:start + 128]
+            lo, ld, tp = oc[lanes], dc[lanes], tpc[lanes][:, None]
+            ocx = lo[:, 0:1] - c[None, 0]
+            ocy = lo[:, 1:2] - c[None, 1]
+            ocz = lo[:, 2:3] - c[None, 2]
+            b = 2.0 * (ocx * ld[:, 0:1] + ocy * ld[:, 1:2] + ocz * ld[:, 2:3])
+            cc = ocx * ocx + ocy * ocy + ocz * ocz - (c[3] * c[3])[None, :]
+            disc = b * b - 4.0 * a[lanes][:, None] * cc
+            has = disc >= 0.0
+            sq = _sqrt_rn(torch.where(has, disc, 0.0))
+            t1 = (-b - sq) * inv2a[lanes][:, None]
+            t2 = (-b + sq) * inv2a[lanes][:, None]
+            v1 = has & (t1 >= 0.0) & (t1 > tp)
+            v2 = has & (t2 >= 0.0) & (t2 > tp)
+            t = torch.where(v1, t1, torch.where(v2, t2, float("inf")))
+            j, better = merge_nearest(t, start, lanes, bt, bs)
+            far = (~v1 & v2).gather(1, j[:, None])[:, 0]
+            bb[lanes] = torch.where(better, far, bb[lanes])
+        parts.append((bt, bb, bs))
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def _walk_record(t, back, slot, scene) -> HitRecord:
+    """HitRecord of a sphere walk: prim = ``sph_smap`` of the sorted slot on
+    a hit, 0 on a miss; u = v = 0."""
+    hit = torch.isfinite(t)
+    prim = torch.where(hit, scene.sph_smap[slot.clamp(min=0).long()], 0)
+    zeros = torch.zeros_like(t)
+    return HitRecord(t=t, kind=_kind(t, KIND_SPHERE), prim=prim.to(torch.int32),
+                     u=zeros, v=zeros, backface=back)
+
+
+def closest_hit_spheres_walk_plain(o, d, t_prev, scene) -> HitRecord:
+    """Plain version of the sphere block walk, on any device."""
+    return _walk_record(*_sph_walk_plain(o, d, t_prev, scene), scene)
 
 
 def closest_hit_spheres_cuda(o, d, t_prev, scene) -> HitRecord:
-    """Nearest sphere root of each ray that is >= 0 and > t_prev.
+    """Nearest sphere root of each ray that is >= 0 and > t_prev: the block
+    walk when ``scene.sph_use_blocks``, else the dense pass.
 
     o, d: [R,3] f32; t_prev: [R] f32 (+inf marks a dead lane); reads
-    ``scene.sph_packed_t`` [4, S]. CUDA tensors launch the kernel (or
-    raise); CPU tensors take the plain version."""
-    global launches
+    ``scene.sph_packed_t`` [4, S] or the ``sph_*`` block tables. CUDA
+    tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    global launches, sph_walk_launches
+    if getattr(scene, "sph_use_blocks", False):
+        if o.device.type == "cpu":
+            return closest_hit_spheres_walk_plain(o, d, t_prev, scene)
+        fout, slot = native.launch_sph_walk(o, d, t_prev, scene.sph_blk,
+                                            scene.sph_blkid,
+                                            scene.sph_sorted_t)
+        sph_walk_launches += 1
+        return _walk_record(fout[0], fout[1] != 0.0, slot, scene)
     if o.device.type == "cpu":
         return closest_hit_spheres(o, d, t_prev, scene)
     fout, iout = native.launch_closest_hit(

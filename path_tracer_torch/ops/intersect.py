@@ -1,7 +1,8 @@
 """Closest-hit and any-hit intersection over the flat scene SoA.
 
-Port of ``path_tracer_tpu/ops/intersect.py`` for the opaque slices: brute
-force under the BVH threshold, the flat superleaf block walk above it.
+Port of ``path_tracer_tpu/ops/intersect.py``: brute force under the BVH
+threshold, the flat superleaf block walk above it, the two-level flat2
+walk above ``FLAT_MAX_BLOCKS`` blocks.
 
 Semantics:
 - Möller-Trumbore with det cutoff 1e-6, no backface culling, u in [0,1],
@@ -18,14 +19,20 @@ tensors' device:
 
 - brute-force scenes (``use_bvh`` False): ``cuda_intersect`` (MT) and
   ``cuda_spheres``; shadows take the nearest triangle hit, light by light;
-- BVH scenes (``use_bvh``, at most ``FLAT_MAX_BLOCKS`` blocks):
-  ``cuda_bvh``'s flat walk with the dense sphere pass fused in (the JAX
-  bench's ``PT_SPH_FUSE`` mode), and shadows through the exact-t_max
-  any-hit, one launch for all of a bounce's lights.
+- BVH scenes (``use_bvh``) of at most ``FLAT_MAX_BLOCKS`` blocks (per
+  scene or per opacity-partition view): ``cuda_bvh``'s flat walk with the
+  dense sphere pass fused in (the JAX bench's ``PT_SPH_FUSE`` mode), and
+  shadows through the exact-t_max any-hit, one launch for all of a
+  bounce's lights;
+- larger BVH scenes: the flat2 walk and its any-hit, the same way; the
+  spheres are cast apart (``cuda_spheres``) and merged, the triangle
+  winning ties, as the JAX package fuses only on the flat walk;
+- spheres: the dense kernel up to 512 spheres, the sphere block walk
+  above (``sph_use_blocks``).
 
 CUDA tensors go to the hand-written kernels, CPU tensors to their plain
-versions. Sphere any-hit stays plain torch on both, as it stays XLA in the
-JAX package.
+versions. Sphere any-hit stays plain torch on both, elementwise over every
+sphere, as it stays XLA in the JAX package.
 """
 from __future__ import annotations
 
@@ -202,43 +209,37 @@ def _miss_record(r: int, device) -> HitRecord:
 
 # Superleaf blocks the flat walk serves (``FLAT_MAX_BLOCKS`` of the JAX
 # package: about 1M triangles at 512-triangle blocks); larger scenes take
-# the two-level flat2 walk there.
+# the two-level flat2 walk.
 FLAT_MAX_BLOCKS = 2048
 
 
 def _walk_variant(scene) -> str:
-    """The triangle walk of a BVH scene: "flat" up to FLAT_MAX_BLOCKS
-    blocks. The JAX package's "flat2" (more blocks) and "tree" walks are
-    later slices of the port and raise."""
+    """The triangle walk of a BVH scene (or view): "flat" up to
+    FLAT_MAX_BLOCKS blocks, "flat2" above. The JAX package's "tree" walk
+    (a BVH scene without superleaf blocks) is a later slice of the port
+    and raises."""
     n = scene.sl_n_blocks
     if n <= 0:
         raise NotImplementedError(
             "BVH scene without superleaf blocks (the tree walk); it comes "
             "with a later slice of the port")
-    if n > FLAT_MAX_BLOCKS:
-        raise NotImplementedError(
-            f"scene has {n} superleaf blocks (> {FLAT_MAX_BLOCKS}: the flat2 "
-            "walk); it comes with a later slice of the port")
-    return "flat"
+    return "flat" if n <= FLAT_MAX_BLOCKS else "flat2"
 
 
 def _require_ported_walks(scene):
-    """Refuse the walks a later slice brings: flat2-sized BVH scenes and
-    the sphere block walk."""
+    """Refuse the walk a later slice brings: the tree walk."""
     if scene.use_bvh and scene.num_real_triangles != 0:
         _walk_variant(scene)
-    if scene.sph_use_blocks:
-        raise NotImplementedError(
-            "scene has more than 512 spheres (sphere block walk); it comes "
-            "with a later slice of the port")
 
 
 def _closest_hit_tris_dispatch(o, d, t_prev, scene) -> HitRecord:
     o, d = o.contiguous(), d.contiguous()
     if scene.use_bvh:
-        from path_tracer_torch.ops.cuda_bvh import closest_hit_triangles_flat
+        from path_tracer_torch.ops import cuda_bvh
 
-        return closest_hit_triangles_flat(o, d, t_prev, scene)
+        if _walk_variant(scene) == "flat2":
+            return cuda_bvh.closest_hit_triangles_flat2(o, d, t_prev, scene)
+        return cuda_bvh.closest_hit_triangles_flat(o, d, t_prev, scene)
     from path_tracer_torch.ops.cuda_intersect import closest_hit_triangles_cuda
 
     return closest_hit_triangles_cuda(o, d, t_prev, scene)
@@ -260,7 +261,8 @@ def closest_hit(o, d, t_prev, scene, active=None,
     if active is not None:
         t_prev = torch.where(active, t_prev, float("inf"))
     _require_ported_walks(scene)
-    if has_tris and has_sphs and scene.use_bvh:
+    if (has_tris and has_sphs and scene.use_bvh and not scene.sph_use_blocks
+            and _walk_variant(scene) == "flat"):
         # The dense sphere pass runs inside the flat walk's launch and the
         # records merge there (a sphere wins only on a smaller t).
         from path_tracer_torch.ops.cuda_bvh import closest_hit_triangles_flat
@@ -291,9 +293,10 @@ def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
     counts only when its distance FROM THE SURFACE POINT is <= max_dist,
     with dist^2 = t^2|d|^2 + 2t(b.d) + |b|^2, b = o - surf_pos.
 
-    Triangles: BVH scenes cast all L sets in one any-hit launch, the range
-    limit turned into the exact t_max (the positive root of dist = max_dist,
-    dead lanes t_max = -1); brute-force scenes take the nearest hit light
+    Triangles: BVH scenes cast all L sets in one any-hit launch (flat or
+    flat2, by the scene's block count), the range limit turned into the
+    exact t_max (the positive root of dist = max_dist, dead lanes
+    t_max = -1); brute-force scenes take the nearest hit light
     by light (dist(t) is monotone in t, so if the nearest hit is out of
     range no hit is). Spheres test both roots elementwise, light by light.
     """
@@ -321,9 +324,7 @@ def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
     hits = [torch.zeros((r,), dtype=torch.bool, device=o.device)
             for _ in range(n_lights)]
     if scene.num_real_triangles != 0 and scene.use_bvh:
-        from path_tracer_torch.ops.cuda_bvh import (
-            occluded_triangles_flat_multi,
-        )
+        from path_tracer_torch.ops import cuda_bvh
 
         t_maxes = []
         for rng, act in zip(ranges, actives):
@@ -336,7 +337,10 @@ def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
             if act is not None:
                 tm = torch.where(act, tm, -1.0)
             t_maxes.append(tm)
-        hits = list(occluded_triangles_flat_multi(o, dirs, t_maxes, scene))
+        multi = (cuda_bvh.occluded_triangles_flat2_multi
+                 if _walk_variant(scene) == "flat2"
+                 else cuda_bvh.occluded_triangles_flat_multi)
+        hits = list(multi(o, dirs, t_maxes, scene))
     elif scene.num_real_triangles != 0:
         for i, (d, rng, act) in enumerate(zip(dirs, ranges, actives)):
             t_prev = torch.full((r,), -1.0, device=o.device)

@@ -1,0 +1,69 @@
+"""Slab gates and the nearest-hit merge shared by the plain block walks
+(``ops/cuda_bvh.py``: flat and flat2; ``ops/cuda_spheres.py``: the sphere
+block walk), in the kernels' arithmetic (``csrc/flat_common.cuh``).
+
+- ``safe_inv``: 1 / d with zero components inverted to 1e30;
+- ``slab``: entry tn and exit tf of every ray against every AABB column
+  (rows 0-2 the mins, 3-5 the maxes);
+- ``closest_gate``: tf >= max(tn, 0), tf > t_prev and id >= 0, so a dead
+  lane (t_prev = +inf) passes nothing;
+- ``occluded_gate``: tf >= max(tn, 0), tn <= t_max, t_max >= 0 and
+  id >= 0, so a dead lane (t_max < 0) passes nothing;
+- ``merge_nearest``: the lexicographic (t, slot) minimum of a record and
+  one block's nearest candidates, so the visit order decides nothing.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def safe_inv(d):
+    zero = d == 0.0
+    return torch.where(zero, 1e30, 1.0 / torch.where(zero, 1.0, d))
+
+
+def slab(o, inv, boxes):
+    """Slab entry and exit [R, C] of every ray against the [>=6, C] AABB
+    columns ``boxes``."""
+    t0 = [(boxes[k][None, :] - o[:, k:k + 1]) * inv[:, k:k + 1]
+          for k in range(3)]
+    t1 = [(boxes[3 + k][None, :] - o[:, k:k + 1]) * inv[:, k:k + 1]
+          for k in range(3)]
+    lo = [torch.minimum(a, b) for a, b in zip(t0, t1)]
+    hi = [torch.maximum(a, b) for a, b in zip(t0, t1)]
+    tn = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
+    tf = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
+    return tn, tf
+
+
+def closest_gate(tn, tf, t_prev, ids):
+    """[n, C] slab gate of the closest hit on columns with ids [C]."""
+    return ((tf >= torch.maximum(tn, torch.zeros_like(tn)))
+            & (tf > t_prev[:, None]) & (ids >= 0)[None, :])
+
+
+def occluded_gate(tn, tf, t_max, ids):
+    """[n, C] slab gate of the any-hit on columns with ids [C]."""
+    return ((tf >= torch.maximum(tn, torch.zeros_like(tn)))
+            & (tn <= t_max[:, None]) & (t_max >= 0.0)[:, None]
+            & (ids >= 0)[None, :])
+
+
+def live_columns(gate):
+    """Columns of a [R, C] gate some lane passes (one host sync)."""
+    return torch.nonzero(gate.any(dim=0))[:, 0].tolist()
+
+
+def merge_nearest(t, start: int, lanes, best_t, best_slot):
+    """Merge ``lanes``' candidate t [n, block] (+inf where none) over the
+    slots ``start``.. of one block into the record (best_t, best_slot),
+    in place: the lexicographic (t, slot) minimum. Returns (j, better):
+    each lane's nearest column in the block (the lowest among equal t) and
+    whether it replaced the record, for the caller's other fields."""
+    tj, j = t.min(dim=1)  # first (lowest) slot among equal minima
+    slot = (j + start).to(torch.int32)
+    cur_t, cur_s = best_t[lanes], best_slot[lanes]
+    better = (tj < cur_t) | ((tj == cur_t) & (slot < cur_s))
+    best_t[lanes] = torch.where(better, tj, cur_t)
+    best_slot[lanes] = torch.where(better, slot, cur_s)
+    return j, better

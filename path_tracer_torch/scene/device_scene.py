@@ -9,7 +9,8 @@ brute-force and flat-BVH walks, opaque and transparent, read:
   ``tri_packed_t`` the MT kernel reads;
 - analytic spheres, padded to >= 1 with a far-away zero-radius entry, plus
   the [4, S] table ``sph_packed_t`` (S a multiple of 128 up to 384, of 512
-  above) whose padding spheres (center 1e30) never hit;
+  above) whose padding spheres (center 1e30) never hit; above 512 spheres
+  (``sph_use_blocks``) the sphere block walk's tables (``sph_*``, below);
 - per-model material factor + texture-id tables and the flat RGB atlas;
 - lights split by type, camera, background;
 - the superleaf block tables of the flat BVH walk (``sl_*``, below);
@@ -42,12 +43,28 @@ b owns slots [b*sl_block, (b+1)*sl_block), unused slots are zero rows):
   start at ``sl_cols_opaque`` (each partition's column count rounded up
   to a multiple of 128; Bpad >= 128);
 - ``sl_blkid`` [1, Bpad]: block id per column, -1 on pad columns;
+- ``sl_sbflat`` [8, SBpad] / ``sl_sbid`` [1, SBpad]: the flat2 walk's
+  superblocks, one per group of 128 block columns: rows 0-2 the union of
+  the group's block minima, 3-5 of its maxima (pad columns are the
+  identities, so they never widen a union), id = the group's index; an
+  all-pad group has id -1 and zero bounds (SBpad a multiple of 128; the
+  128-aligned partition offsets keep every group in one partition);
 - ``sl_map`` [n_blocks*sl_block]: packed slot -> global triangle id;
 - ``sl_inv`` [N]: global triangle id -> packed slot;
 - ``sph_row_base``: n_blocks*sl_block (the JAX package's first sphere row
   of its wide attribute table; fused sphere hits report this + index);
 - ``tr_prefilter`` [32, 6]: up to 32 AABBs (min, max) over the
   transparent triangles, padding boxes at 1e30.
+
+Sphere block-walk tables (``_sphere_blocks``; 128-column placeholders at
+512 spheres or fewer): the spheres grouped into blocks of 128 slots by the
+leaves of a binned-SAH BVH (leaf size 128) over their AABBs:
+
+- ``sph_sorted_t`` [4, nblk*128]: center xyz and radius per sorted slot;
+  pad slots have center 1e30 and radius 0 (guaranteed misses);
+- ``sph_blk`` [8, SBpad]: block AABBs (rows 0-2 min, 3-5 max);
+- ``sph_blkid`` [1, SBpad]: block id per column, -1 on pad columns;
+- ``sph_smap`` [nblk*128]: sorted slot -> sphere index.
 
 Transparent-walk tables (``_build_tr_walk_tables``; ``tr_kernel_ok``
 False leaves placeholders): the real transparent slots as compact columns
@@ -79,6 +96,7 @@ from path_tracer_torch.scene import isf
 _TRI_PAD = 256  # triangle count padded to a multiple of this
 BVH_MIN_TRIANGLES = 4096  # the JAX package's use_bvh threshold
 SPH_BLOCKS_MIN = 512  # more spheres than this take the sphere block walk
+SPH_BLOCK = 128  # spheres per block of the sphere block walk
 
 _FLOAT_FIELDS = (
     "tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
@@ -88,6 +106,7 @@ _FLOAT_FIELDS = (
     "mat_metalness_factor", "mat_roughness_factor", "mat_ior",
     "tex_data", "point_pos", "point_color", "dir_dir", "dir_color",
     "cam_to_world", "cam_fov", "background", "sl_bw_t", "sl_blkflat",
+    "sl_sbflat", "sph_sorted_t", "sph_blk",
     "tr_prefilter", "tr_bw", "tr_rows", "tr_grp", "tr_lut",
 )
 _INT_FIELDS = (
@@ -95,7 +114,7 @@ _INT_FIELDS = (
     "mat_albedo_tex", "mat_emissive_tex", "mat_opacity_tex",
     "mat_metalness_tex", "mat_roughness_tex", "mat_normal_tex",
     "tex_offset", "tex_width", "tex_height", "sl_blkid", "sl_map", "sl_inv",
-    "tr_colmap", "tr_model",
+    "sl_sbid", "sph_blkid", "sph_smap", "tr_colmap", "tr_model",
 )
 _U8_FIELDS = ("tr_tex8",)
 ARRAY_FIELDS = _FLOAT_FIELDS + _INT_FIELDS + _U8_FIELDS
@@ -116,7 +135,8 @@ class TorchScene:
     ``sph_packed_t`` [4,S]; materials [M,3] / [M]; atlas ``tex_data`` [P,3]
     with [T] offset/width/height tables; lights [L,3]; ``cam_to_world``
     [4,4] row-major world-from-camera; ``cam_fov`` [] vertical radians;
-    superleaf tables ``sl_*`` as in the module docstring."""
+    superleaf tables ``sl_*`` and sphere-block tables ``sph_sorted_t`` /
+    ``sph_blk`` / ``sph_blkid`` / ``sph_smap`` as in the module docstring."""
 
     tri_v0: torch.Tensor
     tri_e1: torch.Tensor
@@ -162,6 +182,12 @@ class TorchScene:
     sl_blkid: torch.Tensor
     sl_map: torch.Tensor
     sl_inv: torch.Tensor
+    sl_sbflat: torch.Tensor
+    sl_sbid: torch.Tensor
+    sph_sorted_t: torch.Tensor
+    sph_blk: torch.Tensor
+    sph_blkid: torch.Tensor
+    sph_smap: torch.Tensor
     tr_prefilter: torch.Tensor
     tr_bw: torch.Tensor
     tr_rows: torch.Tensor
@@ -179,7 +205,7 @@ class TorchScene:
     num_real_triangles: int
     num_real_spheres: int
     use_bvh: bool
-    sph_use_blocks: bool
+    sph_use_blocks: bool  # more than 512 spheres: the sphere block walk
     sl_block: int  # triangles per superleaf block
     sl_n_blocks: int  # real blocks (columns of sl_blkflat with id >= 0)
     sph_row_base: int
@@ -290,6 +316,45 @@ def _pack_spheres(centers: np.ndarray, radii: np.ndarray) -> np.ndarray:
     return out
 
 
+def _sphere_blocks(centers: np.ndarray, radii: np.ndarray) -> dict:
+    """The sphere block walk's tables (``_sphere_blocks`` of the JAX
+    package): 128-slot blocks from the leaves of a binned-SAH BVH (leaf
+    size 128) over the sphere AABBs. At most SPH_BLOCKS_MIN spheres give
+    128-column placeholders and ``sph_use_blocks`` False."""
+    s = centers.shape[0]
+    if s <= SPH_BLOCKS_MIN:
+        return dict(sph_sorted_t=np.zeros((4, SPH_BLOCK), np.float32),
+                    sph_blk=np.zeros((8, 128), np.float32),
+                    sph_blkid=np.full((1, 128), -1, np.int32),
+                    sph_smap=np.zeros(SPH_BLOCK, np.int32),
+                    sph_use_blocks=False)
+    from path_tracer_torch.native import build_bvh
+
+    lo = centers - radii[:, None]
+    hi = centers + radii[:, None]
+    b = build_bvh(lo, hi, leaf_size=SPH_BLOCK)
+    leaves = np.nonzero(b.prim_count > 0)[0]
+    nblk = len(leaves)
+    packed = np.full((4, nblk * SPH_BLOCK), 1e30, np.float32)
+    packed[3, :] = 0.0  # pad slots: far, zero radius, never hit
+    smap = np.zeros(nblk * SPH_BLOCK, np.int32)
+    sb_pad = max(128, ((nblk + 127) // 128) * 128)
+    blk = np.zeros((8, sb_pad), np.float32)
+    blkid = np.full((1, sb_pad), -1, np.int32)
+    for i, node in enumerate(leaves):
+        f, c = int(b.first_prim[node]), int(b.prim_count[node])
+        ids = b.prim_order[f:f + c]
+        base = i * SPH_BLOCK
+        packed[0:3, base:base + c] = centers[ids].T
+        packed[3, base:base + c] = radii[ids]
+        smap[base:base + c] = ids
+        blk[0:3, i] = lo[ids].min(axis=0)
+        blk[3:6, i] = hi[ids].max(axis=0)
+    blkid[0, :nblk] = np.arange(nblk)
+    return dict(sph_sorted_t=packed, sph_blk=blk, sph_blkid=blkid,
+                sph_smap=smap, sph_use_blocks=True)
+
+
 def _baldwin_weber_rows(sl_tris: np.ndarray) -> np.ndarray:
     """[16, n] Baldwin-Weber rows from packed (v0, e1, e2) rows [n, 9], as
     the JAX builder computes them (``_baldwin_weber_rows``).
@@ -336,6 +401,8 @@ def _superleaf_tables(v0, e1, e2, ranges: list, n_pad: int,
                     sl_inv=np.zeros(n_pad, np.int32),
                     sl_blkflat=np.zeros((8, 128), np.float32),
                     sl_blkid=np.full((1, 128), -1, np.int32),
+                    sl_sbflat=np.zeros((8, 128), np.float32),
+                    sl_sbid=np.full((1, 128), -1, np.int32),
                     part_blocks=[], sl_n_blocks=0, sph_row_base=sl_block)
     n_tris = ranges[-1][1]
     q0 = v0[:n_tris]
@@ -375,8 +442,32 @@ def _superleaf_tables(v0, e1, e2, ranges: list, n_pad: int,
         bg += len(lv)
     return dict(sl_tris=sl_tris, sl_bw_t=_baldwin_weber_rows(sl_tris),
                 sl_map=sl_map, sl_inv=sl_inv, sl_blkflat=sl_blkflat,
-                sl_blkid=sl_blkid, part_blocks=part_blocks,
-                sl_n_blocks=n_blocks, sph_row_base=n_blocks * sl_block)
+                sl_blkid=sl_blkid, **_superblocks(sl_blkflat, sl_blkid),
+                part_blocks=part_blocks, sl_n_blocks=n_blocks,
+                sph_row_base=n_blocks * sl_block)
+
+
+def _superblocks(sl_blkflat, sl_blkid) -> dict:
+    """``sl_sbflat`` / ``sl_sbid``: the union of each group of 128 block
+    columns (``device_scene.py:1139-1157`` of the JAX package). Pad columns
+    enter as the identities (+inf minima, -inf maxima); an all-pad group
+    gets zero bounds and id -1."""
+    nsb = sl_blkflat.shape[1] // 128
+    col_valid = sl_blkid[0] >= 0
+    gm = np.where(col_valid[:, None], 0.0, np.inf).astype(np.float32)
+    gx = np.where(col_valid[:, None], 0.0, -np.inf).astype(np.float32)
+    gm = gm + sl_blkflat[0:3].T
+    gx = gx + sl_blkflat[3:6].T
+    sb_pad = ((nsb + 127) // 128) * 128
+    sl_sbflat = np.zeros((8, sb_pad), np.float32)
+    sl_sbid = np.full((1, sb_pad), -1, np.int32)
+    valid = col_valid.reshape(nsb, 128).any(axis=1)
+    sl_sbflat[0:3, :nsb] = np.where(valid[None, :],
+                                    gm.reshape(nsb, 128, 3).min(axis=1).T, 0.0)
+    sl_sbflat[3:6, :nsb] = np.where(valid[None, :],
+                                    gx.reshape(nsb, 128, 3).max(axis=1).T, 0.0)
+    sl_sbid[0, :nsb] = np.where(valid, np.arange(nsb), -1)
+    return dict(sl_sbflat=sl_sbflat, sl_sbid=sl_sbid)
 
 
 def _tr_prefilter(v0, e1, e2, a: int, b: int) -> np.ndarray:
@@ -549,19 +640,11 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
     """Flatten an ISF scene into device tensors, as ``build_device_scene``
     of the JAX package does for the fields above (same signature:
     ``use_bvh=None`` walks the BVH from 4,096 triangles on; ``sl_block``
-    triangles per superleaf block, a multiple of 128).
-
-    Raises NotImplementedError for more than 512 spheres (the sphere
-    block walk, a later slice of the port). Scenes of more than 2,048
-    blocks build, and their casts refuse them (the flat2 walk)."""
+    triangles per superleaf block, a multiple of 128)."""
     root = Path(root)
     meshes = [m for m in scene.models if isinstance(m, isf.Mesh)]
     n_tris = sum(len(m.triangles) for m in meshes)
     n_real_sph = len(scene.models) - len(meshes)
-    if n_real_sph > SPH_BLOCKS_MIN:
-        raise NotImplementedError(
-            f"scene has {n_real_sph} spheres (> {SPH_BLOCKS_MIN}: sphere "
-            "block walk); it comes with a later slice of the port")
 
     atlas = _AtlasBuilder(root)
     keys = ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2")
@@ -678,6 +761,7 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
         centers[:n_real_sph] = np.asarray(sph_center, np.float32)
         radii[:n_real_sph] = np.asarray(sph_radius, np.float32)
         sph_model_arr[:n_real_sph] = np.asarray(sph_model, np.int32)
+    sph_blocks = _sphere_blocks(centers, radii)
 
     points = [l for l in scene.lights if isinstance(l, isf.PointLight)]
     dirs = [l for l in scene.lights if isinstance(l, isf.DirectionalLight)]
@@ -711,7 +795,9 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
         background=f32(scene.background),
         tr_prefilter=_tr_prefilter(v0, e1, e2, n_op, n_tris),
         **{k: sl[k] for k in ("sl_bw_t", "sl_blkflat", "sl_blkid", "sl_map",
-                              "sl_inv")},
+                              "sl_inv", "sl_sbflat", "sl_sbid")},
+        **{k: sph_blocks[k] for k in ("sph_sorted_t", "sph_blk", "sph_blkid",
+                                      "sph_smap")},
         **{k: tr[k] for k in ("tr_bw", "tr_rows", "tr_grp", "tr_colmap",
                               "tr_model", "tr_tex8", "tr_lut")},
     )
@@ -730,7 +816,7 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
         num_real_spheres=n_real_sph,
         use_bvh=(n_tris >= BVH_MIN_TRIANGLES if use_bvh is None
                  else bool(use_bvh)),
-        sph_use_blocks=False,
+        sph_use_blocks=sph_blocks["sph_use_blocks"],
         sl_block=sl_block,
         sl_n_blocks=sl["sl_n_blocks"],
         sph_row_base=sl["sph_row_base"],
@@ -763,20 +849,35 @@ def partitioned(scene) -> bool:
 
 
 def opaque_view(scene) -> TorchScene:
-    """The scene with its block tables cut to the opaque partition's
-    columns (block and triangle ids stay global; spheres unchanged)."""
+    """The scene with its block and superblock tables cut to the opaque
+    partition's columns (block and triangle ids stay global; spheres
+    unchanged). The partition offset is 128-aligned, so the opaque
+    superblocks are exactly the first ``sl_cols_opaque // 128``."""
     c = scene.sl_cols_opaque
     return dataclasses.replace(
         scene, sl_blkflat=scene.sl_blkflat[:, :c].contiguous(),
         sl_blkid=scene.sl_blkid[:, :c].contiguous(),
+        sl_sbflat=_pad_cols(scene.sl_sbflat[:, :c // 128], 0.0),
+        sl_sbid=_pad_cols(scene.sl_sbid[:, :c // 128], -1),
         sl_n_blocks=scene.sl_n_blocks_opaque)
 
 
 def transparent_view(scene) -> TorchScene:
-    """The scene with its block tables cut to the possibly-transparent
-    partition's columns."""
+    """The scene with its block and superblock tables cut to the
+    possibly-transparent partition's columns."""
     c = scene.sl_cols_opaque
+    nsb = max(1, (scene.sl_blkflat.shape[1] - c) // 128)
     return dataclasses.replace(
         scene, sl_blkflat=scene.sl_blkflat[:, c:].contiguous(),
         sl_blkid=scene.sl_blkid[:, c:].contiguous(),
+        sl_sbflat=_pad_cols(scene.sl_sbflat[:, c // 128:c // 128 + nsb], 0.0),
+        sl_sbid=_pad_cols(scene.sl_sbid[:, c // 128:c // 128 + nsb], -1),
         sl_n_blocks=scene.sl_n_blocks - scene.sl_n_blocks_opaque)
+
+
+def _pad_cols(t: torch.Tensor, fill) -> torch.Tensor:
+    """``t`` padded along its last dimension with ``fill`` to a multiple
+    of 128 (at least 128), contiguous."""
+    n = t.shape[-1]
+    target = max(128, ((n + 127) // 128) * 128)
+    return torch.nn.functional.pad(t, (0, target - n), value=fill).contiguous()

@@ -178,18 +178,19 @@ def showcase_scene(grid: int = 224, seed: int = 7,
     uu, vv = np.meshgrid(np.linspace(0, 8, grid + 1),
                          np.linspace(0, 8, grid + 1), indexing="ij")
 
-    def vert(i, j):
-        return isf.Vertex(
-            position=tuple(float(c) for c in pos[i, j]),
-            normal=tuple(float(c) for c in n[i, j]),
-            tex_coords=(float(uu[i, j]), float(vv[i, j])),
-        )
-
+    # One Vertex per grid point, shared by the (up to six) triangles that
+    # use it: 2*grid^2 triangles cost (grid+1)^2 objects.
+    verts = [[isf.Vertex(position=tuple(p), normal=tuple(q),
+                         tex_coords=(u, v))
+              for p, q, u, v in zip(prow, nrow, urow, vrow)]
+             for prow, nrow, urow, vrow in zip(pos.tolist(), n.tolist(),
+                                               uu.tolist(), vv.tolist())]
     tris = []
     for i in range(grid):
+        row, nxt = verts[i], verts[i + 1]
         for j in range(grid):
-            v00, v10 = vert(i, j), vert(i + 1, j)
-            v01, v11 = vert(i, j + 1), vert(i + 1, j + 1)
+            v00, v10 = row[j], nxt[j]
+            v01, v11 = row[j + 1], nxt[j + 1]
             # Wound so the geometric normal (e1 x e2) points up (+y).
             tris.append((v00, v11, v10))
             tris.append((v00, v01, v11))

@@ -197,6 +197,91 @@ def test_flat_occluded_equals_plain(cuda, name):
     assert 0.05 < multi[1].float().mean() < 0.95
 
 
+def _flat2_scenes(device):
+    """The plain showcase at grid 96 in 128-slot blocks (245 blocks, two
+    superblocks) and the textured showcase's opaque partition view at grid
+    48 in 256-slot blocks."""
+    from path_tracer_torch.scene import build_scene
+    from path_tracer_torch.scene.device_scene import opaque_view
+    from path_tracer_torch.scene.showcase import (
+        showcase_device_scene,
+        showcase_scene,
+    )
+
+    return {
+        "grid96": build_scene(showcase_scene(96), ".", device, use_bvh=True,
+                              sl_block=128),
+        "tex48_opaque": opaque_view(showcase_device_scene(
+            48, device, sl_block=256, textured=True)),
+    }
+
+
+@pytest.mark.parametrize("name", ["grid96", "tex48_opaque"])
+def test_flat2_kernels_equal_plain(cuda, name):
+    """The flat2 closest hit against its plain version (fresh, advanced and
+    dead lanes) and against the flat kernel on the same tables; the flat2
+    any-hit (three sets, dead lanes) against its plain version and the
+    flat any-hit. Lanes may differ only as the flat kernel's may (module
+    docstring)."""
+    from path_tracer_torch.ops import cuda_bvh
+
+    sc = _flat2_scenes(cuda)[name]
+    r = 5003
+    o, d = _flat_rays(sc, 13, r, cuda)
+    for tpv in (-1.0, 0.5):
+        tp = torch.full((r,), tpv, device=cuda)
+        tp[::9] = float("inf")
+        before = cuda_bvh.flat2_closest_hit_launches
+        got = cuda_bvh.closest_hit_triangles_flat2(o, d, tp, sc)
+        assert cuda_bvh.flat2_closest_hit_launches == before + 1
+        for want in (cuda_bvh.closest_hit_triangles_flat2_plain(o, d, tp, sc),
+                     cuda_bvh.closest_hit_triangles_flat(o, d, tp, sc)):
+            assert _mismatch(got, want) <= 1e-4
+            same = (got.prim == want.prim) & (got.kind == want.kind)
+            for field in ("t", "u", "v", "backface"):
+                assert torch.equal(getattr(got, field)[same],
+                                   getattr(want, field)[same]), field
+        assert not got.valid[::9].any() and got.valid.float().mean() > 0.3
+    tm = torch.where(got.valid, got.t * 1.01, 40.0)
+    tm_dead = tm.clone()
+    tm_dead[::3] = -1.0
+    ds, tms = [d, d, -d], [torch.full((r,), float("inf"), device=cuda), tm,
+                           tm_dead]
+    before = cuda_bvh.flat2_occluded_launches
+    multi = cuda_bvh.occluded_triangles_flat2_multi(o, ds, tms, sc)
+    assert cuda_bvh.flat2_occluded_launches == before + 1
+    assert torch.equal(multi, cuda_bvh.occluded_triangles_flat2_multi_plain(
+        o, ds, tms, sc))
+    assert torch.equal(multi, cuda_bvh.occluded_triangles_flat_multi(
+        o, ds, tms, sc))
+    assert multi[2][::3].all() and 0.05 < multi[1].float().mean() < 0.99
+
+
+def test_sph_walk_kernel_equals_plain(cuda):
+    """The sphere block walk on the 4,900-sphere grid against its plain
+    version, exactly (fresh, advanced and dead lanes), and against the
+    dense kernel within the flip-rate bound of tests/test_pallas_spheres.py
+    (the two root forms round apart)."""
+    from path_tracer_torch.ops import cuda_spheres, intersect
+    from path_tracer_torch.scene.procedural import sphere_grid_device_scene
+
+    sc = sphere_grid_device_scene(70, cuda)
+    assert sc.sph_use_blocks
+    o, d = _rays(14, 5003, np.full(3, -38.0), np.full(3, 38.0), cuda)
+    for tpv in (-1.0, 5.0):
+        tp = torch.full((5003,), tpv, device=cuda)
+        tp[::9] = float("inf")
+        before = cuda_spheres.sph_walk_launches
+        got = cuda_spheres.closest_hit_spheres_cuda(o, d, tp, sc)
+        assert cuda_spheres.sph_walk_launches == before + 1
+        _assert_same(got, cuda_spheres.closest_hit_spheres_walk_plain(
+            o, d, tp, sc))
+        assert not got.valid[::9].any() and got.valid.float().mean() > 0.2
+        dense = intersect.closest_hit_spheres(o, d, tp, sc)
+        assert ((got.prim != dense.prim)
+                | (got.kind != dense.kind)).float().mean() <= 0.01
+
+
 @pytest.fixture(scope="module")
 def showcase_tex48(cuda):
     """The textured showcase at grid 48 in 256-slot blocks on the card."""

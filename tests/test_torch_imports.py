@@ -97,13 +97,30 @@ def _fake_flat_scene(mode):
 
     with mode:
         cuda = dict(device="cuda")
+        i32 = dict(dtype=torch.int32, **cuda)
         return SimpleNamespace(
             sl_blkflat=torch.empty((8, 128), **cuda),
-            sl_blkid=torch.empty((1, 128), dtype=torch.int32, **cuda),
+            sl_blkid=torch.empty((1, 128), **i32),
+            sl_sbflat=torch.empty((8, 128), **cuda),
+            sl_sbid=torch.empty((1, 128), **i32),
             sl_bw_t=torch.empty((16, 512), **cuda),
-            sl_map=torch.empty((512,), dtype=torch.int32, **cuda),
+            sl_map=torch.empty((512,), **i32),
             sph_packed_t=torch.empty((4, 128), **cuda), sl_block=256,
             sph_row_base=512)
+
+
+def _fake_sph_scene(mode):
+    """The sphere block walk's tables as CUDA-device fakes."""
+    from types import SimpleNamespace
+
+    with mode:
+        cuda = dict(device="cuda")
+        return SimpleNamespace(
+            sph_blk=torch.empty((8, 128), **cuda),
+            sph_blkid=torch.empty((1, 128), dtype=torch.int32, **cuda),
+            sph_sorted_t=torch.empty((4, 256), **cuda),
+            sph_smap=torch.empty((256,), dtype=torch.int32, **cuda),
+            sph_use_blocks=True)
 
 
 def _fake_tr_scene(mode):
@@ -130,13 +147,16 @@ def _launch_counts():
     )
 
     return (cuda_intersect.launches, cuda_spheres.launches,
-            cuda_bvh.closest_hit_launches, cuda_bvh.occluded_launches,
-            cuda_trwalk.alpha_launches, cuda_trwalk.trans_launches)
+            cuda_spheres.sph_walk_launches, cuda_bvh.closest_hit_launches,
+            cuda_bvh.occluded_launches, cuda_bvh.flat2_closest_hit_launches,
+            cuda_bvh.flat2_occluded_launches, cuda_trwalk.alpha_launches,
+            cuda_trwalk.trans_launches)
 
 
 @pytest.mark.parametrize("kernel", ["triangles", "spheres", "flat",
                                     "flat_spheres", "flat_occluded",
-                                    "alpha_walk", "trans_walk"])
+                                    "alpha_walk", "trans_walk", "flat2",
+                                    "flat2_occluded", "sph_walk"])
 def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
     """Handed CUDA tensors where the kernel cannot be built or launched,
     a wrapper raises; it never returns the plain version's result."""
@@ -164,8 +184,13 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
     monkeypatch.setattr(intersect, "closest_hit_triangles", _plain_must_not_run)
     for name in ("closest_hit_triangles_flat_plain", "_flat_walk_plain",
                  "occluded_triangles_flat_plain",
-                 "occluded_triangles_flat_multi_plain"):
+                 "occluded_triangles_flat_multi_plain",
+                 "closest_hit_triangles_flat2_plain", "_flat2_walk_plain",
+                 "occluded_triangles_flat2_plain",
+                 "occluded_triangles_flat2_multi_plain"):
         monkeypatch.setattr(cuda_bvh, name, _plain_must_not_run)
+    for name in ("closest_hit_spheres_walk_plain", "_sph_walk_plain"):
+        monkeypatch.setattr(cuda_spheres, name, _plain_must_not_run)
     for name in ("alpha_walk_plain", "trans_walk_plain"):
         monkeypatch.setattr(cuda_trwalk, name, _plain_must_not_run)
     rows = 9 if kernel == "triangles" else 4
@@ -182,9 +207,15 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
             sc, o, d, tp, torch.empty((2, 300), device="cuda"), 2),
         "trans_walk": lambda o, d, tp, sc: cuda_trwalk.trans_walk(
             sc, o, d, tp, tp > 0, o, o.narrow(1, 0, 2), tp > 1, tp >= 0, 2),
+        "flat2": cuda_bvh.closest_hit_triangles_flat2,
+        "flat2_occluded": lambda o, d, tp, sc: (
+            cuda_bvh.occluded_triangles_flat2_multi(o, [d], [tp], sc)),
+        "sph_walk": cuda_spheres.closest_hit_spheres_cuda,
     }[kernel]
     if kernel.startswith("flat"):
         scene = _fake_flat_scene(mode)
+    elif kernel == "sph_walk":
+        scene = _fake_sph_scene(mode)
     elif kernel.endswith("walk"):
         scene = _fake_tr_scene(mode)
 
@@ -253,6 +284,62 @@ def test_flat_wrappers_check_operands():
     for args in bad_occluded:
         with mode, pytest.raises(ValueError):
             native.launch_flat_occluded(*args, block=256)
+
+
+def test_flat2_launchers_check_operands():
+    """The flat2 kernels' launchers raise on wrong superblock tables, which
+    must cover the block columns in groups of 128, before any launch."""
+    from path_tracer_torch import native
+
+    mode, o, d, tp, _ = _fake_cuda_operands(64, 4)
+    sc = _fake_flat_scene(mode)
+    blocks = (sc.sl_blkflat, sc.sl_blkid, sc.sl_bw_t)
+    with mode:
+        cuda = dict(device="cuda")
+        i32 = dict(dtype=torch.int32, **cuda)
+        ds = torch.empty((2, 64, 3), **cuda)
+        tms = torch.empty((2, 64), **cuda)
+        wide = (torch.empty((8, 384), **cuda), torch.empty((1, 384), **i32),
+                sc.sl_bw_t)  # three groups of block columns
+        bad_tables = [
+            (torch.empty((6, 128), **cuda), sc.sl_sbid, *blocks),
+            (sc.sl_sbflat, sc.sl_sbid.float(), *blocks),
+            (sc.sl_sbflat, torch.empty((1, 64), **i32), *blocks),
+            (torch.empty((8, 2), **cuda), torch.empty((1, 2), **i32), *wide),
+        ]
+        short_ds = torch.empty((2, 32, 3), **cuda)  # rays off the origins'
+    for tables in bad_tables:
+        with mode, pytest.raises(ValueError):
+            native.launch_flat2_closest_hit(o, d, tp, *tables, block=256)
+        with mode, pytest.raises(ValueError):
+            native.launch_flat2_occluded(o, ds, tms, *tables, block=256)
+    with mode, pytest.raises(ValueError):
+        native.launch_flat2_occluded(o, short_ds, tms, sc.sl_sbflat,
+                                     sc.sl_sbid, *blocks, block=256)
+
+
+def test_sph_walk_launcher_checks_operands():
+    """The sphere walk's launcher raises on a wrong block or sphere table
+    before any launch."""
+    from path_tracer_torch import native
+
+    mode, o, d, tp, _ = _fake_cuda_operands(64, 4)
+    sc = _fake_sph_scene(mode)
+    with mode:
+        cuda = dict(device="cuda")
+        bad = [
+            (torch.empty((6, 128), **cuda), sc.sph_blkid, sc.sph_sorted_t),
+            (sc.sph_blk, sc.sph_blkid.float(), sc.sph_sorted_t),
+            (sc.sph_blk, sc.sph_blkid, torch.empty((4, 200), **cuda)),
+            (sc.sph_blk, sc.sph_blkid, torch.empty((3, 256), **cuda)),
+        ]
+        short_tp = torch.empty((32,), **cuda)
+    for tables in bad:
+        with mode, pytest.raises(ValueError):
+            native.launch_sph_walk(o, d, tp, *tables)
+    with mode, pytest.raises(ValueError):
+        native.launch_sph_walk(o, d, short_tp, sc.sph_blk, sc.sph_blkid,
+                               sc.sph_sorted_t)
 
 
 def test_walk_launchers_check_operands():

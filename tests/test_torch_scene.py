@@ -35,22 +35,36 @@ def test_build_scene_equals_jax_scene(reference_scenes, name):
 
 @pytest.mark.parametrize("name", ["head", "alpha_transparency"])
 def test_later_slices_are_refused(reference_scenes, name):
-    """The non-opaque reference scenes build and render, and what a later
-    slice brings is still refused by name, never rendered through another
-    path: the same scene marked as one of more than 512 spheres (the
-    sphere block walk) fails in its casts."""
+    """The non-opaque reference scenes build and render; more than 512
+    spheres (the sphere block walk) now render too: the 529-sphere grid
+    with this scene's meshes added (two kinds of primitive; with
+    ``alpha_transparency``'s, more spheres than padded triangles). What a later slice brings is still refused by
+    name, never rendered through another path: the scene forced onto a
+    BVH without superleaf blocks (the tree walk) fails in its casts."""
     import dataclasses
 
     from path_tracer_torch.models.integrator import IntegratorSpec
     from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.scene import build_scene, isf
+    from path_tracer_torch.scene.procedural import sphere_grid_scene
 
-    sc = load_scene(reference_scenes / name / "scene.isf", device="cpu")
+    path = reference_scenes / name / "scene.isf"
+    sc = load_scene(path, device="cpu")
     assert not sc.all_opaque
     img = render_pixel_sums(sc, 8, 6, 1, 1, IntegratorSpec(bounces=1))
     assert img.shape == (48, 3) and np.isfinite(img).all() and img.std() > 0
-    big = dataclasses.replace(sc, sph_use_blocks=True)
-    with pytest.raises(NotImplementedError, match="sphere block walk"):
-        render_pixel_sums(big, 8, 6, 1, 1, IntegratorSpec(bounces=1))
+    grid = sphere_grid_scene(23)
+    grid.models += [m for m in isf.load(path).models
+                    if isinstance(m, isf.Mesh)]
+    many = build_scene(grid, path.parent, "cpu")
+    assert many.sph_use_blocks and many.num_real_spheres == 529
+    if name == "alpha_transparency":  # sphere prims past the triangles
+        assert many.tri_v0.shape[0] < many.num_real_spheres
+    img = render_pixel_sums(many, 8, 6, 1, 1, IntegratorSpec(bounces=1))
+    assert np.isfinite(img).all() and img.std() > 0
+    tree = dataclasses.replace(sc, use_bvh=True, sl_n_blocks=0)
+    with pytest.raises(NotImplementedError, match="tree walk"):
+        render_pixel_sums(tree, 8, 6, 1, 1, IntegratorSpec(bounces=1))
 
 
 def _flat_triangles_scene(n: int):
@@ -86,24 +100,46 @@ def test_bvh_scene_builds_and_renders():
     assert img.shape == (48, 3) and np.isfinite(img).all() and img.std() > 0
 
 
-def test_bvh_scene_is_refused(reference_scenes):
-    """A BVH scene of more than FLAT_MAX_BLOCKS = 2,048 superleaf blocks
-    needs the flat2 walk, a later slice: its casts refuse it by name."""
+def test_bvh_scene_is_refused(reference_scenes, monkeypatch):
+    """The walk routing of a BVH scene, as the JAX package's
+    ``_walk_variant``: up to FLAT_MAX_BLOCKS = 2,048 superleaf blocks the
+    flat walk, 2,049 the flat2 walk (through which the scene renders);
+    a BVH scene without superleaf blocks (the tree walk, a later slice)
+    is refused by name in its casts."""
+    import dataclasses
+
     from path_tracer_torch.models.integrator import IntegratorSpec
     from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.ops import cuda_bvh, intersect
 
     sc = load_scene(reference_scenes / "cube" / "scene.isf", device="cpu",
                     use_bvh=True)
     fields = {f: getattr(sc, f).numpy() for f in ARRAY_FIELDS}
     statics = {s: getattr(sc, s) for s in STATIC_FIELDS}
+    assert intersect._walk_variant(sc) == "flat"
+    for n_blocks, walk in ((2048, "flat"), (2049, "flat2")):
+        assert intersect._walk_variant(dataclasses.replace(
+            sc, sl_n_blocks=n_blocks)) == walk
+    # 2,049 block columns, all but the cube's first one empty boxes.
     n_blocks, bpad = 2049, 2176
-    fields["sl_blkflat"] = np.zeros((8, bpad), np.float32)
-    fields["sl_blkid"] = np.full((1, bpad), -1, np.int32)
-    fields["sl_blkid"][0, :n_blocks] = np.arange(n_blocks)
+    blkflat = np.zeros((8, bpad), np.float32)
+    blkflat[:, 0] = fields["sl_blkflat"][:, 0]
+    blkid = np.full((1, bpad), -1, np.int32)
+    blkid[0, :n_blocks] = 0
+    fields.update(sl_blkflat=blkflat, sl_blkid=blkid)
     statics["sl_n_blocks"] = n_blocks
     big = from_numpy(fields, statics, "cpu")
-    with pytest.raises(NotImplementedError, match="flat2"):
-        render_pixel_sums(big, 8, 6, 1, 1, IntegratorSpec(bounces=1))
+    calls = []
+    monkeypatch.setattr(cuda_bvh, "closest_hit_triangles_flat",
+                        lambda *a, **k: calls.append("flat"))
+    img = render_pixel_sums(big, 8, 6, 1, 1, IntegratorSpec(bounces=1))
+    want = render_pixel_sums(dataclasses.replace(sc, use_bvh=False), 8, 6,
+                             1, 1, IntegratorSpec(bounces=1))
+    assert not calls and img.std() > 0
+    np.testing.assert_allclose(img, want, rtol=1e-3, atol=1e-4)
+    tree = dataclasses.replace(sc, sl_n_blocks=0)
+    with pytest.raises(NotImplementedError, match="tree walk"):
+        render_pixel_sums(tree, 8, 6, 1, 1, IntegratorSpec(bounces=1))
 
 
 def test_isf_loader_matches_jax(reference_scenes):

@@ -8,8 +8,10 @@ For each scene: one warm-up sample, then one sample (every 2^18-lane tile
 of a 1920x1080 frame) under ``torch.profiler``: 4 bounces for the
 reference scenes of ``tests/scenes``, 5 for ``showcase`` (the plain
 100k-triangle showcase in 256-slot blocks, as the JAX bench renders it
-with ``BENCH_SCENE=showcase_plain``) and ``showcase_tex`` (the textured
-showcase, the JAX bench's default scene). Prints the wall
+with ``BENCH_SCENE=showcase_plain``), ``showcase_tex`` (the textured
+showcase, the JAX bench's default scene), ``showcase_tex704`` (the
+textured showcase at grid 704: 991,834 triangles, the flat2 walk) and
+``sphere_grid70`` (4,900 spheres, the sphere block walk). Prints the wall
 time (host clock around work that ends in a synchronize), the summed device
 time of all kernels, the device busy share (device time / wall; kernels
 run on one stream, so they do not overlap), the number of kernel launches,
@@ -35,11 +37,19 @@ def profile_scene(name: str, top: int = 14) -> None:
     from path_tracer_torch.scene import load_scene
 
     device = torch.device("cuda", 0)
-    if name in ("showcase", "showcase_tex"):
+    if name in ("showcase", "showcase_tex", "showcase_tex704"):
         from path_tracer_torch.scene.showcase import showcase_device_scene
 
-        scene = showcase_device_scene(224, device, sl_block=256,
-                                      textured=name == "showcase_tex")
+        scene = showcase_device_scene(704 if name.endswith("704") else 224,
+                                      device, sl_block=256,
+                                      textured=name != "showcase")
+        spec = IntegratorSpec(bounces=5)
+    elif name == "sphere_grid70":
+        from path_tracer_torch.scene.procedural import (
+            sphere_grid_device_scene,
+        )
+
+        scene = sphere_grid_device_scene(70, device)
         spec = IntegratorSpec(bounces=5)
     else:
         scene = load_scene(REPO / "tests" / "scenes" / name / "scene.isf",
