@@ -38,7 +38,15 @@ any error:
    its bound at the main path's shapes, and the flat kernels' on the flat2
    scene's tables; there the flat2 and sphere-walk kernels must also equal
    their timed plain versions on every one of the 2^18 lanes (3 x 2^18
-   for the any-hit);
+   for the any-hit); then (3f) the sphere any-hit kernels on the first
+   bounce's shadow sets of 2^18 camera lanes, a tenth killed: the dense
+   kernel on the textured showcase (3 lights, 48 spheres), the walk on the
+   4,900-sphere grid (2 point lights), each against its plain version on
+   every lane and against the JAX package's elementwise in_range form
+   (at most MAX_RANGE_FLIPS of the lanes), and the fused shadow kernel on
+   the textured showcase's 3 x 2^18 shadow lanes against its plain
+   version and against flat_occluded + trans_walk launched apart, on every
+   lane; each timed;
 4. the main path at full size: ``cube``, ``spheres`` and ``reflection`` at
    1920x1080, 4 bounces, 16 spp through ``render_pixel_sums``, and one
    reference-default frame of ``reflection`` (1920x1080, 64 spp, 4
@@ -53,8 +61,11 @@ any error:
    sample through ``render`` to a PNG; then (4e) the 4,900-sphere grid
    (the sphere block walk) written as an ISF file and rendered through the
    CLI at 1920x1080, 5 bounces, 1 spp, and at 480x270 through the walk
-   and through the dense sphere kernel, same seed. Launch counts are set
-   to 0 before each path and read after it;
+   and through the dense sphere kernel, same seed; then (4f) the textured
+   showcase at 1920x1080, 5 bounces, FUSED_SPP spp through the fused
+   shadow kernel (``PT_FUSED_SHADOW=1``) and through the two launches, in
+   turns, same seed. Launch counts are set to 0 before each path and read
+   after it;
 4b. the showcase at 480x270, 4 spp, 5 bounces through the flat walk and
    through brute-force MT over all 100,352 triangles, same seed;
 4c. the textured showcase at 480x270, 2 spp, 5 bounces through the walk
@@ -141,6 +152,11 @@ MAX_DIVERGENCE = 1e-4
 # prim flip rate and the t bound of tests/test_pallas_spheres.py.
 MAX_SPHERE_FLIPS, SPHERE_RTOL = 0.01, 1e-3
 WAVE = 1 << 18  # lanes of one wavefront of the main path (Profile.tile_rays)
+# The sphere any-hit kernels (exact t_max) against the JAX package's
+# elementwise form (the distance test): share of lanes that may part, at
+# the range boundary only.
+MAX_RANGE_FLIPS = 1e-4
+FUSED_SPP = 2  # samples of each 1080p render of the fused-shadow A/B (4f)
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): float32
 # outside the tensor cores, and HBM bandwidth. A kernel's bound is the
 # larger of its operations over the first and its bytes over the second.
@@ -1201,6 +1217,315 @@ def phase_timing(device):
     return out
 
 
+def first_bounce_shadows(sc, n: int, device, rng=None):
+    """The shadow casts of the first bounce of n camera lanes of the middle
+    1080p wavefront toward every light (directional first), as the
+    integrator builds them: origins 1e-5 off the hits, t_max the exact
+    range limit (``shadow_t_max``) on lanes whose camera ray hit and whose
+    surface faces the light, else -1; with ``rng`` a tenth of the lanes of
+    every set killed besides (t_max = -1). For a partitioned scene also
+    the fused kernel's walk windows pd (the prefilter of the integrator's
+    fused path). Returns a dict of the fused kernel's arguments."""
+    import torch
+
+    from path_tracer_torch.models.integrator import NORMAL_BIAS, _surface
+    from path_tracer_torch.ops.intersect import closest_hit, shadow_t_max
+    from path_tracer_torch.ops.trwalk import hits_transparent_bounds
+
+    o, d = camera_rays(sc, n, device)
+    hit = closest_hit(o, d, torch.full((n,), -1.0, device=device), sc)
+    surf = _surface(sc, hit, o, d)
+    so = (surf.pos + surf.geom_normal * NORMAL_BIAS).contiguous()
+    ds, mds = [], []
+    for k in range(sc.num_dir_lights):
+        ds.append((-sc.dir_dir[k]).expand(n, 3).contiguous())
+        mds.append(None)
+    for k in range(sc.num_point_lights):
+        to_surf = surf.pos - sc.point_pos[k]
+        dist = torch.sqrt((to_surf * to_surf).sum(-1))
+        ds.append(-(to_surf / dist[:, None]))
+        mds.append(dist)
+    t_maxes, pds = [], []
+    for dd, md in zip(ds, mds):
+        act = hit.valid & ((surf.normal * dd).sum(-1) > 0.0)
+        if rng is not None:
+            act &= as_cuda(rng.uniform(size=n) > 0.1, device, bool)
+        t_maxes.append(torch.where(act, shadow_t_max(so, dd, surf.pos, md),
+                                   -1.0))
+        if sc.tr_kernel_ok:
+            pd = torch.full((n,), float("inf"), device=device) \
+                if md is None else md
+            walk = act & hits_transparent_bounds(sc, so, dd,
+                                                 pd * 1.0001 + 1e-3)
+            pds.append(torch.where(walk, pd, -1.0))
+    return dict(s_o=so, dirs=ds, t_maxes=t_maxes, pds=pds,
+                is_pt=[md is not None for md in mds], surf_pos=surf.pos,
+                orig_uv=surf.uv, orig_simple=surf.simple, max_dists=mds)
+
+
+def in_range_occluded(o, d, sc, surf_pos, max_dist):
+    """[R] bool: the JAX package's elementwise sphere any-hit
+    (``path_tracer_tpu/ops/intersect.py:304-313``): both roots of every
+    real sphere, dividing by 2a, an occluder in range when its distance
+    from the surface point is at most ``max_dist`` (any distance without
+    one)."""
+    import torch
+
+    from path_tracer_torch.ops.intersect import _sphere_roots
+
+    out = []
+    for a in range(0, o.shape[0], 1 << 13):
+        rs = slice(a, a + (1 << 13))
+        oc, dc = o[rs], d[rs]
+        has, t1, t2 = _sphere_roots(oc, dc, sc)
+        if max_dist is None:
+            ok1, ok2 = t1 >= 0.0, t2 >= 0.0
+        else:
+            b = oc - surf_pos[rs]
+            b_dot_d = (b * dc).sum(-1)[:, None]
+            b_sq = (b * b).sum(-1)[:, None]
+            d_sq = (dc * dc).sum(-1)[:, None]
+            lim = (max_dist[rs] * max_dist[rs])[:, None]
+            rng_ok = lambda t: t * t * d_sq + 2.0 * t * b_dot_d + b_sq <= lim
+            ok1, ok2 = (t1 >= 0.0) & rng_ok(t1), (t2 >= 0.0) & rng_ok(t2)
+        out.append((has & (ok1 | ok2)).any(dim=1))
+    return torch.cat(out)
+
+
+def sphere_any_hit_work(sh, sc, occ) -> tuple[int, int]:
+    """(slab tests, sphere tests) the sphere any-hit needs on these sets:
+    dense, every real sphere per live lane the kernel leaves unoccluded and
+    one test per occluded lane; the walk, a slab test of every real block
+    per live lane and the real spheres of every block an unoccluded lane's
+    gate admits (an occluded lane needs one test)."""
+    from path_tracer_torch.ops import slab
+
+    slabs = tests = 0
+    for k, (dd, tm) in enumerate(zip(sh["dirs"], sh["t_maxes"])):
+        live, hit = tm >= 0.0, occ[k]
+        tests += int(hit.sum())
+        open_ = live & ~hit
+        if not sc.sph_use_blocks:
+            tests += int(open_.sum()) * sc.num_real_spheres
+            continue
+        ids = sc.sph_blkid[0]
+        real = real_per_column(sc.sph_sorted_t[3] > 0.0, 128, ids)
+        slabs += int(live.sum()) * int((ids >= 0).sum())
+        for a in range(0, dd.shape[0], 1 << 15):
+            rs = slice(a, a + (1 << 15))
+            tn, tf = slab.slab(sh["s_o"][rs], slab.safe_inv(dd[rs]),
+                               sc.sph_blk)
+            gate = slab.occluded_gate(tn, tf, tm[rs], ids) & open_[rs, None]
+            tests += int((gate * real).sum())
+    return slabs, tests
+
+
+def phase_sphere_any_hit(device, sc, label: str):
+    """3f: the sphere any-hit kernel of ``sc`` (dense up to 512 spheres,
+    the walk above) on the first bounce's shadow sets of the middle 2^18
+    camera lanes toward every light, a tenth killed: against its timed
+    plain version (0 lanes may differ) and against the JAX package's
+    elementwise in_range form (at most MAX_RANGE_FLIPS of the lanes), then
+    timed. Returns (max abs err, (ms, plain ms, bound ms, bound by))."""
+    import torch
+
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import cuda_spheres
+
+    rng = np.random.default_rng(20261021)
+    n = WAVE
+    sh = first_bounce_shadows(sc, n, device, rng)
+    args = (sh["s_o"], sh["dirs"], sh["t_maxes"], sc)
+    run = lambda: cuda_spheres.occluded_spheres_cuda(*args)
+    plain_ms, want = timed_once(lambda: cuda_spheres.occluded_spheres_plain(
+        *args))
+    got = run()
+    n_off = int((got != want).sum())
+    flips, lanes = 0, 0
+    for k, (dd, md) in enumerate(zip(sh["dirs"], sh["max_dists"])):
+        ref = in_range_occluded(sh["s_o"], dd, sc, sh["surf_pos"], md) \
+            & (sh["t_maxes"][k] >= 0.0)
+        flips += int((ref != got[k]).sum())
+        lanes += n
+    # The launch alone, as the main path makes it.
+    o3 = sh["s_o"].contiguous()
+    ds = torch.stack(sh["dirs"]).contiguous()
+    tms = torch.stack(sh["t_maxes"]).contiguous()
+    if sc.sph_use_blocks:
+        tables = (sc.sph_blk, sc.sph_blkid, sc.sph_sorted_t)
+        bare = lambda: native.launch_sph_occ_walk(o3, ds, tms, *tables)
+    else:
+        tables = (sc.sph_packed_t,)
+        bare = lambda: native.launch_sph_occluded(o3, ds, tms, *tables,
+                                                  sc.num_real_spheres)
+    ms, bare_ms = cuda_ms(run, 20), cuda_ms(bare, 20)
+    ms2, bare_ms2 = cuda_ms(run, 20), cuda_ms(bare, 20)
+    slabs, tests = sphere_any_hit_work(sh, sc, got)
+    work = bound(slabs * OPS_SLAB + tests * OPS_SPHERE,
+                 nbytes(o3, ds, tms, *tables) + 4 * ds.shape[0] * n)
+    live = float((tms >= 0.0).float().mean())
+    log(f"  {label}: {ds.shape[0]} sets x {n} first-bounce shadow lanes "
+        f"(live {live:.3f}), {sc.num_real_spheres} spheres "
+        f"({'walk' if sc.sph_use_blocks else 'dense'}): lanes off the plain "
+        f"version {n_off}; against the elementwise in_range form "
+        f"{flips} of {lanes} lanes ({flips / lanes:.2e}, <= "
+        f"{MAX_RANGE_FLIPS:g}); occluded {float(got.float().mean()):.3f}; "
+        f"kernel {ms:.4f} ms, {ms2:.4f} ms (repeat), the launch alone "
+        f"{bare_ms:.4f} ms, {bare_ms2:.4f} ms; plain {plain_ms:.4f} ms; "
+        f"bound {work[0]:.4f} ms ({work[1]}: {slabs} slab tests, {tests} "
+        "sphere tests)")
+    if n_off or flips > MAX_RANGE_FLIPS * lanes \
+            or bool(got[tms < 0.0].any()):
+        raise AssertionError(f"{label}: sphere any-hit disagrees")
+    return float((got != want).float().max()), (min(ms, ms2),
+                                                 plain_ms) + work
+
+
+def phase_fused_shadow_kernel(device, tex):
+    """3g: the fused shadow kernel on the textured showcase's first-bounce
+    shadow lanes (3 lights x the middle 2^18 camera lanes, a tenth killed,
+    step cap 8) against its timed plain version and against flat_occluded
+    + trans_walk launched apart: 0 lanes may differ. Then timed beside
+    the two launches. Returns (max abs err, (ms, plain ms, bound ms, bound
+    by))."""
+    import torch
+
+    from path_tracer_torch.ops import cuda_bvh, cuda_shadow, cuda_trwalk, trwalk
+    from path_tracer_torch.scene.device_scene import opaque_view
+
+    rng = np.random.default_rng(20261022)
+    n, cap = WAVE, trwalk.TRWALK_K
+    sh = first_bounce_shadows(tex, n, device, rng)
+    args = (tex, sh["s_o"], sh["dirs"], sh["t_maxes"], sh["pds"],
+            sh["is_pt"], sh["surf_pos"], sh["orig_uv"], sh["orig_simple"],
+            cap)
+    run = lambda: cuda_shadow.fused_shadow(*args)
+    plain_ms, want = timed_once(lambda: cuda_shadow.fused_shadow_plain(*args))
+    got = run()
+    n_l = len(sh["dirs"])
+    ov = opaque_view(tex)
+    is_pt3 = torch.cat([torch.full((n,), pt, device=device)
+                        for pt in sh["is_pt"]])
+    o3 = sh["s_o"].repeat(n_l, 1)
+    d3 = torch.cat(sh["dirs"]).contiguous()
+    sp3 = sh["surf_pos"].repeat(n_l, 1)
+    ouv3 = sh["orig_uv"].repeat(n_l, 1)
+    os3 = sh["orig_simple"].repeat(n_l)
+    pds = torch.stack(sh["pds"])
+
+    def two_launches():
+        occ = cuda_bvh.occluded_triangles_flat_multi(sh["s_o"], sh["dirs"],
+                                                     sh["t_maxes"], ov)
+        w = cuda_trwalk.trans_walk(tex, o3, d3, torch.where(
+            occ, -1.0, pds).reshape(-1), is_pt3, sp3, ouv3, os3,
+            torch.ones_like(is_pt3), cap)
+        return (torch.where(occ, 0.0, w.trans.view(n_l, n)),
+                w.t_prev.view(n_l, n), w.still.view(n_l, n))
+
+    apart = two_launches()
+    off_plain = sum(int((a != b).sum()) for a, b in zip(got, want))
+    off_apart = sum(int((a != b).sum()) for a, b in zip(got, apart))
+    ms, two_ms = cuda_ms(run, 20), cuda_ms(two_launches, 20)
+    ms2, two_ms2 = cuda_ms(run, 20), cuda_ms(two_launches, 20)
+    # Bound: the flat any-hit's on these lanes plus the transmittance
+    # walk's on the lanes it leaves walking.
+    occ = cuda_bvh.occluded_triangles_flat_multi(sh["s_o"], sh["dirs"],
+                                                 sh["t_maxes"], ov)
+    slabs = tests = 0
+    for k, (dd, tm) in enumerate(zip(sh["dirs"], sh["t_maxes"])):
+        a, b = flat_work(sh["s_o"], dd, ov, None, tm, occ[k])
+        slabs, tests = slabs + a, tests + b
+    tp_real = int((tex.tr_bw[0:3].abs().sum(0) > 0).sum())
+    walkers = int(((pds >= 0.0) & ~occ).sum())
+    tables = (tex.tr_bw, tex.tr_rows, tex.tr_tex8, tex.tr_lut,
+              tex.tr_page_table)
+    b10 = bound(slabs * OPS_SLAB + tests * OPS_BW,
+                nbytes(sh["s_o"], *sh["dirs"], *sh["t_maxes"], ov.sl_blkflat,
+                       ov.sl_blkid, tex.sl_bw_t) + 4 * n_l * n)
+    b14 = bound(walkers * tp_real * OPS_BW,
+                nbytes(*sh["pds"], sh["surf_pos"], sh["orig_uv"],
+                       sh["orig_simple"], *tables) + 3 * 4 * n_l * n)
+    work = (b10[0] + b14[0], b10[1] if b10[0] >= b14[0] else b14[1])
+    log(f"  fused shadow kernel, {n_l} lights x {n} first-bounce shadow "
+        f"lanes (any-hit live {float((torch.stack(sh['t_maxes']) >= 0).float().mean()):.3f}, "
+        f"walking after it {walkers}): lanes off the plain version "
+        f"{off_plain}, off flat_occluded + trans_walk launched apart "
+        f"{off_apart}; trans_eff 0 on {float((got[0] == 0).float().mean()):.3f}"
+        f"; kernel "
+        f"{ms:.4f} ms, {ms2:.4f} ms (repeat); the two launches {two_ms:.4f} "
+        f"ms, {two_ms2:.4f} ms; plain {plain_ms:.4f} ms; bound "
+        f"{work[0]:.4f} ms ({work[1]}: any-hit {b10[0]:.4f} ms, {slabs} slab "
+        f"tests, {tests} triangle tests; walk {b14[0]:.4f} ms, {walkers} "
+        f"lanes x {tp_real} columns)")
+    if off_plain or off_apart:
+        raise AssertionError("fused shadow kernel disagrees")
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    return err, (min(ms, ms2), plain_ms) + work
+
+
+def phase_fused_showcase(device, tex):
+    """4f: the textured showcase at 1920x1080, 5 bounces, FUSED_SPP spp
+    through the fused shadow kernel (PT_FUSED_SHADOW=1) and through the
+    two launches, same seed, in turns (ABBAAB, three of each): the fused
+    runs launch fused_shadow and neither two-launch kernel; at most
+    MAX_WALK_PIXELS of the pixels beyond 1e-3. Returns the first fused
+    run's launch counts."""
+    import os
+
+    import torch
+
+    from path_tracer_torch.config import Profile, Resolution
+    from path_tracer_torch.models.renderer import (
+        integrator_spec,
+        render_pixel_sums,
+    )
+
+    w, h, spp, bounces = 1920, 1080, FUSED_SPP, 5
+    log(f"phase 4f: textured showcase, fused shadow kernel against the two "
+        f"launches, {w}x{h}, {bounces} bounces, {spp} spp, in turns")
+    profile = Profile(resolution=Resolution(w, h), bounces=bounces,
+                      samples=spp)
+    spec = integrator_spec(profile)
+    fused, two = "fused", "two launches"
+    out, secs, counts = {}, {fused: [], two: []}, {}
+    for label in (fused, two, two, fused, fused, two):
+        if label == fused:
+            os.environ["PT_FUSED_SHADOW"] = "1"
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            sums = render_pixel_sums(tex, w, h, 1, spp, spec,
+                                     tile_rays=profile.tile_rays)
+            torch.cuda.synchronize()
+            secs[label].append(time.perf_counter() - t0)
+        finally:
+            os.environ.pop("PT_FUSED_SHADOW", None)
+        counts.setdefault(label, launch_counts())
+        out.setdefault(label, sums / spp)
+        log(f"  {label}: {secs[label][-1]:.3f} s "
+            f"({secs[label][-1] / spp:.3f} s per sample), launches "
+            f"{launch_counts()}")
+    fc, tc = counts[fused], counts[two]
+    if not fc["fused_shadow"] or fc["flat_occluded"] or fc["trans_walk"] \
+            or tc["fused_shadow"] or not (tc["flat_occluded"]
+                                          and tc["trans_walk"]):
+        raise AssertionError(f"routes not taken as asked: {counts}")
+    a, b = out[fused], out[two]
+    diff = np.abs(a - b).max(axis=-1)
+    frac = float((diff > 1e-3).mean())
+    per = {k: [x / spp for x in v] for k, v in secs.items()}
+    log(f"  seconds per sample: fused {per[fused]}, two launches "
+        f"{per[two]}; pixels beyond 1e-3: {frac:.5f} (<= "
+        f"{MAX_WALK_PIXELS}); max {diff.max():.3e}; mean energy "
+        f"{a.mean():.6f} vs {b.mean():.6f}; finite "
+        f"{bool(np.isfinite(a).all())}")
+    if frac > MAX_WALK_PIXELS or not np.isfinite(a).all() or a.std() == 0:
+        raise AssertionError("fused and two-launch renders disagree")
+    return fc
+
+
 def phase_main_path(device):
     import torch
 
@@ -1266,6 +1591,7 @@ def launch_counts() -> dict:
     from path_tracer_torch.ops import (
         cuda_bvh,
         cuda_intersect,
+        cuda_shadow,
         cuda_spheres,
         cuda_trwalk,
     )
@@ -1278,19 +1604,25 @@ def launch_counts() -> dict:
             "flat2_closest_hit": cuda_bvh.flat2_closest_hit_launches,
             "flat2_occluded": cuda_bvh.flat2_occluded_launches,
             "alpha_walk": cuda_trwalk.alpha_launches,
-            "trans_walk": cuda_trwalk.trans_launches}
+            "trans_walk": cuda_trwalk.trans_launches,
+            "sph_occluded": cuda_spheres.occluded_launches,
+            "sph_occ_walk": cuda_spheres.sph_occ_walk_launches,
+            "fused_shadow": cuda_shadow.launches}
 
 
 def reset_launch_counts() -> None:
     from path_tracer_torch.ops import (
         cuda_bvh,
         cuda_intersect,
+        cuda_shadow,
         cuda_spheres,
         cuda_trwalk,
     )
 
     cuda_intersect.launches = cuda_spheres.launches = 0
     cuda_spheres.sph_walk_launches = 0
+    cuda_spheres.occluded_launches = cuda_spheres.sph_occ_walk_launches = 0
+    cuda_shadow.launches = 0
     cuda_bvh.closest_hit_launches = cuda_bvh.occluded_launches = 0
     cuda_bvh.flat2_closest_hit_launches = cuda_bvh.flat2_occluded_launches = 0
     cuda_trwalk.alpha_launches = cuda_trwalk.trans_launches = 0
@@ -1542,8 +1874,12 @@ def phase_sphere_grid(device, grid):
     log(f"  via the CLI ({size} bytes of scene.isf loaded and built in the "
         f"timing): {secs:.3f} s, {rays / secs / 1e6:.2f} Mray/s, launches "
         f"{counts}, png {png.stat().st_size} bytes")
-    if not counts["sph_walk"] or counts["sphere_closest_hit"]:
-        raise AssertionError(f"sphere grid did not take the walk: {counts}")
+    log(f"  the same frame took 17.884 s on an NVIDIA H100 80GB HBM3 at "
+        f"700.00 W with the sphere any-hit elementwise over all spheres "
+        f"(before sph_occ.cu); this card: {smi()}")
+    if not (counts["sph_walk"] and counts["sph_occ_walk"]) \
+            or counts["sphere_closest_hit"] or counts["sph_occluded"]:
+        raise AssertionError(f"sphere grid did not take the walks: {counts}")
 
     spec = IntegratorSpec(bounces=bounces)
     out = {}
@@ -1780,11 +2116,19 @@ def main() -> int:
     walk_times = phase_walk_timing(device, tex)
     flat2_times = phase_flat2_timing(device, big)
     sph_time, sph_timing_stats = phase_sph_timing(device, grid)
+    log("phase 3f: sphere any-hit kernels and the fused shadow kernel at "
+        "the main path's shapes")
+    occ_err, occ_time = phase_sphere_any_hit(device, tex,
+                                             "dense sphere any-hit")
+    occ_walk_err, occ_walk_time = phase_sphere_any_hit(
+        device, grid, "sphere any-hit walk")
+    fused_err, fused_time = phase_fused_shadow_kernel(device, tex)
     launches = phase_main_path(device)
     flat_launches = phase_showcase(device, showcase)
     walk_launches = phase_showcase_tex(device, tex)
     big_launches = phase_big_showcase(device, big)
     grid_launches = phase_sphere_grid(device, grid)
+    fused_launches = phase_fused_showcase(device, tex)
     phase_bvh_vs_brute(device, showcase)
     phase_walks_vs_cast(device, tex)
     phase_oracle(device)
@@ -1827,6 +2171,12 @@ def main() -> int:
         entry("sph_walk", "sph_walk.cu", "pallas_spheres.py:385",
               grid_launches["sph_walk"],
               max(s[1] for s in walk_stats + sph_timing_stats), sph_time),
+        entry("sph_occluded", "sph_occ.cu", "pallas_spheres.py:197",
+              walk_launches["sph_occluded"], occ_err, occ_time),
+        entry("sph_occ_walk", "sph_occ.cu", "pallas_spheres.py:484",
+              grid_launches["sph_occ_walk"], occ_walk_err, occ_walk_time),
+        entry("fused_shadow", "fused_shadow.cu", "pallas_shadow.py:49",
+              fused_launches["fused_shadow"], fused_err, fused_time),
     ]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} "
         "s")

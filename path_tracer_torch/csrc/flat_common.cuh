@@ -310,4 +310,61 @@ __device__ __forceinline__ bool occluded_block(const float* s_bw, int block,
   return false;
 }
 
+// The flat block tables of one walk: blk [8, bpad] AABBs, blkid [bpad],
+// bw [16, n_cols] Baldwin-Weber rows in blocks of 'block' slots.
+struct FlatTable {
+  const float* blk;
+  const int* blkid;
+  const float* bw;
+  int bpad;
+  int block;
+  int n_cols;
+};
+
+// The per-set body of the flat any-hit (flat_occluded.cu; fused_shadow.cu
+// runs it before the transmittance walk): whether this lane is occluded,
+// a dead lane (tm < 0) reporting occluded. The CTA's lanes share one walk:
+// the nearest slab entry of each block column over the lanes, then the
+// columns nearest first, each staged in shared memory (12 BW rows) only
+// while some lane of the CTA is still unoccluded and slab-passes it; a lane
+// leaves the block's slot loop at its first hit. The walk ends when every
+// lane is occluded or no column is left. smem holds the floats
+// walk_smem(kernel, 12 * block, bpad, ...) sizes, red 3 * warps. Every
+// thread of the CTA must call it; smem is free again when it returns.
+__device__ __forceinline__ bool flat_occ_set(const FlatTable& ft, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, float tm,
+                                             float* smem, float* red) {
+  float* s_bw = smem;                   // [12][block]
+  float* s_key = s_bw + 12 * ft.block;  // [bpad]
+  float* s_ray = s_key + ft.bpad;       // [kRayRows][kCtaRays]
+  const OccludedGate gate;
+  const bool live = gate.live(tm);  // lanes that may be occluded
+  bool occ = tm < 0.f;              // dead lanes report occluded
+  if (__syncthreads_or(live)) {
+    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+    stage_ray(s_ray, ox, oy, oz, ix, iy, iz, tm);
+    column_keys(ft.blk, ft.blkid, ft.bpad, ft.bpad, s_ray, s_key, gate);
+    while (true) {
+      float key, open = (live && !occ) ? 1.f : 0.f;  // any lane still open?
+      int col;
+      next_column(s_key, ft.bpad, key, col, open, red);
+      if (col >= ft.bpad || open == 0.f) break;
+      bool need = false;
+      if (live && !occ) {
+        float tn, tf;
+        slab(load_box(ft.blk, ft.bpad, col), ox, oy, oz, ix, iy, iz, tn, tf);
+        need = gate.pass(tn, tf, tm);
+      }
+      if (!__syncthreads_or(need)) continue;
+      stage_block(ft.bw, ft.blkid[col], ft.block, ft.n_cols, s_bw);
+      if (need)
+        occ = occluded_block(s_bw, ft.block, ox, oy, oz, dx, dy, dz, tm);
+      __syncthreads();  // s_bw is restaged by the next visit
+    }
+  }
+  __syncthreads();  // next_column's last write to s_key is done
+  return occ;
+}
+
 }  // namespace ptt

@@ -22,7 +22,8 @@
 //
 // Bound on the card: arithmetic, the Baldwin-Weber test of every column per
 // pass for each live lane (two passes for point lanes, one per step for
-// walking lanes). Design as alpha_walk.cu: 128 lanes per CTA, the table's
+// walking lanes). The per-lane body is trwalk_common.cuh's trans_lane,
+// which fused_shadow.cu shares. Design as alpha_walk.cu: 128 lanes per CTA, the table's
 // BW rows streamed through shared memory in 256-column chunks only while
 // some lane of the CTA needs them, attribute rows and texel codes read from
 // device memory, the LUT in shared memory. The product multiplies in
@@ -62,82 +63,11 @@ trans_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
     ouvx = aux[5 * R + i]; ouvy = aux[6 * R + i];
     osimple = aux[7 * R + i] > 0.f;
   }
-  const bool live = pd >= 0.f;
-  const bool loop = live && textured && !is_pt;
-  const bool dense = live && !loop;
-  const float inf = CUDART_INF_F;
-  float trans = 1.f, t_prev = -1.f;
-
-  if (__syncthreads_or(dense)) {
-    // Pass 1 (point lanes): the first candidate behind the light.
-    float cut = inf;
-    const bool need_cut = dense && is_pt;
-    if (__syncthreads_or(need_cut)) {
-      ptt::for_each_chunk(tb, s_bw, [&](int c0, int n) {
-        if (!need_cut) return;
-        for (int c = 0; c < n; ++c) {
-          float t, u, v, dn;
-          if (!ptt::tr_candidate(s_bw + c, ox, oy, oz, dx, dy, dz, inf, t, u,
-                                 v, dn))
-            continue;
-          const float ocx = ox + t * dx - spx;
-          const float ocy = oy + t * dy - spy;
-          const float ocz = oz + t * dz - spz;
-          const float occ = sqrtf(ocx * ocx + ocy * ocy + ocz * ocz);
-          if (occ > pd) cut = fminf(cut, t);
-        }
-      });
-    }
-    // Pass 2: the product over the candidates in front of the cut.
-    ptt::for_each_chunk(tb, s_bw, [&](int c0, int n) {
-      if (!dense) return;
-      for (int c = 0; c < n; ++c) {
-        float t, u, v, dn;
-        if (!ptt::tr_candidate(s_bw + c, ox, oy, oz, dx, dy, dz, inf, t, u, v,
-                               dn) ||
-            !(t < cut))
-          continue;
-        const int col = c0 + c;
-        const float fac = tb.rows[6 * tb.T + col];
-        float op = fac;
-        if (textured && !osimple && tb.rows[7 * tb.T + col] > 0.f)
-          op = ptt::page_texel(tb, s_lut, ouvx, ouvy,
-                               (int)tb.rows[8 * tb.T + col]) * fac;
-        trans = trans * (1.f - op);
-      }
-    });
-  }
-
-  // Directional lanes of a textured scene: the sequential walk.
-  bool walking = loop;
-  for (int k = 0; k < steps_cap; ++k) {
-    if (!__syncthreads_or(walking)) break;
-    float t, u, v, dn;
-    int col;
-    ptt::next_candidate(tb, s_bw, walking, ox, oy, oz, dx, dy, dz, inf,
-                        t_prev, t, col, u, v, dn);
-    if (!walking) continue;
-    if (col < 0) {
-      walking = false;
-      continue;
-    }
-    const float fac = tb.rows[6 * tb.T + col];
-    float uvx, uvy;
-    ptt::column_uv(tb, col, u, v, uvx, uvy);
-    const float tex = ptt::page_texel(tb, s_lut, uvx, uvy,
-                                      (int)tb.rows[8 * tb.T + col]);
-    const float op = tb.rows[7 * tb.T + col] <= 0.f ? fac : tex * fac;
-    trans = trans * (1.f - op);
-    walking = trans != 0.f;
-    if (walking) t_prev = t;
-  }
-  if (steps_cap == 0) {  // no step taken: only a lane with a candidate walks on
-    float t, u, v, dn;
-    int col;
-    ptt::next_candidate(tb, s_bw, walking, ox, oy, oz, dx, dy, dz, inf,
-                        t_prev, t, col, u, v, dn);
-    walking = walking && col >= 0;
-  }
+  float trans, t_prev;
+  bool walking;
+  ptt::trans_lane(tb, s_bw, s_lut, steps_cap, textured != 0, ox, oy, oz, dx,
+                  dy, dz, pd, is_pt, spx, spy, spz, ouvx, ouvy, osimple,
+                  trans, t_prev, walking);
   if (in_range) {
     fout[i] = trans;
     fout[R + i] = t_prev;

@@ -122,4 +122,97 @@ __device__ __forceinline__ void stage_lut(const float* lut, float* s_lut) {
   __syncthreads();
 }
 
+// Shared memory (floats) of trans_lane: the staged chunk s_bw [12][kTrChunk]
+// and the LUT s_lut [256] beside it.
+constexpr int kTransSmemFloats = 12 * kTrChunk + 256;
+
+// The per-lane body of the transmittance walk (trans_walk.cu;
+// fused_shadow.cu runs it after the any-hit): trans, t_prev and whether the
+// lane would walk on past steps_cap (contract in trans_walk.cu). A lane is
+// dead when pd < 0. s_bw holds 12 * kTrChunk floats; s_lut the LUT, staged
+// by the caller. Every thread of the CTA must call it.
+__device__ __forceinline__ void trans_lane(
+    const TrTable& tb, float* s_bw, const float* s_lut, int steps_cap,
+    bool textured, float ox, float oy, float oz, float dx, float dy, float dz,
+    float pd, bool is_pt, float spx, float spy, float spz, float ouvx,
+    float ouvy, bool osimple, float& trans, float& t_prev, bool& walking) {
+  const bool live = pd >= 0.f;
+  const bool loop = live && textured && !is_pt;
+  const bool dense = live && !loop;
+  const float inf = CUDART_INF_F;
+  trans = 1.f;
+  t_prev = -1.f;
+
+  if (__syncthreads_or(dense)) {
+    // Pass 1 (point lanes): the first candidate behind the light.
+    float cut = inf;
+    const bool need_cut = dense && is_pt;
+    if (__syncthreads_or(need_cut)) {
+      for_each_chunk(tb, s_bw, [&](int c0, int n) {
+        if (!need_cut) return;
+        for (int c = 0; c < n; ++c) {
+          float t, u, v, dn;
+          if (!tr_candidate(s_bw + c, ox, oy, oz, dx, dy, dz, inf, t, u, v,
+                            dn))
+            continue;
+          const float ocx = ox + t * dx - spx;
+          const float ocy = oy + t * dy - spy;
+          const float ocz = oz + t * dz - spz;
+          const float occ = sqrtf(ocx * ocx + ocy * ocy + ocz * ocz);
+          if (occ > pd) cut = fminf(cut, t);
+        }
+      });
+    }
+    // Pass 2: the product over the candidates in front of the cut.
+    for_each_chunk(tb, s_bw, [&](int c0, int n) {
+      if (!dense) return;
+      for (int c = 0; c < n; ++c) {
+        float t, u, v, dn;
+        if (!tr_candidate(s_bw + c, ox, oy, oz, dx, dy, dz, inf, t, u, v,
+                          dn) ||
+            !(t < cut))
+          continue;
+        const int col = c0 + c;
+        const float fac = tb.rows[6 * tb.T + col];
+        float op = fac;
+        if (textured && !osimple && tb.rows[7 * tb.T + col] > 0.f)
+          op = page_texel(tb, s_lut, ouvx, ouvy,
+                          (int)tb.rows[8 * tb.T + col]) * fac;
+        trans = trans * (1.f - op);
+      }
+    });
+  }
+
+  // Directional lanes of a textured scene: the sequential walk.
+  walking = loop;
+  for (int k = 0; k < steps_cap; ++k) {
+    if (!__syncthreads_or(walking)) break;
+    float t, u, v, dn;
+    int col;
+    next_candidate(tb, s_bw, walking, ox, oy, oz, dx, dy, dz, inf, t_prev, t,
+                   col, u, v, dn);
+    if (!walking) continue;
+    if (col < 0) {
+      walking = false;
+      continue;
+    }
+    const float fac = tb.rows[6 * tb.T + col];
+    float uvx, uvy;
+    column_uv(tb, col, u, v, uvx, uvy);
+    const float tex =
+        page_texel(tb, s_lut, uvx, uvy, (int)tb.rows[8 * tb.T + col]);
+    const float op = tb.rows[7 * tb.T + col] <= 0.f ? fac : tex * fac;
+    trans = trans * (1.f - op);
+    walking = trans != 0.f;
+    if (walking) t_prev = t;
+  }
+  if (steps_cap == 0) {  // no step taken: only a lane with a candidate walks on
+    float t, u, v, dn;
+    int col;
+    next_candidate(tb, s_bw, walking, ox, oy, oz, dx, dy, dz, inf, t_prev, t,
+                   col, u, v, dn);
+    walking = walking && col >= 0;
+  }
+}
+
 }  // namespace ptt

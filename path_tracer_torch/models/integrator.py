@@ -31,6 +31,12 @@ Semantics reproduced exactly (reference quirks included):
   over the whole scene. The walk bounds default to the scene's
   ``num_transparent_hits`` + 1, which reproduces the reference's unbounded
   sorted-hit iteration.
+- Fused shadows: with the environment variable ``PT_FUSED_SHADOW=1`` (the
+  JAX package's own opt-in, off by default there and here; the port's
+  only such knob), a partitioned scene with the walk kernels' tables and
+  a flat whole-scene walk casts every light's opaque any-hit and
+  transmittance walk in one launch (``ops/cuda_shadow.py``), the same
+  values as the two launches.
 - Emissive adds throughput*emissive each bounce, and AGAIN inside
   eval_direct scaled by light radiance (reference quirk).
 - Point lights: radiance = color/(4*pi*r^2).
@@ -53,17 +59,28 @@ and renders the same image up to float rounding.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional
 
 import torch
 
-from path_tracer_torch.ops import brdf, cuda_trwalk, rng, texturing, trwalk
+from path_tracer_torch.ops import (
+    brdf,
+    cuda_shadow,
+    cuda_trwalk,
+    rng,
+    texturing,
+    trwalk,
+)
+from path_tracer_torch.ops.cuda_spheres import occluded_spheres_cuda
 from path_tracer_torch.ops.intersect import (
     KIND_TRIANGLE,
     HitRecord,
     _miss_record,
+    _walk_variant,
     closest_hit,
     occluded_multi,
+    shadow_t_max,
 )
 from path_tracer_torch.ops.trwalk import ALPHA_MIN_OPACITY
 from path_tracer_torch.scene.device_scene import (
@@ -371,6 +388,20 @@ def _shadow_attenuation(scene, s_o, s_d, active, light_color, steps,
     return att0 * trans[:, None]
 
 
+def _stack_lights(s_o, dirs, point_dists, surf_pos, orig_uv, orig_simple):
+    """The [L*R] stacked lanes of L lights' transmittance walks, light by
+    light: (o, d, pd, is_pt, surf_pos, orig_uv, orig_simple); pd = +inf
+    for a directional light."""
+    n_l, r, dev = len(dirs), s_o.shape[0], s_o.device
+    inf = torch.full((r,), float("inf"), device=dev)
+    return (s_o.repeat(n_l, 1), torch.cat(dirs),
+            torch.cat([inf if pd is None else pd for pd in point_dists]),
+            torch.cat([torch.full((r,), pd is not None, device=dev)
+                       for pd in point_dists]),
+            surf_pos.repeat(n_l, 1), orig_uv.repeat(n_l, 1),
+            orig_simple.repeat(n_l))
+
+
 def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, steps,
                               point_dists, surf_pos, orig_uv, orig_simple,
                               blockeds):
@@ -387,14 +418,8 @@ def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, steps,
     r = s_o.shape[0]
     dev = s_o.device
     att0s = [_light_att0(a, c) for a, c in zip(actives, colors)]
-    inf = torch.full((r,), float("inf"), device=dev)
-    o3 = s_o.repeat(n_l, 1)
-    d3 = torch.cat(dirs)
-    pd3 = torch.cat([inf if pd is None else pd for pd in point_dists])
-    is_pt = torch.cat([torch.full((r,), pd is not None, device=dev)
-                       for pd in point_dists])
-    sp3, ouv3 = surf_pos.repeat(n_l, 1), orig_uv.repeat(n_l, 1)
-    os3 = orig_simple.repeat(n_l)
+    o3, d3, pd3, is_pt, sp3, ouv3, os3 = _stack_lights(
+        s_o, dirs, point_dists, surf_pos, orig_uv, orig_simple)
     walking0 = torch.cat([a & ~b & (att0.abs().sum(-1) != 0.0)
                           for a, b, att0 in zip(actives, blockeds, att0s)])
     # Segments that miss every transparent cluster keep trans 1 (t_max the
@@ -418,6 +443,58 @@ def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, steps,
                                  t_prev, still, include_spheres=False)
     return [torch.where(b[:, None], 0.0, att0 * trans[i * r:(i + 1) * r, None])
             for i, (att0, b) in enumerate(zip(att0s, blockeds))]
+
+
+def _use_fused_shadow(scene) -> bool:
+    """Whether the bounce loop takes the fused shadow kernel: only with
+    ``PT_FUSED_SHADOW=1`` (the JAX package's opt-in, ``integrator.py``
+    ``_use_fused_shadow``), for a partitioned scene with the walk kernels'
+    tables whose whole-scene walk is flat (the kernel's any-hit is the
+    flat walk)."""
+    return (os.environ.get("PT_FUSED_SHADOW") == "1" and partitioned(scene)
+            and scene.tr_kernel_ok and scene.num_real_triangles != 0
+            and _walk_variant(scene) == "flat")
+
+
+def _shadow_attenuation_fused(scene, s_o, dirs, actives, colors, steps,
+                              point_dists, surf_pos, orig_uv, orig_simple):
+    """All L lights' attenuations in a partitioned scene through the fused
+    shadow kernel: the opaque any-hit (the exact t_max of
+    ``occluded_multi``) and the first ``TRWALK_K`` transmittance steps in
+    one launch, then the exact cast walk over the transparent view for
+    lanes still walking, and the opaque spheres' any-hit. The same values
+    as ``occluded_multi`` + ``_shadow_attenuation_multi``."""
+    n_l = len(dirs)
+    r = s_o.shape[0]
+    att0s = [_light_att0(a, c) for a, c in zip(actives, colors)]
+    t_maxes, pds = [], []
+    for d, a, att0, md in zip(dirs, actives, att0s, point_dists):
+        t_maxes.append(torch.where(a, shadow_t_max(s_o, d, surf_pos, md),
+                                   -1.0))
+        pd = (torch.full((r,), float("inf"), device=s_o.device) if md is None
+              else md)
+        # The prefilter of _shadow_attenuation_multi; the any-hit result
+        # gates the walk inside the kernel.
+        walk = a & (att0.abs().sum(-1) != 0.0) & \
+            trwalk.hits_transparent_bounds(scene, s_o, d, pd * 1.0001 + 1e-3)
+        pds.append(torch.where(walk, pd, -1.0))
+    k0 = min(steps, trwalk.TRWALK_K)
+    trans, t_prev, still = cuda_shadow.fused_shadow(
+        scene, s_o, dirs, t_maxes, pds, [md is not None for md in point_dists],
+        surf_pos, orig_uv, orig_simple, k0)
+    if k0 < steps and bool(still.any()):
+        o3, d3, pd3, is_pt, sp3, ouv3, os3 = _stack_lights(
+            s_o, dirs, point_dists, surf_pos, orig_uv, orig_simple)
+        trans = _trans_cast_walk(
+            scene, transparent_view(scene), o3, d3, pd3, is_pt, sp3, ouv3,
+            os3, steps, k0, trans.reshape(n_l * r), t_prev.reshape(n_l * r),
+            still.reshape(n_l * r), include_spheres=False).view(n_l, r)
+    atts = [att0 * trans[i][:, None] for i, att0 in enumerate(att0s)]
+    if scene.num_real_spheres != 0:
+        sph = occluded_spheres_cuda(s_o, dirs, t_maxes, scene)
+        atts = [torch.where(sph[i][:, None], 0.0, att)
+                for i, att in enumerate(atts)]
+    return atts
 
 
 def render_wavefront(scene, pixel_ids, width: int, height: int,
@@ -489,7 +566,12 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
         max_dists = [None] * n_dir + dists
         colors = ([scene.dir_color[li] for li in range(n_dir)]
                   + [1.0] * scene.num_point_lights)
-        if scene.all_opaque or part:
+        if part and to_lights and _use_fused_shadow(scene):
+            # Both halves of every light's shadow in one launch.
+            atts = _shadow_attenuation_fused(
+                scene, shadow_o, to_lights, actives, colors, shadow_steps,
+                max_dists, surf.pos, surf.uv, surf.simple)
+        elif scene.all_opaque or part:
             # One any-hit launch for all lights (against the opaque view of
             # a partitioned scene: any opaque occluder in range zeroes the
             # product whatever the order).
@@ -497,14 +579,14 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
                 shadow_o, to_lights, opaque_view(scene) if part else scene,
                 surf_pos=surf.pos, max_dists=max_dists, actives=actives)
                 if to_lights else [])
-        if scene.all_opaque:
-            atts = [torch.where(b[:, None], 0.0, _light_att0(a, c))
-                    for a, b, c in zip(actives, blocked, colors)]
-        elif part:
-            atts = (_shadow_attenuation_multi(
-                scene, shadow_o, to_lights, actives, colors, shadow_steps,
-                max_dists, surf.pos, surf.uv, surf.simple, blocked)
-                if to_lights else [])
+            if scene.all_opaque:
+                atts = [torch.where(b[:, None], 0.0, _light_att0(a, c))
+                        for a, b, c in zip(actives, blocked, colors)]
+            else:
+                atts = (_shadow_attenuation_multi(
+                    scene, shadow_o, to_lights, actives, colors, shadow_steps,
+                    max_dists, surf.pos, surf.uv, surf.simple, blocked)
+                    if to_lights else [])
         else:
             atts = [_shadow_attenuation(scene, shadow_o, ld, a, c,
                                         shadow_steps, md, surf.pos, surf.uv,

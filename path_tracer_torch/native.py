@@ -220,6 +220,20 @@ def kernels() -> Kernels:
         #  textured, fout, device, stream)
         lib.ptt_trans_walk.restype = ci
         lib.ptt_trans_walk.argtypes = [vp] * 8 + [ci] * 5 + [vp, ci, vp]
+        # (o, d, t_max, sph, R, L, S, ld, out, device, stream)
+        lib.ptt_sph_occluded.restype = ci
+        lib.ptt_sph_occluded.argtypes = [vp] * 4 + [ci] * 4 + [vp, ci, vp]
+        # (o, d, t_max, blk, blkid, sph, R, L, sbpad, n_slots, out, device,
+        #  stream)
+        lib.ptt_sph_occ_walk.restype = ci
+        lib.ptt_sph_occ_walk.argtypes = [vp] * 6 + [ci] * 4 + [vp, ci, vp]
+        # (o, d, t_max, pd, aux, is_pt_mask, blk, blkid, bw, bpad, block,
+        #  n_cols, tr_bw, tr_rows, tex, lut, pages, T, wp, R, L, steps_cap,
+        #  textured, out, device, stream)
+        lib.ptt_fused_shadow.restype = ci
+        lib.ptt_fused_shadow.argtypes = ([vp] * 5 + [ctypes.c_ulonglong]
+                                         + [vp] * 3 + [ci] * 3 + [vp] * 5
+                                         + [ci] * 6 + [vp, ci, vp])
         _kernels = Kernels(lib, seconds, log)
     return _kernels
 
@@ -282,6 +296,20 @@ def _check_flat_tables(fn: str, blkflat, blkid, bw, block: int, device):
     return bpad, n_cols
 
 
+def _check_sets(fn: str, o, ds, t_maxes, device) -> tuple[int, int]:
+    """L direction sets sharing R origins; returns (R, L)."""
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
+    r = o.shape[0]
+    n_sets = ds.shape[0] if ds.dim() == 3 else -1
+    _check("o", o, (r, 3), torch.float32, device)
+    _check("ds", ds, (n_sets, r, 3), torch.float32, device)
+    _check("t_maxes", t_maxes, (n_sets, r), torch.float32, device)
+    if not 0 < n_sets < 65536 or 3 * n_sets * r >= 2**31:
+        raise ValueError(f"{fn}: {n_sets} sets x {r} rays out of range")
+    return r, n_sets
+
+
 def launch_flat_closest_hit(o, d, t_prev, blkflat, blkid, bw, block: int,
                             sph=None, sph_row_base: int = 0):
     """Check the operands of the flat closest-hit kernel, allocate its
@@ -329,16 +357,8 @@ def launch_flat_occluded(o, ds, t_maxes, blkflat, blkid, bw, block: int):
     (1 = occluded or dead)."""
     fn = "ptt_flat_occluded"
     device = o.device
-    if device.type != "cuda":
-        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
-    r = o.shape[0]
-    n_sets = ds.shape[0] if ds.dim() == 3 else -1
-    _check("o", o, (r, 3), torch.float32, device)
-    _check("ds", ds, (n_sets, r, 3), torch.float32, device)
-    _check("t_maxes", t_maxes, (n_sets, r), torch.float32, device)
+    r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
     bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
-    if not 0 < n_sets < 65536 or 3 * n_sets * r >= 2**31:
-        raise ValueError(f"{fn}: {n_sets} sets x {r} rays out of range")
     lib = kernels().lib
     out = torch.empty((n_sets, r), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -407,17 +427,9 @@ def launch_flat2_occluded(o, ds, t_maxes, sbflat, sbid, blkflat, blkid, bw,
     (1 = occluded or dead)."""
     fn = "ptt_flat2_occluded"
     device = o.device
-    if device.type != "cuda":
-        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
-    r = o.shape[0]
-    n_sets = ds.shape[0] if ds.dim() == 3 else -1
-    _check("o", o, (r, 3), torch.float32, device)
-    _check("ds", ds, (n_sets, r, 3), torch.float32, device)
-    _check("t_maxes", t_maxes, (n_sets, r), torch.float32, device)
+    r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
     bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
     sbpad = _check_superblocks(fn, sbflat, sbid, bpad, device)
-    if not 0 < n_sets < 65536 or 3 * n_sets * r >= 2**31:
-        raise ValueError(f"{fn}: {n_sets} sets x {r} rays out of range")
     lib = kernels().lib
     out = torch.empty((n_sets, r), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -551,3 +563,100 @@ def launch_trans_walk(o, d, aux, scene, steps_cap: int):
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return fout
+
+
+def launch_sph_occluded(o, ds, t_maxes, sph, n_spheres: int):
+    """Check the operands of the dense sphere any-hit kernel, allocate its
+    output and launch it on the current stream (no synchronisation).
+
+    o: [R,3] f32; ds: [L,R,3] f32; t_maxes: [L,R] f32 (< 0 = dead lane);
+    sph: [4, ld] f32 of which the first ``n_spheres`` columns are tested.
+    Returns out [L,R] f32 (1 = occluded; dead lanes 0)."""
+    fn = "ptt_sph_occluded"
+    device = o.device
+    r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
+    ld = sph.shape[1] if sph.dim() == 2 else -1
+    _check("sph", sph, (4, ld), torch.float32, device)
+    if not 0 <= n_spheres <= ld or 4 * ld >= 2**31:
+        raise ValueError(f"{fn}: {n_spheres} spheres in a table of {ld} "
+                         "columns")
+    lib = kernels().lib
+    out = torch.empty((n_sets, r), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.ptt_sph_occluded(o.data_ptr(), ds.data_ptr(),
+                               t_maxes.data_ptr(), sph.data_ptr(), r, n_sets,
+                               n_spheres, ld, out.data_ptr(), device.index,
+                               stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    return out
+
+
+def launch_sph_occ_walk(o, ds, t_maxes, blk, blkid, sph):
+    """Check the operands of the sphere any-hit walk, allocate its output
+    and launch it on the current stream (no synchronisation).
+
+    o: [R,3] f32; ds: [L,R,3] f32; t_maxes: [L,R] f32 (< 0 = dead lane);
+    blk [8,SBpad] f32, blkid [1,SBpad] i32, sph [4, nblk*128] f32 as for
+    ``launch_sph_walk``. Returns out [L,R] f32 (1 = occluded; dead lanes
+    0)."""
+    fn = "ptt_sph_occ_walk"
+    device = o.device
+    r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
+    sbpad = blk.shape[1] if blk.dim() == 2 else -1
+    n_slots = sph.shape[1] if sph.dim() == 2 else -1
+    _check("blk", blk, (8, sbpad), torch.float32, device)
+    _check("blkid", blkid, (1, sbpad), torch.int32, device)
+    _check("sph", sph, (4, n_slots), torch.float32, device)
+    if sbpad <= 0 or n_slots <= 0 or n_slots % 128 or 4 * n_slots >= 2**31:
+        raise ValueError(f"{fn}: {n_slots} sphere slots are not whole "
+                         "blocks of 128")
+    lib = kernels().lib
+    out = torch.empty((n_sets, r), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.ptt_sph_occ_walk(
+        o.data_ptr(), ds.data_ptr(), t_maxes.data_ptr(), blk.data_ptr(),
+        blkid.data_ptr(), sph.data_ptr(), r, n_sets, sbpad, n_slots,
+        out.data_ptr(), device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    return out
+
+
+def launch_fused_shadow(o, ds, t_maxes, pds, aux, is_pt, blkflat, blkid, bw,
+                        block: int, scene, steps_cap: int):
+    """Check the operands of the fused shadow kernel, allocate its output
+    and launch it on the current stream (no synchronisation).
+
+    o: [R,3] f32; ds: [L,R,3] f32; t_maxes, pds: [L,R] f32; aux: [6,R] f32
+    (surface point xyz, original uv, original is sphere); is_pt: L bools;
+    blkflat, blkid, bw: the opaque view's flat tables (as for
+    ``launch_flat_occluded``); the scene's tr_* tables. Returns out [3L,R]
+    f32 (per light: trans_eff, t_prev, still walking)."""
+    fn = "ptt_fused_shadow"
+    device = o.device
+    r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
+    _check("pds", pds, (n_sets, r), torch.float32, device)
+    _check("aux", aux, (6, r), torch.float32, device)
+    if len(is_pt) != n_sets or n_sets > 64:
+        raise ValueError(f"{fn}: {len(is_pt)} light types for {n_sets} sets "
+                         "(at most 64 lights)")
+    bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
+    t_cols, wp = _check_tr_tables(fn, scene, device)
+    if steps_cap < 0 or 3 * n_sets * r >= 2**31:
+        raise ValueError(f"{fn}: {n_sets} sets x {r} rays out of range")
+    mask = sum(1 << k for k, pt in enumerate(is_pt) if pt)
+    lib = kernels().lib
+    out = torch.empty((3 * n_sets, r), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.ptt_fused_shadow(
+        o.data_ptr(), ds.data_ptr(), t_maxes.data_ptr(), pds.data_ptr(),
+        aux.data_ptr(), mask, blkflat.data_ptr(), blkid.data_ptr(),
+        bw.data_ptr(), bpad, block, n_cols, scene.tr_bw.data_ptr(),
+        scene.tr_rows.data_ptr(), scene.tr_tex8.data_ptr(),
+        scene.tr_lut.data_ptr(), scene.tr_page_table.data_ptr(), t_cols, wp,
+        r, n_sets, steps_cap, int(scene.tr_textured), out.data_ptr(),
+        device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    return out

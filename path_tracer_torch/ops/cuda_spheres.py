@@ -1,5 +1,5 @@
-"""Sphere closest hit: the CUDA kernels' wrapper, and the sphere block
-walk's plain version.
+"""Sphere closest hit and any-hit: the CUDA kernels' wrappers, and the
+plain versions of the block walks and the any-hit.
 
 Counterpart of ``path_tracer_tpu/ops/pallas_spheres.py``:
 
@@ -8,19 +8,24 @@ Counterpart of ``path_tracer_tpu/ops/pallas_spheres.py``:
   spheres: dense, every ray against every sphere;
 - ``csrc/sph_walk.cu`` replaces ``pallas_spheres._sph_walk_kernel``
   (``_sph_walk_launch``, the same entry with ``sph_use_blocks``) for
-  larger scenes: a walk over SAH blocks of 128 spheres.
+  larger scenes: a walk over SAH blocks of 128 spheres;
+- ``csrc/sph_occ.cu`` replaces ``pallas_spheres._occ_kernel`` and
+  ``_sph_occ_walk_kernel`` (entry ``occluded_spheres_pallas``): the
+  any-hit, dense up to 512 spheres and the block walk above, for L
+  direction sets in one launch.
 
-Bound on the card: arithmetic. The dense kernel does R*S quadratic solves
-(about 25 flops, a sqrt and two IEEE divisions per valid discriminant),
-the walk a slab test per block and the solves of the blocks a ray's slab
-test admits; both stage their tables in shared memory, read as
-broadcasts.
+Bound on the card: arithmetic. The dense kernels do R*S quadratic solves
+(about 25 flops, a sqrt and an IEEE division or reciprocal per valid
+discriminant), the walks a slab test per block and the solves of the
+blocks a ray's slab test admits; all stage their tables in shared memory,
+read as broadcasts. The any-hit kernels stop a lane at its first occluder.
 
-Two root forms, as in the JAX package. The dense kernel and
-``intersect.closest_hit_spheres`` divide by 2a; the block walk and
-``closest_hit_spheres_walk_plain`` keep the TPU walk's naive quadratic
-(oc = o - c, a = |d|^2, b = 2 oc.d, c = |oc|^2 - r^2, disc = b^2 - 4ac)
-and multiply by inv2a = 1 / (2a). Sphere walk semantics:
+Two root forms, as in the JAX package. The dense closest hit and
+``intersect.closest_hit_spheres`` divide by 2a; the block walk, the
+any-hit kernels and their plain versions keep the TPU kernels' naive
+quadratic (oc = o - c, a = |d|^2, b = 2 oc.d, c = |oc|^2 - r^2,
+disc = b^2 - 4ac) and multiply by inv2a = 1 / (2a). Sphere walk
+semantics:
 
 - block gate: slab entry tn and exit tf of the block AABB (zero direction
   components inverted to 1e30), tf >= max(tn, 0), tf > t_prev, id >= 0;
@@ -31,6 +36,11 @@ and multiply by inv2a = 1 / (2a). Sphere walk semantics:
 - TIE RULE: the lexicographic (t, sorted slot) minimum;
 - pad slots (center 1e30, radius 0) overflow: disc is NaN, has false;
 - a dead lane is t_prev = +inf; a miss is t = +inf, slot -1.
+
+Any-hit semantics (both kernels): a ray is occluded when some sphere has
+a root t with 0 <= t <= t_max (has, and the root in range); the walk's
+block gate is tf >= max(tn, 0), tn <= t_max, t_max >= 0, id >= 0. A dead
+lane (t_max < 0) reports NOT occluded, unlike the triangle any-hit.
 
 The wrapper maps the sorted slot to the sphere index through
 ``sph_smap`` (0 on a miss) with u = v = 0. Each kernel is built
@@ -53,14 +63,18 @@ from path_tracer_torch.ops.slab import (
     closest_gate,
     live_columns,
     merge_nearest,
+    occluded_gate,
     safe_inv,
     slab,
 )
 
-# Kernel launches made by closest_hit_spheres_cuda in this process: the
-# dense kernel and the block walk.
+# Kernel launches made in this process by closest_hit_spheres_cuda (the
+# dense kernel and the block walk) and by occluded_spheres_cuda (the dense
+# any-hit and the any-hit walk).
 launches = 0
 sph_walk_launches = 0
+occluded_launches = 0
+sph_occ_walk_launches = 0
 
 
 def _sqrt_rn(x):
@@ -153,3 +167,85 @@ def closest_hit_spheres_cuda(o, d, t_prev, scene) -> HitRecord:
     zeros = torch.zeros_like(t)
     return HitRecord(t=t, kind=_kind(t, KIND_SPHERE), prim=iout, u=zeros,
                      v=zeros, backface=fout[1] != 0.0)
+
+
+def _any_root(o, d, sph, t_max):
+    """[n] bool: has one of the spheres ``sph`` [4, S] a root in
+    [0, t_max] for each of the n rays, in the any-hit kernels' naive
+    quadratic."""
+    a = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    inv2a = (1.0 / (2.0 * a))[:, None]
+    ocx = o[:, 0:1] - sph[None, 0]
+    ocy = o[:, 1:2] - sph[None, 1]
+    ocz = o[:, 2:3] - sph[None, 2]
+    b = 2.0 * (ocx * d[:, 0:1] + ocy * d[:, 1:2] + ocz * d[:, 2:3])
+    cc = ocx * ocx + ocy * ocy + ocz * ocz - (sph[3] * sph[3])[None, :]
+    disc = b * b - (4.0 * a)[:, None] * cc
+    has = disc >= 0.0
+    sq = _sqrt_rn(torch.where(has, disc, 0.0))
+    t1 = (-b - sq) * inv2a
+    t2 = (-b + sq) * inv2a
+    tm = t_max[:, None]
+    return (has & (((t1 >= 0.0) & (t1 <= tm))
+                   | ((t2 >= 0.0) & (t2 <= tm)))).any(dim=1)
+
+
+def _occluded_dense_plain(o, d, t_max, scene):
+    """The dense any-hit over the scene's real spheres → [R] bool."""
+    sph = scene.sph_packed_t[:, :scene.num_real_spheres]
+    return torch.cat([_any_root(o[rs], d[rs], sph, t_max[rs])
+                      for rs in _ray_chunks(o.shape[0])])
+
+
+def _occluded_walk_plain(o, d, t_max, scene):
+    """The any-hit walk over the sphere blocks → [R] bool: every block a
+    lane's gate admits, until it is occluded."""
+    sph, blkid = scene.sph_sorted_t, scene.sph_blkid[0]
+    parts = []
+    for rs in _ray_chunks(o.shape[0]):
+        oc, dc, tmc = o[rs], d[rs], t_max[rs]
+        tn, tf = slab(oc, safe_inv(dc), scene.sph_blk)
+        gate = occluded_gate(tn, tf, tmc, blkid)
+        occ = torch.zeros_like(tmc, dtype=torch.bool)
+        for col in live_columns(gate):
+            lanes = torch.nonzero(gate[:, col] & ~occ)[:, 0]
+            if lanes.numel():
+                start = int(blkid[col]) * 128
+                occ[lanes] = _any_root(oc[lanes], dc[lanes],
+                                       sph[:, start:start + 128], tmc[lanes])
+        parts.append(occ)
+    return torch.cat(parts)
+
+
+def occluded_spheres_plain(o, ds, t_maxes, scene) -> torch.Tensor:
+    """Plain version of ``occluded_spheres_cuda``, on any device: [L,R]
+    bool, set by set."""
+    one = (_occluded_walk_plain if getattr(scene, "sph_use_blocks", False)
+           else _occluded_dense_plain)
+    return torch.stack([one(o, d, tm, scene) for d, tm in zip(ds, t_maxes)])
+
+
+def occluded_spheres_cuda(o, ds, t_maxes, scene) -> torch.Tensor:
+    """Sphere any-hit for L direction sets sharing one origin set, in one
+    launch: the block walk when ``scene.sph_use_blocks``, else the dense
+    pass.
+
+    o: [R,3] f32; ds: list of L [R,3] f32; t_maxes: list of L [R] f32 (the
+    exact range limit, +inf for a directional light; < 0 marks a dead lane,
+    reported not occluded). Returns [L,R] bool. CUDA tensors launch the
+    kernel (or raise); CPU tensors take the plain version."""
+    global occluded_launches, sph_occ_walk_launches
+    if o.device.type == "cpu":
+        return occluded_spheres_plain(o, ds, t_maxes, scene)
+    o = o.contiguous()
+    ds = torch.stack(list(ds)).contiguous()
+    t_maxes = torch.stack(list(t_maxes)).contiguous()
+    if getattr(scene, "sph_use_blocks", False):
+        out = native.launch_sph_occ_walk(o, ds, t_maxes, scene.sph_blk,
+                                         scene.sph_blkid, scene.sph_sorted_t)
+        sph_occ_walk_launches += 1
+    else:
+        out = native.launch_sph_occluded(o, ds, t_maxes, scene.sph_packed_t,
+                                         scene.num_real_spheres)
+        occluded_launches += 1
+    return out > 0.0

@@ -28,11 +28,15 @@ tensors' device:
   spheres are cast apart (``cuda_spheres``) and merged, the triangle
   winning ties, as the JAX package fuses only on the flat walk;
 - spheres: the dense kernel up to 512 spheres, the sphere block walk
-  above (``sph_use_blocks``).
+  above (``sph_use_blocks``); their any-hit likewise
+  (``cuda_spheres.occluded_spheres_cuda``), all lights of a bounce in one
+  launch, with the exact t_max of the triangle any-hit. The JAX package
+  keeps its sphere any-hit elementwise in XLA, where a kernel launch is a
+  fusion barrier; the port runs eagerly and fuses nothing, so the kernel
+  (and, on the CPU, its plain version) serves it.
 
 CUDA tensors go to the hand-written kernels, CPU tensors to their plain
-versions. Sphere any-hit stays plain torch on both, elementwise over every
-sphere, as it stays XLA in the JAX package.
+versions.
 """
 from __future__ import annotations
 
@@ -282,6 +286,19 @@ def closest_hit(o, d, t_prev, scene, active=None,
     return HitRecord(*[torch.where(tri_wins, a, b) for a, b in zip(tri, sph)])
 
 
+def shadow_t_max(o, d, surf_pos, max_dist):
+    """[R] the any-hit range limit as a t_max: +inf without ``max_dist``
+    (a directional light), else the positive root of
+    |o + t d - surf_pos| = max_dist, dist^2 = t^2|d|^2 + 2t(b.d) + |b|^2
+    with b = o - surf_pos."""
+    if max_dist is None:
+        return torch.full((o.shape[0],), float("inf"), device=o.device)
+    bvec = o - surf_pos
+    b_dot_d, b_sq, d_sq = _dot(bvec, d), _dot(bvec, bvec), _dot(d, d)
+    disc = b_dot_d * b_dot_d - d_sq * (b_sq - max_dist * max_dist)
+    return (-b_dot_d + torch.sqrt(torch.clamp(disc, min=0.0))) / d_sq
+
+
 def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
                    actives=None) -> list:
     """Any-hit occlusion for L direction sets sharing one origin set (a
@@ -291,14 +308,15 @@ def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
     None or L entries ([R] bool or None; dead lanes report False). For a
     point light pass surf_pos [R,3] and its max_dist [R]: an occluder
     counts only when its distance FROM THE SURFACE POINT is <= max_dist,
-    with dist^2 = t^2|d|^2 + 2t(b.d) + |b|^2, b = o - surf_pos.
+    the range limit turned into the exact t_max (``shadow_t_max``; dead
+    lanes t_max = -1).
 
     Triangles: BVH scenes cast all L sets in one any-hit launch (flat or
-    flat2, by the scene's block count), the range limit turned into the
-    exact t_max (the positive root of dist = max_dist, dead lanes
-    t_max = -1); brute-force scenes take the nearest hit light
-    by light (dist(t) is monotone in t, so if the nearest hit is out of
-    range no hit is). Spheres test both roots elementwise, light by light.
+    flat2, by the scene's block count) up to t_max; brute-force scenes
+    take the nearest hit light by light, in range when
+    dist^2 = t^2|d|^2 + 2t(b.d) + |b|^2 <= max_dist^2 (dist(t) is monotone
+    in t, so if the nearest hit is out of range no hit is). Spheres: all L
+    sets in one any-hit launch up to t_max.
     """
     n_lights = len(dirs)
     max_dists = max_dists or [None] * n_lights
@@ -306,56 +324,36 @@ def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
     r = o.shape[0]
     _require_ported_walks(scene)
 
-    ranges = []  # per light: None or (b.d, |b|^2, |d|^2, max_dist^2), [R,1]
-    for d, md in zip(dirs, max_dists):
-        if md is None:
-            ranges.append(None)
-            continue
-        bvec = o - surf_pos
-        ranges.append((_dot(bvec, d)[:, None], _dot(bvec, bvec)[:, None],
-                       _dot(d, d)[:, None], (md * md)[:, None]))
-
-    def in_range(t, rng, rs=slice(None)):
-        if rng is None:
-            return torch.ones_like(t, dtype=torch.bool)
-        b_dot_d, b_sq, d_sq, limit_sq = (x[rs] for x in rng)
-        return t * t * d_sq + 2.0 * t * b_dot_d + b_sq <= limit_sq
-
+    t_maxes = []
+    for d, md, act in zip(dirs, max_dists, actives):
+        tm = shadow_t_max(o, d, surf_pos, md)
+        t_maxes.append(tm if act is None else torch.where(act, tm, -1.0))
     hits = [torch.zeros((r,), dtype=torch.bool, device=o.device)
             for _ in range(n_lights)]
     if scene.num_real_triangles != 0 and scene.use_bvh:
         from path_tracer_torch.ops import cuda_bvh
 
-        t_maxes = []
-        for rng, act in zip(ranges, actives):
-            if rng is None:
-                tm = torch.full((r,), float("inf"), device=o.device)
-            else:
-                b_dot_d, b_sq, d_sq, limit_sq = (x[:, 0] for x in rng)
-                disc = b_dot_d * b_dot_d - d_sq * (b_sq - limit_sq)
-                tm = (-b_dot_d + torch.sqrt(torch.clamp(disc, min=0.0))) / d_sq
-            if act is not None:
-                tm = torch.where(act, tm, -1.0)
-            t_maxes.append(tm)
         multi = (cuda_bvh.occluded_triangles_flat2_multi
                  if _walk_variant(scene) == "flat2"
                  else cuda_bvh.occluded_triangles_flat_multi)
         hits = list(multi(o, dirs, t_maxes, scene))
     elif scene.num_real_triangles != 0:
-        for i, (d, rng, act) in enumerate(zip(dirs, ranges, actives)):
+        for i, (d, md, act) in enumerate(zip(dirs, max_dists, actives)):
             t_prev = torch.full((r,), -1.0, device=o.device)
             if act is not None:
                 t_prev = torch.where(act, t_prev, float("inf"))
             tri = _closest_hit_tris_dispatch(o, d, t_prev, scene)
-            hits[i] = tri.valid & in_range(tri.t[:, None], rng)[:, 0]
+            hits[i] = tri.valid
+            if md is not None:
+                bvec = o - surf_pos
+                t = tri.t
+                dist_sq = (t * t * _dot(d, d) + 2.0 * t * _dot(bvec, d)
+                           + _dot(bvec, bvec))
+                hits[i] = hits[i] & (dist_sq <= md * md)
 
-    for i, (d, rng, act) in enumerate(zip(dirs, ranges, actives)):
-        if scene.num_real_spheres != 0:
-            for rs in _ray_chunks(r):
-                has, t1, t2 = _sphere_roots(o[rs], d[rs], scene)
-                v1 = has & (t1 >= 0.0) & in_range(t1, rng, rs)
-                v2 = has & (t2 >= 0.0) & in_range(t2, rng, rs)
-                hits[i][rs] |= (v1 | v2).any(dim=1)
-        if act is not None:
-            hits[i] = hits[i] & act
-    return hits
+    if scene.num_real_spheres != 0:
+        from path_tracer_torch.ops.cuda_spheres import occluded_spheres_cuda
+
+        sph = occluded_spheres_cuda(o, dirs, t_maxes, scene)
+        hits = [h | s for h, s in zip(hits, sph)]
+    return [h if act is None else h & act for h, act in zip(hits, actives)]

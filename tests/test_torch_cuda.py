@@ -359,3 +359,119 @@ def test_trans_walk_kernel_equals_plain(cuda, showcase_tex48, steps_cap):
     _assert_same(got, want)
     assert (got.trans < 1.0).float().mean() > 0.02
     assert bool((got.trans[~walking0] == 1.0).all())
+
+
+def _sphere_shadow_sets(sc, seed, r, device):
+    """Origins among the spheres (half 1e-5 off a sphere's surface) and
+    two sets toward random points: t_max infinite, and the distance to
+    the point with every 3rd lane dead (t_max = -1)."""
+    n = sc.num_real_spheres
+    c = sc.sph_center[:n].cpu().numpy()
+    rad = sc.sph_radius[:n].cpu().numpy()
+    lo, hi = (c - rad[:, None]).min(0), (c + rad[:, None]).max(0)
+    g = np.random.default_rng(seed)
+    o = g.uniform(lo, hi, (r, 3))
+    k = g.integers(0, n, r // 2)
+    nrm = g.normal(size=(r // 2, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    o[: r // 2] = c[k] + (rad[k, None] + 1e-5) * nrm
+    to = g.uniform(lo, hi, (r, 3)) - o
+    dist = np.linalg.norm(to, axis=1)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)
+    fin = t(dist)
+    fin[::3] = -1.0
+    return t(o), [t(to / dist[:, None])] * 2, [
+        torch.full((r,), float("inf"), device=device), fin]
+
+
+@pytest.mark.parametrize("name", ["spheres", "grid70"])
+def test_sphere_any_hit_kernels_equal_plain(cuda, name):
+    """The dense any-hit (25 spheres, and the 4,900-sphere grid forced
+    dense) and the any-hit walk (the grid) against their plain versions,
+    exactly, one launch for both sets; dead lanes are not occluded."""
+    import dataclasses
+
+    from path_tracer_torch.ops import cuda_spheres
+    from path_tracer_torch.scene import load_scene
+    from path_tracer_torch.scene.procedural import sphere_grid_device_scene
+
+    if name == "spheres":
+        scenes = [load_scene(SCENES / "spheres" / "scene.isf", cuda)]
+    else:
+        grid = sphere_grid_device_scene(70, cuda)
+        scenes = [grid, dataclasses.replace(grid, sph_use_blocks=False)]
+    for sc in scenes:
+        o, ds, tms = _sphere_shadow_sets(sc, 15, 5003, cuda)
+        walk = sc.sph_use_blocks
+        before = (cuda_spheres.occluded_launches,
+                  cuda_spheres.sph_occ_walk_launches)
+        got = cuda_spheres.occluded_spheres_cuda(o, ds, tms, sc)
+        assert (cuda_spheres.occluded_launches,
+                cuda_spheres.sph_occ_walk_launches) == (
+                    before[0] + (not walk), before[1] + walk)
+        assert torch.equal(got, cuda_spheres.occluded_spheres_plain(
+            o, ds, tms, sc))
+        assert not got[1][::3].any()
+        assert 0.05 < got[1].float().mean() < 0.95
+
+
+def _fused_lanes(sc, seed, r, device):
+    """The fused kernel's arguments for r lanes around the foliage toward
+    the scene's lights: t_max +inf or the point light's distance (every
+    9th lane dead), walk windows pd closed on 10% of the lanes, random
+    original uvs and sphere flags."""
+    o, _, g = _foliage_rays(sc, seed, r, device)
+    ds, tms, pds, is_pt = [], [], [], []
+    for k in range(sc.num_dir_lights):
+        ds.append((-sc.dir_dir[k]).expand(r, 3).contiguous())
+        tms.append(torch.full((r,), float("inf"), device=device))
+        is_pt.append(False)
+    for k in range(sc.num_point_lights):
+        to = sc.point_pos[k] - o
+        dist = to.norm(dim=1)
+        ds.append((to / dist[:, None]).contiguous())
+        tms.append(dist)
+        is_pt.append(True)
+    t = lambda x, dt=np.float32: torch.from_numpy(np.asarray(x, dt)).to(
+        device)
+    pds = [torch.where(t(g.uniform(size=r) < 0.1, bool), -1.0, tm)
+           for tm in tms]
+    tms = [tm.clone() for tm in tms]
+    for tm in tms:
+        tm[::9] = -1.0
+    return (o, ds, tms, pds, is_pt, o.clone(), t(g.uniform(-1.0, 2.0, (r, 2))),
+            t(g.uniform(size=r) < 0.2, bool))
+
+
+@pytest.mark.parametrize("steps_cap", [8, 1])
+def test_fused_shadow_kernel_equals_plain_and_two_launches(
+        cuda, showcase_tex48, steps_cap):
+    """The fused kernel against its plain version and against
+    flat_occluded + trans_walk launched apart, on every lane."""
+    from path_tracer_torch.ops import cuda_bvh, cuda_shadow, cuda_trwalk
+    from path_tracer_torch.scene.device_scene import opaque_view
+
+    sc = showcase_tex48
+    r = 2048
+    o, ds, tms, pds, is_pt, sp, ouv, osimple = _fused_lanes(sc, 16, r, cuda)
+    before = cuda_shadow.launches
+    got = cuda_shadow.fused_shadow(sc, o, ds, tms, pds, is_pt, sp, ouv,
+                                   osimple, steps_cap)
+    assert cuda_shadow.launches == before + 1
+    want = cuda_shadow.fused_shadow_plain(sc, o, ds, tms, pds, is_pt, sp, ouv,
+                                          osimple, steps_cap)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    occ = cuda_bvh.occluded_triangles_flat_multi(o, ds, tms, opaque_view(sc))
+    n_l = len(ds)
+    pd3 = torch.where(occ, -1.0, torch.stack(pds)).reshape(-1)
+    is_pt3 = torch.cat([torch.full((r,), pt, device=cuda) for pt in is_pt])
+    w = cuda_trwalk.trans_walk(sc, o.repeat(n_l, 1), torch.cat(ds), pd3,
+                               is_pt3, sp.repeat(n_l, 1), ouv.repeat(n_l, 1),
+                               osimple.repeat(n_l), torch.ones_like(is_pt3),
+                               steps_cap)
+    assert torch.equal(got[0], torch.where(occ, 0.0, w.trans.view(n_l, r)))
+    assert torch.equal(got[1], w.t_prev.view(n_l, r))
+    assert torch.equal(got[2], w.still.view(n_l, r))
+    assert (got[0] == 0.0).float().mean() > 0.02
+    assert ((got[0] > 0.0) & (got[0] < 1.0)).any()

@@ -138,10 +138,21 @@ def _fake_tr_scene(mode):
             tr_textured=True)
 
 
+def _fake_fused_scene(mode):
+    """The fused shadow kernel's tables (flat and walk) as CUDA-device
+    fakes, with an opaque partition of 128 block columns."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(**vars(_fake_flat_scene(mode)),
+                           **vars(_fake_tr_scene(mode)), sl_cols_opaque=128,
+                           sl_n_blocks_opaque=1)
+
+
 def _launch_counts():
     from path_tracer_torch.ops import (
         cuda_bvh,
         cuda_intersect,
+        cuda_shadow,
         cuda_spheres,
         cuda_trwalk,
     )
@@ -150,13 +161,15 @@ def _launch_counts():
             cuda_spheres.sph_walk_launches, cuda_bvh.closest_hit_launches,
             cuda_bvh.occluded_launches, cuda_bvh.flat2_closest_hit_launches,
             cuda_bvh.flat2_occluded_launches, cuda_trwalk.alpha_launches,
-            cuda_trwalk.trans_launches)
+            cuda_trwalk.trans_launches, cuda_spheres.occluded_launches,
+            cuda_spheres.sph_occ_walk_launches, cuda_shadow.launches)
 
 
 @pytest.mark.parametrize("kernel", ["triangles", "spheres", "flat",
                                     "flat_spheres", "flat_occluded",
                                     "alpha_walk", "trans_walk", "flat2",
-                                    "flat2_occluded", "sph_walk"])
+                                    "flat2_occluded", "sph_walk", "sph_occ",
+                                    "sph_occ_walk", "fused_shadow"])
 def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
     """Handed CUDA tensors where the kernel cannot be built or launched,
     a wrapper raises; it never returns the plain version's result."""
@@ -166,6 +179,7 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
     from path_tracer_torch.ops import (
         cuda_bvh,
         cuda_intersect,
+        cuda_shadow,
         cuda_spheres,
         cuda_trwalk,
         intersect,
@@ -189,10 +203,14 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
                  "occluded_triangles_flat2_plain",
                  "occluded_triangles_flat2_multi_plain"):
         monkeypatch.setattr(cuda_bvh, name, _plain_must_not_run)
-    for name in ("closest_hit_spheres_walk_plain", "_sph_walk_plain"):
+    for name in ("closest_hit_spheres_walk_plain", "_sph_walk_plain",
+                 "occluded_spheres_plain", "_occluded_dense_plain",
+                 "_occluded_walk_plain"):
         monkeypatch.setattr(cuda_spheres, name, _plain_must_not_run)
     for name in ("alpha_walk_plain", "trans_walk_plain"):
         monkeypatch.setattr(cuda_trwalk, name, _plain_must_not_run)
+    monkeypatch.setattr(cuda_shadow, "fused_shadow_plain",
+                        _plain_must_not_run)
     rows = 9 if kernel == "triangles" else 4
     mode, o, d, tp, table = _fake_cuda_operands(300, rows)
     scene = SimpleNamespace(tri_packed_t=table, sph_packed_t=table)
@@ -211,11 +229,22 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
         "flat2_occluded": lambda o, d, tp, sc: (
             cuda_bvh.occluded_triangles_flat2_multi(o, [d], [tp], sc)),
         "sph_walk": cuda_spheres.closest_hit_spheres_cuda,
+        "sph_occ": lambda o, d, tp, sc: cuda_spheres.occluded_spheres_cuda(
+            o, [d], [tp], sc),
+        "sph_occ_walk": lambda o, d, tp, sc: (
+            cuda_spheres.occluded_spheres_cuda(o, [d], [tp], sc)),
+        "fused_shadow": lambda o, d, tp, sc: cuda_shadow.fused_shadow(
+            sc, o, [d], [tp], [tp], [True], o, o.narrow(1, 0, 2), tp > 0, 2),
     }[kernel]
     if kernel.startswith("flat"):
         scene = _fake_flat_scene(mode)
-    elif kernel == "sph_walk":
+    elif kernel in ("sph_walk", "sph_occ_walk"):
         scene = _fake_sph_scene(mode)
+    elif kernel == "sph_occ":
+        scene = SimpleNamespace(sph_packed_t=table, num_real_spheres=200,
+                                sph_use_blocks=False)
+    elif kernel == "fused_shadow":
+        scene = _fake_fused_scene(mode)
     elif kernel.endswith("walk"):
         scene = _fake_tr_scene(mode)
 
@@ -381,3 +410,52 @@ def test_walk_launchers_check_operands():
     for args in bad_trans:
         with mode, pytest.raises(ValueError):
             native.launch_trans_walk(*args, sc, 2)
+
+
+def test_any_hit_launchers_check_operands():
+    """The sphere any-hit and fused shadow launchers raise on a wrong set,
+    table or lane layout before any launch."""
+    from path_tracer_torch import native
+
+    mode, o, _, _, table = _fake_cuda_operands(64, 4)
+    sph = _fake_sph_scene(mode)
+    sc = _fake_fused_scene(mode)
+    flat = (sc.sl_blkflat, sc.sl_blkid, sc.sl_bw_t)
+    with mode:
+        cuda = dict(device="cuda")
+        ds = torch.empty((2, 64, 3), **cuda)
+        tms = torch.empty((2, 64), **cuda)
+        aux = torch.empty((6, 64), **cuda)
+        bad_sets = [
+            (o, torch.empty((2, 64, 4), **cuda), tms),
+            (o, ds, torch.empty((3, 64), **cuda)),
+            (o, ds.transpose(0, 1), tms),
+            (o, torch.empty((2, 32, 3), **cuda), tms),  # rays off origins'
+        ]
+        bad_fused = [
+            (o, ds, tms, torch.empty((2, 63), **cuda), aux, (True, False)),
+            (o, ds, tms, tms, torch.empty((8, 64), **cuda), (True, False)),
+            (o, ds, tms, tms, aux, (True,)),  # one light type for 2 sets
+        ]
+        bad_sph = [torch.empty((3, 256), **cuda),
+                   torch.empty((4, 256), dtype=torch.float64, **cuda)]
+    for args in bad_sets:
+        with mode, pytest.raises(ValueError):
+            native.launch_sph_occluded(*args, table, 200)
+        with mode, pytest.raises(ValueError):
+            native.launch_sph_occ_walk(*args, sph.sph_blk, sph.sph_blkid,
+                                       sph.sph_sorted_t)
+        with mode, pytest.raises(ValueError):
+            native.launch_fused_shadow(*args, tms, aux, (True, False), *flat,
+                                       256, sc, 2)
+    for bad in bad_sph:
+        with mode, pytest.raises(ValueError):
+            native.launch_sph_occluded(o, ds, tms, bad, 200)
+    with mode, pytest.raises(ValueError):  # more spheres than columns
+        native.launch_sph_occluded(o, ds, tms, table, 257)
+    with mode, pytest.raises(ValueError):  # not whole blocks of 128
+        native.launch_sph_occ_walk(o, ds, tms, sph.sph_blk, sph.sph_blkid,
+                                   table.narrow(1, 0, 200))
+    for args in bad_fused:
+        with mode, pytest.raises(ValueError):
+            native.launch_fused_shadow(*args, *flat, 256, sc, 2)
