@@ -73,7 +73,20 @@ any error:
 5. the scalar-oracle gate: eleven cases against ``tests/goldens/oracle``
    at each golden's own size, and five of them again with the BVH forced
    (the flat kernels; ``alpha_transparency`` then partitions and takes the
-   walk kernels), with the CPU gate's statistics and tolerances.
+   walk kernels), with the CPU gate's statistics and tolerances;
+6. the differentiable render step (training mode) on the textured
+   showcase: (6a) the live variants of the alpha walk, the transmittance
+   walk and the fused shadow kernel on the main path's lanes after
+   tests/test_trwalk.py's training updates, each against its plain live
+   version on every lane and timed beside its forward variant, and equal
+   to the forward variant on untouched tables; (6b) the bench's backward
+   step: d mean(img^2) / d mat_albedo_factor over the 2^18-lane 1080p
+   tile, 5 bounces, 1 spp, timed (fwd+bwd rays/s, peak device memory,
+   launches: the live walk kernels alone), its gradient against a central
+   difference; (6c) five ``make_train_step`` steps over every parameter
+   field toward a target of another seed, the albedo error falling, then
+   one step through the fused route (the live fused kernel) against the
+   two launches.
 
 The last lines are a JSON object of kernel numbers, the ``nvidia-smi`` card
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -157,6 +170,17 @@ WAVE = 1 << 18  # lanes of one wavefront of the main path (Profile.tile_rays)
 # the range boundary only.
 MAX_RANGE_FLIPS = 1e-4
 FUSED_SPP = 2  # samples of each 1080p render of the fused-shadow A/B (4f)
+# The training phases (6b, 6c): the central difference's step on the
+# albedo scale and its bound (tests/tools/tpu_kernel_check.py's chip gate),
+# the target render's seed (examples/inverse_rendering.py) and the SGD
+# steps taken.
+FD_EPS, MAX_FD_REL = 5e-3, 0.05
+TARGET_SEED = 1234
+TRAIN_STEPS = 5
+# 6c's learning rate over the largest entry of a first gradient: no field
+# moves by more than this a step (camera rotation entries included, whose
+# larger steps move the image by whole pixels).
+LR_SCALE = 1e-3
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): float32
 # outside the tensor cores, and HBM bandwidth. A kernel's bound is the
 # larger of its operations over the first and its bytes over the second.
@@ -1381,6 +1405,38 @@ def phase_sphere_any_hit(device, sc, label: str):
                                                  plain_ms) + work
 
 
+def fused_bound(tex, sh, walk_tables) -> dict:
+    """The fused shadow kernel's bound on ``first_bounce_shadows`` lanes
+    ``sh``: the flat any-hit's on these lanes plus the transmittance
+    walk's on the lanes it leaves walking; ``walk_tables`` = (rows,
+    plane) the walk reads (the forward or the live ones)."""
+    import torch
+
+    from path_tracer_torch.ops import cuda_bvh
+    from path_tracer_torch.scene.device_scene import opaque_view
+
+    ov = opaque_view(tex)
+    n_l, n = len(sh["dirs"]), sh["s_o"].shape[0]
+    occ = cuda_bvh.occluded_triangles_flat_multi(sh["s_o"], sh["dirs"],
+                                                 sh["t_maxes"], ov)
+    slabs = tests = 0
+    for k, (dd, tm) in enumerate(zip(sh["dirs"], sh["t_maxes"])):
+        a, b = flat_work(sh["s_o"], dd, ov, None, tm, occ[k])
+        slabs, tests = slabs + a, tests + b
+    tp_real = int((tex.tr_bw[0:3].abs().sum(0) > 0).sum())
+    walkers = int(((torch.stack(sh["pds"]) >= 0.0) & ~occ).sum())
+    tables = (tex.tr_bw, *walk_tables, tex.tr_lut, tex.tr_page_table)
+    b10 = bound(slabs * OPS_SLAB + tests * OPS_BW,
+                nbytes(sh["s_o"], *sh["dirs"], *sh["t_maxes"], ov.sl_blkflat,
+                       ov.sl_blkid, tex.sl_bw_t) + 4 * n_l * n)
+    b14 = bound(walkers * tp_real * OPS_BW,
+                nbytes(*sh["pds"], sh["surf_pos"], sh["orig_uv"],
+                       sh["orig_simple"], *tables) + 3 * 4 * n_l * n)
+    work = (b10[0] + b14[0], b10[1] if b10[0] >= b14[0] else b14[1])
+    return dict(work=work, b10=b10, b14=b14, slabs=slabs, tests=tests,
+                walkers=walkers, tp_real=tp_real)
+
+
 def phase_fused_shadow_kernel(device, tex):
     """3g: the fused shadow kernel on the textured showcase's first-bounce
     shadow lanes (3 lights x the middle 2^18 camera lanes, a tenth killed,
@@ -1427,25 +1483,10 @@ def phase_fused_shadow_kernel(device, tex):
     off_apart = sum(int((a != b).sum()) for a, b in zip(got, apart))
     ms, two_ms = cuda_ms(run, 20), cuda_ms(two_launches, 20)
     ms2, two_ms2 = cuda_ms(run, 20), cuda_ms(two_launches, 20)
-    # Bound: the flat any-hit's on these lanes plus the transmittance
-    # walk's on the lanes it leaves walking.
-    occ = cuda_bvh.occluded_triangles_flat_multi(sh["s_o"], sh["dirs"],
-                                                 sh["t_maxes"], ov)
-    slabs = tests = 0
-    for k, (dd, tm) in enumerate(zip(sh["dirs"], sh["t_maxes"])):
-        a, b = flat_work(sh["s_o"], dd, ov, None, tm, occ[k])
-        slabs, tests = slabs + a, tests + b
-    tp_real = int((tex.tr_bw[0:3].abs().sum(0) > 0).sum())
-    walkers = int(((pds >= 0.0) & ~occ).sum())
-    tables = (tex.tr_bw, tex.tr_rows, tex.tr_tex8, tex.tr_lut,
-              tex.tr_page_table)
-    b10 = bound(slabs * OPS_SLAB + tests * OPS_BW,
-                nbytes(sh["s_o"], *sh["dirs"], *sh["t_maxes"], ov.sl_blkflat,
-                       ov.sl_blkid, tex.sl_bw_t) + 4 * n_l * n)
-    b14 = bound(walkers * tp_real * OPS_BW,
-                nbytes(*sh["pds"], sh["surf_pos"], sh["orig_uv"],
-                       sh["orig_simple"], *tables) + 3 * 4 * n_l * n)
-    work = (b10[0] + b14[0], b10[1] if b10[0] >= b14[0] else b14[1])
+    fb = fused_bound(tex, sh, (tex.tr_rows, tex.tr_tex8))
+    work, b10, b14 = fb["work"], fb["b10"], fb["b14"]
+    slabs, tests, walkers = fb["slabs"], fb["tests"], fb["walkers"]
+    tp_real = fb["tp_real"]
     log(f"  fused shadow kernel, {n_l} lights x {n} first-bounce shadow "
         f"lanes (any-hit live {float((torch.stack(sh['t_maxes']) >= 0).float().mean()):.3f}, "
         f"walking after it {walkers}): lanes off the plain version "
@@ -1607,7 +1648,10 @@ def launch_counts() -> dict:
             "trans_walk": cuda_trwalk.trans_launches,
             "sph_occluded": cuda_spheres.occluded_launches,
             "sph_occ_walk": cuda_spheres.sph_occ_walk_launches,
-            "fused_shadow": cuda_shadow.launches}
+            "fused_shadow": cuda_shadow.launches,
+            "alpha_walk_live": cuda_trwalk.alpha_live_launches,
+            "trans_walk_live": cuda_trwalk.trans_live_launches,
+            "fused_shadow_live": cuda_shadow.live_launches}
 
 
 def reset_launch_counts() -> None:
@@ -1622,10 +1666,11 @@ def reset_launch_counts() -> None:
     cuda_intersect.launches = cuda_spheres.launches = 0
     cuda_spheres.sph_walk_launches = 0
     cuda_spheres.occluded_launches = cuda_spheres.sph_occ_walk_launches = 0
-    cuda_shadow.launches = 0
+    cuda_shadow.launches = cuda_shadow.live_launches = 0
     cuda_bvh.closest_hit_launches = cuda_bvh.occluded_launches = 0
     cuda_bvh.flat2_closest_hit_launches = cuda_bvh.flat2_occluded_launches = 0
     cuda_trwalk.alpha_launches = cuda_trwalk.trans_launches = 0
+    cuda_trwalk.alpha_live_launches = cuda_trwalk.trans_live_launches = 0
 
 
 def phase_showcase(device, showcase):
@@ -2042,6 +2087,300 @@ def phase_oracle(device):
         raise AssertionError(f"oracle gate failed: {failed}")
 
 
+def training_updates(sc):
+    """The scene after tests/test_trwalk.py's training updates: opacity
+    factors x 0.6, the first opacity page moved by +0.17, then -0.09,
+    clipped to [0.05, 0.95]."""
+    import dataclasses
+
+    off, w, h, _ = sc.tr_pages[0]
+    td = sc.tex_data.clone()
+    for step in (0.17, -0.09):
+        td[off:off + w * h] = (td[off:off + w * h] + step).clamp(0.05, 0.95)
+    return dataclasses.replace(sc, tex_data=td,
+                               mat_opacity_factor=sc.mat_opacity_factor * 0.6)
+
+
+def lanes_off(got, want) -> int:
+    """Lanes on which two walk results (tuples of [R] or [L,R] tensors)
+    differ in any field."""
+    import torch
+
+    diff = torch.zeros_like(got[0], dtype=torch.bool)
+    for a, b in zip(got, want):
+        same = ((a == b) | (torch.isnan(a) & torch.isnan(b))
+                if a.is_floating_point() else a == b)
+        diff |= ~same
+    return int(diff.sum())
+
+
+def max_err(got, want) -> float:
+    return max(float((a.float() - b.float()).abs().nan_to_num(0.0).max())
+               for a, b in zip(got, want))
+
+
+def phase_live_kernels(device, tex):
+    """6a: the live variants (training mode) of the alpha walk, the
+    transmittance walk and the fused shadow kernel on the textured
+    showcase's lanes of the main path's middle wavefront (the 2^18 alpha
+    lanes of 3c's timing, the 3 x 2^18 first-bounce shadow lanes of 3c and
+    3f), on the tables after tests/test_trwalk.py's training updates:
+    each against its plain live version (0 lanes may differ) and timed
+    beside its forward variant on the same lanes; on the untouched tables
+    each equals its forward variant on every lane. Returns {name: (max
+    abs err, (ms, plain ms, bound ms, bound by))}."""
+    import torch
+
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import cuda_shadow, cuda_trwalk, trwalk
+
+    n, cap = WAVE, trwalk.TRWALK_K
+    upd = training_updates(tex)
+    live, live_same = trwalk.live_tables(upd), trwalk.live_tables(tex)
+    tp_real = int((tex.tr_bw[0:3].abs().sum(0) > 0).sum())
+    log(f"phase 6a: live walk kernels, textured showcase after the training "
+        f"updates (opacity factors x 0.6, page 0 +0.17 -0.09), f32 plane "
+        f"{tuple(live.plane.shape)} ({nbytes(live.plane)} bytes, the u8 "
+        f"plane {nbytes(tex.tr_tex8)})")
+    out = {}
+
+    def report(name, got, want, same_live, same_fwd, moved, run, fwd,
+               plain_ms, b, note):
+        off, off_same = lanes_off(got, want), lanes_off(same_live, same_fwd)
+        ms, fwd_ms = cuda_ms(run, 20), cuda_ms(fwd, 20)
+        ms2, fwd_ms2 = cuda_ms(run, 20), cuda_ms(fwd, 20)
+        log(f"  {name}, {note}: lanes off the plain live version {off}; "
+            f"untouched tables, lanes off the forward kernel {off_same}; "
+            f"lanes the updates moved against the forward kernel {moved}; "
+            f"live kernel {ms:.4f} ms, {ms2:.4f} ms (repeat); forward "
+            f"kernel {fwd_ms:.4f} ms, {fwd_ms2:.4f} ms; plain live "
+            f"{plain_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]})")
+        if off or off_same or not moved:
+            raise AssertionError(f"{name}: live kernel disagrees")
+        out[name] = (max_err(got, want), (min(ms, ms2), plain_ms) + b)
+
+    o, d, t_op = alpha_lanes(tex, n, device)
+    rnd = walk_rnd(n, cap, device)
+    alpha = lambda sc, lv=None: cuda_trwalk.alpha_walk(sc, o, d, t_op, rnd,
+                                                       cap, live=lv)
+    plain_ms, want = timed_once(
+        lambda: trwalk.alpha_walk_plain(upd, o, d, t_op, rnd, cap, live))
+    got = alpha(upd, live)
+    n_live = int((t_op >= 0).sum())
+    report("alpha_walk_live", got, want, alpha(tex, live_same), alpha(tex),
+           lanes_off(got, alpha(upd)), lambda: alpha(upd, live),
+           lambda: alpha(upd), plain_ms,
+           bound(n_live * tp_real * OPS_BW,
+                 nbytes(o, d, t_op, rnd, tex.tr_bw, *live, tex.tr_lut,
+                        tex.tr_page_table) + n * (8 * 4 + 4)),
+           f"{n} camera lanes ({n_live} live) x {tp_real} columns")
+
+    sh = shadow_lanes(tex, n, device)
+    o3, d3, pd3, is_pt, sp3, ouv3, os3, w0 = sh
+    row = lambda x: x.to(torch.float32).unsqueeze(0)
+    aux = torch.cat([row(torch.where(w0, pd3, -1.0)), row(is_pt), sp3.T,
+                     ouv3.T, row(os3)]).contiguous()
+    plain_ms, want = timed_once(
+        lambda: trwalk.trans_walk_plain(upd, *sh, cap, live))
+    got = cuda_trwalk.trans_walk(upd, *sh, cap, live=live)
+    walkers = int(w0.sum())
+    report("trans_walk_live", got, want,
+           cuda_trwalk.trans_walk(tex, *sh, cap, live=live_same),
+           cuda_trwalk.trans_walk(tex, *sh, cap),
+           lanes_off(got, cuda_trwalk.trans_walk(upd, *sh, cap)),
+           lambda: native.launch_trans_walk(o3, d3, aux, upd, cap, live),
+           lambda: native.launch_trans_walk(o3, d3, aux, upd, cap),
+           plain_ms,
+           bound(walkers * tp_real * OPS_BW,
+                 nbytes(o3, d3, aux, tex.tr_bw, *live, tex.tr_lut,
+                        tex.tr_page_table) + 3 * 4 * o3.shape[0]),
+           f"{o3.shape[0]} shadow lanes ({walkers} live) x {tp_real} "
+           "columns")
+
+    rng = np.random.default_rng(20261022)
+    fs = first_bounce_shadows(tex, n, device, rng)
+    args = (fs["s_o"], fs["dirs"], fs["t_maxes"], fs["pds"], fs["is_pt"],
+            fs["surf_pos"], fs["orig_uv"], fs["orig_simple"], cap)
+    fused = lambda sc, lv=None: cuda_shadow.fused_shadow(sc, *args, live=lv)
+    plain_ms, want = timed_once(
+        lambda: cuda_shadow.fused_shadow_plain(upd, *args, live=live))
+    got = fused(upd, live)
+    fb = fused_bound(upd, fs, live)
+    report("fused_shadow_live", got, want, fused(tex, live_same), fused(tex),
+           lanes_off(got, fused(upd)), lambda: fused(upd, live),
+           lambda: fused(upd), plain_ms, fb["work"],
+           f"{len(fs['dirs'])} lights x {n} first-bounce shadow lanes (a "
+           f"tenth killed; walking after the any-hit {fb['walkers']}; bound "
+           f"any-hit {fb['b10'][0]:.4f} ms + walk {fb['b14'][0]:.4f} ms)")
+    return out
+
+
+def backward_tile(device):
+    """The bench's backward tile: 1080p pixel ids of Morton tile 4
+    (lanes 4r to 5r, r = 2^18), as bench.py's _backward_rays_per_s."""
+    import torch
+
+    from path_tracer_torch.ops.sorting import morton_pixel_order
+
+    return torch.from_numpy(morton_pixel_order(1920, 1080)[
+        4 * WAVE:5 * WAVE].copy()).to(device)
+
+
+def phase_backward(device, tex):
+    """6b: the bench's backward step (bench.py:344-380) on the port: the
+    textured showcase, the 2^18-lane 1080p tile, 5 bounces, 1 spp,
+    differentiable; loss mean(img^2), its gradient with respect to
+    mat_albedo_factor. One warm-up, then a timed step ending in
+    torch.cuda.synchronize(): fwd+bwd rays/s = r (bounces + 1) / dt, peak
+    device memory, and the launch counts of the timed step (the live walk
+    kernels run, the forward ones do not). Fails unless the gradient is
+    finite and non-zero and within MAX_FD_REL of a central difference of
+    a scalar factor f on the albedo table (d loss / d f at f = 1 is
+    sum(grad * albedo); tests/tools/tpu_kernel_check.py:249-283). Returns
+    the timed step's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from path_tracer_torch.models.integrator import (
+        IntegratorSpec,
+        render_wavefront,
+    )
+
+    w, h, bounces = 1920, 1080, 5
+    ids = backward_tile(device)
+    spec = IntegratorSpec(bounces=bounces, differentiable=True)
+    albedo = tex.mat_albedo_factor
+
+    def step():
+        leaf = albedo.detach().clone().requires_grad_(True)
+        s = dataclasses.replace(tex, mat_albedo_factor=leaf)
+        loss = (render_wavefront(s, ids, w, h, 1, spec) ** 2).mean()
+        return loss.detach(), torch.autograd.grad(loss, [leaf])[0]
+
+    log(f"phase 6b: backward step, textured showcase, {ids.numel()} lanes of "
+        f"the 1080p Morton tile 4, {bounces} bounces, 1 spp, d mean(img^2) / "
+        "d mat_albedo_factor")
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    loss, grad = step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+
+    def loss_at(f):
+        with torch.no_grad():
+            s = dataclasses.replace(tex, mat_albedo_factor=albedo * f)
+            return float((render_wavefront(s, ids, w, h, 1, spec) ** 2)
+                         .mean())
+
+    fd = (loss_at(1.0 + FD_EPS) - loss_at(1.0 - FD_EPS)) / (2 * FD_EPS)
+    g_f = float((grad * albedo).sum())
+    rel = abs(g_f - fd) / max(abs(fd), 1e-30)
+    rays = ids.numel() * (bounces + 1)
+    log(f"  {smi()}: warm-up {warm:.3f} s; timed step {dt:.3f} s, fwd+bwd "
+        f"{rays / dt:.1f} rays/s ({rays / dt / 1e6:.3f} Mray/s); peak device "
+        f"memory {peak} bytes ({peak / 2**30:.3f} GiB); loss {float(loss):.6e};"
+        f" launches {counts}; d loss / d f = sum(grad * albedo) {g_f:.6e}, "
+        f"central difference (eps {FD_EPS}) {fd:.6e}, relative {rel:.4f} "
+        f"(<= {MAX_FD_REL})")
+    if not (torch.isfinite(grad).all() and grad.abs().max() > 0):
+        raise AssertionError("backward step: gradient not finite or zero")
+    if not (rel <= MAX_FD_REL and abs(fd) > 1e-12):
+        raise AssertionError("backward step: gradient off the difference")
+    if not (counts["alpha_walk_live"] and counts["trans_walk_live"]) \
+            or counts["alpha_walk"] or counts["trans_walk"]:
+        raise AssertionError(f"backward step did not take the live walk "
+                             f"kernels alone: {counts}")
+    return counts
+
+
+def phase_train_steps(device, tex):
+    """6c: make_train_step on the backward tile, TRAIN_STEPS SGD steps over
+    every field of PARAM_FIELDS, the albedo table started at albedo * 0.4 +
+    0.2 (clipped), against a forward render (differentiable=False) of the
+    true scene at the RNG seed TARGET_SEED (examples/inverse_rendering.py's
+    set-up). The learning rate is LR_SCALE over the largest entry of a
+    first gradient, so no field moves by more than LR_SCALE a step; every
+    step renders sample 1. Fails unless every loss, gradient and parameter is
+    finite and the mean albedo error over the models the tile shows falls
+    from the first step to the last. Then one step under PT_FUSED_SHADOW=1
+    (its launch counts returned): the live fused kernel runs, and the loss
+    equals the two-launch route's to 1e-5 relative."""
+    import os
+
+    import torch
+
+    from path_tracer_torch.models.integrator import (
+        IntegratorSpec,
+        render_wavefront,
+    )
+    from path_tracer_torch.parallel import get_params, make_train_step
+    from path_tracer_torch.parallel.train import value_and_grad
+
+    w, h, bounces = 1920, 1080, 5
+    ids = backward_tile(device)
+    spec = IntegratorSpec(bounces=bounces, differentiable=True)
+    with torch.no_grad():
+        target = render_wavefront(tex, ids, w, h, 1, IntegratorSpec(
+            bounces=bounces, seed=TARGET_SEED))
+    true = tex.mat_albedo_factor
+    params = get_params(tex)
+    params["mat_albedo_factor"] = (true * 0.4 + 0.2).clamp(0.0, 1.0)
+    loss0, g0 = value_and_grad(params, tex, ids, target, 1, w, h, spec)
+    bad = [k for k, g in g0.items() if not torch.isfinite(g).all()]
+    gmax = max(float(g.abs().max()) for g in g0.values())
+    lr = LR_SCALE / gmax
+    seen = g0["mat_albedo_factor"].abs().sum(1) > 0
+    err = lambda p: float((p["mat_albedo_factor"] - true)[seen].abs().mean())
+    log(f"phase 6c: {TRAIN_STEPS} make_train_step steps over "
+        f"{len(params)} parameter fields, lr {lr:.4e} ({LR_SCALE} / largest "
+        f"first gradient entry {gmax:.4e}), {int(seen.sum())} of "
+        f"{seen.numel()} "
+        f"albedo rows seen; first loss {float(loss0):.6e}; non-finite "
+        f"gradients {bad}")
+    step = make_train_step(w, h, spec, lr=lr)
+    p, losses, errs = params, [], [err(params)]
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        p, loss = step(p, tex, ids, target, 1)
+        losses.append(float(loss))
+        errs.append(err(p))
+        bad += [k for k, v in p.items() if not torch.isfinite(v).all()]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"  {TRAIN_STEPS} steps in {secs:.3f} s; losses {losses}; mean albedo "
+        f"error {errs}; non-finite {bad}")
+    # errs[0] is the start's error, errs[1] the first step's.
+    if bad or not np.isfinite(losses).all() or not errs[-1] < errs[1]:
+        raise AssertionError("train steps: non-finite, or the albedo error "
+                             "did not fall")
+    reset_launch_counts()
+    os.environ["PT_FUSED_SHADOW"] = "1"
+    try:
+        _, loss_f = step(p, tex, ids, target, 1)
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("PT_FUSED_SHADOW", None)
+    counts = launch_counts()
+    _, loss_t = step(p, tex, ids, target, 1)
+    rel = abs(float(loss_f) - float(loss_t)) / abs(float(loss_t))
+    log(f"  one step through the fused shadow route: loss {float(loss_f):.8e} "
+        f"against {float(loss_t):.8e} through the two launches (relative "
+        f"{rel:.2e} <= 1e-5); launches {counts}")
+    if rel > 1e-5 or not counts["fused_shadow_live"] \
+            or counts["fused_shadow"] or counts["trans_walk_live"]:
+        raise AssertionError("fused training step disagrees or did not take "
+                             "the live fused kernel")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2132,6 +2471,9 @@ def main() -> int:
     phase_bvh_vs_brute(device, showcase)
     phase_walks_vs_cast(device, tex)
     phase_oracle(device)
+    live_stats = phase_live_kernels(device, tex)
+    bwd_launches = phase_backward(device, tex)
+    fused_train_launches = phase_train_steps(device, tex)
 
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda",
@@ -2177,6 +2519,13 @@ def main() -> int:
               grid_launches["sph_occ_walk"], occ_walk_err, occ_walk_time),
         entry("fused_shadow", "fused_shadow.cu", "pallas_shadow.py:49",
               fused_launches["fused_shadow"], fused_err, fused_time),
+        entry("alpha_walk_live", "alpha_walk.cu", "pallas_trwalk.py:746",
+              bwd_launches["alpha_walk_live"], *live_stats["alpha_walk_live"]),
+        entry("trans_walk_live", "trans_walk.cu", "pallas_trwalk.py:778",
+              bwd_launches["trans_walk_live"], *live_stats["trans_walk_live"]),
+        entry("fused_shadow_live", "fused_shadow.cu", "pallas_shadow.py:141",
+              fused_train_launches["fused_shadow_live"],
+              *live_stats["fused_shadow_live"]),
     ]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} "
         "s")

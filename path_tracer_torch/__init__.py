@@ -11,6 +11,8 @@ counterpart:
                 the transparent walks; the CUDA kernels' wrappers live in
                 ``ops/cuda_*.py`` and their sources in ``csrc/``
 - ``models``  — the wavefront integrator and the render driver
+- ``parallel``— the differentiable render step (scene-parameter gradients,
+                one device)
 - ``utils``   — PNG reader and writers
 - ``cli``     — ``path-tracer-torch render``
 

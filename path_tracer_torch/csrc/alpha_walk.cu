@@ -2,9 +2,14 @@
 // lane.
 //
 // Replaces the TPU kernel path_tracer_tpu/ops/pallas_trwalk.py::_alpha_kernel
-// (launched by alpha_walk_kernel): the transparent half of the partitioned
-// alpha walk, whose opaque terminator t_op comes from the flat cast. Contract
-// kept (with the plain version, ops/trwalk.py alpha_walk_plain):
+// (launched by alpha_walk_kernel) in both its variants: live=False (forward
+// rendering: u8 texel codes through the LUT) and live=True (live_factor=,
+// training: the live opacity-factor row and an f32 plane of live texel
+// values, read directly; pallas_trwalk._texel). The kernel is a template on
+// the plane's texel type; the walk is the same. It is the transparent half
+// of the partitioned alpha walk, whose opaque terminator t_op comes from the
+// flat cast. Contract kept (with the plain version, ops/trwalk.py
+// alpha_walk_plain, on the same tables):
 //   - a lane is dead when t_op < 0; else its candidates have t < t_op;
 //   - step k takes the nearest candidate with t > t_prev (t_prev from -1),
 //     ties to the lowest compact column; its opacity is texel * factor where
@@ -26,7 +31,8 @@
 // registers and lifts any cap on the table and page sizes.
 //
 // Inputs:  o, d [R,3] f32; t_op [R] f32; rnd [steps_cap, R] f32; the table
-//          (trwalk_common.cuh).
+//          (trwalk_common.cuh), its plane u8 codes (live 0) or f32 values
+//          (live 1).
 // Outputs: fout [8,R] f32: t, u, v, d.n, seen, accepted, still walking,
 //          t_prev; iout [R] i32: compact column (-1 for none).
 
@@ -37,10 +43,11 @@ namespace {
 using ptt::kTrChunk;
 using ptt::kTrCta;
 
+template <class Texel>
 __global__ void __launch_bounds__(kTrCta)
 alpha_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
                   const float* __restrict__ t_op,
-                  const float* __restrict__ rnd, ptt::TrTable tb, int R,
+                  const float* __restrict__ rnd, ptt::TrTable<Texel> tb, int R,
                   int steps_cap, int textured, float* __restrict__ fout,
                   int* __restrict__ iout) {
   __shared__ float s_bw[12 * kTrChunk];
@@ -116,18 +123,29 @@ alpha_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
 
 }  // namespace
 
+// tex: [Hp, wp] u8 codes when live is 0, f32 values when live is 1.
 extern "C" int ptt_alpha_walk(const float* o, const float* d,
                               const float* t_op, const float* rnd,
                               const float* bw, const float* rows,
-                              const unsigned char* tex, const float* lut,
+                              const void* tex, const float* lut,
                               const int* pages, int R, int T, int wp,
-                              int steps_cap, int textured, float* fout,
-                              int* iout, int device, cudaStream_t stream) {
+                              int steps_cap, int textured, int live,
+                              float* fout, int* iout, int device,
+                              cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0) return 0;
-  const ptt::TrTable tb{bw, rows, tex, lut, pages, T, wp};
-  alpha_walk_kernel<<<(R + kTrCta - 1) / kTrCta, kTrCta, 0, stream>>>(
-      o, d, t_op, rnd, tb, R, steps_cap, textured, fout, iout);
+  const dim3 grid((R + kTrCta - 1) / kTrCta);
+  if (live) {
+    const ptt::TrTable<float> tb{bw, rows, static_cast<const float*>(tex),
+                                 lut, pages, T, wp};
+    alpha_walk_kernel<float><<<grid, kTrCta, 0, stream>>>(
+        o, d, t_op, rnd, tb, R, steps_cap, textured, fout, iout);
+  } else {
+    const ptt::TrTable<unsigned char> tb{
+        bw, rows, static_cast<const unsigned char*>(tex), lut, pages, T, wp};
+    alpha_walk_kernel<unsigned char><<<grid, kTrCta, 0, stream>>>(
+        o, d, t_op, rnd, tb, R, steps_cap, textured, fout, iout);
+  }
   return (int)cudaGetLastError();
 }

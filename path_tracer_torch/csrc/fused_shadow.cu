@@ -5,8 +5,12 @@
 // Replaces the TPU kernel path_tracer_tpu/ops/pallas_shadow.py::
 // _shadow_kernel (launched by _shadow_launch, entry fused_shadow), which
 // runs pallas_bvh.flat_occ_set and pallas_trwalk.trans_tile per tile and
-// light. Contract kept (with the plain version, ops/cuda_shadow.py
-// fused_shadow_plain): per lane of light li,
+// light, in both its variants: live=False (u8 texel codes through the LUT)
+// and live=True (training: the live opacity-factor row and an f32 plane of
+// live texel values in the walk phase), a template on the plane's texel
+// type as trans_walk.cu is. Contract kept (with the plain version,
+// ops/cuda_shadow.py fused_shadow_plain, on the same tables): per lane of
+// light li,
 //   - occ = the flat any-hit of flat_occluded.cu on the opaque view's block
 //     tables with the lane's t_max (a dead lane, t_max < 0, is occluded);
 //   - the transmittance walk of trans_walk.cu with pd_eff = -1 where occ,
@@ -32,7 +36,8 @@
 // Inputs:  o [R,3] f32; d [L,R,3] f32; t_max, pd [L,R] f32; aux [6,R] f32
 //          (surface point xyz, original uv, original is sphere 0/1); the
 //          opaque view's flat tables; the transparent table
-//          (trwalk_common.cuh).
+//          (trwalk_common.cuh), its plane u8 codes (live 0) or f32 values
+//          (live 1).
 // Output:  out [3L,R] f32.
 
 #include "trwalk_common.cuh"
@@ -42,13 +47,14 @@ namespace {
 using ptt::kCtaRays;
 static_assert(ptt::kTrCta == kCtaRays, "one CTA shape for both phases");
 
+template <class Texel>
 __global__ void __launch_bounds__(kCtaRays)
 fused_shadow_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ t_max,
                     const float* __restrict__ pd,
                     const float* __restrict__ aux, unsigned long long is_pt,
-                    ptt::FlatTable ft, ptt::TrTable tb, int R, int steps_cap,
-                    int textured, float* __restrict__ out) {
+                    ptt::FlatTable ft, ptt::TrTable<Texel> tb, int R,
+                    int steps_cap, int textured, float* __restrict__ out) {
   extern __shared__ float smem[];
   __shared__ float s_red[3 * (kCtaRays / 32)];
 
@@ -88,8 +94,29 @@ fused_shadow_kernel(const float* __restrict__ o, const float* __restrict__ d,
   }
 }
 
+template <class Texel>
+int launch(const float* o, const float* d, const float* t_max,
+           const float* pd, const float* aux, unsigned long long is_pt_mask,
+           const ptt::FlatTable& ft, const ptt::TrTable<Texel>& tb, int R,
+           int L, int steps_cap, int textured, float* out,
+           cudaStream_t stream) {
+  // One buffer for both phases: the any-hit's block, keys and rays, or
+  // the walk's chunk and LUT.
+  const int staged = 12 * ft.block > ptt::kTransSmemFloats
+                         ? 12 * ft.block : ptt::kTransSmemFloats;
+  size_t smem;
+  cudaError_t err = ptt::walk_smem(fused_shadow_kernel<Texel>, staged,
+                                   ft.bpad, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((R + kCtaRays - 1) / kCtaRays, L);
+  fused_shadow_kernel<Texel><<<grid, kCtaRays, smem, stream>>>(
+      o, d, t_max, pd, aux, is_pt_mask, ft, tb, R, steps_cap, textured, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// tex: [Hp, wp] u8 codes when live is 0, f32 values when live is 1.
 extern "C" int ptt_fused_shadow(const float* o, const float* d,
                                 const float* t_max, const float* pd,
                                 const float* aux,
@@ -97,25 +124,25 @@ extern "C" int ptt_fused_shadow(const float* o, const float* d,
                                 const float* blk, const int* blkid,
                                 const float* bw, int bpad, int block,
                                 int n_cols, const float* tr_bw,
-                                const float* tr_rows,
-                                const unsigned char* tex, const float* lut,
-                                const int* pages, int T, int wp, int R, int L,
-                                int steps_cap, int textured, float* out,
+                                const float* tr_rows, const void* tex,
+                                const float* lut, const int* pages, int T,
+                                int wp, int R, int L, int steps_cap,
+                                int textured, int live, float* out,
                                 int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0 || L <= 0) return 0;
-  // One buffer for both phases: the any-hit's block, keys and rays, or
-  // the walk's chunk and LUT.
-  const int staged = 12 * block > ptt::kTransSmemFloats
-                         ? 12 * block : ptt::kTransSmemFloats;
-  size_t smem;
-  err = ptt::walk_smem(fused_shadow_kernel, staged, bpad, smem);
-  if (err != cudaSuccess) return (int)err;
   const ptt::FlatTable ft{blk, blkid, bw, bpad, block, n_cols};
-  const ptt::TrTable tb{tr_bw, tr_rows, tex, lut, pages, T, wp};
-  const dim3 grid((R + kCtaRays - 1) / kCtaRays, L);
-  fused_shadow_kernel<<<grid, kCtaRays, smem, stream>>>(
-      o, d, t_max, pd, aux, is_pt_mask, ft, tb, R, steps_cap, textured, out);
-  return (int)cudaGetLastError();
+  if (live) {
+    const ptt::TrTable<float> tb{tr_bw, tr_rows,
+                                 static_cast<const float*>(tex), lut, pages,
+                                 T, wp};
+    return launch(o, d, t_max, pd, aux, is_pt_mask, ft, tb, R, L, steps_cap,
+                  textured, out, stream);
+  }
+  const ptt::TrTable<unsigned char> tb{
+      tr_bw, tr_rows, static_cast<const unsigned char*>(tex), lut, pages, T,
+      wp};
+  return launch(o, d, t_max, pd, aux, is_pt_mask, ft, tb, R, L, steps_cap,
+                textured, out, stream);
 }

@@ -2,8 +2,12 @@
 // lane of the stacked [L*R] shadow lanes (all lights of a bounce).
 //
 // Replaces the TPU kernel path_tracer_tpu/ops/pallas_trwalk.py::_trans_kernel
-// and its tile body trans_tile (launched by trans_walk_kernel). Contract kept
-// (with the plain version, ops/trwalk.py trans_walk_plain):
+// and its tile body trans_tile (launched by trans_walk_kernel), in both its
+// variants: live=False (u8 texel codes through the LUT) and live=True
+// (live_factor=: the live opacity-factor row and an f32 plane of live texel
+// values), a template on the plane's texel type (trwalk_common.cuh). Contract
+// kept (with the plain version, ops/trwalk.py trans_walk_plain, on the same
+// tables):
 //   - a lane is dead when pd < 0 (pd: distance to the light, +inf for a
 //     directional light); it reports trans 1;
 //   - in a scene with opacity textures, a directional lane walks in
@@ -31,7 +35,8 @@
 //
 // Inputs:  o, d [R,3] f32; aux [8,R] f32: pd (-1 dead), is point (0/1),
 //          surface point xyz, original uv, original is sphere (0/1); the
-//          table (trwalk_common.cuh).
+//          table (trwalk_common.cuh), its plane u8 codes (live 0) or f32
+//          values (live 1).
 // Output:  fout [3,R] f32: trans, t_prev, still walking (0/1).
 
 #include "trwalk_common.cuh"
@@ -41,9 +46,10 @@ namespace {
 using ptt::kTrChunk;
 using ptt::kTrCta;
 
+template <class Texel>
 __global__ void __launch_bounds__(kTrCta)
 trans_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                  const float* __restrict__ aux, ptt::TrTable tb, int R,
+                  const float* __restrict__ aux, ptt::TrTable<Texel> tb, int R,
                   int steps_cap, int textured, float* __restrict__ fout) {
   __shared__ float s_bw[12 * kTrChunk];
   __shared__ float s_lut[256];
@@ -77,17 +83,27 @@ trans_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
 
 }  // namespace
 
+// tex: [Hp, wp] u8 codes when live is 0, f32 values when live is 1.
 extern "C" int ptt_trans_walk(const float* o, const float* d, const float* aux,
                               const float* bw, const float* rows,
-                              const unsigned char* tex, const float* lut,
+                              const void* tex, const float* lut,
                               const int* pages, int R, int T, int wp,
-                              int steps_cap, int textured, float* fout,
-                              int device, cudaStream_t stream) {
+                              int steps_cap, int textured, int live,
+                              float* fout, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0) return 0;
-  const ptt::TrTable tb{bw, rows, tex, lut, pages, T, wp};
-  trans_walk_kernel<<<(R + kTrCta - 1) / kTrCta, kTrCta, 0, stream>>>(
-      o, d, aux, tb, R, steps_cap, textured, fout);
+  const dim3 grid((R + kTrCta - 1) / kTrCta);
+  if (live) {
+    const ptt::TrTable<float> tb{bw, rows, static_cast<const float*>(tex),
+                                 lut, pages, T, wp};
+    trans_walk_kernel<float><<<grid, kTrCta, 0, stream>>>(
+        o, d, aux, tb, R, steps_cap, textured, fout);
+  } else {
+    const ptt::TrTable<unsigned char> tb{
+        bw, rows, static_cast<const unsigned char*>(tex), lut, pages, T, wp};
+    trans_walk_kernel<unsigned char><<<grid, kTrCta, 0, stream>>>(
+        o, d, aux, tb, R, steps_cap, textured, fout);
+  }
   return (int)cudaGetLastError();
 }

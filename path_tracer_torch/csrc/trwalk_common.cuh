@@ -2,6 +2,14 @@
 // trans_walk.cu): the staged column chunks of the compact transparent
 // table, the candidate test and the opacity texel fetch.
 //
+// Every helper is a template on the page plane's texel type: unsigned char
+// codes through the LUT (forward rendering, the JAX package's live=False),
+// or float values read directly (the live variant of a differentiable
+// render, live=True: the wrapper passes the plane rebuilt from the live
+// atlas and the rows with the live opacity factors). The walk is the same
+// code in both; only the texel fetch differs. The f32 plane stays in device
+// memory (L2-resident for the showcase's pages), as the u8 plane does.
+//
 // The candidate test is flat_common.cuh's Baldwin-Weber test (which is the
 // Pallas kernels' _eval_cols expression for expression); every expression
 // keeps the order of the plain versions (ops/trwalk.py), and the library is
@@ -18,12 +26,13 @@ constexpr int kTrChunk = 256;  // table columns staged per pass: 12 KB
 // The compact transparent table and the opacity pages, all in device
 // memory: bw [16, T] (rows n.xyz, c, Au.xyz, au, Av.xyz, av, 4 zero), rows
 // [9, T] (uv0.xy, (uv1-uv0).xy, (uv2-uv0).xy, factor, has texture, page),
-// tex [Hp, wp] u8 texel codes, lut [256] code -> value, pages [P, 3]
-// (w, h, first row). T is a multiple of 128.
+// tex [Hp, wp] texels (u8 codes or f32 values), lut [256] code -> value,
+// pages [P, 3] (w, h, first row). T is a multiple of 128.
+template <class Texel>
 struct TrTable {
   const float* bw;
   const float* rows;
-  const unsigned char* tex;
+  const Texel* tex;
   const float* lut;
   const int* pages;
   int T;
@@ -33,9 +42,9 @@ struct TrTable {
 // Calls visit(c0, n) once per chunk of columns [c0, c0 + n) after staging
 // their 12 used BW rows in s_bw [12][kTrChunk]. Every thread of the CTA
 // must call it; it contains two __syncthreads() per chunk.
-template <class Visit>
-__device__ __forceinline__ void for_each_chunk(const TrTable& tb, float* s_bw,
-                                               Visit visit) {
+template <class Texel, class Visit>
+__device__ __forceinline__ void for_each_chunk(const TrTable<Texel>& tb,
+                                               float* s_bw, Visit visit) {
   for (int c0 = 0; c0 < tb.T; c0 += kTrChunk) {
     const int n = min(kTrChunk, tb.T - c0);
     __syncthreads();  // the previous chunk is consumed
@@ -65,8 +74,10 @@ __device__ __forceinline__ bool tr_candidate(const float* s, float ox,
 // lowest column (a strict < in ascending column order): col = -1 when
 // there is none. Every thread of the CTA must call it; only lanes with
 // 'want' search.
+template <class Texel>
 __device__ __forceinline__ void next_candidate(
-    const TrTable& tb, float* s_bw, bool want, float ox, float oy, float oz,
+    const TrTable<Texel>& tb, float* s_bw, bool want, float ox, float oy,
+    float oz,
     float dx, float dy, float dz, float t_hi, float t_prev, float& best_t,
     int& best_col, float& best_u, float& best_v, float& best_dn) {
   best_t = CUDART_INF_F;
@@ -95,20 +106,33 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return r < 0 ? r + n : r;
 }
 
+// A texel's value: a u8 code through the LUT in s_lut, or an f32 value as
+// it is (the live plane).
+__device__ __forceinline__ float texel_value(unsigned char code,
+                                             const float* s_lut) {
+  return s_lut[code];
+}
+__device__ __forceinline__ float texel_value(float value, const float*) {
+  return value;
+}
+
 // Nearest texel of page 'page' at (uvx, uvy): uv * size truncated toward
 // zero to int32 (cvt.rzi: saturating, NaN -> 0), wrapped, offset by the
-// page's first row; the code's value through the LUT in s_lut.
-__device__ __forceinline__ float page_texel(const TrTable& tb,
+// page's first row; its value (texel_value).
+template <class Texel>
+__device__ __forceinline__ float page_texel(const TrTable<Texel>& tb,
                                             const float* s_lut, float uvx,
                                             float uvy, int page) {
   const int w = tb.pages[3 * page], h = tb.pages[3 * page + 1];
   const int ix = wrap(__float2int_rz(uvx * (float)w), w);
   const int iy = wrap(__float2int_rz(uvy * (float)h), h) + tb.pages[3 * page + 2];
-  return s_lut[tb.tex[(size_t)iy * tb.wp + ix]];
+  return texel_value(tb.tex[(size_t)iy * tb.wp + ix], s_lut);
 }
 
 // The candidate's own texture coordinates: uv0 + u (uv1-uv0) + v (uv2-uv0).
-__device__ __forceinline__ void column_uv(const TrTable& tb, int col, float u,
+template <class Texel>
+__device__ __forceinline__ void column_uv(const TrTable<Texel>& tb, int col,
+                                          float u,
                                           float v, float& uvx, float& uvy) {
   const float* r = tb.rows + col;
   const int T = tb.T;
@@ -131,8 +155,9 @@ constexpr int kTransSmemFloats = 12 * kTrChunk + 256;
 // lane would walk on past steps_cap (contract in trans_walk.cu). A lane is
 // dead when pd < 0. s_bw holds 12 * kTrChunk floats; s_lut the LUT, staged
 // by the caller. Every thread of the CTA must call it.
+template <class Texel>
 __device__ __forceinline__ void trans_lane(
-    const TrTable& tb, float* s_bw, const float* s_lut, int steps_cap,
+    const TrTable<Texel>& tb, float* s_bw, const float* s_lut, int steps_cap,
     bool textured, float ox, float oy, float oz, float dx, float dy, float dz,
     float pd, bool is_pt, float spx, float spy, float spz, float ouvx,
     float ouvy, bool osimple, float& trans, float& t_prev, bool& walking) {

@@ -1,10 +1,9 @@
 """Wavefront unidirectional Monte Carlo path-tracing integrator.
 
-Port of ``path_tracer_tpu/models/integrator.py`` (forward rendering). Path
-state lives in [R]-batched tensors over a ray wavefront; the JAX package's
-``lax.scan`` over bounces and its ``while_loop`` walks are Python loops
-here (PyTorch runs eagerly), and its ``lax.cond(any(...))`` gates are host
-checks.
+Port of ``path_tracer_tpu/models/integrator.py``. Path state lives in
+[R]-batched tensors over a ray wavefront; the JAX package's ``lax.scan``
+over bounces and its ``while_loop`` walks are Python loops here (PyTorch
+runs eagerly), and its ``lax.cond(any(...))`` gates are host checks.
 
 Semantics reproduced exactly (reference quirks included):
 
@@ -55,6 +54,22 @@ Semantics reproduced exactly (reference quirks included):
 The RNG site layout (``rng.site_layout``) is the JAX package's, so the
 port draws the same uniforms for every (pixel, sample, bounce, walk step)
 and renders the same image up to float rounding.
+
+Gradients (``IntegratorSpec.differentiable``; ``parallel/train.py``) use
+detached sampling, as the JAX package does: they flow through shading
+(positions, light falloff, the BRDF, texture gathers, the camera and the
+reparameterized hit point) into the scene's tensors, and never through
+intersection, walk decisions, sampled directions or RR kills. Where the
+JAX package calls ``stop_gradient`` the port runs the discrete section
+under ``torch.no_grad()``: every cast and any-hit (``ops/intersect.py``),
+both walks (the alpha walk whole; the shadow walks up to their
+transmittance, which multiplies the light colour outside so the colour's
+gradient flows around it) and the direction sample. Nothing else is
+detached: RR's ``p`` keeps its gradient. With ``differentiable`` the walk
+kernels run their live variants: they read the opacity-factor row and the
+f32 opacity page plane rebuilt from the live ``mat_opacity_factor`` and
+``tex_data`` (``trwalk.live_tables``, built once per ``render_wavefront``
+call), as the JAX package's training mode does.
 """
 from __future__ import annotations
 
@@ -96,7 +111,7 @@ PI = 3.14159265358979323846
 
 @dataclasses.dataclass(frozen=True)
 class IntegratorSpec:
-    """Static integrator parameters (forward rendering only)."""
+    """Static integrator parameters."""
 
     bounces: int = 4
     # None = auto: the scene's num_transparent_hits + 1 (exactly the
@@ -104,6 +119,13 @@ class IntegratorSpec:
     alpha_walk_steps: Optional[int] = None
     shadow_walk_steps: Optional[int] = None
     seed: int = 0
+    # True: the hit point's reparameterization (its gradient slides along
+    # the surface) and the walk kernels' live variants; the training path
+    # sets it. Unlike the JAX package's (default True), the port's default
+    # is False: every other caller renders forward and is held against the
+    # JAX package's differentiable=False. Radiance is the same up to the
+    # rounding of the reparameterized hit point.
+    differentiable: bool = False
 
 
 class Surface(NamedTuple):
@@ -154,20 +176,67 @@ def _hit_model_uv(scene, hit: HitRecord):
     return model, uv, ~is_tri
 
 
-def _surface(scene, hit: HitRecord, o, d) -> Surface:
-    """Shading geometry at the selected hits (forward rendering: the hit
-    point is o + t d)."""
+def _reparam_t(scene, hit: HitRecord, o, d, t_safe, is_tri, tri_i, sph_i):
+    """[R] the hit distance as a function of the live o, d and sphere
+    tables (the JAX package's ``_surface`` with ``differentiable``). hit.t
+    is a detached intersector output, so o + t d alone would move the hit
+    point OFF the surface when o or d depend on a parameter.
+
+    Triangles: t = ((p0 - o).n) / (d.n) with the anchor p0 = o + t d and
+    the face normal detached: equal to t up to rounding, its derivative
+    slides the hit point along the plane. Grazing lanes keep the detached
+    t. Spheres: the quadratic root from the live centre and radius (the
+    near or far root as hit.backface says), straight through: the value is
+    t, the derivative the root's."""
+    p0 = (o + d * t_safe[:, None]).detach()
+    finite = torch.isfinite(hit.t)
+    t_tri = t_sph = None
+    if scene.num_real_triangles != 0:
+        plane_n = torch.linalg.cross(scene.tri_e1[tri_i],
+                                     scene.tri_e2[tri_i]).detach()
+        dn = _dot(d, plane_n)
+        ok_plane = dn.abs() > 1e-12 * (_dot(p0 - o, plane_n).abs()
+                                       + 1.0).detach()
+        t_plane = _dot(p0 - o, plane_n) / torch.where(ok_plane, dn, 1.0)
+        t_tri = torch.where(ok_plane & finite, t_plane, t_safe)
+    if scene.num_real_spheres != 0:
+        oc = o - scene.sph_center[sph_i]
+        radius = scene.sph_radius[sph_i]
+        aq = _dot(d, d)
+        bq = _dot(oc, d)  # half-b form of the quadratic
+        cq = _dot(oc, oc) - radius * radius
+        disc = bq * bq - aq * cq
+        ok_sph = disc > 0.0
+        sq = torch.sqrt(torch.where(ok_sph, disc, 1.0))
+        root = (-bq + torch.where(hit.backface, sq, -sq)) / aq
+        t_quad = torch.where(ok_sph & finite, root, t_safe)
+        t_sph = t_safe + (t_quad - t_quad.detach())
+    if t_tri is None:
+        return t_sph
+    if t_sph is None:
+        return t_tri
+    return torch.where(is_tri, t_tri, t_sph)
+
+
+def _surface(scene, hit: HitRecord, o, d,
+             differentiable: bool = False) -> Surface:
+    """Shading geometry at the selected hits. Forward rendering takes the
+    hit point o + t d; ``differentiable`` the reparameterized t
+    (``_reparam_t``), the same point up to rounding."""
     is_tri = hit.kind == KIND_TRIANGLE
     prim = torch.clamp(hit.prim, min=0).long()
     sph_i = torch.clamp(prim, max=scene.sph_center.shape[0] - 1)
-    # Miss lanes carry t = +inf; their Surface is masked out downstream.
+    tri_i = _tri_index(scene, prim)
+    # Miss lanes carry t = +inf; their Surface is masked out downstream,
+    # but inf would still poison a gradient through torch.where (0 * inf).
     t_safe = torch.where(torch.isfinite(hit.t), hit.t, 0.0)
+    if differentiable:
+        t_safe = _reparam_t(scene, hit, o, d, t_safe, is_tri, tri_i, sph_i)
     pos = o + d * t_safe[:, None]
     model, uv, simple = _hit_model_uv(scene, hit)
 
     # Triangle: barycentric vertex-normal interpolation (NOT normalized).
     n_interp = None
-    tri_i = _tri_index(scene, prim)
     if scene.num_real_triangles != 0:
         w1 = hit.u[:, None]
         w2 = hit.v[:, None]
@@ -247,15 +316,20 @@ def _alpha_cast_walk(scene, cast_scene, o, d, pix, sample_id, bounce, spec,
     return sel, seen, accepted
 
 
+@torch.no_grad()
 def _alpha_walk(scene, o, d, walking, pix, sample_id, bounce, spec,
-                steps: int):
+                steps: int, live=None):
     """The stochastic alpha walk. Returns (sel: the shading hit, seen [R],
     first_missed [R]); first_missed = the walk found nothing → background
     path. Dead lanes are cast as t_prev = +inf (the kernels skip them).
+    A discrete event: it runs under no_grad, so its outputs carry no
+    gradient (the JAX package's stop_gradient of the walk).
 
     All-opaque scenes (``steps`` 1): one closest-hit cast, the first hit
-    always accepts. Partitioned scenes: ``_alpha_walk_partitioned``.
-    Otherwise the re-cast walk over the whole scene."""
+    always accepts. Partitioned scenes: ``_alpha_walk_partitioned`` (its
+    kernel walk on ``live``, the ``trwalk.LiveTables`` of a
+    differentiable render, when given). Otherwise the re-cast walk over
+    the whole scene."""
     r = o.shape[0]
     miss = _miss_record(r, o.device)
     t_prev = torch.full((r,), -1.0, device=o.device)
@@ -265,7 +339,7 @@ def _alpha_walk(scene, o, d, walking, pix, sample_id, bounce, spec,
         return _select(found, hit, miss), found, walking & ~found
     if partitioned(scene):
         return _alpha_walk_partitioned(scene, o, d, walking, pix, sample_id,
-                                       bounce, spec, steps)
+                                       bounce, spec, steps, live)
     no = torch.zeros_like(walking)
     sel, seen, _ = _alpha_cast_walk(scene, scene, o, d, pix, sample_id,
                                     bounce, spec, steps, 0,
@@ -274,7 +348,7 @@ def _alpha_walk(scene, o, d, walking, pix, sample_id, bounce, spec,
 
 
 def _alpha_walk_partitioned(scene, o, d, walking, pix, sample_id, bounce,
-                            spec, steps: int):
+                            spec, steps: int, live=None):
     """The alpha walk of a partitioned scene: one closest-hit cast against
     the opaque view (all spheres included) gives the terminator t_op; the
     walk visits only transparent triangles in front of it, at the same
@@ -308,7 +382,8 @@ def _alpha_walk_partitioned(scene, o, d, walking, pix, sample_id, bounce,
             rnd = (torch.stack(uniforms) if uniforms
                    else torch.empty((0, r), device=dev))
             w = cuda_trwalk.alpha_walk(
-                scene, o, d, torch.where(walk_active, t_op, -1.0), rnd, k0)
+                scene, o, d, torch.where(walk_active, t_op, -1.0), rnd, k0,
+                live=live)
             found = w.col >= 0
             slot = scene.tr_colmap[torch.clamp(w.col, min=0).long()]
             prim = torch.where(found, scene.sl_map[slot.long()], 0)
@@ -328,6 +403,7 @@ def _alpha_walk_partitioned(scene, o, d, walking, pix, sample_id, bounce,
     return sel, seen, walking & ~seen
 
 
+@torch.no_grad()
 def _trans_cast_walk(scene, cast_scene, s_o, s_d, pd, is_pt, surf_pos,
                      orig_uv, orig_simple, steps, k0, trans, t_prev,
                      walking, include_spheres: bool):
@@ -371,7 +447,8 @@ def _shadow_attenuation(scene, s_o, s_d, active, light_color, steps,
     """One light's attenuation in a scene that is neither all opaque nor
     partitioned: the transmittance re-cast walk over the whole scene
     (spheres included). Pass point_dist [R], surf_pos [R,3] and the
-    original hit's uv [R,2] and simple [R] for a point light."""
+    original hit's uv [R,2] and simple [R] for a point light. The walk
+    carries no gradient; the light colour multiplies outside it."""
     att0 = _light_att0(active, light_color)
     r = s_o.shape[0]
     dev = s_o.device
@@ -404,7 +481,7 @@ def _stack_lights(s_o, dirs, point_dists, surf_pos, orig_uv, orig_simple):
 
 def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, steps,
                               point_dists, surf_pos, orig_uv, orig_simple,
-                              blockeds):
+                              blockeds, live=None):
     """All L lights' attenuations in a partitioned scene. ``blockeds``: the
     lights' any-hit results against the opaque view (an opaque occluder
     in range zeroes the product whatever the order); the transparent
@@ -413,34 +490,39 @@ def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, steps,
     ``tr_kernel_ok``, then the exact cast walk over the transparent view.
     Directional lanes have pd = +inf; point lanes stop behind the light
     and sample the original hit's uv (see ``_trans_cast_walk``). One light
-    (L = 1) gives the JAX package's single-light partitioned form."""
+    (L = 1) gives the JAX package's single-light partitioned form. The
+    walk carries no gradient and reads ``live`` (``trwalk.LiveTables``)
+    when given; the light colours multiply outside it."""
+    att0s = [_light_att0(a, c) for a, c in zip(actives, colors)]
     n_l = len(dirs)
     r = s_o.shape[0]
     dev = s_o.device
-    att0s = [_light_att0(a, c) for a, c in zip(actives, colors)]
-    o3, d3, pd3, is_pt, sp3, ouv3, os3 = _stack_lights(
-        s_o, dirs, point_dists, surf_pos, orig_uv, orig_simple)
-    walking0 = torch.cat([a & ~b & (att0.abs().sum(-1) != 0.0)
-                          for a, b, att0 in zip(actives, blockeds, att0s)])
-    # Segments that miss every transparent cluster keep trans 1 (t_max the
-    # distance to the light, with a margin for the shadow bias).
-    walking0 = walking0 & trwalk.hits_transparent_bounds(
-        scene, o3, d3, pd3 * 1.0001 + 1e-3)
-    n = n_l * r
-    trans = torch.ones((n,), device=dev)
-    t_prev = torch.full((n,), -1.0, device=dev)
-    still = walking0
-    k0 = 0
-    if scene.tr_kernel_ok:
-        k0 = min(steps, trwalk.TRWALK_K)
-        still = torch.zeros_like(walking0)
-        if bool(walking0.any()):
-            trans, t_prev, still = cuda_trwalk.trans_walk(
-                scene, o3, d3, pd3, is_pt, sp3, ouv3, os3, walking0, k0)
-    if k0 < steps:
-        trans = _trans_cast_walk(scene, transparent_view(scene), o3, d3, pd3,
-                                 is_pt, sp3, ouv3, os3, steps, k0, trans,
-                                 t_prev, still, include_spheres=False)
+    with torch.no_grad():
+        o3, d3, pd3, is_pt, sp3, ouv3, os3 = _stack_lights(
+            s_o, dirs, point_dists, surf_pos, orig_uv, orig_simple)
+        walking0 = torch.cat([a & ~b & (att0.abs().sum(-1) != 0.0)
+                              for a, b, att0 in zip(actives, blockeds, att0s)])
+        # Segments that miss every transparent cluster keep trans 1 (t_max
+        # the distance to the light, with a margin for the shadow bias).
+        walking0 = walking0 & trwalk.hits_transparent_bounds(
+            scene, o3, d3, pd3 * 1.0001 + 1e-3)
+        n = n_l * r
+        trans = torch.ones((n,), device=dev)
+        t_prev = torch.full((n,), -1.0, device=dev)
+        still = walking0
+        k0 = 0
+        if scene.tr_kernel_ok:
+            k0 = min(steps, trwalk.TRWALK_K)
+            still = torch.zeros_like(walking0)
+            if bool(walking0.any()):
+                trans, t_prev, still = cuda_trwalk.trans_walk(
+                    scene, o3, d3, pd3, is_pt, sp3, ouv3, os3, walking0, k0,
+                    live=live)
+        if k0 < steps:
+            trans = _trans_cast_walk(scene, transparent_view(scene), o3, d3,
+                                     pd3, is_pt, sp3, ouv3, os3, steps, k0,
+                                     trans, t_prev, still,
+                                     include_spheres=False)
     return [torch.where(b[:, None], 0.0, att0 * trans[i * r:(i + 1) * r, None])
             for i, (att0, b) in enumerate(zip(att0s, blockeds))]
 
@@ -457,50 +539,56 @@ def _use_fused_shadow(scene) -> bool:
 
 
 def _shadow_attenuation_fused(scene, s_o, dirs, actives, colors, steps,
-                              point_dists, surf_pos, orig_uv, orig_simple):
+                              point_dists, surf_pos, orig_uv, orig_simple,
+                              live=None):
     """All L lights' attenuations in a partitioned scene through the fused
     shadow kernel: the opaque any-hit (the exact t_max of
     ``occluded_multi``) and the first ``TRWALK_K`` transmittance steps in
     one launch, then the exact cast walk over the transparent view for
     lanes still walking, and the opaque spheres' any-hit. The same values
-    as ``occluded_multi`` + ``_shadow_attenuation_multi``."""
+    as ``occluded_multi`` + ``_shadow_attenuation_multi``, the same
+    gradient (through the light colours alone); ``live`` as there."""
+    att0s = [_light_att0(a, c) for a, c in zip(actives, colors)]
     n_l = len(dirs)
     r = s_o.shape[0]
-    att0s = [_light_att0(a, c) for a, c in zip(actives, colors)]
-    t_maxes, pds = [], []
-    for d, a, att0, md in zip(dirs, actives, att0s, point_dists):
-        t_maxes.append(torch.where(a, shadow_t_max(s_o, d, surf_pos, md),
-                                   -1.0))
-        pd = (torch.full((r,), float("inf"), device=s_o.device) if md is None
-              else md)
-        # The prefilter of _shadow_attenuation_multi; the any-hit result
-        # gates the walk inside the kernel.
-        walk = a & (att0.abs().sum(-1) != 0.0) & \
-            trwalk.hits_transparent_bounds(scene, s_o, d, pd * 1.0001 + 1e-3)
-        pds.append(torch.where(walk, pd, -1.0))
-    k0 = min(steps, trwalk.TRWALK_K)
-    trans, t_prev, still = cuda_shadow.fused_shadow(
-        scene, s_o, dirs, t_maxes, pds, [md is not None for md in point_dists],
-        surf_pos, orig_uv, orig_simple, k0)
-    if k0 < steps and bool(still.any()):
-        o3, d3, pd3, is_pt, sp3, ouv3, os3 = _stack_lights(
-            s_o, dirs, point_dists, surf_pos, orig_uv, orig_simple)
-        trans = _trans_cast_walk(
-            scene, transparent_view(scene), o3, d3, pd3, is_pt, sp3, ouv3,
-            os3, steps, k0, trans.reshape(n_l * r), t_prev.reshape(n_l * r),
-            still.reshape(n_l * r), include_spheres=False).view(n_l, r)
-    atts = [att0 * trans[i][:, None] for i, att0 in enumerate(att0s)]
-    if scene.num_real_spheres != 0:
-        sph = occluded_spheres_cuda(s_o, dirs, t_maxes, scene)
-        atts = [torch.where(sph[i][:, None], 0.0, att)
-                for i, att in enumerate(atts)]
-    return atts
+    with torch.no_grad():
+        t_maxes, pds = [], []
+        for d, a, att0, md in zip(dirs, actives, att0s, point_dists):
+            t_maxes.append(torch.where(a, shadow_t_max(s_o, d, surf_pos, md),
+                                       -1.0))
+            pd = (torch.full((r,), float("inf"), device=s_o.device)
+                  if md is None else md)
+            # The prefilter of _shadow_attenuation_multi; the any-hit result
+            # gates the walk inside the kernel.
+            walk = a & (att0.abs().sum(-1) != 0.0) & \
+                trwalk.hits_transparent_bounds(scene, s_o, d,
+                                               pd * 1.0001 + 1e-3)
+            pds.append(torch.where(walk, pd, -1.0))
+        k0 = min(steps, trwalk.TRWALK_K)
+        trans, t_prev, still = cuda_shadow.fused_shadow(
+            scene, s_o, dirs, t_maxes, pds,
+            [md is not None for md in point_dists], surf_pos, orig_uv,
+            orig_simple, k0, live=live)
+        if k0 < steps and bool(still.any()):
+            o3, d3, pd3, is_pt, sp3, ouv3, os3 = _stack_lights(
+                s_o, dirs, point_dists, surf_pos, orig_uv, orig_simple)
+            trans = _trans_cast_walk(
+                scene, transparent_view(scene), o3, d3, pd3, is_pt, sp3, ouv3,
+                os3, steps, k0, trans.reshape(n_l * r),
+                t_prev.reshape(n_l * r), still.reshape(n_l * r),
+                include_spheres=False).view(n_l, r)
+        if scene.num_real_spheres != 0:
+            sph = occluded_spheres_cuda(s_o, dirs, t_maxes, scene)
+            trans = torch.where(sph, 0.0, trans)
+    return [att0 * trans[i][:, None] for i, att0 in enumerate(att0s)]
 
 
 def render_wavefront(scene, pixel_ids, width: int, height: int,
                      sample_id: int, spec: IntegratorSpec) -> torch.Tensor:
     """Trace one sample for a wavefront of pixels. Returns radiance [R,3].
-    pixel_ids: [R] int32 (y*width+x) on the scene's device."""
+    pixel_ids: [R] int32 (y*width+x) on the scene's device. With
+    ``spec.differentiable`` the radiance is differentiable with respect to
+    the scene's tensors (module docstring)."""
     from path_tracer_torch.ops.camera import generate_rays
 
     o, d = generate_rays(pixel_ids, width, height, scene, sample_id, spec.seed)
@@ -520,17 +608,20 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
         else auto_steps)
     s_g1, s_g2, s_rr, s_stride = rng.site_layout(alpha_steps)
     part = partitioned(scene)
+    # The walk kernels' live tables, built once per call.
+    live = (trwalk.live_tables(scene)
+            if spec.differentiable and part and scene.tr_kernel_ok else None)
 
     for bounce in range(spec.bounces + 1):
         sel, _, first_missed = _alpha_walk(scene, o, d, alive, pix, sample_id,
-                                           bounce, spec, alpha_steps)
+                                           bounce, spec, alpha_steps, live)
 
         # Background: only rays whose first cast this bounce missed.
         color = torch.where(first_missed[:, None],
                             color + throughput * scene.background, color)
         alive = alive & ~first_missed
 
-        surf = _surface(scene, sel, o, d)
+        surf = _surface(scene, sel, o, d, spec.differentiable)
         mat = texturing.sample_material(scene, surf.model, surf.uv,
                                         surf.simple)
         f0 = brdf.compute_f0(mat.metalness, mat.albedo)
@@ -570,7 +661,7 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
             # Both halves of every light's shadow in one launch.
             atts = _shadow_attenuation_fused(
                 scene, shadow_o, to_lights, actives, colors, shadow_steps,
-                max_dists, surf.pos, surf.uv, surf.simple)
+                max_dists, surf.pos, surf.uv, surf.simple, live)
         elif scene.all_opaque or part:
             # One any-hit launch for all lights (against the opaque view of
             # a partitioned scene: any opaque occluder in range zeroes the
@@ -585,7 +676,7 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
             else:
                 atts = (_shadow_attenuation_multi(
                     scene, shadow_o, to_lights, actives, colors, shadow_steps,
-                    max_dists, surf.pos, surf.uv, surf.simple, blocked)
+                    max_dists, surf.pos, surf.uv, surf.simple, blocked, live)
                     if to_lights else [])
         else:
             atts = [_shadow_attenuation(scene, shadow_o, ld, a, c,
@@ -609,7 +700,9 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
         indirect = alive & (bounce < spec.bounces)
         r1 = rng.uniform(pix, sample_id, s_g1 + s_stride * bounce, spec.seed)
         r2 = rng.uniform(pix, sample_id, s_g2 + s_stride * bounce, spec.seed)
-        new_d, wm = brdf.sample(mat, surf.normal, view, r1, r2)
+        # Detached sampling: the direction is a discrete event.
+        with torch.no_grad():
+            new_d, wm = brdf.sample(mat, surf.normal, view, r1, r2)
         ind = brdf.eval_indirect(mat, f0, surf.normal, view, new_d, wm)
         throughput = torch.where(indirect[:, None], throughput * ind,
                                  throughput)
@@ -623,8 +716,10 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
 
         # Russian roulette for bounce > 3: T /= p unconditionally, kill when
         # rand > p (masked with alive, already false past the last bounce).
+        # p keeps its gradient; amax splits it among tied channels, as
+        # jnp.max does (Tensor.max(dim) would give it all to one).
         rr = alive & (bounce > 3)
-        p = throughput.max(dim=-1).values
+        p = torch.amax(throughput, dim=-1)
         p_safe = torch.where(rr, torch.clamp(p, min=1e-30), 1.0)
         throughput = torch.where(rr[:, None], throughput / p_safe[:, None],
                                  throughput)

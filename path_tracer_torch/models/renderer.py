@@ -21,10 +21,12 @@ from path_tracer_torch.ops.sorting import morton_pixel_order
 
 
 def integrator_spec(profile: Profile) -> IntegratorSpec:
+    """The forward-rendering spec of a profile (never differentiable, as
+    the JAX package's renderer sets it)."""
     return IntegratorSpec(bounces=profile.bounces,
                           alpha_walk_steps=profile.alpha_walk_steps,
                           shadow_walk_steps=profile.shadow_walk_steps,
-                          seed=profile.seed)
+                          seed=profile.seed, differentiable=False)
 
 
 def render_pixel_sums(scene, width: int, height: int, sample_start: int,

@@ -213,13 +213,13 @@ def kernels() -> Kernels:
         lib.ptt_sph_walk.restype = ci
         lib.ptt_sph_walk.argtypes = [vp] * 6 + [ci] * 3 + [vp, vp, ci, vp]
         # (o, d, t_op, rnd, bw, rows, tex, lut, pages, R, T, wp, steps_cap,
-        #  textured, fout, iout, device, stream)
+        #  textured, live, fout, iout, device, stream)
         lib.ptt_alpha_walk.restype = ci
-        lib.ptt_alpha_walk.argtypes = [vp] * 9 + [ci] * 5 + [vp, vp, ci, vp]
+        lib.ptt_alpha_walk.argtypes = [vp] * 9 + [ci] * 6 + [vp, vp, ci, vp]
         # (o, d, aux, bw, rows, tex, lut, pages, R, T, wp, steps_cap,
-        #  textured, fout, device, stream)
+        #  textured, live, fout, device, stream)
         lib.ptt_trans_walk.restype = ci
-        lib.ptt_trans_walk.argtypes = [vp] * 8 + [ci] * 5 + [vp, ci, vp]
+        lib.ptt_trans_walk.argtypes = [vp] * 8 + [ci] * 6 + [vp, ci, vp]
         # (o, d, t_max, sph, R, L, S, ld, out, device, stream)
         lib.ptt_sph_occluded.restype = ci
         lib.ptt_sph_occluded.argtypes = [vp] * 4 + [ci] * 4 + [vp, ci, vp]
@@ -229,11 +229,11 @@ def kernels() -> Kernels:
         lib.ptt_sph_occ_walk.argtypes = [vp] * 6 + [ci] * 4 + [vp, ci, vp]
         # (o, d, t_max, pd, aux, is_pt_mask, blk, blkid, bw, bpad, block,
         #  n_cols, tr_bw, tr_rows, tex, lut, pages, T, wp, R, L, steps_cap,
-        #  textured, out, device, stream)
+        #  textured, live, out, device, stream)
         lib.ptt_fused_shadow.restype = ci
         lib.ptt_fused_shadow.argtypes = ([vp] * 5 + [ctypes.c_ulonglong]
                                          + [vp] * 3 + [ci] * 3 + [vp] * 5
-                                         + [ci] * 6 + [vp, ci, vp])
+                                         + [ci] * 7 + [vp, ci, vp])
         _kernels = Kernels(lib, seconds, log)
     return _kernels
 
@@ -481,30 +481,39 @@ def launch_sph_walk(o, d, t_prev, blk, blkid, sph):
     return fout, iout
 
 
-def _check_tr_tables(fn: str, scene, device):
-    """The transparent table a walk kernel reads; returns (T, wp)."""
+def _check_tr_tables(fn: str, scene, device, live=None):
+    """The transparent table a walk kernel reads: the scene's ``tr_rows``
+    and u8 ``tr_tex8``, or with ``live`` (``trwalk.LiveTables``) its rows
+    and f32 plane, of the same shapes. Returns (T, wp, rows, plane)."""
     n_cols = scene.tr_bw.shape[1] if scene.tr_bw.dim() == 2 else -1
     wp = scene.tr_tex8.shape[1] if scene.tr_tex8.dim() == 2 else -1
+    hp = scene.tr_tex8.shape[0]
     n_pages = scene.tr_page_table.shape[0]
+    rows, tex = ((scene.tr_rows, scene.tr_tex8) if live is None
+                 else (live.rows, live.plane))
     _check("tr_bw", scene.tr_bw, (16, n_cols), torch.float32, device)
-    _check("tr_rows", scene.tr_rows, (9, n_cols), torch.float32, device)
-    _check("tr_tex8", scene.tr_tex8, (scene.tr_tex8.shape[0], wp),
-           torch.uint8, device)
+    _check("tr_rows" if live is None else "live rows", rows, (9, n_cols),
+           torch.float32, device)
+    _check("tr_tex8" if live is None else "live plane", tex, (hp, wp),
+           torch.uint8 if live is None else torch.float32, device)
     _check("tr_lut", scene.tr_lut, (1, 256), torch.float32, device)
     _check("tr_page_table", scene.tr_page_table, (n_pages, 3), torch.int32,
            device)
-    if n_cols <= 0 or n_cols % 128 or 16 * n_cols >= 2**31 or n_pages < 1:
+    if n_cols <= 0 or n_cols % 128 or 16 * n_cols >= 2**31 or n_pages < 1 \
+            or hp * wp >= 2**31:
         raise ValueError(f"{fn}: a table of {n_cols} columns and {n_pages} "
                          "pages is not a walk table")
-    return n_cols, wp
+    return n_cols, wp, rows, tex
 
 
-def launch_alpha_walk(o, d, t_op, rnd, scene, steps_cap: int):
+def launch_alpha_walk(o, d, t_op, rnd, scene, steps_cap: int, live=None):
     """Check the operands of the alpha walk kernel, allocate its outputs
     and launch it on the current stream (no synchronisation).
 
     o, d: [R,3] f32; t_op: [R] f32 (< 0 dead); rnd: [steps_cap, R] f32;
-    the scene's tr_* tables. Returns (fout [8,R] f32, iout [R] i32)."""
+    the scene's tr_* tables, or with ``live`` (``trwalk.LiveTables``) the
+    live variant on its rows and f32 plane. Returns (fout [8,R] f32, iout
+    [R] i32)."""
     fn = "ptt_alpha_walk"
     device = o.device
     if device.type != "cuda":
@@ -514,7 +523,7 @@ def launch_alpha_walk(o, d, t_op, rnd, scene, steps_cap: int):
     _check("d", d, (r, 3), torch.float32, device)
     _check("t_op", t_op, (r,), torch.float32, device)
     _check("rnd", rnd, (steps_cap, r), torch.float32, device)
-    n_cols, wp = _check_tr_tables(fn, scene, device)
+    n_cols, wp, rows, tex = _check_tr_tables(fn, scene, device, live)
     if steps_cap < 0 or 8 * r >= 2**31 or steps_cap * r >= 2**31:
         raise ValueError(f"{fn}: {r} rays x {steps_cap} steps out of range")
     lib = kernels().lib
@@ -523,23 +532,23 @@ def launch_alpha_walk(o, d, t_op, rnd, scene, steps_cap: int):
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.ptt_alpha_walk(
         o.data_ptr(), d.data_ptr(), t_op.data_ptr(), rnd.data_ptr(),
-        scene.tr_bw.data_ptr(), scene.tr_rows.data_ptr(),
-        scene.tr_tex8.data_ptr(), scene.tr_lut.data_ptr(),
-        scene.tr_page_table.data_ptr(), r, n_cols, wp, steps_cap,
-        int(scene.tr_textured), fout.data_ptr(), iout.data_ptr(),
-        device.index, stream)
+        scene.tr_bw.data_ptr(), rows.data_ptr(), tex.data_ptr(),
+        scene.tr_lut.data_ptr(), scene.tr_page_table.data_ptr(), r, n_cols,
+        wp, steps_cap, int(scene.tr_textured), int(live is not None),
+        fout.data_ptr(), iout.data_ptr(), device.index, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return fout, iout
 
 
-def launch_trans_walk(o, d, aux, scene, steps_cap: int):
+def launch_trans_walk(o, d, aux, scene, steps_cap: int, live=None):
     """Check the operands of the transmittance walk kernel, allocate its
     output and launch it on the current stream (no synchronisation).
 
     o, d: [R,3] f32; aux: [8,R] f32 (pd, is point, surface xyz, original
-    uv, original is sphere); the scene's tr_* tables. Returns fout [3,R]
-    f32 (trans, t_prev, still walking)."""
+    uv, original is sphere); the scene's tr_* tables, or ``live`` as for
+    ``launch_alpha_walk``. Returns fout [3,R] f32 (trans, t_prev, still
+    walking)."""
     fn = "ptt_trans_walk"
     device = o.device
     if device.type != "cuda":
@@ -548,7 +557,7 @@ def launch_trans_walk(o, d, aux, scene, steps_cap: int):
     _check("o", o, (r, 3), torch.float32, device)
     _check("d", d, (r, 3), torch.float32, device)
     _check("aux", aux, (8, r), torch.float32, device)
-    n_cols, wp = _check_tr_tables(fn, scene, device)
+    n_cols, wp, rows, tex = _check_tr_tables(fn, scene, device, live)
     if steps_cap < 0 or 8 * r >= 2**31:
         raise ValueError(f"{fn}: {r} rays out of range")
     lib = kernels().lib
@@ -556,9 +565,9 @@ def launch_trans_walk(o, d, aux, scene, steps_cap: int):
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.ptt_trans_walk(
         o.data_ptr(), d.data_ptr(), aux.data_ptr(), scene.tr_bw.data_ptr(),
-        scene.tr_rows.data_ptr(), scene.tr_tex8.data_ptr(),
-        scene.tr_lut.data_ptr(), scene.tr_page_table.data_ptr(), r, n_cols,
-        wp, steps_cap, int(scene.tr_textured), fout.data_ptr(),
+        rows.data_ptr(), tex.data_ptr(), scene.tr_lut.data_ptr(),
+        scene.tr_page_table.data_ptr(), r, n_cols, wp, steps_cap,
+        int(scene.tr_textured), int(live is not None), fout.data_ptr(),
         device.index, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
@@ -624,15 +633,16 @@ def launch_sph_occ_walk(o, ds, t_maxes, blk, blkid, sph):
 
 
 def launch_fused_shadow(o, ds, t_maxes, pds, aux, is_pt, blkflat, blkid, bw,
-                        block: int, scene, steps_cap: int):
+                        block: int, scene, steps_cap: int, live=None):
     """Check the operands of the fused shadow kernel, allocate its output
     and launch it on the current stream (no synchronisation).
 
     o: [R,3] f32; ds: [L,R,3] f32; t_maxes, pds: [L,R] f32; aux: [6,R] f32
     (surface point xyz, original uv, original is sphere); is_pt: L bools;
     blkflat, blkid, bw: the opaque view's flat tables (as for
-    ``launch_flat_occluded``); the scene's tr_* tables. Returns out [3L,R]
-    f32 (per light: trans_eff, t_prev, still walking)."""
+    ``launch_flat_occluded``); the scene's tr_* tables, or ``live`` as for
+    ``launch_alpha_walk``. Returns out [3L,R] f32 (per light: trans_eff,
+    t_prev, still walking)."""
     fn = "ptt_fused_shadow"
     device = o.device
     r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
@@ -642,7 +652,7 @@ def launch_fused_shadow(o, ds, t_maxes, pds, aux, is_pt, blkflat, blkid, bw,
         raise ValueError(f"{fn}: {len(is_pt)} light types for {n_sets} sets "
                          "(at most 64 lights)")
     bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
-    t_cols, wp = _check_tr_tables(fn, scene, device)
+    t_cols, wp, rows, tex = _check_tr_tables(fn, scene, device, live)
     if steps_cap < 0 or 3 * n_sets * r >= 2**31:
         raise ValueError(f"{fn}: {n_sets} sets x {r} rays out of range")
     mask = sum(1 << k for k, pt in enumerate(is_pt) if pt)
@@ -653,9 +663,9 @@ def launch_fused_shadow(o, ds, t_maxes, pds, aux, is_pt, blkflat, blkid, bw,
         o.data_ptr(), ds.data_ptr(), t_maxes.data_ptr(), pds.data_ptr(),
         aux.data_ptr(), mask, blkflat.data_ptr(), blkid.data_ptr(),
         bw.data_ptr(), bpad, block, n_cols, scene.tr_bw.data_ptr(),
-        scene.tr_rows.data_ptr(), scene.tr_tex8.data_ptr(),
-        scene.tr_lut.data_ptr(), scene.tr_page_table.data_ptr(), t_cols, wp,
-        r, n_sets, steps_cap, int(scene.tr_textured), out.data_ptr(),
+        rows.data_ptr(), tex.data_ptr(), scene.tr_lut.data_ptr(),
+        scene.tr_page_table.data_ptr(), t_cols, wp, r, n_sets, steps_cap,
+        int(scene.tr_textured), int(live is not None), out.data_ptr(),
         device.index, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")

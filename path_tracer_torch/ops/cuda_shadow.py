@@ -9,10 +9,12 @@ one launch. The plain version is the composition of the two kernels' plain
 versions (``cuda_bvh.occluded_triangles_flat_multi_plain`` over the opaque
 view, ``trwalk.trans_walk_plain`` over the stacked lanes), so the fused
 kernel, the two launches and the plain version agree on every lane.
-Forward rendering only: the JAX package's ``live`` (training) variant
-waits for the differentiable path. A CUDA tensor launches the kernel (or
-raises); a CPU tensor takes the plain version. Bound on the card: the sum
-of the two kernels' arithmetic; see the source for the design.
+Its live variant (the JAX package's ``live=True``, for a differentiable
+render) reads ``trwalk.LiveTables`` in the walk phase, as the live
+transmittance walk does, and is counted apart. A CUDA tensor launches the
+kernel (or raises); a CPU tensor takes the plain version. Bound on the
+card: the sum of the two kernels' arithmetic; see the source for the
+design.
 """
 from __future__ import annotations
 
@@ -20,18 +22,21 @@ import torch
 
 from path_tracer_torch import native
 from path_tracer_torch.ops.cuda_bvh import occluded_triangles_flat_multi_plain
+from path_tracer_torch.ops.intersect import _detach_for_kernel
 from path_tracer_torch.ops.trwalk import trans_walk_plain
 from path_tracer_torch.scene.device_scene import opaque_view
 
-# Kernel launches made by fused_shadow in this process.
+# Kernel launches made by fused_shadow in this process, forward and live.
 launches = 0
+live_launches = 0
 
 
 def fused_shadow_plain(scene, s_o, dirs, t_maxes, pds, is_pt, surf_pos,
-                       orig_uv, orig_simple, steps_cap: int):
+                       orig_uv, orig_simple, steps_cap: int, live=None):
     """Plain version of ``fused_shadow``, on any device: the flat any-hit
     over the opaque view, then the transmittance walk of the stacked lanes
-    with pd = -1 where the any-hit blocked."""
+    with pd = -1 where the any-hit blocked (on ``live``'s tables when
+    given)."""
     n_l, r = len(dirs), s_o.shape[0]
     occ = occluded_triangles_flat_multi_plain(s_o, dirs, t_maxes,
                                               opaque_view(scene))
@@ -41,13 +46,14 @@ def fused_shadow_plain(scene, s_o, dirs, t_maxes, pds, is_pt, surf_pos,
     w = trans_walk_plain(scene, s_o.repeat(n_l, 1), torch.cat(list(dirs)),
                          pd3, is_pt3, surf_pos.repeat(n_l, 1),
                          orig_uv.repeat(n_l, 1), orig_simple.repeat(n_l),
-                         torch.ones_like(is_pt3), steps_cap)
+                         torch.ones_like(is_pt3), steps_cap, live)
     trans = torch.where(occ, 0.0, w.trans.view(n_l, r))
     return trans, w.t_prev.view(n_l, r), w.still.view(n_l, r)
 
 
+@_detach_for_kernel
 def fused_shadow(scene, s_o, dirs, t_maxes, pds, is_pt, surf_pos, orig_uv,
-                 orig_simple, steps_cap: int):
+                 orig_simple, steps_cap: int, live=None):
     """Every light's shadow against a partitioned scene: the opaque any-hit
     and the transparent transmittance, in one launch.
 
@@ -58,11 +64,13 @@ def fused_shadow(scene, s_o, dirs, t_maxes, pds, is_pt, surf_pos, orig_uv,
     orig_simple [R] bool of the shaded hit. Returns (trans_eff, t_prev,
     still), each [L,R]: trans_eff is 0 where the any-hit blocked (dead
     lanes included), else the transmittance (1 where pd < 0); lanes still
-    walking past ``steps_cap`` go on outside."""
-    global launches
+    walking past ``steps_cap`` go on outside. ``live``: the
+    ``trwalk.LiveTables`` of a differentiable render, or None."""
+    global launches, live_launches
     if s_o.device.type == "cpu":
         return fused_shadow_plain(scene, s_o, dirs, t_maxes, pds, is_pt,
-                                  surf_pos, orig_uv, orig_simple, steps_cap)
+                                  surf_pos, orig_uv, orig_simple, steps_cap,
+                                  live)
     n_l, r = len(dirs), s_o.shape[0]
     c = scene.sl_cols_opaque  # the opaque view's block columns
     stack = lambda xs: torch.stack(list(xs)).contiguous()
@@ -73,7 +81,10 @@ def fused_shadow(scene, s_o, dirs, t_maxes, pds, is_pt, surf_pos, orig_uv,
         tuple(bool(pt) for pt in is_pt),
         scene.sl_blkflat.narrow(1, 0, c).contiguous(),
         scene.sl_blkid.narrow(1, 0, c).contiguous(), scene.sl_bw_t,
-        scene.sl_block, scene, steps_cap)
-    launches += 1
+        scene.sl_block, scene, steps_cap, live)
+    if live is None:
+        launches += 1
+    else:
+        live_launches += 1
     out = out.view(n_l, 3, r)
     return out[:, 0], out[:, 1], out[:, 2] > 0.0

@@ -6,16 +6,21 @@
   tile body ``trans_tile`` (entry ``trans_walk``).
 
 Both walk the scene's compact transparent table (``tr_*``) and keep the
-contract of their plain versions in ``ops/trwalk.py``. A CUDA tensor
-launches the kernel (or raises); a CPU tensor takes the plain version.
-Bound on the card: the Baldwin-Weber test of every table column per walk
-step; see the sources for the design.
+contract of their plain versions in ``ops/trwalk.py``. Each has a live
+variant (the JAX package's ``live_factor=True``, for a differentiable
+render): given ``live`` (``trwalk.LiveTables``) the kernel reads its rows
+and its f32 page plane, values read directly, where the forward variant
+reads ``tr_rows`` and the u8 plane through the LUT; it is counted apart.
+A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
+plain version. Bound on the card: the Baldwin-Weber test of every table
+column per walk step; see the sources for the design.
 """
 from __future__ import annotations
 
 import torch
 
 from path_tracer_torch import native
+from path_tracer_torch.ops.intersect import _detach_for_kernel
 from path_tracer_torch.ops.trwalk import (
     AlphaWalk,
     TransWalk,
@@ -23,39 +28,51 @@ from path_tracer_torch.ops.trwalk import (
     trans_walk_plain,
 )
 
-# Kernel launches made by the wrappers in this process.
+# Kernel launches made by the wrappers in this process, forward and live.
 alpha_launches = 0
 trans_launches = 0
+alpha_live_launches = 0
+trans_live_launches = 0
 
 
-def alpha_walk(scene, o, d, t_op, rnd, steps_cap: int) -> AlphaWalk:
+@_detach_for_kernel
+def alpha_walk(scene, o, d, t_op, rnd, steps_cap: int,
+               live=None) -> AlphaWalk:
     """The alpha walk over the transparent table. o, d: [R,3] f32; t_op:
-    [R] f32 (< 0 marks a dead lane); rnd: [steps_cap, R] f32."""
-    global alpha_launches
+    [R] f32 (< 0 marks a dead lane); rnd: [steps_cap, R] f32; ``live``:
+    the tables of a differentiable render, or None."""
+    global alpha_launches, alpha_live_launches
     if o.device.type == "cpu":
-        return alpha_walk_plain(scene, o, d, t_op, rnd, steps_cap)
+        return alpha_walk_plain(scene, o, d, t_op, rnd, steps_cap, live)
     fout, col = native.launch_alpha_walk(
         o.contiguous(), d.contiguous(), t_op.contiguous(),
-        rnd.narrow(0, 0, steps_cap).contiguous(), scene, steps_cap)
-    alpha_launches += 1
+        rnd.narrow(0, 0, steps_cap).contiguous(), scene, steps_cap, live)
+    if live is None:
+        alpha_launches += 1
+    else:
+        alpha_live_launches += 1
     return AlphaWalk(fout[0], fout[1], fout[2], fout[3], fout[4] > 0.0,
                      fout[5] > 0.0, fout[6] > 0.0, fout[7], col)
 
 
+@_detach_for_kernel
 def trans_walk(scene, o, d, pd, is_pt, surf_pos, orig_uv, orig_simple,
-               walking0, steps_cap: int) -> TransWalk:
+               walking0, steps_cap: int, live=None) -> TransWalk:
     """The shadow transmittance walk over the transparent table (stacked
     lanes of all lights). o, d, surf_pos: [R,3]; pd: [R] distance to the
     light (+inf directional); is_pt, orig_simple, walking0: [R] bool;
-    orig_uv: [R,2]."""
-    global trans_launches
+    orig_uv: [R,2]; ``live`` as for ``alpha_walk``."""
+    global trans_launches, trans_live_launches
     if o.device.type == "cpu":
         return trans_walk_plain(scene, o, d, pd, is_pt, surf_pos, orig_uv,
-                                orig_simple, walking0, steps_cap)
+                                orig_simple, walking0, steps_cap, live)
     row = lambda x: x.to(torch.float32).unsqueeze(0)
     aux = torch.cat([row(torch.where(walking0, pd, -1.0)), row(is_pt),
                      surf_pos.T, orig_uv.T, row(orig_simple)]).contiguous()
     fout = native.launch_trans_walk(o.contiguous(), d.contiguous(), aux,
-                                    scene, steps_cap)
-    trans_launches += 1
+                                    scene, steps_cap, live)
+    if live is None:
+        trans_launches += 1
+    else:
+        trans_live_launches += 1
     return TransWalk(fout[0], fout[1], fout[2] > 0.0)

@@ -36,7 +36,9 @@ tensors' device:
   (and, on the CPU, its plain version) serves it.
 
 CUDA tensors go to the hand-written kernels, CPU tensors to their plain
-versions.
+versions. Every cast and any-hit entry is a discrete event and runs under
+``torch.no_grad()`` (``_detach_for_kernel``), plain versions included, so
+gradients on the CPU and on the card come from one graph.
 """
 from __future__ import annotations
 
@@ -202,6 +204,16 @@ def closest_hit_spheres(o, d, t_prev, scene) -> HitRecord:
                      v=zeros, backface=back)
 
 
+def _detach_for_kernel(fn):
+    """The JAX package's ``_detach_for_kernel`` (``stop_gradient`` on a
+    kernel's inputs) as a decorator: the entry runs under
+    ``torch.no_grad()``, so it reads its rays and the scene's tables as
+    values and its outputs carry no gradient. Hit selection is detached by
+    design (gradients flow through shading), and the kernels have no
+    backward."""
+    return torch.no_grad()(fn)
+
+
 def _miss_record(r: int, device) -> HitRecord:
     zeros = torch.zeros((r,), device=device)
     zi = torch.zeros((r,), dtype=torch.int32, device=device)
@@ -249,6 +261,7 @@ def _closest_hit_tris_dispatch(o, d, t_prev, scene) -> HitRecord:
     return closest_hit_triangles_cuda(o, d, t_prev, scene)
 
 
+@_detach_for_kernel
 def closest_hit(o, d, t_prev, scene, active=None,
                 include_spheres: bool = True) -> HitRecord:
     """Closest hit among all primitives with t > t_prev (t_prev = -1 for a
@@ -299,6 +312,7 @@ def shadow_t_max(o, d, surf_pos, max_dist):
     return (-b_dot_d + torch.sqrt(torch.clamp(disc, min=0.0))) / d_sq
 
 
+@_detach_for_kernel
 def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
                    actives=None) -> list:
     """Any-hit occlusion for L direction sets sharing one origin set (a

@@ -49,6 +49,15 @@ two or more fractional occluders.
 Texel index: uv * size truncated toward zero to int32 (saturating, NaN to
 0, as the card converts), then taken modulo the size (Euclidean), plus
 the page's first row.
+
+Training mode (the JAX package's ``live``): a differentiable render may
+have replaced ``mat_opacity_factor`` or ``tex_data`` since the tables were
+built, so its walks read ``LiveTables`` (``live_tables``, the counterpart
+of ``pallas_trwalk._tables`` and ``_tex_plane``): ``tr_rows`` with the
+factor row rebuilt from the live factor table, and an f32 page plane of
+the live texel values, read directly instead of u8 codes through the LUT.
+Both are values only (built under ``no_grad``): the walks are detached
+discrete events, and gradients reach ``tex_data`` through shading.
 """
 from __future__ import annotations
 
@@ -78,6 +87,40 @@ class AlphaWalk(NamedTuple):
     still: torch.Tensor  # bool: would walk on past steps_cap
     t_prev: torch.Tensor  # f32 where a further step would start
     col: torch.Tensor  # int32 compact column of that candidate (-1: none)
+
+
+class LiveTables(NamedTuple):
+    """The walk tables of a differentiable render (values only)."""
+
+    rows: torch.Tensor  # [9, T] f32: tr_rows, row 6 the live factors
+    plane: torch.Tensor  # [Hp, Wp] f32: the pages' live texel values
+
+
+@torch.no_grad()
+def live_rows(scene) -> torch.Tensor:
+    """``tr_rows`` with the opacity-factor row rebuilt from the live
+    ``mat_opacity_factor`` (``pallas_trwalk._tables(scene, live=True)``)."""
+    rows = scene.tr_rows.clone()
+    rows[6] = scene.mat_opacity_factor[scene.tr_model.long()]
+    return rows
+
+
+@torch.no_grad()
+def live_plane(scene) -> torch.Tensor:
+    """[Hp, Wp] f32: each opacity page of ``tr_pages`` rebuilt from the
+    live ``tex_data`` at its place in ``tr_tex8``, zero elsewhere
+    (``pallas_trwalk._tex_plane(scene, live=True)``). On an atlas the
+    tables were built from it holds exactly ``tr_lut[tr_tex8]`` on the
+    pages."""
+    plane = torch.zeros(scene.tr_tex8.shape, device=scene.tr_tex8.device)
+    for off, w, h, yb in scene.tr_pages:
+        plane[yb:yb + h, :w] = scene.tex_data[off:off + w * h, 0].view(h, w)
+    return plane
+
+
+def live_tables(scene) -> LiveTables:
+    """The live rows and plane; build them once per render call."""
+    return LiveTables(live_rows(scene), live_plane(scene))
 
 
 class TransWalk(NamedTuple):
@@ -143,12 +186,16 @@ def _trunc_i32(x):
     return torch.where(big, 2147483647, torch.where(small, -2147483648, i))
 
 
-def texel(scene, uvx, uvy, page):
-    """Opacity texel values at (uvx, uvy) on page ``page`` (int64 [N])."""
+def texel(scene, uvx, uvy, page, plane=None):
+    """Opacity texel values at (uvx, uvy) on page ``page`` (int64 [N]):
+    the u8 code through the LUT, or the value of the f32 ``plane`` when
+    given (``LiveTables.plane``)."""
     pt = scene.tr_page_table[page]  # [N, 3] (w, h, ybase)
     w, h = pt[:, 0], pt[:, 1]
     ix = torch.remainder(_trunc_i32(uvx * w.to(torch.float32)), w)
     iy = torch.remainder(_trunc_i32(uvy * h.to(torch.float32)), h) + pt[:, 2]
+    if plane is not None:
+        return plane[iy.long(), ix.long()]
     codes = scene.tr_tex8[iy.long(), ix.long()]
     return scene.tr_lut[0][codes.long()]
 
@@ -162,10 +209,14 @@ def _pick(mat, col):
     return mat.gather(1, col[:, None])[:, 0]
 
 
-def alpha_walk_plain(scene, o, d, t_op, rnd, steps_cap: int) -> AlphaWalk:
+def alpha_walk_plain(scene, o, d, t_op, rnd, steps_cap: int,
+                     live=None) -> AlphaWalk:
     """Plain version of the alpha walk kernel. o, d: [R,3]; t_op: [R] (< 0
-    marks a dead lane); rnd: [>= steps_cap, R] the steps' uniforms."""
-    rows = scene.tr_rows
+    marks a dead lane); rnd: [>= steps_cap, R] the steps' uniforms;
+    ``live``: the ``LiveTables`` of a differentiable render, or None for
+    the build-time tables."""
+    rows = scene.tr_rows if live is None else live.rows
+    plane = None if live is None else live.plane
     parts = []
     for rs in _slices(o.shape[0], scene.tr_bw.shape[1]):
         top = t_op[rs]
@@ -192,7 +243,7 @@ def alpha_walk_plain(scene, o, d, t_op, rnd, steps_cap: int) -> AlphaWalk:
                     + _pick(v_mat, col) * rows[4][col]
                 uvy = rows[1][col] + _pick(u_mat, col) * rows[3][col] \
                     + _pick(v_mat, col) * rows[5][col]
-                tex = texel(scene, uvx, uvy, rows[8][col].long())
+                tex = texel(scene, uvx, uvy, rows[8][col].long(), plane)
                 op = torch.where(rows[7][col] > 0.0, tex * fac, fac)
             else:
                 op = fac
@@ -214,11 +265,13 @@ def alpha_walk_plain(scene, o, d, t_op, rnd, steps_cap: int) -> AlphaWalk:
 
 
 def trans_walk_plain(scene, o, d, pd, is_pt, surf_pos, orig_uv, orig_simple,
-                     walking0, steps_cap: int) -> TransWalk:
+                     walking0, steps_cap: int, live=None) -> TransWalk:
     """Plain version of the transmittance walk kernel. o, d, surf_pos:
     [R,3]; pd: [R] distance to the light (+inf directional); is_pt,
-    orig_simple, walking0: [R] bool; orig_uv: [R,2]."""
-    rows = scene.tr_rows
+    orig_simple, walking0: [R] bool; orig_uv: [R,2]; ``live`` as for
+    ``alpha_walk_plain``."""
+    rows = scene.tr_rows if live is None else live.rows
+    plane = None if live is None else live.plane
     n_cols = scene.tr_bw.shape[1]
     pd = torch.where(walking0, pd, -1.0)
     parts = []
@@ -250,7 +303,7 @@ def trans_walk_plain(scene, o, d, pd, is_pt, surf_pos, orig_uv, orig_simple,
                 per_page = torch.stack([
                     texel(scene, ouv[:, 0], ouv[:, 1],
                           torch.full((n,), p, dtype=torch.int64,
-                                     device=o.device))
+                                     device=o.device), plane)
                     for p in range(n_pages)], dim=1)  # [N, P]
                 tex = per_page[:, rows[8].long()]  # [N, T]
                 use_factor = (rows[7] <= 0.0)[None, :] \
@@ -274,7 +327,7 @@ def trans_walk_plain(scene, o, d, pd, is_pt, surf_pos, orig_uv, orig_simple,
                 + _pick(v_mat, col) * rows[4][col]
             uvy = rows[1][col] + _pick(u_mat, col) * rows[3][col] \
                 + _pick(v_mat, col) * rows[5][col]
-            tex = texel(scene, uvx, uvy, rows[8][col].long())
+            tex = texel(scene, uvx, uvy, rows[8][col].long(), plane)
             op = torch.where(rows[7][col] <= 0.0, fac, tex * fac)
             trans = torch.where(found, trans * (1.0 - op), trans)
             walking = found & (trans != 0.0)

@@ -475,3 +475,109 @@ def test_fused_shadow_kernel_equals_plain_and_two_launches(
     assert torch.equal(got[2], w.still.view(n_l, r))
     assert (got[0] == 0.0).float().mean() > 0.02
     assert ((got[0] > 0.0) & (got[0] < 1.0)).any()
+
+
+def _training_updates(sc):
+    """The scene after the training updates of tests/test_trwalk.py:
+    opacity factors x 0.6, the first opacity page moved by +0.17, then
+    -0.09, clipped to [0.05, 0.95]."""
+    import dataclasses
+
+    off, w, h, _ = sc.tr_pages[0]
+    td = sc.tex_data.clone()
+    for step in (0.17, -0.09):
+        td[off:off + w * h] = (td[off:off + w * h] + step).clamp(0.05, 0.95)
+    return dataclasses.replace(sc, tex_data=td,
+                               mat_opacity_factor=sc.mat_opacity_factor * 0.6)
+
+
+@pytest.mark.parametrize("updated", [True, False])
+def test_live_walk_kernels_equal_plain(cuda, showcase_tex48, updated):
+    """The live variants of the alpha walk, the transmittance walk and the
+    fused shadow kernel against their plain live versions on every lane,
+    after the training updates; on untouched tables they also equal the
+    forward kernels (the live plane then holds tr_lut[tr_tex8])."""
+    from path_tracer_torch.ops import cuda_shadow, cuda_trwalk, trwalk
+
+    sc = _training_updates(showcase_tex48) if updated else showcase_tex48
+    live = trwalk.live_tables(sc)
+    r = 5003
+    o, d, g = _foliage_rays(sc, 17, r, cuda)
+    t_op = g.uniform(0.5, 60.0, r).astype(np.float32)
+    t_op[::7] = -1.0
+    t_op = torch.from_numpy(t_op).to(cuda)
+    rnd = torch.from_numpy(g.uniform(size=(8, r)).astype(np.float32)).to(cuda)
+    counts = (cuda_trwalk.alpha_live_launches, cuda_trwalk.alpha_launches)
+    got = cuda_trwalk.alpha_walk(sc, o, d, t_op, rnd, 8, live=live)
+    assert (cuda_trwalk.alpha_live_launches,
+            cuda_trwalk.alpha_launches) == (counts[0] + 1, counts[1])
+    _assert_same(got, trwalk.alpha_walk_plain(sc, o, d, t_op, rnd, 8, live))
+    fwd = cuda_trwalk.alpha_walk(sc, o, d, t_op, rnd, 8)
+    if updated:
+        assert (fwd.accepted != got.accepted).any()
+    else:
+        _assert_same(got, fwd)
+
+    o, ds, tms, pds, is_pt, sp, ouv, osimple = _fused_lanes(sc, 18, 2048,
+                                                            cuda)
+    n_l = len(ds)
+    is_pt3 = torch.cat([torch.full((2048,), pt, device=cuda) for pt in is_pt])
+    walk = (sc, o.repeat(n_l, 1), torch.cat(ds), torch.cat(pds), is_pt3,
+            sp.repeat(n_l, 1), ouv.repeat(n_l, 1), osimple.repeat(n_l),
+            torch.ones_like(is_pt3), 8)
+    before = cuda_trwalk.trans_live_launches
+    got = cuda_trwalk.trans_walk(*walk, live=live)
+    assert cuda_trwalk.trans_live_launches == before + 1
+    _assert_same(got, trwalk.trans_walk_plain(*walk, live))
+    if not updated:
+        _assert_same(got, cuda_trwalk.trans_walk(*walk))
+    fused = (sc, o, ds, tms, pds, is_pt, sp, ouv, osimple, 8)
+    before = cuda_shadow.live_launches
+    got = cuda_shadow.fused_shadow(*fused, live=live)
+    assert cuda_shadow.live_launches == before + 1
+    for a, b in zip(got, cuda_shadow.fused_shadow_plain(*fused, live=live)):
+        assert torch.equal(a, b)
+    if not updated:
+        for a, b in zip(got, cuda_shadow.fused_shadow(*fused)):
+            assert torch.equal(a, b)
+
+
+def test_train_step_on_card(cuda, showcase_tex48):
+    """One make_train_step step on the card over every parameter field of
+    the updated textured showcase: the live walk kernels run (the forward
+    ones do not), the loss and the new parameters are finite, and the loss
+    is the CPU's within 5%. The card and the CPU part on the sphere re-hit
+    flips described above (up to 5% of values); the sum of squares weighs
+    the bright lanes such a flip moves (measured 1.6% apart on an H100)."""
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.ops import cuda_trwalk
+    from path_tracer_torch.parallel import get_params, make_train_step
+    from path_tracer_torch.scene.showcase import showcase_device_scene
+
+    w, h = 64, 48
+    spec = IntegratorSpec(bounces=2, differentiable=True)
+    step = make_train_step(w, h, spec, lr=1e-4)
+    results = []
+    for sc in (_training_updates(showcase_tex48),
+               _training_updates(showcase_device_scene(
+                   48, "cpu", sl_block=256, textured=True))):
+        ids = torch.arange(w * h, dtype=torch.int32, device=sc.device)
+        counts = (cuda_trwalk.alpha_launches, cuda_trwalk.trans_launches,
+                  cuda_trwalk.alpha_live_launches,
+                  cuda_trwalk.trans_live_launches)
+        params = get_params(sc)
+        new, loss = step(params, sc, ids, torch.zeros((w * h, 3),
+                                                      device=sc.device), 1)
+        after = (cuda_trwalk.alpha_launches, cuda_trwalk.trans_launches,
+                 cuda_trwalk.alpha_live_launches,
+                 cuda_trwalk.trans_live_launches)
+        if sc.device.type == "cuda":
+            assert after[:2] == counts[:2]
+            assert after[2] > counts[2] and after[3] > counts[3]
+        assert torch.isfinite(loss)
+        for k, v in new.items():
+            assert torch.isfinite(v).all(), k
+        assert not torch.equal(new["mat_albedo_factor"],
+                               params["mat_albedo_factor"])
+        results.append(float(loss))
+    assert results[0] == pytest.approx(results[1], rel=5e-2)

@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no JAX-package module, no PyYAML and no
 Pillow on its main path (a reference scene, the showcase and the textured
-showcase with its textures written and read, built and rendered), and its
-CUDA wrappers never fall back to the plain versions for a tensor on the
-card."""
+showcase with its textures written and read, built and rendered, and a
+training step on the textured showcase through ``path_tracer_torch.parallel``),
+and its CUDA wrappers never fall back to the plain versions for a tensor on
+the card."""
 import subprocess
 import sys
 from pathlib import Path
@@ -43,6 +44,16 @@ assert partitioned(textured) and textured.tr_kernel_ok
 img = render(textured, Profile(resolution=Resolution(16, 12), samples=1,
                                bounces=2))
 assert img.shape == (12, 16, 3) and img.std() > 0
+
+import torch
+from path_tracer_torch.models.integrator import IntegratorSpec
+from path_tracer_torch.parallel import get_params, make_train_step
+
+step = make_train_step(16, 12, IntegratorSpec(bounces=1, differentiable=True))
+new, loss = step(get_params(textured), textured,
+                 torch.arange(16 * 12, dtype=torch.int32),
+                 torch.zeros((16 * 12, 3)), 1)
+assert torch.isfinite(loss) and torch.isfinite(new["tex_data"]).all()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "path_tracer_tpu",
                                     "yaml", "PIL"))
@@ -65,6 +76,7 @@ def test_port_sources_import_no_jax():
     import ast
 
     files = sorted((REPO / "path_tracer_torch").rglob("*.py"))
+    assert REPO / "path_tracer_torch" / "parallel" / "train.py" in files
     files.append(REPO / "chip_smoke.py")
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -162,14 +174,27 @@ def _launch_counts():
             cuda_bvh.occluded_launches, cuda_bvh.flat2_closest_hit_launches,
             cuda_bvh.flat2_occluded_launches, cuda_trwalk.alpha_launches,
             cuda_trwalk.trans_launches, cuda_spheres.occluded_launches,
-            cuda_spheres.sph_occ_walk_launches, cuda_shadow.launches)
+            cuda_spheres.sph_occ_walk_launches, cuda_shadow.launches,
+            cuda_trwalk.alpha_live_launches, cuda_trwalk.trans_live_launches,
+            cuda_shadow.live_launches)
+
+
+def _fake_live(mode):
+    """Live walk tables (rows, f32 plane) as CUDA-device fakes."""
+    from path_tracer_torch.ops.trwalk import LiveTables
+
+    with mode:
+        return LiveTables(torch.empty((9, 256), device="cuda"),
+                          torch.empty((128, 128), device="cuda"))
 
 
 @pytest.mark.parametrize("kernel", ["triangles", "spheres", "flat",
                                     "flat_spheres", "flat_occluded",
                                     "alpha_walk", "trans_walk", "flat2",
                                     "flat2_occluded", "sph_walk", "sph_occ",
-                                    "sph_occ_walk", "fused_shadow"])
+                                    "sph_occ_walk", "fused_shadow",
+                                    "alpha_walk_live", "trans_walk_live",
+                                    "fused_shadow_live"])
 def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
     """Handed CUDA tensors where the kernel cannot be built or launched,
     a wrapper raises; it never returns the plain version's result."""
@@ -213,6 +238,7 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
                         _plain_must_not_run)
     rows = 9 if kernel == "triangles" else 4
     mode, o, d, tp, table = _fake_cuda_operands(300, rows)
+    live = _fake_live(mode)
     scene = SimpleNamespace(tri_packed_t=table, sph_packed_t=table)
     wrapper = {
         "triangles": cuda_intersect.closest_hit_triangles_cuda,
@@ -235,6 +261,15 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
             cuda_spheres.occluded_spheres_cuda(o, [d], [tp], sc)),
         "fused_shadow": lambda o, d, tp, sc: cuda_shadow.fused_shadow(
             sc, o, [d], [tp], [tp], [True], o, o.narrow(1, 0, 2), tp > 0, 2),
+        "alpha_walk_live": lambda o, d, tp, sc: cuda_trwalk.alpha_walk(
+            sc, o, d, tp, torch.empty((2, 300), device="cuda"), 2,
+            live=live),
+        "trans_walk_live": lambda o, d, tp, sc: cuda_trwalk.trans_walk(
+            sc, o, d, tp, tp > 0, o, o.narrow(1, 0, 2), tp > 1, tp >= 0, 2,
+            live=live),
+        "fused_shadow_live": lambda o, d, tp, sc: cuda_shadow.fused_shadow(
+            sc, o, [d], [tp], [tp], [True], o, o.narrow(1, 0, 2), tp > 0, 2,
+            live=live),
     }[kernel]
     if kernel.startswith("flat"):
         scene = _fake_flat_scene(mode)
@@ -243,9 +278,9 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
     elif kernel == "sph_occ":
         scene = SimpleNamespace(sph_packed_t=table, num_real_spheres=200,
                                 sph_use_blocks=False)
-    elif kernel == "fused_shadow":
+    elif kernel.startswith("fused_shadow"):
         scene = _fake_fused_scene(mode)
-    elif kernel.endswith("walk"):
+    elif kernel.endswith(("walk", "walk_live")):
         scene = _fake_tr_scene(mode)
 
     def _no_toolkit():
@@ -410,6 +445,20 @@ def test_walk_launchers_check_operands():
     for args in bad_trans:
         with mode, pytest.raises(ValueError):
             native.launch_trans_walk(*args, sc, 2)
+    # The live variant: rows and an f32 plane of the scene's table shapes.
+    live = _fake_live(mode)
+    with mode:
+        bad_live = [
+            live._replace(plane=torch.empty((128, 128), dtype=torch.uint8,
+                                            device="cuda")),
+            live._replace(plane=torch.empty((128, 256), device="cuda")),
+            live._replace(rows=torch.empty((8, 256), device="cuda")),
+        ]
+    for bad in bad_live:
+        with mode, pytest.raises(ValueError):
+            native.launch_alpha_walk(o, d, tp, rnd, sc, 2, bad)
+        with mode, pytest.raises(ValueError):
+            native.launch_trans_walk(o, d, aux, sc, 2, bad)
 
 
 def test_any_hit_launchers_check_operands():
