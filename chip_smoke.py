@@ -46,7 +46,18 @@ any error:
    (at most MAX_RANGE_FLIPS of the lanes), and the fused shadow kernel on
    the textured showcase's 3 x 2^18 shadow lanes against its plain
    version and against flat_occluded + trans_walk launched apart, on every
-   lane; each timed;
+   lane; each timed; (3g) the k-nearest transparent hits kernel (row 3,
+   the dense walk's producer) on the textured showcase's middle 2^18
+   camera lanes with the opaque terminator as t_max, its first bounce's
+   3 x 2^18 stacked shadow lanes (a tenth killed) and random foliage rays
+   with dead lanes, at k = 6 and 1, against its plain version on every
+   lane, then timed; (3h) the superleaf tree walk, closest hit and any-hit
+   (rows 7 and 8), on the plain showcase and scene A's whole table:
+   camera, random and first-bounce lanes and the three lights' shadow
+   sets with a tenth killed, on a ragged ray count, against their plain
+   versions on every lane and against the flat (showcase) or flat2
+   (scene A) kernels (the Baldwin-Weber/MT divergence gate), then timed
+   on the showcase;
 4. the main path at full size: ``cube``, ``spheres`` and ``reflection`` at
    1920x1080, 4 bounces, 16 spp through ``render_pixel_sums``, and one
    reference-default frame of ``reflection`` (1920x1080, 64 spp, 4
@@ -64,8 +75,15 @@ any error:
    and through the dense sphere kernel, same seed; then (4f) the textured
    showcase at 1920x1080, 5 bounces, FUSED_SPP spp through the fused
    shadow kernel (``PT_FUSED_SHADOW=1``) and through the two launches, in
-   turns, same seed. Launch counts are set to 0 before each path and read
-   after it;
+   turns, same seed; then (4g) the textured showcase at 1920x1080, 5
+   bounces, TEX_SPP spp through the dense walk (``PT_NO_TRWALK_KERNEL=1
+   PT_DENSE_TR=1``: row 3) and through the walk kernels, ABBA, and one
+   1-spp frame of it through the CLI on the dense route; then (4h) the
+   plain showcase at 1920x1080, 5 bounces, TREE_SPP spp under
+   ``PT_BVH_KERNEL=tree`` (rows 7 and 8) against phase 4's flat render,
+   and one 1-spp textured-showcase frame through the CLI under tree.
+   Every knob is restored after its phase. Launch counts are set to 0
+   before each path and read after it;
 4b. the showcase at 480x270, 4 spp, 5 bounces through the flat walk and
    through brute-force MT over all 100,352 triangles, same seed;
 4c. the textured showcase at 480x270, 2 spp, 5 bounces through the walk
@@ -170,6 +188,11 @@ WAVE = 1 << 18  # lanes of one wavefront of the main path (Profile.tile_rays)
 # the range boundary only.
 MAX_RANGE_FLIPS = 1e-4
 FUSED_SPP = 2  # samples of each 1080p render of the fused-shadow A/B (4f)
+# Row 3's column counts checked (3g): PT_DENSE_TR_K's default, the main
+# path's, and 1.
+KHIT_KS = (6, 1)
+CHECK_LANES = (1 << 16) - 37  # lanes of 3g's and 3h's checks: not whole CTAs
+TREE_SPP = 16  # samples of the plain showcase's 1080p tree-walk render (4h)
 # The training phases (6b, 6c): the central difference's step on the
 # albedo scale and its bound (tests/tools/tpu_kernel_check.py's chip gate),
 # the target render's seed (examples/inverse_rendering.py) and the SGD
@@ -1438,7 +1461,7 @@ def fused_bound(tex, sh, walk_tables) -> dict:
 
 
 def phase_fused_shadow_kernel(device, tex):
-    """3g: the fused shadow kernel on the textured showcase's first-bounce
+    """3f: the fused shadow kernel on the textured showcase's first-bounce
     shadow lanes (3 lights x the middle 2^18 camera lanes, a tenth killed,
     step cap 8) against its timed plain version and against flat_occluded
     + trans_walk launched apart: 0 lanes may differ. Then timed beside
@@ -1632,6 +1655,7 @@ def launch_counts() -> dict:
     from path_tracer_torch.ops import (
         cuda_bvh,
         cuda_intersect,
+        cuda_khit,
         cuda_shadow,
         cuda_spheres,
         cuda_trwalk,
@@ -1651,13 +1675,17 @@ def launch_counts() -> dict:
             "fused_shadow": cuda_shadow.launches,
             "alpha_walk_live": cuda_trwalk.alpha_live_launches,
             "trans_walk_live": cuda_trwalk.trans_live_launches,
-            "fused_shadow_live": cuda_shadow.live_launches}
+            "fused_shadow_live": cuda_shadow.live_launches,
+            "k_nearest_tr_hits": cuda_khit.launches,
+            "tree_closest_hit": cuda_bvh.tree_closest_hit_launches,
+            "tree_occluded": cuda_bvh.tree_occluded_launches}
 
 
 def reset_launch_counts() -> None:
     from path_tracer_torch.ops import (
         cuda_bvh,
         cuda_intersect,
+        cuda_khit,
         cuda_shadow,
         cuda_spheres,
         cuda_trwalk,
@@ -1671,13 +1699,15 @@ def reset_launch_counts() -> None:
     cuda_bvh.flat2_closest_hit_launches = cuda_bvh.flat2_occluded_launches = 0
     cuda_trwalk.alpha_launches = cuda_trwalk.trans_launches = 0
     cuda_trwalk.alpha_live_launches = cuda_trwalk.trans_live_launches = 0
+    cuda_khit.launches = 0
+    cuda_bvh.tree_closest_hit_launches = cuda_bvh.tree_occluded_launches = 0
 
 
 def phase_showcase(device, showcase):
     """The main path of the BVH slice: the plain showcase at 1080p, 5
     bounces, 16 spp, then one reference-default frame of it written to
     disk and rendered through the CLI. Returns the launch counts of the
-    16-spp run."""
+    16-spp run and its (seconds, pixel sums)."""
     import torch
 
     from path_tracer_torch import cli
@@ -1702,7 +1732,7 @@ def phase_showcase(device, showcase):
     sums = render_pixel_sums(showcase, w, h, 1, spp, integrator_spec(profile),
                              tile_rays=profile.tile_rays)
     torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    secs = secs16 = time.perf_counter() - t0
     counts = launch_counts()
     img = finalize(sums, spp, profile, w, h)
     save_png(img, OUT / "showcase_1080p_16spp_b5.png")
@@ -1738,7 +1768,7 @@ def phase_showcase(device, showcase):
     if not cli_counts["flat_closest_hit"] or cli_counts["mt_closest_hit"]:
         raise AssertionError(f"CLI frame did not take the flat kernels: "
                              f"{cli_counts}")
-    return counts
+    return counts, (secs16, sums)
 
 
 def phase_showcase_tex(device, tex):
@@ -2381,6 +2411,464 @@ def phase_train_steps(device, tex):
     return counts
 
 
+def khit_work(o, d, t_max, tris, gbox) -> tuple[int, int]:
+    """(slab tests, MT tests) row 3 needs on these lanes (t_max encoded,
+    <= 0 dead): a slab test of every group box per live lane, and an MT
+    test of every real column of each group its segment reaches."""
+    from path_tracer_torch.ops import cuda_khit
+    from path_tracer_torch.scene.device_scene import KHIT_GRP
+
+    real = (tris[3:9].abs().sum(0) > 0).view(-1, KHIT_GRP).sum(1)
+    slabs = int((t_max > 0.0).sum()) * gbox.shape[1]
+    tests = 0
+    for a in range(0, o.shape[0], 1 << 14):
+        rs = slice(a, a + (1 << 14))
+        reach = cuda_khit._group_reach(o[rs], d[rs], t_max[rs], gbox)
+        tests += int((reach * real).sum())
+    return slabs, tests
+
+
+def phase_khit(device, tex):
+    """3g: row 3 (k_nearest_tr_hits) against its plain version on every
+    lane of the textured showcase: the middle wavefront's 2^18 camera
+    lanes with the opaque terminator as t_max (dead where the segment
+    misses every transparent cluster), its first bounce's 3 x 2^18
+    stacked shadow lanes (t_max the distance to the light with the
+    prefilter's margin, a tenth killed), and random rays through the
+    foliage with random t_max (every 7th lane dead, a ragged count), at
+    k = 6 and 1; then timed at the main path's shapes beside the plain
+    version and the bound. Returns (max abs err, {"camera": (ms, plain
+    ms, bound ms, bound by), "shadow": ...})."""
+    import torch
+
+    from path_tracer_torch.ops import cuda_khit
+    from path_tracer_torch.scene.device_scene import KHIT_GRP
+
+    tris, gbox = tex.khit_tris, tex.khit_gbox
+    log(f"phase 3g: k-nearest transparent hits (row 3), textured showcase: "
+        f"{tex.tri_v0.shape[0] - tex.n_tris_opaque} transparent columns in "
+        f"{gbox.shape[1]} groups of {KHIT_GRP}")
+    rng = np.random.default_rng(20261024)
+    o, d, t_op = alpha_lanes(tex, WAVE, device)
+    sh = shadow_lanes(tex, WAVE, device, rng)
+    m = CHECK_LANES
+    fo, fd = foliage_rays(rng, tex, m, device)
+    f_act = as_cuda(np.arange(m) % 7 != 0, device, bool)
+    sets = {
+        "camera": (o, d, t_op >= 0.0, t_op),
+        "shadow": (sh[0], sh[1], sh[7], sh[2] * 1.0001 + 1e-3),
+        "foliage": (fo, fd, f_act, as_cuda(rng.uniform(0.5, 60.0, m),
+                                           device)),
+    }
+    err = 0.0
+    for label, (ro, rd, act, tm) in sets.items():
+        enc = torch.where(act, tm, -1.0)
+        for k in KHIT_KS:
+            ts, pos = cuda_khit.k_nearest_tr_hits(ro, rd, act, tex, k,
+                                                  t_max=tm)
+            want_ts, want_pos = cuda_khit.k_nearest_tr_hits_plain(
+                ro, rd, enc, tris, gbox, k)
+            off = int(((ts != want_ts) | (pos != want_pos)).any(0).sum())
+            fin = torch.isfinite(want_ts)
+            if fin.any():
+                err = max(err, float((ts - want_ts)[fin].abs().max()))
+            log(f"  {label}, {ro.shape[0]} lanes (live "
+                f"{float((enc > 0).float().mean()):.3f}), k = {k}: lanes off "
+                f"the plain version {off}; hits per live lane "
+                f"{float(fin.sum()) / max(1, int((enc > 0).sum())):.3f}")
+            if off:
+                raise AssertionError("row 3 disagrees with its plain version")
+    out = {}
+    k = KHIT_KS[0]
+    for label in ("camera", "shadow"):
+        ro, rd, act, tm = sets[label]
+        enc = torch.where(act, tm, -1.0)
+        run = lambda: cuda_khit.k_nearest_tr_hits(ro, rd, act, tex, k,
+                                                  t_max=tm)
+        plain = lambda: cuda_khit.k_nearest_tr_hits_plain(ro, rd, enc, tris,
+                                                          gbox, k)
+        ms, plain_ms, ms2 = cuda_ms(run, 20), cuda_ms(plain, 2), cuda_ms(
+            run, 20)
+        slabs, tests = khit_work(ro, rd, enc, tris, gbox)
+        work = bound(slabs * OPS_SLAB + tests * OPS_MT,
+                     nbytes(ro, rd, enc, tris, gbox) + ro.shape[0] * k * 8)
+        log(f"  time row 3, {ro.shape[0]} {label} lanes, k = {k}: kernel "
+            f"{ms:.4f} ms, {ms2:.4f} ms (repeat); plain {plain_ms:.4f} ms; "
+            f"bound {work[0]:.4f} ms ({work[1]}: {slabs} slab tests, {tests} "
+            "MT tests)")
+        out[label] = (min(ms, ms2), plain_ms) + work
+    return err, out
+
+
+def tree_divergence(got, ref) -> tuple[float, float]:
+    """(divergence, flips): the share of lanes where two closest-hit
+    records diverge, a hit/miss flip or both hitting with t apart by more
+    than rtol/atol 5e-5 (the flat2-against-MT gate of
+    tests/tools/tpu_kernel_check.py), and the share that flip hit/miss or
+    prim."""
+    import torch
+
+    hg, hr = torch.isfinite(got.t), torch.isfinite(ref.t)
+    far = hg & hr & ~torch.isclose(got.t, ref.t, rtol=5e-5, atol=5e-5)
+    flip = (hg != hr) | (hg & (got.prim != ref.prim))
+    return (float(((hg != hr) | far).float().mean()),
+            float(flip.float().mean()))
+
+
+def records_off(got, want):
+    """[R] bool: the lanes where two HitRecords differ in any field (NaN
+    equal to NaN)."""
+    import torch
+
+    off = torch.zeros_like(want.t, dtype=torch.bool)
+    for a, b in zip(got, want):
+        off |= (a != b) & ~(torch.isnan(a) & torch.isnan(b)) \
+            if a.is_floating_point() else a != b
+    return off
+
+
+def tree_work(steps, scene):
+    """(result, slab tests, MT tests) of a plain tree walk run to its end
+    (``steps``: cuda_bvh.tree_walk_steps or occluded_tree_steps): the slab
+    tests of the nodes the lanes enter, and the MT tests of the real
+    (nonzero-edge) slots of the leaves they enter themselves."""
+    import torch
+
+    real = (scene.sl_tris_t[3:9].abs().sum(0) > 0).view(
+        -1, scene.sl_block).sum(1)
+    slabs = tests = torch.zeros((), dtype=torch.long, device=real.device)
+    while True:
+        try:
+            lane, visit, leaf = next(steps)
+        except StopIteration as done:
+            return done.value, int(slabs), int(tests)
+        # No boolean indexing: it would sync the card at every step.
+        slabs = slabs + lane.sum()
+        tests = tests + (lane.sum(1) * torch.where(
+            visit, real[(leaf - 1).clamp(min=0)], 0)).sum()
+
+
+def phase_tree_kernels(device, showcase, big):
+    """3h: rows 7 and 8 (the superleaf tree walk) against their plain
+    versions on every lane, on the plain showcase (100,352 terrain
+    triangles, 516 blocks) and scene A's whole table (991,834 triangles,
+    5,518 blocks): camera lanes (every 7th dead), first-bounce lanes
+    (dead where the camera ray missed) and the first bounce's shadow sets
+    toward the three lights with a tenth killed, on a ragged ray count;
+    beside the flat (showcase) or flat2 (scene A) kernels on the same
+    rays, the Baldwin-Weber/MT divergence at most MAX_DIVERGENCE of the
+    lanes on camera and random rays (the gate's own rays); on
+    first-bounce lanes the hit/miss and prim flips at most that, their t
+    reported (a bounce ray that grazes its own surface hits a neighbour
+    at t ~ 1e-3, where the Baldwin-Weber plane constant cancels: ROADMAP
+    Queue 3). Then on the showcase at the main path's shapes (2^18 camera,
+    first-bounce and shadow lanes): held against the plain version on
+    every lane again, the plain version's run counting the work for the
+    bound, and timed. Returns (closest max abs err, any-hit max abs err,
+    {"camera": (ms, plain ms, bound ms, bound by), "first bounce": ...,
+    "occluded": ... per launch, one light})."""
+    import torch
+
+    from path_tracer_torch.ops import cuda_bvh
+
+    log("phase 3h: superleaf tree walk (rows 7 and 8)")
+    rng = np.random.default_rng(20261025)
+    n = CHECK_LANES
+    c_err = o_err = 0.0
+    for name, sc, other, other_occ in (
+            ("showcase", showcase, cuda_bvh.closest_hit_triangles_flat,
+             cuda_bvh.occluded_triangles_flat_multi),
+            (f"scene A (grid {BIG_GRID})", big,
+             cuda_bvh.closest_hit_triangles_flat2,
+             cuda_bvh.occluded_triangles_flat2_multi)):
+        log(f"  {name}: {sc.num_real_triangles} triangles, "
+            f"{sc.sl_n_blocks} blocks of {sc.sl_block}, {sc.sl_n_nodes} "
+            f"forest nodes, {nbytes(sc.sl_tris_t) / 1e6:.1f} MB of MT rows")
+        o, d = camera_rays(sc, n, device)
+        tp = torch.full((n,), -1.0, device=device)
+        tp[::7] = float("inf")
+        v = sc.tri_v0[: sc.num_real_triangles].cpu().numpy()
+        ro_, rd_ = random_rays(rng, n, v.min(0), v.max(0), device)
+        (bo, bd, btp), (so, sds, stms) = first_bounce(sc, n, device)
+        for label, (ro, rd, rtp) in (
+                ("camera", (o, d, tp)),
+                ("random", (ro_, rd_, torch.full((n,), -1.0,
+                                                 device=device))),
+                ("first bounce", (bo, bd, btp))):
+            got = cuda_bvh.closest_hit_triangles_tree(ro, rd, rtp, sc)
+            want = cuda_bvh.closest_hit_triangles_tree_plain(ro, rd, rtp, sc)
+            off = records_off(got, want)
+            fin = torch.isfinite(want.t)
+            c_err = max(c_err, float((got.t - want.t)[fin].abs().max())
+                        if fin.any() else 0.0)
+            div, flips = tree_divergence(got, other(ro, rd, rtp, sc))
+            gated = flips if label == "first bounce" else div
+            log(f"  {name} {label}, {n} lanes (hit "
+                f"{float(fin.float().mean()):.3f}): lanes off the plain "
+                f"version {int(off.sum())}; against the "
+                f"{other.__name__.split('_')[-1]} kernel divergence "
+                f"{div:.2e}, hit/miss or prim flips {flips:.2e} (gated "
+                f"{'flips' if label == 'first bounce' else 'divergence'} "
+                f"<= {MAX_DIVERGENCE:g})")
+            if off.any() or gated > MAX_DIVERGENCE:
+                raise AssertionError(f"{name}: tree closest hit disagrees")
+        kill = as_cuda(rng.uniform(size=(len(stms), n)) < 0.1, device, bool)
+        stms = [torch.where(k, -1.0, tm) for k, tm in zip(kill, stms)]
+        flat = other_occ(so, sds, stms, sc)
+        for i, (sd, tm) in enumerate(zip(sds, stms)):
+            got = cuda_bvh.occluded_triangles_tree(so, sd, tm, sc)
+            want = cuda_bvh.occluded_triangles_tree_plain(so, sd, tm, sc)
+            off, flips = int((got != want).sum()), float(
+                (got != flat[i]).float().mean())
+            o_err = max(o_err, float((got != want).float().max()))
+            log(f"  {name} shadow set {i} ({n} lanes, occluded "
+                f"{float(got.float().mean()):.3f}): lanes off the plain "
+                f"version {off}; flips against the other kernel "
+                f"{flips:.2e} (<= {MAX_DIVERGENCE:g}); dead lanes occluded "
+                f"{bool(got[tm < 0].all())}")
+            if off or flips > MAX_DIVERGENCE or not bool(got[tm < 0].all()):
+                raise AssertionError(f"{name}: tree any-hit disagrees")
+
+    sc, n = showcase, WAVE
+    (bo, bd, btp), (so, sds, stms) = first_bounce(sc, n, device)
+    o, d = camera_rays(sc, n, device)
+    tables = (sc.sl_nodes6, sc.sl_meta6, sc.sl_tris_t)
+    out = {}
+    for label, (ro, rd, rtp) in (
+            ("camera", (o, d, torch.full((n,), -1.0, device=device))),
+            ("first bounce", (bo, bd, btp))):
+        run = lambda: cuda_bvh.closest_hit_triangles_tree(ro, rd, rtp, sc)
+        ms = cuda_ms(run, 10)
+        plain_ms, (walk, slabs, tests) = timed_once(
+            lambda: tree_work(cuda_bvh.tree_walk_steps(ro, rd, rtp, sc), sc))
+        ms2 = cuda_ms(run, 10)
+        got, want = run(), cuda_bvh.tree_record(*walk, sc)
+        off = int(records_off(got, want).sum())
+        fin = torch.isfinite(want.t)
+        c_err = max(c_err, float((got.t - want.t)[fin].abs().max())
+                    if fin.any() else 0.0)
+        flat_ms = cuda_ms(lambda: cuda_bvh.closest_hit_triangles_flat(
+            ro, rd, rtp, sc), 10)
+        work = bound(slabs * OPS_SLAB + tests * OPS_MT,
+                     nbytes(ro, rd, rtp, *tables) + n * (4 * 4 + 4))
+        log(f"  time tree closest hit, {n} {label} rays: kernel {ms:.4f} ms, "
+            f"{ms2:.4f} ms (repeat); lanes off the plain version {off}; the "
+            f"flat kernel on the same rays {flat_ms:.4f} ms; plain (work "
+            f"counted) {plain_ms:.4f} ms; bound {work[0]:.4f} ms ({work[1]}: "
+            f"{slabs} slab tests, {tests} MT tests)")
+        if off:
+            raise AssertionError(f"tree closest hit disagrees on {label} "
+                                 "rays at the main path's shape")
+        out[label] = (min(ms, ms2), plain_ms) + work
+    run = lambda: [cuda_bvh.occluded_triangles_tree(so, sd, tm, sc)
+                   for sd, tm in zip(sds, stms)]
+    ms = cuda_ms(run, 10)
+    plain_ms, plain = timed_once(lambda: [
+        tree_work(cuda_bvh.occluded_tree_steps(so, sd, tm, sc), sc)
+        for sd, tm in zip(sds, stms)])
+    ms2 = cuda_ms(run, 10)
+    offs = [int((g != want).sum()) for g, (want, _, _) in zip(run(), plain)]
+    flat_ms = cuda_ms(lambda: cuda_bvh.occluded_triangles_flat_multi(
+        so, sds, stms, sc), 10)
+    works = [bound(slabs * OPS_SLAB + tests * OPS_MT,
+                   nbytes(so, sd, tm, *tables) + 4 * n)
+             for (_, slabs, tests), sd, tm in zip(plain, sds, stms)]
+    n_l = len(sds)
+    log(f"  time tree any-hit, {n} first-bounce shadow rays x L={n_l} (one "
+        f"launch per light): kernel {ms:.4f} ms, {ms2:.4f} ms (repeat) for "
+        f"the {n_l} launches; lanes off the plain version per light {offs}; "
+        f"the flat any-hit (one launch) {flat_ms:.4f} ms; plain (work "
+        f"counted) {plain_ms:.4f} ms; bound per launch "
+        f"{[round(w[0], 4) for w in works]} ms ({works[0][1]}: slab and MT "
+        f"tests {[(sl, te) for _, sl, te in plain]})")
+    if any(offs):
+        raise AssertionError("tree any-hit disagrees at the main path's "
+                             "shape")
+    # One launch's numbers: the kernels line is per main-path launch.
+    out["occluded"] = (min(ms, ms2) / n_l, plain_ms / n_l,
+                       sum(w[0] for w in works) / n_l, works[0][1])
+    return c_err, o_err, out
+
+
+def with_env(env: dict):
+    """Set environment knobs; returns a function that restores them."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+
+    def restore():
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    return restore
+
+
+DENSE_ENV = {"PT_NO_TRWALK_KERNEL": "1", "PT_DENSE_TR": "1"}
+
+
+def timed_render(sc, w, h, spp, bounces, env=None):
+    """(seconds, pixel sums, launch counts) of one render_pixel_sums call
+    (counts set to 0 just before it), with ``env`` knobs set for it."""
+    import torch
+
+    from path_tracer_torch.config import Profile, Resolution
+    from path_tracer_torch.models.renderer import (
+        integrator_spec,
+        render_pixel_sums,
+    )
+
+    profile = Profile(resolution=Resolution(w, h), bounces=bounces,
+                      samples=spp)
+    restore = with_env(env or {})
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        sums = render_pixel_sums(sc, w, h, 1, spp, integrator_spec(profile),
+                                 tile_rays=profile.tile_rays)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        restore()
+    return secs, sums, counts
+
+
+def cli_frame(path: Path, png: Path, env: dict, w: int = 1920,
+              h: int = 1080, bounces: int = 5):
+    """(seconds, launch counts) of one 1-spp frame through the CLI with
+    ``env`` knobs set for it."""
+    import torch
+
+    from path_tracer_torch import cli
+
+    prof = path.parent / "profile_1spp.yaml"
+    prof.write_text(f"resolution: {{width: {w}, height: {h}}}\n"
+                    f"samples: 1\nbounces: {bounces}\n")
+    restore = with_env(env)
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cli.main(["render", str(path), "-o", str(png), "-q", "-p", str(prof),
+                  "--device", "cuda"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        restore()
+    return secs, counts
+
+
+def phase_dense_route(device, tex, tex_path: Path):
+    """4g: the textured showcase at 1920x1080, 5 bounces, TEX_SPP spp
+    through the dense walk (PT_NO_TRWALK_KERNEL=1 PT_DENSE_TR=1: row 3,
+    no walk kernel) and through the walk kernels, same seed, in turns
+    (ABBA): at most MAX_WALK_PIXELS of the pixels beyond 1e-3; seconds
+    per sample and row 3's launches per sample; then one 1-spp frame of
+    the scene file through the CLI on the dense route. Returns the first
+    dense run's launch counts."""
+    from path_tracer_torch.models.renderer import finalize
+    from path_tracer_torch.config import Profile, Resolution
+    from path_tracer_torch.utils.image_io import save_png
+
+    w, h, spp, bounces = 1920, 1080, TEX_SPP, 5
+    log(f"phase 4g: textured showcase, the dense walk (row 3) against the "
+        f"walk kernels, {w}x{h}, {bounces} bounces, {spp} spp, ABBA")
+    runs = {"dense": [], "kernels": []}
+    first = {}
+    for label in ("kernels", "dense", "dense", "kernels"):
+        secs, sums, counts = timed_render(
+            tex, w, h, spp, bounces, DENSE_ENV if label == "dense" else None)
+        runs[label].append(secs / spp)
+        first.setdefault(label, (sums, counts))
+        log(f"  {label}: {secs:.3f} s ({secs / spp:.3f} s per sample), "
+            f"launches {counts}")
+    dense, dense_counts = first["dense"]
+    kern, kern_counts = first["kernels"]
+    if not dense_counts["k_nearest_tr_hits"] or dense_counts["alpha_walk"] \
+            or dense_counts["trans_walk"]:
+        raise AssertionError(f"the dense route did not take row 3 alone: "
+                             f"{dense_counts}")
+    diff = np.abs(dense / spp - kern / spp).max(axis=-1)
+    frac = float((diff > 1e-3).mean())
+    img = finalize(dense, spp, Profile(resolution=Resolution(w, h),
+                                       bounces=bounces, samples=spp), w, h)
+    save_png(img, OUT / f"showcase_tex_dense_1080p_{spp}spp_b5.png")
+    log(f"  dense against the walk kernels: pixels beyond 1e-3 {frac:.5f} "
+        f"(<= {MAX_WALK_PIXELS}), max {diff.max():.3e}; seconds per sample "
+        f"dense {runs['dense']}, walk kernels {runs['kernels']}; row 3 "
+        f"launches per sample {dense_counts['k_nearest_tr_hits'] / spp:.1f}; "
+        f"kernel launches per sample, dense "
+        f"{sum(dense_counts.values()) / spp:.1f}, walk kernels "
+        f"{sum(kern_counts.values()) / spp:.1f}; finite "
+        f"{bool(np.isfinite(dense).all())}")
+    if not np.isfinite(dense).all() or frac > MAX_WALK_PIXELS:
+        raise AssertionError("the dense route and the walk kernels disagree")
+    png = OUT / "showcase_tex_dense_cli_1spp.png"
+    secs, counts = cli_frame(tex_path, png, DENSE_ENV)
+    log(f"  dense route via the CLI (1 spp, scene load included): "
+        f"{secs:.3f} s, launches {counts}, png {png.stat().st_size} bytes")
+    if not counts["k_nearest_tr_hits"] or counts["alpha_walk"]:
+        raise AssertionError(f"CLI frame did not take row 3: {counts}")
+    return dense_counts
+
+
+def phase_tree_route(device, showcase, flat, tex_path: Path):
+    """4h: the plain showcase at 1920x1080, 5 bounces, TREE_SPP spp under
+    PT_BVH_KERNEL=tree (rows 7 and 8, light by light) against the flat
+    route's render of the same frame (``flat``: (seconds, sums) of phase
+    4's showcase run): at least MIN_PIXELS_WITHIN of the values within
+    rtol 1e-3 / atol 1e-4 and mean energy within MAX_ENERGY_REL; then one
+    1-spp frame of the textured showcase's scene file through the CLI
+    under tree (the partition stands down: row 7 serves the whole-scene
+    walks). Returns the tree run's launch counts."""
+    from path_tracer_torch.config import Profile, Resolution
+    from path_tracer_torch.models.renderer import finalize
+    from path_tracer_torch.utils.image_io import save_png
+
+    w, h, spp, bounces = 1920, 1080, TREE_SPP, 5
+    log(f"phase 4h: the plain showcase through the tree walk "
+        f"(PT_BVH_KERNEL=tree), {w}x{h}, {bounces} bounces, {spp} spp")
+    tree_env = {"PT_BVH_KERNEL": "tree"}
+    secs, got, counts = timed_render(showcase, w, h, spp, bounces, tree_env)
+    flat_secs, want = flat
+    img = finalize(got, spp, Profile(resolution=Resolution(w, h),
+                                     bounces=bounces, samples=spp), w, h)
+    save_png(img, OUT / f"showcase_tree_1080p_{spp}spp_b5.png")
+    got, want = got / spp, want / spp
+    within = float((np.abs(got - want) <= 1e-4 + 1e-3 * np.abs(want)).mean())
+    energy = abs(float(got.mean()) - float(want.mean())) / float(want.mean())
+    log(f"  tree: {secs:.3f} s ({secs / spp:.3f} s per sample; the flat "
+        f"route {flat_secs:.3f} s, {flat_secs / spp:.3f} s per sample), "
+        f"launches {counts}; values within rtol 1e-3 / atol 1e-4 of the "
+        f"flat route {within:.5f} (>= {MIN_PIXELS_WITHIN}); mean energy "
+        f"{got.mean():.6f} vs {want.mean():.6f}, rel diff {energy:.2e} (<= "
+        f"{MAX_ENERGY_REL})")
+    if not (counts["tree_closest_hit"] and counts["tree_occluded"]) or \
+            counts["flat_closest_hit"] or counts["flat_occluded"] or \
+            counts["flat2_closest_hit"] or counts["flat2_occluded"]:
+        raise AssertionError(f"the tree route did not take rows 7 and 8 "
+                             f"alone: {counts}")
+    if not (np.isfinite(got).all() and within >= MIN_PIXELS_WITHIN
+            and energy <= MAX_ENERGY_REL):
+        raise AssertionError("tree and flat renders disagree")
+    png = OUT / "showcase_tex_tree_cli_1spp.png"
+    cli_secs, cli_counts = cli_frame(tex_path, png, tree_env)
+    log(f"  textured showcase under tree via the CLI (1 spp, scene load "
+        f"included): {cli_secs:.3f} s, launches {cli_counts}, png "
+        f"{png.stat().st_size} bytes")
+    if not cli_counts["tree_closest_hit"] or cli_counts["alpha_walk"] \
+            or cli_counts["flat_closest_hit"]:
+        raise AssertionError(f"CLI frame did not take the tree walk: "
+                             f"{cli_counts}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2462,12 +2950,28 @@ def main() -> int:
     occ_walk_err, occ_walk_time = phase_sphere_any_hit(
         device, grid, "sphere any-hit walk")
     fused_err, fused_time = phase_fused_shadow_kernel(device, tex)
+    khit_err, khit_times = phase_khit(device, tex)
+    tree_err, tree_occ_err, tree_times = phase_tree_kernels(device, showcase,
+                                                            big)
     launches = phase_main_path(device)
-    flat_launches = phase_showcase(device, showcase)
+    flat_launches, flat_render = phase_showcase(device, showcase)
     walk_launches = phase_showcase_tex(device, tex)
     big_launches = phase_big_showcase(device, big)
     grid_launches = phase_sphere_grid(device, grid)
     fused_launches = phase_fused_showcase(device, tex)
+    # The textured showcase's scene file for 4g's and 4h's CLI frames,
+    # written under the git-ignored build/ and removed after them.
+    from path_tracer_torch.scene.showcase import write_showcase_scene_dir
+
+    routes_dir = REPO / "build" / "chip_smoke_showcase_tex_routes"
+    tex_path = write_showcase_scene_dir(routes_dir, grid=SHOWCASE_GRID,
+                                        textured=True)
+    try:
+        dense_launches = phase_dense_route(device, tex, tex_path)
+        tree_launches = phase_tree_route(device, showcase, flat_render,
+                                         tex_path)
+    finally:
+        shutil.rmtree(routes_dir, ignore_errors=True)
     phase_bvh_vs_brute(device, showcase)
     phase_walks_vs_cast(device, tex)
     phase_oracle(device)
@@ -2526,6 +3030,15 @@ def main() -> int:
         entry("fused_shadow_live", "fused_shadow.cu", "pallas_shadow.py:141",
               fused_train_launches["fused_shadow_live"],
               *live_stats["fused_shadow_live"]),
+        entry("k_nearest_tr_hits", "khit.cu", "pallas_intersect.py:162",
+              dense_launches["k_nearest_tr_hits"], khit_err,
+              khit_times["camera"]),
+        entry("tree_closest_hit", "tree_walk.cu", "pallas_bvh.py:82",
+              tree_launches["tree_closest_hit"], tree_err,
+              tree_times["camera"]),
+        entry("tree_occluded", "tree_walk.cu", "pallas_bvh.py:363",
+              tree_launches["tree_occluded"], tree_occ_err,
+              tree_times["occluded"]),
     ]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} "
         "s")

@@ -31,11 +31,22 @@ Semantics reproduced exactly (reference quirks included):
   ``num_transparent_hits`` + 1, which reproduces the reference's unbounded
   sorted-hit iteration.
 - Fused shadows: with the environment variable ``PT_FUSED_SHADOW=1`` (the
-  JAX package's own opt-in, off by default there and here; the port's
-  only such knob), a partitioned scene with the walk kernels' tables and
-  a flat whole-scene walk casts every light's opaque any-hit and
-  transmittance walk in one launch (``ops/cuda_shadow.py``), the same
-  values as the two launches.
+  JAX package's own opt-in, off by default there and here), a partitioned
+  scene with the walk kernels' tables and a flat whole-scene walk casts
+  every light's opaque any-hit and transmittance walk in one launch
+  (``ops/cuda_shadow.py``), the same values as the two launches.
+- The partitioned walks route as the JAX package's do on its chip: the
+  walk kernels first (off with ``PT_NO_TRWALK_KERNEL=1``); else the dense
+  walk with ``PT_DENSE_TR=1`` (off with ``PT_NO_DENSE_TR=1``) when the
+  transparent slice holds 0 < T <= ``PT_DENSE_TR_MAX`` (4,096) triangles:
+  one ``cuda_khit.k_nearest_tr_hits`` launch yields each lane's
+  ``PT_DENSE_TR_K`` (6) nearest transparent hits, the walk visits those
+  columns with no further cast and the exact cast walk goes on past them;
+  else the cast walk. The route is the same on the CPU and the card (the
+  JAX package takes the dense walk by default off its chip; the port
+  does not). With ``PT_BVH_KERNEL=tree`` (``ops/intersect.py``) the
+  partition stands down and the whole-scene walks run. Every knob is read
+  at call time.
 - Emissive adds throughput*emissive each bounce, and AGAIN inside
   eval_direct scaled by light radiance (reference quirk).
 - Point lights: radiance = color/(4*pi*r^2).
@@ -81,6 +92,7 @@ import torch
 
 from path_tracer_torch.ops import (
     brdf,
+    cuda_khit,
     cuda_shadow,
     cuda_trwalk,
     rng,
@@ -89,16 +101,19 @@ from path_tracer_torch.ops import (
 )
 from path_tracer_torch.ops.cuda_spheres import occluded_spheres_cuda
 from path_tracer_torch.ops.intersect import (
+    KIND_NONE,
     KIND_TRIANGLE,
     HitRecord,
     _miss_record,
     _walk_variant,
     closest_hit,
+    mt_rows,
     occluded_multi,
     shadow_t_max,
 )
 from path_tracer_torch.ops.trwalk import ALPHA_MIN_OPACITY
 from path_tracer_torch.scene.device_scene import (
+    TorchScene,
     opaque_view,
     partitioned,
     transparent_view,
@@ -284,13 +299,15 @@ def _select(mask, a: HitRecord, b: HitRecord) -> HitRecord:
 
 
 def _alpha_cast_walk(scene, cast_scene, o, d, pix, sample_id, bounce, spec,
-                     steps, k0, state, t_op=None):
+                     steps, k0, state, t_op=None, prim_base: int = 0):
     """Steps k0 .. steps-1 of the alpha re-cast walk, stopping when no lane
     walks. ``state`` = (sel, seen, accepted, t_prev, active). Step k casts
     against ``cast_scene`` past t_prev, takes the hit (within t_op, when
     given: the partitioned walk's opaque terminator, whose transparent
     view holds no spheres) and accepts it with uniform site SITE_ALPHA + k.
-    Returns (sel, seen, accepted)."""
+    ``prim_base`` is added to the cast's prims (a view whose triangles
+    start there, ``_transparent_mt_view``). Returns (sel, seen,
+    accepted)."""
     sel, seen, accepted, t_prev, active = state
     stride = rng.site_layout(steps)[3]
     for k in range(k0, steps):
@@ -298,6 +315,7 @@ def _alpha_cast_walk(scene, cast_scene, o, d, pix, sample_id, bounce, spec,
             break
         hit = closest_hit(o, d, t_prev, cast_scene, active=active,
                           include_spheres=t_op is None)
+        hit = hit._replace(prim=hit.prim + prim_base)
         found = active & hit.valid
         if t_op is not None:
             found = found & (hit.t < t_op)
@@ -347,17 +365,108 @@ def _alpha_walk(scene, o, d, walking, pix, sample_id, bounce, spec,
     return sel, seen, walking & ~seen
 
 
+def _use_tr_kernel(scene) -> bool:
+    """The walk kernels serve the partitioned walks: the scene has their
+    tables, unless ``PT_NO_TRWALK_KERNEL=1`` (the JAX package's
+    ``_use_tr_kernel``; the port has no interpret mode)."""
+    return (os.environ.get("PT_NO_TRWALK_KERNEL") != "1"
+            and scene.tr_kernel_ok)
+
+
+def _use_dense_tr(scene) -> bool:
+    """The dense transparent walk serves the partitioned walks where the
+    walk kernels do not: only with ``PT_DENSE_TR=1``, never with
+    ``PT_NO_DENSE_TR=1``, and only for 0 < T <= ``PT_DENSE_TR_MAX`` (4,096)
+    triangles past ``n_tris_opaque`` (padding rows included, as the JAX
+    package counts them). The JAX package's ``_use_dense_tr`` also turns it
+    on by default off its chip; the port routes the same way on the CPU as
+    on the card."""
+    if os.environ.get("PT_NO_DENSE_TR") == "1":
+        return False
+    t = scene.tri_v0.shape[0] - scene.n_tris_opaque
+    if not 0 < t <= int(os.environ.get("PT_DENSE_TR_MAX", "4096")):
+        return False
+    return os.environ.get("PT_DENSE_TR") == "1"
+
+
+def _dense_k(scene, steps: int) -> int:
+    """Columns the dense producer yields per lane: min(steps, T,
+    ``PT_DENSE_TR_K`` (6)); walks deeper go on in the cast walk."""
+    return min(steps, scene.tri_v0.shape[0] - scene.n_tris_opaque,
+               int(os.environ.get("PT_DENSE_TR_K", "6")))
+
+
+def _dense_tr_hits(scene, o, d, steps: int, active, t_max):
+    """(ts, pos) [kk, R]: each lane's kk = ``_dense_k`` nearest transparent
+    hits, ascending, duplicate ts visited once, +inf past the end: one
+    ``k_nearest_tr_hits`` launch on the card, its plain version on the
+    CPU."""
+    return cuda_khit.k_nearest_tr_hits(o, d, active, scene,
+                                       _dense_k(scene, steps), t_max=t_max)
+
+
+def _dense_hit_columns(scene, o, d, ts, pos) -> HitRecord:
+    """The flat [kk*R] HitRecord of every precomputed hit (column k of lane
+    i at k*R + i): u, v and backface recomputed by MT from
+    ``tri_packed_t``, the global prim ``n_tris_opaque + pos``; exhausted
+    entries (t = +inf) carry kind NONE."""
+    kk, r = ts.shape
+    prim = (scene.n_tris_opaque + pos).reshape(kk * r)
+    tf = ts.reshape(kk * r)
+    fin = torch.isfinite(tf)
+    tri9 = scene.tri_packed_t[:, torch.clamp(
+        prim, max=scene.tri_packed_t.shape[1] - 1).long()]
+    _, u, v, det, _ = mt_rows([o[:, k].repeat(kk) for k in range(3)],
+                              [d[:, k].repeat(kk) for k in range(3)], tri9)
+    return HitRecord(t=tf, kind=torch.where(fin, KIND_TRIANGLE, KIND_NONE).to(
+        torch.int32), prim=prim.to(torch.int32), u=u, v=v, backface=det < 0.0)
+
+
+def _transparent_mt_view(scene) -> TorchScene:
+    """A brute-force view of the transparent slice (triangles
+    ``n_tris_opaque`` on, zero rows padding it to a multiple of 256): its
+    casts go through the MT kernel (``cuda_intersect``) in the dense
+    producer's arithmetic, and report prims from 0 (add
+    ``n_tris_opaque``)."""
+    c = scene.n_tris_opaque
+    pad = (-(scene.tri_v0.shape[0] - c)) % 256
+
+    def cut(x):
+        return torch.nn.functional.pad(x[c:], (0, 0, 0, pad)).contiguous()
+
+    return dataclasses.replace(
+        scene, use_bvh=False, tri_v0=cut(scene.tri_v0),
+        tri_e1=cut(scene.tri_e1), tri_e2=cut(scene.tri_e2),
+        tri_packed_t=cut(scene.tri_packed_t.T).T.contiguous(),
+        num_real_triangles=scene.num_real_triangles - c)
+
+
+def _residual_view(scene) -> tuple[TorchScene, int]:
+    """(cast scene, prim base) of the exact cast walk that goes on past
+    the first steps of a partitioned walk: the transparent view (the flat
+    or flat2 walk, Baldwin-Weber, as the walk kernels test), or after the
+    dense walk's columns the brute-force MT view of the same triangles, so
+    that the strict t > t_prev hand-off skips exactly the hits the
+    producer's MT gave (a Baldwin-Weber t can lie an ulp past the MT t of
+    the same triangle and visit it twice)."""
+    if not _use_tr_kernel(scene) and _use_dense_tr(scene):
+        return _transparent_mt_view(scene), scene.n_tris_opaque
+    return transparent_view(scene), 0
+
+
 def _alpha_walk_partitioned(scene, o, d, walking, pix, sample_id, bounce,
                             spec, steps: int, live=None):
     """The alpha walk of a partitioned scene: one closest-hit cast against
     the opaque view (all spheres included) gives the terminator t_op; the
     walk visits only transparent triangles in front of it, at the same
     step indices as the whole-scene walk (the opaque hit accepts without
-    drawing). With ``tr_kernel_ok`` the first ``TRWALK_K`` steps run in the
-    alpha walk kernel and lanes still walking go on in the exact cast walk
-    over the transparent view; without it the cast walk does every step.
-    If no hit accepts, the opaque hit shades where there is one, else the
-    farthest transparent hit visited."""
+    drawing). With the walk kernels (``_use_tr_kernel``) the first
+    ``TRWALK_K`` steps run in the alpha walk kernel; else with the dense
+    walk (``_use_dense_tr``) the first kk steps visit the producer's
+    columns, their opacities sampled in one batch; lanes still walking go
+    on in the exact cast walk over the transparent view, which otherwise
+    does every step. If no hit accepts, the opaque hit shades where there
+    is one, else the farthest transparent hit visited."""
     r = o.shape[0]
     dev = o.device
     hit_op = closest_hit(o, d, torch.full((r,), -1.0, device=dev),
@@ -371,11 +480,11 @@ def _alpha_walk_partitioned(scene, o, d, walking, pix, sample_id, bounce,
     seen, accepted, still = no, no, walk_active
     t_prev = torch.full((r,), -1.0, device=dev)
     k0 = 0
-    if scene.tr_kernel_ok:
+    stride = rng.site_layout(steps)[3]
+    if _use_tr_kernel(scene):
         k0 = min(steps, trwalk.TRWALK_K)
         still = no
         if bool(walk_active.any()):
-            stride = rng.site_layout(steps)[3]
             uniforms = [rng.uniform(pix, sample_id,
                                     rng.SITE_ALPHA + k + stride * bounce,
                                     spec.seed) for k in range(k0)]
@@ -393,37 +502,66 @@ def _alpha_walk_partitioned(scene, o, d, walking, pix, sample_id, bounce,
                 prim=prim.to(torch.int32), u=w.u, v=w.v, backface=w.dn > 0.0)
             seen, accepted, still, t_prev = (w.seen, w.accepted, w.still,
                                              w.t_prev)
+    elif _use_dense_tr(scene):
+        k0 = _dense_k(scene, steps)
+        if bool(walk_active.any()):
+            ts, pos = _dense_tr_hits(scene, o, d, steps, walk_active, t_op)
+            cols = _dense_hit_columns(scene, o, d, ts, pos)
+            op = texturing.sample_opacity(scene, *_hit_model_uv(scene, cols))
+            for k in range(k0):
+                hit = HitRecord(*[f[k * r:(k + 1) * r] for f in cols])
+                found = still & hit.valid & (hit.t < t_op)
+                rnd = rng.uniform(pix, sample_id,
+                                  rng.SITE_ALPHA + k + stride * bounce,
+                                  spec.seed)
+                opk = op[k * r:(k + 1) * r]
+                accept = (opk >= 1.0) | ((opk > ALPHA_MIN_OPACITY)
+                                         & (rnd < opk))
+                sel = _select(found, hit, sel)
+                seen = seen | found
+                accepted = accepted | (found & accept)
+                still = found & ~accept
+                t_prev = torch.where(still, hit.t, t_prev)
     if k0 < steps:
+        view, base = _residual_view(scene)
         sel, seen, accepted = _alpha_cast_walk(
-            scene, transparent_view(scene), o, d, pix, sample_id, bounce,
-            spec, steps, k0, (sel, seen, accepted, t_prev, still), t_op)
+            scene, view, o, d, pix, sample_id, bounce, spec, steps, k0,
+            (sel, seen, accepted, t_prev, still), t_op, prim_base=base)
     op_found = walking & hit_op.valid
     sel = _select(op_found & ~accepted, hit_op, sel)
     seen = seen | op_found
     return sel, seen, walking & ~seen
 
 
+def _occluder_dist(s_o, s_d, t, surf_pos):
+    """[R] distance from the surface point to the occluder at t (0 on a
+    miss's +inf)."""
+    t = torch.where(torch.isfinite(t), t, 0.0)
+    oc = s_o + s_d * t[:, None] - surf_pos
+    return torch.sqrt(oc[:, 0] * oc[:, 0] + oc[:, 1] * oc[:, 1]
+                      + oc[:, 2] * oc[:, 2])
+
+
 @torch.no_grad()
 def _trans_cast_walk(scene, cast_scene, s_o, s_d, pd, is_pt, surf_pos,
                      orig_uv, orig_simple, steps, k0, trans, t_prev,
-                     walking, include_spheres: bool):
+                     walking, include_spheres: bool, prim_base: int = 0):
     """Steps k0 .. steps-1 of the transmittance re-cast walk, stopping when
     no lane walks: trans *= 1 - op per occluder in distance order, until
     trans == 0. Point lanes (``is_pt``) stop at the first occluder farther
     from the surface point than pd and sample the occluder's material at
-    the ORIGINAL hit's uv and type; other lanes at the occluder's own."""
+    the ORIGINAL hit's uv and type; other lanes at the occluder's own.
+    ``prim_base`` as for ``_alpha_cast_walk``."""
     for _ in range(k0, steps):
         if not bool(walking.any()):
             break
         hit = closest_hit(s_o, s_d, t_prev, cast_scene, active=walking,
                           include_spheres=include_spheres)
+        hit = hit._replace(prim=hit.prim + prim_base)
         found = walking & hit.valid
         model, uv, simple = _hit_model_uv(scene, hit)
-        t = torch.where(torch.isfinite(hit.t), hit.t, 0.0)
-        oc = s_o + s_d * t[:, None] - surf_pos
-        occ_dist = torch.sqrt(oc[:, 0] * oc[:, 0] + oc[:, 1] * oc[:, 1]
-                              + oc[:, 2] * oc[:, 2])
-        found = found & ~(is_pt & (occ_dist > pd))
+        found = found & ~(is_pt & (_occluder_dist(s_o, s_d, hit.t, surf_pos)
+                                   > pd))
         uv = torch.where(is_pt[:, None], orig_uv, uv)
         simple = torch.where(is_pt, orig_simple, simple)
         op = texturing.sample_opacity(scene, model, uv, simple)
@@ -486,8 +624,10 @@ def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, steps,
     lights' any-hit results against the opaque view (an opaque occluder
     in range zeroes the product whatever the order); the transparent
     transmittance walks of all lights run as one stacked [L*R] walk: the
-    transmittance walk kernel for the first ``TRWALK_K`` steps when
-    ``tr_kernel_ok``, then the exact cast walk over the transparent view.
+    transmittance walk kernel for the first ``TRWALK_K`` steps
+    (``_use_tr_kernel``), else the dense walk's kk columns
+    (``_use_dense_tr``; point lanes sample the original hit's uv and type
+    over them too), then the exact cast walk over the transparent view.
     Directional lanes have pd = +inf; point lanes stop behind the light
     and sample the original hit's uv (see ``_trans_cast_walk``). One light
     (L = 1) gives the JAX package's single-light partitioned form. The
@@ -511,20 +651,56 @@ def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, steps,
         t_prev = torch.full((n,), -1.0, device=dev)
         still = walking0
         k0 = 0
-        if scene.tr_kernel_ok:
+        if _use_tr_kernel(scene):
             k0 = min(steps, trwalk.TRWALK_K)
             still = torch.zeros_like(walking0)
             if bool(walking0.any()):
                 trans, t_prev, still = cuda_trwalk.trans_walk(
                     scene, o3, d3, pd3, is_pt, sp3, ouv3, os3, walking0, k0,
                     live=live)
+        elif _use_dense_tr(scene):
+            k0 = _dense_k(scene, steps)
+            if bool(walking0.any()):
+                trans, t_prev, still = _trans_dense_walk(
+                    scene, o3, d3, pd3, is_pt, sp3, ouv3, os3, walking0,
+                    steps)
         if k0 < steps:
-            trans = _trans_cast_walk(scene, transparent_view(scene), o3, d3,
-                                     pd3, is_pt, sp3, ouv3, os3, steps, k0,
-                                     trans, t_prev, still,
-                                     include_spheres=False)
+            view, base = _residual_view(scene)
+            trans = _trans_cast_walk(scene, view, o3, d3, pd3, is_pt, sp3,
+                                     ouv3, os3, steps, k0, trans, t_prev,
+                                     still, include_spheres=False,
+                                     prim_base=base)
     return [torch.where(b[:, None], 0.0, att0 * trans[i * r:(i + 1) * r, None])
             for i, (att0, b) in enumerate(zip(att0s, blockeds))]
+
+
+def _trans_dense_walk(scene, o3, d3, pd3, is_pt, sp3, ouv3, os3, walking0,
+                      steps: int):
+    """The first kk steps of the stacked transmittance walk over the dense
+    producer's columns (t_max the distance to the light with the
+    prefilter's margin): (trans, t_prev, still walking)."""
+    n = o3.shape[0]
+    ts, pos = _dense_tr_hits(scene, o3, d3, steps, walking0,
+                             pd3 * 1.0001 + 1e-3)
+    kk = ts.shape[0]
+    cols = _dense_hit_columns(scene, o3, d3, ts, pos)
+    model, uv, simple = _hit_model_uv(scene, cols)
+    pt = is_pt.repeat(kk)
+    uv = torch.where(pt[:, None], ouv3.repeat(kk, 1), uv)
+    simple = torch.where(pt, os3.repeat(kk), simple)
+    op = texturing.sample_opacity(scene, model, uv, simple)
+    trans = torch.ones((n,), device=o3.device)
+    t_prev = torch.full((n,), -1.0, device=o3.device)
+    walking = walking0
+    for k in range(kk):
+        tk = ts[k]
+        found = walking & torch.isfinite(tk)
+        found = found & ~(is_pt & (_occluder_dist(o3, d3, tk, sp3) > pd3))
+        trans = torch.where(found, trans * (1.0 - op[k * n:(k + 1) * n]),
+                            trans)
+        walking = found & (trans != 0.0)
+        t_prev = torch.where(walking, tk, t_prev)
+    return trans, t_prev, walking
 
 
 def _use_fused_shadow(scene) -> bool:
@@ -534,7 +710,7 @@ def _use_fused_shadow(scene) -> bool:
     tables whose whole-scene walk is flat (the kernel's any-hit is the
     flat walk)."""
     return (os.environ.get("PT_FUSED_SHADOW") == "1" and partitioned(scene)
-            and scene.tr_kernel_ok and scene.num_real_triangles != 0
+            and _use_tr_kernel(scene) and scene.num_real_triangles != 0
             and _walk_variant(scene) == "flat")
 
 
@@ -609,8 +785,8 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
     s_g1, s_g2, s_rr, s_stride = rng.site_layout(alpha_steps)
     part = partitioned(scene)
     # The walk kernels' live tables, built once per call.
-    live = (trwalk.live_tables(scene)
-            if spec.differentiable and part and scene.tr_kernel_ok else None)
+    live = (trwalk.live_tables(scene) if spec.differentiable and part
+            and _use_tr_kernel(scene) else None)
 
     for bounce in range(spec.bounces + 1):
         sel, _, first_missed = _alpha_walk(scene, o, d, alive, pix, sample_id,

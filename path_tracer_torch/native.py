@@ -234,6 +234,18 @@ def kernels() -> Kernels:
         lib.ptt_fused_shadow.argtypes = ([vp] * 5 + [ctypes.c_ulonglong]
                                          + [vp] * 3 + [ci] * 3 + [vp] * 5
                                          + [ci] * 7 + [vp, ci, vp])
+        # (o, d, t_max, tris, gbox, R, T, K, tout, iout, device, stream)
+        lib.ptt_khit.restype = ci
+        lib.ptt_khit.argtypes = [vp] * 5 + [ci] * 3 + [vp, vp, ci, vp]
+        # (o, d, t_prev, nodes6, meta6, tris, R, npad, n_nodes, block,
+        #  n_slots, fout, iout, device, stream)
+        lib.ptt_tree_closest_hit.restype = ci
+        lib.ptt_tree_closest_hit.argtypes = [vp] * 6 + [ci] * 5 + [vp, vp,
+                                                                  ci, vp]
+        # (o, d, t_max, nodes6, meta6, tris, R, npad, n_nodes, block,
+        #  n_slots, out, device, stream)
+        lib.ptt_tree_occluded.restype = ci
+        lib.ptt_tree_occluded.argtypes = [vp] * 6 + [ci] * 5 + [vp, ci, vp]
         _kernels = Kernels(lib, seconds, log)
     return _kernels
 
@@ -667,6 +679,125 @@ def launch_fused_shadow(o, ds, t_maxes, pds, aux, is_pt, blkflat, blkid, bw,
         scene.tr_page_table.data_ptr(), t_cols, wp, r, n_sets, steps_cap,
         int(scene.tr_textured), int(live is not None), out.data_ptr(),
         device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    return out
+
+
+def launch_khit(o, d, t_max, tris, gbox, k: int):
+    """Check the operands of the k-nearest-hits kernel, allocate its
+    outputs and launch it on the current stream (no synchronisation).
+
+    o, d: [R,3] f32; t_max: [R] f32 (<= 0 marks a dead lane); tris [9,T]
+    f32 MT rows, T a multiple of 128; gbox [6, T/128] f32 group AABBs;
+    1 <= k <= 8. Returns (ts [k,R] f32, pos [k,R] i32)."""
+    fn = "ptt_khit"
+    device = o.device
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
+    r = o.shape[0]
+    t_n = tris.shape[1] if tris.dim() == 2 else -1
+    _check("o", o, (r, 3), torch.float32, device)
+    _check("d", d, (r, 3), torch.float32, device)
+    _check("t_max", t_max, (r,), torch.float32, device)
+    _check("tris", tris, (9, t_n), torch.float32, device)
+    _check("gbox", gbox, (6, max(t_n, 0) // 128), torch.float32, device)
+    if t_n <= 0 or t_n % 128 or 9 * t_n >= 2**31:
+        raise ValueError(f"{fn}: {t_n} columns are not whole groups of 128")
+    if not 0 < k <= 8 or k * r >= 2**31 or 3 * r >= 2**31:
+        raise ValueError(f"{fn}: {r} rays x k = {k} out of range")
+    lib = kernels().lib
+    ts = torch.empty((k, r), dtype=torch.float32, device=device)
+    pos = torch.empty((k, r), dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.ptt_khit(o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
+                       tris.data_ptr(), gbox.data_ptr(), r, t_n, k,
+                       ts.data_ptr(), pos.data_ptr(), device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    return ts, pos
+
+
+def _check_tree_tables(fn: str, nodes6, meta6, tris, n_nodes: int,
+                       block: int, device) -> tuple[int, int]:
+    """The superleaf tree tables a tree kernel reads; returns (npad,
+    n_slots)."""
+    npad = nodes6.shape[2] if nodes6.dim() == 3 else -1
+    n_slots = tris.shape[1] if tris.dim() == 2 else -1
+    _check("nodes6", nodes6, (6, 8, npad), torch.float32, device)
+    _check("meta6", meta6, (6, 2, npad), torch.int32, device)
+    _check("tris", tris, (9, n_slots), torch.float32, device)
+    if not 0 < n_nodes <= npad or block <= 0 or block % 128 \
+            or n_slots <= 0 or n_slots % block or 9 * n_slots >= 2**31 \
+            or 48 * npad >= 2**31:
+        raise ValueError(f"{fn}: {n_nodes} nodes of {npad} columns over "
+                         f"{n_slots} slots in blocks of {block} are not a "
+                         "superleaf tree")
+    return npad, n_slots
+
+
+def launch_tree_closest_hit(o, d, t_prev, nodes6, meta6, tris, n_nodes: int,
+                            block: int):
+    """Check the operands of the tree closest-hit kernel, allocate its
+    outputs and launch it on the current stream (no synchronisation).
+
+    o, d: [R,3] f32; t_prev: [R] f32 (+inf marks a dead lane); nodes6
+    [6,8,Npad] f32, meta6 [6,2,Npad] i32 (the six directional layouts; the
+    walk ends at ``n_nodes``); tris [9, n_blocks*block] f32 MT rows of the
+    packed slots. Returns (fout [4,R] f32 (t, u, v, backface), iout [R] i32
+    packed slot, -1 on a miss)."""
+    fn = "ptt_tree_closest_hit"
+    device = o.device
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
+    r = o.shape[0]
+    _check("o", o, (r, 3), torch.float32, device)
+    _check("d", d, (r, 3), torch.float32, device)
+    _check("t_prev", t_prev, (r,), torch.float32, device)
+    npad, n_slots = _check_tree_tables(fn, nodes6, meta6, tris, n_nodes,
+                                       block, device)
+    if 4 * r >= 2**31:
+        raise ValueError(f"{fn}: {r} rays exceed int32 indexing")
+    lib = kernels().lib
+    fout = torch.empty((4, r), dtype=torch.float32, device=device)
+    iout = torch.empty((r,), dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.ptt_tree_closest_hit(
+        o.data_ptr(), d.data_ptr(), t_prev.data_ptr(), nodes6.data_ptr(),
+        meta6.data_ptr(), tris.data_ptr(), r, npad, n_nodes, block, n_slots,
+        fout.data_ptr(), iout.data_ptr(), device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    return fout, iout
+
+
+def launch_tree_occluded(o, d, t_max, nodes6, meta6, tris, n_nodes: int,
+                         block: int):
+    """Check the operands of the tree any-hit kernel, allocate its output
+    and launch it on the current stream (no synchronisation).
+
+    o, d: [R,3] f32; t_max: [R] f32 (< 0 marks a dead lane); tables as for
+    ``launch_tree_closest_hit``. Returns out [R] f32 (1 = occluded or
+    dead)."""
+    fn = "ptt_tree_occluded"
+    device = o.device
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
+    r = o.shape[0]
+    _check("o", o, (r, 3), torch.float32, device)
+    _check("d", d, (r, 3), torch.float32, device)
+    _check("t_max", t_max, (r,), torch.float32, device)
+    npad, n_slots = _check_tree_tables(fn, nodes6, meta6, tris, n_nodes,
+                                       block, device)
+    if 3 * r >= 2**31:
+        raise ValueError(f"{fn}: {r} rays exceed int32 indexing")
+    lib = kernels().lib
+    out = torch.empty((r,), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.ptt_tree_occluded(
+        o.data_ptr(), d.data_ptr(), t_max.data_ptr(), nodes6.data_ptr(),
+        meta6.data_ptr(), tris.data_ptr(), r, npad, n_nodes, block, n_slots,
+        out.data_ptr(), device.index, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return out

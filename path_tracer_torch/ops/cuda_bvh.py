@@ -11,7 +11,11 @@ Counterpart of the flat and flat2 halves of
 - ``csrc/flat2_closest_hit.cu`` replaces ``pallas_bvh._flat2_kernel``
   (entry ``closest_hit_triangles_flat2``);
 - ``csrc/flat2_occluded.cu`` replaces ``pallas_bvh._flat2_occ_kernel``
-  (entries ``occluded_triangles_flat2[_multi]``).
+  (entries ``occluded_triangles_flat2[_multi]``);
+- ``csrc/tree_walk.cu`` replaces ``pallas_bvh._kernel`` and
+  ``pallas_bvh._occ_kernel``, the superleaf tree walk (entries
+  ``closest_hit_triangles_tree`` and ``occluded_triangles_tree``, taken
+  with ``PT_BVH_KERNEL=tree`` or for a BVH scene without blocks).
 
 The flat walks serve scenes (or opacity-partition views) with ``use_bvh``
 and at most ``FLAT_MAX_BLOCKS`` superleaf blocks, the flat2 walks larger
@@ -45,6 +49,18 @@ a hit a few ulps before its block's slab entry, at a near-tie. A block box
 lies inside its superblock box and slab rounding is monotone, so a block
 that passes its gate always lies in a superblock that passes: on the same
 tables flat2 gives the flat walk's record exactly.
+
+The tree walk keeps the Pallas packet's semantics lane for lane (see
+``csrc/tree_walk.cu``): 128-ray packets (the last padded with o = 0,
+d = (1, 1, 1), t_prev 0 or t_max -1), one of the six directional layouts
+per packet from its pairwise-summed directions, one node cursor per
+packet that enters what any lane's slab test admits (closest hit:
+tf >= max(tn, 0), tn <= the lane's best t, tf > t_prev; any-hit: not yet
+occluded, tf >= max(tn, 0), tn <= t_max), every lane testing each visited
+block by plain Moller-Trumbore on ``sl_tris_t`` (within a block the
+lowest slot wins equal t, a later block only a smaller t; any-hit
+t <= t_max, dead lanes occluded). Its plain versions walk the packets
+side by side, one node per packet per step.
 """
 from __future__ import annotations
 
@@ -60,6 +76,7 @@ from path_tracer_torch.ops.intersect import (
     HitRecord,
     _ray_chunks,
     closest_hit_spheres,
+    mt_rows,
 )
 from path_tracer_torch.ops.slab import (
     closest_gate,
@@ -75,6 +92,11 @@ closest_hit_launches = 0
 occluded_launches = 0
 flat2_closest_hit_launches = 0
 flat2_occluded_launches = 0
+tree_closest_hit_launches = 0
+tree_occluded_launches = 0
+
+PACKET = 128  # rays per packet of the tree walk
+_TREE_VISIT_ELEMS = 1 << 22  # (lane, slot) pairs per step of a plain visit
 
 
 def _bw_test(o, d, rows):
@@ -347,4 +369,200 @@ def occluded_triangles_flat2_multi(o, ds, t_maxes, scene) -> torch.Tensor:
         scene.sl_sbid, scene.sl_blkflat, scene.sl_blkid, scene.sl_bw_t,
         scene.sl_block)
     flat2_occluded_launches += 1
+    return out > 0.0
+
+
+def _packets(o, d, g, fill: float):
+    """The rays as [P, 128] packets, the last padded as the Pallas
+    wrappers pad (o = 0, d = 1, ``g`` = ``fill``): (o, d, inv, g) with o,
+    d, inv [P, 128, 3] and g [P, 128]."""
+    r = o.shape[0]
+    pad = -r % PACKET
+    o = torch.nn.functional.pad(o, (0, 0, 0, pad)).view(-1, PACKET, 3)
+    d = torch.nn.functional.pad(d, (0, 0, 0, pad),
+                                value=1.0).view(-1, PACKET, 3)
+    g = torch.nn.functional.pad(g, (0, pad), value=fill).view(-1, PACKET)
+    return o, d, safe_inv(d), g
+
+
+def packet_layouts(d):
+    """[P] layout of each [128, 3] packet of ``d`` [P, 128, 3]: 2 * axis +
+    (sum < 0) for the axis of the largest |sum| (x, then y, on ties), the
+    sums taken pairwise as the kernel reduces them."""
+    s = d
+    while s.shape[1] > 1:
+        w = s.shape[1] // 2
+        s = s[:, :w] + s[:, w:]
+    s = s[:, 0]
+    a = s.abs()
+    axis = torch.where(a[:, 0] >= torch.maximum(a[:, 1], a[:, 2]), 0,
+                       torch.where(a[:, 1] >= a[:, 2], 1, 2))
+    along = s.gather(1, axis[:, None])[:, 0]
+    return 2 * axis + (along < 0.0).long()
+
+
+def _node_slab(scene, layout, cursor, o, inv):
+    """(tn, tf [m, 128], escape [m], leaf [m]) of each packet's current
+    node in its layout."""
+    box = scene.sl_nodes6[layout, :6, cursor]  # [m, 6]
+    meta = scene.sl_meta6[layout, :, cursor]  # [m, 2]
+    t0 = [(box[:, k, None] - o[..., k]) * inv[..., k] for k in range(3)]
+    t1 = [(box[:, 3 + k, None] - o[..., k]) * inv[..., k] for k in range(3)]
+    lo = [torch.minimum(a, b) for a, b in zip(t0, t1)]
+    hi = [torch.maximum(a, b) for a, b in zip(t0, t1)]
+    tn = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
+    tf = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
+    return tn, tf, meta[:, 0].long(), meta[:, 1].long()
+
+
+def _tree_steps(scene, n_packets: int, device, walking=None):
+    """Yield (packets, cursor) per step of the packet walks: the packets
+    whose cursor is inside the forest and (when given) ``walking()``
+    admits, and the cursors; the caller sets ``cursor[packets]`` to the
+    next node."""
+    cursor = torch.zeros((n_packets,), dtype=torch.long, device=device)
+    while True:
+        inside = cursor < scene.sl_n_nodes
+        if walking is not None:
+            inside &= walking()
+        idx = torch.nonzero(inside)[:, 0]
+        if idx.numel() == 0:
+            return
+        yield idx, cursor
+
+
+def _visit_chunks(scene, packets, leaf):
+    """(packets, first slot [v], [9, v, block] MT rows) of the visited
+    leaves, a few packets at a time."""
+    block = scene.sl_block
+    step = max(1, _TREE_VISIT_ELEMS // (PACKET * block))
+    slots = torch.arange(block, device=leaf.device)
+    for a in range(0, packets.numel(), step):
+        start = (leaf[a:a + step] - 1) * block
+        yield (packets[a:a + step], start,
+               scene.sl_tris_t[:, start[:, None] + slots])
+
+
+def drain(steps):
+    """The value a walk generator returns, its steps run and dropped."""
+    while True:
+        try:
+            next(steps)
+        except StopIteration as done:
+            return done.value
+
+
+def tree_walk_steps(o, d, t_prev, scene):
+    """The plain closest-hit packet walk as a generator: yields (lane [m,
+    128] bool, visit [m] bool, leaf [m]) for the packets of each step (the
+    lanes whose slab test passed, whether the packet visits the leaf, and
+    the node's leaf field); returns (t, u, v, backface, slot), each [R]
+    (slot -1 and t = +inf on a miss)."""
+    r = o.shape[0]
+    o, d, inv, tp = _packets(o, d, t_prev, 0.0)
+    n_p = o.shape[0]
+    layout = packet_layouts(d)
+    bt = torch.full((n_p, PACKET), float("inf"), device=o.device)
+    bu = torch.zeros_like(bt)
+    bv = torch.zeros_like(bt)
+    bb = torch.zeros_like(bt, dtype=torch.bool)
+    bi = torch.full_like(bt, -1, dtype=torch.int32)
+    for idx, cursor in _tree_steps(scene, n_p, o.device):
+        tn, tf, escape, leaf = _node_slab(scene, layout[idx], cursor[idx],
+                                          o[idx], inv[idx])
+        lane = ((tf >= torch.maximum(tn, torch.zeros_like(tn)))
+                & (tn <= bt[idx]) & (tf > tp[idx]))
+        hit_any = lane.any(1)
+        visit = hit_any & (leaf > 0)
+        yield lane, visit, leaf
+        for pk, start, rows in _visit_chunks(scene, idx[visit], leaf[visit]):
+            t, u, v, det, ok = mt_rows(
+                [o[pk, :, k, None] for k in range(3)],
+                [d[pk, :, k, None] for k in range(3)],
+                [row[:, None, :] for row in rows])
+            t = torch.where(ok & (t > tp[pk][:, :, None]), t, float("inf"))
+            tmin, col = t.min(dim=2)  # the lowest slot among equal t
+            better = tmin < bt[pk]
+            pick = lambda x: x.gather(2, col[:, :, None])[:, :, 0]
+            bt[pk] = torch.where(better, tmin, bt[pk])
+            bu[pk] = torch.where(better, pick(u), bu[pk])
+            bv[pk] = torch.where(better, pick(v), bv[pk])
+            bb[pk] = torch.where(better, pick(det) < 0.0, bb[pk])
+            slot = (start[:, None] + col).to(torch.int32)
+            bi[pk] = torch.where(better, slot, bi[pk])
+        cursor[idx] = torch.where(hit_any & (leaf == 0), cursor[idx] + 1,
+                                  escape)
+    return tuple(x.reshape(-1)[:r] for x in (bt, bu, bv, bb, bi))
+
+
+def occluded_tree_steps(o, d, t_max, scene):
+    """The plain any-hit packet walk as a generator: yields as
+    ``tree_walk_steps`` does; returns [R] bool (dead lanes True)."""
+    r = o.shape[0]
+    o, d, inv, tm = _packets(o, d, t_max, -1.0)
+    occ = tm < 0.0
+    layout = packet_layouts(d)
+    for idx, cursor in _tree_steps(scene, o.shape[0], o.device,
+                                   lambda: ~occ.all(1)):
+        tn, tf, escape, leaf = _node_slab(scene, layout[idx], cursor[idx],
+                                          o[idx], inv[idx])
+        lane = (~occ[idx] & (tf >= torch.maximum(tn, torch.zeros_like(tn)))
+                & (tn <= tm[idx]))
+        hit_any = lane.any(1)
+        visit = hit_any & (leaf > 0)
+        yield lane, visit, leaf
+        for pk, _, rows in _visit_chunks(scene, idx[visit], leaf[visit]):
+            t, _, _, _, ok = mt_rows(
+                [o[pk, :, k, None] for k in range(3)],
+                [d[pk, :, k, None] for k in range(3)],
+                [row[:, None, :] for row in rows])
+            occ[pk] |= (ok & (t <= tm[pk][:, :, None])).any(2)
+        cursor[idx] = torch.where(hit_any & (leaf == 0), cursor[idx] + 1,
+                                  escape)
+    return occ.reshape(-1)[:r]
+
+
+def occluded_triangles_tree_plain(o, d, t_max, scene) -> torch.Tensor:
+    """Plain version of ``occluded_triangles_tree``, on any device."""
+    return drain(occluded_tree_steps(o, d, t_max, scene))
+
+
+def tree_record(t, u, v, back, slot, scene) -> HitRecord:
+    """The HitRecord of a closest-hit tree walk's outputs."""
+    kind = torch.where(torch.isfinite(t), KIND_TRIANGLE, KIND_NONE)
+    return _record(t, u, v, back, slot, kind, scene)
+
+
+def closest_hit_triangles_tree_plain(o, d, t_prev, scene) -> HitRecord:
+    """Plain version of ``closest_hit_triangles_tree``, on any device."""
+    return tree_record(*drain(tree_walk_steps(o, d, t_prev, scene)), scene)
+
+
+def closest_hit_triangles_tree(o, d, t_prev, scene) -> HitRecord:
+    """Closest hit through the superleaf tree walk (module docstring).
+
+    o, d: [R,3] f32; t_prev: [R] f32 (+inf marks a dead lane). CUDA tensors
+    launch the kernel (or raise); CPU tensors take the plain version."""
+    global tree_closest_hit_launches
+    if o.device.type == "cpu":
+        return closest_hit_triangles_tree_plain(o, d, t_prev, scene)
+    fout, slot = native.launch_tree_closest_hit(
+        o.contiguous(), d.contiguous(), t_prev.contiguous(), scene.sl_nodes6,
+        scene.sl_meta6, scene.sl_tris_t, scene.sl_n_nodes, scene.sl_block)
+    tree_closest_hit_launches += 1
+    return tree_record(fout[0], fout[1], fout[2], fout[3] != 0.0, slot, scene)
+
+
+def occluded_triangles_tree(o, d, t_max, scene) -> torch.Tensor:
+    """[R] bool any-hit through the superleaf tree walk: a triangle hit
+    with 1e-6 <= t <= t_max (t_max < 0 marks a dead lane, reported
+    occluded). CUDA tensors launch the kernel (or raise); CPU tensors take
+    the plain version."""
+    global tree_occluded_launches
+    if o.device.type == "cpu":
+        return occluded_triangles_tree_plain(o, d, t_max, scene)
+    out = native.launch_tree_occluded(
+        o.contiguous(), d.contiguous(), t_max.contiguous(), scene.sl_nodes6,
+        scene.sl_meta6, scene.sl_tris_t, scene.sl_n_nodes, scene.sl_block)
+    tree_occluded_launches += 1
     return out > 0.0

@@ -27,6 +27,12 @@ tensors' device:
 - larger BVH scenes: the flat2 walk and its any-hit, the same way; the
   spheres are cast apart (``cuda_spheres``) and merged, the triangle
   winning ties, as the JAX package fuses only on the flat walk;
+- ``PT_BVH_KERNEL=flat|flat2|tree`` forces a walk (the JAX package's A/B
+  knob, read at call time); a BVH scene without superleaf blocks takes
+  "tree". The superleaf tree walk (``cuda_bvh``'s tree kernels) casts the
+  closest hit with the spheres merged as for flat2, and the shadows light
+  by light; under it the opacity partition stands down
+  (``device_scene.partitioned``);
 - spheres: the dense kernel up to 512 spheres, the sphere block walk
   above (``sph_use_blocks``); their any-hit likewise
   (``cuda_spheres.occluded_spheres_cuda``), all lights of a bounce in one
@@ -42,6 +48,7 @@ gradients on the CPU and on the card come from one graph.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -85,32 +92,37 @@ def moller_trumbore(o, d, v0, e1, e2, t_prev):
     """MT for [R] rays x [B] triangles → (t, u, v, back, valid), each [R,B].
     o,d: [R,3]; v0,e1,e2: [B,3]; t_prev: [R]. Component-wise, so only [R,B]
     intermediates exist."""
-    ox, oy, oz = (o[:, k:k + 1] for k in range(3))
-    dx, dy, dz = (d[:, k:k + 1] for k in range(3))
-    v0x, v0y, v0z = (v0[None, :, k] for k in range(3))
-    e1x, e1y, e1z = (e1[None, :, k] for k in range(3))
-    e2x, e2y, e2z = (e2[None, :, k] for k in range(3))
+    t, u, v, det, ok = mt_rows([o[:, k:k + 1] for k in range(3)],
+                               [d[:, k:k + 1] for k in range(3)],
+                               [x[None, :, k] for x in (v0, e1, e2)
+                                for k in range(3)])
+    return t, u, v, det < 0.0, ok & (t > t_prev[:, None])
 
-    pvx = dy * e2z - dz * e2y  # pvec = d x e2
+
+def mt_rows(o, d, rows):
+    """Moller-Trumbore of ray components ``o``, ``d`` (3 tensors each)
+    against triangle rows ``rows`` (9 tensors: v0.xyz, e1.xyz, e2.xyz), all
+    broadcast together, in the hand-written kernels' expressions: (t, u, v,
+    det, ok) with ok = |det| >= 1e-6, u >= 0, v >= 0, u + v <= 1 and
+    t >= 1e-6 (u <= 1 follows; no t_prev)."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = rows
+    pvx = dy * e2z - dz * e2y
     pvy = dz * e2x - dx * e2z
     pvz = dx * e2y - dy * e2x
     det = e1x * pvx + e1y * pvy + e1z * pvz
-    valid = det.abs() >= DET_EPS
-    invdet = 1.0 / torch.where(valid, det, 1.0)
-
-    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z  # tvec = o - v0
+    ok = det.abs() >= DET_EPS
+    invdet = 1.0 / torch.where(ok, det, 1.0)
+    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
     u = (tvx * pvx + tvy * pvy + tvz * pvz) * invdet
-    valid &= (u >= 0.0) & (u <= 1.0)
-
-    qvx = tvy * e1z - tvz * e1y  # qvec = tvec x e1
+    qvx = tvy * e1z - tvz * e1y
     qvy = tvz * e1x - tvx * e1z
     qvz = tvx * e1y - tvy * e1x
     v = (dx * qvx + dy * qvy + dz * qvz) * invdet
-    valid &= (v >= 0.0) & (u + v <= 1.0)
-
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * invdet
-    valid &= (t >= T_MIN) & (t > t_prev[:, None])
-    return t, u, v, det < 0.0, valid
+    ok = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= T_MIN)
+    return t, u, v, det, ok
 
 
 def _ray_chunks(n: int):
@@ -230,22 +242,23 @@ FLAT_MAX_BLOCKS = 2048
 
 
 def _walk_variant(scene) -> str:
-    """The triangle walk of a BVH scene (or view): "flat" up to
-    FLAT_MAX_BLOCKS blocks, "flat2" above. The JAX package's "tree" walk
-    (a BVH scene without superleaf blocks) is a later slice of the port
-    and raises."""
+    """The triangle walk of a BVH scene (or view), as the JAX package's
+    ``_walk_variant``: "tree" without superleaf blocks; else the walk
+    ``PT_BVH_KERNEL`` names ("flat", "flat2" or "tree"); else "flat" up to
+    FLAT_MAX_BLOCKS blocks and "flat2" above."""
     n = scene.sl_n_blocks
     if n <= 0:
-        raise NotImplementedError(
-            "BVH scene without superleaf blocks (the tree walk); it comes "
-            "with a later slice of the port")
+        return "tree"
+    forced = os.environ.get("PT_BVH_KERNEL")
+    if forced in ("tree", "flat", "flat2"):
+        return forced
     return "flat" if n <= FLAT_MAX_BLOCKS else "flat2"
 
 
-def _require_ported_walks(scene):
-    """Refuse the walk a later slice brings: the tree walk."""
-    if scene.use_bvh and scene.num_real_triangles != 0:
-        _walk_variant(scene)
+def _use_flat_walk(scene) -> bool:
+    """A flat-family walk (flat or flat2) serves the scene: the walks the
+    opacity-partition views scope, and the batched any-hit launch."""
+    return _walk_variant(scene) != "tree"
 
 
 def _closest_hit_tris_dispatch(o, d, t_prev, scene) -> HitRecord:
@@ -253,9 +266,10 @@ def _closest_hit_tris_dispatch(o, d, t_prev, scene) -> HitRecord:
     if scene.use_bvh:
         from path_tracer_torch.ops import cuda_bvh
 
-        if _walk_variant(scene) == "flat2":
-            return cuda_bvh.closest_hit_triangles_flat2(o, d, t_prev, scene)
-        return cuda_bvh.closest_hit_triangles_flat(o, d, t_prev, scene)
+        walk = {"flat": cuda_bvh.closest_hit_triangles_flat,
+                "flat2": cuda_bvh.closest_hit_triangles_flat2,
+                "tree": cuda_bvh.closest_hit_triangles_tree}
+        return walk[_walk_variant(scene)](o, d, t_prev, scene)
     from path_tracer_torch.ops.cuda_intersect import closest_hit_triangles_cuda
 
     return closest_hit_triangles_cuda(o, d, t_prev, scene)
@@ -277,7 +291,6 @@ def closest_hit(o, d, t_prev, scene, active=None,
     has_sphs = include_spheres and scene.num_real_spheres != 0
     if active is not None:
         t_prev = torch.where(active, t_prev, float("inf"))
-    _require_ported_walks(scene)
     if (has_tris and has_sphs and scene.use_bvh and not scene.sph_use_blocks
             and _walk_variant(scene) == "flat"):
         # The dense sphere pass runs inside the flat walk's launch and the
@@ -326,8 +339,9 @@ def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
     lanes t_max = -1).
 
     Triangles: BVH scenes cast all L sets in one any-hit launch (flat or
-    flat2, by the scene's block count) up to t_max; brute-force scenes
-    take the nearest hit light by light, in range when
+    flat2, ``_walk_variant``) up to t_max, or under the tree walk one
+    launch per set; brute-force scenes take the nearest hit light by
+    light, in range when
     dist^2 = t^2|d|^2 + 2t(b.d) + |b|^2 <= max_dist^2 (dist(t) is monotone
     in t, so if the nearest hit is out of range no hit is). Spheres: all L
     sets in one any-hit launch up to t_max.
@@ -336,7 +350,6 @@ def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
     max_dists = max_dists or [None] * n_lights
     actives = actives or [None] * n_lights
     r = o.shape[0]
-    _require_ported_walks(scene)
 
     t_maxes = []
     for d, md, act in zip(dirs, max_dists, actives):
@@ -347,10 +360,15 @@ def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
     if scene.num_real_triangles != 0 and scene.use_bvh:
         from path_tracer_torch.ops import cuda_bvh
 
-        multi = (cuda_bvh.occluded_triangles_flat2_multi
-                 if _walk_variant(scene) == "flat2"
-                 else cuda_bvh.occluded_triangles_flat_multi)
-        hits = list(multi(o, dirs, t_maxes, scene))
+        walk = _walk_variant(scene)
+        if walk == "tree":
+            hits = [cuda_bvh.occluded_triangles_tree(o, d, tm, scene)
+                    for d, tm in zip(dirs, t_maxes)]
+        else:
+            multi = (cuda_bvh.occluded_triangles_flat2_multi
+                     if walk == "flat2"
+                     else cuda_bvh.occluded_triangles_flat_multi)
+            hits = list(multi(o, dirs, t_maxes, scene))
     elif scene.num_real_triangles != 0:
         for i, (d, md, act) in enumerate(zip(dirs, max_dists, actives)):
             t_prev = torch.full((r,), -1.0, device=o.device)

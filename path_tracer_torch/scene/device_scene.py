@@ -54,7 +54,17 @@ b owns slots [b*sl_block, (b+1)*sl_block), unused slots are zero rows):
 - ``sph_row_base``: n_blocks*sl_block (the JAX package's first sphere row
   of its wide attribute table; fused sphere hits report this + index);
 - ``tr_prefilter`` [32, 6]: up to 32 AABBs (min, max) over the
-  transparent triangles, padding boxes at 1e30.
+  transparent triangles, padding boxes at 1e30;
+- the superleaf tree walk's tables (``PT_BVH_KERNEL=tree``): the
+  partitions' superleaf BVHs as one forest in six direction-ordered
+  skip-pointer layouts (``scene/bvh_layouts.py``), ``sl_nodes6`` [6, 8,
+  Npad] (rows 0-2 node min, 3-5 max, 6-7 zero) and ``sl_meta6`` [6, 2,
+  Npad] (escape index, global block id + 1 on a leaf, 0 inside), escape
+  indices global across the forest; ``sl_n_nodes`` the real node count,
+  where every walk ends; and ``sl_tris_t`` [9, n_blocks*sl_block], the
+  plain MT rows (v0, e1, e2) of the packed slots (the JAX package's
+  first 9 of 16 rows). A scene without triangles gets one
+  never-entered node.
 
 Sphere block-walk tables (``_sphere_blocks``; 128-column placeholders at
 512 spheres or fewer): the spheres grouped into blocks of 128 slots by the
@@ -81,6 +91,13 @@ in Morton order of their centroids:
   ``tr_page_table`` [P, 3] int32 (w, h, ybase) on the device, a 1x1
   dummy page for factor-only scenes); ``tr_lut`` [1, 256]: v/255 as the
   atlas rounds it.
+
+The dense transparent walk's table (``khit_table``, made on the device
+with the scene; ``PT_DENSE_TR=1``): ``khit_tris`` [9, Tp], the transparent
+slice of ``tri_packed_t`` (triangles ``n_tris_opaque`` on) padded with
+zero rows to a multiple of 128 columns, and ``khit_gbox`` [6, Tp / 128],
+each 128-column group's AABB over its real (nonzero-edge) rows, an
+all-padding group at min = max = 1e30.
 """
 from __future__ import annotations
 
@@ -97,6 +114,7 @@ _TRI_PAD = 256  # triangle count padded to a multiple of this
 BVH_MIN_TRIANGLES = 4096  # the JAX package's use_bvh threshold
 SPH_BLOCKS_MIN = 512  # more spheres than this take the sphere block walk
 SPH_BLOCK = 128  # spheres per block of the sphere block walk
+KHIT_GRP = 128  # columns per group of the dense walk's table (one AABB each)
 
 _FLOAT_FIELDS = (
     "tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
@@ -106,7 +124,7 @@ _FLOAT_FIELDS = (
     "mat_metalness_factor", "mat_roughness_factor", "mat_ior",
     "tex_data", "point_pos", "point_color", "dir_dir", "dir_color",
     "cam_to_world", "cam_fov", "background", "sl_bw_t", "sl_blkflat",
-    "sl_sbflat", "sph_sorted_t", "sph_blk",
+    "sl_sbflat", "sl_nodes6", "sl_tris_t", "sph_sorted_t", "sph_blk",
     "tr_prefilter", "tr_bw", "tr_rows", "tr_grp", "tr_lut",
 )
 _INT_FIELDS = (
@@ -114,13 +132,17 @@ _INT_FIELDS = (
     "mat_albedo_tex", "mat_emissive_tex", "mat_opacity_tex",
     "mat_metalness_tex", "mat_roughness_tex", "mat_normal_tex",
     "tex_offset", "tex_width", "tex_height", "sl_blkid", "sl_map", "sl_inv",
-    "sl_sbid", "sph_blkid", "sph_smap", "tr_colmap", "tr_model",
+    "sl_sbid", "sl_meta6", "sph_blkid", "sph_smap", "tr_colmap", "tr_model",
 )
+# Fields the port keeps fewer leading rows of than the JAX package: its
+# sl_tris_t pads the 9 MT rows to 16.
+_ROWS_KEPT = {"sl_tris_t": 9}
 _U8_FIELDS = ("tr_tex8",)
 ARRAY_FIELDS = _FLOAT_FIELDS + _INT_FIELDS + _U8_FIELDS
 STATIC_FIELDS = ("all_opaque", "no_textures", "no_emissive", "has_tex",
                  "num_real_triangles", "num_real_spheres", "use_bvh",
-                 "sph_use_blocks", "sl_block", "sl_n_blocks", "sph_row_base",
+                 "sph_use_blocks", "sl_block", "sl_n_blocks", "sl_n_nodes",
+                 "sph_row_base",
                  "n_tris_opaque", "sl_n_blocks_opaque", "sl_cols_opaque",
                  "num_transparent_hits", "sph_all_opaque", "tr_kernel_ok",
                  "tr_textured", "tr_pages")
@@ -184,6 +206,9 @@ class TorchScene:
     sl_inv: torch.Tensor
     sl_sbflat: torch.Tensor
     sl_sbid: torch.Tensor
+    sl_nodes6: torch.Tensor
+    sl_meta6: torch.Tensor
+    sl_tris_t: torch.Tensor
     sph_sorted_t: torch.Tensor
     sph_blk: torch.Tensor
     sph_blkid: torch.Tensor
@@ -197,6 +222,8 @@ class TorchScene:
     tr_model: torch.Tensor
     tr_tex8: torch.Tensor
     tr_page_table: torch.Tensor
+    khit_tris: torch.Tensor
+    khit_gbox: torch.Tensor
     # --- statics ---
     all_opaque: bool  # every material has opacity factor >= 1, no texture
     no_textures: bool
@@ -208,6 +235,7 @@ class TorchScene:
     sph_use_blocks: bool  # more than 512 spheres: the sphere block walk
     sl_block: int  # triangles per superleaf block
     sl_n_blocks: int  # real blocks (columns of sl_blkflat with id >= 0)
+    sl_n_nodes: int  # real nodes of the superleaf forest (sl_nodes6)
     sph_row_base: int
     n_tris_opaque: int  # triangles [0, n_tris_opaque) are certainly opaque
     sl_n_blocks_opaque: int
@@ -244,7 +272,10 @@ def from_numpy(fields: dict, statics: dict, device) -> TorchScene:
             arr = np.array(np.asarray(fields[name], np.float32), np.uint8)
         else:
             dtype = np.float32 if name in _FLOAT_FIELDS else np.int32
-            arr = np.array(fields[name], dtype=dtype, order="C")  # a copy
+            arr = np.asarray(fields[name])
+            if name in _ROWS_KEPT:
+                arr = arr[:_ROWS_KEPT[name]]
+            arr = np.array(arr, dtype=dtype, order="C")  # a copy
         kw[name] = torch.from_numpy(arr).to(device)
     for name in STATIC_FIELDS:
         value = statics[name]
@@ -256,7 +287,33 @@ def from_numpy(fields: dict, statics: dict, device) -> TorchScene:
     pages = [p[1:] for p in kw["tr_pages"]] or [(1, 1, 0)]
     kw["tr_page_table"] = torch.tensor(pages, dtype=torch.int32,
                                        device=device)
+    kw["khit_tris"], kw["khit_gbox"] = khit_table(kw["tri_packed_t"],
+                                                  kw["n_tris_opaque"])
     return TorchScene(**kw)
+
+
+def khit_table(tri_packed_t, n_tris_opaque: int):
+    """(khit_tris [9, Tp], khit_gbox [6, Tp / 128]) of the dense walk (the
+    module docstring), as the JAX package's ``k_nearest_tr_hits`` builds
+    them per call."""
+    tris = tri_packed_t[:, n_tris_opaque:]
+    t_n = tris.shape[1]
+    t_pad = -(-t_n // KHIT_GRP) * KHIT_GRP
+    tris = torch.nn.functional.pad(tris, (0, t_pad - t_n)).contiguous()
+    g = t_pad // KHIT_GRP
+    v0 = tris[0:3]
+    p1 = v0 + tris[3:6]
+    p2 = v0 + tris[6:9]
+    valid = tris[3:9].abs().sum(0) > 0
+    big = 1e30
+    mn = torch.where(valid[None], torch.minimum(torch.minimum(v0, p1), p2),
+                     big)
+    mx = torch.where(valid[None], torch.maximum(torch.maximum(v0, p1), p2),
+                     -big)
+    has = valid.view(g, KHIT_GRP).any(1)
+    gmin = torch.where(has[None], mn.view(3, g, KHIT_GRP).amin(2), big)
+    gmax = torch.where(has[None], mx.view(3, g, KHIT_GRP).amax(2), big)
+    return tris, torch.cat([gmin, gmax]).contiguous()
 
 
 class _AtlasBuilder:
@@ -387,16 +444,28 @@ def _superleaf_tables(v0, e1, e2, ranges: list, n_pad: int,
     """The flat walk's block tables over the (leaf-4-permuted) triangles,
     one superleaf BVH per opacity partition in ``ranges`` ([start, end)
     triangle ranges, opaque first), as ``device_scene.py:1035-1138`` of
-    the JAX package builds them. Also returns the packed (v0, e1, e2) rows
-    ``sl_tris`` [n_blocks*sl_block, 9] and each partition's block count."""
+    the JAX package builds them, with the tree walk's forest
+    (``device_scene.py:1071-1112``, placeholders ``:1186-1192``). Also
+    returns the packed (v0, e1, e2) rows ``sl_tris`` [n_blocks*sl_block, 9]
+    and each partition's block count."""
     from path_tracer_torch.native import build_bvh
+    from path_tracer_torch.scene.bvh_layouts import (
+        build_directional_layouts_forest,
+    )
 
     if sl_block <= 0 or sl_block % 128:
         raise ValueError(f"sl_block must be a positive multiple of 128, "
                          f"got {sl_block}")
     if not ranges:  # the JAX builder's placeholders
         sl_tris = np.zeros((sl_block, 9), np.float32)
+        nodes6 = np.zeros((6, 8, 128), np.float32)
+        nodes6[:, 0:3, 0] = np.inf
+        nodes6[:, 3:6, 0] = -np.inf
+        meta6 = np.zeros((6, 2, 128), np.int32)
+        meta6[:, 0, 0] = 1
         return dict(sl_tris=sl_tris, sl_bw_t=_baldwin_weber_rows(sl_tris),
+                    sl_tris_t=np.ascontiguousarray(sl_tris.T),
+                    sl_nodes6=nodes6, sl_meta6=meta6, sl_n_nodes=1,
                     sl_map=np.zeros(sl_block, np.int32),
                     sl_inv=np.zeros(n_pad, np.int32),
                     sl_blkflat=np.zeros((8, 128), np.float32),
@@ -427,7 +496,12 @@ def _superleaf_tables(v0, e1, e2, ranges: list, n_pad: int,
     sl_blkflat = np.zeros((8, b_pad), np.float32)
     sl_blkid = np.full((1, b_pad), -1, np.int32)
     bg = 0
+    forest = []
     for (a, _), slp, lv, c0 in zip(ranges, trees, leaves, col0):
+        meta_leaf = np.zeros(slp.skip.shape[0], np.int32)
+        meta_leaf[lv] = bg + 1 + np.arange(len(lv), dtype=np.int32)
+        forest.append((slp.node_min, slp.node_max, slp.prim_count, slp.skip,
+                       meta_leaf))
         for k, node in enumerate(lv):
             f, c = int(slp.first_prim[node]), int(slp.prim_count[node])
             ids = a + slp.prim_order[f:f + c]
@@ -440,7 +514,11 @@ def _superleaf_tables(v0, e1, e2, ranges: list, n_pad: int,
         sl_blkflat[3:6, c0:c0 + len(lv)] = slp.node_max[lv].T
         sl_blkid[0, c0:c0 + len(lv)] = np.arange(bg, bg + len(lv))
         bg += len(lv)
+    nodes6, meta6 = build_directional_layouts_forest(forest)
     return dict(sl_tris=sl_tris, sl_bw_t=_baldwin_weber_rows(sl_tris),
+                sl_tris_t=np.ascontiguousarray(sl_tris.T), sl_nodes6=nodes6,
+                sl_meta6=meta6,
+                sl_n_nodes=sum(t.skip.shape[0] for t in trees),
                 sl_map=sl_map, sl_inv=sl_inv, sl_blkflat=sl_blkflat,
                 sl_blkid=sl_blkid, **_superblocks(sl_blkflat, sl_blkid),
                 part_blocks=part_blocks, sl_n_blocks=n_blocks,
@@ -795,7 +873,8 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
         background=f32(scene.background),
         tr_prefilter=_tr_prefilter(v0, e1, e2, n_op, n_tris),
         **{k: sl[k] for k in ("sl_bw_t", "sl_blkflat", "sl_blkid", "sl_map",
-                              "sl_inv", "sl_sbflat", "sl_sbid")},
+                              "sl_inv", "sl_sbflat", "sl_sbid", "sl_nodes6",
+                              "sl_meta6", "sl_tris_t")},
         **{k: sph_blocks[k] for k in ("sph_sorted_t", "sph_blk", "sph_blkid",
                                       "sph_smap")},
         **{k: tr[k] for k in ("tr_bw", "tr_rows", "tr_grp", "tr_colmap",
@@ -819,6 +898,7 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
         sph_use_blocks=sph_blocks["sph_use_blocks"],
         sl_block=sl_block,
         sl_n_blocks=sl["sl_n_blocks"],
+        sl_n_nodes=sl["sl_n_nodes"],
         sph_row_base=sl["sph_row_base"],
         n_tris_opaque=n_op,
         sl_n_blocks_opaque=nblk_op,
@@ -839,13 +919,20 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
 
 def partitioned(scene) -> bool:
     """True when the partitioned walks apply: a BVH scene with both opaque
-    and possibly-transparent triangles and only opaque spheres. The walks
-    then cast once against the opaque blocks (the terminator, or a binary
-    any-hit) and walk only the transparent blocks."""
+    and possibly-transparent triangles and only opaque spheres, walked by
+    the flat or flat2 walk. The walks then cast once against the opaque
+    blocks (the terminator, or a binary any-hit) and walk only the
+    transparent blocks. The views scope the flat-family tables, not the
+    superleaf forest, so under ``PT_BVH_KERNEL=tree`` the partition stands
+    down and the whole-scene walks run (the JAX package's rule on its
+    chip)."""
+    from path_tracer_torch.ops.intersect import _use_flat_walk
+
     return bool(scene.use_bvh and not scene.all_opaque
                 and scene.sph_all_opaque
                 and scene.sl_n_blocks_opaque > 0
-                and scene.sl_n_blocks > scene.sl_n_blocks_opaque)
+                and scene.sl_n_blocks > scene.sl_n_blocks_opaque
+                and _use_flat_walk(scene))
 
 
 def opaque_view(scene) -> TorchScene:

@@ -581,3 +581,104 @@ def test_train_step_on_card(cuda, showcase_tex48):
                                params["mat_albedo_factor"])
         results.append(float(loss))
     assert results[0] == pytest.approx(results[1], rel=5e-2)
+
+
+@pytest.mark.parametrize("k", [1, 6])
+def test_khit_kernel_equals_plain(cuda, showcase_tex48, k):
+    """Row 3 against its plain version on every lane: foliage rays with
+    random t_max, inactive and +inf-t_max lanes, a ragged ray count."""
+    from path_tracer_torch.ops import cuda_khit
+
+    sc = showcase_tex48
+    r = 5003
+    o, d, g = _foliage_rays(sc, 21, r, cuda)
+    t_max = g.uniform(0.5, 60.0, r).astype(np.float32)
+    t_max[::5] = np.inf
+    t_max = torch.from_numpy(t_max).to(cuda)
+    active = torch.from_numpy(g.uniform(size=r) > 0.1).to(cuda)
+    before = cuda_khit.launches
+    ts, pos = cuda_khit.k_nearest_tr_hits(o, d, active, sc, k, t_max=t_max)
+    assert cuda_khit.launches == before + 1
+    tris, gbox = sc.khit_tris, sc.khit_gbox
+    want_ts, want_pos = cuda_khit.k_nearest_tr_hits_plain(
+        o, d, torch.where(active, t_max, -1.0), tris, gbox, k)
+    assert torch.equal(ts, want_ts) and torch.equal(pos, want_pos)
+    assert torch.isfinite(ts[0]).float().mean() > 0.2
+    assert not torch.isfinite(ts[:, ~active]).any()
+
+
+@pytest.mark.parametrize("name", ["reflection", "showcase48"])
+def test_tree_kernels_equal_plain(cuda, name):
+    """Rows 7 and 8 against their plain versions on every lane (fresh,
+    advanced and dead lanes; t_max above and below the hit, dead lanes; a
+    ray count that is no multiple of the 128-ray packet)."""
+    from path_tracer_torch.ops import cuda_bvh
+
+    sc = _flat_scenes(cuda)[name]
+    r = 5003
+    o, d = _flat_rays(sc, 23, r, cuda)
+    for tpv in (-1.0, 0.5):
+        tp = torch.full((r,), tpv, device=cuda)
+        tp[::9] = float("inf")
+        before = cuda_bvh.tree_closest_hit_launches
+        got = cuda_bvh.closest_hit_triangles_tree(o, d, tp, sc)
+        assert cuda_bvh.tree_closest_hit_launches == before + 1
+        _assert_same(got, cuda_bvh.closest_hit_triangles_tree_plain(o, d, tp,
+                                                                    sc))
+        assert not got.valid[::9].any() and got.valid.float().mean() > 0.3
+    for factor in (1.01, 0.99):
+        tm = torch.where(got.valid, got.t * factor, 40.0)
+        tm[::3] = -1.0
+        before = cuda_bvh.tree_occluded_launches
+        occ = cuda_bvh.occluded_triangles_tree(o, d, tm, sc)
+        assert cuda_bvh.tree_occluded_launches == before + 1
+        assert torch.equal(occ, cuda_bvh.occluded_triangles_tree_plain(
+            o, d, tm, sc))
+        assert occ[::3].all()
+
+
+def test_dense_route_launches_khit(cuda, showcase_tex48, monkeypatch):
+    """``PT_NO_TRWALK_KERNEL=1 PT_DENSE_TR=1`` renders the textured
+    showcase through row 3 (no walk kernel), the same image as the walk
+    kernels' route up to the dense walk's per-column u, v recompute."""
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.ops import cuda_khit, cuda_trwalk
+
+    spec = IntegratorSpec(bounces=3)
+    want = render_pixel_sums(showcase_tex48, 32, 24, 1, 2, spec)
+    monkeypatch.setenv("PT_NO_TRWALK_KERNEL", "1")
+    monkeypatch.setenv("PT_DENSE_TR", "1")
+    before = (cuda_khit.launches, cuda_trwalk.alpha_launches,
+              cuda_trwalk.trans_launches)
+    got = render_pixel_sums(showcase_tex48, 32, 24, 1, 2, spec)
+    assert cuda_khit.launches > before[0]
+    assert (cuda_trwalk.alpha_launches, cuda_trwalk.trans_launches) \
+        == before[1:]
+    diff = np.abs(got - want)
+    assert (diff > 1e-3).mean() <= 0.005
+
+
+def test_tree_route_launches_tree_kernels(cuda, monkeypatch):
+    """``PT_BVH_KERNEL=tree`` renders the plain showcase through rows 7
+    and 8 and no flat-family kernel, the flat route's image within the
+    BVH-against-brute gate (99% of values within rtol 1e-3 / atol 1e-4)."""
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.ops import cuda_bvh
+
+    sc = _flat_scenes(cuda)["showcase48"]
+    spec = IntegratorSpec(bounces=3)
+    want = render_pixel_sums(sc, 32, 24, 1, 2, spec)
+    monkeypatch.setenv("PT_BVH_KERNEL", "tree")
+    counts = lambda: (cuda_bvh.tree_closest_hit_launches,
+                      cuda_bvh.tree_occluded_launches,
+                      cuda_bvh.closest_hit_launches,
+                      cuda_bvh.occluded_launches)
+    before = counts()
+    got = render_pixel_sums(sc, 32, 24, 1, 2, spec)
+    after = counts()
+    assert after[0] > before[0] and after[1] > before[1]
+    assert after[2:] == before[2:]
+    within = np.abs(got - want) <= 1e-4 + 1e-3 * np.abs(want)
+    assert within.mean() >= 0.99

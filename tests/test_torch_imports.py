@@ -76,7 +76,9 @@ def test_port_sources_import_no_jax():
     import ast
 
     files = sorted((REPO / "path_tracer_torch").rglob("*.py"))
-    assert REPO / "path_tracer_torch" / "parallel" / "train.py" in files
+    for module in ("parallel/train.py", "ops/cuda_khit.py",
+                   "scene/bvh_layouts.py"):
+        assert REPO / "path_tracer_torch" / module in files
     files.append(REPO / "chip_smoke.py")
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -150,6 +152,31 @@ def _fake_tr_scene(mode):
             tr_textured=True)
 
 
+def _fake_tree_scene(mode):
+    """The superleaf tree walk's tables as CUDA-device fakes."""
+    from types import SimpleNamespace
+
+    with mode:
+        cuda = dict(device="cuda")
+        return SimpleNamespace(
+            sl_nodes6=torch.empty((6, 8, 128), **cuda),
+            sl_meta6=torch.empty((6, 2, 128), dtype=torch.int32, **cuda),
+            sl_tris_t=torch.empty((9, 512), **cuda),
+            sl_map=torch.empty((512,), dtype=torch.int32, **cuda),
+            sl_n_nodes=3, sl_block=256)
+
+
+def _fake_khit_scene(mode):
+    """The dense walk's table of 300 transparent columns (three groups of
+    128), as CUDA-device fakes."""
+    from types import SimpleNamespace
+
+    with mode:
+        return SimpleNamespace(
+            khit_tris=torch.empty((9, 384), device="cuda"),
+            khit_gbox=torch.empty((6, 3), device="cuda"))
+
+
 def _fake_fused_scene(mode):
     """The fused shadow kernel's tables (flat and walk) as CUDA-device
     fakes, with an opaque partition of 128 block columns."""
@@ -164,12 +191,15 @@ def _launch_counts():
     from path_tracer_torch.ops import (
         cuda_bvh,
         cuda_intersect,
+        cuda_khit,
         cuda_shadow,
         cuda_spheres,
         cuda_trwalk,
     )
 
-    return (cuda_intersect.launches, cuda_spheres.launches,
+    return (cuda_khit.launches, cuda_bvh.tree_closest_hit_launches,
+            cuda_bvh.tree_occluded_launches,
+            cuda_intersect.launches, cuda_spheres.launches,
             cuda_spheres.sph_walk_launches, cuda_bvh.closest_hit_launches,
             cuda_bvh.occluded_launches, cuda_bvh.flat2_closest_hit_launches,
             cuda_bvh.flat2_occluded_launches, cuda_trwalk.alpha_launches,
@@ -194,7 +224,8 @@ def _fake_live(mode):
                                     "flat2_occluded", "sph_walk", "sph_occ",
                                     "sph_occ_walk", "fused_shadow",
                                     "alpha_walk_live", "trans_walk_live",
-                                    "fused_shadow_live"])
+                                    "fused_shadow_live", "khit", "tree",
+                                    "tree_occluded"])
 def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
     """Handed CUDA tensors where the kernel cannot be built or launched,
     a wrapper raises; it never returns the plain version's result."""
@@ -204,6 +235,7 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
     from path_tracer_torch.ops import (
         cuda_bvh,
         cuda_intersect,
+        cuda_khit,
         cuda_shadow,
         cuda_spheres,
         cuda_trwalk,
@@ -226,8 +258,12 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
                  "occluded_triangles_flat_multi_plain",
                  "closest_hit_triangles_flat2_plain", "_flat2_walk_plain",
                  "occluded_triangles_flat2_plain",
-                 "occluded_triangles_flat2_multi_plain"):
+                 "occluded_triangles_flat2_multi_plain",
+                 "closest_hit_triangles_tree_plain", "tree_walk_steps",
+                 "occluded_triangles_tree_plain", "occluded_tree_steps"):
         monkeypatch.setattr(cuda_bvh, name, _plain_must_not_run)
+    monkeypatch.setattr(cuda_khit, "k_nearest_tr_hits_plain",
+                        _plain_must_not_run)
     for name in ("closest_hit_spheres_walk_plain", "_sph_walk_plain",
                  "occluded_spheres_plain", "_occluded_dense_plain",
                  "_occluded_walk_plain"):
@@ -270,9 +306,17 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
         "fused_shadow_live": lambda o, d, tp, sc: cuda_shadow.fused_shadow(
             sc, o, [d], [tp], [tp], [True], o, o.narrow(1, 0, 2), tp > 0, 2,
             live=live),
+        "khit": lambda o, d, tp, sc: cuda_khit.k_nearest_tr_hits(
+            o, d, tp > 0, sc, 6, t_max=tp),
+        "tree": cuda_bvh.closest_hit_triangles_tree,
+        "tree_occluded": cuda_bvh.occluded_triangles_tree,
     }[kernel]
     if kernel.startswith("flat"):
         scene = _fake_flat_scene(mode)
+    elif kernel.startswith("tree"):
+        scene = _fake_tree_scene(mode)
+    elif kernel == "khit":
+        scene = _fake_khit_scene(mode)
     elif kernel in ("sph_walk", "sph_occ_walk"):
         scene = _fake_sph_scene(mode)
     elif kernel == "sph_occ":
@@ -508,3 +552,84 @@ def test_any_hit_launchers_check_operands():
     for args in bad_fused:
         with mode, pytest.raises(ValueError):
             native.launch_fused_shadow(*args, *flat, 256, sc, 2)
+
+
+def test_khit_and_tree_launchers_check_operands():
+    """The k-nearest-hits and tree walk launchers raise on a wrong table,
+    ray layout or k before any launch."""
+    from path_tracer_torch import native
+
+    mode, o, d, tp, _ = _fake_cuda_operands(64, 4)
+    sc = _fake_tree_scene(mode)
+    with mode:
+        cuda = dict(device="cuda")
+        tris = torch.empty((9, 256), **cuda)
+        gbox = torch.empty((6, 2), **cuda)
+        bad_khit = [
+            (o, d, tp, torch.empty((9, 200), **cuda), gbox, 6),  # ragged
+            (o, d, tp, tris, torch.empty((6, 3), **cuda), 6),  # groups
+            (o, d, tp.double(), tris, gbox, 6),
+            (o, d, tp, tris, gbox, 9),  # k past the register list
+            (o, d, tp, tris, gbox, 0),
+        ]
+        tables = (sc.sl_nodes6, sc.sl_meta6, sc.sl_tris_t)
+        bad_tree = [
+            ((torch.empty((6, 6, 128), **cuda), sc.sl_meta6, sc.sl_tris_t),
+             3, 256),
+            ((sc.sl_nodes6, sc.sl_meta6.float(), sc.sl_tris_t), 3, 256),
+            ((sc.sl_nodes6, sc.sl_meta6, torch.empty((16, 512), **cuda)),
+             3, 256),  # the JAX package's 16 rows
+            (tables, 129, 256),  # more nodes than columns
+            (tables, 3, 384),  # slots not whole blocks
+        ]
+        short_tp = torch.empty((63,), **cuda)
+    for args in bad_khit:
+        with mode, pytest.raises(ValueError):
+            native.launch_khit(*args)
+    for tabs, n_nodes, block in bad_tree:
+        with mode, pytest.raises(ValueError):
+            native.launch_tree_closest_hit(o, d, tp, *tabs, n_nodes, block)
+        with mode, pytest.raises(ValueError):
+            native.launch_tree_occluded(o, d, tp, *tabs, n_nodes, block)
+    with mode, pytest.raises(ValueError):
+        native.launch_tree_closest_hit(o, d, short_tp, *tables, 3, 256)
+
+
+def test_tree_never_routes_to_the_flat_walks(monkeypatch):
+    """Under ``PT_BVH_KERNEL=tree`` a cast and an any-hit on the card go to
+    the tree kernels (which raise here, with no toolkit) and never to the
+    flat or flat2 kernels."""
+    from types import SimpleNamespace
+
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import cuda_bvh, intersect
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the card tests cover it")
+
+    def _flat_must_not_run(*args, **kw):
+        raise AssertionError("a flat-family walk ran under tree")
+
+    for name in ("closest_hit_triangles_flat", "closest_hit_triangles_flat2",
+                 "occluded_triangles_flat_multi",
+                 "occluded_triangles_flat2_multi"):
+        monkeypatch.setattr(cuda_bvh, name, _flat_must_not_run)
+
+    def _no_toolkit():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(native, "_kernels", None)
+    monkeypatch.setattr(native, "_nvcc", _no_toolkit)
+    monkeypatch.setenv("PT_BVH_KERNEL", "tree")
+    mode, o, d, tp, _ = _fake_cuda_operands(300, 4)
+    scene = SimpleNamespace(**vars(_fake_tree_scene(mode)),
+                            num_real_triangles=1000, num_real_spheres=0,
+                            use_bvh=True, sph_use_blocks=False,
+                            sl_n_blocks=2)
+    assert intersect._walk_variant(scene) == "tree"
+    before = _launch_counts()
+    with mode, pytest.raises(RuntimeError, match="nvcc"):
+        intersect.closest_hit(o, d, tp, scene)
+    with mode, pytest.raises(RuntimeError, match="nvcc"):
+        intersect.occluded_multi(o, [d, d], scene)
+    assert _launch_counts() == before
