@@ -111,12 +111,14 @@ name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -861,6 +863,72 @@ def flat_work(o, d, sc, t_prev, t_max, occluded=None) -> tuple[int, int]:
                            t_max[rs], None if occluded is None else occluded[rs])
         tests += int((gate * real).sum())
     return slabs, tests
+
+
+def packet_counts(o, d, sc, t_prev, t_hit) -> dict:
+    """The flat closest hit's packets on these lanes, counted from the plain
+    inputs (no kernel carries instrumentation). A lane is admitted to a
+    block when its slab gate passes, and needs it when the entry also lies
+    before its hit's t (``t_hit``, +inf on a miss), as ``flat_work``
+    counts. The CTA walk (128-lane CTAs) visits the union of its lanes'
+    needs and runs every slot of a visited block on each warp with a needing
+    lane, 32 lanes wide; the warp walk (32-lane warps) visits the union of
+    its lanes' admissions and tests each admitted lane once per slot.
+    Returns the sums: live lanes, needed and admitted lane-blocks, the CTA
+    unions of needs, the warp unions of needs (the CTA walk's warp visits)
+    and of admissions (the warp walk's visits), CTAs and warps with a live
+    lane."""
+    import torch
+
+    from path_tracer_torch.ops import slab
+
+    ids = sc.sl_blkid[0]
+    live = torch.isfinite(t_prev)
+    out = dict(lanes=int(live.sum()), needs=0, admits=0, cta_visits=0,
+               cta_warp_visits=0, warp_visits=0, live_ctas=0, live_warps=0)
+    step = 1 << 15  # whole CTAs
+    for a in range(0, o.shape[0], step):
+        rs = slice(a, a + step)
+        tn, tf = slab.slab(o[rs], slab.safe_inv(d[rs]), sc.sl_blkflat)
+        gate = slab.closest_gate(tn, tf, t_prev[rs], ids)
+        need = gate & (tn <= t_hit[rs][:, None])
+        n = need.shape[0]
+        out["needs"] += int(need.sum())
+        out["admits"] += int(gate.sum())
+
+        def unions(g, size):
+            return int(g[: n - n % size].view(-1, size, g.shape[1])
+                       .any(dim=1).sum())
+
+        out["cta_visits"] += unions(need, 128)
+        out["cta_warp_visits"] += unions(need, 32)
+        out["warp_visits"] += unions(gate, 32)
+        for key, size in (("ctas", 128), ("warps", 32)):
+            out[f"live_{key}"] += int(
+                live[rs][: n - n % size].view(-1, size).any(dim=1).sum())
+    return out
+
+
+def log_packets(label: str, c: dict, block: int) -> dict:
+    """Logs ``packet_counts``' ratios; returns them."""
+    lanes, warps = max(c["lanes"], 1), max(c["live_warps"], 1)
+    r = dict(needs_per_lane=c["needs"] / lanes,
+             admits_per_lane=c["admits"] / lanes,
+             cta_per_cta=c["cta_visits"] / max(c["live_ctas"], 1),
+             cta_per_warp=c["cta_warp_visits"] / warps,
+             warp_per_warp=c["warp_visits"] / warps,
+             cta_efficiency=c["needs"] / max(32 * c["cta_warp_visits"], 1),
+             warp_efficiency=c["needs"] / max(c["admits"], 1))
+    log(f"  packets, {label}: {c['lanes']} live lanes need "
+        f"{r['needs_per_lane']:.3f} blocks each (admitted to "
+        f"{r['admits_per_lane']:.3f}); CTA walk: {r['cta_per_cta']:.3f} "
+        f"blocks per live 128-lane CTA, {r['cta_per_warp']:.3f} warp visits "
+        f"per live warp, lane-slot tests {32 * c['cta_warp_visits'] * block} "
+        f"(needed / executed {r['cta_efficiency']:.3f}); warp walk: "
+        f"{r['warp_per_warp']:.3f} blocks per live 32-lane warp, lane-slot "
+        f"tests {c['admits'] * block} (needed / executed "
+        f"{r['warp_efficiency']:.3f}); needed {c['needs'] * block}")
+    return r
 
 
 def phase_flat_timing(device, showcase):
@@ -2690,6 +2758,306 @@ def phase_tree_kernels(device, showcase, big):
     return c_err, o_err, out
 
 
+AB_ITERS = 10  # launches per reading of 3i's A/B
+
+
+def ab_turns(old, new) -> tuple[list, list]:
+    """Readings (ms per launch, CUDA events) of two designs in turns: old,
+    new, new, old, twice."""
+    old_ms, new_ms = [], []
+    for _ in range(2):
+        old_ms.append(cuda_ms(old, AB_ITERS))
+        new_ms += [cuda_ms(new, AB_ITERS), cuda_ms(new, AB_ITERS)]
+        old_ms.append(cuda_ms(old, AB_ITERS))
+    return old_ms, new_ms
+
+
+def held(label: str, new, want: dict) -> float:
+    """Fails the run unless the record ``new`` equals every record of
+    ``want`` ({name: record}) on every field of every lane, NaN equal to
+    NaN; returns its max abs error against the first."""
+    offs = {k: lanes_off(new, w) for k, w in want.items()}
+    log(f"  {label}: {new.t.numel()} lanes, hit "
+        f"{float(new.valid.float().mean()):.3f}; lanes off "
+        + ", ".join(f"{k} {v}" for k, v in offs.items()))
+    if any(offs.values()):
+        raise AssertionError(f"{label}: the redesigned kernel disagrees")
+    return max_err(new, next(iter(want.values())))
+
+
+def dead_warps(t_prev):
+    """t_prev with whole warps dead (every fifth) and partly dead ones
+    (every third lane of the warps two after them)."""
+    import torch
+
+    lane = torch.arange(t_prev.shape[0], device=t_prev.device)
+    warp = lane // 32
+    dead = (warp % 5 == 2) | ((warp % 5 == 4) & (lane % 3 == 0))
+    return torch.where(dead, float("inf"), t_prev)
+
+
+def kernel_device_ms(scene, spec) -> dict:
+    """{kernel: (device ms, launches)} summed by ``torch.profiler`` over one
+    1080p sample (every 2^18-lane tile) after one warm-up sample, for each
+    kernel, the port's and ATen's, by the identifier ending in "_kernel" in
+    the profiler's name; and "all", every kernel's on the card."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from path_tracer_torch.models.renderer import render_pixel_sums
+
+    render_pixel_sums(scene, 1920, 1080, 1, 1, spec, tile_rays=WAVE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render_pixel_sums(scene, 1920, 1080, 2, 1, spec, tile_rays=WAVE)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    out = {"all": (sum(e.self_device_time_total for e in events) / 1e3,
+                   sum(e.count for e in events))}
+    for e in events:
+        m = re.search(r"::(\w+_kernel)\b", e.key)
+        if m:
+            ms, n = out.get(m.group(1), (0.0, 0))
+            out[m.group(1)] = (ms + e.self_device_time_total / 1e3,
+                               n + e.count)
+    return out
+
+
+def phase_redesigned(device, showcase, tex) -> dict:
+    """3i: the flat closest hit (row 9: warp packets) and brute-force MT
+    (row 1: the table resident in shared memory, four rays a thread)
+    against their plain versions and the designs they replaced, every field
+    of every lane; the two designs timed in turns; the packet counts; each
+    kernel's device time over one 1080p sample. Returns the numbers."""
+    import torch
+
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.ops import ab_baselines, cuda_bvh, cuda_intersect
+    from path_tracer_torch.ops import intersect
+    from path_tracer_torch.ops.camera import generate_rays
+    from path_tracer_torch.ops.sorting import morton_pixel_order
+    from path_tracer_torch.scene import build_scene, load_scene
+    from path_tracer_torch.scene.procedural import (
+        duplicate_grid_scene,
+        tie_rays,
+        tie_winners,
+    )
+
+    log("phase 3i: rows 9 and 1 redesigned (warp-packet flat walk; "
+        "resident-table MT) against their plain versions and old designs")
+    n = WAVE
+    out = {"row9_err": 0.0, "row1_err": 0.0}
+    flat_new = cuda_bvh.closest_hit_triangles_flat
+    flat_old = ab_baselines.flat_closest_hit_cta
+    flat_plain = cuda_bvh.closest_hit_triangles_flat_plain
+    minus1 = torch.full((n,), -1.0, device=device)
+    (bo, bd, btp), _ = first_bounce(showcase, n, device)
+    co, cd = camera_rays(showcase, n, device)
+    io, id_ = bounce_rays(np.random.default_rng(7), showcase, n, device)
+    ties = build_scene(duplicate_grid_scene(), ".", device, use_bvh=True,
+                       sl_block=128)
+    ties_mt = build_scene(duplicate_grid_scene(), ".", device,
+                          use_bvh=False)
+    to, td = (as_cuda(x, device) for x in tie_rays(n))
+    tie_tp = minus1.clone()
+    tie_tp[::9] = float("inf")
+    rr = n - 37  # no multiple of 32, 128 or 256
+    lanes = {"camera": (co, cd, minus1), "first bounce": (bo, bd, btp),
+             "incoherent": (io, id_, minus1)}
+    for label, (o, d, tp) in lanes.items():
+        for sph in (True, False):
+            new = flat_new(o, d, tp, showcase, spheres=sph)
+            want = {"old": flat_old(o, d, tp, showcase, spheres=sph)}
+            if sph:
+                want = {"plain": flat_plain(o, d, tp, showcase, spheres=True),
+                        **want}
+            out["row9_err"] = max(out["row9_err"], held(
+                f"row 9, showcase {label}, spheres {sph}", new, want))
+    o, d = bo[:rr].contiguous(), bd[:rr].contiguous()
+    tp = dead_warps(btp[:rr])
+    out["row9_err"] = max(out["row9_err"], held(
+        "row 9, showcase first bounce, ragged R, dead warps",
+        flat_new(o, d, tp, showcase),
+        {"plain": flat_plain(o, d, tp, showcase),
+         "old": flat_old(o, d, tp, showcase)}))
+    # Tie rays: the CTA walk cuts whole blocks at a lane's best t, so where a
+    # hit lies an ulp before its block's entry (rays through a vertex or an
+    # edge of the box) its visit order decides between equal-t copies; the
+    # warp walk has no such cut and must equal the plain version, and may
+    # part from the old design only on the lanes where that one parts from
+    # the plain version.
+    new = flat_new(to, td, tie_tp, ties)
+    plain = flat_plain(to, td, tie_tp, ties)
+    old = flat_old(to, td, tie_tp, ties)
+    out["row9_err"] = max(out["row9_err"], held(
+        "row 9, duplicate-triangle grid, tie rays", new, {"plain": plain}))
+    old_off = records_off(old, plain)
+    log(f"  row 9 tie rays: the old design parts from the plain version on "
+        f"{int(old_off.sum())} lanes, the new one from the old on "
+        f"{lanes_off(new, old)}, all among them")
+    if not torch.equal(records_off(new, old), old_off):
+        raise AssertionError("row 9 tie rays: new and old part elsewhere")
+
+    mt_new = cuda_intersect.closest_hit_triangles_cuda
+    mt_old = ab_baselines.mt_closest_hit_chunked
+    mt_plain = intersect.closest_hit_triangles
+    refl = load_scene(scene_path("reflection"), device)
+    pix = torch.from_numpy(morton_pixel_order(1920, 1080)[:n].copy())
+    ro, rd = (x.contiguous() for x in generate_rays(pix.to(device), 1920,
+                                                    1080, refl, 1, 0))
+    rng = np.random.default_rng(20261016)
+    soups = {}
+    for n_soup in (2500, 10000):  # resident, and streamed past 4,096
+        n_pad = -(-n_soup // 256) * 256
+        tri = np.zeros((3, n_pad, 3), np.float32)
+        tri[0, :n_soup] = rng.uniform(-2, 2, (n_soup, 3))
+        tri[1:, :n_soup] = rng.uniform(-0.3, 0.3, (2, n_soup, 3))
+        soups[n_soup] = SimpleNamespace(
+            tri_v0=as_cuda(tri[0], device), tri_e1=as_cuda(tri[1], device),
+            tri_e2=as_cuda(tri[2], device), num_real_triangles=n_soup,
+            tri_packed_t=as_cuda(np.concatenate(list(tri), axis=1).T,
+                                 device))
+    so, sd = random_rays(rng, rr, np.full(3, -2.0), np.full(3, 2.0), device)
+    s_tp = dead_warps(torch.full((rr,), -1.0, device=device))
+    cases = [("reflection camera lanes", refl, (ro, rd, minus1)),
+             ("soup of 2,500, ragged R, dead warps", soups[2500],
+              (so, sd, s_tp)),
+             ("soup of 10,000 (streamed), 2^16 - 37 lanes", soups[10000],
+              (so[: (1 << 16) - 37].contiguous(),
+               sd[: (1 << 16) - 37].contiguous(),
+               s_tp[: (1 << 16) - 37].contiguous())),
+             ("duplicate-triangle grid, tie rays", ties_mt,
+              (to, td, tie_tp))]
+    for label, sc, args in cases:
+        new = mt_new(*args, sc)
+        out["row1_err"] = max(out["row1_err"], held(
+            f"row 1, {label} (N = {sc.tri_packed_t.shape[1]})", new,
+            {"plain": mt_plain(*args, sc), "old": mt_old(*args, sc)}))
+    # Every tie ray's hit lies on a duplicated triangle: the copy of lowest
+    # index (MT) or lowest packed slot (the flat walk) must win.
+    for label, sc, hits, rule in (
+            ("MT", ties_mt, mt_new(to, td, tie_tp, ties_mt), 0),
+            ("flat walk", ties, flat_new(to, td, tie_tp, ties), 1)):
+        want = torch.from_numpy(tie_winners(sc)[rule]).to(device)
+        prim = hits.prim[hits.valid].long()
+        n_won = int((want[prim] == prim).sum())
+        log(f"  tie rays through the {label}: {prim.numel()} hits, the "
+            f"tie rule's copy won on {n_won}")
+        if n_won != prim.numel() or prim.numel() < n // 2:
+            raise AssertionError(f"{label} tie rule: another copy won")
+
+    # The two designs in turns, with the bound and the -fmad=false floor.
+    ab = {}
+    for label, (o, d, tp) in lanes.items():
+        t_hit = flat_new(o, d, tp, showcase).t
+        slabs, tests = flat_work(o, d, showcase, tp, t_hit)
+        for sph in (True, False) if label != "incoherent" else (True,):
+            old_ms, new_ms = ab_turns(
+                lambda: flat_old(o, d, tp, showcase, spheres=sph),
+                lambda: flat_new(o, d, tp, showcase, spheres=sph))
+            b = bound(slabs * OPS_SLAB + tests * OPS_BW
+                      + sph * n * showcase.num_real_spheres * OPS_SPHERE,
+                      nbytes(o, d, tp, showcase.sl_blkflat,
+                             showcase.sl_blkid, showcase.sl_bw_t)
+                      + sph * nbytes(showcase.sph_packed_t)
+                      + n * ((4 + sph) * 4 + 4))
+            ab[f"row 9 {label}{' + spheres' if sph else ''}"] = (
+                old_ms, new_ms, b)
+    for label, sc, (o, d, tp) in cases[:2]:
+        old_ms, new_ms = ab_turns(lambda: mt_old(o, d, tp, sc),
+                                  lambda: mt_new(o, d, tp, sc))
+        r = o.shape[0]
+        b = bound(int(torch.isfinite(tp).sum()) * sc.num_real_triangles
+                  * OPS_MT, nbytes(o, d, tp, sc.tri_packed_t) + r * 20)
+        ab[f"row 1 {label}"] = (old_ms, new_ms, b)
+    for label, (old_ms, new_ms, b) in ab.items():
+        log(f"  A/B {label}: old design {min(old_ms):.4f} ms (readings "
+            + " ".join(f"{x:.4f}" for x in old_ms) + f"), new "
+            f"{min(new_ms):.4f} ms (" + " ".join(f"{x:.4f}" for x in new_ms)
+            + f"); bound {b[0]:.4f} ms ({b[1]}), -fmad=false floor "
+            f"{2 * b[0]:.4f} ms; new / old {min(new_ms) / min(old_ms):.3f}")
+    out["ab"] = ab
+
+    # Packets of both designs, from the plain inputs.
+    for label, (o, d, tp) in lanes.items():
+        t_hit = flat_new(o, d, tp, showcase).t
+        log_packets(label, packet_counts(o, d, showcase, tp, t_hit),
+                    showcase.sl_block)
+
+    # Device time per main-path sample, from the profiler, for both designs
+    # (the old ones routed in by old_designs), then one sample end to end
+    # in turns.
+    spec5, spec4 = IntegratorSpec(bounces=5), IntegratorSpec(bounces=4)
+    for label, sc, spec, name, old_name in (
+            ("plain showcase", showcase, spec5, "flat_closest_hit_kernel",
+             "flat_closest_hit_cta_kernel"),
+            ("reflection", refl, spec4, "mt_closest_hit_kernel",
+             "mt_closest_hit_chunked_kernel"),
+            ("textured showcase", tex, spec5, "flat_closest_hit_kernel",
+             None)):
+        prof = {"new": kernel_device_ms(sc, spec)}
+        if old_name:
+            with old_designs():
+                prof["old"] = kernel_device_ms(sc, spec)
+        out[f"profile {label}"] = prof
+        log(f"  profiler, one 1080p sample of the {label}: "
+            + ", ".join(f"{k} {v[0]:.3f} ms in {v[1]} launches"
+                        for k, v in sorted(prof["new"].items(),
+                                           key=lambda x: -x[1][0])
+                        if k != "all")
+            + f"; all kernels {prof['new']['all'][0]:.3f} ms device time "
+            f"over {prof['new']['all'][1]} launches")
+        if prof["new"].get(name, (0, 0))[1] == 0:
+            raise AssertionError(f"{label}: {name} never ran")
+        if not old_name:
+            continue
+        old_k = prof["old"].get(old_name, (0.0, 0))
+        log(f"  the same sample through the old design: {old_name} "
+            f"{old_k[0]:.3f} ms in {old_k[1]} launches against {name} "
+            f"{prof['new'][name][0]:.3f} ms; all kernels "
+            f"{prof['old']['all'][0]:.3f} ms against "
+            f"{prof['new']['all'][0]:.3f} ms")
+        secs = {"old": [], "new": []}
+        for design in ("old", "new", "new", "old"):
+            with (old_designs() if design == "old"
+                  else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                render_pixel_sums(sc, 1920, 1080, 1, 1, spec, tile_rays=WAVE)
+                torch.cuda.synchronize()
+                secs[design].append(time.perf_counter() - t0)
+        out[f"sample {label}"] = secs
+        log(f"  one 1080p sample of the {label} end to end, in turns "
+            f"(old, new, new, old): old " + " ".join(
+                f"{x:.4f}" for x in secs["old"]) + " s, new "
+            + " ".join(f"{x:.4f}" for x in secs["new"]) + " s")
+    return out
+
+
+@contextlib.contextmanager
+def old_designs():
+    """The main path's flat closest hit and brute-force MT casts go through
+    the designs rows 9 and 1 replaced (ops/ab_baselines.py) inside the
+    context, for 3i's per-sample comparison only; restored on exit."""
+    from path_tracer_torch.ops import ab_baselines, cuda_bvh, cuda_intersect
+
+    saved = (cuda_bvh.closest_hit_triangles_flat,
+             cuda_intersect.closest_hit_triangles_cuda)
+    cuda_bvh.closest_hit_triangles_flat = ab_baselines.flat_closest_hit_cta
+    cuda_intersect.closest_hit_triangles_cuda = (
+        ab_baselines.mt_closest_hit_chunked)
+    try:
+        yield
+    finally:
+        (cuda_bvh.closest_hit_triangles_flat,
+         cuda_intersect.closest_hit_triangles_cuda) = saved
+
+
 def with_env(env: dict):
     """Set environment knobs; returns a function that restores them."""
     import os
@@ -2869,6 +3237,43 @@ def phase_tree_route(device, showcase, flat, tex_path: Path):
     return counts
 
 
+def kernel_name(mangled: str) -> str:
+    """The kernel's identifier in an Itanium-mangled name (the last
+    length-prefixed identifier ending in "kernel"), with its raw template
+    arguments, e.g. mt_closest_hit_kernel<Lb1E>."""
+    i, name = 0, mangled
+    while i < len(mangled):
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        if j == i:
+            i += 1
+            continue
+        k = j + int(mangled[i:j])
+        if mangled[j:k].endswith("kernel"):
+            name = mangled[j:k]
+            if mangled[k:k + 1] == "I":
+                name += "<" + mangled[k + 1:mangled.index("E", k) + 1] + ">"
+        i = k
+    return name
+
+
+def ptxas_report(build_log: str) -> list:
+    """[(kernel, "registers, smem | spills")] from nvcc's -Xptxas -v output:
+    each entry function's name (the identifier before its parameters) with
+    the lines ptxas prints after it."""
+    import re
+
+    out = []
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            out.append([kernel_name(m.group(1)), []])
+        elif out and ("registers" in ln or "spill" in ln):
+            out[-1][1].append(ln.split(":", 1)[-1].strip())
+    return [(n, " | ".join(r)) for n, r in out]
+
+
 def main() -> int:
     import torch
 
@@ -2879,6 +3284,10 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from path_tracer_torch import native
 
+    only = sys.argv[1:] == ["--only", "3i"]
+    if sys.argv[1:] and not only:
+        print("usage: chip_smoke.py [--only 3i]", file=sys.stderr)
+        return 2
     card = smi()
     device = torch.device("cuda", 0)
     cap = torch.cuda.get_device_capability(0)
@@ -2889,10 +3298,9 @@ def main() -> int:
         raise AssertionError(f"need an sm_90 card, got capability {cap}")
 
     k = native.kernels()
-    regs = [ln.strip() for ln in k.build_log.splitlines()
-            if "registers" in ln or "spill" in ln]
-    log(f"phase 2: built {native.CSRC.name}/*.cu in {k.build_seconds:.2f} s "
-        f"({' | '.join(regs)})")
+    log(f"phase 2: built {native.CSRC.name}/*.cu in {k.build_seconds:.2f} s")
+    for name, report in ptxas_report(k.build_log):
+        log(f"  {name}: {report}")
 
     from path_tracer_torch.scene import build_scene
     from path_tracer_torch.scene.showcase import (
@@ -2912,6 +3320,12 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s; tr_kernel_ok {tex.tr_kernel_ok}")
     if not tex.tr_kernel_ok:
         raise AssertionError("textured showcase: no walk-kernel tables")
+    if only:  # phase 3i alone
+        phase_redesigned(device, showcase, tex)
+        log(f"chip_smoke: phase 3i passed in "
+            f"{time.perf_counter() - start:.1f} s")
+        print(card)
+        return 0
     from path_tracer_torch.ops.intersect import _walk_variant
     from path_tracer_torch.scene.device_scene import (
         opaque_view,
@@ -2953,6 +3367,7 @@ def main() -> int:
     khit_err, khit_times = phase_khit(device, tex)
     tree_err, tree_occ_err, tree_times = phase_tree_kernels(device, showcase,
                                                             big)
+    phase_redesigned(device, showcase, tex)
     launches = phase_main_path(device)
     flat_launches, flat_render = phase_showcase(device, showcase)
     walk_launches = phase_showcase_tex(device, tex)

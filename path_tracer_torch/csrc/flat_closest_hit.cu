@@ -1,5 +1,6 @@
-// Flat block-walk closest hit over the superleaf tables, one thread per ray,
-// with an optional dense sphere pass merged in the same launch.
+// Flat block-walk closest hit over the superleaf tables: every warp is an
+// independent packet of 32 rays, and each block it visits is spread over
+// the warp. An optional dense sphere pass is merged in the same launch.
 //
 // Replaces the TPU kernel path_tracer_tpu/ops/pallas_bvh.py::_flat_kernel
 // (launched by _flat_launch, entry closest_hit_triangles_flat). Contract
@@ -11,42 +12,85 @@
 //     t >= 1e-6 and t > t_prev, u = Au.h + au >= 0, v = Av.h + av >= 0,
 //     u + v <= 1; backface = d.n > 0 (MT det = -d.n);
 //   - TIE RULE: the smallest t wins, and among equal t the lowest packed
-//     slot (a lexicographic (t, slot) minimum, so the visit order does not
-//     decide it); a miss reports t = +inf, slot -1;
-//   - a dead lane is t_prev = +inf; a CTA whose lanes are all dead skips
+//     slot (a lexicographic (t, slot) minimum, so neither the visit order
+//     nor which lane tests a slot decides it); a miss reports t = +inf,
+//     slot -1;
+//   - a dead lane is t_prev = +inf; a warp whose lanes are all dead skips
 //     the walk and writes the all-miss record;
+//   - every block the gate admits is tested (no cut at a ray's best t), so
+//     the record equals the plain version's on every lane;
 //   - sphere pass (S > 0): the root rules of sphere_closest_hit.cu over the
 //     dense [4, S] table, lowest index among equal t; the sphere wins only
 //     on sph_t < tri_t (the triangle wins ties) and then reports kind 2,
 //     slot = sph_row_base + index, u = v = 0.
 //
-// Bound on the card: arithmetic in the dense block visits (about 25 flops
-// per ray-slot test, sl_block slots per visited block); the tables (8.5 MB
-// for the 100k-triangle showcase) stay in L2. Design: a CTA of 128 rays,
-// consecutive in the Morton-ordered wavefront, shares one walk. It first
-// computes, per block column, the nearest slab entry over its lanes
-// (thread c loops over the CTA's 128 rays staged in shared memory), then
-// repeatedly takes the unvisited column with the nearest entry. Each lane
-// re-tests that block's slab against its current best t; when any lane of
-// the CTA still needs the block (__syncthreads_or), the CTA stages the
-// block's 12 used BW rows in shared memory (12 KB at sl_block = 256) and
-// every needing lane tests all its slots, reading them as broadcasts. The
-// walk ends when no column is left or the nearest remaining entry lies
-// beyond every lane's best t, which is exact (no lane could still improve).
+// Bound on the card: arithmetic in the block visits (32 operations per
+// ray-slot Baldwin-Weber test, sl_block slots per block a lane's gate
+// admits) and the slab tests (22 operations per ray and block column); the
+// tables (8.5 MB for the 100k-triangle showcase) stay in L2.
+//
+// Design. A CTA holds four warps that share nothing but the launch; a warp
+// is a packet of 32 consecutive rays of the Morton-ordered wavefront, and
+// no CTA barrier sits anywhere in the kernel (__ballot_sync, __shfl_sync
+// and __syncwarp only).
+//   1. Gate: the warp stages its rays in its slice of shared memory; lane c
+//      slab-tests columns c, c + 32, ... against the warp's 32 rays (the
+//      loop unrolled: 32 independent chains; a dead ray fails the gate) and
+//      keeps the mask of the rays whose gate admits the column. Columns
+//      some ray is admitted to are compacted, with their masks, into the
+//      warp's list (8 bytes a column: 16 KB at the flat route's 2,048
+//      blocks; fewer warps per CTA where the list outgrows shared memory).
+//   2. Visit, every listed column in column order, spread over the warp:
+//      the block is taken 128 slots at a time; lane l loads slots l, l + 32,
+//      l + 64, l + 96 of the chunk (12 rows each, coalesced) into
+//      registers. The admitted rays are served one after another: the
+//      served ray is read from the warp's staged rays, its best t by
+//      shuffle, and every lane tests its four slots against it (four
+//      independent tests). A ballot finds the lanes with a candidate (t no
+//      farther than the served ray's best); one candidate lane is read
+//      directly, several take a warp (t, slot) minimum. The served lane
+//      merges the winner by the tie rule. A block thus costs one test per
+//      slot per admitted ray, where the CTA walk ran every slot on all 32
+//      lanes of each warp with a needing ray.
+//   3. The sphere pass reads the sphere table through the read-only cache
+//      (every lane reads the same column: a broadcast).
+// Why the order decides nothing: every ray tests every block its gate
+// admits, as the plain version does, and its record is the lexicographic
+// (t, slot) minimum of those hits; candidates are cut only at the served
+// ray's current best t, which cannot change that minimum. There is no cut
+// of whole blocks at a ray's best t: rounding can put a hit a few ulps
+// before its block's slab entry (a ray through a vertex or edge on the
+// block's box), so such a cut lets the visit order decide ties between
+// copies in different blocks, as it does in the CTA walk (ab_baselines.cu).
 //
 // Inputs:  o, d [R,3] f32; t_prev [R] f32; blkflat [8,bpad] f32;
 //          blkid [bpad] i32; bw [16, n_cols] f32 (block b = columns
-//          [b*block, (b+1)*block)); sph [4,S] f32 (unused when S == 0).
+//          [b*block, (b+1)*block), block a multiple of 128); sph [4,S] f32
+//          (unused when S == 0).
 // Outputs: fout [4 or 5, R] f32 rows (t, u, v, backface 0/1[, kind 0/1/2]);
 //          iout [R] i32 packed slot.
+
+#include <climits>
 
 #include "flat_common.cuh"
 
 namespace {
 
-using ptt::kCtaRays;
+using ptt::kFullMask;
 
-__global__ void __launch_bounds__(kCtaRays)
+constexpr int kWarps = 4;       // warps (packets) per CTA
+constexpr int kRows = 10;       // staged per ray: o.xyz, 1/d.xyz, t_prev, d.xyz
+constexpr int kSlots = 4;       // slots per lane of one chunk
+constexpr int kChunk = 32 * kSlots;
+constexpr size_t kMaxSmem = 232448;  // shared memory a CTA may use (H100)
+
+// Shared memory of one warp: its staged rays, then the listed columns and
+// their ray masks.
+__host__ __device__ constexpr size_t warp_floats(int bpad) {
+  return (size_t)kRows * 32 + 2 * (size_t)bpad;
+}
+
+__global__ void __launch_bounds__(32 * kWarps, 4)
 flat_closest_hit_kernel(const float* __restrict__ o,
                         const float* __restrict__ d,
                         const float* __restrict__ t_prev,
@@ -57,12 +101,12 @@ flat_closest_hit_kernel(const float* __restrict__ o,
                         int block, int n_cols, int S, int sph_row_base,
                         float* __restrict__ fout, int* __restrict__ iout) {
   extern __shared__ float smem[];
-  float* s_bw = smem;                 // [12][block]; sphere chunks reuse it
-  float* s_key = s_bw + 12 * block;   // [bpad]
-  float* s_ray = s_key + bpad;        // [kRayRows][kCtaRays]
-  __shared__ float s_red[3 * (kCtaRays / 32)];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* s_ray = smem + warp * warp_floats(bpad);  // [kRows][32]
+  int* s_col = reinterpret_cast<int*>(s_ray + kRows * 32);  // [bpad]
+  unsigned* s_mask = reinterpret_cast<unsigned*>(s_col + bpad);  // [bpad]
 
-  const int i = blockIdx.x * kCtaRays + threadIdx.x;
+  const int i = (blockIdx.x * (blockDim.x >> 5) + warp) * 32 + lane;
   const bool in_range = i < R;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 1.f, dy = 1.f, dz = 1.f;
   float tp = CUDART_INF_F;
@@ -73,63 +117,113 @@ flat_closest_hit_kernel(const float* __restrict__ o,
   }
   const ptt::ClosestGate gate;
   const bool live = gate.live(tp);  // +inf (or NaN) marks a dead lane
-  const int n_rows = S > 0 ? 5 : 4;
+  const unsigned live_mask = __ballot_sync(kFullMask, live);
 
   float bt = CUDART_INF_F, bu = 0.f, bv = 0.f, bb = 0.f;
   int bi = -1;
-  if (__syncthreads_or(live)) {
+  if (live_mask) {
     const float ix = ptt::safe_inv(dx), iy = ptt::safe_inv(dy),
                 iz = ptt::safe_inv(dz);
-    ptt::stage_ray(s_ray, ox, oy, oz, ix, iy, iz, tp);
-    ptt::column_keys(blk, blkid, bpad, bpad, s_ray, s_key, gate);
-    while (true) {
-      float key, reach = live ? bt : -CUDART_INF_F;  // farthest best t
-      int col;
-      ptt::next_column(s_key, bpad, key, col, reach, s_red);
-      // Exact stop: every remaining entry lies beyond every lane's best t.
-      if (col >= bpad || !(key <= reach)) break;
-      bool need = false;
-      if (live) {
-        float tn, tf;
-        ptt::slab(ptt::load_box(blk, bpad, col), ox, oy, oz, ix, iy, iz, tn,
-                  tf);
-        need = gate.pass(tn, tf, tp) && tn <= bt;
+    const float row[kRows] = {ox, oy, oz, ix, iy, iz, tp, dx, dy, dz};
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s_ray[r * 32 + lane] = row[r];
+    __syncwarp();
+
+    // 1. The columns some live ray's gate admits, compacted with the mask
+    //    of the rays it admits.
+    int m = 0;
+    for (int c0 = 0; c0 < bpad; c0 += 32) {
+      const int c = c0 + lane;
+      unsigned mask = 0u;
+      if (c < bpad && blkid[c] >= 0) {
+        const ptt::Box box = ptt::load_box(blk, bpad, c);
+        // All 32 staged rays, unrolled (independent chains); a dead ray's
+        // t_prev (+inf or NaN) fails the gate.
+#pragma unroll
+        for (int k = 0; k < 32; ++k) {
+          float tn, tf;
+          ptt::slab(box, s_ray[k], s_ray[32 + k], s_ray[64 + k],
+                    s_ray[96 + k], s_ray[128 + k], s_ray[160 + k], tn, tf);
+          if (gate.pass(tn, tf, s_ray[192 + k])) mask |= 1u << k;
+        }
       }
-      if (!__syncthreads_or(need)) continue;
-      const int b = blkid[col];
-      ptt::stage_block(bw, b, block, n_cols, s_bw);
-      if (need)
-        ptt::closest_block(s_bw, b, block, ox, oy, oz, dx, dy, dz, tp, bt, bu,
-                           bv, bb, bi);
-      __syncthreads();  // s_bw is restaged by the next visit
+      const unsigned any = __ballot_sync(kFullMask, mask != 0u);
+      if (mask) {
+        const int p = m + __popc(any & ((1u << lane) - 1u));
+        s_col[p] = c;
+        s_mask[p] = mask;
+      }
+      m += __popc(any);
+    }
+    __syncwarp();
+
+    // 2. The walk: every listed column in column order, each visit spread
+    //    over the warp 128 slots at a time.
+    for (int p = 0; p < m; ++p) {
+      const unsigned need_mask = s_mask[p];
+      const int b = blkid[s_col[p]];
+      const float* src = bw + (size_t)b * block;
+      for (int ch = 0; ch < block; ch += kChunk) {
+        ptt::BwSlot sl[kSlots];
+#pragma unroll
+        for (int q = 0; q < kSlots; ++q)
+          sl[q] = ptt::load_bw_slot(src + ch + q * 32 + lane, n_cols);
+        for (unsigned mm = need_mask; mm; mm &= mm - 1) {
+          const int s = __ffs(mm) - 1;  // the served ray
+          const float sox = s_ray[s], soy = s_ray[32 + s],
+                      soz = s_ray[64 + s], stp = s_ray[192 + s],
+                      sdx = s_ray[224 + s], sdy = s_ray[256 + s],
+                      sdz = s_ray[288 + s];
+          const float sbt = __shfl_sync(kFullMask, bt, s);
+          float lt = CUDART_INF_F, lu = 0.f, lv = 0.f, ldn = 0.f;
+          int ls = INT_MAX;
+#pragma unroll
+          for (int q = 0; q < kSlots; ++q) {
+            float u, v, dn;
+            const float t = ptt::bw_slot_closest(sl[q], sox, soy, soz, sdx,
+                                                 sdy, sdz, stp, sbt, u, v,
+                                                 dn);
+            if (t < lt) {  // slots rise with q: the lower slot keeps ties
+              lt = t; lu = u; lv = v; ldn = dn;
+              ls = b * block + ch + q * 32 + lane;
+            }
+          }
+          const unsigned hm = __ballot_sync(kFullMask, lt < CUDART_INF_F);
+          if (!hm) continue;
+          int from = __ffs(hm) - 1;
+          if (hm & (hm - 1)) {  // several candidate lanes: the (t, slot) min
+            float wt = lt;
+            int ws = ls, wl = lane;
+            ptt::warp_min_hit(wt, ws, wl);
+            from = wl;
+          }
+          const float wt = __shfl_sync(kFullMask, lt, from);
+          const float wu = __shfl_sync(kFullMask, lu, from);
+          const float wv = __shfl_sync(kFullMask, lv, from);
+          const float wdn = __shfl_sync(kFullMask, ldn, from);
+          const int ws = __shfl_sync(kFullMask, ls, from);
+          if (lane == s && (wt < bt || (wt == bt && ws < bi))) {
+            bt = wt; bu = wu; bv = wv; bb = wdn > 0.f ? 1.f : 0.f; bi = ws;
+          }
+        }
+      }
     }
   }
 
   float kind = bt < CUDART_INF_F ? 1.f : 0.f;
-  if (S > 0 && __syncthreads_or(live)) {
+  if (S > 0 && live) {
+    // 3. The sphere pass: every lane reads the same column, a broadcast.
     const float a = dx * dx + dy * dy + dz * dz;
     const float two_a = 2.0f * a;
-    const int chunk = 3 * block;  // [4][chunk] fits in the [12][block] area
     float st = CUDART_INF_F, sb = 0.f;
     int si = 0;
-    for (int base = 0; base < S; base += chunk) {
-      const int n = min(chunk, S - base);
-      for (int c = threadIdx.x; c < n; c += kCtaRays) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          s_bw[r * chunk + c] = sph[(size_t)r * S + base + c];
-      }
-      __syncthreads();
-      if (live) {
-        for (int j = 0; j < n; ++j) {
-          bool far;
-          const float t = ptt::sphere_nearest(
-              ox, oy, oz, dx, dy, dz, a, two_a, tp, s_bw[j],
-              s_bw[chunk + j], s_bw[2 * chunk + j], s_bw[3 * chunk + j], far);
-          if (t < st) { st = t; sb = far ? 1.f : 0.f; si = base + j; }
-        }
-      }
-      __syncthreads();
+    for (int j = 0; j < S; ++j) {
+      bool far;
+      const float t = ptt::sphere_nearest(
+          ox, oy, oz, dx, dy, dz, a, two_a, tp, __ldg(sph + j),
+          __ldg(sph + S + j), __ldg(sph + 2 * S + j), __ldg(sph + 3 * S + j),
+          far);
+      if (t < st) { st = t; sb = far ? 1.f : 0.f; si = j; }
     }
     if (st < bt) {  // the triangle wins ties
       bt = st; bu = 0.f; bv = 0.f; bb = sb; bi = sph_row_base + si;
@@ -141,7 +235,7 @@ flat_closest_hit_kernel(const float* __restrict__ o,
     fout[(size_t)R + i] = bu;
     fout[2 * (size_t)R + i] = bv;
     fout[3 * (size_t)R + i] = bb;
-    if (n_rows == 5) fout[4 * (size_t)R + i] = kind;
+    if (S > 0) fout[4 * (size_t)R + i] = kind;
     iout[i] = bi;
   }
 }
@@ -158,11 +252,22 @@ extern "C" int ptt_flat_closest_hit(const float* o, const float* d,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0) return 0;
-  size_t smem;
-  err = ptt::walk_smem(flat_closest_hit_kernel, 12 * block, bpad, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (R + kCtaRays - 1) / kCtaRays;
-  flat_closest_hit_kernel<<<blocks, kCtaRays, smem, stream>>>(
+  if (block <= 0 || block % kChunk) return (int)cudaErrorInvalidValue;
+  // Four warps a CTA, fewer where their key lists outgrow shared memory.
+  const size_t per_warp = warp_floats(bpad) * sizeof(float);
+  int warps = kWarps;
+  while (warps > 1 && warps * per_warp > kMaxSmem) --warps;
+  if (warps * per_warp > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const size_t smem = warps * per_warp;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(flat_closest_hit_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int rays = 32 * warps;
+  const int blocks = (R + rays - 1) / rays;
+  flat_closest_hit_kernel<<<blocks, rays, smem, stream>>>(
       o, d, t_prev, blk, blkid, bw, sph, R, bpad, block, n_cols, S,
       sph_row_base, fout, iout);
   return (int)cudaGetLastError();

@@ -1,7 +1,18 @@
 // Device helpers shared by the flat and flat2 block-walk kernels, the dense
 // sphere kernel and the sphere block walk: the one place where the block
-// slab test, the block walk, the Baldwin-Weber (BW) triangle test and the
+// slab test, the block walks, the Baldwin-Weber (BW) triangle test and the
 // sphere root rules are written.
+//
+// Two walks share them. The CTA walk (cta_min_key_max through
+// occluded_block, and flat_occ_set) serves flat_occluded.cu,
+// flat2_closest_hit.cu, flat2_occluded.cu, fused_shadow.cu, sph_walk.cu,
+// sph_occ.cu and the flat closest hit's former design in ab_baselines.cu: a
+// CTA of 128 rays shares one walk and stages each visited block in shared
+// memory behind CTA barriers. The warp walk (kFullMask through
+// bw_slot_closest, at the end) serves flat_closest_hit.cu: each warp is its
+// own packet, with no CTA barrier. safe_inv, Box, load_box, slab, the gates
+// and sphere_nearest serve both; the warp walk's bw_slot_closest repeats
+// bw_plane's and bw_inside's arithmetic on a slot held in registers.
 //
 // Every expression is written in the order of the plain PyTorch versions
 // (ops/cuda_bvh.py, ops/intersect.py), and the library is built -fmad=false,
@@ -157,7 +168,7 @@ __device__ __forceinline__ void cta_min_key_max(float& key, int& col,
   __syncthreads();
 }
 
-// The block walk shared by the flat closest hit and the flat any-hit. A CTA
+// The CTA block walk of the flat and flat2 kernels and the sphere walks. A CTA
 // of kCtaRays consecutive rays shares one walk; its dynamic shared memory is
 // s_bw [12][block] (one staged block), s_key [bpad] (nearest slab entry per
 // column) and s_ray [kRayRows][kCtaRays] (origin, inverted direction and
@@ -365,6 +376,65 @@ __device__ __forceinline__ bool flat_occ_set(const FlatTable& ft, float ox,
   }
   __syncthreads();  // next_column's last write to s_key is done
   return occ;
+}
+
+// ---- The warp walk (flat_closest_hit.cu) ----
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Warp-wide lexicographic minimum of (t, slot), carrying the lane that
+// holds it; every lane gets the result.
+__device__ __forceinline__ void warp_min_hit(float& t, int& slot,
+                                             int& lane) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const float t2 = __shfl_xor_sync(kFullMask, t, off);
+    const int s2 = __shfl_xor_sync(kFullMask, slot, off);
+    const int l2 = __shfl_xor_sync(kFullMask, lane, off);
+    if (t2 < t || (t2 == t && s2 < slot)) { t = t2; slot = s2; lane = l2; }
+  }
+}
+
+// The 12 used BW rows of one packed slot, held in registers: n.xyz, c,
+// Au.xyz, au, Av.xyz, av.
+struct BwSlot {
+  float n0, n1, n2, c, a0, a1, a2, a3, b0, b1, b2, b3;
+};
+
+// Slot rows at src[r * ld], r < 12, read through the read-only cache.
+__device__ __forceinline__ BwSlot load_bw_slot(const float* __restrict__ src,
+                                               int ld) {
+  return BwSlot{__ldg(src),          __ldg(src + ld),
+                __ldg(src + 2 * ld), __ldg(src + 3 * ld),
+                __ldg(src + 4 * ld), __ldg(src + 5 * ld),
+                __ldg(src + 6 * ld), __ldg(src + 7 * ld),
+                __ldg(src + 8 * ld), __ldg(src + 9 * ld),
+                __ldg(src + 10 * ld), __ldg(src + 11 * ld)};
+}
+
+// Closest-hit BW test of one ray against one slot in registers, in the
+// arithmetic and order of bw_plane and bw_inside: t when |d.n| >= kDetEps,
+// t >= kTMin, tp < t <= hi and u >= 0, v >= 0, u + v <= 1 (u, v and d.n
+// beside it); +inf otherwise. An accepted t is finite: t = +inf makes u + v
+// infinite or NaN.
+__device__ __forceinline__ float bw_slot_closest(const BwSlot& s, float ox,
+                                                 float oy, float oz, float dx,
+                                                 float dy, float dz, float tp,
+                                                 float hi, float& u, float& v,
+                                                 float& dn) {
+  dn = dx * s.n0 + dy * s.n1 + dz * s.n2;
+  if (!(fabsf(dn) >= kDetEps)) return CUDART_INF_F;
+  const float invdn = 1.0f / dn;
+  const float on = ox * s.n0 + oy * s.n1 + oz * s.n2;
+  const float t = (s.c - on) * invdn;
+  if (!(t >= kTMin && t > tp && t <= hi)) return CUDART_INF_F;
+  const float hx = ox + t * dx;
+  const float hy = oy + t * dy;
+  const float hz = oz + t * dz;
+  u = hx * s.a0 + hy * s.a1 + hz * s.a2 + s.a3;
+  if (!(u >= 0.f)) return CUDART_INF_F;
+  v = hx * s.b0 + hy * s.b1 + hz * s.b2 + s.b3;
+  if (!(v >= 0.f && u + v <= 1.f)) return CUDART_INF_F;
+  return t;
 }
 
 }  // namespace ptt

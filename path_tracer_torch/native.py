@@ -187,14 +187,15 @@ def kernels() -> Kernels:
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         # (o, d, t_prev, table, R, N, fout, iout, device, stream)
-        for fn in (lib.ptt_mt_closest_hit, lib.ptt_sphere_closest_hit):
+        for fn in (lib.ptt_mt_closest_hit, lib.ptt_mt_closest_hit_chunked,
+                   lib.ptt_sphere_closest_hit):
             fn.restype = ci
             fn.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, ci, vp]
         # (o, d, t_prev, blkflat, blkid, bw, sph, R, bpad, block, n_cols, S,
         #  sph_row_base, fout, iout, device, stream)
-        lib.ptt_flat_closest_hit.restype = ci
-        lib.ptt_flat_closest_hit.argtypes = [vp] * 7 + [ci] * 6 + [vp, vp,
-                                                                  ci, vp]
+        for fn in (lib.ptt_flat_closest_hit, lib.ptt_flat_closest_hit_cta):
+            fn.restype = ci
+            fn.argtypes = [vp] * 7 + [ci] * 6 + [vp, vp, ci, vp]
         # (o, d, t_max, blkflat, blkid, bw, R, L, bpad, block, n_cols, out,
         #  device, stream)
         lib.ptt_flat_occluded.restype = ci
@@ -323,14 +324,16 @@ def _check_sets(fn: str, o, ds, t_maxes, device) -> tuple[int, int]:
 
 
 def launch_flat_closest_hit(o, d, t_prev, blkflat, blkid, bw, block: int,
-                            sph=None, sph_row_base: int = 0):
+                            sph=None, sph_row_base: int = 0,
+                            fn: str = "ptt_flat_closest_hit"):
     """Check the operands of the flat closest-hit kernel, allocate its
     outputs and launch it on the current stream (no synchronisation).
 
     o, d: [R,3] f32; t_prev: [R] f32; blkflat [8,Bpad] f32, blkid [1,Bpad]
     i32, bw [16, n_blocks*block] f32; sph: None or [4,S] f32 (the fused
-    sphere pass). Returns (fout [4 or 5, R] f32, iout [R] i32)."""
-    fn = "ptt_flat_closest_hit"
+    sphere pass). Returns (fout [4 or 5, R] f32, iout [R] i32). ``fn`` is
+    the exported symbol: the warp walk, or ``ptt_flat_closest_hit_cta``,
+    the design it replaced, for ``ops/ab_baselines.py`` alone."""
     device = o.device
     if device.type != "cuda":
         raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
@@ -350,7 +353,7 @@ def launch_flat_closest_hit(o, d, t_prev, blkflat, blkid, bw, block: int,
                        device=device)
     iout = torch.empty((r,), dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.ptt_flat_closest_hit(
+    err = getattr(lib, fn)(
         o.data_ptr(), d.data_ptr(), t_prev.data_ptr(), blkflat.data_ptr(),
         blkid.data_ptr(), bw.data_ptr(), sph.data_ptr() if n_sph else None,
         r, bpad, block, n_cols, n_sph, sph_row_base, fout.data_ptr(),

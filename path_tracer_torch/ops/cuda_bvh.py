@@ -43,12 +43,14 @@ Semantics (kernel and plain version alike):
   t_max < 0 (any-hit, reported occluded for the caller to mask).
 
 The plain versions visit every block a lane's slab test admits, in column
-order, with no best-t pruning; the kernel also prunes blocks whose entry
-lies beyond the lane's best t. The two can differ only where rounding puts
-a hit a few ulps before its block's slab entry, at a near-tie. A block box
-lies inside its superblock box and slab rounding is monotone, so a block
-that passes its gate always lies in a superblock that passes: on the same
-tables flat2 gives the flat walk's record exactly.
+order, with no best-t pruning, and so does the flat closest-hit kernel: it
+equals its plain version on every lane. The flat2 closest-hit kernel also
+prunes blocks whose entry lies beyond the lane's best t; it can differ from
+its plain version only where rounding puts a hit a few ulps before its
+block's slab entry (a ray through a vertex or an edge on the block's box),
+at a near-tie. A block box lies inside its superblock box and slab
+rounding is monotone, so a block that passes its gate always lies in a
+superblock that passes.
 
 The tree walk keeps the Pallas packet's semantics lane for lane (see
 ``csrc/tree_walk.cu``): 128-ray packets (the last padded with o = 0,

@@ -1,9 +1,13 @@
-"""Procedural scenes built in code, numpy-free and file-free.
+"""Procedural scenes built in code, file-free.
 
 Port of ``path_tracer_tpu/scene/procedural.py``'s sphere grid: an n x n
 grid of analytic spheres varying metalness along one axis and roughness
 along the other, lit by two point lights. ``sphere_grid_scene(70)`` (4,900
 spheres) takes the sphere block walk, as it does in the JAX package.
+
+``duplicate_grid_scene`` and ``tie_rays`` are the tie-rule check of the
+closest-hit casts: a mesh whose every triangle is listed twice, and rays
+aimed at triangle centres, shared edges and vertices.
 """
 from __future__ import annotations
 
@@ -66,3 +70,89 @@ def sphere_grid_device_scene(n: int = 5, device="cuda"):
     from path_tracer_torch.scene.device_scene import build_scene
 
     return build_scene(sphere_grid_scene(n), root=".", device=device)
+
+
+def _grid_point(i: int, j: int, n: int) -> tuple:
+    """Vertex (i, j) of ``duplicate_grid_scene``'s n x n grid: unit cells
+    centred on the origin in x and z, a gentle bump in y."""
+    return (float(i - n / 2), 0.1 * math.sin(i) * math.cos(0.7 * j),
+            float(j - n / 2))
+
+
+def duplicate_grid_scene(n: int = 8, stack: int = 300) -> isf.Scene:
+    """An n x n grid of quads (2 n^2 triangles), each triangle listed twice
+    in a row, then ``stack`` more copies of the first triangle. Identical
+    rows give bit-identical t, so only the tie rule decides between copies:
+    the lower index (brute force) or packed slot (block walks). A pair has
+    one centroid, so the BVH build mostly keeps it in one block; a stack
+    longer than a block must be split across blocks."""
+    verts = [[isf.Vertex(position=_grid_point(i, j, n), normal=(0.0, 1.0, 0.0),
+                         tex_coords=(i / n, j / n))
+              for j in range(n + 1)] for i in range(n + 1)]
+    tris = []
+    for i in range(n):
+        for j in range(n):
+            v00, v10 = verts[i][j], verts[i + 1][j]
+            v01, v11 = verts[i][j + 1], verts[i + 1][j + 1]
+            for tri in ((v00, v11, v10), (v00, v01, v11)):
+                tris += [tri, tri]
+    tris += [tris[0]] * stack
+    return isf.Scene(
+        models=[isf.Mesh(triangles=tris, material=_mat(albedo=(0.7, 0.7,
+                                                              0.7)))],
+        camera=_camera(pos=(0.0, 6.0, n)),
+        lights=[isf.PointLight(position=(0.0, 5.0, 0.0),
+                               color=(100.0, 100.0, 100.0))],
+        background=(0.1, 0.1, 0.1))
+
+
+def tie_rays(r: int, n: int = 8, seed: int = 0):
+    """(o, d) float32 numpy [r, 3]: rays from 3 units above, slightly
+    tilted, aimed in equal shares at the centroids of random triangles of
+    ``duplicate_grid_scene(n)``, at the stacked triangle's centroid, at the
+    midpoints of shared edges (quad diagonals and cell sides) and at
+    interior grid vertices."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    p = np.array([[_grid_point(i, j, n) for j in range(n + 1)]
+                  for i in range(n + 1)])
+    k = r // 4
+    i, j = g.integers(0, n, (2, r))
+    ii, jj = g.integers(1, n, (2, r))  # interior vertices
+    upper = g.integers(0, 2, r).astype(bool)
+    far = np.where(upper[:, None], p[i, j + 1], p[i + 1, j])
+    tgt = (p[i, j] + p[i + 1, j + 1] + far) / 3.0  # a cell's triangle
+    tgt[k:2 * k] = (p[0, 0] + p[1, 1] + p[1, 0]) / 3.0  # the stack
+    side = np.where(upper[:, None], p[ii, j + 1], p[i + 1, jj])
+    diag = 0.5 * (p[i, j] + p[i + 1, j + 1])
+    edge = np.where(g.integers(0, 2, (r, 1)).astype(bool), diag,
+                    0.5 * (p[ii, j] + side))
+    tgt[2 * k:3 * k] = edge[2 * k:3 * k]
+    tgt[3 * k:] = p[ii, jj][3 * k:]
+    o = tgt + np.stack([g.uniform(-0.3, 0.3, r), np.full(r, 3.0),
+                        g.uniform(-0.3, 0.3, r)], axis=1)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def tie_winners(scene):
+    """For each real triangle of a built scene, the copy the tie rule picks
+    among the triangles identical to it (equal v0, e1, e2 rows): (by lowest
+    index, the brute-force rule; by lowest packed slot, the block walks'
+    rule, None without the BVH), int64 numpy arrays [T] of triangle ids."""
+    import numpy as np
+
+    n = scene.num_real_triangles
+    rows = np.concatenate([x[:n].cpu().numpy() for x in (
+        scene.tri_v0, scene.tri_e1, scene.tri_e2)], axis=1)
+    inv = np.unique(rows, axis=0, return_inverse=True)[1].ravel()
+    first = np.full(inv.max() + 1, n)
+    np.minimum.at(first, inv, np.arange(n))
+    if not scene.use_bvh:
+        return first[inv], None
+    slot = scene.sl_inv[:n].cpu().numpy().astype(np.int64)
+    low = np.full(inv.max() + 1, np.iinfo(np.int64).max)
+    np.minimum.at(low, inv, slot)
+    return first[inv], scene.sl_map.cpu().numpy()[low[inv]].astype(np.int64)

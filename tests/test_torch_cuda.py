@@ -8,10 +8,9 @@ imports no JAX, so it runs on a machine without it::
 (``--noconftest``: the suite's conftest.py configures JAX.)
 
 Tolerances: the kernels are built -fmad=false and round every operation as
-the plain versions do, so records must agree exactly; the flat closest hit
-may differ from its plain version, which does not prune by best t, only
-where rounding puts a hit a few ulps before its block's slab entry (at most
-1e-4 of lanes, the repo's divergence bound). The card render uses
+the plain versions do, so records must agree exactly, the flat closest hit's
+included (like its plain version it tests every block a lane's gate admits,
+with no cut at the lane's best t). The card render uses
 the same kernels' results and ATen's CUDA elementwise ops, whose float32
 rsqrt (not correctly rounded on the card) and transcendentals differ from
 the CPU's by an ulp or two: rtol 1e-3, atol 1e-4 per pixel (the golden
@@ -163,11 +162,7 @@ def test_flat_closest_hit_equals_plain(cuda, name):
             assert cuda_bvh.closest_hit_launches == before + 1
             want = cuda_bvh.closest_hit_triangles_flat_plain(o, d, tp, sc,
                                                              spheres)
-            assert _mismatch(got, want) <= 1e-4
-            same = (got.prim == want.prim) & (got.kind == want.kind)
-            for field in ("t", "u", "v", "backface"):
-                assert torch.equal(getattr(got, field)[same],
-                                   getattr(want, field)[same]), field
+            _assert_same(got, want)
             assert not got.valid[::9].any()
             assert got.valid.float().mean() > 0.3
 
@@ -682,3 +677,76 @@ def test_tree_route_launches_tree_kernels(cuda, monkeypatch):
     assert after[2:] == before[2:]
     within = np.abs(got - want) <= 1e-4 + 1e-3 * np.abs(want)
     assert within.mean() >= 0.99
+
+
+def _dead_warps(tp):
+    """Whole warps dead (every fifth) and partly dead ones (every third lane
+    of the warps two after them)."""
+    lane = torch.arange(tp.shape[0], device=tp.device)
+    warp = lane // 32
+    dead = (warp % 5 == 2) | ((warp % 5 == 4) & (lane % 3 == 0))
+    return torch.where(dead, float("inf"), tp)
+
+
+def _redesign_case(device, rays):
+    """(plain-version scene, rays o, d, t_prev) of one check of the
+    redesigned rows 9 and 1: tie rays on the duplicate-triangle grid, or
+    rays around the grid-48 showcase, 5003 of them (no multiple of 32, 128
+    or 256), with whole-dead and partly dead warps."""
+    from path_tracer_torch.scene import build_scene
+    from path_tracer_torch.scene.procedural import (
+        duplicate_grid_scene,
+        tie_rays,
+    )
+    from path_tracer_torch.scene.showcase import showcase_scene
+
+    r = 5003
+    if rays == "ties":
+        spec, block = duplicate_grid_scene(), 128
+        o, d = (torch.from_numpy(x).to(device) for x in tie_rays(r))
+    else:
+        spec, block = showcase_scene(48), 256
+    sc = build_scene(spec, ".", device, use_bvh=True, sl_block=block)
+    if rays != "ties":
+        o, d = _flat_rays(sc, 7, r, device)
+    tp = _dead_warps(torch.full((r,), -1.0, device=device))
+    return sc, o, d, tp
+
+
+@pytest.mark.parametrize("rays", ["ties", "showcase48"])
+def test_warp_flat_walk_equals_plain_and_cta_walk(cuda, rays):
+    """Row 9's warp walk equals its plain version on every field of every
+    lane; against the CTA walk it replaced it may part only where that one
+    parts from the plain version (its best-t cut at a vertex or edge of a
+    block's box lets its visit order decide equal-t copies)."""
+    from path_tracer_torch.ops import ab_baselines, cuda_bvh
+
+    sc, o, d, tp = _redesign_case(cuda, rays)
+    for spheres in (False, True):
+        got = cuda_bvh.closest_hit_triangles_flat(o, d, tp, sc, spheres)
+        want = cuda_bvh.closest_hit_triangles_flat_plain(o, d, tp, sc,
+                                                         spheres)
+        old = ab_baselines.flat_closest_hit_cta(o, d, tp, sc, spheres)
+        _assert_same(got, want)
+        off_new = torch.zeros_like(tp, dtype=torch.bool)
+        off_old = torch.zeros_like(tp, dtype=torch.bool)
+        for a, b, c in zip(got, old, want):
+            off_new |= a != b
+            off_old |= b != c
+        assert torch.equal(off_new, off_old)
+        assert not got.valid[torch.isinf(tp)].any()
+        assert got.valid.float().mean() > 0.3
+
+
+@pytest.mark.parametrize("rays", ["ties", "showcase48"])
+def test_resident_mt_equals_plain_and_chunked(cuda, rays):
+    """Row 1's resident-table kernel equals its plain version and the
+    chunked design it replaced on every field of every lane."""
+    from path_tracer_torch.ops import ab_baselines, cuda_intersect, intersect
+
+    sc, o, d, tp = _redesign_case(cuda, rays)
+    got = cuda_intersect.closest_hit_triangles_cuda(o, d, tp, sc)
+    _assert_same(got, intersect.closest_hit_triangles(o, d, tp, sc))
+    _assert_same(got, ab_baselines.mt_closest_hit_chunked(o, d, tp, sc))
+    assert not got.valid[torch.isinf(tp)].any()
+    assert got.valid.float().mean() > 0.3
