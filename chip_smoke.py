@@ -57,7 +57,22 @@ any error:
    sets with a tenth killed, on a ragged ray count, against their plain
    versions on every lane and against the flat (showcase) or flat2
    (scene A) kernels (the Baldwin-Weber/MT divergence gate), then timed
-   on the showcase;
+   on the showcase; (3i, also alone with ``--only 3i``) rows 9 and 1
+   against their plain versions on every field of 2^18 camera,
+   first-bounce, incoherent, ragged and tie lanes, the tie rule's copy
+   winning, the flat walk's packet counts and each kernel's device ms per
+   1080p sample; (3j, also alone with ``--only 3j``) rows 10 and 11 (the
+   warp-packet flat any-hit and two-level flat2 closest hit) against
+   their plain versions and the CTA designs they replaced
+   (``ops/ab_baselines.py``) on every lane: row 10 on the plain
+   showcase's first-bounce and incoherent shadow sets, the textured
+   showcase's opaque view, a ragged count with dead warps and tie shadow
+   rays; row 11 on scene A's camera, first-bounce,
+   random and ragged lanes and on tie rays whose copies sit in two
+   superblocks, where it must equal the plain version and the old design
+   parts from it (counted); then scene A's packet counts, both designs in
+   turns with bound and floor, and each design's device ms per 1080p
+   sample and one sample end to end in turns;
 4. the main path at full size: ``cube``, ``spheres`` and ``reflection`` at
    1920x1080, 4 bounces, 16 spp through ``render_pixel_sums``, and one
    reference-default frame of ``reflection`` (1920x1080, 64 spp, 4
@@ -865,32 +880,40 @@ def flat_work(o, d, sc, t_prev, t_max, occluded=None) -> tuple[int, int]:
     return slabs, tests
 
 
-def packet_counts(o, d, sc, t_prev, t_hit) -> dict:
+def packet_counts(o, d, sc, t_prev, t_hit, two_level: bool = False) -> dict:
     """The flat closest hit's packets on these lanes, counted from the plain
     inputs (no kernel carries instrumentation). A lane is admitted to a
-    block when its slab gate passes, and needs it when the entry also lies
-    before its hit's t (``t_hit``, +inf on a miss), as ``flat_work``
-    counts. The CTA walk (128-lane CTAs) visits the union of its lanes'
-    needs and runs every slot of a visited block on each warp with a needing
-    lane, 32 lanes wide; the warp walk (32-lane warps) visits the union of
-    its lanes' admissions and tests each admitted lane once per slot.
-    Returns the sums: live lanes, needed and admitted lane-blocks, the CTA
-    unions of needs, the warp unions of needs (the CTA walk's warp visits)
-    and of admissions (the warp walk's visits), CTAs and warps with a live
+    block when its slab gate passes (``two_level``: its superblock's gate
+    too, as flat2 gates), and needs it when the entry also lies before its
+    hit's t (``t_hit``, +inf on a miss), as ``flat_work`` counts. The CTA
+    walk (128-lane CTAs) visits the union of its lanes' needs and runs
+    every slot of a visited block on each warp with a needing lane, 32
+    lanes wide; the warp walk (32-lane warps) visits the union of its
+    lanes' admissions and tests each admitted lane once per slot. Returns
+    the sums: live lanes, needed and admitted lane-blocks, the CTA unions
+    of needs, the warp unions of needs (the CTA walk's warp visits) and of
+    admissions (the warp walk's visits), CTAs and warps with a live
     lane."""
     import torch
 
     from path_tracer_torch.ops import slab
 
     ids = sc.sl_blkid[0]
+    bpad = ids.shape[0]
     live = torch.isfinite(t_prev)
     out = dict(lanes=int(live.sum()), needs=0, admits=0, cta_visits=0,
-               cta_warp_visits=0, warp_visits=0, live_ctas=0, live_warps=0)
-    step = 1 << 15  # whole CTAs
+               cta_warp_visits=0, warp_visits=0, live_ctas=0, live_warps=0,
+               sb_warp_visits=0)
+    step = 1 << 15 if not two_level else 1 << 13  # whole CTAs
     for a in range(0, o.shape[0], step):
         rs = slice(a, a + step)
-        tn, tf = slab.slab(o[rs], slab.safe_inv(d[rs]), sc.sl_blkflat)
+        inv = slab.safe_inv(d[rs])
+        tn, tf = slab.slab(o[rs], inv, sc.sl_blkflat)
         gate = slab.closest_gate(tn, tf, t_prev[rs], ids)
+        if two_level:
+            g_sb = slab.closest_gate(*slab.slab(o[rs], inv, sc.sl_sbflat),
+                                     t_prev[rs], sc.sl_sbid[0])
+            gate &= g_sb.repeat_interleave(128, dim=1)[:, :bpad]
         need = gate & (tn <= t_hit[rs][:, None])
         n = need.shape[0]
         out["needs"] += int(need.sum())
@@ -899,6 +922,9 @@ def packet_counts(o, d, sc, t_prev, t_hit) -> dict:
         def unions(g, size):
             return int(g[: n - n % size].view(-1, size, g.shape[1])
                        .any(dim=1).sum())
+
+        if two_level:
+            out["sb_warp_visits"] += unions(g_sb, 32)
 
         out["cta_visits"] += unions(need, 128)
         out["cta_warp_visits"] += unions(need, 32)
@@ -927,7 +953,10 @@ def log_packets(label: str, c: dict, block: int) -> dict:
         f"(needed / executed {r['cta_efficiency']:.3f}); warp walk: "
         f"{r['warp_per_warp']:.3f} blocks per live 32-lane warp, lane-slot "
         f"tests {c['admits'] * block} (needed / executed "
-        f"{r['warp_efficiency']:.3f}); needed {c['needs'] * block}")
+        f"{r['warp_efficiency']:.3f}); needed {c['needs'] * block}"
+        + (f"; superblocks admitted per live warp "
+           f"{c['sb_warp_visits'] / warps:.3f}" if c["sb_warp_visits"]
+           else ""))
     return r
 
 
@@ -2785,15 +2814,16 @@ def held(label: str, new, want: dict) -> float:
     return max_err(new, next(iter(want.values())))
 
 
-def dead_warps(t_prev):
-    """t_prev with whole warps dead (every fifth) and partly dead ones
-    (every third lane of the warps two after them)."""
+def dead_warps(g, fill: float = float("inf")):
+    """The gate values g (t_prev, or t_max with ``fill`` -1) with whole
+    warps dead (every fifth) and partly dead ones (every third lane of the
+    warps two after them)."""
     import torch
 
-    lane = torch.arange(t_prev.shape[0], device=t_prev.device)
+    lane = torch.arange(g.shape[0], device=g.device)
     warp = lane // 32
     dead = (warp % 5 == 2) | ((warp % 5 == 4) & (lane % 3 == 0))
-    return torch.where(dead, float("inf"), t_prev)
+    return torch.where(dead, fill, g)
 
 
 def kernel_device_ms(scene, spec) -> dict:
@@ -2831,14 +2861,13 @@ def kernel_device_ms(scene, spec) -> dict:
 def phase_redesigned(device, showcase, tex) -> dict:
     """3i: the flat closest hit (row 9: warp packets) and brute-force MT
     (row 1: the table resident in shared memory, four rays a thread)
-    against their plain versions and the designs they replaced, every field
-    of every lane; the two designs timed in turns; the packet counts; each
-    kernel's device time over one 1080p sample. Returns the numbers."""
+    against their plain versions, every field of every lane, and the tie
+    rule; the packet counts; each kernel's device time over one 1080p
+    sample. Returns the numbers."""
     import torch
 
     from path_tracer_torch.models.integrator import IntegratorSpec
-    from path_tracer_torch.models.renderer import render_pixel_sums
-    from path_tracer_torch.ops import ab_baselines, cuda_bvh, cuda_intersect
+    from path_tracer_torch.ops import cuda_bvh, cuda_intersect
     from path_tracer_torch.ops import intersect
     from path_tracer_torch.ops.camera import generate_rays
     from path_tracer_torch.ops.sorting import morton_pixel_order
@@ -2849,12 +2878,12 @@ def phase_redesigned(device, showcase, tex) -> dict:
         tie_winners,
     )
 
-    log("phase 3i: rows 9 and 1 redesigned (warp-packet flat walk; "
-        "resident-table MT) against their plain versions and old designs")
+    log("phase 3i: rows 9 and 1 (warp-packet flat walk; resident-table MT) "
+        "against their plain versions")
+    t0 = time.perf_counter()
     n = WAVE
     out = {"row9_err": 0.0, "row1_err": 0.0}
     flat_new = cuda_bvh.closest_hit_triangles_flat
-    flat_old = ab_baselines.flat_closest_hit_cta
     flat_plain = cuda_bvh.closest_hit_triangles_flat_plain
     minus1 = torch.full((n,), -1.0, device=device)
     (bo, bd, btp), _ = first_bounce(showcase, n, device)
@@ -2871,41 +2900,27 @@ def phase_redesigned(device, showcase, tex) -> dict:
     lanes = {"camera": (co, cd, minus1), "first bounce": (bo, bd, btp),
              "incoherent": (io, id_, minus1)}
     for label, (o, d, tp) in lanes.items():
-        for sph in (True, False):
-            new = flat_new(o, d, tp, showcase, spheres=sph)
-            want = {"old": flat_old(o, d, tp, showcase, spheres=sph)}
-            if sph:
-                want = {"plain": flat_plain(o, d, tp, showcase, spheres=True),
-                        **want}
-            out["row9_err"] = max(out["row9_err"], held(
-                f"row 9, showcase {label}, spheres {sph}", new, want))
+        new = flat_new(o, d, tp, showcase, spheres=True)
+        out["row9_err"] = max(out["row9_err"], held(
+            f"row 9, showcase {label}, spheres", new,
+            {"plain": flat_plain(o, d, tp, showcase, spheres=True)}))
     o, d = bo[:rr].contiguous(), bd[:rr].contiguous()
     tp = dead_warps(btp[:rr])
     out["row9_err"] = max(out["row9_err"], held(
         "row 9, showcase first bounce, ragged R, dead warps",
-        flat_new(o, d, tp, showcase),
-        {"plain": flat_plain(o, d, tp, showcase),
-         "old": flat_old(o, d, tp, showcase)}))
-    # Tie rays: the CTA walk cuts whole blocks at a lane's best t, so where a
-    # hit lies an ulp before its block's entry (rays through a vertex or an
-    # edge of the box) its visit order decides between equal-t copies; the
-    # warp walk has no such cut and must equal the plain version, and may
-    # part from the old design only on the lanes where that one parts from
-    # the plain version.
-    new = flat_new(to, td, tie_tp, ties)
-    plain = flat_plain(to, td, tie_tp, ties)
-    old = flat_old(to, td, tie_tp, ties)
+        flat_new(o, d, tp, showcase), {"plain": flat_plain(o, d, tp,
+                                                           showcase)}))
+    # Tie rays: where a hit lies an ulp before its block's entry (rays
+    # through a vertex or an edge of the box) a cut of whole blocks at a
+    # lane's best t would let the visit order decide between equal-t
+    # copies; the warp walk has no such cut and must equal the plain
+    # version.
     out["row9_err"] = max(out["row9_err"], held(
-        "row 9, duplicate-triangle grid, tie rays", new, {"plain": plain}))
-    old_off = records_off(old, plain)
-    log(f"  row 9 tie rays: the old design parts from the plain version on "
-        f"{int(old_off.sum())} lanes, the new one from the old on "
-        f"{lanes_off(new, old)}, all among them")
-    if not torch.equal(records_off(new, old), old_off):
-        raise AssertionError("row 9 tie rays: new and old part elsewhere")
+        "row 9, duplicate-triangle grid, tie rays",
+        flat_new(to, td, tie_tp, ties),
+        {"plain": flat_plain(to, td, tie_tp, ties)}))
 
     mt_new = cuda_intersect.closest_hit_triangles_cuda
-    mt_old = ab_baselines.mt_closest_hit_chunked
     mt_plain = intersect.closest_hit_triangles
     refl = load_scene(scene_path("reflection"), device)
     pix = torch.from_numpy(morton_pixel_order(1920, 1080)[:n].copy())
@@ -2935,47 +2950,261 @@ def phase_redesigned(device, showcase, tex) -> dict:
              ("duplicate-triangle grid, tie rays", ties_mt,
               (to, td, tie_tp))]
     for label, sc, args in cases:
-        new = mt_new(*args, sc)
         out["row1_err"] = max(out["row1_err"], held(
-            f"row 1, {label} (N = {sc.tri_packed_t.shape[1]})", new,
-            {"plain": mt_plain(*args, sc), "old": mt_old(*args, sc)}))
+            f"row 1, {label} (N = {sc.tri_packed_t.shape[1]})",
+            mt_new(*args, sc), {"plain": mt_plain(*args, sc)}))
     # Every tie ray's hit lies on a duplicated triangle: the copy of lowest
     # index (MT) or lowest packed slot (the flat walk) must win.
     for label, sc, hits, rule in (
             ("MT", ties_mt, mt_new(to, td, tie_tp, ties_mt), 0),
             ("flat walk", ties, flat_new(to, td, tie_tp, ties), 1)):
-        want = torch.from_numpy(tie_winners(sc)[rule]).to(device)
-        prim = hits.prim[hits.valid].long()
-        n_won = int((want[prim] == prim).sum())
-        log(f"  tie rays through the {label}: {prim.numel()} hits, the "
-            f"tie rule's copy won on {n_won}")
-        if n_won != prim.numel() or prim.numel() < n // 2:
-            raise AssertionError(f"{label} tie rule: another copy won")
+        tie_rule_held(label, sc, hits, rule, n // 2)
 
-    # The two designs in turns, with the bound and the -fmad=false floor.
-    ab = {}
+    # Packets of the warp walk, from the plain inputs.
     for label, (o, d, tp) in lanes.items():
         t_hit = flat_new(o, d, tp, showcase).t
-        slabs, tests = flat_work(o, d, showcase, tp, t_hit)
-        for sph in (True, False) if label != "incoherent" else (True,):
-            old_ms, new_ms = ab_turns(
-                lambda: flat_old(o, d, tp, showcase, spheres=sph),
-                lambda: flat_new(o, d, tp, showcase, spheres=sph))
-            b = bound(slabs * OPS_SLAB + tests * OPS_BW
-                      + sph * n * showcase.num_real_spheres * OPS_SPHERE,
-                      nbytes(o, d, tp, showcase.sl_blkflat,
-                             showcase.sl_blkid, showcase.sl_bw_t)
-                      + sph * nbytes(showcase.sph_packed_t)
-                      + n * ((4 + sph) * 4 + 4))
-            ab[f"row 9 {label}{' + spheres' if sph else ''}"] = (
-                old_ms, new_ms, b)
-    for label, sc, (o, d, tp) in cases[:2]:
-        old_ms, new_ms = ab_turns(lambda: mt_old(o, d, tp, sc),
-                                  lambda: mt_new(o, d, tp, sc))
-        r = o.shape[0]
-        b = bound(int(torch.isfinite(tp).sum()) * sc.num_real_triangles
-                  * OPS_MT, nbytes(o, d, tp, sc.tri_packed_t) + r * 20)
-        ab[f"row 1 {label}"] = (old_ms, new_ms, b)
+        log_packets(label, packet_counts(o, d, showcase, tp, t_hit),
+                    showcase.sl_block)
+
+    # Device time per main-path sample, from the profiler (the plain
+    # showcase's is phase 3j's).
+    spec5, spec4 = IntegratorSpec(bounces=5), IntegratorSpec(bounces=4)
+    for label, sc, spec, name in (
+            ("reflection", refl, spec4, "mt_closest_hit_kernel"),
+            ("textured showcase", tex, spec5, "flat_closest_hit_kernel")):
+        prof = kernel_device_ms(sc, spec)
+        out[f"profile {label}"] = prof
+        log_profile(label, prof)
+        if prof.get(name, (0, 0))[1] == 0:
+            raise AssertionError(f"{label}: {name} never ran")
+    log(f"  phase 3i took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def tie_rule_held(label: str, sc, hits, rule: int, min_hits: int) -> None:
+    """Fails the run unless the tie rule's copy (``tie_winners(sc)[rule]``:
+    0 lowest index, 1 lowest packed slot) won on every hitting lane of
+    ``hits``, and at least ``min_hits`` lanes hit."""
+    import torch
+
+    from path_tracer_torch.scene.procedural import tie_winners
+
+    want = torch.from_numpy(tie_winners(sc)[rule]).to(hits.prim.device)
+    prim = hits.prim[hits.valid].long()
+    n_won = int((want[prim] == prim).sum())
+    log(f"  tie rays through the {label}: {prim.numel()} hits, the tie "
+        f"rule's copy won on {n_won}")
+    if n_won != prim.numel() or prim.numel() < min_hits:
+        raise AssertionError(f"{label} tie rule: another copy won")
+
+
+def log_profile(label: str, prof: dict) -> None:
+    """Logs ``kernel_device_ms``' kernels, largest first."""
+    log(f"  profiler, one 1080p sample of the {label}: "
+        + ", ".join(f"{k} {v[0]:.3f} ms in {v[1]} launches"
+                    for k, v in sorted(prof.items(), key=lambda x: -x[1][0])
+                    if k != "all")
+        + f"; all kernels {prof['all'][0]:.3f} ms device time over "
+        f"{prof['all'][1]} launches")
+
+
+@contextlib.contextmanager
+def cta_designs():
+    """The main path's flat any-hit and flat2 closest hit casts go through
+    the designs rows 10 and 11 replaced (ops/ab_baselines.py) inside the
+    context, for 3j's per-sample comparison only; restored on exit."""
+    from path_tracer_torch.ops import ab_baselines, cuda_bvh
+
+    saved = (cuda_bvh.occluded_triangles_flat_multi,
+             cuda_bvh.closest_hit_triangles_flat2)
+    cuda_bvh.occluded_triangles_flat_multi = (
+        ab_baselines.flat_occluded_cta_multi)
+    cuda_bvh.closest_hit_triangles_flat2 = ab_baselines.flat2_closest_hit_cta
+    try:
+        yield
+    finally:
+        (cuda_bvh.occluded_triangles_flat_multi,
+         cuda_bvh.closest_hit_triangles_flat2) = saved
+
+
+def records_held(label: str, new, plain, old) -> int:
+    """Fails the run unless ``new`` equals ``plain`` on every field of
+    every lane and parts from ``old`` exactly where ``old`` parts from
+    ``plain``; returns how many lanes that is."""
+    import torch
+
+    held(label, new, {"plain": plain})
+    old_off = records_off(old, plain)
+    n_old = int(old_off.sum())
+    log(f"    the old design parts from the plain version on {n_old} "
+        f"lanes, the new one from the old on {lanes_off(new, old)}")
+    if not torch.equal(records_off(new, old), old_off):
+        raise AssertionError(f"{label}: new and old part elsewhere")
+    return n_old
+
+
+def occ_held(label: str, o, ds, tms, sc) -> None:
+    """Fails the run unless row 10 equals its plain version and its old
+    design on every lane of the sets."""
+    import torch
+
+    from path_tracer_torch.ops import ab_baselines, cuda_bvh
+
+    new = cuda_bvh.occluded_triangles_flat_multi(o, ds, tms, sc)
+    want = {"plain": cuda_bvh.occluded_triangles_flat_multi_plain(o, ds, tms,
+                                                                  sc),
+            "old": ab_baselines.flat_occluded_cta_multi(o, ds, tms, sc)}
+    offs = {k: int((new != w).sum()) for k, w in want.items()}
+    dead = torch.stack(tms) < 0.0
+    log(f"  row 10, {label}: {len(ds)} x {o.shape[0]} lanes, occluded "
+        f"{float(new[~dead].float().mean()):.3f} of the live; lanes off "
+        + ", ".join(f"{k} {v}" for k, v in offs.items()))
+    if any(offs.values()) or not bool(new[dead].all()):
+        raise AssertionError(f"row 10, {label}: the warp any-hit disagrees")
+
+
+def phase_rows_10_11(device, showcase, tex, big) -> dict:
+    """3j: the flat any-hit (row 10) and the flat2 closest hit (row 11) as
+    warp packets against their plain versions and the CTA designs they
+    replaced, every lane; flat2 on tie rays whose copies sit in two
+    superblocks; scene A's packet counts; both designs timed in turns with
+    the bound and the -fmad=false floor; each design's device time over one 1080p sample (the plain showcase, scene
+    A) and one sample end to end in turns. Returns the numbers."""
+    import torch
+
+    from path_tracer_torch import native
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.ops import ab_baselines, cuda_bvh
+    from path_tracer_torch.scene import build_scene
+    from path_tracer_torch.scene.device_scene import opaque_view
+    from path_tracer_torch.scene.procedural import (
+        duplicate_grid_scene,
+        tie_rays,
+    )
+
+    log("phase 3j: rows 10 and 11 redesigned (warp-packet flat any-hit; "
+        "two-level warp-packet flat2 closest hit) against their plain "
+        "versions and old designs")
+    phase_t0 = time.perf_counter()
+    n = WAVE
+    out = {}
+    rng = np.random.default_rng(20261021)
+
+    # Row 10 on every lane of each set.
+    _, (so, sds, stms) = first_bounce(showcase, n, device)
+    occ_held("plain showcase first-bounce shadow sets", so, sds, stms,
+             showcase)
+    io, ids, itms = shadow_sets(rng, showcase, n, device)
+    occ_held("plain showcase incoherent shadow sets", io, ids, itms,
+             showcase)
+    _, (to3, tds, ttms) = first_bounce(tex, n, device)
+    occ_held("textured showcase's opaque view, first-bounce shadow sets",
+             to3, tds, ttms, opaque_view(tex))
+    rr = n - 37
+    occ_held("ragged R, dead warps", so[:rr].contiguous(),
+             [x[:rr].contiguous() for x in sds],
+             [dead_warps(x[:rr], -1.0) for x in stms], showcase)
+    ties = build_scene(duplicate_grid_scene(), ".", device, use_bvh=True,
+                       sl_block=128)
+    to, td = (as_cuda(x, device) for x in tie_rays(n))
+    tie_tp = torch.full((n,), -1.0, device=device)
+    tie_tp[::9] = float("inf")
+    t_hit = cuda_bvh.closest_hit_triangles_flat_plain(to, td, tie_tp, ties).t
+    hit, dead = torch.isfinite(t_hit), torch.isinf(tie_tp)
+    tie_tms = [torch.where(dead, -1.0, torch.where(hit, t_hit * k, 5.0))
+               for k in (1.5, 0.5)]
+    occ_held("tie rays (edges, vertices, stacked copies), t_max 1.5 t and "
+             "0.5 t, dead lanes", to, [td, td], tie_tms, ties)
+
+    # Row 11 on every field of every lane of scene A's opaque view.
+    op = opaque_view(big)
+    m = 1 << 16
+    flat2_new = cuda_bvh.closest_hit_triangles_flat2
+    flat2_old = ab_baselines.flat2_closest_hit_cta
+    flat2_plain = cuda_bvh.closest_hit_triangles_flat2_plain
+    (bo, bd, btp), _ = first_bounce(big, n, device)
+    co, cd = camera_rays(big, n, device)
+    v = big.tri_v0[: big.num_real_triangles].cpu().numpy()
+    ro, rd = random_rays(rng, m, v.min(0), v.max(0), device)
+    minus1 = torch.full((n,), -1.0, device=device)
+    cases = {"camera": (co[:m], cd[:m], minus1[:m]),
+             "first bounce": (bo[:m], bd[:m], btp[:m]),
+             "random": (ro, rd, minus1[:m]),
+             "first bounce, ragged R, dead warps": (
+                 bo[m:2 * m - 37].contiguous(), bd[m:2 * m - 37].contiguous(),
+                 dead_warps(btp[m:2 * m - 37]))}
+    out["row11 old off"] = {}
+    for label, (o, d, tp) in cases.items():
+        o, d, tp = o.contiguous(), d.contiguous(), tp.contiguous()
+        out["row11 old off"][label] = records_held(
+            f"row 11, scene A {label}", flat2_new(o, d, tp, op),
+            flat2_plain(o, d, tp, op), flat2_old(o, d, tp, op))
+    # Tie rays where the stacked copies sit in two superblocks: the fault
+    # of the old design's best-t cut shows here.
+    ties2 = build_scene(duplicate_grid_scene(8, 8400), ".", device,
+                        use_bvh=True, sl_block=128)
+    log(f"  two-superblock tie scene: {ties2.num_real_triangles} triangles "
+        f"in {ties2.sl_n_blocks} blocks of 128, "
+        f"{int((ties2.sl_sbid >= 0).sum())} superblocks")
+    to2, td2 = (as_cuda(x, device) for x in tie_rays(n))
+    new = flat2_new(to2, td2, tie_tp, ties2)
+    out["row11 old off"]["tie rays"] = records_held(
+        "row 11, tie rays across two superblocks", new,
+        flat2_plain(to2, td2, tie_tp, ties2),
+        flat2_old(to2, td2, tie_tp, ties2))
+    tie_rule_held("flat2 walk (two superblocks)", ties2, new, 1, n // 2)
+
+    # Scene A's packets (A0): the blocks the two gates admit against the
+    # blocks a lane needs.
+    for label, (o, d, tp) in (("scene A camera", (co, cd, minus1)),
+                              ("scene A first bounce", (bo, bd, btp))):
+        t_hit = flat2_new(o, d, tp, op).t
+        log_packets(label, packet_counts(o, d, op, tp, t_hit,
+                                         two_level=True), op.sl_block)
+
+    # Both designs in turns, with the bound and the -fmad=false floor.
+    ab = {}
+    for label, (o, ds, tms) in (("first-bounce shadows", (so, sds, stms)),
+                                ("incoherent shadows", (io, ids, itms))):
+        occ = cuda_bvh.occluded_triangles_flat_multi(o, ds, tms, showcase)
+        slabs = tests = 0
+        for k, (sd, tm) in enumerate(zip(ds, tms)):
+            a, b = flat_work(o, sd, showcase, None, tm, occ[k])
+            slabs, tests = slabs + a, tests + b
+        b = bound(slabs * OPS_SLAB + tests * OPS_BW,
+                  nbytes(o, *ds, *tms, showcase.sl_blkflat,
+                         showcase.sl_blkid, showcase.sl_bw_t)
+                  + 4 * n * len(ds))
+        ab[f"row 10 {label}, L={len(ds)}"] = ab_turns(
+            lambda: ab_baselines.flat_occluded_cta_multi(o, ds, tms,
+                                                         showcase),
+            lambda: cuda_bvh.occluded_triangles_flat_multi(o, ds, tms,
+                                                           showcase)) + (b,)
+        dsk, tmk = torch.stack(ds).contiguous(), torch.stack(tms).contiguous()
+        args = (o, dsk, tmk, showcase.sl_blkflat, showcase.sl_blkid,
+                showcase.sl_bw_t, showcase.sl_block)
+        # t_max = 0 on the live lanes: the gate's work is the same, and the
+        # visits shrink to the blocks around the origins, finding nothing.
+        at0 = (o, dsk, torch.where(tmk < 0.0, tmk, 0.0).contiguous(),
+               *args[3:])
+        gate_ms = cuda_ms(lambda: native.launch_flat_occluded(*at0),
+                          AB_ITERS)
+        log(f"  row 10 {label}: the launch with t_max = 0 on the live "
+            f"lanes (the gate, and visits of the origins' blocks) "
+            f"{gate_ms:.4f} ms")
+        out[f"row 10 {label} t_max 0"] = gate_ms
+    for label, (o, d, tp) in (("camera", (co, cd, minus1)),
+                              ("first bounce", (bo, bd, btp))):
+        got = flat2_new(o, d, tp, op)
+        slabs, tests, needed = flat2_work(o, d, op, tp, got.t)
+        b = bound(slabs * OPS_SLAB + tests * OPS_BW,
+                  nbytes(o, d, tp, op.sl_sbflat, op.sl_sbid, op.sl_blkflat,
+                         op.sl_blkid) + rows_bytes(op, needed)
+                  + n * (4 * 4 + 4))
+        ab[f"row 11 scene A {label}"] = ab_turns(
+            lambda: flat2_old(o, d, tp, op),
+            lambda: flat2_new(o, d, tp, op)) + (b,)
     for label, (old_ms, new_ms, b) in ab.items():
         log(f"  A/B {label}: old design {min(old_ms):.4f} ms (readings "
             + " ".join(f"{x:.4f}" for x in old_ms) + f"), new "
@@ -2984,51 +3213,36 @@ def phase_redesigned(device, showcase, tex) -> dict:
             f"{2 * b[0]:.4f} ms; new / old {min(new_ms) / min(old_ms):.3f}")
     out["ab"] = ab
 
-    # Packets of both designs, from the plain inputs.
-    for label, (o, d, tp) in lanes.items():
-        t_hit = flat_new(o, d, tp, showcase).t
-        log_packets(label, packet_counts(o, d, showcase, tp, t_hit),
-                    showcase.sl_block)
-
     # Device time per main-path sample, from the profiler, for both designs
-    # (the old ones routed in by old_designs), then one sample end to end
+    # (the old ones routed in by cta_designs), then one sample end to end
     # in turns.
-    spec5, spec4 = IntegratorSpec(bounces=5), IntegratorSpec(bounces=4)
-    for label, sc, spec, name, old_name in (
-            ("plain showcase", showcase, spec5, "flat_closest_hit_kernel",
-             "flat_closest_hit_cta_kernel"),
-            ("reflection", refl, spec4, "mt_closest_hit_kernel",
-             "mt_closest_hit_chunked_kernel"),
-            ("textured showcase", tex, spec5, "flat_closest_hit_kernel",
-             None)):
-        prof = {"new": kernel_device_ms(sc, spec)}
-        if old_name:
-            with old_designs():
-                prof["old"] = kernel_device_ms(sc, spec)
+    spec5 = IntegratorSpec(bounces=5)
+    for label, sc, name, old_name in (
+            ("plain showcase", showcase, "flat_occluded_kernel",
+             "flat_occluded_cta_kernel"),
+            ("scene A", big, "flat2_closest_hit_kernel",
+             "flat2_closest_hit_cta_kernel")):
+        prof = {"new": kernel_device_ms(sc, spec5)}
+        with cta_designs():
+            prof["old"] = kernel_device_ms(sc, spec5)
         out[f"profile {label}"] = prof
-        log(f"  profiler, one 1080p sample of the {label}: "
-            + ", ".join(f"{k} {v[0]:.3f} ms in {v[1]} launches"
-                        for k, v in sorted(prof["new"].items(),
-                                           key=lambda x: -x[1][0])
-                        if k != "all")
-            + f"; all kernels {prof['new']['all'][0]:.3f} ms device time "
-            f"over {prof['new']['all'][1]} launches")
-        if prof["new"].get(name, (0, 0))[1] == 0:
-            raise AssertionError(f"{label}: {name} never ran")
-        if not old_name:
-            continue
+        log_profile(label, prof["new"])
+        new_k = prof["new"].get(name, (0.0, 0))
         old_k = prof["old"].get(old_name, (0.0, 0))
+        if new_k[1] == 0 or old_k[1] == 0 or name in prof["old"]:
+            raise AssertionError(f"{label}: the designs were not routed")
         log(f"  the same sample through the old design: {old_name} "
             f"{old_k[0]:.3f} ms in {old_k[1]} launches against {name} "
-            f"{prof['new'][name][0]:.3f} ms; all kernels "
+            f"{new_k[0]:.3f} ms in {new_k[1]}; all kernels "
             f"{prof['old']['all'][0]:.3f} ms against "
             f"{prof['new']['all'][0]:.3f} ms")
         secs = {"old": [], "new": []}
         for design in ("old", "new", "new", "old"):
-            with (old_designs() if design == "old"
+            with (cta_designs() if design == "old"
                   else contextlib.nullcontext()):
                 t0 = time.perf_counter()
-                render_pixel_sums(sc, 1920, 1080, 1, 1, spec, tile_rays=WAVE)
+                render_pixel_sums(sc, 1920, 1080, 1, 1, spec5,
+                                  tile_rays=WAVE)
                 torch.cuda.synchronize()
                 secs[design].append(time.perf_counter() - t0)
         out[f"sample {label}"] = secs
@@ -3036,26 +3250,8 @@ def phase_redesigned(device, showcase, tex) -> dict:
             f"(old, new, new, old): old " + " ".join(
                 f"{x:.4f}" for x in secs["old"]) + " s, new "
             + " ".join(f"{x:.4f}" for x in secs["new"]) + " s")
+    log(f"  phase 3j took {time.perf_counter() - phase_t0:.1f} s")
     return out
-
-
-@contextlib.contextmanager
-def old_designs():
-    """The main path's flat closest hit and brute-force MT casts go through
-    the designs rows 9 and 1 replaced (ops/ab_baselines.py) inside the
-    context, for 3i's per-sample comparison only; restored on exit."""
-    from path_tracer_torch.ops import ab_baselines, cuda_bvh, cuda_intersect
-
-    saved = (cuda_bvh.closest_hit_triangles_flat,
-             cuda_intersect.closest_hit_triangles_cuda)
-    cuda_bvh.closest_hit_triangles_flat = ab_baselines.flat_closest_hit_cta
-    cuda_intersect.closest_hit_triangles_cuda = (
-        ab_baselines.mt_closest_hit_chunked)
-    try:
-        yield
-    finally:
-        (cuda_bvh.closest_hit_triangles_flat,
-         cuda_intersect.closest_hit_triangles_cuda) = saved
 
 
 def with_env(env: dict):
@@ -3284,9 +3480,9 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from path_tracer_torch import native
 
-    only = sys.argv[1:] == ["--only", "3i"]
-    if sys.argv[1:] and not only:
-        print("usage: chip_smoke.py [--only 3i]", file=sys.stderr)
+    only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
+    if sys.argv[1:] and (len(sys.argv) != 3 or only not in ("3i", "3j")):
+        print("usage: chip_smoke.py [--only 3i|3j]", file=sys.stderr)
         return 2
     card = smi()
     device = torch.device("cuda", 0)
@@ -3320,7 +3516,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s; tr_kernel_ok {tex.tr_kernel_ok}")
     if not tex.tr_kernel_ok:
         raise AssertionError("textured showcase: no walk-kernel tables")
-    if only:  # phase 3i alone
+    if only == "3i":  # phase 3i alone
         phase_redesigned(device, showcase, tex)
         log(f"chip_smoke: phase 3i passed in "
             f"{time.perf_counter() - start:.1f} s")
@@ -3343,6 +3539,12 @@ def main() -> int:
         f"{walks}, tr_kernel_ok {big.tr_kernel_ok}")
     if walks != ["flat2", "flat"] or not big.tr_kernel_ok:
         raise AssertionError("scene A does not route as the JAX package's")
+    if only == "3j":  # phase 3j alone
+        phase_rows_10_11(device, showcase, tex, big)
+        log(f"chip_smoke: phase 3j passed in "
+            f"{time.perf_counter() - start:.1f} s")
+        print(card)
+        return 0
     grid = sphere_grid_device_scene(SPHERE_GRID, device)
     if not grid.sph_use_blocks:
         raise AssertionError("the sphere grid does not take the walk")
@@ -3368,6 +3570,7 @@ def main() -> int:
     tree_err, tree_occ_err, tree_times = phase_tree_kernels(device, showcase,
                                                             big)
     phase_redesigned(device, showcase, tex)
+    phase_rows_10_11(device, showcase, tex, big)
     launches = phase_main_path(device)
     flat_launches, flat_render = phase_showcase(device, showcase)
     walk_launches = phase_showcase_tex(device, tex)

@@ -61,7 +61,8 @@
 // of whole blocks at a ray's best t: rounding can put a hit a few ulps
 // before its block's slab entry (a ray through a vertex or edge on the
 // block's box), so such a cut lets the visit order decide ties between
-// copies in different blocks, as it does in the CTA walk (ab_baselines.cu).
+// copies in different blocks, as it did in this kernel's former CTA walk
+// and does in the replaced flat2 design (ab_baselines.cu).
 //
 // Inputs:  o, d [R,3] f32; t_prev [R] f32; blkflat [8,bpad] f32;
 //          blkid [bpad] i32; bw [16, n_cols] f32 (block b = columns
@@ -70,24 +71,18 @@
 // Outputs: fout [4 or 5, R] f32 rows (t, u, v, backface 0/1[, kind 0/1/2]);
 //          iout [R] i32 packed slot.
 
-#include <climits>
-
 #include "flat_common.cuh"
 
 namespace {
 
 using ptt::kFullMask;
 
-constexpr int kWarps = 4;       // warps (packets) per CTA
-constexpr int kRows = 10;       // staged per ray: o.xyz, 1/d.xyz, t_prev, d.xyz
-constexpr int kSlots = 4;       // slots per lane of one chunk
-constexpr int kChunk = 32 * kSlots;
-constexpr size_t kMaxSmem = 232448;  // shared memory a CTA may use (H100)
+constexpr int kWarps = 4;  // warps (packets) per CTA
 
 // Shared memory of one warp: its staged rays, then the listed columns and
 // their ray masks.
 __host__ __device__ constexpr size_t warp_floats(int bpad) {
-  return (size_t)kRows * 32 + 2 * (size_t)bpad;
+  return (size_t)ptt::kWarpRayRows * 32 + 2 * (size_t)bpad;
 }
 
 __global__ void __launch_bounds__(32 * kWarps, 4)
@@ -102,8 +97,8 @@ flat_closest_hit_kernel(const float* __restrict__ o,
                         float* __restrict__ fout, int* __restrict__ iout) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* s_ray = smem + warp * warp_floats(bpad);  // [kRows][32]
-  int* s_col = reinterpret_cast<int*>(s_ray + kRows * 32);  // [bpad]
+  float* s_ray = smem + warp * warp_floats(bpad);  // [kWarpRayRows][32]
+  int* s_col = reinterpret_cast<int*>(s_ray + ptt::kWarpRayRows * 32);
   unsigned* s_mask = reinterpret_cast<unsigned*>(s_col + bpad);  // [bpad]
 
   const int i = (blockIdx.x * (blockDim.x >> 5) + warp) * 32 + lane;
@@ -122,92 +117,26 @@ flat_closest_hit_kernel(const float* __restrict__ o,
   float bt = CUDART_INF_F, bu = 0.f, bv = 0.f, bb = 0.f;
   int bi = -1;
   if (live_mask) {
-    const float ix = ptt::safe_inv(dx), iy = ptt::safe_inv(dy),
-                iz = ptt::safe_inv(dz);
-    const float row[kRows] = {ox, oy, oz, ix, iy, iz, tp, dx, dy, dz};
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s_ray[r * 32 + lane] = row[r];
-    __syncwarp();
+    ptt::stage_warp_rays(s_ray, lane, ox, oy, oz, dx, dy, dz, tp);
 
-    // 1. The columns some live ray's gate admits, compacted with the mask
-    //    of the rays it admits.
+    // 1. The columns some live ray's gate admits (a dead ray's t_prev,
+    //    +inf or NaN, fails it), compacted with the mask of the rays they
+    //    admit.
     int m = 0;
     for (int c0 = 0; c0 < bpad; c0 += 32) {
       const int c = c0 + lane;
       unsigned mask = 0u;
-      if (c < bpad && blkid[c] >= 0) {
-        const ptt::Box box = ptt::load_box(blk, bpad, c);
-        // All 32 staged rays, unrolled (independent chains); a dead ray's
-        // t_prev (+inf or NaN) fails the gate.
-#pragma unroll
-        for (int k = 0; k < 32; ++k) {
-          float tn, tf;
-          ptt::slab(box, s_ray[k], s_ray[32 + k], s_ray[64 + k],
-                    s_ray[96 + k], s_ray[128 + k], s_ray[160 + k], tn, tf);
-          if (gate.pass(tn, tf, s_ray[192 + k])) mask |= 1u << k;
-        }
-      }
-      const unsigned any = __ballot_sync(kFullMask, mask != 0u);
-      if (mask) {
-        const int p = m + __popc(any & ((1u << lane) - 1u));
-        s_col[p] = c;
-        s_mask[p] = mask;
-      }
-      m += __popc(any);
+      if (c < bpad && blkid[c] >= 0)
+        mask = ptt::warp_gate_mask(ptt::load_box(blk, bpad, c), s_ray, gate);
+      m = ptt::warp_append(s_col, s_mask, m, lane, c, mask);
     }
     __syncwarp();
 
     // 2. The walk: every listed column in column order, each visit spread
-    //    over the warp 128 slots at a time.
-    for (int p = 0; p < m; ++p) {
-      const unsigned need_mask = s_mask[p];
-      const int b = blkid[s_col[p]];
-      const float* src = bw + (size_t)b * block;
-      for (int ch = 0; ch < block; ch += kChunk) {
-        ptt::BwSlot sl[kSlots];
-#pragma unroll
-        for (int q = 0; q < kSlots; ++q)
-          sl[q] = ptt::load_bw_slot(src + ch + q * 32 + lane, n_cols);
-        for (unsigned mm = need_mask; mm; mm &= mm - 1) {
-          const int s = __ffs(mm) - 1;  // the served ray
-          const float sox = s_ray[s], soy = s_ray[32 + s],
-                      soz = s_ray[64 + s], stp = s_ray[192 + s],
-                      sdx = s_ray[224 + s], sdy = s_ray[256 + s],
-                      sdz = s_ray[288 + s];
-          const float sbt = __shfl_sync(kFullMask, bt, s);
-          float lt = CUDART_INF_F, lu = 0.f, lv = 0.f, ldn = 0.f;
-          int ls = INT_MAX;
-#pragma unroll
-          for (int q = 0; q < kSlots; ++q) {
-            float u, v, dn;
-            const float t = ptt::bw_slot_closest(sl[q], sox, soy, soz, sdx,
-                                                 sdy, sdz, stp, sbt, u, v,
-                                                 dn);
-            if (t < lt) {  // slots rise with q: the lower slot keeps ties
-              lt = t; lu = u; lv = v; ldn = dn;
-              ls = b * block + ch + q * 32 + lane;
-            }
-          }
-          const unsigned hm = __ballot_sync(kFullMask, lt < CUDART_INF_F);
-          if (!hm) continue;
-          int from = __ffs(hm) - 1;
-          if (hm & (hm - 1)) {  // several candidate lanes: the (t, slot) min
-            float wt = lt;
-            int ws = ls, wl = lane;
-            ptt::warp_min_hit(wt, ws, wl);
-            from = wl;
-          }
-          const float wt = __shfl_sync(kFullMask, lt, from);
-          const float wu = __shfl_sync(kFullMask, lu, from);
-          const float wv = __shfl_sync(kFullMask, lv, from);
-          const float wdn = __shfl_sync(kFullMask, ldn, from);
-          const int ws = __shfl_sync(kFullMask, ls, from);
-          if (lane == s && (wt < bt || (wt == bt && ws < bi))) {
-            bt = wt; bu = wu; bv = wv; bb = wdn > 0.f ? 1.f : 0.f; bi = ws;
-          }
-        }
-      }
-    }
+    //    over the warp.
+    for (int p = 0; p < m; ++p)
+      ptt::warp_closest_block(bw, blkid[s_col[p]], block, n_cols, s_mask[p],
+                              s_ray, lane, bt, bu, bv, bb, bi);
   }
 
   float kind = bt < CUDART_INF_F ? 1.f : 0.f;
@@ -252,19 +181,14 @@ extern "C" int ptt_flat_closest_hit(const float* o, const float* d,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0) return 0;
-  if (block <= 0 || block % kChunk) return (int)cudaErrorInvalidValue;
-  // Four warps a CTA, fewer where their key lists outgrow shared memory.
-  const size_t per_warp = warp_floats(bpad) * sizeof(float);
+  if (block <= 0 || block % ptt::kWarpChunk)
+    return (int)cudaErrorInvalidValue;
+  // Four warps a CTA, fewer where their lists outgrow shared memory.
   int warps = kWarps;
-  while (warps > 1 && warps * per_warp > kMaxSmem) --warps;
-  if (warps * per_warp > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const size_t smem = warps * per_warp;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(flat_closest_hit_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  size_t smem;
+  err = ptt::warp_walk_smem(flat_closest_hit_kernel,
+                            warp_floats(bpad) * sizeof(float), warps, smem);
+  if (err != cudaSuccess) return (int)err;
   const int rays = 32 * warps;
   const int blocks = (R + rays - 1) / rays;
   flat_closest_hit_kernel<<<blocks, rays, smem, stream>>>(

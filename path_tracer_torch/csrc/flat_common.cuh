@@ -4,20 +4,24 @@
 // sphere root rules are written.
 //
 // Two walks share them. The CTA walk (cta_min_key_max through
-// occluded_block, and flat_occ_set) serves flat_occluded.cu,
-// flat2_closest_hit.cu, flat2_occluded.cu, fused_shadow.cu, sph_walk.cu,
-// sph_occ.cu and the flat closest hit's former design in ab_baselines.cu: a
-// CTA of 128 rays shares one walk and stages each visited block in shared
-// memory behind CTA barriers. The warp walk (kFullMask through
-// bw_slot_closest, at the end) serves flat_closest_hit.cu: each warp is its
-// own packet, with no CTA barrier. safe_inv, Box, load_box, slab, the gates
-// and sphere_nearest serve both; the warp walk's bw_slot_closest repeats
-// bw_plane's and bw_inside's arithmetic on a slot held in registers.
+// occluded_block, and flat_occ_set) serves flat2_occluded.cu,
+// fused_shadow.cu, sph_walk.cu, sph_occ.cu and the designs rows 10 and 11
+// replaced, in ab_baselines.cu: a CTA of 128 rays shares one walk and
+// stages each visited block in shared memory behind CTA barriers. The warp
+// walk (kFullMask to the end) serves flat_closest_hit.cu, flat_occluded.cu
+// and flat2_closest_hit.cu: each warp is its own packet, with no CTA
+// barrier; its gate admits block columns with the mask of the rays they
+// admit, and each admitted block is spread over the warp. safe_inv, Box,
+// load_box, slab, the gates and sphere_nearest serve both; the warp walk's
+// bw_slot_closest and bw_slot_any repeat bw_plane's and bw_inside's
+// arithmetic on a slot held in registers.
 //
 // Every expression is written in the order of the plain PyTorch versions
 // (ops/cuda_bvh.py, ops/intersect.py), and the library is built -fmad=false,
 // so each operation rounds as it does there.
 #pragma once
+
+#include <climits>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -378,7 +382,8 @@ __device__ __forceinline__ bool flat_occ_set(const FlatTable& ft, float ox,
   return occ;
 }
 
-// ---- The warp walk (flat_closest_hit.cu) ----
+// ---- The warp walk (flat_closest_hit.cu, flat_occluded.cu and
+// flat2_closest_hit.cu) ----
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -435,6 +440,186 @@ __device__ __forceinline__ float bw_slot_closest(const BwSlot& s, float ox,
   v = hx * s.b0 + hy * s.b1 + hz * s.b2 + s.b3;
   if (!(v >= 0.f && u + v <= 1.f)) return CUDART_INF_F;
   return t;
+}
+
+// Any-hit BW test of one ray against one slot in registers, in the
+// arithmetic and order of bw_plane and bw_inside (as occluded_block): true
+// when |d.n| >= kDetEps, kTMin <= t <= tm and u >= 0, v >= 0, u + v <= 1.
+__device__ __forceinline__ bool bw_slot_any(const BwSlot& s, float ox,
+                                            float oy, float oz, float dx,
+                                            float dy, float dz, float tm) {
+  const float dn = dx * s.n0 + dy * s.n1 + dz * s.n2;
+  if (!(fabsf(dn) >= kDetEps)) return false;
+  const float invdn = 1.0f / dn;
+  const float on = ox * s.n0 + oy * s.n1 + oz * s.n2;
+  const float t = (s.c - on) * invdn;
+  if (!(t >= kTMin && t <= tm)) return false;
+  const float hx = ox + t * dx;
+  const float hy = oy + t * dy;
+  const float hz = oz + t * dz;
+  const float u = hx * s.a0 + hy * s.a1 + hz * s.a2 + s.a3;
+  if (!(u >= 0.f)) return false;
+  const float v = hx * s.b0 + hy * s.b1 + hz * s.b2 + s.b3;
+  return v >= 0.f && u + v <= 1.f;
+}
+
+// A warp's staged rays: kWarpRayRows rows of 32 floats in its slice of
+// shared memory, lane k's ray in column k: o.xyz, 1/d.xyz, the gate value
+// g (t_prev for the closest hit, t_max for the any-hit), d.xyz.
+constexpr int kWarpRayRows = 10;
+constexpr int kRowG = 6 * 32;  // offsets of g and d.xyz in the rows
+constexpr int kRowD = 7 * 32;
+constexpr int kWarpSlots = 4;                   // slots a lane holds
+constexpr int kWarpChunk = 32 * kWarpSlots;     // slots of a block chunk
+constexpr size_t kMaxSmem = 232448;  // shared memory a CTA may use (H100)
+
+__device__ __forceinline__ void stage_warp_rays(float* s_ray, int lane,
+                                                float ox, float oy, float oz,
+                                                float dx, float dy, float dz,
+                                                float g) {
+  const float row[kWarpRayRows] = {ox, oy, oz, safe_inv(dx), safe_inv(dy),
+                                   safe_inv(dz), g, dx, dy, dz};
+#pragma unroll
+  for (int r = 0; r < kWarpRayRows; ++r) s_ray[r * 32 + lane] = row[r];
+  __syncwarp();
+}
+
+// The mask of the warp's staged rays whose gate admits box (all 32 rays
+// unrolled: independent chains). A dead ray's g must fail the gate, or the
+// caller masks it out.
+template <class Gate>
+__device__ __forceinline__ unsigned warp_gate_mask(const Box& box,
+                                                   const float* s_ray,
+                                                   Gate gate) {
+  unsigned mask = 0u;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    float tn, tf;
+    slab(box, s_ray[k], s_ray[32 + k], s_ray[64 + k], s_ray[96 + k],
+         s_ray[128 + k], s_ray[160 + k], tn, tf);
+    if (gate.pass(tn, tf, s_ray[kRowG + k])) mask |= 1u << k;
+  }
+  return mask;
+}
+
+// Appends (c, mask) at entry m of the warp's list where mask is not 0;
+// every lane calls it, and each gets the list's new length.
+__device__ __forceinline__ int warp_append(int* s_col, unsigned* s_mask,
+                                           int m, int lane, int c,
+                                           unsigned mask) {
+  const unsigned any = __ballot_sync(kFullMask, mask != 0u);
+  if (mask) {
+    const int p = m + __popc(any & ((1u << lane) - 1u));
+    s_col[p] = c;
+    s_mask[p] = mask;
+  }
+  return m + __popc(any);
+}
+
+// The closest-hit visit of block b (bw columns [b * block, (b + 1) *
+// block), block a multiple of kWarpChunk) by the warp: the block is taken
+// kWarpChunk slots at a time, lane l holding slots l, l + 32, l + 64,
+// l + 96 of the chunk in registers (12 rows each, coalesced). The rays of
+// need are served one after another: every lane tests its slots against
+// the served ray (read from s_ray, its best t by shuffle), a ballot finds
+// the lanes with a candidate no farther than that best t, one candidate
+// lane is read directly and several take a warp (t, slot) minimum, and the
+// served lane merges the winner into (bt, bu, bv, bb, bi) by the tie rule:
+// the lexicographic (t, packed slot) minimum, so neither the visit order
+// nor which lane tests a slot decides it.
+__device__ __forceinline__ void warp_closest_block(
+    const float* __restrict__ bw, int b, int block, int n_cols,
+    unsigned need, const float* s_ray, int lane, float& bt, float& bu,
+    float& bv, float& bb, int& bi) {
+  const float* src = bw + (size_t)b * block;
+  for (int ch = 0; ch < block; ch += kWarpChunk) {
+    BwSlot sl[kWarpSlots];
+#pragma unroll
+    for (int q = 0; q < kWarpSlots; ++q)
+      sl[q] = load_bw_slot(src + ch + q * 32 + lane, n_cols);
+    for (unsigned mm = need; mm; mm &= mm - 1) {
+      const int s = __ffs(mm) - 1;  // the served ray
+      const float sox = s_ray[s], soy = s_ray[32 + s], soz = s_ray[64 + s],
+                  stp = s_ray[kRowG + s], sdx = s_ray[kRowD + s],
+                  sdy = s_ray[kRowD + 32 + s], sdz = s_ray[kRowD + 64 + s];
+      const float sbt = __shfl_sync(kFullMask, bt, s);
+      float lt = CUDART_INF_F, lu = 0.f, lv = 0.f, ldn = 0.f;
+      int ls = INT_MAX;
+#pragma unroll
+      for (int q = 0; q < kWarpSlots; ++q) {
+        float u, v, dn;
+        const float t = bw_slot_closest(sl[q], sox, soy, soz, sdx, sdy, sdz,
+                                        stp, sbt, u, v, dn);
+        if (t < lt) {  // slots rise with q: the lower slot keeps ties
+          lt = t; lu = u; lv = v; ldn = dn;
+          ls = b * block + ch + q * 32 + lane;
+        }
+      }
+      const unsigned hm = __ballot_sync(kFullMask, lt < CUDART_INF_F);
+      if (!hm) continue;
+      int from = __ffs(hm) - 1;
+      if (hm & (hm - 1)) {  // several candidate lanes: the (t, slot) min
+        float wt = lt;
+        int ws = ls, wl = lane;
+        warp_min_hit(wt, ws, wl);
+        from = wl;
+      }
+      const float wt = __shfl_sync(kFullMask, lt, from);
+      const float wu = __shfl_sync(kFullMask, lu, from);
+      const float wv = __shfl_sync(kFullMask, lv, from);
+      const float wdn = __shfl_sync(kFullMask, ldn, from);
+      const int ws = __shfl_sync(kFullMask, ls, from);
+      if (lane == s && (wt < bt || (wt == bt && ws < bi))) {
+        bt = wt; bu = wu; bv = wv; bb = wdn > 0.f ? 1.f : 0.f; bi = ws;
+      }
+    }
+  }
+}
+
+// The any-hit visit of block b by the warp, spread as warp_closest_block
+// spreads it: the rays of need are served one after another, and a served
+// ray is occluded when any lane's slots hold a hit with kTMin <= t <= its
+// t_max (an __any_sync); an occluded ray leaves the later chunks. Returns
+// the rays of need found occluded.
+__device__ __forceinline__ unsigned warp_any_block(
+    const float* __restrict__ bw, int b, int block, int n_cols,
+    unsigned need, const float* s_ray, int lane) {
+  const float* src = bw + (size_t)b * block;
+  unsigned occ = 0u;
+  for (int ch = 0; ch < block && need; ch += kWarpChunk) {
+    BwSlot sl[kWarpSlots];
+#pragma unroll
+    for (int q = 0; q < kWarpSlots; ++q)
+      sl[q] = load_bw_slot(src + ch + q * 32 + lane, n_cols);
+    for (unsigned mm = need; mm; mm &= mm - 1) {
+      const int s = __ffs(mm) - 1;  // the served ray
+      const float sox = s_ray[s], soy = s_ray[32 + s], soz = s_ray[64 + s],
+                  stm = s_ray[kRowG + s], sdx = s_ray[kRowD + s],
+                  sdy = s_ray[kRowD + 32 + s], sdz = s_ray[kRowD + 64 + s];
+      bool hit = false;
+#pragma unroll
+      for (int q = 0; q < kWarpSlots; ++q)
+        hit = hit || bw_slot_any(sl[q], sox, soy, soz, sdx, sdy, sdz, stm);
+      if (__any_sync(kFullMask, hit)) occ |= 1u << s;
+    }
+    need &= ~occ;
+  }
+  return occ;
+}
+
+// Dynamic shared memory of a warp-walk kernel whose warps take per_warp
+// bytes each: the number of warps a CTA holds (up to 'warps', fewer where
+// they outgrow shared memory; 0 when one does not fit) and the bytes,
+// with the kernel's limit raised above the default 48 KB.
+template <class Kernel>
+inline cudaError_t warp_walk_smem(Kernel kernel, size_t per_warp,
+                                  int& warps, size_t& bytes) {
+  while (warps > 1 && warps * per_warp > kMaxSmem) --warps;
+  if (warps * per_warp > kMaxSmem) return cudaErrorInvalidValue;
+  bytes = warps * per_warp;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace ptt

@@ -187,24 +187,24 @@ def kernels() -> Kernels:
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         # (o, d, t_prev, table, R, N, fout, iout, device, stream)
-        for fn in (lib.ptt_mt_closest_hit, lib.ptt_mt_closest_hit_chunked,
-                   lib.ptt_sphere_closest_hit):
+        for fn in (lib.ptt_mt_closest_hit, lib.ptt_sphere_closest_hit):
             fn.restype = ci
             fn.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, ci, vp]
         # (o, d, t_prev, blkflat, blkid, bw, sph, R, bpad, block, n_cols, S,
         #  sph_row_base, fout, iout, device, stream)
-        for fn in (lib.ptt_flat_closest_hit, lib.ptt_flat_closest_hit_cta):
-            fn.restype = ci
-            fn.argtypes = [vp] * 7 + [ci] * 6 + [vp, vp, ci, vp]
+        lib.ptt_flat_closest_hit.restype = ci
+        lib.ptt_flat_closest_hit.argtypes = [vp] * 7 + [ci] * 6 + [vp, vp,
+                                                                  ci, vp]
         # (o, d, t_max, blkflat, blkid, bw, R, L, bpad, block, n_cols, out,
         #  device, stream)
-        lib.ptt_flat_occluded.restype = ci
-        lib.ptt_flat_occluded.argtypes = [vp] * 6 + [ci] * 5 + [vp, ci, vp]
+        for fn in (lib.ptt_flat_occluded, lib.ptt_flat_occluded_cta):
+            fn.restype = ci
+            fn.argtypes = [vp] * 6 + [ci] * 5 + [vp, ci, vp]
         # (o, d, t_prev, sbflat, sbid, blkflat, blkid, bw, R, sbpad, bpad,
         #  block, n_cols, fout, iout, device, stream)
-        lib.ptt_flat2_closest_hit.restype = ci
-        lib.ptt_flat2_closest_hit.argtypes = [vp] * 8 + [ci] * 5 + [vp, vp,
-                                                                   ci, vp]
+        for fn in (lib.ptt_flat2_closest_hit, lib.ptt_flat2_closest_hit_cta):
+            fn.restype = ci
+            fn.argtypes = [vp] * 8 + [ci] * 5 + [vp, vp, ci, vp]
         # (o, d, t_max, sbflat, sbid, blkflat, blkid, bw, R, L, sbpad, bpad,
         #  block, n_cols, out, device, stream)
         lib.ptt_flat2_occluded.restype = ci
@@ -324,16 +324,14 @@ def _check_sets(fn: str, o, ds, t_maxes, device) -> tuple[int, int]:
 
 
 def launch_flat_closest_hit(o, d, t_prev, blkflat, blkid, bw, block: int,
-                            sph=None, sph_row_base: int = 0,
-                            fn: str = "ptt_flat_closest_hit"):
+                            sph=None, sph_row_base: int = 0):
     """Check the operands of the flat closest-hit kernel, allocate its
     outputs and launch it on the current stream (no synchronisation).
 
     o, d: [R,3] f32; t_prev: [R] f32; blkflat [8,Bpad] f32, blkid [1,Bpad]
     i32, bw [16, n_blocks*block] f32; sph: None or [4,S] f32 (the fused
-    sphere pass). Returns (fout [4 or 5, R] f32, iout [R] i32). ``fn`` is
-    the exported symbol: the warp walk, or ``ptt_flat_closest_hit_cta``,
-    the design it replaced, for ``ops/ab_baselines.py`` alone."""
+    sphere pass). Returns (fout [4 or 5, R] f32, iout [R] i32)."""
+    fn = "ptt_flat_closest_hit"
     device = o.device
     if device.type != "cuda":
         raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
@@ -353,7 +351,7 @@ def launch_flat_closest_hit(o, d, t_prev, blkflat, blkid, bw, block: int,
                        device=device)
     iout = torch.empty((r,), dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, fn)(
+    err = lib.ptt_flat_closest_hit(
         o.data_ptr(), d.data_ptr(), t_prev.data_ptr(), blkflat.data_ptr(),
         blkid.data_ptr(), bw.data_ptr(), sph.data_ptr() if n_sph else None,
         r, bpad, block, n_cols, n_sph, sph_row_base, fout.data_ptr(),
@@ -370,14 +368,21 @@ def launch_flat_occluded(o, ds, t_maxes, blkflat, blkid, bw, block: int):
     o: [R,3] f32; ds: [L,R,3] f32; t_maxes: [L,R] f32 (< 0 = dead lane);
     tables as for ``launch_flat_closest_hit``. Returns out [L,R] f32
     (1 = occluded or dead)."""
-    fn = "ptt_flat_occluded"
+    return _launch_flat_occluded("ptt_flat_occluded", o, ds, t_maxes,
+                                 blkflat, blkid, bw, block)
+
+
+def _launch_flat_occluded(fn: str, o, ds, t_maxes, blkflat, blkid, bw,
+                          block: int):
+    """``launch_flat_occluded`` through the exported symbol ``fn``, which
+    ``ops/ab_baselines.py`` alone sets to the design the kernel replaced."""
     device = o.device
     r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
     bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
     lib = kernels().lib
     out = torch.empty((n_sets, r), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.ptt_flat_occluded(
+    err = getattr(lib, fn)(
         o.data_ptr(), ds.data_ptr(), t_maxes.data_ptr(), blkflat.data_ptr(),
         blkid.data_ptr(), bw.data_ptr(), r, n_sets, bpad, block, n_cols,
         out.data_ptr(), device.index, stream)
@@ -406,7 +411,15 @@ def launch_flat2_closest_hit(o, d, t_prev, sbflat, sbid, blkflat, blkid, bw,
     i32 (superblock g covers block columns [128g, 128g + 128)); blkflat,
     blkid, bw as for ``launch_flat_closest_hit``. Returns (fout [4, R] f32,
     iout [R] i32)."""
-    fn = "ptt_flat2_closest_hit"
+    return _launch_flat2_closest_hit("ptt_flat2_closest_hit", o, d, t_prev,
+                                     sbflat, sbid, blkflat, blkid, bw, block)
+
+
+def _launch_flat2_closest_hit(fn: str, o, d, t_prev, sbflat, sbid, blkflat,
+                              blkid, bw, block: int):
+    """``launch_flat2_closest_hit`` through the exported symbol ``fn``,
+    which ``ops/ab_baselines.py`` alone sets to the design the kernel
+    replaced."""
     device = o.device
     if device.type != "cuda":
         raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
@@ -422,7 +435,7 @@ def launch_flat2_closest_hit(o, d, t_prev, sbflat, sbid, blkflat, blkid, bw,
     fout = torch.empty((4, r), dtype=torch.float32, device=device)
     iout = torch.empty((r,), dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.ptt_flat2_closest_hit(
+    err = getattr(lib, fn)(
         o.data_ptr(), d.data_ptr(), t_prev.data_ptr(), sbflat.data_ptr(),
         sbid.data_ptr(), blkflat.data_ptr(), blkid.data_ptr(), bw.data_ptr(),
         r, sbpad, bpad, block, n_cols, fout.data_ptr(), iout.data_ptr(),

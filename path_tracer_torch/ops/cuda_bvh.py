@@ -43,14 +43,14 @@ Semantics (kernel and plain version alike):
   t_max < 0 (any-hit, reported occluded for the caller to mask).
 
 The plain versions visit every block a lane's slab test admits, in column
-order, with no best-t pruning, and so does the flat closest-hit kernel: it
-equals its plain version on every lane. The flat2 closest-hit kernel also
-prunes blocks whose entry lies beyond the lane's best t; it can differ from
-its plain version only where rounding puts a hit a few ulps before its
-block's slab entry (a ray through a vertex or an edge on the block's box),
-at a near-tie. A block box lies inside its superblock box and slab
-rounding is monotone, so a block that passes its gate always lies in a
-superblock that passes.
+order, with no best-t pruning, and so do the flat and flat2 closest-hit
+kernels: each equals its plain version on every lane. A cut of whole
+blocks at a lane's best t would not be exact: rounding can put a hit a few
+ulps before its block's slab entry (a ray through a vertex or an edge on
+the block's box), and the visit order would then decide between equal-t
+copies. A block box lies inside its superblock box and slab rounding is
+monotone, so a block that passes its gate always lies in a superblock that
+passes.
 
 The tree walk keeps the Pallas packet's semantics lane for lane (see
 ``csrc/tree_walk.cu``): 128-ray packets (the last padded with o = 0,

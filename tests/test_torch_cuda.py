@@ -8,9 +8,9 @@ imports no JAX, so it runs on a machine without it::
 (``--noconftest``: the suite's conftest.py configures JAX.)
 
 Tolerances: the kernels are built -fmad=false and round every operation as
-the plain versions do, so records must agree exactly, the flat closest hit's
-included (like its plain version it tests every block a lane's gate admits,
-with no cut at the lane's best t). The card render uses
+the plain versions do, so records must agree exactly, the flat and flat2
+closest hits' included (like their plain versions they test every block a
+lane's gates admit, with no cut at the lane's best t). The card render uses
 the same kernels' results and ATen's CUDA elementwise ops, whose float32
 rsqrt (not correctly rounded on the card) and transcendentals differ from
 the CPU's by an ulp or two: rtol 1e-3, atol 1e-4 per pixel (the golden
@@ -141,11 +141,6 @@ def _flat_rays(sc, seed, r, device):
     return o, d
 
 
-def _mismatch(got, want):
-    return ((got.kind != want.kind) | (got.prim != want.prim)
-            | (got.backface != want.backface)).float().mean().item()
-
-
 @pytest.mark.parametrize("name", ["reflection", "showcase48"])
 def test_flat_closest_hit_equals_plain(cuda, name):
     from path_tracer_torch.ops import cuda_bvh
@@ -214,10 +209,9 @@ def _flat2_scenes(device):
 @pytest.mark.parametrize("name", ["grid96", "tex48_opaque"])
 def test_flat2_kernels_equal_plain(cuda, name):
     """The flat2 closest hit against its plain version (fresh, advanced and
-    dead lanes) and against the flat kernel on the same tables; the flat2
-    any-hit (three sets, dead lanes) against its plain version and the
-    flat any-hit. Lanes may differ only as the flat kernel's may (module
-    docstring)."""
+    dead lanes) and against the flat kernel on the same tables, on every
+    field of every lane; the flat2 any-hit (three sets, dead lanes) against
+    its plain version and the flat any-hit."""
     from path_tracer_torch.ops import cuda_bvh
 
     sc = _flat2_scenes(cuda)[name]
@@ -231,11 +225,7 @@ def test_flat2_kernels_equal_plain(cuda, name):
         assert cuda_bvh.flat2_closest_hit_launches == before + 1
         for want in (cuda_bvh.closest_hit_triangles_flat2_plain(o, d, tp, sc),
                      cuda_bvh.closest_hit_triangles_flat(o, d, tp, sc)):
-            assert _mismatch(got, want) <= 1e-4
-            same = (got.prim == want.prim) & (got.kind == want.kind)
-            for field in ("t", "u", "v", "backface"):
-                assert torch.equal(getattr(got, field)[same],
-                                   getattr(want, field)[same]), field
+            _assert_same(got, want)
         assert not got.valid[::9].any() and got.valid.float().mean() > 0.3
     tm = torch.where(got.valid, got.t * 1.01, 40.0)
     tm_dead = tm.clone()
@@ -716,37 +706,113 @@ def _redesign_case(device, rays):
 @pytest.mark.parametrize("rays", ["ties", "showcase48"])
 def test_warp_flat_walk_equals_plain_and_cta_walk(cuda, rays):
     """Row 9's warp walk equals its plain version on every field of every
-    lane; against the CTA walk it replaced it may part only where that one
-    parts from the plain version (its best-t cut at a vertex or edge of a
-    block's box lets its visit order decide equal-t copies)."""
-    from path_tracer_torch.ops import ab_baselines, cuda_bvh
+    lane, with and without the sphere pass. (The CTA walk it replaced, off
+    its plain version on tie rays, is no longer built.)"""
+    from path_tracer_torch.ops import cuda_bvh
 
     sc, o, d, tp = _redesign_case(cuda, rays)
     for spheres in (False, True):
         got = cuda_bvh.closest_hit_triangles_flat(o, d, tp, sc, spheres)
-        want = cuda_bvh.closest_hit_triangles_flat_plain(o, d, tp, sc,
-                                                         spheres)
-        old = ab_baselines.flat_closest_hit_cta(o, d, tp, sc, spheres)
-        _assert_same(got, want)
-        off_new = torch.zeros_like(tp, dtype=torch.bool)
-        off_old = torch.zeros_like(tp, dtype=torch.bool)
-        for a, b, c in zip(got, old, want):
-            off_new |= a != b
-            off_old |= b != c
-        assert torch.equal(off_new, off_old)
+        _assert_same(got, cuda_bvh.closest_hit_triangles_flat_plain(
+            o, d, tp, sc, spheres))
         assert not got.valid[torch.isinf(tp)].any()
         assert got.valid.float().mean() > 0.3
 
 
 @pytest.mark.parametrize("rays", ["ties", "showcase48"])
 def test_resident_mt_equals_plain_and_chunked(cuda, rays):
-    """Row 1's resident-table kernel equals its plain version and the
-    chunked design it replaced on every field of every lane."""
-    from path_tracer_torch.ops import ab_baselines, cuda_intersect, intersect
+    """Row 1's resident-table kernel equals its plain version on every
+    field of every lane. (The chunked design it replaced, equal to it
+    everywhere, is no longer built.)"""
+    from path_tracer_torch.ops import cuda_intersect, intersect
 
     sc, o, d, tp = _redesign_case(cuda, rays)
     got = cuda_intersect.closest_hit_triangles_cuda(o, d, tp, sc)
     _assert_same(got, intersect.closest_hit_triangles(o, d, tp, sc))
-    _assert_same(got, ab_baselines.mt_closest_hit_chunked(o, d, tp, sc))
     assert not got.valid[torch.isinf(tp)].any()
     assert got.valid.float().mean() > 0.3
+
+
+def _records_off(a, b):
+    """[R] bool: the lanes where two records differ in any field."""
+    off = torch.zeros_like(a.t, dtype=torch.bool)
+    for x, y in zip(a, b):
+        off |= x != y
+    return off
+
+
+@pytest.mark.parametrize("rays", ["ties", "showcase48"])
+def test_warp_flat_any_hit_equals_plain_and_cta(cuda, rays):
+    """Row 10's warp any-hit equals its plain version and the CTA walk it
+    replaced on every lane of three sets: t_max well past and well short
+    of each lane's hit, and infinite, with whole and partly dead warps (any
+    hit counts, so the visit order decides nothing)."""
+    from path_tracer_torch.ops import ab_baselines, cuda_bvh
+
+    sc, o, d, tp = _redesign_case(cuda, rays)
+    t = cuda_bvh.closest_hit_triangles_flat_plain(o, d, tp, sc).t
+    hit = torch.isfinite(t)
+    dead = torch.isinf(tp)
+    tms = [torch.where(dead, -1.0, torch.where(hit, t * k, 5.0))
+           for k in (1.5, 0.5)]
+    tms.append(torch.where(dead, -1.0, float("inf")))
+    ds = [d, d, -d]
+    before = cuda_bvh.occluded_launches
+    got = cuda_bvh.occluded_triangles_flat_multi(o, ds, tms, sc)
+    assert cuda_bvh.occluded_launches == before + 1
+    assert torch.equal(got, cuda_bvh.occluded_triangles_flat_multi_plain(
+        o, ds, tms, sc))
+    assert torch.equal(got, ab_baselines.flat_occluded_cta_multi(o, ds, tms,
+                                                                 sc))
+    assert got[:, dead].all()
+    assert got[0][hit & ~dead].all() and not got[1][hit & ~dead].any()
+
+
+def _flat2_tie_scene(device):
+    """The tie scene whose 8,400 stacked copies sit in the blocks of two
+    superblocks (132 blocks of 128), and 5003 tie rays with whole and
+    partly dead warps."""
+    from path_tracer_torch.scene import build_scene
+    from path_tracer_torch.scene.procedural import (
+        duplicate_grid_scene,
+        tie_rays,
+    )
+
+    sc = build_scene(duplicate_grid_scene(8, 8400), ".", device,
+                     use_bvh=True, sl_block=128)
+    o, d = (torch.from_numpy(x).to(device) for x in tie_rays(5003))
+    return sc, o, d, _dead_warps(torch.full((5003,), -1.0, device=device))
+
+
+@pytest.mark.parametrize("name", ["ties2sb", "grid96"])
+def test_warp_flat2_equals_plain_and_cta(cuda, name):
+    """Row 11's two-level warp walk equals its plain version on every field
+    of every lane (fresh and advanced lanes, whole and partly dead warps),
+    and the tie rule's copy wins; against the CTA walk it replaced it may
+    part only where that one parts from the plain version (its best-t cut
+    at a vertex or edge of a block's box lets its visit order decide
+    equal-t copies)."""
+    from path_tracer_torch.ops import ab_baselines, cuda_bvh
+    from path_tracer_torch.scene.procedural import tie_winners
+
+    if name == "ties2sb":
+        sc, o, d, tp = _flat2_tie_scene(cuda)
+    else:
+        sc = _flat2_scenes(cuda)["grid96"]
+        o, d = _flat_rays(sc, 17, 5003, cuda)
+        tp = _dead_warps(torch.full((5003,), -1.0, device=cuda))
+    for step in range(2):
+        before = cuda_bvh.flat2_closest_hit_launches
+        got = cuda_bvh.closest_hit_triangles_flat2(o, d, tp, sc)
+        assert cuda_bvh.flat2_closest_hit_launches == before + 1
+        want = cuda_bvh.closest_hit_triangles_flat2_plain(o, d, tp, sc)
+        _assert_same(got, want)
+        old = ab_baselines.flat2_closest_hit_cta(o, d, tp, sc)
+        assert torch.equal(_records_off(got, old), _records_off(old, want))
+        assert not got.valid[torch.isinf(tp)].any()
+        assert got.valid.float().mean() > 0.3
+        if name == "ties2sb" and step == 0:
+            prim = got.prim[got.valid].long().cpu().numpy()
+            np.testing.assert_array_equal(tie_winners(sc)[1][prim], prim)
+        tp = torch.where(torch.isinf(tp), tp,
+                         torch.where(got.valid, got.t * 0.999, -1.0))

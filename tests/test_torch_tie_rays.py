@@ -1,5 +1,6 @@
-"""Tie and edge rays: the port's plain flat walk and plain brute-force MT
-against the JAX package's Pallas kernels in interpret mode, on the CPU.
+"""Tie and edge rays: the port's plain flat and flat2 walks (closest hit and
+any-hit) and plain brute-force MT against the JAX package's Pallas kernels
+in interpret mode, on the CPU.
 
 The scene (``scene.procedural.duplicate_grid_scene``) lists every triangle
 of an 8 x 8 grid twice, then 300 more copies of its first triangle, in
@@ -23,7 +24,14 @@ the interpret kernel's Baldwin-Weber sums associate differently, so a ray
 through a shared edge may take the other of the two triangles that meet
 there, at a t within the tolerance of tests/test_torch_bvh.py. Elsewhere
 the tolerances of tests/test_torch_bvh.py and tests/test_torch_intersect.py
-hold.
+hold. The flat2 walk keeps the flat walk's rules against JAX's flat2
+kernel, and the any-hits (t_max well past or well short of each lane's hit,
+dead lanes) agree exactly.
+
+A second scene, without JAX, stacks 8,400 copies so that they sit in the
+blocks of two superblocks (132 blocks of 128): there the plain flat2 walk
+equals the plain flat walk on every field of every lane, the tie rule's
+copy winning, whatever superblock a copy sits in.
 """
 import os
 import subprocess
@@ -45,9 +53,13 @@ GROUPS = {"centroids": slice(0, 128), "stack": slice(128, 256),
 EXACT = ("centroids", "stack")
 FIELDS = ("t", "kind", "prim", "u", "v", "backface")
 
+# The second scene: copies in the blocks of two superblocks.
+N_GRID_2SB, STACK_2SB = 8, 8400
+
 # Builds the scene of argv[1] with and without the BVH and casts the rays
-# of argv[2] through JAX's flat kernel, Pallas MT kernel (both interpret
-# mode) and jnp brute force, into argv[3].
+# of argv[2] through JAX's flat and flat2 kernels, Pallas MT kernel (all
+# interpret mode) and jnp brute force, and its flat and flat2 any-hits
+# (interpret mode) up to t_max, into argv[3].
 _JAX_IN_FRESH_INTERPRETER = """
 import sys
 from pathlib import Path
@@ -56,22 +68,30 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 from path_tracer_tpu.ops.intersect import closest_hit_triangles
-from path_tracer_tpu.ops.pallas_bvh import closest_hit_triangles_flat
+from path_tracer_tpu.ops.pallas_bvh import (
+    closest_hit_triangles_flat, closest_hit_triangles_flat2,
+    occluded_triangles_flat, occluded_triangles_flat2)
 from path_tracer_tpu.ops.pallas_intersect import closest_hit_triangles_pallas
 from path_tracer_tpu.scene import isf
 from path_tracer_tpu.scene.device_scene import build_device_scene
 path, z = Path(sys.argv[1]), np.load(sys.argv[2])
-o, d, tp = (jnp.asarray(z[k]) for k in ("o", "d", "tp"))
+o, d, tp, tm = (jnp.asarray(z[k]) for k in ("o", "d", "tp", "tm"))
 scene = {b: build_device_scene(isf.load(path), path.parent, use_bvh=b,
                                sl_block=int(z["block"])) for b in (0, 1)}
 out = {"flat": closest_hit_triangles_flat(o, d, tp, scene[1],
                                           interpret=True),
+       "flat2": closest_hit_triangles_flat2(o, d, tp, scene[1],
+                                            interpret=True),
        "pallas": closest_hit_triangles_pallas(o, d, tp, scene[0],
                                               interpret=True),
        "jnp": closest_hit_triangles(o, d, tp, scene[0])}
-np.savez(sys.argv[3], **{f"{k}_{f}": np.asarray(getattr(h, f))
-                         for k, h in out.items()
-                         for f in ("t", "kind", "prim", "u", "v", "backface")})
+occ = {f"occ_{k}": np.asarray(f(o, d, tm, scene[1], interpret=True))
+       for k, f in (("flat", occluded_triangles_flat),
+                    ("flat2", occluded_triangles_flat2))}
+np.savez(sys.argv[3], **occ,
+         **{f"{k}_{f}": np.asarray(getattr(h, f))
+            for k, h in out.items()
+            for f in ("t", "kind", "prim", "u", "v", "backface")})
 """
 
 
@@ -83,12 +103,24 @@ def _few_threads():
     torch.set_num_threads(n)
 
 
+def _any_hit_t_max(t_hit, tp):
+    """t_max of the any-hit checks: well past the lane's hit (1.5 t) on
+    even lanes, well short of it (0.5 t) on odd ones, 5 on a miss, -1 on
+    the dead lanes (t_prev = +inf)."""
+    r = t_hit.shape[0]
+    scale = np.where(np.arange(r) % 2 == 0, 1.5, 0.5).astype(np.float32)
+    tm = np.where(np.isfinite(t_hit), t_hit * scale, np.float32(5.0))
+    return np.where(np.isfinite(tp), tm, np.float32(-1.0)).astype(np.float32)
+
+
 @pytest.fixture(scope="module")
 def ties(tmp_path_factory):
     """The scene written once as ISF and built by the port with and without
-    the BVH, the rays, and JAX's records ({route: SimpleNamespace})."""
+    the BVH, the rays (t_prev and the any-hit's t_max), and JAX's records
+    ({route: SimpleNamespace}, and "occ_flat", "occ_flat2": [R] bool)."""
     from types import SimpleNamespace
 
+    from path_tracer_torch.ops.cuda_bvh import closest_hit_triangles_flat
     from path_tracer_torch.scene import isf, load_scene
     from path_tracer_torch.scene.procedural import (
         duplicate_grid_scene,
@@ -98,10 +130,15 @@ def ties(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ties")
     path = tmp / "scene.isf"
     isf.save(duplicate_grid_scene(N_GRID, STACK), path)
+    scenes = {b: load_scene(path, "cpu", use_bvh=b, sl_block=BLOCK)
+              for b in (True, False)}
     o, d = tie_rays(R, N_GRID)
     tp = np.full(R, -1.0, np.float32)
     tp[::11] = np.inf
-    np.savez(tmp / "in.npz", o=o, d=d, tp=tp, block=BLOCK)
+    T = torch.from_numpy
+    t_hit = closest_hit_triangles_flat(T(o), T(d), T(tp), scenes[True]).t
+    tm = _any_hit_t_max(t_hit.numpy(), tp)
+    np.savez(tmp / "in.npz", o=o, d=d, tp=tp, tm=tm, block=BLOCK)
     env = dict(os.environ, XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
                                       + " --xla_cpu_max_isa=SSE4_2").strip())
     proc = subprocess.run(
@@ -111,10 +148,9 @@ def ties(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr
     z = np.load(tmp / "out.npz")
     jax = {k: SimpleNamespace(**{f: z[f"{k}_{f}"] for f in FIELDS})
-           for k in ("flat", "pallas", "jnp")}
-    scenes = {b: load_scene(path, "cpu", use_bvh=b, sl_block=BLOCK)
-              for b in (True, False)}
-    return scenes, o, d, tp, jax
+           for k in ("flat", "flat2", "pallas", "jnp")}
+    jax.update(occ_flat=z["occ_flat"], occ_flat2=z["occ_flat2"])
+    return scenes, o, d, tp, tm, jax
 
 
 def _group(rec, rs):
@@ -147,22 +183,19 @@ def test_copies_within_and_across_blocks(ties):
     assert len(stack) == STACK + 2 and len(set(stack)) >= 3  # split
 
 
-@pytest.mark.parametrize("group", list(GROUPS))
-def test_flat_ties_match_jax(ties, group):
-    from path_tracer_torch.ops.cuda_bvh import closest_hit_triangles_flat
+def _assert_walk_ties(got, want, ts, d, tp, group):
+    """A block walk's record against JAX's on one group of tie rays: exact
+    on centroids and the stack, with the tie rule's copy winning; at shared
+    edges and vertices the same kinds, and where the two take different
+    triangles, one t within the tolerance."""
     from path_tracer_torch.scene.procedural import tie_winners
 
-    scenes, o, d, tp, jax = ties
-    ts = scenes[True]
-    rs = GROUPS[group]
     T = torch.from_numpy
-    got = closest_hit_triangles_flat(T(o[rs]), T(d[rs]), T(tp[rs]), ts)
-    want = _group(jax["flat"], rs)
-    live = np.isfinite(tp[rs])
+    live = np.isfinite(tp)
     assert got.valid.numpy()[live].mean() > 0.9
     assert not got.valid.numpy()[~live].any()
     if group in EXACT:
-        _assert_hits(got, want, ts, d[rs])
+        _assert_hits(got, want, ts, d)
         winner = tie_winners(ts)[1]
         prim = got.prim[got.valid].long().numpy()
         np.testing.assert_array_equal(winner[prim], prim)
@@ -176,7 +209,101 @@ def test_flat_ties_match_jax(ties, group):
                                rtol=1e-5, atol=1e-6)
     same = ~other
     rec = type(got)(*[x[T(same)] for x in got])
-    _assert_hits(rec, _group(want, same), ts, d[rs][same])
+    _assert_hits(rec, _group(want, same), ts, d[same])
+
+
+@pytest.mark.parametrize("group", list(GROUPS))
+def test_flat_ties_match_jax(ties, group):
+    from path_tracer_torch.ops.cuda_bvh import closest_hit_triangles_flat
+
+    scenes, o, d, tp, _, jax = ties
+    rs = GROUPS[group]
+    T = torch.from_numpy
+    got = closest_hit_triangles_flat(T(o[rs]), T(d[rs]), T(tp[rs]),
+                                     scenes[True])
+    _assert_walk_ties(got, _group(jax["flat"], rs), scenes[True], d[rs],
+                      tp[rs], group)
+
+
+@pytest.mark.parametrize("group", list(GROUPS))
+def test_flat2_ties_match_jax(ties, group):
+    """The plain flat2 walk against JAX's flat2 kernel (interpret mode),
+    with the flat walk's rules."""
+    from path_tracer_torch.ops.cuda_bvh import closest_hit_triangles_flat2
+
+    scenes, o, d, tp, _, jax = ties
+    rs = GROUPS[group]
+    T = torch.from_numpy
+    got = closest_hit_triangles_flat2(T(o[rs]), T(d[rs]), T(tp[rs]),
+                                      scenes[True])
+    _assert_walk_ties(got, _group(jax["flat2"], rs), scenes[True], d[rs],
+                      tp[rs], group)
+
+
+@pytest.mark.parametrize("walk", ["flat", "flat2"])
+@pytest.mark.parametrize("group", list(GROUPS))
+def test_any_hit_ties_match_jax(ties, walk, group):
+    """The plain flat and flat2 any-hits against JAX's (interpret mode) on
+    every lane: t_max past and short of the hit, misses, dead lanes."""
+    from path_tracer_torch.ops import cuda_bvh
+
+    scenes, o, d, tp, tm, jax = ties
+    rs = GROUPS[group]
+    T = torch.from_numpy
+    multi = (cuda_bvh.occluded_triangles_flat_multi if walk == "flat"
+             else cuda_bvh.occluded_triangles_flat2_multi)
+    got = multi(T(o[rs]), [T(d[rs])], [T(tm[rs])], scenes[True])[0].numpy()
+    np.testing.assert_array_equal(got, jax[f"occ_{walk}"][rs])
+    live = tm[rs] >= 0.0
+    assert got[~live].all()  # dead lanes report occluded
+    past = live & (np.arange(R)[rs] % 2 == 0) & (tm[rs] != 5.0)
+    assert got[past].all() and not got[live & ~past & (tm[rs] != 5.0)].any()
+
+
+@pytest.fixture(scope="module")
+def ties2sb():
+    """The two-superblock tie scene (the port alone) and its rays."""
+    from path_tracer_torch.scene import build_scene
+    from path_tracer_torch.scene.procedural import (
+        duplicate_grid_scene,
+        tie_rays,
+    )
+
+    sc = build_scene(duplicate_grid_scene(N_GRID_2SB, STACK_2SB), ".", "cpu",
+                     use_bvh=True, sl_block=BLOCK)
+    o, d = (torch.from_numpy(x) for x in tie_rays(R, N_GRID_2SB))
+    tp = torch.full((R,), -1.0)
+    tp[::11] = float("inf")
+    return sc, o, d, tp
+
+
+def test_stack_spans_two_superblocks(ties2sb):
+    """The stacked copies sit in block columns of superblocks 0 and 1."""
+    sc = ties2sb[0]
+    ids = sc.sl_blkid[0].numpy()
+    col_of = {int(b): c for c, b in enumerate(ids) if b >= 0}
+    stack = max(_block_of_copies(sc), key=len)
+    assert sc.sl_n_blocks > 128 and len(stack) == STACK_2SB + 2
+    assert {col_of[b] // 128 for b in stack} == {0, 1}
+
+
+@pytest.mark.parametrize("group", list(GROUPS))
+def test_flat2_equals_flat_across_superblocks(ties2sb, group):
+    """The plain flat2 walk equals the plain flat walk on every field of
+    every lane where the tied copies sit in two superblocks, and the tie
+    rule's copy wins."""
+    from path_tracer_torch.ops import cuda_bvh
+    from path_tracer_torch.scene.procedural import tie_winners
+
+    sc, o, d, tp = ties2sb
+    rs = GROUPS[group]
+    got = cuda_bvh.closest_hit_triangles_flat2(o[rs], d[rs], tp[rs], sc)
+    want = cuda_bvh.closest_hit_triangles_flat(o[rs], d[rs], tp[rs], sc)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert got.valid[torch.isfinite(tp[rs])].float().mean() > 0.9
+    prim = got.prim[got.valid].long().numpy()
+    np.testing.assert_array_equal(tie_winners(sc)[1][prim], prim)
 
 
 @pytest.mark.parametrize("group", list(GROUPS))
@@ -184,7 +311,7 @@ def test_mt_ties_match_jax(ties, group):
     from path_tracer_torch.ops.cuda_intersect import closest_hit_triangles_cuda
     from path_tracer_torch.scene.procedural import tie_winners
 
-    scenes, o, d, tp, jax = ties
+    scenes, o, d, tp, _, jax = ties
     ts = scenes[False]
     rs = GROUPS[group]
     T = torch.from_numpy
