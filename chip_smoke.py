@@ -60,19 +60,27 @@ any error:
    on the showcase; (3i, also alone with ``--only 3i``) rows 9 and 1
    against their plain versions on every field of 2^18 camera,
    first-bounce, incoherent, ragged and tie lanes, the tie rule's copy
-   winning, the flat walk's packet counts and each kernel's device ms per
-   1080p sample; (3j, also alone with ``--only 3j``) rows 10 and 11 (the
+   winning, the flat walk's packet counts and row 1's device ms per 1080p
+   reflection sample; (3j, also alone with ``--only 3j``) rows 10 and 11 (the
    warp-packet flat any-hit and two-level flat2 closest hit) against
-   their plain versions and the CTA designs they replaced
-   (``ops/ab_baselines.py``) on every lane: row 10 on the plain
-   showcase's first-bounce and incoherent shadow sets, the textured
-   showcase's opaque view, a ragged count with dead warps and tie shadow
-   rays; row 11 on scene A's camera, first-bounce,
-   random and ragged lanes and on tie rays whose copies sit in two
-   superblocks, where it must equal the plain version and the old design
-   parts from it (counted); then scene A's packet counts, both designs in
-   turns with bound and floor, and each design's device ms per 1080p
-   sample and one sample end to end in turns;
+   their plain versions on every lane: row 10 on the plain showcase's
+   first-bounce and incoherent shadow sets, the textured showcase's
+   opaque view, a ragged count with dead warps and tie shadow rays; row 11
+   on scene A's camera, first-bounce, random and ragged lanes and on tie
+   rays whose copies sit in two superblocks; then scene A's packet
+   counts; (3k, also alone with ``--only 3k``) rows 13 and 14 (the walks
+   with the table resident in shared memory, one gated pass per lane and
+   a sorted register list) against their plain versions and the CTA
+   designs they replaced (``ops/ab_baselines.py``) on every field of
+   every lane at caps 8, 1, 0 and 12: camera lanes with the opaque
+   terminator, random foliage lanes, ragged counts with dead warps and
+   the first bounce's shadow lanes on the textured showcase and scene A,
+   tie rays through twelve layers of duplicated cards, and rays from 10^2
+   to 10^3 group extents away on the textured showcase; then the
+   walks' counts (steps, CTA passes, groups the gate admits, Baldwin-Weber
+   tests executed against needed), both designs in turns with the
+   recounted bound and floor, each design's device ms per 1080p sample
+   and one textured-showcase sample end to end in turns;
 4. the main path at full size: ``cube``, ``spheres`` and ``reflection`` at
    1920x1080, 4 bounces, 16 spp through ``render_pixel_sums``, and one
    reference-default frame of ``reflection`` (1920x1080, 64 spp, 4
@@ -232,7 +240,14 @@ PEAK_BYTES = 3.35e12
 OPS_MT, OPS_SPHERE, OPS_BW, OPS_SLAB = 45, 25, 32, 22
 
 
+START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Prints a line; a phase's first line carries the seconds since the
+    run started."""
+    if msg.startswith("phase "):
+        msg = f"{msg} [at {time.perf_counter() - START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -480,6 +495,146 @@ def walk_rnd(n: int, cap: int, device):
                         for k in range(cap)]).contiguous()
 
 
+def walk_gate(sc, o, d, t_hi, n_slice: int = 1 << 16):
+    """Per lane of the walks: (admitted groups, real columns in them, the
+    number of distinct candidates with t < t_hi), through the kernels' gate
+    on their widened boxes (``trwalk.group_gate``, ``pad_groups``), from the
+    plain inputs, [N] int64 each; and per 32-lane warp the real columns of
+    the union of its lanes' groups, which the warp runs. Dead lanes have
+    t_hi < 0."""
+    import torch
+
+    from path_tracer_torch.ops import trwalk
+
+    n_groups = sc.tr_bw.shape[1] // 128
+    real = (sc.tr_bw[0:3].abs().sum(0) > 0).view(n_groups, 128).sum(1)
+    grp = trwalk.pad_groups(sc.tr_grp)[:, :n_groups]
+    groups, cols, distinct, warp_cols = [], [], [], []
+    for a in range(0, o.shape[0], n_slice):
+        sl = slice(a, a + n_slice)
+        gate = trwalk.group_gate(o[sl], d[sl], t_hi[sl], grp)
+        groups.append(gate.sum(1))
+        cols.append((gate * real).sum(1))
+        pad = -gate.shape[0] % 32
+        union = torch.cat([gate, gate.new_zeros((pad, n_groups))]).view(
+            -1, 32, n_groups).any(1)
+        warp_cols.append((union * real).sum(1))
+        t = trwalk._eval_cols(o[sl], d[sl], t_hi[sl], sc.tr_bw)[0]
+        srt = t.sort(dim=1).values
+        new = torch.ones_like(srt, dtype=torch.bool)
+        new[:, 1:] = srt[:, 1:] != srt[:, :-1]
+        distinct.append((new & torch.isfinite(srt)).sum(1))
+    return (torch.cat(groups), torch.cat(cols), torch.cat(distinct),
+            torch.cat(warp_cols))
+
+
+def walk_needed(sc, kind: str, lanes) -> tuple:
+    """(needed, design): the Baldwin-Weber tests the walks need on
+    ``lanes`` (alpha: (o, d, t_op); trans: the eight arguments of
+    ``trans_walk_plain``), the real columns of the groups the gate admits
+    once per live lane, with no refill at cap 8: the work whatever
+    implements it, as the plain versions evaluate each column once a
+    lane; and the tests the resident design makes, which tests a
+    transmittance point lane's columns twice (the cut pass, then the
+    product pass)."""
+    import torch
+
+    if kind == "alpha":
+        o, d, t_op = lanes[:3]
+        t_hi, two = torch.where(t_op < 0.0, -1.0, t_op), None
+    else:
+        o, d, pd, is_pt, *_, w0 = lanes
+        live = w0 & (pd >= 0.0)
+        t_hi, two = torch.where(live, float("inf"), -1.0), live & is_pt
+    cols = walk_gate(sc, o, d, t_hi)[1]
+    needed = int(cols.sum())
+    return needed, needed + (int(cols[two].sum()) if two is not None else 0)
+
+
+def walk_counts(label: str, sc, kind: str, lanes, rnd=None,
+                cap: int = 8) -> dict:
+    """A0, from the plain inputs (``walk_needed``'s lanes; ``rnd`` the
+    alpha walk's uniforms): live lanes; the steps each walking lane takes at
+    ``cap`` (step k is taken where the plain walk still walks after k - 1
+    steps and a k-th distinct candidate exists) as a histogram; the mean
+    over 128-lane CTAs with a walking lane of min(cap, the most steps + 1),
+    the passes the CTA design makes; the gate's groups and real columns per
+    live lane; the Baldwin-Weber tests the CTA design executes (each live
+    lane sits through its CTA's passes over every real column; point lanes
+    two) against those the walk needs (``walk_needed``: each admitted
+    column once a live lane) and those the resident design makes (point
+    lanes twice). Logged and returned."""
+    import torch
+
+    from path_tracer_torch.ops import trwalk
+
+    tp_real = int((sc.tr_bw[0:3].abs().sum(0) > 0).sum())
+    if kind == "alpha":
+        o, d, t_op = lanes
+        live = t_op >= 0.0
+        walkers, point = live, torch.zeros_like(live)
+        t_hi = torch.where(live, t_op, -1.0)
+        still = [trwalk.alpha_walk_plain(sc, o, d, t_op, rnd, k).still
+                 for k in range(cap)]
+    else:
+        o, d, pd, is_pt = lanes[:4]
+        live = lanes[-1] & (pd >= 0.0)
+        walkers = (live & ~is_pt if sc.tr_textured
+                   else torch.zeros_like(live))
+        point = live & is_pt
+        t_hi = torch.where(live, float("inf"), -1.0)
+        still = [trwalk.trans_walk_plain(sc, *lanes, k).still
+                 for k in range(cap)]
+    groups, cols, distinct, warp_cols = walk_gate(sc, o, d, t_hi)
+    steps = sum((still[k - 1] & (distinct >= k)).long()
+                for k in range(1, cap + 1))
+    steps = torch.where(walkers, steps, 0)
+    cta = torch.arange(o.shape[0], device=o.device) // 128
+    n_cta = int(cta[-1]) + 1
+    most = torch.zeros(n_cta, dtype=torch.long, device=o.device)
+    most.scatter_reduce_(0, cta, steps, "amax")
+    has = torch.zeros(n_cta, dtype=torch.long, device=o.device)
+    has = has.scatter_reduce_(0, cta, walkers.long(), "amax") > 0
+    passes = torch.where(has, torch.clamp(most + 1, max=cap), 0)
+    lane_passes = torch.where(walkers, passes[cta],
+                              torch.where(point, 2, 1))
+    n_live = int(live.sum())
+    executed = int(lane_passes[live].sum()) * tp_real
+    needed = int(cols[live].sum())
+    design = needed + int(cols[point].sum())
+    # The resident design's warps run the union of their lanes' groups:
+    # lane-slot tests, a warp's passes (two where its lanes are point
+    # lanes) times 32 lanes times the union's real columns.
+    warp = torch.arange(o.shape[0], device=o.device) // 32
+    warp_passes = torch.zeros_like(warp_cols)
+    warp_passes.scatter_reduce_(0, warp, torch.where(
+        live, torch.where(point, 2, 1), 0), "amax")
+    slots = int((warp_passes * warp_cols).sum()) * 32
+    hist = torch.bincount(steps[walkers], minlength=cap + 1).tolist()
+    out = dict(lanes=o.shape[0], live=n_live, walkers=int(walkers.sum()),
+               point=int(point.sum()), hist=hist,
+               cta_passes=float(passes[has].float().mean()) if bool(
+                   has.any()) else 0.0,
+               groups=float(groups[live].float().mean()),
+               cols=float(cols[live].float().mean()), tp_real=tp_real,
+               executed=executed, needed=needed, design=design,
+               warp_slots=slots,
+               warp_cols=float(warp_cols[warp_passes > 0].float().mean()))
+    log(f"  A0 {label}: {out['lanes']} lanes, {n_live} live ({out['walkers']}"
+        f" walking, {out['point']} point); steps at cap {cap} "
+        + " ".join(f"{k}:{v}" for k, v in enumerate(hist))
+        + f"; CTA passes (most steps + 1) {out['cta_passes']:.3f}; groups "
+        f"per live lane {out['groups']:.3f} of {sc.tr_bw.shape[1] // 128}, "
+        f"real columns {out['cols']:.1f} of {tp_real}; Baldwin-Weber tests "
+        f"executed by the CTA design {executed}, needed {needed} "
+        f"({needed / max(executed, 1):.4f}), made by the resident design "
+        f"(point lanes twice) {design}; its warps run the union of their "
+        f"lanes' groups, {out['warp_cols']:.1f} real columns per warp: "
+        f"{slots} lane-slot tests ({design / max(slots, 1):.4f} of them "
+        f"its lanes' own)")
+    return out
+
+
 def phase_walk_kernels(device, tex):
     """The walk kernels against their plain versions on the textured
     showcase (grid 224, 256-slot blocks): caps 8 and 1, dead lanes."""
@@ -514,8 +669,6 @@ def phase_walk_timing(device, tex):
     the transmittance walk on its first bounce's 3 x 2^18 shadow lanes
     (cap 8, lanes encoded as the integrator encodes them). Returns
     {name: (ms, plain_ms, bound_ms, bound_by)}."""
-    import torch
-
     from path_tracer_torch import native
     from path_tracer_torch.ops import cuda_trwalk, trwalk
 
@@ -523,36 +676,41 @@ def phase_walk_timing(device, tex):
     cap = trwalk.TRWALK_K
     tp_real = int((tex.tr_bw[0:3].abs().sum(0) > 0).sum())
     tables = (tex.tr_bw, tex.tr_rows, tex.tr_tex8, tex.tr_lut,
-              tex.tr_page_table)
+              tex.tr_page_table, tex.tr_grp)
     o, d, t_op = alpha_lanes(tex, n, device)
     rnd = walk_rnd(n, cap, device)
     run = lambda: cuda_trwalk.alpha_walk(tex, o, d, t_op, rnd, cap)
     plain = lambda: trwalk.alpha_walk_plain(tex, o, d, t_op, rnd, cap)
     ms, plain_ms, ms2 = cuda_ms(run, 20), cuda_ms(plain, 2), cuda_ms(run, 20)
     live = int((t_op >= 0).sum())
+    needed = walk_needed(tex, "alpha", (o, d, t_op))[0]
     out = {"alpha_walk": (min(ms, ms2), plain_ms) + bound(
-        live * tp_real * OPS_BW,
+        needed * OPS_BW,
         nbytes(o, d, t_op, rnd, *tables) + n * (8 * 4 + 4))}
     log(f"  time alpha walk, {n} camera lanes ({live} live) x {tp_real} "
         f"columns: kernel {ms:.4f} ms, {ms2:.4f} ms (repeat); plain "
         f"{plain_ms:.4f} ms; bound {out['alpha_walk'][2]:.4f} ms "
-        f"({out['alpha_walk'][3]})")
+        f"({out['alpha_walk'][3]}: {needed} Baldwin-Weber tests in the "
+        f"admitted groups; one ungated pass per live lane "
+        f"{bound(live * tp_real * OPS_BW, 0)[0]:.4f} ms)")
     sh = shadow_lanes(tex, n, device)
-    o3, d3, pd3, is_pt, sp3, ouv3, os3, w0 = sh
-    row = lambda x: x.to(torch.float32).unsqueeze(0)
-    aux = torch.cat([row(torch.where(w0, pd3, -1.0)), row(is_pt), sp3.T,
-                     ouv3.T, row(os3)]).contiguous()
+    o3, d3 = sh[0], sh[1]
+    aux = cuda_trwalk.trans_aux(*sh[2:])
     run = lambda: native.launch_trans_walk(o3, d3, aux, tex, cap)
     plain = lambda: trwalk.trans_walk_plain(tex, *sh, cap)
     ms, plain_ms, ms2 = cuda_ms(run, 20), cuda_ms(plain, 2), cuda_ms(run, 20)
-    live = int(w0.sum())
+    live = int(sh[-1].sum())
+    needed, design = walk_needed(tex, "trans", sh)
     out["trans_walk"] = (min(ms, ms2), plain_ms) + bound(
-        live * tp_real * OPS_BW,
-        nbytes(o3, d3, aux, *tables) + 3 * 4 * o3.shape[0])
+        needed * OPS_BW, nbytes(o3, d3, aux, *tables) + 3 * 4 * o3.shape[0])
     log(f"  time transmittance walk, {o3.shape[0]} shadow lanes ({live} "
         f"live) x {tp_real} columns: kernel {ms:.4f} ms, {ms2:.4f} ms "
         f"(repeat); plain {plain_ms:.4f} ms; bound "
-        f"{out['trans_walk'][2]:.4f} ms ({out['trans_walk'][3]})")
+        f"{out['trans_walk'][2]:.4f} ms ({out['trans_walk'][3]}: {needed} "
+        f"Baldwin-Weber tests in the admitted groups, once a live lane; the "
+        f"design's own {design}, point lanes twice, "
+        f"{bound(design * OPS_BW, 0)[0]:.4f} ms; one ungated pass per live "
+        f"lane {bound(live * tp_real * OPS_BW, 0)[0]:.4f} ms)")
     return out
 
 
@@ -2256,8 +2414,6 @@ def phase_live_kernels(device, tex):
     beside its forward variant on the same lanes; on the untouched tables
     each equals its forward variant on every lane. Returns {name: (max
     abs err, (ms, plain ms, bound ms, bound by))}."""
-    import torch
-
     from path_tracer_torch import native
     from path_tracer_torch.ops import cuda_shadow, cuda_trwalk, trwalk
 
@@ -2297,16 +2453,14 @@ def phase_live_kernels(device, tex):
     report("alpha_walk_live", got, want, alpha(tex, live_same), alpha(tex),
            lanes_off(got, alpha(upd)), lambda: alpha(upd, live),
            lambda: alpha(upd), plain_ms,
-           bound(n_live * tp_real * OPS_BW,
+           bound(walk_needed(tex, "alpha", (o, d, t_op))[0] * OPS_BW,
                  nbytes(o, d, t_op, rnd, tex.tr_bw, *live, tex.tr_lut,
-                        tex.tr_page_table) + n * (8 * 4 + 4)),
+                        tex.tr_page_table, tex.tr_grp) + n * (8 * 4 + 4)),
            f"{n} camera lanes ({n_live} live) x {tp_real} columns")
 
     sh = shadow_lanes(tex, n, device)
-    o3, d3, pd3, is_pt, sp3, ouv3, os3, w0 = sh
-    row = lambda x: x.to(torch.float32).unsqueeze(0)
-    aux = torch.cat([row(torch.where(w0, pd3, -1.0)), row(is_pt), sp3.T,
-                     ouv3.T, row(os3)]).contiguous()
+    o3, d3, w0 = sh[0], sh[1], sh[-1]
+    aux = cuda_trwalk.trans_aux(*sh[2:])
     plain_ms, want = timed_once(
         lambda: trwalk.trans_walk_plain(upd, *sh, cap, live))
     got = cuda_trwalk.trans_walk(upd, *sh, cap, live=live)
@@ -2318,9 +2472,10 @@ def phase_live_kernels(device, tex):
            lambda: native.launch_trans_walk(o3, d3, aux, upd, cap, live),
            lambda: native.launch_trans_walk(o3, d3, aux, upd, cap),
            plain_ms,
-           bound(walkers * tp_real * OPS_BW,
+           bound(walk_needed(tex, "trans", sh)[0] * OPS_BW,
                  nbytes(o3, d3, aux, tex.tr_bw, *live, tex.tr_lut,
-                        tex.tr_page_table) + 3 * 4 * o3.shape[0]),
+                        tex.tr_page_table, tex.tr_grp)
+                 + 3 * 4 * o3.shape[0]),
            f"{o3.shape[0]} shadow lanes ({walkers} live) x {tp_real} "
            "columns")
 
@@ -2827,10 +2982,11 @@ def dead_warps(g, fill: float = float("inf")):
 
 
 def kernel_device_ms(scene, spec) -> dict:
-    """{kernel: (device ms, launches)} summed by ``torch.profiler`` over one
-    1080p sample (every 2^18-lane tile) after one warm-up sample, for each
-    kernel, the port's and ATen's, by the identifier ending in "_kernel" in
-    the profiler's name; and "all", every kernel's on the card."""
+    """{kernel: (device ms, launches)} summed by ``torch.profiler`` (CUDA
+    activity alone) over one 1080p sample (every 2^18-lane tile) after one
+    warm-up sample, for each kernel, the port's and ATen's, by the
+    identifier ending in "_kernel" in the profiler's name; and "all", every
+    kernel's on the card."""
     import re
 
     import torch
@@ -2840,8 +2996,8 @@ def kernel_device_ms(scene, spec) -> dict:
 
     render_pixel_sums(scene, 1920, 1080, 1, 1, spec, tile_rays=WAVE)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         render_pixel_sums(scene, 1920, 1080, 2, 1, spec, tile_rays=WAVE)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
@@ -2855,15 +3011,17 @@ def kernel_device_ms(scene, spec) -> dict:
             ms, n = out.get(m.group(1), (0.0, 0))
             out[m.group(1)] = (ms + e.self_device_time_total / 1e3,
                                n + e.count)
+    log(f"  (profiled sample and its summary: {time.perf_counter() - t0:.1f} "
+        "s)")
     return out
 
 
-def phase_redesigned(device, showcase, tex) -> dict:
+def phase_redesigned(device, showcase) -> dict:
     """3i: the flat closest hit (row 9: warp packets) and brute-force MT
     (row 1: the table resident in shared memory, four rays a thread)
     against their plain versions, every field of every lane, and the tie
-    rule; the packet counts; each kernel's device time over one 1080p
-    sample. Returns the numbers."""
+    rule; the packet counts; row 1's device time over one 1080p
+    reflection sample. Returns the numbers."""
     import torch
 
     from path_tracer_torch.models.integrator import IntegratorSpec
@@ -2966,17 +3124,13 @@ def phase_redesigned(device, showcase, tex) -> dict:
         log_packets(label, packet_counts(o, d, showcase, tp, t_hit),
                     showcase.sl_block)
 
-    # Device time per main-path sample, from the profiler (the plain
-    # showcase's is phase 3j's).
-    spec5, spec4 = IntegratorSpec(bounces=5), IntegratorSpec(bounces=4)
-    for label, sc, spec, name in (
-            ("reflection", refl, spec4, "mt_closest_hit_kernel"),
-            ("textured showcase", tex, spec5, "flat_closest_hit_kernel")):
-        prof = kernel_device_ms(sc, spec)
-        out[f"profile {label}"] = prof
-        log_profile(label, prof)
-        if prof.get(name, (0, 0))[1] == 0:
-            raise AssertionError(f"{label}: {name} never ran")
+    # Device time per main-path sample, from the profiler (the textured
+    # showcase's, row 9 among its kernels, is phase 3k's).
+    prof = kernel_device_ms(refl, IntegratorSpec(bounces=4))
+    out["profile reflection"] = prof
+    log_profile("reflection", prof)
+    if prof.get("mt_closest_hit_kernel", (0, 0))[1] == 0:
+        raise AssertionError("reflection: mt_closest_hit_kernel never ran")
     log(f"  phase 3i took {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -3008,74 +3162,31 @@ def log_profile(label: str, prof: dict) -> None:
         f"{prof['all'][1]} launches")
 
 
-@contextlib.contextmanager
-def cta_designs():
-    """The main path's flat any-hit and flat2 closest hit casts go through
-    the designs rows 10 and 11 replaced (ops/ab_baselines.py) inside the
-    context, for 3j's per-sample comparison only; restored on exit."""
-    from path_tracer_torch.ops import ab_baselines, cuda_bvh
-
-    saved = (cuda_bvh.occluded_triangles_flat_multi,
-             cuda_bvh.closest_hit_triangles_flat2)
-    cuda_bvh.occluded_triangles_flat_multi = (
-        ab_baselines.flat_occluded_cta_multi)
-    cuda_bvh.closest_hit_triangles_flat2 = ab_baselines.flat2_closest_hit_cta
-    try:
-        yield
-    finally:
-        (cuda_bvh.occluded_triangles_flat_multi,
-         cuda_bvh.closest_hit_triangles_flat2) = saved
-
-
-def records_held(label: str, new, plain, old) -> int:
-    """Fails the run unless ``new`` equals ``plain`` on every field of
-    every lane and parts from ``old`` exactly where ``old`` parts from
-    ``plain``; returns how many lanes that is."""
-    import torch
-
-    held(label, new, {"plain": plain})
-    old_off = records_off(old, plain)
-    n_old = int(old_off.sum())
-    log(f"    the old design parts from the plain version on {n_old} "
-        f"lanes, the new one from the old on {lanes_off(new, old)}")
-    if not torch.equal(records_off(new, old), old_off):
-        raise AssertionError(f"{label}: new and old part elsewhere")
-    return n_old
-
-
 def occ_held(label: str, o, ds, tms, sc) -> None:
-    """Fails the run unless row 10 equals its plain version and its old
-    design on every lane of the sets."""
+    """Fails the run unless row 10 equals its plain version on every lane
+    of the sets."""
     import torch
 
-    from path_tracer_torch.ops import ab_baselines, cuda_bvh
+    from path_tracer_torch.ops import cuda_bvh
 
     new = cuda_bvh.occluded_triangles_flat_multi(o, ds, tms, sc)
-    want = {"plain": cuda_bvh.occluded_triangles_flat_multi_plain(o, ds, tms,
-                                                                  sc),
-            "old": ab_baselines.flat_occluded_cta_multi(o, ds, tms, sc)}
-    offs = {k: int((new != w).sum()) for k, w in want.items()}
+    off = int((new != cuda_bvh.occluded_triangles_flat_multi_plain(
+        o, ds, tms, sc)).sum())
     dead = torch.stack(tms) < 0.0
     log(f"  row 10, {label}: {len(ds)} x {o.shape[0]} lanes, occluded "
-        f"{float(new[~dead].float().mean()):.3f} of the live; lanes off "
-        + ", ".join(f"{k} {v}" for k, v in offs.items()))
-    if any(offs.values()) or not bool(new[dead].all()):
+        f"{float(new[~dead].float().mean()):.3f} of the live; lanes off the "
+        f"plain version {off}")
+    if off or not bool(new[dead].all()):
         raise AssertionError(f"row 10, {label}: the warp any-hit disagrees")
 
 
-def phase_rows_10_11(device, showcase, tex, big) -> dict:
+def phase_rows_10_11(device, showcase, tex, big) -> None:
     """3j: the flat any-hit (row 10) and the flat2 closest hit (row 11) as
-    warp packets against their plain versions and the CTA designs they
-    replaced, every lane; flat2 on tie rays whose copies sit in two
-    superblocks; scene A's packet counts; both designs timed in turns with
-    the bound and the -fmad=false floor; each design's device time over one 1080p sample (the plain showcase, scene
-    A) and one sample end to end in turns. Returns the numbers."""
+    warp packets against their plain versions, every lane; flat2 on tie
+    rays whose copies sit in two superblocks; scene A's packet counts."""
     import torch
 
-    from path_tracer_torch import native
-    from path_tracer_torch.models.integrator import IntegratorSpec
-    from path_tracer_torch.models.renderer import render_pixel_sums
-    from path_tracer_torch.ops import ab_baselines, cuda_bvh
+    from path_tracer_torch.ops import cuda_bvh
     from path_tracer_torch.scene import build_scene
     from path_tracer_torch.scene.device_scene import opaque_view
     from path_tracer_torch.scene.procedural import (
@@ -3083,12 +3194,10 @@ def phase_rows_10_11(device, showcase, tex, big) -> dict:
         tie_rays,
     )
 
-    log("phase 3j: rows 10 and 11 redesigned (warp-packet flat any-hit; "
-        "two-level warp-packet flat2 closest hit) against their plain "
-        "versions and old designs")
+    log("phase 3j: rows 10 and 11 (warp-packet flat any-hit; two-level "
+        "warp-packet flat2 closest hit) against their plain versions")
     phase_t0 = time.perf_counter()
     n = WAVE
-    out = {}
     rng = np.random.default_rng(20261021)
 
     # Row 10 on every lane of each set.
@@ -3121,7 +3230,6 @@ def phase_rows_10_11(device, showcase, tex, big) -> dict:
     op = opaque_view(big)
     m = 1 << 16
     flat2_new = cuda_bvh.closest_hit_triangles_flat2
-    flat2_old = ab_baselines.flat2_closest_hit_cta
     flat2_plain = cuda_bvh.closest_hit_triangles_flat2_plain
     (bo, bd, btp), _ = first_bounce(big, n, device)
     co, cd = camera_rays(big, n, device)
@@ -3134,14 +3242,12 @@ def phase_rows_10_11(device, showcase, tex, big) -> dict:
              "first bounce, ragged R, dead warps": (
                  bo[m:2 * m - 37].contiguous(), bd[m:2 * m - 37].contiguous(),
                  dead_warps(btp[m:2 * m - 37]))}
-    out["row11 old off"] = {}
     for label, (o, d, tp) in cases.items():
         o, d, tp = o.contiguous(), d.contiguous(), tp.contiguous()
-        out["row11 old off"][label] = records_held(
-            f"row 11, scene A {label}", flat2_new(o, d, tp, op),
-            flat2_plain(o, d, tp, op), flat2_old(o, d, tp, op))
-    # Tie rays where the stacked copies sit in two superblocks: the fault
-    # of the old design's best-t cut shows here.
+        held(f"row 11, scene A {label}", flat2_new(o, d, tp, op),
+             {"plain": flat2_plain(o, d, tp, op)})
+    # Tie rays where the stacked copies sit in two superblocks: a cut at a
+    # lane's best t would let the visit order decide here.
     ties2 = build_scene(duplicate_grid_scene(8, 8400), ".", device,
                         use_bvh=True, sl_block=128)
     log(f"  two-superblock tie scene: {ties2.num_real_triangles} triangles "
@@ -3149,108 +3255,312 @@ def phase_rows_10_11(device, showcase, tex, big) -> dict:
         f"{int((ties2.sl_sbid >= 0).sum())} superblocks")
     to2, td2 = (as_cuda(x, device) for x in tie_rays(n))
     new = flat2_new(to2, td2, tie_tp, ties2)
-    out["row11 old off"]["tie rays"] = records_held(
-        "row 11, tie rays across two superblocks", new,
-        flat2_plain(to2, td2, tie_tp, ties2),
-        flat2_old(to2, td2, tie_tp, ties2))
+    held("row 11, tie rays across two superblocks", new,
+         {"plain": flat2_plain(to2, td2, tie_tp, ties2)})
     tie_rule_held("flat2 walk (two superblocks)", ties2, new, 1, n // 2)
 
-    # Scene A's packets (A0): the blocks the two gates admit against the
-    # blocks a lane needs.
+    # Scene A's packets: the blocks the two gates admit against the blocks
+    # a lane needs.
     for label, (o, d, tp) in (("scene A camera", (co, cd, minus1)),
                               ("scene A first bounce", (bo, bd, btp))):
         t_hit = flat2_new(o, d, tp, op).t
         log_packets(label, packet_counts(o, d, op, tp, t_hit,
                                          two_level=True), op.sl_block)
+    log(f"  phase 3j took {time.perf_counter() - phase_t0:.1f} s")
 
-    # Both designs in turns, with the bound and the -fmad=false floor.
-    ab = {}
-    for label, (o, ds, tms) in (("first-bounce shadows", (so, sds, stms)),
-                                ("incoherent shadows", (io, ids, itms))):
-        occ = cuda_bvh.occluded_triangles_flat_multi(o, ds, tms, showcase)
-        slabs = tests = 0
-        for k, (sd, tm) in enumerate(zip(ds, tms)):
-            a, b = flat_work(o, sd, showcase, None, tm, occ[k])
-            slabs, tests = slabs + a, tests + b
-        b = bound(slabs * OPS_SLAB + tests * OPS_BW,
-                  nbytes(o, *ds, *tms, showcase.sl_blkflat,
-                         showcase.sl_blkid, showcase.sl_bw_t)
-                  + 4 * n * len(ds))
-        ab[f"row 10 {label}, L={len(ds)}"] = ab_turns(
-            lambda: ab_baselines.flat_occluded_cta_multi(o, ds, tms,
-                                                         showcase),
-            lambda: cuda_bvh.occluded_triangles_flat_multi(o, ds, tms,
-                                                           showcase)) + (b,)
-        dsk, tmk = torch.stack(ds).contiguous(), torch.stack(tms).contiguous()
-        args = (o, dsk, tmk, showcase.sl_blkflat, showcase.sl_blkid,
-                showcase.sl_bw_t, showcase.sl_block)
-        # t_max = 0 on the live lanes: the gate's work is the same, and the
-        # visits shrink to the blocks around the origins, finding nothing.
-        at0 = (o, dsk, torch.where(tmk < 0.0, tmk, 0.0).contiguous(),
-               *args[3:])
-        gate_ms = cuda_ms(lambda: native.launch_flat_occluded(*at0),
-                          AB_ITERS)
-        log(f"  row 10 {label}: the launch with t_max = 0 on the live "
-            f"lanes (the gate, and visits of the origins' blocks) "
-            f"{gate_ms:.4f} ms")
-        out[f"row 10 {label} t_max 0"] = gate_ms
-    for label, (o, d, tp) in (("camera", (co, cd, minus1)),
-                              ("first bounce", (bo, bd, btp))):
-        got = flat2_new(o, d, tp, op)
-        slabs, tests, needed = flat2_work(o, d, op, tp, got.t)
-        b = bound(slabs * OPS_SLAB + tests * OPS_BW,
-                  nbytes(o, d, tp, op.sl_sbflat, op.sl_sbid, op.sl_blkflat,
-                         op.sl_blkid) + rows_bytes(op, needed)
-                  + n * (4 * 4 + 4))
-        ab[f"row 11 scene A {label}"] = ab_turns(
-            lambda: flat2_old(o, d, tp, op),
-            lambda: flat2_new(o, d, tp, op)) + (b,)
-    for label, (old_ms, new_ms, b) in ab.items():
-        log(f"  A/B {label}: old design {min(old_ms):.4f} ms (readings "
-            + " ".join(f"{x:.4f}" for x in old_ms) + f"), new "
-            f"{min(new_ms):.4f} ms (" + " ".join(f"{x:.4f}" for x in new_ms)
-            + f"); bound {b[0]:.4f} ms ({b[1]}), -fmad=false floor "
-            f"{2 * b[0]:.4f} ms; new / old {min(new_ms) / min(old_ms):.3f}")
-    out["ab"] = ab
+
+@contextlib.contextmanager
+def cta_walks():
+    """The main path's alpha and transmittance walks go through the designs
+    rows 13 and 14 replaced (ops/ab_baselines.py) inside the context, for
+    3k's per-sample comparison only; restored on exit."""
+    from path_tracer_torch.ops import ab_baselines, cuda_trwalk
+
+    saved = (cuda_trwalk.alpha_walk, cuda_trwalk.trans_walk)
+    cuda_trwalk.alpha_walk = ab_baselines.alpha_walk_cta
+    cuda_trwalk.trans_walk = ab_baselines.trans_walk_cta
+    try:
+        yield
+    finally:
+        cuda_trwalk.alpha_walk, cuda_trwalk.trans_walk = saved
+
+
+def walk_held(label: str, new, want: dict) -> float:
+    """Fails the run unless the walk result ``new`` equals every result of
+    ``want`` ({name: result}) on every field of every lane, NaN equal to
+    NaN; returns its max abs error against the first."""
+    offs = {k: lanes_off(new, w) for k, w in want.items()}
+    log(f"  {label}: {new[0].numel()} lanes; lanes off "
+        + ", ".join(f"{k} {v}" for k, v in offs.items()))
+    if any(offs.values()):
+        raise AssertionError(f"{label}: the redesigned walk disagrees")
+    return max_err(new, next(iter(want.values())))
+
+
+def ray_walk_lanes(sc, o, d, g, device, scale=1.0):
+    """Alpha and transmittance lanes of the rays (o, d) [n, 3] on the card:
+    t_op past every candidate, at the lane's first candidate, random
+    (``scale`` x U(0.5, 8)) or dead, and uniforms above every card's
+    opacity on half the lanes; each ray also as a directional lane and two
+    point lanes at random distances (``scale`` x U(0.5, 9)), with sphere
+    originals and idle lanes mixed in. ``g`` draws the randoms."""
+    import torch
+
+    from path_tracer_torch.ops import trwalk
+
+    n = o.shape[0]
+    first = trwalk._eval_cols(o, d, torch.full((n,), float("inf"),
+                                               device=device),
+                              sc.tr_bw)[0].amin(dim=1)
+    t_op = as_cuda(g.uniform(0.5, 8.0, n) * scale, device)
+    t_op[::3] = float("inf")
+    t_op[1::3] = torch.where(torch.isfinite(first), first, 2.0)[1::3]
+    t_op[::7] = -1.0
+    rnd = as_cuda(g.uniform(size=(12, n)), device)
+    rnd[:, ::2] = 0.95
+    o3, d3 = o.repeat(3, 1), d.repeat(3, 1)
+    pd = as_cuda(np.concatenate([np.full(n, np.inf), g.uniform(
+        0.5, 9.0, 2 * n) * np.tile(scale, 2 if np.ndim(scale) else 1)]),
+        device)
+    sh = (o3, d3, pd, torch.arange(3 * n, device=device) >= n, o3,
+          as_cuda(g.uniform(-1.0, 2.0, (3 * n, 2)), device),
+          as_cuda(g.uniform(size=3 * n) < 0.2, device, bool),
+          as_cuda(g.uniform(size=3 * n) > 0.1, device, bool))
+    return (o, d, t_op), rnd, sh
+
+
+def tie_card_lanes(cards, n: int, device):
+    """``ray_walk_lanes`` of n tie rays from above through every layer of
+    the duplicate-card scene."""
+    from path_tracer_torch.scene.procedural import tie_rays
+
+    o, d = (as_cuda(x, device) for x in tie_rays(n, seed=5))
+    return ray_walk_lanes(cards, o, d, np.random.default_rng(20261024),
+                          device)
+
+
+def far_rays(sc, n: int, seed: int):
+    """n rays toward points on the transparent cards (vertices, edge points,
+    interior points) from origins 10^2 to 10^3 group extents away (the
+    largest side of the smallest valid group box that holds the point):
+    half from random directions, half grazing their card (cosine 10^-3 to
+    10^-1), where a candidate's t rounds most. Returns (o, d, distance),
+    numpy."""
+    g = np.random.default_rng(seed)
+    lo_n, hi_n = sc.n_tris_opaque, sc.num_real_triangles
+    v0, e1, e2 = (x[lo_n:hi_n].cpu().numpy().astype(np.float64)
+                  for x in (sc.tri_v0, sc.tri_e1, sc.tri_e2))
+    tri = g.integers(0, len(v0), n)
+    v0, e1, e2 = v0[tri], e1[tri], e2[tri]
+    a, b = g.uniform(size=(2, n, 1))
+    kind = g.integers(0, 3, (n, 1))
+    a = np.where(kind == 0, np.round(a), a)  # vertices
+    b = np.where(kind == 0, 0.0, np.where(kind == 1, 1.0 - a, b * (1 - a)))
+    tgt = v0 + a * e1 + b * e2
+    unit = lambda x: x / np.linalg.norm(x, axis=1, keepdims=True)
+    nrm, t1 = unit(np.cross(e1, e2)), unit(e1)
+    phi = g.uniform(0.0, 2.0 * np.pi, (n, 1))
+    cos = 10.0 ** g.uniform(-3.0, -1.0, (n, 1)) * g.choice([-1.0, 1.0],
+                                                            (n, 1))
+    graze = (np.sqrt(1.0 - cos * cos)
+             * (np.cos(phi) * t1 + np.sin(phi) * np.cross(nrm, t1))
+             + cos * nrm)
+    d = np.where(np.arange(n)[:, None] % 2 == 0, graze,
+                 unit(g.normal(size=(n, 3))))
+    grp = sc.tr_grp.cpu().numpy()
+    boxes = grp[:6, grp[6] > 0].T
+    ext = (boxes[:, 3:] - boxes[:, :3]).max(1)
+    # A point on a card lies in its group's box up to the rounding of the
+    # float32 edges it is built from.
+    gap = np.linalg.norm(np.maximum(np.maximum(
+        boxes[None, :, :3] - tgt[:, None, :],
+        tgt[:, None, :] - boxes[None, :, 3:]), 0.0), axis=2)
+    holds = gap <= 1e-4 * ext.max()
+    dist = (np.where(holds, ext[None, :], np.inf).min(1)
+            * 10.0 ** g.uniform(2.0, 3.0, n))
+    return tgt - d * dist[:, None], d, dist
+
+
+def phase_rows_13_14(device, tex, big) -> dict:
+    """3k: the alpha walk (row 13) and the transmittance walk (row 14) with
+    the table resident in shared memory, each lane one gated pass and a
+    sorted list, against their plain versions and the CTA designs they
+    replaced on every field of every lane: camera lanes with the opaque
+    terminator, camera and random foliage lanes with a seventh dead, a
+    ragged count with dead warps, the first bounce's 3 x 2^18 shadow lanes
+    (all, and a tenth killed, and ragged with dead warps) on the textured
+    showcase and scene A, tie rays through the layered duplicate-card
+    scene, and textured-showcase rays from far origins (``far_rays``),
+    each at caps 8, 1, 0 and 12; A0's counts; both designs in turns
+    with the recounted bound and the -fmad=false floor; each design's
+    device time over one 1080p sample (textured showcase, scene A) and one
+    textured-showcase sample end to end in turns. Returns the numbers."""
+    import torch
+
+    from path_tracer_torch import native
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.ops import ab_baselines, cuda_trwalk, trwalk
+    from path_tracer_torch.scene.procedural import (
+        duplicate_card_device_scene,
+    )
+
+    log("phase 3k: rows 13 and 14 redesigned (the table resident in shared "
+        "memory, one gated pass per lane, the steps from a sorted register "
+        "list) against their plain versions and old designs")
+    phase_t0 = time.perf_counter()
+    n, rr = WAVE, WAVE - 37
+    rng = np.random.default_rng(20261023)
+    out = {"row13_err": 0.0, "row14_err": 0.0}
+    caps = (8, 1, 0, 12)
+
+    def alpha_held(label, sc, lanes, rnd):
+        for cap in caps:
+            args = lanes + (rnd, cap)
+            out["row13_err"] = max(out["row13_err"], walk_held(
+                f"row 13, {label}, cap {cap}",
+                cuda_trwalk.alpha_walk(sc, *args),
+                {"plain": trwalk.alpha_walk_plain(sc, *args),
+                 "old": ab_baselines.alpha_walk_cta(sc, *args)}))
+
+    def trans_held(label, sc, lanes):
+        for cap in caps:
+            args = lanes + (cap,)
+            out["row14_err"] = max(out["row14_err"], walk_held(
+                f"row 14, {label}, cap {cap}",
+                cuda_trwalk.trans_walk(sc, *args),
+                {"plain": trwalk.trans_walk_plain(sc, *args),
+                 "old": ab_baselines.trans_walk_cta(sc, *args)}))
+
+    sets = {}
+    for name, sc in (("textured showcase", tex), ("scene A", big)):
+        cam = alpha_lanes(sc, n, device)
+        sh = shadow_lanes(sc, n, device)
+        sets[name] = (sc, cam, sh)
+        rnd = walk_rnd(n, 12, device)
+        alpha_held(f"{name} camera lanes", sc, cam, rnd)
+        alpha_held(f"{name} camera and random foliage lanes, a seventh "
+                   "dead", sc, alpha_lanes(sc, n, device, rng), rnd)
+        alpha_held(f"{name} ragged R, dead warps", sc,
+                   (cam[0][:rr].contiguous(), cam[1][:rr].contiguous(),
+                    dead_warps(cam[2][:rr], -1.0)), rnd[:, :rr])
+        trans_held(f"{name} first-bounce shadow lanes", sc, sh)
+        trans_held(f"{name} first-bounce shadow lanes, a tenth killed", sc,
+                   shadow_lanes(sc, n, device, rng))
+        m = 3 * n - 37
+        alive = dead_warps(torch.ones(m, device=device), 0.0) > 0.0
+        trans_held(f"{name} ragged R, dead warps", sc,
+                   tuple(x[:m].contiguous() for x in sh[:-1])
+                   + (sh[-1][:m] & alive,))
+    cards = duplicate_card_device_scene(device)
+    log(f"  duplicate-card scene: {cards.num_real_triangles} triangles, "
+        f"transparent table {cards.tr_bw.shape[1]} columns (the showcases' "
+        f"sets held in {time.perf_counter() - phase_t0:.1f} s)")
+    cam, rnd, sh = tie_card_lanes(cards, n, device)
+    alpha_held("tie rays through 12 layers of duplicated cards", cards, cam,
+               rnd)
+    trans_held("tie rays through 12 layers of duplicated cards", cards, sh)
+    o, d, dist = far_rays(tex, n, 20261025)
+    cam, rnd, sh = ray_walk_lanes(
+        tex, as_cuda(o, device), as_cuda(d, device),
+        np.random.default_rng(20261026), device, dist)
+    far = ("textured showcase rays from 10^2 to 10^3 group extents away "
+           f"(origins up to {float(np.abs(o).max()):.0f}; half grazing their "
+           "card)")
+    alpha_held(far, tex, cam, rnd)
+    trans_held(far, tex, sh)
+
+    # A0 and both designs in turns, with the recounted bound and the floor.
+    log(f"  parity held in {time.perf_counter() - phase_t0:.1f} s")
+    cap = trwalk.TRWALK_K
+    out["a0"], out["ab"] = {}, {}
+    for name, (sc, cam, sh) in sets.items():
+        rnd = walk_rnd(n, cap, device)
+        tp_real = int((sc.tr_bw[0:3].abs().sum(0) > 0).sum())
+        tables = (sc.tr_bw, sc.tr_rows, sc.tr_tex8, sc.tr_lut,
+                  sc.tr_page_table, sc.tr_grp)
+        a0 = walk_counts(f"{name} alpha, camera lanes", sc, "alpha", cam,
+                         rnd, cap)
+        out["a0"][f"row 13 {name}"] = a0
+        b = bound(a0["needed"] * OPS_BW,
+                  nbytes(*cam, rnd, *tables) + n * (8 * 4 + 4))
+        old_b = bound(a0["live"] * tp_real * OPS_BW, 0)
+        out["ab"][f"row 13 {name}"] = ab_turns(
+            lambda: ab_baselines.alpha_walk_cta(sc, *cam, rnd, cap),
+            lambda: cuda_trwalk.alpha_walk(sc, *cam, rnd, cap)) + (
+                b, old_b, bound(a0["design"] * OPS_BW, 0))
+        a0 = walk_counts(f"{name} transmittance, first-bounce shadow lanes",
+                         sc, "trans", sh, None, cap)
+        out["a0"][f"row 14 {name}"] = a0
+        aux = cuda_trwalk.trans_aux(*sh[2:])
+        b = bound(a0["needed"] * OPS_BW,
+                  nbytes(sh[0], sh[1], aux, *tables) + 3 * 4 * 3 * n)
+        old_b = bound(a0["live"] * tp_real * OPS_BW, 0)
+        out["ab"][f"row 14 {name}"] = ab_turns(
+            lambda: native._launch_trans_walk("ptt_trans_walk_cta", sh[0],
+                                              sh[1], aux, sc, cap),
+            lambda: native.launch_trans_walk(sh[0], sh[1], aux, sc, cap)) \
+            + (b, old_b, bound(a0["design"] * OPS_BW, 0))
+        # Where row 14's time goes: each kind of lane alone, the others
+        # dead (a point lane makes two passes, a directional lane one and
+        # its steps).
+        for part, keep in (("directional lanes", ~sh[3]),
+                           ("point lanes", sh[3])):
+            aux_k = cuda_trwalk.trans_aux(*sh[2:-1], sh[-1] & keep)
+            ms = cuda_ms(lambda: native.launch_trans_walk(
+                sh[0], sh[1], aux_k, sc, cap), AB_ITERS)
+            out[f"row 14 {name} {part}"] = ms
+            log(f"  row 14, {name}: the {part} alone "
+                f"({int((sh[-1] & keep).sum())} live) {ms:.4f} ms")
+    for label, (old_ms, new_ms, b, old_b, des_b) in out["ab"].items():
+        new, old = min(new_ms), min(old_ms)
+        log(f"  A/B {label}: old design {old:.4f} ms (readings "
+            + " ".join(f"{x:.4f}" for x in old_ms) + f"), new {new:.4f} ms ("
+            + " ".join(f"{x:.4f}" for x in new_ms) + f"); bound {b[0]:.4f} "
+            f"ms ({b[1]}; the resident design's own tests {des_b[0]:.4f}; "
+            f"one ungated pass per live lane {old_b[0]:.4f}), "
+            f"-fmad=false floor {2 * b[0]:.4f} ms; share of the bound new "
+            f"{b[0] / new:.3f}, old {b[0] / old:.3f}; new / old "
+            f"{new / old:.3f}")
+        if b[0] > new:
+            raise AssertionError(f"{label}: faster than its bound")
 
     # Device time per main-path sample, from the profiler, for both designs
-    # (the old ones routed in by cta_designs), then one sample end to end
-    # in turns.
+    # (the old ones routed in by cta_walks), then one textured-showcase
+    # sample end to end in turns.
+    log(f"  A0 and the A/B done at {time.perf_counter() - phase_t0:.1f} s")
     spec5 = IntegratorSpec(bounces=5)
-    for label, sc, name, old_name in (
-            ("plain showcase", showcase, "flat_occluded_kernel",
-             "flat_occluded_cta_kernel"),
-            ("scene A", big, "flat2_closest_hit_kernel",
-             "flat2_closest_hit_cta_kernel")):
+    names = ("alpha_walk_kernel", "trans_walk_kernel")
+    old_names = ("alpha_walk_cta_kernel", "trans_walk_cta_kernel")
+    for name, (sc, _, _) in sets.items():
         prof = {"new": kernel_device_ms(sc, spec5)}
-        with cta_designs():
+        with cta_walks():
             prof["old"] = kernel_device_ms(sc, spec5)
-        out[f"profile {label}"] = prof
-        log_profile(label, prof["new"])
-        new_k = prof["new"].get(name, (0.0, 0))
-        old_k = prof["old"].get(old_name, (0.0, 0))
-        if new_k[1] == 0 or old_k[1] == 0 or name in prof["old"]:
-            raise AssertionError(f"{label}: the designs were not routed")
-        log(f"  the same sample through the old design: {old_name} "
-            f"{old_k[0]:.3f} ms in {old_k[1]} launches against {name} "
-            f"{new_k[0]:.3f} ms in {new_k[1]}; all kernels "
-            f"{prof['old']['all'][0]:.3f} ms against "
-            f"{prof['new']['all'][0]:.3f} ms")
-        secs = {"old": [], "new": []}
-        for design in ("old", "new", "new", "old"):
-            with (cta_designs() if design == "old"
-                  else contextlib.nullcontext()):
-                t0 = time.perf_counter()
-                render_pixel_sums(sc, 1920, 1080, 1, 1, spec5,
-                                  tile_rays=WAVE)
-                torch.cuda.synchronize()
-                secs[design].append(time.perf_counter() - t0)
-        out[f"sample {label}"] = secs
-        log(f"  one 1080p sample of the {label} end to end, in turns "
-            f"(old, new, new, old): old " + " ".join(
-                f"{x:.4f}" for x in secs["old"]) + " s, new "
-            + " ".join(f"{x:.4f}" for x in secs["new"]) + " s")
-    log(f"  phase 3j took {time.perf_counter() - phase_t0:.1f} s")
+        out[f"profile {name}"] = prof
+        log_profile(name, prof["new"])
+        for k, old_k in zip(names, old_names):
+            got, was = prof["new"].get(k, (0.0, 0)), prof["old"].get(
+                old_k, (0.0, 0))
+            if got[1] == 0 or was[1] == 0 or k in prof["old"]:
+                raise AssertionError(f"{name}: the designs were not routed")
+            log(f"  the same sample through the old design: {old_k} "
+                f"{was[0]:.3f} ms in {was[1]} launches against {k} "
+                f"{got[0]:.3f} ms in {got[1]}")
+        log(f"  all kernels {prof['old']['all'][0]:.3f} ms (old) against "
+            f"{prof['new']['all'][0]:.3f} ms (new)")
+    secs = {"old": [], "new": []}
+    for design in ("old", "new", "new", "old"):
+        with cta_walks() if design == "old" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            render_pixel_sums(tex, 1920, 1080, 1, 1, spec5, tile_rays=WAVE)
+            torch.cuda.synchronize()
+            secs[design].append(time.perf_counter() - t0)
+    out["sample"] = secs
+    log("  one 1080p sample of the textured showcase end to end, in turns "
+        "(old, new, new, old): old " + " ".join(
+            f"{x:.4f}" for x in secs["old"]) + " s, new "
+        + " ".join(f"{x:.4f}" for x in secs["new"]) + " s")
+    log(f"  phase 3k took {time.perf_counter() - phase_t0:.1f} s")
     return out
 
 
@@ -3481,8 +3791,9 @@ def main() -> int:
     from path_tracer_torch import native
 
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
-    if sys.argv[1:] and (len(sys.argv) != 3 or only not in ("3i", "3j")):
-        print("usage: chip_smoke.py [--only 3i|3j]", file=sys.stderr)
+    if sys.argv[1:] and (len(sys.argv) != 3
+                         or only not in ("3i", "3j", "3k")):
+        print("usage: chip_smoke.py [--only 3i|3j|3k]", file=sys.stderr)
         return 2
     card = smi()
     device = torch.device("cuda", 0)
@@ -3517,7 +3828,7 @@ def main() -> int:
     if not tex.tr_kernel_ok:
         raise AssertionError("textured showcase: no walk-kernel tables")
     if only == "3i":  # phase 3i alone
-        phase_redesigned(device, showcase, tex)
+        phase_redesigned(device, showcase)
         log(f"chip_smoke: phase 3i passed in "
             f"{time.perf_counter() - start:.1f} s")
         print(card)
@@ -3539,9 +3850,12 @@ def main() -> int:
         f"{walks}, tr_kernel_ok {big.tr_kernel_ok}")
     if walks != ["flat2", "flat"] or not big.tr_kernel_ok:
         raise AssertionError("scene A does not route as the JAX package's")
-    if only == "3j":  # phase 3j alone
-        phase_rows_10_11(device, showcase, tex, big)
-        log(f"chip_smoke: phase 3j passed in "
+    if only in ("3j", "3k"):  # phase 3j or 3k alone
+        if only == "3j":
+            phase_rows_10_11(device, showcase, tex, big)
+        else:
+            phase_rows_13_14(device, tex, big)
+        log(f"chip_smoke: phase {only} passed in "
             f"{time.perf_counter() - start:.1f} s")
         print(card)
         return 0
@@ -3569,8 +3883,9 @@ def main() -> int:
     khit_err, khit_times = phase_khit(device, tex)
     tree_err, tree_occ_err, tree_times = phase_tree_kernels(device, showcase,
                                                             big)
-    phase_redesigned(device, showcase, tex)
+    phase_redesigned(device, showcase)
     phase_rows_10_11(device, showcase, tex, big)
+    phase_rows_13_14(device, tex, big)
     launches = phase_main_path(device)
     flat_launches, flat_render = phase_showcase(device, showcase)
     walk_launches = phase_showcase_tex(device, tex)

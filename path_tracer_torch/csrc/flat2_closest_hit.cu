@@ -23,7 +23,7 @@
 //     a hit a few ulps before its block's slab entry (a ray through a
 //     vertex or an edge on the block's box), and the cut then lets the visit
 //     order decide between equal-t copies, as the design this one replaced
-//     did (ab_baselines.cu).
+//     did.
 //
 // Bound on the card: arithmetic in the block visits (32 operations per
 // ray-slot Baldwin-Weber test) and the slab tests (22 per ray and column),

@@ -62,7 +62,7 @@
 // before its block's slab entry (a ray through a vertex or edge on the
 // block's box), so such a cut lets the visit order decide ties between
 // copies in different blocks, as it did in this kernel's former CTA walk
-// and does in the replaced flat2 design (ab_baselines.cu).
+// and in flat2's.
 //
 // Inputs:  o, d [R,3] f32; t_prev [R] f32; blkflat [8,bpad] f32;
 //          blkid [bpad] i32; bw [16, n_cols] f32 (block b = columns

@@ -5,9 +5,9 @@
 //
 // Two walks share them. The CTA walk (cta_min_key_max through
 // occluded_block, and flat_occ_set) serves flat2_occluded.cu,
-// fused_shadow.cu, sph_walk.cu, sph_occ.cu and the designs rows 10 and 11
-// replaced, in ab_baselines.cu: a CTA of 128 rays shares one walk and
-// stages each visited block in shared memory behind CTA barriers. The warp
+// fused_shadow.cu, sph_walk.cu and sph_occ.cu: a CTA of 128 rays shares
+// one walk and stages each visited block in shared memory behind CTA
+// barriers. The warp
 // walk (kFullMask to the end) serves flat_closest_hit.cu, flat_occluded.cu
 // and flat2_closest_hit.cu: each warp is its own packet, with no CTA
 // barrier; its gate admits block columns with the mask of the rays they

@@ -37,8 +37,7 @@
 //      __any_sync over the lanes' slot tests closes a served ray. The warp
 //      stops as soon as no ray is open.
 // The design it replaced, a CTA of 128 rays sharing one walk behind CTA
-// barriers (flat_occ_set), stays in ab_baselines.cu as an A/B baseline and
-// in fused_shadow.cu.
+// barriers (flat_occ_set), stays in fused_shadow.cu.
 //
 // Inputs:  o [R,3] f32; d [L,R,3] f32; t_max [L,R] f32; blkflat [8,bpad];
 //          blkid [bpad] i32; bw [16, n_cols] f32 (block b = columns

@@ -18,9 +18,10 @@
 //     light), as a point lane when bit li of is_pt_mask is set;
 //   - out rows 3 li + 0, 1, 2: trans_eff = 0 where occ, else the walk's
 //     trans; its t_prev; still walking (0/1).
-// Both phases are the two-launch kernels' own device functions
-// (flat_common.cuh flat_occ_set, trwalk_common.cuh trans_lane), so the
-// fused kernel equals flat_occluded + trans_walk on every lane.
+// Both phases are CTA walks: flat_common.cuh's flat_occ_set and
+// trwalk_common.cuh's trans_lane_cta, the designs flat_occluded.cu and
+// trans_walk.cu replaced; each keeps its kernel's contract, so the fused
+// kernel equals flat_occluded + trans_walk on every lane.
 //
 // Bound on the card: arithmetic, the sum of the two kernels' (the slab and
 // Baldwin-Weber tests of the opaque blocks a lane enters, then the
@@ -83,9 +84,10 @@ fused_shadow_kernel(const float* __restrict__ o, const float* __restrict__ d,
   ptt::stage_lut(tb.lut, s_lut);
   float trans, t_prev;
   bool walking;
-  ptt::trans_lane(tb, s_bw, s_lut, steps_cap, textured != 0, ox, oy, oz, dx,
-                  dy, dz, occ ? -1.f : pdv, (is_pt >> li) & 1ull, spx, spy,
-                  spz, ouvx, ouvy, osimple, trans, t_prev, walking);
+  ptt::trans_lane_cta(tb, s_bw, s_lut, steps_cap, textured != 0, ox, oy, oz,
+                      dx, dy, dz, occ ? -1.f : pdv, (is_pt >> li) & 1ull,
+                      spx, spy, spz, ouvx, ouvy, osimple, trans, t_prev,
+                      walking);
   if (in_range) {
     const size_t row = (size_t)3 * li * R + i;
     out[row] = occ ? 0.f : trans;

@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "klist.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -83,11 +85,7 @@ khit_kernel(const float* __restrict__ o, const float* __restrict__ d,
 
   float kt[kMaxK];
   int kc[kMaxK];
-#pragma unroll
-  for (int q = 0; q < kMaxK; ++q) {
-    kt[q] = CUDART_INF_F;
-    kc[q] = 0;
-  }
+  ptt::list_clear(K, kt, kc, 0);
 
   for (int g = 0; g < G; ++g) {
     bool reach = false;
@@ -129,23 +127,7 @@ khit_kernel(const float* __restrict__ o, const float* __restrict__ d,
         const float v = (dx * qvx + dy * qvy + dz * qvz) * invdet;
         if (!(v >= 0.f && u + v <= 1.f)) continue;
         float t = (e2x * qvx + e2y * qvy + e2z * qvz) * invdet;
-        if (!(t >= kTMin)) continue;
-        // Insert (t, column) into the sorted list: an equal t is already
-        // held with a lower column; a larger one than the K-th is dropped.
-        bool dup = false;
-#pragma unroll
-        for (int q = 0; q < kMaxK; ++q) dup |= q < K && kt[q] == t;
-        if (dup) continue;
-        int c = base + j;
-#pragma unroll
-        for (int q = 0; q < kMaxK; ++q) {
-          if (q < K && t < kt[q]) {
-            const float ft = kt[q];
-            const int fc = kc[q];
-            kt[q] = t; kc[q] = c;
-            t = ft; c = fc;
-          }
-        }
+        if (t >= kTMin) ptt::list_insert(t, base + j, kt, kc);
       }
     }
     __syncthreads();  // the group is read before the next one is staged

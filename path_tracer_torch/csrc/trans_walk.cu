@@ -24,61 +24,86 @@
 // live lanes of the tile were point lanes). The stacked lanes hold one
 // light per tile, so this per-lane rule gives the same result.
 //
-// Bound on the card: arithmetic, the Baldwin-Weber test of every column per
-// pass for each live lane (two passes for point lanes, one per step for
-// walking lanes). The per-lane body is trwalk_common.cuh's trans_lane,
-// which fused_shadow.cu shares. Design as alpha_walk.cu: 128 lanes per CTA, the table's
-// BW rows streamed through shared memory in 256-column chunks only while
-// some lane of the CTA needs them, attribute rows and texel codes read from
-// device memory, the LUT in shared memory. The product multiplies in
-// ascending column order where the Pallas kernel used a butterfly.
+// Bound on the card: arithmetic, the Baldwin-Weber test of the columns in
+// the 128-column groups each live lane's unbounded segment enters, once a
+// lane (bytes are the lanes' 64 bytes in and 12 out, and the table read
+// once); this design tests a point lane's columns twice. Design: trwalk_common.cuh's
+// resident walk, as alpha_walk.cu: a persistent CTA of 256 threads stages
+// the table, the group boxes and the LUT in shared memory once; each warp
+// takes units of 32 lanes on its own with no barrier. The per-lane body is
+// trwalk_common.cuh's trans_lane: a lane gates the groups with tr_grp (on
+// the widening alpha_walk.cu describes); a
+// point lane makes the cut pass and the product pass over the admitted
+// columns; a directional lane of a textured scene collects its K =
+// min(steps_cap, 8) nearest distinct candidates in one pass and steps
+// through them. The product multiplies in ascending column order where the
+// Pallas kernel used a butterfly. Row 15 (fused_shadow.cu) keeps the CTA
+// body trans_lane_cta, which the design this one replaced
+// (ptt_trans_walk_cta in ab_baselines.cu) also runs.
 //
 // Inputs:  o, d [R,3] f32; aux [8,R] f32: pd (-1 dead), is point (0/1),
 //          surface point xyz, original uv, original is sphere (0/1); the
-//          table (trwalk_common.cuh), its plane u8 codes (live 0) or f32
-//          values (live 1).
+//          table (trwalk_common.cuh) with its group boxes grp [7, gp], its
+//          plane u8 codes (live 0) or f32 values (live 1).
 // Output:  fout [3,R] f32: trans, t_prev, still walking (0/1).
 
 #include "trwalk_common.cuh"
 
 namespace {
 
-using ptt::kTrChunk;
-using ptt::kTrCta;
+using ptt::kResThreads;
 
 template <class Texel>
-__global__ void __launch_bounds__(kTrCta)
+__global__ void __launch_bounds__(kResThreads, 2)
 trans_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                  const float* __restrict__ aux, ptt::TrTable<Texel> tb, int R,
+                  const float* __restrict__ aux, ptt::TrTable<Texel> tb,
+                  const float* __restrict__ grp, int gp, int R,
                   int steps_cap, int textured, float* __restrict__ fout) {
-  __shared__ float s_bw[12 * kTrChunk];
-  __shared__ float s_lut[256];
-  ptt::stage_lut(tb.lut, s_lut);
+  extern __shared__ float4 smem4[];
+  const ptt::Resident rs =
+      ptt::stage_resident(tb, grp, gp, reinterpret_cast<float*>(smem4));
+  const int n_units = (R + 31) / 32, warps = kResThreads / 32;
+  for (int unit = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+       unit < n_units; unit += gridDim.x * warps) {
+    const int i = unit * 32 + (threadIdx.x & 31);
+    ptt::TrRay r{0.f, 0.f, 0.f, 1.f, 1.f, 1.f};
+    float pd = -1.f, spx = 0.f, spy = 0.f, spz = 0.f, ouvx = 0.f, ouvy = 0.f;
+    bool is_pt = false, osimple = false;
+    if (i < R) {
+      r = ptt::TrRay{o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                     d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+      pd = aux[i];
+      is_pt = aux[R + i] > 0.f;
+      spx = aux[2 * R + i]; spy = aux[3 * R + i]; spz = aux[4 * R + i];
+      ouvx = aux[5 * R + i]; ouvy = aux[6 * R + i];
+      osimple = aux[7 * R + i] > 0.f;
+    }
+    float trans = 1.f, t_prev = -1.f;
+    bool walking = false;
+    if (__any_sync(0xffffffffu, pd >= 0.f))
+      ptt::trans_lane(tb, rs, steps_cap, textured != 0, r, pd, is_pt, spx,
+                      spy, spz, ouvx, ouvy, osimple, trans, t_prev, walking);
+    if (i < R) {
+      fout[i] = trans;
+      fout[R + i] = t_prev;
+      fout[2 * R + i] = walking ? 1.f : 0.f;
+    }
+  }
+}
 
-  const int i = blockIdx.x * kTrCta + threadIdx.x;
-  const bool in_range = i < R;
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 1.f, dy = 1.f, dz = 1.f;
-  float pd = -1.f, spx = 0.f, spy = 0.f, spz = 0.f, ouvx = 0.f, ouvy = 0.f;
-  bool is_pt = false, osimple = false;
-  if (in_range) {
-    ox = o[3 * i]; oy = o[3 * i + 1]; oz = o[3 * i + 2];
-    dx = d[3 * i]; dy = d[3 * i + 1]; dz = d[3 * i + 2];
-    pd = aux[i];
-    is_pt = aux[R + i] > 0.f;
-    spx = aux[2 * R + i]; spy = aux[3 * R + i]; spz = aux[4 * R + i];
-    ouvx = aux[5 * R + i]; ouvy = aux[6 * R + i];
-    osimple = aux[7 * R + i] > 0.f;
-  }
-  float trans, t_prev;
-  bool walking;
-  ptt::trans_lane(tb, s_bw, s_lut, steps_cap, textured != 0, ox, oy, oz, dx,
-                  dy, dz, pd, is_pt, spx, spy, spz, ouvx, ouvy, osimple,
-                  trans, t_prev, walking);
-  if (in_range) {
-    fout[i] = trans;
-    fout[R + i] = t_prev;
-    fout[2 * R + i] = walking ? 1.f : 0.f;
-  }
+template <class Texel>
+cudaError_t launch(const float* o, const float* d, const float* aux,
+                   const ptt::TrTable<Texel>& tb, const float* grp, int gp,
+                   int R, int steps_cap, int textured, float* fout,
+                   int device, cudaStream_t stream) {
+  size_t smem;
+  int blocks;
+  const cudaError_t err = ptt::resident_launch_shape(
+      trans_walk_kernel<Texel>, tb.T, R, device, smem, blocks);
+  if (err != cudaSuccess) return err;
+  trans_walk_kernel<Texel><<<blocks, kResThreads, smem, stream>>>(
+      o, d, aux, tb, grp, gp, R, steps_cap, textured, fout);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -87,23 +112,24 @@ trans_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
 extern "C" int ptt_trans_walk(const float* o, const float* d, const float* aux,
                               const float* bw, const float* rows,
                               const void* tex, const float* lut,
-                              const int* pages, int R, int T, int wp,
-                              int steps_cap, int textured, int live,
-                              float* fout, int device, cudaStream_t stream) {
+                              const int* pages, const float* grp, int R,
+                              int T, int gp, int wp, int steps_cap,
+                              int textured, int live, float* fout,
+                              int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0) return 0;
-  const dim3 grid((R + kTrCta - 1) / kTrCta);
+  if (!ptt::resident_table_ok(T, gp)) return (int)cudaErrorInvalidValue;
   if (live) {
     const ptt::TrTable<float> tb{bw, rows, static_cast<const float*>(tex),
                                  lut, pages, T, wp};
-    trans_walk_kernel<float><<<grid, kTrCta, 0, stream>>>(
-        o, d, aux, tb, R, steps_cap, textured, fout);
+    err = launch(o, d, aux, tb, grp, gp, R, steps_cap, textured, fout,
+                 device, stream);
   } else {
     const ptt::TrTable<unsigned char> tb{
         bw, rows, static_cast<const unsigned char*>(tex), lut, pages, T, wp};
-    trans_walk_kernel<unsigned char><<<grid, kTrCta, 0, stream>>>(
-        o, d, aux, tb, R, steps_cap, textured, fout);
+    err = launch(o, d, aux, tb, grp, gp, R, steps_cap, textured, fout,
+                 device, stream);
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }

@@ -1,6 +1,17 @@
-// Device helpers shared by the two transparent-walk kernels (alpha_walk.cu,
-// trans_walk.cu): the staged column chunks of the compact transparent
-// table, the candidate test and the opacity texel fetch.
+// Device helpers shared by the transparent-walk kernels: the compact
+// transparent table, the candidate test and the opacity texel fetch, and
+// two walks over the table.
+//
+// - The resident walk (alpha_walk.cu, trans_walk.cu): each CTA stages the
+//   table's 12 used Baldwin-Weber rows, the 128-column groups' boxes and
+//   the LUT in shared memory once, and every lane then walks on its own,
+//   with no barrier: one pass over the groups its segment enters collects
+//   its nearest candidates, sorted in registers, and the steps consume
+//   that list.
+// - The CTA walk (fused_shadow.cu's trans_lane_cta, and the designs rows
+//   13 and 14 replaced, in ab_baselines.cu): a CTA of 128 lanes streams
+//   the table through shared memory in 256-column chunks behind CTA
+//   barriers, once per step while any of its lanes still walks.
 //
 // Every helper is a template on the page plane's texel type: unsigned char
 // codes through the LUT (forward rendering, the JAX package's live=False),
@@ -16,7 +27,11 @@
 // built -fmad=false, so each operation rounds as it does there.
 #pragma once
 
+#include <mutex>
+#include <vector>
+
 #include "flat_common.cuh"
+#include "klist.cuh"
 
 namespace ptt {
 
@@ -146,17 +161,18 @@ __device__ __forceinline__ void stage_lut(const float* lut, float* s_lut) {
   __syncthreads();
 }
 
-// Shared memory (floats) of trans_lane: the staged chunk s_bw [12][kTrChunk]
-// and the LUT s_lut [256] beside it.
+// Shared memory (floats) of trans_lane_cta: the staged chunk s_bw
+// [12][kTrChunk] and the LUT s_lut [256] beside it.
 constexpr int kTransSmemFloats = 12 * kTrChunk + 256;
 
-// The per-lane body of the transmittance walk (trans_walk.cu;
-// fused_shadow.cu runs it after the any-hit): trans, t_prev and whether the
-// lane would walk on past steps_cap (contract in trans_walk.cu). A lane is
-// dead when pd < 0. s_bw holds 12 * kTrChunk floats; s_lut the LUT, staged
-// by the caller. Every thread of the CTA must call it.
+// The per-lane body of the CTA transmittance walk (fused_shadow.cu runs it
+// after the any-hit; ab_baselines.cu's ptt_trans_walk_cta alone): trans,
+// t_prev and whether the lane would walk on past steps_cap (contract in
+// trans_walk.cu). A lane is dead when pd < 0. s_bw holds 12 * kTrChunk
+// floats; s_lut the LUT, staged by the caller. Every thread of the CTA must
+// call it.
 template <class Texel>
-__device__ __forceinline__ void trans_lane(
+__device__ __forceinline__ void trans_lane_cta(
     const TrTable<Texel>& tb, float* s_bw, const float* s_lut, int steps_cap,
     bool textured, float ox, float oy, float oz, float dx, float dy, float dz,
     float pd, bool is_pt, float spx, float spy, float spz, float ouvx,
@@ -238,6 +254,335 @@ __device__ __forceinline__ void trans_lane(
                    col, u, v, dn);
     walking = walking && col >= 0;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The resident walk
+// ---------------------------------------------------------------------------
+
+constexpr int kResThreads = 256;   // threads per CTA: 8 warps
+constexpr int kRec = 12;           // floats per column record in shared memory
+constexpr int kGroup = 128;        // columns per gate group
+constexpr int kGrpRec = 8;         // floats per group record
+constexpr int kMaxColumns = 4096;  // 32 groups: one bit each of a lane's mask
+constexpr int kMaxList = 8;        // the sorted list's length at most
+
+// Each group's box is widened on every side by ext * 2^-12 + mag * 2^-16
+// (ext its largest side, mag its largest coordinate magnitude) as it is
+// staged: the box holds its triangles' vertices exactly, but a candidate's
+// rounded t and barycentrics can place a grazing hit (a ray through a card's
+// vertex or edge that lies on the box) a few ulps outside the slab interval
+// the rounded slab test computes. The widening only admits more groups;
+// every admitted group is tested column by column, so it changes no result.
+// ops/trwalk.py pad_groups is the same expression. The box pad does not
+// grow with the ray origin's distance from the box, and the rounding of a
+// candidate's t does (about 2^-24 of |o| over the ray's cosine to the card):
+// so each lane's slab interval is widened too, tn - |tn| * 2^-16 and
+// tf + |tf| * 2^-16, which keeps a far camera's grazing candidates
+// (ops/trwalk.py resident_gate; tests/test_torch_walk_gate.py holds both
+// widenings on rays from 10^2 to 10^3 group extents away).
+constexpr float kPadExt = 0x1p-12f;
+constexpr float kPadMag = 0x1p-16f;
+constexpr float kPadT = 0x1p-16f;
+
+// Bytes of shared memory the resident table of T columns takes.
+__host__ __device__ constexpr size_t resident_smem(int T) {
+  return (size_t)(T * kRec + (T / kGroup) * kGrpRec + 256) * sizeof(float);
+}
+
+// The table staged in shared memory: bw [T][kRec] (each column's 12 used
+// Baldwin-Weber rows as one 48-byte record), grp [G][kGrpRec] (the padded
+// box min.xyz, max.xyz, the valid flag, 0) and the LUT [256].
+struct Resident {
+  const float* bw;
+  const float* grp;
+  const float* lut;
+  int G;
+};
+
+// Stages the table (tr_grp [7, gp]: min.xyz, max.xyz, valid) in smem and
+// waits for the CTA: the kernel's only barrier.
+template <class Texel>
+__device__ __forceinline__ Resident stage_resident(const TrTable<Texel>& tb,
+                                                   const float* grp, int gp,
+                                                   float* smem) {
+  const int T = tb.T, G = T / kGroup;
+  float* s_bw = smem;
+  float* s_grp = s_bw + T * kRec;
+  float* s_lut = s_grp + G * kGrpRec;
+  for (int idx = threadIdx.x; idx < kRec * T; idx += blockDim.x) {
+    const int r = idx / T, c = idx - r * T;
+    s_bw[c * kRec + r] = tb.bw[idx];
+  }
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    const float x0 = grp[g], y0 = grp[gp + g], z0 = grp[2 * gp + g];
+    const float x1 = grp[3 * gp + g], y1 = grp[4 * gp + g],
+                z1 = grp[5 * gp + g];
+    const float ext = fmaxf(fmaxf(x1 - x0, y1 - y0), z1 - z0);
+    const float mag = fmaxf(fmaxf(fmaxf(fabsf(x0), fabsf(x1)),
+                                  fmaxf(fabsf(y0), fabsf(y1))),
+                            fmaxf(fabsf(z0), fabsf(z1)));
+    const float pad = ext * kPadExt + mag * kPadMag;
+    float* b = s_grp + g * kGrpRec;
+    b[0] = x0 - pad; b[1] = y0 - pad; b[2] = z0 - pad;
+    b[3] = x1 + pad; b[4] = y1 + pad; b[5] = z1 + pad;
+    b[6] = grp[6 * gp + g];
+    b[7] = 0.f;
+  }
+  for (int k = threadIdx.x; k < 256; k += blockDim.x) s_lut[k] = tb.lut[k];
+  __syncthreads();
+  return Resident{s_bw, s_grp, s_lut, G};
+}
+
+struct TrRay {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+// Bit g set when the lane's segment [0, t_hi] enters group g's (padded)
+// box: pallas_trwalk._slab_groups per lane, with the guarded reciprocals,
+// the slab interval widened by kPadT.
+__device__ __forceinline__ unsigned group_mask(const Resident& rs,
+                                               const TrRay& r, float t_hi) {
+  const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
+  unsigned m = 0u;
+  for (int g = 0; g < rs.G; ++g) {
+    const float4 a = reinterpret_cast<const float4*>(rs.grp + g * kGrpRec)[0];
+    const float4 b = reinterpret_cast<const float4*>(rs.grp + g * kGrpRec)[1];
+    float tn, tf;
+    slab(Box{a.x, a.y, a.z, a.w, b.x, b.y}, r.ox, r.oy, r.oz, ix, iy, iz, tn,
+         tf);
+    tn = tn - fabsf(tn) * kPadT;
+    tf = tf + fabsf(tf) * kPadT;
+    if (tf >= max_nan(tn, 0.f) && tn <= t_hi && t_hi >= 0.f && b.z > 0.f)
+      m |= 1u << g;
+  }
+  return m;
+}
+
+// tr_candidate on a column record of the resident table: the same
+// bw_plane and bw_inside on the record's 12 values.
+__device__ __forceinline__ bool res_candidate(const float* rec,
+                                              const TrRay& r, float t_hi,
+                                              float& t, float& u, float& v,
+                                              float& dn) {
+  const float4 a = reinterpret_cast<const float4*>(rec)[0];
+  const float4 b = reinterpret_cast<const float4*>(rec)[1];
+  const float4 c = reinterpret_cast<const float4*>(rec)[2];
+  const float s[kRec] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                         b.z, b.w, c.x, c.y, c.z, c.w};
+  bool ok;
+  t = bw_plane(s, 1, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, dn, ok);
+  if (!ok || !(t >= kTMin) || !(t < t_hi)) return false;
+  return bw_inside(s, 1, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, t, u, v);
+}
+
+// Calls visit(col, t, u, v, dn) for every candidate (t < t_hi) in the
+// groups of gmask, in ascending column order.
+template <class Visit>
+__device__ __forceinline__ void for_each_candidate(const Resident& rs,
+                                                   const TrRay& r,
+                                                   unsigned gmask, float t_hi,
+                                                   Visit visit) {
+  for (int g = 0; g < rs.G; ++g) {
+    if (!((gmask >> g) & 1u)) continue;
+    const float* rec = rs.bw + g * kGroup * kRec;
+    for (int j = 0; j < kGroup; ++j, rec += kRec) {
+      float t, u, v, dn;
+      if (res_candidate(rec, r, t_hi, t, u, v, dn))
+        visit(g * kGroup + j, t, u, v, dn);
+    }
+  }
+}
+
+// The lane's K (<= kMaxList) smallest DISTINCT candidate t with
+// t_lo < t < t_hi, ascending in kt, each with the lowest column that
+// reaches it in kc (klist.cuh, over ascending groups and columns). Returns
+// how many were found.
+__device__ __forceinline__ int collect(const Resident& rs, const TrRay& r,
+                                       unsigned gmask, float t_hi,
+                                       float t_lo, int K,
+                                       float (&kt)[kMaxList],
+                                       int (&kc)[kMaxList]) {
+  list_clear(K, kt, kc, -1);
+  for_each_candidate(rs, r, gmask, t_hi,
+                     [&](int col, float t, float, float, float) {
+    if (t > t_lo) list_insert(t, col, kt, kc);
+  });
+  return list_size(kt);
+}
+
+// The lane's walk in ascending t from t_prev (the plain versions' strict
+// t > t_prev advance, ties to the lowest column), at most steps_cap steps
+// while 'walking': one pass collects the K = min(steps_cap, kMaxList)
+// nearest candidates; a lane that uses them all and walks on refills the
+// list by another pass from its last t. Each step recomputes the column's
+// u, v and d.n (the same expression, so the same values) and calls
+// step(k, t, col, u, v, dn), which returns whether the lane walks on; then
+// t_prev = t while it does. A lane with no candidate stops walking, so at
+// steps_cap 0 'walking' ends true only where a candidate exists.
+template <class Step>
+__device__ __forceinline__ void list_walk(const Resident& rs, const TrRay& r,
+                                          unsigned gmask, float t_hi,
+                                          int steps_cap, bool& walking,
+                                          float& t_prev, Step step) {
+  const int K = max(1, min(steps_cap, kMaxList));
+  float kt[kMaxList];
+  int kc[kMaxList];
+  int n = 0, pos = 0;
+  if (walking) {
+    n = collect(rs, r, gmask, t_hi, t_prev, K, kt, kc);
+    walking = n > 0;
+  }
+  for (int k = 0; k < steps_cap && walking; ++k) {
+    if (pos == n) {
+      if (n < K) {  // the list held every candidate left
+        walking = false;
+        break;
+      }
+      n = collect(rs, r, gmask, t_hi, t_prev, K, kt, kc);
+      pos = 0;
+      if (n == 0) {
+        walking = false;
+        break;
+      }
+    }
+    float t = CUDART_INF_F;
+    int col = -1;
+#pragma unroll
+    for (int q = 0; q < kMaxList; ++q) {
+      if (q == pos) {
+        t = kt[q];
+        col = kc[q];
+      }
+    }
+    ++pos;
+    float tc, u, v, dn;
+    res_candidate(rs.bw + col * kRec, r, t_hi, tc, u, v, dn);
+    walking = step(k, t, col, u, v, dn);
+    if (walking) t_prev = t;
+  }
+}
+
+// The per-lane body of the resident transmittance walk (trans_walk.cu):
+// as trans_lane_cta, over the groups the lane's unbounded segment enters.
+// Point lanes (and every live lane of a factor-only scene) make the cut
+// pass and the product pass in ascending column order, equal-t duplicates
+// included; directional lanes of a textured scene walk the sorted list.
+template <class Texel>
+__device__ __forceinline__ void trans_lane(
+    const TrTable<Texel>& tb, const Resident& rs, int steps_cap,
+    bool textured, const TrRay& r, float pd, bool is_pt, float spx,
+    float spy, float spz, float ouvx, float ouvy, bool osimple, float& trans,
+    float& t_prev, bool& walking) {
+  const bool live = pd >= 0.f;
+  const bool loop = live && textured && !is_pt;
+  const bool dense = live && !loop;
+  const float inf = CUDART_INF_F;
+  trans = 1.f;
+  t_prev = -1.f;
+  const unsigned gmask = live ? group_mask(rs, r, inf) : 0u;
+  if (dense) {
+    // Pass 1 (point lanes): the first candidate behind the light.
+    float cut = inf;
+    if (is_pt) {
+      for_each_candidate(rs, r, gmask, inf,
+                         [&](int, float t, float, float, float) {
+        const float ocx = r.ox + t * r.dx - spx;
+        const float ocy = r.oy + t * r.dy - spy;
+        const float ocz = r.oz + t * r.dz - spz;
+        const float occ = sqrtf(ocx * ocx + ocy * ocy + ocz * ocz);
+        if (occ > pd) cut = fminf(cut, t);
+      });
+    }
+    // Pass 2: the product over the candidates in front of the cut.
+    for_each_candidate(rs, r, gmask, inf,
+                       [&](int col, float t, float, float, float) {
+      if (!(t < cut)) return;
+      const float fac = tb.rows[6 * tb.T + col];
+      float op = fac;
+      if (textured && !osimple && tb.rows[7 * tb.T + col] > 0.f)
+        op = page_texel(tb, rs.lut, ouvx, ouvy,
+                        (int)tb.rows[8 * tb.T + col]) * fac;
+      trans = trans * (1.f - op);
+    });
+  }
+  walking = loop;
+  list_walk(rs, r, gmask, inf, steps_cap, walking, t_prev,
+            [&](int, float, int col, float u, float v, float) {
+    const float fac = tb.rows[6 * tb.T + col];
+    float uvx, uvy;
+    column_uv(tb, col, u, v, uvx, uvy);
+    const float tex =
+        page_texel(tb, rs.lut, uvx, uvy, (int)tb.rows[8 * tb.T + col]);
+    const float op = tb.rows[7 * tb.T + col] <= 0.f ? fac : tex * fac;
+    trans = trans * (1.f - op);
+    return trans != 0.f;
+  });
+}
+
+// The host queries behind a resident-walk kernel's launch shape, made once
+// per (kernel, device, shared memory size): the render launches each walk
+// kernel hundreds of times a sample, and the answers change with none of
+// the launch's other arguments. The first table past 48 KB raises the
+// (kernel, device)'s dynamic shared memory limit to the largest table's,
+// so every later size fits.
+struct ResidentShape {
+  const void* kernel;
+  int device;
+  size_t smem;
+  int sms, per_sm;
+};
+
+// Launch shape of a resident-walk kernel over R lanes: its shared memory,
+// and a persistent grid of as many CTAs as fit on the card, never more
+// than the lanes fill.
+template <class Kernel>
+inline cudaError_t resident_launch_shape(Kernel kernel, int T, int R,
+                                         int device, size_t& smem,
+                                         int& blocks) {
+  static std::mutex mu;
+  static std::vector<ResidentShape> known;
+  smem = resident_smem(T);
+  const void* key = reinterpret_cast<const void*>(kernel);
+  ResidentShape shape{key, device, smem, 0, 0};
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    bool raised = false, found = false;
+    for (const ResidentShape& k : known) {
+      if (k.kernel != key || k.device != device) continue;
+      raised |= k.smem > 48 * 1024;
+      if (k.smem == smem) {
+        shape = k;
+        found = true;
+        break;
+      }
+    }
+    if (!found) {
+      cudaError_t err = cudaSuccess;
+      if (smem > 48 * 1024 && !raised)
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)resident_smem(kMaxColumns));
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&shape.sms,
+                                     cudaDevAttrMultiProcessorCount, device);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &shape.per_sm, kernel, kResThreads, smem);
+      if (err != cudaSuccess) return err;
+      known.push_back(shape);
+    }
+  }
+  const int warps = kResThreads / 32;
+  const int work = ((R + 31) / 32 + warps - 1) / warps;
+  blocks = min(work, max(shape.per_sm, 1) * shape.sms);
+  return cudaSuccess;
+}
+
+// The tables a resident walk takes: whole 128-column groups, at most
+// kMaxColumns, and a group table that covers them.
+inline bool resident_table_ok(int T, int gp) {
+  return T > 0 && T % kGroup == 0 && T <= kMaxColumns && gp * kGroup >= T;
 }
 
 }  // namespace ptt

@@ -197,14 +197,13 @@ def kernels() -> Kernels:
                                                                   ci, vp]
         # (o, d, t_max, blkflat, blkid, bw, R, L, bpad, block, n_cols, out,
         #  device, stream)
-        for fn in (lib.ptt_flat_occluded, lib.ptt_flat_occluded_cta):
-            fn.restype = ci
-            fn.argtypes = [vp] * 6 + [ci] * 5 + [vp, ci, vp]
+        lib.ptt_flat_occluded.restype = ci
+        lib.ptt_flat_occluded.argtypes = [vp] * 6 + [ci] * 5 + [vp, ci, vp]
         # (o, d, t_prev, sbflat, sbid, blkflat, blkid, bw, R, sbpad, bpad,
         #  block, n_cols, fout, iout, device, stream)
-        for fn in (lib.ptt_flat2_closest_hit, lib.ptt_flat2_closest_hit_cta):
-            fn.restype = ci
-            fn.argtypes = [vp] * 8 + [ci] * 5 + [vp, vp, ci, vp]
+        lib.ptt_flat2_closest_hit.restype = ci
+        lib.ptt_flat2_closest_hit.argtypes = [vp] * 8 + [ci] * 5 + [vp, vp,
+                                                                   ci, vp]
         # (o, d, t_max, sbflat, sbid, blkflat, blkid, bw, R, L, sbpad, bpad,
         #  block, n_cols, out, device, stream)
         lib.ptt_flat2_occluded.restype = ci
@@ -213,14 +212,17 @@ def kernels() -> Kernels:
         #  device, stream)
         lib.ptt_sph_walk.restype = ci
         lib.ptt_sph_walk.argtypes = [vp] * 6 + [ci] * 3 + [vp, vp, ci, vp]
-        # (o, d, t_op, rnd, bw, rows, tex, lut, pages, R, T, wp, steps_cap,
-        #  textured, live, fout, iout, device, stream)
-        lib.ptt_alpha_walk.restype = ci
-        lib.ptt_alpha_walk.argtypes = [vp] * 9 + [ci] * 6 + [vp, vp, ci, vp]
-        # (o, d, aux, bw, rows, tex, lut, pages, R, T, wp, steps_cap,
-        #  textured, live, fout, device, stream)
-        lib.ptt_trans_walk.restype = ci
-        lib.ptt_trans_walk.argtypes = [vp] * 8 + [ci] * 6 + [vp, ci, vp]
+        # (o, d, t_op, rnd, bw, rows, tex, lut, pages, grp, R, T, gp, wp,
+        #  steps_cap, textured, live, fout, iout, device, stream); the
+        #  replaced design (ab_baselines.cu) takes the same
+        for fn in (lib.ptt_alpha_walk, lib.ptt_alpha_walk_cta):
+            fn.restype = ci
+            fn.argtypes = [vp] * 10 + [ci] * 7 + [vp, vp, ci, vp]
+        # (o, d, aux, bw, rows, tex, lut, pages, grp, R, T, gp, wp,
+        #  steps_cap, textured, live, fout, device, stream)
+        for fn in (lib.ptt_trans_walk, lib.ptt_trans_walk_cta):
+            fn.restype = ci
+            fn.argtypes = [vp] * 9 + [ci] * 7 + [vp, ci, vp]
         # (o, d, t_max, sph, R, L, S, ld, out, device, stream)
         lib.ptt_sph_occluded.restype = ci
         lib.ptt_sph_occluded.argtypes = [vp] * 4 + [ci] * 4 + [vp, ci, vp]
@@ -368,21 +370,14 @@ def launch_flat_occluded(o, ds, t_maxes, blkflat, blkid, bw, block: int):
     o: [R,3] f32; ds: [L,R,3] f32; t_maxes: [L,R] f32 (< 0 = dead lane);
     tables as for ``launch_flat_closest_hit``. Returns out [L,R] f32
     (1 = occluded or dead)."""
-    return _launch_flat_occluded("ptt_flat_occluded", o, ds, t_maxes,
-                                 blkflat, blkid, bw, block)
-
-
-def _launch_flat_occluded(fn: str, o, ds, t_maxes, blkflat, blkid, bw,
-                          block: int):
-    """``launch_flat_occluded`` through the exported symbol ``fn``, which
-    ``ops/ab_baselines.py`` alone sets to the design the kernel replaced."""
+    fn = "ptt_flat_occluded"
     device = o.device
     r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
     bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
     lib = kernels().lib
     out = torch.empty((n_sets, r), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, fn)(
+    err = lib.ptt_flat_occluded(
         o.data_ptr(), ds.data_ptr(), t_maxes.data_ptr(), blkflat.data_ptr(),
         blkid.data_ptr(), bw.data_ptr(), r, n_sets, bpad, block, n_cols,
         out.data_ptr(), device.index, stream)
@@ -411,15 +406,7 @@ def launch_flat2_closest_hit(o, d, t_prev, sbflat, sbid, blkflat, blkid, bw,
     i32 (superblock g covers block columns [128g, 128g + 128)); blkflat,
     blkid, bw as for ``launch_flat_closest_hit``. Returns (fout [4, R] f32,
     iout [R] i32)."""
-    return _launch_flat2_closest_hit("ptt_flat2_closest_hit", o, d, t_prev,
-                                     sbflat, sbid, blkflat, blkid, bw, block)
-
-
-def _launch_flat2_closest_hit(fn: str, o, d, t_prev, sbflat, sbid, blkflat,
-                              blkid, bw, block: int):
-    """``launch_flat2_closest_hit`` through the exported symbol ``fn``,
-    which ``ops/ab_baselines.py`` alone sets to the design the kernel
-    replaced."""
+    fn = "ptt_flat2_closest_hit"
     device = o.device
     if device.type != "cuda":
         raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
@@ -435,7 +422,7 @@ def _launch_flat2_closest_hit(fn: str, o, d, t_prev, sbflat, sbid, blkflat,
     fout = torch.empty((4, r), dtype=torch.float32, device=device)
     iout = torch.empty((r,), dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, fn)(
+    err = lib.ptt_flat2_closest_hit(
         o.data_ptr(), d.data_ptr(), t_prev.data_ptr(), sbflat.data_ptr(),
         sbid.data_ptr(), blkflat.data_ptr(), blkid.data_ptr(), bw.data_ptr(),
         r, sbpad, bpad, block, n_cols, fout.data_ptr(), iout.data_ptr(),
@@ -534,15 +521,34 @@ def _check_tr_tables(fn: str, scene, device, live=None):
     return n_cols, wp, rows, tex
 
 
+def _check_resident(fn: str, scene, n_cols: int, device) -> int:
+    """The group boxes ``tr_grp`` [7, GP] the resident walks read, and their
+    limit: at most 4,096 columns (the table in shared memory, one bit per
+    128-column group of a lane's mask). Returns GP."""
+    gp = scene.tr_grp.shape[1] if scene.tr_grp.dim() == 2 else -1
+    _check("tr_grp", scene.tr_grp, (7, gp), torch.float32, device)
+    if n_cols > 4096 or 128 * gp < n_cols:
+        raise ValueError(f"{fn}: a table of {n_cols} columns and {gp} group "
+                         "boxes exceeds the resident walk (4,096 columns)")
+    return gp
+
+
 def launch_alpha_walk(o, d, t_op, rnd, scene, steps_cap: int, live=None):
     """Check the operands of the alpha walk kernel, allocate its outputs
     and launch it on the current stream (no synchronisation).
 
     o, d: [R,3] f32; t_op: [R] f32 (< 0 dead); rnd: [steps_cap, R] f32;
-    the scene's tr_* tables, or with ``live`` (``trwalk.LiveTables``) the
-    live variant on its rows and f32 plane. Returns (fout [8,R] f32, iout
-    [R] i32)."""
-    fn = "ptt_alpha_walk"
+    the scene's tr_* tables and ``tr_grp``, or with ``live``
+    (``trwalk.LiveTables``) the live variant on its rows and f32 plane.
+    Returns (fout [8,R] f32, iout [R] i32)."""
+    return _launch_alpha_walk("ptt_alpha_walk", o, d, t_op, rnd, scene,
+                              steps_cap, live)
+
+
+def _launch_alpha_walk(fn: str, o, d, t_op, rnd, scene, steps_cap: int,
+                       live=None):
+    """``launch_alpha_walk`` through the exported symbol ``fn``, which
+    ``ops/ab_baselines.py`` alone sets to the design the kernel replaced."""
     device = o.device
     if device.type != "cuda":
         raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
@@ -552,18 +558,20 @@ def launch_alpha_walk(o, d, t_op, rnd, scene, steps_cap: int, live=None):
     _check("t_op", t_op, (r,), torch.float32, device)
     _check("rnd", rnd, (steps_cap, r), torch.float32, device)
     n_cols, wp, rows, tex = _check_tr_tables(fn, scene, device, live)
+    gp = _check_resident(fn, scene, n_cols, device)
     if steps_cap < 0 or 8 * r >= 2**31 or steps_cap * r >= 2**31:
         raise ValueError(f"{fn}: {r} rays x {steps_cap} steps out of range")
     lib = kernels().lib
     fout = torch.empty((8, r), dtype=torch.float32, device=device)
     iout = torch.empty((r,), dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.ptt_alpha_walk(
+    err = getattr(lib, fn)(
         o.data_ptr(), d.data_ptr(), t_op.data_ptr(), rnd.data_ptr(),
         scene.tr_bw.data_ptr(), rows.data_ptr(), tex.data_ptr(),
-        scene.tr_lut.data_ptr(), scene.tr_page_table.data_ptr(), r, n_cols,
-        wp, steps_cap, int(scene.tr_textured), int(live is not None),
-        fout.data_ptr(), iout.data_ptr(), device.index, stream)
+        scene.tr_lut.data_ptr(), scene.tr_page_table.data_ptr(),
+        scene.tr_grp.data_ptr(), r, n_cols, gp, wp, steps_cap,
+        int(scene.tr_textured), int(live is not None), fout.data_ptr(),
+        iout.data_ptr(), device.index, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return fout, iout
@@ -577,7 +585,14 @@ def launch_trans_walk(o, d, aux, scene, steps_cap: int, live=None):
     uv, original is sphere); the scene's tr_* tables, or ``live`` as for
     ``launch_alpha_walk``. Returns fout [3,R] f32 (trans, t_prev, still
     walking)."""
-    fn = "ptt_trans_walk"
+    return _launch_trans_walk("ptt_trans_walk", o, d, aux, scene, steps_cap,
+                              live)
+
+
+def _launch_trans_walk(fn: str, o, d, aux, scene, steps_cap: int,
+                       live=None):
+    """``launch_trans_walk`` through the exported symbol ``fn``, which
+    ``ops/ab_baselines.py`` alone sets to the design the kernel replaced."""
     device = o.device
     if device.type != "cuda":
         raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
@@ -586,17 +601,18 @@ def launch_trans_walk(o, d, aux, scene, steps_cap: int, live=None):
     _check("d", d, (r, 3), torch.float32, device)
     _check("aux", aux, (8, r), torch.float32, device)
     n_cols, wp, rows, tex = _check_tr_tables(fn, scene, device, live)
+    gp = _check_resident(fn, scene, n_cols, device)
     if steps_cap < 0 or 8 * r >= 2**31:
         raise ValueError(f"{fn}: {r} rays out of range")
     lib = kernels().lib
     fout = torch.empty((3, r), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.ptt_trans_walk(
+    err = getattr(lib, fn)(
         o.data_ptr(), d.data_ptr(), aux.data_ptr(), scene.tr_bw.data_ptr(),
         rows.data_ptr(), tex.data_ptr(), scene.tr_lut.data_ptr(),
-        scene.tr_page_table.data_ptr(), r, n_cols, wp, steps_cap,
-        int(scene.tr_textured), int(live is not None), fout.data_ptr(),
-        device.index, stream)
+        scene.tr_page_table.data_ptr(), scene.tr_grp.data_ptr(), r, n_cols,
+        gp, wp, steps_cap, int(scene.tr_textured), int(live is not None),
+        fout.data_ptr(), device.index, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return fout

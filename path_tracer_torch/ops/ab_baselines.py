@@ -1,41 +1,42 @@
-"""The designs the flat any-hit and the flat2 closest hit replaced, launched
+"""The designs the alpha walk and the transmittance walk replaced, launched
 through their own symbols (``csrc/ab_baselines.cu``), only to be timed
-against the current kernels in turns on one card and to show where the two
-designs' results part.
+against the current kernels in turns on one card and to show that the two
+designs agree.
 
-Nothing on the main path reaches this module: ``chip_smoke.py``'s phase 3j
+Nothing on the main path reaches this module: ``chip_smoke.py``'s phase 3k
 and two card tests in ``tests/test_torch_cuda.py`` call it. The functions
-take CUDA tensors only, count no launches and map their outputs exactly as
-``cuda_bvh.occluded_triangles_flat_multi`` and
-``cuda_bvh.closest_hit_triangles_flat2`` do.
+take CUDA tensors only, count no launches and take and map their operands
+exactly as ``cuda_trwalk.alpha_walk`` and ``cuda_trwalk.trans_walk`` do,
+so either can stand in for its kernel's wrapper.
 """
 from __future__ import annotations
 
-import torch
-
 from path_tracer_torch import native
-from path_tracer_torch.ops.cuda_bvh import _record
-from path_tracer_torch.ops.intersect import KIND_NONE, KIND_TRIANGLE, HitRecord
+from path_tracer_torch.ops.cuda_trwalk import trans_aux
+from path_tracer_torch.ops.intersect import _detach_for_kernel
+from path_tracer_torch.ops.trwalk import AlphaWalk, TransWalk
 
 
-def flat_occluded_cta_multi(o, ds, t_maxes, scene) -> torch.Tensor:
-    """The flat any-hit through the CTA walk (one walk per 128 rays of a
-    set, blocks staged behind CTA barriers): [L,R] bool."""
-    out = native._launch_flat_occluded(
-        "ptt_flat_occluded_cta", o.contiguous(),
-        torch.stack(list(ds)).contiguous(),
-        torch.stack(list(t_maxes)).contiguous(), scene.sl_blkflat,
-        scene.sl_blkid, scene.sl_bw_t, scene.sl_block)
-    return out > 0.0
+@_detach_for_kernel
+def alpha_walk_cta(scene, o, d, t_op, rnd, steps_cap: int,
+                   live=None) -> AlphaWalk:
+    """The alpha walk through the CTA walk (128 lanes share each step, the
+    table streamed through shared memory in 256-column chunks)."""
+    fout, col = native._launch_alpha_walk(
+        "ptt_alpha_walk_cta", o.contiguous(), d.contiguous(),
+        t_op.contiguous(), rnd.narrow(0, 0, steps_cap).contiguous(), scene,
+        steps_cap, live)
+    return AlphaWalk(fout[0], fout[1], fout[2], fout[3], fout[4] > 0.0,
+                     fout[5] > 0.0, fout[6] > 0.0, fout[7], col)
 
 
-def flat2_closest_hit_cta(o, d, t_prev, scene) -> HitRecord:
-    """The flat2 closest hit through the CTA walk (superblocks and blocks
-    nearest first, cut at the lanes' best t)."""
-    fout, slot = native._launch_flat2_closest_hit(
-        "ptt_flat2_closest_hit_cta", o, d, t_prev, scene.sl_sbflat,
-        scene.sl_sbid, scene.sl_blkflat, scene.sl_blkid, scene.sl_bw_t,
-        scene.sl_block)
-    t = fout[0]
-    kind = torch.where(torch.isfinite(t), KIND_TRIANGLE, KIND_NONE)
-    return _record(t, fout[1], fout[2], fout[3] != 0.0, slot, kind, scene)
+@_detach_for_kernel
+def trans_walk_cta(scene, o, d, pd, is_pt, surf_pos, orig_uv, orig_simple,
+                   walking0, steps_cap: int, live=None) -> TransWalk:
+    """The transmittance walk through the CTA walk (``trans_lane_cta``,
+    the body row 15 keeps)."""
+    fout = native._launch_trans_walk(
+        "ptt_trans_walk_cta", o.contiguous(), d.contiguous(),
+        trans_aux(pd, is_pt, surf_pos, orig_uv, orig_simple, walking0),
+        scene, steps_cap, live)
+    return TransWalk(fout[0], fout[1], fout[2] > 0.0)

@@ -12,8 +12,9 @@ render): given ``live`` (``trwalk.LiveTables``) the kernel reads its rows
 and its f32 page plane, values read directly, where the forward variant
 reads ``tr_rows`` and the u8 plane through the LUT; it is counted apart.
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-plain version. Bound on the card: the Baldwin-Weber test of every table
-column per walk step; see the sources for the design.
+plain version. Bound on the card: the Baldwin-Weber test of the columns in
+the 128-column groups (``tr_grp``) each live lane's segment enters, once
+per lane (twice for point lanes); see the sources for the design.
 """
 from __future__ import annotations
 
@@ -66,13 +67,21 @@ def trans_walk(scene, o, d, pd, is_pt, surf_pos, orig_uv, orig_simple,
     if o.device.type == "cpu":
         return trans_walk_plain(scene, o, d, pd, is_pt, surf_pos, orig_uv,
                                 orig_simple, walking0, steps_cap, live)
-    row = lambda x: x.to(torch.float32).unsqueeze(0)
-    aux = torch.cat([row(torch.where(walking0, pd, -1.0)), row(is_pt),
-                     surf_pos.T, orig_uv.T, row(orig_simple)]).contiguous()
-    fout = native.launch_trans_walk(o.contiguous(), d.contiguous(), aux,
-                                    scene, steps_cap, live)
+    fout = native.launch_trans_walk(
+        o.contiguous(), d.contiguous(),
+        trans_aux(pd, is_pt, surf_pos, orig_uv, orig_simple, walking0),
+        scene, steps_cap, live)
     if live is None:
         trans_launches += 1
     else:
         trans_live_launches += 1
     return TransWalk(fout[0], fout[1], fout[2] > 0.0)
+
+
+def trans_aux(pd, is_pt, surf_pos, orig_uv, orig_simple, walking0):
+    """The transmittance kernel's per-lane operands as one [8,R] f32 table:
+    pd (-1 where the lane does not walk), is point, surface point xyz,
+    original uv, original is sphere."""
+    row = lambda x: x.to(torch.float32).unsqueeze(0)
+    return torch.cat([row(torch.where(walking0, pd, -1.0)), row(is_pt),
+                      surf_pos.T, orig_uv.T, row(orig_simple)]).contiguous()

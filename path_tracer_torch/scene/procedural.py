@@ -8,6 +8,8 @@ spheres) takes the sphere block walk, as it does in the JAX package.
 ``duplicate_grid_scene`` and ``tie_rays`` are the tie-rule check of the
 closest-hit casts: a mesh whose every triangle is listed twice, and rays
 aimed at triangle centres, shared edges and vertices.
+``duplicate_card_scene`` is the same mesh as transparent cards, the
+tie-rule check of the transparent walks.
 """
 from __future__ import annotations
 
@@ -104,6 +106,68 @@ def duplicate_grid_scene(n: int = 8, stack: int = 300) -> isf.Scene:
         lights=[isf.PointLight(position=(0.0, 5.0, 0.0),
                                color=(100.0, 100.0, 100.0))],
         background=(0.1, 0.1, 0.1))
+
+
+def duplicate_card_scene() -> isf.Scene:
+    """``duplicate_grid_scene``'s triangles as transparent cards over an
+    opaque floor one unit below them: the grid's pairs cut out by the
+    textured showcase's ``leaf_alpha.png`` (factor 0.9, so no card is
+    opaque), repeated in 12 layers 0.2 apart upward (more than the walk
+    kernels' list of 8), and 300 copies of the first triangle half
+    transparent by their factor alone: 3,372 transparent triangles. Copies
+    give bit-identical t, so the transparent walks' tie rule (the lowest
+    compact column) picks the copy and its opacity, and their strict
+    t > t_prev advance visits an equal t once; a ray from ``tie_rays``
+    crosses every layer. Build it with the showcase textures' directory as
+    its root (``duplicate_card_device_scene``)."""
+    n, stack, layers = 8, 300, 12
+    grid = duplicate_grid_scene(n, 0)
+
+    def lift(vx, dy):
+        return isf.Vertex(position=(vx.position[0], vx.position[1] + dy,
+                                    vx.position[2]),
+                          normal=vx.normal, tex_coords=vx.tex_coords)
+
+    base = grid.models[0].triangles
+    tris = [tuple(lift(vx, 0.2 * k) for vx in tri)
+            for k in range(layers) for tri in base]
+    leaf = isf.Material(
+        albedo=isf.Channel3(factor=(0.4, 0.7, 0.3)),
+        emissive=isf.Channel3(factor=(0.0, 0.0, 0.0)),
+        opacity=isf.Channel1(factor=0.9, texture="leaf_alpha.png"),
+        metalness=isf.Channel1(factor=0.0),
+        roughness=isf.Channel1(factor=0.9))
+    h = n / 2 + 1.0
+    fl = [isf.Vertex(position=(x, -1.0, z), normal=(0.0, 1.0, 0.0),
+                     tex_coords=(0.0, 0.0))
+          for x, z in ((-h, -h), (h, -h), (h, h), (-h, h))]
+    return isf.Scene(
+        models=[isf.Mesh(triangles=[(fl[0], fl[2], fl[1]),
+                                    (fl[0], fl[3], fl[2])],
+                         material=_mat(albedo=(0.7, 0.7, 0.7))),
+                isf.Mesh(triangles=tris, material=leaf),
+                isf.Mesh(triangles=[base[0]] * stack,
+                         material=_mat(albedo=(0.3, 0.3, 0.8),
+                                       opacity=0.5))],
+        camera=grid.camera, lights=grid.lights + [isf.DirectionalLight(
+            direction=(0.2, -1.0, 0.1), color=(2.0, 2.0, 2.0))],
+        background=grid.background)
+
+
+def duplicate_card_device_scene(device):
+    """``duplicate_card_scene()`` built on ``device`` over the BVH in
+    128-slot blocks (opaque floor and transparent cards partitioned;
+    textures generated on first use)."""
+    from path_tracer_torch.scene.device_scene import build_scene
+    from path_tracer_torch.scene.showcase import (
+        default_texture_dir,
+        generate_showcase_textures,
+    )
+
+    root = default_texture_dir()
+    generate_showcase_textures(root)
+    return build_scene(duplicate_card_scene(), root, device,
+                       use_bvh=True, sl_block=128)
 
 
 def tie_rays(r: int, n: int = 8, seed: int = 0):

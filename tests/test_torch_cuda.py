@@ -288,44 +288,88 @@ def _foliage_rays(sc, seed, r, device):
     return t(o), t(d), g
 
 
-@pytest.mark.parametrize("steps_cap", [8, 1])
-def test_alpha_walk_kernel_equals_plain(cuda, showcase_tex48, steps_cap):
-    from path_tracer_torch.ops import cuda_trwalk, trwalk
+@pytest.fixture(scope="module")
+def tie_cards(cuda):
+    """Twelve layers of duplicated transparent cards and a stack of 300
+    copies on the card (equal t decide the walks' tie rule; 12 layers past
+    the list of 8)."""
+    from path_tracer_torch.scene.procedural import (
+        duplicate_card_device_scene,
+    )
 
-    sc = showcase_tex48
+    sc = duplicate_card_device_scene(cuda)
+    assert sc.tr_kernel_ok and sc.tr_textured
+    return sc
+
+
+def _walk_rays(name, showcase_tex48, tie_cards, seed, r, device):
+    """(scene, o, d, rng): foliage rays through the textured showcase, or
+    tie rays from above through every layer of the card scene."""
+    from path_tracer_torch.scene.procedural import tie_rays
+
+    if name == "showcase_tex48":
+        return (showcase_tex48,) + _foliage_rays(showcase_tex48, seed, r,
+                                                 device)
+    o, d = (torch.from_numpy(x).to(device) for x in tie_rays(r, seed=seed))
+    return tie_cards, o, d, np.random.default_rng(seed)
+
+
+@pytest.mark.parametrize("steps_cap", [8, 1, 0, 12])
+@pytest.mark.parametrize("name", ["showcase_tex48", "tie_cards"])
+def test_alpha_walk_kernel_equals_plain(cuda, showcase_tex48, tie_cards,
+                                        name, steps_cap):
+    """The resident walk equals its plain version and the CTA design it
+    replaced on every field of every lane; the tie rays' copies at equal t
+    and cap 12 (a refill of the list of 8) included."""
+    from path_tracer_torch.ops import ab_baselines, cuda_trwalk, trwalk
+
     r = 5003
-    o, d, g = _foliage_rays(sc, 11, r, cuda)
+    sc, o, d, g = _walk_rays(name, showcase_tex48, tie_cards, 11, r, cuda)
     t_op = g.uniform(0.5, 60.0, r).astype(np.float32)
     t_op[::5] = np.inf
     t_op[::7] = -1.0  # dead lanes
     t_op = torch.from_numpy(t_op).to(cuda)
     rnd = torch.from_numpy(g.uniform(size=(steps_cap, r)).astype(
         np.float32)).to(cuda)
+    rnd[:, ::2] = 0.95  # above every tie card's opacity: no accept
     before = cuda_trwalk.alpha_launches
     got = cuda_trwalk.alpha_walk(sc, o, d, t_op, rnd, steps_cap)
     assert cuda_trwalk.alpha_launches == before + 1
     want = trwalk.alpha_walk_plain(sc, o, d, t_op, rnd, steps_cap)
     _assert_same(got, want)
-    assert got.seen.float().mean() > 0.2 and not got.seen[::7].any()
+    _assert_same(got, ab_baselines.alpha_walk_cta(sc, o, d, t_op, rnd,
+                                                  steps_cap))
+    if steps_cap:
+        assert got.seen.float().mean() > 0.2 and not got.seen[::7].any()
 
 
-@pytest.mark.parametrize("steps_cap", [8, 1])
-def test_trans_walk_kernel_equals_plain(cuda, showcase_tex48, steps_cap):
+@pytest.mark.parametrize("steps_cap", [8, 1, 0, 12])
+@pytest.mark.parametrize("name", ["showcase_tex48", "tie_cards"])
+def test_trans_walk_kernel_equals_plain(cuda, showcase_tex48, tie_cards,
+                                        name, steps_cap):
     """Stacked lanes of a directional and two point lights, one light per
-    run of lanes, with dead lanes and sphere originals mixed in."""
-    from path_tracer_torch.ops import cuda_trwalk, trwalk
+    run of lanes, with dead lanes and sphere originals mixed in; the
+    resident walk against its plain version and the CTA design it
+    replaced, on every lane."""
+    from path_tracer_torch.ops import ab_baselines, cuda_trwalk, trwalk
 
-    sc = showcase_tex48
     r = 2048
-    o, _, g = _foliage_rays(sc, 12, r, cuda)
+    sc, o, _, g = _walk_rays(name, showcase_tex48, tie_cards, 12, r, cuda)
     sp = o.clone()
-    ds = [(-sc.dir_dir[0] / sc.dir_dir[0].norm()).expand(r, 3)]
-    pds = [torch.full((r,), float("inf"), device=cuda)]
-    for k in range(sc.num_point_lights):
-        to = sc.point_pos[k] - o
-        dist = to.norm(dim=1)
-        ds.append(to / dist[:, None])
-        pds.append(dist)
+    if name == "showcase_tex48":
+        ds = [(-sc.dir_dir[0] / sc.dir_dir[0].norm()).expand(r, 3)]
+        pds = [torch.full((r,), float("inf"), device=cuda)]
+        for k in range(sc.num_point_lights):
+            to = sc.point_pos[k] - o
+            dist = to.norm(dim=1)
+            ds.append(to / dist[:, None])
+            pds.append(dist)
+    else:  # the tie rays, as a directional and two point lanes each
+        d = _walk_rays(name, showcase_tex48, tie_cards, 12, r, cuda)[2]
+        ds = [d] * 3
+        pds = [torch.full((r,), float("inf"), device=cuda)] + [
+            torch.from_numpy(g.uniform(0.5, 9.0, r).astype(np.float32)).to(
+                cuda) for _ in range(2)]
     n = len(ds) * r
     o3, sp3 = o.repeat(len(ds), 1), sp.repeat(len(ds), 1)
     d3 = torch.cat(ds).contiguous()
@@ -335,13 +379,12 @@ def test_trans_walk_kernel_equals_plain(cuda, showcase_tex48, steps_cap):
     ouv = t(g.uniform(-1.0, 2.0, (n, 2)))
     osimple = t(g.uniform(size=n) < 0.2, bool)
     walking0 = t(g.uniform(size=n) > 0.1, bool)
+    args = (o3, d3, pd3, is_pt, sp3, ouv, osimple, walking0, steps_cap)
     before = cuda_trwalk.trans_launches
-    got = cuda_trwalk.trans_walk(sc, o3, d3, pd3, is_pt, sp3, ouv, osimple,
-                                 walking0, steps_cap)
+    got = cuda_trwalk.trans_walk(sc, *args)
     assert cuda_trwalk.trans_launches == before + 1
-    want = trwalk.trans_walk_plain(sc, o3, d3, pd3, is_pt, sp3, ouv,
-                                   osimple, walking0, steps_cap)
-    _assert_same(got, want)
+    _assert_same(got, trwalk.trans_walk_plain(sc, *args))
+    _assert_same(got, ab_baselines.trans_walk_cta(sc, *args))
     assert (got.trans < 1.0).float().mean() > 0.02
     assert bool((got.trans[~walking0] == 1.0).all())
 
@@ -733,21 +776,12 @@ def test_resident_mt_equals_plain_and_chunked(cuda, rays):
     assert got.valid.float().mean() > 0.3
 
 
-def _records_off(a, b):
-    """[R] bool: the lanes where two records differ in any field."""
-    off = torch.zeros_like(a.t, dtype=torch.bool)
-    for x, y in zip(a, b):
-        off |= x != y
-    return off
-
-
 @pytest.mark.parametrize("rays", ["ties", "showcase48"])
 def test_warp_flat_any_hit_equals_plain_and_cta(cuda, rays):
-    """Row 10's warp any-hit equals its plain version and the CTA walk it
-    replaced on every lane of three sets: t_max well past and well short
-    of each lane's hit, and infinite, with whole and partly dead warps (any
-    hit counts, so the visit order decides nothing)."""
-    from path_tracer_torch.ops import ab_baselines, cuda_bvh
+    """Row 10's warp any-hit equals its plain version on every lane of
+    three sets: t_max well past and well short of each lane's hit, and
+    infinite, with whole and partly dead warps."""
+    from path_tracer_torch.ops import cuda_bvh
 
     sc, o, d, tp = _redesign_case(cuda, rays)
     t = cuda_bvh.closest_hit_triangles_flat_plain(o, d, tp, sc).t
@@ -762,8 +796,6 @@ def test_warp_flat_any_hit_equals_plain_and_cta(cuda, rays):
     assert cuda_bvh.occluded_launches == before + 1
     assert torch.equal(got, cuda_bvh.occluded_triangles_flat_multi_plain(
         o, ds, tms, sc))
-    assert torch.equal(got, ab_baselines.flat_occluded_cta_multi(o, ds, tms,
-                                                                 sc))
     assert got[:, dead].all()
     assert got[0][hit & ~dead].all() and not got[1][hit & ~dead].any()
 
@@ -788,11 +820,8 @@ def _flat2_tie_scene(device):
 def test_warp_flat2_equals_plain_and_cta(cuda, name):
     """Row 11's two-level warp walk equals its plain version on every field
     of every lane (fresh and advanced lanes, whole and partly dead warps),
-    and the tie rule's copy wins; against the CTA walk it replaced it may
-    part only where that one parts from the plain version (its best-t cut
-    at a vertex or edge of a block's box lets its visit order decide
-    equal-t copies)."""
-    from path_tracer_torch.ops import ab_baselines, cuda_bvh
+    and the tie rule's copy wins."""
+    from path_tracer_torch.ops import cuda_bvh
     from path_tracer_torch.scene.procedural import tie_winners
 
     if name == "ties2sb":
@@ -807,8 +836,6 @@ def test_warp_flat2_equals_plain_and_cta(cuda, name):
         assert cuda_bvh.flat2_closest_hit_launches == before + 1
         want = cuda_bvh.closest_hit_triangles_flat2_plain(o, d, tp, sc)
         _assert_same(got, want)
-        old = ab_baselines.flat2_closest_hit_cta(o, d, tp, sc)
-        assert torch.equal(_records_off(got, old), _records_off(old, want))
         assert not got.valid[torch.isinf(tp)].any()
         assert got.valid.float().mean() > 0.3
         if name == "ties2sb" and step == 0:

@@ -149,7 +149,7 @@ def _fake_tr_scene(mode):
             tr_tex8=torch.empty((128, 128), dtype=torch.uint8, **cuda),
             tr_lut=torch.empty((1, 256), **cuda),
             tr_page_table=torch.empty((1, 3), dtype=torch.int32, **cuda),
-            tr_textured=True)
+            tr_grp=torch.empty((7, 128), **cuda), tr_textured=True)
 
 
 def _fake_tree_scene(mode):
