@@ -70,17 +70,30 @@ any error:
    rays whose copies sit in two superblocks; then scene A's packet
    counts; (3k, also alone with ``--only 3k``) rows 13 and 14 (the walks
    with the table resident in shared memory, one gated pass per lane and
-   a sorted register list) against their plain versions and the CTA
-   designs they replaced (``ops/ab_baselines.py``) on every field of
-   every lane at caps 8, 1, 0 and 12: camera lanes with the opaque
+   a sorted register list) against their plain versions on every field
+   of every lane at caps 8, 1, 0 and 12: camera lanes with the opaque
    terminator, random foliage lanes, ragged counts with dead warps and
    the first bounce's shadow lanes on the textured showcase and scene A,
    tie rays through twelve layers of duplicated cards, and rays from 10^2
    to 10^3 group extents away on the textured showcase; then the
    walks' counts (steps, CTA passes, groups the gate admits, Baldwin-Weber
-   tests executed against needed), both designs in turns with the
-   recounted bound and floor, each design's device ms per 1080p sample
-   and one textured-showcase sample end to end in turns;
+   tests executed against needed), each kernel's time with the recounted
+   bound and floor, and the textured showcase's device ms per 1080p
+   sample; (3l, also alone with ``--only 3l``) rows 12 and 2 (the flat2
+   any-hit as two-level warp packets; the dense sphere closest hit
+   writing the whole record and merging a triangle record in its launch)
+   against their plain versions and the designs they replaced
+   (``ops/ab_baselines.py``) on every field of every lane: row 12 on
+   scene A's first-bounce and incoherent shadow sets (3 x 2^18), a
+   ragged count with dead warps and tie rays over two superblocks; row 2
+   merged with row 11's record and alone on scene A's camera and
+   first-bounce lanes, on ``spheres`` and 500 random spheres, and with
+   triangle records at the sphere's t (the triangle wins) and an ulp past
+   it; closest_hit against the old path; then row 12's work against what
+   its results need, both designs in turns with their bounds (row 2
+   through its wrapper, the launch alone and closest_hit), scene A's
+   device ms per 1080p sample through each and one scene A sample end to
+   end in turns;
 4. the main path at full size: ``cube``, ``spheres`` and ``reflection`` at
    1920x1080, 4 bounces, 16 spp through ``render_pixel_sums``, and one
    reference-default frame of ``reflection`` (1920x1080, 64 spp, 4
@@ -1511,7 +1524,7 @@ def phase_timing(device):
                          nbytes(o, d, tp, table) + r * (4 * 4 + 4))
         else:
             work = bound(r * sc.num_real_spheres * OPS_SPHERE,
-                         nbytes(o, d, tp, table) + r * (2 * 4 + 4))
+                         nbytes(o, d, tp, table) + r * (3 * 4 + 2 * 4 + 1))
         log(f"  time {key}: {r} lanes x {table.shape[1]} columns: kernel "
             f"{ms:.4f} ms, {ms2:.4f} ms (repeat); plain {plain_ms:.4f} ms; "
             f"bound {work[0]:.4f} ms ({work[1]})")
@@ -3270,19 +3283,24 @@ def phase_rows_10_11(device, showcase, tex, big) -> None:
 
 
 @contextlib.contextmanager
-def cta_walks():
-    """The main path's alpha and transmittance walks go through the designs
-    rows 13 and 14 replaced (ops/ab_baselines.py) inside the context, for
-    3k's per-sample comparison only; restored on exit."""
-    from path_tracer_torch.ops import ab_baselines, cuda_trwalk
+def replaced_designs():
+    """The main path's flat2 any-hit and dense sphere closest hit go through
+    the designs rows 12 and 2 replaced (ops/ab_baselines.py: the CTA walk;
+    the chunked kernel, its ATen mapping and merge) inside the context, for
+    3l's comparisons through the main path only; restored on exit."""
+    from path_tracer_torch.ops import ab_baselines, cuda_bvh, cuda_spheres
 
-    saved = (cuda_trwalk.alpha_walk, cuda_trwalk.trans_walk)
-    cuda_trwalk.alpha_walk = ab_baselines.alpha_walk_cta
-    cuda_trwalk.trans_walk = ab_baselines.trans_walk_cta
+    saved = (cuda_bvh.occluded_triangles_flat2_multi,
+             cuda_spheres.closest_hit_spheres_cuda)
+    cuda_bvh.occluded_triangles_flat2_multi = (
+        ab_baselines.occluded_triangles_flat2_cta)
+    cuda_spheres.closest_hit_spheres_cuda = (
+        ab_baselines.closest_hit_spheres_chunked)
     try:
         yield
     finally:
-        cuda_trwalk.alpha_walk, cuda_trwalk.trans_walk = saved
+        (cuda_bvh.occluded_triangles_flat2_multi,
+         cuda_spheres.closest_hit_spheres_cuda) = saved
 
 
 def walk_held(label: str, new, want: dict) -> float:
@@ -3384,30 +3402,29 @@ def far_rays(sc, n: int, seed: int):
 def phase_rows_13_14(device, tex, big) -> dict:
     """3k: the alpha walk (row 13) and the transmittance walk (row 14) with
     the table resident in shared memory, each lane one gated pass and a
-    sorted list, against their plain versions and the CTA designs they
-    replaced on every field of every lane: camera lanes with the opaque
-    terminator, camera and random foliage lanes with a seventh dead, a
-    ragged count with dead warps, the first bounce's 3 x 2^18 shadow lanes
-    (all, and a tenth killed, and ragged with dead warps) on the textured
-    showcase and scene A, tie rays through the layered duplicate-card
-    scene, and textured-showcase rays from far origins (``far_rays``),
-    each at caps 8, 1, 0 and 12; A0's counts; both designs in turns
-    with the recounted bound and the -fmad=false floor; each design's
-    device time over one 1080p sample (textured showcase, scene A) and one
-    textured-showcase sample end to end in turns. Returns the numbers."""
+    sorted list, against their plain versions on every field of every
+    lane: camera lanes with the opaque terminator, camera and random
+    foliage lanes with a seventh dead, a ragged count with dead warps, the
+    first bounce's 3 x 2^18 shadow lanes (all, and a tenth killed, and
+    ragged with dead warps) on the textured showcase and scene A, tie rays
+    through the layered duplicate-card scene, and textured-showcase rays
+    from far origins (``far_rays``), each at caps 8, 1, 0 and 12; A0's
+    counts; each kernel's time with the recounted bound and the
+    -fmad=false floor; row 14 by kind of lane; the textured showcase's
+    device time over one 1080p sample (scene A's is 3l's). Returns the
+    numbers."""
     import torch
 
     from path_tracer_torch import native
     from path_tracer_torch.models.integrator import IntegratorSpec
-    from path_tracer_torch.models.renderer import render_pixel_sums
-    from path_tracer_torch.ops import ab_baselines, cuda_trwalk, trwalk
+    from path_tracer_torch.ops import cuda_trwalk, trwalk
     from path_tracer_torch.scene.procedural import (
         duplicate_card_device_scene,
     )
 
-    log("phase 3k: rows 13 and 14 redesigned (the table resident in shared "
-        "memory, one gated pass per lane, the steps from a sorted register "
-        "list) against their plain versions and old designs")
+    log("phase 3k: rows 13 and 14 (the table resident in shared memory, "
+        "one gated pass per lane, the steps from a sorted register list) "
+        "against their plain versions")
     phase_t0 = time.perf_counter()
     n, rr = WAVE, WAVE - 37
     rng = np.random.default_rng(20261023)
@@ -3420,8 +3437,7 @@ def phase_rows_13_14(device, tex, big) -> dict:
             out["row13_err"] = max(out["row13_err"], walk_held(
                 f"row 13, {label}, cap {cap}",
                 cuda_trwalk.alpha_walk(sc, *args),
-                {"plain": trwalk.alpha_walk_plain(sc, *args),
-                 "old": ab_baselines.alpha_walk_cta(sc, *args)}))
+                {"plain": trwalk.alpha_walk_plain(sc, *args)}))
 
     def trans_held(label, sc, lanes):
         for cap in caps:
@@ -3429,8 +3445,7 @@ def phase_rows_13_14(device, tex, big) -> dict:
             out["row14_err"] = max(out["row14_err"], walk_held(
                 f"row 14, {label}, cap {cap}",
                 cuda_trwalk.trans_walk(sc, *args),
-                {"plain": trwalk.trans_walk_plain(sc, *args),
-                 "old": ab_baselines.trans_walk_cta(sc, *args)}))
+                {"plain": trwalk.trans_walk_plain(sc, *args)}))
 
     sets = {}
     for name, sc in (("textured showcase", tex), ("scene A", big)):
@@ -3470,10 +3485,10 @@ def phase_rows_13_14(device, tex, big) -> dict:
     alpha_held(far, tex, cam, rnd)
     trans_held(far, tex, sh)
 
-    # A0 and both designs in turns, with the recounted bound and the floor.
+    # A0 and each kernel's time, with the recounted bound and the floor.
     log(f"  parity held in {time.perf_counter() - phase_t0:.1f} s")
     cap = trwalk.TRWALK_K
-    out["a0"], out["ab"] = {}, {}
+    out["a0"], out["time"] = {}, {}
     for name, (sc, cam, sh) in sets.items():
         rnd = walk_rnd(n, cap, device)
         tp_real = int((sc.tr_bw[0:3].abs().sum(0) > 0).sum())
@@ -3484,23 +3499,23 @@ def phase_rows_13_14(device, tex, big) -> dict:
         out["a0"][f"row 13 {name}"] = a0
         b = bound(a0["needed"] * OPS_BW,
                   nbytes(*cam, rnd, *tables) + n * (8 * 4 + 4))
-        old_b = bound(a0["live"] * tp_real * OPS_BW, 0)
-        out["ab"][f"row 13 {name}"] = ab_turns(
-            lambda: ab_baselines.alpha_walk_cta(sc, *cam, rnd, cap),
-            lambda: cuda_trwalk.alpha_walk(sc, *cam, rnd, cap)) + (
-                b, old_b, bound(a0["design"] * OPS_BW, 0))
+        ms = min(cuda_ms(lambda: cuda_trwalk.alpha_walk(sc, *cam, rnd, cap),
+                         AB_ITERS) for _ in range(2))
+        out["time"][f"row 13 {name}"] = (
+            ms, b, bound(a0["live"] * tp_real * OPS_BW, 0),
+            bound(a0["design"] * OPS_BW, 0))
         a0 = walk_counts(f"{name} transmittance, first-bounce shadow lanes",
                          sc, "trans", sh, None, cap)
         out["a0"][f"row 14 {name}"] = a0
         aux = cuda_trwalk.trans_aux(*sh[2:])
         b = bound(a0["needed"] * OPS_BW,
                   nbytes(sh[0], sh[1], aux, *tables) + 3 * 4 * 3 * n)
-        old_b = bound(a0["live"] * tp_real * OPS_BW, 0)
-        out["ab"][f"row 14 {name}"] = ab_turns(
-            lambda: native._launch_trans_walk("ptt_trans_walk_cta", sh[0],
-                                              sh[1], aux, sc, cap),
-            lambda: native.launch_trans_walk(sh[0], sh[1], aux, sc, cap)) \
-            + (b, old_b, bound(a0["design"] * OPS_BW, 0))
+        ms = min(cuda_ms(lambda: native.launch_trans_walk(sh[0], sh[1], aux,
+                                                          sc, cap),
+                         AB_ITERS) for _ in range(2))
+        out["time"][f"row 14 {name}"] = (
+            ms, b, bound(a0["live"] * tp_real * OPS_BW, 0),
+            bound(a0["design"] * OPS_BW, 0))
         # Where row 14's time goes: each kind of lane alone, the others
         # dead (a point lane makes two passes, a directional lane one and
         # its steps).
@@ -3512,55 +3527,415 @@ def phase_rows_13_14(device, tex, big) -> dict:
             out[f"row 14 {name} {part}"] = ms
             log(f"  row 14, {name}: the {part} alone "
                 f"({int((sh[-1] & keep).sum())} live) {ms:.4f} ms")
-    for label, (old_ms, new_ms, b, old_b, des_b) in out["ab"].items():
+    for label, (ms, b, ungated, des_b) in out["time"].items():
+        log(f"  time {label}: {ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}; "
+            f"the resident design's own tests {des_b[0]:.4f}; one ungated "
+            f"pass per live lane {ungated[0]:.4f}), -fmad=false floor "
+            f"{2 * b[0]:.4f} ms; share of the bound {b[0] / ms:.3f}")
+        if b[0] > ms:
+            raise AssertionError(f"{label}: faster than its bound")
+
+    # Device time per main-path sample of the textured showcase, from the
+    # profiler.
+    prof = kernel_device_ms(tex, IntegratorSpec(bounces=5))
+    out["profile textured showcase"] = prof
+    log_profile("textured showcase", prof)
+    for k in ("alpha_walk_kernel", "trans_walk_kernel"):
+        if prof.get(k, (0.0, 0))[1] == 0:
+            raise AssertionError(f"textured showcase: {k} never ran")
+    log(f"  phase 3k took {time.perf_counter() - phase_t0:.1f} s")
+    return out
+
+
+def any2_work(o, ds, tms, sc, occ) -> dict:
+    """Row 12's work on these sets (the any-hit's [L,R] result ``occ``):
+    what the result needs (``flat2_work``: a slab test of every real
+    superblock per live ray and of the 128 columns of each superblock an
+    unoccluded ray enters, every real slot of each block it enters, one
+    test for an occluded ray) and what the warp design executes. The design
+    walks a ray's superblocks and blocks in column order, as the plain
+    version does: each live warp slab-tests every real superblock for its
+    32 rays, each ray still open when its superblock is reached tests the
+    superblock's 128 columns, and each ray still open when a block is
+    reached is served 128 slots (a chunk) at a time up to the chunk of its
+    first hit. Returns the counts, the design's tests on real slots and its
+    lane slots (128 a served ray and chunk), and the needed blocks."""
+    import torch
+
+    from path_tracer_torch.ops import cuda_bvh, slab
+
+    ids, sb_ids = sc.sl_blkid[0], sc.sl_sbid[0]
+    block = sc.sl_block
+    n_groups = min(sb_ids.shape[0], ids.shape[0] // 128)
+    n_sb = int((sb_ids[:n_groups] >= 0).sum())
+    real = sc.sl_bw_t[0:3].abs().sum(0) > 0
+    out = dict(slabs=0, tests=0, d_slabs=0, d_tests=0, d_slots=0,
+               live_warps=0)
+    needed = torch.zeros_like(ids, dtype=torch.bool)
+    r = o.shape[0]
+    for k, (d, tm) in enumerate(zip(ds, tms)):
+        a, b, c = flat2_work(o, d, sc, None, tm, occ[k])
+        out["slabs"] += a
+        out["tests"] += b
+        needed |= c
+        live = tm >= 0.0
+        warps = int(live[: r - r % 32].view(-1, 32).any(1).sum()) + int(
+            bool(live[r - r % 32:].any()))
+        out["live_warps"] += warps
+        out["d_slabs"] += 32 * n_sb * warps
+        for rs in (slice(x, x + (1 << 16)) for x in range(0, r, 1 << 16)):
+            oc, dc, tmc = o[rs], d[rs], tm[rs]
+            inv = slab.safe_inv(dc)
+            done = tmc < 0.0
+            sb_gate = slab.occluded_gate(*slab.slab(oc, inv, sc.sl_sbflat),
+                                         tmc, sb_ids)
+            for g in slab.live_columns(sb_gate[:, :n_groups]):
+                lanes = torch.nonzero(sb_gate[:, g] & ~done)[:, 0]
+                if lanes.numel() == 0:
+                    continue
+                out["d_slabs"] += 128 * lanes.numel()
+                w = 128 * g
+                gate = slab.occluded_gate(
+                    *slab.slab(oc[lanes], inv[lanes],
+                               sc.sl_blkflat[:, w:w + 128]),
+                    tmc[lanes], ids[w:w + 128])
+                for col in slab.live_columns(gate):
+                    ln = lanes[torch.nonzero(gate[:, col])[:, 0]]
+                    ln = ln[~done[ln]]
+                    if ln.numel() == 0:
+                        continue
+                    start, rows = cuda_bvh._block_rows(sc, w + col)
+                    t, _, _, _, ok = cuda_bvh._bw_test(oc[ln], dc[ln], rows)
+                    hit = ok & (t <= tmc[ln][:, None])
+                    any_hit = hit.any(dim=1)
+                    first = torch.where(any_hit, hit.int().argmax(dim=1),
+                                        block - 1)
+                    chunks = first // 128 + 1
+                    per_chunk = real[start:start + block].view(-1, 128).sum(1)
+                    out["d_slots"] += 128 * int(chunks.sum())
+                    out["d_tests"] += int(per_chunk.cumsum(0)[chunks - 1].sum())
+                    done[ln] |= any_hit
+    out["needed"] = needed
+    return out
+
+
+def log_any2_work(label: str, w: dict) -> None:
+    """Logs ``any2_work``'s counts and ratios."""
+    log(f"  row 12 work, {label}: slab tests needed {w['slabs']}, the "
+        f"design's {w['d_slabs']} ({w['d_slabs'] / max(w['slabs'], 1):.3f}x; "
+        f"{w['live_warps']} live warps); Baldwin-Weber tests needed "
+        f"{w['tests']}, the design's on real slots {w['d_tests']} "
+        f"({w['d_tests'] / max(w['tests'], 1):.3f}x), its lane slots "
+        f"{w['d_slots']} ({w['d_slots'] / max(w['tests'], 1):.3f} a needed "
+        f"test, {w['d_slots'] / max(w['d_tests'], 1):.3f} a test it makes); "
+        f"{int(w['needed'].sum())} blocks needed")
+
+
+def rows_12_2_parity(device, big) -> dict:
+    """3l's parity: row 12 (the two-level warp any-hit) against its plain
+    version and the CTA design it replaced on every lane of scene A's
+    first-bounce and incoherent shadow sets (3 x 2^18), a ragged count with
+    dead warps, and tie rays over two superblocks at t_max 1.5 t and 0.5 t
+    with dead lanes; row 2 (the dense sphere kernel writing the merged
+    record) merged and alone against its plain version and the chunked
+    kernel with its ATen mapping and merge, on every field of every lane:
+    scene A's camera and first-bounce lanes (merged with row 11's record),
+    ``spheres`` (a ragged count, dead warps) and 500 random spheres
+    (merged with a random triangle record), and triangle records at the
+    sphere's t (the triangle must win) and an ulp past it; closest_hit on
+    scene A against the old path. Returns the sets and errors."""
+    import torch
+
+    from path_tracer_torch.ops import ab_baselines, cuda_bvh, cuda_spheres
+    from path_tracer_torch.ops import intersect
+    from path_tracer_torch.scene import build_scene, load_scene
+    from path_tracer_torch.scene.device_scene import (
+        _pack_spheres,
+        opaque_view,
+    )
+    from path_tracer_torch.scene.procedural import (
+        duplicate_grid_scene,
+        tie_rays,
+    )
+
+    log("phase 3l: rows 12 and 2 redesigned (the flat2 any-hit as two-level "
+        "warp packets; the dense sphere closest hit writing the merged "
+        "record) against their plain versions and old designs")
+    t0 = time.perf_counter()
+    n, rr = WAVE, WAVE - 37
+    rng = np.random.default_rng(20261027)
+    op = opaque_view(big)
+    out = {"row12_err": 0.0, "row2_err": 0.0, "op": op}
+
+    def occ2_held(label, o, ds, tms, sc):
+        new = cuda_bvh.occluded_triangles_flat2_multi(o, ds, tms, sc)
+        want = {"plain": cuda_bvh.occluded_triangles_flat2_multi_plain(
+                    o, ds, tms, sc),
+                "old": ab_baselines.occluded_triangles_flat2_cta(o, ds, tms,
+                                                                 sc)}
+        offs = {k: int((new != w).sum()) for k, w in want.items()}
+        dead = torch.stack(tms) < 0.0
+        log(f"  row 12, {label}: {len(ds)} x {o.shape[0]} lanes, occluded "
+            f"{float(new[~dead].float().mean()):.3f} of the live; lanes off "
+            + ", ".join(f"{k} {v}" for k, v in offs.items()))
+        if any(offs.values()) or not bool(new[dead].all()):
+            raise AssertionError(f"row 12, {label}: the warp any-hit "
+                                 "disagrees")
+        return new
+
+    (bo, bd, btp), (so, sds, stms) = first_bounce(big, n, device)
+    log(f"  scene A's first bounce cast in {time.perf_counter() - t0:.1f} s")
+    out["first-bounce"] = (so, sds, stms, occ2_held(
+        "scene A first-bounce shadow sets", so, sds, stms, op))
+    io, ids_, itms = shadow_sets(rng, op, n, device)
+    out["incoherent"] = (io, ids_, itms, occ2_held(
+        "scene A incoherent shadow sets", io, ids_, itms, op))
+    occ2_held("scene A first-bounce shadow sets, ragged R, dead warps",
+              so[:rr].contiguous(), [x[:rr].contiguous() for x in sds],
+              [dead_warps(x[:rr], -1.0) for x in stms], op)
+    ties2 = build_scene(duplicate_grid_scene(8, 8400), ".", device,
+                        use_bvh=True, sl_block=128)
+    to, td = (as_cuda(x, device) for x in tie_rays(n))
+    tie_tp = torch.full((n,), -1.0, device=device)
+    tie_tp[::9] = float("inf")
+    t_hit = cuda_bvh.closest_hit_triangles_flat2_plain(to, td, tie_tp,
+                                                       ties2).t
+    hit, dead = torch.isfinite(t_hit), torch.isinf(tie_tp)
+    tie_tms = [torch.where(dead, -1.0, torch.where(hit, t_hit * k, 5.0))
+               for k in (1.5, 0.5)]
+    tie_occ = occ2_held("tie rays across two superblocks, t_max 1.5 t and "
+                        "0.5 t, dead lanes", to, [td, td], tie_tms, ties2)
+    if not (bool(tie_occ[0][hit & ~dead].all())
+            and not bool(tie_occ[1][hit & ~dead].any())):
+        raise AssertionError("row 12, tie rays: a hit within t_max missed "
+                             "or one beyond it counted")
+
+    log(f"  row 12 held in {time.perf_counter() - t0:.1f} s")
+    sph_new = cuda_spheres.closest_hit_spheres_cuda
+    sph_plain = cuda_spheres.closest_hit_spheres_merged_plain
+    sph_old = ab_baselines.closest_hit_spheres_chunked
+
+    def sph_held(label, o, d, tp, sc, tri=None, extra=None):
+        want = {"plain": sph_plain(o, d, tp, sc, tri),
+                "old": sph_old(o, d, tp, sc, tri), **(extra or {})}
+        new = sph_new(o, d, tp, sc, tri=tri)
+        out["row2_err"] = max(out["row2_err"],
+                              held(f"row 2, {label}", new, want))
+        return new
+
+    minus1 = torch.full((n,), -1.0, device=device)
+    co, cd = camera_rays(big, n, device)
+    out["scene A"] = {}
+    for label, (o, d, tp) in (("camera", (co, cd, minus1)),
+                              ("first bounce", (bo, bd, btp))):
+        tri = cuda_bvh.closest_hit_triangles_flat2(o, d, tp, op)
+        out["scene A"][label] = (o, d, tp, tri)
+        got = sph_held(f"scene A {label} lanes, merged with row 11's record",
+                       o, d, tp, op, tri)
+        kinds = {int(k) for k in got.kind.unique()}
+        if not {1, 2} <= kinds:
+            raise AssertionError(f"scene A {label}: kinds {kinds}")
+        sph_held(f"scene A {label} lanes, alone", o, d, tp, op)
+        with replaced_designs():
+            old = intersect.closest_hit(o, d, tp, op)
+        held(f"closest_hit, scene A {label} lanes", intersect.closest_hit(
+            o, d, tp, op), {"the old path": old})
+    # Triangle records at the sphere's t (the triangle wins every lane) and
+    # an ulp past it (the sphere wins every hitting lane).
+    o, d, tp, _ = out["scene A"]["first bounce"]
+    sph = sph_plain(o, d, tp, op)
+    g = torch.Generator(device=device).manual_seed(5)
+
+    def fake(t):
+        """A triangle record of hits at t, with random u, v, backface."""
+        m = t.shape[0]
+        return intersect.HitRecord(
+            t=t.contiguous(),
+            kind=torch.where(torch.isfinite(t), 1, 0).to(torch.int32),
+            prim=torch.arange(m, dtype=torch.int32, device=device),
+            u=torch.rand(m, generator=g, device=device),
+            v=torch.rand(m, generator=g, device=device),
+            backface=torch.rand(m, generator=g, device=device) < 0.5)
+
+    tie = fake(sph.t)
+    sph_held("scene A first bounce, a triangle record at the sphere's t",
+             o, d, tp, op, tie, {"the triangle record": tie})
+    past = fake(torch.nextafter(sph.t, torch.tensor(float("inf"),
+                                                    device=device)))
+    got = sph_held("scene A first bounce, a triangle record an ulp past "
+                   "the sphere's t", o, d, tp, op, past)
+    if not bool((got.kind[sph.valid] == 2).all()):
+        raise AssertionError("row 2: a sphere lost to a farther triangle")
+
+    sph_sc = load_scene(scene_path("spheres"), device)
+    po, pd = camera_rays(sph_sc, n, device)
+    out["spheres"] = (sph_sc, po, pd, minus1)
+    sph_held("spheres camera lanes", po, pd, minus1, sph_sc)
+    sph_held("spheres camera lanes, ragged R, dead warps",
+             po[:rr].contiguous(), pd[:rr].contiguous(),
+             dead_warps(minus1[:rr]), sph_sc)
+    centers = rng.uniform(-5, 5, (500, 3)).astype(np.float32)
+    radii = rng.uniform(0.05, 0.4, 500).astype(np.float32)
+    ball = SimpleNamespace(sph_center=as_cuda(centers, device),
+                           sph_radius=as_cuda(radii, device),
+                           sph_packed_t=as_cuda(_pack_spheres(centers, radii),
+                                                device),
+                           num_real_spheres=500)
+    ro, rd = random_rays(rng, rr, np.full(3, -5.0), np.full(3, 5.0), device)
+    rtp = dead_warps(torch.full((rr,), -1.0, device=device))
+    sph_held("500 spheres, ragged R, dead warps", ro, rd, rtp, ball)
+    t_rand = as_cuda(np.where(rng.uniform(size=rr) < 0.3, np.inf,
+                              rng.uniform(0.0, 12.0, rr)), device)
+    sph_held("500 spheres, merged with a random triangle record", ro, rd,
+             rtp, ball, fake(t_rand))
+    return out
+
+
+def rows_12_2_work(par: dict, design: bool = True) -> dict:
+    """3l's counts on scene A's first-bounce and incoherent shadow sets:
+    what row 12's results need (``flat2_work``: slab tests, BW tests and
+    the needed blocks, the bound's work) and, with ``design``, what the
+    design executes (``any2_work``, logged)."""
+    out = {}
+    for label in ("first-bounce", "incoherent"):
+        o, ds, tms, occ = par[label]
+        if design:
+            out[label] = any2_work(o, ds, tms, par["op"], occ)
+            log_any2_work(f"scene A {label} shadow sets", out[label])
+            continue
+        w = dict(slabs=0, tests=0, needed=0)
+        for k, (d, tm) in enumerate(zip(ds, tms)):
+            a, b, c = flat2_work(o, d, par["op"], None, tm, occ[k])
+            w = dict(slabs=w["slabs"] + a, tests=w["tests"] + b,
+                     needed=c | w["needed"])
+        out[label] = w
+    return out
+
+
+def phase_rows_12_2(device, big, design_counts: bool = True) -> dict:
+    """3l: rows 12 and 2 against their plain versions and the designs they
+    replaced (``rows_12_2_parity``), row 12's counts (``rows_12_2_work``;
+    the design's own only with ``design_counts``, as ``--only 3l`` runs
+    it), then both designs in turns: row 12 on scene A's 3 x 2^18 first-bounce
+    and incoherent shadow lanes; row 2 (through its wrapper, the old one
+    with its ATen mapping and merge; the launch alone; and through
+    closest_hit) on scene A's 2^18 camera and first-bounce lanes merged
+    with row 11's record and on the ``spheres`` scene's camera lanes; each
+    with its bound; scene A's device time per 1080p sample through each
+    design and one scene A sample end to end in turns. Returns the
+    numbers."""
+    import torch
+
+    from path_tracer_torch import native
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.ops import ab_baselines, cuda_spheres, intersect
+
+    phase_t0 = time.perf_counter()
+    par = rows_12_2_parity(device, big)
+    log(f"  parity held in {time.perf_counter() - phase_t0:.1f} s")
+    work = rows_12_2_work(par, design_counts)
+    log(f"  counts done at {time.perf_counter() - phase_t0:.1f} s")
+    op = par["op"]
+    out = {"row12_err": par["row12_err"], "row2_err": par["row2_err"],
+           "work": {k: {f: v for f, v in w.items() if f != "needed"}
+                    for k, w in work.items()}, "ab": {}}
+    n = WAVE
+    sb_tables = (op.sl_sbflat, op.sl_sbid, op.sl_blkflat, op.sl_blkid)
+    for label in ("first-bounce", "incoherent"):
+        o, ds, tms, _ = par[label]
+        dss, tmss = torch.stack(ds).contiguous(), torch.stack(tms).contiguous()
+        args = (o, dss, tmss, *sb_tables, op.sl_bw_t, op.sl_block)
+        old_ms, new_ms = ab_turns(
+            lambda: native._launch_flat2_occluded("ptt_flat2_occluded_cta",
+                                                  *args),
+            lambda: native.launch_flat2_occluded(*args))
+        w = work[label]
+        b = bound(w["slabs"] * OPS_SLAB + w["tests"] * OPS_BW,
+                  nbytes(o, dss, tmss, *sb_tables)
+                  + rows_bytes(op, w["needed"]) + 4 * n * len(ds))
+        out["ab"][f"row 12 {label}"] = (old_ms, new_ms, b)
+
+    sph_old = ab_baselines.closest_hit_spheres_chunked
+    sph_new = cuda_spheres.closest_hit_spheres_cuda
+    rec_bytes = 3 * 4 + 2 * 4 + 1  # t, u, v, kind, prim, backface
+    cases = [(f"row 2 scene A {label} lanes, merged", op, o, d, tp, tri)
+             for label, (o, d, tp, tri) in par["scene A"].items()]
+    sph_sc, po, pd, ptp = par["spheres"]
+    cases.append(("row 2 spheres camera lanes", sph_sc, po, pd, ptp, None))
+    for label, sc, o, d, tp, tri in cases:
+        table = sc.sph_packed_t
+        old_ms, new_ms = ab_turns(lambda: sph_old(o, d, tp, sc, tri),
+                                  lambda: sph_new(o, d, tp, sc, tri=tri))
+        launch = min(cuda_ms(lambda: native.launch_sphere_closest_hit(
+            o, d, tp, table, tri), AB_ITERS) for _ in range(2))
+        old_launch = min(cuda_ms(lambda: native.launch_closest_hit(
+            "ptt_sphere_closest_hit_chunked", o, d, tp, table, table_rows=4,
+            out_rows=2), AB_ITERS) for _ in range(2))
+        plain_ms, _ = timed_once(
+            lambda: cuda_spheres.closest_hit_spheres_merged_plain(
+                o, d, tp, sc, tri))
+        b = bound(n * sc.num_real_spheres * OPS_SPHERE,
+                  nbytes(o, d, tp, table, *(tri or ())) + n * rec_bytes)
+        out["ab"][label] = (old_ms, new_ms, b, launch, old_launch, plain_ms)
+
+        def old_cast():
+            with replaced_designs():
+                return intersect.closest_hit(o, d, tp, sc)
+
+        out["ab"][f"{label}, through closest_hit"] = ab_turns(
+            old_cast, lambda: intersect.closest_hit(o, d, tp, sc)) + (b,)
+    for label, (old_ms, new_ms, b, *rest) in out["ab"].items():
         new, old = min(new_ms), min(old_ms)
+        extra = ""
+        if rest:
+            extra = (f"; the launch alone {rest[0]:.4f} ms (old "
+                     f"{rest[1]:.4f}); plain {rest[2]:.4f} ms")
         log(f"  A/B {label}: old design {old:.4f} ms (readings "
             + " ".join(f"{x:.4f}" for x in old_ms) + f"), new {new:.4f} ms ("
             + " ".join(f"{x:.4f}" for x in new_ms) + f"); bound {b[0]:.4f} "
-            f"ms ({b[1]}; the resident design's own tests {des_b[0]:.4f}; "
-            f"one ungated pass per live lane {old_b[0]:.4f}), "
-            f"-fmad=false floor {2 * b[0]:.4f} ms; share of the bound new "
-            f"{b[0] / new:.3f}, old {b[0] / old:.3f}; new / old "
-            f"{new / old:.3f}")
+            f"ms ({b[1]}), -fmad=false floor {2 * b[0]:.4f} ms; share of the "
+            f"bound new {b[0] / new:.3f}, old {b[0] / old:.3f}; new / old "
+            f"{new / old:.3f}{extra}")
         if b[0] > new:
             raise AssertionError(f"{label}: faster than its bound")
 
-    # Device time per main-path sample, from the profiler, for both designs
-    # (the old ones routed in by cta_walks), then one textured-showcase
+    # Scene A's device time per 1080p sample through each design, then one
     # sample end to end in turns.
-    log(f"  A0 and the A/B done at {time.perf_counter() - phase_t0:.1f} s")
+    log(f"  the A/B done at {time.perf_counter() - phase_t0:.1f} s")
     spec5 = IntegratorSpec(bounces=5)
-    names = ("alpha_walk_kernel", "trans_walk_kernel")
-    old_names = ("alpha_walk_cta_kernel", "trans_walk_cta_kernel")
-    for name, (sc, _, _) in sets.items():
-        prof = {"new": kernel_device_ms(sc, spec5)}
-        with cta_walks():
-            prof["old"] = kernel_device_ms(sc, spec5)
-        out[f"profile {name}"] = prof
-        log_profile(name, prof["new"])
-        for k, old_k in zip(names, old_names):
-            got, was = prof["new"].get(k, (0.0, 0)), prof["old"].get(
-                old_k, (0.0, 0))
-            if got[1] == 0 or was[1] == 0 or k in prof["old"]:
-                raise AssertionError(f"{name}: the designs were not routed")
-            log(f"  the same sample through the old design: {old_k} "
-                f"{was[0]:.3f} ms in {was[1]} launches against {k} "
-                f"{got[0]:.3f} ms in {got[1]}")
-        log(f"  all kernels {prof['old']['all'][0]:.3f} ms (old) against "
-            f"{prof['new']['all'][0]:.3f} ms (new)")
+    prof = {"new": kernel_device_ms(big, spec5)}
+    with replaced_designs():
+        prof["old"] = kernel_device_ms(big, spec5)
+    out["profile scene A"] = prof
+    log_profile("scene A", prof["new"])
+    for k, old_k in (("flat2_occluded_kernel", "flat2_occluded_cta_kernel"),
+                     ("sphere_closest_hit_kernel",
+                      "sphere_closest_hit_chunked_kernel")):
+        got, was = prof["new"].get(k, (0.0, 0)), prof["old"].get(old_k,
+                                                                 (0.0, 0))
+        if got[1] == 0 or was[1] == 0 or k in prof["old"] \
+                or old_k in prof["new"]:
+            raise AssertionError(f"scene A: the designs were not routed ({k})")
+        log(f"  the same sample through the old design: {old_k} "
+            f"{was[0]:.3f} ms in {was[1]} launches against {k} {got[0]:.3f} "
+            f"ms in {got[1]}")
+    log(f"  all kernels {prof['old']['all'][0]:.3f} ms in "
+        f"{prof['old']['all'][1]} launches (old) against "
+        f"{prof['new']['all'][0]:.3f} ms in {prof['new']['all'][1]} (new)")
     secs = {"old": [], "new": []}
     for design in ("old", "new", "new", "old"):
-        with cta_walks() if design == "old" else contextlib.nullcontext():
+        with (replaced_designs() if design == "old"
+              else contextlib.nullcontext()):
             t0 = time.perf_counter()
-            render_pixel_sums(tex, 1920, 1080, 1, 1, spec5, tile_rays=WAVE)
+            render_pixel_sums(big, 1920, 1080, 1, 1, spec5, tile_rays=WAVE)
             torch.cuda.synchronize()
             secs[design].append(time.perf_counter() - t0)
     out["sample"] = secs
-    log("  one 1080p sample of the textured showcase end to end, in turns "
-        "(old, new, new, old): old " + " ".join(
-            f"{x:.4f}" for x in secs["old"]) + " s, new "
+    log("  one 1080p sample of scene A end to end, in turns (old, new, new, "
+        "old): old " + " ".join(f"{x:.4f}" for x in secs["old"]) + " s, new "
         + " ".join(f"{x:.4f}" for x in secs["new"]) + " s")
-    log(f"  phase 3k took {time.perf_counter() - phase_t0:.1f} s")
+    log(f"  phase 3l took {time.perf_counter() - phase_t0:.1f} s")
     return out
 
 
@@ -3792,8 +4167,8 @@ def main() -> int:
 
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
     if sys.argv[1:] and (len(sys.argv) != 3
-                         or only not in ("3i", "3j", "3k")):
-        print("usage: chip_smoke.py [--only 3i|3j|3k]", file=sys.stderr)
+                         or only not in ("3i", "3j", "3k", "3l")):
+        print("usage: chip_smoke.py [--only 3i|3j|3k|3l]", file=sys.stderr)
         return 2
     card = smi()
     device = torch.device("cuda", 0)
@@ -3850,11 +4225,13 @@ def main() -> int:
         f"{walks}, tr_kernel_ok {big.tr_kernel_ok}")
     if walks != ["flat2", "flat"] or not big.tr_kernel_ok:
         raise AssertionError("scene A does not route as the JAX package's")
-    if only in ("3j", "3k"):  # phase 3j or 3k alone
+    if only in ("3j", "3k", "3l"):  # phase 3j, 3k or 3l alone
         if only == "3j":
             phase_rows_10_11(device, showcase, tex, big)
-        else:
+        elif only == "3k":
             phase_rows_13_14(device, tex, big)
+        else:
+            phase_rows_12_2(device, big)
         log(f"chip_smoke: phase {only} passed in "
             f"{time.perf_counter() - start:.1f} s")
         print(card)
@@ -3886,6 +4263,7 @@ def main() -> int:
     phase_redesigned(device, showcase)
     phase_rows_10_11(device, showcase, tex, big)
     phase_rows_13_14(device, tex, big)
+    rows_12_2 = phase_rows_12_2(device, big, design_counts=False)
     launches = phase_main_path(device)
     flat_launches, flat_render = phase_showcase(device, showcase)
     walk_launches = phase_showcase_tex(device, tex)
@@ -3920,13 +4298,19 @@ def main() -> int:
                 "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
                 "library_ms": None}
 
+    # Row 2 at the main path's shape on scene A: the 2^18 camera lanes of
+    # the middle wavefront, merged with row 11's record in the launch.
+    old_ms, new_ms, b, _, _, plain_ms = rows_12_2["ab"][
+        "row 2 scene A camera lanes, merged"]
+    row2_time = (min(new_ms), plain_ms) + b
     kernels = [
         entry("mt_closest_hit", "mt_closest_hit.cu", "pallas_intersect.py:39",
               launches["mt_closest_hit"], max(s[1] for s in tri_stats),
               times["mt"]),
         entry("sphere_closest_hit", "sphere_closest_hit.cu",
               "pallas_spheres.py:34", launches["sphere_closest_hit"],
-              max(s[1] for s in sph_stats), times["sphere"]),
+              max([s[1] for s in sph_stats] + [rows_12_2["row2_err"]]),
+              row2_time),
         entry("flat_closest_hit", "flat_closest_hit.cu", "pallas_bvh.py:549",
               flat_launches["flat_closest_hit"],
               max(s[1] for s in flat_stats), flat_times["camera"]),
@@ -3945,7 +4329,8 @@ def main() -> int:
               flat2_times["camera"]),
         entry("flat2_occluded", "flat2_occluded.cu", "pallas_bvh.py:1464",
               big_launches["flat2_occluded"],
-              max(occ2_err, flat2_times["occluded err"]),
+              max(occ2_err, flat2_times["occluded err"],
+                  rows_12_2["row12_err"]),
               flat2_times["occluded"]),
         entry("sph_walk", "sph_walk.cu", "pallas_spheres.py:385",
               grid_launches["sph_walk"],

@@ -39,8 +39,8 @@
 // with no barrier, refilling it by another pass only if it uses all K and
 // walks on. A step reads the column's attribute rows and its texel from
 // device memory (the page plane is L2-resident) and the code's value from
-// the LUT in shared memory. The CTA design it replaced is ptt_alpha_walk_cta
-// in ab_baselines.cu.
+// the LUT in shared memory. It replaced a CTA design that streamed the
+// table through shared memory once per step behind CTA barriers.
 //
 // Inputs:  o, d [R,3] f32; t_op [R] f32; rnd [steps_cap, R] f32; the table
 //          (trwalk_common.cuh) with its group boxes grp [7, gp] (min.xyz,

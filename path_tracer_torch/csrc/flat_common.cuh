@@ -4,12 +4,12 @@
 // sphere root rules are written.
 //
 // Two walks share them. The CTA walk (cta_min_key_max through
-// occluded_block, and flat_occ_set) serves flat2_occluded.cu,
-// fused_shadow.cu, sph_walk.cu and sph_occ.cu: a CTA of 128 rays shares
-// one walk and stages each visited block in shared memory behind CTA
-// barriers. The warp
-// walk (kFullMask to the end) serves flat_closest_hit.cu, flat_occluded.cu
-// and flat2_closest_hit.cu: each warp is its own packet, with no CTA
+// occluded_block, and flat_occ_set) serves fused_shadow.cu, sph_walk.cu,
+// sph_occ.cu and the replaced flat2 any-hit in ab_baselines.cu: a CTA of
+// 128 rays shares one walk and stages each visited block in shared memory
+// behind CTA barriers. The warp walk (kFullMask to the end) serves
+// flat_closest_hit.cu, flat_occluded.cu, flat2_closest_hit.cu and
+// flat2_occluded.cu: each warp is its own packet, with no CTA
 // barrier; its gate admits block columns with the mask of the rays they
 // admit, and each admitted block is spread over the warp. safe_inv, Box,
 // load_box, slab, the gates and sphere_nearest serve both; the warp walk's
@@ -283,30 +283,6 @@ __device__ __forceinline__ void stage_block(const float* __restrict__ bw,
   __syncthreads();
 }
 
-// Closest-hit BW test of one lane against the block staged in s_bw (block
-// id b, 'block' slots): keeps the lexicographic (t, packed slot) minimum of
-// (bt, bi) and the hits with t >= kTMin and t > tp.
-__device__ __forceinline__ void closest_block(const float* s_bw, int b,
-                                              int block, float ox, float oy,
-                                              float oz, float dx, float dy,
-                                              float dz, float tp, float& bt,
-                                              float& bu, float& bv, float& bb,
-                                              int& bi) {
-  for (int j = 0; j < block; ++j) {
-    float dn;
-    bool ok;
-    const float t = bw_plane(s_bw + j, block, ox, oy, oz, dx, dy, dz, dn, ok);
-    if (!(ok && t >= kTMin && t > tp && t <= bt)) continue;
-    float u, v;
-    if (!bw_inside(s_bw + j, block, ox, oy, oz, dx, dy, dz, t, u, v))
-      continue;
-    const int slot = b * block + j;
-    if (t < bt || slot < bi) {  // t == bt here: the lower slot wins
-      bt = t; bu = u; bv = v; bb = dn > 0.f ? 1.f : 0.f; bi = slot;
-    }
-  }
-}
-
 // Any-hit BW test of one lane against the block staged in s_bw: true at the
 // first hit with kTMin <= t <= tm.
 __device__ __forceinline__ bool occluded_block(const float* s_bw, int block,
@@ -382,8 +358,8 @@ __device__ __forceinline__ bool flat_occ_set(const FlatTable& ft, float ox,
   return occ;
 }
 
-// ---- The warp walk (flat_closest_hit.cu, flat_occluded.cu and
-// flat2_closest_hit.cu) ----
+// ---- The warp walk (flat_closest_hit.cu, flat_occluded.cu,
+// flat2_closest_hit.cu and flat2_occluded.cu) ----
 
 constexpr unsigned kFullMask = 0xffffffffu;
 

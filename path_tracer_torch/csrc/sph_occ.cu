@@ -30,8 +30,7 @@
 // Design: blockIdx.y picks the set, so one launch serves all L lights and a
 // CTA is 128 consecutive rays of one set. The dense kernel stages the
 // sphere table in shared memory in chunks of 512 (8 KB, read as
-// broadcasts), as sphere_closest_hit.cu does, while some lane of the CTA
-// is still open. The walk is sph_walk.cu's CTA walk with the any-hit gate:
+// broadcasts) while some lane of the CTA is still open. The walk is sph_walk.cu's CTA walk with the any-hit gate:
 // blocks keyed by their nearest slab entry over the CTA's live lanes,
 // visited nearest first while some lane is unoccluded and slab-passes one,
 // its [4, 128] spheres staged in shared memory.

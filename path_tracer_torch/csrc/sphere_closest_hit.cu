@@ -1,4 +1,5 @@
-// Dense sphere closest hit, one thread per ray.
+// Dense sphere closest hit, one thread per ray, writing the final hit
+// record; an optional triangle record is merged in the same launch.
 //
 // Replaces the TPU kernel path_tracer_tpu/ops/pallas_spheres.py::_kernel
 // (launched by _launch, entry closest_hit_spheres_pallas). Contract kept:
@@ -14,14 +15,29 @@
 //     every operation rounds as in the plain PyTorch version;
 //   - padding spheres (center 1e30, radius 0) overflow the quadratic to
 //     inf/NaN in IEEE arithmetic and never hit.
+// The record is ops/intersect.py's HitRecord, field by field: t, kind (2 on
+// a hit, 0 on a miss), prim, u = v = 0, backface as a byte of the bool
+// tensor. With a triangle record (t, kind, prim, u, v, backface) the lane
+// keeps the triangle's fields unless the sphere's t is strictly smaller:
+// closest_hit's merge (ops/intersect.py merge_hits), the triangle winning
+// ties, as the fused sphere pass of flat_closest_hit.cu merges.
 //
-// Bound: arithmetic, R*S quadratic solves (about 25 flops, a sqrt and two
-// IEEE divisions per valid discriminant). The [4, S] table is staged in
-// shared memory 512 columns (8 KB) at a time and read as a broadcast; the
-// running best stays in registers.
+// Bound on the card: arithmetic, R*S quadratic solves (about 25 flops, a
+// sqrt and two IEEE divisions per valid discriminant), or at few spheres
+// the bytes of the rays and the records (about 70 B a lane with a
+// triangle record). Design: the [4, S] table is read through the
+// read-only cache, every lane of the CTA reading the same column (a
+// broadcast, as flat_closest_hit.cu's sphere pass reads it): no shared
+// memory and no barrier. The running best stays in registers. Writing the
+// record in the launch spares the caller the ATen ops that built it and
+// merged it with the triangle record (5 small launches a call, 12 with a
+// triangle record).
 //
-// Inputs:  o, d [R,3] f32; t_prev [R] f32; sph [4,S] f32 rows (cx, cy, cz, r).
-// Outputs: fout [2,R] f32 rows (t, backface 0/1); iout [R] i32 prim.
+// Inputs:  o, d [R,3] f32; t_prev [R] f32; sph [4,S] f32 rows (cx, cy, cz,
+//          r); optional triangle record tri_t, tri_u, tri_v [R] f32,
+//          tri_kind, tri_prim [R] i32, tri_back [R] u8 (all null for none).
+// Outputs: fout [3,R] f32 rows (t, u, v); iout [2,R] i32 rows (kind,
+//          prim); bout [R] u8 backface.
 
 #include "flat_common.cuh"  // sphere_nearest: the root rules, shared with
                              // the fused sphere pass of flat_closest_hit.cu
@@ -29,67 +45,78 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 512;
+constexpr int kKindSphere = 2;
+
+// A triangle record to merge: null pointers for none.
+struct TriRecord {
+  const float* t;
+  const float* u;
+  const float* v;
+  const int* kind;
+  const int* prim;
+  const unsigned char* back;
+};
 
 __global__ void __launch_bounds__(kThreads)
 sphere_closest_hit_kernel(const float* __restrict__ o,
                           const float* __restrict__ d,
                           const float* __restrict__ t_prev,
                           const float* __restrict__ sph, int R, int S,
-                          float* __restrict__ fout, int* __restrict__ iout) {
-  __shared__ float s[4][kChunk];
+                          TriRecord tri, float* __restrict__ fout,
+                          int* __restrict__ iout,
+                          unsigned char* __restrict__ bout) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool in_range = i < R;
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  float tp = CUDART_INF_F;
-  if (in_range) {
-    ox = o[3 * i]; oy = o[3 * i + 1]; oz = o[3 * i + 2];
-    dx = d[3 * i]; dy = d[3 * i + 1]; dz = d[3 * i + 2];
-    tp = t_prev[i];
-  }
-  const bool live = tp < CUDART_INF_F;
-  const float a = dx * dx + dy * dy + dz * dz;
-  const float two_a = 2.0f * a;
-
-  float bt = CUDART_INF_F, bb = 0.f;
+  if (i >= R) return;
+  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+  const float tp = t_prev[i];
+  float bt = CUDART_INF_F;
+  bool bb = false;
   int bi = 0;
-  for (int base = 0; base < S; base += kChunk) {
-    const int n = min(kChunk, S - base);
-    __syncthreads();
-    for (int c = threadIdx.x; c < n; c += kThreads) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) s[r][c] = sph[(size_t)r * S + base + c];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < n; ++j) {
+  if (tp < CUDART_INF_F) {
+    const float a = dx * dx + dy * dy + dz * dz;
+    const float two_a = 2.0f * a;
+    for (int j = 0; j < S; ++j) {
       bool far;
-      const float t_near = ptt::sphere_nearest(ox, oy, oz, dx, dy, dz, a,
-                                               two_a, tp, s[0][j], s[1][j],
-                                               s[2][j], s[3][j], far);
-      if (t_near < bt) {
-        bt = t_near; bb = far ? 1.f : 0.f; bi = base + j;
-      }
+      const float t = ptt::sphere_nearest(
+          ox, oy, oz, dx, dy, dz, a, two_a, tp, __ldg(sph + j),
+          __ldg(sph + S + j), __ldg(sph + 2 * S + j), __ldg(sph + 3 * S + j),
+          far);
+      if (t < bt) { bt = t; bb = far; bi = j; }
     }
   }
-  if (in_range) {
-    fout[i] = bt;
-    fout[(size_t)R + i] = bb;
-    iout[i] = bi;
+  float t = bt, u = 0.f, v = 0.f;
+  int kind = bt < CUDART_INF_F ? kKindSphere : 0, prim = bi;
+  bool back = bb;
+  if (tri.t) {
+    const float tt = tri.t[i];
+    if (tt <= bt) {  // the triangle wins ties (both +inf: its miss record)
+      t = tt; u = tri.u[i]; v = tri.v[i]; kind = tri.kind[i];
+      prim = tri.prim[i]; back = tri.back[i] != 0;
+    }
   }
+  fout[i] = t;
+  fout[(size_t)R + i] = u;
+  fout[2 * (size_t)R + i] = v;
+  iout[i] = kind;
+  iout[(size_t)R + i] = prim;
+  bout[i] = back ? 1 : 0;
 }
 
 }  // namespace
 
-extern "C" int ptt_sphere_closest_hit(const float* o, const float* d,
-                                      const float* t_prev, const float* sph,
-                                      int R, int S, float* fout, int* iout,
-                                      int device, cudaStream_t stream) {
+extern "C" int ptt_sphere_closest_hit(
+    const float* o, const float* d, const float* t_prev, const float* sph,
+    const float* tri_t, const float* tri_u, const float* tri_v,
+    const int* tri_kind, const int* tri_prim, const unsigned char* tri_back,
+    int R, int S, float* fout, int* iout, unsigned char* bout, int device,
+    cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0) return 0;
+  const TriRecord tri{tri_t, tri_u, tri_v, tri_kind, tri_prim, tri_back};
   const int blocks = (R + kThreads - 1) / kThreads;
   sphere_closest_hit_kernel<<<blocks, kThreads, 0, stream>>>(
-      o, d, t_prev, sph, R, S, fout, iout);
+      o, d, t_prev, sph, R, S, tri, fout, iout, bout);
   return (int)cudaGetLastError();
 }

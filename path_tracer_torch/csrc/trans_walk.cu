@@ -38,8 +38,7 @@
 // min(steps_cap, 8) nearest distinct candidates in one pass and steps
 // through them. The product multiplies in ascending column order where the
 // Pallas kernel used a butterfly. Row 15 (fused_shadow.cu) keeps the CTA
-// body trans_lane_cta, which the design this one replaced
-// (ptt_trans_walk_cta in ab_baselines.cu) also runs.
+// body trans_lane_cta, which the design this one replaced also ran.
 //
 // Inputs:  o, d [R,3] f32; aux [8,R] f32: pd (-1 dead), is point (0/1),
 //          surface point xyz, original uv, original is sphere (0/1); the

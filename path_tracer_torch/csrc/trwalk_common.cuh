@@ -8,8 +8,8 @@
 //   with no barrier: one pass over the groups its segment enters collects
 //   its nearest candidates, sorted in registers, and the steps consume
 //   that list.
-// - The CTA walk (fused_shadow.cu's trans_lane_cta, and the designs rows
-//   13 and 14 replaced, in ab_baselines.cu): a CTA of 128 lanes streams
+// - The CTA walk (fused_shadow.cu's trans_lane_cta, the body of the
+//   designs rows 13 and 14 replaced): a CTA of 128 lanes streams
 //   the table through shared memory in 256-column chunks behind CTA
 //   barriers, once per step while any of its lanes still walks.
 //
@@ -166,9 +166,8 @@ __device__ __forceinline__ void stage_lut(const float* lut, float* s_lut) {
 constexpr int kTransSmemFloats = 12 * kTrChunk + 256;
 
 // The per-lane body of the CTA transmittance walk (fused_shadow.cu runs it
-// after the any-hit; ab_baselines.cu's ptt_trans_walk_cta alone): trans,
-// t_prev and whether the lane would walk on past steps_cap (contract in
-// trans_walk.cu). A lane is dead when pd < 0. s_bw holds 12 * kTrChunk
+// after the any-hit): trans, t_prev and whether the lane would walk on past
+// steps_cap (contract in trans_walk.cu). A lane is dead when pd < 0. s_bw holds 12 * kTrChunk
 // floats; s_lut the LUT, staged by the caller. Every thread of the CTA must
 // call it.
 template <class Texel>

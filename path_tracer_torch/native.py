@@ -186,10 +186,16 @@ def kernels() -> Kernels:
         seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        # (o, d, t_prev, table, R, N, fout, iout, device, stream)
-        for fn in (lib.ptt_mt_closest_hit, lib.ptt_sphere_closest_hit):
+        # (o, d, t_prev, table, R, N, fout, iout, device, stream); the
+        # design the sphere kernel replaced (ab_baselines.cu) takes the same
+        for fn in (lib.ptt_mt_closest_hit, lib.ptt_sphere_closest_hit_chunked):
             fn.restype = ci
             fn.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, ci, vp]
+        # (o, d, t_prev, sph, tri_t, tri_u, tri_v, tri_kind, tri_prim,
+        #  tri_back, R, S, fout, iout, bout, device, stream)
+        lib.ptt_sphere_closest_hit.restype = ci
+        lib.ptt_sphere_closest_hit.argtypes = [vp] * 10 + [ci] * 2 + [vp] * 3 \
+            + [ci, vp]
         # (o, d, t_prev, blkflat, blkid, bw, sph, R, bpad, block, n_cols, S,
         #  sph_row_base, fout, iout, device, stream)
         lib.ptt_flat_closest_hit.restype = ci
@@ -205,24 +211,23 @@ def kernels() -> Kernels:
         lib.ptt_flat2_closest_hit.argtypes = [vp] * 8 + [ci] * 5 + [vp, vp,
                                                                    ci, vp]
         # (o, d, t_max, sbflat, sbid, blkflat, blkid, bw, R, L, sbpad, bpad,
-        #  block, n_cols, out, device, stream)
-        lib.ptt_flat2_occluded.restype = ci
-        lib.ptt_flat2_occluded.argtypes = [vp] * 8 + [ci] * 6 + [vp, ci, vp]
+        #  block, n_cols, out, device, stream); the replaced design
+        #  (ab_baselines.cu) takes the same
+        for fn in (lib.ptt_flat2_occluded, lib.ptt_flat2_occluded_cta):
+            fn.restype = ci
+            fn.argtypes = [vp] * 8 + [ci] * 6 + [vp, ci, vp]
         # (o, d, t_prev, blk, blkid, sph, R, sbpad, n_slots, fout, iout,
         #  device, stream)
         lib.ptt_sph_walk.restype = ci
         lib.ptt_sph_walk.argtypes = [vp] * 6 + [ci] * 3 + [vp, vp, ci, vp]
         # (o, d, t_op, rnd, bw, rows, tex, lut, pages, grp, R, T, gp, wp,
-        #  steps_cap, textured, live, fout, iout, device, stream); the
-        #  replaced design (ab_baselines.cu) takes the same
-        for fn in (lib.ptt_alpha_walk, lib.ptt_alpha_walk_cta):
-            fn.restype = ci
-            fn.argtypes = [vp] * 10 + [ci] * 7 + [vp, vp, ci, vp]
+        #  steps_cap, textured, live, fout, iout, device, stream)
+        lib.ptt_alpha_walk.restype = ci
+        lib.ptt_alpha_walk.argtypes = [vp] * 10 + [ci] * 7 + [vp, vp, ci, vp]
         # (o, d, aux, bw, rows, tex, lut, pages, grp, R, T, gp, wp,
         #  steps_cap, textured, live, fout, device, stream)
-        for fn in (lib.ptt_trans_walk, lib.ptt_trans_walk_cta):
-            fn.restype = ci
-            fn.argtypes = [vp] * 9 + [ci] * 7 + [vp, ci, vp]
+        lib.ptt_trans_walk.restype = ci
+        lib.ptt_trans_walk.argtypes = [vp] * 9 + [ci] * 7 + [vp, ci, vp]
         # (o, d, t_max, sph, R, L, S, ld, out, device, stream)
         lib.ptt_sph_occluded.restype = ci
         lib.ptt_sph_occluded.argtypes = [vp] * 4 + [ci] * 4 + [vp, ci, vp]
@@ -294,6 +299,52 @@ def launch_closest_hit(fn: str, o, d, t_prev, table, table_rows: int,
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return fout, iout
+
+
+def launch_sphere_closest_hit(o, d, t_prev, sph, tri=None):
+    """Check the operands of the dense sphere closest-hit kernel, allocate
+    its outputs and launch it on the current stream (no synchronisation).
+
+    o, d: [R,3] f32; t_prev: [R] f32; sph: [4,S] f32; tri: None or a
+    triangle record (t, kind, prim, u, v, backface: [R] f32, i32, i32, f32,
+    f32, bool) merged in the launch, a sphere winning only on a strictly
+    smaller t. Returns the record's storage: (fout [3,R] f32 rows t, u, v;
+    iout [2,R] i32 rows kind, prim; backface [R] bool)."""
+    fn = "ptt_sphere_closest_hit"
+    device = o.device
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
+    r = o.shape[0]
+    n = sph.shape[1] if sph.dim() == 2 else -1
+    _check("o", o, (r, 3), torch.float32, device)
+    _check("d", d, (r, 3), torch.float32, device)
+    _check("t_prev", t_prev, (r,), torch.float32, device)
+    _check("sph", sph, (4, n), torch.float32, device)
+    fields = ()
+    if tri is not None:
+        t, kind, prim, u, v, back = tri
+        fields = (t, u, v, kind, prim, back)  # the kernel's order
+        for name, x, dtype in zip(("tri t", "tri u", "tri v", "tri kind",
+                                   "tri prim", "tri backface"), fields,
+                                  (torch.float32,) * 3 + (torch.int32,) * 2
+                                  + (torch.bool,)):
+            _check(name, x, (r,), dtype, device)
+    if 3 * r >= 2**31 or 4 * n >= 2**31:
+        raise ValueError(f"{fn}: {r} rays x {n} spheres exceed int32 "
+                         "indexing")
+    lib = kernels().lib
+    tri_ptrs = [x.data_ptr() for x in fields] or [None] * 6
+    fout = torch.empty((3, r), dtype=torch.float32, device=device)
+    iout = torch.empty((2, r), dtype=torch.int32, device=device)
+    bout = torch.empty((r,), dtype=torch.bool, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.ptt_sphere_closest_hit(
+        o.data_ptr(), d.data_ptr(), t_prev.data_ptr(), sph.data_ptr(),
+        *tri_ptrs, r, n, fout.data_ptr(), iout.data_ptr(), bout.data_ptr(),
+        device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    return fout, iout, bout
 
 
 def _check_flat_tables(fn: str, blkflat, blkid, bw, block: int, device):
@@ -440,7 +491,14 @@ def launch_flat2_occluded(o, ds, t_maxes, sbflat, sbid, blkflat, blkid, bw,
     o: [R,3] f32; ds: [L,R,3] f32; t_maxes: [L,R] f32 (< 0 = dead lane);
     tables as for ``launch_flat2_closest_hit``. Returns out [L,R] f32
     (1 = occluded or dead)."""
-    fn = "ptt_flat2_occluded"
+    return _launch_flat2_occluded("ptt_flat2_occluded", o, ds, t_maxes,
+                                  sbflat, sbid, blkflat, blkid, bw, block)
+
+
+def _launch_flat2_occluded(fn: str, o, ds, t_maxes, sbflat, sbid, blkflat,
+                           blkid, bw, block: int):
+    """``launch_flat2_occluded`` through the exported symbol ``fn``, which
+    ``ops/ab_baselines.py`` alone sets to the design the kernel replaced."""
     device = o.device
     r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
     bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
@@ -448,7 +506,7 @@ def launch_flat2_occluded(o, ds, t_maxes, sbflat, sbid, blkflat, blkid, bw,
     lib = kernels().lib
     out = torch.empty((n_sets, r), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.ptt_flat2_occluded(
+    err = getattr(lib, fn)(
         o.data_ptr(), ds.data_ptr(), t_maxes.data_ptr(), sbflat.data_ptr(),
         sbid.data_ptr(), blkflat.data_ptr(), blkid.data_ptr(), bw.data_ptr(),
         r, n_sets, sbpad, bpad, block, n_cols, out.data_ptr(), device.index,
@@ -541,14 +599,7 @@ def launch_alpha_walk(o, d, t_op, rnd, scene, steps_cap: int, live=None):
     the scene's tr_* tables and ``tr_grp``, or with ``live``
     (``trwalk.LiveTables``) the live variant on its rows and f32 plane.
     Returns (fout [8,R] f32, iout [R] i32)."""
-    return _launch_alpha_walk("ptt_alpha_walk", o, d, t_op, rnd, scene,
-                              steps_cap, live)
-
-
-def _launch_alpha_walk(fn: str, o, d, t_op, rnd, scene, steps_cap: int,
-                       live=None):
-    """``launch_alpha_walk`` through the exported symbol ``fn``, which
-    ``ops/ab_baselines.py`` alone sets to the design the kernel replaced."""
+    fn = "ptt_alpha_walk"
     device = o.device
     if device.type != "cuda":
         raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
@@ -565,7 +616,7 @@ def _launch_alpha_walk(fn: str, o, d, t_op, rnd, scene, steps_cap: int,
     fout = torch.empty((8, r), dtype=torch.float32, device=device)
     iout = torch.empty((r,), dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, fn)(
+    err = lib.ptt_alpha_walk(
         o.data_ptr(), d.data_ptr(), t_op.data_ptr(), rnd.data_ptr(),
         scene.tr_bw.data_ptr(), rows.data_ptr(), tex.data_ptr(),
         scene.tr_lut.data_ptr(), scene.tr_page_table.data_ptr(),
@@ -585,14 +636,7 @@ def launch_trans_walk(o, d, aux, scene, steps_cap: int, live=None):
     uv, original is sphere); the scene's tr_* tables, or ``live`` as for
     ``launch_alpha_walk``. Returns fout [3,R] f32 (trans, t_prev, still
     walking)."""
-    return _launch_trans_walk("ptt_trans_walk", o, d, aux, scene, steps_cap,
-                              live)
-
-
-def _launch_trans_walk(fn: str, o, d, aux, scene, steps_cap: int,
-                       live=None):
-    """``launch_trans_walk`` through the exported symbol ``fn``, which
-    ``ops/ab_baselines.py`` alone sets to the design the kernel replaced."""
+    fn = "ptt_trans_walk"
     device = o.device
     if device.type != "cuda":
         raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
@@ -607,7 +651,7 @@ def _launch_trans_walk(fn: str, o, d, aux, scene, steps_cap: int,
     lib = kernels().lib
     fout = torch.empty((3, r), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, fn)(
+    err = lib.ptt_trans_walk(
         o.data_ptr(), d.data_ptr(), aux.data_ptr(), scene.tr_bw.data_ptr(),
         rows.data_ptr(), tex.data_ptr(), scene.tr_lut.data_ptr(),
         scene.tr_page_table.data_ptr(), scene.tr_grp.data_ptr(), r, n_cols,

@@ -1,42 +1,55 @@
-"""The designs the alpha walk and the transmittance walk replaced, launched
-through their own symbols (``csrc/ab_baselines.cu``), only to be timed
-against the current kernels in turns on one card and to show that the two
-designs agree.
+"""The designs the flat2 any-hit and the dense sphere closest hit replaced,
+launched through their own symbols (``csrc/ab_baselines.cu``), only to be
+timed against the current kernels in turns on one card and to show that
+the two designs agree.
 
-Nothing on the main path reaches this module: ``chip_smoke.py``'s phase 3k
+Nothing on the main path reaches this module: ``chip_smoke.py``'s phase 3l
 and two card tests in ``tests/test_torch_cuda.py`` call it. The functions
-take CUDA tensors only, count no launches and take and map their operands
-exactly as ``cuda_trwalk.alpha_walk`` and ``cuda_trwalk.trans_walk`` do,
-so either can stand in for its kernel's wrapper.
+take CUDA tensors only, count no launches and take their operands as
+``cuda_bvh.occluded_triangles_flat2_multi`` and
+``cuda_spheres.closest_hit_spheres_cuda`` do, so either can stand in for
+its kernel's wrapper.
 """
 from __future__ import annotations
 
+import torch
+
 from path_tracer_torch import native
-from path_tracer_torch.ops.cuda_trwalk import trans_aux
-from path_tracer_torch.ops.intersect import _detach_for_kernel
-from path_tracer_torch.ops.trwalk import AlphaWalk, TransWalk
+from path_tracer_torch.ops.intersect import (
+    KIND_SPHERE,
+    HitRecord,
+    _detach_for_kernel,
+    _kind,
+    merge_hits,
+)
 
 
 @_detach_for_kernel
-def alpha_walk_cta(scene, o, d, t_op, rnd, steps_cap: int,
-                   live=None) -> AlphaWalk:
-    """The alpha walk through the CTA walk (128 lanes share each step, the
-    table streamed through shared memory in 256-column chunks)."""
-    fout, col = native._launch_alpha_walk(
-        "ptt_alpha_walk_cta", o.contiguous(), d.contiguous(),
-        t_op.contiguous(), rnd.narrow(0, 0, steps_cap).contiguous(), scene,
-        steps_cap, live)
-    return AlphaWalk(fout[0], fout[1], fout[2], fout[3], fout[4] > 0.0,
-                     fout[5] > 0.0, fout[6] > 0.0, fout[7], col)
+def occluded_triangles_flat2_cta(o, ds, t_maxes, scene) -> torch.Tensor:
+    """The flat2 any-hit through the CTA walk (128 rays share one cursor,
+    each visited block staged in shared memory behind CTA barriers):
+    [L,R] bool."""
+    out = native._launch_flat2_occluded(
+        "ptt_flat2_occluded_cta", o.contiguous(),
+        torch.stack(list(ds)).contiguous(),
+        torch.stack(list(t_maxes)).contiguous(), scene.sl_sbflat,
+        scene.sl_sbid, scene.sl_blkflat, scene.sl_blkid, scene.sl_bw_t,
+        scene.sl_block)
+    return out > 0.0
 
 
 @_detach_for_kernel
-def trans_walk_cta(scene, o, d, pd, is_pt, surf_pos, orig_uv, orig_simple,
-                   walking0, steps_cap: int, live=None) -> TransWalk:
-    """The transmittance walk through the CTA walk (``trans_lane_cta``,
-    the body row 15 keeps)."""
-    fout = native._launch_trans_walk(
-        "ptt_trans_walk_cta", o.contiguous(), d.contiguous(),
-        trans_aux(pd, is_pt, surf_pos, orig_uv, orig_simple, walking0),
-        scene, steps_cap, live)
-    return TransWalk(fout[0], fout[1], fout[2] > 0.0)
+def closest_hit_spheres_chunked(o, d, t_prev, scene, tri=None) -> HitRecord:
+    """The dense sphere closest hit as it was: the chunked kernel's (t,
+    backface, prim), mapped to a HitRecord by ATen ops and merged with the
+    triangle record ``tri`` by ``merge_hits`` (six ``torch.where``)."""
+    if getattr(scene, "sph_use_blocks", False):
+        raise ValueError("the replaced dense kernel serves no sphere walk")
+    fout, iout = native.launch_closest_hit(
+        "ptt_sphere_closest_hit_chunked", o, d, t_prev, scene.sph_packed_t,
+        table_rows=4, out_rows=2)
+    t = fout[0]
+    zeros = torch.zeros_like(t)
+    sph = HitRecord(t=t, kind=_kind(t, KIND_SPHERE), prim=iout, u=zeros,
+                    v=zeros, backface=fout[1] != 0.0)
+    return sph if tri is None else merge_hits(tri, sph)

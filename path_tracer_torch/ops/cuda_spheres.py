@@ -5,7 +5,8 @@ Counterpart of ``path_tracer_tpu/ops/pallas_spheres.py``:
 
 - ``csrc/sphere_closest_hit.cu`` replaces ``pallas_spheres._kernel``
   (entry ``closest_hit_spheres_pallas``) for scenes of at most 512
-  spheres: dense, every ray against every sphere;
+  spheres: dense, every ray against every sphere, the launch writing the
+  whole HitRecord and merging a triangle record into it;
 - ``csrc/sph_walk.cu`` replaces ``pallas_spheres._sph_walk_kernel``
   (``_sph_walk_launch``, the same entry with ``sph_use_blocks``) for
   larger scenes: a walk over SAH blocks of 128 spheres;
@@ -42,8 +43,10 @@ a root t with 0 <= t <= t_max (has, and the root in range); the walk's
 block gate is tf >= max(tn, 0), tn <= t_max, t_max >= 0, id >= 0. A dead
 lane (t_max < 0) reports NOT occluded, unlike the triangle any-hit.
 
-The wrapper maps the sorted slot to the sphere index through
-``sph_smap`` (0 on a miss) with u = v = 0. Each kernel is built
+The walk's wrapper maps the sorted slot to the sphere index through
+``sph_smap`` (0 on a miss) with u = v = 0, and merges a triangle record
+with ``merge_hits``; the dense kernel writes its record (and the merge)
+itself, its wrapper running no ATen op. Each kernel is built
 -fmad=false and sums in its plain version's order, so the two agree
 exactly.
 """
@@ -58,6 +61,7 @@ from path_tracer_torch.ops.intersect import (
     _kind,
     _ray_chunks,
     closest_hit_spheres,
+    merge_hits,
 )
 from path_tracer_torch.ops.slab import (
     closest_gate,
@@ -140,33 +144,44 @@ def closest_hit_spheres_walk_plain(o, d, t_prev, scene) -> HitRecord:
     return _walk_record(*_sph_walk_plain(o, d, t_prev, scene), scene)
 
 
-def closest_hit_spheres_cuda(o, d, t_prev, scene) -> HitRecord:
+def closest_hit_spheres_merged_plain(o, d, t_prev, scene,
+                                     tri=None) -> HitRecord:
+    """Plain version of the dense kernel, on any device: the dense sphere
+    cast, merged with the triangle record ``tri`` (``merge_hits``) when
+    one is given."""
+    sph = closest_hit_spheres(o, d, t_prev, scene)
+    return sph if tri is None else merge_hits(tri, sph)
+
+
+def closest_hit_spheres_cuda(o, d, t_prev, scene, tri=None) -> HitRecord:
     """Nearest sphere root of each ray that is >= 0 and > t_prev: the block
-    walk when ``scene.sph_use_blocks``, else the dense pass.
+    walk when ``scene.sph_use_blocks``, else the dense pass; with ``tri``
+    (a triangle HitRecord of the same rays) the closest of the two, a
+    sphere winning only on a strictly smaller t (``merge_hits``).
 
     o, d: [R,3] f32; t_prev: [R] f32 (+inf marks a dead lane); reads
     ``scene.sph_packed_t`` [4, S] or the ``sph_*`` block tables. CUDA
-    tensors launch the kernel (or raise); CPU tensors take the plain
-    version."""
+    tensors launch the kernel (or raise), the dense kernel writing the
+    whole record, merge included, in its launch; CPU tensors take the
+    plain version."""
     global launches, sph_walk_launches
     if getattr(scene, "sph_use_blocks", False):
         if o.device.type == "cpu":
-            return closest_hit_spheres_walk_plain(o, d, t_prev, scene)
-        fout, slot = native.launch_sph_walk(o, d, t_prev, scene.sph_blk,
-                                            scene.sph_blkid,
-                                            scene.sph_sorted_t)
-        sph_walk_launches += 1
-        return _walk_record(fout[0], fout[1] != 0.0, slot, scene)
+            sph = closest_hit_spheres_walk_plain(o, d, t_prev, scene)
+        else:
+            fout, slot = native.launch_sph_walk(o, d, t_prev, scene.sph_blk,
+                                                scene.sph_blkid,
+                                                scene.sph_sorted_t)
+            sph_walk_launches += 1
+            sph = _walk_record(fout[0], fout[1] != 0.0, slot, scene)
+        return sph if tri is None else merge_hits(tri, sph)
     if o.device.type == "cpu":
-        return closest_hit_spheres(o, d, t_prev, scene)
-    fout, iout = native.launch_closest_hit(
-        "ptt_sphere_closest_hit", o, d, t_prev, scene.sph_packed_t,
-        table_rows=4, out_rows=2)
+        return closest_hit_spheres_merged_plain(o, d, t_prev, scene, tri)
+    fout, iout, back = native.launch_sphere_closest_hit(
+        o, d, t_prev, scene.sph_packed_t, tri)
     launches += 1
-    t = fout[0]
-    zeros = torch.zeros_like(t)
-    return HitRecord(t=t, kind=_kind(t, KIND_SPHERE), prim=iout, u=zeros,
-                     v=zeros, backface=fout[1] != 0.0)
+    return HitRecord(t=fout[0], kind=iout[0], prim=iout[1], u=fout[1],
+                     v=fout[2], backface=back)
 
 
 def _any_root(o, d, sph, t_max):

@@ -17,16 +17,19 @@ tensors on the CPU and as the reference the CUDA kernels are held against.
 ``closest_hit`` and ``occluded_multi`` dispatch on the scene and the
 tensors' device:
 
-- brute-force scenes (``use_bvh`` False): ``cuda_intersect`` (MT) and
-  ``cuda_spheres``; shadows take the nearest triangle hit, light by light;
+- brute-force scenes (``use_bvh`` False): ``cuda_intersect`` (MT), then
+  ``cuda_spheres`` merging its record as for flat2 below; shadows take
+  the nearest triangle hit, light by light;
 - BVH scenes (``use_bvh``) of at most ``FLAT_MAX_BLOCKS`` blocks (per
   scene or per opacity-partition view): ``cuda_bvh``'s flat walk with the
   dense sphere pass fused in (the JAX bench's ``PT_SPH_FUSE`` mode), and
   shadows through the exact-t_max any-hit, one launch for all of a
   bounce's lights;
 - larger BVH scenes: the flat2 walk and its any-hit, the same way; the
-  spheres are cast apart (``cuda_spheres``) and merged, the triangle
-  winning ties, as the JAX package fuses only on the flat walk;
+  spheres are cast apart (``cuda_spheres``), and the dense sphere kernel
+  merges the triangle record in its launch, the triangle winning ties
+  (``merge_hits``, the plain version of that merge), as the JAX package
+  fuses only on the flat walk;
 - ``PT_BVH_KERNEL=flat|flat2|tree`` forces a walk (the JAX package's A/B
   knob, read at call time); a BVH scene without superleaf blocks takes
   "tree". The superleaf tree walk (``cuda_bvh``'s tree kernels) casts the
@@ -216,6 +219,15 @@ def closest_hit_spheres(o, d, t_prev, scene) -> HitRecord:
                      v=zeros, backface=back)
 
 
+def merge_hits(tri: HitRecord, sph: HitRecord) -> HitRecord:
+    """``closest_hit``'s merge of a triangle and a sphere record, field by
+    field: the sphere's fields where its t is strictly smaller, else the
+    triangle's (ties and two misses keep the triangle record). The plain
+    version of the merge the dense sphere kernel makes in its launch."""
+    tri_wins = tri.t <= sph.t
+    return HitRecord(*[torch.where(tri_wins, a, b) for a, b in zip(tri, sph)])
+
+
 def _detach_for_kernel(fn):
     """The JAX package's ``_detach_for_kernel`` (``stop_gradient`` on a
     kernel's inputs) as a decorator: the entry runs under
@@ -301,15 +313,12 @@ def closest_hit(o, d, t_prev, scene, active=None,
                                           t_prev, scene, spheres=True)
     tri = (_closest_hit_tris_dispatch(o, d, t_prev, scene) if has_tris
            else _miss_record(r, o.device))
-    sph = (closest_hit_spheres_cuda(o.contiguous(), d.contiguous(), t_prev,
-                                    scene) if has_sphs
-           else _miss_record(r, o.device))
-    if not has_tris:
-        return sph
     if not has_sphs:
         return tri
-    tri_wins = tri.t <= sph.t  # both inf → KIND_NONE either way
-    return HitRecord(*[torch.where(tri_wins, a, b) for a, b in zip(tri, sph)])
+    # The sphere cast merges the triangle record (``merge_hits``; on the
+    # card inside the dense sphere kernel's launch).
+    return closest_hit_spheres_cuda(o.contiguous(), d.contiguous(), t_prev,
+                                    scene, tri=tri if has_tris else None)
 
 
 def shadow_t_max(o, d, surf_pos, max_dist):

@@ -71,28 +71,74 @@ def test_mt_kernel_equals_plain(cuda, name):
     assert not got.valid[::9].any()
 
 
+def _fake_tri(t, seed):
+    """A triangle record of hits at t (kind 1 where finite), with random
+    prim, u, v and backface."""
+    from path_tracer_torch.ops.intersect import HitRecord
+
+    g = torch.Generator(device=t.device).manual_seed(seed)
+    m = t.shape[0]
+    return HitRecord(
+        t=t.contiguous(),
+        kind=torch.where(torch.isfinite(t), 1, 0).to(torch.int32),
+        prim=torch.randint(0, 1 << 20, (m,), generator=g, device=t.device,
+                           dtype=torch.int32),
+        u=torch.rand(m, generator=g, device=t.device),
+        v=torch.rand(m, generator=g, device=t.device),
+        backface=torch.rand(m, generator=g, device=t.device) < 0.5)
+
+
 def test_sphere_kernel_equals_plain(cuda):
-    from path_tracer_torch.ops import cuda_spheres, intersect
+    """Row 2 alone and merged with a triangle record, field by field,
+    against its plain version and the chunked kernel it replaced (with its
+    ATen mapping and merge): fresh, advanced and dead lanes; a table past
+    512 columns; triangle records at random t, at the sphere's t (the
+    triangle wins every lane) and an ulp past it (the sphere wins every
+    hitting lane)."""
+    from path_tracer_torch.ops import ab_baselines, cuda_spheres, intersect
     from path_tracer_torch.scene import load_scene
     from path_tracer_torch.scene.device_scene import _pack_spheres
+
+    def check(o, d, tp, sc, tri=None):
+        before = cuda_spheres.launches
+        got = cuda_spheres.closest_hit_spheres_cuda(o, d, tp, sc, tri=tri)
+        assert cuda_spheres.launches == before + 1
+        _assert_same(got, cuda_spheres.closest_hit_spheres_merged_plain(
+            o, d, tp, sc, tri))
+        _assert_same(got, ab_baselines.closest_hit_spheres_chunked(
+            o, d, tp, sc, tri))
+        return got
 
     sc = load_scene(SCENES / "spheres" / "scene.isf", cuda)
     c = sc.sph_center[: sc.num_real_spheres].cpu().numpy()
     o, d = _rays(2, 5003, c.min(0) - 1, c.max(0) + 1, cuda)
     for tpv in (-1.0, 1.0):
         tp = torch.full((5003,), tpv, device=cuda)
-        _assert_same(cuda_spheres.closest_hit_spheres_cuda(o, d, tp, sc),
-                     intersect.closest_hit_spheres(o, d, tp, sc))
+        tp[::9] = float("inf")  # dead lanes
+        got = check(o, d, tp, sc)
+        _assert_same(got, intersect.closest_hit_spheres(o, d, tp, sc))
+        assert not got.valid[::9].any() and got.valid.float().mean() > 0.2
+        t_rand = torch.rand(5003, device=cuda) * 2.0 * got.t.nan_to_num(
+            posinf=20.0)
+        t_rand[::4] = float("inf")
+        merged = check(o, d, tp, sc, _fake_tri(t_rand, 1))
+        assert {1, 2} <= {int(k) for k in merged.kind.unique()}
+        tie = _fake_tri(got.t, 2)
+        _assert_same(check(o, d, tp, sc, tie), tie)  # the triangle wins
+        past = check(o, d, tp, sc, _fake_tri(torch.nextafter(
+            got.t, torch.tensor(float("inf"), device=cuda)), 3))
+        assert bool((past.kind[got.valid] == 2).all())
     g = np.random.default_rng(3)
-    centers = g.uniform(-5, 5, (600, 3)).astype(np.float32)  # 2 chunks
+    centers = g.uniform(-5, 5, (600, 3)).astype(np.float32)  # past 512
     radii = g.uniform(0.05, 0.4, 600).astype(np.float32)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
     big = SimpleNamespace(sph_center=t(centers), sph_radius=t(radii),
                           sph_packed_t=t(_pack_spheres(centers, radii)))
     o, d = _rays(4, 5003, np.full(3, -5.0), np.full(3, 5.0), cuda)
     tp = torch.full((5003,), -1.0, device=cuda)
-    _assert_same(cuda_spheres.closest_hit_spheres_cuda(o, d, tp, big),
-                 intersect.closest_hit_spheres(o, d, tp, big))
+    got = check(o, d, tp, big)
+    _assert_same(got, intersect.closest_hit_spheres(o, d, tp, big))
+    check(o, d, tp, big, _fake_tri(torch.flip(got.t, (0,)), 4))
 
 
 @pytest.mark.parametrize("name", ["cube", "spheres"])
@@ -211,8 +257,9 @@ def test_flat2_kernels_equal_plain(cuda, name):
     """The flat2 closest hit against its plain version (fresh, advanced and
     dead lanes) and against the flat kernel on the same tables, on every
     field of every lane; the flat2 any-hit (three sets, dead lanes) against
-    its plain version and the flat any-hit."""
-    from path_tracer_torch.ops import cuda_bvh
+    its plain version, the flat any-hit and the CTA walk it replaced, a
+    fourth set with whole and partly dead warps."""
+    from path_tracer_torch.ops import ab_baselines, cuda_bvh
 
     sc = _flat2_scenes(cuda)[name]
     r = 5003
@@ -232,6 +279,8 @@ def test_flat2_kernels_equal_plain(cuda, name):
     tm_dead[::3] = -1.0
     ds, tms = [d, d, -d], [torch.full((r,), float("inf"), device=cuda), tm,
                            tm_dead]
+    ds.append(d)
+    tms.append(torch.where(torch.isinf(_dead_warps(tm)), -1.0, tm))
     before = cuda_bvh.flat2_occluded_launches
     multi = cuda_bvh.occluded_triangles_flat2_multi(o, ds, tms, sc)
     assert cuda_bvh.flat2_occluded_launches == before + 1
@@ -239,7 +288,10 @@ def test_flat2_kernels_equal_plain(cuda, name):
         o, ds, tms, sc))
     assert torch.equal(multi, cuda_bvh.occluded_triangles_flat_multi(
         o, ds, tms, sc))
+    assert torch.equal(multi, ab_baselines.occluded_triangles_flat2_cta(
+        o, ds, tms, sc))
     assert multi[2][::3].all() and 0.05 < multi[1].float().mean() < 0.99
+    assert multi[3][tms[3] < 0].all()
 
 
 def test_sph_walk_kernel_equals_plain(cuda):
@@ -318,10 +370,10 @@ def _walk_rays(name, showcase_tex48, tie_cards, seed, r, device):
 @pytest.mark.parametrize("name", ["showcase_tex48", "tie_cards"])
 def test_alpha_walk_kernel_equals_plain(cuda, showcase_tex48, tie_cards,
                                         name, steps_cap):
-    """The resident walk equals its plain version and the CTA design it
-    replaced on every field of every lane; the tie rays' copies at equal t
-    and cap 12 (a refill of the list of 8) included."""
-    from path_tracer_torch.ops import ab_baselines, cuda_trwalk, trwalk
+    """The resident walk equals its plain version on every field of every
+    lane; the tie rays' copies at equal t and cap 12 (a refill of the list
+    of 8) included."""
+    from path_tracer_torch.ops import cuda_trwalk, trwalk
 
     r = 5003
     sc, o, d, g = _walk_rays(name, showcase_tex48, tie_cards, 11, r, cuda)
@@ -337,8 +389,6 @@ def test_alpha_walk_kernel_equals_plain(cuda, showcase_tex48, tie_cards,
     assert cuda_trwalk.alpha_launches == before + 1
     want = trwalk.alpha_walk_plain(sc, o, d, t_op, rnd, steps_cap)
     _assert_same(got, want)
-    _assert_same(got, ab_baselines.alpha_walk_cta(sc, o, d, t_op, rnd,
-                                                  steps_cap))
     if steps_cap:
         assert got.seen.float().mean() > 0.2 and not got.seen[::7].any()
 
@@ -349,9 +399,8 @@ def test_trans_walk_kernel_equals_plain(cuda, showcase_tex48, tie_cards,
                                         name, steps_cap):
     """Stacked lanes of a directional and two point lights, one light per
     run of lanes, with dead lanes and sphere originals mixed in; the
-    resident walk against its plain version and the CTA design it
-    replaced, on every lane."""
-    from path_tracer_torch.ops import ab_baselines, cuda_trwalk, trwalk
+    resident walk against its plain version on every lane."""
+    from path_tracer_torch.ops import cuda_trwalk, trwalk
 
     r = 2048
     sc, o, _, g = _walk_rays(name, showcase_tex48, tie_cards, 12, r, cuda)
@@ -384,7 +433,6 @@ def test_trans_walk_kernel_equals_plain(cuda, showcase_tex48, tie_cards,
     got = cuda_trwalk.trans_walk(sc, *args)
     assert cuda_trwalk.trans_launches == before + 1
     _assert_same(got, trwalk.trans_walk_plain(sc, *args))
-    _assert_same(got, ab_baselines.trans_walk_cta(sc, *args))
     assert (got.trans < 1.0).float().mean() > 0.02
     assert bool((got.trans[~walking0] == 1.0).all())
 
@@ -843,3 +891,36 @@ def test_warp_flat2_equals_plain_and_cta(cuda, name):
             np.testing.assert_array_equal(tie_winners(sc)[1][prim], prim)
         tp = torch.where(torch.isinf(tp), tp,
                          torch.where(got.valid, got.t * 0.999, -1.0))
+
+
+@pytest.mark.parametrize("name", ["ties2sb", "grid96"])
+def test_warp_flat2_any_hit_equals_plain_and_cta(cuda, name):
+    """Row 12's two-level warp any-hit equals its plain version and the CTA
+    walk it replaced on every lane of three sets: t_max well past and well
+    short of each lane's hit, and infinite, with whole and partly dead
+    warps, on tie rays whose copies sit in two superblocks and around the
+    grid-96 showcase."""
+    from path_tracer_torch.ops import ab_baselines, cuda_bvh
+
+    if name == "ties2sb":
+        sc, o, d, tp = _flat2_tie_scene(cuda)
+    else:
+        sc = _flat2_scenes(cuda)["grid96"]
+        o, d = _flat_rays(sc, 19, 5003, cuda)
+        tp = _dead_warps(torch.full((5003,), -1.0, device=cuda))
+    t = cuda_bvh.closest_hit_triangles_flat2_plain(o, d, tp, sc).t
+    hit = torch.isfinite(t)
+    dead = torch.isinf(tp)
+    tms = [torch.where(dead, -1.0, torch.where(hit, t * k, 5.0))
+           for k in (1.5, 0.5)]
+    tms.append(torch.where(dead, -1.0, float("inf")))
+    ds = [d, d, -d]
+    before = cuda_bvh.flat2_occluded_launches
+    got = cuda_bvh.occluded_triangles_flat2_multi(o, ds, tms, sc)
+    assert cuda_bvh.flat2_occluded_launches == before + 1
+    assert torch.equal(got, cuda_bvh.occluded_triangles_flat2_multi_plain(
+        o, ds, tms, sc))
+    assert torch.equal(got, ab_baselines.occluded_triangles_flat2_cta(
+        o, ds, tms, sc))
+    assert got[:, dead].all()
+    assert got[0][hit & ~dead].all() and not got[1][hit & ~dead].any()

@@ -218,7 +218,20 @@ def _fake_live(mode):
                           torch.empty((128, 128), device="cuda"))
 
 
-@pytest.mark.parametrize("kernel", ["triangles", "spheres", "flat",
+def _fake_tri(mode, n_rays: int):
+    """A triangle HitRecord of n_rays lanes as CUDA-device fakes."""
+    from path_tracer_torch.ops.intersect import HitRecord
+
+    with mode:
+        f32 = lambda: torch.empty((n_rays,), device="cuda")
+        i32 = lambda: torch.empty((n_rays,), dtype=torch.int32, device="cuda")
+        return HitRecord(t=f32(), kind=i32(), prim=i32(), u=f32(), v=f32(),
+                         backface=torch.empty((n_rays,), dtype=torch.bool,
+                                              device="cuda"))
+
+
+@pytest.mark.parametrize("kernel", ["triangles", "spheres",
+                                    "spheres_merged", "flat",
                                     "flat_spheres", "flat_occluded",
                                     "alpha_walk", "trans_walk", "flat2",
                                     "flat2_occluded", "sph_walk", "sph_occ",
@@ -266,7 +279,8 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
                         _plain_must_not_run)
     for name in ("closest_hit_spheres_walk_plain", "_sph_walk_plain",
                  "occluded_spheres_plain", "_occluded_dense_plain",
-                 "_occluded_walk_plain"):
+                 "_occluded_walk_plain", "closest_hit_spheres_merged_plain",
+                 "merge_hits"):
         monkeypatch.setattr(cuda_spheres, name, _plain_must_not_run)
     for name in ("alpha_walk_plain", "trans_walk_plain"):
         monkeypatch.setattr(cuda_trwalk, name, _plain_must_not_run)
@@ -279,6 +293,9 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
     wrapper = {
         "triangles": cuda_intersect.closest_hit_triangles_cuda,
         "spheres": cuda_spheres.closest_hit_spheres_cuda,
+        "spheres_merged": lambda o, d, tp, sc: (
+            cuda_spheres.closest_hit_spheres_cuda(
+                o, d, tp, sc, tri=_fake_tri(mode, 300))),
         "flat": cuda_bvh.closest_hit_triangles_flat,
         "flat_spheres": lambda *a: cuda_bvh.closest_hit_triangles_flat(
             *a, spheres=True),
