@@ -1178,7 +1178,7 @@ def phase_flat_timing(device, showcase):
     work = bound(slabs * OPS_SLAB + tests * OPS_BW,
                  nbytes(so, *sds, *stms, showcase.sl_blkflat,
                         showcase.sl_blkid, showcase.sl_bw_t)
-                 + 4 * n * len(sds))
+                 + n * len(sds))  # the [L,R] bool output
     log(f"  time flat any-hit, {n} first-bounce shadow rays x L={len(sds)}: "
         f"kernel {ms:.4f} ms, {ms2:.4f} ms (repeat); plain {plain_ms:.4f} ms; "
         f"bound {work[0]:.4f} ms ({work[1]}: {slabs} slab tests, {tests} "
@@ -1428,7 +1428,8 @@ def phase_flat2_timing(device, big):
         slabs, tests, needed = slabs + a, tests + b, needed | c
     rows = rows_bytes(op, needed)
     work = bound(slabs * OPS_SLAB + tests * OPS_BW,
-                 nbytes(so, *sds, *stms, *tables) + rows + 4 * n * len(sds))
+                 nbytes(so, *sds, *stms, *tables) + rows
+                 + n * len(sds))  # the [L,R] bool output
     log(f"  time flat2 any-hit, {n} first-bounce shadow rays x L={len(sds)}: "
         f"kernel {ms:.4f} ms, {ms2:.4f} ms (repeat); the flat kernel "
         f"{flat_ms:.4f} ms, {flat_ms2:.4f} ms; plain {plain_ms:.4f} ms; bound "
@@ -1462,7 +1463,8 @@ def phase_sph_timing(device, grid):
     # The launch alone, without the wrapper's record mapping: its few
     # small host-launched ops weigh on a sub-millisecond kernel.
     bare = lambda: native.launch_sph_walk(o, d, tp, grid.sph_blk,
-                                          grid.sph_blkid, grid.sph_sorted_t)
+                                          grid.sph_blkid, grid.sph_sorted_t,
+                                          grid.sph_smap)
     ms, bare_ms, dense_ms = (cuda_ms(run, 20), cuda_ms(bare, 20),
                              cuda_ms(dense_run, 5))
     plain_ms, want = timed_once(plain)
@@ -1481,7 +1483,8 @@ def phase_sph_timing(device, grid):
     solves = int((gate * real).sum())
     work = bound(n * n_blk * OPS_SLAB + solves * OPS_SPHERE,
                  nbytes(o, d, tp, grid.sph_blk, grid.sph_blkid,
-                        grid.sph_sorted_t) + n * (2 * 4 + 4))
+                        grid.sph_sorted_t, grid.sph_smap)
+                 + n * (3 * 4 + 2 * 4 + 1))
     log(f"  time sphere walk, {n} camera rays x {grid.num_real_spheres} "
         f"spheres ({n_blk} blocks): kernel {ms:.4f} ms, {ms2:.4f} ms "
         f"(repeat); the launch alone {bare_ms:.4f} ms, {bare_ms2:.4f} ms; "
@@ -1676,8 +1679,9 @@ def phase_sphere_any_hit(device, sc, label: str):
     ms, bare_ms = cuda_ms(run, 20), cuda_ms(bare, 20)
     ms2, bare_ms2 = cuda_ms(run, 20), cuda_ms(bare, 20)
     slabs, tests = sphere_any_hit_work(sh, sc, got)
+    out_bytes = 4 if sc.sph_use_blocks else 1  # the walk writes f32
     work = bound(slabs * OPS_SLAB + tests * OPS_SPHERE,
-                 nbytes(o3, ds, tms, *tables) + 4 * ds.shape[0] * n)
+                 nbytes(o3, ds, tms, *tables) + out_bytes * ds.shape[0] * n)
     live = float((tms >= 0.0).float().mean())
     log(f"  {label}: {ds.shape[0]} sets x {n} first-bounce shadow lanes "
         f"(live {live:.3f}), {sc.num_real_spheres} spheres "
@@ -3029,6 +3033,39 @@ def kernel_device_ms(scene, spec) -> dict:
     return out
 
 
+def launch_device_ms(fn, iters: int = 10) -> float:
+    """Device milliseconds per call of ``fn`` (a launch alone) after one
+    warm-up: CUDA events around each call, each pair behind a 2M-cycle
+    sleep kernel that keeps the card busy while the host makes the call's
+    checks and allocations, so the events time the kernel alone where
+    events around a run of sub-0.1 ms calls time the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def device_turns(old, new):
+    """Device ms per call of two designs' launches in turns (old, new, new,
+    old), from ``launch_device_ms``."""
+    old_ms, new_ms = [], []
+    old_ms.append(launch_device_ms(old))
+    new_ms += [launch_device_ms(new) for _ in range(2)]
+    old_ms.append(launch_device_ms(old))
+    return old_ms, new_ms
+
+
 def phase_redesigned(device, showcase) -> dict:
     """3i: the flat closest hit (row 9: warp packets) and brute-force MT
     (row 1: the table resident in shared memory, four rays a thread)
@@ -3280,27 +3317,6 @@ def phase_rows_10_11(device, showcase, tex, big) -> None:
         log_packets(label, packet_counts(o, d, op, tp, t_hit,
                                          two_level=True), op.sl_block)
     log(f"  phase 3j took {time.perf_counter() - phase_t0:.1f} s")
-
-
-@contextlib.contextmanager
-def replaced_designs():
-    """The main path's flat2 any-hit and dense sphere closest hit go through
-    the designs rows 12 and 2 replaced (ops/ab_baselines.py: the CTA walk;
-    the chunked kernel, its ATen mapping and merge) inside the context, for
-    3l's comparisons through the main path only; restored on exit."""
-    from path_tracer_torch.ops import ab_baselines, cuda_bvh, cuda_spheres
-
-    saved = (cuda_bvh.occluded_triangles_flat2_multi,
-             cuda_spheres.closest_hit_spheres_cuda)
-    cuda_bvh.occluded_triangles_flat2_multi = (
-        ab_baselines.occluded_triangles_flat2_cta)
-    cuda_spheres.closest_hit_spheres_cuda = (
-        ab_baselines.closest_hit_spheres_chunked)
-    try:
-        yield
-    finally:
-        (cuda_bvh.occluded_triangles_flat2_multi,
-         cuda_spheres.closest_hit_spheres_cuda) = saved
 
 
 def walk_held(label: str, new, want: dict) -> float:
@@ -3633,21 +3649,18 @@ def log_any2_work(label: str, w: dict) -> None:
 
 def rows_12_2_parity(device, big) -> dict:
     """3l's parity: row 12 (the two-level warp any-hit) against its plain
-    version and the CTA design it replaced on every lane of scene A's
-    first-bounce and incoherent shadow sets (3 x 2^18), a ragged count with
-    dead warps, and tie rays over two superblocks at t_max 1.5 t and 0.5 t
-    with dead lanes; row 2 (the dense sphere kernel writing the merged
-    record) merged and alone against its plain version and the chunked
-    kernel with its ATen mapping and merge, on every field of every lane:
-    scene A's camera and first-bounce lanes (merged with row 11's record),
-    ``spheres`` (a ragged count, dead warps) and 500 random spheres
-    (merged with a random triangle record), and triangle records at the
-    sphere's t (the triangle must win) and an ulp past it; closest_hit on
-    scene A against the old path. Returns the sets and errors."""
+    version on every lane of scene A's first-bounce and incoherent shadow
+    sets (3 x 2^18), a ragged count with dead warps, and tie rays over two
+    superblocks at t_max 1.5 t and 0.5 t with dead lanes; row 2 (the dense
+    sphere kernel writing the merged record) merged and alone against its
+    plain version, on every field of every lane: scene A's camera and
+    first-bounce lanes (merged with row 11's record), ``spheres`` (a
+    ragged count, dead warps) and 500 random spheres (merged with a random
+    triangle record), and triangle records at the sphere's t (the triangle
+    must win) and an ulp past it. Returns the sets and errors."""
     import torch
 
-    from path_tracer_torch.ops import ab_baselines, cuda_bvh, cuda_spheres
-    from path_tracer_torch.ops import intersect
+    from path_tracer_torch.ops import cuda_bvh, cuda_spheres, intersect
     from path_tracer_torch.scene import build_scene, load_scene
     from path_tracer_torch.scene.device_scene import (
         _pack_spheres,
@@ -3660,7 +3673,7 @@ def rows_12_2_parity(device, big) -> dict:
 
     log("phase 3l: rows 12 and 2 redesigned (the flat2 any-hit as two-level "
         "warp packets; the dense sphere closest hit writing the merged "
-        "record) against their plain versions and old designs")
+        "record) against their plain versions")
     t0 = time.perf_counter()
     n, rr = WAVE, WAVE - 37
     rng = np.random.default_rng(20261027)
@@ -3670,9 +3683,7 @@ def rows_12_2_parity(device, big) -> dict:
     def occ2_held(label, o, ds, tms, sc):
         new = cuda_bvh.occluded_triangles_flat2_multi(o, ds, tms, sc)
         want = {"plain": cuda_bvh.occluded_triangles_flat2_multi_plain(
-                    o, ds, tms, sc),
-                "old": ab_baselines.occluded_triangles_flat2_cta(o, ds, tms,
-                                                                 sc)}
+                    o, ds, tms, sc)}
         offs = {k: int((new != w).sum()) for k, w in want.items()}
         dead = torch.stack(tms) < 0.0
         log(f"  row 12, {label}: {len(ds)} x {o.shape[0]} lanes, occluded "
@@ -3713,11 +3724,9 @@ def rows_12_2_parity(device, big) -> dict:
     log(f"  row 12 held in {time.perf_counter() - t0:.1f} s")
     sph_new = cuda_spheres.closest_hit_spheres_cuda
     sph_plain = cuda_spheres.closest_hit_spheres_merged_plain
-    sph_old = ab_baselines.closest_hit_spheres_chunked
 
     def sph_held(label, o, d, tp, sc, tri=None, extra=None):
-        want = {"plain": sph_plain(o, d, tp, sc, tri),
-                "old": sph_old(o, d, tp, sc, tri), **(extra or {})}
+        want = {"plain": sph_plain(o, d, tp, sc, tri), **(extra or {})}
         new = sph_new(o, d, tp, sc, tri=tri)
         out["row2_err"] = max(out["row2_err"],
                               held(f"row 2, {label}", new, want))
@@ -3736,10 +3745,6 @@ def rows_12_2_parity(device, big) -> dict:
         if not {1, 2} <= kinds:
             raise AssertionError(f"scene A {label}: kinds {kinds}")
         sph_held(f"scene A {label} lanes, alone", o, d, tp, op)
-        with replaced_designs():
-            old = intersect.closest_hit(o, d, tp, op)
-        held(f"closest_hit, scene A {label} lanes", intersect.closest_hit(
-            o, d, tp, op), {"the old path": old})
     # Triangle records at the sphere's t (the triangle wins every lane) and
     # an ulp past it (the sphere wins every hitting lane).
     o, d, tp, _ = out["scene A"]["first bounce"]
@@ -3813,23 +3818,18 @@ def rows_12_2_work(par: dict, design: bool = True) -> dict:
 
 
 def phase_rows_12_2(device, big, design_counts: bool = True) -> dict:
-    """3l: rows 12 and 2 against their plain versions and the designs they
-    replaced (``rows_12_2_parity``), row 12's counts (``rows_12_2_work``;
-    the design's own only with ``design_counts``, as ``--only 3l`` runs
-    it), then both designs in turns: row 12 on scene A's 3 x 2^18 first-bounce
-    and incoherent shadow lanes; row 2 (through its wrapper, the old one
-    with its ATen mapping and merge; the launch alone; and through
-    closest_hit) on scene A's 2^18 camera and first-bounce lanes merged
-    with row 11's record and on the ``spheres`` scene's camera lanes; each
-    with its bound; scene A's device time per 1080p sample through each
-    design and one scene A sample end to end in turns. Returns the
-    numbers."""
+    """3l: rows 12 and 2 against their plain versions
+    (``rows_12_2_parity``), row 12's counts (``rows_12_2_work``; the
+    design's own only with ``design_counts``, as ``--only 3l`` runs it),
+    then their times with their bounds: row 12 on scene A's 3 x 2^18
+    first-bounce and incoherent shadow lanes; row 2 through its wrapper,
+    the launch alone and its plain version, on scene A's 2^18 camera and
+    first-bounce lanes merged with row 11's record and on the ``spheres``
+    scene's camera lanes. Returns the numbers."""
     import torch
 
     from path_tracer_torch import native
-    from path_tracer_torch.models.integrator import IntegratorSpec
-    from path_tracer_torch.models.renderer import render_pixel_sums
-    from path_tracer_torch.ops import ab_baselines, cuda_spheres, intersect
+    from path_tracer_torch.ops import cuda_spheres
 
     phase_t0 = time.perf_counter()
     par = rows_12_2_parity(device, big)
@@ -3839,24 +3839,21 @@ def phase_rows_12_2(device, big, design_counts: bool = True) -> dict:
     op = par["op"]
     out = {"row12_err": par["row12_err"], "row2_err": par["row2_err"],
            "work": {k: {f: v for f, v in w.items() if f != "needed"}
-                    for k, w in work.items()}, "ab": {}}
+                    for k, w in work.items()}, "times": {}}
     n = WAVE
     sb_tables = (op.sl_sbflat, op.sl_sbid, op.sl_blkflat, op.sl_blkid)
     for label in ("first-bounce", "incoherent"):
         o, ds, tms, _ = par[label]
         dss, tmss = torch.stack(ds).contiguous(), torch.stack(tms).contiguous()
         args = (o, dss, tmss, *sb_tables, op.sl_bw_t, op.sl_block)
-        old_ms, new_ms = ab_turns(
-            lambda: native._launch_flat2_occluded("ptt_flat2_occluded_cta",
-                                                  *args),
-            lambda: native.launch_flat2_occluded(*args))
+        ms = [cuda_ms(lambda: native.launch_flat2_occluded(*args), AB_ITERS)
+              for _ in range(2)]
         w = work[label]
         b = bound(w["slabs"] * OPS_SLAB + w["tests"] * OPS_BW,
                   nbytes(o, dss, tmss, *sb_tables)
-                  + rows_bytes(op, w["needed"]) + 4 * n * len(ds))
-        out["ab"][f"row 12 {label}"] = (old_ms, new_ms, b)
+                  + rows_bytes(op, w["needed"]) + n * len(ds))
+        out["times"][f"row 12 {label}"] = (ms, b)
 
-    sph_old = ab_baselines.closest_hit_spheres_chunked
     sph_new = cuda_spheres.closest_hit_spheres_cuda
     rec_bytes = 3 * 4 + 2 * 4 + 1  # t, u, v, kind, prim, backface
     cases = [(f"row 2 scene A {label} lanes, merged", op, o, d, tp, tri)
@@ -3865,32 +3862,583 @@ def phase_rows_12_2(device, big, design_counts: bool = True) -> dict:
     cases.append(("row 2 spheres camera lanes", sph_sc, po, pd, ptp, None))
     for label, sc, o, d, tp, tri in cases:
         table = sc.sph_packed_t
-        old_ms, new_ms = ab_turns(lambda: sph_old(o, d, tp, sc, tri),
-                                  lambda: sph_new(o, d, tp, sc, tri=tri))
+        ms = [cuda_ms(lambda: sph_new(o, d, tp, sc, tri=tri), AB_ITERS)
+              for _ in range(2)]
         launch = min(cuda_ms(lambda: native.launch_sphere_closest_hit(
             o, d, tp, table, tri), AB_ITERS) for _ in range(2))
-        old_launch = min(cuda_ms(lambda: native.launch_closest_hit(
-            "ptt_sphere_closest_hit_chunked", o, d, tp, table, table_rows=4,
-            out_rows=2), AB_ITERS) for _ in range(2))
         plain_ms, _ = timed_once(
             lambda: cuda_spheres.closest_hit_spheres_merged_plain(
                 o, d, tp, sc, tri))
         b = bound(n * sc.num_real_spheres * OPS_SPHERE,
                   nbytes(o, d, tp, table, *(tri or ())) + n * rec_bytes)
-        out["ab"][label] = (old_ms, new_ms, b, launch, old_launch, plain_ms)
-
-        def old_cast():
-            with replaced_designs():
-                return intersect.closest_hit(o, d, tp, sc)
-
-        out["ab"][f"{label}, through closest_hit"] = ab_turns(
-            old_cast, lambda: intersect.closest_hit(o, d, tp, sc)) + (b,)
-    for label, (old_ms, new_ms, b, *rest) in out["ab"].items():
-        new, old = min(new_ms), min(old_ms)
+        out["times"][label] = (ms, b, launch, plain_ms)
+    for label, (ms, b, *rest) in out["times"].items():
         extra = ""
         if rest:
-            extra = (f"; the launch alone {rest[0]:.4f} ms (old "
-                     f"{rest[1]:.4f}); plain {rest[2]:.4f} ms")
+            extra = (f"; the launch alone {rest[0]:.4f} ms; plain "
+                     f"{rest[1]:.4f} ms")
+        log(f"  time {label}: {min(ms):.4f} ms (readings "
+            + " ".join(f"{x:.4f}" for x in ms) + f"); bound {b[0]:.4f} ms "
+            f"({b[1]}), -fmad=false floor {2 * b[0]:.4f} ms; share of the "
+            f"bound {b[0] / min(ms):.3f}{extra}")
+        if b[0] > min(ms):
+            raise AssertionError(f"{label}: faster than its bound")
+    log(f"  phase 3l took {time.perf_counter() - phase_t0:.1f} s")
+    return out
+
+
+# Row 4's operations per sphere test, split as the kernel computes them:
+# oc and cc = |oc|^2 - r^2, once per (ray, sphere); b, disc and the roots,
+# once per set still open.
+OPS_SPHERE_SHARED, OPS_SPHERE_SET = 10, OPS_SPHERE - 10
+
+
+@contextlib.contextmanager
+def replaced_sphere_designs():
+    """The sphere walk and the dense sphere any-hit go through the designs
+    rows 5 and 4 replaced (ops/ab_baselines.py: the CTA walk with its ATen
+    mapping and merge; the chunked any-hit with its stack, compare and OR)
+    inside the context, wherever the main path reaches them; the dense
+    closest hit and the any-hit walk keep their kernels. Restored on
+    exit."""
+    from path_tracer_torch.ops import ab_baselines, cuda_spheres
+
+    closest, occluded = (cuda_spheres.closest_hit_spheres_cuda,
+                         cuda_spheres.occluded_spheres_cuda)
+
+    def old_closest(o, d, t_prev, scene, tri=None):
+        if getattr(scene, "sph_use_blocks", False):
+            return ab_baselines.closest_hit_spheres_walk_cta(o, d, t_prev,
+                                                             scene, tri)
+        return closest(o, d, t_prev, scene, tri=tri)
+
+    def old_occluded(o, ds, t_maxes, scene, prior=None):
+        if getattr(scene, "sph_use_blocks", False):
+            return occluded(o, ds, t_maxes, scene, prior)
+        return ab_baselines.occluded_spheres_chunked(o, ds, t_maxes, scene,
+                                                     prior)
+
+    cuda_spheres.closest_hit_spheres_cuda = old_closest
+    cuda_spheres.occluded_spheres_cuda = old_occluded
+    try:
+        yield
+    finally:
+        cuda_spheres.closest_hit_spheres_cuda = closest
+        cuda_spheres.occluded_spheres_cuda = occluded
+
+
+def sph_block_best(o, d, tp, sc, chunk: int = 1 << 13):
+    """[R, C] each lane's nearest valid root in each block column of the
+    sphere walk (its naive quadratic; +inf for none and on pad columns)."""
+    import torch
+
+    from path_tracer_torch.ops.cuda_spheres import _sqrt_rn
+
+    ids = sc.sph_blkid[0]
+    sph = sc.sph_sorted_t
+    nblk = sph.shape[1] // 128
+    col = ids.clamp(min=0).long()
+    out = []
+    for a in range(0, o.shape[0], chunk):
+        oc, dc, tpc = o[a:a + chunk], d[a:a + chunk], tp[a:a + chunk, None]
+        aa = dc[:, 0] * dc[:, 0] + dc[:, 1] * dc[:, 1] + dc[:, 2] * dc[:, 2]
+        inv2a = (1.0 / (2.0 * aa))[:, None]
+        ocx = oc[:, 0:1] - sph[None, 0]
+        ocy = oc[:, 1:2] - sph[None, 1]
+        ocz = oc[:, 2:3] - sph[None, 2]
+        b = 2.0 * (ocx * dc[:, 0:1] + ocy * dc[:, 1:2] + ocz * dc[:, 2:3])
+        cc = ocx * ocx + ocy * ocy + ocz * ocz - (sph[3] * sph[3])[None, :]
+        disc = b * b - (4.0 * aa)[:, None] * cc
+        has = disc >= 0.0
+        sq = _sqrt_rn(torch.where(has, disc, 0.0))
+        t1 = (-b - sq) * inv2a
+        t2 = (-b + sq) * inv2a
+        v1 = has & (t1 >= 0.0) & (t1 > tpc)
+        v2 = has & (t2 >= 0.0) & (t2 > tpc)
+        t = torch.where(v1, t1, torch.where(v2, t2, float("inf")))
+        best = t.view(-1, nblk, 128).min(dim=2).values[:, col]
+        out.append(torch.where(ids[None, :] >= 0, best, float("inf")))
+    return torch.cat(out)
+
+
+def sph_walk_visits(o, d, tp, sc) -> dict:
+    """Row 5's visits on these lanes (R a multiple of 32), simulated warp by
+    warp as csrc/sph_walk.cu makes them: each warp lists the block columns
+    some live ray's gate admits, keyed by their nearest slab entry, visits
+    them nearest key first (lowest column on equal keys) while the key is
+    no farther than some live ray's best t (widened), and serves each to
+    the rays of its mask whose slab entry is no farther than their own
+    best t (widened); a block's solves stop at its last real sphere
+    (n_real). Returns the number of warp visits that serve some ray, the
+    histogram of rays served a visit (``hist`` [33]), the slab tests of
+    the gate and of the visits, the solves the kernel makes, and the lane
+    slots each in-block layout occupies: lane per ray (32 x n_real a
+    visit), the block over the warp (32 x its 32-slot groups up to n_real,
+    a served ray) and both as the kernel chooses (lane per ray from
+    native.SPH_WALK_LANE_WISE rays), with the kernel's widened cut
+    (native.SPH_WALK_CUT_WIDEN)."""
+    import torch
+
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import slab
+
+    widen, lane_wise_from = (native.SPH_WALK_CUT_WIDEN,
+                             native.SPH_WALK_LANE_WISE)
+
+    ids = sc.sph_blkid[0]
+    sph = sc.sph_sorted_t
+    pad = ((sph[0] == 1e30) & (sph[1] == 1e30) & (sph[2] == 1e30)
+           & (sph[3] == 0.0)).view(-1, 128)
+    slot = torch.arange(1, 129, device=o.device)
+    n_real = torch.where(pad, 0, slot).max(dim=1).values[
+        ids.clamp(min=0).long()]
+    tn, tf = slab.slab(o, slab.safe_inv(d), sc.sph_blk)
+    gate = slab.closest_gate(tn, tf, tp, ids)
+    best = sph_block_best(o, d, tp, sc)
+    r, c = gate.shape
+    w = r // 32
+    g, tnw, bw = (x.view(w, 32, c) for x in (gate, tn, best))
+    live = (tp < float("inf")).view(w, 32)
+    key = torch.where(g, tnw.clamp(min=0.0), float("inf")).min(dim=1).values
+    visited = ~g.any(dim=1)
+    bt = torch.full((w, 32), float("inf"), device=o.device)
+    hist = torch.zeros(33, dtype=torch.long, device=o.device)
+    live_warps = int(live.any(dim=1).sum())
+    out = dict(visit_slabs=0, design_solves=0, lane_slots_a=0,
+               lane_slots_b=0, lane_slots_both=0)
+    for _ in range(c):
+        col = torch.where(visited, float("inf"), key).argmin(dim=1)
+        open_ = ~visited.gather(1, col[:, None])[:, 0]
+        reach = torch.where(live, bt * widen,
+                            float("-inf")).max(dim=1).values
+        go = open_ & (key.gather(1, col[:, None])[:, 0] <= reach)
+        if not bool(go.any()):
+            break
+        visited[go, col[go]] = True
+        at = col[:, None, None].expand(w, 32, 1)
+        gc, tnc, bc = (x.gather(2, at)[..., 0] for x in (g, tnw, bw))
+        masked = go[:, None] & gc
+        out["visit_slabs"] += int(masked.sum())
+        need = masked & (tnc <= bt * widen)
+        k = need.sum(dim=1)
+        served = go & (k > 0)
+        hist += torch.bincount(k[served], minlength=33)
+        nr = n_real[col][served]
+        ks = k[served]
+        a = 32 * nr
+        b = ks * 32 * ((nr + 31) // 32)
+        lane_wise = ks >= lane_wise_from
+        out["lane_slots_a"] += int(a.sum())
+        out["lane_slots_b"] += int(b.sum())
+        out["lane_slots_both"] += int(torch.where(lane_wise, a, b).sum())
+        out["design_solves"] += int(torch.where(lane_wise, ks * nr,
+                                                b).sum())
+        bt = torch.where(need, torch.minimum(bt, bc), bt)
+    ks = torch.arange(33, device=o.device)
+    return dict(out, visits=int(hist[1:].sum()), hist=hist.tolist(),
+                served=int((hist * ks).sum()),
+                gate_slabs=32 * live_warps * int((ids >= 0).sum()))
+
+
+def sph_walk_needed(o, d, tp, sc, t_hit) -> tuple[int, int]:
+    """(slab tests, sphere solves) the walk's result needs: a slab test of
+    every real block per live ray, and the real spheres of every block a
+    ray's gate admits whose entry lies before its hit (``needed_gate``)."""
+    from path_tracer_torch.ops import slab
+
+    ids = sc.sph_blkid[0]
+    real = real_per_column(sc.sph_sorted_t[3] > 0.0, 128, ids)
+    tn, tf = slab.slab(o, slab.safe_inv(d), sc.sph_blk)
+    gate = needed_gate(tn, tf, ids, tp, t_hit, None)
+    live = int((tp < float("inf")).sum())
+    return live * int((ids >= 0).sum()), int((gate * real).sum())
+
+
+def log_sph_walk_visits(label: str, v: dict, solves: int) -> None:
+    from path_tracer_torch import native
+
+    log(f"  row 5 visits, {label}: {v['visits']} warp visits serving "
+        f"{v['served']} rays (rays served a visit: "
+        + " ".join(f"{k}:{n}" for k, n in enumerate(v["hist"]) if n)
+        + f"); needed solves {solves}; lane slots, lane per ray "
+        f"{v['lane_slots_a']} ({v['lane_slots_a'] / max(solves, 1):.3f} a "
+        f"needed solve), block over the warp {v['lane_slots_b']} "
+        f"({v['lane_slots_b'] / max(solves, 1):.3f}), both from "
+        f"{native.SPH_WALK_LANE_WISE} rays {v['lane_slots_both']} "
+        f"({v['lane_slots_both'] / max(solves, 1):.3f}); the design's "
+        f"solves {v['design_solves']} "
+        f"({v['design_solves'] / max(solves, 1):.3f}); slab tests: gate "
+        f"{v['gate_slabs']}, visits {v['visit_slabs']}")
+
+
+def sph_occ_dense_work(o, ds, tms, sc, prior=None) -> dict:
+    """Row 4's tests on these sets: what the result needs (the bound's
+    count, as ``sphere_any_hit_work``: every real sphere for a live lane
+    the spheres leave unoccluded, one test for an occluded one; with
+    ``prior``, none for a set whose prior is set) and the design's
+    operations: a lane runs the spheres in order until every set is
+    closed, paying OPS_SPHERE_SHARED a sphere for the shared oc and cc and
+    OPS_SPHERE_SET for each set still open. Returns the counts."""
+    import torch
+
+    from path_tracer_torch.ops.cuda_spheres import _sqrt_rn
+
+    n_s = sc.num_real_spheres
+    sph = sc.sph_packed_t[:, :n_s]
+    r = o.shape[0]
+    iters = torch.zeros(r, dtype=torch.long, device=o.device)
+    tests = set_tests = 0
+    for k, (d, tm) in enumerate(zip(ds, tms)):
+        closed = tm < 0.0 if prior is None else (tm < 0.0) | prior[k]
+        firsts = []
+        for a in range(0, r, 1 << 15):
+            oc, dc, tmc = o[a:a + (1 << 15)], d[a:a + (1 << 15)], \
+                tm[a:a + (1 << 15), None]
+            aa = (dc[:, 0] * dc[:, 0] + dc[:, 1] * dc[:, 1]
+                  + dc[:, 2] * dc[:, 2])
+            inv2a = (1.0 / (2.0 * aa))[:, None]
+            ocx = oc[:, 0:1] - sph[None, 0]
+            ocy = oc[:, 1:2] - sph[None, 1]
+            ocz = oc[:, 2:3] - sph[None, 2]
+            b = 2.0 * (ocx * dc[:, 0:1] + ocy * dc[:, 1:2] + ocz * dc[:, 2:3])
+            cc = ocx * ocx + ocy * ocy + ocz * ocz - (sph[3] * sph[3])[None]
+            disc = b * b - (4.0 * aa)[:, None] * cc
+            has = disc >= 0.0
+            sq = _sqrt_rn(torch.where(has, disc, 0.0))
+            t1, t2 = (-b - sq) * inv2a, (-b + sq) * inv2a
+            hit = has & (((t1 >= 0.0) & (t1 <= tmc))
+                         | ((t2 >= 0.0) & (t2 <= tmc)))
+            firsts.append(torch.where(hit.any(dim=1),
+                                      hit.int().argmax(dim=1) + 1, n_s))
+        run = torch.where(closed, 0, torch.cat(firsts))  # spheres tested
+        occ = run < n_s
+        tests += int((occ & ~closed).sum()) \
+            + int((~occ & ~closed).sum()) * n_s
+        set_tests += int(run.sum())
+        iters = torch.maximum(iters, run)
+    design = int(iters.sum()) * OPS_SPHERE_SHARED + set_tests * OPS_SPHERE_SET
+    return dict(tests=tests, set_tests=set_tests, lane_iters=int(iters.sum()),
+                design_ops=design, needed_ops=tests * OPS_SPHERE)
+
+
+def rows_5_4_parity(device, tex, grid) -> dict:
+    """3m's parity: row 5 (the warp-packet sphere walk writing the merged
+    record) against its plain version and the CTA walk it replaced (with
+    that design's ATen mapping and merge) on every field of every lane:
+    scene B's middle-wavefront camera lanes and first-bounce lanes, a
+    ragged count with dead warps, triangle records at the sphere's t (the
+    triangle must win) and an ulp past it, and the duplicate-sphere tie
+    scene (the lowest slot), also with each sphere's later block grown
+    (against the plain version; the CTA walk's lanes off logged); row 4
+    (one thread per ray over every set, the triangle result folded in)
+    against its plain version and the chunked kernel it replaced on every
+    lane of the textured showcase's first-bounce shadow sets (3 x 2^18, a
+    tenth killed), without and with the flat any-hit's result as
+    ``prior``, a ragged count with dead warps, a random prior, and 11 sets
+    (two launches); occluded_multi on those lanes against the old path.
+    Returns the sets and errors."""
+    import torch
+
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import ab_baselines, cuda_bvh, cuda_spheres
+    from path_tracer_torch.ops import intersect
+    from path_tracer_torch.scene.device_scene import opaque_view
+    from path_tracer_torch.scene.procedural import (
+        duplicate_sphere_device_scene,
+        sphere_tie_rays,
+    )
+
+    log("phase 3m: rows 5 and 4 redesigned (the sphere block walk as warp "
+        "packets writing the merged record; the dense sphere any-hit as one "
+        "thread per ray over every set, the triangle result folded in) "
+        "against their plain versions and old designs")
+    t0 = time.perf_counter()
+    n, rr = WAVE, WAVE - 37
+    out = {"row5_err": 0.0, "row4_err": 0.0}
+    walk_new = cuda_spheres.closest_hit_spheres_cuda
+    walk_plain = cuda_spheres.closest_hit_spheres_walk_merged_plain
+    walk_old = ab_baselines.closest_hit_spheres_walk_cta
+
+    def walk_held(label, o, d, tp, sc, tri=None, extra=None):
+        want = {"plain": walk_plain(o, d, tp, sc, tri),
+                "old": walk_old(o, d, tp, sc, tri), **(extra or {})}
+        new = walk_new(o, d, tp, sc, tri=tri)
+        out["row5_err"] = max(out["row5_err"],
+                              held(f"row 5, {label}", new, want))
+        return new
+
+    minus1 = torch.full((n,), -1.0, device=device)
+    co, cd = camera_rays(grid, n, device)
+    cam = walk_held("scene B camera lanes", co, cd, minus1, grid)
+    (bo, bd, btp), _ = first_bounce(grid, n, device)
+    bounce = walk_held("scene B first-bounce lanes", bo, bd, btp, grid)
+    out["scene B"] = {"camera": (co, cd, minus1, cam),
+                      "first bounce": (bo, bd, btp, bounce)}
+    walk_held("scene B first-bounce lanes, ragged R, dead warps",
+              bo[:rr].contiguous(), bd[:rr].contiguous(),
+              dead_warps(btp[:rr]), grid)
+    g = torch.Generator(device=device).manual_seed(11)
+
+    def fake(t):
+        """A triangle record of hits at t, with random u, v, backface."""
+        m = t.shape[0]
+        return intersect.HitRecord(
+            t=t.contiguous(),
+            kind=torch.where(torch.isfinite(t), 1, 0).to(torch.int32),
+            prim=torch.arange(m, dtype=torch.int32, device=device),
+            u=torch.rand(m, generator=g, device=device),
+            v=torch.rand(m, generator=g, device=device),
+            backface=torch.rand(m, generator=g, device=device) < 0.5)
+
+    for label, (o, d, tp, rec) in out["scene B"].items():
+        tie = fake(rec.t)
+        walk_held(f"scene B {label}, a triangle record at the sphere's t",
+                  o, d, tp, grid, tie, {"the triangle record": tie})
+        past = fake(torch.nextafter(rec.t, torch.tensor(float("inf"),
+                                                        device=device)))
+        got = walk_held(f"scene B {label}, a triangle record an ulp past the "
+                        "sphere's t", o, d, tp, grid, past)
+        if not bool((got.kind[rec.valid] == 2).all()):
+            raise AssertionError("row 5: a sphere lost to a farther "
+                                 "triangle")
+    ties = duplicate_sphere_device_scene(device)
+    to, td = (as_cuda(x, device) for x in sphere_tie_rays(n, 12))
+    ttp = minus1.clone()
+    ttp[::13] = float("inf")
+    got = walk_held("duplicate-sphere tie rays", to, td, ttp, ties)
+    first = walk_held("duplicate-sphere tie rays, from the first hit", to, td,
+                      torch.where(got.valid, got.t, ttp), ties)
+    # Each sphere's later block grown by 0.5: the walk meets the
+    # higher-slot copy first, and reaches the lower-slot one only through
+    # its widened cut. The CTA walk's cut is not widened: its lanes off are
+    # logged, not held.
+    grown = duplicate_sphere_device_scene(device, 0.5)
+    new = walk_new(to, td, ttp, grown)
+    out["row5_err"] = max(out["row5_err"], held(
+        "row 5, duplicate-sphere tie rays, later blocks grown", new,
+        {"plain": walk_plain(to, td, ttp, grown)}))
+    cta = walk_old(to, td, ttp, grown)
+    log(f"  row 5, later blocks grown: lanes off the plain version, the "
+        f"replaced CTA walk (unwidened cut) "
+        f"{lanes_off(cta, new)} of {n}")
+    firsts = ties.sph_smap.view(-1, 128)[0::2, 0]
+    if not all(bool(torch.isin(x.prim[x.valid], firsts).all())
+               for x in (got, first, new)):
+        raise AssertionError("row 5, tie rays: a copy other than the "
+                             "lowest slot won")
+    log(f"  row 5 held in {time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(20261101)
+    sh = first_bounce_shadows(tex, n, device, rng)
+    op = opaque_view(tex)
+    so = sh["s_o"]
+    dss = torch.stack(sh["dirs"]).contiguous()
+    tmss = torch.stack(sh["t_maxes"]).contiguous()
+    tri = cuda_bvh.occluded_triangles_flat_multi(so, dss, tmss, op)
+    out["tex"] = (sh, dss, tmss, tri)
+    occ_new = cuda_spheres.occluded_spheres_cuda
+    occ_plain = cuda_spheres.occluded_spheres_plain
+    occ_old = ab_baselines.occluded_spheres_chunked
+
+    def occ_held(label, o, ds, tms, prior=None):
+        new = occ_new(o, ds, tms, tex, prior=prior)
+        want = {"plain": occ_plain(o, ds, tms, tex, prior),
+                "old": occ_old(o, ds, tms, tex, prior)}
+        offs = {k: int((new != w).sum()) for k, w in want.items()}
+        dead = tms < 0.0
+        log(f"  row 4, {label}: {tms.shape[0]} x {tms.shape[1]} lanes, "
+            f"occluded {float(new[~dead].float().mean()):.3f} of the live; "
+            "lanes off " + ", ".join(f"{k} {v}" for k, v in offs.items()))
+        if any(offs.values()):
+            raise AssertionError(f"row 4, {label}: the dense any-hit "
+                                 "disagrees")
+        if prior is None and bool(new[dead].any()):
+            raise AssertionError(f"row 4, {label}: a dead lane occluded")
+        if prior is not None and not bool(new[prior].all()):
+            raise AssertionError(f"row 4, {label}: a prior set dropped")
+        out["row4_err"] = max(out["row4_err"], max_err((new,),
+                                                       (want["plain"],)))
+        return new
+
+    alone = occ_held("textured first-bounce shadow sets", so, dss, tmss)
+    folded = occ_held("textured first-bounce shadow sets, the flat any-hit "
+                      "as prior", so, dss, tmss, tri)
+    occ_held("ragged R, dead warps, the flat any-hit as prior",
+             so[:rr].contiguous(), dss[:, :rr].contiguous(),
+             torch.stack([dead_warps(x[:rr], -1.0) for x in tmss]),
+             tri[:, :rr].contiguous())
+    rand = torch.rand(tmss.shape, generator=g, device=device) < 0.1
+    occ_held("a random tenth as prior", so, dss, tmss, rand)
+    # More sets than the kernel holds per lane: a launch per chunk.
+    n_sets = native.SPH_OCC_MAX_SETS + 3
+    pick = torch.arange(n_sets, device=device) % dss.shape[0]
+    before = cuda_spheres.occluded_launches
+    occ_held(f"{n_sets} sets (the first-bounce sets repeated), a random "
+             "prior", so, dss[pick].contiguous(), tmss[pick].contiguous(),
+             rand[pick].contiguous())
+    if cuda_spheres.occluded_launches != before + 2:
+        raise AssertionError(f"row 4: {n_sets} sets took "
+                             f"{cuda_spheres.occluded_launches - before} "
+                             "launches, not 2")
+    out["tex_occ"] = (alone, folded)
+    # occluded_multi, as the main path calls it, against the old path.
+    acts = [tm >= 0.0 for tm in sh["t_maxes"]]
+    args = (so, sh["dirs"], op)
+    kw = dict(surf_pos=sh["surf_pos"], max_dists=sh["max_dists"],
+              actives=acts)
+    new = torch.stack(intersect.occluded_multi(*args, **kw))
+    with replaced_sphere_designs():
+        old = torch.stack(intersect.occluded_multi(*args, **kw))
+    off = int((new != old).sum())
+    log(f"  occluded_multi, textured first-bounce shadow sets: lanes off "
+        f"the old path {off}")
+    if off:
+        raise AssertionError("occluded_multi disagrees with the old path")
+    out["multi"] = (args, kw)
+    log(f"  row 4 held in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_rows_5_4(device, tex, grid) -> dict:
+    """3m: rows 5 and 4 against their plain versions and the designs they
+    replaced (``rows_5_4_parity``); row 5's simulated visits and the
+    lane slots of each in-block layout on scene B's camera and
+    first-bounce lanes, row 4's tests with and without prior; then both
+    designs in turns (old, new, new, old, twice) with their bounds: row 5
+    through its wrapper and the launch alone on scene B's 2^18 camera and
+    first-bounce lanes; row 4 the launch alone without and with prior, and
+    through occluded_multi's sphere half and whole, on the textured
+    showcase's 3 x 2^18 first-bounce shadow lanes; the device ms per 1080p
+    sample (scene B for row 5, the textured showcase for row 4) through
+    each design, and one scene B sample end to end in turns. Returns the
+    numbers."""
+    import torch
+
+    from path_tracer_torch import native
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.ops import ab_baselines, cuda_spheres, intersect
+
+    phase_t0 = time.perf_counter()
+    par = rows_5_4_parity(device, tex, grid)
+    log(f"  parity held in {time.perf_counter() - phase_t0:.1f} s")
+    n = WAVE
+    out = {"row5_err": par["row5_err"], "row4_err": par["row4_err"],
+           "visits": {}, "ab": {}}
+    rec_bytes = 3 * 4 + 2 * 4 + 1
+    walk_tables = (grid.sph_blk, grid.sph_blkid, grid.sph_sorted_t)
+    for label, (o, d, tp, rec) in par["scene B"].items():
+        v = sph_walk_visits(o, d, tp, grid)
+        slabs, solves = sph_walk_needed(o, d, tp, grid, rec.t)
+        log_sph_walk_visits(f"scene B {label} lanes", v, solves)
+        out["visits"][label] = dict(v, needed_solves=solves,
+                                    needed_slabs=slabs)
+        b = bound(slabs * OPS_SLAB + solves * OPS_SPHERE,
+                  nbytes(o, d, tp, *walk_tables, grid.sph_smap)
+                  + n * rec_bytes)
+        design = (v["gate_slabs"] + v["visit_slabs"]) * OPS_SLAB \
+            + v["design_solves"] * OPS_SPHERE
+        needed = slabs * OPS_SLAB + solves * OPS_SPHERE
+        log(f"  row 5 operations, scene B {label} lanes: needed "
+            f"{needed:.4e}, the design's {design:.4e} "
+            f"({design / max(needed, 1):.3f}x)")
+        old_ms, new_ms = ab_turns(
+            lambda: ab_baselines.closest_hit_spheres_walk_cta(o, d, tp, grid),
+            lambda: cuda_spheres.closest_hit_spheres_cuda(o, d, tp, grid))
+        old_l, new_l = ab_turns(
+            lambda: ab_baselines.launch_sph_walk_cta(o, d, tp, grid),
+            lambda: native.launch_sph_walk(o, d, tp, *walk_tables,
+                                           grid.sph_smap))
+        plain_ms, _ = timed_once(
+            lambda: cuda_spheres.closest_hit_spheres_walk_merged_plain(
+                o, d, tp, grid))
+        old_k, new_k = device_turns(
+            lambda: ab_baselines.launch_sph_walk_cta(o, d, tp, grid),
+            lambda: native.launch_sph_walk(o, d, tp, *walk_tables,
+                                           grid.sph_smap))
+        out["ab"][f"row 5 scene B {label} lanes"] = (old_ms, new_ms, b,
+                                                     plain_ms)
+        out["ab"][f"row 5 scene B {label} lanes, the launch alone"] = (
+            old_l, new_l, b)
+        out["ab"][f"row 5 scene B {label} lanes, device ms a launch"] = (
+            old_k, new_k, b)
+        # The in-block layouts: each alone (lane_wise 33: every block over
+        # the warp; 1: lane per ray) against the kernel's mix, in turns.
+        mix = native.launch_sph_walk(o, d, tp, *walk_tables, grid.sph_smap)
+        for alone, lw in (("block over the warp", 33), ("lane per ray", 1)):
+            one = native.launch_sph_walk(o, d, tp, *walk_tables,
+                                         grid.sph_smap, lane_wise=lw)
+            if not all(torch.equal(x, y) for x, y in zip(one, mix)):
+                raise AssertionError(f"row 5, {alone} alone: the layouts "
+                                     "disagree")
+            out["ab"][f"row 5 scene B {label} lanes, {alone} alone (old) "
+                      "against the mix (new), device ms a launch"] = \
+                device_turns(
+                    lambda: native.launch_sph_walk(
+                        o, d, tp, *walk_tables, grid.sph_smap, lane_wise=lw),
+                    lambda: native.launch_sph_walk(o, d, tp, *walk_tables,
+                                                   grid.sph_smap)) + (b,)
+    log(f"  row 5 timed at {time.perf_counter() - phase_t0:.1f} s")
+
+    sh, dss, tmss, tri = par["tex"]
+    so = sh["s_o"]
+    table = tex.sph_packed_t
+    s_real = tex.num_real_spheres
+    for label, prior in (("no prior", None), ("prior", tri)):
+        w = sph_occ_dense_work(so, sh["dirs"], sh["t_maxes"], tex, prior)
+        out["visits"][f"row 4 {label}"] = w
+        log(f"  row 4 tests, textured first-bounce shadow sets, {label}: "
+            f"needed {w['tests']} ({w['needed_ops']:.4e} operations), the "
+            f"design's {w['set_tests']} set tests over {w['lane_iters']} "
+            f"lane-sphere steps ({w['design_ops']:.4e} operations, "
+            f"{w['design_ops'] / max(w['needed_ops'], 1):.3f}x)")
+    w0, w1 = out["visits"]["row 4 no prior"], out["visits"]["row 4 prior"]
+    out_bytes = dss.shape[0] * n
+    b_alone = bound(w0["needed_ops"], nbytes(so, dss, tmss, table)
+                    + out_bytes)
+    b_prior = bound(w1["needed_ops"], nbytes(so, dss, tmss, table, tri)
+                    + out_bytes)
+    out["ab"]["row 4 textured shadow sets, the launch alone"] = ab_turns(
+        lambda: ab_baselines.launch_sph_occluded_chunked(so, dss, tmss, tex),
+        lambda: native.launch_sph_occluded(so, dss, tmss, table, s_real)) \
+        + (b_alone,)
+    out["ab"]["row 4 textured shadow sets, the launch alone, prior"] = \
+        ab_turns(lambda: ab_baselines.launch_sph_occluded_chunked(
+            so, dss, tmss, tex), lambda: native.launch_sph_occluded(
+            so, dss, tmss, table, s_real, tri)) + (b_prior,)
+    for label, prior, b in (("", None, b_alone), (", prior", tri, b_prior)):
+        out["ab"][f"row 4 textured shadow sets, device ms a launch{label}"] = \
+            device_turns(
+                lambda: ab_baselines.launch_sph_occluded_chunked(
+                    so, dss, tmss, tex),
+                lambda: native.launch_sph_occluded(so, dss, tmss, table,
+                                                   s_real, prior)) + (b,)
+    tri_list = list(tri)
+
+    def old_half():
+        """The old sphere half of occluded_multi: stack, launch, compare,
+        and one OR per light."""
+        sph = ab_baselines.occluded_spheres_chunked(so, sh["dirs"],
+                                                    sh["t_maxes"], tex)
+        return [h | s for h, s in zip(tri_list, sph)]
+
+    plain_ms, _ = timed_once(lambda: cuda_spheres.occluded_spheres_plain(
+        so, dss, tmss, tex, tri))
+    out["ab"]["row 4 through occluded_multi's sphere half"] = ab_turns(
+        old_half, lambda: cuda_spheres.occluded_spheres_cuda(
+            so, dss, tmss, tex, prior=tri)) + (b_prior, plain_ms)
+    args, kw = par["multi"]
+
+    def old_multi():
+        with replaced_sphere_designs():
+            return intersect.occluded_multi(*args, **kw)
+
+    out["ab"]["occluded_multi, textured shadow sets"] = ab_turns(
+        old_multi, lambda: intersect.occluded_multi(*args, **kw)) \
+        + (b_prior,)
+    for label, (old_ms, new_ms, b, *rest) in out["ab"].items():
+        new, old = min(new_ms), min(old_ms)
+        extra = f"; plain {rest[0]:.4f} ms" if rest else ""
         log(f"  A/B {label}: old design {old:.4f} ms (readings "
             + " ".join(f"{x:.4f}" for x in old_ms) + f"), new {new:.4f} ms ("
             + " ".join(f"{x:.4f}" for x in new_ms) + f"); bound {b[0]:.4f} "
@@ -3900,42 +4448,44 @@ def phase_rows_12_2(device, big, design_counts: bool = True) -> dict:
         if b[0] > new:
             raise AssertionError(f"{label}: faster than its bound")
 
-    # Scene A's device time per 1080p sample through each design, then one
+    # Device ms per 1080p sample through each design, then one scene B
     # sample end to end in turns.
     log(f"  the A/B done at {time.perf_counter() - phase_t0:.1f} s")
     spec5 = IntegratorSpec(bounces=5)
-    prof = {"new": kernel_device_ms(big, spec5)}
-    with replaced_designs():
-        prof["old"] = kernel_device_ms(big, spec5)
-    out["profile scene A"] = prof
-    log_profile("scene A", prof["new"])
-    for k, old_k in (("flat2_occluded_kernel", "flat2_occluded_cta_kernel"),
-                     ("sphere_closest_hit_kernel",
-                      "sphere_closest_hit_chunked_kernel")):
+    out["profile"] = {}
+    for name, sc, k, old_k in (
+            ("scene B", grid, "sph_walk_kernel", "sph_walk_cta_kernel"),
+            ("textured showcase", tex, "sph_occ_dense_kernel",
+             "sph_occ_chunked_kernel")):
+        prof = {"new": kernel_device_ms(sc, spec5)}
+        with replaced_sphere_designs():
+            prof["old"] = kernel_device_ms(sc, spec5)
+        out["profile"][name] = prof
+        log_profile(name, prof["new"])
         got, was = prof["new"].get(k, (0.0, 0)), prof["old"].get(old_k,
                                                                  (0.0, 0))
         if got[1] == 0 or was[1] == 0 or k in prof["old"] \
                 or old_k in prof["new"]:
-            raise AssertionError(f"scene A: the designs were not routed ({k})")
-        log(f"  the same sample through the old design: {old_k} "
+            raise AssertionError(f"{name}: the designs were not routed ({k})")
+        log(f"  the same {name} sample through the old design: {old_k} "
             f"{was[0]:.3f} ms in {was[1]} launches against {k} {got[0]:.3f} "
-            f"ms in {got[1]}")
-    log(f"  all kernels {prof['old']['all'][0]:.3f} ms in "
-        f"{prof['old']['all'][1]} launches (old) against "
-        f"{prof['new']['all'][0]:.3f} ms in {prof['new']['all'][1]} (new)")
+            f"ms in {got[1]}; all kernels {prof['old']['all'][0]:.3f} ms in "
+            f"{prof['old']['all'][1]} launches (old) against "
+            f"{prof['new']['all'][0]:.3f} ms in {prof['new']['all'][1]} "
+            f"(new), {prof['old']['all'][1] - prof['new']['all'][1]} fewer")
     secs = {"old": [], "new": []}
     for design in ("old", "new", "new", "old"):
-        with (replaced_designs() if design == "old"
+        with (replaced_sphere_designs() if design == "old"
               else contextlib.nullcontext()):
             t0 = time.perf_counter()
-            render_pixel_sums(big, 1920, 1080, 1, 1, spec5, tile_rays=WAVE)
+            render_pixel_sums(grid, 1920, 1080, 1, 1, spec5, tile_rays=WAVE)
             torch.cuda.synchronize()
             secs[design].append(time.perf_counter() - t0)
     out["sample"] = secs
-    log("  one 1080p sample of scene A end to end, in turns (old, new, new, "
+    log("  one 1080p sample of scene B end to end, in turns (old, new, new, "
         "old): old " + " ".join(f"{x:.4f}" for x in secs["old"]) + " s, new "
         + " ".join(f"{x:.4f}" for x in secs["new"]) + " s")
-    log(f"  phase 3l took {time.perf_counter() - phase_t0:.1f} s")
+    log(f"  phase 3m took {time.perf_counter() - phase_t0:.1f} s")
     return out
 
 
@@ -4167,8 +4717,9 @@ def main() -> int:
 
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
     if sys.argv[1:] and (len(sys.argv) != 3
-                         or only not in ("3i", "3j", "3k", "3l")):
-        print("usage: chip_smoke.py [--only 3i|3j|3k|3l]", file=sys.stderr)
+                         or only not in ("3i", "3j", "3k", "3l", "3m")):
+        print("usage: chip_smoke.py [--only 3i|3j|3k|3l|3m]",
+              file=sys.stderr)
         return 2
     card = smi()
     device = torch.device("cuda", 0)
@@ -4216,6 +4767,18 @@ def main() -> int:
     from path_tracer_torch.scene.procedural import sphere_grid_device_scene
 
     t0 = time.perf_counter()
+    grid = sphere_grid_device_scene(SPHERE_GRID, device)
+    log(f"  scene B ({grid.num_real_spheres} spheres) built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not grid.sph_use_blocks:
+        raise AssertionError("the sphere grid does not take the walk")
+    if only == "3m":  # phase 3m alone
+        phase_rows_5_4(device, tex, grid)
+        log(f"chip_smoke: phase 3m passed in "
+            f"{time.perf_counter() - start:.1f} s")
+        print(card)
+        return 0
+    t0 = time.perf_counter()
     big = showcase_device_scene(BIG_GRID, device, sl_block=SHOWCASE_BLOCK,
                                 textured=True)
     walks = [_walk_variant(v(big)) for v in (opaque_view, transparent_view)]
@@ -4236,10 +4799,6 @@ def main() -> int:
             f"{time.perf_counter() - start:.1f} s")
         print(card)
         return 0
-    grid = sphere_grid_device_scene(SPHERE_GRID, device)
-    if not grid.sph_use_blocks:
-        raise AssertionError("the sphere grid does not take the walk")
-
     tri_stats, sph_stats = phase_kernels(device)
     flat_stats, occ_err = phase_flat_kernels(device, showcase)
     alpha_stats, trans_stats = phase_walk_kernels(device, tex)
@@ -4249,11 +4808,10 @@ def main() -> int:
     flat_times = phase_flat_timing(device, showcase)
     walk_times = phase_walk_timing(device, tex)
     flat2_times = phase_flat2_timing(device, big)
-    sph_time, sph_timing_stats = phase_sph_timing(device, grid)
+    _, sph_timing_stats = phase_sph_timing(device, grid)
     log("phase 3f: sphere any-hit kernels and the fused shadow kernel at "
         "the main path's shapes")
-    occ_err, occ_time = phase_sphere_any_hit(device, tex,
-                                             "dense sphere any-hit")
+    occ_err, _ = phase_sphere_any_hit(device, tex, "dense sphere any-hit")
     occ_walk_err, occ_walk_time = phase_sphere_any_hit(
         device, grid, "sphere any-hit walk")
     fused_err, fused_time = phase_fused_shadow_kernel(device, tex)
@@ -4264,6 +4822,7 @@ def main() -> int:
     phase_rows_10_11(device, showcase, tex, big)
     phase_rows_13_14(device, tex, big)
     rows_12_2 = phase_rows_12_2(device, big, design_counts=False)
+    rows_5_4 = phase_rows_5_4(device, tex, grid)
     launches = phase_main_path(device)
     flat_launches, flat_render = phase_showcase(device, showcase)
     walk_launches = phase_showcase_tex(device, tex)
@@ -4300,9 +4859,18 @@ def main() -> int:
 
     # Row 2 at the main path's shape on scene A: the 2^18 camera lanes of
     # the middle wavefront, merged with row 11's record in the launch.
-    old_ms, new_ms, b, _, _, plain_ms = rows_12_2["ab"][
+    ms, b, _, plain_ms = rows_12_2["times"][
         "row 2 scene A camera lanes, merged"]
-    row2_time = (min(new_ms), plain_ms) + b
+    row2_time = (min(ms), plain_ms) + b
+    # Rows 5 and 4 at the main path's shapes: row 5 through its wrapper on
+    # scene B's 2^18 camera lanes of the middle wavefront; row 4 through
+    # occluded_multi's sphere half (the flat any-hit's result as prior) on
+    # the textured showcase's 3 x 2^18 first-bounce shadow lanes.
+    _, new_ms, b, plain_ms = rows_5_4["ab"]["row 5 scene B camera lanes"]
+    row5_time = (min(new_ms), plain_ms) + b
+    _, new_ms, b, plain_ms = rows_5_4["ab"][
+        "row 4 through occluded_multi's sphere half"]
+    row4_time = (min(new_ms), plain_ms) + b
     kernels = [
         entry("mt_closest_hit", "mt_closest_hit.cu", "pallas_intersect.py:39",
               launches["mt_closest_hit"], max(s[1] for s in tri_stats),
@@ -4334,9 +4902,12 @@ def main() -> int:
               flat2_times["occluded"]),
         entry("sph_walk", "sph_walk.cu", "pallas_spheres.py:385",
               grid_launches["sph_walk"],
-              max(s[1] for s in walk_stats + sph_timing_stats), sph_time),
+              max([s[1] for s in walk_stats + sph_timing_stats]
+                  + [rows_5_4["row5_err"]]), row5_time),
         entry("sph_occluded", "sph_occ.cu", "pallas_spheres.py:197",
-              walk_launches["sph_occluded"], occ_err, occ_time),
+              walk_launches["sph_occluded"], max(occ_err,
+                                                 rows_5_4["row4_err"]),
+              row4_time),
         entry("sph_occ_walk", "sph_occ.cu", "pallas_spheres.py:484",
               grid_launches["sph_occ_walk"], occ_walk_err, occ_walk_time),
         entry("fused_shadow", "fused_shadow.cu", "pallas_shadow.py:49",

@@ -45,16 +45,14 @@
 //      after another, and an __any_sync over the lanes' slot tests closes a
 //      served ray.
 // A warp holds 3.3 KB of shared memory at scene A's 128 superblock columns.
-// The design this one replaced, a CTA of 128 rays sharing one cursor behind
-// CTA barriers, each visit staging the block's rows for the whole CTA, is
-// ptt_flat2_occluded_cta in ab_baselines.cu.
 //
 // Inputs:  o [R,3] f32; d [L,R,3] f32; t_max [L,R] f32; sbflat [8,sbpad]
 //          f32; sbid [sbpad] i32; blkflat [8,bpad] f32 (bpad = 128 x the
 //          superblock columns in use); blkid [bpad] i32; bw [16, n_cols]
 //          f32 (block b = columns [b*block, (b+1)*block), block a multiple
 //          of 128).
-// Output:  out [L,R] f32, 1 = occluded (or dead), 0 = not occluded.
+// Output:  out [L,R] u8 (a bool tensor's bytes), 1 = occluded (or dead),
+//          0 = not occluded.
 
 #include "flat_common.cuh"
 
@@ -80,7 +78,7 @@ flat2_occluded_kernel(const float* __restrict__ o,
                       const float* __restrict__ blk,
                       const int* __restrict__ blkid,
                       const float* __restrict__ bw, int R, int sbpad, int bpad,
-                      int block, int n_cols, float* __restrict__ out) {
+                      int block, int n_cols, unsigned char* __restrict__ out) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* s_ray = smem + warp * warp_floats(sbpad);  // [kWarpRayRows][32]
@@ -165,7 +163,7 @@ flat2_occluded_kernel(const float* __restrict__ o,
       __syncwarp();  // the next superblock's list overwrites s_col, s_mask
     }
   }
-  if (in_range) out[idx] = (open >> lane) & 1u ? 0.f : 1.f;
+  if (in_range) out[idx] = (open >> lane) & 1u ? 0 : 1;
 }
 
 }  // namespace
@@ -175,7 +173,7 @@ extern "C" int ptt_flat2_occluded(const float* o, const float* d,
                                   const int* sbid, const float* blk,
                                   const int* blkid, const float* bw, int R,
                                   int L, int sbpad, int bpad, int block,
-                                  int n_cols, float* out, int device,
+                                  int n_cols, unsigned char* out, int device,
                                   cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;

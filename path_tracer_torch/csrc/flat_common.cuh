@@ -4,17 +4,20 @@
 // sphere root rules are written.
 //
 // Two walks share them. The CTA walk (cta_min_key_max through
-// occluded_block, and flat_occ_set) serves fused_shadow.cu, sph_walk.cu,
-// sph_occ.cu and the replaced flat2 any-hit in ab_baselines.cu: a CTA of
-// 128 rays shares one walk and stages each visited block in shared memory
-// behind CTA barriers. The warp walk (kFullMask to the end) serves
-// flat_closest_hit.cu, flat_occluded.cu, flat2_closest_hit.cu and
-// flat2_occluded.cu: each warp is its own packet, with no CTA
-// barrier; its gate admits block columns with the mask of the rays they
-// admit, and each admitted block is spread over the warp. safe_inv, Box,
-// load_box, slab, the gates and sphere_nearest serve both; the warp walk's
-// bw_slot_closest and bw_slot_any repeat bw_plane's and bw_inside's
-// arithmetic on a slot held in registers.
+// occluded_block, and flat_occ_set) serves fused_shadow.cu, the sphere
+// any-hit walk of sph_occ.cu and the replaced sphere block walk in
+// ab_baselines.cu: a CTA of 128 rays shares one walk and stages each
+// visited block in shared memory behind CTA barriers. The warp walk
+// (kFullMask to the end) serves flat_closest_hit.cu, flat_occluded.cu,
+// flat2_closest_hit.cu, flat2_occluded.cu and sph_walk.cu: each warp is
+// its own packet, with no CTA barrier; its gate admits block columns with
+// the mask of the rays they admit, and each admitted block is spread over
+// the warp (or, in sph_walk.cu, served lane per ray when most of the warp
+// needs it). safe_inv, Box, load_box, slab, the gates and sphere_nearest
+// serve both; the warp walk's bw_slot_closest and bw_slot_any repeat
+// bw_plane's and bw_inside's arithmetic on a slot held in registers.
+// TriRecord and write_sphere_record are the sphere closest hits' record
+// and merge (sphere_closest_hit.cu, sph_walk.cu).
 //
 // Every expression is written in the order of the plain PyTorch versions
 // (ops/cuda_bvh.py, ops/intersect.py), and the library is built -fmad=false,
@@ -137,6 +140,46 @@ __device__ __forceinline__ float sphere_nearest(float ox, float oy, float oz,
   const bool v2 = t2 >= 0.f && t2 > tp;
   far = !v1;
   return v1 ? t1 : (v2 ? t2 : CUDART_INF_F);
+}
+
+// A triangle HitRecord to merge into a sphere closest hit's record, field
+// by field ([R] each): null pointers for none.
+struct TriRecord {
+  const float* t;
+  const float* u;
+  const float* v;
+  const int* kind;
+  const int* prim;
+  const unsigned char* back;
+};
+
+constexpr int kKindSphere = 2;
+
+// Writes lane i's HitRecord (ops/intersect.py), fout [3,R] rows t, u, v,
+// iout [2,R] rows kind, prim and bout [R] backface: the sphere hit (t,
+// prim, back; kind 2 and u = v = 0; the caller passes prim 0 on a miss,
+// t = +inf), unless tri holds a record whose t is no larger. That is
+// closest_hit's merge (merge_hits): the triangle wins ties and, both t
+// +inf, keeps its miss record.
+__device__ __forceinline__ void write_sphere_record(
+    const TriRecord& tri, int i, int R, float t, int prim, bool back,
+    float* __restrict__ fout, int* __restrict__ iout,
+    unsigned char* __restrict__ bout) {
+  float u = 0.f, v = 0.f;
+  int kind = t < CUDART_INF_F ? kKindSphere : 0;
+  if (tri.t) {
+    const float tt = tri.t[i];
+    if (tt <= t) {
+      t = tt; u = tri.u[i]; v = tri.v[i]; kind = tri.kind[i];
+      prim = tri.prim[i]; back = tri.back[i] != 0;
+    }
+  }
+  fout[i] = t;
+  fout[(size_t)R + i] = u;
+  fout[2 * (size_t)R + i] = v;
+  iout[i] = kind;
+  iout[(size_t)R + i] = prim;
+  bout[i] = back ? 1 : 0;
 }
 
 // CTA-wide reduction of (key, column) to the lexicographic minimum and of
@@ -474,6 +517,28 @@ __device__ __forceinline__ unsigned warp_gate_mask(const Box& box,
     slab(box, s_ray[k], s_ray[32 + k], s_ray[64 + k], s_ray[96 + k],
          s_ray[128 + k], s_ray[160 + k], tn, tf);
     if (gate.pass(tn, tf, s_ray[kRowG + k])) mask |= 1u << k;
+  }
+  return mask;
+}
+
+// warp_gate_mask, and in key the nearest slab entry, clamped at 0, over
+// the rays it admits (+inf for none), as column_keys keys a column.
+template <class Gate>
+__device__ __forceinline__ unsigned warp_gate_mask_key(const Box& box,
+                                                       const float* s_ray,
+                                                       Gate gate,
+                                                       float& key) {
+  unsigned mask = 0u;
+  key = CUDART_INF_F;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    float tn, tf;
+    slab(box, s_ray[k], s_ray[32 + k], s_ray[64 + k], s_ray[96 + k],
+         s_ray[128 + k], s_ray[160 + k], tn, tf);
+    if (gate.pass(tn, tf, s_ray[kRowG + k])) {
+      mask |= 1u << k;
+      key = fminf(key, max_nan(tn, 0.f));
+    }
   }
   return mask;
 }

@@ -42,7 +42,8 @@
 // Inputs:  o [R,3] f32; d [L,R,3] f32; t_max [L,R] f32; blkflat [8,bpad];
 //          blkid [bpad] i32; bw [16, n_cols] f32 (block b = columns
 //          [b*block, (b+1)*block), block a multiple of 128).
-// Output:  out [L,R] f32, 1 = occluded (or dead), 0 = not occluded.
+// Output:  out [L,R] u8 (a bool tensor's bytes), 1 = occluded (or dead),
+//          0 = not occluded.
 
 #include "flat_common.cuh"
 
@@ -61,7 +62,7 @@ __host__ __device__ constexpr size_t warp_floats(int bpad) {
 __global__ void __launch_bounds__(32 * kWarps, 4)
 flat_occluded_kernel(const float* __restrict__ o, const float* __restrict__ d,
                      const float* __restrict__ t_max, ptt::FlatTable ft,
-                     int R, float* __restrict__ out) {
+                     int R, unsigned char* __restrict__ out) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bpad = ft.bpad;
@@ -109,7 +110,7 @@ flat_occluded_kernel(const float* __restrict__ o, const float* __restrict__ d,
                                      ft.n_cols, need, s_ray, lane);
     }
   }
-  if (in_range) out[idx] = (open >> lane) & 1u ? 0.f : 1.f;
+  if (in_range) out[idx] = (open >> lane) & 1u ? 0 : 1;
 }
 
 }  // namespace
@@ -118,7 +119,7 @@ extern "C" int ptt_flat_occluded(const float* o, const float* d,
                                  const float* t_max, const float* blk,
                                  const int* blkid, const float* bw, int R,
                                  int L, int bpad, int block, int n_cols,
-                                 float* out, int device,
+                                 unsigned char* out, int device,
                                  cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;

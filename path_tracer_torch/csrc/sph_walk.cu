@@ -1,5 +1,6 @@
-// Sphere block walk closest hit over SAH blocks of 128 spheres, one thread
-// per ray.
+// Sphere block walk closest hit over SAH blocks of 128 spheres: every warp
+// is an independent packet of 32 rays, and its launch writes the whole hit
+// record, merging an optional triangle record.
 //
 // Replaces the TPU kernel path_tracer_tpu/ops/pallas_spheres.py::
 // _sph_walk_kernel (launched by _sph_walk_launch, entry
@@ -16,49 +17,131 @@
 //     is valid iff has, >= 0 and > t_prev; t = t1 if valid, else t2 if
 //     valid, else +inf; backface = the far root alone is valid;
 //   - TIE RULE: the lexicographic (t, sorted slot) minimum, so the visit
-//     order decides nothing; a miss is t = +inf, slot -1;
+//     order decides nothing; a miss is t = +inf;
 //   - pad slots (center 1e30, radius 0) overflow: b^2 and c are inf and
 //     disc NaN, so has is false. IEEE semantics are kept: no fast math,
 //     IEEE division and sqrt, and -fmad=false for the plain version's
 //     rounding;
-//   - a dead lane is t_prev = +inf; a CTA of dead lanes skips the walk.
+//   - a dead lane is t_prev = +inf; a warp of dead lanes skips the walk.
+// The record is ops/intersect.py's HitRecord (write_sphere_record, shared
+// with sphere_closest_hit.cu): t, kind 2 on a hit and 0 on a miss, prim =
+// sph_smap[slot] on a hit and 0 on a miss, u = v = 0, backface; with a
+// triangle record the lane keeps the triangle's fields unless the sphere's
+// t is strictly smaller (merge_hits: the triangle wins ties).
 //
 // Bound on the card: arithmetic, about 25 flops per (ray, sphere) solve of
-// each admitted block plus a slab test per block (62 blocks for 4,900
-// spheres). Design: the flat kernel's CTA walk over the block AABBs. A CTA
-// of 128 Morton-consecutive rays keys each block by its nearest slab entry
-// over its live lanes, visits blocks nearest first while some lane
-// slab-passes one no farther than its best t, stages the block's [4, 128]
-// spheres in shared memory (2 KB, read as broadcasts), and stops exactly
-// when the nearest remaining entry lies beyond every lane's best t.
+// each block a ray enters before its hit, plus a slab test (22 flops) per
+// ray and block (62 blocks for 4,900 spheres); at few blocks the bytes of
+// the rays and the records.
+//
+// Design: flat_common.cuh's warp walk; a CTA holds four warps that share
+// nothing but the launch, and no CTA barrier sits anywhere in the kernel.
+//   1. Gate: the warp stages its rays (with 1/(2a) and 4a) in its slice of
+//      shared memory; lane c slab-tests block columns c, c + 32, ...
+//      against the warp's 32 rays (unrolled), keeps the mask of the live
+//      rays the column admits and, as its key, their nearest slab entry
+//      clamped at 0. Admitted columns go into the warp's list with mask
+//      and key (12 bytes a column).
+//   2. Visit nearest key first (a warp argmin over the list, lowest entry
+//      on equal keys), while the key is no farther than some open ray's
+//      best t. A block is served to the rays of its mask whose own slab
+//      entry is no farther than their best t, the cut widened by the
+//      factor cut_widen (native.SPH_WALK_CUT_WIDEN, 1 + 2^-8): a root
+//      rounds up to 2^-11.5 of t ahead of the true one on a grazing ray
+//      (b^2 - 4ac cancels), so a lower-slot equal-t copy in a block whose
+//      slab entry rounds past the lane's best t is still served. Widening
+//      only adds visits, which cannot change a lexicographic minimum.
+//   3. Inside a block, by the number k of rays served:
+//      (A) k >= lane_wise (native.SPH_WALK_LANE_WISE): lane per ray,
+//          each served lane solving the block's spheres in slot order,
+//          the table read through the read-only cache with every lane on
+//          the same column (a broadcast); 32 x 128 lane slots whatever k;
+//      (B) fewer: the block over the warp, lane l holding spheres l,
+//          l + 32, l + 64, l + 96 in registers (16 floats, coalesced); the
+//          served rays one after another, each lane testing its four
+//          spheres, a ballot of the lanes whose (t, slot) beats the served
+//          ray's best, a warp (t, slot) minimum when several do, the served
+//          lane taking the winner: 128 lane slots and a reduction a ray.
+//      Both give the lexicographic (t, slot) minimum over the served rays,
+//      so the choice decides nothing but the time. Both stop at the
+//      block's last real sphere (a ballot over its slots): the pads after
+//      it (center 1e30, radius 0) overflow and never hit, and scene B's
+//      blocks hold 79 real spheres on average.
+//   4. Each lane writes its record, prim through sph_smap, merging the
+//      triangle record (no ATen op after the launch).
+// The design it replaced, a CTA of 128 rays sharing one cursor behind CTA
+// barriers, each visit staging the block in shared memory for the whole
+// CTA, is ptt_sph_walk_cta in ab_baselines.cu.
 //
 // Inputs:  o, d [R,3] f32; t_prev [R] f32; blk [8,sbpad] f32; blkid
 //          [sbpad] i32; sph [4, n_slots] f32 (block b = columns
-//          [b*128, (b+1)*128)).
-// Outputs: fout [2, R] f32 rows (t, backface 0/1); iout [R] i32 sorted
-//          slot.
+//          [b*128, (b+1)*128)); smap [n_slots] i32; optional triangle
+//          record tri_t, tri_u, tri_v [R] f32, tri_kind, tri_prim [R] i32,
+//          tri_back [R] u8 (all null for none); lane_wise, the rays of
+//          need from which a block is served lane per ray (step 3; 33
+//          serves every block over the warp); cut_widen, step 2's factor.
+// Outputs: fout [3,R] f32 rows (t, u, v); iout [2,R] i32 rows (kind,
+//          prim); bout [R] u8 backface.
 
 #include "flat_common.cuh"
 
 namespace {
 
-using ptt::kCtaRays;
+using ptt::kFullMask;
 
-constexpr int kSlots = 128;  // spheres per block
+constexpr int kWarps = 4;      // warps (packets) per CTA
+constexpr int kSlots = 128;    // spheres per block
+constexpr float kPadCenter = 1e30f;  // a pad slot's center coordinates
+// The warp's staged rays: flat_common's rows, then 1/(2a) and 4a.
+constexpr int kRows = ptt::kWarpRayRows + 2;
+constexpr int kRowInv2a = ptt::kWarpRayRows * 32;
+constexpr int kRowFourA = kRowInv2a + 32;
 
-__global__ void __launch_bounds__(kCtaRays)
+// Shared memory of one warp: its staged rays, then the listed columns,
+// their ray masks and their keys.
+__host__ __device__ constexpr size_t warp_floats(int sbpad) {
+  return (size_t)kRows * 32 + 3 * (size_t)sbpad;
+}
+
+// The walk's root of one sphere (the naive quadratic above): t, +inf on a
+// miss, and *far when the far root alone is valid.
+__device__ __forceinline__ float walk_root(float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           float four_a, float inv2a,
+                                           float tp, float cx, float cy,
+                                           float cz, float rad, bool& far) {
+  const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+  const float b = 2.0f * (ocx * dx + ocy * dy + ocz * dz);
+  const float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  const float disc = b * b - four_a * cc;
+  far = false;
+  if (!(disc >= 0.f)) return CUDART_INF_F;
+  const float sq = sqrtf(disc);
+  const float t1 = (-b - sq) * inv2a;
+  const float t2 = (-b + sq) * inv2a;
+  const bool v1 = t1 >= 0.f && t1 > tp;
+  const bool v2 = t2 >= 0.f && t2 > tp;
+  far = !v1 && v2;
+  return v1 ? t1 : (v2 ? t2 : CUDART_INF_F);
+}
+
+__global__ void __launch_bounds__(32 * kWarps, 4)
 sph_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
                 const float* __restrict__ t_prev,
                 const float* __restrict__ blk, const int* __restrict__ blkid,
-                const float* __restrict__ sph, int R, int sbpad, int n_slots,
-                float* __restrict__ fout, int* __restrict__ iout) {
+                const float* __restrict__ sph, const int* __restrict__ smap,
+                int R, int sbpad, int n_slots, int lane_wise,
+                float cut_widen, ptt::TriRecord tri,
+                float* __restrict__ fout, int* __restrict__ iout,
+                unsigned char* __restrict__ bout) {
   extern __shared__ float smem[];
-  float* s_sph = smem;                // [4][kSlots]
-  float* s_key = s_sph + 4 * kSlots;  // [sbpad]
-  float* s_ray = s_key + sbpad;       // [kRayRows][kCtaRays]
-  __shared__ float s_red[3 * (kCtaRays / 32)];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* s_ray = smem + warp * warp_floats(sbpad);  // [kRows][32]
+  int* s_col = reinterpret_cast<int*>(s_ray + kRows * 32);       // [sbpad]
+  unsigned* s_mask = reinterpret_cast<unsigned*>(s_col + sbpad);  // [sbpad]
+  float* s_key = reinterpret_cast<float*>(s_mask + sbpad);        // [sbpad]
 
-  const int i = blockIdx.x * kCtaRays + threadIdx.x;
+  const int i = (blockIdx.x * (blockDim.x >> 5) + warp) * 32 + lane;
   const bool in_range = i < R;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 1.f, dy = 1.f, dz = 1.f;
   float tp = CUDART_INF_F;
@@ -68,66 +151,159 @@ sph_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
     tp = t_prev[i];
   }
   const ptt::ClosestGate gate;
-  const bool live = gate.live(tp);
+  const bool live = gate.live(tp);  // +inf (or NaN) marks a dead lane
 
-  float bt = CUDART_INF_F, bb = 0.f;
+  float bt = CUDART_INF_F;
+  bool bb = false;
   int bi = -1;
-  if (__syncthreads_or(live)) {
-    const float ix = ptt::safe_inv(dx), iy = ptt::safe_inv(dy),
-                iz = ptt::safe_inv(dz);
+  if (__ballot_sync(kFullMask, live)) {
     const float a = dx * dx + dy * dy + dz * dz;
     const float inv2a = 1.0f / (2.0f * a);
     const float four_a = 4.0f * a;
-    ptt::stage_ray(s_ray, ox, oy, oz, ix, iy, iz, tp);
-    ptt::column_keys(blk, blkid, sbpad, sbpad, s_ray, s_key, gate);
-    while (true) {
-      float key, reach = live ? bt : -CUDART_INF_F;
-      int col;
-      ptt::next_column(s_key, sbpad, key, col, reach, s_red);
-      if (col >= sbpad || !(key <= reach)) break;
-      bool need = false;
-      if (live) {
-        float tn, tf;
-        ptt::slab(ptt::load_box(blk, sbpad, col), ox, oy, oz, ix, iy, iz, tn,
-                  tf);
-        need = gate.pass(tn, tf, tp) && tn <= bt;
+    s_ray[kRowInv2a + lane] = inv2a;
+    s_ray[kRowFourA + lane] = four_a;
+    ptt::stage_warp_rays(s_ray, lane, ox, oy, oz, dx, dy, dz, tp);
+    const float ix = s_ray[96 + lane], iy = s_ray[128 + lane],
+                iz = s_ray[160 + lane];
+
+    // 1. The columns some live ray's gate admits (a dead ray's t_prev
+    //    fails it), with their masks and keys.
+    int m = 0;
+    for (int c0 = 0; c0 < sbpad; c0 += 32) {
+      const int c = c0 + lane;
+      unsigned mask = 0u;
+      float key = CUDART_INF_F;
+      if (c < sbpad && blkid[c] >= 0)
+        mask = ptt::warp_gate_mask_key(ptt::load_box(blk, sbpad, c), s_ray,
+                                       gate, key);
+      const unsigned any = __ballot_sync(kFullMask, mask != 0u);
+      if (mask) {
+        const int p = m + __popc(any & ((1u << lane) - 1u));
+        s_col[p] = c;
+        s_mask[p] = mask;
+        s_key[p] = key;
       }
-      if (!__syncthreads_or(need)) continue;
-      const int start = blkid[col] * kSlots;
+      m += __popc(any);
+    }
+    __syncwarp();
+
+    // 2. The visits, nearest key first; a visited entry's key becomes NaN,
+    //    which no comparison selects again.
+    while (true) {
+      float key = CUDART_INF_F;
+      int p = INT_MAX;
+      for (int q = lane; q < m; q += 32) {
+        const float k = s_key[q];
+        if (k < key || (k == key && q < p)) { key = k; p = q; }
+      }
+      float reach = live ? bt * cut_widen : -CUDART_INF_F;
+      for (int off = 16; off > 0; off >>= 1) {
+        const float k2 = __shfl_xor_sync(kFullMask, key, off);
+        const int p2 = __shfl_xor_sync(kFullMask, p, off);
+        if (k2 < key || (k2 == key && p2 < p)) { key = k2; p = p2; }
+        reach = fmaxf(reach, __shfl_xor_sync(kFullMask, reach, off));
+      }
+      if (p == INT_MAX || !(key <= reach)) break;
+      __syncwarp();  // every lane has read s_key before it changes
+      if (lane == 0) s_key[p] = CUDART_NAN_F;
+      const int c = s_col[p];
+      bool need_l = false;
+      if ((s_mask[p] >> lane) & 1u) {
+        float tn, tf;
+        ptt::slab(ptt::load_box(blk, sbpad, c), ox, oy, oz, ix, iy, iz, tn,
+                  tf);
+        need_l = tn <= bt * cut_widen;
+      }
+      __syncwarp();  // lane 0's mark is seen by the next argmin
+      const unsigned need = __ballot_sync(kFullMask, need_l);
+      if (!need) continue;
+      const int start = blkid[c] * kSlots;
+      const float* src = sph + start;
+      // The block, lane l holding slots l + 32 q (3B's registers). Its
+      // slots past the last real sphere are pads (center 1e30, radius 0),
+      // whose solve overflows to a NaN discriminant and never hits: both
+      // layouts stop at n_real.
+      float cx[4], cy[4], cz[4], cr[4];
+      int n_real = 0;
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        s_sph[r * kSlots + threadIdx.x] =
-            sph[(size_t)r * n_slots + start + threadIdx.x];
-      __syncthreads();
-      if (need) {
-        for (int j = 0; j < kSlots; ++j) {
-          const float ocx = ox - s_sph[j];
-          const float ocy = oy - s_sph[kSlots + j];
-          const float ocz = oz - s_sph[2 * kSlots + j];
-          const float rad = s_sph[3 * kSlots + j];
-          const float b = 2.0f * (ocx * dx + ocy * dy + ocz * dz);
-          const float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-          const float disc = b * b - four_a * cc;
-          const bool has = disc >= 0.f;
-          const float sq = sqrtf(has ? disc : 0.f);
-          const float t1 = (-b - sq) * inv2a;
-          const float t2 = (-b + sq) * inv2a;
-          const bool v1 = has && t1 >= 0.f && t1 > tp;
-          const bool v2 = has && t2 >= 0.f && t2 > tp;
-          const float t = v1 ? t1 : (v2 ? t2 : CUDART_INF_F);
-          const int slot = start + j;
-          if (t < bt || (t == bt && slot < bi)) {  // lower slot on a tie
-            bt = t; bb = (!v1 && v2) ? 1.f : 0.f; bi = slot;
+      for (int q = 0; q < 4; ++q) {
+        const float* s = src + q * 32 + lane;
+        cx[q] = __ldg(s);
+        cy[q] = __ldg(s + n_slots);
+        cz[q] = __ldg(s + 2 * (size_t)n_slots);
+        cr[q] = __ldg(s + 3 * (size_t)n_slots);
+        const unsigned real = __ballot_sync(
+            kFullMask, !(cx[q] == kPadCenter && cy[q] == kPadCenter &&
+                         cz[q] == kPadCenter && cr[q] == 0.f));
+        if (real) n_real = q * 32 + 32 - __clz(real);
+      }
+      if (__popc(need) >= lane_wise) {
+        // 3A. Lane per ray: every lane reads the same column; the sphere
+        // loop unrolled, so the solves of four spheres overlap.
+        if (need_l) {
+#pragma unroll 4
+          for (int j = 0; j < n_real; ++j) {
+            bool far;
+            const float t = walk_root(
+                ox, oy, oz, dx, dy, dz, four_a, inv2a, tp, __ldg(src + j),
+                __ldg(src + n_slots + j), __ldg(src + 2 * (size_t)n_slots + j),
+                __ldg(src + 3 * (size_t)n_slots + j), far);
+            if (t < bt || (t == bt && start + j < bi)) {
+              bt = t; bb = far; bi = start + j;
+            }
           }
         }
+        continue;
       }
-      __syncthreads();  // s_sph is restaged by the next visit
+      // 3B. The block over the warp.
+      for (unsigned mm = need; mm; mm &= mm - 1) {
+        const int s = __ffs(mm) - 1;  // the served ray
+        const float sox = s_ray[s], soy = s_ray[32 + s], soz = s_ray[64 + s],
+                    stp = s_ray[ptt::kRowG + s],
+                    sdx = s_ray[ptt::kRowD + s],
+                    sdy = s_ray[ptt::kRowD + 32 + s],
+                    sdz = s_ray[ptt::kRowD + 64 + s],
+                    sinv2a = s_ray[kRowInv2a + s],
+                    sfour_a = s_ray[kRowFourA + s];
+        const float sbt = __shfl_sync(kFullMask, bt, s);
+        const int sbi = __shfl_sync(kFullMask, bi, s);
+        float lt = CUDART_INF_F;
+        bool lf = false;
+        int ls = INT_MAX;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (q * 32 >= n_real) break;  // pads only from here
+          bool far;
+          const float t = walk_root(sox, soy, soz, sdx, sdy, sdz, sfour_a,
+                                    sinv2a, stp, cx[q], cy[q], cz[q], cr[q],
+                                    far);
+          if (t < lt) {  // slots rise with q: the lower slot keeps ties
+            lt = t; lf = far; ls = start + q * 32 + lane;
+          }
+        }
+        // A candidate beats the served ray's best (t, slot).
+        const bool cand = lt < sbt || (lt == sbt && lt < CUDART_INF_F &&
+                                       ls < sbi);
+        const unsigned hm = __ballot_sync(kFullMask, cand);
+        if (!hm) continue;
+        int from = __ffs(hm) - 1;
+        if (hm & (hm - 1)) {  // several candidate lanes: the (t, slot) min
+          float wt = cand ? lt : CUDART_INF_F;
+          int ws = cand ? ls : INT_MAX, wl = lane;
+          ptt::warp_min_hit(wt, ws, wl);
+          from = wl;
+        }
+        const float wt = __shfl_sync(kFullMask, lt, from);
+        const int ws = __shfl_sync(kFullMask, ls, from);
+        const int wf = __shfl_sync(kFullMask, (int)lf, from);
+        if (lane == s) { bt = wt; bb = wf != 0; bi = ws; }
+      }
     }
   }
   if (in_range) {
-    fout[i] = bt;
-    fout[(size_t)R + i] = bb;
-    iout[i] = bi;
+    const bool hit = bt < CUDART_INF_F;
+    ptt::write_sphere_record(tri, i, R, bt, hit ? smap[bi] : 0, hit && bb,
+                             fout, iout, bout);
   }
 }
 
@@ -135,17 +311,28 @@ sph_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
 
 extern "C" int ptt_sph_walk(const float* o, const float* d,
                             const float* t_prev, const float* blk,
-                            const int* blkid, const float* sph, int R,
-                            int sbpad, int n_slots, float* fout, int* iout,
-                            int device, cudaStream_t stream) {
+                            const int* blkid, const float* sph,
+                            const int* smap, const float* tri_t,
+                            const float* tri_u, const float* tri_v,
+                            const int* tri_kind, const int* tri_prim,
+                            const unsigned char* tri_back, int R, int sbpad,
+                            int n_slots, int lane_wise, float cut_widen,
+                            float* fout, int* iout,
+                            unsigned char* bout, int device,
+                            cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0) return 0;
+  int warps = kWarps;
   size_t smem;
-  err = ptt::walk_smem(sph_walk_kernel, 4 * kSlots, sbpad, smem);
+  err = ptt::warp_walk_smem(sph_walk_kernel,
+                            warp_floats(sbpad) * sizeof(float), warps, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (R + kCtaRays - 1) / kCtaRays;
-  sph_walk_kernel<<<blocks, kCtaRays, smem, stream>>>(
-      o, d, t_prev, blk, blkid, sph, R, sbpad, n_slots, fout, iout);
+  const ptt::TriRecord tri{tri_t, tri_u, tri_v, tri_kind, tri_prim, tri_back};
+  const int rays = 32 * warps;
+  const int blocks = (R + rays - 1) / rays;
+  sph_walk_kernel<<<blocks, rays, smem, stream>>>(
+      o, d, t_prev, blk, blkid, sph, smap, R, sbpad, n_slots, lane_wise,
+      cut_widen, tri, fout, iout, bout);
   return (int)cudaGetLastError();
 }

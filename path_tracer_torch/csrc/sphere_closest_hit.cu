@@ -40,29 +40,20 @@
 //          prim); bout [R] u8 backface.
 
 #include "flat_common.cuh"  // sphere_nearest: the root rules, shared with
-                             // the fused sphere pass of flat_closest_hit.cu
+                             // the fused sphere pass of flat_closest_hit.cu;
+                             // write_sphere_record: the record and merge,
+                             // shared with sph_walk.cu
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kKindSphere = 2;
-
-// A triangle record to merge: null pointers for none.
-struct TriRecord {
-  const float* t;
-  const float* u;
-  const float* v;
-  const int* kind;
-  const int* prim;
-  const unsigned char* back;
-};
 
 __global__ void __launch_bounds__(kThreads)
 sphere_closest_hit_kernel(const float* __restrict__ o,
                           const float* __restrict__ d,
                           const float* __restrict__ t_prev,
                           const float* __restrict__ sph, int R, int S,
-                          TriRecord tri, float* __restrict__ fout,
+                          ptt::TriRecord tri, float* __restrict__ fout,
                           int* __restrict__ iout,
                           unsigned char* __restrict__ bout) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
@@ -85,22 +76,7 @@ sphere_closest_hit_kernel(const float* __restrict__ o,
       if (t < bt) { bt = t; bb = far; bi = j; }
     }
   }
-  float t = bt, u = 0.f, v = 0.f;
-  int kind = bt < CUDART_INF_F ? kKindSphere : 0, prim = bi;
-  bool back = bb;
-  if (tri.t) {
-    const float tt = tri.t[i];
-    if (tt <= bt) {  // the triangle wins ties (both +inf: its miss record)
-      t = tt; u = tri.u[i]; v = tri.v[i]; kind = tri.kind[i];
-      prim = tri.prim[i]; back = tri.back[i] != 0;
-    }
-  }
-  fout[i] = t;
-  fout[(size_t)R + i] = u;
-  fout[2 * (size_t)R + i] = v;
-  iout[i] = kind;
-  iout[(size_t)R + i] = prim;
-  bout[i] = back ? 1 : 0;
+  ptt::write_sphere_record(tri, i, R, bt, bi, bb, fout, iout, bout);
 }
 
 }  // namespace
@@ -114,7 +90,7 @@ extern "C" int ptt_sphere_closest_hit(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0) return 0;
-  const TriRecord tri{tri_t, tri_u, tri_v, tri_kind, tri_prim, tri_back};
+  const ptt::TriRecord tri{tri_t, tri_u, tri_v, tri_kind, tri_prim, tri_back};
   const int blocks = (R + kThreads - 1) / kThreads;
   sphere_closest_hit_kernel<<<blocks, kThreads, 0, stream>>>(
       o, d, t_prev, sph, R, S, tri, fout, iout, bout);

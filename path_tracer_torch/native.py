@@ -186,11 +186,10 @@ def kernels() -> Kernels:
         seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        # (o, d, t_prev, table, R, N, fout, iout, device, stream); the
-        # design the sphere kernel replaced (ab_baselines.cu) takes the same
-        for fn in (lib.ptt_mt_closest_hit, lib.ptt_sphere_closest_hit_chunked):
-            fn.restype = ci
-            fn.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, ci, vp]
+        # (o, d, t_prev, table, R, N, fout, iout, device, stream)
+        lib.ptt_mt_closest_hit.restype = ci
+        lib.ptt_mt_closest_hit.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, ci,
+                                           vp]
         # (o, d, t_prev, sph, tri_t, tri_u, tri_v, tri_kind, tri_prim,
         #  tri_back, R, S, fout, iout, bout, device, stream)
         lib.ptt_sphere_closest_hit.restype = ci
@@ -211,15 +210,23 @@ def kernels() -> Kernels:
         lib.ptt_flat2_closest_hit.argtypes = [vp] * 8 + [ci] * 5 + [vp, vp,
                                                                    ci, vp]
         # (o, d, t_max, sbflat, sbid, blkflat, blkid, bw, R, L, sbpad, bpad,
-        #  block, n_cols, out, device, stream); the replaced design
-        #  (ab_baselines.cu) takes the same
-        for fn in (lib.ptt_flat2_occluded, lib.ptt_flat2_occluded_cta):
-            fn.restype = ci
-            fn.argtypes = [vp] * 8 + [ci] * 6 + [vp, ci, vp]
-        # (o, d, t_prev, blk, blkid, sph, R, sbpad, n_slots, fout, iout,
-        #  device, stream)
+        #  block, n_cols, out, device, stream)
+        lib.ptt_flat2_occluded.restype = ci
+        lib.ptt_flat2_occluded.argtypes = [vp] * 8 + [ci] * 6 + [vp, ci, vp]
+        # (o, d, t_prev, blk, blkid, sph, smap, tri_t, tri_u, tri_v,
+        #  tri_kind, tri_prim, tri_back, R, sbpad, n_slots, lane_wise,
+        #  cut_widen, fout, iout, bout, device, stream)
         lib.ptt_sph_walk.restype = ci
-        lib.ptt_sph_walk.argtypes = [vp] * 6 + [ci] * 3 + [vp, vp, ci, vp]
+        lib.ptt_sph_walk.argtypes = ([vp] * 13 + [ci] * 4 + [ctypes.c_float]
+                                     + [vp] * 3 + [ci, vp])
+        # The replaced designs (ab_baselines.cu): (o, d, t_prev, blk, blkid,
+        # sph, R, sbpad, n_slots, fout, iout, device, stream) and (o, d,
+        # t_max, sph, R, L, S, ld, out, device, stream)
+        lib.ptt_sph_walk_cta.restype = ci
+        lib.ptt_sph_walk_cta.argtypes = [vp] * 6 + [ci] * 3 + [vp, vp, ci, vp]
+        lib.ptt_sph_occluded_chunked.restype = ci
+        lib.ptt_sph_occluded_chunked.argtypes = [vp] * 4 + [ci] * 4 + [vp, ci,
+                                                                       vp]
         # (o, d, t_op, rnd, bw, rows, tex, lut, pages, grp, R, T, gp, wp,
         #  steps_cap, textured, live, fout, iout, device, stream)
         lib.ptt_alpha_walk.restype = ci
@@ -228,9 +235,9 @@ def kernels() -> Kernels:
         #  steps_cap, textured, live, fout, device, stream)
         lib.ptt_trans_walk.restype = ci
         lib.ptt_trans_walk.argtypes = [vp] * 9 + [ci] * 7 + [vp, ci, vp]
-        # (o, d, t_max, sph, R, L, S, ld, out, device, stream)
+        # (o, d, t_max, prior, sph, R, L, S, ld, out, device, stream)
         lib.ptt_sph_occluded.restype = ci
-        lib.ptt_sph_occluded.argtypes = [vp] * 4 + [ci] * 4 + [vp, ci, vp]
+        lib.ptt_sph_occluded.argtypes = [vp] * 5 + [ci] * 4 + [vp, ci, vp]
         # (o, d, t_max, blk, blkid, sph, R, L, sbpad, n_slots, out, device,
         #  stream)
         lib.ptt_sph_occ_walk.restype = ci
@@ -269,6 +276,19 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_rays(fn: str, o, d, t_prev, device) -> int:
+    """o, d [R,3] and t_prev [R] f32 on the CUDA ``device``; returns R."""
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
+    r = o.shape[0]
+    _check("o", o, (r, 3), torch.float32, device)
+    _check("d", d, (r, 3), torch.float32, device)
+    _check("t_prev", t_prev, (r,), torch.float32, device)
+    if 3 * r >= 2**31:
+        raise ValueError(f"{fn}: {r} rays exceed int32 indexing")
+    return r
+
+
 def launch_closest_hit(fn: str, o, d, t_prev, table, table_rows: int,
                        out_rows: int):
     """Check the operands of a closest-hit kernel, allocate its outputs and
@@ -279,16 +299,11 @@ def launch_closest_hit(fn: str, o, d, t_prev, table, table_rows: int,
     iout [R] i32). Raises on anything the kernel does not take and when the
     launch is refused."""
     device = o.device
-    if device.type != "cuda":
-        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
-    r = o.shape[0]
+    r = _check_rays(fn, o, d, t_prev, device)
     n = table.shape[1] if table.dim() == 2 else -1
-    _check("o", o, (r, 3), torch.float32, device)
-    _check("d", d, (r, 3), torch.float32, device)
-    _check("t_prev", t_prev, (r,), torch.float32, device)
     _check("table", table, (table_rows, n), torch.float32, device)
-    if 3 * r >= 2**31 or n >= 2**31:
-        raise ValueError(f"{fn}: {r} rays x {n} columns exceed int32 indexing")
+    if n >= 2**31:
+        raise ValueError(f"{fn}: {n} columns exceed int32 indexing")
     lib = kernels().lib
     fout = torch.empty((out_rows, r), dtype=torch.float32, device=device)
     iout = torch.empty((r,), dtype=torch.int32, device=device)
@@ -312,39 +327,53 @@ def launch_sphere_closest_hit(o, d, t_prev, sph, tri=None):
     iout [2,R] i32 rows kind, prim; backface [R] bool)."""
     fn = "ptt_sphere_closest_hit"
     device = o.device
-    if device.type != "cuda":
-        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
-    r = o.shape[0]
+    r = _check_rays(fn, o, d, t_prev, device)
     n = sph.shape[1] if sph.dim() == 2 else -1
-    _check("o", o, (r, 3), torch.float32, device)
-    _check("d", d, (r, 3), torch.float32, device)
-    _check("t_prev", t_prev, (r,), torch.float32, device)
     _check("sph", sph, (4, n), torch.float32, device)
-    fields = ()
-    if tri is not None:
-        t, kind, prim, u, v, back = tri
-        fields = (t, u, v, kind, prim, back)  # the kernel's order
-        for name, x, dtype in zip(("tri t", "tri u", "tri v", "tri kind",
-                                   "tri prim", "tri backface"), fields,
-                                  (torch.float32,) * 3 + (torch.int32,) * 2
-                                  + (torch.bool,)):
-            _check(name, x, (r,), dtype, device)
-    if 3 * r >= 2**31 or 4 * n >= 2**31:
-        raise ValueError(f"{fn}: {r} rays x {n} spheres exceed int32 "
-                         "indexing")
+    fields = _tri_fields(tri, r, device)
+    if 4 * n >= 2**31:
+        raise ValueError(f"{fn}: {n} spheres exceed int32 indexing")
     lib = kernels().lib
-    tri_ptrs = [x.data_ptr() for x in fields] or [None] * 6
-    fout = torch.empty((3, r), dtype=torch.float32, device=device)
-    iout = torch.empty((2, r), dtype=torch.int32, device=device)
-    bout = torch.empty((r,), dtype=torch.bool, device=device)
+    fout, iout, bout = _record_outputs(r, device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.ptt_sphere_closest_hit(
         o.data_ptr(), d.data_ptr(), t_prev.data_ptr(), sph.data_ptr(),
-        *tri_ptrs, r, n, fout.data_ptr(), iout.data_ptr(), bout.data_ptr(),
-        device.index, stream)
+        *_ptrs(fields), r, n, fout.data_ptr(), iout.data_ptr(),
+        bout.data_ptr(), device.index, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return fout, iout, bout
+
+
+def _tri_fields(tri, r: int, device) -> tuple:
+    """The fields of a triangle record ``tri`` (t, kind, prim, u, v,
+    backface: [R] f32, i32, i32, f32, f32, bool) in the kernels' order (t,
+    u, v, kind, prim, backface), checked; () for None."""
+    if tri is None:
+        return ()
+    t, kind, prim, u, v, back = tri
+    fields = (t, u, v, kind, prim, back)
+    for name, x, dtype in zip(("tri t", "tri u", "tri v", "tri kind",
+                               "tri prim", "tri backface"), fields,
+                              (torch.float32,) * 3 + (torch.int32,) * 2
+                              + (torch.bool,)):
+        _check(name, x, (r,), dtype, device)
+    return fields
+
+
+def _ptrs(fields: tuple) -> list:
+    """Device pointers of the checked triangle record fields, six nulls
+    for none."""
+    return [x.data_ptr() for x in fields] or [None] * 6
+
+
+def _record_outputs(r: int, device):
+    """A HitRecord's storage as the sphere closest hits write it: fout
+    [3,R] f32 rows t, u, v; iout [2,R] i32 rows kind, prim; backface [R]
+    bool."""
+    return (torch.empty((3, r), dtype=torch.float32, device=device),
+            torch.empty((2, r), dtype=torch.int32, device=device),
+            torch.empty((r,), dtype=torch.bool, device=device))
 
 
 def _check_flat_tables(fn: str, blkflat, blkid, bw, block: int, device):
@@ -386,12 +415,7 @@ def launch_flat_closest_hit(o, d, t_prev, blkflat, blkid, bw, block: int,
     sphere pass). Returns (fout [4 or 5, R] f32, iout [R] i32)."""
     fn = "ptt_flat_closest_hit"
     device = o.device
-    if device.type != "cuda":
-        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
-    r = o.shape[0]
-    _check("o", o, (r, 3), torch.float32, device)
-    _check("d", d, (r, 3), torch.float32, device)
-    _check("t_prev", t_prev, (r,), torch.float32, device)
+    r = _check_rays(fn, o, d, t_prev, device)
     bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
     n_sph = 0
     if sph is not None:
@@ -419,14 +443,14 @@ def launch_flat_occluded(o, ds, t_maxes, blkflat, blkid, bw, block: int):
     and launch it on the current stream (no synchronisation).
 
     o: [R,3] f32; ds: [L,R,3] f32; t_maxes: [L,R] f32 (< 0 = dead lane);
-    tables as for ``launch_flat_closest_hit``. Returns out [L,R] f32
-    (1 = occluded or dead)."""
+    tables as for ``launch_flat_closest_hit``. Returns out [L,R] bool
+    (occluded or dead)."""
     fn = "ptt_flat_occluded"
     device = o.device
     r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
     bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
     lib = kernels().lib
-    out = torch.empty((n_sets, r), dtype=torch.float32, device=device)
+    out = torch.empty((n_sets, r), dtype=torch.bool, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.ptt_flat_occluded(
         o.data_ptr(), ds.data_ptr(), t_maxes.data_ptr(), blkflat.data_ptr(),
@@ -459,12 +483,7 @@ def launch_flat2_closest_hit(o, d, t_prev, sbflat, sbid, blkflat, blkid, bw,
     iout [R] i32)."""
     fn = "ptt_flat2_closest_hit"
     device = o.device
-    if device.type != "cuda":
-        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
-    r = o.shape[0]
-    _check("o", o, (r, 3), torch.float32, device)
-    _check("d", d, (r, 3), torch.float32, device)
-    _check("t_prev", t_prev, (r,), torch.float32, device)
+    r = _check_rays(fn, o, d, t_prev, device)
     bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
     sbpad = _check_superblocks(fn, sbflat, sbid, bpad, device)
     if 4 * r >= 2**31:
@@ -489,24 +508,17 @@ def launch_flat2_occluded(o, ds, t_maxes, sbflat, sbid, blkflat, blkid, bw,
     and launch it on the current stream (no synchronisation).
 
     o: [R,3] f32; ds: [L,R,3] f32; t_maxes: [L,R] f32 (< 0 = dead lane);
-    tables as for ``launch_flat2_closest_hit``. Returns out [L,R] f32
-    (1 = occluded or dead)."""
-    return _launch_flat2_occluded("ptt_flat2_occluded", o, ds, t_maxes,
-                                  sbflat, sbid, blkflat, blkid, bw, block)
-
-
-def _launch_flat2_occluded(fn: str, o, ds, t_maxes, sbflat, sbid, blkflat,
-                           blkid, bw, block: int):
-    """``launch_flat2_occluded`` through the exported symbol ``fn``, which
-    ``ops/ab_baselines.py`` alone sets to the design the kernel replaced."""
+    tables as for ``launch_flat2_closest_hit``. Returns out [L,R] bool
+    (occluded or dead)."""
+    fn = "ptt_flat2_occluded"
     device = o.device
     r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
     bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
     sbpad = _check_superblocks(fn, sbflat, sbid, bpad, device)
     lib = kernels().lib
-    out = torch.empty((n_sets, r), dtype=torch.float32, device=device)
+    out = torch.empty((n_sets, r), dtype=torch.bool, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, fn)(
+    err = lib.ptt_flat2_occluded(
         o.data_ptr(), ds.data_ptr(), t_maxes.data_ptr(), sbflat.data_ptr(),
         sbid.data_ptr(), blkflat.data_ptr(), blkid.data_ptr(), bw.data_ptr(),
         r, n_sets, sbpad, bpad, block, n_cols, out.data_ptr(), device.index,
@@ -516,42 +528,62 @@ def _launch_flat2_occluded(fn: str, o, ds, t_maxes, sbflat, sbid, blkflat,
     return out
 
 
-def launch_sph_walk(o, d, t_prev, blk, blkid, sph):
-    """Check the operands of the sphere block-walk kernel, allocate its
-    outputs and launch it on the current stream (no synchronisation).
-
-    o, d: [R,3] f32; t_prev: [R] f32; blk [8,SBpad] f32 block AABBs, blkid
-    [1,SBpad] i32, sph [4, nblk*128] f32 sorted spheres. Returns
-    (fout [2, R] f32 (t, backface), iout [R] i32 sorted slot)."""
-    fn = "ptt_sph_walk"
-    device = o.device
-    if device.type != "cuda":
-        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
-    r = o.shape[0]
+def _check_sph_blocks(fn: str, blk, blkid, sph, device) -> tuple[int, int]:
+    """The sphere block tables a walk reads: blk [8,SBpad] f32 block AABBs,
+    blkid [1,SBpad] i32, sph [4, nblk*128] f32 sorted spheres. Returns
+    (SBpad, n_slots)."""
     sbpad = blk.shape[1] if blk.dim() == 2 else -1
     n_slots = sph.shape[1] if sph.dim() == 2 else -1
-    _check("o", o, (r, 3), torch.float32, device)
-    _check("d", d, (r, 3), torch.float32, device)
-    _check("t_prev", t_prev, (r,), torch.float32, device)
     _check("blk", blk, (8, sbpad), torch.float32, device)
     _check("blkid", blkid, (1, sbpad), torch.int32, device)
     _check("sph", sph, (4, n_slots), torch.float32, device)
     if sbpad <= 0 or n_slots <= 0 or n_slots % 128 or 4 * n_slots >= 2**31:
         raise ValueError(f"{fn}: {n_slots} sphere slots are not whole "
                          "blocks of 128")
-    if 3 * r >= 2**31:
-        raise ValueError(f"{fn}: {r} rays exceed int32 indexing")
+    return sbpad, n_slots
+
+
+# Row 5's walk (csrc/sph_walk.cu): a block is served lane per ray from
+# SPH_WALK_LANE_WISE rays of need (fewer: the block spread over the warp),
+# and a lane's cut admits a block whose slab entry is at most
+# SPH_WALK_CUT_WIDEN times its best t. chip_smoke.py's visit simulation
+# reads both from here.
+SPH_WALK_LANE_WISE = 25
+SPH_WALK_CUT_WIDEN = 1.0 + 2.0 ** -8
+
+
+def launch_sph_walk(o, d, t_prev, blk, blkid, sph, smap, tri=None,
+                    lane_wise: int = SPH_WALK_LANE_WISE):
+    """Check the operands of the sphere block-walk kernel, allocate its
+    outputs and launch it on the current stream (no synchronisation).
+
+    o, d: [R,3] f32; t_prev: [R] f32; blk [8,SBpad] f32 block AABBs, blkid
+    [1,SBpad] i32, sph [4, nblk*128] f32 sorted spheres, smap [nblk*128]
+    i32 sorted slot -> sphere index; tri: None or a triangle record as for
+    ``launch_sphere_closest_hit``, merged in the launch; lane_wise (1 to
+    33) the rays of need from which a block is served lane per ray, 33
+    serving every block over the warp (the layouts give one result).
+    Returns the record's storage: (fout [3,R] f32 rows t, u, v; iout
+    [2,R] i32 rows kind, prim; backface [R] bool)."""
+    fn = "ptt_sph_walk"
+    device = o.device
+    if not 1 <= lane_wise <= 33:
+        raise ValueError(f"{fn}: lane_wise {lane_wise} is not in 1..33")
+    r = _check_rays(fn, o, d, t_prev, device)
+    sbpad, n_slots = _check_sph_blocks(fn, blk, blkid, sph, device)
+    _check("smap", smap, (n_slots,), torch.int32, device)
+    fields = _tri_fields(tri, r, device)
     lib = kernels().lib
-    fout = torch.empty((2, r), dtype=torch.float32, device=device)
-    iout = torch.empty((r,), dtype=torch.int32, device=device)
+    fout, iout, bout = _record_outputs(r, device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.ptt_sph_walk(
         o.data_ptr(), d.data_ptr(), t_prev.data_ptr(), blk.data_ptr(),
-        blkid.data_ptr(), sph.data_ptr(), r, sbpad, n_slots, fout.data_ptr(),
-        iout.data_ptr(), device.index, stream)
+        blkid.data_ptr(), sph.data_ptr(), smap.data_ptr(), *_ptrs(fields), r,
+        sbpad, n_slots, lane_wise, SPH_WALK_CUT_WIDEN, fout.data_ptr(),
+        iout.data_ptr(), bout.data_ptr(), device.index, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
-    return fout, iout
+    return fout, iout, bout
 
 
 def _check_tr_tables(fn: str, scene, device, live=None):
@@ -662,28 +694,39 @@ def launch_trans_walk(o, d, aux, scene, steps_cap: int, live=None):
     return fout
 
 
-def launch_sph_occluded(o, ds, t_maxes, sph, n_spheres: int):
+# Direction sets the dense sphere any-hit takes in one launch (the sets'
+# rays live in registers; csrc/sph_occ.cu's kMaxSets).
+SPH_OCC_MAX_SETS = 8
+
+
+def launch_sph_occluded(o, ds, t_maxes, sph, n_spheres: int, prior=None):
     """Check the operands of the dense sphere any-hit kernel, allocate its
     output and launch it on the current stream (no synchronisation).
 
-    o: [R,3] f32; ds: [L,R,3] f32; t_maxes: [L,R] f32 (< 0 = dead lane);
-    sph: [4, ld] f32 of which the first ``n_spheres`` columns are tested.
-    Returns out [L,R] f32 (1 = occluded; dead lanes 0)."""
+    o: [R,3] f32; ds: [L,R,3] f32 (L <= SPH_OCC_MAX_SETS); t_maxes: [L,R]
+    f32 (< 0 = dead lane); sph: [4, ld] f32 of which the first
+    ``n_spheres`` columns are tested; prior: None or [L,R] bool (the
+    triangle any-hit's result), folded in. Returns out [L,R] bool: prior |
+    occluded by a sphere (dead lanes not occluded by a sphere)."""
     fn = "ptt_sph_occluded"
     device = o.device
     r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
+    if n_sets > SPH_OCC_MAX_SETS:
+        raise ValueError(f"{fn}: {n_sets} sets, at most {SPH_OCC_MAX_SETS}")
     ld = sph.shape[1] if sph.dim() == 2 else -1
     _check("sph", sph, (4, ld), torch.float32, device)
     if not 0 <= n_spheres <= ld or 4 * ld >= 2**31:
         raise ValueError(f"{fn}: {n_spheres} spheres in a table of {ld} "
                          "columns")
+    if prior is not None:
+        _check("prior", prior, (n_sets, r), torch.bool, device)
     lib = kernels().lib
-    out = torch.empty((n_sets, r), dtype=torch.float32, device=device)
+    out = torch.empty((n_sets, r), dtype=torch.bool, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.ptt_sph_occluded(o.data_ptr(), ds.data_ptr(),
-                               t_maxes.data_ptr(), sph.data_ptr(), r, n_sets,
-                               n_spheres, ld, out.data_ptr(), device.index,
-                               stream)
+    err = lib.ptt_sph_occluded(
+        o.data_ptr(), ds.data_ptr(), t_maxes.data_ptr(),
+        None if prior is None else prior.data_ptr(), sph.data_ptr(), r,
+        n_sets, n_spheres, ld, out.data_ptr(), device.index, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return out
@@ -700,14 +743,7 @@ def launch_sph_occ_walk(o, ds, t_maxes, blk, blkid, sph):
     fn = "ptt_sph_occ_walk"
     device = o.device
     r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
-    sbpad = blk.shape[1] if blk.dim() == 2 else -1
-    n_slots = sph.shape[1] if sph.dim() == 2 else -1
-    _check("blk", blk, (8, sbpad), torch.float32, device)
-    _check("blkid", blkid, (1, sbpad), torch.int32, device)
-    _check("sph", sph, (4, n_slots), torch.float32, device)
-    if sbpad <= 0 or n_slots <= 0 or n_slots % 128 or 4 * n_slots >= 2**31:
-        raise ValueError(f"{fn}: {n_slots} sphere slots are not whole "
-                         "blocks of 128")
+    sbpad, n_slots = _check_sph_blocks(fn, blk, blkid, sph, device)
     lib = kernels().lib
     out = torch.empty((n_sets, r), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -824,12 +860,7 @@ def launch_tree_closest_hit(o, d, t_prev, nodes6, meta6, tris, n_nodes: int,
     packed slot, -1 on a miss)."""
     fn = "ptt_tree_closest_hit"
     device = o.device
-    if device.type != "cuda":
-        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
-    r = o.shape[0]
-    _check("o", o, (r, 3), torch.float32, device)
-    _check("d", d, (r, 3), torch.float32, device)
-    _check("t_prev", t_prev, (r,), torch.float32, device)
+    r = _check_rays(fn, o, d, t_prev, device)
     npad, n_slots = _check_tree_tables(fn, nodes6, meta6, tris, n_nodes,
                                        block, device)
     if 4 * r >= 2**31:

@@ -79,6 +79,7 @@ from path_tracer_torch.ops.intersect import (
     _ray_chunks,
     closest_hit_spheres,
     mt_rows,
+    stacked,
 )
 from path_tracer_torch.ops.slab import (
     closest_gate,
@@ -320,18 +321,19 @@ def closest_hit_triangles_flat(o, d, t_prev, scene,
 def occluded_triangles_flat_multi(o, ds, t_maxes, scene) -> torch.Tensor:
     """Any-hit for L direction sets sharing one origin set, in one launch.
 
-    o: [R,3]; ds: list of L [R,3]; t_maxes: list of L [R] (< 0 marks a dead
-    lane, reported occluded). Returns [L,R] bool. CUDA tensors launch the
-    kernel (or raise); CPU tensors take the plain version, set by set."""
+    o: [R,3]; ds: [L,R,3] or a list of L [R,3]; t_maxes: [L,R] or a list
+    of L [R] (< 0 marks a dead lane, reported occluded); stacked tensors
+    are taken without a copy. Returns [L,R] bool, the launch's output. CUDA
+    tensors launch the kernel (or raise); CPU tensors take the plain
+    version, set by set."""
     global occluded_launches
     if o.device.type == "cpu":
         return occluded_triangles_flat_multi_plain(o, ds, t_maxes, scene)
     out = native.launch_flat_occluded(
-        o.contiguous(), torch.stack(list(ds)).contiguous(),
-        torch.stack(list(t_maxes)).contiguous(), scene.sl_blkflat,
+        o.contiguous(), stacked(ds), stacked(t_maxes), scene.sl_blkflat,
         scene.sl_blkid, scene.sl_bw_t, scene.sl_block)
     occluded_launches += 1
-    return out > 0.0
+    return out
 
 
 def occluded_triangles_flat(o, d, t_max, scene) -> torch.Tensor:
@@ -366,12 +368,11 @@ def occluded_triangles_flat2_multi(o, ds, t_maxes, scene) -> torch.Tensor:
     if o.device.type == "cpu":
         return occluded_triangles_flat2_multi_plain(o, ds, t_maxes, scene)
     out = native.launch_flat2_occluded(
-        o.contiguous(), torch.stack(list(ds)).contiguous(),
-        torch.stack(list(t_maxes)).contiguous(), scene.sl_sbflat,
+        o.contiguous(), stacked(ds), stacked(t_maxes), scene.sl_sbflat,
         scene.sl_sbid, scene.sl_blkflat, scene.sl_blkid, scene.sl_bw_t,
         scene.sl_block)
     flat2_occluded_launches += 1
-    return out > 0.0
+    return out
 
 
 def _packets(o, d, g, fill: float):

@@ -9,17 +9,22 @@ Counterpart of ``path_tracer_tpu/ops/pallas_spheres.py``:
   whole HitRecord and merging a triangle record into it;
 - ``csrc/sph_walk.cu`` replaces ``pallas_spheres._sph_walk_kernel``
   (``_sph_walk_launch``, the same entry with ``sph_use_blocks``) for
-  larger scenes: a walk over SAH blocks of 128 spheres;
+  larger scenes: a walk over SAH blocks of 128 spheres in warp packets,
+  its launch too writing the whole HitRecord and merging a triangle
+  record;
 - ``csrc/sph_occ.cu`` replaces ``pallas_spheres._occ_kernel`` and
   ``_sph_occ_walk_kernel`` (entry ``occluded_spheres_pallas``): the
-  any-hit, dense up to 512 spheres and the block walk above, for L
-  direction sets in one launch.
+  any-hit, dense up to 512 spheres (one thread per ray for all L sets,
+  the triangle any-hit's result folded in as ``prior``) and the block
+  walk above, for L direction sets in one launch.
 
 Bound on the card: arithmetic. The dense kernels do R*S quadratic solves
 (about 25 flops, a sqrt and an IEEE division or reciprocal per valid
 discriminant), the walks a slab test per block and the solves of the
-blocks a ray's slab test admits; all stage their tables in shared memory,
-read as broadcasts. The any-hit kernels stop a lane at its first occluder.
+blocks a ray's slab test admits. The dense kernels read their tables as
+broadcasts through the read-only cache, the any-hit walk stages its
+blocks in shared memory. The any-hit kernels stop a lane at its first
+occluder.
 
 Two root forms, as in the JAX package. The dense closest hit and
 ``intersect.closest_hit_spheres`` divide by 2a; the block walk, the
@@ -36,19 +41,20 @@ semantics:
   backface = the far root alone is valid;
 - TIE RULE: the lexicographic (t, sorted slot) minimum;
 - pad slots (center 1e30, radius 0) overflow: disc is NaN, has false;
-- a dead lane is t_prev = +inf; a miss is t = +inf, slot -1.
+- a dead lane is t_prev = +inf; a miss is t = +inf, slot -1;
+- the record: prim = ``sph_smap`` of the sorted slot on a hit, 0 on a
+  miss, u = v = 0, merged with a triangle record by ``merge_hits``.
 
 Any-hit semantics (both kernels): a ray is occluded when some sphere has
 a root t with 0 <= t <= t_max (has, and the root in range); the walk's
 block gate is tf >= max(tn, 0), tn <= t_max, t_max >= 0, id >= 0. A dead
-lane (t_max < 0) reports NOT occluded, unlike the triangle any-hit.
+lane (t_max < 0) reports NOT occluded, unlike the triangle any-hit. A
+``prior`` [L,R] bool is ORed in: the dense kernel does it in its launch
+(a set whose prior is set costs no sphere test), the walk's wrapper in
+ATen until the walk is rebuilt.
 
-The walk's wrapper maps the sorted slot to the sphere index through
-``sph_smap`` (0 on a miss) with u = v = 0, and merges a triangle record
-with ``merge_hits``; the dense kernel writes its record (and the merge)
-itself, its wrapper running no ATen op. Each kernel is built
--fmad=false and sums in its plain version's order, so the two agree
-exactly.
+Each kernel is built -fmad=false and sums in its plain version's order,
+so the two agree exactly.
 """
 from __future__ import annotations
 
@@ -62,6 +68,7 @@ from path_tracer_torch.ops.intersect import (
     _ray_chunks,
     closest_hit_spheres,
     merge_hits,
+    stacked,
 )
 from path_tracer_torch.ops.slab import (
     closest_gate,
@@ -129,19 +136,26 @@ def _sph_walk_plain(o, d, t_prev, scene):
     return tuple(torch.cat(x) for x in zip(*parts))
 
 
-def _walk_record(t, back, slot, scene) -> HitRecord:
-    """HitRecord of a sphere walk: prim = ``sph_smap`` of the sorted slot on
-    a hit, 0 on a miss; u = v = 0."""
+def closest_hit_spheres_walk_plain(o, d, t_prev, scene) -> HitRecord:
+    """Plain version of the sphere block walk, on any device: its
+    HitRecord, prim = ``sph_smap`` of the sorted slot on a hit, 0 on a
+    miss; u = v = 0."""
+    t, back, slot = _sph_walk_plain(o, d, t_prev, scene)
     hit = torch.isfinite(t)
     prim = torch.where(hit, scene.sph_smap[slot.clamp(min=0).long()], 0)
     zeros = torch.zeros_like(t)
-    return HitRecord(t=t, kind=_kind(t, KIND_SPHERE), prim=prim.to(torch.int32),
-                     u=zeros, v=zeros, backface=back)
+    return HitRecord(t=t, kind=_kind(t, KIND_SPHERE),
+                     prim=prim.to(torch.int32), u=zeros, v=zeros,
+                     backface=back)
 
 
-def closest_hit_spheres_walk_plain(o, d, t_prev, scene) -> HitRecord:
-    """Plain version of the sphere block walk, on any device."""
-    return _walk_record(*_sph_walk_plain(o, d, t_prev, scene), scene)
+def closest_hit_spheres_walk_merged_plain(o, d, t_prev, scene,
+                                          tri=None) -> HitRecord:
+    """Plain version of the sphere walk kernel, on any device: the walk's
+    record, merged with the triangle record ``tri`` (``merge_hits``) when
+    one is given."""
+    sph = closest_hit_spheres_walk_plain(o, d, t_prev, scene)
+    return sph if tri is None else merge_hits(tri, sph)
 
 
 def closest_hit_spheres_merged_plain(o, d, t_prev, scene,
@@ -161,25 +175,23 @@ def closest_hit_spheres_cuda(o, d, t_prev, scene, tri=None) -> HitRecord:
 
     o, d: [R,3] f32; t_prev: [R] f32 (+inf marks a dead lane); reads
     ``scene.sph_packed_t`` [4, S] or the ``sph_*`` block tables. CUDA
-    tensors launch the kernel (or raise), the dense kernel writing the
-    whole record, merge included, in its launch; CPU tensors take the
-    plain version."""
+    tensors launch the kernel (or raise), which writes the whole record,
+    merge included, in its launch; CPU tensors take the plain version."""
     global launches, sph_walk_launches
-    if getattr(scene, "sph_use_blocks", False):
-        if o.device.type == "cpu":
-            sph = closest_hit_spheres_walk_plain(o, d, t_prev, scene)
-        else:
-            fout, slot = native.launch_sph_walk(o, d, t_prev, scene.sph_blk,
-                                                scene.sph_blkid,
-                                                scene.sph_sorted_t)
-            sph_walk_launches += 1
-            sph = _walk_record(fout[0], fout[1] != 0.0, slot, scene)
-        return sph if tri is None else merge_hits(tri, sph)
+    walk = getattr(scene, "sph_use_blocks", False)
     if o.device.type == "cpu":
-        return closest_hit_spheres_merged_plain(o, d, t_prev, scene, tri)
-    fout, iout, back = native.launch_sphere_closest_hit(
-        o, d, t_prev, scene.sph_packed_t, tri)
-    launches += 1
+        plain = (closest_hit_spheres_walk_merged_plain if walk
+                 else closest_hit_spheres_merged_plain)
+        return plain(o, d, t_prev, scene, tri)
+    if walk:
+        fout, iout, back = native.launch_sph_walk(
+            o, d, t_prev, scene.sph_blk, scene.sph_blkid, scene.sph_sorted_t,
+            scene.sph_smap, tri)
+        sph_walk_launches += 1
+    else:
+        fout, iout, back = native.launch_sphere_closest_hit(
+            o, d, t_prev, scene.sph_packed_t, tri)
+        launches += 1
     return HitRecord(t=fout[0], kind=iout[0], prim=iout[1], u=fout[1],
                      v=fout[2], backface=back)
 
@@ -232,35 +244,47 @@ def _occluded_walk_plain(o, d, t_max, scene):
     return torch.cat(parts)
 
 
-def occluded_spheres_plain(o, ds, t_maxes, scene) -> torch.Tensor:
+def occluded_spheres_plain(o, ds, t_maxes, scene, prior=None) -> torch.Tensor:
     """Plain version of ``occluded_spheres_cuda``, on any device: [L,R]
-    bool, set by set."""
+    bool, set by set, ORed with ``prior`` when one is given."""
     one = (_occluded_walk_plain if getattr(scene, "sph_use_blocks", False)
            else _occluded_dense_plain)
-    return torch.stack([one(o, d, tm, scene) for d, tm in zip(ds, t_maxes)])
+    out = torch.stack([one(o, d, tm, scene) for d, tm in zip(ds, t_maxes)])
+    return out if prior is None else prior | out
 
 
-def occluded_spheres_cuda(o, ds, t_maxes, scene) -> torch.Tensor:
+def occluded_spheres_cuda(o, ds, t_maxes, scene, prior=None) -> torch.Tensor:
     """Sphere any-hit for L direction sets sharing one origin set, in one
     launch: the block walk when ``scene.sph_use_blocks``, else the dense
     pass.
 
-    o: [R,3] f32; ds: list of L [R,3] f32; t_maxes: list of L [R] f32 (the
-    exact range limit, +inf for a directional light; < 0 marks a dead lane,
-    reported not occluded). Returns [L,R] bool. CUDA tensors launch the
-    kernel (or raise); CPU tensors take the plain version."""
+    o: [R,3] f32; ds: [L,R,3] f32 or a list of L [R,3]; t_maxes: [L,R] f32
+    or a list of L [R] (the exact range limit, +inf for a directional
+    light; < 0 marks a dead lane, reported not occluded by a sphere);
+    prior: None or [L,R] bool (the triangle any-hit's result). Returns
+    [L,R] bool, prior | occluded by a sphere. CUDA tensors launch the
+    kernel (or raise), the dense one writing that bool, prior folded in,
+    one launch per ``native.SPH_OCC_MAX_SETS`` sets; CPU tensors take the
+    plain version."""
     global occluded_launches, sph_occ_walk_launches
     if o.device.type == "cpu":
-        return occluded_spheres_plain(o, ds, t_maxes, scene)
-    o = o.contiguous()
-    ds = torch.stack(list(ds)).contiguous()
-    t_maxes = torch.stack(list(t_maxes)).contiguous()
-    if getattr(scene, "sph_use_blocks", False):
-        out = native.launch_sph_occ_walk(o, ds, t_maxes, scene.sph_blk,
-                                         scene.sph_blkid, scene.sph_sorted_t)
-        sph_occ_walk_launches += 1
-    else:
+        return occluded_spheres_plain(o, ds, t_maxes, scene, prior)
+    o, ds, t_maxes = o.contiguous(), stacked(ds), stacked(t_maxes)
+    if prior is not None:
+        prior = prior.contiguous()  # the triangle launch's output already is
+    if not getattr(scene, "sph_use_blocks", False):
+        step = native.SPH_OCC_MAX_SETS
+        if ds.shape[0] > step:  # more sets than a lane holds: chunks
+            return torch.cat([occluded_spheres_cuda(
+                o, ds[k:k + step], t_maxes[k:k + step], scene,
+                None if prior is None else prior[k:k + step])
+                for k in range(0, ds.shape[0], step)])
         out = native.launch_sph_occluded(o, ds, t_maxes, scene.sph_packed_t,
-                                         scene.num_real_spheres)
+                                         scene.num_real_spheres, prior)
         occluded_launches += 1
-    return out > 0.0
+        return out
+    # The walk (not yet rebuilt) writes f32; prior is ORed in ATen.
+    out = native.launch_sph_occ_walk(o, ds, t_maxes, scene.sph_blk,
+                                     scene.sph_blkid, scene.sph_sorted_t)
+    sph_occ_walk_launches += 1
+    return out > 0.0 if prior is None else prior | (out > 0.0)

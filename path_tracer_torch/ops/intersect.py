@@ -228,6 +228,14 @@ def merge_hits(tri: HitRecord, sph: HitRecord) -> HitRecord:
     return HitRecord(*[torch.where(tri_wins, a, b) for a, b in zip(tri, sph)])
 
 
+def stacked(xs) -> torch.Tensor:
+    """L per-set tensors as one contiguous [L, ...] tensor: a tensor is
+    taken as it is (no copy when it is contiguous), a list is stacked."""
+    if isinstance(xs, torch.Tensor):
+        return xs.contiguous()
+    return torch.stack(list(xs)).contiguous()
+
+
 def _detach_for_kernel(fn):
     """The JAX package's ``_detach_for_kernel`` (``stop_gradient`` on a
     kernel's inputs) as a decorator: the entry runs under
@@ -347,13 +355,17 @@ def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
     the range limit turned into the exact t_max (``shadow_t_max``; dead
     lanes t_max = -1).
 
+    The directions and t_max are stacked once, [L,R,3] and [L,R].
     Triangles: BVH scenes cast all L sets in one any-hit launch (flat or
     flat2, ``_walk_variant``) up to t_max, or under the tree walk one
     launch per set; brute-force scenes take the nearest hit light by
     light, in range when
     dist^2 = t^2|d|^2 + 2t(b.d) + |b|^2 <= max_dist^2 (dist(t) is monotone
     in t, so if the nearest hit is out of range no hit is). Spheres: all L
-    sets in one any-hit launch up to t_max.
+    sets in one any-hit launch up to t_max, the triangles' [L,R] result
+    handed to it as ``prior``: on the card the dense sphere kernel writes
+    the final [L,R] bool, with no ATen op between the triangle launch and
+    it (the sphere walk's wrapper still ORs in ATen).
     """
     n_lights = len(dirs)
     max_dists = max_dists or [None] * n_lights
@@ -364,37 +376,42 @@ def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
     for d, md, act in zip(dirs, max_dists, actives):
         tm = shadow_t_max(o, d, surf_pos, md)
         t_maxes.append(tm if act is None else torch.where(act, tm, -1.0))
-    hits = [torch.zeros((r,), dtype=torch.bool, device=o.device)
-            for _ in range(n_lights)]
+    ds, tms = stacked(dirs), stacked(t_maxes)
+    hits = None  # [L,R] bool, or None for no triangle
     if scene.num_real_triangles != 0 and scene.use_bvh:
         from path_tracer_torch.ops import cuda_bvh
 
         walk = _walk_variant(scene)
         if walk == "tree":
-            hits = [cuda_bvh.occluded_triangles_tree(o, d, tm, scene)
-                    for d, tm in zip(dirs, t_maxes)]
+            hits = torch.stack([cuda_bvh.occluded_triangles_tree(o, d, tm,
+                                                                 scene)
+                                for d, tm in zip(dirs, t_maxes)])
         else:
             multi = (cuda_bvh.occluded_triangles_flat2_multi
                      if walk == "flat2"
                      else cuda_bvh.occluded_triangles_flat_multi)
-            hits = list(multi(o, dirs, t_maxes, scene))
+            hits = multi(o, ds, tms, scene)
     elif scene.num_real_triangles != 0:
-        for i, (d, md, act) in enumerate(zip(dirs, max_dists, actives)):
+        per_light = []
+        for d, md, act in zip(dirs, max_dists, actives):
             t_prev = torch.full((r,), -1.0, device=o.device)
             if act is not None:
                 t_prev = torch.where(act, t_prev, float("inf"))
             tri = _closest_hit_tris_dispatch(o, d, t_prev, scene)
-            hits[i] = tri.valid
+            hit = tri.valid
             if md is not None:
                 bvec = o - surf_pos
                 t = tri.t
                 dist_sq = (t * t * _dot(d, d) + 2.0 * t * _dot(bvec, d)
                            + _dot(bvec, bvec))
-                hits[i] = hits[i] & (dist_sq <= md * md)
+                hit = hit & (dist_sq <= md * md)
+            per_light.append(hit)
+        hits = torch.stack(per_light)
 
     if scene.num_real_spheres != 0:
         from path_tracer_torch.ops.cuda_spheres import occluded_spheres_cuda
 
-        sph = occluded_spheres_cuda(o, dirs, t_maxes, scene)
-        hits = [h | s for h, s in zip(hits, sph)]
+        hits = occluded_spheres_cuda(o, ds, tms, scene, prior=hits)
+    elif hits is None:
+        hits = torch.zeros((n_lights, r), dtype=torch.bool, device=o.device)
     return [h if act is None else h & act for h, act in zip(hits, actives)]

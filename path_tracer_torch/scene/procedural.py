@@ -5,6 +5,12 @@ grid of analytic spheres varying metalness along one axis and roughness
 along the other, lit by two point lights. ``sphere_grid_scene(70)`` (4,900
 spheres) takes the sphere block walk, as it does in the JAX package.
 
+``duplicate_sphere_scene`` and ``sphere_tie_rays`` are the tie-rule
+check of the sphere block walk: a few spheres each listed 150 times, so
+each one's copies fill two blocks with one AABB, and rays aimed at their
+centres, silhouettes and the points where they touch their blocks' faces.
+``duplicate_sphere_device_scene(margin=...)`` grows each sphere's later
+block so that a nearest-first walk meets the higher-slot copy first.
 ``duplicate_grid_scene`` and ``tie_rays`` are the tie-rule check of the
 closest-hit casts: a mesh whose every triangle is listed twice, and rays
 aimed at triangle centres, shared edges and vertices.
@@ -72,6 +78,95 @@ def sphere_grid_device_scene(n: int = 5, device="cuda"):
     from path_tracer_torch.scene.device_scene import build_scene
 
     return build_scene(sphere_grid_scene(n), root=".", device=device)
+
+
+# duplicate_sphere_scene's spheres: (center, radius), each listed
+# DUPLICATE_SPHERE_COPIES times in a row.
+DUPLICATE_SPHERES = (((-2.5, 0.0, 0.0), 1.0), ((2.5, 0.0, 0.0), 0.6),
+                     ((0.0, 2.5, 0.5), 0.8), ((0.0, -2.5, -0.5), 1.2))
+DUPLICATE_SPHERE_COPIES = 150
+
+
+def duplicate_sphere_scene() -> isf.Scene:
+    """Four spheres, each listed DUPLICATE_SPHERE_COPIES times in a row
+    (600 in all: the sphere block walk). Copies give bit-identical roots,
+    so only the tie rule decides between them: the lowest sorted slot. The
+    BVH build cannot split equal centroids and halves each run of copies,
+    so every sphere's copies fill two 128-slot blocks of one AABB."""
+    models = [isf.Sphere(radius=r, center=c,
+                         material=_mat(albedo=(0.3 + 0.15 * k, 0.5, 0.6)))
+              for k, (c, r) in enumerate(DUPLICATE_SPHERES)
+              for _ in range(DUPLICATE_SPHERE_COPIES)]
+    return isf.Scene(
+        models=models, camera=_camera(pos=(0.0, 0.0, 9.0)),
+        lights=[isf.PointLight(position=(0.0, 5.0, 5.0),
+                               color=(100.0, 100.0, 100.0))],
+        background=(0.1, 0.1, 0.1))
+
+
+def duplicate_sphere_device_scene(device="cuda", margin: float = 0.0):
+    """``duplicate_sphere_scene()`` built on ``device``. With ``margin`` > 0
+    the AABB of each sphere's later block (its higher sorted slots) grows
+    by ``margin`` on every side. That block's slab entry then comes before
+    the earlier block's along every ray, so a walk that visits the nearest
+    entry first finds the higher-slot copy first, and reaches the
+    lower-slot copy only if its cut at the lane's best t admits the
+    earlier block, whose tight entry a root may round past. A grown box
+    still holds its spheres: the tables stay a valid walk input."""
+    import dataclasses
+
+    from path_tracer_torch.scene.device_scene import build_scene
+
+    sc = build_scene(duplicate_sphere_scene(), root=".", device=device)
+    if margin <= 0.0:
+        return sc
+    n_blk = int((sc.sph_blkid[0] >= 0).sum())
+    sphere = (sc.sph_smap.view(-1, 128)[:n_blk, 0]
+              // DUPLICATE_SPHERE_COPIES).tolist()
+    blk = sc.sph_blk.clone()
+    for b, s in enumerate(sphere):
+        if s in sphere[:b]:
+            blk[0:3, b] -= margin
+            blk[3:6, b] += margin
+    return dataclasses.replace(sc, sph_blk=blk)
+
+
+def sphere_tie_rays(r: int, seed: int = 0):
+    """(o, d) float32 numpy [r, 3]: rays from up to 9 units around the
+    origin aimed, in equal shares, at the centre of a random sphere of
+    ``duplicate_sphere_scene``, at a grazing point of its silhouette (1e-4
+    of the radius or less inside it), at a point where it touches the face
+    of its AABB (its centre plus or minus the radius along one axis), and
+    at a point of that face's plane near the touching point."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    c = np.array([x for x, _ in DUPLICATE_SPHERES], np.float64)
+    rad = np.array([x for _, x in DUPLICATE_SPHERES], np.float64)
+    k = g.integers(0, len(rad), r)
+    o = g.normal(size=(r, 3))
+    o *= (g.uniform(4.0, 9.0, r) / np.linalg.norm(o, axis=1))[:, None]
+    tgt = c[k].copy()
+    q = r // 4
+    # Silhouette: off the centre, perpendicular to the view, just inside.
+    view = c[k] - o
+    view /= np.linalg.norm(view, axis=1, keepdims=True)
+    side = np.cross(view, g.normal(size=(r, 3)))
+    side /= np.linalg.norm(side, axis=1, keepdims=True)
+    graze = rad[k] * (1.0 - g.uniform(0.0, 1e-4, r))
+    tgt[q:2 * q] += (graze[:, None] * side)[q:2 * q]
+    # The touching points of the AABB's faces, and near them on the face.
+    axis = g.integers(0, 3, r)
+    sign = np.where(g.integers(0, 2, r) == 1, 1.0, -1.0)
+    touch = c[k].copy()
+    touch[np.arange(r), axis] += sign * rad[k]
+    tgt[2 * q:3 * q] = touch[2 * q:3 * q]
+    near = touch + g.uniform(-0.05, 0.05, (r, 3)) * rad[k, None]
+    near[np.arange(r), axis] = touch[np.arange(r), axis]
+    tgt[3 * q:] = near[3 * q:]
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
 
 
 def _grid_point(i: int, j: int, n: int) -> tuple:

@@ -90,12 +90,11 @@ def _fake_tri(t, seed):
 
 def test_sphere_kernel_equals_plain(cuda):
     """Row 2 alone and merged with a triangle record, field by field,
-    against its plain version and the chunked kernel it replaced (with its
-    ATen mapping and merge): fresh, advanced and dead lanes; a table past
+    against its plain version: fresh, advanced and dead lanes; a table past
     512 columns; triangle records at random t, at the sphere's t (the
     triangle wins every lane) and an ulp past it (the sphere wins every
     hitting lane)."""
-    from path_tracer_torch.ops import ab_baselines, cuda_spheres, intersect
+    from path_tracer_torch.ops import cuda_spheres, intersect
     from path_tracer_torch.scene import load_scene
     from path_tracer_torch.scene.device_scene import _pack_spheres
 
@@ -104,8 +103,6 @@ def test_sphere_kernel_equals_plain(cuda):
         got = cuda_spheres.closest_hit_spheres_cuda(o, d, tp, sc, tri=tri)
         assert cuda_spheres.launches == before + 1
         _assert_same(got, cuda_spheres.closest_hit_spheres_merged_plain(
-            o, d, tp, sc, tri))
-        _assert_same(got, ab_baselines.closest_hit_spheres_chunked(
             o, d, tp, sc, tri))
         return got
 
@@ -257,9 +254,9 @@ def test_flat2_kernels_equal_plain(cuda, name):
     """The flat2 closest hit against its plain version (fresh, advanced and
     dead lanes) and against the flat kernel on the same tables, on every
     field of every lane; the flat2 any-hit (three sets, dead lanes) against
-    its plain version, the flat any-hit and the CTA walk it replaced, a
-    fourth set with whole and partly dead warps."""
-    from path_tracer_torch.ops import ab_baselines, cuda_bvh
+    its plain version and the flat any-hit, a fourth set with whole and
+    partly dead warps."""
+    from path_tracer_torch.ops import cuda_bvh
 
     sc = _flat2_scenes(cuda)[name]
     r = 5003
@@ -288,8 +285,6 @@ def test_flat2_kernels_equal_plain(cuda, name):
         o, ds, tms, sc))
     assert torch.equal(multi, cuda_bvh.occluded_triangles_flat_multi(
         o, ds, tms, sc))
-    assert torch.equal(multi, ab_baselines.occluded_triangles_flat2_cta(
-        o, ds, tms, sc))
     assert multi[2][::3].all() and 0.05 < multi[1].float().mean() < 0.99
     assert multi[3][tms[3] < 0].all()
 
@@ -317,6 +312,221 @@ def test_sph_walk_kernel_equals_plain(cuda):
         dense = intersect.closest_hit_spheres(o, d, tp, sc)
         assert ((got.prim != dense.prim)
                 | (got.kind != dense.kind)).float().mean() <= 0.01
+
+
+def _held(got, want: dict):
+    """Every field of every lane of ``got`` equals each record of
+    ``want``."""
+    for name, w in want.items():
+        for f in got._fields:
+            assert torch.equal(getattr(got, f), getattr(w, f)), (name, f)
+
+
+def test_sph_walk_merged_record_equals_plain_and_cta(cuda):
+    """Row 5 (the warp-packet sphere walk writing the merged record) on
+    every field of every lane against its plain version and the CTA walk
+    it replaced (with that design's ATen mapping and merge): the
+    4,900-sphere grid's camera and random lanes, fresh, advanced past the
+    first hit and with whole and partly dead warps on a ragged count;
+    merged with triangle records at random t, at the sphere's t (the
+    triangle wins) and an ulp past it (the sphere wins every hitting
+    lane); and the duplicate-sphere tie scene, whose lanes keep the lowest
+    slot, also with each sphere's later block grown so that the walk meets
+    the higher-slot copy first (against the plain version alone: the CTA
+    walk's unwidened cut may miss the lower-slot copy there); each
+    in-block layout alone gives the mix's record."""
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import ab_baselines, cuda_spheres
+    from path_tracer_torch.scene.procedural import (
+        duplicate_sphere_device_scene,
+        sphere_grid_device_scene,
+        sphere_tie_rays,
+    )
+
+    def check(o, d, tp, sc, tri=None, cta=True):
+        before = cuda_spheres.sph_walk_launches
+        got = cuda_spheres.closest_hit_spheres_cuda(o, d, tp, sc, tri=tri)
+        assert cuda_spheres.sph_walk_launches == before + 1
+        want = {"plain": cuda_spheres.closest_hit_spheres_walk_merged_plain(
+            o, d, tp, sc, tri)}
+        if cta:
+            want["cta"] = ab_baselines.closest_hit_spheres_walk_cta(
+                o, d, tp, sc, tri)
+        _held(got, want)
+        return got
+
+    grid = sphere_grid_device_scene(70, cuda)
+    r = 5003
+    ro, rd = _rays(14, r, np.full(3, -38.0), np.full(3, 38.0), cuda)
+    g = np.random.default_rng(33)
+    co = torch.tensor([[0.0, 0.0, 7.0]], device=cuda).expand(r, 3)
+    tgt = np.concatenate([g.uniform(-5, 5, (r, 2)), np.zeros((r, 1))], 1)
+    cd = torch.from_numpy((tgt - [0.0, 0.0, 7.0]).astype(np.float32)).to(cuda)
+    cd = (cd / cd.norm(dim=1, keepdim=True)).contiguous()
+    for o, d in ((ro, rd), (co.contiguous(), cd)):
+        fresh = torch.full((r,), -1.0, device=cuda)
+        first = check(o, d, fresh, grid)
+        assert first.valid.float().mean() > 0.2
+        # Each in-block layout alone (lane per ray, the block over the
+        # warp) gives the mix's record.
+        tables = (grid.sph_blk, grid.sph_blkid, grid.sph_sorted_t,
+                  grid.sph_smap)
+        mix = native.launch_sph_walk(o, d, fresh, *tables)
+        for lane_wise in (1, 33):
+            one = native.launch_sph_walk(o, d, fresh, *tables,
+                                         lane_wise=lane_wise)
+            assert all(torch.equal(x, y) for x, y in zip(one, mix))
+        adv = torch.where(first.valid, first.t, -1.0)
+        far = check(o, d, adv, grid)
+        assert far.backface.any()  # far roots of the first sphere
+        dead = _dead_warps(fresh)
+        got = check(o[:-37].contiguous(), d[:-37].contiguous(),
+                    dead[:-37].contiguous(), grid)
+        assert not got.valid[torch.isinf(dead[:-37])].any()
+        t_rand = torch.rand(r, device=cuda) * 2.0 * first.t.nan_to_num(
+            posinf=60.0)
+        t_rand[::4] = float("inf")
+        merged = check(o, d, fresh, grid, _fake_tri(t_rand, 5))
+        assert {1, 2} <= {int(k) for k in merged.kind.unique()}
+        tie = _fake_tri(first.t, 6)
+        _held(check(o, d, fresh, grid, tie), {"triangle": tie})
+        past = check(o, d, fresh, grid, _fake_tri(torch.nextafter(
+            first.t, torch.tensor(float("inf"), device=cuda)), 7))
+        assert bool((past.kind[first.valid] == 2).all())
+    to, td = (torch.from_numpy(x).to(cuda) for x in sphere_tie_rays(8192, 5))
+    tp = torch.full((8192,), -1.0, device=cuda)
+    tp[::13] = float("inf")
+    for margin in (0.0, 0.5):
+        ties = duplicate_sphere_device_scene(cuda, margin)
+        got = check(to, td, tp, ties, cta=margin == 0.0)
+        assert got.valid.float().mean() > 0.5
+        # Each sphere's copies fill two blocks: the winner is the first slot
+        # of the first.
+        firsts = ties.sph_smap.view(-1, 128)[0::2, 0]
+        assert bool(torch.isin(got.prim[got.valid], firsts).all())
+
+
+def test_dense_sphere_any_hit_folds_prior(cuda, showcase_tex48):
+    """Row 4 (one thread per ray over every set) on every lane of L = 1, 3
+    and 8 sets against its plain version and the chunked kernel it
+    replaced (with that design's ATen OR): without prior, and with prior
+    sets a random tenth occluded, dead lanes (every ninth) and whole and
+    partly dead warps on a ragged count; a set whose prior is set comes
+    out occluded, dead or not. More sets than the kernel takes raise."""
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import ab_baselines, cuda_spheres
+    from path_tracer_torch.scene import load_scene
+
+    for sc in (showcase_tex48, load_scene(SCENES / "spheres" / "scene.isf",
+                                          cuda)):
+        o, ds, tms = _sphere_shadow_sets(sc, 16, 5003, cuda)
+        sets = [(ds, tms), (ds[:1], tms[:1])]
+        sets.append(([ds[k % 2] * (1.0 if k < 4 else -1.0) for k in range(8)],
+                     [tms[k % 2] for k in range(8)]))
+        for dd, tt in sets:
+            L = len(dd)
+            g = torch.Generator(device=cuda).manual_seed(L)
+            prior = torch.rand((L, 5003), generator=g, device=cuda) < 0.1
+            for p in (None, prior):
+                before = cuda_spheres.occluded_launches
+                got = cuda_spheres.occluded_spheres_cuda(o, dd, tt, sc,
+                                                         prior=p)
+                assert cuda_spheres.occluded_launches == before + 1
+                assert got.dtype == torch.bool and got.shape == (L, 5003)
+                assert torch.equal(got, cuda_spheres.occluded_spheres_plain(
+                    o, dd, tt, sc, p))
+                assert torch.equal(got, ab_baselines.occluded_spheres_chunked(
+                    o, dd, tt, sc, p))
+                if p is not None:
+                    assert got[p].all()
+            rr = 5003 - 37
+            dead = torch.isinf(_dead_warps(torch.zeros(rr, device=cuda)))
+            tw = [torch.where(dead, -1.0, x[:rr]) for x in tt]
+            dw = [x[:rr] for x in dd]
+            got = cuda_spheres.occluded_spheres_cuda(o[:rr], dw, tw, sc,
+                                                     prior=prior[:, :rr])
+            assert torch.equal(got, cuda_spheres.occluded_spheres_plain(
+                o[:rr], dw, tw, sc, prior[:, :rr]))
+        with pytest.raises(ValueError):
+            native.launch_sph_occluded(
+                o, torch.stack(ds * 5)[:9].contiguous(),
+                torch.stack(tms * 5)[:9].contiguous(), sc.sph_packed_t,
+                sc.num_real_spheres)
+
+
+def test_occluded_multi_fold_equals_plain(cuda, showcase_tex48):
+    """occluded_multi on the card (the flat any-hit's bool output handed to
+    the dense sphere kernel as prior) against the same call on the CPU's
+    plain versions, three lights with a tenth of each set dead."""
+    from path_tracer_torch.ops import cuda_spheres, intersect
+
+    sc = showcase_tex48
+    o, ds, tms = _sphere_shadow_sets(sc, 17, 5003, cuda)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    acts = [torch.rand(5003, generator=g, device=cuda) > 0.1
+            for _ in range(3)]
+    dirs = [ds[0], ds[1], -ds[0]]
+    surf = o - 1e-3 * ds[0]
+    dists = [None, torch.rand(5003, generator=g, device=cuda) * 8.0,
+             torch.rand(5003, generator=g, device=cuda) * 3.0]
+    before = cuda_spheres.occluded_launches
+    got = intersect.occluded_multi(o, dirs, sc, surf_pos=surf,
+                                   max_dists=dists, actives=acts)
+    assert cuda_spheres.occluded_launches == before + 1
+    cpu = lambda x: None if x is None else x.cpu()
+    want = intersect.occluded_multi(
+        o.cpu(), [x.cpu() for x in dirs], _scene_on_cpu(sc),
+        surf_pos=surf.cpu(), max_dists=[cpu(x) for x in dists],
+        actives=[x.cpu() for x in acts])
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert 0.05 < float(torch.stack(got).float().mean()) < 0.95
+
+
+@pytest.mark.parametrize("n_sets", [9, 11, 17])
+def test_dense_sphere_any_hit_chunks_sets(cuda, showcase_tex48, n_sets):
+    """More sets than row 4's kernel holds per lane: the wrapper launches
+    once per chunk of native.SPH_OCC_MAX_SETS and equals its plain version
+    on every lane, with and without prior, as does occluded_multi with as
+    many lights (the flat any-hit's output as prior, a tenth of each set
+    dead)."""
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import cuda_spheres, intersect
+
+    sc = showcase_tex48
+    o, ds, tms = _sphere_shadow_sets(sc, 18, 5003, cuda)
+    dd = [ds[k % 2] * (1.0 if k % 4 < 2 else -1.0) for k in range(n_sets)]
+    tt = [tms[k % 2] for k in range(n_sets)]
+    chunks = -(-n_sets // native.SPH_OCC_MAX_SETS)
+    g = torch.Generator(device=cuda).manual_seed(n_sets)
+    prior = torch.rand((n_sets, 5003), generator=g, device=cuda) < 0.1
+    for p in (None, prior):
+        before = cuda_spheres.occluded_launches
+        got = cuda_spheres.occluded_spheres_cuda(o, dd, tt, sc, prior=p)
+        assert cuda_spheres.occluded_launches == before + chunks
+        assert got.dtype == torch.bool and got.shape == (n_sets, 5003)
+        assert torch.equal(got, cuda_spheres.occluded_spheres_plain(
+            o, dd, tt, sc, p))
+    acts = [torch.rand(5003, generator=g, device=cuda) > 0.1
+            for _ in range(n_sets)]
+    before = cuda_spheres.occluded_launches
+    got = intersect.occluded_multi(o, dd, sc, actives=acts)
+    assert cuda_spheres.occluded_launches == before + chunks
+    want = intersect.occluded_multi(o.cpu(), [x.cpu() for x in dd],
+                                    _scene_on_cpu(sc),
+                                    actives=[x.cpu() for x in acts])
+    assert len(got) == n_sets
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def _scene_on_cpu(sc):
+    """A DeviceScene's tensors moved to the CPU."""
+    import dataclasses
+
+    return dataclasses.replace(sc, **{
+        f.name: getattr(sc, f.name).cpu() for f in dataclasses.fields(sc)
+        if isinstance(getattr(sc, f.name), torch.Tensor)})
 
 
 @pytest.fixture(scope="module")
@@ -895,12 +1105,13 @@ def test_warp_flat2_equals_plain_and_cta(cuda, name):
 
 @pytest.mark.parametrize("name", ["ties2sb", "grid96"])
 def test_warp_flat2_any_hit_equals_plain_and_cta(cuda, name):
-    """Row 12's two-level warp any-hit equals its plain version and the CTA
-    walk it replaced on every lane of three sets: t_max well past and well
-    short of each lane's hit, and infinite, with whole and partly dead
-    warps, on tie rays whose copies sit in two superblocks and around the
-    grid-96 showcase."""
-    from path_tracer_torch.ops import ab_baselines, cuda_bvh
+    """Row 12's two-level warp any-hit equals its plain version on every
+    lane of three sets: t_max well past and well short of each lane's hit,
+    and infinite, with whole and partly dead warps, on tie rays whose
+    copies sit in two superblocks and around the grid-96 showcase. (Its
+    name keeps the CTA walk it was once also held to; that design is
+    gone.)"""
+    from path_tracer_torch.ops import cuda_bvh
 
     if name == "ties2sb":
         sc, o, d, tp = _flat2_tie_scene(cuda)
@@ -919,8 +1130,6 @@ def test_warp_flat2_any_hit_equals_plain_and_cta(cuda, name):
     got = cuda_bvh.occluded_triangles_flat2_multi(o, ds, tms, sc)
     assert cuda_bvh.flat2_occluded_launches == before + 1
     assert torch.equal(got, cuda_bvh.occluded_triangles_flat2_multi_plain(
-        o, ds, tms, sc))
-    assert torch.equal(got, ab_baselines.occluded_triangles_flat2_cta(
         o, ds, tms, sc))
     assert got[:, dead].all()
     assert got[0][hit & ~dead].all() and not got[1][hit & ~dead].any()

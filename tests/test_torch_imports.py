@@ -461,10 +461,10 @@ def test_sph_walk_launcher_checks_operands():
         short_tp = torch.empty((32,), **cuda)
     for tables in bad:
         with mode, pytest.raises(ValueError):
-            native.launch_sph_walk(o, d, tp, *tables)
+            native.launch_sph_walk(o, d, tp, *tables, sc.sph_smap)
     with mode, pytest.raises(ValueError):
         native.launch_sph_walk(o, d, short_tp, sc.sph_blk, sc.sph_blkid,
-                               sc.sph_sorted_t)
+                               sc.sph_sorted_t, sc.sph_smap)
 
 
 def test_walk_launchers_check_operands():
