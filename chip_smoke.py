@@ -54,10 +54,10 @@ any error:
    lane, then timed; (3h) the superleaf tree walk, closest hit and any-hit
    (rows 7 and 8), on the plain showcase and scene A's whole table:
    camera, random and first-bounce lanes and the three lights' shadow
-   sets with a tenth killed, on a ragged ray count, against their plain
-   versions on every lane and against the flat (showcase) or flat2
-   (scene A) kernels (the Baldwin-Weber/MT divergence gate), then timed
-   on the showcase; (3i, also alone with ``--only 3i``) rows 9 and 1
+   sets with a tenth killed (one any-hit launch), on a ragged ray count,
+   against their plain versions on every lane and against the flat
+   (showcase) or flat2 (scene A) kernels (the Baldwin-Weber/MT divergence
+   gate); (3i, also alone with ``--only 3i``) rows 9 and 1
    against their plain versions on every field of 2^18 camera,
    first-bounce, incoherent, ragged and tie lanes, the tie rule's copy
    winning, the flat walk's packet counts and row 1's device ms per 1080p
@@ -82,18 +82,38 @@ any error:
    sample; (3l, also alone with ``--only 3l``) rows 12 and 2 (the flat2
    any-hit as two-level warp packets; the dense sphere closest hit
    writing the whole record and merging a triangle record in its launch)
-   against their plain versions and the designs they replaced
-   (``ops/ab_baselines.py``) on every field of every lane: row 12 on
+   against their plain versions on every field of every lane: row 12 on
    scene A's first-bounce and incoherent shadow sets (3 x 2^18), a
    ragged count with dead warps and tie rays over two superblocks; row 2
    merged with row 11's record and alone on scene A's camera and
    first-bounce lanes, on ``spheres`` and 500 random spheres, and with
    triangle records at the sphere's t (the triangle wins) and an ulp past
-   it; closest_hit against the old path; then row 12's work against what
-   its results need, both designs in turns with their bounds (row 2
-   through its wrapper, the launch alone and closest_hit), scene A's
-   device ms per 1080p sample through each and one scene A sample end to
-   end in turns;
+   it; then row 12's work against what its results need and both rows
+   timed with their bounds, scene A's device ms per 1080p sample; (3m,
+   also alone with ``--only 3m``) rows 5 and 4 (the sphere block walk as
+   warp packets writing the merged record; the dense sphere any-hit, one
+   thread per ray over every set, the triangle result folded in as
+   prior) against their plain versions on every field of every lane:
+   scene B's camera and first-bounce lanes, a ragged count with dead
+   warps, triangle records at the sphere's t and an ulp past it, the
+   duplicate-sphere tie scene, also with each sphere's later block grown
+   (the widened cut's case); the textured showcase's 3 x 2^18
+   first-bounce shadow sets without and with the flat any-hit as prior,
+   a random prior and 11 sets (two launches); row 5's simulated visits
+   (``sph_walk_visits``) and row 4's tests, then both timed with their
+   bounds; (3n, also alone with ``--only 3n``) rows 7 and 8 (the tree
+   walk as warp walks, a lane testing the leaves its own gate admits; the
+   any-hit's L sets in one launch) against their plain versions on every
+   field of every lane, the lanes where the replaced CTA design
+   (``ops/ab_baselines.py``) differs logged: the plain showcase's and
+   scene A's 2^18 camera and first-bounce lanes, random, incoherent and
+   ragged lanes with dead warps, the first bounce's 3 x 2^18 shadow lanes
+   and incoherent shadow sets with a tenth killed, and tie rays on the
+   duplicate-triangle grid; the walks' counts (``tree_walk_visits``:
+   leaf visits a 128-lane CTA and a 32-lane warp, lane-slot tests of each
+   in-leaf layout against the tests needed), then both designs in turns
+   (device ms a launch) with the recounted bounds, beside rows 9 and 10
+   (showcase) or 11 and 12 (scene A) on the same rays;
 4. the main path at full size: ``cube``, ``spheres`` and ``reflection`` at
    1920x1080, 4 bounces, 16 spp through ``render_pixel_sums``, and one
    reference-default frame of ``reflection`` (1920x1080, 64 spp, 4
@@ -116,8 +136,10 @@ any error:
    PT_DENSE_TR=1``: row 3) and through the walk kernels, ABBA, and one
    1-spp frame of it through the CLI on the dense route; then (4h) the
    plain showcase at 1920x1080, 5 bounces, TREE_SPP spp under
-   ``PT_BVH_KERNEL=tree`` (rows 7 and 8) against phase 4's flat render,
-   and one 1-spp textured-showcase frame through the CLI under tree.
+   ``PT_BVH_KERNEL=tree`` (rows 7 and 8, one any-hit launch a bounce)
+   against phase 4's flat render, the two routes in turns at
+   TREE_TURN_SPP spp, one tree sample through ``torch.profiler`` and one
+   1-spp textured-showcase frame through the CLI under tree.
    Every knob is restored after its phase. Launch counts are set to 0
    before each path and read after it;
 4b. the showcase at 480x270, 4 spp, 5 bounces through the flat walk and
@@ -147,7 +169,6 @@ name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import shutil
 import subprocess
@@ -231,6 +252,7 @@ FUSED_SPP = 2  # samples of each 1080p render of the fused-shadow A/B (4f)
 KHIT_KS = (6, 1)
 CHECK_LANES = (1 << 16) - 37  # lanes of 3g's and 3h's checks: not whole CTAs
 TREE_SPP = 16  # samples of the plain showcase's 1080p tree-walk render (4h)
+TREE_TURN_SPP = 2  # samples of each render of 4h's tree and flat turns
 # The training phases (6b, 6c): the central difference's step on the
 # albedo scale and its bound (tests/tools/tpu_kernel_check.py's chip gate),
 # the target render's seed (examples/inverse_rendering.py) and the SGD
@@ -2796,46 +2818,137 @@ def records_off(got, want):
     return off
 
 
-def tree_work(steps, scene):
-    """(result, slab tests, MT tests) of a plain tree walk run to its end
-    (``steps``: cuda_bvh.tree_walk_steps or occluded_tree_steps): the slab
-    tests of the nodes the lanes enter, and the MT tests of the real
-    (nonzero-edge) slots of the leaves they enter themselves."""
+def tree_walk_visits(o, d, g, sc, any_hit: bool = False,
+                     widths=(128, 32)) -> dict:
+    """Rows 7 and 8's work on these lanes, from the plain walk
+    (``cuda_bvh.tree_walk_steps`` or, with ``any_hit``,
+    ``occluded_tree_steps``) in packets of each width: 128, the replaced
+    CTA design's packet, and 32, the kernel's warp. Per width: the leaf
+    visits (a leaf some lane's gate admits), the live packets, the slab
+    tests of the nodes the lanes' gates admit, the MT tests the lanes need
+    (the real, nonzero-edge, slots of the leaves their own gates admit:
+    the same at every width), the distinct leaves some lane needs and the
+    layouts the groups pick. At width 128 also the lane-slot tests the CTA
+    design executes (128 x block a visit: every lane, every slot); at
+    width 32 the histogram of needing rays a visit (``hist`` [33]) and the
+    lane-slot tests of each in-leaf layout: lane per ray (32 x block a
+    visit), the leaf over the warp (k x block for k needing rays, plus its
+    reduction, counted as 32 lane slots a ray for each 128-slot chunk) and
+    the kernel's mix (lane per ray from native.TREE_WALK_LANE_WISE rays).
+    ``result`` is the last width's result, the plain version's."""
     import torch
 
-    real = (scene.sl_tris_t[3:9].abs().sum(0) > 0).view(
-        -1, scene.sl_block).sum(1)
-    slabs = tests = torch.zeros((), dtype=torch.long, device=real.device)
-    while True:
-        try:
-            lane, visit, leaf = next(steps)
-        except StopIteration as done:
-            return done.value, int(slabs), int(tests)
-        # No boolean indexing: it would sync the card at every step.
-        slabs = slabs + lane.sum()
-        tests = tests + (lane.sum(1) * torch.where(
-            visit, real[(leaf - 1).clamp(min=0)], 0)).sum()
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import cuda_bvh
+
+    block = sc.sl_block
+    real = (sc.sl_tris_t[3:9].abs().sum(0) > 0).view(-1, block).sum(1)
+    steps_fn = (cuda_bvh.occluded_tree_steps if any_hit
+                else cuda_bvh.tree_walk_steps)
+    live = g >= 0.0 if any_hit else g < float("inf")
+    pad = -o.shape[0] % cuda_bvh.GROUP
+    layouts = cuda_bvh.packet_layouts(torch.nn.functional.pad(
+        d, (0, 0, 0, pad), value=1.0).view(-1, cuda_bvh.GROUP, 3))
+    red = 32 * block // 128  # a spread ray's reductions, in lane slots
+    out = {"lane_wise": native.TREE_WALK_LANE_WISE}
+    zero = lambda: torch.zeros((), dtype=torch.long, device=o.device)
+    for width in widths:
+        steps = steps_fn(o, d, g, sc, width=width)
+        visits, slabs, tests, spread, mix = (zero() for _ in range(5))
+        hist = torch.zeros(33, dtype=torch.long, device=o.device)
+        seen = torch.zeros(real.numel() + 1, dtype=torch.bool,
+                           device=o.device)
+        while True:
+            try:
+                lane, visit, leaf = next(steps)
+            except StopIteration as done:
+                result = done.value
+                break
+            # No boolean indexing: it would sync the card at every step.
+            k = torch.where(visit, lane.sum(1), 0)
+            visits += visit.sum()
+            slabs += lane.sum()
+            tests += (k * real[(leaf - 1).clamp(min=0)]).sum()
+            seen[torch.where(visit, leaf, 0)] = True
+            if width == 32:
+                hist += torch.bincount(k, minlength=33)
+                spread += (k * (block + red)).sum()
+                mix += torch.where(k >= native.TREE_WALK_LANE_WISE,
+                                   32 * block, k * (block + red)).sum()
+        packets = live.new_zeros(live.numel() + pad)
+        packets[:live.numel()] = live
+        w = dict(visits=int(visits), slabs=int(slabs), tests=int(tests),
+                 leaves=int(seen[1:].sum()),
+                 live=int(packets.view(-1, width).any(1).sum()),
+                 layouts=int(layouts.unique().numel()))
+        if width == 128:
+            w["cta_slots"] = 128 * block * w["visits"]
+        else:
+            hist[0] = 0
+            w.update(hist=hist.tolist(), lane_slots=32 * block * w["visits"],
+                     spread_slots=int(spread), mix_slots=int(mix))
+        out[width] = w
+    out["result"] = result
+    return out
+
+
+def log_tree_visits(label: str, v: dict) -> None:
+    """Logs ``tree_walk_visits``' counts."""
+    w32 = v[32]
+    need = max(w32["tests"], 1)
+    line = (f"  rows 7-8 visits, {label}: MT tests needed {w32['tests']}, "
+            f"slab tests {w32['slabs']}, leaves {w32['leaves']}, layouts "
+            f"{w32['layouts']}; warps: {w32['visits']} leaf visits over "
+            f"{w32['live']} live warps "
+            f"({w32['visits'] / max(w32['live'], 1):.2f} a warp), needing "
+            "rays a visit " + " ".join(f"{k}:{c}" for k, c in
+                                       enumerate(w32["hist"]) if c)
+            + f"; lane slots a needed test: lane per ray "
+            f"{w32['lane_slots'] / need:.3f}, the leaf over the warp "
+            f"{w32['spread_slots'] / need:.3f}, the mix (lane per ray from "
+            f"{v['lane_wise']}) {w32['mix_slots'] / need:.3f}")
+    if 128 in v:
+        w128 = v[128]
+        line += (f"; 128-lane CTAs: {w128['visits']} leaf visits over "
+                 f"{w128['live']} live CTAs "
+                 f"({w128['visits'] / max(w128['live'], 1):.2f} a CTA), "
+                 f"lane slots a needed test {w128['cta_slots'] / need:.3f}")
+        if w128["tests"] != w32["tests"]:
+            raise AssertionError(f"{label}: the lanes' needed tests depend "
+                                 "on the packet")
+    log(line)
+
+
+def tree_bound(v: dict, sc, o, d, g, out_bytes: int) -> tuple:
+    """The bound of one launch from ``tree_walk_visits``' width-32 counts
+    (summed over the sets of an any-hit launch): the operations of the
+    slab and MT tests the lanes need; the bytes of the rays, the outputs,
+    the node tables of the layouts the groups pick and the rows of the
+    leaves some lane needs (on scene A they come from HBM)."""
+    ws = v if isinstance(v, list) else [v]
+    ops = sum(w[32]["slabs"] * OPS_SLAB + w[32]["tests"] * OPS_MT for w in ws)
+    layouts = max(w[32]["layouts"] for w in ws)
+    leaves = max(w[32]["leaves"] for w in ws)
+    node_bytes = nbytes(sc.sl_nodes6, sc.sl_meta6) * layouts // 6
+    return bound(ops, nbytes(o, d, g) + out_bytes + node_bytes
+                 + leaves * sc.sl_block * 9 * 4)
 
 
 def phase_tree_kernels(device, showcase, big):
     """3h: rows 7 and 8 (the superleaf tree walk) against their plain
     versions on every lane, on the plain showcase (100,352 terrain
     triangles, 516 blocks) and scene A's whole table (991,834 triangles,
-    5,518 blocks): camera lanes (every 7th dead), first-bounce lanes
-    (dead where the camera ray missed) and the first bounce's shadow sets
-    toward the three lights with a tenth killed, on a ragged ray count;
-    beside the flat (showcase) or flat2 (scene A) kernels on the same
-    rays, the Baldwin-Weber/MT divergence at most MAX_DIVERGENCE of the
-    lanes on camera and random rays (the gate's own rays); on
-    first-bounce lanes the hit/miss and prim flips at most that, their t
-    reported (a bounce ray that grazes its own surface hits a neighbour
-    at t ~ 1e-3, where the Baldwin-Weber plane constant cancels: ROADMAP
-    Queue 3). Then on the showcase at the main path's shapes (2^18 camera,
-    first-bounce and shadow lanes): held against the plain version on
-    every lane again, the plain version's run counting the work for the
-    bound, and timed. Returns (closest max abs err, any-hit max abs err,
-    {"camera": (ms, plain ms, bound ms, bound by), "first bounce": ...,
-    "occluded": ... per launch, one light})."""
+    5,518 blocks): camera lanes (every 7th dead), random lanes,
+    first-bounce lanes (dead where the camera ray missed) and the first
+    bounce's shadow sets toward the three lights with a tenth killed (one
+    launch), on a ragged ray count; beside the flat (showcase) or flat2
+    (scene A) kernels on the same rays, the Baldwin-Weber/MT divergence at
+    most MAX_DIVERGENCE of the lanes on camera and random rays (the gate's
+    own rays); on first-bounce lanes the hit/miss and prim flips at most
+    that, their t reported (a bounce ray that grazes its own surface hits
+    a neighbour at t ~ 1e-3, where the Baldwin-Weber plane constant
+    cancels: ROADMAP Queue 3). Returns (closest max abs err, any-hit max
+    abs err)."""
     import torch
 
     from path_tracer_torch.ops import cuda_bvh
@@ -2884,93 +2997,29 @@ def phase_tree_kernels(device, showcase, big):
         kill = as_cuda(rng.uniform(size=(len(stms), n)) < 0.1, device, bool)
         stms = [torch.where(k, -1.0, tm) for k, tm in zip(kill, stms)]
         flat = other_occ(so, sds, stms, sc)
-        for i, (sd, tm) in enumerate(zip(sds, stms)):
-            got = cuda_bvh.occluded_triangles_tree(so, sd, tm, sc)
-            want = cuda_bvh.occluded_triangles_tree_plain(so, sd, tm, sc)
-            off, flips = int((got != want).sum()), float(
-                (got != flat[i]).float().mean())
-            o_err = max(o_err, float((got != want).float().max()))
+        before = cuda_bvh.tree_occluded_launches
+        got = cuda_bvh.occluded_triangles_tree_multi(so, sds, stms, sc)
+        launches = cuda_bvh.tree_occluded_launches - before
+        want = cuda_bvh.occluded_triangles_tree_multi_plain(so, sds, stms,
+                                                            sc)
+        o_err = max(o_err, float((got != want).float().max()))
+        for i, tm in enumerate(stms):
+            off = int((got[i] != want[i]).sum())
+            flips = float((got[i] != flat[i]).float().mean())
             log(f"  {name} shadow set {i} ({n} lanes, occluded "
-                f"{float(got.float().mean()):.3f}): lanes off the plain "
+                f"{float(got[i].float().mean()):.3f}): lanes off the plain "
                 f"version {off}; flips against the other kernel "
                 f"{flips:.2e} (<= {MAX_DIVERGENCE:g}); dead lanes occluded "
-                f"{bool(got[tm < 0].all())}")
-            if off or flips > MAX_DIVERGENCE or not bool(got[tm < 0].all()):
+                f"{bool(got[i][tm < 0].all())}")
+            if off or flips > MAX_DIVERGENCE or not bool(got[i][tm < 0].all()):
                 raise AssertionError(f"{name}: tree any-hit disagrees")
-
-    sc, n = showcase, WAVE
-    (bo, bd, btp), (so, sds, stms) = first_bounce(sc, n, device)
-    o, d = camera_rays(sc, n, device)
-    tables = (sc.sl_nodes6, sc.sl_meta6, sc.sl_tris_t)
-    out = {}
-    for label, (ro, rd, rtp) in (
-            ("camera", (o, d, torch.full((n,), -1.0, device=device))),
-            ("first bounce", (bo, bd, btp))):
-        run = lambda: cuda_bvh.closest_hit_triangles_tree(ro, rd, rtp, sc)
-        ms = cuda_ms(run, 10)
-        plain_ms, (walk, slabs, tests) = timed_once(
-            lambda: tree_work(cuda_bvh.tree_walk_steps(ro, rd, rtp, sc), sc))
-        ms2 = cuda_ms(run, 10)
-        got, want = run(), cuda_bvh.tree_record(*walk, sc)
-        off = int(records_off(got, want).sum())
-        fin = torch.isfinite(want.t)
-        c_err = max(c_err, float((got.t - want.t)[fin].abs().max())
-                    if fin.any() else 0.0)
-        flat_ms = cuda_ms(lambda: cuda_bvh.closest_hit_triangles_flat(
-            ro, rd, rtp, sc), 10)
-        work = bound(slabs * OPS_SLAB + tests * OPS_MT,
-                     nbytes(ro, rd, rtp, *tables) + n * (4 * 4 + 4))
-        log(f"  time tree closest hit, {n} {label} rays: kernel {ms:.4f} ms, "
-            f"{ms2:.4f} ms (repeat); lanes off the plain version {off}; the "
-            f"flat kernel on the same rays {flat_ms:.4f} ms; plain (work "
-            f"counted) {plain_ms:.4f} ms; bound {work[0]:.4f} ms ({work[1]}: "
-            f"{slabs} slab tests, {tests} MT tests)")
-        if off:
-            raise AssertionError(f"tree closest hit disagrees on {label} "
-                                 "rays at the main path's shape")
-        out[label] = (min(ms, ms2), plain_ms) + work
-    run = lambda: [cuda_bvh.occluded_triangles_tree(so, sd, tm, sc)
-                   for sd, tm in zip(sds, stms)]
-    ms = cuda_ms(run, 10)
-    plain_ms, plain = timed_once(lambda: [
-        tree_work(cuda_bvh.occluded_tree_steps(so, sd, tm, sc), sc)
-        for sd, tm in zip(sds, stms)])
-    ms2 = cuda_ms(run, 10)
-    offs = [int((g != want).sum()) for g, (want, _, _) in zip(run(), plain)]
-    flat_ms = cuda_ms(lambda: cuda_bvh.occluded_triangles_flat_multi(
-        so, sds, stms, sc), 10)
-    works = [bound(slabs * OPS_SLAB + tests * OPS_MT,
-                   nbytes(so, sd, tm, *tables) + 4 * n)
-             for (_, slabs, tests), sd, tm in zip(plain, sds, stms)]
-    n_l = len(sds)
-    log(f"  time tree any-hit, {n} first-bounce shadow rays x L={n_l} (one "
-        f"launch per light): kernel {ms:.4f} ms, {ms2:.4f} ms (repeat) for "
-        f"the {n_l} launches; lanes off the plain version per light {offs}; "
-        f"the flat any-hit (one launch) {flat_ms:.4f} ms; plain (work "
-        f"counted) {plain_ms:.4f} ms; bound per launch "
-        f"{[round(w[0], 4) for w in works]} ms ({works[0][1]}: slab and MT "
-        f"tests {[(sl, te) for _, sl, te in plain]})")
-    if any(offs):
-        raise AssertionError("tree any-hit disagrees at the main path's "
-                             "shape")
-    # One launch's numbers: the kernels line is per main-path launch.
-    out["occluded"] = (min(ms, ms2) / n_l, plain_ms / n_l,
-                       sum(w[0] for w in works) / n_l, works[0][1])
-    return c_err, o_err, out
+        if launches != 1:
+            raise AssertionError(f"{name}: {len(stms)} shadow sets took "
+                                 f"{launches} any-hit launches, not 1")
+    return c_err, o_err
 
 
-AB_ITERS = 10  # launches per reading of 3i's A/B
-
-
-def ab_turns(old, new) -> tuple[list, list]:
-    """Readings (ms per launch, CUDA events) of two designs in turns: old,
-    new, new, old, twice."""
-    old_ms, new_ms = [], []
-    for _ in range(2):
-        old_ms.append(cuda_ms(old, AB_ITERS))
-        new_ms += [cuda_ms(new, AB_ITERS), cuda_ms(new, AB_ITERS)]
-        old_ms.append(cuda_ms(old, AB_ITERS))
-    return old_ms, new_ms
+AB_ITERS = 10  # launches per CUDA-event reading of a kernel's time
 
 
 def held(label: str, new, want: dict) -> float:
@@ -3033,6 +3082,13 @@ def kernel_device_ms(scene, spec) -> dict:
     return out
 
 
+def wrapper_ms(fn) -> float:
+    """Milliseconds a call of a kernel's wrapper ``fn`` (its checks, its
+    launch and its ATen ops) as the kernels line reports the rows: the
+    lesser of two ``cuda_ms`` readings of AB_ITERS calls."""
+    return min(cuda_ms(fn, AB_ITERS), cuda_ms(fn, AB_ITERS))
+
+
 def launch_device_ms(fn, iters: int = 10) -> float:
     """Device milliseconds per call of ``fn`` (a launch alone) after one
     warm-up: CUDA events around each call, each pair behind a 2M-cycle
@@ -3056,13 +3112,36 @@ def launch_device_ms(fn, iters: int = 10) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
+def layout_turns(label: str, launch) -> None:
+    """Logs the device ms a call of ``launch`` (a tree walk launch) takes
+    with each in-leaf layout alone against the mix, in turns (mix, lane
+    per ray, the leaf over the warp, then back): ``native.
+    TREE_WALK_LANE_WISE`` set to 1 and 33 for the call, then restored."""
+    from path_tracer_torch import native
+
+    mix = native.TREE_WALK_LANE_WISE
+    order = (("the mix", mix), ("lane per ray", 1), ("over the warp", 33))
+    ms = {k: [] for k, _ in order}
+    try:
+        for seq in (order, order[::-1]):
+            for k, lane_wise in seq:
+                native.TREE_WALK_LANE_WISE = lane_wise
+                ms[k].append(launch_device_ms(launch))
+    finally:
+        native.TREE_WALK_LANE_WISE = mix
+    log(f"    {label}, each in-leaf layout alone, device ms a launch in "
+        "turns: " + "; ".join(f"{k} " + " ".join(f"{x:.4f}" for x in v)
+                              for k, v in ms.items()))
+
+
 def device_turns(old, new):
     """Device ms per call of two designs' launches in turns (old, new, new,
-    old), from ``launch_device_ms``."""
+    old, twice), from ``launch_device_ms``."""
     old_ms, new_ms = [], []
-    old_ms.append(launch_device_ms(old))
-    new_ms += [launch_device_ms(new) for _ in range(2)]
-    old_ms.append(launch_device_ms(old))
+    for _ in range(2):
+        old_ms.append(launch_device_ms(old))
+        new_ms += [launch_device_ms(new) for _ in range(2)]
+        old_ms.append(launch_device_ms(old))
     return old_ms, new_ms
 
 
@@ -3893,40 +3972,6 @@ def phase_rows_12_2(device, big, design_counts: bool = True) -> dict:
 OPS_SPHERE_SHARED, OPS_SPHERE_SET = 10, OPS_SPHERE - 10
 
 
-@contextlib.contextmanager
-def replaced_sphere_designs():
-    """The sphere walk and the dense sphere any-hit go through the designs
-    rows 5 and 4 replaced (ops/ab_baselines.py: the CTA walk with its ATen
-    mapping and merge; the chunked any-hit with its stack, compare and OR)
-    inside the context, wherever the main path reaches them; the dense
-    closest hit and the any-hit walk keep their kernels. Restored on
-    exit."""
-    from path_tracer_torch.ops import ab_baselines, cuda_spheres
-
-    closest, occluded = (cuda_spheres.closest_hit_spheres_cuda,
-                         cuda_spheres.occluded_spheres_cuda)
-
-    def old_closest(o, d, t_prev, scene, tri=None):
-        if getattr(scene, "sph_use_blocks", False):
-            return ab_baselines.closest_hit_spheres_walk_cta(o, d, t_prev,
-                                                             scene, tri)
-        return closest(o, d, t_prev, scene, tri=tri)
-
-    def old_occluded(o, ds, t_maxes, scene, prior=None):
-        if getattr(scene, "sph_use_blocks", False):
-            return occluded(o, ds, t_maxes, scene, prior)
-        return ab_baselines.occluded_spheres_chunked(o, ds, t_maxes, scene,
-                                                     prior)
-
-    cuda_spheres.closest_hit_spheres_cuda = old_closest
-    cuda_spheres.occluded_spheres_cuda = old_occluded
-    try:
-        yield
-    finally:
-        cuda_spheres.closest_hit_spheres_cuda = closest
-        cuda_spheres.occluded_spheres_cuda = occluded
-
-
 def sph_block_best(o, d, tp, sc, chunk: int = 1 << 13):
     """[R, C] each lane's nearest valid root in each block column of the
     sphere walk (its naive quadratic; +inf for none and on pad columns)."""
@@ -4123,24 +4168,21 @@ def sph_occ_dense_work(o, ds, tms, sc, prior=None) -> dict:
 
 def rows_5_4_parity(device, tex, grid) -> dict:
     """3m's parity: row 5 (the warp-packet sphere walk writing the merged
-    record) against its plain version and the CTA walk it replaced (with
-    that design's ATen mapping and merge) on every field of every lane:
-    scene B's middle-wavefront camera lanes and first-bounce lanes, a
-    ragged count with dead warps, triangle records at the sphere's t (the
+    record) against its plain version on every field of every lane: scene
+    B's middle-wavefront camera lanes and first-bounce lanes, a ragged
+    count with dead warps, triangle records at the sphere's t (the
     triangle must win) and an ulp past it, and the duplicate-sphere tie
-    scene (the lowest slot), also with each sphere's later block grown
-    (against the plain version; the CTA walk's lanes off logged); row 4
-    (one thread per ray over every set, the triangle result folded in)
-    against its plain version and the chunked kernel it replaced on every
-    lane of the textured showcase's first-bounce shadow sets (3 x 2^18, a
-    tenth killed), without and with the flat any-hit's result as
-    ``prior``, a ragged count with dead warps, a random prior, and 11 sets
-    (two launches); occluded_multi on those lanes against the old path.
+    scene (the lowest slot), also with each sphere's later block grown;
+    row 4 (one thread per ray over every set, the triangle result folded
+    in) against its plain version on every lane of the textured
+    showcase's first-bounce shadow sets (3 x 2^18, a tenth killed),
+    without and with the flat any-hit's result as ``prior``, a ragged
+    count with dead warps, a random prior, and 11 sets (two launches).
     Returns the sets and errors."""
     import torch
 
     from path_tracer_torch import native
-    from path_tracer_torch.ops import ab_baselines, cuda_bvh, cuda_spheres
+    from path_tracer_torch.ops import cuda_bvh, cuda_spheres
     from path_tracer_torch.ops import intersect
     from path_tracer_torch.scene.device_scene import opaque_view
     from path_tracer_torch.scene.procedural import (
@@ -4148,20 +4190,18 @@ def rows_5_4_parity(device, tex, grid) -> dict:
         sphere_tie_rays,
     )
 
-    log("phase 3m: rows 5 and 4 redesigned (the sphere block walk as warp "
-        "packets writing the merged record; the dense sphere any-hit as one "
-        "thread per ray over every set, the triangle result folded in) "
-        "against their plain versions and old designs")
+    log("phase 3m: rows 5 and 4 (the sphere block walk as warp packets "
+        "writing the merged record; the dense sphere any-hit as one thread "
+        "per ray over every set, the triangle result folded in) against "
+        "their plain versions")
     t0 = time.perf_counter()
     n, rr = WAVE, WAVE - 37
     out = {"row5_err": 0.0, "row4_err": 0.0}
     walk_new = cuda_spheres.closest_hit_spheres_cuda
     walk_plain = cuda_spheres.closest_hit_spheres_walk_merged_plain
-    walk_old = ab_baselines.closest_hit_spheres_walk_cta
 
     def walk_held(label, o, d, tp, sc, tri=None, extra=None):
-        want = {"plain": walk_plain(o, d, tp, sc, tri),
-                "old": walk_old(o, d, tp, sc, tri), **(extra or {})}
+        want = {"plain": walk_plain(o, d, tp, sc, tri), **(extra or {})}
         new = walk_new(o, d, tp, sc, tri=tri)
         out["row5_err"] = max(out["row5_err"],
                               held(f"row 5, {label}", new, want))
@@ -4210,17 +4250,9 @@ def rows_5_4_parity(device, tex, grid) -> dict:
                       torch.where(got.valid, got.t, ttp), ties)
     # Each sphere's later block grown by 0.5: the walk meets the
     # higher-slot copy first, and reaches the lower-slot one only through
-    # its widened cut. The CTA walk's cut is not widened: its lanes off are
-    # logged, not held.
-    grown = duplicate_sphere_device_scene(device, 0.5)
-    new = walk_new(to, td, ttp, grown)
-    out["row5_err"] = max(out["row5_err"], held(
-        "row 5, duplicate-sphere tie rays, later blocks grown", new,
-        {"plain": walk_plain(to, td, ttp, grown)}))
-    cta = walk_old(to, td, ttp, grown)
-    log(f"  row 5, later blocks grown: lanes off the plain version, the "
-        f"replaced CTA walk (unwidened cut) "
-        f"{lanes_off(cta, new)} of {n}")
+    # its widened cut.
+    new = walk_held("duplicate-sphere tie rays, later blocks grown", to, td,
+                    ttp, duplicate_sphere_device_scene(device, 0.5))
     firsts = ties.sph_smap.view(-1, 128)[0::2, 0]
     if not all(bool(torch.isin(x.prim[x.valid], firsts).all())
                for x in (got, first, new)):
@@ -4238,31 +4270,26 @@ def rows_5_4_parity(device, tex, grid) -> dict:
     out["tex"] = (sh, dss, tmss, tri)
     occ_new = cuda_spheres.occluded_spheres_cuda
     occ_plain = cuda_spheres.occluded_spheres_plain
-    occ_old = ab_baselines.occluded_spheres_chunked
 
     def occ_held(label, o, ds, tms, prior=None):
         new = occ_new(o, ds, tms, tex, prior=prior)
-        want = {"plain": occ_plain(o, ds, tms, tex, prior),
-                "old": occ_old(o, ds, tms, tex, prior)}
-        offs = {k: int((new != w).sum()) for k, w in want.items()}
+        off = int((new != occ_plain(o, ds, tms, tex, prior)).sum())
         dead = tms < 0.0
         log(f"  row 4, {label}: {tms.shape[0]} x {tms.shape[1]} lanes, "
             f"occluded {float(new[~dead].float().mean()):.3f} of the live; "
-            "lanes off " + ", ".join(f"{k} {v}" for k, v in offs.items()))
-        if any(offs.values()):
+            f"lanes off the plain version {off}")
+        if off:
             raise AssertionError(f"row 4, {label}: the dense any-hit "
                                  "disagrees")
         if prior is None and bool(new[dead].any()):
             raise AssertionError(f"row 4, {label}: a dead lane occluded")
         if prior is not None and not bool(new[prior].all()):
             raise AssertionError(f"row 4, {label}: a prior set dropped")
-        out["row4_err"] = max(out["row4_err"], max_err((new,),
-                                                       (want["plain"],)))
         return new
 
-    alone = occ_held("textured first-bounce shadow sets", so, dss, tmss)
-    folded = occ_held("textured first-bounce shadow sets, the flat any-hit "
-                      "as prior", so, dss, tmss, tri)
+    occ_held("textured first-bounce shadow sets", so, dss, tmss)
+    occ_held("textured first-bounce shadow sets, the flat any-hit as prior",
+             so, dss, tmss, tri)
     occ_held("ragged R, dead warps, the flat any-hit as prior",
              so[:rr].contiguous(), dss[:, :rr].contiguous(),
              torch.stack([dead_warps(x[:rr], -1.0) for x in tmss]),
@@ -4280,51 +4307,27 @@ def rows_5_4_parity(device, tex, grid) -> dict:
         raise AssertionError(f"row 4: {n_sets} sets took "
                              f"{cuda_spheres.occluded_launches - before} "
                              "launches, not 2")
-    out["tex_occ"] = (alone, folded)
-    # occluded_multi, as the main path calls it, against the old path.
-    acts = [tm >= 0.0 for tm in sh["t_maxes"]]
-    args = (so, sh["dirs"], op)
-    kw = dict(surf_pos=sh["surf_pos"], max_dists=sh["max_dists"],
-              actives=acts)
-    new = torch.stack(intersect.occluded_multi(*args, **kw))
-    with replaced_sphere_designs():
-        old = torch.stack(intersect.occluded_multi(*args, **kw))
-    off = int((new != old).sum())
-    log(f"  occluded_multi, textured first-bounce shadow sets: lanes off "
-        f"the old path {off}")
-    if off:
-        raise AssertionError("occluded_multi disagrees with the old path")
-    out["multi"] = (args, kw)
     log(f"  row 4 held in {time.perf_counter() - t0:.1f} s")
     return out
 
 
 def phase_rows_5_4(device, tex, grid) -> dict:
-    """3m: rows 5 and 4 against their plain versions and the designs they
-    replaced (``rows_5_4_parity``); row 5's simulated visits and the
-    lane slots of each in-block layout on scene B's camera and
-    first-bounce lanes, row 4's tests with and without prior; then both
-    designs in turns (old, new, new, old, twice) with their bounds: row 5
-    through its wrapper and the launch alone on scene B's 2^18 camera and
-    first-bounce lanes; row 4 the launch alone without and with prior, and
-    through occluded_multi's sphere half and whole, on the textured
-    showcase's 3 x 2^18 first-bounce shadow lanes; the device ms per 1080p
-    sample (scene B for row 5, the textured showcase for row 4) through
-    each design, and one scene B sample end to end in turns. Returns the
-    numbers."""
-    import torch
-
-    from path_tracer_torch import native
-    from path_tracer_torch.models.integrator import IntegratorSpec
-    from path_tracer_torch.models.renderer import render_pixel_sums
-    from path_tracer_torch.ops import ab_baselines, cuda_spheres, intersect
+    """3m: rows 5 and 4 against their plain versions (``rows_5_4_parity``);
+    row 5's simulated visits and the lane slots of each in-block layout on
+    scene B's camera and first-bounce lanes, row 4's tests with and
+    without prior; then each kernel timed (CUDA events, two readings)
+    beside its plain version, with its bound: row 5 through its wrapper on
+    scene B's 2^18 camera and first-bounce lanes, row 4 through
+    occluded_multi's sphere half (the flat any-hit's result as prior) on
+    the textured showcase's 3 x 2^18 first-bounce shadow lanes. Returns
+    the numbers."""
+    from path_tracer_torch.ops import cuda_spheres
 
     phase_t0 = time.perf_counter()
     par = rows_5_4_parity(device, tex, grid)
-    log(f"  parity held in {time.perf_counter() - phase_t0:.1f} s")
     n = WAVE
     out = {"row5_err": par["row5_err"], "row4_err": par["row4_err"],
-           "visits": {}, "ab": {}}
+           "visits": {}, "times": {}}
     rec_bytes = 3 * 4 + 2 * 4 + 1
     walk_tables = (grid.sph_blk, grid.sph_blkid, grid.sph_sorted_t)
     for label, (o, d, tp, rec) in par["scene B"].items():
@@ -4336,54 +4339,15 @@ def phase_rows_5_4(device, tex, grid) -> dict:
         b = bound(slabs * OPS_SLAB + solves * OPS_SPHERE,
                   nbytes(o, d, tp, *walk_tables, grid.sph_smap)
                   + n * rec_bytes)
-        design = (v["gate_slabs"] + v["visit_slabs"]) * OPS_SLAB \
-            + v["design_solves"] * OPS_SPHERE
-        needed = slabs * OPS_SLAB + solves * OPS_SPHERE
-        log(f"  row 5 operations, scene B {label} lanes: needed "
-            f"{needed:.4e}, the design's {design:.4e} "
-            f"({design / max(needed, 1):.3f}x)")
-        old_ms, new_ms = ab_turns(
-            lambda: ab_baselines.closest_hit_spheres_walk_cta(o, d, tp, grid),
-            lambda: cuda_spheres.closest_hit_spheres_cuda(o, d, tp, grid))
-        old_l, new_l = ab_turns(
-            lambda: ab_baselines.launch_sph_walk_cta(o, d, tp, grid),
-            lambda: native.launch_sph_walk(o, d, tp, *walk_tables,
-                                           grid.sph_smap))
+        run = lambda: cuda_spheres.closest_hit_spheres_cuda(o, d, tp, grid)
+        ms = [cuda_ms(run, 10), cuda_ms(run, 10)]
         plain_ms, _ = timed_once(
             lambda: cuda_spheres.closest_hit_spheres_walk_merged_plain(
                 o, d, tp, grid))
-        old_k, new_k = device_turns(
-            lambda: ab_baselines.launch_sph_walk_cta(o, d, tp, grid),
-            lambda: native.launch_sph_walk(o, d, tp, *walk_tables,
-                                           grid.sph_smap))
-        out["ab"][f"row 5 scene B {label} lanes"] = (old_ms, new_ms, b,
-                                                     plain_ms)
-        out["ab"][f"row 5 scene B {label} lanes, the launch alone"] = (
-            old_l, new_l, b)
-        out["ab"][f"row 5 scene B {label} lanes, device ms a launch"] = (
-            old_k, new_k, b)
-        # The in-block layouts: each alone (lane_wise 33: every block over
-        # the warp; 1: lane per ray) against the kernel's mix, in turns.
-        mix = native.launch_sph_walk(o, d, tp, *walk_tables, grid.sph_smap)
-        for alone, lw in (("block over the warp", 33), ("lane per ray", 1)):
-            one = native.launch_sph_walk(o, d, tp, *walk_tables,
-                                         grid.sph_smap, lane_wise=lw)
-            if not all(torch.equal(x, y) for x, y in zip(one, mix)):
-                raise AssertionError(f"row 5, {alone} alone: the layouts "
-                                     "disagree")
-            out["ab"][f"row 5 scene B {label} lanes, {alone} alone (old) "
-                      "against the mix (new), device ms a launch"] = \
-                device_turns(
-                    lambda: native.launch_sph_walk(
-                        o, d, tp, *walk_tables, grid.sph_smap, lane_wise=lw),
-                    lambda: native.launch_sph_walk(o, d, tp, *walk_tables,
-                                                   grid.sph_smap)) + (b,)
-    log(f"  row 5 timed at {time.perf_counter() - phase_t0:.1f} s")
+        out["times"][f"row 5 scene B {label} lanes"] = (ms, b, plain_ms)
 
     sh, dss, tmss, tri = par["tex"]
     so = sh["s_o"]
-    table = tex.sph_packed_t
-    s_real = tex.num_real_spheres
     for label, prior in (("no prior", None), ("prior", tri)):
         w = sph_occ_dense_work(so, sh["dirs"], sh["t_maxes"], tex, prior)
         out["visits"][f"row 4 {label}"] = w
@@ -4392,100 +4356,251 @@ def phase_rows_5_4(device, tex, grid) -> dict:
             f"design's {w['set_tests']} set tests over {w['lane_iters']} "
             f"lane-sphere steps ({w['design_ops']:.4e} operations, "
             f"{w['design_ops'] / max(w['needed_ops'], 1):.3f}x)")
-    w0, w1 = out["visits"]["row 4 no prior"], out["visits"]["row 4 prior"]
-    out_bytes = dss.shape[0] * n
-    b_alone = bound(w0["needed_ops"], nbytes(so, dss, tmss, table)
-                    + out_bytes)
-    b_prior = bound(w1["needed_ops"], nbytes(so, dss, tmss, table, tri)
-                    + out_bytes)
-    out["ab"]["row 4 textured shadow sets, the launch alone"] = ab_turns(
-        lambda: ab_baselines.launch_sph_occluded_chunked(so, dss, tmss, tex),
-        lambda: native.launch_sph_occluded(so, dss, tmss, table, s_real)) \
-        + (b_alone,)
-    out["ab"]["row 4 textured shadow sets, the launch alone, prior"] = \
-        ab_turns(lambda: ab_baselines.launch_sph_occluded_chunked(
-            so, dss, tmss, tex), lambda: native.launch_sph_occluded(
-            so, dss, tmss, table, s_real, tri)) + (b_prior,)
-    for label, prior, b in (("", None, b_alone), (", prior", tri, b_prior)):
-        out["ab"][f"row 4 textured shadow sets, device ms a launch{label}"] = \
-            device_turns(
-                lambda: ab_baselines.launch_sph_occluded_chunked(
-                    so, dss, tmss, tex),
-                lambda: native.launch_sph_occluded(so, dss, tmss, table,
-                                                   s_real, prior)) + (b,)
-    tri_list = list(tri)
-
-    def old_half():
-        """The old sphere half of occluded_multi: stack, launch, compare,
-        and one OR per light."""
-        sph = ab_baselines.occluded_spheres_chunked(so, sh["dirs"],
-                                                    sh["t_maxes"], tex)
-        return [h | s for h, s in zip(tri_list, sph)]
-
+    b = bound(out["visits"]["row 4 prior"]["needed_ops"],
+              nbytes(so, dss, tmss, tex.sph_packed_t, tri)
+              + dss.shape[0] * n)
+    run = lambda: cuda_spheres.occluded_spheres_cuda(so, dss, tmss, tex,
+                                                     prior=tri)
+    ms = [cuda_ms(run, 10), cuda_ms(run, 10)]
     plain_ms, _ = timed_once(lambda: cuda_spheres.occluded_spheres_plain(
         so, dss, tmss, tex, tri))
-    out["ab"]["row 4 through occluded_multi's sphere half"] = ab_turns(
-        old_half, lambda: cuda_spheres.occluded_spheres_cuda(
-            so, dss, tmss, tex, prior=tri)) + (b_prior, plain_ms)
-    args, kw = par["multi"]
+    out["times"]["row 4 through occluded_multi's sphere half"] = (ms, b,
+                                                                 plain_ms)
+    for label, (ms, b, plain_ms) in out["times"].items():
+        log(f"  time {label}: " + " ".join(f"{x:.4f}" for x in ms)
+            + f" ms; bound {b[0]:.4f} ms ({b[1]}), share "
+            f"{b[0] / min(ms):.3f}; plain {plain_ms:.4f} ms")
+        if b[0] > min(ms):
+            raise AssertionError(f"{label}: faster than its bound")
+    log(f"  phase 3m took {time.perf_counter() - phase_t0:.1f} s")
+    return out
 
-    def old_multi():
-        with replaced_sphere_designs():
-            return intersect.occluded_multi(*args, **kw)
 
-    out["ab"]["occluded_multi, textured shadow sets"] = ab_turns(
-        old_multi, lambda: intersect.occluded_multi(*args, **kw)) \
-        + (b_prior,)
-    for label, (old_ms, new_ms, b, *rest) in out["ab"].items():
+def phase_rows_7_8(device, showcase, big) -> dict:
+    """3n: rows 7 and 8 (the superleaf tree walk as warp walks, each lane
+    testing the leaves its own gate admits; the any-hit over all L sets in
+    one launch) against their plain versions on every field of every lane,
+    the lanes where the replaced CTA design (``ops/ab_baselines.py``)
+    differs logged, not held: on the plain showcase and scene A's whole
+    table, the middle wavefront's 2^18 camera lanes, first-bounce lanes,
+    random and incoherent (cosine from random surface points) lanes, a
+    ragged count with dead warps, and the first bounce's 3 x 2^18 shadow
+    lanes (a tenth killed), the incoherent lanes' shadow sets and a ragged
+    count with dead warps; tie rays on ``duplicate_grid_scene`` (pairs of
+    copies in one leaf, a stack of 300 over several), t_max 1.5 t and
+    0.5 t. Then the work (``tree_walk_visits``) on the showcase's and
+    scene A's camera, first-bounce and first shadow set, and both designs
+    in turns (old, new, new, old, twice; ``launch_device_ms``, the launch
+    alone) with the bound recounted from the new plain version's needed
+    tests, beside rows 9 and 10 (showcase) or 11 and 12 (scene A) on the
+    same rays. Returns the errors and times."""
+    import torch
+
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import ab_baselines, cuda_bvh, cuda_intersect
+    from path_tracer_torch.scene import build_scene
+    from path_tracer_torch.scene.procedural import (
+        duplicate_grid_scene,
+        tie_rays,
+        tie_winners,
+    )
+
+    log("phase 3n: rows 7 and 8 redesigned (warp walks, a lane testing the "
+        "leaves its own gate admits; the any-hit's L sets in one launch) "
+        "against their plain versions and the CTA design they replaced")
+    phase_t0 = time.perf_counter()
+    n, m = WAVE, WAVE // 4  # 2^16 random, incoherent and ragged lanes
+    rr = m - 37
+    out = {"row7_err": 0.0, "row8_err": 0.0, "times": {}}
+    rng = np.random.default_rng(20261107)
+
+    def closest_held(label, o, d, tp, sc, plain=None):
+        o, d, tp = o.contiguous(), d.contiguous(), tp.contiguous()
+        if plain is None:
+            plain = cuda_bvh.closest_hit_triangles_tree_plain(o, d, tp, sc)
+        new = cuda_bvh.closest_hit_triangles_tree(o, d, tp, sc)
+        out["row7_err"] = max(out["row7_err"],
+                              held(f"row 7, {label}", new, {"plain": plain}))
+        old = ab_baselines.closest_hit_triangles_tree_cta(o, d, tp, sc)
+        log(f"    the replaced CTA design: {int(lanes_off(old, new))} lanes "
+            "off (logged, not held)")
+        return new
+
+    def any_held(label, o, ds, tms, sc, plain=None):
+        o = o.contiguous()
+        if plain is None:
+            plain = cuda_bvh.occluded_triangles_tree_multi_plain(o, ds, tms,
+                                                                 sc)
+        before = cuda_bvh.tree_occluded_launches
+        new = cuda_bvh.occluded_triangles_tree_multi(o, ds, tms, sc)
+        launches = cuda_bvh.tree_occluded_launches - before
+        off = int((new != plain).sum())
+        old = ab_baselines.occluded_triangles_tree_cta_multi(o, ds, tms, sc)
+        dead = torch.stack(list(tms)) < 0.0
+        log(f"  row 8, {label}: {len(ds)} x {o.shape[0]} lanes in "
+            f"{launches} launch, occluded "
+            f"{float(new[~dead].float().mean()):.3f} of the live; lanes off "
+            f"the plain version {off}; the replaced CTA design "
+            f"{int((old != new).sum())} (logged, not held)")
+        if off or launches != 1 or not bool(new[dead].all()):
+            raise AssertionError(f"row 8, {label}: the tree any-hit "
+                                 "disagrees")
+        out["row8_err"] = max(out["row8_err"],
+                              float((new != plain).float().max()))
+        return new
+
+    for name, sc in (("plain showcase", showcase), ("scene A", big)):
+        t0 = time.perf_counter()
+        minus1 = torch.full((n,), -1.0, device=device)
+        co, cd = camera_rays(sc, n, device)
+        (bo, bd, btp), _ = first_bounce(sc, n, device)
+        sh = first_bounce_shadows(sc, n, device, rng)
+        so, sds, stms = sh["s_o"], sh["dirs"], sh["t_maxes"]
+        v = sc.tri_v0[: sc.num_real_triangles].cpu().numpy()
+        ro, rd = random_rays(rng, m, v.min(0), v.max(0), device)
+        io, id_ = bounce_rays(rng, sc, m, device)
+        iso, isds, istms = shadow_sets(rng, sc, m, device)
+        kill = as_cuda(rng.uniform(size=(len(istms), m)) < 0.1, device, bool)
+        istms = [torch.where(k, -1.0, tm) for k, tm in zip(kill, istms)]
+        cases = {"camera": (co, cd, minus1),
+                 "first-bounce": (bo, bd, btp)}
+        visits = {}
+        for label, (o, d, tp) in cases.items():
+            visits[label] = tree_walk_visits(o, d, tp, sc)
+            log_tree_visits(f"{name} {label} lanes", visits[label])
+            closest_held(f"{name} {label} lanes", o, d, tp, sc,
+                         cuda_bvh.tree_record(*visits[label]["result"], sc))
+        closest_held(f"{name} random lanes", ro, rd, minus1[:m], sc)
+        closest_held(f"{name} incoherent lanes", io, id_, minus1[:m], sc)
+        closest_held(f"{name} first-bounce lanes, ragged R, dead warps",
+                     bo[:rr], bd[:rr], dead_warps(btp[:rr]), sc)
+        sv = [tree_walk_visits(so, sd, tm, sc, any_hit=True,
+                               widths=(128, 32) if k == 0 else (32,))
+              for k, (sd, tm) in enumerate(zip(sds, stms))]
+        log_tree_visits(f"{name} first-bounce shadow set 0", sv[0])
+        any_held(f"{name} first-bounce shadow sets, a tenth killed", so, sds,
+                 stms, sc, torch.stack([x["result"] for x in sv]))
+        any_held(f"{name} incoherent shadow sets, a tenth killed", iso, isds,
+                 istms, sc)
+        any_held(f"{name} ragged R, dead warps", so[:rr],
+                 [x[:rr].contiguous() for x in sds],
+                 [dead_warps(x[:rr], -1.0) for x in stms], sc)
+        log(f"  {name} held in {time.perf_counter() - t0:.1f} s")
+
+        # Both designs in turns, the launch alone, beside the flat family.
+        tables = (sc.sl_nodes6, sc.sl_meta6, sc.sl_tris_t, sc.sl_n_nodes,
+                  sc.sl_block)
+        flat = (sc.sl_blkflat, sc.sl_blkid, sc.sl_bw_t, sc.sl_block)
+        rows = ("9", "10") if sc is showcase else ("11", "12")
+        sbs = (sc.sl_sbflat, sc.sl_sbid)
+        for label, (o, d, tp) in cases.items():
+            b = tree_bound(visits[label], sc, o, d, tp, n * (4 * 4 + 4))
+            old_ms, new_ms = device_turns(
+                lambda: ab_baselines.launch_tree_closest_hit_cta(o, d, tp,
+                                                                 sc),
+                lambda: native.launch_tree_closest_hit(o, d, tp, *tables))
+            layout_turns(f"row 7 {name} {label} lanes", lambda: (
+                native.launch_tree_closest_hit(o, d, tp, *tables)))
+            other = launch_device_ms(
+                (lambda: native.launch_flat_closest_hit(o, d, tp, *flat))
+                if sc is showcase else
+                (lambda: native.launch_flat2_closest_hit(o, d, tp, *sbs,
+                                                         *flat)))
+            plain_ms, _ = timed_once(
+                lambda: cuda_bvh.closest_hit_triangles_tree_plain(o, d, tp,
+                                                                  sc))
+            out["times"][f"row 7 {name} {label} lanes"] = (
+                old_ms, new_ms, b, plain_ms, (rows[0], other),
+                wrapper_ms(lambda: cuda_bvh.closest_hit_triangles_tree(
+                    o, d, tp, sc)))
+        dss, tmss = torch.stack(sds).contiguous(), torch.stack(stms)
+        b = tree_bound(sv, sc, so, dss, tmss, dss.shape[0] * n)
+        old_ms, new_ms = device_turns(
+            lambda: [ab_baselines.launch_tree_occluded_cta(so, sd, tm, sc)
+                     for sd, tm in zip(sds, stms)],
+            lambda: native.launch_tree_occluded(so, dss, tmss, *tables))
+        layout_turns(f"row 8 {name} first-bounce shadow sets", lambda: (
+            native.launch_tree_occluded(so, dss, tmss, *tables)))
+        other = launch_device_ms(
+            (lambda: native.launch_flat_occluded(so, dss, tmss, *flat))
+            if sc is showcase else
+            (lambda: native.launch_flat2_occluded(so, dss, tmss, *sbs,
+                                                  *flat)))
+        plain_ms, _ = timed_once(
+            lambda: cuda_bvh.occluded_triangles_tree_multi_plain(so, sds,
+                                                                 stms, sc))
+        out["times"][f"row 8 {name} first-bounce shadow sets"] = (
+            old_ms, new_ms, b, plain_ms, (rows[1], other),
+            wrapper_ms(lambda: cuda_bvh.occluded_triangles_tree_multi(
+                so, sds, stms, sc)))
+
+    # Tie rays: pairs of copies in one leaf, a stack of 300 over several;
+    # held also against brute-force MT (row 1's kernel, the same MT
+    # arithmetic) in hit/miss and t, the prim free among copies at one t.
+    ties = build_scene(duplicate_grid_scene(), ".", device, use_bvh=True,
+                       sl_block=128)
+    to, td = (as_cuda(x, device) for x in tie_rays(rr))
+    tie_tp = torch.full((rr,), -1.0, device=device)
+    tie_tp[::9] = float("inf")
+
+    def brute_held(label, tp, new):
+        brute = cuda_intersect.closest_hit_triangles_cuda(to, td, tp, ties)
+        old = ab_baselines.closest_hit_triangles_tree_cta(to, td, tp, ties)
+        off = lambda x: int(((x.valid != brute.valid)
+                             | (brute.valid & (x.t != brute.t))).sum())
+        log(f"    {label}, against brute-force MT (hit/miss or t): lanes "
+            f"off {off(new)}; the replaced CTA design {off(old)} (logged)")
+        if off(new):
+            raise AssertionError(f"row 7, {label}: a hit of the brute "
+                                 "force lost")
+        return brute
+
+    hits = closest_held("tie rays (centroids, the stack, edges, vertices), "
+                        "ragged R", to, td, tie_tp, ties)
+    brute = brute_held("tie rays", tie_tp, hits)
+    winner = torch.from_numpy(tie_winners(ties)[1]).to(device)
+    prim = hits.prim[hits.valid].long()
+    log(f"    tie rays: {prim.numel()} hits, the lowest slot's copy won on "
+        f"{int((winner[prim] == prim).sum())} (the tree's rule: the first "
+        "leaf visited)")
+    for label, tp in (("from the first hit", hits.t),
+                      ("from an ulp before the brute force's hit",
+                       torch.nextafter(brute.t, torch.tensor(-1.0,
+                                                             device=device)))):
+        tp = torch.where(hits.valid, tp, tie_tp)
+        brute_held(f"tie rays, {label}", tp,
+                   closest_held(f"tie rays, {label}", to, td, tp, ties))
+    dead = torch.isinf(tie_tp)
+    tms = [torch.where(dead, -1.0, torch.where(hits.valid, hits.t * k, 5.0))
+           for k in (1.5, 0.5, 1.0)]
+    occ = any_held("tie rays, t_max 1.5 t, 0.5 t and t, dead lanes", to,
+                   [td] * len(tms), tms, ties)
+    want = torch.stack([(brute.valid & (brute.t <= tm)) | (tm < 0)
+                        for tm in tms])
+    old = ab_baselines.occluded_triangles_tree_cta_multi(to, [td] * len(tms),
+                                                         tms, ties)
+    log(f"    tie rays' any-hits against brute-force MT: lanes off "
+        f"{int((occ != want).sum())}; the replaced CTA design "
+        f"{int((old != want).sum())} (logged)")
+    if (occ != want).any():
+        raise AssertionError("row 8, tie rays: a hit of the brute force "
+                             "lost")
+
+    for label, (old_ms, new_ms, b, plain_ms, (row, other), wrap) in \
+            out["times"].items():
         new, old = min(new_ms), min(old_ms)
-        extra = f"; plain {rest[0]:.4f} ms" if rest else ""
-        log(f"  A/B {label}: old design {old:.4f} ms (readings "
-            + " ".join(f"{x:.4f}" for x in old_ms) + f"), new {new:.4f} ms ("
-            + " ".join(f"{x:.4f}" for x in new_ms) + f"); bound {b[0]:.4f} "
-            f"ms ({b[1]}), -fmad=false floor {2 * b[0]:.4f} ms; share of the "
-            f"bound new {b[0] / new:.3f}, old {b[0] / old:.3f}; new / old "
-            f"{new / old:.3f}{extra}")
+        log(f"  A/B {label}, device ms a launch: old design {old:.4f} "
+            "(readings " + " ".join(f"{x:.4f}" for x in old_ms) + f"), new "
+            f"{new:.4f} (" + " ".join(f"{x:.4f}" for x in new_ms) + "); "
+            f"bound {b[0]:.4f} ms ({b[1]}), -fmad=false floor "
+            f"{2 * b[0]:.4f} ms; share of the bound new {b[0] / new:.3f}, "
+            f"old {b[0] / old:.3f}; new / old {new / old:.3f}; row {row} on "
+            f"the same rays {other:.4f}; plain (the tree walk) "
+            f"{plain_ms:.4f} ms; the new design through its wrapper "
+            f"(cuda_ms, as the kernels line) {wrap:.4f} ms")
         if b[0] > new:
             raise AssertionError(f"{label}: faster than its bound")
-
-    # Device ms per 1080p sample through each design, then one scene B
-    # sample end to end in turns.
-    log(f"  the A/B done at {time.perf_counter() - phase_t0:.1f} s")
-    spec5 = IntegratorSpec(bounces=5)
-    out["profile"] = {}
-    for name, sc, k, old_k in (
-            ("scene B", grid, "sph_walk_kernel", "sph_walk_cta_kernel"),
-            ("textured showcase", tex, "sph_occ_dense_kernel",
-             "sph_occ_chunked_kernel")):
-        prof = {"new": kernel_device_ms(sc, spec5)}
-        with replaced_sphere_designs():
-            prof["old"] = kernel_device_ms(sc, spec5)
-        out["profile"][name] = prof
-        log_profile(name, prof["new"])
-        got, was = prof["new"].get(k, (0.0, 0)), prof["old"].get(old_k,
-                                                                 (0.0, 0))
-        if got[1] == 0 or was[1] == 0 or k in prof["old"] \
-                or old_k in prof["new"]:
-            raise AssertionError(f"{name}: the designs were not routed ({k})")
-        log(f"  the same {name} sample through the old design: {old_k} "
-            f"{was[0]:.3f} ms in {was[1]} launches against {k} {got[0]:.3f} "
-            f"ms in {got[1]}; all kernels {prof['old']['all'][0]:.3f} ms in "
-            f"{prof['old']['all'][1]} launches (old) against "
-            f"{prof['new']['all'][0]:.3f} ms in {prof['new']['all'][1]} "
-            f"(new), {prof['old']['all'][1] - prof['new']['all'][1]} fewer")
-    secs = {"old": [], "new": []}
-    for design in ("old", "new", "new", "old"):
-        with (replaced_sphere_designs() if design == "old"
-              else contextlib.nullcontext()):
-            t0 = time.perf_counter()
-            render_pixel_sums(grid, 1920, 1080, 1, 1, spec5, tile_rays=WAVE)
-            torch.cuda.synchronize()
-            secs[design].append(time.perf_counter() - t0)
-    out["sample"] = secs
-    log("  one 1080p sample of scene B end to end, in turns (old, new, new, "
-        "old): old " + " ".join(f"{x:.4f}" for x in secs["old"]) + " s, new "
-        + " ".join(f"{x:.4f}" for x in secs["new"]) + " s")
-    log(f"  phase 3m took {time.perf_counter() - phase_t0:.1f} s")
+    log(f"  phase 3n took {time.perf_counter() - phase_t0:.1f} s")
     return out
 
 
@@ -4619,14 +4734,19 @@ def phase_dense_route(device, tex, tex_path: Path):
 
 def phase_tree_route(device, showcase, flat, tex_path: Path):
     """4h: the plain showcase at 1920x1080, 5 bounces, TREE_SPP spp under
-    PT_BVH_KERNEL=tree (rows 7 and 8, light by light) against the flat
-    route's render of the same frame (``flat``: (seconds, sums) of phase
-    4's showcase run): at least MIN_PIXELS_WITHIN of the values within
-    rtol 1e-3 / atol 1e-4 and mean energy within MAX_ENERGY_REL; then one
-    1-spp frame of the textured showcase's scene file through the CLI
-    under tree (the partition stands down: row 7 serves the whole-scene
-    walks). Returns the tree run's launch counts."""
+    PT_BVH_KERNEL=tree (rows 7 and 8; the any-hit one launch a bounce for
+    the three lights, so as many as row 7's) against the flat route's
+    render of the same frame (``flat``: (seconds, sums) of phase 4's
+    showcase run): at least MIN_PIXELS_WITHIN of the values within rtol
+    1e-3 / atol 1e-4 and mean energy within MAX_ENERGY_REL; then the two
+    routes in turns (flat, tree, tree, flat) at TREE_TURN_SPP spp, seconds
+    per sample; one 1080p sample under tree through ``torch.profiler``
+    (rows 7 and 8's device ms a sample); and one 1-spp frame of the
+    textured showcase's scene file through the CLI under tree (the
+    partition stands down: row 7 serves the whole-scene walks). Returns
+    the tree run's launch counts and the profile."""
     from path_tracer_torch.config import Profile, Resolution
+    from path_tracer_torch.models.integrator import IntegratorSpec
     from path_tracer_torch.models.renderer import finalize
     from path_tracer_torch.utils.image_io import save_png
 
@@ -4653,9 +4773,30 @@ def phase_tree_route(device, showcase, flat, tex_path: Path):
             counts["flat2_closest_hit"] or counts["flat2_occluded"]:
         raise AssertionError(f"the tree route did not take rows 7 and 8 "
                              f"alone: {counts}")
+    if counts["tree_occluded"] != counts["tree_closest_hit"]:
+        raise AssertionError("the tree any-hit took more than one launch a "
+                             f"bounce: {counts}")
     if not (np.isfinite(got).all() and within >= MIN_PIXELS_WITHIN
             and energy <= MAX_ENERGY_REL):
         raise AssertionError("tree and flat renders disagree")
+    turns = {"flat": [], "tree": []}
+    for route in ("flat", "tree", "tree", "flat"):
+        t, _, _ = timed_render(showcase, w, h, TREE_TURN_SPP, bounces,
+                               tree_env if route == "tree" else None)
+        turns[route].append(t / TREE_TURN_SPP)
+    log(f"  in turns (flat, tree, tree, flat), {TREE_TURN_SPP} spp each: "
+        f"seconds per sample, flat "
+        + " ".join(f"{x:.4f}" for x in turns["flat"]) + ", tree "
+        + " ".join(f"{x:.4f}" for x in turns["tree"]))
+    restore = with_env(tree_env)
+    try:
+        prof = kernel_device_ms(showcase, IntegratorSpec(bounces=bounces))
+    finally:
+        restore()
+    log_profile("plain showcase under PT_BVH_KERNEL=tree", prof)
+    for k in ("tree_closest_kernel", "tree_occluded_kernel"):
+        if prof.get(k, (0.0, 0))[1] == 0:
+            raise AssertionError(f"the profiled tree sample ran no {k}")
     png = OUT / "showcase_tex_tree_cli_1spp.png"
     cli_secs, cli_counts = cli_frame(tex_path, png, tree_env)
     log(f"  textured showcase under tree via the CLI (1 spp, scene load "
@@ -4665,7 +4806,7 @@ def phase_tree_route(device, showcase, flat, tex_path: Path):
             or cli_counts["flat_closest_hit"]:
         raise AssertionError(f"CLI frame did not take the tree walk: "
                              f"{cli_counts}")
-    return counts
+    return counts, prof
 
 
 def kernel_name(mangled: str) -> str:
@@ -4717,8 +4858,8 @@ def main() -> int:
 
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
     if sys.argv[1:] and (len(sys.argv) != 3
-                         or only not in ("3i", "3j", "3k", "3l", "3m")):
-        print("usage: chip_smoke.py [--only 3i|3j|3k|3l|3m]",
+                         or only not in ("3i", "3j", "3k", "3l", "3m", "3n")):
+        print("usage: chip_smoke.py [--only 3i|3j|3k|3l|3m|3n]",
               file=sys.stderr)
         return 2
     card = smi()
@@ -4788,13 +4929,15 @@ def main() -> int:
         f"{walks}, tr_kernel_ok {big.tr_kernel_ok}")
     if walks != ["flat2", "flat"] or not big.tr_kernel_ok:
         raise AssertionError("scene A does not route as the JAX package's")
-    if only in ("3j", "3k", "3l"):  # phase 3j, 3k or 3l alone
+    if only in ("3j", "3k", "3l", "3n"):  # phase 3j, 3k, 3l or 3n alone
         if only == "3j":
             phase_rows_10_11(device, showcase, tex, big)
         elif only == "3k":
             phase_rows_13_14(device, tex, big)
-        else:
+        elif only == "3l":
             phase_rows_12_2(device, big)
+        else:
+            phase_rows_7_8(device, showcase, big)
         log(f"chip_smoke: phase {only} passed in "
             f"{time.perf_counter() - start:.1f} s")
         print(card)
@@ -4816,13 +4959,13 @@ def main() -> int:
         device, grid, "sphere any-hit walk")
     fused_err, fused_time = phase_fused_shadow_kernel(device, tex)
     khit_err, khit_times = phase_khit(device, tex)
-    tree_err, tree_occ_err, tree_times = phase_tree_kernels(device, showcase,
-                                                            big)
+    tree_err, tree_occ_err = phase_tree_kernels(device, showcase, big)
     phase_redesigned(device, showcase)
     phase_rows_10_11(device, showcase, tex, big)
     phase_rows_13_14(device, tex, big)
     rows_12_2 = phase_rows_12_2(device, big, design_counts=False)
     rows_5_4 = phase_rows_5_4(device, tex, grid)
+    rows_7_8 = phase_rows_7_8(device, showcase, big)
     launches = phase_main_path(device)
     flat_launches, flat_render = phase_showcase(device, showcase)
     walk_launches = phase_showcase_tex(device, tex)
@@ -4838,8 +4981,8 @@ def main() -> int:
                                         textured=True)
     try:
         dense_launches = phase_dense_route(device, tex, tex_path)
-        tree_launches = phase_tree_route(device, showcase, flat_render,
-                                         tex_path)
+        tree_launches, _ = phase_tree_route(device, showcase, flat_render,
+                                            tex_path)
     finally:
         shutil.rmtree(routes_dir, ignore_errors=True)
     phase_bvh_vs_brute(device, showcase)
@@ -4866,11 +5009,21 @@ def main() -> int:
     # scene B's 2^18 camera lanes of the middle wavefront; row 4 through
     # occluded_multi's sphere half (the flat any-hit's result as prior) on
     # the textured showcase's 3 x 2^18 first-bounce shadow lanes.
-    _, new_ms, b, plain_ms = rows_5_4["ab"]["row 5 scene B camera lanes"]
-    row5_time = (min(new_ms), plain_ms) + b
-    _, new_ms, b, plain_ms = rows_5_4["ab"][
+    ms, b, plain_ms = rows_5_4["times"]["row 5 scene B camera lanes"]
+    row5_time = (min(ms), plain_ms) + b
+    ms, b, plain_ms = rows_5_4["times"][
         "row 4 through occluded_multi's sphere half"]
-    row4_time = (min(new_ms), plain_ms) + b
+    row4_time = (min(ms), plain_ms) + b
+    # Rows 7 and 8 at the tree route's shapes on the plain showcase,
+    # through their wrappers (cuda_ms, as the other rows): the 2^18 camera
+    # lanes of the middle wavefront, and the first bounce's 3 x 2^18 shadow
+    # lanes in one launch (the device ms a launch alone are 3n's turns).
+    tree_times = {}
+    for key, label in (("camera", "row 7 plain showcase camera lanes"),
+                       ("occluded", "row 8 plain showcase first-bounce "
+                                    "shadow sets")):
+        _, _, b, plain_ms, _, wrap = rows_7_8["times"][label]
+        tree_times[key] = (wrap, plain_ms) + b
     kernels = [
         entry("mt_closest_hit", "mt_closest_hit.cu", "pallas_intersect.py:39",
               launches["mt_closest_hit"], max(s[1] for s in tri_stats),
@@ -4923,10 +5076,11 @@ def main() -> int:
               dense_launches["k_nearest_tr_hits"], khit_err,
               khit_times["camera"]),
         entry("tree_closest_hit", "tree_walk.cu", "pallas_bvh.py:82",
-              tree_launches["tree_closest_hit"], tree_err,
-              tree_times["camera"]),
+              tree_launches["tree_closest_hit"],
+              max(tree_err, rows_7_8["row7_err"]), tree_times["camera"]),
         entry("tree_occluded", "tree_walk.cu", "pallas_bvh.py:363",
-              tree_launches["tree_occluded"], tree_occ_err,
+              tree_launches["tree_occluded"],
+              max(tree_occ_err, rows_7_8["row8_err"]),
               tree_times["occluded"]),
     ]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} "

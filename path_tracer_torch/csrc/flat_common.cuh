@@ -4,10 +4,9 @@
 // sphere root rules are written.
 //
 // Two walks share them. The CTA walk (cta_min_key_max through
-// occluded_block, and flat_occ_set) serves fused_shadow.cu, the sphere
-// any-hit walk of sph_occ.cu and the replaced sphere block walk in
-// ab_baselines.cu: a CTA of 128 rays shares one walk and stages each
-// visited block in shared memory behind CTA barriers. The warp walk
+// occluded_block, and flat_occ_set) serves fused_shadow.cu and the sphere
+// any-hit walk of sph_occ.cu: a CTA of 128 rays shares one walk and stages
+// each visited block in shared memory behind CTA barriers. The warp walk
 // (kFullMask to the end) serves flat_closest_hit.cu, flat_occluded.cu,
 // flat2_closest_hit.cu, flat2_occluded.cu and sph_walk.cu: each warp is
 // its own packet, with no CTA barrier; its gate admits block columns with
@@ -16,7 +15,8 @@
 // needs it). safe_inv, Box, load_box, slab, the gates and sphere_nearest
 // serve both; the warp walk's bw_slot_closest and bw_slot_any repeat
 // bw_plane's and bw_inside's arithmetic on a slot held in registers.
-// TriRecord and write_sphere_record are the sphere closest hits' record
+// pad_box and pad_slab widen the gates of the resident transparent walk
+// (trwalk_common.cuh) and the tree walk (tree_walk.cu). TriRecord and write_sphere_record are the sphere closest hits' record
 // and merge (sphere_closest_hit.cu, sph_walk.cu).
 //
 // Every expression is written in the order of the plain PyTorch versions
@@ -81,6 +81,39 @@ __device__ __forceinline__ void slab(const Box& b, float ox, float oy,
                min_nan(t0z, t1z));
   tf = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)),
                max_nan(t0z, t1z));
+}
+
+// The widened boxes and slab intervals of the walks that gate a lane by its
+// own slab test (trwalk_common.cuh's resident walk, tree_walk.cu). A box
+// holds its triangles' vertices exactly, but a hit's rounded t and
+// barycentrics can place a grazing hit (a ray through a vertex or an edge
+// lying on the box) outside the rounded slab interval: by about 2^-24 of
+// the coordinates' magnitude over the ray's direction component, far more
+// than an ulp of t where that component is small. So each box is widened
+// on every side by ext * 2^-12 + mag * 2^-16 (ext its largest side, mag its
+// largest coordinate magnitude), and each lane's interval to
+// tn - |tn| * 2^-16, tf + |tf| * 2^-16, which grows with the origin's
+// distance from the box as a hit's rounding does. A widened box only
+// admits more, and a child's widened box stays inside its parent's (every
+// step is monotone). ops/slab.py pad_boxes and pad_slab are the same
+// expressions.
+constexpr float kPadExt = 0x1p-12f;
+constexpr float kPadMag = 0x1p-16f;
+constexpr float kPadT = 0x1p-16f;
+
+__device__ __forceinline__ Box pad_box(const Box& b) {
+  const float ext = fmaxf(fmaxf(b.x1 - b.x0, b.y1 - b.y0), b.z1 - b.z0);
+  const float mag = fmaxf(fmaxf(fmaxf(fabsf(b.x0), fabsf(b.x1)),
+                                fmaxf(fabsf(b.y0), fabsf(b.y1))),
+                          fmaxf(fabsf(b.z0), fabsf(b.z1)));
+  const float pad = ext * kPadExt + mag * kPadMag;
+  return Box{b.x0 - pad, b.y0 - pad, b.z0 - pad,
+             b.x1 + pad, b.y1 + pad, b.z1 + pad};
+}
+
+__device__ __forceinline__ void pad_slab(float& tn, float& tf) {
+  tn = tn - fabsf(tn) * kPadT;
+  tf = tf + fabsf(tf) * kPadT;
 }
 
 // BW plane test of one triangle (rows n.xyz, c of the BW table at s[0..3]

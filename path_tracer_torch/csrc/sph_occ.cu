@@ -41,8 +41,8 @@
 // stops when none is open. The [4, S] table is read through the read-only
 // cache, every lane of a warp on the same column (a broadcast): no shared
 // memory and no barrier. The design it replaced (one thread per (ray, set),
-// the table staged 512 columns at a time behind CTA barriers) is
-// ptt_sph_occluded_chunked in ab_baselines.cu. The walk is the CTA walk of
+// the table staged 512 columns at a time behind CTA barriers) was timed
+// against it in turns (PERF.md §6). The walk is the CTA walk of
 // flat_common.cuh with the any-hit gate (blockIdx.y picks the set): blocks
 // keyed by their nearest slab entry over the CTA's live lanes, visited nearest
 // first while some lane is unoccluded and slab-passes one, its [4, 128]

@@ -71,7 +71,7 @@
 //      triangle record (no ATen op after the launch).
 // The design it replaced, a CTA of 128 rays sharing one cursor behind CTA
 // barriers, each visit staging the block in shared memory for the whole
-// CTA, is ptt_sph_walk_cta in ab_baselines.cu.
+// CTA, was timed against it in turns (PERF.md §6).
 //
 // Inputs:  o, d [R,3] f32; t_prev [R] f32; blk [8,sbpad] f32; blkid
 //          [sbpad] i32; sph [4, n_slots] f32 (block b = columns

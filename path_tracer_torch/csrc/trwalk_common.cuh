@@ -266,23 +266,13 @@ constexpr int kGrpRec = 8;         // floats per group record
 constexpr int kMaxColumns = 4096;  // 32 groups: one bit each of a lane's mask
 constexpr int kMaxList = 8;        // the sorted list's length at most
 
-// Each group's box is widened on every side by ext * 2^-12 + mag * 2^-16
-// (ext its largest side, mag its largest coordinate magnitude) as it is
-// staged: the box holds its triangles' vertices exactly, but a candidate's
-// rounded t and barycentrics can place a grazing hit (a ray through a card's
-// vertex or edge that lies on the box) a few ulps outside the slab interval
-// the rounded slab test computes. The widening only admits more groups;
-// every admitted group is tested column by column, so it changes no result.
-// ops/trwalk.py pad_groups is the same expression. The box pad does not
-// grow with the ray origin's distance from the box, and the rounding of a
-// candidate's t does (about 2^-24 of |o| over the ray's cosine to the card):
-// so each lane's slab interval is widened too, tn - |tn| * 2^-16 and
-// tf + |tf| * 2^-16, which keeps a far camera's grazing candidates
-// (ops/trwalk.py resident_gate; tests/test_torch_walk_gate.py holds both
-// widenings on rays from 10^2 to 10^3 group extents away).
-constexpr float kPadExt = 0x1p-12f;
-constexpr float kPadMag = 0x1p-16f;
-constexpr float kPadT = 0x1p-16f;
+// Each group's box is widened as it is staged, and each lane's slab
+// interval with it (flat_common.cuh's pad_box and pad_slab): a candidate's
+// rounded t and barycentrics can place a grazing hit outside the rounded
+// slab interval of its group's exact box. The widening only admits more
+// groups; every admitted group is tested column by column, so it changes
+// no result (ops/trwalk.py resident_gate; tests/test_torch_walk_gate.py
+// holds both widenings on rays from 10^2 to 10^3 group extents away).
 
 // Bytes of shared memory the resident table of T columns takes.
 __host__ __device__ constexpr size_t resident_smem(int T) {
@@ -314,17 +304,10 @@ __device__ __forceinline__ Resident stage_resident(const TrTable<Texel>& tb,
     s_bw[c * kRec + r] = tb.bw[idx];
   }
   for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    const float x0 = grp[g], y0 = grp[gp + g], z0 = grp[2 * gp + g];
-    const float x1 = grp[3 * gp + g], y1 = grp[4 * gp + g],
-                z1 = grp[5 * gp + g];
-    const float ext = fmaxf(fmaxf(x1 - x0, y1 - y0), z1 - z0);
-    const float mag = fmaxf(fmaxf(fmaxf(fabsf(x0), fabsf(x1)),
-                                  fmaxf(fabsf(y0), fabsf(y1))),
-                            fmaxf(fabsf(z0), fabsf(z1)));
-    const float pad = ext * kPadExt + mag * kPadMag;
+    const Box w = pad_box(load_box(grp, gp, g));
     float* b = s_grp + g * kGrpRec;
-    b[0] = x0 - pad; b[1] = y0 - pad; b[2] = z0 - pad;
-    b[3] = x1 + pad; b[4] = y1 + pad; b[5] = z1 + pad;
+    b[0] = w.x0; b[1] = w.y0; b[2] = w.z0;
+    b[3] = w.x1; b[4] = w.y1; b[5] = w.z1;
     b[6] = grp[6 * gp + g];
     b[7] = 0.f;
   }
@@ -350,8 +333,7 @@ __device__ __forceinline__ unsigned group_mask(const Resident& rs,
     float tn, tf;
     slab(Box{a.x, a.y, a.z, a.w, b.x, b.y}, r.ox, r.oy, r.oz, ix, iy, iz, tn,
          tf);
-    tn = tn - fabsf(tn) * kPadT;
-    tf = tf + fabsf(tf) * kPadT;
+    pad_slab(tn, tf);
     if (tf >= max_nan(tn, 0.f) && tn <= t_hi && t_hi >= 0.f && b.z > 0.f)
       m |= 1u << g;
   }

@@ -219,14 +219,6 @@ def kernels() -> Kernels:
         lib.ptt_sph_walk.restype = ci
         lib.ptt_sph_walk.argtypes = ([vp] * 13 + [ci] * 4 + [ctypes.c_float]
                                      + [vp] * 3 + [ci, vp])
-        # The replaced designs (ab_baselines.cu): (o, d, t_prev, blk, blkid,
-        # sph, R, sbpad, n_slots, fout, iout, device, stream) and (o, d,
-        # t_max, sph, R, L, S, ld, out, device, stream)
-        lib.ptt_sph_walk_cta.restype = ci
-        lib.ptt_sph_walk_cta.argtypes = [vp] * 6 + [ci] * 3 + [vp, vp, ci, vp]
-        lib.ptt_sph_occluded_chunked.restype = ci
-        lib.ptt_sph_occluded_chunked.argtypes = [vp] * 4 + [ci] * 4 + [vp, ci,
-                                                                       vp]
         # (o, d, t_op, rnd, bw, rows, tex, lut, pages, grp, R, T, gp, wp,
         #  steps_cap, textured, live, fout, iout, device, stream)
         lib.ptt_alpha_walk.restype = ci
@@ -253,14 +245,24 @@ def kernels() -> Kernels:
         lib.ptt_khit.restype = ci
         lib.ptt_khit.argtypes = [vp] * 5 + [ci] * 3 + [vp, vp, ci, vp]
         # (o, d, t_prev, nodes6, meta6, tris, R, npad, n_nodes, block,
-        #  n_slots, fout, iout, device, stream)
+        #  n_slots, lane_wise, cut_widen, fout, iout, device, stream)
         lib.ptt_tree_closest_hit.restype = ci
-        lib.ptt_tree_closest_hit.argtypes = [vp] * 6 + [ci] * 5 + [vp, vp,
-                                                                  ci, vp]
-        # (o, d, t_max, nodes6, meta6, tris, R, npad, n_nodes, block,
-        #  n_slots, out, device, stream)
+        lib.ptt_tree_closest_hit.argtypes = ([vp] * 6 + [ci] * 6
+                                             + [ctypes.c_float, vp, vp, ci,
+                                                vp])
+        # (o, d, t_max, nodes6, meta6, tris, R, L, npad, n_nodes, block,
+        #  n_slots, lane_wise, out, device, stream)
         lib.ptt_tree_occluded.restype = ci
-        lib.ptt_tree_occluded.argtypes = [vp] * 6 + [ci] * 5 + [vp, ci, vp]
+        lib.ptt_tree_occluded.argtypes = [vp] * 6 + [ci] * 7 + [vp, ci, vp]
+        # The replaced designs (ab_baselines.cu): (o, d, t_prev, nodes6,
+        # meta6, tris, R, npad, n_nodes, block, n_slots, fout, iout, device,
+        # stream) and (o, d, t_max, ..., n_slots, out, device, stream)
+        lib.ptt_tree_closest_hit_cta.restype = ci
+        lib.ptt_tree_closest_hit_cta.argtypes = [vp] * 6 + [ci] * 5 + [
+            vp, vp, ci, vp]
+        lib.ptt_tree_occluded_cta.restype = ci
+        lib.ptt_tree_occluded_cta.argtypes = [vp] * 6 + [ci] * 5 + [vp, ci,
+                                                                   vp]
         _kernels = Kernels(lib, seconds, log)
     return _kernels
 
@@ -848,6 +850,15 @@ def _check_tree_tables(fn: str, nodes6, meta6, tris, n_nodes: int,
     return npad, n_slots
 
 
+# Rows 7 and 8's walk (csrc/tree_walk.cu): a leaf is served lane per ray
+# from TREE_WALK_LANE_WISE rays of need (fewer: the leaf spread over the
+# warp), and a lane's closest-hit gate admits a node whose slab entry is at
+# most TREE_WALK_CUT_WIDEN times its best t. The plain walks
+# (ops/cuda_bvh.py) and chip_smoke.py's visit count read both from here.
+TREE_WALK_LANE_WISE = 26
+TREE_WALK_CUT_WIDEN = 1.0 + 2.0 ** -8
+
+
 def launch_tree_closest_hit(o, d, t_prev, nodes6, meta6, tris, n_nodes: int,
                             block: int):
     """Check the operands of the tree closest-hit kernel, allocate its
@@ -856,8 +867,10 @@ def launch_tree_closest_hit(o, d, t_prev, nodes6, meta6, tris, n_nodes: int,
     o, d: [R,3] f32; t_prev: [R] f32 (+inf marks a dead lane); nodes6
     [6,8,Npad] f32, meta6 [6,2,Npad] i32 (the six directional layouts; the
     walk ends at ``n_nodes``); tris [9, n_blocks*block] f32 MT rows of the
-    packed slots. Returns (fout [4,R] f32 (t, u, v, backface), iout [R] i32
-    packed slot, -1 on a miss)."""
+    packed slots. A leaf is served lane per ray from TREE_WALK_LANE_WISE
+    rays of need, read at each call (the in-leaf layouts give one result).
+    Returns (fout [4,R] f32 (t, u, v, backface), iout [R] i32 packed slot,
+    -1 on a miss)."""
     fn = "ptt_tree_closest_hit"
     device = o.device
     r = _check_rays(fn, o, d, t_prev, device)
@@ -872,39 +885,34 @@ def launch_tree_closest_hit(o, d, t_prev, nodes6, meta6, tris, n_nodes: int,
     err = lib.ptt_tree_closest_hit(
         o.data_ptr(), d.data_ptr(), t_prev.data_ptr(), nodes6.data_ptr(),
         meta6.data_ptr(), tris.data_ptr(), r, npad, n_nodes, block, n_slots,
-        fout.data_ptr(), iout.data_ptr(), device.index, stream)
+        TREE_WALK_LANE_WISE, TREE_WALK_CUT_WIDEN, fout.data_ptr(),
+        iout.data_ptr(), device.index, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return fout, iout
 
 
-def launch_tree_occluded(o, d, t_max, nodes6, meta6, tris, n_nodes: int,
+def launch_tree_occluded(o, ds, t_maxes, nodes6, meta6, tris, n_nodes: int,
                          block: int):
     """Check the operands of the tree any-hit kernel, allocate its output
     and launch it on the current stream (no synchronisation).
 
-    o, d: [R,3] f32; t_max: [R] f32 (< 0 marks a dead lane); tables as for
-    ``launch_tree_closest_hit``. Returns out [R] f32 (1 = occluded or
+    o: [R,3] f32; ds: [L,R,3] f32; t_maxes: [L,R] f32 (< 0 marks a dead
+    lane); tables and the in-leaf layouts as for
+    ``launch_tree_closest_hit``. Returns out [L,R] bool (occluded or
     dead)."""
     fn = "ptt_tree_occluded"
     device = o.device
-    if device.type != "cuda":
-        raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
-    r = o.shape[0]
-    _check("o", o, (r, 3), torch.float32, device)
-    _check("d", d, (r, 3), torch.float32, device)
-    _check("t_max", t_max, (r,), torch.float32, device)
+    r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
     npad, n_slots = _check_tree_tables(fn, nodes6, meta6, tris, n_nodes,
                                        block, device)
-    if 3 * r >= 2**31:
-        raise ValueError(f"{fn}: {r} rays exceed int32 indexing")
     lib = kernels().lib
-    out = torch.empty((r,), dtype=torch.float32, device=device)
+    out = torch.empty((n_sets, r), dtype=torch.bool, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.ptt_tree_occluded(
-        o.data_ptr(), d.data_ptr(), t_max.data_ptr(), nodes6.data_ptr(),
-        meta6.data_ptr(), tris.data_ptr(), r, npad, n_nodes, block, n_slots,
-        out.data_ptr(), device.index, stream)
+        o.data_ptr(), ds.data_ptr(), t_maxes.data_ptr(), nodes6.data_ptr(),
+        meta6.data_ptr(), tris.data_ptr(), r, n_sets, npad, n_nodes, block,
+        n_slots, TREE_WALK_LANE_WISE, out.data_ptr(), device.index, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return out

@@ -14,8 +14,9 @@ Counterpart of the flat and flat2 halves of
   (entries ``occluded_triangles_flat2[_multi]``);
 - ``csrc/tree_walk.cu`` replaces ``pallas_bvh._kernel`` and
   ``pallas_bvh._occ_kernel``, the superleaf tree walk (entries
-  ``closest_hit_triangles_tree`` and ``occluded_triangles_tree``, taken
-  with ``PT_BVH_KERNEL=tree`` or for a BVH scene without blocks).
+  ``closest_hit_triangles_tree`` and
+  ``occluded_triangles_tree[_multi]``, taken with ``PT_BVH_KERNEL=tree``
+  or for a BVH scene without blocks).
 
 The flat walks serve scenes (or opacity-partition views) with ``use_bvh``
 and at most ``FLAT_MAX_BLOCKS`` superleaf blocks, the flat2 walks larger
@@ -52,17 +53,30 @@ copies. A block box lies inside its superblock box and slab rounding is
 monotone, so a block that passes its gate always lies in a superblock that
 passes.
 
-The tree walk keeps the Pallas packet's semantics lane for lane (see
-``csrc/tree_walk.cu``): 128-ray packets (the last padded with o = 0,
-d = (1, 1, 1), t_prev 0 or t_max -1), one of the six directional layouts
-per packet from its pairwise-summed directions, one node cursor per
-packet that enters what any lane's slab test admits (closest hit:
-tf >= max(tn, 0), tn <= the lane's best t, tf > t_prev; any-hit: not yet
-occluded, tf >= max(tn, 0), tn <= t_max), every lane testing each visited
-block by plain Moller-Trumbore on ``sl_tris_t`` (within a block the
-lowest slot wins equal t, a later block only a smaller t; any-hit
-t <= t_max, dead lanes occluded). Its plain versions walk the packets
-side by side, one node per packet per step.
+The tree walk keeps the Pallas packet's inputs, outputs, layouts, tie
+rule and dead lanes, not its shared visits (see ``csrc/tree_walk.cu``):
+each group of 128 consecutive rays (the last padded with o = 0,
+d = (1, 1, 1) and a dead gate value) picks one of the six directional
+layouts from its pairwise-summed directions; the rays then walk the
+forest in that layout's order in packets sharing a cursor (the kernel's
+warps of 32; the plain versions' packets of 128 or 32), the cursor
+entering an internal node some lane's gate admits, and a lane tests a
+leaf only when its OWN gate admits it: closest hit tf >= max(tn, 0),
+tf > t_prev and tn <= its best t times ``native.TREE_WALK_CUT_WIDEN``
+(1 + 2^-8: rounding can put a hit before its box's entry); any-hit not
+yet occluded, tf >= max(tn, 0) and tn <= t_max. The slab test runs on
+the node box widened by ``slab.pad_boxes`` and its interval by
+``slab.pad_slab``: on the exact box, a ray through a vertex or an edge
+lying on a leaf's box can fail the leaf whose triangle its rounded MT
+test hits, and no other lane's visit stands in for it (the Pallas packet
+tested every leaf some lane admitted). A child's widened box lies inside
+its parent's and slab rounding is monotone, so a lane whose gate admits a
+node admitted its ancestors when the cursor met them: its result is that
+of its own walk, whatever the packet. A visit is plain
+Moller-Trumbore on ``sl_tris_t``: within a leaf the lowest slot wins equal
+t, a later leaf only a strictly smaller t; any-hit t <= t_max, dead lanes
+occluded. The plain versions step the packets side by side, one node per
+packet per step.
 """
 from __future__ import annotations
 
@@ -86,6 +100,8 @@ from path_tracer_torch.ops.slab import (
     live_columns,
     merge_nearest,
     occluded_gate,
+    pad_boxes,
+    pad_slab,
     safe_inv,
     slab,
 )
@@ -98,7 +114,7 @@ flat2_occluded_launches = 0
 tree_closest_hit_launches = 0
 tree_occluded_launches = 0
 
-PACKET = 128  # rays per packet of the tree walk
+GROUP = 128  # rays of a tree walk's layout group (the Pallas packet)
 _TREE_VISIT_ELEMS = 1 << 22  # (lane, slot) pairs per step of a plain visit
 
 
@@ -375,21 +391,24 @@ def occluded_triangles_flat2_multi(o, ds, t_maxes, scene) -> torch.Tensor:
     return out
 
 
-def _packets(o, d, g, fill: float):
-    """The rays as [P, 128] packets, the last padded as the Pallas
-    wrappers pad (o = 0, d = 1, ``g`` = ``fill``): (o, d, inv, g) with o,
-    d, inv [P, 128, 3] and g [P, 128]."""
+def _packets(o, d, g, fill: float, width: int):
+    """The rays as [P, width] packets (width 32 or 128) in layout groups of
+    128, the last group padded with o = 0, d = 1 and ``g`` = ``fill`` (a
+    dead lane): (o, d, inv [P, width, 3], g [P, width], layout [P], the
+    group's)."""
     r = o.shape[0]
-    pad = -r % PACKET
-    o = torch.nn.functional.pad(o, (0, 0, 0, pad)).view(-1, PACKET, 3)
-    d = torch.nn.functional.pad(d, (0, 0, 0, pad),
-                                value=1.0).view(-1, PACKET, 3)
-    g = torch.nn.functional.pad(g, (0, pad), value=fill).view(-1, PACKET)
-    return o, d, safe_inv(d), g
+    pad = -r % GROUP
+    o = torch.nn.functional.pad(o, (0, 0, 0, pad))
+    d = torch.nn.functional.pad(d, (0, 0, 0, pad), value=1.0)
+    g = torch.nn.functional.pad(g, (0, pad), value=fill)
+    layout = packet_layouts(d.view(-1, GROUP, 3))
+    layout = layout.repeat_interleave(GROUP // width)
+    return (o.view(-1, width, 3), d.view(-1, width, 3),
+            safe_inv(d).view(-1, width, 3), g.view(-1, width), layout)
 
 
 def packet_layouts(d):
-    """[P] layout of each [128, 3] packet of ``d`` [P, 128, 3]: 2 * axis +
+    """[G] layout of each [128, 3] group of ``d`` [G, 128, 3]: 2 * axis +
     (sum < 0) for the axis of the largest |sum| (x, then y, on ties), the
     sums taken pairwise as the kernel reduces them."""
     s = d
@@ -405,9 +424,10 @@ def packet_layouts(d):
 
 
 def _node_slab(scene, layout, cursor, o, inv):
-    """(tn, tf [m, 128], escape [m], leaf [m]) of each packet's current
-    node in its layout."""
-    box = scene.sl_nodes6[layout, :6, cursor]  # [m, 6]
+    """(tn, tf [m, width], escape [m], leaf [m]) of each packet's current
+    node in its layout, the box and the interval widened
+    (``slab.pad_boxes``, ``slab.pad_slab``)."""
+    box = pad_boxes(scene.sl_nodes6[layout, :6, cursor].T).T  # [m, 6]
     meta = scene.sl_meta6[layout, :, cursor]  # [m, 2]
     t0 = [(box[:, k, None] - o[..., k]) * inv[..., k] for k in range(3)]
     t1 = [(box[:, 3 + k, None] - o[..., k]) * inv[..., k] for k in range(3)]
@@ -415,7 +435,7 @@ def _node_slab(scene, layout, cursor, o, inv):
     hi = [torch.maximum(a, b) for a, b in zip(t0, t1)]
     tn = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
     tf = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
-    return tn, tf, meta[:, 0].long(), meta[:, 1].long()
+    return (*pad_slab(tn, tf), meta[:, 0].long(), meta[:, 1].long())
 
 
 def _tree_steps(scene, n_packets: int, device, walking=None):
@@ -434,15 +454,18 @@ def _tree_steps(scene, n_packets: int, device, walking=None):
         yield idx, cursor
 
 
-def _visit_chunks(scene, packets, leaf):
-    """(packets, first slot [v], [9, v, block] MT rows) of the visited
-    leaves, a few packets at a time."""
+def _lane_visits(scene, idx, lane, leaf):
+    """The (packet, lane) pairs whose own gate admits the leaf their
+    packet's cursor stands on, a few at a time: (packets [m], lanes [m],
+    first slot [m], [9, m, block] MT rows)."""
     block = scene.sl_block
-    step = max(1, _TREE_VISIT_ELEMS // (PACKET * block))
+    p, ln = torch.nonzero(lane & (leaf > 0)[:, None], as_tuple=True)
     slots = torch.arange(block, device=leaf.device)
-    for a in range(0, packets.numel(), step):
-        start = (leaf[a:a + step] - 1) * block
-        yield (packets[a:a + step], start,
+    step = max(1, _TREE_VISIT_ELEMS // block)
+    for a in range(0, p.numel(), step):
+        pa = p[a:a + step]
+        start = (leaf[pa] - 1) * block
+        yield (idx[pa], ln[a:a + step], start,
                scene.sl_tris_t[:, start[:, None] + slots])
 
 
@@ -455,56 +478,55 @@ def drain(steps):
             return done.value
 
 
-def tree_walk_steps(o, d, t_prev, scene):
-    """The plain closest-hit packet walk as a generator: yields (lane [m,
-    128] bool, visit [m] bool, leaf [m]) for the packets of each step (the
-    lanes whose slab test passed, whether the packet visits the leaf, and
-    the node's leaf field); returns (t, u, v, backface, slot), each [R]
-    (slot -1 and t = +inf on a miss)."""
+def tree_walk_steps(o, d, t_prev, scene, width: int = GROUP):
+    """The plain closest-hit walk as a generator, packets of ``width`` lanes
+    (128, or 32 as the kernel's warps) sharing a cursor: yields (lane [m,
+    width] bool, visit [m] bool, leaf [m]) for the packets of each step (the
+    lanes whose own gate passed, whether some lane's did on a leaf, and the
+    node's leaf field); returns (t, u, v, backface, slot), each [R] (slot -1
+    and t = +inf on a miss). A lane tests a leaf only when its own gate
+    passes, so its result does not depend on ``width``."""
     r = o.shape[0]
-    o, d, inv, tp = _packets(o, d, t_prev, 0.0)
-    n_p = o.shape[0]
-    layout = packet_layouts(d)
-    bt = torch.full((n_p, PACKET), float("inf"), device=o.device)
+    widen = native.TREE_WALK_CUT_WIDEN
+    o, d, inv, tp, layout = _packets(o, d, t_prev, float("inf"), width)
+    bt = torch.full(tp.shape, float("inf"), device=o.device)
     bu = torch.zeros_like(bt)
     bv = torch.zeros_like(bt)
     bb = torch.zeros_like(bt, dtype=torch.bool)
     bi = torch.full_like(bt, -1, dtype=torch.int32)
-    for idx, cursor in _tree_steps(scene, n_p, o.device):
+    for idx, cursor in _tree_steps(scene, o.shape[0], o.device):
         tn, tf, escape, leaf = _node_slab(scene, layout[idx], cursor[idx],
                                           o[idx], inv[idx])
         lane = ((tf >= torch.maximum(tn, torch.zeros_like(tn)))
-                & (tn <= bt[idx]) & (tf > tp[idx]))
+                & (tf > tp[idx]) & (tn <= bt[idx] * widen))
         hit_any = lane.any(1)
-        visit = hit_any & (leaf > 0)
-        yield lane, visit, leaf
-        for pk, start, rows in _visit_chunks(scene, idx[visit], leaf[visit]):
+        yield lane, hit_any & (leaf > 0), leaf
+        for pk, ln, start, rows in _lane_visits(scene, idx, lane, leaf):
             t, u, v, det, ok = mt_rows(
-                [o[pk, :, k, None] for k in range(3)],
-                [d[pk, :, k, None] for k in range(3)],
-                [row[:, None, :] for row in rows])
-            t = torch.where(ok & (t > tp[pk][:, :, None]), t, float("inf"))
-            tmin, col = t.min(dim=2)  # the lowest slot among equal t
-            better = tmin < bt[pk]
-            pick = lambda x: x.gather(2, col[:, :, None])[:, :, 0]
-            bt[pk] = torch.where(better, tmin, bt[pk])
-            bu[pk] = torch.where(better, pick(u), bu[pk])
-            bv[pk] = torch.where(better, pick(v), bv[pk])
-            bb[pk] = torch.where(better, pick(det) < 0.0, bb[pk])
-            slot = (start[:, None] + col).to(torch.int32)
-            bi[pk] = torch.where(better, slot, bi[pk])
+                [o[pk, ln, k, None] for k in range(3)],
+                [d[pk, ln, k, None] for k in range(3)], rows)
+            t = torch.where(ok & (t > tp[pk, ln, None]), t, float("inf"))
+            tmin, col = t.min(dim=1)  # the lowest slot among equal t
+            better = tmin < bt[pk, ln]
+            pick = lambda x: x.gather(1, col[:, None])[:, 0]
+            bt[pk, ln] = torch.where(better, tmin, bt[pk, ln])
+            bu[pk, ln] = torch.where(better, pick(u), bu[pk, ln])
+            bv[pk, ln] = torch.where(better, pick(v), bv[pk, ln])
+            bb[pk, ln] = torch.where(better, pick(det) < 0.0, bb[pk, ln])
+            slot = (start + col).to(torch.int32)
+            bi[pk, ln] = torch.where(better, slot, bi[pk, ln])
         cursor[idx] = torch.where(hit_any & (leaf == 0), cursor[idx] + 1,
                                   escape)
     return tuple(x.reshape(-1)[:r] for x in (bt, bu, bv, bb, bi))
 
 
-def occluded_tree_steps(o, d, t_max, scene):
-    """The plain any-hit packet walk as a generator: yields as
-    ``tree_walk_steps`` does; returns [R] bool (dead lanes True)."""
+def occluded_tree_steps(o, d, t_max, scene, width: int = GROUP):
+    """The plain any-hit walk as a generator: yields as ``tree_walk_steps``
+    does; returns [R] bool (dead lanes True). A packet stops once every
+    lane is occluded."""
     r = o.shape[0]
-    o, d, inv, tm = _packets(o, d, t_max, -1.0)
+    o, d, inv, tm, layout = _packets(o, d, t_max, -1.0, width)
     occ = tm < 0.0
-    layout = packet_layouts(d)
     for idx, cursor in _tree_steps(scene, o.shape[0], o.device,
                                    lambda: ~occ.all(1)):
         tn, tf, escape, leaf = _node_slab(scene, layout[idx], cursor[idx],
@@ -512,14 +534,12 @@ def occluded_tree_steps(o, d, t_max, scene):
         lane = (~occ[idx] & (tf >= torch.maximum(tn, torch.zeros_like(tn)))
                 & (tn <= tm[idx]))
         hit_any = lane.any(1)
-        visit = hit_any & (leaf > 0)
-        yield lane, visit, leaf
-        for pk, _, rows in _visit_chunks(scene, idx[visit], leaf[visit]):
+        yield lane, hit_any & (leaf > 0), leaf
+        for pk, ln, _, rows in _lane_visits(scene, idx, lane, leaf):
             t, _, _, _, ok = mt_rows(
-                [o[pk, :, k, None] for k in range(3)],
-                [d[pk, :, k, None] for k in range(3)],
-                [row[:, None, :] for row in rows])
-            occ[pk] |= (ok & (t <= tm[pk][:, :, None])).any(2)
+                [o[pk, ln, k, None] for k in range(3)],
+                [d[pk, ln, k, None] for k in range(3)], rows)
+            occ[pk, ln] = (ok & (t <= tm[pk, ln, None])).any(1)
         cursor[idx] = torch.where(hit_any & (leaf == 0), cursor[idx] + 1,
                                   escape)
     return occ.reshape(-1)[:r]
@@ -528,6 +548,12 @@ def occluded_tree_steps(o, d, t_max, scene):
 def occluded_triangles_tree_plain(o, d, t_max, scene) -> torch.Tensor:
     """Plain version of ``occluded_triangles_tree``, on any device."""
     return drain(occluded_tree_steps(o, d, t_max, scene))
+
+
+def occluded_triangles_tree_multi_plain(o, ds, t_maxes, scene):
+    """Plain version of ``occluded_triangles_tree_multi``: [L,R] bool."""
+    return torch.stack([occluded_triangles_tree_plain(o, d, tm, scene)
+                        for d, tm in zip(ds, t_maxes)])
 
 
 def tree_record(t, u, v, back, slot, scene) -> HitRecord:
@@ -556,16 +582,23 @@ def closest_hit_triangles_tree(o, d, t_prev, scene) -> HitRecord:
     return tree_record(fout[0], fout[1], fout[2], fout[3] != 0.0, slot, scene)
 
 
-def occluded_triangles_tree(o, d, t_max, scene) -> torch.Tensor:
-    """[R] bool any-hit through the superleaf tree walk: a triangle hit
-    with 1e-6 <= t <= t_max (t_max < 0 marks a dead lane, reported
-    occluded). CUDA tensors launch the kernel (or raise); CPU tensors take
-    the plain version."""
+def occluded_triangles_tree_multi(o, ds, t_maxes, scene) -> torch.Tensor:
+    """Any-hit through the superleaf tree walk for L direction sets sharing
+    one origin set, in one launch: a triangle hit with 1e-6 <= t <= t_max
+    (t_max < 0 marks a dead lane, reported occluded). Arguments and result
+    as ``occluded_triangles_flat_multi``. CUDA tensors launch the kernel (or
+    raise); CPU tensors take the plain version, set by set."""
     global tree_occluded_launches
     if o.device.type == "cpu":
-        return occluded_triangles_tree_plain(o, d, t_max, scene)
+        return occluded_triangles_tree_multi_plain(o, ds, t_maxes, scene)
     out = native.launch_tree_occluded(
-        o.contiguous(), d.contiguous(), t_max.contiguous(), scene.sl_nodes6,
+        o.contiguous(), stacked(ds), stacked(t_maxes), scene.sl_nodes6,
         scene.sl_meta6, scene.sl_tris_t, scene.sl_n_nodes, scene.sl_block)
     tree_occluded_launches += 1
-    return out > 0.0
+    return out
+
+
+def occluded_triangles_tree(o, d, t_max, scene) -> torch.Tensor:
+    """[R] bool any-hit through the superleaf tree walk: the multi-set
+    launch with one set."""
+    return occluded_triangles_tree_multi(o, [d], [t_max], scene)[0]

@@ -356,10 +356,9 @@ def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
     lanes t_max = -1).
 
     The directions and t_max are stacked once, [L,R,3] and [L,R].
-    Triangles: BVH scenes cast all L sets in one any-hit launch (flat or
-    flat2, ``_walk_variant``) up to t_max, or under the tree walk one
-    launch per set; brute-force scenes take the nearest hit light by
-    light, in range when
+    Triangles: BVH scenes cast all L sets in one any-hit launch (flat,
+    flat2 or tree, ``_walk_variant``) up to t_max; brute-force scenes take
+    the nearest hit light by light, in range when
     dist^2 = t^2|d|^2 + 2t(b.d) + |b|^2 <= max_dist^2 (dist(t) is monotone
     in t, so if the nearest hit is out of range no hit is). Spheres: all L
     sets in one any-hit launch up to t_max, the triangles' [L,R] result
@@ -381,16 +380,10 @@ def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
     if scene.num_real_triangles != 0 and scene.use_bvh:
         from path_tracer_torch.ops import cuda_bvh
 
-        walk = _walk_variant(scene)
-        if walk == "tree":
-            hits = torch.stack([cuda_bvh.occluded_triangles_tree(o, d, tm,
-                                                                 scene)
-                                for d, tm in zip(dirs, t_maxes)])
-        else:
-            multi = (cuda_bvh.occluded_triangles_flat2_multi
-                     if walk == "flat2"
-                     else cuda_bvh.occluded_triangles_flat_multi)
-            hits = multi(o, ds, tms, scene)
+        multi = {"tree": cuda_bvh.occluded_triangles_tree_multi,
+                 "flat2": cuda_bvh.occluded_triangles_flat2_multi,
+                 "flat": cuda_bvh.occluded_triangles_flat_multi}
+        hits = multi[_walk_variant(scene)](o, ds, tms, scene)
     elif scene.num_real_triangles != 0:
         per_light = []
         for d, md, act in zip(dirs, max_dists, actives):

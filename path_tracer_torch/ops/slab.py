@@ -10,7 +10,11 @@ block walk), in the kernels' arithmetic (``csrc/flat_common.cuh``).
 - ``occluded_gate``: tf >= max(tn, 0), tn <= t_max, t_max >= 0 and
   id >= 0, so a dead lane (t_max < 0) passes nothing;
 - ``merge_nearest``: the lexicographic (t, slot) minimum of a record and
-  one block's nearest candidates, so the visit order decides nothing.
+  one block's nearest candidates, so the visit order decides nothing;
+- ``pad_boxes`` and ``pad_slab``: the widened boxes and slab intervals of
+  the walks that gate a lane by its own slab test (the transparent walks,
+  ``ops/trwalk.py``; the tree walk, ``ops/cuda_bvh.py``), in
+  ``csrc/flat_common.cuh``'s ``pad_box`` and ``pad_slab`` arithmetic.
 """
 from __future__ import annotations
 
@@ -34,6 +38,42 @@ def slab(o, inv, boxes):
     tn = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
     tf = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
     return tn, tf
+
+
+# A box holds its triangles' vertices exactly, but a hit's rounded t and
+# barycentrics can place a grazing hit (a ray through a vertex or an edge
+# lying on the box) outside the slab interval the rounded slab test
+# computes: by about 2^-24 of the coordinates' magnitude over the ray's
+# direction component, so far more than an ulp of t where that component
+# is small. The walks that gate a lane by its own slab test widen each box
+# on every side by ext * BOX_PAD_EXT + mag * BOX_PAD_MAG (ext the box's
+# largest side, mag its largest coordinate magnitude), and each lane's
+# interval to tn - |tn| * BOX_PAD_T, tf + |tf| * BOX_PAD_T, which grows with
+# the origin's distance from the box as a hit's rounding does. A widened
+# box only admits more; a child's widened box stays inside its parent's.
+BOX_PAD_EXT = 2.0 ** -12
+BOX_PAD_MAG = 2.0 ** -16
+BOX_PAD_T = 2.0 ** -16
+
+
+def pad_boxes(boxes) -> torch.Tensor:
+    """The AABBs ``boxes`` (rows 0-2 the mins, 3-5 the maxes, any trailing
+    shape) widened as the kernels widen them (float32, their expression
+    and order): rows 0-5 only."""
+    lo, hi = boxes[0:3], boxes[3:6]
+    ext = torch.maximum(torch.maximum(hi[0] - lo[0], hi[1] - lo[1]),
+                        hi[2] - lo[2])
+    a = boxes[0:6].abs()
+    mag = torch.maximum(torch.maximum(torch.maximum(a[0], a[3]),
+                                      torch.maximum(a[1], a[4])),
+                        torch.maximum(a[2], a[5]))
+    pad = ext * BOX_PAD_EXT + mag * BOX_PAD_MAG
+    return torch.cat([lo - pad, hi + pad])
+
+
+def pad_slab(tn, tf):
+    """A slab interval widened by ``BOX_PAD_T`` of its ends' magnitudes."""
+    return tn - tn.abs() * BOX_PAD_T, tf + tf.abs() * BOX_PAD_T
 
 
 def closest_gate(tn, tf, t_prev, ids):

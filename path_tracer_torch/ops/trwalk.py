@@ -66,6 +66,7 @@ from typing import NamedTuple
 import torch
 
 from path_tracer_torch.ops.intersect import DET_EPS, T_MIN
+from path_tracer_torch.ops.slab import pad_boxes, pad_slab
 
 ALPHA_MIN_OPACITY = 0.001
 # Steps the walk kernels take at most; lanes past it continue in the cast
@@ -148,38 +149,19 @@ def hits_transparent_bounds(scene, o, d, t_max) -> torch.Tensor:
     return ok.any(dim=-1)
 
 
-# The resident walk kernels' widening of each group box (csrc/
-# trwalk_common.cuh kPadExt, kPadMag): ext * 2^-12 + mag * 2^-16 on every
-# side, ext the box's largest side, mag its largest coordinate magnitude;
-# and of each lane's slab interval (kPadT): tn - |tn| * 2^-16, tf + |tf| *
-# 2^-16, which grows with the origin's distance from the box as the
-# rounding of a candidate's t does.
-GROUP_PAD_EXT = 2.0 ** -12
-GROUP_PAD_MAG = 2.0 ** -16
-GROUP_PAD_T = 2.0 ** -16
-
-
 def pad_groups(grp) -> torch.Tensor:
     """``tr_grp`` [7, GP] with every box widened as the walk kernels stage
-    it (float32, the kernels' expression and order); the valid row kept."""
-    lo, hi = grp[0:3], grp[3:6]
-    ext = torch.maximum(torch.maximum(hi[0] - lo[0], hi[1] - lo[1]),
-                        hi[2] - lo[2])
-    a = grp[0:6].abs()
-    mag = torch.maximum(torch.maximum(torch.maximum(a[0], a[3]),
-                                      torch.maximum(a[1], a[4])),
-                        torch.maximum(a[2], a[5]))
-    pad = ext * GROUP_PAD_EXT + mag * GROUP_PAD_MAG
-    return torch.cat([lo - pad, hi + pad, grp[6:7]])
+    it (``slab.pad_boxes``); the valid row kept."""
+    return torch.cat([pad_boxes(grp), grp[6:7]])
 
 
-def group_gate(o, d, t_hi, grp, pad_t: float = 0.0) -> torch.Tensor:
+def group_gate(o, d, t_hi, grp, pad_t: bool = False) -> torch.Tensor:
     """[N, GP] bool: the 128-column groups whose box (``grp`` [7, GP]: min
     xyz, max xyz, valid flag) each lane's segment [0, t_hi] enters, the
     walk kernels' gate in plain torch (``pallas_trwalk._slab_groups`` per
     lane: a zero direction component inverts to 1e30, NaN-propagating
-    min and max), each lane's slab interval widened by ``pad_t`` of its
-    ends' magnitudes. The kernels gate as ``resident_gate``."""
+    min and max), with ``pad_t`` each lane's slab interval widened
+    (``slab.pad_slab``). The kernels gate as ``resident_gate``."""
     inv = torch.where(d == 0.0, 1e30, 1.0 / torch.where(d == 0.0, 1.0, d))
     t0 = (grp[None, 0:3, :] - o[:, :, None]) * inv[:, :, None]
     t1 = (grp[None, 3:6, :] - o[:, :, None]) * inv[:, :, None]
@@ -187,8 +169,7 @@ def group_gate(o, d, t_hi, grp, pad_t: float = 0.0) -> torch.Tensor:
     tn = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
     tf = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
     if pad_t:
-        tn = tn - tn.abs() * pad_t
-        tf = tf + tf.abs() * pad_t
+        tn, tf = pad_slab(tn, tf)
     th = t_hi[:, None]
     return ((tf >= torch.clamp(tn, min=0.0)) & (tn <= th) & (th >= 0.0)
             & (grp[6] > 0.0)[None, :])
@@ -196,9 +177,8 @@ def group_gate(o, d, t_hi, grp, pad_t: float = 0.0) -> torch.Tensor:
 
 def resident_gate(o, d, t_hi, tr_grp) -> torch.Tensor:
     """[N, GP] bool: the resident walk kernels' gate, ``group_gate`` on the
-    boxes they stage (``pad_groups``) with the slab interval widened by
-    ``GROUP_PAD_T``."""
-    return group_gate(o, d, t_hi, pad_groups(tr_grp), GROUP_PAD_T)
+    boxes they stage (``pad_groups``) with the slab interval widened."""
+    return group_gate(o, d, t_hi, pad_groups(tr_grp), pad_t=True)
 
 
 def _eval_cols(o, d, t_hi, bw):

@@ -324,35 +324,30 @@ def _held(got, want: dict):
 
 def test_sph_walk_merged_record_equals_plain_and_cta(cuda):
     """Row 5 (the warp-packet sphere walk writing the merged record) on
-    every field of every lane against its plain version and the CTA walk
-    it replaced (with that design's ATen mapping and merge): the
-    4,900-sphere grid's camera and random lanes, fresh, advanced past the
-    first hit and with whole and partly dead warps on a ragged count;
-    merged with triangle records at random t, at the sphere's t (the
-    triangle wins) and an ulp past it (the sphere wins every hitting
-    lane); and the duplicate-sphere tie scene, whose lanes keep the lowest
-    slot, also with each sphere's later block grown so that the walk meets
-    the higher-slot copy first (against the plain version alone: the CTA
-    walk's unwidened cut may miss the lower-slot copy there); each
-    in-block layout alone gives the mix's record."""
+    every field of every lane against its plain version (the CTA walk it
+    replaced, once held here too, is no longer built): the 4,900-sphere
+    grid's camera and random lanes, fresh, advanced past the first hit and
+    with whole and partly dead warps on a ragged count; merged with
+    triangle records at random t, at the sphere's t (the triangle wins)
+    and an ulp past it (the sphere wins every hitting lane); and the
+    duplicate-sphere tie scene, whose lanes keep the lowest slot, also
+    with each sphere's later block grown so that the walk meets the
+    higher-slot copy first; each in-block layout alone gives the mix's
+    record."""
     from path_tracer_torch import native
-    from path_tracer_torch.ops import ab_baselines, cuda_spheres
+    from path_tracer_torch.ops import cuda_spheres
     from path_tracer_torch.scene.procedural import (
         duplicate_sphere_device_scene,
         sphere_grid_device_scene,
         sphere_tie_rays,
     )
 
-    def check(o, d, tp, sc, tri=None, cta=True):
+    def check(o, d, tp, sc, tri=None):
         before = cuda_spheres.sph_walk_launches
         got = cuda_spheres.closest_hit_spheres_cuda(o, d, tp, sc, tri=tri)
         assert cuda_spheres.sph_walk_launches == before + 1
-        want = {"plain": cuda_spheres.closest_hit_spheres_walk_merged_plain(
-            o, d, tp, sc, tri)}
-        if cta:
-            want["cta"] = ab_baselines.closest_hit_spheres_walk_cta(
-                o, d, tp, sc, tri)
-        _held(got, want)
+        plain = cuda_spheres.closest_hit_spheres_walk_merged_plain
+        _held(got, {"plain": plain(o, d, tp, sc, tri)})
         return got
 
     grid = sphere_grid_device_scene(70, cuda)
@@ -398,7 +393,7 @@ def test_sph_walk_merged_record_equals_plain_and_cta(cuda):
     tp[::13] = float("inf")
     for margin in (0.0, 0.5):
         ties = duplicate_sphere_device_scene(cuda, margin)
-        got = check(to, td, tp, ties, cta=margin == 0.0)
+        got = check(to, td, tp, ties)
         assert got.valid.float().mean() > 0.5
         # Each sphere's copies fill two blocks: the winner is the first slot
         # of the first.
@@ -408,13 +403,13 @@ def test_sph_walk_merged_record_equals_plain_and_cta(cuda):
 
 def test_dense_sphere_any_hit_folds_prior(cuda, showcase_tex48):
     """Row 4 (one thread per ray over every set) on every lane of L = 1, 3
-    and 8 sets against its plain version and the chunked kernel it
-    replaced (with that design's ATen OR): without prior, and with prior
+    and 8 sets against its plain version (the chunked kernel it replaced,
+    once held here too, is no longer built): without prior, and with prior
     sets a random tenth occluded, dead lanes (every ninth) and whole and
     partly dead warps on a ragged count; a set whose prior is set comes
     out occluded, dead or not. More sets than the kernel takes raise."""
     from path_tracer_torch import native
-    from path_tracer_torch.ops import ab_baselines, cuda_spheres
+    from path_tracer_torch.ops import cuda_spheres
     from path_tracer_torch.scene import load_scene
 
     for sc in (showcase_tex48, load_scene(SCENES / "spheres" / "scene.isf",
@@ -434,8 +429,6 @@ def test_dense_sphere_any_hit_folds_prior(cuda, showcase_tex48):
                 assert cuda_spheres.occluded_launches == before + 1
                 assert got.dtype == torch.bool and got.shape == (L, 5003)
                 assert torch.equal(got, cuda_spheres.occluded_spheres_plain(
-                    o, dd, tt, sc, p))
-                assert torch.equal(got, ab_baselines.occluded_spheres_chunked(
                     o, dd, tt, sc, p))
                 if p is not None:
                     assert got[p].all()
@@ -893,16 +886,49 @@ def test_khit_kernel_equals_plain(cuda, showcase_tex48, k):
     assert not torch.isfinite(ts[:, ~active]).any()
 
 
-@pytest.mark.parametrize("name", ["reflection", "showcase48"])
-def test_tree_kernels_equal_plain(cuda, name):
-    """Rows 7 and 8 against their plain versions on every lane (fresh,
-    advanced and dead lanes; t_max above and below the hit, dead lanes; a
-    ray count that is no multiple of the 128-ray packet)."""
+def _tree_case(device, name):
+    """(scene, rays o, d) of a tree-walk card check, 5003 rays: forced-BVH
+    ``reflection`` (512-slot blocks), the grid-48 showcase in 256- and
+    512-slot blocks, or tie rays on the duplicate-triangle grid in 128-slot
+    blocks (pairs of copies in one leaf, a stack of 300 split over
+    several)."""
+    from path_tracer_torch.scene import build_scene
+    from path_tracer_torch.scene.procedural import (
+        duplicate_grid_scene,
+        tie_rays,
+    )
+    from path_tracer_torch.scene.showcase import showcase_scene
+
+    r = 5003
+    if name == "ties":
+        sc = build_scene(duplicate_grid_scene(), ".", device, use_bvh=True,
+                         sl_block=128)
+        o, d = (torch.from_numpy(x).to(device) for x in tie_rays(r))
+        return sc, o, d
+    if name == "showcase48_512":
+        sc = build_scene(showcase_scene(48), ".", device, use_bvh=True,
+                         sl_block=512)
+    else:
+        sc = _flat_scenes(device)[name]
+    return (sc, *_flat_rays(sc, 23, r, device))
+
+
+@pytest.mark.parametrize("name", ["reflection", "showcase48",
+                                  "showcase48_512", "ties"])
+def test_tree_kernels_equal_plain(cuda, name, monkeypatch):
+    """Rows 7 and 8 against their plain versions on every lane: fresh,
+    advanced and dead lanes, and whole and partly dead warps on a ragged
+    count (no multiple of 32 or 128); t_max above and below the hit and
+    dead lanes, in one launch for L = 1, 3 and 9 sets sharing the origins.
+    Each in-leaf layout alone (lane per ray, the leaf over the warp) gives
+    the mix's results."""
+    from path_tracer_torch import native
     from path_tracer_torch.ops import cuda_bvh
 
-    sc = _flat_scenes(cuda)[name]
-    r = 5003
-    o, d = _flat_rays(sc, 23, r, cuda)
+    sc, o, d = _tree_case(cuda, name)
+    r = o.shape[0]
+    tables = (sc.sl_nodes6, sc.sl_meta6, sc.sl_tris_t, sc.sl_n_nodes,
+              sc.sl_block)
     for tpv in (-1.0, 0.5):
         tp = torch.full((r,), tpv, device=cuda)
         tp[::9] = float("inf")
@@ -912,15 +938,45 @@ def test_tree_kernels_equal_plain(cuda, name):
         _assert_same(got, cuda_bvh.closest_hit_triangles_tree_plain(o, d, tp,
                                                                     sc))
         assert not got.valid[::9].any() and got.valid.float().mean() > 0.3
-    for factor in (1.01, 0.99):
-        tm = torch.where(got.valid, got.t * factor, 40.0)
-        tm[::3] = -1.0
+        mix = native.launch_tree_closest_hit(o, d, tp, *tables)
+        for lane_wise in (1, 33):
+            with monkeypatch.context() as m:
+                m.setattr(native, "TREE_WALK_LANE_WISE", lane_wise)
+                one = native.launch_tree_closest_hit(o, d, tp, *tables)
+            assert all(torch.equal(x, y) for x, y in zip(one, mix))
+    rr = r - 37
+    dead = _dead_warps(torch.full((rr,), -1.0, device=cuda))
+    ragged = cuda_bvh.closest_hit_triangles_tree(
+        o[:rr].contiguous(), d[:rr].contiguous(), dead, sc)
+    _assert_same(ragged, cuda_bvh.closest_hit_triangles_tree_plain(
+        o[:rr], d[:rr], dead, sc))
+    assert not ragged.valid[torch.isinf(dead)].any()
+    for n_sets in (1, 3, 9):
+        ds = [d if k % 2 == 0 else -d for k in range(n_sets)]
+        tms = []
+        for k in range(n_sets):
+            tm = torch.where(got.valid, got.t * (1.01 if k % 3 else 0.99),
+                             40.0)
+            tm[k % 3::3] = -1.0
+            tms.append(tm)
         before = cuda_bvh.tree_occluded_launches
-        occ = cuda_bvh.occluded_triangles_tree(o, d, tm, sc)
+        occ = cuda_bvh.occluded_triangles_tree_multi(o, ds, tms, sc)
         assert cuda_bvh.tree_occluded_launches == before + 1
-        assert torch.equal(occ, cuda_bvh.occluded_triangles_tree_plain(
-            o, d, tm, sc))
-        assert occ[::3].all()
+        assert occ.dtype == torch.bool and occ.shape == (n_sets, r)
+        assert torch.equal(occ, cuda_bvh.occluded_triangles_tree_multi_plain(
+            o, ds, tms, sc))
+        assert all(bool(x[t < 0].all()) for x, t in zip(occ, tms))
+        stacked = (torch.stack(ds).contiguous(), torch.stack(tms))
+        for lane_wise in (1, 33):
+            with monkeypatch.context() as m:
+                m.setattr(native, "TREE_WALK_LANE_WISE", lane_wise)
+                assert torch.equal(occ, native.launch_tree_occluded(
+                    o, *stacked, *tables))
+    tw = torch.where(torch.isinf(dead), -1.0, 40.0)
+    occ = cuda_bvh.occluded_triangles_tree(o[:rr].contiguous(),
+                                           d[:rr].contiguous(), tw, sc)
+    assert torch.equal(occ, cuda_bvh.occluded_triangles_tree_plain(
+        o[:rr], d[:rr], tw, sc))
 
 
 def test_dense_route_launches_khit(cuda, showcase_tex48, monkeypatch):
@@ -948,7 +1004,9 @@ def test_dense_route_launches_khit(cuda, showcase_tex48, monkeypatch):
 def test_tree_route_launches_tree_kernels(cuda, monkeypatch):
     """``PT_BVH_KERNEL=tree`` renders the plain showcase through rows 7
     and 8 and no flat-family kernel, the flat route's image within the
-    BVH-against-brute gate (99% of values within rtol 1e-3 / atol 1e-4)."""
+    BVH-against-brute gate (99% of values within rtol 1e-3 / atol 1e-4);
+    each any-hit call (the three lights) is one row 8 launch, and there
+    are as many as row 7 launches."""
     from path_tracer_torch.models.integrator import IntegratorSpec
     from path_tracer_torch.models.renderer import render_pixel_sums
     from path_tracer_torch.ops import cuda_bvh
@@ -957,6 +1015,10 @@ def test_tree_route_launches_tree_kernels(cuda, monkeypatch):
     spec = IntegratorSpec(bounces=3)
     want = render_pixel_sums(sc, 32, 24, 1, 2, spec)
     monkeypatch.setenv("PT_BVH_KERNEL", "tree")
+    calls = []
+    multi = cuda_bvh.occluded_triangles_tree_multi
+    monkeypatch.setattr(cuda_bvh, "occluded_triangles_tree_multi",
+                        lambda *a: calls.append(len(a[1])) or multi(*a))
     counts = lambda: (cuda_bvh.tree_closest_hit_launches,
                       cuda_bvh.tree_occluded_launches,
                       cuda_bvh.closest_hit_launches,
@@ -966,6 +1028,8 @@ def test_tree_route_launches_tree_kernels(cuda, monkeypatch):
     after = counts()
     assert after[0] > before[0] and after[1] > before[1]
     assert after[2:] == before[2:]
+    assert after[1] - before[1] == len(calls) == after[0] - before[0]
+    assert set(calls) == {3}  # the showcase's three lights a call
     within = np.abs(got - want) <= 1e-4 + 1e-3 * np.abs(want)
     assert within.mean() >= 0.99
 

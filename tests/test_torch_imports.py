@@ -273,7 +273,8 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
                  "occluded_triangles_flat2_plain",
                  "occluded_triangles_flat2_multi_plain",
                  "closest_hit_triangles_tree_plain", "tree_walk_steps",
-                 "occluded_triangles_tree_plain", "occluded_tree_steps"):
+                 "occluded_triangles_tree_plain", "occluded_tree_steps",
+                 "occluded_triangles_tree_multi_plain"):
         monkeypatch.setattr(cuda_bvh, name, _plain_must_not_run)
     monkeypatch.setattr(cuda_khit, "k_nearest_tr_hits_plain",
                         _plain_must_not_run)

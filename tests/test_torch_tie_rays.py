@@ -24,9 +24,11 @@ the interpret kernel's Baldwin-Weber sums associate differently, so a ray
 through a shared edge may take the other of the two triangles that meet
 there, at a t within the tolerance of tests/test_torch_bvh.py. Elsewhere
 the tolerances of tests/test_torch_bvh.py and tests/test_torch_intersect.py
-hold. The flat2 walk keeps the flat walk's rules against JAX's flat2
-kernel, and the any-hits (t_max well past or well short of each lane's hit,
-dead lanes) agree exactly.
+hold. The flat2 walk and the tree walk (JAX's packet kernel: plain MT,
+the copy of the first leaf visited winning unless a later leaf holds a
+strictly nearer hit) keep the flat walk's rules against JAX's flat2 and
+packet kernels, and the any-hits (t_max well past or well short of each
+lane's hit, dead lanes) agree exactly.
 
 A second scene, without JAX, stacks 8,400 copies so that they sit in the
 blocks of two superblocks (132 blocks of 128): there the plain flat2 walk
@@ -57,9 +59,9 @@ FIELDS = ("t", "kind", "prim", "u", "v", "backface")
 N_GRID_2SB, STACK_2SB = 8, 8400
 
 # Builds the scene of argv[1] with and without the BVH and casts the rays
-# of argv[2] through JAX's flat and flat2 kernels, Pallas MT kernel (all
-# interpret mode) and jnp brute force, and its flat and flat2 any-hits
-# (interpret mode) up to t_max, into argv[3].
+# of argv[2] through JAX's flat, flat2 and tree (packet) kernels, Pallas MT
+# kernel (all interpret mode) and jnp brute force, and its flat, flat2 and
+# tree any-hits (interpret mode) up to t_max, into argv[3].
 _JAX_IN_FRESH_INTERPRETER = """
 import sys
 from pathlib import Path
@@ -70,7 +72,8 @@ import numpy as np
 from path_tracer_tpu.ops.intersect import closest_hit_triangles
 from path_tracer_tpu.ops.pallas_bvh import (
     closest_hit_triangles_flat, closest_hit_triangles_flat2,
-    occluded_triangles_flat, occluded_triangles_flat2)
+    closest_hit_triangles_packet, occluded_triangles_flat,
+    occluded_triangles_flat2, occluded_triangles_packet)
 from path_tracer_tpu.ops.pallas_intersect import closest_hit_triangles_pallas
 from path_tracer_tpu.scene import isf
 from path_tracer_tpu.scene.device_scene import build_device_scene
@@ -82,12 +85,15 @@ out = {"flat": closest_hit_triangles_flat(o, d, tp, scene[1],
                                           interpret=True),
        "flat2": closest_hit_triangles_flat2(o, d, tp, scene[1],
                                             interpret=True),
+       "tree": closest_hit_triangles_packet(o, d, tp, scene[1],
+                                            interpret=True),
        "pallas": closest_hit_triangles_pallas(o, d, tp, scene[0],
                                               interpret=True),
        "jnp": closest_hit_triangles(o, d, tp, scene[0])}
 occ = {f"occ_{k}": np.asarray(f(o, d, tm, scene[1], interpret=True))
        for k, f in (("flat", occluded_triangles_flat),
-                    ("flat2", occluded_triangles_flat2))}
+                    ("flat2", occluded_triangles_flat2),
+                    ("tree", occluded_triangles_packet))}
 np.savez(sys.argv[3], **occ,
          **{f"{k}_{f}": np.asarray(getattr(h, f))
             for k, h in out.items()
@@ -148,8 +154,8 @@ def ties(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr
     z = np.load(tmp / "out.npz")
     jax = {k: SimpleNamespace(**{f: z[f"{k}_{f}"] for f in FIELDS})
-           for k in ("flat", "flat2", "pallas", "jnp")}
-    jax.update(occ_flat=z["occ_flat"], occ_flat2=z["occ_flat2"])
+           for k in ("flat", "flat2", "tree", "pallas", "jnp")}
+    jax.update({f"occ_{k}": z[f"occ_{k}"] for k in ("flat", "flat2", "tree")})
     return scenes, o, d, tp, tm, jax
 
 
@@ -240,24 +246,48 @@ def test_flat2_ties_match_jax(ties, group):
                       tp[rs], group)
 
 
-@pytest.mark.parametrize("walk", ["flat", "flat2"])
+@pytest.mark.parametrize("group", list(GROUPS))
+def test_tree_ties_match_jax(ties, group):
+    """The plain tree walk against JAX's packet kernel (interpret mode),
+    with the flat walk's rules: the tied copies sit in one leaf or in
+    several, and a later leaf takes over only on a strictly smaller t."""
+    from path_tracer_torch.ops.cuda_bvh import closest_hit_triangles_tree
+
+    scenes, o, d, tp, _, jax = ties
+    rs = GROUPS[group]
+    T = torch.from_numpy
+    got = closest_hit_triangles_tree(T(o[rs]), T(d[rs]), T(tp[rs]),
+                                     scenes[True])
+    _assert_walk_ties(got, _group(jax["tree"], rs), scenes[True], d[rs],
+                      tp[rs], group)
+
+
+@pytest.mark.parametrize("walk", ["flat", "flat2", "tree"])
 @pytest.mark.parametrize("group", list(GROUPS))
 def test_any_hit_ties_match_jax(ties, walk, group):
-    """The plain flat and flat2 any-hits against JAX's (interpret mode) on
-    every lane: t_max past and short of the hit, misses, dead lanes."""
+    """The plain flat, flat2 and tree any-hits against JAX's (interpret
+    mode) on every lane: t_max past and short of the hit, misses, dead
+    lanes."""
     from path_tracer_torch.ops import cuda_bvh
 
     scenes, o, d, tp, tm, jax = ties
     rs = GROUPS[group]
     T = torch.from_numpy
-    multi = (cuda_bvh.occluded_triangles_flat_multi if walk == "flat"
-             else cuda_bvh.occluded_triangles_flat2_multi)
+    multi = {"flat": cuda_bvh.occluded_triangles_flat_multi,
+             "flat2": cuda_bvh.occluded_triangles_flat2_multi,
+             "tree": cuda_bvh.occluded_triangles_tree_multi}[walk]
     got = multi(T(o[rs]), [T(d[rs])], [T(tm[rs])], scenes[True])[0].numpy()
     np.testing.assert_array_equal(got, jax[f"occ_{walk}"][rs])
     live = tm[rs] >= 0.0
     assert got[~live].all()  # dead lanes report occluded
-    past = live & (np.arange(R)[rs] % 2 == 0) & (tm[rs] != 5.0)
-    assert got[past].all() and not got[live & ~past & (tm[rs] != 5.0)].any()
+    scored = tm[rs] != 5.0  # t_max set from the flat walk's hit
+    if walk == "tree":
+        # Moller-Trumbore and Baldwin-Weber part on some rays through a
+        # shared edge or vertex: score the lanes the tree's own cast hits.
+        scored &= cuda_bvh.closest_hit_triangles_tree(
+            T(o[rs]), T(d[rs]), T(tp[rs]), scenes[True]).valid.numpy()
+    past = live & (np.arange(R)[rs] % 2 == 0) & scored
+    assert got[past].all() and not got[live & ~past & scored].any()
 
 
 @pytest.fixture(scope="module")
@@ -325,3 +355,75 @@ def test_mt_ties_match_jax(ties, group):
         winner = tie_winners(ts)[0]
         prim = got.prim[got.valid].long().numpy()
         np.testing.assert_array_equal(winner[prim], prim)
+
+
+@pytest.fixture(scope="module")
+def tie_grid():
+    """The tie scene in 128-slot blocks (no JAX)."""
+    from path_tracer_torch.scene import build_scene
+    from path_tracer_torch.scene.procedural import duplicate_grid_scene
+
+    return build_scene(duplicate_grid_scene(N_GRID, STACK), ".", "cpu",
+                       use_bvh=True, sl_block=BLOCK)
+
+
+def _tree_off_brute(sc, origin: str) -> dict:
+    """Lanes where the plain tree walks leave brute-force MT
+    (``intersect.closest_hit_triangles``, the same MT arithmetic) on 4,096
+    tie rays, from 3 units above (``near``) or from 800 to 8,000 units
+    back along the same rays (``far``): closest hit from t_prev -1 and
+    from an ulp before the brute force's hit (hit/miss or t differing; the
+    prim may be another copy at the same t), any-hit at t_max = that hit's
+    t, misses at 5."""
+    from path_tracer_torch.ops import cuda_bvh, intersect
+    from path_tracer_torch.scene.procedural import tie_rays
+
+    o, d = tie_rays(4096, N_GRID, seed=3)
+    if origin == "far":
+        g = np.random.default_rng(4)
+        aim = o + 3.0 / -d[:, 1:2] * d
+        o = (aim - d * 8.0 * 10.0 ** g.uniform(2.0, 3.0, (len(o), 1))
+             ).astype(np.float32)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    tp = torch.full((o.shape[0],), -1.0)
+    tp[::11] = float("inf")
+    want = intersect.closest_hit_triangles(o, d, tp, sc)
+    assert want.valid[torch.isfinite(tp)].float().mean() > 0.9
+    before = torch.where(want.valid, torch.nextafter(
+        want.t, torch.tensor(-1.0)), tp)
+    want2 = intersect.closest_hit_triangles(o, d, before, sc)
+    off = {}
+    for key, g, w in (("closest", tp, want), ("from before", before, want2)):
+        got = cuda_bvh.closest_hit_triangles_tree_plain(o, d, g, sc)
+        off[key] = int(((got.valid != w.valid)
+                        | (w.valid & (got.t != w.t))).sum())
+    t_max = torch.where(torch.isinf(tp), -1.0,
+                        torch.where(want.valid, want.t, 5.0))
+    occ = cuda_bvh.occluded_triangles_tree_plain(o, d, t_max, sc)
+    off["any-hit"] = int((occ != (want.valid | (t_max < 0))).sum())
+    return off
+
+
+@pytest.mark.parametrize("origin", ["near", "far"])
+def test_tree_walks_equal_brute_force(tie_grid, origin):
+    """The plain tree walks (rows 7 and 8's contract: each lane tests the
+    leaves its own gate admits, on widened boxes) keep every hit of
+    brute-force MT on rays through the grid's centroids, the stack, shared
+    edges and shared vertices, near and far: no lane off."""
+    assert _tree_off_brute(tie_grid, origin) == {
+        "closest": 0, "from before": 0, "any-hit": 0}
+
+
+def test_tree_walks_exact_boxes_drop_hits(tie_grid, monkeypatch):
+    """Why the tree walks widen the boxes: on the exact boxes and
+    intervals a lane's own rounded slab test rejects the leaf whose
+    triangle its MT test hits where the ray passes through a vertex or an
+    edge lying on the leaf's box, and the walks lose hits of the brute
+    force, near and far (dozens of lanes on these rays)."""
+    from path_tracer_torch.ops import slab
+
+    for name in ("BOX_PAD_EXT", "BOX_PAD_MAG", "BOX_PAD_T"):
+        monkeypatch.setattr(slab, name, 0.0)
+    for origin in ("near", "far"):
+        off = _tree_off_brute(tie_grid, origin)
+        assert off["closest"] > 0 and off["any-hit"] > 0, off

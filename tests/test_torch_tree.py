@@ -13,8 +13,16 @@
   into an FMA; both then round every operation the same way, and every
   field of every lane is equal (in-process, the FMA moved t by up to
   5.6e-7 relative and u by 6e-5 on one lane of 512).
+- The per-lane gate: the plain walks test a leaf only for the lanes whose
+  own gate admits it (each tested ray's slab test of the leaf box,
+  recomputed, passes; far fewer tests than the packets' lanes); a lane's
+  result is the same in packets of 32 and 128 and with the rest of its
+  group dead.
+- The launches refuse tensors off the card before building anything.
 - Routing: ``PT_BVH_KERNEL`` forces flat, flat2 or tree; tree never takes
-  the flat-family kernels, and the opacity partition stands down under it.
+  the flat-family kernels, and the opacity partition stands down under it;
+  ``occluded_multi`` makes one tree any-hit call for its L sets, equal to
+  the same call light by light.
 - Renders (32x24, 2 spp, 3 bounces) under ``PT_BVH_KERNEL=tree``: the
   plain showcase at grid 48, and the textured one through the whole-scene
   walks, against the JAX package's renders of the same scenes (its jnp
@@ -207,6 +215,162 @@ def test_tree_occluded_matches_jax(head, packets, k):
         assert got[::5].all()
 
 
+def _leaf_slab(ts, start, o, d):
+    """(tn, tf) of rays o, d [m,3] against the boxes of the leaves whose
+    blocks start at packed slots ``start`` [m], in float32 numpy with the
+    walks' expressions (zero direction components inverted to 1e30), the
+    box and the interval widened as the walks widen them
+    (``slab.pad_boxes``, ``slab.pad_slab``)."""
+    from path_tracer_torch.ops.slab import pad_boxes, pad_slab
+
+    leaf_of = {int(b): c for c, b in enumerate(ts.sl_meta6[0, 1].numpy())
+               if b > 0}
+    col = np.array([leaf_of[s // ts.sl_block + 1] for s in start])
+    box = pad_boxes(ts.sl_nodes6[0, :6, col]).numpy().T
+    with np.errstate(divide="ignore"):
+        inv = np.where(d == 0, np.float32(1e30), np.float32(1) / d)
+    t0, t1 = (box[:, :3] - o) * inv, (box[:, 3:] - o) * inv
+    lo, hi = np.minimum(t0, t1), np.maximum(t0, t1)
+    tn, tf = pad_slab(*(torch.from_numpy(x) for x in (lo.max(1),
+                                                       hi.min(1))))
+    return tn.numpy(), tf.numpy()
+
+
+def test_plain_tree_walk_tests_own_gate_only(head, monkeypatch):
+    """The plain closest-hit and any-hit walks test a leaf for the lanes
+    whose own gate admits it, not for every lane of a packet some lane
+    admits: every tested ray's slab test of the leaf's widened box
+    (recomputed here) passes, and the tests are far fewer than the packets' lanes on
+    the leaves they visit."""
+    from path_tracer_torch.ops import cuda_bvh
+
+    js, ts = head
+    o, d = _rays(js, 5)
+    tested = []
+    lane_visits = cuda_bvh._lane_visits
+
+    def spy(scene, idx, lane, leaf):
+        for pk, ln, start, rows in lane_visits(scene, idx, lane, leaf):
+            tested.append((pk * cuda_bvh.GROUP + ln, start))
+            yield pk, ln, start, rows
+
+    monkeypatch.setattr(cuda_bvh, "_lane_visits", spy)
+    T = torch.from_numpy
+    for steps in (cuda_bvh.tree_walk_steps(T(o), T(d), torch.full((R,), -1.0),
+                                           ts),
+                  cuda_bvh.occluded_tree_steps(T(o), T(d),
+                                               torch.full((R,), 50.0), ts)):
+        tested.clear()
+        union = 0
+        while True:
+            try:
+                _, visit, _ = next(steps)
+            except StopIteration:
+                break
+            union += cuda_bvh.GROUP * int(visit.sum())
+        ray = torch.cat([x[0] for x in tested]).numpy()
+        start = torch.cat([x[1] for x in tested]).numpy()
+        tn, tf = _leaf_slab(ts, start, o[ray], d[ray])
+        assert (tf >= np.maximum(tn, 0)).all()
+        assert 0 < ray.size < 0.5 * union
+
+
+@pytest.mark.parametrize("walk", ["closest", "occluded"])
+def test_tree_walk_lanes_independent(head, walk):
+    """A lane's result does not depend on the lanes it walks beside: the
+    plain walks in packets of 32 (the kernel's warps) equal those in
+    packets of 128 on every lane and field, and lanes walked with every
+    other ray of their group dead (the group's layout unchanged) keep
+    their results."""
+    from path_tracer_torch.ops import cuda_bvh
+
+    js, ts = head
+    o, d = (torch.from_numpy(x) for x in _rays(js, 7))
+    steps, dead = ((cuda_bvh.tree_walk_steps, float("inf"))
+                   if walk == "closest"
+                   else (cuda_bvh.occluded_tree_steps, -1.0))
+    g = torch.full((R,), -1.0 if walk == "closest" else 50.0)
+    wide = cuda_bvh.drain(steps(o, d, g, ts))
+    narrow = cuda_bvh.drain(steps(o, d, g, ts, width=32))
+    for a, b in zip(*(x if walk == "closest" else (x,)
+                      for x in (wide, narrow))):
+        assert torch.equal(a, b)
+    kept = torch.tensor([5, 133, 290, 301, 450])
+    alone = torch.full((R,), dead)
+    alone[kept] = g[kept]
+    solo = cuda_bvh.drain(steps(o, d, alone, ts, width=32))
+    for a, b in zip(*(x if walk == "closest" else (x,)
+                      for x in (wide, solo))):
+        assert torch.equal(a[kept], b[kept])
+    hits = wide[0] if walk == "closest" else wide
+    assert 0.2 < float(torch.isfinite(hits).float().mean()
+                       if walk == "closest" else hits.float().mean()) < 1.0
+
+
+def test_occluded_multi_tree_one_call(monkeypatch):
+    """Under ``PT_BVH_KERNEL=tree`` ``occluded_multi`` makes one any-hit
+    call for its L sets, equal to the any-hit light by light: a point
+    light's range limit, directional lights, dead lanes masked."""
+    from path_tracer_torch.ops import cuda_bvh, intersect
+    from path_tracer_torch.scene.showcase import showcase_device_scene
+
+    sc = showcase_device_scene(16, "cpu", use_bvh=True, sl_block=256)
+    monkeypatch.setenv("PT_BVH_KERNEL", "tree")
+    assert intersect._walk_variant(sc) == "tree"
+    g = np.random.default_rng(11)
+    v = sc.tri_v0[: sc.num_real_triangles].numpy()
+    lo, hi = v.min(0), v.max(0)
+    n = 300
+    T = lambda x: torch.from_numpy(np.asarray(x, np.float32))
+    o = T(g.uniform(lo, hi + [0.0, 2.0, 0.0], (n, 3)))
+    surf = o.clone()
+    dirs, acts = [], []
+    for k in range(3):
+        dd = g.normal(size=(n, 3))
+        dd[:, 1] = -np.abs(dd[:, 1]) if k else np.abs(dd[:, 1])
+        dirs.append(T(dd / np.linalg.norm(dd, axis=1, keepdims=True)))
+        acts.append(T(g.uniform(size=n)) > 0.1)
+    max_dists = [T(g.uniform(0.5, 8.0, n)), None, None]
+    calls = []
+    multi = cuda_bvh.occluded_triangles_tree_multi
+    monkeypatch.setattr(cuda_bvh, "occluded_triangles_tree_multi",
+                        lambda *a: calls.append(len(a[1])) or multi(*a))
+    kw = dict(surf_pos=surf, max_dists=max_dists, actives=acts)
+    got = torch.stack(intersect.occluded_multi(o, dirs, sc, **kw))
+    assert calls == [3]
+    # The same call with the triangle any-hit taken light by light.
+    monkeypatch.setattr(cuda_bvh, "occluded_triangles_tree_multi",
+                        lambda o, ds, tms, scene: torch.stack([
+                            multi(o, [d], [tm], scene)[0]
+                            for d, tm in zip(ds, tms)]))
+    want = torch.stack(intersect.occluded_multi(o, dirs, sc, **kw))
+    assert torch.equal(got, want)
+    assert 0 < float(got.float().mean()) < 1
+    assert not got[~torch.stack(acts)].any()
+
+
+@pytest.mark.parametrize("walk", ["closest", "occluded"])
+def test_tree_launch_checks_operands(head, monkeypatch, walk):
+    """The tree kernels' launches refuse tensors off the card before any
+    build."""
+    from path_tracer_torch import native
+
+    def _no_build():
+        raise AssertionError("built before its checks")
+
+    monkeypatch.setattr(native, "kernels", _no_build)
+    _, ts = head
+    o = torch.zeros((4, 3))
+    tables = (ts.sl_nodes6, ts.sl_meta6, ts.sl_tris_t, ts.sl_n_nodes,
+              ts.sl_block)
+    with pytest.raises(ValueError, match="CUDA"):
+        if walk == "closest":
+            native.launch_tree_closest_hit(o, o, torch.zeros(4), *tables)
+        else:
+            native.launch_tree_occluded(o, o[None], torch.zeros((1, 4)),
+                                        *tables)
+
+
 def test_bvh_kernel_knob_routes(monkeypatch):
     """``PT_BVH_KERNEL`` forces the walk; under tree the casts and any-hits
     launch the tree walks only (here their plain versions) and the
@@ -237,7 +401,8 @@ def test_bvh_kernel_knob_routes(monkeypatch):
                  "occluded_triangles_flat_multi",
                  "occluded_triangles_flat2_multi"):
         monkeypatch.setattr(cuda_bvh, name, must_not_run)
-    for name in ("closest_hit_triangles_tree", "occluded_triangles_tree"):
+    for name in ("closest_hit_triangles_tree",
+                 "occluded_triangles_tree_multi"):
         real = getattr(cuda_bvh, name)
         monkeypatch.setattr(cuda_bvh, name,
                             lambda *a, _n=name, _f=real, **k:
@@ -246,11 +411,11 @@ def test_bvh_kernel_knob_routes(monkeypatch):
     from path_tracer_torch.models.renderer import render_pixel_sums
 
     # The textured scene's shadows walk the whole scene by casts; the
-    # plain one's are the any-hit, light by light.
+    # plain one's are the any-hit, every light in one call.
     plain = showcase_device_scene(16, "cpu", use_bvh=True, sl_block=256)
     for scene, want in ((sc, ["closest_hit_triangles_tree"]),
                         (plain, ["closest_hit_triangles_tree",
-                                 "occluded_triangles_tree"])):
+                                 "occluded_triangles_tree_multi"])):
         calls.clear()
         img = render_pixel_sums(scene, 8, 6, 1, 1, IntegratorSpec(bounces=1))
         assert np.isfinite(img).all() and img.std() > 0
