@@ -43,15 +43,24 @@ any error:
    kernel on the textured showcase (3 lights, 48 spheres), the walk on the
    4,900-sphere grid (2 point lights), each against its plain version on
    every lane and against the JAX package's elementwise in_range form
-   (at most MAX_RANGE_FLIPS of the lanes), and the fused shadow kernel on
-   the textured showcase's 3 x 2^18 shadow lanes against its plain
-   version and against flat_occluded + trans_walk launched apart, on every
-   lane; each timed; (3g) the k-nearest transparent hits kernel (row 3,
-   the dense walk's producer) on the textured showcase's middle 2^18
-   camera lanes with the opaque terminator as t_max, its first bounce's
-   3 x 2^18 stacked shadow lanes (a tenth killed) and random foliage rays
-   with dead lanes, at k = 6 and 1, against its plain version on every
-   lane, then timed; (3h) the superleaf tree walk, closest hit and any-hit
+   (at most MAX_RANGE_FLIPS of the lanes), and the fused shadow kernel
+   (row 15: row 10's warp any-hit, then row 14's resident walk) on the
+   textured showcase's 3 x 2^18 first-bounce shadow lanes and 3 x 2^16
+   incoherent lanes against its plain version, against flat_occluded +
+   trans_walk launched apart and against the CTA design it replaced
+   (``ops/ab_baselines.py``), on every lane; each timed, row 15 in turns
+   against the replaced design and the two launches; (3g, with 3f's
+   fused checks and 6a also alone as ``--only 3o``) the k-nearest
+   transparent hits kernel (row 3, the dense walk's producer: the table
+   resident in shared memory, warp walks) on the textured showcase's
+   middle 2^18 camera lanes with the opaque terminator as t_max, its
+   first bounce's 3 x 2^18 stacked shadow lanes (a tenth killed) and
+   random foliage rays with dead lanes, at k = 6, 1 and 8, against its
+   plain version and the replaced CTA design on every lane; on the
+   duplicate-card scene, aimed, far and tie rays held within t_max to the
+   ungated plain version (brute-force MT); then the lane slots per needed
+   MT test of both designs, both in turns, each serving layout alone, and
+   the wrapper timed; (3h) the superleaf tree walk, closest hit and any-hit
    (rows 7 and 8), on the plain showcase and scene A's whole table:
    camera, random and first-bounce lanes and the three lights' shadow
    sets with a tenth killed (one any-hit launch), on a ragged ray count,
@@ -104,16 +113,19 @@ any error:
    bounds; (3n, also alone with ``--only 3n``) rows 7 and 8 (the tree
    walk as warp walks, a lane testing the leaves its own gate admits; the
    any-hit's L sets in one launch) against their plain versions on every
-   field of every lane, the lanes where the replaced CTA design
-   (``ops/ab_baselines.py``) differs logged: the plain showcase's and
-   scene A's 2^18 camera and first-bounce lanes, random, incoherent and
-   ragged lanes with dead warps, the first bounce's 3 x 2^18 shadow lanes
-   and incoherent shadow sets with a tenth killed, and tie rays on the
-   duplicate-triangle grid; the walks' counts (``tree_walk_visits``:
-   leaf visits a 128-lane CTA and a 32-lane warp, lane-slot tests of each
-   in-leaf layout against the tests needed), then both designs in turns
-   (device ms a launch) with the recounted bounds, beside rows 9 and 10
-   (showcase) or 11 and 12 (scene A) on the same rays;
+   field of every lane: the plain showcase's and scene A's 2^18 camera
+   and first-bounce lanes, random, incoherent and ragged lanes with dead
+   warps, the first bounce's 3 x 2^18 shadow lanes and incoherent shadow
+   sets with a tenth killed, and tie rays on the duplicate-triangle grid,
+   there also against brute-force MT, and rows 9-12 (the flat and flat2
+   kernels) against their ungated plain versions; the walks' counts
+   (``tree_walk_visits``: leaf visits a 128-lane CTA and a 32-lane warp,
+   lane-slot tests of each in-leaf layout against the tests needed), then
+   the device ms a launch with the recounted bounds, beside rows 9 and 10
+   (showcase) or 11 and 12 (scene A) on the same rays; (3p, only alone
+   with ``--only 3p``) rows 9-12's device ms a launch at the main path's
+   shapes, the script runnable from a checkout of an earlier commit to
+   time that commit's kernels on the same lanes;
 4. the main path at full size: ``cube``, ``spheres`` and ``reflection`` at
    1920x1080, 4 bounces, 16 spp through ``render_pixel_sums``, and one
    reference-default frame of ``reflection`` (1920x1080, 64 spp, 4
@@ -155,7 +167,8 @@ any error:
    walk and the fused shadow kernel on the main path's lanes after
    tests/test_trwalk.py's training updates, each against its plain live
    version on every lane and timed beside its forward variant, and equal
-   to the forward variant on untouched tables; (6b) the bench's backward
+   to the forward variant on untouched tables, the live fused kernel
+   (15L) also against the CTA design it replaced; (6b) the bench's backward
    step: d mean(img^2) / d mat_albedo_factor over the 2^18-lane 1080p
    tile, 5 bounces, 1 spp, timed (fwd+bwd rays/s, peak device memory,
    launches: the live walk kernels alone), its gradient against a central
@@ -249,7 +262,7 @@ MAX_RANGE_FLIPS = 1e-4
 FUSED_SPP = 2  # samples of each 1080p render of the fused-shadow A/B (4f)
 # Row 3's column counts checked (3g): PT_DENSE_TR_K's default, the main
 # path's, and 1.
-KHIT_KS = (6, 1)
+KHIT_KS = (6, 1, 8)
 CHECK_LANES = (1 << 16) - 37  # lanes of 3g's and 3h's checks: not whole CTAs
 TREE_SPP = 16  # samples of the plain showcase's 1080p tree-walk render (4h)
 TREE_TURN_SPP = 2  # samples of each render of 4h's tree and flat turns
@@ -1754,71 +1767,130 @@ def fused_bound(tex, sh, walk_tables) -> dict:
                 walkers=walkers, tp_real=tp_real)
 
 
+def fused_incoherent(rng, sc, n: int, device) -> dict:
+    """The fused kernel's arguments for n incoherent lanes: shadow casts
+    from random surface points toward every light (``shadow_sets``), a
+    tenth of every set killed, the walk window closed (pd = -1) on another
+    tenth, random original uvs and sphere flags; keyed as
+    ``first_bounce_shadows``."""
+    import torch
+
+    o, ds, tms = shadow_sets(rng, sc, n, device)
+    tenth = lambda: as_cuda(rng.uniform(size=n) < 0.1, device, bool)
+    pds = [torch.where(tenth(), -1.0, tm) for tm in tms]
+    is_pt = [k >= sc.num_dir_lights for k in range(len(ds))]
+    return dict(s_o=o, dirs=[x.contiguous() for x in ds],
+                t_maxes=[torch.where(tenth(), -1.0, tm) for tm in tms],
+                pds=pds, is_pt=is_pt,
+                surf_pos=o, orig_uv=as_cuda(rng.uniform(-1.0, 2.0, (n, 2)),
+                                            device),
+                orig_simple=as_cuda(rng.uniform(size=n) < 0.2, device, bool))
+
+
+def fused_args(sh: dict, cap: int) -> tuple:
+    """``cuda_shadow.fused_shadow``'s arguments after the scene."""
+    return (sh["s_o"], sh["dirs"], sh["t_maxes"], sh["pds"], sh["is_pt"],
+            sh["surf_pos"], sh["orig_uv"], sh["orig_simple"], cap)
+
+
+def fused_two_launches(sc, sh: dict, cap: int, live=None):
+    """The fused kernel's result from flat_occluded + trans_walk launched
+    apart, as the integrator's two-launch route calls them."""
+    import torch
+
+    from path_tracer_torch.ops import cuda_bvh, cuda_trwalk
+    from path_tracer_torch.scene.device_scene import opaque_view
+
+    n_l, n = len(sh["dirs"]), sh["s_o"].shape[0]
+    occ = cuda_bvh.occluded_triangles_flat_multi(sh["s_o"], sh["dirs"],
+                                                 sh["t_maxes"],
+                                                 opaque_view(sc))
+    is_pt3 = torch.cat([torch.full((n,), pt, device=occ.device)
+                        for pt in sh["is_pt"]])
+    w = cuda_trwalk.trans_walk(
+        sc, sh["s_o"].repeat(n_l, 1), torch.cat(sh["dirs"]).contiguous(),
+        torch.where(occ, -1.0, torch.stack(sh["pds"])).reshape(-1), is_pt3,
+        sh["surf_pos"].repeat(n_l, 1), sh["orig_uv"].repeat(n_l, 1),
+        sh["orig_simple"].repeat(n_l), torch.ones_like(is_pt3), cap,
+        live=live)
+    return (torch.where(occ, 0.0, w.trans.view(n_l, n)),
+            w.t_prev.view(n_l, n), w.still.view(n_l, n))
+
+
 def phase_fused_shadow_kernel(device, tex):
-    """3f: the fused shadow kernel on the textured showcase's first-bounce
-    shadow lanes (3 lights x the middle 2^18 camera lanes, a tenth killed,
-    step cap 8) against its timed plain version and against flat_occluded
-    + trans_walk launched apart: 0 lanes may differ. Then timed beside
-    the two launches. Returns (max abs err, (ms, plain ms, bound ms, bound
+    """3f: the fused shadow kernel (row 15: the warp any-hit of row 10,
+    then the resident walk of row 14, on a persistent CTA holding the
+    transparent table in shared memory) on the textured showcase's
+    first-bounce shadow lanes (3 lights x the middle 2^18 camera lanes, a
+    tenth killed, step cap 8) and on 3 x 2^16 incoherent lanes, against its
+    timed plain version, flat_occluded + trans_walk launched apart and the
+    replaced CTA design (``ops/ab_baselines.py``): 0 lanes may differ.
+    Then timed through its wrapper beside the two launches, and in turns
+    (device ms a launch: the replaced design, the new, the two launches,
+    and back, twice). Returns (max abs err, (ms, plain ms, bound ms, bound
     by))."""
     import torch
 
-    from path_tracer_torch.ops import cuda_bvh, cuda_shadow, cuda_trwalk, trwalk
-    from path_tracer_torch.scene.device_scene import opaque_view
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import ab_baselines, cuda_shadow, trwalk
 
     rng = np.random.default_rng(20261022)
     n, cap = WAVE, trwalk.TRWALK_K
-    sh = first_bounce_shadows(tex, n, device, rng)
-    args = (tex, sh["s_o"], sh["dirs"], sh["t_maxes"], sh["pds"],
-            sh["is_pt"], sh["surf_pos"], sh["orig_uv"], sh["orig_simple"],
-            cap)
+    sets = {"first-bounce": first_bounce_shadows(tex, n, device, rng),
+            "incoherent": fused_incoherent(rng, tex, n // 4, device)}
+    err, plain_ms = 0.0, None
+    for label, sh in sets.items():
+        args = (tex,) + fused_args(sh, cap)
+        ms, want = timed_once(lambda: cuda_shadow.fused_shadow_plain(*args))
+        plain_ms = ms if plain_ms is None else plain_ms
+        got = cuda_shadow.fused_shadow(*args)
+        off_plain = lanes_off(got, want)
+        off_apart = lanes_off(got, fused_two_launches(tex, sh, cap))
+        off_old = lanes_off(got, ab_baselines.fused_shadow_cta(*args))
+        live = torch.stack(sh["t_maxes"]) >= 0
+        log(f"  fused shadow kernel, {len(sh['dirs'])} lights x "
+            f"{sh['s_o'].shape[0]} {label} shadow lanes (any-hit live "
+            f"{float(live.float().mean()):.3f}): lanes off the plain version "
+            f"{off_plain}, off flat_occluded + trans_walk launched apart "
+            f"{off_apart}, off the replaced CTA design {off_old}; trans_eff "
+            f"0 on {float((got[0] == 0).float().mean()):.3f}, in (0, 1) on "
+            f"{float(((got[0] > 0) & (got[0] < 1)).float().mean()):.4f}")
+        if off_plain or off_apart or off_old:
+            raise AssertionError(f"fused shadow kernel disagrees ({label})")
+        err = max(err, max_err(got, want))
+
+    sh = sets["first-bounce"]
+    args = (tex,) + fused_args(sh, cap)
     run = lambda: cuda_shadow.fused_shadow(*args)
-    plain_ms, want = timed_once(lambda: cuda_shadow.fused_shadow_plain(*args))
-    got = run()
-    n_l = len(sh["dirs"])
-    ov = opaque_view(tex)
-    is_pt3 = torch.cat([torch.full((n,), pt, device=device)
-                        for pt in sh["is_pt"]])
-    o3 = sh["s_o"].repeat(n_l, 1)
-    d3 = torch.cat(sh["dirs"]).contiguous()
-    sp3 = sh["surf_pos"].repeat(n_l, 1)
-    ouv3 = sh["orig_uv"].repeat(n_l, 1)
-    os3 = sh["orig_simple"].repeat(n_l)
-    pds = torch.stack(sh["pds"])
-
-    def two_launches():
-        occ = cuda_bvh.occluded_triangles_flat_multi(sh["s_o"], sh["dirs"],
-                                                     sh["t_maxes"], ov)
-        w = cuda_trwalk.trans_walk(tex, o3, d3, torch.where(
-            occ, -1.0, pds).reshape(-1), is_pt3, sp3, ouv3, os3,
-            torch.ones_like(is_pt3), cap)
-        return (torch.where(occ, 0.0, w.trans.view(n_l, n)),
-                w.t_prev.view(n_l, n), w.still.view(n_l, n))
-
-    apart = two_launches()
-    off_plain = sum(int((a != b).sum()) for a, b in zip(got, want))
-    off_apart = sum(int((a != b).sum()) for a, b in zip(got, apart))
-    ms, two_ms = cuda_ms(run, 20), cuda_ms(two_launches, 20)
-    ms2, two_ms2 = cuda_ms(run, 20), cuda_ms(two_launches, 20)
+    two = lambda: fused_two_launches(tex, sh, cap)
+    ms, two_ms = cuda_ms(run, 20), cuda_ms(two, 20)
+    ms2, two_ms2 = cuda_ms(run, 20), cuda_ms(two, 20)
+    ops = cuda_shadow.launch_operands(*args[:-1])
+    new_l = lambda: native.launch_fused_shadow(*ops, tex, cap)
+    old_l = lambda: ab_baselines.launch_fused_shadow_cta(*args)
+    turns = {"replaced": [], "new": [], "two launches": []}
+    for _ in range(2):
+        for k, fn in (("replaced", old_l), ("new", new_l),
+                      ("two launches", two), ("two launches", two),
+                      ("new", new_l), ("replaced", old_l)):
+            turns[k].append(launch_device_ms(fn))
     fb = fused_bound(tex, sh, (tex.tr_rows, tex.tr_tex8))
     work, b10, b14 = fb["work"], fb["b10"], fb["b14"]
-    slabs, tests, walkers = fb["slabs"], fb["tests"], fb["walkers"]
-    tp_real = fb["tp_real"]
-    log(f"  fused shadow kernel, {n_l} lights x {n} first-bounce shadow "
-        f"lanes (any-hit live {float((torch.stack(sh['t_maxes']) >= 0).float().mean()):.3f}, "
-        f"walking after it {walkers}): lanes off the plain version "
-        f"{off_plain}, off flat_occluded + trans_walk launched apart "
-        f"{off_apart}; trans_eff 0 on {float((got[0] == 0).float().mean()):.3f}"
-        f"; kernel "
-        f"{ms:.4f} ms, {ms2:.4f} ms (repeat); the two launches {two_ms:.4f} "
-        f"ms, {two_ms2:.4f} ms; plain {plain_ms:.4f} ms; bound "
-        f"{work[0]:.4f} ms ({work[1]}: any-hit {b10[0]:.4f} ms, {slabs} slab "
-        f"tests, {tests} triangle tests; walk {b14[0]:.4f} ms, {walkers} "
-        f"lanes x {tp_real} columns)")
-    if off_plain or off_apart:
-        raise AssertionError("fused shadow kernel disagrees")
-    err = max(float((a.float() - b.float()).abs().max())
-              for a, b in zip(got, want))
+    log(f"  time row 15, {len(sh['dirs'])} x {n} first-bounce shadow lanes "
+        f"(walking after the any-hit {fb['walkers']}): through the wrapper "
+        f"{ms:.4f} ms, {ms2:.4f} ms (repeat); the two launches {two_ms:.4f}"
+        f" ms, {two_ms2:.4f} ms; plain {plain_ms:.4f} ms; bound "
+        f"{work[0]:.4f} ms ({work[1]}: any-hit {b10[0]:.4f} ms, "
+        f"{fb['slabs']} slab tests, {fb['tests']} triangle tests; walk "
+        f"{b14[0]:.4f} ms, {fb['walkers']} lanes x {fb['tp_real']} "
+        "columns)")
+    best = {k: min(v) for k, v in turns.items()}
+    log("  A/B row 15, device ms a launch in turns: " + "; ".join(
+        f"{k} " + " ".join(f"{x:.4f}" for x in v) for k, v in turns.items())
+        + f"; new / replaced {best['new'] / best['replaced']:.3f}, new / "
+        f"two launches {best['new'] / best['two launches']:.3f}; share of "
+        f"the bound new {work[0] / best['new']:.3f}, replaced "
+        f"{work[0] / best['replaced']:.3f}")
     return err, (min(ms, ms2), plain_ms) + work
 
 
@@ -2454,7 +2526,12 @@ def phase_live_kernels(device, tex):
     each equals its forward variant on every lane. Returns {name: (max
     abs err, (ms, plain ms, bound ms, bound by))}."""
     from path_tracer_torch import native
-    from path_tracer_torch.ops import cuda_shadow, cuda_trwalk, trwalk
+    from path_tracer_torch.ops import (
+        ab_baselines,
+        cuda_shadow,
+        cuda_trwalk,
+        trwalk,
+    )
 
     n, cap = WAVE, trwalk.TRWALK_K
     upd = training_updates(tex)
@@ -2533,6 +2610,12 @@ def phase_live_kernels(device, tex):
            f"{len(fs['dirs'])} lights x {n} first-bounce shadow lanes (a "
            f"tenth killed; walking after the any-hit {fb['walkers']}; bound "
            f"any-hit {fb['b10'][0]:.4f} ms + walk {fb['b14'][0]:.4f} ms)")
+    off_old = lanes_off(got, ab_baselines.fused_shadow_cta(upd, *args,
+                                                           live=live))
+    log(f"  fused_shadow_live: lanes off the replaced CTA design {off_old}")
+    if off_old:
+        raise AssertionError("fused_shadow_live disagrees with the replaced "
+                             "design")
     return out
 
 
@@ -2702,40 +2785,161 @@ def phase_train_steps(device, tex):
     return counts
 
 
-def khit_work(o, d, t_max, tris, gbox) -> tuple[int, int]:
+def khit_work(o, d, t_max, tris, gbox, sbox=None) -> tuple[int, int]:
     """(slab tests, MT tests) row 3 needs on these lanes (t_max encoded,
-    <= 0 dead): a slab test of every group box per live lane, and an MT
-    test of every real column of each group its segment reaches."""
+    <= 0 dead): a slab test of every group box per live lane (and of the
+    four sub-group boxes of each group it reaches, given ``sbox``), and an
+    MT test of every real column its gate admits (``cuda_khit``'s plain
+    gate: the group, and given ``sbox`` the sub-group)."""
     from path_tracer_torch.ops import cuda_khit
-    from path_tracer_torch.scene.device_scene import KHIT_GRP
+    from path_tracer_torch.scene.device_scene import KHIT_GRP, KHIT_SUB
 
-    real = (tris[3:9].abs().sum(0) > 0).view(-1, KHIT_GRP).sum(1)
+    real = (tris[3:9].abs().sum(0) > 0)
     slabs = int((t_max > 0.0).sum()) * gbox.shape[1]
     tests = 0
     for a in range(0, o.shape[0], 1 << 14):
         rs = slice(a, a + (1 << 14))
         reach = cuda_khit._group_reach(o[rs], d[rs], t_max[rs], gbox)
-        tests += int((reach * real).sum())
+        cols = reach.repeat_interleave(KHIT_GRP, dim=1)
+        if sbox is not None:
+            slabs += int(reach.sum()) * (KHIT_GRP // KHIT_SUB)
+            cols &= cuda_khit._group_reach(
+                o[rs], d[rs], t_max[rs], sbox).repeat_interleave(KHIT_SUB,
+                                                                 dim=1)
+        tests += int((cols & real).sum())
     return slabs, tests
 
 
-def phase_khit(device, tex):
-    """3g: row 3 (k_nearest_tr_hits) against its plain version on every
-    lane of the textured showcase: the middle wavefront's 2^18 camera
-    lanes with the opaque terminator as t_max (dead where the segment
-    misses every transparent cluster), its first bounce's 3 x 2^18
-    stacked shadow lanes (t_max the distance to the light with the
-    prefilter's margin, a tenth killed), and random rays through the
-    foliage with random t_max (every 7th lane dead, a ragged count), at
-    k = 6 and 1; then timed at the main path's shapes beside the plain
-    version and the bound. Returns (max abs err, {"camera": (ms, plain
-    ms, bound ms, bound by), "shadow": ...})."""
+def khit_slots(o, d, t_max, tris, gbox, sbox) -> dict:
+    """Row 3's lane slots (MT tests a lane executes or sits out) against
+    the MT tests each design needs (``khit_work``): the replaced CTA design
+    (a 128-lane CTA: every group some lane reaches costs 128 lanes x 128
+    columns; it needs the columns of the groups a lane reaches) and the new
+    warp walk (it needs the columns of the sub-groups a lane reaches; every
+    sub-group some lane of a warp reaches costs 32 lanes x 32 columns)."""
     import torch
 
     from path_tracer_torch.ops import cuda_khit
-    from path_tracer_torch.scene.device_scene import KHIT_GRP
+    from path_tracer_torch.scene.device_scene import KHIT_GRP, KHIT_SUB
 
-    tris, gbox = tex.khit_tris, tex.khit_gbox
+    g, subs = gbox.shape[1], KHIT_GRP // KHIT_SUB
+    cta = warp = 0
+    for a in range(0, o.shape[0], 1 << 14):  # whole CTAs: 2^14 lanes
+        rs = slice(a, a + (1 << 14))
+        reach = cuda_khit._group_reach(o[rs], d[rs], t_max[rs], gbox)
+        sub = cuda_khit._group_reach(o[rs], d[rs], t_max[rs], sbox)
+        sub = sub.view(-1, g, subs) & reach[:, :, None]
+        pad = -reach.shape[0] % 128
+        reach = torch.cat([reach, reach.new_zeros((pad, g))])
+        sub = torch.cat([sub, sub.new_zeros((pad, g, subs))])
+        cta += int(reach.view(-1, 128, g).any(1).sum()) * 128 * KHIT_GRP
+        warp += int(sub.view(-1, 32, g, subs).any(1).sum()) * 32 * KHIT_SUB
+    _, old_tests = khit_work(o, d, t_max, tris, gbox)
+    _, tests = khit_work(o, d, t_max, tris, gbox, sbox)
+    return dict(cta=cta, warp=warp, tests=tests, old_tests=old_tests,
+                cta_per=cta / max(old_tests, 1), warp_per=warp / max(tests, 1))
+
+
+def aimed_rays(sc, n: int, seed: int):
+    """n rays from random origins around the transparent triangles toward
+    points on the valid group boxes (corners, edge points, face points) and
+    on the cards (vertices and edge points), numpy: the grazing set of
+    tests/test_torch_walk_gate.py."""
+    g = np.random.default_rng(seed)
+    grp = sc.tr_grp.cpu().numpy()
+    boxes = grp[:6, grp[6] > 0].T
+    lo, hi = boxes[:, :3], boxes[:, 3:]
+    k, rows = n // 4, np.arange(n)
+    b = g.integers(0, len(boxes), n)
+    corner = np.where(g.integers(0, 2, (n, 3)).astype(bool), lo[b], hi[b])
+    free = g.uniform(lo[b], hi[b])
+    edge = corner.copy()
+    axis = g.integers(0, 3, n)
+    edge[rows, axis] = free[rows, axis]
+    face = free.copy()
+    keep = g.integers(0, 3, n)
+    face[rows, keep] = corner[rows, keep]
+    lo_n, hi_n = sc.n_tris_opaque, sc.num_real_triangles
+    v0, e1, e2 = (x[lo_n:hi_n].cpu().numpy()
+                  for x in (sc.tri_v0, sc.tri_e1, sc.tri_e2))
+    tri = g.integers(0, len(v0), n)
+    w = g.uniform(size=(n, 1))
+    vert = v0[tri] + np.where(g.integers(0, 3, (n, 1)) == 1, e1[tri],
+                              np.where(g.integers(0, 2, (n, 1)) == 1,
+                                       e2[tri], 0.0))
+    on_edge = v0[tri] + w * e1[tri]
+    tgt = np.concatenate([corner[:k], edge[k:2 * k], face[2 * k:3 * k],
+                          np.where(g.integers(0, 2, (n - 3 * k, 1)) == 1,
+                                   vert[3 * k:], on_edge[3 * k:])])
+    o = tgt + g.uniform(-1.0, 1.0, (n, 3)) * (v0.max(0) - v0.min(0))
+    d = tgt - o
+    return o, d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
+def khit_ungated_off(o, d, sc, k: int) -> list:
+    """Lanes where row 3's kernel differs, within t_max, from the ungated
+    plain version (every group box at +-1e30: brute-force MT), at t_max
+    +inf, the ungated first hit and an ulp below and above it; the kernel
+    must also equal the plain version on every lane of each."""
+    import torch
+
+    from path_tracer_torch.ops import cuda_khit
+
+    n = o.shape[0]
+    inf = torch.full((n,), float("inf"), device=o.device)
+    everywhere = sc.khit_gbox.clone()
+    everywhere[0:3], everywhere[3:6] = -1e30, 1e30
+    want_t, want_c = cuda_khit.k_nearest_tr_hits_plain(
+        o, d, inf, sc.khit_tris, everywhere, k)
+    first = want_t[0]
+    act = torch.ones((n,), dtype=torch.bool, device=o.device)
+    off = []
+    for tm in (inf, first, torch.nextafter(first, -inf),
+               torch.nextafter(first, inf)):
+        got_t, got_c = cuda_khit.k_nearest_tr_hits(o, d, act, sc, k,
+                                                   t_max=tm)
+        p_t, p_c = cuda_khit.k_nearest_tr_hits_plain(
+            o, d, tm, sc.khit_tris, sc.khit_gbox, k, sc.khit_sbox)
+        if not (torch.equal(got_t, p_t) and torch.equal(got_c, p_c)):
+            raise AssertionError("row 3 disagrees with its plain version")
+        w_in, g_in = want_t <= tm, got_t <= tm
+        bad = (w_in != g_in) | (w_in & ((got_t != want_t)
+                                        | (got_c != want_c)))
+        off.append(int(bad.any(0).sum()))
+    return off
+
+
+def phase_khit(device, tex):
+    """3g: row 3 (k_nearest_tr_hits: the table resident in shared memory,
+    warp walks, each lane testing the 32-column sub-groups it reaches)
+    against its plain version and the replaced CTA design
+    (``ops/ab_baselines.py``) on every lane of the textured showcase: the
+    middle wavefront's 2^18 camera lanes with the opaque terminator as
+    t_max (dead where the segment misses every transparent cluster), its
+    first bounce's 3 x 2^18 stacked shadow lanes (t_max the distance to
+    the light with the prefilter's margin, a tenth killed), and random
+    rays through the foliage with random t_max (every 7th lane dead, a
+    ragged count), at k = 6, 1 and 8; on the duplicate-card scene, rays
+    aimed at group boxes' corners, edges and faces and the cards' vertices
+    and edges, rays from 10^2 to 10^3 group extents away and tie rays
+    through the layered copies, held within t_max to the ungated plain
+    version (brute-force MT) at four t_max. Then the lane slots per needed
+    MT test of both designs and both designs in turns (device ms a
+    launch) on camera and shadow lanes, and the wrapper's time beside the
+    plain version and the bound. Returns
+    (max abs err, {"camera": (ms, plain ms, bound ms, bound by),
+    "shadow": ...})."""
+    import torch
+
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import ab_baselines, cuda_khit
+    from path_tracer_torch.scene.device_scene import KHIT_GRP
+    from path_tracer_torch.scene.procedural import (
+        duplicate_card_device_scene,
+        tie_rays,
+    )
+
+    tris, gbox, sbox = tex.khit_tris, tex.khit_gbox, tex.khit_sbox
     log(f"phase 3g: k-nearest transparent hits (row 3), textured showcase: "
         f"{tex.tri_v0.shape[0] - tex.n_tris_opaque} transparent columns in "
         f"{gbox.shape[1]} groups of {KHIT_GRP}")
@@ -2758,35 +2962,88 @@ def phase_khit(device, tex):
             ts, pos = cuda_khit.k_nearest_tr_hits(ro, rd, act, tex, k,
                                                   t_max=tm)
             want_ts, want_pos = cuda_khit.k_nearest_tr_hits_plain(
-                ro, rd, enc, tris, gbox, k)
+                ro, rd, enc, tris, gbox, k, sbox)
             off = int(((ts != want_ts) | (pos != want_pos)).any(0).sum())
+            # The replaced design gates the 128-column groups alone: equal
+            # to its own plain gate on every lane, to the new within t_max.
+            old_ts, old_pos = ab_baselines.k_nearest_tr_hits_cta(
+                ro, rd, act, tex, k, t_max=tm)
+            old_want = cuda_khit.k_nearest_tr_hits_plain(ro, rd, enc, tris,
+                                                         gbox, k)
+            off_old = int(((old_ts != old_want[0])
+                           | (old_pos != old_want[1])).any(0).sum())
+            w_in, o_in = ts <= enc, old_ts <= enc
+            off_old += int(((w_in != o_in) | (w_in & ((ts != old_ts)
+                                                     | (pos != old_pos))))
+                           .any(0).sum())
             fin = torch.isfinite(want_ts)
             if fin.any():
                 err = max(err, float((ts - want_ts)[fin].abs().max()))
             log(f"  {label}, {ro.shape[0]} lanes (live "
                 f"{float((enc > 0).float().mean()):.3f}), k = {k}: lanes off "
-                f"the plain version {off}; hits per live lane "
+                f"the plain version {off}, off the replaced CTA design "
+                f"(its own gate; the new within t_max) {off_old}; hits per "
+                f"live lane "
                 f"{float(fin.sum()) / max(1, int((enc > 0).sum())):.3f}")
-            if off:
-                raise AssertionError("row 3 disagrees with its plain version")
+            if off or off_old:
+                raise AssertionError("row 3 disagrees with its plain version "
+                                     "or the replaced design")
+
+    cards = duplicate_card_device_scene(device)
+    n_c = 1 << 14
+    card_sets = {
+        "aimed": aimed_rays(cards, n_c, 23),
+        "far": far_rays(cards, n_c, 26)[:2],
+        "tie": tie_rays(n_c, seed=5),
+    }
+    for label, (co, cd) in card_sets.items():
+        co, cd = as_cuda(co, device), as_cuda(cd, device)
+        for k in (6, 1):
+            off = khit_ungated_off(co, cd, cards, k)
+            log(f"  duplicate cards ({cards.khit_tris.shape[1]} columns), "
+                f"{label} rays, {n_c} lanes, k = {k}: lanes off the ungated "
+                f"plain version within t_max (inf, the first hit, an ulp "
+                f"below, above) {off}; off the plain version 0")
+            if any(off):
+                raise AssertionError(f"row 3, {label} rays: a hit within "
+                                     "t_max lost")
+
     out = {}
     k = KHIT_KS[0]
     for label in ("camera", "shadow"):
         ro, rd, act, tm = sets[label]
         enc = torch.where(act, tm, -1.0)
+        slots = khit_slots(ro, rd, enc, tris, gbox, sbox)
+        log(f"  row 3 {label} lanes: MT tests needed, the sub-group gate "
+            f"{slots['tests']}, the group gate alone {slots['old_tests']}; "
+            f"lane slots per needed test, replaced CTA design "
+            f"{slots['cta_per']:.3f}, new {slots['warp_per']:.3f}; lane "
+            f"slots, new / replaced {slots['warp'] / max(slots['cta'], 1):.3f}")
         run = lambda: cuda_khit.k_nearest_tr_hits(ro, rd, act, tex, k,
                                                   t_max=tm)
         plain = lambda: cuda_khit.k_nearest_tr_hits_plain(ro, rd, enc, tris,
-                                                          gbox, k)
+                                                          gbox, k, sbox)
         ms, plain_ms, ms2 = cuda_ms(run, 20), cuda_ms(plain, 2), cuda_ms(
             run, 20)
-        slabs, tests = khit_work(ro, rd, enc, tris, gbox)
+        old_ms, new_ms = device_turns(
+            lambda: ab_baselines.launch_khit_cta(ro, rd, enc, tris, gbox, k),
+            lambda: native.launch_khit(ro, rd, enc, tris, gbox, sbox, k))
+        slabs, tests = khit_work(ro, rd, enc, tris, gbox, sbox)
         work = bound(slabs * OPS_SLAB + tests * OPS_MT,
-                     nbytes(ro, rd, enc, tris, gbox) + ro.shape[0] * k * 8)
-        log(f"  time row 3, {ro.shape[0]} {label} lanes, k = {k}: kernel "
-            f"{ms:.4f} ms, {ms2:.4f} ms (repeat); plain {plain_ms:.4f} ms; "
-            f"bound {work[0]:.4f} ms ({work[1]}: {slabs} slab tests, {tests} "
-            "MT tests)")
+                     nbytes(ro, rd, enc, tris, gbox, sbox)
+                     + ro.shape[0] * k * 8)
+        new, old = min(new_ms), min(old_ms)
+        log(f"  time row 3, {ro.shape[0]} {label} lanes, k = {k}: through "
+            f"the wrapper {ms:.4f} ms, {ms2:.4f} ms (repeat); plain "
+            f"{plain_ms:.4f} ms; bound {work[0]:.4f} ms ({work[1]}: {slabs} "
+            f"slab tests, {tests} MT tests), floor {2 * work[0]:.4f} ms")
+        log(f"  A/B row 3 {label} lanes, device ms a launch in turns: "
+            "replaced " + " ".join(f"{x:.4f}" for x in old_ms) + "; new "
+            + " ".join(f"{x:.4f}" for x in new_ms) + f"; new / replaced "
+            f"{new / old:.3f}; share of the bound new {work[0] / new:.3f}, "
+            f"replaced {work[0] / old:.3f}")
+        if work[0] > new:
+            raise AssertionError(f"row 3 {label}: faster than its bound")
         out[label] = (min(ms, ms2), plain_ms) + work
     return err, out
 
@@ -3110,28 +3367,6 @@ def launch_device_ms(fn, iters: int = 10) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
-
-
-def layout_turns(label: str, launch) -> None:
-    """Logs the device ms a call of ``launch`` (a tree walk launch) takes
-    with each in-leaf layout alone against the mix, in turns (mix, lane
-    per ray, the leaf over the warp, then back): ``native.
-    TREE_WALK_LANE_WISE`` set to 1 and 33 for the call, then restored."""
-    from path_tracer_torch import native
-
-    mix = native.TREE_WALK_LANE_WISE
-    order = (("the mix", mix), ("lane per ray", 1), ("over the warp", 33))
-    ms = {k: [] for k, _ in order}
-    try:
-        for seq in (order, order[::-1]):
-            for k, lane_wise in seq:
-                native.TREE_WALK_LANE_WISE = lane_wise
-                ms[k].append(launch_device_ms(launch))
-    finally:
-        native.TREE_WALK_LANE_WISE = mix
-    log(f"    {label}, each in-leaf layout alone, device ms a launch in "
-        "turns: " + "; ".join(f"{k} " + " ".join(f"{x:.4f}" for x in v)
-                              for k, v in ms.items()))
 
 
 def device_turns(old, new):
@@ -4376,28 +4611,92 @@ def phase_rows_5_4(device, tex, grid) -> dict:
     return out
 
 
+def phase_flat_turns(device, showcase, big) -> None:
+    """3p: rows 9-12's device ms a launch (``launch_device_ms``, three
+    readings each) at the main path's shapes: rows 9 and 11 on the middle
+    wavefront's 2^18 camera and first-bounce lanes, rows 10 and 12 on the
+    first bounce's 3 x 2^18 shadow lanes in one launch, on the plain
+    showcase (9, 10) and scene A (11, 12). It calls only launchers whose
+    operands have not changed since the flat kernels' gates were widened,
+    so this script, copied into a checkout of an earlier commit and run
+    there, times that commit's kernels on the same lanes: run from both,
+    in turns, it gives the widening's cost on one card."""
+    import torch
+
+    from path_tracer_torch import native
+
+    n = WAVE
+    log("phase 3p: rows 9-12, device ms a launch")
+    for name, sc, rows in (("plain showcase", showcase, ("9", "10")),
+                           ("scene A", big, ("11", "12"))):
+        flat = (sc.sl_blkflat, sc.sl_blkid, sc.sl_bw_t, sc.sl_block)
+        two = (sc.sl_sbflat, sc.sl_sbid) if sc is big else ()
+        closest = (native.launch_flat2_closest_hit if two
+                   else native.launch_flat_closest_hit)
+        any_hit = (native.launch_flat2_occluded if two
+                   else native.launch_flat_occluded)
+        co, cd = camera_rays(sc, n, device)
+        (bo, bd, btp), _ = first_bounce(sc, n, device)
+        sh = first_bounce_shadows(sc, n, device)
+        dss = torch.stack(sh["dirs"]).contiguous()
+        tmss = torch.stack(sh["t_maxes"]).contiguous()
+        minus1 = torch.full((n,), -1.0, device=device)
+        cases = (
+            (f"row {rows[0]} {name} camera lanes",
+             lambda: closest(co, cd, minus1, *two, *flat)),
+            (f"row {rows[0]} {name} first-bounce lanes",
+             lambda: closest(bo, bd, btp, *two, *flat)),
+            (f"row {rows[1]} {name} first-bounce shadow sets",
+             lambda: any_hit(sh["s_o"], dss, tmss, *two, *flat)),
+        )
+        for label, fn in cases:
+            ms = [launch_device_ms(fn) for _ in range(3)]
+            log(f"  time {label}: " + " ".join(f"{x:.4f}" for x in ms)
+                + f" (best {min(ms):.4f})")
+
+
+def ungated_scene(sc):
+    """The scene with every real block and superblock box at +-1e30: the
+    flat and flat2 walks' ungated form (every block tested by every live
+    lane), their judge on tie rays."""
+    import dataclasses
+
+    def opened(boxes, ids):
+        boxes = boxes.clone()
+        real = ids[0] >= 0
+        boxes[0:3, real] = -1e30
+        boxes[3:6, real] = 1e30
+        return boxes
+
+    return dataclasses.replace(
+        sc, sl_blkflat=opened(sc.sl_blkflat, sc.sl_blkid),
+        sl_sbflat=opened(sc.sl_sbflat, sc.sl_sbid))
+
+
 def phase_rows_7_8(device, showcase, big) -> dict:
     """3n: rows 7 and 8 (the superleaf tree walk as warp walks, each lane
     testing the leaves its own gate admits; the any-hit over all L sets in
     one launch) against their plain versions on every field of every lane,
-    the lanes where the replaced CTA design (``ops/ab_baselines.py``)
-    differs logged, not held: on the plain showcase and scene A's whole
+    on the plain showcase and scene A's whole
     table, the middle wavefront's 2^18 camera lanes, first-bounce lanes,
     random and incoherent (cosine from random surface points) lanes, a
     ragged count with dead warps, and the first bounce's 3 x 2^18 shadow
     lanes (a tenth killed), the incoherent lanes' shadow sets and a ragged
     count with dead warps; tie rays on ``duplicate_grid_scene`` (pairs of
     copies in one leaf, a stack of 300 over several), t_max 1.5 t and
-    0.5 t. Then the work (``tree_walk_visits``) on the showcase's and
-    scene A's camera, first-bounce and first shadow set, and both designs
-    in turns (old, new, new, old, twice; ``launch_device_ms``, the launch
-    alone) with the bound recounted from the new plain version's needed
-    tests, beside rows 9 and 10 (showcase) or 11 and 12 (scene A) on the
-    same rays. Returns the errors and times."""
+    0.5 t, held also against brute-force MT, and rows 9-12 (the flat and
+    flat2 kernels) on the same tie rays against their ungated plain
+    versions (every block and superblock box at +-1e30: brute-force
+    Baldwin-Weber). Then the work (``tree_walk_visits``) on the
+    showcase's and scene A's camera, first-bounce and first shadow set,
+    and the device ms a launch (``launch_device_ms``, twice) with the
+    bound recounted from the plain version's needed tests, beside rows 9
+    and 10 (showcase) or 11 and 12 (scene A) on the same rays. Returns the
+    errors and times."""
     import torch
 
     from path_tracer_torch import native
-    from path_tracer_torch.ops import ab_baselines, cuda_bvh, cuda_intersect
+    from path_tracer_torch.ops import cuda_bvh, cuda_intersect
     from path_tracer_torch.scene import build_scene
     from path_tracer_torch.scene.procedural import (
         duplicate_grid_scene,
@@ -4405,9 +4704,9 @@ def phase_rows_7_8(device, showcase, big) -> dict:
         tie_winners,
     )
 
-    log("phase 3n: rows 7 and 8 redesigned (warp walks, a lane testing the "
-        "leaves its own gate admits; the any-hit's L sets in one launch) "
-        "against their plain versions and the CTA design they replaced")
+    log("phase 3n: rows 7 and 8 (warp walks, a lane testing the leaves its "
+        "own gate admits; the any-hit's L sets in one launch) against their "
+        "plain versions; rows 7-12 on tie rays against brute force")
     phase_t0 = time.perf_counter()
     n, m = WAVE, WAVE // 4  # 2^16 random, incoherent and ragged lanes
     rr = m - 37
@@ -4421,9 +4720,6 @@ def phase_rows_7_8(device, showcase, big) -> dict:
         new = cuda_bvh.closest_hit_triangles_tree(o, d, tp, sc)
         out["row7_err"] = max(out["row7_err"],
                               held(f"row 7, {label}", new, {"plain": plain}))
-        old = ab_baselines.closest_hit_triangles_tree_cta(o, d, tp, sc)
-        log(f"    the replaced CTA design: {int(lanes_off(old, new))} lanes "
-            "off (logged, not held)")
         return new
 
     def any_held(label, o, ds, tms, sc, plain=None):
@@ -4435,13 +4731,11 @@ def phase_rows_7_8(device, showcase, big) -> dict:
         new = cuda_bvh.occluded_triangles_tree_multi(o, ds, tms, sc)
         launches = cuda_bvh.tree_occluded_launches - before
         off = int((new != plain).sum())
-        old = ab_baselines.occluded_triangles_tree_cta_multi(o, ds, tms, sc)
         dead = torch.stack(list(tms)) < 0.0
         log(f"  row 8, {label}: {len(ds)} x {o.shape[0]} lanes in "
             f"{launches} launch, occluded "
             f"{float(new[~dead].float().mean()):.3f} of the live; lanes off "
-            f"the plain version {off}; the replaced CTA design "
-            f"{int((old != new).sum())} (logged, not held)")
+            f"the plain version {off}")
         if off or launches != 1 or not bool(new[dead].all()):
             raise AssertionError(f"row 8, {label}: the tree any-hit "
                                  "disagrees")
@@ -4495,12 +4789,9 @@ def phase_rows_7_8(device, showcase, big) -> dict:
         sbs = (sc.sl_sbflat, sc.sl_sbid)
         for label, (o, d, tp) in cases.items():
             b = tree_bound(visits[label], sc, o, d, tp, n * (4 * 4 + 4))
-            old_ms, new_ms = device_turns(
-                lambda: ab_baselines.launch_tree_closest_hit_cta(o, d, tp,
-                                                                 sc),
+            new_ms = [launch_device_ms(
                 lambda: native.launch_tree_closest_hit(o, d, tp, *tables))
-            layout_turns(f"row 7 {name} {label} lanes", lambda: (
-                native.launch_tree_closest_hit(o, d, tp, *tables)))
+                for _ in range(2)]
             other = launch_device_ms(
                 (lambda: native.launch_flat_closest_hit(o, d, tp, *flat))
                 if sc is showcase else
@@ -4510,17 +4801,14 @@ def phase_rows_7_8(device, showcase, big) -> dict:
                 lambda: cuda_bvh.closest_hit_triangles_tree_plain(o, d, tp,
                                                                   sc))
             out["times"][f"row 7 {name} {label} lanes"] = (
-                old_ms, new_ms, b, plain_ms, (rows[0], other),
+                new_ms, b, plain_ms, (rows[0], other),
                 wrapper_ms(lambda: cuda_bvh.closest_hit_triangles_tree(
                     o, d, tp, sc)))
         dss, tmss = torch.stack(sds).contiguous(), torch.stack(stms)
         b = tree_bound(sv, sc, so, dss, tmss, dss.shape[0] * n)
-        old_ms, new_ms = device_turns(
-            lambda: [ab_baselines.launch_tree_occluded_cta(so, sd, tm, sc)
-                     for sd, tm in zip(sds, stms)],
+        new_ms = [launch_device_ms(
             lambda: native.launch_tree_occluded(so, dss, tmss, *tables))
-        layout_turns(f"row 8 {name} first-bounce shadow sets", lambda: (
-            native.launch_tree_occluded(so, dss, tmss, *tables)))
+            for _ in range(2)]
         other = launch_device_ms(
             (lambda: native.launch_flat_occluded(so, dss, tmss, *flat))
             if sc is showcase else
@@ -4530,7 +4818,7 @@ def phase_rows_7_8(device, showcase, big) -> dict:
             lambda: cuda_bvh.occluded_triangles_tree_multi_plain(so, sds,
                                                                  stms, sc))
         out["times"][f"row 8 {name} first-bounce shadow sets"] = (
-            old_ms, new_ms, b, plain_ms, (rows[1], other),
+            new_ms, b, plain_ms, (rows[1], other),
             wrapper_ms(lambda: cuda_bvh.occluded_triangles_tree_multi(
                 so, sds, stms, sc)))
 
@@ -4543,16 +4831,28 @@ def phase_rows_7_8(device, showcase, big) -> dict:
     tie_tp = torch.full((rr,), -1.0, device=device)
     tie_tp[::9] = float("inf")
 
+    ungated = ungated_scene(ties)
+    off = lambda x, w: int(((x.valid != w.valid)
+                            | (w.valid & (x.t != w.t))).sum())
+
     def brute_held(label, tp, new):
         brute = cuda_intersect.closest_hit_triangles_cuda(to, td, tp, ties)
-        old = ab_baselines.closest_hit_triangles_tree_cta(to, td, tp, ties)
-        off = lambda x: int(((x.valid != brute.valid)
-                             | (brute.valid & (x.t != brute.t))).sum())
         log(f"    {label}, against brute-force MT (hit/miss or t): lanes "
-            f"off {off(new)}; the replaced CTA design {off(old)} (logged)")
-        if off(new):
+            f"off {off(new, brute)}")
+        if off(new, brute):
             raise AssertionError(f"row 7, {label}: a hit of the brute "
                                  "force lost")
+        for walk in ("flat", "flat2"):  # rows 9 and 11
+            got = getattr(cuda_bvh, f"closest_hit_triangles_{walk}")(
+                to, td, tp, ties)
+            want = getattr(cuda_bvh, f"closest_hit_triangles_{walk}_plain")(
+                to, td, tp, ungated)
+            log(f"    {label}, the {walk} kernel against its ungated plain "
+                f"version (hit/miss or t): lanes off {off(got, want)} (prim "
+                f"{int((got.prim != want.prim).sum())})")
+            if off(got, want):
+                raise AssertionError(f"{walk}, {label}: a hit of the "
+                                     "ungated walk lost")
         return brute
 
     hits = closest_held("tie rays (centroids, the stack, edges, vertices), "
@@ -4577,27 +4877,31 @@ def phase_rows_7_8(device, showcase, big) -> dict:
                    [td] * len(tms), tms, ties)
     want = torch.stack([(brute.valid & (brute.t <= tm)) | (tm < 0)
                         for tm in tms])
-    old = ab_baselines.occluded_triangles_tree_cta_multi(to, [td] * len(tms),
-                                                         tms, ties)
     log(f"    tie rays' any-hits against brute-force MT: lanes off "
-        f"{int((occ != want).sum())}; the replaced CTA design "
-        f"{int((old != want).sum())} (logged)")
+        f"{int((occ != want).sum())}")
     if (occ != want).any():
         raise AssertionError("row 8, tie rays: a hit of the brute force "
                              "lost")
+    for walk in ("flat", "flat2"):  # rows 10 and 12
+        got = getattr(cuda_bvh, f"occluded_triangles_{walk}_multi")(
+            to, [td] * len(tms), tms, ties)
+        want = getattr(cuda_bvh, f"occluded_triangles_{walk}_multi_plain")(
+            to, [td] * len(tms), tms, ungated)
+        log(f"    tie rays' any-hits, the {walk} kernel against its ungated "
+            f"plain version: lanes off {int((got != want).sum())}")
+        if (got != want).any():
+            raise AssertionError(f"{walk} any-hit, tie rays: a hit of the "
+                                 "ungated walk lost")
 
-    for label, (old_ms, new_ms, b, plain_ms, (row, other), wrap) in \
+    for label, (new_ms, b, plain_ms, (row, other), wrap) in \
             out["times"].items():
-        new, old = min(new_ms), min(old_ms)
-        log(f"  A/B {label}, device ms a launch: old design {old:.4f} "
-            "(readings " + " ".join(f"{x:.4f}" for x in old_ms) + f"), new "
-            f"{new:.4f} (" + " ".join(f"{x:.4f}" for x in new_ms) + "); "
-            f"bound {b[0]:.4f} ms ({b[1]}), -fmad=false floor "
-            f"{2 * b[0]:.4f} ms; share of the bound new {b[0] / new:.3f}, "
-            f"old {b[0] / old:.3f}; new / old {new / old:.3f}; row {row} on "
-            f"the same rays {other:.4f}; plain (the tree walk) "
-            f"{plain_ms:.4f} ms; the new design through its wrapper "
-            f"(cuda_ms, as the kernels line) {wrap:.4f} ms")
+        new = min(new_ms)
+        log(f"  time {label}, device ms a launch: "
+            + " ".join(f"{x:.4f}" for x in new_ms) + f"; bound {b[0]:.4f} "
+            f"ms ({b[1]}), -fmad=false floor {2 * b[0]:.4f} ms; share of "
+            f"the bound {b[0] / new:.3f}; row {row} on the same rays "
+            f"{other:.4f}; plain (the tree walk) {plain_ms:.4f} ms; through "
+            f"its wrapper (cuda_ms, as the kernels line) {wrap:.4f} ms")
         if b[0] > new:
             raise AssertionError(f"{label}: faster than its bound")
     log(f"  phase 3n took {time.perf_counter() - phase_t0:.1f} s")
@@ -4857,9 +5161,9 @@ def main() -> int:
     from path_tracer_torch import native
 
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
-    if sys.argv[1:] and (len(sys.argv) != 3
-                         or only not in ("3i", "3j", "3k", "3l", "3m", "3n")):
-        print("usage: chip_smoke.py [--only 3i|3j|3k|3l|3m|3n]",
+    alone = ("3i", "3j", "3k", "3l", "3m", "3n", "3o", "3p")
+    if sys.argv[1:] and (len(sys.argv) != 3 or only not in alone):
+        print("usage: chip_smoke.py [--only " + "|".join(alone) + "]",
               file=sys.stderr)
         return 2
     card = smi()
@@ -4894,6 +5198,16 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s; tr_kernel_ok {tex.tr_kernel_ok}")
     if not tex.tr_kernel_ok:
         raise AssertionError("textured showcase: no walk-kernel tables")
+    if only == "3o":  # phase 3o alone: rows 15, 3 and 15L
+        log("phase 3o: rows 15 and 3 (3f's and 3g's checks and turns), then "
+            "15L (6a)")
+        phase_fused_shadow_kernel(device, tex)
+        phase_khit(device, tex)
+        phase_live_kernels(device, tex)
+        log(f"chip_smoke: phase 3o passed in "
+            f"{time.perf_counter() - start:.1f} s")
+        print(card)
+        return 0
     if only == "3i":  # phase 3i alone
         phase_redesigned(device, showcase)
         log(f"chip_smoke: phase 3i passed in "
@@ -4929,8 +5243,10 @@ def main() -> int:
         f"{walks}, tr_kernel_ok {big.tr_kernel_ok}")
     if walks != ["flat2", "flat"] or not big.tr_kernel_ok:
         raise AssertionError("scene A does not route as the JAX package's")
-    if only in ("3j", "3k", "3l", "3n"):  # phase 3j, 3k, 3l or 3n alone
-        if only == "3j":
+    if only in ("3j", "3k", "3l", "3n", "3p"):  # one of these alone
+        if only == "3p":
+            phase_flat_turns(device, showcase, big)
+        elif only == "3j":
             phase_rows_10_11(device, showcase, tex, big)
         elif only == "3k":
             phase_rows_13_14(device, tex, big)
@@ -5022,7 +5338,7 @@ def main() -> int:
     for key, label in (("camera", "row 7 plain showcase camera lanes"),
                        ("occluded", "row 8 plain showcase first-bounce "
                                     "shadow sets")):
-        _, _, b, plain_ms, _, wrap = rows_7_8["times"][label]
+        _, b, plain_ms, _, wrap = rows_7_8["times"][label]
         tree_times[key] = (wrap, plain_ms) + b
     kernels = [
         entry("mt_closest_hit", "mt_closest_hit.cu", "pallas_intersect.py:39",

@@ -129,7 +129,7 @@ cudaError_t launch(const float* o, const float* d, const float* t_op,
                    cudaStream_t stream) {
   size_t smem;
   int blocks;
-  const cudaError_t err = ptt::resident_launch_shape(
+  const cudaError_t err = ptt::resident_walk_shape(
       alpha_walk_kernel<Texel>, tb.T, R, device, smem, blocks);
   if (err != cudaSuccess) return err;
   alpha_walk_kernel<Texel><<<blocks, kResThreads, smem, stream>>>(

@@ -9,7 +9,10 @@
 //   - superblock gate on the [8, sbpad] union table: tf >= max(tn, 0),
 //     tf > t_prev and superblock id >= 0; then the same block gate on the
 //     superblock's 128 columns of the [8, bpad] block table (block id >= 0),
-//     zero direction components inverted to 1e30;
+//     zero direction components inverted to 1e30; both on boxes widened by
+//     flat_common.cuh's pad_box and intervals by its pad_slab, as
+//     flat_closest_hit.cu's (a widened block box lies inside its widened
+//     superblock box);
 //   - a block's BW rows are those of its id (blkid), never of its column:
 //     the opacity partition leaves gaps between the column ranges;
 //   - the Baldwin-Weber test of flat_closest_hit.cu per slot, with its tie
@@ -129,7 +132,7 @@ flat2_closest_hit_kernel(const float* __restrict__ o,
       unsigned mask[kGroup / 32];
 #pragma unroll
       for (int q = 0; q < kGroup / 32; ++q) {
-        box[q] = ptt::load_box(blk, bpad, w + 32 * q + lane);
+        box[q] = ptt::pad_box(ptt::load_box(blk, bpad, w + 32 * q + lane));
         mask[q] = 0u;
       }
       for (unsigned mm = sb_mask; mm; mm &= mm - 1) {
@@ -141,6 +144,7 @@ flat2_closest_hit_kernel(const float* __restrict__ o,
         for (int q = 0; q < kGroup / 32; ++q) {
           float tn, tf;
           ptt::slab(box[q], kox, koy, koz, kix, kiy, kiz, tn, tf);
+          ptt::pad_slab(tn, tf);
           if (gate.pass(tn, tf, ktp)) mask[q] |= 1u << k;
         }
       }

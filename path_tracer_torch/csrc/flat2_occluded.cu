@@ -10,15 +10,15 @@
 //   - superblock gate tf >= max(tn, 0), tn <= t_max, t_max >= 0 and id >= 0,
 //     then the same block gate on the superblock's 128 block columns;
 //     rows addressed by block id; zero direction components inverted to
-//     1e30;
+//     1e30; both on widened boxes and intervals, as flat_closest_hit.cu's;
 //   - a ray is occluded when some triangle hit has 1e-6 <= t <= t_max, by
 //     the Baldwin-Weber test of flat_closest_hit.cu (same rounding);
 //   - a dead lane is t_max < 0 and reports occluded (the caller masks it);
 //     a warp with no lane of t_max >= 0 skips the walk;
 //   - the result does not depend on the visit order (any hit counts), so
 //     it equals the plain version's on every lane, and the flat any-hit's
-//     (flat_occluded.cu) on the same tables: a block's box lies inside its
-//     superblock's and slab rounding is monotone.
+//     (flat_occluded.cu) on the same tables: a block's widened box lies
+//     inside its superblock's and slab rounding is monotone.
 //
 // Bound on the card: arithmetic in the block visits (32 operations per
 // ray-slot Baldwin-Weber test, each ray stopping at its first occluder)
@@ -131,7 +131,7 @@ flat2_occluded_kernel(const float* __restrict__ o,
       unsigned mask[kGroup / 32];
 #pragma unroll
       for (int q = 0; q < kGroup / 32; ++q) {
-        box[q] = ptt::load_box(blk, bpad, w + 32 * q + lane);
+        box[q] = ptt::pad_box(ptt::load_box(blk, bpad, w + 32 * q + lane));
         mask[q] = 0u;
       }
       for (unsigned mm = sb_need; mm; mm &= mm - 1) {
@@ -143,6 +143,7 @@ flat2_occluded_kernel(const float* __restrict__ o,
         for (int q = 0; q < kGroup / 32; ++q) {
           float tn, tf;
           ptt::slab(box[q], kox, koy, koz, kix, kiy, kiz, tn, tf);
+          ptt::pad_slab(tn, tf);
           if (gate.pass(tn, tf, ktm)) mask[q] |= 1u << k;
         }
       }

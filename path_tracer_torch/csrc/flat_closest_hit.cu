@@ -7,7 +7,12 @@
 // kept (with the plain version, ops/cuda_bvh.py):
 //   - block slab gate tf >= max(tn, 0) and tf > t_prev on the [8, bpad]
 //     AABB table, zero direction components inverted to 1e30; pad columns
-//     (block id < 0) are excluded by id (their bounds may slab-pass);
+//     (block id < 0) are excluded by id (their bounds may slab-pass). The
+//     box is widened by flat_common.cuh's pad_box and the interval by its
+//     pad_slab (ops/slab.py): on the exact box a ray through a vertex or an
+//     edge lying on the box can fail the block whose triangle its rounded
+//     test hits (the Pallas kernel gated the union of a tile's rays, which
+//     hid most such lanes);
 //   - Baldwin-Weber test per slot: |d.n| >= 1e-6, t = (c - o.n) * 1/(d.n),
 //     t >= 1e-6 and t > t_prev, u = Au.h + au >= 0, v = Av.h + av >= 0,
 //     u + v <= 1; backface = d.n > 0 (MT det = -d.n);

@@ -3,12 +3,12 @@
 // slab test, the block walks, the Baldwin-Weber (BW) triangle test and the
 // sphere root rules are written.
 //
-// Two walks share them. The CTA walk (cta_min_key_max through
-// occluded_block, and flat_occ_set) serves fused_shadow.cu and the sphere
-// any-hit walk of sph_occ.cu: a CTA of 128 rays shares one walk and stages
-// each visited block in shared memory behind CTA barriers. The warp walk
-// (kFullMask to the end) serves flat_closest_hit.cu, flat_occluded.cu,
-// flat2_closest_hit.cu, flat2_occluded.cu and sph_walk.cu: each warp is
+// Two walks share them. The CTA walk (cta_min_key_max through next_column)
+// serves the sphere any-hit walk of sph_occ.cu: a CTA of 128 rays shares
+// one walk behind CTA barriers. The warp walk (kFullMask to
+// warp_walk_smem) serves flat_closest_hit.cu, flat_occluded.cu,
+// flat2_closest_hit.cu, flat2_occluded.cu, fused_shadow.cu and sph_walk.cu:
+// each warp is
 // its own packet, with no CTA barrier; its gate admits block columns with
 // the mask of the rays they admit, and each admitted block is spread over
 // the warp (or, in sph_walk.cu, served lane per ray when most of the warp
@@ -16,7 +16,9 @@
 // serve both; the warp walk's bw_slot_closest and bw_slot_any repeat
 // bw_plane's and bw_inside's arithmetic on a slot held in registers.
 // pad_box and pad_slab widen the gates of the resident transparent walk
-// (trwalk_common.cuh) and the tree walk (tree_walk.cu). TriRecord and write_sphere_record are the sphere closest hits' record
+// (trwalk_common.cuh), the tree walk (tree_walk.cu), the flat and flat2
+// walks and row 3 (khit.cu); the sphere walks gate on exact boxes.
+// TriRecord and write_sphere_record are the sphere closest hits' record
 // and merge (sphere_closest_hit.cu, sph_walk.cu).
 //
 // Every expression is written in the order of the plain PyTorch versions
@@ -25,6 +27,8 @@
 #pragma once
 
 #include <climits>
+#include <mutex>
+#include <vector>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -84,7 +88,8 @@ __device__ __forceinline__ void slab(const Box& b, float ox, float oy,
 }
 
 // The widened boxes and slab intervals of the walks that gate a lane by its
-// own slab test (trwalk_common.cuh's resident walk, tree_walk.cu). A box
+// own slab test (trwalk_common.cuh's resident walk, tree_walk.cu, the flat
+// and flat2 walks' warp_gate_mask and block gates, khit.cu). A box
 // holds its triangles' vertices exactly, but a hit's rounded t and
 // barycentrics can place a grazing hit (a ray through a vertex or an edge
 // lying on the box) outside the rounded slab interval: by about 2^-24 of
@@ -114,6 +119,34 @@ __device__ __forceinline__ Box pad_box(const Box& b) {
 __device__ __forceinline__ void pad_slab(float& tn, float& tf) {
   tn = tn - fabsf(tn) * kPadT;
   tf = tf + fabsf(tf) * kPadT;
+}
+
+// Row 3's group gate (khit.cu, and its replaced design in ab_baselines.cu):
+// whether a lane's segment (0, tm] reaches box w, already widened by
+// pad_box. Its own slab, as the Pallas kernel's: IEEE reciprocals i (inf on
+// a zero component), a NaN bound on an axis (0 * inf, the origin on a box
+// plane) opening that axis to all t; the interval widened by pad_slab.
+// ops/cuda_khit.py _group_reach is the same expressions.
+__device__ __forceinline__ void ieee_axis(float bmin, float bmax, float o,
+                                          float inv, float& tn, float& tf) {
+  const float lo = (bmin - o) * inv;
+  const float hi = (bmax - o) * inv;
+  const bool nan = isnan(lo) || isnan(hi);
+  tn = nan ? -CUDART_INF_F : fminf(lo, hi);
+  tf = nan ? CUDART_INF_F : fmaxf(lo, hi);
+}
+
+__device__ __forceinline__ bool khit_reach(const Box& w, float ox, float oy,
+                                           float oz, float ix, float iy,
+                                           float iz, float tm) {
+  float tnx, tfx, tny, tfy, tnz, tfz;
+  ieee_axis(w.x0, w.x1, ox, ix, tnx, tfx);
+  ieee_axis(w.y0, w.y1, oy, iy, tny, tfy);
+  ieee_axis(w.z0, w.z1, oz, iz, tnz, tfz);
+  float tn = fmaxf(fmaxf(tnx, tny), tnz);
+  float tf = fminf(fminf(tfx, tfy), tfz);
+  pad_slab(tn, tf);
+  return tf >= fmaxf(tn, 0.f) && tn <= tm;
 }
 
 // BW plane test of one triangle (rows n.xyz, c of the BW table at s[0..3]
@@ -248,13 +281,13 @@ __device__ __forceinline__ void cta_min_key_max(float& key, int& col,
   __syncthreads();
 }
 
-// The CTA block walk of the flat and flat2 kernels and the sphere walks. A CTA
-// of kCtaRays consecutive rays shares one walk; its dynamic shared memory is
-// s_bw [12][block] (one staged block), s_key [bpad] (nearest slab entry per
-// column) and s_ray [kRayRows][kCtaRays] (origin, inverted direction and
-// the lane's gate value g: t_prev for the closest hit, t_max for the
-// any-hit). A Gate has live(g), whether a lane takes part, and
-// pass(tn, tf, g), the block slab gate of a live lane.
+// The CTA block walk of the sphere any-hit walk (sph_occ.cu). A CTA of
+// kCtaRays consecutive rays shares one walk; its dynamic shared memory is
+// the staged block, s_key [bpad] (nearest slab entry per column) and s_ray
+// [kRayRows][kCtaRays] (origin, inverted direction and the lane's gate
+// value g: t_prev for the closest hit, t_max for the any-hit). A Gate has
+// live(g), whether a lane takes part, and pass(tn, tf, g), the block slab
+// gate of a live lane.
 constexpr int kCtaRays = 128;
 constexpr int kRayRows = 7;  // ox, oy, oz, 1/dx, 1/dy, 1/dz, g
 
@@ -346,37 +379,6 @@ __device__ __forceinline__ void next_column(float* s_key, int bpad,
   if (threadIdx.x == 0 && col < bpad) s_key[col] = CUDART_INF_F;
 }
 
-// Stages the 12 used BW rows of block b (columns [b*block, (b+1)*block) of
-// the [16, n_cols] table) into s_bw, then waits for the whole CTA.
-__device__ __forceinline__ void stage_block(const float* __restrict__ bw,
-                                            int b, int block, int n_cols,
-                                            float* s_bw) {
-  const float* src = bw + (size_t)b * block;
-  for (int idx = threadIdx.x; idx < 12 * block; idx += kCtaRays) {
-    const int r = idx / block;
-    s_bw[idx] = src[(size_t)r * n_cols + (idx - r * block)];
-  }
-  __syncthreads();
-}
-
-// Any-hit BW test of one lane against the block staged in s_bw: true at the
-// first hit with kTMin <= t <= tm.
-__device__ __forceinline__ bool occluded_block(const float* s_bw, int block,
-                                               float ox, float oy, float oz,
-                                               float dx, float dy, float dz,
-                                               float tm) {
-  for (int j = 0; j < block; ++j) {
-    float dn;
-    bool ok;
-    const float t = bw_plane(s_bw + j, block, ox, oy, oz, dx, dy, dz, dn, ok);
-    if (!(ok && t >= kTMin && t <= tm)) continue;
-    float u, v;
-    if (bw_inside(s_bw + j, block, ox, oy, oz, dx, dy, dz, t, u, v))
-      return true;
-  }
-  return false;
-}
-
 // The flat block tables of one walk: blk [8, bpad] AABBs, blkid [bpad],
 // bw [16, n_cols] Baldwin-Weber rows in blocks of 'block' slots.
 struct FlatTable {
@@ -387,52 +389,6 @@ struct FlatTable {
   int block;
   int n_cols;
 };
-
-// The per-set body of the flat any-hit (flat_occluded.cu; fused_shadow.cu
-// runs it before the transmittance walk): whether this lane is occluded,
-// a dead lane (tm < 0) reporting occluded. The CTA's lanes share one walk:
-// the nearest slab entry of each block column over the lanes, then the
-// columns nearest first, each staged in shared memory (12 BW rows) only
-// while some lane of the CTA is still unoccluded and slab-passes it; a lane
-// leaves the block's slot loop at its first hit. The walk ends when every
-// lane is occluded or no column is left. smem holds the floats
-// walk_smem(kernel, 12 * block, bpad, ...) sizes, red 3 * warps. Every
-// thread of the CTA must call it; smem is free again when it returns.
-__device__ __forceinline__ bool flat_occ_set(const FlatTable& ft, float ox,
-                                             float oy, float oz, float dx,
-                                             float dy, float dz, float tm,
-                                             float* smem, float* red) {
-  float* s_bw = smem;                   // [12][block]
-  float* s_key = s_bw + 12 * ft.block;  // [bpad]
-  float* s_ray = s_key + ft.bpad;       // [kRayRows][kCtaRays]
-  const OccludedGate gate;
-  const bool live = gate.live(tm);  // lanes that may be occluded
-  bool occ = tm < 0.f;              // dead lanes report occluded
-  if (__syncthreads_or(live)) {
-    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-    stage_ray(s_ray, ox, oy, oz, ix, iy, iz, tm);
-    column_keys(ft.blk, ft.blkid, ft.bpad, ft.bpad, s_ray, s_key, gate);
-    while (true) {
-      float key, open = (live && !occ) ? 1.f : 0.f;  // any lane still open?
-      int col;
-      next_column(s_key, ft.bpad, key, col, open, red);
-      if (col >= ft.bpad || open == 0.f) break;
-      bool need = false;
-      if (live && !occ) {
-        float tn, tf;
-        slab(load_box(ft.blk, ft.bpad, col), ox, oy, oz, ix, iy, iz, tn, tf);
-        need = gate.pass(tn, tf, tm);
-      }
-      if (!__syncthreads_or(need)) continue;
-      stage_block(ft.bw, ft.blkid[col], ft.block, ft.n_cols, s_bw);
-      if (need)
-        occ = occluded_block(s_bw, ft.block, ox, oy, oz, dx, dy, dz, tm);
-      __syncthreads();  // s_bw is restaged by the next visit
-    }
-  }
-  __syncthreads();  // next_column's last write to s_key is done
-  return occ;
-}
 
 // ---- The warp walk (flat_closest_hit.cu, flat_occluded.cu,
 // flat2_closest_hit.cu and flat2_occluded.cu) ----
@@ -536,19 +492,22 @@ __device__ __forceinline__ void stage_warp_rays(float* s_ray, int lane,
   __syncwarp();
 }
 
-// The mask of the warp's staged rays whose gate admits box (all 32 rays
-// unrolled: independent chains). A dead ray's g must fail the gate, or the
-// caller masks it out.
+// The mask of the warp's staged rays whose gate admits box, widened by
+// pad_box, each ray's interval widened by pad_slab (all 32 rays unrolled:
+// independent chains): the flat and flat2 walks' block and superblock gate.
+// A dead ray's g must fail the gate, or the caller masks it out.
 template <class Gate>
 __device__ __forceinline__ unsigned warp_gate_mask(const Box& box,
                                                    const float* s_ray,
                                                    Gate gate) {
+  const Box w = pad_box(box);
   unsigned mask = 0u;
 #pragma unroll
   for (int k = 0; k < 32; ++k) {
     float tn, tf;
-    slab(box, s_ray[k], s_ray[32 + k], s_ray[64 + k], s_ray[96 + k],
+    slab(w, s_ray[k], s_ray[32 + k], s_ray[64 + k], s_ray[96 + k],
          s_ray[128 + k], s_ray[160 + k], tn, tf);
+    pad_slab(tn, tf);
     if (gate.pass(tn, tf, s_ray[kRowG + k])) mask |= 1u << k;
   }
   return mask;
@@ -694,6 +653,64 @@ inline cudaError_t warp_walk_smem(Kernel kernel, size_t per_warp,
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The host queries behind a persistent kernel's launch shape, made once per
+// (kernel, device, threads, shared memory size): the render launches such
+// kernels hundreds of times a sample, and the answers change with none of
+// the launch's other arguments. The first size past 48 KB raises the
+// (kernel, device)'s dynamic shared memory limit to kMaxSmem, so every
+// later size fits.
+struct ResidentShape {
+  const void* kernel;
+  int device, threads;
+  size_t smem;
+  int sms, per_sm;
+};
+
+// Launch shape of a persistent kernel of 'threads' threads a CTA and 'smem'
+// bytes of dynamic shared memory over 'units' warp units (32 lanes each):
+// as many CTAs as fit on the card, never more than the units fill.
+template <class Kernel>
+inline cudaError_t resident_launch_shape(Kernel kernel, size_t smem,
+                                         int threads, int units, int device,
+                                         int& blocks) {
+  static std::mutex mu;
+  static std::vector<ResidentShape> known;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  ResidentShape shape{key, device, threads, smem, 0, 0};
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    bool raised = false, found = false;
+    for (const ResidentShape& k : known) {
+      if (k.kernel != key || k.device != device) continue;
+      raised |= k.smem > 48 * 1024;
+      if (k.smem == smem && k.threads == threads) {
+        shape = k;
+        found = true;
+        break;
+      }
+    }
+    if (!found) {
+      cudaError_t err = cudaSuccess;
+      if (smem > 48 * 1024 && !raised)
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)kMaxSmem);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&shape.sms,
+                                     cudaDevAttrMultiProcessorCount, device);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &shape.per_sm, kernel, threads, smem);
+      if (err != cudaSuccess) return err;
+      known.push_back(shape);
+    }
+  }
+  const int warps = threads / 32;
+  const int work = (units + warps - 1) / warps;
+  blocks = min(work, max(shape.per_sm, 1) * shape.sms);
+  return cudaSuccess;
 }
 
 }  // namespace ptt

@@ -10,7 +10,12 @@
 //   - a ray is occluded when some triangle hit has 1e-6 <= t <= t_max, by
 //     the Baldwin-Weber test of flat_closest_hit.cu (same rounding);
 //   - block slab gate tf >= max(tn, 0), tn <= t_max and t_max >= 0, zero
-//     direction components inverted to 1e30, pad columns excluded by id;
+//     direction components inverted to 1e30, pad columns excluded by id.
+//     The box is widened by flat_common.cuh's pad_box and the interval by
+//     its pad_slab (ops/slab.py): on the exact box a ray through a vertex
+//     or an edge lying on the box can fail the block whose triangle its
+//     rounded test hits (the Pallas kernel gated the union of a tile's
+//     rays, which hid most such lanes);
 //   - a dead lane is t_max < 0 and reports occluded (the caller masks it);
 //     a warp with no lane of t_max >= 0 skips the walk;
 //   - the result does not depend on the visit order (any hit counts), so
@@ -36,8 +41,8 @@
 //      slots at a time, the needing rays served one after another, and an
 //      __any_sync over the lanes' slot tests closes a served ray. The warp
 //      stops as soon as no ray is open.
-// The design it replaced, a CTA of 128 rays sharing one walk behind CTA
-// barriers (flat_occ_set), stays in fused_shadow.cu.
+// The fused shadow kernel (fused_shadow.cu) runs this any-hit as its first
+// phase.
 //
 // Inputs:  o [R,3] f32; d [L,R,3] f32; t_max [L,R] f32; blkflat [8,bpad];
 //          blkid [bpad] i32; bw [16, n_cols] f32 (block b = columns

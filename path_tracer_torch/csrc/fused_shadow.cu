@@ -1,6 +1,6 @@
 // Fused shadow: the flat any-hit over the opaque partition and the
 // transmittance walk over the transparent table, for all L lights of a
-// bounce in one launch, one thread per (ray, light).
+// bounce in one launch.
 //
 // Replaces the TPU kernel path_tracer_tpu/ops/pallas_shadow.py::
 // _shadow_kernel (launched by _shadow_launch, entry fused_shadow), which
@@ -18,101 +18,160 @@
 //     light), as a point lane when bit li of is_pt_mask is set;
 //   - out rows 3 li + 0, 1, 2: trans_eff = 0 where occ, else the walk's
 //     trans; its t_prev; still walking (0/1).
-// Both phases are CTA walks: flat_common.cuh's flat_occ_set and
-// trwalk_common.cuh's trans_lane_cta, the designs flat_occluded.cu and
-// trans_walk.cu replaced; each keeps its kernel's contract, so the fused
-// kernel equals flat_occluded + trans_walk on every lane.
+// Each phase is its kernel's own code (flat_common.cuh's warp walk as
+// flat_occluded.cu runs it, trwalk_common.cuh's trans_lane), so the fused
+// kernel equals flat_occluded + trans_walk launched apart on every lane.
 //
 // Bound on the card: arithmetic, the sum of the two kernels' (the slab and
 // Baldwin-Weber tests of the opaque blocks a lane enters, then the
-// Baldwin-Weber test of every transparent column per walk pass of each lane
-// the any-hit left open). Design: blockIdx.y picks the light, a CTA is 128
-// consecutive rays of it, as in both kernels; what fusing saves is the
-// second launch, the [L*R] stacked copies of the origins, surface points
-// and uvs the two-launch caller builds, and the [L,R] blocked mask between
-// the two. The two phases reuse one dynamic shared buffer, sized for the
-// larger: the any-hit's staged block, column keys and rays, or the walk's
-// 256-column chunk and the LUT.
+// Baldwin-Weber test of the transparent columns in the groups each lane
+// the any-hit left open enters). What fusing saves is the second launch,
+// the [L*R] stacked copies of the origins, surface points and uvs the
+// two-launch caller builds, and the [L,R] blocked mask between the two.
+//
+// Design: trans_walk.cu's persistent CTA, which stages the transparent
+// table, its widened group boxes and the LUT in shared memory once
+// (trwalk_common.cuh's stage_resident: the kernel's only barrier); beside
+// the table, each warp has its own slice for its staged rays (1.25 KB: at
+// most 4,096 columns, the whole always fits). Each warp then takes units
+// of 32 consecutive rays of one light on its own, the next unit from a
+// counter the wrapper zeroes (a warp that finishes early takes more: the
+// walk's cost varies widely from unit to unit; handing units out in a
+// fixed stride made the kernel 1.16x slower on the textured showcase's
+// first-bounce shadow lanes):
+//   1. any-hit, flat_occluded.cu's warp packet without its list: the warp
+//      stages its rays, gates 32 block columns of the opaque view at a
+//      time against the rays still open (flat_common.cuh warp_gate_mask,
+//      on widened boxes; lane c one column) and visits each admitted
+//      column at once, in column order, with warp_any_block; it stops as
+//      soon as no ray is open, so no column is gated after that. The
+//      result does not depend on the visit order, so it equals
+//      flat_occluded.cu's, which lists every admitted column first;
+//   2. walk, trans_walk.cu's per-lane trans_lane on the resident table,
+//      with pd = -1 for the lanes found occluded.
 //
 // Inputs:  o [R,3] f32; d [L,R,3] f32; t_max, pd [L,R] f32; aux [6,R] f32
 //          (surface point xyz, original uv, original is sphere 0/1); the
 //          opaque view's flat tables; the transparent table
-//          (trwalk_common.cuh), its plane u8 codes (live 0) or f32 values
-//          (live 1).
+//          (trwalk_common.cuh) with its group boxes grp [7, gp], its plane
+//          u8 codes (live 0) or f32 values (live 1); next: a zeroed
+//          counter of units.
 // Output:  out [3L,R] f32.
 
 #include "trwalk_common.cuh"
 
 namespace {
 
-using ptt::kCtaRays;
-static_assert(ptt::kTrCta == kCtaRays, "one CTA shape for both phases");
+using ptt::kFullMask;
+using ptt::kResThreads;
 
 template <class Texel>
-__global__ void __launch_bounds__(kCtaRays)
+__global__ void __launch_bounds__(kResThreads, 2)
 fused_shadow_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ t_max,
                     const float* __restrict__ pd,
                     const float* __restrict__ aux, unsigned long long is_pt,
-                    ptt::FlatTable ft, ptt::TrTable<Texel> tb, int R,
-                    int steps_cap, int textured, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  __shared__ float s_red[3 * (kCtaRays / 32)];
+                    ptt::FlatTable ft, ptt::TrTable<Texel> tb,
+                    const float* __restrict__ grp, int gp, int R, int L,
+                    int steps_cap, int textured, unsigned* __restrict__ next,
+                    float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const ptt::Resident rs = ptt::stage_resident(tb, grp, gp, smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bpad = ft.bpad;
+  float* s_ray = smem + ptt::resident_smem(tb.T) / sizeof(float) +
+                 warp * ptt::kWarpRayRows * 32;
 
-  const int li = blockIdx.y;
-  const int i = blockIdx.x * kCtaRays + threadIdx.x;
-  const size_t lane = (size_t)li * R + i;  // (light, ray)
-  const bool in_range = i < R;
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 1.f, dy = 1.f, dz = 1.f;
-  float tm = -1.f, pdv = -1.f, spx = 0.f, spy = 0.f, spz = 0.f, ouvx = 0.f,
-        ouvy = 0.f;
-  bool osimple = false;
-  if (in_range) {
-    ox = o[3 * i]; oy = o[3 * i + 1]; oz = o[3 * i + 2];
-    dx = d[3 * lane]; dy = d[3 * lane + 1]; dz = d[3 * lane + 2];
-    tm = t_max[lane];
-    pdv = pd[lane];
-    spx = aux[i]; spy = aux[R + i]; spz = aux[2 * R + i];
-    ouvx = aux[3 * R + i]; ouvy = aux[4 * R + i];
-    osimple = aux[5 * R + i] > 0.f;
-  }
-  const bool occ =
-      ptt::flat_occ_set(ft, ox, oy, oz, dx, dy, dz, tm, smem, s_red);
+  const int per_light = (R + 31) / 32;
+  for (;;) {
+    // Units of 32 rays of one light in ascending order, the next one to
+    // whichever warp is free (the zeroed counter 'next').
+    int unit = 0;
+    if (lane == 0) unit = (int)atomicAdd(next, 1u);
+    unit = __shfl_sync(kFullMask, unit, 0);
+    if (unit >= per_light * L) break;
+    const int li = unit / per_light;
+    const int i = (unit - li * per_light) * 32 + lane;
+    const size_t lane_idx = (size_t)li * R + i;  // (light, ray)
+    ptt::TrRay r{0.f, 0.f, 0.f, 1.f, 1.f, 1.f};
+    float tm = -1.f, pdv = -1.f, spx = 0.f, spy = 0.f, spz = 0.f,
+          ouvx = 0.f, ouvy = 0.f;
+    bool osimple = false;
+    if (i < R) {
+      r = ptt::TrRay{o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                     d[3 * lane_idx], d[3 * lane_idx + 1],
+                     d[3 * lane_idx + 2]};
+      tm = t_max[lane_idx];
+      pdv = pd[lane_idx];
+      spx = aux[i]; spy = aux[R + i]; spz = aux[2 * R + i];
+      ouvx = aux[3 * R + i]; ouvy = aux[4 * R + i];
+      osimple = aux[5 * R + i] > 0.f;
+    }
 
-  float* s_bw = smem;                          // [12][kTrChunk]
-  float* s_lut = smem + 12 * ptt::kTrChunk;    // [256]
-  ptt::stage_lut(tb.lut, s_lut);
-  float trans, t_prev;
-  bool walking;
-  ptt::trans_lane_cta(tb, s_bw, s_lut, steps_cap, textured != 0, ox, oy, oz,
-                      dx, dy, dz, occ ? -1.f : pdv, (is_pt >> li) & 1ull,
-                      spx, spy, spz, ouvx, ouvy, osimple, trans, t_prev,
-                      walking);
-  if (in_range) {
-    const size_t row = (size_t)3 * li * R + i;
-    out[row] = occ ? 0.f : trans;
-    out[row + R] = t_prev;
-    out[row + 2 * (size_t)R] = walking ? 1.f : 0.f;
+    // 1. The any-hit: the rays not yet found occluded; a dead lane
+    //    (t_max < 0) is never open and reports occluded. The block columns
+    //    are gated 32 at a time against the open rays, and each admitted
+    //    column is visited at once, in column order, until no ray is open.
+    const ptt::OccludedGate gate;
+    unsigned open = __ballot_sync(kFullMask, gate.live(tm));
+    if (open) {
+      ptt::stage_warp_rays(s_ray, lane, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
+                           tm);
+      for (int c0 = 0; c0 < bpad && open; c0 += 32) {
+        const int c = c0 + lane;
+        unsigned mask = 0u;
+        if (c < bpad && ft.blkid[c] >= 0)
+          mask = ptt::warp_gate_mask(ptt::load_box(ft.blk, bpad, c), s_ray,
+                                     gate) & open;
+        for (unsigned cols = __ballot_sync(kFullMask, mask != 0u);
+             cols && open; cols &= cols - 1) {
+          const int p = __ffs(cols) - 1;
+          const unsigned need = __shfl_sync(kFullMask, mask, p) & open;
+          if (need)
+            open &= ~ptt::warp_any_block(ft.bw, ft.blkid[c0 + p], ft.block,
+                                         ft.n_cols, need, s_ray, lane);
+        }
+      }
+      __syncwarp();  // the next unit restages s_ray
+    }
+    const bool occ = !((open >> lane) & 1u);
+
+    // 2. The walk, for the lanes the any-hit left open.
+    const float pd_eff = occ ? -1.f : pdv;
+    float trans = 1.f, t_prev = -1.f;
+    bool walking = false;
+    if (__any_sync(kFullMask, pd_eff >= 0.f))
+      ptt::trans_lane(tb, rs, steps_cap, textured != 0, r, pd_eff,
+                      (is_pt >> li) & 1ull, spx, spy, spz, ouvx, ouvy,
+                      osimple, trans, t_prev, walking);
+    if (i < R) {
+      const size_t row = (size_t)3 * li * R + i;
+      out[row] = occ ? 0.f : trans;
+      out[row + R] = t_prev;
+      out[row + 2 * (size_t)R] = walking ? 1.f : 0.f;
+    }
   }
 }
 
 template <class Texel>
 int launch(const float* o, const float* d, const float* t_max,
            const float* pd, const float* aux, unsigned long long is_pt_mask,
-           const ptt::FlatTable& ft, const ptt::TrTable<Texel>& tb, int R,
-           int L, int steps_cap, int textured, float* out,
+           const ptt::FlatTable& ft, const ptt::TrTable<Texel>& tb,
+           const float* grp, int gp, int R, int L, int steps_cap,
+           int textured, unsigned* next, float* out, int device,
            cudaStream_t stream) {
-  // One buffer for both phases: the any-hit's block, keys and rays, or
-  // the walk's chunk and LUT.
-  const int staged = 12 * ft.block > ptt::kTransSmemFloats
-                         ? 12 * ft.block : ptt::kTransSmemFloats;
-  size_t smem;
-  cudaError_t err = ptt::walk_smem(fused_shadow_kernel<Texel>, staged,
-                                   ft.bpad, smem);
+  // The table, then each warp's staged rays.
+  const size_t smem = ptt::resident_smem(tb.T) + kResThreads *
+                      ptt::kWarpRayRows * sizeof(float);
+  int blocks;
+  cudaError_t err = ptt::resident_launch_shape(
+      fused_shadow_kernel<Texel>, smem, kResThreads, L * ((R + 31) / 32),
+      device, blocks);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((R + kCtaRays - 1) / kCtaRays, L);
-  fused_shadow_kernel<Texel><<<grid, kCtaRays, smem, stream>>>(
-      o, d, t_max, pd, aux, is_pt_mask, ft, tb, R, steps_cap, textured, out);
+  fused_shadow_kernel<Texel><<<blocks, kResThreads, smem, stream>>>(
+      o, d, t_max, pd, aux, is_pt_mask, ft, tb, grp, gp, R, L, steps_cap,
+      textured, next, out);
   return (int)cudaGetLastError();
 }
 
@@ -127,24 +186,28 @@ extern "C" int ptt_fused_shadow(const float* o, const float* d,
                                 const float* bw, int bpad, int block,
                                 int n_cols, const float* tr_bw,
                                 const float* tr_rows, const void* tex,
-                                const float* lut, const int* pages, int T,
-                                int wp, int R, int L, int steps_cap,
-                                int textured, int live, float* out,
+                                const float* lut, const int* pages,
+                                const float* grp, int T, int gp, int wp,
+                                int R, int L, int steps_cap, int textured,
+                                int live, unsigned* next, float* out,
                                 int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0 || L <= 0) return 0;
+  if (block <= 0 || block % ptt::kWarpChunk ||
+      !ptt::resident_table_ok(T, gp))
+    return (int)cudaErrorInvalidValue;
   const ptt::FlatTable ft{blk, blkid, bw, bpad, block, n_cols};
   if (live) {
     const ptt::TrTable<float> tb{tr_bw, tr_rows,
                                  static_cast<const float*>(tex), lut, pages,
                                  T, wp};
-    return launch(o, d, t_max, pd, aux, is_pt_mask, ft, tb, R, L, steps_cap,
-                  textured, out, stream);
+    return launch(o, d, t_max, pd, aux, is_pt_mask, ft, tb, grp, gp, R, L,
+                  steps_cap, textured, next, out, device, stream);
   }
   const ptt::TrTable<unsigned char> tb{
       tr_bw, tr_rows, static_cast<const unsigned char*>(tex), lut, pages, T,
       wp};
-  return launch(o, d, t_max, pd, aux, is_pt_mask, ft, tb, R, L, steps_cap,
-                textured, out, stream);
+  return launch(o, d, t_max, pd, aux, is_pt_mask, ft, tb, grp, gp, R, L,
+                steps_cap, textured, next, out, device, stream);
 }

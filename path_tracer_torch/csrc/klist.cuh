@@ -44,6 +44,17 @@ __device__ __forceinline__ void list_insert(float t, int col, float (&kt)[N],
   }
 }
 
+// The K-th slot's t (K <= N): +inf while the list is not full. A t no
+// smaller is never inserted.
+template <int N>
+__device__ __forceinline__ float list_bound(const float (&kt)[N], int K) {
+  float w = CUDART_INF_F;
+#pragma unroll
+  for (int q = 0; q < N; ++q)
+    if (q == K - 1) w = kt[q];
+  return w;
+}
+
 // How many slots hold a hit.
 template <int N>
 __device__ __forceinline__ int list_size(const float (&kt)[N]) {

@@ -37,8 +37,8 @@
 // columns; a directional lane of a textured scene collects its K =
 // min(steps_cap, 8) nearest distinct candidates in one pass and steps
 // through them. The product multiplies in ascending column order where the
-// Pallas kernel used a butterfly. Row 15 (fused_shadow.cu) keeps the CTA
-// body trans_lane_cta, which the design this one replaced also ran.
+// Pallas kernel used a butterfly. Row 15 (fused_shadow.cu) runs the same
+// trans_lane after its any-hit.
 //
 // Inputs:  o, d [R,3] f32; aux [8,R] f32: pd (-1 dead), is point (0/1),
 //          surface point xyz, original uv, original is sphere (0/1); the
@@ -97,7 +97,7 @@ cudaError_t launch(const float* o, const float* d, const float* aux,
                    int device, cudaStream_t stream) {
   size_t smem;
   int blocks;
-  const cudaError_t err = ptt::resident_launch_shape(
+  const cudaError_t err = ptt::resident_walk_shape(
       trans_walk_kernel<Texel>, tb.T, R, device, smem, blocks);
   if (err != cudaSuccess) return err;
   trans_walk_kernel<Texel><<<blocks, kResThreads, smem, stream>>>(

@@ -1,17 +1,11 @@
 // Device helpers shared by the transparent-walk kernels: the compact
 // transparent table, the candidate test and the opacity texel fetch, and
-// two walks over the table.
-//
-// - The resident walk (alpha_walk.cu, trans_walk.cu): each CTA stages the
-//   table's 12 used Baldwin-Weber rows, the 128-column groups' boxes and
-//   the LUT in shared memory once, and every lane then walks on its own,
-//   with no barrier: one pass over the groups its segment enters collects
-//   its nearest candidates, sorted in registers, and the steps consume
-//   that list.
-// - The CTA walk (fused_shadow.cu's trans_lane_cta, the body of the
-//   designs rows 13 and 14 replaced): a CTA of 128 lanes streams
-//   the table through shared memory in 256-column chunks behind CTA
-//   barriers, once per step while any of its lanes still walks.
+// the resident walk over the table (alpha_walk.cu, trans_walk.cu and the
+// walk phase of fused_shadow.cu): each CTA stages the table's 12 used
+// Baldwin-Weber rows, the 128-column groups' boxes and the LUT in shared
+// memory once, and every lane then walks on its own, with no barrier: one
+// pass over the groups its segment enters collects its nearest candidates,
+// sorted in registers, and the steps consume that list.
 //
 // Every helper is a template on the page plane's texel type: unsigned char
 // codes through the LUT (forward rendering, the JAX package's live=False),
@@ -27,16 +21,10 @@
 // built -fmad=false, so each operation rounds as it does there.
 #pragma once
 
-#include <mutex>
-#include <vector>
-
 #include "flat_common.cuh"
 #include "klist.cuh"
 
 namespace ptt {
-
-constexpr int kTrCta = 128;    // lanes (threads) per CTA
-constexpr int kTrChunk = 256;  // table columns staged per pass: 12 KB
 
 // The compact transparent table and the opacity pages, all in device
 // memory: bw [16, T] (rows n.xyz, c, Au.xyz, au, Av.xyz, av, 4 zero), rows
@@ -53,67 +41,6 @@ struct TrTable {
   int T;
   int wp;
 };
-
-// Calls visit(c0, n) once per chunk of columns [c0, c0 + n) after staging
-// their 12 used BW rows in s_bw [12][kTrChunk]. Every thread of the CTA
-// must call it; it contains two __syncthreads() per chunk.
-template <class Texel, class Visit>
-__device__ __forceinline__ void for_each_chunk(const TrTable<Texel>& tb,
-                                               float* s_bw, Visit visit) {
-  for (int c0 = 0; c0 < tb.T; c0 += kTrChunk) {
-    const int n = min(kTrChunk, tb.T - c0);
-    __syncthreads();  // the previous chunk is consumed
-    for (int idx = threadIdx.x; idx < 12 * kTrChunk; idx += kTrCta) {
-      const int r = idx / kTrChunk, c = idx - r * kTrChunk;
-      s_bw[idx] = c < n ? tb.bw[(size_t)r * tb.T + c0 + c] : 0.f;
-    }
-    __syncthreads();
-    visit(c0, n);
-  }
-}
-
-// Column s (of a staged chunk) is a candidate of the ray: t within
-// [kTMin, t_hi) and the hit inside the triangle. Returns t, u, v, d.n.
-__device__ __forceinline__ bool tr_candidate(const float* s, float ox,
-                                             float oy, float oz, float dx,
-                                             float dy, float dz, float t_hi,
-                                             float& t, float& u, float& v,
-                                             float& dn) {
-  bool ok;
-  t = bw_plane(s, kTrChunk, ox, oy, oz, dx, dy, dz, dn, ok);
-  if (!ok || !(t >= kTMin) || !(t < t_hi)) return false;
-  return bw_inside(s, kTrChunk, ox, oy, oz, dx, dy, dz, t, u, v);
-}
-
-// The nearest candidate with t > t_prev over the whole table, ties to the
-// lowest column (a strict < in ascending column order): col = -1 when
-// there is none. Every thread of the CTA must call it; only lanes with
-// 'want' search.
-template <class Texel>
-__device__ __forceinline__ void next_candidate(
-    const TrTable<Texel>& tb, float* s_bw, bool want, float ox, float oy,
-    float oz,
-    float dx, float dy, float dz, float t_hi, float t_prev, float& best_t,
-    int& best_col, float& best_u, float& best_v, float& best_dn) {
-  best_t = CUDART_INF_F;
-  best_col = -1;
-  best_u = best_v = best_dn = 0.f;
-  for_each_chunk(tb, s_bw, [&](int c0, int n) {
-    if (!want) return;
-    for (int c = 0; c < n; ++c) {
-      float t, u, v, dn;
-      if (!tr_candidate(s_bw + c, ox, oy, oz, dx, dy, dz, t_hi, t, u, v, dn))
-        continue;
-      if (t > t_prev && t < best_t) {
-        best_t = t;
-        best_col = c0 + c;
-        best_u = u;
-        best_v = v;
-        best_dn = dn;
-      }
-    }
-  });
-}
 
 // Euclidean remainder of i by n > 0.
 __device__ __forceinline__ int wrap(int i, int n) {
@@ -153,106 +80,6 @@ __device__ __forceinline__ void column_uv(const TrTable<Texel>& tb, int col,
   const int T = tb.T;
   uvx = r[0] + u * r[2 * T] + v * r[4 * T];
   uvy = r[T] + u * r[3 * T] + v * r[5 * T];
-}
-
-// Loads the LUT into s_lut [256] and waits for the CTA.
-__device__ __forceinline__ void stage_lut(const float* lut, float* s_lut) {
-  for (int i = threadIdx.x; i < 256; i += kTrCta) s_lut[i] = lut[i];
-  __syncthreads();
-}
-
-// Shared memory (floats) of trans_lane_cta: the staged chunk s_bw
-// [12][kTrChunk] and the LUT s_lut [256] beside it.
-constexpr int kTransSmemFloats = 12 * kTrChunk + 256;
-
-// The per-lane body of the CTA transmittance walk (fused_shadow.cu runs it
-// after the any-hit): trans, t_prev and whether the lane would walk on past
-// steps_cap (contract in trans_walk.cu). A lane is dead when pd < 0. s_bw holds 12 * kTrChunk
-// floats; s_lut the LUT, staged by the caller. Every thread of the CTA must
-// call it.
-template <class Texel>
-__device__ __forceinline__ void trans_lane_cta(
-    const TrTable<Texel>& tb, float* s_bw, const float* s_lut, int steps_cap,
-    bool textured, float ox, float oy, float oz, float dx, float dy, float dz,
-    float pd, bool is_pt, float spx, float spy, float spz, float ouvx,
-    float ouvy, bool osimple, float& trans, float& t_prev, bool& walking) {
-  const bool live = pd >= 0.f;
-  const bool loop = live && textured && !is_pt;
-  const bool dense = live && !loop;
-  const float inf = CUDART_INF_F;
-  trans = 1.f;
-  t_prev = -1.f;
-
-  if (__syncthreads_or(dense)) {
-    // Pass 1 (point lanes): the first candidate behind the light.
-    float cut = inf;
-    const bool need_cut = dense && is_pt;
-    if (__syncthreads_or(need_cut)) {
-      for_each_chunk(tb, s_bw, [&](int c0, int n) {
-        if (!need_cut) return;
-        for (int c = 0; c < n; ++c) {
-          float t, u, v, dn;
-          if (!tr_candidate(s_bw + c, ox, oy, oz, dx, dy, dz, inf, t, u, v,
-                            dn))
-            continue;
-          const float ocx = ox + t * dx - spx;
-          const float ocy = oy + t * dy - spy;
-          const float ocz = oz + t * dz - spz;
-          const float occ = sqrtf(ocx * ocx + ocy * ocy + ocz * ocz);
-          if (occ > pd) cut = fminf(cut, t);
-        }
-      });
-    }
-    // Pass 2: the product over the candidates in front of the cut.
-    for_each_chunk(tb, s_bw, [&](int c0, int n) {
-      if (!dense) return;
-      for (int c = 0; c < n; ++c) {
-        float t, u, v, dn;
-        if (!tr_candidate(s_bw + c, ox, oy, oz, dx, dy, dz, inf, t, u, v,
-                          dn) ||
-            !(t < cut))
-          continue;
-        const int col = c0 + c;
-        const float fac = tb.rows[6 * tb.T + col];
-        float op = fac;
-        if (textured && !osimple && tb.rows[7 * tb.T + col] > 0.f)
-          op = page_texel(tb, s_lut, ouvx, ouvy,
-                          (int)tb.rows[8 * tb.T + col]) * fac;
-        trans = trans * (1.f - op);
-      }
-    });
-  }
-
-  // Directional lanes of a textured scene: the sequential walk.
-  walking = loop;
-  for (int k = 0; k < steps_cap; ++k) {
-    if (!__syncthreads_or(walking)) break;
-    float t, u, v, dn;
-    int col;
-    next_candidate(tb, s_bw, walking, ox, oy, oz, dx, dy, dz, inf, t_prev, t,
-                   col, u, v, dn);
-    if (!walking) continue;
-    if (col < 0) {
-      walking = false;
-      continue;
-    }
-    const float fac = tb.rows[6 * tb.T + col];
-    float uvx, uvy;
-    column_uv(tb, col, u, v, uvx, uvy);
-    const float tex =
-        page_texel(tb, s_lut, uvx, uvy, (int)tb.rows[8 * tb.T + col]);
-    const float op = tb.rows[7 * tb.T + col] <= 0.f ? fac : tex * fac;
-    trans = trans * (1.f - op);
-    walking = trans != 0.f;
-    if (walking) t_prev = t;
-  }
-  if (steps_cap == 0) {  // no step taken: only a lane with a candidate walks on
-    float t, u, v, dn;
-    int col;
-    next_candidate(tb, s_bw, walking, ox, oy, oz, dx, dy, dz, inf, t_prev, t,
-                   col, u, v, dn);
-    walking = walking && col >= 0;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -444,8 +271,10 @@ __device__ __forceinline__ void list_walk(const Resident& rs, const TrRay& r,
   }
 }
 
-// The per-lane body of the resident transmittance walk (trans_walk.cu):
-// as trans_lane_cta, over the groups the lane's unbounded segment enters.
+// The per-lane body of the resident transmittance walk (trans_walk.cu, and
+// fused_shadow.cu after its any-hit): trans, t_prev and whether the lane
+// would walk on past steps_cap (contract in trans_walk.cu; a lane is dead
+// when pd < 0), over the groups the lane's unbounded segment enters.
 // Point lanes (and every live lane of a factor-only scene) make the cut
 // pass and the product pass in ascending column order, equal-t duplicates
 // included; directional lanes of a textured scene walk the sorted list.
@@ -501,63 +330,16 @@ __device__ __forceinline__ void trans_lane(
   });
 }
 
-// The host queries behind a resident-walk kernel's launch shape, made once
-// per (kernel, device, shared memory size): the render launches each walk
-// kernel hundreds of times a sample, and the answers change with none of
-// the launch's other arguments. The first table past 48 KB raises the
-// (kernel, device)'s dynamic shared memory limit to the largest table's,
-// so every later size fits.
-struct ResidentShape {
-  const void* kernel;
-  int device;
-  size_t smem;
-  int sms, per_sm;
-};
-
 // Launch shape of a resident-walk kernel over R lanes: its shared memory,
-// and a persistent grid of as many CTAs as fit on the card, never more
-// than the lanes fill.
+// and a persistent grid of kResThreads-thread CTAs (flat_common.cuh's
+// resident_launch_shape).
 template <class Kernel>
-inline cudaError_t resident_launch_shape(Kernel kernel, int T, int R,
+inline cudaError_t resident_walk_shape(Kernel kernel, int T, int R,
                                          int device, size_t& smem,
                                          int& blocks) {
-  static std::mutex mu;
-  static std::vector<ResidentShape> known;
   smem = resident_smem(T);
-  const void* key = reinterpret_cast<const void*>(kernel);
-  ResidentShape shape{key, device, smem, 0, 0};
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    bool raised = false, found = false;
-    for (const ResidentShape& k : known) {
-      if (k.kernel != key || k.device != device) continue;
-      raised |= k.smem > 48 * 1024;
-      if (k.smem == smem) {
-        shape = k;
-        found = true;
-        break;
-      }
-    }
-    if (!found) {
-      cudaError_t err = cudaSuccess;
-      if (smem > 48 * 1024 && !raised)
-        err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)resident_smem(kMaxColumns));
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&shape.sms,
-                                     cudaDevAttrMultiProcessorCount, device);
-      if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &shape.per_sm, kernel, kResThreads, smem);
-      if (err != cudaSuccess) return err;
-      known.push_back(shape);
-    }
-  }
-  const int warps = kResThreads / 32;
-  const int work = ((R + 31) / 32 + warps - 1) / warps;
-  blocks = min(work, max(shape.per_sm, 1) * shape.sms);
-  return cudaSuccess;
+  return resident_launch_shape(kernel, smem, kResThreads, (R + 31) / 32,
+                               device, blocks);
 }
 
 // The tables a resident walk takes: whole 128-column groups, at most

@@ -235,15 +235,16 @@ def kernels() -> Kernels:
         lib.ptt_sph_occ_walk.restype = ci
         lib.ptt_sph_occ_walk.argtypes = [vp] * 6 + [ci] * 4 + [vp, ci, vp]
         # (o, d, t_max, pd, aux, is_pt_mask, blk, blkid, bw, bpad, block,
-        #  n_cols, tr_bw, tr_rows, tex, lut, pages, T, wp, R, L, steps_cap,
-        #  textured, live, out, device, stream)
+        #  n_cols, tr_bw, tr_rows, tex, lut, pages, grp, T, gp, wp, R, L,
+        #  steps_cap, textured, live, next, out, device, stream)
         lib.ptt_fused_shadow.restype = ci
         lib.ptt_fused_shadow.argtypes = ([vp] * 5 + [ctypes.c_ulonglong]
-                                         + [vp] * 3 + [ci] * 3 + [vp] * 5
-                                         + [ci] * 7 + [vp, ci, vp])
-        # (o, d, t_max, tris, gbox, R, T, K, tout, iout, device, stream)
+                                         + [vp] * 3 + [ci] * 3 + [vp] * 6
+                                         + [ci] * 8 + [vp, vp, ci, vp])
+        # (o, d, t_max, tris, gbox, sbox, R, T, K, next, tout, iout, device,
+        #  stream)
         lib.ptt_khit.restype = ci
-        lib.ptt_khit.argtypes = [vp] * 5 + [ci] * 3 + [vp, vp, ci, vp]
+        lib.ptt_khit.argtypes = [vp] * 6 + [ci] * 3 + [vp] * 3 + [ci, vp]
         # (o, d, t_prev, nodes6, meta6, tris, R, npad, n_nodes, block,
         #  n_slots, lane_wise, cut_widen, fout, iout, device, stream)
         lib.ptt_tree_closest_hit.restype = ci
@@ -254,15 +255,15 @@ def kernels() -> Kernels:
         #  n_slots, lane_wise, out, device, stream)
         lib.ptt_tree_occluded.restype = ci
         lib.ptt_tree_occluded.argtypes = [vp] * 6 + [ci] * 7 + [vp, ci, vp]
-        # The replaced designs (ab_baselines.cu): (o, d, t_prev, nodes6,
-        # meta6, tris, R, npad, n_nodes, block, n_slots, fout, iout, device,
-        # stream) and (o, d, t_max, ..., n_slots, out, device, stream)
-        lib.ptt_tree_closest_hit_cta.restype = ci
-        lib.ptt_tree_closest_hit_cta.argtypes = [vp] * 6 + [ci] * 5 + [
-            vp, vp, ci, vp]
-        lib.ptt_tree_occluded_cta.restype = ci
-        lib.ptt_tree_occluded_cta.argtypes = [vp] * 6 + [ci] * 5 + [vp, ci,
-                                                                   vp]
+        # The replaced designs (ab_baselines.cu): the fused shadow kernel's
+        # first port, as ptt_fused_shadow without grp, gp and next; row 3's,
+        # as ptt_khit without sbox and next.
+        lib.ptt_fused_shadow_cta.restype = ci
+        lib.ptt_fused_shadow_cta.argtypes = ([vp] * 5 + [ctypes.c_ulonglong]
+                                             + [vp] * 3 + [ci] * 3 + [vp] * 5
+                                             + [ci] * 7 + [vp, ci, vp])
+        lib.ptt_khit_cta.restype = ci
+        lib.ptt_khit_cta.argtypes = [vp] * 5 + [ci] * 3 + [vp, vp, ci, vp]
         _kernels = Kernels(lib, seconds, log)
     return _kernels
 
@@ -766,9 +767,10 @@ def launch_fused_shadow(o, ds, t_maxes, pds, aux, is_pt, blkflat, blkid, bw,
     o: [R,3] f32; ds: [L,R,3] f32; t_maxes, pds: [L,R] f32; aux: [6,R] f32
     (surface point xyz, original uv, original is sphere); is_pt: L bools;
     blkflat, blkid, bw: the opaque view's flat tables (as for
-    ``launch_flat_occluded``); the scene's tr_* tables, or ``live`` as for
-    ``launch_alpha_walk``. Returns out [3L,R] f32 (per light: trans_eff,
-    t_prev, still walking)."""
+    ``launch_flat_occluded``); the scene's tr_* tables and ``tr_grp`` (the
+    walk phase's table resident in shared memory: at most 4,096 columns),
+    or ``live`` as for ``launch_alpha_walk``. Returns out [3L,R] f32 (per
+    light: trans_eff, t_prev, still walking)."""
     fn = "ptt_fused_shadow"
     device = o.device
     r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
@@ -779,33 +781,33 @@ def launch_fused_shadow(o, ds, t_maxes, pds, aux, is_pt, blkflat, blkid, bw,
                          "(at most 64 lights)")
     bpad, n_cols = _check_flat_tables(fn, blkflat, blkid, bw, block, device)
     t_cols, wp, rows, tex = _check_tr_tables(fn, scene, device, live)
+    gp = _check_resident(fn, scene, t_cols, device)
     if steps_cap < 0 or 3 * n_sets * r >= 2**31:
         raise ValueError(f"{fn}: {n_sets} sets x {r} rays out of range")
     mask = sum(1 << k for k, pt in enumerate(is_pt) if pt)
     lib = kernels().lib
     out = torch.empty((3 * n_sets, r), dtype=torch.float32, device=device)
+    nxt = torch.zeros((1,), dtype=torch.int32, device=device)  # work counter
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.ptt_fused_shadow(
         o.data_ptr(), ds.data_ptr(), t_maxes.data_ptr(), pds.data_ptr(),
         aux.data_ptr(), mask, blkflat.data_ptr(), blkid.data_ptr(),
         bw.data_ptr(), bpad, block, n_cols, scene.tr_bw.data_ptr(),
         rows.data_ptr(), tex.data_ptr(), scene.tr_lut.data_ptr(),
-        scene.tr_page_table.data_ptr(), t_cols, wp, r, n_sets, steps_cap,
-        int(scene.tr_textured), int(live is not None), out.data_ptr(),
-        device.index, stream)
+        scene.tr_page_table.data_ptr(), scene.tr_grp.data_ptr(), t_cols, gp,
+        wp, r, n_sets, steps_cap, int(scene.tr_textured),
+        int(live is not None), nxt.data_ptr(), out.data_ptr(), device.index,
+        stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return out
 
 
-def launch_khit(o, d, t_max, tris, gbox, k: int):
-    """Check the operands of the k-nearest-hits kernel, allocate its
-    outputs and launch it on the current stream (no synchronisation).
+KHIT_MAX_COLUMNS = 4096  # row 3's table resident in shared memory
 
-    o, d: [R,3] f32; t_max: [R] f32 (<= 0 marks a dead lane); tris [9,T]
-    f32 MT rows, T a multiple of 128; gbox [6, T/128] f32 group AABBs;
-    1 <= k <= 8. Returns (ts [k,R] f32, pos [k,R] i32)."""
-    fn = "ptt_khit"
+
+def check_khit(fn: str, o, d, t_max, tris, gbox, k: int) -> tuple:
+    """The operands of a row 3 kernel; returns (R, T)."""
     device = o.device
     if device.type != "cuda":
         raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
@@ -820,13 +822,34 @@ def launch_khit(o, d, t_max, tris, gbox, k: int):
         raise ValueError(f"{fn}: {t_n} columns are not whole groups of 128")
     if not 0 < k <= 8 or k * r >= 2**31 or 3 * r >= 2**31:
         raise ValueError(f"{fn}: {r} rays x k = {k} out of range")
+    return r, t_n
+
+
+def launch_khit(o, d, t_max, tris, gbox, sbox, k: int):
+    """Check the operands of the k-nearest-hits kernel, allocate its
+    outputs and launch it on the current stream (no synchronisation).
+
+    o, d: [R,3] f32; t_max: [R] f32 (<= 0 marks a dead lane); tris [9,T]
+    f32 MT rows, T a multiple of 128 and at most KHIT_MAX_COLUMNS (the
+    table resident in shared memory); gbox [6, T/128] f32 group AABBs and
+    sbox [6, T/32] f32 sub-group AABBs; 1 <= k <= 8. Returns (ts [k,R]
+    f32, pos [k,R] i32)."""
+    fn = "ptt_khit"
+    device = o.device
+    r, t_n = check_khit(fn, o, d, t_max, tris, gbox, k)
+    _check("sbox", sbox, (6, t_n // 32), torch.float32, device)
+    if t_n > KHIT_MAX_COLUMNS:
+        raise ValueError(f"{fn}: {t_n} columns exceed the resident table "
+                         f"({KHIT_MAX_COLUMNS})")
     lib = kernels().lib
     ts = torch.empty((k, r), dtype=torch.float32, device=device)
     pos = torch.empty((k, r), dtype=torch.int32, device=device)
+    nxt = torch.zeros((1,), dtype=torch.int32, device=device)  # work counter
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.ptt_khit(o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
-                       tris.data_ptr(), gbox.data_ptr(), r, t_n, k,
-                       ts.data_ptr(), pos.data_ptr(), device.index, stream)
+                       tris.data_ptr(), gbox.data_ptr(), sbox.data_ptr(), r,
+                       t_n, k, nxt.data_ptr(), ts.data_ptr(), pos.data_ptr(),
+                       device.index, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return ts, pos

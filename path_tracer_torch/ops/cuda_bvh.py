@@ -27,10 +27,15 @@ tables outgrow the L2); see the sources for the design.
 
 Semantics (kernel and plain version alike):
 
-- block gate: slab entry tn and exit tf of the block AABB, with zero
-  direction components inverted to 1e30; closest hit needs
+- block gate: slab entry tn and exit tf of the block AABB widened by
+  ``slab.pad_boxes``, with zero direction components inverted to 1e30,
+  the interval widened by ``slab.pad_slab``; closest hit needs
   tf >= max(tn, 0) and tf > t_prev, any-hit tf >= max(tn, 0),
-  tn <= t_max and t_max >= 0; pad columns (block id < 0) never pass;
+  tn <= t_max and t_max >= 0; pad columns (block id < 0) never pass. On
+  the exact box, a ray through a vertex or an edge lying on a block's box
+  can fail the block whose triangle its rounded Baldwin-Weber test hits
+  (the Pallas kernels gated the union of a tile's rays, which hid most
+  such lanes);
 - flat2: the same gate first on the superblock AABBs (``sl_sbflat``, the
   union of 128 block columns; id < 0 never passes), then on the block
   columns of each superblock that passed; a block's rows are addressed by
@@ -49,9 +54,9 @@ kernels: each equals its plain version on every lane. A cut of whole
 blocks at a lane's best t would not be exact: rounding can put a hit a few
 ulps before its block's slab entry (a ray through a vertex or an edge on
 the block's box), and the visit order would then decide between equal-t
-copies. A block box lies inside its superblock box and slab rounding is
-monotone, so a block that passes its gate always lies in a superblock that
-passes.
+copies. A widened block box lies inside its widened superblock box and
+slab rounding is monotone, so a block that passes its gate always lies in
+a superblock that passes.
 
 The tree walk keeps the Pallas packet's inputs, outputs, layouts, tie
 rule and dead lanes, not its shared visits (see ``csrc/tree_walk.cu``):
@@ -102,8 +107,8 @@ from path_tracer_torch.ops.slab import (
     occluded_gate,
     pad_boxes,
     pad_slab,
+    padded_slab,
     safe_inv,
-    slab,
 )
 
 # Kernel launches made by the wrappers in this process.
@@ -179,7 +184,7 @@ def _flat_walk_plain(o, d, t_prev, scene):
     parts = []
     for rs in _ray_chunks(o.shape[0]):
         oc, dc, tpc = o[rs], d[rs], t_prev[rs]
-        tn, tf = slab(oc, safe_inv(dc), scene.sl_blkflat)
+        tn, tf = padded_slab(oc, safe_inv(dc), scene.sl_blkflat)
         gate = closest_gate(tn, tf, tpc, scene.sl_blkid[0])
         best = _miss_best(oc.shape[0], o.device)
         for col in live_columns(gate):
@@ -194,7 +199,7 @@ def occluded_triangles_flat_plain(o, d, t_max, scene):
     parts = []
     for rs in _ray_chunks(o.shape[0]):
         oc, dc, tmc = o[rs], d[rs], t_max[rs]
-        tn, tf = slab(oc, safe_inv(dc), scene.sl_blkflat)
+        tn, tf = padded_slab(oc, safe_inv(dc), scene.sl_blkflat)
         gate = occluded_gate(tn, tf, tmc, scene.sl_blkid[0])
         occ = tmc < 0.0
         for col in live_columns(gate):
@@ -217,7 +222,8 @@ def _superblock_lanes(scene, sb_gate, gate_fn, o, inv, g, skip=None):
         if lanes.numel() == 0:
             continue
         w = sb * 128
-        tn, tf = slab(o[lanes], inv[lanes], scene.sl_blkflat[:, w:w + 128])
+        tn, tf = padded_slab(o[lanes], inv[lanes],
+                             scene.sl_blkflat[:, w:w + 128])
         yield w, lanes, gate_fn(tn, tf, g[lanes], scene.sl_blkid[0, w:w + 128])
 
 
@@ -230,7 +236,7 @@ def _flat2_walk_plain(o, d, t_prev, scene):
     for rs in _ray_chunks(o.shape[0]):
         oc, dc, tpc = o[rs], d[rs], t_prev[rs]
         inv = safe_inv(dc)
-        tn, tf = slab(oc, inv, scene.sl_sbflat)
+        tn, tf = padded_slab(oc, inv, scene.sl_sbflat)
         sb_gate = closest_gate(tn, tf, tpc, scene.sl_sbid[0])
         best = _miss_best(oc.shape[0], o.device)
         for w, sb_lanes, gate in _superblock_lanes(
@@ -249,7 +255,7 @@ def occluded_triangles_flat2_plain(o, d, t_max, scene):
     for rs in _ray_chunks(o.shape[0]):
         oc, dc, tmc = o[rs], d[rs], t_max[rs]
         inv = safe_inv(dc)
-        tn, tf = slab(oc, inv, scene.sl_sbflat)
+        tn, tf = padded_slab(oc, inv, scene.sl_sbflat)
         sb_gate = occluded_gate(tn, tf, tmc, scene.sl_sbid[0])
         occ = tmc < 0.0
         for w, sb_lanes, gate in _superblock_lanes(

@@ -51,6 +51,22 @@ def fused_shadow_plain(scene, s_o, dirs, t_maxes, pds, is_pt, surf_pos,
     return trans, w.t_prev.view(n_l, r), w.still.view(n_l, r)
 
 
+def launch_operands(scene, s_o, dirs, t_maxes, pds, is_pt, surf_pos,
+                    orig_uv, orig_simple) -> tuple:
+    """The kernel's operands from ``fused_shadow``'s arguments, in
+    ``native.launch_fused_shadow``'s order up to ``block``: the stacked
+    sets, the aux rows and the opaque view's flat tables."""
+    c = scene.sl_cols_opaque  # the opaque view's block columns
+    stack = lambda xs: torch.stack(list(xs)).contiguous()
+    aux = torch.cat([surf_pos.T, orig_uv.T,
+                     orig_simple.to(torch.float32).unsqueeze(0)]).contiguous()
+    return (s_o.contiguous(), stack(dirs), stack(t_maxes), stack(pds), aux,
+            tuple(bool(pt) for pt in is_pt),
+            scene.sl_blkflat.narrow(1, 0, c).contiguous(),
+            scene.sl_blkid.narrow(1, 0, c).contiguous(), scene.sl_bw_t,
+            scene.sl_block)
+
+
 @_detach_for_kernel
 def fused_shadow(scene, s_o, dirs, t_maxes, pds, is_pt, surf_pos, orig_uv,
                  orig_simple, steps_cap: int, live=None):
@@ -72,16 +88,9 @@ def fused_shadow(scene, s_o, dirs, t_maxes, pds, is_pt, surf_pos, orig_uv,
                                   surf_pos, orig_uv, orig_simple, steps_cap,
                                   live)
     n_l, r = len(dirs), s_o.shape[0]
-    c = scene.sl_cols_opaque  # the opaque view's block columns
-    stack = lambda xs: torch.stack(list(xs)).contiguous()
-    aux = torch.cat([surf_pos.T, orig_uv.T,
-                     orig_simple.to(torch.float32).unsqueeze(0)]).contiguous()
     out = native.launch_fused_shadow(
-        s_o.contiguous(), stack(dirs), stack(t_maxes), stack(pds), aux,
-        tuple(bool(pt) for pt in is_pt),
-        scene.sl_blkflat.narrow(1, 0, c).contiguous(),
-        scene.sl_blkid.narrow(1, 0, c).contiguous(), scene.sl_bw_t,
-        scene.sl_block, scene, steps_cap, live)
+        *launch_operands(scene, s_o, dirs, t_maxes, pds, is_pt, surf_pos,
+                         orig_uv, orig_simple), scene, steps_cap, live)
     if live is None:
         launches += 1
     else:

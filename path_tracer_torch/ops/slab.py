@@ -13,8 +13,9 @@ block walk), in the kernels' arithmetic (``csrc/flat_common.cuh``).
   one block's nearest candidates, so the visit order decides nothing;
 - ``pad_boxes`` and ``pad_slab``: the widened boxes and slab intervals of
   the walks that gate a lane by its own slab test (the transparent walks,
-  ``ops/trwalk.py``; the tree walk, ``ops/cuda_bvh.py``), in
-  ``csrc/flat_common.cuh``'s ``pad_box`` and ``pad_slab`` arithmetic.
+  ``ops/trwalk.py``; the tree, flat and flat2 walks, ``ops/cuda_bvh.py``;
+  row 3, ``ops/cuda_khit.py``), in ``csrc/flat_common.cuh``'s ``pad_box``
+  and ``pad_slab`` arithmetic; ``padded_slab`` is ``slab`` on both.
 """
 from __future__ import annotations
 
@@ -74,6 +75,12 @@ def pad_boxes(boxes) -> torch.Tensor:
 def pad_slab(tn, tf):
     """A slab interval widened by ``BOX_PAD_T`` of its ends' magnitudes."""
     return tn - tn.abs() * BOX_PAD_T, tf + tf.abs() * BOX_PAD_T
+
+
+def padded_slab(o, inv, boxes):
+    """``slab`` on the widened boxes, its interval widened: the gate's
+    interval of the flat and flat2 walks."""
+    return pad_slab(*slab(o, inv, pad_boxes(boxes)))
 
 
 def closest_gate(tn, tf, t_prev, ids):

@@ -95,9 +95,10 @@ in Morton order of their centroids:
 The dense transparent walk's table (``khit_table``, made on the device
 with the scene; ``PT_DENSE_TR=1``): ``khit_tris`` [9, Tp], the transparent
 slice of ``tri_packed_t`` (triangles ``n_tris_opaque`` on) padded with
-zero rows to a multiple of 128 columns, and ``khit_gbox`` [6, Tp / 128],
+zero rows to a multiple of 128 columns, ``khit_gbox`` [6, Tp / 128],
 each 128-column group's AABB over its real (nonzero-edge) rows, an
-all-padding group at min = max = 1e30.
+all-padding group at min = max = 1e30, and ``khit_sbox`` [6, Tp / 32],
+the same of each 32-column sub-group (row 3's finer gate).
 """
 from __future__ import annotations
 
@@ -115,6 +116,7 @@ BVH_MIN_TRIANGLES = 4096  # the JAX package's use_bvh threshold
 SPH_BLOCKS_MIN = 512  # more spheres than this take the sphere block walk
 SPH_BLOCK = 128  # spheres per block of the sphere block walk
 KHIT_GRP = 128  # columns per group of the dense walk's table (one AABB each)
+KHIT_SUB = 32  # columns per sub-group of a group (one AABB each)
 
 _FLOAT_FIELDS = (
     "tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
@@ -224,6 +226,7 @@ class TorchScene:
     tr_page_table: torch.Tensor
     khit_tris: torch.Tensor
     khit_gbox: torch.Tensor
+    khit_sbox: torch.Tensor
     # --- statics ---
     all_opaque: bool  # every material has opacity factor >= 1, no texture
     no_textures: bool
@@ -287,20 +290,19 @@ def from_numpy(fields: dict, statics: dict, device) -> TorchScene:
     pages = [p[1:] for p in kw["tr_pages"]] or [(1, 1, 0)]
     kw["tr_page_table"] = torch.tensor(pages, dtype=torch.int32,
                                        device=device)
-    kw["khit_tris"], kw["khit_gbox"] = khit_table(kw["tri_packed_t"],
-                                                  kw["n_tris_opaque"])
+    kw["khit_tris"], kw["khit_gbox"], kw["khit_sbox"] = khit_table(
+        kw["tri_packed_t"], kw["n_tris_opaque"])
     return TorchScene(**kw)
 
 
 def khit_table(tri_packed_t, n_tris_opaque: int):
-    """(khit_tris [9, Tp], khit_gbox [6, Tp / 128]) of the dense walk (the
-    module docstring), as the JAX package's ``k_nearest_tr_hits`` builds
-    them per call."""
+    """(khit_tris [9, Tp], khit_gbox [6, Tp / 128], khit_sbox [6, Tp / 32])
+    of the dense walk (the module docstring); the first two as the JAX
+    package's ``k_nearest_tr_hits`` builds them per call."""
     tris = tri_packed_t[:, n_tris_opaque:]
     t_n = tris.shape[1]
     t_pad = -(-t_n // KHIT_GRP) * KHIT_GRP
     tris = torch.nn.functional.pad(tris, (0, t_pad - t_n)).contiguous()
-    g = t_pad // KHIT_GRP
     v0 = tris[0:3]
     p1 = v0 + tris[3:6]
     p2 = v0 + tris[6:9]
@@ -310,10 +312,15 @@ def khit_table(tri_packed_t, n_tris_opaque: int):
                      big)
     mx = torch.where(valid[None], torch.maximum(torch.maximum(v0, p1), p2),
                      -big)
-    has = valid.view(g, KHIT_GRP).any(1)
-    gmin = torch.where(has[None], mn.view(3, g, KHIT_GRP).amin(2), big)
-    gmax = torch.where(has[None], mx.view(3, g, KHIT_GRP).amax(2), big)
-    return tris, torch.cat([gmin, gmax]).contiguous()
+
+    def boxes(width: int):
+        g = t_pad // width
+        has = valid.view(g, width).any(1)
+        gmin = torch.where(has[None], mn.view(3, g, width).amin(2), big)
+        gmax = torch.where(has[None], mx.view(3, g, width).amax(2), big)
+        return torch.cat([gmin, gmax]).contiguous()
+
+    return tris, boxes(KHIT_GRP), boxes(KHIT_SUB)
 
 
 class _AtlasBuilder:

@@ -725,9 +725,15 @@ def _fused_lanes(sc, seed, r, device):
 @pytest.mark.parametrize("steps_cap", [8, 1])
 def test_fused_shadow_kernel_equals_plain_and_two_launches(
         cuda, showcase_tex48, steps_cap):
-    """The fused kernel against its plain version and against
-    flat_occluded + trans_walk launched apart, on every lane."""
-    from path_tracer_torch.ops import cuda_bvh, cuda_shadow, cuda_trwalk
+    """The fused kernel (the warp any-hit, then the resident walk) against
+    its plain version, against flat_occluded + trans_walk launched apart
+    and against the CTA design it replaced, on every lane."""
+    from path_tracer_torch.ops import (
+        ab_baselines,
+        cuda_bvh,
+        cuda_shadow,
+        cuda_trwalk,
+    )
     from path_tracer_torch.scene.device_scene import opaque_view
 
     sc = showcase_tex48
@@ -754,6 +760,11 @@ def test_fused_shadow_kernel_equals_plain_and_two_launches(
     assert torch.equal(got[2], w.still.view(n_l, r))
     assert (got[0] == 0.0).float().mean() > 0.02
     assert ((got[0] > 0.0) & (got[0] < 1.0)).any()
+    # The design it replaced (a 128-ray CTA a light, barriers around each
+    # staged block and chunk), on the same widened gate.
+    for a, b in zip(got, ab_baselines.fused_shadow_cta(
+            sc, o, ds, tms, pds, is_pt, sp, ouv, osimple, steps_cap)):
+        assert torch.equal(a, b)
 
 
 def _training_updates(sc):
@@ -774,9 +785,15 @@ def _training_updates(sc):
 def test_live_walk_kernels_equal_plain(cuda, showcase_tex48, updated):
     """The live variants of the alpha walk, the transmittance walk and the
     fused shadow kernel against their plain live versions on every lane,
-    after the training updates; on untouched tables they also equal the
+    after the training updates (the live fused kernel also against the
+    CTA design it replaced); on untouched tables they also equal the
     forward kernels (the live plane then holds tr_lut[tr_tex8])."""
-    from path_tracer_torch.ops import cuda_shadow, cuda_trwalk, trwalk
+    from path_tracer_torch.ops import (
+        ab_baselines,
+        cuda_shadow,
+        cuda_trwalk,
+        trwalk,
+    )
 
     sc = _training_updates(showcase_tex48) if updated else showcase_tex48
     live = trwalk.live_tables(sc)
@@ -816,6 +833,8 @@ def test_live_walk_kernels_equal_plain(cuda, showcase_tex48, updated):
     assert cuda_shadow.live_launches == before + 1
     for a, b in zip(got, cuda_shadow.fused_shadow_plain(*fused, live=live)):
         assert torch.equal(a, b)
+    for a, b in zip(got, ab_baselines.fused_shadow_cta(*fused, live=live)):
+        assert torch.equal(a, b)  # 15L against the design it replaced
     if not updated:
         for a, b in zip(got, cuda_shadow.fused_shadow(*fused)):
             assert torch.equal(a, b)
@@ -862,11 +881,13 @@ def test_train_step_on_card(cuda, showcase_tex48):
     assert results[0] == pytest.approx(results[1], rel=5e-2)
 
 
-@pytest.mark.parametrize("k", [1, 6])
+@pytest.mark.parametrize("k", [1, 6, 8])
 def test_khit_kernel_equals_plain(cuda, showcase_tex48, k):
     """Row 3 against its plain version on every lane: foliage rays with
-    random t_max, inactive and +inf-t_max lanes, a ragged ray count."""
-    from path_tracer_torch.ops import cuda_khit
+    random t_max, inactive and +inf-t_max lanes, a ragged ray count; the
+    CTA design it replaced (the 128-column groups its only gate) equals
+    its own plain gate on every lane and the new design within t_max."""
+    from path_tracer_torch.ops import ab_baselines, cuda_khit
 
     sc = showcase_tex48
     r = 5003
@@ -878,12 +899,70 @@ def test_khit_kernel_equals_plain(cuda, showcase_tex48, k):
     before = cuda_khit.launches
     ts, pos = cuda_khit.k_nearest_tr_hits(o, d, active, sc, k, t_max=t_max)
     assert cuda_khit.launches == before + 1
-    tris, gbox = sc.khit_tris, sc.khit_gbox
+    tris, gbox, sbox = sc.khit_tris, sc.khit_gbox, sc.khit_sbox
+    enc = torch.where(active, t_max, -1.0)
     want_ts, want_pos = cuda_khit.k_nearest_tr_hits_plain(
-        o, d, torch.where(active, t_max, -1.0), tris, gbox, k)
+        o, d, enc, tris, gbox, k, sbox)
     assert torch.equal(ts, want_ts) and torch.equal(pos, want_pos)
     assert torch.isfinite(ts[0]).float().mean() > 0.2
     assert not torch.isfinite(ts[:, ~active]).any()
+    old_t, old_c = ab_baselines.k_nearest_tr_hits_cta(o, d, active, sc, k,
+                                                      t_max=t_max)
+    want_old = cuda_khit.k_nearest_tr_hits_plain(o, d, enc, tris, gbox, k)
+    assert torch.equal(old_t, want_old[0]) and torch.equal(old_c,
+                                                           want_old[1])
+    within = ts <= enc
+    assert torch.equal(within, old_t <= enc)
+    assert torch.equal(torch.where(within, ts, 0.0),
+                       torch.where(within, old_t, 0.0))
+    assert torch.equal(torch.where(within, pos, 0),
+                       torch.where(within, old_c, 0))
+
+
+@pytest.mark.parametrize("k", [1, 6])
+def test_khit_kernel_keeps_every_hit_within_t_max(cuda, tie_cards, k):
+    """Row 3 on the duplicate-card scene loses, within t_max, no entry of
+    its ungated plain version (every group box at +-1e30 and no sub-group
+    gate: brute-force MT)
+    on tie rays through the layered copies and on rays aimed at the
+    cards' vertices and edges, at t_max +inf, the first hit and an ulp
+    below and above it; and equals its plain version on every lane."""
+    from path_tracer_torch.ops import cuda_khit
+    from path_tracer_torch.scene.procedural import tie_rays
+
+    sc, r = tie_cards, 4096
+    o, d = (torch.from_numpy(x).to(cuda) for x in tie_rays(r, seed=11))
+    v = sc.tri_v0[sc.n_tris_opaque: sc.num_real_triangles].cpu().numpy()
+    e1 = sc.tri_e1[sc.n_tris_opaque: sc.num_real_triangles].cpu().numpy()
+    g = np.random.default_rng(12)
+    tri = g.integers(0, len(v), r)
+    tgt = v[tri] + g.uniform(size=(r, 1)) * e1[tri]  # edge points
+    tgt[::2] = v[tri][::2]  # vertices
+    ao = tgt + g.uniform(-1.0, 1.0, (r, 3)) * (v.max(0) - v.min(0))
+    ad = (tgt - ao) / np.linalg.norm(tgt - ao, axis=1, keepdims=True)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+    everywhere = sc.khit_gbox.clone()
+    everywhere[0:3], everywhere[3:6] = -1e30, 1e30
+    inf = torch.full((r,), float("inf"), device=cuda)
+    act = torch.ones((r,), dtype=torch.bool, device=cuda)
+    for ro, rd in ((o, d), (t(ao), t(ad))):
+        want_t, want_c = cuda_khit.k_nearest_tr_hits_plain(
+            ro, rd, inf, sc.khit_tris, everywhere, k)
+        first = want_t[0]
+        assert torch.isfinite(first).float().mean() > 0.3
+        for tm in (inf, first, torch.nextafter(first, -inf),
+                   torch.nextafter(first, inf)):
+            got_t, got_c = cuda_khit.k_nearest_tr_hits(ro, rd, act, sc, k,
+                                                       t_max=tm)
+            p_t, p_c = cuda_khit.k_nearest_tr_hits_plain(
+                ro, rd, tm, sc.khit_tris, sc.khit_gbox, k, sc.khit_sbox)
+            assert torch.equal(got_t, p_t) and torch.equal(got_c, p_c)
+            w_in, g_in = want_t <= tm, got_t <= tm
+            assert torch.equal(w_in, g_in)
+            assert torch.equal(torch.where(w_in, got_t, 0.0),
+                               torch.where(w_in, want_t, 0.0))
+            assert torch.equal(torch.where(w_in, got_c, 0),
+                               torch.where(w_in, want_c, 0))
 
 
 def _tree_case(device, name):
@@ -1197,3 +1276,67 @@ def test_warp_flat2_any_hit_equals_plain_and_cta(cuda, name):
         o, ds, tms, sc))
     assert got[:, dead].all()
     assert got[0][hit & ~dead].all() and not got[1][hit & ~dead].any()
+
+
+def _ungated(sc):
+    """The scene with every real block and superblock box at +-1e30: the
+    flat and flat2 walks' ungated form."""
+    import dataclasses
+
+    def opened(boxes, ids):
+        boxes = boxes.clone()
+        real = ids[0] >= 0
+        boxes[0:3, real] = -1e30
+        boxes[3:6, real] = 1e30
+        return boxes
+
+    return dataclasses.replace(
+        sc, sl_blkflat=opened(sc.sl_blkflat, sc.sl_blkid),
+        sl_sbflat=opened(sc.sl_sbflat, sc.sl_sbid))
+
+
+@pytest.mark.parametrize("origin", ["near", "far"])
+def test_flat_kernels_keep_ungated_hits(cuda, origin):
+    """Rows 9-12 (the flat and flat2 kernels, whose gates widen the block
+    and superblock boxes and each lane's interval) on tie rays through
+    shared edges and vertices of the duplicate-triangle grid, from 3 units
+    above or 800 to 8,000 units back: their closest hits (from t_prev -1
+    and from an ulp before the ungated hit) and any-hits (t_max the
+    ungated hit's t, misses at 5) equal the ungated plain walks' in
+    hit/miss and t on every lane."""
+    from path_tracer_torch.ops import cuda_bvh
+    from path_tracer_torch.scene import build_scene
+    from path_tracer_torch.scene.procedural import (
+        duplicate_grid_scene,
+        tie_rays,
+    )
+
+    sc = build_scene(duplicate_grid_scene(), ".", cuda, use_bvh=True,
+                     sl_block=128)
+    brute = _ungated(sc)
+    o, d = tie_rays(5003, seed=3)
+    if origin == "far":
+        g = np.random.default_rng(4)
+        aim = o + 3.0 / -d[:, 1:2] * d
+        o = (aim - d * 8.0 * 10.0 ** g.uniform(2.0, 3.0, (len(o), 1))
+             ).astype(np.float32)
+    o, d = (torch.from_numpy(x).to(cuda) for x in (o, d))
+    tp = _dead_warps(torch.full((5003,), -1.0, device=cuda))
+    off = lambda a, b: int(((a.valid != b.valid)
+                            | (b.valid & (a.t != b.t))).sum())
+    for walk in ("flat", "flat2"):
+        closest = getattr(cuda_bvh, f"closest_hit_triangles_{walk}")
+        plain = getattr(cuda_bvh, f"closest_hit_triangles_{walk}_plain")
+        want = plain(o, d, tp, brute)
+        assert off(closest(o, d, tp, sc), want) == 0, walk
+        before = torch.where(want.valid, torch.nextafter(
+            want.t, torch.tensor(-1.0, device=cuda)), tp)
+        assert off(closest(o, d, before, sc), plain(o, d, before, brute)) \
+            == 0, walk
+        dead = torch.isinf(tp)
+        tm = torch.where(dead, -1.0, torch.where(want.valid, want.t, 5.0))
+        any_hit = getattr(cuda_bvh, f"occluded_triangles_{walk}_multi")
+        any_plain = getattr(cuda_bvh,
+                            f"occluded_triangles_{walk}_multi_plain")
+        assert torch.equal(any_hit(o, [d], [tm], sc),
+                           any_plain(o, [d], [tm], brute)), walk

@@ -10,8 +10,10 @@ columns). Tolerances:
   tests/test_partition.py:175-210: the same finite pattern, t within rtol
   1e-6 (the interpret kernel's FMA contraction), at least 99% of the
   columns equal (an ulp can swap two near-equal hits). With t_max the
-  port prunes per lane: nothing reachable lost, nothing invented, and
-  every entry within t_max equal to the unpruned one.
+  port prunes per lane on widened group boxes: nothing within t_max lost
+  (tests/test_torch_walk_gate.py holds that against the ungated
+  producer on grazing and far rays), nothing invented, and every entry
+  within t_max equal to the unpruned one.
 - The dense walk against the walk kernels' route (the port's own, plain
   versions): max <= 1e-5, mean <= 1e-7 (tests/test_partition.py:235-262;
   the dense walk recomputes u, v per column).

@@ -174,7 +174,8 @@ def _fake_khit_scene(mode):
     with mode:
         return SimpleNamespace(
             khit_tris=torch.empty((9, 384), device="cuda"),
-            khit_gbox=torch.empty((6, 3), device="cuda"))
+            khit_gbox=torch.empty((6, 3), device="cuda"),
+            khit_sbox=torch.empty((6, 12), device="cuda"))
 
 
 def _fake_fused_scene(mode):
@@ -583,12 +584,17 @@ def test_khit_and_tree_launchers_check_operands():
         cuda = dict(device="cuda")
         tris = torch.empty((9, 256), **cuda)
         gbox = torch.empty((6, 2), **cuda)
+        sbox = torch.empty((6, 8), **cuda)
         bad_khit = [
-            (o, d, tp, torch.empty((9, 200), **cuda), gbox, 6),  # ragged
-            (o, d, tp, tris, torch.empty((6, 3), **cuda), 6),  # groups
-            (o, d, tp.double(), tris, gbox, 6),
-            (o, d, tp, tris, gbox, 9),  # k past the register list
-            (o, d, tp, tris, gbox, 0),
+            (o, d, tp, torch.empty((9, 200), **cuda), gbox, sbox, 6),  # ragged
+            (o, d, tp, tris, torch.empty((6, 3), **cuda), sbox, 6),  # groups
+            (o, d, tp, tris, gbox, torch.empty((6, 4), **cuda), 6),  # subs
+            (o, d, tp.double(), tris, gbox, sbox, 6),
+            (o, d, tp, tris, gbox, sbox, 9),  # k past the register list
+            (o, d, tp, tris, gbox, sbox, 0),
+            # past the table resident in shared memory (4,096 columns)
+            (o, d, tp, torch.empty((9, 4224), **cuda),
+             torch.empty((6, 33), **cuda), torch.empty((6, 132), **cuda), 6),
         ]
         tables = (sc.sl_nodes6, sc.sl_meta6, sc.sl_tris_t)
         bad_tree = [

@@ -27,7 +27,15 @@ contract:
   ``alpha_walk_plain`` and ``trans_walk_plain`` on every field of every
   lane at caps 0, 1, 8 and 12, on tie rays through the layered
   duplicate-card scene (copies at equal t; 12 layers, so cap 12 refills)
-  and on showcase48's foliage rays.
+  and on showcase48's foliage rays;
+- row 3's producer (``cuda_khit.k_nearest_tr_hits_plain``, whose gate
+  widens the 128-column group boxes, the 32-column sub-group boxes and
+  each lane's interval the same way)
+  keeps, within t_max, every entry of the ungated producer (every group
+  box at +-1e30: brute-force MT) on the aimed, far, tie and foliage sets of
+  the duplicate-card scene and showcase48, at t_max infinite, at the
+  ungated first hit and one ulp either side; on the exact boxes and
+  intervals it drops entries on the cards' aimed and far sets.
 """
 import jax
 import jax.numpy as jnp
@@ -467,3 +475,67 @@ def test_trans_list_walk_equals_plain(request, scene, cap):
     if scene == "cards" and cap:
         assert _past_the_list(sc, args[0], args[1], got.t_prev) == (
             cap > KMAX)
+
+
+KHIT_K = 6  # the dense route's K
+
+
+def _khit_off(sc, o, d) -> list:
+    """Lanes where row 3's plain producer differs, within t_max, from the
+    ungated producer (every group box at +-1e30: brute-force MT over all
+    columns), at t_max = +inf, the ungated first hit, and an ulp below and
+    above it: an entry with t <= t_max missing, added, or at another t or
+    column."""
+    from path_tracer_torch.ops.cuda_khit import k_nearest_tr_hits_plain
+
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    inf = torch.full((o.shape[0],), float("inf"))
+    everywhere = sc.khit_gbox.clone()
+    everywhere[0:3], everywhere[3:6] = -1e30, 1e30
+    want_t, want_c = k_nearest_tr_hits_plain(o, d, inf, sc.khit_tris,
+                                             everywhere, KHIT_K)
+    first = want_t[0]
+    off = []
+    for t_max in (inf, first, torch.nextafter(first, torch.tensor(-1.0)),
+                  torch.nextafter(first, inf)):
+        got_t, got_c = k_nearest_tr_hits_plain(o, d, t_max, sc.khit_tris,
+                                               sc.khit_gbox, KHIT_K,
+                                               sc.khit_sbox)
+        w_in, g_in = want_t <= t_max, got_t <= t_max
+        bad = (w_in != g_in) | (w_in & ((got_t != want_t)
+                                        | (got_c != want_c)))
+        off.append(int(bad.any(0).sum()))
+    return off
+
+
+def _khit_rays(sc, rays: str):
+    if rays == "aimed":
+        return _aimed_rays(sc, 23, R)
+    if rays == "far":
+        return _far_rays(sc, 26, R)
+    if rays == "tie":
+        return _tie_lanes(sc, 5, R)[:2]
+    return _foliage_rays(sc, 7, R)[:2]
+
+
+@pytest.mark.parametrize("rays", ["aimed", "far", "tie", "foliage"])
+@pytest.mark.parametrize("scene", ["cards", "showcase48"])
+def test_khit_gate_keeps_every_hit_within_t_max(request, scene, rays):
+    """Row 3's widened group gate loses no hit of the ungated producer
+    within t_max, on any lane, at any of the four t_max."""
+    sc = request.getfixturevalue(scene)
+    assert _khit_off(sc, *_khit_rays(sc, rays)) == [0, 0, 0, 0]
+
+
+def test_khit_exact_gate_drops_hits(cards, monkeypatch):
+    """Why row 3 widens its gate: on the exact group boxes and intervals a
+    lane's own rounded slab test rejects the group holding a hit its MT
+    test finds, on rays aimed at the cards' vertices, edges and box faces
+    and on rays from far away."""
+    from path_tracer_torch.ops import slab
+
+    for name in ("BOX_PAD_EXT", "BOX_PAD_MAG", "BOX_PAD_T"):
+        monkeypatch.setattr(slab, name, 0.0)
+    for rays in ("aimed", "far"):
+        off = _khit_off(cards, *_khit_rays(cards, rays))
+        assert max(off) > 0, (rays, off)
