@@ -46,21 +46,20 @@ any error:
    (at most MAX_RANGE_FLIPS of the lanes), and the fused shadow kernel
    (row 15: row 10's warp any-hit, then row 14's resident walk) on the
    textured showcase's 3 x 2^18 first-bounce shadow lanes and 3 x 2^16
-   incoherent lanes against its plain version, against flat_occluded +
-   trans_walk launched apart and against the CTA design it replaced
-   (``ops/ab_baselines.py``), on every lane; each timed, row 15 in turns
-   against the replaced design and the two launches; (3g, with 3f's
-   fused checks and 6a also alone as ``--only 3o``) the k-nearest
+   incoherent lanes against its plain version and against flat_occluded +
+   trans_walk launched apart, on every lane; each timed, row 15 in turns
+   against the two launches; (3g, with 3f's fused checks and 6a also
+   alone as ``--only 3o``) the k-nearest
    transparent hits kernel (row 3, the dense walk's producer: the table
    resident in shared memory, warp walks) on the textured showcase's
    middle 2^18 camera lanes with the opaque terminator as t_max, its
    first bounce's 3 x 2^18 stacked shadow lanes (a tenth killed) and
    random foliage rays with dead lanes, at k = 6, 1 and 8, against its
-   plain version and the replaced CTA design on every lane; on the
-   duplicate-card scene, aimed, far and tie rays held within t_max to the
-   ungated plain version (brute-force MT); then the lane slots per needed
-   MT test of both designs, both in turns, each serving layout alone, and
-   the wrapper timed; (3h) the superleaf tree walk, closest hit and any-hit
+   plain version on every lane; on the duplicate-card scene, aimed, far
+   and tie rays held within t_max to the ungated plain version
+   (brute-force MT); then the lane slots per needed MT test, the device
+   ms a launch, and the wrapper timed; (3h) the superleaf tree walk,
+   closest hit and any-hit
    (rows 7 and 8), on the plain showcase and scene A's whole table:
    camera, random and first-bounce lanes and the three lights' shadow
    sets with a tenth killed (one any-hit launch), on a ragged ray count,
@@ -125,7 +124,17 @@ any error:
    (showcase) or 11 and 12 (scene A) on the same rays; (3p, only alone
    with ``--only 3p``) rows 9-12's device ms a launch at the main path's
    shapes, the script runnable from a checkout of an earlier commit to
-   time that commit's kernels on the same lanes;
+   time that commit's kernels on the same lanes; (3q, also alone with
+   ``--only 3q``) row 6 (the sphere any-hit walk as warp packets on the
+   widened gate, writing prior | spheres) against its plain version and
+   the replaced CTA design (``ops/ab_baselines.py``) on every lane: scene
+   B's first-bounce and incoherent shadow sets with and without a prior,
+   a ragged count with dead warps, each in-block layout alone, and the
+   duplicate-sphere tie rays at t_max the ungated first hit, held also to
+   the ungated walk and the dense any-hit (the exact-box mutation's lanes
+   off counted), row 5 on the same rays against its ungated plain
+   version; then both designs in turns with the bound, ptxas's report and
+   scene B's device ms a 1080p sample through each;
 4. the main path at full size: ``cube``, ``spheres`` and ``reflection`` at
    1920x1080, 4 bounces, 16 spp through ``render_pixel_sums``, and one
    reference-default frame of ``reflection`` (1920x1080, 64 spp, 4
@@ -167,8 +176,7 @@ any error:
    walk and the fused shadow kernel on the main path's lanes after
    tests/test_trwalk.py's training updates, each against its plain live
    version on every lane and timed beside its forward variant, and equal
-   to the forward variant on untouched tables, the live fused kernel
-   (15L) also against the CTA design it replaced; (6b) the bench's backward
+   to the forward variant on untouched tables; (6b) the bench's backward
    step: d mean(img^2) / d mat_albedo_factor over the 2^18-lane 1080p
    tile, 5 bounces, 1 spp, timed (fwd+bwd rays/s, peak device memory,
    launches: the live walk kernels alone), its gradient against a central
@@ -868,7 +876,17 @@ def camera_rays(sc, n: int, device, tile: int = 4):
 
 def surface_points(rng, sc, n: int):
     """n points on random real triangles, 1e-5 off them along the unit
-    geometric normal (turned up, as the terrain's), as numpy arrays."""
+    geometric normal (turned up, as the terrain's), as numpy arrays; on a
+    scene of spheres alone, on random real spheres, 1e-5 off along a
+    random normal."""
+    if sc.num_real_triangles == 0:
+        n_s = sc.num_real_spheres
+        k = rng.integers(0, n_s, n)
+        c = sc.sph_center[:n_s].cpu().numpy()[k]
+        rad = sc.sph_radius[:n_s].cpu().numpy()[k]
+        nrm = rng.normal(size=(n, 3))
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        return c + (rad[:, None] + 1e-5) * nrm, nrm
     k = rng.integers(0, sc.num_real_triangles, n)
     v0, e1, e2 = (x[: sc.num_real_triangles].cpu().numpy()[k]
                   for x in (sc.tri_v0, sc.tri_e1, sc.tri_e2))
@@ -1650,7 +1668,8 @@ def sphere_any_hit_work(sh, sc, occ) -> tuple[int, int]:
     dense, every real sphere per live lane the kernel leaves unoccluded and
     one test per occluded lane; the walk, a slab test of every real block
     per live lane and the real spheres of every block an unoccluded lane's
-    gate admits (an occluded lane needs one test)."""
+    gate admits, on the widened boxes and intervals the kernel's gate
+    needs (``slab.padded_slab``; an occluded lane needs one test)."""
     from path_tracer_torch.ops import slab
 
     slabs = tests = 0
@@ -1666,8 +1685,8 @@ def sphere_any_hit_work(sh, sc, occ) -> tuple[int, int]:
         slabs += int(live.sum()) * int((ids >= 0).sum())
         for a in range(0, dd.shape[0], 1 << 15):
             rs = slice(a, a + (1 << 15))
-            tn, tf = slab.slab(sh["s_o"][rs], slab.safe_inv(dd[rs]),
-                               sc.sph_blk)
+            tn, tf = slab.padded_slab(sh["s_o"][rs], slab.safe_inv(dd[rs]),
+                                      sc.sph_blk)
             gate = slab.occluded_gate(tn, tf, tm[rs], ids) & open_[rs, None]
             tests += int((gate * real).sum())
     return slabs, tests
@@ -1714,9 +1733,8 @@ def phase_sphere_any_hit(device, sc, label: str):
     ms, bare_ms = cuda_ms(run, 20), cuda_ms(bare, 20)
     ms2, bare_ms2 = cuda_ms(run, 20), cuda_ms(bare, 20)
     slabs, tests = sphere_any_hit_work(sh, sc, got)
-    out_bytes = 4 if sc.sph_use_blocks else 1  # the walk writes f32
     work = bound(slabs * OPS_SLAB + tests * OPS_SPHERE,
-                 nbytes(o3, ds, tms, *tables) + out_bytes * ds.shape[0] * n)
+                 nbytes(o3, ds, tms, *tables) + ds.shape[0] * n)  # bool out
     live = float((tms >= 0.0).float().mean())
     log(f"  {label}: {ds.shape[0]} sets x {n} first-bounce shadow lanes "
         f"(live {live:.3f}), {sc.num_real_spheres} spheres "
@@ -1823,16 +1841,15 @@ def phase_fused_shadow_kernel(device, tex):
     transparent table in shared memory) on the textured showcase's
     first-bounce shadow lanes (3 lights x the middle 2^18 camera lanes, a
     tenth killed, step cap 8) and on 3 x 2^16 incoherent lanes, against its
-    timed plain version, flat_occluded + trans_walk launched apart and the
-    replaced CTA design (``ops/ab_baselines.py``): 0 lanes may differ.
-    Then timed through its wrapper beside the two launches, and in turns
-    (device ms a launch: the replaced design, the new, the two launches,
+    timed plain version and flat_occluded + trans_walk launched apart: 0
+    lanes may differ. Then timed through its wrapper beside the two
+    launches, and in turns (device ms a launch: the new, the two launches,
     and back, twice). Returns (max abs err, (ms, plain ms, bound ms, bound
     by))."""
     import torch
 
     from path_tracer_torch import native
-    from path_tracer_torch.ops import ab_baselines, cuda_shadow, trwalk
+    from path_tracer_torch.ops import cuda_shadow, trwalk
 
     rng = np.random.default_rng(20261022)
     n, cap = WAVE, trwalk.TRWALK_K
@@ -1846,16 +1863,15 @@ def phase_fused_shadow_kernel(device, tex):
         got = cuda_shadow.fused_shadow(*args)
         off_plain = lanes_off(got, want)
         off_apart = lanes_off(got, fused_two_launches(tex, sh, cap))
-        off_old = lanes_off(got, ab_baselines.fused_shadow_cta(*args))
         live = torch.stack(sh["t_maxes"]) >= 0
         log(f"  fused shadow kernel, {len(sh['dirs'])} lights x "
             f"{sh['s_o'].shape[0]} {label} shadow lanes (any-hit live "
             f"{float(live.float().mean()):.3f}): lanes off the plain version "
             f"{off_plain}, off flat_occluded + trans_walk launched apart "
-            f"{off_apart}, off the replaced CTA design {off_old}; trans_eff "
+            f"{off_apart}; trans_eff "
             f"0 on {float((got[0] == 0).float().mean()):.3f}, in (0, 1) on "
             f"{float(((got[0] > 0) & (got[0] < 1)).float().mean()):.4f}")
-        if off_plain or off_apart or off_old:
+        if off_plain or off_apart:
             raise AssertionError(f"fused shadow kernel disagrees ({label})")
         err = max(err, max_err(got, want))
 
@@ -1867,12 +1883,10 @@ def phase_fused_shadow_kernel(device, tex):
     ms2, two_ms2 = cuda_ms(run, 20), cuda_ms(two, 20)
     ops = cuda_shadow.launch_operands(*args[:-1])
     new_l = lambda: native.launch_fused_shadow(*ops, tex, cap)
-    old_l = lambda: ab_baselines.launch_fused_shadow_cta(*args)
-    turns = {"replaced": [], "new": [], "two launches": []}
+    turns = {"new": [], "two launches": []}
     for _ in range(2):
-        for k, fn in (("replaced", old_l), ("new", new_l),
-                      ("two launches", two), ("two launches", two),
-                      ("new", new_l), ("replaced", old_l)):
+        for k, fn in (("new", new_l), ("two launches", two),
+                      ("two launches", two), ("new", new_l)):
             turns[k].append(launch_device_ms(fn))
     fb = fused_bound(tex, sh, (tex.tr_rows, tex.tr_tex8))
     work, b10, b14 = fb["work"], fb["b10"], fb["b14"]
@@ -1887,10 +1901,8 @@ def phase_fused_shadow_kernel(device, tex):
     best = {k: min(v) for k, v in turns.items()}
     log("  A/B row 15, device ms a launch in turns: " + "; ".join(
         f"{k} " + " ".join(f"{x:.4f}" for x in v) for k, v in turns.items())
-        + f"; new / replaced {best['new'] / best['replaced']:.3f}, new / "
-        f"two launches {best['new'] / best['two launches']:.3f}; share of "
-        f"the bound new {work[0] / best['new']:.3f}, replaced "
-        f"{work[0] / best['replaced']:.3f}")
+        + f"; new / two launches {best['new'] / best['two launches']:.3f}; "
+        f"share of the bound {work[0] / best['new']:.3f}")
     return err, (min(ms, ms2), plain_ms) + work
 
 
@@ -2526,12 +2538,7 @@ def phase_live_kernels(device, tex):
     each equals its forward variant on every lane. Returns {name: (max
     abs err, (ms, plain ms, bound ms, bound by))}."""
     from path_tracer_torch import native
-    from path_tracer_torch.ops import (
-        ab_baselines,
-        cuda_shadow,
-        cuda_trwalk,
-        trwalk,
-    )
+    from path_tracer_torch.ops import cuda_shadow, cuda_trwalk, trwalk
 
     n, cap = WAVE, trwalk.TRWALK_K
     upd = training_updates(tex)
@@ -2610,12 +2617,6 @@ def phase_live_kernels(device, tex):
            f"{len(fs['dirs'])} lights x {n} first-bounce shadow lanes (a "
            f"tenth killed; walking after the any-hit {fb['walkers']}; bound "
            f"any-hit {fb['b10'][0]:.4f} ms + walk {fb['b14'][0]:.4f} ms)")
-    off_old = lanes_off(got, ab_baselines.fused_shadow_cta(upd, *args,
-                                                           live=live))
-    log(f"  fused_shadow_live: lanes off the replaced CTA design {off_old}")
-    if off_old:
-        raise AssertionError("fused_shadow_live disagrees with the replaced "
-                             "design")
     return out
 
 
@@ -2785,12 +2786,12 @@ def phase_train_steps(device, tex):
     return counts
 
 
-def khit_work(o, d, t_max, tris, gbox, sbox=None) -> tuple[int, int]:
+def khit_work(o, d, t_max, tris, gbox, sbox) -> tuple[int, int]:
     """(slab tests, MT tests) row 3 needs on these lanes (t_max encoded,
-    <= 0 dead): a slab test of every group box per live lane (and of the
-    four sub-group boxes of each group it reaches, given ``sbox``), and an
-    MT test of every real column its gate admits (``cuda_khit``'s plain
-    gate: the group, and given ``sbox`` the sub-group)."""
+    <= 0 dead): a slab test of every group box per live lane and of the
+    four sub-group boxes of each group it reaches, and an MT test of every
+    real column its gate admits (``cuda_khit``'s plain gate: the group and
+    the sub-group)."""
     from path_tracer_torch.ops import cuda_khit
     from path_tracer_torch.scene.device_scene import KHIT_GRP, KHIT_SUB
 
@@ -2800,44 +2801,36 @@ def khit_work(o, d, t_max, tris, gbox, sbox=None) -> tuple[int, int]:
     for a in range(0, o.shape[0], 1 << 14):
         rs = slice(a, a + (1 << 14))
         reach = cuda_khit._group_reach(o[rs], d[rs], t_max[rs], gbox)
-        cols = reach.repeat_interleave(KHIT_GRP, dim=1)
-        if sbox is not None:
-            slabs += int(reach.sum()) * (KHIT_GRP // KHIT_SUB)
-            cols &= cuda_khit._group_reach(
-                o[rs], d[rs], t_max[rs], sbox).repeat_interleave(KHIT_SUB,
-                                                                 dim=1)
+        slabs += int(reach.sum()) * (KHIT_GRP // KHIT_SUB)
+        sub = cuda_khit._group_reach(o[rs], d[rs], t_max[rs], sbox)
+        cols = (reach.repeat_interleave(KHIT_GRP, dim=1)
+                & sub.repeat_interleave(KHIT_SUB, dim=1))
         tests += int((cols & real).sum())
     return slabs, tests
 
 
 def khit_slots(o, d, t_max, tris, gbox, sbox) -> dict:
     """Row 3's lane slots (MT tests a lane executes or sits out) against
-    the MT tests each design needs (``khit_work``): the replaced CTA design
-    (a 128-lane CTA: every group some lane reaches costs 128 lanes x 128
-    columns; it needs the columns of the groups a lane reaches) and the new
-    warp walk (it needs the columns of the sub-groups a lane reaches; every
-    sub-group some lane of a warp reaches costs 32 lanes x 32 columns)."""
+    the MT tests it needs (``khit_work``: the columns of the sub-groups a
+    lane reaches): every sub-group some lane of a warp reaches costs 32
+    lanes x 32 columns."""
     import torch
 
     from path_tracer_torch.ops import cuda_khit
     from path_tracer_torch.scene.device_scene import KHIT_GRP, KHIT_SUB
 
     g, subs = gbox.shape[1], KHIT_GRP // KHIT_SUB
-    cta = warp = 0
-    for a in range(0, o.shape[0], 1 << 14):  # whole CTAs: 2^14 lanes
+    warp = 0
+    for a in range(0, o.shape[0], 1 << 14):  # whole warps: 2^14 lanes
         rs = slice(a, a + (1 << 14))
         reach = cuda_khit._group_reach(o[rs], d[rs], t_max[rs], gbox)
         sub = cuda_khit._group_reach(o[rs], d[rs], t_max[rs], sbox)
         sub = sub.view(-1, g, subs) & reach[:, :, None]
-        pad = -reach.shape[0] % 128
-        reach = torch.cat([reach, reach.new_zeros((pad, g))])
+        pad = -sub.shape[0] % 32
         sub = torch.cat([sub, sub.new_zeros((pad, g, subs))])
-        cta += int(reach.view(-1, 128, g).any(1).sum()) * 128 * KHIT_GRP
         warp += int(sub.view(-1, 32, g, subs).any(1).sum()) * 32 * KHIT_SUB
-    _, old_tests = khit_work(o, d, t_max, tris, gbox)
     _, tests = khit_work(o, d, t_max, tris, gbox, sbox)
-    return dict(cta=cta, warp=warp, tests=tests, old_tests=old_tests,
-                cta_per=cta / max(old_tests, 1), warp_per=warp / max(tests, 1))
+    return dict(warp=warp, tests=tests, warp_per=warp / max(tests, 1))
 
 
 def aimed_rays(sc, n: int, seed: int):
@@ -2912,8 +2905,7 @@ def khit_ungated_off(o, d, sc, k: int) -> list:
 def phase_khit(device, tex):
     """3g: row 3 (k_nearest_tr_hits: the table resident in shared memory,
     warp walks, each lane testing the 32-column sub-groups it reaches)
-    against its plain version and the replaced CTA design
-    (``ops/ab_baselines.py``) on every lane of the textured showcase: the
+    against its plain version on every lane of the textured showcase: the
     middle wavefront's 2^18 camera lanes with the opaque terminator as
     t_max (dead where the segment misses every transparent cluster), its
     first bounce's 3 x 2^18 stacked shadow lanes (t_max the distance to
@@ -2924,15 +2916,14 @@ def phase_khit(device, tex):
     and edges, rays from 10^2 to 10^3 group extents away and tie rays
     through the layered copies, held within t_max to the ungated plain
     version (brute-force MT) at four t_max. Then the lane slots per needed
-    MT test of both designs and both designs in turns (device ms a
-    launch) on camera and shadow lanes, and the wrapper's time beside the
-    plain version and the bound. Returns
+    MT test, the device ms a launch on camera and shadow lanes, and the
+    wrapper's time beside the plain version and the bound. Returns
     (max abs err, {"camera": (ms, plain ms, bound ms, bound by),
     "shadow": ...})."""
     import torch
 
     from path_tracer_torch import native
-    from path_tracer_torch.ops import ab_baselines, cuda_khit
+    from path_tracer_torch.ops import cuda_khit
     from path_tracer_torch.scene.device_scene import KHIT_GRP
     from path_tracer_torch.scene.procedural import (
         duplicate_card_device_scene,
@@ -2964,30 +2955,16 @@ def phase_khit(device, tex):
             want_ts, want_pos = cuda_khit.k_nearest_tr_hits_plain(
                 ro, rd, enc, tris, gbox, k, sbox)
             off = int(((ts != want_ts) | (pos != want_pos)).any(0).sum())
-            # The replaced design gates the 128-column groups alone: equal
-            # to its own plain gate on every lane, to the new within t_max.
-            old_ts, old_pos = ab_baselines.k_nearest_tr_hits_cta(
-                ro, rd, act, tex, k, t_max=tm)
-            old_want = cuda_khit.k_nearest_tr_hits_plain(ro, rd, enc, tris,
-                                                         gbox, k)
-            off_old = int(((old_ts != old_want[0])
-                           | (old_pos != old_want[1])).any(0).sum())
-            w_in, o_in = ts <= enc, old_ts <= enc
-            off_old += int(((w_in != o_in) | (w_in & ((ts != old_ts)
-                                                     | (pos != old_pos))))
-                           .any(0).sum())
             fin = torch.isfinite(want_ts)
             if fin.any():
                 err = max(err, float((ts - want_ts)[fin].abs().max()))
             log(f"  {label}, {ro.shape[0]} lanes (live "
                 f"{float((enc > 0).float().mean()):.3f}), k = {k}: lanes off "
-                f"the plain version {off}, off the replaced CTA design "
-                f"(its own gate; the new within t_max) {off_old}; hits per "
-                f"live lane "
+                f"the plain version {off}; hits per live lane "
                 f"{float(fin.sum()) / max(1, int((enc > 0).sum())):.3f}")
-            if off or off_old:
-                raise AssertionError("row 3 disagrees with its plain version "
-                                     "or the replaced design")
+            if off:
+                raise AssertionError("row 3 disagrees with its plain "
+                                     "version")
 
     cards = duplicate_card_device_scene(device)
     n_c = 1 << 14
@@ -3014,34 +2991,27 @@ def phase_khit(device, tex):
         ro, rd, act, tm = sets[label]
         enc = torch.where(act, tm, -1.0)
         slots = khit_slots(ro, rd, enc, tris, gbox, sbox)
-        log(f"  row 3 {label} lanes: MT tests needed, the sub-group gate "
-            f"{slots['tests']}, the group gate alone {slots['old_tests']}; "
-            f"lane slots per needed test, replaced CTA design "
-            f"{slots['cta_per']:.3f}, new {slots['warp_per']:.3f}; lane "
-            f"slots, new / replaced {slots['warp'] / max(slots['cta'], 1):.3f}")
+        log(f"  row 3 {label} lanes: MT tests needed {slots['tests']}; lane "
+            f"slots {slots['warp']}, {slots['warp_per']:.3f} a needed test")
         run = lambda: cuda_khit.k_nearest_tr_hits(ro, rd, act, tex, k,
                                                   t_max=tm)
         plain = lambda: cuda_khit.k_nearest_tr_hits_plain(ro, rd, enc, tris,
                                                           gbox, k, sbox)
         ms, plain_ms, ms2 = cuda_ms(run, 20), cuda_ms(plain, 2), cuda_ms(
             run, 20)
-        old_ms, new_ms = device_turns(
-            lambda: ab_baselines.launch_khit_cta(ro, rd, enc, tris, gbox, k),
-            lambda: native.launch_khit(ro, rd, enc, tris, gbox, sbox, k))
+        new_ms = [launch_device_ms(lambda: native.launch_khit(
+            ro, rd, enc, tris, gbox, sbox, k)) for _ in range(2)]
         slabs, tests = khit_work(ro, rd, enc, tris, gbox, sbox)
         work = bound(slabs * OPS_SLAB + tests * OPS_MT,
                      nbytes(ro, rd, enc, tris, gbox, sbox)
                      + ro.shape[0] * k * 8)
-        new, old = min(new_ms), min(old_ms)
+        new = min(new_ms)
         log(f"  time row 3, {ro.shape[0]} {label} lanes, k = {k}: through "
-            f"the wrapper {ms:.4f} ms, {ms2:.4f} ms (repeat); plain "
+            f"the wrapper {ms:.4f} ms, {ms2:.4f} ms (repeat); device ms a "
+            "launch " + " ".join(f"{x:.4f}" for x in new_ms) + f"; plain "
             f"{plain_ms:.4f} ms; bound {work[0]:.4f} ms ({work[1]}: {slabs} "
-            f"slab tests, {tests} MT tests), floor {2 * work[0]:.4f} ms")
-        log(f"  A/B row 3 {label} lanes, device ms a launch in turns: "
-            "replaced " + " ".join(f"{x:.4f}" for x in old_ms) + "; new "
-            + " ".join(f"{x:.4f}" for x in new_ms) + f"; new / replaced "
-            f"{new / old:.3f}; share of the bound new {work[0] / new:.3f}, "
-            f"replaced {work[0] / old:.3f}")
+            f"slab tests, {tests} MT tests), floor {2 * work[0]:.4f} ms; "
+            f"share of the bound {work[0] / new:.3f}")
         if work[0] > new:
             raise AssertionError(f"row 3 {label}: faster than its bound")
         out[label] = (min(ms, ms2), plain_ms) + work
@@ -4611,6 +4581,226 @@ def phase_rows_5_4(device, tex, grid) -> dict:
     return out
 
 
+def exact_box_walk(o, d, t_max, sc):
+    """The plain any-hit walk on the exact boxes and intervals (``slab``'s
+    pads at 0): the mutation the widened gate repairs. [R] bool."""
+    from path_tracer_torch.ops import cuda_spheres, slab
+
+    names = ("BOX_PAD_EXT", "BOX_PAD_MAG", "BOX_PAD_T")
+    saved = [getattr(slab, k) for k in names]
+    try:
+        for k in names:
+            setattr(slab, k, 0.0)
+        return cuda_spheres._occluded_walk_plain(o, d, t_max, sc)
+    finally:
+        for k, v in zip(names, saved):
+            setattr(slab, k, v)
+
+
+def phase_row_6(device, grid) -> dict:
+    """3q: row 6 (the sphere any-hit walk as warp packets writing prior |
+    spheres) against its plain version and the replaced CTA design
+    (``ops/ab_baselines.py``, on the same widened gate) on every lane:
+    scene B's first-bounce shadow sets of the middle 2^18 camera lanes
+    toward both lights and its incoherent later-bounce sets (random
+    sphere-surface points toward both lights), a tenth of each killed,
+    without and with a random tenth as prior (scene B has no triangles,
+    so no triangle any-hit to fold), a ragged count with dead warps, each
+    in-block layout alone; the witness: the duplicate-sphere scene's tie
+    rays (seeds 0-3, 2^16 each) at t_max the first-hit t of the
+    closest-hit walk run ungated, held to the ungated any-hit walk and the
+    dense any-hit, with the exact-box mutation's lanes off counted (the
+    witness still bites); row 5 on the same rays against its ungated plain
+    version from t_prev = -1 and from the hit. Then, on both scene B sets,
+    device ms a launch of the new kernel and the replaced design in turns,
+    each layout alone, both wrappers in turns, the plain version, the
+    bound from the tests the widened gate needs and ptxas's report; and
+    scene B's device ms and launches a 1080p sample from the profiler
+    through the new kernel and through the replaced design. Returns the
+    numbers."""
+    import dataclasses
+
+    import torch
+
+    from path_tracer_torch import native
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.ops import ab_baselines, cuda_spheres
+    from path_tracer_torch.scene.procedural import (
+        duplicate_sphere_device_scene,
+        sphere_tie_rays,
+    )
+
+    log("phase 3q: row 6 (the sphere any-hit walk as warp packets writing "
+        "prior | spheres) against its plain version and the replaced CTA "
+        "design")
+    t0 = time.perf_counter()
+    n, rr = WAVE, WAVE - 37
+    rng = np.random.default_rng(20261116)
+    tenth = lambda m: as_cuda(rng.uniform(size=m) < 0.1, device, bool)
+    fb = first_bounce_shadows(grid, n, device, rng)
+    io, ids, itms = shadow_sets(rng, grid, n, device)
+    sets = {
+        "first-bounce": (fb["s_o"].contiguous(), torch.stack(fb["dirs"]),
+                         torch.stack(fb["t_maxes"])),
+        "incoherent": (io, torch.stack(ids).contiguous(), torch.stack(
+            [torch.where(tenth(n), -1.0, tm) for tm in itms])),
+    }
+
+    def tables(sc):
+        return sc.sph_blk, sc.sph_blkid, sc.sph_sorted_t
+
+    def held6(label, o, ds, tms, sc, prior=None, extra=None):
+        before = cuda_spheres.sph_occ_walk_launches
+        new = cuda_spheres.occluded_spheres_cuda(o, ds, tms, sc, prior=prior)
+        if cuda_spheres.sph_occ_walk_launches != before + 1 \
+                or new.dtype != torch.bool:
+            raise AssertionError(f"row 6, {label}: not one bool launch")
+        want = {"the plain version": cuda_spheres.occluded_spheres_plain(
+                    o, ds, tms, sc, prior),
+                "the replaced CTA design": ab_baselines.sph_occ_walk_cta(
+                    o, ds, tms, *tables(sc), prior), **(extra or {})}
+        offs = {k: int((new != w).sum()) for k, w in want.items()}
+        dead = tms < 0.0
+        log(f"  row 6, {label}: {tms.shape[0]} x {tms.shape[1]} lanes (live "
+            f"{float((~dead).float().mean()):.3f}), occluded "
+            f"{float(new[~dead].float().mean()):.4f} of the live; lanes off "
+            + ", ".join(f"{k} {v}" for k, v in offs.items()))
+        if any(offs.values()):
+            raise AssertionError(f"row 6, {label}: the walk disagrees")
+        if prior is None and bool(new[dead].any()):
+            raise AssertionError(f"row 6, {label}: a dead lane occluded")
+        if prior is not None and not bool(new[prior].all()):
+            raise AssertionError(f"row 6, {label}: a prior set dropped")
+        return new
+
+    for label, (o, ds, tms) in sets.items():
+        new = held6(f"scene B {label} shadow sets", o, ds, tms, grid)
+        prior = torch.stack([tenth(n) for _ in range(tms.shape[0])])
+        folded = held6(f"scene B {label} shadow sets, a random tenth as "
+                       "prior", o, ds, tms, grid, prior)
+        for lw in (1, 33):
+            one = native.launch_sph_occ_walk(o, ds, tms, *tables(grid),
+                                             prior, lane_wise=lw)
+            if not torch.equal(one, folded):
+                raise AssertionError(f"row 6, {label}: lane_wise {lw} "
+                                     "differs from the mix")
+        held6(f"scene B {label} shadow sets, ragged R, dead warps, a random "
+              "prior", o[:rr].contiguous(), ds[:, :rr].contiguous(),
+              torch.stack([dead_warps(x[:rr], -1.0) for x in tms]), grid,
+              prior[:, :rr].contiguous())
+        if not bool(new.any()):
+            raise AssertionError(f"row 6, {label}: nothing occluded")
+
+    ties = duplicate_sphere_device_scene(device)
+    blk = ties.sph_blk.clone()
+    blk[0:3], blk[3:6] = -1e30, 1e30
+    ungated = dataclasses.replace(ties, sph_blk=blk)
+    m = 1 << 16
+    out = {"witness exact-box lanes off": [], "times": {}}
+    for seed in range(4):
+        to, td = (as_cuda(x, device) for x in sphere_tie_rays(m, seed))
+        t = cuda_spheres._sph_walk_plain(
+            to, td, torch.full((m,), -1.0, device=device), ungated)[0]
+        judges = {
+            "the ungated walk": cuda_spheres._occluded_walk_plain(
+                to, td, t, ungated)[None],
+            "the dense any-hit": cuda_spheres._occluded_dense_plain(
+                to, td, t, ties)[None]}
+        got = held6(f"duplicate-sphere tie rays, seed {seed}, t_max the "
+                    "ungated first hit", to, td[None], t[None], ties,
+                    extra=judges)
+        exact = int((exact_box_walk(to, td, t, ties) != got[0]).sum())
+        out["witness exact-box lanes off"].append(exact)
+        log(f"  row 6, tie rays seed {seed}: the plain walk on the exact "
+            f"boxes is off on {exact} lanes (the witness bites)")
+        if not exact:
+            raise AssertionError("row 6 witness: the exact-box mutation "
+                                 "shows no lane off")
+        tp = torch.full((m,), -1.0, device=device)
+        for start in ("t_prev = -1", "from the hit"):
+            rec = cuda_spheres.closest_hit_spheres_cuda(to, td, tp, ties)
+            held(f"row 5, tie rays seed {seed}, {start}", rec, {
+                "the ungated plain walk":
+                    cuda_spheres.closest_hit_spheres_walk_plain(to, td, tp,
+                                                                ungated),
+                "its plain version":
+                    cuda_spheres.closest_hit_spheres_walk_plain(to, td, tp,
+                                                                ties)})
+            tp = torch.where(rec.valid, rec.t, -1.0)
+    log(f"  row 6 held in {time.perf_counter() - t0:.1f} s")
+
+    for name, report in ptxas_report(native.kernels().build_log):
+        if "sph_occ_walk" in name:
+            log(f"  ptxas {name}: {report}")
+    for label, (o, ds, tms) in sets.items():
+        new_l = lambda: native.launch_sph_occ_walk(o, ds, tms, *tables(grid))
+        old_l = lambda: ab_baselines.launch_sph_occ_walk_cta(
+            o, ds, tms, *tables(grid))
+        old_ms, new_ms = device_turns(old_l, new_l)
+        lanes = {lw: min(launch_device_ms(lambda: native.launch_sph_occ_walk(
+            o, ds, tms, *tables(grid), lane_wise=lw)) for _ in range(2))
+            for lw in (1, 33)}
+        wrap = lambda: cuda_spheres.occluded_spheres_cuda(o, ds, tms, grid)
+        old_wrap = lambda: ab_baselines.sph_occ_walk_cta(o, ds, tms,
+                                                         *tables(grid))
+        w_new, w_old = [], []
+        for fn, acc in ((wrap, w_new), (old_wrap, w_old), (old_wrap, w_old),
+                        (wrap, w_new)):
+            acc.append(cuda_ms(fn, AB_ITERS))
+        plain_ms, want = timed_once(
+            lambda: cuda_spheres.occluded_spheres_plain(o, ds, tms, grid))
+        sh = {"s_o": o, "dirs": list(ds), "t_maxes": list(tms)}
+        slabs, tests = sphere_any_hit_work(sh, grid, want)
+        work = bound(slabs * OPS_SLAB + tests * OPS_SPHERE,
+                     nbytes(o, ds, tms, *tables(grid)) + tms.numel())
+        new, old = min(new_ms), min(old_ms)
+        log(f"  time row 6, scene B {label} shadow sets, {tms.numel()} "
+            "lanes, device ms a launch in turns: replaced "
+            + " ".join(f"{x:.4f}" for x in old_ms) + "; new "
+            + " ".join(f"{x:.4f}" for x in new_ms) + f"; new / replaced "
+            f"{new / old:.3f}; each layout alone: lane per ray "
+            f"{lanes[1]:.4f}, the block over the warp {lanes[33]:.4f}; "
+            "through the wrappers in turns: new "
+            + " ".join(f"{x:.4f}" for x in w_new) + "; replaced (its ATen "
+            "compare) " + " ".join(f"{x:.4f}" for x in w_old)
+            + f"; plain {plain_ms:.4f} ms; bound {work[0]:.4f} ms "
+            f"({work[1]}: {slabs} slab tests, {tests} sphere tests), floor "
+            f"{2 * work[0]:.4f} ms; share of the bound new "
+            f"{work[0] / new:.3f}, replaced {work[0] / old:.3f}")
+        if work[0] > new:
+            raise AssertionError(f"row 6 {label}: faster than its bound")
+        out["times"][label] = dict(
+            new=new_ms, old=old_ms, lanes=lanes, wrap=w_new, old_wrap=w_old,
+            plain_ms=plain_ms, bound=work)
+
+    # One 1080p sample of scene B through the new kernel, then through the
+    # replaced design (its wrapper's ATen OR included).
+    spec = IntegratorSpec(bounces=5)
+    launch = native.launch_sph_occ_walk
+    prof = {"new": kernel_device_ms(grid, spec)}
+    try:
+        native.launch_sph_occ_walk = (
+            lambda o, ds, tms, blk, blkid, sph, prior=None:
+            ab_baselines.sph_occ_walk_cta(o, ds, tms, blk, blkid, sph, prior))
+        prof["replaced"] = kernel_device_ms(grid, spec)
+    finally:
+        native.launch_sph_occ_walk = launch
+    for k, v in prof.items():
+        log_profile(f"scene B through {k} row 6", v)
+    new_k, old_k = (prof["new"].get("sph_occ_walk_kernel", (0.0, 0)),
+                    prof["replaced"].get("sph_occ_walk_cta_kernel", (0.0, 0)))
+    log(f"  scene B a 1080p sample: row 6 {new_k[0]:.3f} ms in {new_k[1]} "
+        f"launches (replaced {old_k[0]:.3f} ms in {old_k[1]}); all kernels "
+        f"{prof['new']['all'][0]:.3f} ms in {prof['new']['all'][1]} launches "
+        f"(replaced {prof['replaced']['all'][0]:.3f} ms in "
+        f"{prof['replaced']['all'][1]})")
+    if not new_k[1] or not old_k[1]:
+        raise AssertionError("scene B's sample did not take row 6")
+    out["profile"] = prof
+    log(f"  phase 3q took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def phase_flat_turns(device, showcase, big) -> None:
     """3p: rows 9-12's device ms a launch (``launch_device_ms``, three
     readings each) at the main path's shapes: rows 9 and 11 on the middle
@@ -5161,7 +5351,7 @@ def main() -> int:
     from path_tracer_torch import native
 
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
-    alone = ("3i", "3j", "3k", "3l", "3m", "3n", "3o", "3p")
+    alone = ("3i", "3j", "3k", "3l", "3m", "3n", "3o", "3p", "3q")
     if sys.argv[1:] and (len(sys.argv) != 3 or only not in alone):
         print("usage: chip_smoke.py [--only " + "|".join(alone) + "]",
               file=sys.stderr)
@@ -5227,9 +5417,12 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     if not grid.sph_use_blocks:
         raise AssertionError("the sphere grid does not take the walk")
-    if only == "3m":  # phase 3m alone
-        phase_rows_5_4(device, tex, grid)
-        log(f"chip_smoke: phase 3m passed in "
+    if only in ("3m", "3q"):  # phase 3m or 3q alone
+        if only == "3m":
+            phase_rows_5_4(device, tex, grid)
+        else:
+            phase_row_6(device, grid)
+        log(f"chip_smoke: phase {only} passed in "
             f"{time.perf_counter() - start:.1f} s")
         print(card)
         return 0
@@ -5271,8 +5464,8 @@ def main() -> int:
     log("phase 3f: sphere any-hit kernels and the fused shadow kernel at "
         "the main path's shapes")
     occ_err, _ = phase_sphere_any_hit(device, tex, "dense sphere any-hit")
-    occ_walk_err, occ_walk_time = phase_sphere_any_hit(
-        device, grid, "sphere any-hit walk")
+    occ_walk_err, _ = phase_sphere_any_hit(device, grid,
+                                           "sphere any-hit walk")
     fused_err, fused_time = phase_fused_shadow_kernel(device, tex)
     khit_err, khit_times = phase_khit(device, tex)
     tree_err, tree_occ_err = phase_tree_kernels(device, showcase, big)
@@ -5281,6 +5474,7 @@ def main() -> int:
     phase_rows_13_14(device, tex, big)
     rows_12_2 = phase_rows_12_2(device, big, design_counts=False)
     rows_5_4 = phase_rows_5_4(device, tex, grid)
+    row_6 = phase_row_6(device, grid)
     rows_7_8 = phase_rows_7_8(device, showcase, big)
     launches = phase_main_path(device)
     flat_launches, flat_render = phase_showcase(device, showcase)
@@ -5330,6 +5524,10 @@ def main() -> int:
     ms, b, plain_ms = rows_5_4["times"][
         "row 4 through occluded_multi's sphere half"]
     row4_time = (min(ms), plain_ms) + b
+    # Row 6 through its wrapper on scene B's first-bounce shadow sets of
+    # the middle wavefront's 2^18 camera lanes toward both lights (3q).
+    t6 = row_6["times"]["first-bounce"]
+    row6_time = (min(t6["wrap"]), t6["plain_ms"]) + t6["bound"]
     # Rows 7 and 8 at the tree route's shapes on the plain showcase,
     # through their wrappers (cuda_ms, as the other rows): the 2^18 camera
     # lanes of the middle wavefront, and the first bounce's 3 x 2^18 shadow
@@ -5378,7 +5576,7 @@ def main() -> int:
                                                  rows_5_4["row4_err"]),
               row4_time),
         entry("sph_occ_walk", "sph_occ.cu", "pallas_spheres.py:484",
-              grid_launches["sph_occ_walk"], occ_walk_err, occ_walk_time),
+              grid_launches["sph_occ_walk"], occ_walk_err, row6_time),
         entry("fused_shadow", "fused_shadow.cu", "pallas_shadow.py:49",
               fused_launches["fused_shadow"], fused_err, fused_time),
         entry("alpha_walk_live", "alpha_walk.cu", "pallas_trwalk.py:746",

@@ -4,20 +4,22 @@
 // sphere root rules are written.
 //
 // Two walks share them. The CTA walk (cta_min_key_max through next_column)
-// serves the sphere any-hit walk of sph_occ.cu: a CTA of 128 rays shares
-// one walk behind CTA barriers. The warp walk (kFullMask to
-// warp_walk_smem) serves flat_closest_hit.cu, flat_occluded.cu,
-// flat2_closest_hit.cu, flat2_occluded.cu, fused_shadow.cu and sph_walk.cu:
-// each warp is
-// its own packet, with no CTA barrier; its gate admits block columns with
-// the mask of the rays they admit, and each admitted block is spread over
-// the warp (or, in sph_walk.cu, served lane per ray when most of the warp
-// needs it). safe_inv, Box, load_box, slab, the gates and sphere_nearest
-// serve both; the warp walk's bw_slot_closest and bw_slot_any repeat
-// bw_plane's and bw_inside's arithmetic on a slot held in registers.
-// pad_box and pad_slab widen the gates of the resident transparent walk
-// (trwalk_common.cuh), the tree walk (tree_walk.cu), the flat and flat2
-// walks and row 3 (khit.cu); the sphere walks gate on exact boxes.
+// serves only the replaced design of the sphere any-hit walk
+// (ab_baselines.cu): a CTA of 128 rays shares one walk behind CTA
+// barriers. The warp walk (kFullMask to warp_walk_smem) serves
+// flat_closest_hit.cu, flat_occluded.cu, flat2_closest_hit.cu,
+// flat2_occluded.cu, fused_shadow.cu, sph_walk.cu and sph_occ.cu's walk:
+// each warp is its own packet, with no CTA barrier; its gate admits block
+// columns with the mask of the rays they admit, and each admitted block is
+// spread over the warp (or, in the sphere walks, served lane per ray when
+// most of the warp needs it). safe_inv, Box, load_box, slab, the gates,
+// sphere_nearest and sphere_occludes serve both; the warp walk's
+// bw_slot_closest and bw_slot_any repeat bw_plane's and bw_inside's
+// arithmetic on a slot held in registers. pad_box and pad_slab widen the
+// gates of the resident transparent walk (trwalk_common.cuh), the tree
+// walk (tree_walk.cu), the flat and flat2 walks, row 3 (khit.cu) and the
+// sphere any-hit walk (WidenedOccludedGate); the sphere closest-hit walk
+// (sph_walk.cu) gates on exact boxes, its cut widened instead.
 // TriRecord and write_sphere_record are the sphere closest hits' record
 // and merge (sphere_closest_hit.cu, sph_walk.cu).
 //
@@ -89,7 +91,8 @@ __device__ __forceinline__ void slab(const Box& b, float ox, float oy,
 
 // The widened boxes and slab intervals of the walks that gate a lane by its
 // own slab test (trwalk_common.cuh's resident walk, tree_walk.cu, the flat
-// and flat2 walks' warp_gate_mask and block gates, khit.cu). A box
+// and flat2 walks' warp_gate_mask and block gates, khit.cu, sph_occ.cu's
+// walk). A box
 // holds its triangles' vertices exactly, but a hit's rounded t and
 // barycentrics can place a grazing hit (a ray through a vertex or an edge
 // lying on the box) outside the rounded slab interval: by about 2^-24 of
@@ -121,7 +124,7 @@ __device__ __forceinline__ void pad_slab(float& tn, float& tf) {
   tf = tf + fabsf(tf) * kPadT;
 }
 
-// Row 3's group gate (khit.cu, and its replaced design in ab_baselines.cu):
+// Row 3's group gate (khit.cu):
 // whether a lane's segment (0, tm] reaches box w, already widened by
 // pad_box. Its own slab, as the Pallas kernel's: IEEE reciprocals i (inf on
 // a zero component), a NaN bound on an axis (0 * inf, the origin on a box
@@ -208,6 +211,28 @@ __device__ __forceinline__ float sphere_nearest(float ox, float oy, float oz,
   return v1 ? t1 : (v2 ? t2 : CUDART_INF_F);
 }
 
+// Whether one sphere has a root t with 0 <= t <= tm, in the TPU any-hit
+// kernels' naive quadratic (oc = o - c, b = 2 oc.d, c = |oc|^2 - r^2,
+// disc = b^2 - 4ac, roots (-b -+ sqrt(disc)) inv2a, inv2a = 1 / (2a)), in
+// the order of ops/cuda_spheres.py _any_root. Pad slots (center 1e30,
+// radius 0) overflow to a NaN or -inf discriminant and never occlude.
+__device__ __forceinline__ bool sphere_occludes(float ox, float oy, float oz,
+                                                float dx, float dy, float dz,
+                                                float four_a, float inv2a,
+                                                float tm, float cx, float cy,
+                                                float cz, float rad) {
+  const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+  const float b = 2.0f * (ocx * dx + ocy * dy + ocz * dz);
+  const float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  const float disc = b * b - four_a * cc;
+  if (!(disc >= 0.f)) return false;
+  const float sq = sqrtf(disc);
+  const float t1 = (-b - sq) * inv2a;
+  if (t1 >= 0.f && t1 <= tm) return true;
+  const float t2 = (-b + sq) * inv2a;
+  return t2 >= 0.f && t2 <= tm;
+}
+
 // A triangle HitRecord to merge into a sphere closest hit's record, field
 // by field ([R] each): null pointers for none.
 struct TriRecord {
@@ -281,7 +306,8 @@ __device__ __forceinline__ void cta_min_key_max(float& key, int& col,
   __syncthreads();
 }
 
-// The CTA block walk of the sphere any-hit walk (sph_occ.cu). A CTA of
+// The CTA block walk of the sphere any-hit walk's replaced design
+// (ab_baselines.cu). A CTA of
 // kCtaRays consecutive rays shares one walk; its dynamic shared memory is
 // the staged block, s_key [bpad] (nearest slab entry per column) and s_ray
 // [kRayRows][kCtaRays] (origin, inverted direction and the lane's gate
@@ -317,6 +343,18 @@ struct OccludedGate {
   __device__ bool live(float tm) const { return tm >= 0.f; }
   __device__ bool pass(float tn, float tf, float tm) const {
     return tf >= max_nan(tn, 0.f) && tn <= tm;
+  }
+};
+
+// The any-hit gate of the sphere any-hit walk (sph_occ.cu, and its
+// replaced design in ab_baselines.cu), on boxes widened by pad_box: each
+// lane's interval widened by pad_slab, then OccludedGate's test
+// (ops/slab.py padded_slab, then occluded_gate).
+struct WidenedOccludedGate {
+  __device__ bool live(float tm) const { return tm >= 0.f; }
+  __device__ bool pass(float tn, float tf, float tm) const {
+    pad_slab(tn, tf);
+    return OccludedGate().pass(tn, tf, tm);
   }
 };
 
@@ -513,8 +551,11 @@ __device__ __forceinline__ unsigned warp_gate_mask(const Box& box,
   return mask;
 }
 
-// warp_gate_mask, and in key the nearest slab entry, clamped at 0, over
-// the rays it admits (+inf for none), as column_keys keys a column.
+// The mask of the warp's staged rays whose gate admits box as given (no
+// widening here: sph_walk.cu gates on exact boxes, sph_occ.cu's walk
+// passes a pad_box box and WidenedOccludedGate), and in key the nearest
+// slab entry, clamped at 0, over the rays it admits (+inf for none), as
+// column_keys keys a column.
 template <class Gate>
 __device__ __forceinline__ unsigned warp_gate_mask_key(const Box& box,
                                                        const float* s_ray,

@@ -51,8 +51,8 @@
 // reads the same record, a broadcast), and inserts the hits;
 // the other lanes idle. So the columns reach each lane's list in ascending
 // order, and the result is the plain version's. The sub-group gate is
-// what makes this design faster than the one it replaced (ab_baselines.cu:
-// a 128-ray CTA staging each group some lane reaches): on the textured
+// what makes this design faster than the one it replaced (a 128-ray CTA
+// staging each group some lane reaches; PERF.md §6): on the textured
 // showcase's camera lanes it needs 0.44 of the group gate's MT tests, on
 // its first-bounce shadow lanes 0.38. A second layout, each needing ray
 // served in turn by the whole warp (a column of each of its sub-groups a

@@ -1,7 +1,7 @@
 // Sphere any-hit for L direction sets that share one origin set (a bounce's
 // shadow casts toward L lights): a dense pass over every sphere, one thread
-// per ray for all L sets, and a block walk over SAH blocks of 128 spheres,
-// one thread per (ray, set).
+// per ray for all L sets, and a block walk over SAH blocks of 128 spheres
+// in warp packets of 32 (ray, set) lanes.
 //
 // Replaces the TPU kernels path_tracer_tpu/ops/pallas_spheres.py::
 // _occ_kernel (the dense any-hit, launched by _occ_launch) and
@@ -17,17 +17,26 @@
 //     division and sqrt, and -fmad=false for the plain version's rounding;
 //   - pad slots (center 1e30, radius 0) overflow: disc is NaN or -inf, so
 //     has is false;
-//   - a dead lane is t_max < 0 and reports NOT occluded on both kernels
-//     (pallas_spheres.py:532-536), unlike the triangle any-hit;
+//   - a dead lane is t_max < 0 and is NOT occluded by a sphere on both
+//     kernels (pallas_spheres.py:532-536), unlike the triangle any-hit;
 //   - walk block gate on the [8, sbpad] AABB table: tf >= max(tn, 0),
 //     tn <= t_max, t_max >= 0 and block id >= 0, zero direction components
-//     inverted to 1e30; a block's spheres are the 128 sorted slots of its
-//     id;
+//     inverted to 1e30, each box widened by pad_box and each lane's
+//     interval by pad_slab (flat_common.cuh WidenedOccludedGate; the plain
+//     version's slab.padded_slab). On the exact boxes a ray aimed where a
+//     sphere touches a face of its block's box can round its entry tn past
+//     the root's t, and a lane that tests only the blocks its own gate
+//     admits then loses that occluder; the Pallas kernel hides it, since
+//     it tests every lane of its 128-ray tile against every block some
+//     lane admits. A root in [0, t_max] occludes whichever block holds it,
+//     so widening only adds tests and changes no correct result. A block's
+//     spheres are the 128 sorted slots of its id;
 //   - the result does not depend on the visit order (any root counts).
-// The dense kernel also folds in the triangle any-hit's result: with a
-// prior [L,R] (1 = occluded), a set's output is prior | spheres, so a
-// dead lane whose prior is set (the triangle any-hit reports dead lanes
-// occluded) still comes out occluded; the caller masks dead lanes.
+// Both kernels fold in the triangle any-hit's result: with a prior [L,R]
+// (1 = occluded), a set's output is prior | spheres, and a set whose prior
+// is set costs no sphere test. A dead lane writes its prior (the triangle
+// any-hit reports dead lanes occluded), or 0 without one; the caller masks
+// dead lanes.
 //
 // Bound on the card: arithmetic, about 25 flops per (ray, sphere) test (a
 // sqrt and one multiply by the lane's 1/(2a) per valid discriminant), each
@@ -42,73 +51,50 @@
 // cache, every lane of a warp on the same column (a broadcast): no shared
 // memory and no barrier. The design it replaced (one thread per (ray, set),
 // the table staged 512 columns at a time behind CTA barriers) was timed
-// against it in turns (PERF.md §6). The walk is the CTA walk of
-// flat_common.cuh with the any-hit gate (blockIdx.y picks the set): blocks
-// keyed by their nearest slab entry over the CTA's live lanes, visited nearest
-// first while some lane is unoccluded and slab-passes one, its [4, 128]
-// spheres staged in shared memory.
+// against it in turns (PERF.md §6).
+// Design of the walk: flat_common.cuh's warp walk, as sph_walk.cu's; a CTA
+// holds four warps that share nothing but the launch (blockIdx.y picks the
+// set), and no CTA barrier sits anywhere in the kernel. A lane is open
+// while it is live (t_max >= 0), its prior is not set and no occluder is
+// found.
+//   1. Gate: the warp stages its rays (with 1/(2a) and 4a) in its slice of
+//      shared memory; lane c slab-tests block columns c, c + 32, ...
+//      against the warp's 32 rays on the widened boxes and intervals,
+//      keeps the mask of the open rays the column admits and, as its key,
+//      the nearest slab entry clamped at 0. Admitted columns go into the
+//      warp's list with mask and key (12 bytes a column).
+//   2. Visit the listed columns nearest key first (lowest entry on equal
+//      keys) while some lane of a column's mask is open; a block is served
+//      to the open lanes of its mask alone.
+//   3. Inside a block, by the number k of lanes served: from lane_wise
+//      (native.SPH_OCC_WALK_LANE_WISE) lane per ray, each served lane
+//      solving the block's spheres in slot order up to its first root in
+//      [0, t_max], the table read as broadcasts through the read-only
+//      cache; fewer, the block over the warp, lane l holding spheres l,
+//      l + 32, l + 64, l + 96 in registers and the served rays tested one
+//      after another, an __any_sync closing each. Both stop at the block's
+//      last real sphere (a ballot over its slots: the pads after it never
+//      occlude) and give one result.
+//   4. A lane closes at its first root in [0, t_max]; the warp stops when
+//      no lane is open, and each lane writes prior | occluded as a byte (no
+//      ATen op after the launch).
+// The design it replaced, a CTA of 128 rays sharing one cursor behind CTA
+// barriers, each visit staging the block in shared memory for the whole
+// CTA, f32 output and the prior ORed in ATen, is kept in ab_baselines.cu
+// and was timed against it in turns (PERF.md §6).
 //
-// Inputs:  o [R,3] f32; d [L,R,3] f32; t_max [L,R] f32; dense: sph [4, ld]
-//          f32 of which the first S columns are tested, prior [L,R] u8 or
-//          null; walk: blk [8,sbpad] f32, blkid [sbpad] i32, sph
-//          [4, n_slots] f32 sorted (block b = columns [b*128, (b+1)*128)).
-// Output:  dense: out [L,R] u8 (a bool tensor's bytes), 1 = occluded;
-//          walk: out [L,R] f32, 1 = occluded, 0 = not occluded (or dead).
+// Inputs:  o [R,3] f32; d [L,R,3] f32; t_max [L,R] f32; prior [L,R] u8 or
+//          null; dense: sph [4, ld] f32 of which the first S columns are
+//          tested; walk: blk [8,sbpad] f32, blkid [sbpad] i32, sph
+//          [4, n_slots] f32 sorted (block b = columns [b*128, (b+1)*128)),
+//          lane_wise (1 to 33; 33 serves every block over the warp).
+// Output:  out [L,R] u8 (a bool tensor's bytes), 1 = occluded.
 
 #include "flat_common.cuh"
 
 namespace {
 
-using ptt::kCtaRays;
-
-constexpr int kSlots = 128;  // spheres per walk block
-
-// Whether one of the n spheres staged in s (rows x, y, z, r with row stride
-// ld) has a root in [0, tm].
-__device__ __forceinline__ bool any_root(const float* s, int ld, int n,
-                                         float ox, float oy, float oz,
-                                         float dx, float dy, float dz,
-                                         float four_a, float inv2a,
-                                         float tm) {
-  for (int j = 0; j < n; ++j) {
-    const float ocx = ox - s[j];
-    const float ocy = oy - s[ld + j];
-    const float ocz = oz - s[2 * ld + j];
-    const float rad = s[3 * ld + j];
-    const float b = 2.0f * (ocx * dx + ocy * dy + ocz * dz);
-    const float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-    const float disc = b * b - four_a * cc;
-    if (!(disc >= 0.f)) continue;
-    const float sq = sqrtf(disc);
-    const float t1 = (-b - sq) * inv2a;
-    if (t1 >= 0.f && t1 <= tm) return true;
-    const float t2 = (-b + sq) * inv2a;
-    if (t2 >= 0.f && t2 <= tm) return true;
-  }
-  return false;
-}
-
-// The lane's ray and t_max of set blockIdx.y; a ray past R is dead.
-struct Lane {
-  size_t idx;
-  bool in_range;
-  float ox, oy, oz, dx, dy, dz, tm;
-};
-
-__device__ __forceinline__ Lane load_lane(const float* __restrict__ o,
-                                          const float* __restrict__ d,
-                                          const float* __restrict__ t_max,
-                                          int R) {
-  const int i = blockIdx.x * kCtaRays + threadIdx.x;
-  Lane l{(size_t)blockIdx.y * R + i, i < R, 0.f, 0.f, 0.f, 1.f, 1.f, 1.f,
-         -1.f};
-  if (l.in_range) {
-    l.ox = o[3 * i]; l.oy = o[3 * i + 1]; l.oz = o[3 * i + 2];
-    l.dx = d[3 * l.idx]; l.dy = d[3 * l.idx + 1]; l.dz = d[3 * l.idx + 2];
-    l.tm = t_max[l.idx];
-  }
-  return l;
-}
+using ptt::kFullMask;
 
 constexpr int kMaxSets = 8;          // sets the dense kernel takes
 constexpr int kDenseThreads = 256;   // rays per CTA of the dense kernel
@@ -174,57 +160,162 @@ cudaError_t launch_dense(const float* o, const float* d, const float* t_max,
   return cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(kCtaRays)
+constexpr int kSlots = 128;          // spheres per walk block
+constexpr int kWalkWarps = 4;        // warps (packets) per CTA of the walk
+constexpr float kPadCenter = 1e30f;  // a pad slot's center coordinates
+// The warp's staged rays: flat_common's rows, then 1/(2a) and 4a.
+constexpr int kWalkRows = ptt::kWarpRayRows + 2;
+constexpr int kRowInv2a = ptt::kWarpRayRows * 32;
+constexpr int kRowFourA = kRowInv2a + 32;
+
+// Shared memory of one warp of the walk: its staged rays, then the listed
+// columns, their ray masks and their keys.
+__host__ __device__ constexpr size_t walk_warp_floats(int sbpad) {
+  return (size_t)kWalkRows * 32 + 3 * (size_t)sbpad;
+}
+
+__global__ void __launch_bounds__(32 * kWalkWarps, 4)
 sph_occ_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ t_max,
+                    const unsigned char* __restrict__ prior,
                     const float* __restrict__ blk,
                     const int* __restrict__ blkid,
                     const float* __restrict__ sph, int R, int sbpad,
-                    int n_slots, float* __restrict__ out) {
+                    int n_slots, int lane_wise,
+                    unsigned char* __restrict__ out) {
   extern __shared__ float smem[];
-  float* s_sph = smem;                // [4][kSlots]
-  float* s_key = s_sph + 4 * kSlots;  // [sbpad]
-  float* s_ray = s_key + sbpad;       // [kRayRows][kCtaRays]
-  __shared__ float s_red[3 * (kCtaRays / 32)];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* s_ray = smem + warp * walk_warp_floats(sbpad);  // [kWalkRows][32]
+  int* s_col = reinterpret_cast<int*>(s_ray + kWalkRows * 32);    // [sbpad]
+  unsigned* s_mask = reinterpret_cast<unsigned*>(s_col + sbpad);  // [sbpad]
+  float* s_key = reinterpret_cast<float*>(s_mask + sbpad);        // [sbpad]
 
-  const Lane l = load_lane(o, d, t_max, R);
-  const ptt::OccludedGate gate;
-  const bool live = gate.live(l.tm);
-  bool occ = false;  // dead lanes report not occluded
-  if (__syncthreads_or(live)) {
-    const float ix = ptt::safe_inv(l.dx), iy = ptt::safe_inv(l.dy),
-                iz = ptt::safe_inv(l.dz);
-    const float a = l.dx * l.dx + l.dy * l.dy + l.dz * l.dz;
+  const int i = (blockIdx.x * (blockDim.x >> 5) + warp) * 32 + lane;
+  const size_t idx = (size_t)blockIdx.y * R + i;  // (set, ray)
+  const bool in_range = i < R;
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 1.f, dy = 1.f, dz = 1.f;
+  float tm = -1.f;
+  bool pri = false;
+  if (in_range) {
+    ox = o[3 * i]; oy = o[3 * i + 1]; oz = o[3 * i + 2];
+    dx = d[3 * idx]; dy = d[3 * idx + 1]; dz = d[3 * idx + 2];
+    tm = t_max[idx];
+    pri = prior && prior[idx];
+  }
+  const ptt::WidenedOccludedGate gate;
+  // The open lanes: live, prior not set, no occluder found yet.
+  const unsigned opened = __ballot_sync(kFullMask, gate.live(tm) && !pri);
+  unsigned open = opened;
+  if (open) {
+    const float a = dx * dx + dy * dy + dz * dz;
     const float inv2a = 1.0f / (2.0f * a);
     const float four_a = 4.0f * a;
-    ptt::stage_ray(s_ray, l.ox, l.oy, l.oz, ix, iy, iz, l.tm);
-    ptt::column_keys(blk, blkid, sbpad, sbpad, s_ray, s_key, gate);
-    while (true) {
-      float key, open = (live && !occ) ? 1.f : 0.f;  // any lane still open?
-      int col;
-      ptt::next_column(s_key, sbpad, key, col, open, s_red);
-      if (col >= sbpad || open == 0.f) break;
-      bool need = false;
-      if (live && !occ) {
-        float tn, tf;
-        ptt::slab(ptt::load_box(blk, sbpad, col), l.ox, l.oy, l.oz, ix, iy,
-                  iz, tn, tf);
-        need = gate.pass(tn, tf, l.tm);
+    s_ray[kRowInv2a + lane] = inv2a;
+    s_ray[kRowFourA + lane] = four_a;
+    ptt::stage_warp_rays(s_ray, lane, ox, oy, oz, dx, dy, dz, tm);
+
+    // 1. The columns the gate of some open ray admits (a closed ray may
+    //    slab-pass: masked out), with their masks and keys.
+    int m = 0;
+    for (int c0 = 0; c0 < sbpad; c0 += 32) {
+      const int c = c0 + lane;
+      unsigned mask = 0u;
+      float key = CUDART_INF_F;
+      if (c < sbpad && blkid[c] >= 0)
+        mask = ptt::warp_gate_mask_key(
+                   ptt::pad_box(ptt::load_box(blk, sbpad, c)), s_ray, gate,
+                   key) & open;
+      const unsigned any = __ballot_sync(kFullMask, mask != 0u);
+      if (mask) {
+        const int p = m + __popc(any & ((1u << lane) - 1u));
+        s_col[p] = c;
+        s_mask[p] = mask;
+        s_key[p] = key;
       }
-      if (!__syncthreads_or(need)) continue;
-      const int start = blkid[col] * kSlots;
+      m += __popc(any);
+    }
+    __syncwarp();
+
+    // 2. The visits, nearest key first, of the entries whose mask holds an
+    //    open lane; a visited entry's key becomes NaN, which no comparison
+    //    selects again.
+    while (open) {
+      float key = CUDART_INF_F;
+      int p = INT_MAX;
+      for (int q = lane; q < m; q += 32) {
+        const float k = s_key[q];
+        if ((s_mask[q] & open) && (k < key || (k == key && q < p))) {
+          key = k; p = q;
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        const float k2 = __shfl_xor_sync(kFullMask, key, off);
+        const int p2 = __shfl_xor_sync(kFullMask, p, off);
+        if (k2 < key || (k2 == key && p2 < p)) { key = k2; p = p2; }
+      }
+      if (p == INT_MAX) break;
+      const unsigned need = s_mask[p] & open;
+      const int start = blkid[s_col[p]] * kSlots;
+      __syncwarp();  // every lane has read s_key and entry p
+      if (lane == 0) s_key[p] = CUDART_NAN_F;
+      __syncwarp();  // lane 0's mark is seen by the next argmin
+      const float* src = sph + start;
+      // The block, lane l holding slots l + 32 q (the registers of the
+      // block-over-the-warp layout), and its last real sphere: the pad
+      // slots after it never occlude.
+      float cx[4], cy[4], cz[4], cr[4];
+      int n_real = 0;
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        s_sph[r * kSlots + threadIdx.x] =
-            sph[(size_t)r * n_slots + start + threadIdx.x];
-      __syncthreads();
-      if (need)
-        occ = any_root(s_sph, kSlots, kSlots, l.ox, l.oy, l.oz, l.dx, l.dy,
-                       l.dz, four_a, inv2a, l.tm);
-      __syncthreads();  // s_sph is restaged by the next visit
+      for (int q = 0; q < 4; ++q) {
+        const float* s = src + q * 32 + lane;
+        cx[q] = __ldg(s);
+        cy[q] = __ldg(s + n_slots);
+        cz[q] = __ldg(s + 2 * (size_t)n_slots);
+        cr[q] = __ldg(s + 3 * (size_t)n_slots);
+        const unsigned real = __ballot_sync(
+            kFullMask, !(cx[q] == kPadCenter && cy[q] == kPadCenter &&
+                         cz[q] == kPadCenter && cr[q] == 0.f));
+        if (real) n_real = q * 32 + 32 - __clz(real);
+      }
+      unsigned occ = 0u;
+      if (__popc(need) >= lane_wise) {
+        // 3. Lane per ray: every lane reads the same column.
+        bool hit = false;
+        if ((need >> lane) & 1u) {
+          for (int j = 0; j < n_real && !hit; ++j)
+            hit = ptt::sphere_occludes(
+                ox, oy, oz, dx, dy, dz, four_a, inv2a, tm, __ldg(src + j),
+                __ldg(src + n_slots + j), __ldg(src + 2 * (size_t)n_slots + j),
+                __ldg(src + 3 * (size_t)n_slots + j));
+        }
+        occ = __ballot_sync(kFullMask, hit);
+      } else {
+        // 3. The block over the warp, the served rays one after another.
+        for (unsigned mm = need; mm; mm &= mm - 1) {
+          const int s = __ffs(mm) - 1;  // the served ray
+          const float sox = s_ray[s], soy = s_ray[32 + s],
+                      soz = s_ray[64 + s], stm = s_ray[ptt::kRowG + s],
+                      sdx = s_ray[ptt::kRowD + s],
+                      sdy = s_ray[ptt::kRowD + 32 + s],
+                      sdz = s_ray[ptt::kRowD + 64 + s],
+                      sinv2a = s_ray[kRowInv2a + s],
+                      sfour_a = s_ray[kRowFourA + s];
+          bool hit = false;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (q * 32 >= n_real) break;  // pads only from here
+            hit = hit || ptt::sphere_occludes(sox, soy, soz, sdx, sdy, sdz,
+                                              sfour_a, sinv2a, stm, cx[q],
+                                              cy[q], cz[q], cr[q]);
+          }
+          if (__any_sync(kFullMask, hit)) occ |= 1u << s;
+        }
+      }
+      open &= ~occ;
     }
   }
-  if (l.in_range) out[l.idx] = occ ? 1.f : 0.f;
+  // 4. prior | occluded by a sphere.
+  if (in_range) out[idx] = (pri || ((opened & ~open) >> lane) & 1u) ? 1 : 0;
 }
 
 }  // namespace
@@ -260,18 +351,27 @@ extern "C" int ptt_sph_occluded(const float* o, const float* d,
 }
 
 extern "C" int ptt_sph_occ_walk(const float* o, const float* d,
-                                const float* t_max, const float* blk,
-                                const int* blkid, const float* sph, int R,
-                                int L, int sbpad, int n_slots, float* out,
+                                const float* t_max, const unsigned char* prior,
+                                const float* blk, const int* blkid,
+                                const float* sph, int R, int L, int sbpad,
+                                int n_slots, int lane_wise, unsigned char* out,
                                 int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0 || L <= 0) return 0;
+  if (L > 65535 || lane_wise < 1 || lane_wise > 33)
+    return (int)cudaErrorInvalidValue;
+  // Four warps a CTA, fewer where their lists outgrow shared memory.
+  int warps = kWalkWarps;
   size_t smem;
-  err = ptt::walk_smem(sph_occ_walk_kernel, 4 * kSlots, sbpad, smem);
+  err = ptt::warp_walk_smem(sph_occ_walk_kernel,
+                            walk_warp_floats(sbpad) * sizeof(float), warps,
+                            smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((R + kCtaRays - 1) / kCtaRays, L);
-  sph_occ_walk_kernel<<<grid, kCtaRays, smem, stream>>>(
-      o, d, t_max, blk, blkid, sph, R, sbpad, n_slots, out);
+  const int rays = 32 * warps;
+  const dim3 grid((R + rays - 1) / rays, L);
+  sph_occ_walk_kernel<<<grid, rays, smem, stream>>>(
+      o, d, t_max, prior, blk, blkid, sph, R, sbpad, n_slots, lane_wise,
+      out);
   return (int)cudaGetLastError();
 }

@@ -68,7 +68,7 @@
 // the time; a ray closed by the any-hit leaves the later chunks. The
 // design it replaced, one 128-ray CTA with one cursor behind a
 // __syncthreads_or at every node, every lane testing every leaf any lane
-// admits, is ab_baselines.cu's.
+// admits, was timed against it in turns (PERF.md §6).
 //
 // Inputs:  o [R,3] f32; closest hit d [R,3] f32, t_prev [R] f32; any-hit
 //          d [L,R,3] f32, t_max [L,R] f32 (L sets sharing o: blockIdx.y);

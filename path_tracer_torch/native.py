@@ -230,10 +230,10 @@ def kernels() -> Kernels:
         # (o, d, t_max, prior, sph, R, L, S, ld, out, device, stream)
         lib.ptt_sph_occluded.restype = ci
         lib.ptt_sph_occluded.argtypes = [vp] * 5 + [ci] * 4 + [vp, ci, vp]
-        # (o, d, t_max, blk, blkid, sph, R, L, sbpad, n_slots, out, device,
-        #  stream)
+        # (o, d, t_max, prior, blk, blkid, sph, R, L, sbpad, n_slots,
+        #  lane_wise, out, device, stream)
         lib.ptt_sph_occ_walk.restype = ci
-        lib.ptt_sph_occ_walk.argtypes = [vp] * 6 + [ci] * 4 + [vp, ci, vp]
+        lib.ptt_sph_occ_walk.argtypes = [vp] * 7 + [ci] * 5 + [vp, ci, vp]
         # (o, d, t_max, pd, aux, is_pt_mask, blk, blkid, bw, bpad, block,
         #  n_cols, tr_bw, tr_rows, tex, lut, pages, grp, T, gp, wp, R, L,
         #  steps_cap, textured, live, next, out, device, stream)
@@ -255,15 +255,10 @@ def kernels() -> Kernels:
         #  n_slots, lane_wise, out, device, stream)
         lib.ptt_tree_occluded.restype = ci
         lib.ptt_tree_occluded.argtypes = [vp] * 6 + [ci] * 7 + [vp, ci, vp]
-        # The replaced designs (ab_baselines.cu): the fused shadow kernel's
-        # first port, as ptt_fused_shadow without grp, gp and next; row 3's,
-        # as ptt_khit without sbox and next.
-        lib.ptt_fused_shadow_cta.restype = ci
-        lib.ptt_fused_shadow_cta.argtypes = ([vp] * 5 + [ctypes.c_ulonglong]
-                                             + [vp] * 3 + [ci] * 3 + [vp] * 5
-                                             + [ci] * 7 + [vp, ci, vp])
-        lib.ptt_khit_cta.restype = ci
-        lib.ptt_khit_cta.argtypes = [vp] * 5 + [ci] * 3 + [vp, vp, ci, vp]
+        # The replaced design (ab_baselines.cu): row 6's first port, as
+        # ptt_sph_occ_walk without prior and lane_wise, writing f32.
+        lib.ptt_sph_occ_walk_cta.restype = ci
+        lib.ptt_sph_occ_walk_cta.argtypes = [vp] * 6 + [ci] * 4 + [vp, ci, vp]
         _kernels = Kernels(lib, seconds, log)
     return _kernels
 
@@ -735,25 +730,40 @@ def launch_sph_occluded(o, ds, t_maxes, sph, n_spheres: int, prior=None):
     return out
 
 
-def launch_sph_occ_walk(o, ds, t_maxes, blk, blkid, sph):
+# Row 6's walk (csrc/sph_occ.cu): a block is served lane per ray from
+# SPH_OCC_WALK_LANE_WISE lanes of need (fewer: the block spread over the
+# warp).
+SPH_OCC_WALK_LANE_WISE = 25
+
+
+def launch_sph_occ_walk(o, ds, t_maxes, blk, blkid, sph, prior=None,
+                        lane_wise: int = SPH_OCC_WALK_LANE_WISE):
     """Check the operands of the sphere any-hit walk, allocate its output
     and launch it on the current stream (no synchronisation).
 
     o: [R,3] f32; ds: [L,R,3] f32; t_maxes: [L,R] f32 (< 0 = dead lane);
     blk [8,SBpad] f32, blkid [1,SBpad] i32, sph [4, nblk*128] f32 as for
-    ``launch_sph_walk``. Returns out [L,R] f32 (1 = occluded; dead lanes
-    0)."""
+    ``launch_sph_walk``; prior: None or [L,R] bool (the triangle any-hit's
+    result), folded in; lane_wise (1 to 33) the lanes of need from which a
+    block is served lane per ray, 33 serving every block over the warp
+    (the layouts give one result). Returns out [L,R] bool: prior |
+    occluded by a sphere (dead lanes not occluded by a sphere)."""
     fn = "ptt_sph_occ_walk"
     device = o.device
+    if not 1 <= lane_wise <= 33:
+        raise ValueError(f"{fn}: lane_wise {lane_wise} is not in 1..33")
     r, n_sets = _check_sets(fn, o, ds, t_maxes, device)
     sbpad, n_slots = _check_sph_blocks(fn, blk, blkid, sph, device)
+    if prior is not None:
+        _check("prior", prior, (n_sets, r), torch.bool, device)
     lib = kernels().lib
-    out = torch.empty((n_sets, r), dtype=torch.float32, device=device)
+    out = torch.empty((n_sets, r), dtype=torch.bool, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.ptt_sph_occ_walk(
-        o.data_ptr(), ds.data_ptr(), t_maxes.data_ptr(), blk.data_ptr(),
+        o.data_ptr(), ds.data_ptr(), t_maxes.data_ptr(),
+        None if prior is None else prior.data_ptr(), blk.data_ptr(),
         blkid.data_ptr(), sph.data_ptr(), r, n_sets, sbpad, n_slots,
-        out.data_ptr(), device.index, stream)
+        lane_wise, out.data_ptr(), device.index, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return out
@@ -806,8 +816,16 @@ def launch_fused_shadow(o, ds, t_maxes, pds, aux, is_pt, blkflat, blkid, bw,
 KHIT_MAX_COLUMNS = 4096  # row 3's table resident in shared memory
 
 
-def check_khit(fn: str, o, d, t_max, tris, gbox, k: int) -> tuple:
-    """The operands of a row 3 kernel; returns (R, T)."""
+def launch_khit(o, d, t_max, tris, gbox, sbox, k: int):
+    """Check the operands of the k-nearest-hits kernel, allocate its
+    outputs and launch it on the current stream (no synchronisation).
+
+    o, d: [R,3] f32; t_max: [R] f32 (<= 0 marks a dead lane); tris [9,T]
+    f32 MT rows, T a multiple of 128 and at most KHIT_MAX_COLUMNS (the
+    table resident in shared memory); gbox [6, T/128] f32 group AABBs and
+    sbox [6, T/32] f32 sub-group AABBs; 1 <= k <= 8. Returns (ts [k,R]
+    f32, pos [k,R] i32)."""
+    fn = "ptt_khit"
     device = o.device
     if device.type != "cuda":
         raise ValueError(f"{fn}: needs CUDA tensors, got {device}")
@@ -822,21 +840,6 @@ def check_khit(fn: str, o, d, t_max, tris, gbox, k: int) -> tuple:
         raise ValueError(f"{fn}: {t_n} columns are not whole groups of 128")
     if not 0 < k <= 8 or k * r >= 2**31 or 3 * r >= 2**31:
         raise ValueError(f"{fn}: {r} rays x k = {k} out of range")
-    return r, t_n
-
-
-def launch_khit(o, d, t_max, tris, gbox, sbox, k: int):
-    """Check the operands of the k-nearest-hits kernel, allocate its
-    outputs and launch it on the current stream (no synchronisation).
-
-    o, d: [R,3] f32; t_max: [R] f32 (<= 0 marks a dead lane); tris [9,T]
-    f32 MT rows, T a multiple of 128 and at most KHIT_MAX_COLUMNS (the
-    table resident in shared memory); gbox [6, T/128] f32 group AABBs and
-    sbox [6, T/32] f32 sub-group AABBs; 1 <= k <= 8. Returns (ts [k,R]
-    f32, pos [k,R] i32)."""
-    fn = "ptt_khit"
-    device = o.device
-    r, t_n = check_khit(fn, o, d, t_max, tris, gbox, k)
     _check("sbox", sbox, (6, t_n // 32), torch.float32, device)
     if t_n > KHIT_MAX_COLUMNS:
         raise ValueError(f"{fn}: {t_n} columns exceed the resident table "

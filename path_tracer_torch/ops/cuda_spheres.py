@@ -14,17 +14,17 @@ Counterpart of ``path_tracer_tpu/ops/pallas_spheres.py``:
   record;
 - ``csrc/sph_occ.cu`` replaces ``pallas_spheres._occ_kernel`` and
   ``_sph_occ_walk_kernel`` (entry ``occluded_spheres_pallas``): the
-  any-hit, dense up to 512 spheres (one thread per ray for all L sets,
-  the triangle any-hit's result folded in as ``prior``) and the block
-  walk above, for L direction sets in one launch.
+  any-hit, dense up to 512 spheres (one thread per ray for all L sets)
+  and the block walk above (warp packets of 32 (ray, set) lanes), for L
+  direction sets in one launch, each folding the triangle any-hit's
+  result in as ``prior``.
 
 Bound on the card: arithmetic. The dense kernels do R*S quadratic solves
 (about 25 flops, a sqrt and an IEEE division or reciprocal per valid
 discriminant), the walks a slab test per block and the solves of the
-blocks a ray's slab test admits. The dense kernels read their tables as
-broadcasts through the read-only cache, the any-hit walk stages its
-blocks in shared memory. The any-hit kernels stop a lane at its first
-occluder.
+blocks a ray's slab test admits. The kernels read their sphere tables
+through the read-only cache, as broadcasts or one slot a lane. The
+any-hit kernels stop a lane at its first occluder.
 
 Two root forms, as in the JAX package. The dense closest hit and
 ``intersect.closest_hit_spheres`` divide by 2a; the block walk, the
@@ -47,11 +47,14 @@ semantics:
 
 Any-hit semantics (both kernels): a ray is occluded when some sphere has
 a root t with 0 <= t <= t_max (has, and the root in range); the walk's
-block gate is tf >= max(tn, 0), tn <= t_max, t_max >= 0, id >= 0. A dead
-lane (t_max < 0) reports NOT occluded, unlike the triangle any-hit. A
-``prior`` [L,R] bool is ORed in: the dense kernel does it in its launch
-(a set whose prior is set costs no sphere test), the walk's wrapper in
-ATen until the walk is rebuilt.
+block gate is tf >= max(tn, 0), tn <= t_max, t_max >= 0, id >= 0 on the
+boxes and intervals widened as the flat walks widen theirs
+(``slab.padded_slab``): on the exact boxes a ray aimed where a sphere
+touches a face of its block's box can round its entry past the root and
+lose the occluder. A dead lane (t_max < 0) is NOT occluded by a sphere,
+unlike the triangle any-hit. A ``prior`` [L,R] bool is ORed in, by both
+kernels in their launch (a set whose prior is set costs no sphere
+test).
 
 Each kernel is built -fmad=false and sums in its plain version's order,
 so the two agree exactly.
@@ -75,6 +78,7 @@ from path_tracer_torch.ops.slab import (
     live_columns,
     merge_nearest,
     occluded_gate,
+    padded_slab,
     safe_inv,
     slab,
 )
@@ -226,12 +230,13 @@ def _occluded_dense_plain(o, d, t_max, scene):
 
 def _occluded_walk_plain(o, d, t_max, scene):
     """The any-hit walk over the sphere blocks → [R] bool: every block a
-    lane's gate admits, until it is occluded."""
+    lane's gate admits, on the widened boxes and intervals
+    (``slab.padded_slab``), until it is occluded."""
     sph, blkid = scene.sph_sorted_t, scene.sph_blkid[0]
     parts = []
     for rs in _ray_chunks(o.shape[0]):
         oc, dc, tmc = o[rs], d[rs], t_max[rs]
-        tn, tf = slab(oc, safe_inv(dc), scene.sph_blk)
+        tn, tf = padded_slab(oc, safe_inv(dc), scene.sph_blk)
         gate = occluded_gate(tn, tf, tmc, blkid)
         occ = torch.zeros_like(tmc, dtype=torch.bool)
         for col in live_columns(gate):
@@ -245,8 +250,9 @@ def _occluded_walk_plain(o, d, t_max, scene):
 
 
 def occluded_spheres_plain(o, ds, t_maxes, scene, prior=None) -> torch.Tensor:
-    """Plain version of ``occluded_spheres_cuda``, on any device: [L,R]
-    bool, set by set, ORed with ``prior`` when one is given."""
+    """Plain version of ``occluded_spheres_cuda``, on any device (the dense
+    any-hit or the walk): [L,R] bool, set by set, ORed with ``prior`` when
+    one is given, as both kernels write it."""
     one = (_occluded_walk_plain if getattr(scene, "sph_use_blocks", False)
            else _occluded_dense_plain)
     out = torch.stack([one(o, d, tm, scene) for d, tm in zip(ds, t_maxes)])
@@ -263,9 +269,10 @@ def occluded_spheres_cuda(o, ds, t_maxes, scene, prior=None) -> torch.Tensor:
     light; < 0 marks a dead lane, reported not occluded by a sphere);
     prior: None or [L,R] bool (the triangle any-hit's result). Returns
     [L,R] bool, prior | occluded by a sphere. CUDA tensors launch the
-    kernel (or raise), the dense one writing that bool, prior folded in,
-    one launch per ``native.SPH_OCC_MAX_SETS`` sets; CPU tensors take the
-    plain version."""
+    kernel (or raise), which writes that bool, prior folded in: the walk
+    in one launch, the dense kernel one launch per
+    ``native.SPH_OCC_MAX_SETS`` sets; CPU tensors take the plain
+    version."""
     global occluded_launches, sph_occ_walk_launches
     if o.device.type == "cpu":
         return occluded_spheres_plain(o, ds, t_maxes, scene, prior)
@@ -283,8 +290,8 @@ def occluded_spheres_cuda(o, ds, t_maxes, scene, prior=None) -> torch.Tensor:
                                          scene.num_real_spheres, prior)
         occluded_launches += 1
         return out
-    # The walk (not yet rebuilt) writes f32; prior is ORed in ATen.
     out = native.launch_sph_occ_walk(o, ds, t_maxes, scene.sph_blk,
-                                     scene.sph_blkid, scene.sph_sorted_t)
+                                     scene.sph_blkid, scene.sph_sorted_t,
+                                     prior)
     sph_occ_walk_launches += 1
-    return out > 0.0 if prior is None else prior | (out > 0.0)
+    return out

@@ -362,9 +362,9 @@ def occluded_multi(o, dirs, scene, surf_pos=None, max_dists=None,
     dist^2 = t^2|d|^2 + 2t(b.d) + |b|^2 <= max_dist^2 (dist(t) is monotone
     in t, so if the nearest hit is out of range no hit is). Spheres: all L
     sets in one any-hit launch up to t_max, the triangles' [L,R] result
-    handed to it as ``prior``: on the card the dense sphere kernel writes
-    the final [L,R] bool, with no ATen op between the triangle launch and
-    it (the sphere walk's wrapper still ORs in ATen).
+    handed to it as ``prior``: on the card the sphere kernel (dense or
+    the walk) writes the final [L,R] bool, with no ATen op between the
+    triangle launch and it.
     """
     n_lights = len(dirs)
     max_dists = max_dists or [None] * n_lights

@@ -14,7 +14,8 @@ block walk), in the kernels' arithmetic (``csrc/flat_common.cuh``).
 - ``pad_boxes`` and ``pad_slab``: the widened boxes and slab intervals of
   the walks that gate a lane by its own slab test (the transparent walks,
   ``ops/trwalk.py``; the tree, flat and flat2 walks, ``ops/cuda_bvh.py``;
-  row 3, ``ops/cuda_khit.py``), in ``csrc/flat_common.cuh``'s ``pad_box``
+  row 3, ``ops/cuda_khit.py``; the sphere any-hit walk,
+  ``ops/cuda_spheres.py``), in ``csrc/flat_common.cuh``'s ``pad_box``
   and ``pad_slab`` arithmetic; ``padded_slab`` is ``slab`` on both.
 """
 from __future__ import annotations

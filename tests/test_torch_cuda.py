@@ -694,6 +694,86 @@ def test_sphere_any_hit_kernels_equal_plain(cuda, name):
         assert 0.05 < got[1].float().mean() < 0.95
 
 
+def _row6_held(o, ds, tms, sc, prior=None):
+    """Row 6 through its wrapper (one bool launch) equals its plain version
+    and the replaced CTA design on every lane, and each in-block layout
+    alone gives the same result. Returns it."""
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import ab_baselines, cuda_spheres
+
+    tables = (sc.sph_blk, sc.sph_blkid, sc.sph_sorted_t)
+    before = cuda_spheres.sph_occ_walk_launches
+    got = cuda_spheres.occluded_spheres_cuda(o, ds, tms, sc, prior=prior)
+    assert cuda_spheres.sph_occ_walk_launches == before + 1
+    assert got.dtype == torch.bool
+    assert torch.equal(got, cuda_spheres.occluded_spheres_plain(
+        o, ds, tms, sc, prior))
+    assert torch.equal(got, ab_baselines.sph_occ_walk_cta(
+        o, torch.stack(list(ds)), torch.stack(list(tms)), *tables, prior))
+    for lane_wise in (1, 33):
+        assert torch.equal(got, native.launch_sph_occ_walk(
+            o, torch.stack(list(ds)), torch.stack(list(tms)), *tables,
+            prior, lane_wise=lane_wise))
+    return got
+
+
+def test_sphere_any_hit_walk_folds_prior(cuda):
+    """Row 6 on the 4,900-sphere grid: both sets of
+    _sphere_shadow_sets (every 3rd lane of one dead) with whole and partly
+    dead warps on a ragged count, without prior and with a random tenth;
+    a dead lane writes its prior, a lane whose prior is set writes 1."""
+    from path_tracer_torch.scene.procedural import sphere_grid_device_scene
+
+    grid = sphere_grid_device_scene(70, cuda)
+    r = 5003
+    o, ds, tms = _sphere_shadow_sets(grid, 19, r, cuda)
+    tms = [tms[0], _dead_warps(tms[1]).nan_to_num(posinf=-1.0)]
+    g = torch.Generator(device=cuda).manual_seed(4)
+    prior = torch.rand((2, r), generator=g, device=cuda) < 0.1
+    alone = _row6_held(o, ds, tms, grid)
+    got = _row6_held(o, ds, tms, grid, prior)
+    assert torch.equal(got, alone | prior)
+    dead = torch.stack(tms) < 0.0
+    assert not alone[dead].any() and torch.equal(got[dead], prior[dead])
+    assert 0.05 < alone[1].float().mean() < 0.95
+
+
+def test_sphere_any_hit_walk_keeps_occluders_at_box_faces(cuda):
+    """Row 6 on the duplicate-sphere tie rays at t_max the first-hit t of
+    the closest-hit walk run ungated (every block box at +-1e30): 0 lanes
+    off its plain version, the replaced design, the ungated walk and the
+    dense any-hit; row 5 on the same rays equals its ungated plain version
+    from t_prev = -1 and from the hit."""
+    import dataclasses
+
+    from path_tracer_torch.ops import cuda_spheres
+    from path_tracer_torch.scene.procedural import (
+        duplicate_sphere_device_scene,
+        sphere_tie_rays,
+    )
+
+    ties = duplicate_sphere_device_scene(cuda)
+    blk = ties.sph_blk.clone()
+    blk[0:3], blk[3:6] = -1e30, 1e30
+    ungated = dataclasses.replace(ties, sph_blk=blk)
+    r = 8192
+    for seed in (0, 1):
+        o, d = (torch.from_numpy(x).to(cuda) for x in sphere_tie_rays(r, seed))
+        tp = torch.full((r,), -1.0, device=cuda)
+        t = cuda_spheres._sph_walk_plain(o, d, tp, ungated)[0]
+        got = _row6_held(o, [d], [t], ties)[0]
+        assert torch.equal(got, cuda_spheres._occluded_walk_plain(
+            o, d, t, ungated))
+        assert torch.equal(got, cuda_spheres._occluded_dense_plain(
+            o, d, t, ties))
+        assert got.float().mean() > 0.95
+        for _ in range(2):
+            rec = cuda_spheres.closest_hit_spheres_cuda(o, d, tp, ties)
+            _held(rec, {"ungated": cuda_spheres.closest_hit_spheres_walk_plain(
+                o, d, tp, ungated)})
+            tp = torch.where(rec.valid, rec.t, -1.0)
+
+
 def _fused_lanes(sc, seed, r, device):
     """The fused kernel's arguments for r lanes around the foliage toward
     the scene's lights: t_max +inf or the point light's distance (every
@@ -726,14 +806,9 @@ def _fused_lanes(sc, seed, r, device):
 def test_fused_shadow_kernel_equals_plain_and_two_launches(
         cuda, showcase_tex48, steps_cap):
     """The fused kernel (the warp any-hit, then the resident walk) against
-    its plain version, against flat_occluded + trans_walk launched apart
-    and against the CTA design it replaced, on every lane."""
-    from path_tracer_torch.ops import (
-        ab_baselines,
-        cuda_bvh,
-        cuda_shadow,
-        cuda_trwalk,
-    )
+    its plain version and against flat_occluded + trans_walk launched
+    apart, on every lane."""
+    from path_tracer_torch.ops import cuda_bvh, cuda_shadow, cuda_trwalk
     from path_tracer_torch.scene.device_scene import opaque_view
 
     sc = showcase_tex48
@@ -760,11 +835,6 @@ def test_fused_shadow_kernel_equals_plain_and_two_launches(
     assert torch.equal(got[2], w.still.view(n_l, r))
     assert (got[0] == 0.0).float().mean() > 0.02
     assert ((got[0] > 0.0) & (got[0] < 1.0)).any()
-    # The design it replaced (a 128-ray CTA a light, barriers around each
-    # staged block and chunk), on the same widened gate.
-    for a, b in zip(got, ab_baselines.fused_shadow_cta(
-            sc, o, ds, tms, pds, is_pt, sp, ouv, osimple, steps_cap)):
-        assert torch.equal(a, b)
 
 
 def _training_updates(sc):
@@ -785,15 +855,9 @@ def _training_updates(sc):
 def test_live_walk_kernels_equal_plain(cuda, showcase_tex48, updated):
     """The live variants of the alpha walk, the transmittance walk and the
     fused shadow kernel against their plain live versions on every lane,
-    after the training updates (the live fused kernel also against the
-    CTA design it replaced); on untouched tables they also equal the
+    after the training updates; on untouched tables they also equal the
     forward kernels (the live plane then holds tr_lut[tr_tex8])."""
-    from path_tracer_torch.ops import (
-        ab_baselines,
-        cuda_shadow,
-        cuda_trwalk,
-        trwalk,
-    )
+    from path_tracer_torch.ops import cuda_shadow, cuda_trwalk, trwalk
 
     sc = _training_updates(showcase_tex48) if updated else showcase_tex48
     live = trwalk.live_tables(sc)
@@ -833,8 +897,6 @@ def test_live_walk_kernels_equal_plain(cuda, showcase_tex48, updated):
     assert cuda_shadow.live_launches == before + 1
     for a, b in zip(got, cuda_shadow.fused_shadow_plain(*fused, live=live)):
         assert torch.equal(a, b)
-    for a, b in zip(got, ab_baselines.fused_shadow_cta(*fused, live=live)):
-        assert torch.equal(a, b)  # 15L against the design it replaced
     if not updated:
         for a, b in zip(got, cuda_shadow.fused_shadow(*fused)):
             assert torch.equal(a, b)
@@ -884,10 +946,8 @@ def test_train_step_on_card(cuda, showcase_tex48):
 @pytest.mark.parametrize("k", [1, 6, 8])
 def test_khit_kernel_equals_plain(cuda, showcase_tex48, k):
     """Row 3 against its plain version on every lane: foliage rays with
-    random t_max, inactive and +inf-t_max lanes, a ragged ray count; the
-    CTA design it replaced (the 128-column groups its only gate) equals
-    its own plain gate on every lane and the new design within t_max."""
-    from path_tracer_torch.ops import ab_baselines, cuda_khit
+    random t_max, inactive and +inf-t_max lanes, a ragged ray count."""
+    from path_tracer_torch.ops import cuda_khit
 
     sc = showcase_tex48
     r = 5003
@@ -906,17 +966,6 @@ def test_khit_kernel_equals_plain(cuda, showcase_tex48, k):
     assert torch.equal(ts, want_ts) and torch.equal(pos, want_pos)
     assert torch.isfinite(ts[0]).float().mean() > 0.2
     assert not torch.isfinite(ts[:, ~active]).any()
-    old_t, old_c = ab_baselines.k_nearest_tr_hits_cta(o, d, active, sc, k,
-                                                      t_max=t_max)
-    want_old = cuda_khit.k_nearest_tr_hits_plain(o, d, enc, tris, gbox, k)
-    assert torch.equal(old_t, want_old[0]) and torch.equal(old_c,
-                                                           want_old[1])
-    within = ts <= enc
-    assert torch.equal(within, old_t <= enc)
-    assert torch.equal(torch.where(within, ts, 0.0),
-                       torch.where(within, old_t, 0.0))
-    assert torch.equal(torch.where(within, pos, 0),
-                       torch.where(within, old_c, 0))
 
 
 @pytest.mark.parametrize("k", [1, 6])

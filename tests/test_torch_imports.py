@@ -568,6 +568,13 @@ def test_any_hit_launchers_check_operands():
     with mode, pytest.raises(ValueError):  # not whole blocks of 128
         native.launch_sph_occ_walk(o, ds, tms, sph.sph_blk, sph.sph_blkid,
                                    table.narrow(1, 0, 200))
+    with mode:  # the prior the walk folds in: the [L,R] bool it writes
+        bad_prior = [torch.empty((2, 64), device="cuda"),
+                     torch.empty((1, 64), dtype=torch.bool, device="cuda")]
+    for prior in bad_prior:
+        with mode, pytest.raises(ValueError):
+            native.launch_sph_occ_walk(o, ds, tms, sph.sph_blk,
+                                       sph.sph_blkid, sph.sph_sorted_t, prior)
     for args in bad_fused:
         with mode, pytest.raises(ValueError):
             native.launch_fused_shadow(*args, *flat, 256, sc, 2)
