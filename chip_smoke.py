@@ -126,22 +126,21 @@ any error:
    shapes, the script runnable from a checkout of an earlier commit to
    time that commit's kernels on the same lanes; (3q, also alone with
    ``--only 3q``) row 6 (the sphere any-hit walk as warp packets on the
-   widened gate, writing prior | spheres) against its plain version and
-   the replaced CTA design (``ops/ab_baselines.py``) on every lane: scene
-   B's first-bounce and incoherent shadow sets with and without a prior,
-   a ragged count with dead warps, each in-block layout alone, and the
-   duplicate-sphere tie rays at t_max the ungated first hit, held also to
-   the ungated walk and the dense any-hit (the exact-box mutation's lanes
-   off counted), row 5 on the same rays against its ungated plain
-   version; then both designs in turns with the bound, ptxas's report and
-   scene B's device ms a 1080p sample through each;
+   widened gate, writing prior | spheres) against its plain version on
+   every lane: scene B's first-bounce and incoherent shadow sets with and
+   without a prior, a ragged count with dead warps, each in-block layout
+   alone, and the duplicate-sphere tie rays at t_max the ungated first
+   hit, held also to the ungated walk and the dense any-hit (the
+   exact-box mutation's lanes off counted), row 5 on the same rays
+   against its ungated plain version; then its device ms a launch with
+   the bound, ptxas's report and scene B's device ms a 1080p sample;
 4. the main path at full size: ``cube``, ``spheres`` and ``reflection`` at
-   1920x1080, 4 bounces, 16 spp through ``render_pixel_sums``, and one
-   reference-default frame of ``reflection`` (1920x1080, 64 spp, 4
-   bounces) through the CLI; then the plain showcase at 1920x1080, 5
-   bounces, 16 spp (the JAX bench's ``showcase_plain``), and one
-   reference-default frame of it written to disk and rendered through the
-   CLI; then the textured showcase (the JAX bench's default workload) at
+   1920x1080, 4 bounces, MAIN_SPP spp through ``render_pixel_sums``, and
+   one frame of ``reflection`` at the reference default's size (1920x1080,
+   4 bounces; CLI_FRAME_SPP spp, where the default is 64) through the CLI;
+   then the plain showcase at 1920x1080, 5 bounces, SHOWCASE_SPP spp (the
+   JAX bench's ``showcase_plain``), and one such CLI frame of it written to
+   disk; then the textured showcase (the JAX bench's default workload) at
    1920x1080, 5 bounces, TEX_SPP spp, through ``render_pixel_sums`` and
    through the CLI; then (4d) the textured showcase at grid 704 (991,834
    triangles in 256-slot blocks: flat2 for the opaque partition) at
@@ -153,7 +152,7 @@ any error:
    showcase at 1920x1080, 5 bounces, FUSED_SPP spp through the fused
    shadow kernel (``PT_FUSED_SHADOW=1``) and through the two launches, in
    turns, same seed; then (4g) the textured showcase at 1920x1080, 5
-   bounces, TEX_SPP spp through the dense walk (``PT_NO_TRWALK_KERNEL=1
+   bounces, DENSE_SPP spp through the dense walk (``PT_NO_TRWALK_KERNEL=1
    PT_DENSE_TR=1``: row 3) and through the walk kernels, ABBA, and one
    1-spp frame of it through the CLI on the dense route; then (4h) the
    plain showcase at 1920x1080, 5 bounces, TREE_SPP spp under
@@ -183,7 +182,27 @@ any error:
    difference; (6c) five ``make_train_step`` steps over every parameter
    field toward a target of another seed, the albedo error falling, then
    one step through the fused route (the live fused kernel) against the
-   two launches.
+   two launches;
+7. (also alone with ``--only 7``) the render driver and its options on the
+   textured showcase at 1920x1080, 5 bounces (its scene file from phase
+   4's ``build/`` directory): (7a) SPW_SPP spp at samples per wavefront
+   1, 2 and 4, packed against unpacked within rtol 2e-5 / atol 2e-6, each
+   with its seconds and launches per sample and peak device memory; (7b)
+   COMPACT_SPP spp with live-ray compaction against without, bit-equal
+   expected, every differing pixel logged with both values, failing
+   beyond rtol 1e-5, the live lanes per bounce of the middle wavefront;
+   the same on the plain showcase under ``PT_BVH_KERNEL=tree``; (7c) the
+   CLI with ``--checkpoint`` at 2 spp, then at 4 spp resuming at sample
+   3, its PNG equal to a straight 4-spp CLI render (phase 4's), a profile
+   of another resolution against the file exiting 2, and the
+   fingerprint's time; (7d) ``--debug-textures`` through the CLI (seven
+   1080p PNGs) and ``compute_aovs`` at 96x54 on the card against the CPU
+   port; (7e) the progressive viewer on port 0 over loopback during a
+   3-spp render, one sample a pass: /status after each pass, the last
+   /frame.png equal to the returned image, and a /stop after pass 1
+   ending a render over one sample, equal to a 1-spp render; (7f) a
+   1-spp CLI render with ``--profile-trace`` at TRACE_W x TRACE_H (one
+   wavefront): the Chrome trace names the hand-written kernels that ran.
 
 The last lines are a JSON object of kernel numbers, the ``nvidia-smi`` card
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -267,12 +286,26 @@ WAVE = 1 << 18  # lanes of one wavefront of the main path (Profile.tile_rays)
 # elementwise form (the distance test): share of lanes that may part, at
 # the range boundary only.
 MAX_RANGE_FLIPS = 1e-4
-FUSED_SPP = 2  # samples of each 1080p render of the fused-shadow A/B (4f)
+FUSED_SPP = 1  # samples of each 1080p render of the fused-shadow A/B (4f)
 # Row 3's column counts checked (3g): PT_DENSE_TR_K's default, the main
 # path's, and 1.
 KHIT_KS = (6, 1, 8)
 CHECK_LANES = (1 << 16) - 37  # lanes of 3g's and 3h's checks: not whole CTAs
-TREE_SPP = 16  # samples of the plain showcase's 1080p tree-walk render (4h)
+# Samples of phase 4's 1080p renders of cube, spheres and reflection, and
+# of the plain showcase (flat, and under tree in 4h: the two compared).
+MAIN_SPP = 4
+SHOWCASE_SPP = TREE_SPP = 4
+# Samples of the reference-default-sized frames (1920x1080, 4 bounces)
+# rendered through the CLI in phase 4 (the reference default is 64).
+CLI_FRAME_SPP = 4
+DENSE_SPP = 2  # samples of each 1080p render of 4g's ABBA
+SPW_SPP = TEX_SPP  # 7a's samples at spw 1 (phase 4's run), 2 and 4
+COMPACT_SPP = 2  # samples of 7b's renders with and without compaction
+AOV_CPU_W, AOV_CPU_H = 96, 54  # 7d's AOVs on the card against the CPU
+DRIVER_W, DRIVER_H = 1920, 1080  # phase 7's frame
+# 7f's traced frame: one wavefront. A 1080p sample's Chrome trace would
+# hold about eight times the events (each tile repeats every op).
+TRACE_W, TRACE_H = 480, 270
 TREE_TURN_SPP = 2  # samples of each render of 4h's tree and flat turns
 # The training phases (6b, 6c): the central difference's step on the
 # albedo scale and its bound (tests/tools/tpu_kernel_check.py's chip gate),
@@ -1982,9 +2015,11 @@ def phase_main_path(device):
     from path_tracer_torch.scene import load_scene
     from path_tracer_torch.utils.image_io import save_png
 
-    log("phase 4: main path at 1920x1080, 4 bounces, 16 spp")
+    spp = MAIN_SPP
+    log(f"phase 4: main path at 1920x1080, 4 bounces, {spp} spp")
     OUT.mkdir(parents=True, exist_ok=True)
-    profile = Profile(resolution=Resolution(1920, 1080), bounces=4, samples=16)
+    profile = Profile(resolution=Resolution(1920, 1080), bounces=4,
+                      samples=spp)
     spec = integrator_spec(profile)
     scenes = {name: load_scene(scene_path(name), device)
               for name in ("cube", "spheres", "reflection")}
@@ -1994,15 +2029,15 @@ def phase_main_path(device):
     for name, sc in scenes.items():
         before = (cuda_intersect.launches, cuda_spheres.launches)
         t0 = time.perf_counter()
-        sums = render_pixel_sums(sc, 1920, 1080, 1, 16, spec,
+        sums = render_pixel_sums(sc, 1920, 1080, 1, spp, spec,
                                  tile_rays=profile.tile_rays)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         per_scene[name] = (cuda_intersect.launches - before[0],
                            cuda_spheres.launches - before[1])
-        img = finalize(sums, 16, profile, 1920, 1080)
-        save_png(img, OUT / f"{name}_1080p_16spp.png")
-        rays = 1920 * 1080 * 16 * 5
+        img = finalize(sums, spp, profile, 1920, 1080)
+        save_png(img, OUT / f"{name}_1080p_{spp}spp.png")
+        rays = 1920 * 1080 * spp * 5
         log(f"  {name}: {secs:.3f} s, {rays / secs / 1e6:.2f} Mray/s, "
             f"mt launches {per_scene[name][0]}, sphere launches "
             f"{per_scene[name][1]}, finite {bool(np.isfinite(sums).all())}, "
@@ -2014,19 +2049,31 @@ def phase_main_path(device):
             or per_scene["reflection"][0] == 0:
         raise AssertionError(f"a kernel was not launched: {per_scene}")
 
-    # One reference-default frame (Profile(): 1920x1080, 64 spp, 4 bounces)
-    # through the command line, on a scene loaded anew by the CLI.
+    # One frame of the reference default's size (1920x1080, 4 bounces) at
+    # CLI_FRAME_SPP spp through the command line, on a scene loaded anew.
     png = OUT / "reflection_default.png"
+    prof = cli_frame_profile()
     t0 = time.perf_counter()
     cli.main(["render", str(scene_path("reflection")), "-o", str(png), "-q",
-              "--device", "cuda"])
+              "-p", str(prof), "--device", "cuda"])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    rays = 1920 * 1080 * 64 * 5
-    log(f"  reflection reference-default frame via the CLI (64 spp, load "
-        f"included): {secs:.3f} s, {rays / secs / 1e6:.2f} Mray/s, "
-        f"png {png.stat().st_size} bytes")
+    rays = 1920 * 1080 * CLI_FRAME_SPP * 5
+    log(f"  reflection frame of the reference default's size via the CLI "
+        f"({CLI_FRAME_SPP} spp, load included): {secs:.3f} s, "
+        f"{rays / secs / 1e6:.2f} Mray/s, png {png.stat().st_size} bytes")
     return launches
+
+
+def cli_frame_profile() -> Path:
+    """A profile file of the reference default's resolution and bounces
+    (1920x1080, 4) at CLI_FRAME_SPP samples, under the git-ignored
+    build/."""
+    prof = REPO / "build" / "chip_smoke_profiles" / "cli_frame.yaml"
+    prof.parent.mkdir(parents=True, exist_ok=True)
+    prof.write_text("resolution: {width: 1920, height: 1080}\n"
+                    f"samples: {CLI_FRAME_SPP}\nbounces: 4\n")
+    return prof
 
 
 def launch_counts() -> dict:
@@ -2083,9 +2130,10 @@ def reset_launch_counts() -> None:
 
 def phase_showcase(device, showcase):
     """The main path of the BVH slice: the plain showcase at 1080p, 5
-    bounces, 16 spp, then one reference-default frame of it written to
-    disk and rendered through the CLI. Returns the launch counts of the
-    16-spp run and its (seconds, pixel sums)."""
+    bounces, SHOWCASE_SPP spp, then one frame of the reference default's
+    size (CLI_FRAME_SPP spp) of it written to disk and rendered through
+    the CLI. Returns the launch counts of the first run and its (seconds,
+    pixel sums)."""
     import torch
 
     from path_tracer_torch import cli
@@ -2098,7 +2146,7 @@ def phase_showcase(device, showcase):
     from path_tracer_torch.scene.showcase import write_showcase_scene_dir
     from path_tracer_torch.utils.image_io import save_png
 
-    w, h, spp, bounces = 1920, 1080, 16, 5
+    w, h, spp, bounces = 1920, 1080, SHOWCASE_SPP, 5
     log(f"phase 4 (showcase): {showcase.num_real_triangles} triangles, "
         f"{showcase.num_real_spheres} spheres, {showcase.sl_n_blocks} blocks "
         f"of {showcase.sl_block}; {w}x{h}, {bounces} bounces, {spp} spp")
@@ -2110,10 +2158,10 @@ def phase_showcase(device, showcase):
     sums = render_pixel_sums(showcase, w, h, 1, spp, integrator_spec(profile),
                              tile_rays=profile.tile_rays)
     torch.cuda.synchronize()
-    secs = secs16 = time.perf_counter() - t0
+    secs = first = time.perf_counter() - t0
     counts = launch_counts()
     img = finalize(sums, spp, profile, w, h)
-    save_png(img, OUT / "showcase_1080p_16spp_b5.png")
+    save_png(img, OUT / f"showcase_1080p_{spp}spp_b5.png")
     rays = w * h * spp * (bounces + 1)
     log(f"  showcase: {secs:.3f} s, {rays / secs / 1e6:.2f} Mray/s, launches "
         f"{counts}, finite {bool(np.isfinite(sums).all())}, image mean "
@@ -2131,30 +2179,33 @@ def phase_showcase(device, showcase):
     png = OUT / "showcase_default.png"
     reset_launch_counts()
     t0 = time.perf_counter()
-    cli.main(["render", str(path), "-o", str(png), "-q", "--device", "cuda"])
+    cli.main(["render", str(path), "-o", str(png), "-q", "-p",
+              str(cli_frame_profile()), "--device", "cuda"])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     cli_counts = launch_counts()
     size = path.stat().st_size
     shutil.rmtree(scene_dir)
-    rays = 1920 * 1080 * 64 * 5
-    log(f"  showcase reference-default frame via the CLI (1920x1080, 64 spp, "
-        f"4 bounces, {size} bytes of scene.isf loaded and "
+    rays = 1920 * 1080 * CLI_FRAME_SPP * 5
+    log(f"  showcase frame of the reference default's size via the CLI "
+        f"(1920x1080, {CLI_FRAME_SPP} spp, 4 bounces, {size} bytes of "
+        f"scene.isf loaded and "
         f"built in the timing, 512-slot blocks): {secs:.3f} s, "
         f"{rays / secs / 1e6:.2f} Mray/s, launches {cli_counts}, png "
         f"{png.stat().st_size} bytes")
     if not cli_counts["flat_closest_hit"] or cli_counts["mt_closest_hit"]:
         raise AssertionError(f"CLI frame did not take the flat kernels: "
                              f"{cli_counts}")
-    return counts, (secs16, sums)
+    return counts, (first, sums)
 
 
 def phase_showcase_tex(device, tex):
     """The main path of the transparency slice: the textured showcase
     (the JAX bench's default workload) at 1920x1080, 5 bounces, TEX_SPP
     spp through ``render_pixel_sums``, then the same frame through the
-    CLI. Returns the launch counts of the first; fails unless the flat
-    kernels and both walk kernels launched."""
+    CLI. Returns the launch counts of the first and the run (seconds,
+    sums, counts, peak device bytes); fails unless the flat kernels and
+    both walk kernels launched."""
     import torch
 
     from path_tracer_torch import cli
@@ -2176,6 +2227,7 @@ def phase_showcase_tex(device, tex):
     profile = Profile(resolution=Resolution(w, h), bounces=bounces,
                       samples=spp)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
     sums = render_pixel_sums(tex, w, h, 1, spp, integrator_spec(profile),
@@ -2183,6 +2235,7 @@ def phase_showcase_tex(device, tex):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = launch_counts()
+    run = (secs, sums, counts, torch.cuda.max_memory_allocated())
     img = finalize(sums, spp, profile, w, h)
     save_png(img, OUT / f"showcase_tex_1080p_{spp}spp_b5.png")
     rays = w * h * spp * (bounces + 1)
@@ -2223,7 +2276,7 @@ def phase_showcase_tex(device, tex):
     if not (cli_counts["alpha_walk"] and cli_counts["trans_walk"]):
         raise AssertionError(f"CLI frame did not take the walk kernels: "
                              f"{cli_counts}")
-    return counts
+    return counts, run
 
 
 def phase_big_showcase(device, big):
@@ -3337,17 +3390,6 @@ def launch_device_ms(fn, iters: int = 10) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
-
-
-def device_turns(old, new):
-    """Device ms per call of two designs' launches in turns (old, new, new,
-    old, twice), from ``launch_device_ms``."""
-    old_ms, new_ms = [], []
-    for _ in range(2):
-        old_ms.append(launch_device_ms(old))
-        new_ms += [launch_device_ms(new) for _ in range(2)]
-        old_ms.append(launch_device_ms(old))
-    return old_ms, new_ms
 
 
 def phase_redesigned(device, showcase) -> dict:
@@ -4599,40 +4641,36 @@ def exact_box_walk(o, d, t_max, sc):
 
 def phase_row_6(device, grid) -> dict:
     """3q: row 6 (the sphere any-hit walk as warp packets writing prior |
-    spheres) against its plain version and the replaced CTA design
-    (``ops/ab_baselines.py``, on the same widened gate) on every lane:
-    scene B's first-bounce shadow sets of the middle 2^18 camera lanes
-    toward both lights and its incoherent later-bounce sets (random
-    sphere-surface points toward both lights), a tenth of each killed,
-    without and with a random tenth as prior (scene B has no triangles,
-    so no triangle any-hit to fold), a ragged count with dead warps, each
-    in-block layout alone; the witness: the duplicate-sphere scene's tie
-    rays (seeds 0-3, 2^16 each) at t_max the first-hit t of the
-    closest-hit walk run ungated, held to the ungated any-hit walk and the
-    dense any-hit, with the exact-box mutation's lanes off counted (the
-    witness still bites); row 5 on the same rays against its ungated plain
-    version from t_prev = -1 and from the hit. Then, on both scene B sets,
-    device ms a launch of the new kernel and the replaced design in turns,
-    each layout alone, both wrappers in turns, the plain version, the
+    spheres) against its plain version on every lane: scene B's
+    first-bounce shadow sets of the middle 2^18 camera lanes toward both
+    lights and its incoherent later-bounce sets (random sphere-surface
+    points toward both lights), a tenth of each killed, without and with a
+    random tenth as prior (scene B has no triangles, so no triangle
+    any-hit to fold), a ragged count with dead warps, each in-block layout
+    alone; the witness: the duplicate-sphere scene's tie rays (seeds 0-3,
+    2^16 each) at t_max the first-hit t of the closest-hit walk run
+    ungated, held to the ungated any-hit walk and the dense any-hit, with
+    the exact-box mutation's lanes off counted (the witness still bites);
+    row 5 on the same rays against its ungated plain version from t_prev =
+    -1 and from the hit. Then, on both scene B sets, device ms a launch
+    (each layout alone too), the wrapper's time, the plain version, the
     bound from the tests the widened gate needs and ptxas's report; and
-    scene B's device ms and launches a 1080p sample from the profiler
-    through the new kernel and through the replaced design. Returns the
-    numbers."""
+    scene B's device ms and launches a 1080p sample from the profiler.
+    Returns the numbers."""
     import dataclasses
 
     import torch
 
     from path_tracer_torch import native
     from path_tracer_torch.models.integrator import IntegratorSpec
-    from path_tracer_torch.ops import ab_baselines, cuda_spheres
+    from path_tracer_torch.ops import cuda_spheres
     from path_tracer_torch.scene.procedural import (
         duplicate_sphere_device_scene,
         sphere_tie_rays,
     )
 
     log("phase 3q: row 6 (the sphere any-hit walk as warp packets writing "
-        "prior | spheres) against its plain version and the replaced CTA "
-        "design")
+        "prior | spheres) against its plain version")
     t0 = time.perf_counter()
     n, rr = WAVE, WAVE - 37
     rng = np.random.default_rng(20261116)
@@ -4656,9 +4694,7 @@ def phase_row_6(device, grid) -> dict:
                 or new.dtype != torch.bool:
             raise AssertionError(f"row 6, {label}: not one bool launch")
         want = {"the plain version": cuda_spheres.occluded_spheres_plain(
-                    o, ds, tms, sc, prior),
-                "the replaced CTA design": ab_baselines.sph_occ_walk_cta(
-                    o, ds, tms, *tables(sc), prior), **(extra or {})}
+                    o, ds, tms, sc, prior), **(extra or {})}
         offs = {k: int((new != w).sum()) for k, w in want.items()}
         dead = tms < 0.0
         log(f"  row 6, {label}: {tms.shape[0]} x {tms.shape[1]} lanes (live "
@@ -4733,68 +4769,41 @@ def phase_row_6(device, grid) -> dict:
         if "sph_occ_walk" in name:
             log(f"  ptxas {name}: {report}")
     for label, (o, ds, tms) in sets.items():
-        new_l = lambda: native.launch_sph_occ_walk(o, ds, tms, *tables(grid))
-        old_l = lambda: ab_baselines.launch_sph_occ_walk_cta(
-            o, ds, tms, *tables(grid))
-        old_ms, new_ms = device_turns(old_l, new_l)
-        lanes = {lw: min(launch_device_ms(lambda: native.launch_sph_occ_walk(
-            o, ds, tms, *tables(grid), lane_wise=lw)) for _ in range(2))
-            for lw in (1, 33)}
+        new_ms = [launch_device_ms(lambda: native.launch_sph_occ_walk(
+            o, ds, tms, *tables(grid))) for _ in range(2)]
+        lanes = {lw: launch_device_ms(lambda: native.launch_sph_occ_walk(
+            o, ds, tms, *tables(grid), lane_wise=lw)) for lw in (1, 33)}
         wrap = lambda: cuda_spheres.occluded_spheres_cuda(o, ds, tms, grid)
-        old_wrap = lambda: ab_baselines.sph_occ_walk_cta(o, ds, tms,
-                                                         *tables(grid))
-        w_new, w_old = [], []
-        for fn, acc in ((wrap, w_new), (old_wrap, w_old), (old_wrap, w_old),
-                        (wrap, w_new)):
-            acc.append(cuda_ms(fn, AB_ITERS))
+        w_new = [cuda_ms(wrap, AB_ITERS) for _ in range(2)]
         plain_ms, want = timed_once(
             lambda: cuda_spheres.occluded_spheres_plain(o, ds, tms, grid))
         sh = {"s_o": o, "dirs": list(ds), "t_maxes": list(tms)}
         slabs, tests = sphere_any_hit_work(sh, grid, want)
         work = bound(slabs * OPS_SLAB + tests * OPS_SPHERE,
                      nbytes(o, ds, tms, *tables(grid)) + tms.numel())
-        new, old = min(new_ms), min(old_ms)
+        new = min(new_ms)
         log(f"  time row 6, scene B {label} shadow sets, {tms.numel()} "
-            "lanes, device ms a launch in turns: replaced "
-            + " ".join(f"{x:.4f}" for x in old_ms) + "; new "
-            + " ".join(f"{x:.4f}" for x in new_ms) + f"; new / replaced "
-            f"{new / old:.3f}; each layout alone: lane per ray "
-            f"{lanes[1]:.4f}, the block over the warp {lanes[33]:.4f}; "
-            "through the wrappers in turns: new "
-            + " ".join(f"{x:.4f}" for x in w_new) + "; replaced (its ATen "
-            "compare) " + " ".join(f"{x:.4f}" for x in w_old)
+            "lanes, device ms a launch "
+            + " ".join(f"{x:.4f}" for x in new_ms) + "; each layout alone: "
+            f"lane per ray {lanes[1]:.4f}, the block over the warp "
+            f"{lanes[33]:.4f}; through the wrapper "
+            + " ".join(f"{x:.4f}" for x in w_new)
             + f"; plain {plain_ms:.4f} ms; bound {work[0]:.4f} ms "
             f"({work[1]}: {slabs} slab tests, {tests} sphere tests), floor "
-            f"{2 * work[0]:.4f} ms; share of the bound new "
-            f"{work[0] / new:.3f}, replaced {work[0] / old:.3f}")
+            f"{2 * work[0]:.4f} ms; share of the bound {work[0] / new:.3f}")
         if work[0] > new:
             raise AssertionError(f"row 6 {label}: faster than its bound")
-        out["times"][label] = dict(
-            new=new_ms, old=old_ms, lanes=lanes, wrap=w_new, old_wrap=w_old,
-            plain_ms=plain_ms, bound=work)
+        out["times"][label] = dict(new=new_ms, lanes=lanes, wrap=w_new,
+                                   plain_ms=plain_ms, bound=work)
 
-    # One 1080p sample of scene B through the new kernel, then through the
-    # replaced design (its wrapper's ATen OR included).
-    spec = IntegratorSpec(bounces=5)
-    launch = native.launch_sph_occ_walk
-    prof = {"new": kernel_device_ms(grid, spec)}
-    try:
-        native.launch_sph_occ_walk = (
-            lambda o, ds, tms, blk, blkid, sph, prior=None:
-            ab_baselines.sph_occ_walk_cta(o, ds, tms, blk, blkid, sph, prior))
-        prof["replaced"] = kernel_device_ms(grid, spec)
-    finally:
-        native.launch_sph_occ_walk = launch
-    for k, v in prof.items():
-        log_profile(f"scene B through {k} row 6", v)
-    new_k, old_k = (prof["new"].get("sph_occ_walk_kernel", (0.0, 0)),
-                    prof["replaced"].get("sph_occ_walk_cta_kernel", (0.0, 0)))
+    # One 1080p sample of scene B.
+    prof = kernel_device_ms(grid, IntegratorSpec(bounces=5))
+    log_profile("scene B", prof)
+    new_k = prof.get("sph_occ_walk_kernel", (0.0, 0))
     log(f"  scene B a 1080p sample: row 6 {new_k[0]:.3f} ms in {new_k[1]} "
-        f"launches (replaced {old_k[0]:.3f} ms in {old_k[1]}); all kernels "
-        f"{prof['new']['all'][0]:.3f} ms in {prof['new']['all'][1]} launches "
-        f"(replaced {prof['replaced']['all'][0]:.3f} ms in "
-        f"{prof['replaced']['all'][1]})")
-    if not new_k[1] or not old_k[1]:
+        f"launches; all kernels {prof['all'][0]:.3f} ms in "
+        f"{prof['all'][1]} launches")
+    if not new_k[1]:
         raise AssertionError("scene B's sample did not take row 6")
     out["profile"] = prof
     log(f"  phase 3q took {time.perf_counter() - t0:.1f} s")
@@ -5118,9 +5127,13 @@ def with_env(env: dict):
 DENSE_ENV = {"PT_NO_TRWALK_KERNEL": "1", "PT_DENSE_TR": "1"}
 
 
-def timed_render(sc, w, h, spp, bounces, env=None):
+def timed_render(sc, w, h, spp, bounces, env=None, spw: int = 1,
+                 compact: bool = False):
     """(seconds, pixel sums, launch counts) of one render_pixel_sums call
-    (counts set to 0 just before it), with ``env`` knobs set for it."""
+    (counts set to 0 just before it), with ``env`` knobs set for it, spw
+    samples per wavefront and live-ray compaction as asked."""
+    import dataclasses
+
     import torch
 
     from path_tracer_torch.config import Profile, Resolution
@@ -5136,8 +5149,10 @@ def timed_render(sc, w, h, spp, bounces, env=None):
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
-        sums = render_pixel_sums(sc, w, h, 1, spp, integrator_spec(profile),
-                                 tile_rays=profile.tile_rays)
+        sums = render_pixel_sums(
+            sc, w, h, 1, spp,
+            dataclasses.replace(integrator_spec(profile), compact=compact),
+            tile_rays=profile.tile_rays, samples_per_wavefront=spw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = launch_counts()
@@ -5173,7 +5188,7 @@ def cli_frame(path: Path, png: Path, env: dict, w: int = 1920,
 
 
 def phase_dense_route(device, tex, tex_path: Path):
-    """4g: the textured showcase at 1920x1080, 5 bounces, TEX_SPP spp
+    """4g: the textured showcase at 1920x1080, 5 bounces, DENSE_SPP spp
     through the dense walk (PT_NO_TRWALK_KERNEL=1 PT_DENSE_TR=1: row 3,
     no walk kernel) and through the walk kernels, same seed, in turns
     (ABBA): at most MAX_WALK_PIXELS of the pixels beyond 1e-3; seconds
@@ -5184,7 +5199,7 @@ def phase_dense_route(device, tex, tex_path: Path):
     from path_tracer_torch.config import Profile, Resolution
     from path_tracer_torch.utils.image_io import save_png
 
-    w, h, spp, bounces = 1920, 1080, TEX_SPP, 5
+    w, h, spp, bounces = 1920, 1080, DENSE_SPP, 5
     log(f"phase 4g: textured showcase, the dense walk (row 3) against the "
         f"walk kernels, {w}x{h}, {bounces} bounces, {spp} spp, ABBA")
     runs = {"dense": [], "kernels": []}
@@ -5303,6 +5318,391 @@ def phase_tree_route(device, showcase, flat, tex_path: Path):
     return counts, prof
 
 
+# The kernel identifier each launch count counts (the live variants run
+# the forward variants' kernels).
+KERNEL_OF_COUNT = {
+    "mt_closest_hit": "mt_closest_hit_kernel",
+    "sphere_closest_hit": "sphere_closest_hit_kernel",
+    "sph_walk": "sph_walk_kernel",
+    "flat_closest_hit": "flat_closest_hit_kernel",
+    "flat_occluded": "flat_occluded_kernel",
+    "flat2_closest_hit": "flat2_closest_hit_kernel",
+    "flat2_occluded": "flat2_occluded_kernel",
+    "alpha_walk": "alpha_walk_kernel",
+    "trans_walk": "trans_walk_kernel",
+    "sph_occluded": "sph_occ_dense_kernel",
+    "sph_occ_walk": "sph_occ_walk_kernel",
+    "fused_shadow": "fused_shadow_kernel",
+    "alpha_walk_live": "alpha_walk_kernel",
+    "trans_walk_live": "trans_walk_kernel",
+    "fused_shadow_live": "fused_shadow_kernel",
+    "k_nearest_tr_hits": "khit_kernel",
+    "tree_closest_hit": "tree_closest_kernel",
+    "tree_occluded": "tree_occluded_kernel"}
+
+
+def per_sample(counts: dict, spp: int) -> float:
+    """The hand-written kernels' launches a sample."""
+    return sum(counts.values()) / spp
+
+
+def driver_render(label: str, sc, spp: int, env=None, spw: int = 1,
+                  compact: bool = False):
+    """(seconds, sums, counts, peak device bytes) of a render_pixel_sums
+    run of phase 7's frame, 5 bounces, logged."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, sums, counts = timed_render(sc, DRIVER_W, DRIVER_H, spp, 5, env,
+                                      spw=spw, compact=compact)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {label}: {secs:.3f} s ({secs / spp:.4f} s per sample), "
+        f"{per_sample(counts, spp):.1f} kernel launches per sample, peak "
+        f"device memory {peak / 2**30:.3f} GiB; launches "
+        + str({k: v for k, v in counts.items() if v}))
+    if not np.isfinite(sums).all():
+        raise AssertionError(f"{label}: sums not finite")
+    return secs, sums, counts, peak
+
+
+def parted_pixels(label: str, got, want, path: Path) -> int:
+    """Logs every pixel whose sums differ (both values; past the first 20
+    into ``path``) and returns how many values lie beyond rtol 1e-5."""
+    diff = np.nonzero((got != want).any(axis=1))[0]
+    lines = [f"pixel {i} (x {i % DRIVER_W}, y {i // DRIVER_W}): "
+             f"{got[i].tolist()} against {want[i].tolist()}" for i in diff]
+    path.write_text("".join(ln + "\n" for ln in lines))
+    for ln in lines[:20]:
+        log(f"    {label}, {ln}")
+    beyond = int((~np.isclose(got, want, rtol=1e-5, atol=0.0)).sum())
+    log(f"  {label}: {diff.size} pixels differ (all in {path.name}), "
+        f"{beyond} values beyond rtol 1e-5")
+    return beyond
+
+
+def live_counts(sc, compact: bool, env=None) -> list:
+    """The live lanes before each of 6 bounces of sample 1 on the middle
+    2^18-lane wavefront of the frame's Morton order."""
+    import torch
+
+    from path_tracer_torch.models.integrator import (
+        IntegratorSpec,
+        render_wavefront,
+    )
+    from path_tracer_torch.ops.sorting import morton_pixel_order
+
+    pix = morton_pixel_order(DRIVER_W, DRIVER_H)[3 * WAVE:4 * WAVE].copy()
+    restore = with_env(env or {})
+    try:
+        _, live = render_wavefront(
+            sc, torch.from_numpy(pix).to(sc.device), DRIVER_W, DRIVER_H, 1,
+            IntegratorSpec(bounces=5, compact=compact),
+            collect_live_counts=True)
+    finally:
+        restore()
+    return live.tolist()
+
+
+def phase_spw_compact(tex, showcase, tex_run=None) -> dict:
+    """7a and 7b (see the module docstring). ``tex_run``: phase 4's
+    SPW_SPP-spp run of the textured showcase, (seconds, sums, counts, peak
+    device bytes), taken as the spw 1 run. Returns the numbers."""
+    log(f"phase 7a: samples per wavefront on the textured showcase, "
+        f"{DRIVER_W}x{DRIVER_H}, 5 bounces, {SPW_SPP} spp")
+    out = {"spw": {}}
+    if tex_run is not None:
+        secs, base, counts, peak = tex_run
+        log(f"  spw 1: phase 4's run, {secs:.3f} s ({secs / SPW_SPP:.4f} s "
+            f"per sample), {per_sample(counts, SPW_SPP):.1f} kernel launches "
+            f"per sample, peak device memory {peak / 2**30:.3f} GiB")
+        out["spw"][1] = (secs / SPW_SPP, per_sample(counts, SPW_SPP), peak)
+    else:
+        secs, base, counts, peak = driver_render("spw 1", tex, SPW_SPP)
+        out["spw"][1] = (secs / SPW_SPP, per_sample(counts, SPW_SPP), peak)
+    for spw in (2, 4):
+        secs, sums, counts, peak = driver_render(f"spw {spw}", tex, SPW_SPP,
+                                                 spw=spw)
+        near = np.isclose(sums, base, rtol=2e-5, atol=2e-6)
+        rel = np.abs(sums - base) / np.maximum(np.abs(base), 1e-30)
+        log(f"  spw {spw} against spw 1: values beyond rtol 2e-5 / atol 2e-6 "
+            f"{int((~near).sum())} of {near.size}; max abs "
+            f"{np.abs(sums - base).max():.3e}, max rel {rel.max():.3e}")
+        if not near.all() or not counts["alpha_walk"]:
+            raise AssertionError(f"spw {spw}: packed and unpacked differ")
+        out["spw"][spw] = (secs / SPW_SPP, per_sample(counts, SPW_SPP), peak)
+
+    for name, sc, env in (("textured showcase", tex, None),
+                          ("plain showcase under PT_BVH_KERNEL=tree",
+                           showcase, {"PT_BVH_KERNEL": "tree"})):
+        log(f"phase 7b: live-ray compaction on the {name}, {DRIVER_W}x"
+            f"{DRIVER_H}, 5 bounces, {COMPACT_SPP} spp")
+        runs = {c: driver_render("compacted" if c else "not compacted", sc,
+                                 COMPACT_SPP, env, compact=c)
+                for c in (False, True)}
+        lives = {c: live_counts(sc, c, env) for c in (False, True)}
+        log(f"  live lanes before each bounce, the middle wavefront: "
+            f"{lives[False]} (compacted {lives[True]})")
+        if lives[False] != lives[True]:
+            raise AssertionError(f"{name}: live counts differ")
+        tag = "tree" if env else "flat"
+        beyond = parted_pixels(f"{name}, compacted against not", runs[True][1],
+                               runs[False][1], OUT / f"compact_{tag}.txt")
+        key = "tree_closest_hit" if env else "alpha_walk"
+        if beyond or not runs[True][2][key]:
+            raise AssertionError(f"{name}: compaction changed the image")
+        out[tag] = {c: (r[0] / COMPACT_SPP, per_sample(r[2], COMPACT_SPP),
+                        r[3]) for c, r in runs.items()}
+        out[tag]["live"] = lives[False]
+    return out
+
+
+def cli_main(*argv) -> int:
+    """The CLI's exit code for argv (0 when it returns)."""
+    from path_tracer_torch import cli
+
+    try:
+        cli.main(list(argv))
+    except SystemExit as e:
+        return int(e.code)
+    return 0
+
+
+def profile_file(path: Path, spp: int, w: int = 0, h: int = 0) -> Path:
+    """A profile of phase 7's frame (or w x h), 5 bounces, spp samples."""
+    path.write_text(f"resolution: {{width: {w or DRIVER_W}, height: "
+                    f"{h or DRIVER_H}}}\nsamples: {spp}\nbounces: 5\n")
+    return path
+
+
+def phase_checkpoint_aov(device, tex, tex_path: Path, straight=None) -> dict:
+    """7c and 7d (see the module docstring). ``straight``: phase 4's
+    4-spp CLI PNG of the same frame, else rendered here. Returns the
+    numbers."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from path_tracer_torch.config import Resolution
+    from path_tracer_torch.models.debug_aov import AOV_NAMES, compute_aovs
+    from path_tracer_torch.utils import checkpoint
+    from path_tracer_torch.utils.image_io import read_png
+
+    log(f"phase 7c: the CLI with --checkpoint on the textured showcase, "
+        f"{DRIVER_W}x{DRIVER_H}, 5 bounces: 2 spp, then 4 spp resumed at "
+        "sample 3")
+    work = REPO / "build" / "chip_smoke_driver"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    scene = str(tex_path)
+    ckpt = work / "render.ckpt"
+    p2, p4 = (profile_file(work / f"p{n}.yaml", n) for n in (2, 4))
+    out = {}
+    if straight is None:
+        straight = work / "straight.png"
+        t0 = time.perf_counter()
+        if cli_main("render", scene, "-o", str(straight), "-q", "-p",
+                    str(p4), "--device", "cuda"):
+            raise AssertionError("the straight CLI render failed")
+        log(f"  straight 4-spp CLI render: {time.perf_counter() - t0:.3f} s")
+    runs = []
+    for label, prof, png in (("2 spp", p2, work / "half.png"),
+                             ("4 spp, resumed", p4, work / "resumed.png")):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_main("render", scene, "-o", str(png), "-q", "-p", str(prof),
+                      "--checkpoint", str(ckpt), "--checkpoint-every", "2",
+                      "--device", "cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        with np.load(ckpt) as z:
+            done = int(z["samples_done"])
+        counts = launch_counts()
+        runs.append(counts["flat_closest_hit"])
+        log(f"  {label}: exit {rc}, {secs:.3f} s (load included), the "
+            f"checkpoint holds {done} samples, flat closest-hit launches "
+            f"{counts['flat_closest_hit']}")
+        if rc or done != (2 if png.name == "half.png" else 4):
+            raise AssertionError(f"checkpointed CLI render, {label}")
+    same = np.array_equal(read_png(work / "resumed.png"), read_png(straight))
+    log(f"  resumed PNG equal to the straight 4-spp CLI render: {same}; the "
+        f"resumed run's launches {runs[1]} (the 2-spp run's {runs[0]})")
+    if not same or runs[1] != runs[0]:
+        raise AssertionError("the resumed render is not the straight one")
+    p_other = profile_file(work / "other.yaml", 4, DRIVER_W // 2,
+                           DRIVER_H // 2)
+    rc = cli_main("render", scene, "-o", str(work / "x.png"), "-q", "-p",
+                  str(p_other), "--checkpoint", str(ckpt), "--device",
+                  "cuda")
+    log(f"  a profile of half the resolution against the checkpoint: exit "
+        f"{rc}")
+    if rc != 2 or (work / "x.png").exists():
+        raise AssertionError("a mismatched checkpoint did not exit 2")
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        checkpoint.fingerprint(DRIVER_W, DRIVER_H, 5, 0, tex)
+        times.append(time.perf_counter() - t0)
+    hashed = sum(getattr(tex, f.name).numel()
+                 * getattr(tex, f.name).element_size()
+                 for f in dataclasses.fields(tex)
+                 if isinstance(getattr(tex, f.name), torch.Tensor)
+                 and not f.name.startswith(checkpoint._DERIVED_PREFIXES)
+                 and f.name not in checkpoint._DERIVED)
+    log(f"  fingerprint of the textured showcase: "
+        + ", ".join(f"{t:.3f}" for t in times)
+        + f" s ({hashed / 2**20:.1f} MiB of input tensors hashed)")
+    out["fingerprint_s"] = times
+
+    log(f"phase 7d: --debug-textures through the CLI ({DRIVER_W}x"
+        f"{DRIVER_H}), and "
+        f"compute_aovs at {AOV_CPU_W}x{AOV_CPU_H} on the card against the "
+        "CPU port")
+    aov_dir = OUT / "aov"
+    aov_dir.mkdir(parents=True, exist_ok=True)
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(aov_dir)
+        rc = cli_main("render", scene, "-o", str(work / "y.png"), "-q", "-p",
+                      str(p2), "--debug-textures", "--device", "cuda")
+    finally:
+        os.chdir(cwd)
+    shapes = {k: read_png(aov_dir / f"{k}.png").shape for k in AOV_NAMES}
+    want_shape = (DRIVER_H, DRIVER_W, 3)
+    log(f"  exit {rc} in {time.perf_counter() - t0:.3f} s (load included): "
+        + ", ".join(f"{k} {v}" for k, v in shapes.items()))
+    if rc or any(v != want_shape for v in shapes.values()) \
+            or (work / "y.png").exists():
+        raise AssertionError("--debug-textures did not write seven PNGs")
+    cpu = dataclasses.replace(tex, **{
+        f.name: getattr(tex, f.name).cpu() for f in dataclasses.fields(tex)
+        if isinstance(getattr(tex, f.name), torch.Tensor)})
+    res = Resolution(AOV_CPU_W, AOV_CPU_H)
+    card, host = compute_aovs(tex, res), compute_aovs(cpu, res)
+    within = {k: float(np.isclose(card[k], host[k], rtol=1e-3,
+                                  atol=1e-4).mean()) for k in AOV_NAMES}
+    log("  values within rtol 1e-3 / atol 1e-4 of the CPU port (>= "
+        f"{MIN_PIXELS_WITHIN}): "
+        + ", ".join(f"{k} {v:.5f}" for k, v in within.items()))
+    if min(within.values()) < MIN_PIXELS_WITHIN \
+            or not all(np.isfinite(v).all() for v in card.values()):
+        raise AssertionError("AOVs on the card and the CPU disagree")
+    shutil.rmtree(work)
+    return out
+
+
+def phase_viewer_trace(device, tex, tex_path: Path) -> dict:
+    """7e and 7f (see the module docstring). Returns the numbers."""
+    import json as json_
+    import re
+    import threading
+    import urllib.request
+
+    import torch
+
+    from path_tracer_torch.cli import TRACE_FILE
+    from path_tracer_torch.config import Profile, Resolution
+    from path_tracer_torch.models.renderer import render
+    from path_tracer_torch.utils.image_io import read_png
+    from path_tracer_torch.viewer import ProgressiveViewer
+
+    log(f"phase 7e: the progressive viewer over loopback during a 3-spp "
+        f"render of the textured showcase, {DRIVER_W}x{DRIVER_H}, 5 bounces, "
+        "one sample a pass")
+    get = lambda url: urllib.request.urlopen(url, timeout=30).read()
+    prof = lambda n: Profile(resolution=Resolution(DRIVER_W, DRIVER_H),
+                             bounces=5, samples=n, samples_per_launch=1)
+    out = {}
+
+    def watched(viewer, stop_after=None):
+        """The viewer's update, reading /status after each pass (and
+        sending /stop from another thread after pass stop_after)."""
+        update, seen, spent = viewer.update, [], []
+
+        def wrapped(image, samples_done=0, samples_total=0, rays_done=0):
+            t0 = time.perf_counter()
+            update(image, samples_done, samples_total, rays_done)
+            seen.append(json_.loads(get(viewer.url + "status"))[
+                "samples_done"])
+            if samples_done == stop_after:
+                t = threading.Thread(target=get, args=(viewer.url + "stop",))
+                t.start()
+                t.join()
+            spent.append(time.perf_counter() - t0)
+
+        viewer.update = wrapped
+        return seen, spent
+
+    viewer = ProgressiveViewer(port=0)
+    try:
+        seen, spent = watched(viewer)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render(tex, prof(3), viewer=viewer)
+        secs = time.perf_counter() - t0
+        same = np.array_equal(read_png(get(viewer.url + "frame.png")), img)
+    finally:
+        viewer.close()
+    log(f"  /status after each pass: {seen}; the last /frame.png equal to "
+        f"the returned image: {same}; {secs:.3f} s, of it "
+        + ", ".join(f"{x:.3f}" for x in spent)
+        + " s in the viewer's update (PNG encoding and /status)")
+    if seen != [1, 2, 3] or not same:
+        raise AssertionError("the viewer's frames or status are wrong")
+    viewer = ProgressiveViewer(port=0)
+    try:
+        seen, _ = watched(viewer, stop_after=1)
+        img = render(tex, prof(3), viewer=viewer)
+        stopped = viewer.stop_requested
+    finally:
+        viewer.close()
+    t0 = time.perf_counter()
+    one = render(tex, prof(1))
+    secs1 = time.perf_counter() - t0
+    same = np.array_equal(img, one)
+    log(f"  /stop after pass 1: passes {seen}, stop requested {stopped}, "
+        f"the image equal to a 1-spp render: {same} (that render "
+        f"{secs1:.3f} s without a viewer)")
+    if seen != [1] or not (stopped and same):
+        raise AssertionError("the viewer's stop was not honoured")
+    out["viewer_s"] = (secs, spent, secs1)
+
+    log(f"phase 7f: a 1-spp CLI render of the textured showcase at {TRACE_W}x"
+        f"{TRACE_H} (one wavefront), 5 bounces, with --profile-trace")
+    work = REPO / "build" / "chip_smoke_trace"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    p1 = profile_file(work / "p1.yaml", 1, TRACE_W, TRACE_H)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli_main("render", str(tex_path), "-o", str(work / "t.png"), "-q",
+                  "-p", str(p1), "--profile-trace", str(work / "trace"),
+                  "--device", "cuda")
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    trace = work / "trace" / TRACE_FILE
+    size = trace.stat().st_size if trace.exists() else 0
+    events = json_.loads(trace.read_text())["traceEvents"] if size else []
+    named = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            m = re.search(r"(\w+_kernel)\b", e.get("name", ""))
+            if m:
+                named[m.group(1)] = named.get(m.group(1), 0) + 1
+    ran = {KERNEL_OF_COUNT[k]: n for k, n in counts.items() if n}
+    log(f"  exit {rc} in {secs:.3f} s (load and trace export included), "
+        f"trace {size} bytes, {len(events)} events; hand-written kernels "
+        f"launched {ran}, in the trace "
+        + str({k: named.get(k, 0) for k in ran}))
+    if rc or not ran or not all(named.get(k) for k in ran):
+        raise AssertionError("the trace does not name the kernels that ran")
+    out["trace"] = (secs, size, len(events))
+    shutil.rmtree(work)
+    return out
+
+
 def kernel_name(mangled: str) -> str:
     """The kernel's identifier in an Itanium-mangled name (the last
     length-prefixed identifier ending in "kernel"), with its raw template
@@ -5351,7 +5751,7 @@ def main() -> int:
     from path_tracer_torch import native
 
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
-    alone = ("3i", "3j", "3k", "3l", "3m", "3n", "3o", "3p", "3q")
+    alone = ("3i", "3j", "3k", "3l", "3m", "3n", "3o", "3p", "3q", "7")
     if sys.argv[1:] and (len(sys.argv) != 3 or only not in alone):
         print("usage: chip_smoke.py [--only " + "|".join(alone) + "]",
               file=sys.stderr)
@@ -5395,6 +5795,23 @@ def main() -> int:
         phase_khit(device, tex)
         phase_live_kernels(device, tex)
         log(f"chip_smoke: phase 3o passed in "
+            f"{time.perf_counter() - start:.1f} s")
+        print(card)
+        return 0
+    if only == "7":  # phase 7 alone, on the textured showcase's scene file
+        from path_tracer_torch.scene.showcase import write_showcase_scene_dir
+
+        OUT.mkdir(parents=True, exist_ok=True)
+        routes_dir = REPO / "build" / "chip_smoke_showcase_tex_routes"
+        tex_path = write_showcase_scene_dir(routes_dir, grid=SHOWCASE_GRID,
+                                            textured=True)
+        try:
+            phase_spw_compact(tex, showcase)
+            phase_checkpoint_aov(device, tex, tex_path)
+            phase_viewer_trace(device, tex, tex_path)
+        finally:
+            shutil.rmtree(routes_dir, ignore_errors=True)
+        log(f"chip_smoke: phase 7 passed in "
             f"{time.perf_counter() - start:.1f} s")
         print(card)
         return 0
@@ -5478,12 +5895,12 @@ def main() -> int:
     rows_7_8 = phase_rows_7_8(device, showcase, big)
     launches = phase_main_path(device)
     flat_launches, flat_render = phase_showcase(device, showcase)
-    walk_launches = phase_showcase_tex(device, tex)
+    walk_launches, tex_run = phase_showcase_tex(device, tex)
     big_launches = phase_big_showcase(device, big)
     grid_launches = phase_sphere_grid(device, grid)
     fused_launches = phase_fused_showcase(device, tex)
-    # The textured showcase's scene file for 4g's and 4h's CLI frames,
-    # written under the git-ignored build/ and removed after them.
+    # The textured showcase's scene file for the CLI frames of 4g, 4h and
+    # 7, written under the git-ignored build/ and removed after them.
     from path_tracer_torch.scene.showcase import write_showcase_scene_dir
 
     routes_dir = REPO / "build" / "chip_smoke_showcase_tex_routes"
@@ -5493,6 +5910,10 @@ def main() -> int:
         dense_launches = phase_dense_route(device, tex, tex_path)
         tree_launches, _ = phase_tree_route(device, showcase, flat_render,
                                             tex_path)
+        phase_spw_compact(tex, showcase, tex_run)
+        phase_checkpoint_aov(device, tex, tex_path,
+                             straight=OUT / "showcase_tex_cli.png")
+        phase_viewer_trace(device, tex, tex_path)
     finally:
         shutil.rmtree(routes_dir, ignore_errors=True)
     phase_bvh_vs_brute(device, showcase)

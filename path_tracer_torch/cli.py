@@ -2,28 +2,31 @@
 
 Port of ``path_tracer_tpu/cli.py``'s ``render``:
 
-  render INPUT [-o/--output render.png] [-q/--quiet] [-p/--profile FILE]
-         [--device cuda|cpu]
+  render INPUT [-o/--output render.png] [-q/--quiet] [-v/--viewer]
+         [--debug-textures] [-p/--profile FILE] [--checkpoint PATH]
+         [--checkpoint-every N] [--profile-trace DIR] [--device cuda|cpu]
 
 ``--device`` (default ``cuda``) names where the render runs; without a CUDA
-device the command fails rather than falling back to the CPU. Flags of
-features this package does not carry yet (the viewer, AOV dumps,
-checkpoints, profiler traces, ``convert``) are rejected with a message.
-Errors print one line to stderr and exit with code 2, as the reference's
-CLI does. OUTPUT and PROFILE fall back to environment variables.
+device the command fails rather than falling back to the CPU.
+``--profile-trace`` wraps the render in ``torch.profiler`` (CPU activity,
+and CUDA on the card) and writes a Chrome trace into DIR. ``convert`` is
+not ported and is rejected with a message. Errors print one line to
+stderr and exit with code 2, as the reference's CLI does. OUTPUT and
+PROFILE fall back to environment variables.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
+from pathlib import Path
 
-_NOT_PORTED = {
-    "viewer": "--viewer",
-    "debug_textures": "--debug-textures",
-    "checkpoint": "--checkpoint",
-    "profile_trace": "--profile-trace",
-}
+TRACE_FILE = "render_trace.json"
+
+# Subcommands of the JAX package's CLI that the port does not carry yet.
+_NOT_PORTED = {"convert": "convert is not ported to path-tracer-torch yet; "
+                          "use path-tracer-tpu convert"}
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -37,18 +40,27 @@ def _build_parser() -> argparse.ArgumentParser:
                         default=os.environ.get("OUTPUT", "render.png"),
                         help="Output image name")
     render.add_argument("-q", "--quiet", action="store_true",
-                        help="No progress line printed")
+                        help="No progress bar printed")
+    render.add_argument("-v", "--viewer", action="store_true",
+                        help="Display a viewer (might slow down the "
+                             "rendering)")
+    render.add_argument("--debug-textures", action="store_true",
+                        help="Generate debug textures (AOV dump)")
     render.add_argument("-p", "--profile", default=os.environ.get("PROFILE"),
                         help="YAML file with the rendering profile")
+    render.add_argument("--checkpoint", default=None, metavar="PATH",
+                        help="Persist/resume the accumulation buffer at PATH "
+                             "(the reference never persists progressive "
+                             "passes)")
+    render.add_argument("--checkpoint-every", type=int, default=0,
+                        metavar="N", help="Checkpoint every N samples "
+                                          "(0 = every pass batch)")
+    render.add_argument("--profile-trace", default=None, metavar="DIR",
+                        help="Capture a torch.profiler trace of the render "
+                             f"into DIR/{TRACE_FILE} (open with Perfetto or "
+                             "chrome://tracing)")
     render.add_argument("--device", default="cuda",
                         help="torch device to render on (default: cuda)")
-    render.add_argument("-v", "--viewer", action="store_true",
-                        help=argparse.SUPPRESS)
-    render.add_argument("--debug-textures", action="store_true",
-                        help=argparse.SUPPRESS)
-    render.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
-    render.add_argument("--profile-trace", default=None,
-                        help=argparse.SUPPRESS)
 
     convert = sub.add_parser("convert", help="(not ported yet)")
     convert.add_argument("input")
@@ -67,27 +79,69 @@ def _device(name: str):
     return device
 
 
+def _trace(trace_dir, device):
+    """A context that profiles the render into trace_dir/TRACE_FILE, or
+    does nothing without a directory."""
+    if not trace_dir:
+        return contextlib.nullcontext()
+    import torch.profiler as tp
+
+    activities = [tp.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(tp.ProfilerActivity.CUDA)
+
+    @contextlib.contextmanager
+    def traced():
+        with tp.profile(activities=activities) as prof:
+            yield
+        out = Path(trace_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / TRACE_FILE))
+
+    return traced()
+
+
 def run_render(args) -> None:
     from path_tracer_torch.config import Profile
     from path_tracer_torch.models.renderer import render
     from path_tracer_torch.scene import load_scene
     from path_tracer_torch.utils.image_io import save_png
 
-    for attr, flag in _NOT_PORTED.items():
-        if getattr(args, attr):
-            raise RuntimeError(f"{flag} is not ported to path-tracer-torch yet")
     device = _device(args.device)
     profile = Profile.load(args.profile) if args.profile else Profile()
     scene = load_scene(args.input, device=device)
-    save_png(render(scene, profile, progress=not args.quiet), args.output)
+
+    if args.debug_textures:
+        from path_tracer_torch.models.debug_aov import debug_render
+
+        debug_render(scene, profile.resolution)
+        return
+
+    viewer = None
+    if args.viewer:
+        from path_tracer_torch.viewer import ProgressiveViewer
+
+        viewer = ProgressiveViewer(profile.resolution)
+    try:
+        with _trace(args.profile_trace, device):
+            image = render(scene, profile, progress=not args.quiet,
+                           viewer=viewer, checkpoint_path=args.checkpoint,
+                           checkpoint_every=args.checkpoint_every)
+        save_png(image, args.output)
+        if viewer is not None:
+            # The reference waits for its window to close after the render;
+            # the viewer serves the final frame until /stop or Ctrl-C.
+            viewer.wait_for_close()
+    finally:
+        if viewer is not None:
+            viewer.close()
 
 
 def main(argv=None) -> None:
     args = _build_parser().parse_args(argv)
     try:
-        if args.command != "render":
-            raise RuntimeError("convert is not ported to path-tracer-torch "
-                               "yet; use path-tracer-tpu convert")
+        if args.command in _NOT_PORTED:
+            raise RuntimeError(_NOT_PORTED[args.command])
         run_render(args)
     except Exception as e:  # noqa: BLE001 — one-line error, exit 2
         print(e, file=sys.stderr)

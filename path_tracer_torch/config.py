@@ -41,7 +41,7 @@ class Profile:
     tile_rays: int = 1 << 18
     # Samples per launch batch; values are batch-invariant.
     samples_per_launch: int = 1
-    # Sample copies packed per kernel packet (only 1 is supported here).
+    # Sample copies packed per kernel packet (models/renderer.py).
     samples_per_wavefront: int = 1
     seed: int = 0
 

@@ -3,18 +3,15 @@
 // slab test, the block walks, the Baldwin-Weber (BW) triangle test and the
 // sphere root rules are written.
 //
-// Two walks share them. The CTA walk (cta_min_key_max through next_column)
-// serves only the replaced design of the sphere any-hit walk
-// (ab_baselines.cu): a CTA of 128 rays shares one walk behind CTA
-// barriers. The warp walk (kFullMask to warp_walk_smem) serves
+// The warp walk (kFullMask to warp_walk_smem) serves
 // flat_closest_hit.cu, flat_occluded.cu, flat2_closest_hit.cu,
 // flat2_occluded.cu, fused_shadow.cu, sph_walk.cu and sph_occ.cu's walk:
 // each warp is its own packet, with no CTA barrier; its gate admits block
 // columns with the mask of the rays they admit, and each admitted block is
 // spread over the warp (or, in the sphere walks, served lane per ray when
 // most of the warp needs it). safe_inv, Box, load_box, slab, the gates,
-// sphere_nearest and sphere_occludes serve both; the warp walk's
-// bw_slot_closest and bw_slot_any repeat bw_plane's and bw_inside's
+// sphere_nearest and sphere_occludes serve it and the dense kernels; the
+// warp walk's bw_slot_closest and bw_slot_any repeat bw_plane's and bw_inside's
 // arithmetic on a slot held in registers. pad_box and pad_slab widen the
 // gates of the resident transparent walk (trwalk_common.cuh), the tree
 // walk (tree_walk.cu), the flat and flat2 walks, row 3 (khit.cu) and the
@@ -273,62 +270,6 @@ __device__ __forceinline__ void write_sphere_record(
   bout[i] = back ? 1 : 0;
 }
 
-// CTA-wide reduction of (key, column) to the lexicographic minimum and of
-// m to its maximum; every thread gets the result. red must hold 3 * warps
-// words. Contains two __syncthreads().
-template <int kThreads>
-__device__ __forceinline__ void cta_min_key_max(float& key, int& col,
-                                                float& m, float* red) {
-  constexpr int kWarps = kThreads / 32;
-  for (int off = 16; off > 0; off >>= 1) {
-    const float k2 = __shfl_xor_sync(0xffffffffu, key, off);
-    const int c2 = __shfl_xor_sync(0xffffffffu, col, off);
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-    if (k2 < key || (k2 == key && c2 < col)) { key = k2; col = c2; }
-    m = fmaxf(m, m2);
-  }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    red[warp] = key;
-    red[kWarps + warp] = __int_as_float(col);
-    red[2 * kWarps + warp] = m;
-  }
-  __syncthreads();
-  key = red[0];
-  col = __float_as_int(red[kWarps]);
-  m = red[2 * kWarps];
-  for (int w = 1; w < kWarps; ++w) {
-    const float k2 = red[w];
-    const int c2 = __float_as_int(red[kWarps + w]);
-    if (k2 < key || (k2 == key && c2 < col)) { key = k2; col = c2; }
-    m = fmaxf(m, red[2 * kWarps + w]);
-  }
-  __syncthreads();
-}
-
-// The CTA block walk of the sphere any-hit walk's replaced design
-// (ab_baselines.cu). A CTA of
-// kCtaRays consecutive rays shares one walk; its dynamic shared memory is
-// the staged block, s_key [bpad] (nearest slab entry per column) and s_ray
-// [kRayRows][kCtaRays] (origin, inverted direction and the lane's gate
-// value g: t_prev for the closest hit, t_max for the any-hit). A Gate has
-// live(g), whether a lane takes part, and pass(tn, tf, g), the block slab
-// gate of a live lane.
-constexpr int kCtaRays = 128;
-constexpr int kRayRows = 7;  // ox, oy, oz, 1/dx, 1/dy, 1/dz, g
-
-// Dynamic shared memory of a walk that stages 'staged' floats (a block's
-// rows) and keeps 'keys' column keys beside the CTA's rays; raises the
-// kernel's limit when it exceeds the default 48 KB.
-template <class Kernel>
-inline cudaError_t walk_smem(Kernel kernel, int staged, int keys,
-                             size_t& bytes) {
-  bytes = (size_t)(staged + keys + kRayRows * kCtaRays) * sizeof(float);
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 // Slab gates of a live lane. Closest hit (g = t_prev, live while < +inf):
 // the box lies ahead of the ray and beyond t_prev. Any-hit (g = t_max, live
 // while >= 0): the box lies ahead and its entry no farther than t_max.
@@ -346,8 +287,8 @@ struct OccludedGate {
   }
 };
 
-// The any-hit gate of the sphere any-hit walk (sph_occ.cu, and its
-// replaced design in ab_baselines.cu), on boxes widened by pad_box: each
+// The any-hit gate of the sphere any-hit walk (sph_occ.cu), on boxes
+// widened by pad_box: each
 // lane's interval widened by pad_slab, then OccludedGate's test
 // (ops/slab.py padded_slab, then occluded_gate).
 struct WidenedOccludedGate {
@@ -357,65 +298,6 @@ struct WidenedOccludedGate {
     return OccludedGate().pass(tn, tf, tm);
   }
 };
-
-// Writes this thread's ray into s_ray, then waits for the whole CTA.
-__device__ __forceinline__ void stage_ray(float* s_ray, float ox, float oy,
-                                          float oz, float ix, float iy,
-                                          float iz, float g) {
-  const int t = threadIdx.x;
-  s_ray[0 * kCtaRays + t] = ox;
-  s_ray[1 * kCtaRays + t] = oy;
-  s_ray[2 * kCtaRays + t] = oz;
-  s_ray[3 * kCtaRays + t] = ix;
-  s_ray[4 * kCtaRays + t] = iy;
-  s_ray[5 * kCtaRays + t] = iz;
-  s_ray[6 * kCtaRays + t] = g;
-  __syncthreads();
-}
-
-// s_key[c] = the nearest slab entry, clamped at 0, over the CTA's live
-// lanes whose gate column c passes (+inf for none and for pad columns), for
-// the n columns starting at blk / blkid of a table with row stride ld; then
-// waits for the whole CTA.
-template <class Gate>
-__device__ __forceinline__ void column_keys(const float* __restrict__ blk,
-                                            const int* __restrict__ blkid,
-                                            int ld, int n, const float* s_ray,
-                                            float* s_key, Gate gate) {
-  for (int c = threadIdx.x; c < n; c += kCtaRays) {
-    float key = CUDART_INF_F;
-    if (blkid[c] >= 0) {
-      const Box box = load_box(blk, ld, c);
-      for (int k = 0; k < kCtaRays; ++k) {
-        const float g = s_ray[6 * kCtaRays + k];
-        if (!gate.live(g)) continue;
-        float tn, tf;
-        slab(box, s_ray[k], s_ray[kCtaRays + k], s_ray[2 * kCtaRays + k],
-             s_ray[3 * kCtaRays + k], s_ray[4 * kCtaRays + k],
-             s_ray[5 * kCtaRays + k], tn, tf);
-        if (gate.pass(tn, tf, g)) key = fminf(key, max_nan(tn, 0.f));
-      }
-    }
-    s_key[c] = key;
-  }
-  __syncthreads();
-}
-
-// The unvisited column of nearest entry (key, col; col = bpad when none is
-// left), marked visited, and the CTA maximum of m. The caller reaches a
-// barrier before s_key is read again.
-__device__ __forceinline__ void next_column(float* s_key, int bpad,
-                                            float& key, int& col, float& m,
-                                            float* red) {
-  key = CUDART_INF_F;
-  col = bpad;
-  for (int c = threadIdx.x; c < bpad; c += kCtaRays) {
-    const float k = s_key[c];
-    if (k < key) { key = k; col = c; }
-  }
-  cta_min_key_max<kCtaRays>(key, col, m, red);
-  if (threadIdx.x == 0 && col < bpad) s_key[col] = CUDART_INF_F;
-}
 
 // The flat block tables of one walk: blk [8, bpad] AABBs, blkid [bpad],
 // bw [16, n_cols] Baldwin-Weber rows in blocks of 'block' slots.
@@ -554,8 +436,7 @@ __device__ __forceinline__ unsigned warp_gate_mask(const Box& box,
 // The mask of the warp's staged rays whose gate admits box as given (no
 // widening here: sph_walk.cu gates on exact boxes, sph_occ.cu's walk
 // passes a pad_box box and WidenedOccludedGate), and in key the nearest
-// slab entry, clamped at 0, over the rays it admits (+inf for none), as
-// column_keys keys a column.
+// slab entry, clamped at 0, over the rays it admits (+inf for none).
 template <class Gate>
 __device__ __forceinline__ unsigned warp_gate_mask_key(const Box& box,
                                                        const float* s_ray,

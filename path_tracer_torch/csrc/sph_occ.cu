@@ -80,8 +80,8 @@
 //      ATen op after the launch).
 // The design it replaced, a CTA of 128 rays sharing one cursor behind CTA
 // barriers, each visit staging the block in shared memory for the whole
-// CTA, f32 output and the prior ORed in ATen, is kept in ab_baselines.cu
-// and was timed against it in turns (PERF.md §6).
+// CTA, f32 output and the prior ORed in ATen, was timed against it in turns
+// (PERF.md §6) and then removed.
 //
 // Inputs:  o [R,3] f32; d [L,R,3] f32; t_max [L,R] f32; prior [L,R] u8 or
 //          null; dense: sph [4, ld] f32 of which the first S columns are

@@ -141,6 +141,12 @@ class IntegratorSpec:
     # JAX package's differentiable=False. Radiance is the same up to the
     # rounding of the reparameterized hit point.
     differentiable: bool = False
+    # Live-ray compaction: every bounce starts with a stable partition of
+    # the wavefront's lanes, live lanes first, and the radiance is
+    # scattered back to its lanes at the end. Values are the same; only
+    # which lanes share a kernel's warp or CTA changes. Off by default, as
+    # in the JAX package.
+    compact: bool = False
 
 
 class Surface(NamedTuple):
@@ -759,14 +765,34 @@ def _shadow_attenuation_fused(scene, s_o, dirs, actives, colors, steps,
     return [att0 * trans[i][:, None] for i, att0 in enumerate(att0s)]
 
 
-def render_wavefront(scene, pixel_ids, width: int, height: int,
-                     sample_id: int, spec: IntegratorSpec) -> torch.Tensor:
+def render_wavefront(scene, pixel_ids, width: int, height: int, sample_id,
+                     spec: IntegratorSpec, exchange=None, lane_ids=None,
+                     collect_live_counts: bool = False):
     """Trace one sample for a wavefront of pixels. Returns radiance [R,3].
-    pixel_ids: [R] int32 (y*width+x) on the scene's device. With
-    ``spec.differentiable`` the radiance is differentiable with respect to
-    the scene's tensors (module docstring)."""
+    pixel_ids: [R] int32 (y*width+x) on the scene's device; sample_id: an
+    int, or [R] integer per-lane ids (the samples-per-wavefront packing).
+    With ``spec.differentiable`` the radiance is differentiable with
+    respect to the scene's tensors (module docstring).
+
+    Lane tracking (the JAX package's contract): with ``spec.compact`` each
+    bounce starts with a stable partition of the state ``(o, d, color,
+    throughput, alive, pix, orig)``, live lanes first, and the radiance is
+    scattered back by ``orig`` (seeded from ``lane_ids``, default arange)
+    at the end. ``exchange``, given, replaces that partition: it maps the
+    whole state tuple to a permuted one at the start of every bounce, and
+    the return value is ``(color [R,3], orig [R])`` in exchanged order,
+    for the caller to place. Every RNG draw keys off the lane's travelling
+    pixel id, so a permutation changes no value; a per-lane ``sample_id``
+    does not travel, so lane tracking takes an int. With
+    ``collect_live_counts`` the result is ``(out, live)``, live [bounces +
+    1] int32: the live lanes before each bounce's casts."""
     from path_tracer_torch.ops.camera import generate_rays
 
+    track_origin = spec.compact or exchange is not None
+    if track_origin and isinstance(sample_id, torch.Tensor) \
+            and sample_id.dim() > 0:
+        raise ValueError("per-lane sample ids do not follow permuted lanes: "
+                         "compaction and exchange take one sample id")
     o, d = generate_rays(pixel_ids, width, height, scene, sample_id, spec.seed)
     r = o.shape[0]
     dev = o.device
@@ -774,6 +800,11 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
     throughput = torch.ones((r, 3), device=dev)
     alive = torch.ones((r,), dtype=torch.bool, device=dev)
     pix = pixel_ids
+    orig = None
+    if track_origin:
+        orig = (lane_ids if lane_ids is not None
+                else torch.arange(r, dtype=torch.int32, device=dev))
+    live_counts = []
     # Fully opaque scenes collapse both walks to one cast each.
     auto_steps = scene.num_transparent_hits + 1
     alpha_steps = 1 if scene.all_opaque else (
@@ -789,6 +820,16 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
             and _use_tr_kernel(scene) else None)
 
     for bounce in range(spec.bounces + 1):
+        if track_origin:
+            state = (o, d, color, throughput, alive, pix, orig)
+            if exchange is not None:
+                state = exchange(state)
+            else:  # stable: live lanes first, each run in lane order
+                perm = torch.argsort((~alive).to(torch.uint8), stable=True)
+                state = tuple(x[perm] for x in state)
+            o, d, color, throughput, alive, pix, orig = state
+        if collect_live_counts:
+            live_counts.append(alive.sum(dtype=torch.int32))
         sel, _, first_missed = _alpha_walk(scene, o, d, alive, pix, sample_id,
                                            bounce, spec, alpha_steps, live)
 
@@ -901,4 +942,11 @@ def render_wavefront(scene, pixel_ids, width: int, height: int,
                                  throughput)
         rnd = rng.uniform(pix, sample_id, s_rr + s_stride * bounce, spec.seed)
         alive = alive & ~(rr & (rnd > p))
-    return color
+    out = color
+    if exchange is not None:
+        out = (color, orig)  # the caller places the lanes
+    elif track_origin:
+        out = torch.zeros_like(color).index_put((orig.long(),), color)
+    if collect_live_counts:
+        return out, torch.stack(live_counts)
+    return out

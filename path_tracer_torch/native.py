@@ -255,10 +255,6 @@ def kernels() -> Kernels:
         #  n_slots, lane_wise, out, device, stream)
         lib.ptt_tree_occluded.restype = ci
         lib.ptt_tree_occluded.argtypes = [vp] * 6 + [ci] * 7 + [vp, ci, vp]
-        # The replaced design (ab_baselines.cu): row 6's first port, as
-        # ptt_sph_occ_walk without prior and lane_wise, writing f32.
-        lib.ptt_sph_occ_walk_cta.restype = ci
-        lib.ptt_sph_occ_walk_cta.argtypes = [vp] * 6 + [ci] * 4 + [vp, ci, vp]
         _kernels = Kernels(lib, seconds, log)
     return _kernels
 

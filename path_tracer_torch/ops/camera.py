@@ -17,14 +17,19 @@ import torch
 from path_tracer_torch.ops import rng
 
 
-def generate_rays(pixel_ids, width: int, height: int, scene, sample_id: int,
-                  seed: int):
-    """pixel_ids: [R] int32 flattened as y*width + x. Returns (origins [R,3],
-    dirs [R,3])."""
+def generate_rays(pixel_ids, width: int, height: int, scene, sample_id,
+                  seed: int, jitter: bool = True):
+    """pixel_ids: [R] int32 flattened as y*width + x; sample_id: an int or
+    [R] per-lane ids (``rng.uniform``). Returns (origins [R,3], dirs
+    [R,3]). ``jitter=False`` aims every ray at its pixel's centre (the AOV
+    dump, as the reference's debug renderer does)."""
     x = (pixel_ids % width).to(torch.float32)
     y = torch.div(pixel_ids, width, rounding_mode="floor").to(torch.float32)
-    jx = rng.uniform(pixel_ids, sample_id, rng.SITE_CAM_X, seed)
-    jy = rng.uniform(pixel_ids, sample_id, rng.SITE_CAM_Y, seed)
+    if jitter:
+        jx = rng.uniform(pixel_ids, sample_id, rng.SITE_CAM_X, seed)
+        jy = rng.uniform(pixel_ids, sample_id, rng.SITE_CAM_Y, seed)
+    else:
+        jx = jy = 0.5
 
     aspect = float(np.float32(width) / np.float32(height))
     tan_half = torch.tan(scene.cam_fov * 0.5)

@@ -43,8 +43,9 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
 
 
-def _mix32(a: torch.Tensor, b: int) -> torch.Tensor:
-    """One-way mix of a uint32 stream (int64 tensor) with a uint32 key."""
+def _mix32(a: torch.Tensor, b) -> torch.Tensor:
+    """One-way mix of a uint32 stream (int64 tensor) with a uint32 key: a
+    Python int, or an int64 tensor in [0, 2^32) (one key per lane)."""
     x = (_mul32(a, 0xCC9E2D51) + (b ^ 0x9E3779B9)) & _M32
     x = x ^ (x >> 16)
     x = _mul32(x, 0x85EBCA6B)
@@ -52,19 +53,29 @@ def _mix32(a: torch.Tensor, b: int) -> torch.Tensor:
     x = _mul32(x, 0xC2B2AE35)
     x = x ^ (x >> 16)
     # Second round keyed by b to break (a, b) linearity.
-    x = (x + ((b * 0x27D4EB2F) & _M32)) & _M32
+    b2 = (_mul32(b, 0x27D4EB2F) if isinstance(b, torch.Tensor)
+          else (b * 0x27D4EB2F) & _M32)
+    x = (x + b2) & _M32
     x = x ^ (x >> 15)
     x = _mul32(x, 0x2545F491)
     x = x ^ (x >> 13)
     return x
 
 
-def uniform(pixel_id: torch.Tensor, sample_id: int, site: int,
+def uniform(pixel_id: torch.Tensor, sample_id, site: int,
             seed: int) -> torch.Tensor:
     """U[0,1) float32 per lane. pixel_id: [R] integer tensor (>= 0);
-    sample_id, site, seed: Python ints (any seed, masked to 32 bits)."""
+    sample_id: a Python int, or an integer tensor of one id per lane (the
+    samples-per-wavefront packing; any value, taken modulo 2^32 as the JAX
+    package casts it to uint32); site, seed: Python ints (any seed, masked
+    to 32 bits)."""
     site_key = (site * 0x01000193 + ((seed * 0x61C88647) & _M32)) & _M32
-    key = (sample_id * 0x9E3779B1 + site_key) & _M32
+    if isinstance(sample_id, torch.Tensor):
+        # Masked before the product, which _mul32 keeps below 2^48.
+        key = (_mul32(sample_id.to(torch.int64) & _M32, 0x9E3779B1)
+               + site_key) & _M32
+    else:
+        key = (sample_id * 0x9E3779B1 + site_key) & _M32
     bits = _mix32(pixel_id.to(torch.int64) & _M32, key)
     # 24-bit mantissa → [0, 1); exact in float32.
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))

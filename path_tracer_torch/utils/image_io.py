@@ -62,10 +62,12 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
 
 
 def read_png(path) -> np.ndarray:
-    """Decode a PNG to uint8 [H, W, C] with C = 1, 2, 3 or 4 (gray, gray +
-    alpha, RGB, RGBA)."""
-    path = Path(path)
-    data = path.read_bytes()
+    """Decode a PNG file, or its bytes, to uint8 [H, W, C] with C = 1, 2, 3
+    or 4 (gray, gray + alpha, RGB, RGBA)."""
+    if isinstance(path, (bytes, bytearray)):
+        data, path = bytes(path), "<bytes>"
+    else:
+        data = Path(path).read_bytes()
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos, header, idat = 8, None, []

@@ -696,10 +696,10 @@ def test_sphere_any_hit_kernels_equal_plain(cuda, name):
 
 def _row6_held(o, ds, tms, sc, prior=None):
     """Row 6 through its wrapper (one bool launch) equals its plain version
-    and the replaced CTA design on every lane, and each in-block layout
-    alone gives the same result. Returns it."""
+    on every lane, and each in-block layout alone gives the same result.
+    Returns it."""
     from path_tracer_torch import native
-    from path_tracer_torch.ops import ab_baselines, cuda_spheres
+    from path_tracer_torch.ops import cuda_spheres
 
     tables = (sc.sph_blk, sc.sph_blkid, sc.sph_sorted_t)
     before = cuda_spheres.sph_occ_walk_launches
@@ -708,8 +708,6 @@ def _row6_held(o, ds, tms, sc, prior=None):
     assert got.dtype == torch.bool
     assert torch.equal(got, cuda_spheres.occluded_spheres_plain(
         o, ds, tms, sc, prior))
-    assert torch.equal(got, ab_baselines.sph_occ_walk_cta(
-        o, torch.stack(list(ds)), torch.stack(list(tms)), *tables, prior))
     for lane_wise in (1, 33):
         assert torch.equal(got, native.launch_sph_occ_walk(
             o, torch.stack(list(ds)), torch.stack(list(tms)), *tables,
@@ -741,8 +739,7 @@ def test_sphere_any_hit_walk_folds_prior(cuda):
 def test_sphere_any_hit_walk_keeps_occluders_at_box_faces(cuda):
     """Row 6 on the duplicate-sphere tie rays at t_max the first-hit t of
     the closest-hit walk run ungated (every block box at +-1e30): 0 lanes
-    off its plain version, the replaced design, the ungated walk and the
-    dense any-hit; row 5 on the same rays equals its ungated plain version
+    off its plain version, the ungated walk and the dense any-hit; row 5 on the same rays equals its ungated plain version
     from t_prev = -1 and from the hit."""
     import dataclasses
 
@@ -1389,3 +1386,44 @@ def test_flat_kernels_keep_ungated_hits(cuda, origin):
                             f"occluded_triangles_{walk}_multi_plain")
         assert torch.equal(any_hit(o, [d], [tm], sc),
                            any_plain(o, [d], [tm], brute)), walk
+
+
+def test_spw_on_card_matches_unpacked(cuda, showcase_tex48):
+    """The textured showcase at 128x96, 2 spp, through the card's kernels
+    with samples per wavefront 2 (4,096-lane tiles of 2,048 pixels)
+    against the same render unpacked: within the packing tolerance (rtol
+    2e-5, atol 2e-6), the walk and flat kernels launched by both."""
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.ops import cuda_bvh, cuda_trwalk
+
+    spec = IntegratorSpec(bounces=3)
+    want = render_pixel_sums(showcase_tex48, 128, 96, 1, 2, spec,
+                             tile_rays=4096)
+    before = (cuda_bvh.closest_hit_launches, cuda_trwalk.alpha_launches)
+    got = render_pixel_sums(showcase_tex48, 128, 96, 1, 2, spec,
+                            tile_rays=4096, samples_per_launch=2,
+                            samples_per_wavefront=2)
+    assert cuda_bvh.closest_hit_launches > before[0]
+    assert cuda_trwalk.alpha_launches > before[1]
+    assert want.std() > 0
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("name", ["showcase_tex48", "spheres"])
+def test_compact_on_card_equals_uncompacted(cuda, showcase_tex48, name):
+    """Live-ray compaction on the card (the textured showcase through rows
+    9, 10, 13, 14, 2 and 4; ``spheres`` through rows 1 and 2) equals the
+    uncompacted render bit for bit: each kernel's result on a lane does
+    not depend on the lanes beside it."""
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.scene import load_scene
+
+    sc = (showcase_tex48 if name == "showcase_tex48"
+          else load_scene(SCENES / "spheres" / "scene.isf", cuda))
+    want = render_pixel_sums(sc, 96, 72, 1, 2, IntegratorSpec(bounces=5))
+    got = render_pixel_sums(sc, 96, 72, 1, 2,
+                            IntegratorSpec(bounces=5, compact=True))
+    assert want.std() > 0
+    np.testing.assert_array_equal(got, want)

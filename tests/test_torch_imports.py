@@ -1,7 +1,10 @@
 """The port stands alone: no JAX, no JAX-package module, no PyYAML and no
 Pillow on its main path (a reference scene, the showcase and the textured
-showcase with its textures written and read, built and rendered, and a
-training step on the textured showcase through ``path_tracer_torch.parallel``),
+showcase with its textures written and read, built and rendered, a
+training step on the textured showcase through ``path_tracer_torch.parallel``,
+and the render driver's options: samples per wavefront, compaction, a
+checkpointed render through the viewer, AOVs, the OBJ logger and the
+CLI's profiler trace),
 and its CUDA wrappers never fall back to the plain versions for a tensor on
 the card."""
 import subprocess
@@ -54,6 +57,38 @@ new, loss = step(get_params(textured), textured,
                  torch.arange(16 * 12, dtype=torch.int32),
                  torch.zeros((16 * 12, 3)), 1)
 assert torch.isfinite(loss) and torch.isfinite(new["tex_data"]).all()
+
+# The render driver's modules: spw packing, compaction, a checkpointed
+# render, the viewer, the AOV dump and the OBJ logger.
+import tempfile
+from pathlib import Path
+from path_tracer_torch import cli
+from path_tracer_torch.models.debug_aov import compute_aovs
+from path_tracer_torch.models.integrator import render_wavefront
+from path_tracer_torch.utils.obj_logger import dump_camera_rays
+from path_tracer_torch.viewer import ProgressiveViewer
+
+cube = load_scene(sys.argv[1], device="cpu")
+img = render(cube, Profile(resolution=Resolution(16, 12), samples=2,
+                           bounces=1, samples_per_wavefront=2,
+                           tile_rays=128))
+assert img.std() > 0
+pix = torch.arange(192, dtype=torch.int32)
+col = render_wavefront(cube, pix, 16, 12, 1,
+                       IntegratorSpec(bounces=2, compact=True))
+assert col.shape == (192, 3)
+assert compute_aovs(cube, Resolution(8, 6))["albedo"].shape == (6, 8, 3)
+with tempfile.TemporaryDirectory() as tmp:
+    viewer = ProgressiveViewer(port=0)
+    img = render(cube, Profile(resolution=Resolution(8, 6), samples=1,
+                               bounces=1), viewer=viewer,
+                 checkpoint_path=Path(tmp) / "r.ckpt")
+    viewer.close()
+    dump_camera_rays(cube, 8, 6, Path(tmp) / "cam.obj")
+    with cli._trace(tmp, torch.device("cpu")):
+        render(cube, Profile(resolution=Resolution(8, 6), samples=1,
+                             bounces=1))
+    assert (Path(tmp) / cli.TRACE_FILE).exists()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "path_tracer_tpu",
                                     "yaml", "PIL"))
@@ -77,7 +112,9 @@ def test_port_sources_import_no_jax():
 
     files = sorted((REPO / "path_tracer_torch").rglob("*.py"))
     for module in ("parallel/train.py", "ops/cuda_khit.py",
-                   "scene/bvh_layouts.py"):
+                   "scene/bvh_layouts.py", "models/debug_aov.py",
+                   "utils/checkpoint.py", "utils/obj_logger.py",
+                   "viewer/http_viewer.py"):
         assert REPO / "path_tracer_torch" / module in files
     files.append(REPO / "chip_smoke.py")
     for path in files:

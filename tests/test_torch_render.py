@@ -295,13 +295,21 @@ def test_render_image_and_cli_png(reference_scenes, tmp_path):
 
 @pytest.mark.parametrize("argv, message", [
     (["--device", "cuda"], "no CUDA device"),
-    (["--viewer", "--device", "cpu"], "--viewer is not ported"),
+    (["--checkpoint", "{ckpt}", "--device", "cpu"],
+     "was written by a different render config"),
 ])
 def test_cli_errors_exit_2(reference_scenes, tmp_path, argv, message):
     """Without a card, --device cuda fails with one line and exit code 2;
-    it never falls back to the CPU. Unported flags fail the same way."""
+    it never falls back to the CPU. A checkpoint written by another render
+    (its fingerprint differs) fails the same way."""
     if "cuda" in argv and torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    if "{ckpt}" in argv:
+        from path_tracer_torch.utils import checkpoint
+
+        ckpt = tmp_path / "other.ckpt"
+        checkpoint.save(ckpt, np.zeros((4, 3), np.float32), 1, "0123abcd")
+        argv = [str(ckpt) if a == "{ckpt}" else a for a in argv]
     proc = subprocess.run(
         [sys.executable, "-m", "path_tracer_torch.cli", "render",
          str(reference_scenes / "cube" / "scene.isf"), "-o",
