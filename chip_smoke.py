@@ -166,10 +166,12 @@ any error:
    through brute-force MT over all 100,352 triangles, same seed;
 4c. the textured showcase at 480x270, 2 spp, 5 bounces through the walk
    kernels and through the cast walks alone (step cap 0), same seed;
-5. the scalar-oracle gate: eleven cases against ``tests/goldens/oracle``
-   at each golden's own size, and five of them again with the BVH forced
-   (the flat kernels; ``alpha_transparency`` then partitions and takes the
-   walk kernels), with the CPU gate's statistics and tolerances;
+5. the scalar-oracle gate: fourteen cases against ``tests/goldens/oracle``
+   at each golden's own size (the three glb cases on scenes the port's
+   glb generator and ``path-tracer-torch convert`` make), and five of
+   them again with the BVH forced (the flat kernels;
+   ``alpha_transparency`` then partitions and takes the walk kernels),
+   with the CPU gate's statistics and tolerances;
 6. the differentiable render step (training mode) on the textured
    showcase: (6a) the live variants of the alpha walk, the transmittance
    walk and the fused shadow kernel on the main path's lanes after
@@ -202,13 +204,27 @@ any error:
    /frame.png equal to the returned image, and a /stop after pass 1
    ending a render over one sample, equal to a 1-spp render; (7f) a
    1-spp CLI render with ``--profile-trace`` at TRACE_W x TRACE_H (one
-   wavefront): the Chrome trace names the hand-written kernels that ran.
+   wavefront): the Chrome trace names the hand-written kernels that ran;
+8. (also alone with ``--only 8``, then with the three glb oracle cases)
+   (8a) forward renders through the wide shading rows (``sl_attr``,
+   ``tex_wide``) against the per-model tables (``table_route``): the
+   textured showcase at 1920x1080, 5 bounces, ROWS_TEX_SPP spp and scene
+   A at ROWS_BIG_SPP, in turns, every value equal, with seconds,
+   hand-written launches and peak memory of each reading, then one
+   profiled sample of each in turns (device ms, all launches, the others);
+   (8b) ``path-tracer-torch convert`` of the port's glb generator's files
+   (no Pillow on the card), a 1080p CLI render of the converted scene, a
+   file without a camera exiting 2, and the JPEG and PNG fixtures of
+   ``tests/fixtures/torch_images`` decoding to Pillow's texels; (8c)
+   ``examples/torch_render_scene.py`` on ``cube`` and
+   ``examples/torch_inverse_rendering.py``, its loss falling.
 
 The last lines are a JSON object of kernel numbers, the ``nvidia-smi`` card
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -257,7 +273,12 @@ ORACLE_CASES = {
     "cube_rr_b6": (2.0, 0.02), "spheres_rr_b6": (2.5, 0.04),
     "alpha_transparency": (3.1, 0.02), "head": (2.5, 0.02),
     "deep_alpha": (2.5, 0.02), "showcase_tex": (3.2, 0.02),
+    "glb_converted_256": (3.0, 0.02), "glb_converted_512": (3.0, 0.02),
+    "glb_multi_opacity": (3.0, 0.02),
 }
+# The cases whose scenes the port's glb generator and converter make
+# (tests/tools/torch_gen_test_glb.py, path-tracer-torch convert).
+GLB_CASES = ("glb_converted_256", "glb_converted_512", "glb_multi_opacity")
 # Cases rendered again with the BVH forced: the triangle cases (the flat
 # walk) and alpha_transparency, which then partitions (the walk kernels).
 ORACLE_BVH_CASES = ("cube", "reflection", "white_furnace_direct",
@@ -293,20 +314,20 @@ KHIT_KS = (6, 1, 8)
 CHECK_LANES = (1 << 16) - 37  # lanes of 3g's and 3h's checks: not whole CTAs
 # Samples of phase 4's 1080p renders of cube, spheres and reflection, and
 # of the plain showcase (flat, and under tree in 4h: the two compared).
-MAIN_SPP = 4
-SHOWCASE_SPP = TREE_SPP = 4
+MAIN_SPP = 2
+SHOWCASE_SPP = TREE_SPP = 2
 # Samples of the reference-default-sized frames (1920x1080, 4 bounces)
 # rendered through the CLI in phase 4 (the reference default is 64).
-CLI_FRAME_SPP = 4
-DENSE_SPP = 2  # samples of each 1080p render of 4g's ABBA
+CLI_FRAME_SPP = 2
+DENSE_SPP = 1  # samples of each 1080p render of 4g's ABBA
 SPW_SPP = TEX_SPP  # 7a's samples at spw 1 (phase 4's run), 2 and 4
-COMPACT_SPP = 2  # samples of 7b's renders with and without compaction
+COMPACT_SPP = 1  # samples of 7b's renders with and without compaction
 AOV_CPU_W, AOV_CPU_H = 96, 54  # 7d's AOVs on the card against the CPU
 DRIVER_W, DRIVER_H = 1920, 1080  # phase 7's frame
 # 7f's traced frame: one wavefront. A 1080p sample's Chrome trace would
 # hold about eight times the events (each tile repeats every op).
 TRACE_W, TRACE_H = 480, 270
-TREE_TURN_SPP = 2  # samples of each render of 4h's tree and flat turns
+TREE_TURN_SPP = 1  # samples of each render of 4h's tree and flat turns
 # The training phases (6b, 6c): the central difference's step on the
 # albedo scale and its bound (tests/tools/tpu_kernel_check.py's chip gate),
 # the target render's seed (examples/inverse_rendering.py) and the SGD
@@ -2480,12 +2501,25 @@ def phase_bvh_vs_brute(device, showcase):
         raise AssertionError("showcase: BVH and brute renders disagree")
 
 
+_CONVERTED: set = set()  # the glb scenes oracle_scene converted this run
+
+
 def oracle_scene(spec: str) -> Path:
-    """An oracle case's scene file: a path in the repo, or ``@showcase_tex_g64``
-    (the textured showcase at grid 64), written here by the port's own
-    showcase writer under the git-ignored build/."""
+    """An oracle case's scene file: a path in the repo, ``@showcase_tex_g64``
+    (the textured showcase at grid 64, written by the port's own showcase
+    writer), or ``@glb_converted`` / ``@glb_multi_opacity`` (the port's
+    glb generator's file through ``path-tracer-torch convert``), made
+    under the git-ignored build/; a glb scene is converted anew once in
+    each run, never taken from an earlier run's build/."""
     if not spec.startswith("@"):
         return REPO / spec
+    if spec in ("@glb_converted", "@glb_multi_opacity"):
+        out = REPO / "build" / f"chip_smoke_{spec[1:]}"
+        if spec not in _CONVERTED:
+            shutil.rmtree(out, ignore_errors=True)
+            convert_glb(out, multi_opacity=spec == "@glb_multi_opacity")
+            _CONVERTED.add(spec)
+        return out / "scene.isf"
     if spec != "@showcase_tex_g64":
         raise ValueError(f"unknown generated scene {spec}")
     from path_tracer_torch.scene.showcase import write_showcase_scene_dir
@@ -2494,7 +2528,30 @@ def oracle_scene(spec: str) -> Path:
                                     grid=64, textured=True)
 
 
-def phase_oracle(device):
+def convert_glb(out: Path, multi_opacity: bool) -> dict:
+    """Write the port's test glb (tests/tools/torch_gen_test_glb.py, PNGs by
+    the port's writer) and convert it through ``path-tracer-torch
+    convert`` into ``out``: {triangles, seconds of the conversion,
+    files}."""
+    import importlib.util
+
+    from path_tracer_torch import cli
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_gen_test_glb", REPO / "tests" / "tools" / "torch_gen_test_glb.py")
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    out.mkdir(parents=True, exist_ok=True)
+    glb = out / "scene.glb"
+    n_tris = gen.write_glb(glb, multi_opacity=multi_opacity)
+    t0 = time.perf_counter()
+    cli.main(["convert", str(glb), str(out)])
+    secs = time.perf_counter() - t0
+    return dict(triangles=n_tris, seconds=secs,
+                files=sorted(p.name for p in out.iterdir()))
+
+
+def phase_oracle(device, cases=None):
     import importlib.util
 
     import torch
@@ -2512,10 +2569,12 @@ def phase_oracle(device):
     from path_tracer_torch.models.renderer import render_pixel_sums
     from path_tracer_torch.scene import load_scene
 
-    log("phase 5: oracle gate (tests/goldens/oracle) on the card")
+    log("phase 5: oracle gate (tests/goldens/oracle) on the card"
+        + (f": {', '.join(cases)}" if cases else ""))
     failed = []
-    runs = [(c, False) for c in ORACLE_CASES] + [(c, True)
-                                                 for c in ORACLE_BVH_CASES]
+    runs = ([(c, False) for c in cases] if cases else
+            [(c, False) for c in ORACLE_CASES]
+            + [(c, True) for c in ORACLE_BVH_CASES])
     for case, bvh in runs:
         tol, energy_rtol = ORACLE_CASES[case]
         z = np.load(REPO / "tests" / "goldens" / "oracle" / f"{case}.npz")
@@ -2805,6 +2864,8 @@ def phase_train_steps(device, tex):
         f"gradients {bad}")
     step = make_train_step(w, h, spec, lr=lr)
     p, losses, errs = params, [], [err(params)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
         p, loss = step(p, tex, ids, target, 1)
@@ -2813,7 +2874,9 @@ def phase_train_steps(device, tex):
         bad += [k for k, v in p.items() if not torch.isfinite(v).all()]
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    log(f"  {TRAIN_STEPS} steps in {secs:.3f} s; losses {losses}; mean albedo "
+    peak = torch.cuda.max_memory_allocated(device)
+    log(f"  {TRAIN_STEPS} steps in {secs:.3f} s, peak device memory {peak} "
+        f"bytes ({peak / 2**30:.3f} GiB); losses {losses}; mean albedo "
         f"error {errs}; non-finite {bad}")
     # errs[0] is the start's error, errs[1] the first step's.
     if bad or not np.isfinite(losses).all() or not errs[-1] < errs[1]:
@@ -3327,6 +3390,19 @@ def dead_warps(g, fill: float = float("inf")):
     return torch.where(dead, fill, g)
 
 
+def device_events(prof) -> list:
+    """(name, device ms) of each activity ``torch.profiler`` recorded on the
+    card (kernels, copies, sets), read from its raw kineto events:
+    ``key_averages()`` takes about 15 s to summarize the 60k events of a
+    textured-showcase sample, these well under one."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.duration_ns() / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and e.duration_ns() > 0]
+
+
 def kernel_device_ms(scene, spec) -> dict:
     """{kernel: (device ms, launches)} summed by ``torch.profiler`` (CUDA
     activity alone) over one 1080p sample (every 2^18-lane tile) after one
@@ -3346,17 +3422,13 @@ def kernel_device_ms(scene, spec) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         render_pixel_sums(scene, 1920, 1080, 2, 1, spec, tile_rays=WAVE)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    out = {"all": (sum(e.self_device_time_total for e in events) / 1e3,
-                   sum(e.count for e in events))}
-    for e in events:
-        m = re.search(r"::(\w+_kernel)\b", e.key)
+    events = device_events(prof)
+    out = {"all": (sum(ms for _, ms in events), len(events))}
+    for name, ms in events:
+        m = re.search(r"::(\w+_kernel)\b", name)
         if m:
-            ms, n = out.get(m.group(1), (0.0, 0))
-            out[m.group(1)] = (ms + e.self_device_time_total / 1e3,
-                               n + e.count)
+            total, n = out.get(m.group(1), (0.0, 0))
+            out[m.group(1)] = (total + ms, n + 1)
     log(f"  (profiled sample and its summary: {time.perf_counter() - t0:.1f} "
         "s)")
     return out
@@ -5740,6 +5812,258 @@ def ptxas_report(build_log: str) -> list:
     return [(n, " | ".join(r)) for n, r in out]
 
 
+# Phase 8: the wide shading rows, convert without Pillow, the examples.
+FRAME_W, FRAME_H = 1920, 1080  # the frame of phases 8a and 8b
+ROWS_TEX_SPP, ROWS_BIG_SPP = 1, 1  # 8a's samples a render: textured, scene A
+EXAMPLE_STEPS = 10  # steps of torch_inverse_rendering.py in 8c
+FIXTURES = REPO / "tests" / "fixtures" / "torch_images"
+
+
+def hand_launches() -> int:
+    """The hand-written kernels' launches since the counts were reset."""
+    return sum(launch_counts().values())
+
+
+def profiled_sample(sc, spec, sample: int) -> tuple:
+    """(device ms, launches on the card, hand-written launches) of one
+    FRAME_W x FRAME_H sample under ``torch.profiler`` (CUDA activity
+    alone)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from path_tracer_torch.models.renderer import render_pixel_sums
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        render_pixel_sums(sc, FRAME_W, FRAME_H, sample, 1, spec,
+                          tile_rays=WAVE)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    return sum(ms for _, ms in events), len(events), hand_launches()
+
+
+@contextlib.contextmanager
+def table_route():
+    """Forward renders inside read the per-model tables, the route the
+    differentiable path takes: ``integrator._uses_rows`` answers False."""
+    from path_tracer_torch.models import integrator
+
+    uses_rows = integrator._uses_rows
+    integrator._uses_rows = lambda scene, spec: False
+    try:
+        yield
+    finally:
+        integrator._uses_rows = uses_rows
+
+
+def rows_against_tables(label: str, sc, spp: int) -> dict:
+    """One scene's 8a: FRAME_W x FRAME_H, 5 bounces, ``spp`` samples
+    through each route in turns (rows, tables, tables, rows), every value of the sums
+    equal across routes and readings; seconds and hand-written launches a
+    sample and peak device memory per reading; then one profiled sample
+    of each route in the same turns: device ms, all launches and the
+    others (ATen kernels and copies) a sample."""
+    import torch
+
+    from path_tracer_torch.models.integrator import IntegratorSpec, _uses_rows
+    from path_tracer_torch.models.renderer import render_pixel_sums
+
+    # The wide rows (a forward render's route) and the per-model tables.
+    spec = IntegratorSpec(bounces=5)
+    routes = {"rows": contextlib.nullcontext, "tables": table_route}
+    if not _uses_rows(sc, spec):
+        raise AssertionError(f"{label}: a forward render takes no rows")
+    log(f"  {label}: sl_attr {sc.sl_attr.numel() * 4} bytes "
+        f"{tuple(sc.sl_attr.shape)}, tex_wide {sc.tex_wide.numel() * 4} bytes "
+        f"{tuple(sc.tex_wide.shape)}, wide_covered {sc.wide_covered}")
+    order = ("rows", "tables", "tables", "rows")
+    out = {k: dict(secs=[], hand=[], peak=[], dev=[], all=[], other=[])
+           for k in routes}
+    first = None
+    for route in order:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with routes[route]():
+            sums = render_pixel_sums(sc, FRAME_W, FRAME_H, 1, spp, spec,
+                                     tile_rays=WAVE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        r = out[route]
+        r["secs"].append(secs / spp)
+        r["hand"].append(hand_launches() / spp)
+        r["peak"].append(torch.cuda.max_memory_allocated())
+        if first is None:
+            first = sums
+        off = int((sums != first).sum())
+        log(f"    {route}: {secs / spp:.4f} s a sample, "
+            f"{r['hand'][-1]:.1f} hand-written launches a sample, peak "
+            f"{r['peak'][-1] / 2**30:.3f} GiB, values off the first "
+            f"reading {off} of {sums.size}")
+        if off or not np.isfinite(sums).all():
+            raise AssertionError(f"{label}: {route} differs from the first "
+                                 f"reading on {off} values")
+    for route in order:
+        with routes[route]():
+            ms, n_all, hand = profiled_sample(sc, spec, spp + 1)
+        r = out[route]
+        r["dev"].append(ms)
+        r["all"].append(n_all)
+        r["other"].append(n_all - hand)
+        log(f"    {route} (profiled sample {spp + 1}): {ms:.3f} device ms, "
+            f"{n_all} launches, {hand} hand-written, {n_all - hand} others "
+            "(ATen kernels, copies)")
+    rows, tab = out["rows"], out["tables"]
+    log(f"  {label}: rows / tables: s a sample {rows['secs']} / "
+        f"{tab['secs']}; hand-written launches {rows['hand']} / "
+        f"{tab['hand']}; other launches {rows['other']} / {tab['other']}; "
+        f"device ms {rows['dev']} / {tab['dev']}; peak GiB "
+        f"{[p / 2**30 for p in rows['peak']]} / "
+        f"{[p / 2**30 for p in tab['peak']]}; all launches a sample "
+        f"{np.mean(rows['all']) / np.mean(tab['all']):.4f}x")
+    return out
+
+
+def phase_wide_rows(tex, big) -> dict:
+    """8a: the wide rows against the tables on the textured showcase and
+    scene A."""
+    log("phase 8a: wide shading rows (sl_attr, tex_wide) against the "
+        "per-model tables")
+    return {"textured showcase": rows_against_tables(
+                "textured showcase", tex, ROWS_TEX_SPP),
+            "scene A": rows_against_tables("scene A", big, ROWS_BIG_SPP)}
+
+
+def phase_convert(device, oracle: bool) -> None:
+    """8b: the glTF converter where Pillow is not installed: the port's
+    glb generator, ``path-tracer-torch convert``, a FRAME_W x FRAME_H
+    CLI render of the converted scene through the flat and walk kernels; the no-camera
+    file exits 2; the fixtures' JPEGs and PNGs decode to the texels
+    Pillow gave; with ``oracle`` the three glb oracle cases."""
+    import importlib.util
+
+    import torch
+
+    from path_tracer_torch import cli
+    from path_tracer_torch.utils.image_io import decode_image_rgba, read_png
+
+    log(f"phase 8b: convert (PIL importable: "
+        f"{importlib.util.find_spec('PIL') is not None})")
+    OUT.mkdir(parents=True, exist_ok=True)
+    scenes = {}
+    for tag, multi in (("glb_converted", False), ("glb_multi_opacity", True)):
+        out = REPO / "build" / f"chip_smoke_{tag}"
+        shutil.rmtree(out, ignore_errors=True)
+        info = convert_glb(out, multi)
+        doc = json.loads((out / "scene.isf").read_text())
+        textures = sorted({ch["texture"] for m in doc["models"]
+                           for ch in m["material"].values()
+                           if isinstance(ch, dict) and ch.get("texture")})
+        log(f"  {tag}: {info['triangles']} triangles converted in "
+            f"{info['seconds']:.3f} s: {len(doc['models'])} models, "
+            f"textures {textures}, files {info['files']}")
+        if len(doc["models"]) != (4 if multi else 2) or not all(
+                (out / t).exists() for t in textures):
+            raise AssertionError(f"{tag}: the converted scene is incomplete")
+        scenes[tag] = out / "scene.isf"
+    prof = REPO / "build" / "chip_smoke_profiles" / "glb.yaml"
+    prof.parent.mkdir(parents=True, exist_ok=True)
+    prof.write_text(f"resolution: {{width: {FRAME_W}, height: {FRAME_H}}}"
+                    "\nsamples: 1\nbounces: 4\n")
+    png = OUT / "glb_converted_cli.png"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(["render", str(scenes["glb_converted"]), "-o", str(png), "-q",
+              "-p", str(prof), "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    img = read_png(png)
+    log(f"  converted glb through the CLI ({FRAME_W}x{FRAME_H}, 1 spp, 4 "
+        f"bounces, load included): {secs:.3f} s, launches "
+        f"{ {k: v for k, v in counts.items() if v} }, image mean "
+        f"{img.mean():.2f} std {img.std():.2f}")
+    if not (img.std() > 0 and all(counts[k] for k in (
+            "flat_closest_hit", "flat_occluded", "alpha_walk",
+            "trans_walk"))):
+        raise AssertionError(f"converted glb render: {counts}")
+    nocam = REPO / "build" / "chip_smoke_nocam.gltf"
+    nocam.write_text(json.dumps({"asset": {"version": "2.0"}, "scene": 0,
+                                 "scenes": [{"nodes": []}], "nodes": []}))
+    proc = subprocess.run(
+        [sys.executable, "-m", "path_tracer_torch.cli", "convert",
+         str(nocam), str(REPO / "build" / "chip_smoke_nocam_out")],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    log(f"  no-camera file: exit {proc.returncode}, stderr "
+        f"{proc.stderr.strip()!r}")
+    if proc.returncode != 2 or "No camera" not in proc.stderr:
+        raise AssertionError("convert of a file without a camera must exit 2")
+    n_images = 0
+    for src in sorted(FIXTURES.iterdir()):
+        if src.name.endswith(".pillow.png"):
+            continue
+        want = read_png(src.with_name(src.name + ".pillow.png"))
+        got = decode_image_rgba(src.read_bytes(), src.name)
+        off = (int(np.abs(got.astype(np.int64) - want).max())
+               if got.shape == want.shape else None)
+        log(f"  {src.name}: {got.shape[1]}x{got.shape[0]}, largest texel "
+            f"difference from Pillow's decode {off}")
+        if off != 0:
+            raise AssertionError(f"{src.name}: decode differs from Pillow's")
+        n_images += 1
+    if n_images < 2:
+        raise AssertionError("no image fixtures found")
+    if oracle:
+        phase_oracle(device, GLB_CASES)
+
+
+def run_example(name: str, argv: list) -> tuple:
+    """(seconds, standard output) of examples/<name>.py's ``main(argv)``,
+    run in this process (its kernels already built)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        module.main(argv)
+    return time.perf_counter() - t0, out.getvalue()
+
+
+def phase_examples() -> None:
+    """8c: examples/torch_render_scene.py on ``cube`` at its default size
+    writes a PNG; examples/torch_inverse_rendering.py takes EXAMPLE_STEPS
+    steps and its loss falls (each run through its ``main``)."""
+    import re
+
+    from path_tracer_torch.utils.image_io import read_png
+
+    log("phase 8c: the examples on the card")
+    png = OUT / "example_cube.png"
+    secs, _ = run_example("torch_render_scene",
+                          [str(scene_path("cube")), str(png)])
+    img = read_png(png)
+    log(f"  torch_render_scene.py: {secs:.2f} s, {img.shape[1]}x"
+        f"{img.shape[0]} PNG, mean {img.mean():.2f}")
+    if img.shape != (360, 640, 3) or not img.std() > 0:
+        raise AssertionError("torch_render_scene.py wrote no image")
+    secs, out = run_example("torch_inverse_rendering", [str(EXAMPLE_STEPS)])
+    losses = [float(x) for x in re.findall(r"loss ([0-9.]+)", out)]
+    errs = [float(x) for x in re.findall(r"max albedo err ([0-9.]+)", out)]
+    log(f"  torch_inverse_rendering.py: {EXAMPLE_STEPS} steps in {secs:.2f} "
+        f"s: losses {losses}, max albedo errors {errs}")
+    if len(losses) < 2 or not losses[-1] < losses[0]:
+        raise AssertionError("torch_inverse_rendering.py: the loss did not "
+                             "fall")
+
+
 def main() -> int:
     import torch
 
@@ -5751,7 +6075,7 @@ def main() -> int:
     from path_tracer_torch import native
 
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
-    alone = ("3i", "3j", "3k", "3l", "3m", "3n", "3o", "3p", "3q", "7")
+    alone = ("3i", "3j", "3k", "3l", "3m", "3n", "3o", "3p", "3q", "7", "8")
     if sys.argv[1:] and (len(sys.argv) != 3 or only not in alone):
         print("usage: chip_smoke.py [--only " + "|".join(alone) + "]",
               file=sys.stderr)
@@ -5853,6 +6177,14 @@ def main() -> int:
         f"{walks}, tr_kernel_ok {big.tr_kernel_ok}")
     if walks != ["flat2", "flat"] or not big.tr_kernel_ok:
         raise AssertionError("scene A does not route as the JAX package's")
+    if only == "8":  # phase 8 alone, with the glb oracle cases
+        phase_wide_rows(tex, big)
+        phase_convert(device, oracle=True)
+        phase_examples()
+        log(f"chip_smoke: phase 8 passed in "
+            f"{time.perf_counter() - start:.1f} s")
+        print(card)
+        return 0
     if only in ("3j", "3k", "3l", "3n", "3p"):  # one of these alone
         if only == "3p":
             phase_flat_turns(device, showcase, big)
@@ -5922,6 +6254,9 @@ def main() -> int:
     live_stats = phase_live_kernels(device, tex)
     bwd_launches = phase_backward(device, tex)
     fused_train_launches = phase_train_steps(device, tex)
+    phase_wide_rows(tex, big)
+    phase_convert(device, oracle=False)  # phase 5 ran the glb cases
+    phase_examples()
 
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda",

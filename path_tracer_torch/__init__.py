@@ -13,13 +13,37 @@ counterpart:
 - ``models``  — the wavefront integrator and the render driver
 - ``parallel``— the differentiable render step (scene-parameter gradients,
                 one device)
-- ``utils``   — PNG reader and writers
-- ``cli``     — ``path-tracer-torch render``
+- ``utils``   — PNG and JPEG readers, the PNG writer
+- ``cli``     — ``path-tracer-torch render`` and ``convert``
 
-Importing the package imports nothing but ``torch`` and ``numpy``; PyYAML
-is imported only where a profile file is read (textures are decoded with
-the standard library's zlib), and the kernels are built with ``nvcc`` at
+At package level, as in the JAX package: ``Profile``, ``Resolution``,
+``load_scene(path, device="cuda")`` and ``render(scene, profile=None,
+**kwargs)``, the last two importing the scene and render modules at their
+first call.
+
+Importing the package imports nothing but the standard library; the scene
+and render modules import ``torch`` and ``numpy``, PyYAML is imported only
+where a profile file is read (images are decoded with the standard
+library's zlib and numpy), and the kernels are built with ``nvcc`` at
 their first launch.
 """
 
 __version__ = "0.1.0"
+
+from path_tracer_torch.config import Profile, Resolution  # noqa: F401
+
+
+def load_scene(path, device="cuda", **kwargs):
+    """Load an ISF scene file onto ``device`` (``scene.load_scene``;
+    ``use_bvh`` and ``sl_block`` pass through)."""
+    from path_tracer_torch.scene import load_scene as _load
+
+    return _load(path, device, **kwargs)
+
+
+def render(scene, profile=None, **kwargs):
+    """Render a scene → [H,W,3] uint8 (``models.renderer.render``; the
+    default ``Profile()`` when none is given)."""
+    from path_tracer_torch.models.renderer import render as _render
+
+    return _render(scene, profile or Profile(), **kwargs)

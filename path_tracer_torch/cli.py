@@ -1,18 +1,21 @@
-"""CLI entry point: ``path-tracer-torch render``.
+"""CLI entry point: ``path-tracer-torch render`` and ``convert``.
 
-Port of ``path_tracer_tpu/cli.py``'s ``render``:
+Port of ``path_tracer_tpu/cli.py``:
 
   render INPUT [-o/--output render.png] [-q/--quiet] [-v/--viewer]
          [--debug-textures] [-p/--profile FILE] [--checkpoint PATH]
          [--checkpoint-every N] [--profile-trace DIR] [--device cuda|cpu]
+  convert INPUT OUTPUT_DIR
 
 ``--device`` (default ``cuda``) names where the render runs; without a CUDA
 device the command fails rather than falling back to the CPU.
 ``--profile-trace`` wraps the render in ``torch.profiler`` (CPU activity,
-and CUDA on the card) and writes a Chrome trace into DIR. ``convert`` is
-not ported and is rejected with a message. Errors print one line to
-stderr and exit with code 2, as the reference's CLI does. OUTPUT and
-PROFILE fall back to environment variables.
+and CUDA on the card) and writes a Chrome trace into DIR. ``convert``
+turns a glTF or GLB file into ``OUTPUT_DIR/scene.isf`` and its PNG
+textures (``scene/gltf.py``); it is host tooling with no tensor work, so
+it takes no ``--device``. Errors print one line to stderr and exit with
+code 2, as the reference's CLI does. OUTPUT and PROFILE fall back to
+environment variables.
 """
 from __future__ import annotations
 
@@ -23,10 +26,6 @@ import sys
 from pathlib import Path
 
 TRACE_FILE = "render_trace.json"
-
-# Subcommands of the JAX package's CLI that the port does not carry yet.
-_NOT_PORTED = {"convert": "convert is not ported to path-tracer-torch yet; "
-                          "use path-tracer-tpu convert"}
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -62,9 +61,9 @@ def _build_parser() -> argparse.ArgumentParser:
     render.add_argument("--device", default="cuda",
                         help="torch device to render on (default: cuda)")
 
-    convert = sub.add_parser("convert", help="(not ported yet)")
-    convert.add_argument("input")
-    convert.add_argument("output")
+    convert = sub.add_parser("convert", help="Convert scenes into ISF format")
+    convert.add_argument("input", help="Input glTF/GLB file name")
+    convert.add_argument("output", help="Output directory")
     return parser
 
 
@@ -137,12 +136,19 @@ def run_render(args) -> None:
             viewer.close()
 
 
+def run_convert(args) -> None:
+    from path_tracer_torch.scene.gltf import convert_gltf_to_isf
+
+    convert_gltf_to_isf(args.input, args.output)
+
+
 def main(argv=None) -> None:
     args = _build_parser().parse_args(argv)
     try:
-        if args.command in _NOT_PORTED:
-            raise RuntimeError(_NOT_PORTED[args.command])
-        run_render(args)
+        if args.command == "render":
+            run_render(args)
+        else:
+            run_convert(args)
     except Exception as e:  # noqa: BLE001 — one-line error, exit 2
         print(e, file=sys.stderr)
         sys.exit(2)

@@ -47,6 +47,13 @@ Semantics reproduced exactly (reference quirks included):
   does not). With ``PT_BVH_KERNEL=tree`` (``ops/intersect.py``) the
   partition stands down and the whole-scene walks run. Every knob is read
   at call time.
+- Wide shading rows: a forward render (not ``differentiable``) of a BVH
+  scene with triangles shades every hit, and samples every walk's
+  opacities, from one gather of its ``sl_attr`` row (``_tri_attr``:
+  geometry, model, material factors, texture ids) and one ``tex_wide``
+  gather for the channels it covers, where the JAX package does; the
+  differentiable path reads the per-model tables. Both give the same
+  values.
 - Emissive adds throughput*emissive each bounce, and AGAIN inside
   eval_direct scaled by light radiance (reference quirk).
 - Point lights: radiance = color/(4*pi*r^2).
@@ -102,6 +109,7 @@ from path_tracer_torch.ops import (
 from path_tracer_torch.ops.cuda_spheres import occluded_spheres_cuda
 from path_tracer_torch.ops.intersect import (
     KIND_NONE,
+    KIND_SPHERE,
     KIND_TRIANGLE,
     HitRecord,
     _miss_record,
@@ -171,9 +179,32 @@ def _tri_index(scene, prim):
     return torch.clamp(prim, max=scene.tri_v0.shape[0] - 1)
 
 
-def _hit_model_uv(scene, hit: HitRecord):
+def _uses_rows(scene, spec) -> bool:
+    """Whether a render with ``spec`` shades from the wide rows: a forward
+    render of a BVH scene with triangles."""
+    return bool(not spec.differentiable and scene.use_bvh
+                and scene.num_real_triangles)
+
+
+def _tri_attr(scene, hit: HitRecord, rows: bool = True):
+    """[R, ATTR_W] the hits' ``sl_attr`` rows, or None without ``rows``.
+    Sphere hits read row ``sph_row_base`` + sphere; other lanes the packed
+    slot of their global triangle id (``sl_inv``: the kernels report
+    global ids), miss lanes a row whose values the callers mask out."""
+    if not rows:
+        return None
+    prim = torch.clamp(hit.prim, min=0).long()
+    slot = scene.sl_inv[torch.clamp(prim, max=scene.sl_inv.shape[0] - 1)]
+    packed = torch.where(hit.kind == KIND_SPHERE,
+                         scene.sph_row_base + prim, slot)
+    return scene.sl_attr[packed]
+
+
+def _hit_model_uv(scene, hit: HitRecord, row=None):
     """(model_id [R], uv [R,2], simple [R]) for any hit record. Scenes with a
-    single primitive class skip the other class's gathers."""
+    single primitive class skip the other class's gathers. ``row``: the
+    hits' ``_tri_attr`` rows, which then give uv and model (a sphere row
+    holds its sphere's model)."""
     prim = torch.clamp(hit.prim, min=0).long()
     if scene.num_real_triangles == 0:
         sph_i = torch.clamp(prim, max=scene.sph_model.shape[0] - 1)
@@ -182,17 +213,25 @@ def _hit_model_uv(scene, hit: HitRecord):
                 torch.zeros((r, 2), device=prim.device),
                 torch.ones((r,), dtype=torch.bool, device=prim.device))
     is_tri = hit.kind == KIND_TRIANGLE
-    tri_i = _tri_index(scene, prim)
     w = hit.u[:, None]
     ww = hit.v[:, None]
-    uv0 = scene.tri_uv0[tri_i]
-    uv = (uv0 + w * (scene.tri_uv1[tri_i] - uv0)
-          + ww * (scene.tri_uv2[tri_i] - uv0))
-    tri_model = scene.tri_model[tri_i]
+    if row is not None:
+        uv0 = row[:, 21:23]
+        uv = uv0 + w * (row[:, 23:25] - uv0) + ww * (row[:, 25:27] - uv0)
+        tri_model = row[:, 27].to(torch.int32)
+    else:
+        tri_i = _tri_index(scene, prim)
+        uv0 = scene.tri_uv0[tri_i]
+        uv = (uv0 + w * (scene.tri_uv1[tri_i] - uv0)
+              + ww * (scene.tri_uv2[tri_i] - uv0))
+        tri_model = scene.tri_model[tri_i]
     if scene.num_real_spheres == 0:
         return tri_model, uv, torch.zeros_like(is_tri)
-    sph_i = torch.clamp(prim, max=scene.sph_model.shape[0] - 1)
-    model = torch.where(is_tri, tri_model, scene.sph_model[sph_i])
+    if row is not None:
+        model = tri_model
+    else:
+        sph_i = torch.clamp(prim, max=scene.sph_model.shape[0] - 1)
+        model = torch.where(is_tri, tri_model, scene.sph_model[sph_i])
     uv = torch.where(is_tri[:, None], uv, 0.0)
     return model, uv, ~is_tri
 
@@ -239,30 +278,35 @@ def _reparam_t(scene, hit: HitRecord, o, d, t_safe, is_tri, tri_i, sph_i):
     return torch.where(is_tri, t_tri, t_sph)
 
 
-def _surface(scene, hit: HitRecord, o, d,
-             differentiable: bool = False) -> Surface:
+def _surface(scene, hit: HitRecord, o, d, differentiable: bool = False,
+             row=None) -> Surface:
     """Shading geometry at the selected hits. Forward rendering takes the
     hit point o + t d; ``differentiable`` the reparameterized t
-    (``_reparam_t``), the same point up to rounding."""
+    (``_reparam_t``), the same point up to rounding. ``row``: the hits'
+    ``_tri_attr`` rows, which then give the triangles' normals, tangent,
+    uv and model."""
     is_tri = hit.kind == KIND_TRIANGLE
     prim = torch.clamp(hit.prim, min=0).long()
     sph_i = torch.clamp(prim, max=scene.sph_center.shape[0] - 1)
-    tri_i = _tri_index(scene, prim)
+    tri_i = _tri_index(scene, prim) if row is None or differentiable else None
     # Miss lanes carry t = +inf; their Surface is masked out downstream,
     # but inf would still poison a gradient through torch.where (0 * inf).
     t_safe = torch.where(torch.isfinite(hit.t), hit.t, 0.0)
     if differentiable:
         t_safe = _reparam_t(scene, hit, o, d, t_safe, is_tri, tri_i, sph_i)
     pos = o + d * t_safe[:, None]
-    model, uv, simple = _hit_model_uv(scene, hit)
+    model, uv, simple = _hit_model_uv(scene, hit, row)
 
     # Triangle: barycentric vertex-normal interpolation (NOT normalized).
     n_interp = None
     if scene.num_real_triangles != 0:
         w1 = hit.u[:, None]
         w2 = hit.v[:, None]
-        n_interp = ((1.0 - w1 - w2) * scene.tri_n0[tri_i]
-                    + w1 * scene.tri_n1[tri_i] + w2 * scene.tri_n2[tri_i])
+        n0, n1, n2 = ((row[:, 9:12], row[:, 12:15], row[:, 15:18])
+                      if row is not None else
+                      (scene.tri_n0[tri_i], scene.tri_n1[tri_i],
+                       scene.tri_n2[tri_i]))
+        n_interp = (1.0 - w1 - w2) * n0 + w1 * n1 + w2 * n2
 
     # Sphere geometric normal: outward, negated for far-root (inside) hits.
     sph_n = None
@@ -278,11 +322,12 @@ def _surface(scene, hit: HitRecord, o, d,
     geom_n = (n_interp if sph_n is None
               else torch.where(is_tri[:, None], n_interp, sph_n))
     # Normal mapping (triangles with a normal texture): TBN*map, normed.
-    nm, has_map = texturing.sample_normal_map(scene, model, uv)
+    nm, has_map = texturing.sample_normal_map(scene, model, uv, rows=row)
     if nm is None:
         tri_shading_n = n_interp
     else:
-        tangent = scene.tri_tangent[tri_i]
+        tangent = (row[:, 18:21] if row is not None
+                   else scene.tri_tangent[tri_i])
         bitangent = torch.linalg.cross(n_interp, tangent)
         mapped = (tangent * nm[:, 0:1] + bitangent * nm[:, 1:2]
                   + n_interp * nm[:, 2:3])
@@ -325,8 +370,9 @@ def _alpha_cast_walk(scene, cast_scene, o, d, pix, sample_id, bounce, spec,
         found = active & hit.valid
         if t_op is not None:
             found = found & (hit.t < t_op)
-        model, uv, simple = _hit_model_uv(scene, hit)
-        op = texturing.sample_opacity(scene, model, uv, simple)
+        row = _tri_attr(scene, hit, _uses_rows(scene, spec))
+        model, uv, simple = _hit_model_uv(scene, hit, row)
+        op = texturing.sample_opacity(scene, model, uv, simple, rows=row)
         rnd = rng.uniform(pix, sample_id, rng.SITE_ALPHA + k + stride * bounce,
                           spec.seed)
         accept = (op >= 1.0) | ((op > ALPHA_MIN_OPACITY) & (rnd < op))
@@ -513,7 +559,9 @@ def _alpha_walk_partitioned(scene, o, d, walking, pix, sample_id, bounce,
         if bool(walk_active.any()):
             ts, pos = _dense_tr_hits(scene, o, d, steps, walk_active, t_op)
             cols = _dense_hit_columns(scene, o, d, ts, pos)
-            op = texturing.sample_opacity(scene, *_hit_model_uv(scene, cols))
+            row = _tri_attr(scene, cols, _uses_rows(scene, spec))
+            op = texturing.sample_opacity(
+                scene, *_hit_model_uv(scene, cols, row), rows=row)
             for k in range(k0):
                 hit = HitRecord(*[f[k * r:(k + 1) * r] for f in cols])
                 found = still & hit.valid & (hit.t < t_op)
@@ -551,13 +599,15 @@ def _occluder_dist(s_o, s_d, t, surf_pos):
 @torch.no_grad()
 def _trans_cast_walk(scene, cast_scene, s_o, s_d, pd, is_pt, surf_pos,
                      orig_uv, orig_simple, steps, k0, trans, t_prev,
-                     walking, include_spheres: bool, prim_base: int = 0):
+                     walking, include_spheres: bool, prim_base: int = 0,
+                     rows: bool = False):
     """Steps k0 .. steps-1 of the transmittance re-cast walk, stopping when
     no lane walks: trans *= 1 - op per occluder in distance order, until
     trans == 0. Point lanes (``is_pt``) stop at the first occluder farther
     from the surface point than pd and sample the occluder's material at
     the ORIGINAL hit's uv and type; other lanes at the occluder's own.
-    ``prim_base`` as for ``_alpha_cast_walk``."""
+    ``prim_base`` as for ``_alpha_cast_walk``; ``rows``: opacities from
+    the wide rows (``_uses_rows``)."""
     for _ in range(k0, steps):
         if not bool(walking.any()):
             break
@@ -565,12 +615,13 @@ def _trans_cast_walk(scene, cast_scene, s_o, s_d, pd, is_pt, surf_pos,
                           include_spheres=include_spheres)
         hit = hit._replace(prim=hit.prim + prim_base)
         found = walking & hit.valid
-        model, uv, simple = _hit_model_uv(scene, hit)
+        row = _tri_attr(scene, hit, rows)
+        model, uv, simple = _hit_model_uv(scene, hit, row)
         found = found & ~(is_pt & (_occluder_dist(s_o, s_d, hit.t, surf_pos)
                                    > pd))
         uv = torch.where(is_pt[:, None], orig_uv, uv)
         simple = torch.where(is_pt, orig_simple, simple)
-        op = texturing.sample_opacity(scene, model, uv, simple)
+        op = texturing.sample_opacity(scene, model, uv, simple, rows=row)
         trans = torch.where(found, trans * (1.0 - op), trans)
         walking = found & (trans != 0.0)
         t_prev = torch.where(walking, hit.t, t_prev)
@@ -587,12 +638,13 @@ def _light_att0(active, light_color):
 
 def _shadow_attenuation(scene, s_o, s_d, active, light_color, steps,
                         point_dist=None, surf_pos=None, orig_uv=None,
-                        orig_simple=None):
+                        orig_simple=None, rows: bool = False):
     """One light's attenuation in a scene that is neither all opaque nor
     partitioned: the transmittance re-cast walk over the whole scene
     (spheres included). Pass point_dist [R], surf_pos [R,3] and the
     original hit's uv [R,2] and simple [R] for a point light. The walk
-    carries no gradient; the light colour multiplies outside it."""
+    carries no gradient; the light colour multiplies outside it. ``rows``
+    as for ``_trans_cast_walk``."""
     att0 = _light_att0(active, light_color)
     r = s_o.shape[0]
     dev = s_o.device
@@ -605,7 +657,8 @@ def _shadow_attenuation(scene, s_o, s_d, active, light_color, steps,
         scene, scene, s_o, s_d, point_dist, is_pt, surf_pos, orig_uv,
         orig_simple, steps, 0, torch.ones((r,), device=dev),
         torch.full((r,), -1.0, device=dev),
-        active & (att0.abs().sum(-1) != 0.0), include_spheres=True)
+        active & (att0.abs().sum(-1) != 0.0), include_spheres=True,
+        rows=rows)
     return att0 * trans[:, None]
 
 
@@ -625,7 +678,7 @@ def _stack_lights(s_o, dirs, point_dists, surf_pos, orig_uv, orig_simple):
 
 def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, steps,
                               point_dists, surf_pos, orig_uv, orig_simple,
-                              blockeds, live=None):
+                              blockeds, live=None, rows: bool = False):
     """All L lights' attenuations in a partitioned scene. ``blockeds``: the
     lights' any-hit results against the opaque view (an opaque occluder
     in range zeroes the product whatever the order); the transparent
@@ -638,7 +691,8 @@ def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, steps,
     and sample the original hit's uv (see ``_trans_cast_walk``). One light
     (L = 1) gives the JAX package's single-light partitioned form. The
     walk carries no gradient and reads ``live`` (``trwalk.LiveTables``)
-    when given; the light colours multiply outside it."""
+    when given; the light colours multiply outside it. ``rows`` as for
+    ``_trans_cast_walk``."""
     att0s = [_light_att0(a, c) for a, c in zip(actives, colors)]
     n_l = len(dirs)
     r = s_o.shape[0]
@@ -669,32 +723,34 @@ def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, steps,
             if bool(walking0.any()):
                 trans, t_prev, still = _trans_dense_walk(
                     scene, o3, d3, pd3, is_pt, sp3, ouv3, os3, walking0,
-                    steps)
+                    steps, rows)
         if k0 < steps:
             view, base = _residual_view(scene)
             trans = _trans_cast_walk(scene, view, o3, d3, pd3, is_pt, sp3,
                                      ouv3, os3, steps, k0, trans, t_prev,
                                      still, include_spheres=False,
-                                     prim_base=base)
+                                     prim_base=base, rows=rows)
     return [torch.where(b[:, None], 0.0, att0 * trans[i * r:(i + 1) * r, None])
             for i, (att0, b) in enumerate(zip(att0s, blockeds))]
 
 
 def _trans_dense_walk(scene, o3, d3, pd3, is_pt, sp3, ouv3, os3, walking0,
-                      steps: int):
+                      steps: int, rows: bool = False):
     """The first kk steps of the stacked transmittance walk over the dense
     producer's columns (t_max the distance to the light with the
-    prefilter's margin): (trans, t_prev, still walking)."""
+    prefilter's margin): (trans, t_prev, still walking). ``rows`` as for
+    ``_trans_cast_walk``."""
     n = o3.shape[0]
     ts, pos = _dense_tr_hits(scene, o3, d3, steps, walking0,
                              pd3 * 1.0001 + 1e-3)
     kk = ts.shape[0]
     cols = _dense_hit_columns(scene, o3, d3, ts, pos)
-    model, uv, simple = _hit_model_uv(scene, cols)
+    row = _tri_attr(scene, cols, rows)
+    model, uv, simple = _hit_model_uv(scene, cols, row)
     pt = is_pt.repeat(kk)
     uv = torch.where(pt[:, None], ouv3.repeat(kk, 1), uv)
     simple = torch.where(pt, os3.repeat(kk), simple)
-    op = texturing.sample_opacity(scene, model, uv, simple)
+    op = texturing.sample_opacity(scene, model, uv, simple, rows=row)
     trans = torch.ones((n,), device=o3.device)
     t_prev = torch.full((n,), -1.0, device=o3.device)
     walking = walking0
@@ -722,14 +778,15 @@ def _use_fused_shadow(scene) -> bool:
 
 def _shadow_attenuation_fused(scene, s_o, dirs, actives, colors, steps,
                               point_dists, surf_pos, orig_uv, orig_simple,
-                              live=None):
+                              live=None, rows: bool = False):
     """All L lights' attenuations in a partitioned scene through the fused
     shadow kernel: the opaque any-hit (the exact t_max of
     ``occluded_multi``) and the first ``TRWALK_K`` transmittance steps in
     one launch, then the exact cast walk over the transparent view for
     lanes still walking, and the opaque spheres' any-hit. The same values
     as ``occluded_multi`` + ``_shadow_attenuation_multi``, the same
-    gradient (through the light colours alone); ``live`` as there."""
+    gradient (through the light colours alone); ``live`` and ``rows`` as
+    there."""
     att0s = [_light_att0(a, c) for a, c in zip(actives, colors)]
     n_l = len(dirs)
     r = s_o.shape[0]
@@ -758,7 +815,7 @@ def _shadow_attenuation_fused(scene, s_o, dirs, actives, colors, steps,
                 scene, transparent_view(scene), o3, d3, pd3, is_pt, sp3, ouv3,
                 os3, steps, k0, trans.reshape(n_l * r),
                 t_prev.reshape(n_l * r), still.reshape(n_l * r),
-                include_spheres=False).view(n_l, r)
+                include_spheres=False, rows=rows).view(n_l, r)
         if scene.num_real_spheres != 0:
             sph = occluded_spheres_cuda(s_o, dirs, t_maxes, scene)
             trans = torch.where(sph, 0.0, trans)
@@ -818,6 +875,7 @@ def render_wavefront(scene, pixel_ids, width: int, height: int, sample_id,
     # The walk kernels' live tables, built once per call.
     live = (trwalk.live_tables(scene) if spec.differentiable and part
             and _use_tr_kernel(scene) else None)
+    rows = _uses_rows(scene, spec)
 
     for bounce in range(spec.bounces + 1):
         if track_origin:
@@ -838,9 +896,10 @@ def render_wavefront(scene, pixel_ids, width: int, height: int, sample_id,
                             color + throughput * scene.background, color)
         alive = alive & ~first_missed
 
-        surf = _surface(scene, sel, o, d, spec.differentiable)
+        row = _tri_attr(scene, sel, rows)
+        surf = _surface(scene, sel, o, d, spec.differentiable, row)
         mat = texturing.sample_material(scene, surf.model, surf.uv,
-                                        surf.simple)
+                                        surf.simple, rows=row)
         f0 = brdf.compute_f0(mat.metalness, mat.albedo)
         view = -d
 
@@ -878,7 +937,7 @@ def render_wavefront(scene, pixel_ids, width: int, height: int, sample_id,
             # Both halves of every light's shadow in one launch.
             atts = _shadow_attenuation_fused(
                 scene, shadow_o, to_lights, actives, colors, shadow_steps,
-                max_dists, surf.pos, surf.uv, surf.simple, live)
+                max_dists, surf.pos, surf.uv, surf.simple, live, rows)
         elif scene.all_opaque or part:
             # One any-hit launch for all lights (against the opaque view of
             # a partitioned scene: any opaque occluder in range zeroes the
@@ -893,12 +952,12 @@ def render_wavefront(scene, pixel_ids, width: int, height: int, sample_id,
             else:
                 atts = (_shadow_attenuation_multi(
                     scene, shadow_o, to_lights, actives, colors, shadow_steps,
-                    max_dists, surf.pos, surf.uv, surf.simple, blocked, live)
-                    if to_lights else [])
+                    max_dists, surf.pos, surf.uv, surf.simple, blocked, live,
+                    rows) if to_lights else [])
         else:
             atts = [_shadow_attenuation(scene, shadow_o, ld, a, c,
                                         shadow_steps, md, surf.pos, surf.uv,
-                                        surf.simple)
+                                        surf.simple, rows)
                     for ld, a, c, md in zip(to_lights, actives, colors,
                                             max_dists)]
 

@@ -25,6 +25,7 @@ import torch
 
 from path_tracer_torch.models.integrator import IntegratorSpec, render_wavefront
 from path_tracer_torch.ops import trwalk
+from path_tracer_torch.scene import device_scene as ds
 
 # The scene's tensors that gradients flow into (the JAX package's list).
 PARAM_FIELDS = (
@@ -58,15 +59,27 @@ def get_params(scene) -> dict:
 
 def apply_params(scene, params: dict):
     """The scene with ``params`` (field name -> tensor) in place, and what
-    the port bakes from them refreshed: the walk table's opacity-factor
-    row after a ``mat_*`` update, the sphere kernels' packed table after a
+    the port bakes from them refreshed: ``sl_attr``'s material columns and
+    the walk table's opacity-factor row after a ``mat_*`` update (a
+    forward render reads those), the sphere kernels' packed table after a
     sphere update. A trained ``tex_data`` needs no refresh during training
     (the differentiable path and the live walk kernels read it live); call
     ``refresh_baked_textures`` once before rendering the fitted scene
     forward."""
-    scene = dataclasses.replace(scene, **params)
+    scene = _with_params(scene, params)
     if any(f.startswith("mat_") for f in params):
         scene = rebake_material_rows(scene)
+    return scene
+
+
+def _with_params(scene, params: dict):
+    """The scene with ``params`` in place and the sphere kernels' packed
+    table refreshed: all that a differentiable render reads. It reads the
+    ``mat_*`` tables and rebuilds the walk kernels' opacity row live, so
+    a training step skips ``rebake_material_rows`` (which copies all of
+    ``sl_attr``, 384 MB on scene A) where the JAX package's jitted step
+    drops it as dead code."""
+    scene = dataclasses.replace(scene, **params)
     if "sph_center" in params or "sph_radius" in params:
         scene = repack_spheres(scene)
     return scene
@@ -87,12 +100,26 @@ def repack_spheres(scene):
 
 
 def rebake_material_rows(scene):
-    """Refresh what the port bakes from the ``mat_*`` tables. The JAX
-    package rebakes the material columns of its wide ``sl_attr`` rows,
-    which the port does not have (its shading reads the tables); the one
-    table the port bakes from them is the walk kernels' ``tr_rows``, whose
-    row 6 holds each column's opacity factor. A forward render of the
-    updated scene then reads the live factors in the kernel walks too."""
+    """Refresh what the port bakes from the ``mat_*`` tables: the material
+    factors of every ``sl_attr`` row (the model id in column 27), as the
+    JAX package does, and the walk kernels' ``tr_rows``, whose row 6 holds
+    each column's opacity factor. A forward render of the updated scene
+    then reads the new factors in its shading and its kernel walks.
+    Neither table carries a gradient: the differentiable path reads the
+    ``mat_*`` tables."""
+    with torch.no_grad():
+        attr = scene.sl_attr.clone()
+        mid = attr[:, 27].long()
+        attr[:, ds.ATTR_ALBEDO_F:ds.ATTR_ALBEDO_F + 3] = \
+            scene.mat_albedo_factor[mid]
+        attr[:, ds.ATTR_EMISSIVE_F:ds.ATTR_EMISSIVE_F + 3] = \
+            scene.mat_emissive_factor[mid]
+        for col, table in ((ds.ATTR_OPACITY_F, scene.mat_opacity_factor),
+                           (ds.ATTR_METAL_F, scene.mat_metalness_factor),
+                           (ds.ATTR_ROUGH_F, scene.mat_roughness_factor),
+                           (ds.ATTR_IOR, scene.mat_ior)):
+            attr[:, col] = table[mid]
+    scene = dataclasses.replace(scene, sl_attr=attr)
     if not scene.tr_kernel_ok:
         return scene
     return dataclasses.replace(scene, tr_rows=trwalk.live_rows(scene))
@@ -100,17 +127,32 @@ def rebake_material_rows(scene):
 
 @torch.no_grad()
 def refresh_baked_textures(scene):
-    """Rebuild the walk kernels' u8 page plane ``tr_tex8`` from the live
-    ``tex_data``, on the host: call it once after training that updated
-    the atlas, before rendering the fitted scene forward
-    (differentiable=False). Where every texel of the opacity pages is
-    still exactly ``tr_lut[round(255 x)]`` the plane is re-quantized;
+    """Rebuild the texel tables baked from ``tex_data`` from its live
+    values, on the host: call it once after training that updated the
+    atlas, before rendering the fitted scene forward
+    (differentiable=False). ``tex_wide`` is rebuilt value for value (the
+    layout depends only on the texture sizes, which training keeps). The
+    walk kernels' u8 page plane ``tr_tex8`` is re-quantized where every
+    texel of the opacity pages is still exactly ``tr_lut[round(255 x)]``;
     otherwise ``tr_kernel_ok`` is cleared, so forward walks take the exact
-    cast walks instead of quantizing. (The JAX package also rebuilds its
-    wide texel table, which the port does not have.)"""
+    cast walks instead of quantizing."""
+    atlas = scene.tex_data.detach().cpu().numpy()
+    if not scene.no_textures and any(scene.wide_covered):
+        mats = {k: getattr(scene, f).cpu().numpy() for k, f in (
+            ("albedo_t", "mat_albedo_tex"), ("emissive_t", "mat_emissive_tex"),
+            ("opacity_t", "mat_opacity_tex"),
+            ("metal_t", "mat_metalness_tex"),
+            ("rough_t", "mat_roughness_tex"), ("normal_t", "mat_normal_tex"))}
+        wide, _, _, _, covered = ds._build_wide_tex(
+            mats, atlas, scene.tex_offset.cpu().numpy(),
+            scene.tex_width.cpu().numpy(), scene.tex_height.cpu().numpy())
+        if covered != scene.wide_covered or wide.shape != tuple(
+                scene.tex_wide.shape):
+            raise ValueError("tex_wide's layout changed: rebuild the scene")
+        scene = dataclasses.replace(scene, tex_wide=torch.from_numpy(
+            wide).to(scene.tex_wide.device))
     if not (scene.tr_kernel_ok and scene.tr_textured):
         return scene
-    atlas = scene.tex_data.cpu().numpy()
     lut = scene.tr_lut[0].cpu().numpy()
     tex8 = np.zeros(tuple(scene.tr_tex8.shape), np.uint8)
     for off, w, h, yb in scene.tr_pages:
@@ -135,7 +177,7 @@ def value_and_grad(params: dict, scene, ids, target, sample_id: int,
     if not spec.differentiable:
         raise ValueError("gradients need IntegratorSpec(differentiable=True)")
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    s = apply_params(scene, leaves)
+    s = _with_params(scene, leaves)
     acc = torch.zeros((ids.shape[0], 3), device=ids.device)
     for k in range(n_samples):
         acc = acc + render_wavefront(s, ids, width, height, sample_id + k,

@@ -99,6 +99,24 @@ zero rows to a multiple of 128 columns, ``khit_gbox`` [6, Tp / 128],
 each 128-column group's AABB over its real (nonzero-edge) rows, an
 all-padding group at min = max = 1e30, and ``khit_sbox`` [6, Tp / 32],
 the same of each 32-column sub-group (row 3's finer gate).
+
+Wide shading rows (forward BVH renders; ``models/integrator.py``
+``_tri_attr``): ``sl_attr`` [n_blocks*sl_block + S', ATTR_W], one row per
+packed slot (zero on unused slots), then one per sphere from
+``sph_row_base`` on. Columns 0-26 hold the slot's v0, e1, e2, n0, n1, n2,
+tangent, uv0, uv1, uv2; 27 the model id and 28 the global triangle id (as
+float32, exact below 2^24); 29 on the model's material (``ATTR_*``:
+factors, texture ids as float, each channel's atlas offset, width and
+height, and its ``tex_wide`` block's). A sphere row holds only its model
+and material. ``tex_wide`` [Nw, WIDE_COLS] holds, for each material whose
+textured channels share one size, all those channels' texels side by side
+(``WIDE_*`` columns; row 0 a dummy texel), copied from the atlas, so one
+gather fetches every covered channel; ``wide_covered`` flags the channels
+every texture of which rides it. A channel that ``tex_wide`` does not
+cover is fetched through the row's texture id. ``attr_tex_baked`` is the
+JAX package's flag for reading the ``ATTR_*_G`` atlas columns instead
+(its ``PT_BAKED_TEX`` sweep knob, not ported): always False here, and
+``from_numpy`` refuses a scene that sets it.
 """
 from __future__ import annotations
 
@@ -118,6 +136,42 @@ SPH_BLOCK = 128  # spheres per block of the sphere block walk
 KHIT_GRP = 128  # columns per group of the dense walk's table (one AABB each)
 KHIT_SUB = 32  # columns per sub-group of a group (one AABB each)
 
+# Wide shading-row layout (``sl_attr``): geometry in columns 0-28, then the
+# row's material: factors, texture ids (float), each channel's atlas
+# (offset, width, height), and its tex_wide block's.
+ATTR_W = 68
+ATTR_ALBEDO_F = 29      # 29:32 albedo factor rgb
+ATTR_EMISSIVE_F = 32    # 32:35 emissive factor rgb
+ATTR_OPACITY_F = 35
+ATTR_METAL_F = 36
+ATTR_ROUGH_F = 37
+ATTR_IOR = 38
+ATTR_ALBEDO_T = 39
+ATTR_EMISSIVE_T = 40
+ATTR_OPACITY_T = 41
+ATTR_METAL_T = 42
+ATTR_ROUGH_T = 43
+ATTR_NORMAL_T = 44
+# (offset, width, height) triples; texture-free channels hold (0, 1, 1).
+ATTR_ALBEDO_G = 45
+ATTR_EMISSIVE_G = 48
+ATTR_OPACITY_G = 51
+ATTR_METAL_G = 54
+ATTR_ROUGH_G = 57
+ATTR_NORMAL_G = 60
+ATTR_WIDE_G = 64  # the row's tex_wide block: offset, width, height
+# tex_wide's columns.
+WIDE_ALBEDO = 0   # 0:3
+WIDE_EMISSIVE = 3  # 3:6
+WIDE_NORMAL = 6   # 6:9
+WIDE_OPACITY = 9
+WIDE_METAL = 10
+WIDE_ROUGH = 11
+WIDE_COLS = 12
+# tex_wide's budget: a block that would take the table past it is left
+# out, and its channels keep their own atlas fetches.
+WIDE_TEX_MAX_MB = 96
+
 _FLOAT_FIELDS = (
     "tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
     "tri_uv0", "tri_uv1", "tri_uv2", "tri_tangent", "tri_packed_t",
@@ -127,7 +181,8 @@ _FLOAT_FIELDS = (
     "tex_data", "point_pos", "point_color", "dir_dir", "dir_color",
     "cam_to_world", "cam_fov", "background", "sl_bw_t", "sl_blkflat",
     "sl_sbflat", "sl_nodes6", "sl_tris_t", "sph_sorted_t", "sph_blk",
-    "tr_prefilter", "tr_bw", "tr_rows", "tr_grp", "tr_lut",
+    "tr_prefilter", "tr_bw", "tr_rows", "tr_grp", "tr_lut", "sl_attr",
+    "tex_wide",
 )
 _INT_FIELDS = (
     "tri_model", "sph_model",
@@ -147,7 +202,8 @@ STATIC_FIELDS = ("all_opaque", "no_textures", "no_emissive", "has_tex",
                  "sph_row_base",
                  "n_tris_opaque", "sl_n_blocks_opaque", "sl_cols_opaque",
                  "num_transparent_hits", "sph_all_opaque", "tr_kernel_ok",
-                 "tr_textured", "tr_pages")
+                 "tr_textured", "tr_pages", "attr_tex_baked",
+                 "wide_covered")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,6 +283,8 @@ class TorchScene:
     khit_tris: torch.Tensor
     khit_gbox: torch.Tensor
     khit_sbox: torch.Tensor
+    sl_attr: torch.Tensor
+    tex_wide: torch.Tensor
     # --- statics ---
     all_opaque: bool  # every material has opacity factor >= 1, no texture
     no_textures: bool
@@ -250,6 +308,8 @@ class TorchScene:
     tr_kernel_ok: bool  # the tr_* tables are valid for the walk kernels
     tr_textured: bool  # some transparent column samples an opacity texture
     tr_pages: tuple  # (atlas offset, w, h, ybase) per opacity texture
+    attr_tex_baked: bool  # always False: PT_BAKED_TEX is not ported
+    wide_covered: tuple  # per has_tex channel: every texture in tex_wide
 
     @property
     def device(self) -> torch.device:
@@ -267,8 +327,14 @@ class TorchScene:
 def from_numpy(fields: dict, statics: dict, device) -> TorchScene:
     """Carry numpy arrays (e.g. ``np.asarray`` of each field of the JAX
     package's ``DeviceScene``) onto ``device``. Reads the names in
-    ``ARRAY_FIELDS`` and ``STATIC_FIELDS``, ignores other keys, and checks
-    nothing else, so any scene's tables can be carried across."""
+    ``ARRAY_FIELDS`` and ``STATIC_FIELDS`` and ignores other keys, so any
+    scene's tables can be carried across, except one built under the JAX
+    package's ``PT_BAKED_TEX`` (``attr_tex_baked``), which raises
+    ValueError: the port's rows path reads no baked atlas columns."""
+    if statics["attr_tex_baked"]:
+        raise ValueError("a scene with attr_tex_baked (PT_BAKED_TEX) cannot "
+                         "be carried across: the port fetches through the "
+                         "texture ids")
     kw = {}
     for name in ARRAY_FIELDS:
         if name in _U8_FIELDS:  # the JAX package keeps these values in bf16
@@ -282,7 +348,7 @@ def from_numpy(fields: dict, statics: dict, device) -> TorchScene:
         kw[name] = torch.from_numpy(arr).to(device)
     for name in STATIC_FIELDS:
         value = statics[name]
-        if name == "has_tex":
+        if name in ("has_tex", "wide_covered"):
             value = tuple(bool(x) for x in value)
         elif name == "tr_pages":
             value = tuple(tuple(int(x) for x in p) for p in value)
@@ -419,6 +485,129 @@ def _sphere_blocks(centers: np.ndarray, radii: np.ndarray) -> dict:
                 sph_smap=smap, sph_use_blocks=True)
 
 
+_TEX_KEYS = ("albedo_t", "emissive_t", "opacity_t", "metal_t", "rough_t",
+             "normal_t")  # has_tex order
+
+
+def _build_wide_tex(mats, atlas_data, offsets, widths, heights):
+    """(tex_wide [Nw, WIDE_COLS], woff, ww, wh per model, covered 6-tuple),
+    as ``_build_wide_tex`` of the JAX package builds them. A model's
+    channels at its primary texture size (the size most of its textured
+    channels share; ties to the smaller area) form one block of w*h rows,
+    their texels copied side by side; blocks are shared by models with the
+    same texture ids on those channels, and a block that would take the
+    table past ``WIDE_TEX_MAX_MB`` (read at call time) is left out.
+    covered[c]: every model textured on channel c has it in its block."""
+    cols = (WIDE_ALBEDO, WIDE_EMISSIVE, WIDE_OPACITY, WIDE_METAL,
+            WIDE_ROUGH, WIDE_NORMAL)
+    n_models = len(mats["albedo_t"])
+    tids = np.stack([np.asarray(mats[k], np.int64) for k in _TEX_KEYS],
+                    axis=1).reshape(n_models, 6)
+    woff = np.zeros(n_models, np.int64)
+    ww = np.ones(n_models, np.int64)
+    wh = np.ones(n_models, np.int64)
+    in_wide = np.zeros((n_models, 6), bool)
+    blocks: dict = {}
+    chunks = [np.zeros((1, WIDE_COLS), np.float32)]  # row 0: dummy texel
+    nxt = 1
+    budget = int(WIDE_TEX_MAX_MB * (1 << 20) / (4 * WIDE_COLS))
+    for m in range(n_models):
+        tex = [(c, int(t)) for c, t in enumerate(tids[m]) if t >= 0]
+        if not tex:
+            continue
+        by_size: dict = {}
+        for c, t in tex:
+            by_size.setdefault((int(widths[t]), int(heights[t])),
+                               []).append((c, t))
+        (w, h), grp = max(by_size.items(),
+                          key=lambda kv: (len(kv[1]), -kv[0][0] * kv[0][1]))
+        key = tuple(t if (c, t) in grp else -1
+                    for c, t in zip(range(6), tids[m]))
+        if key not in blocks:
+            if nxt + w * h > budget:
+                continue
+            blk = np.zeros((w * h, WIDE_COLS), np.float32)
+            for c, t in grp:
+                off = int(offsets[t])
+                plane = atlas_data[off:off + w * h]
+                if c in (0, 1, 5):  # rgb channels
+                    blk[:, cols[c]:cols[c] + 3] = plane
+                else:  # gray channels read texel[:, 0]
+                    blk[:, cols[c]] = plane[:, 0]
+            blocks[key] = (nxt, w, h)
+            chunks.append(blk)
+            nxt += w * h
+        woff[m], ww[m], wh[m] = blocks[key]
+        for c, _ in grp:
+            in_wide[m, c] = True
+    covered = tuple(bool(np.any(tids[:, c] >= 0))
+                    and bool(np.all(in_wide[tids[:, c] >= 0, c]))
+                    for c in range(6))
+    return np.concatenate(chunks, axis=0), woff, ww, wh, covered
+
+
+def _bake_material_rows(attr: np.ndarray, model_ids: np.ndarray, mats,
+                        atlas, wide) -> None:
+    """Fill ``attr``'s ATTR_* material columns from the per-model tables
+    (``_bake_material_rows`` of the JAX package): factors, texture ids,
+    each channel's atlas (offset, width, height) from ``atlas`` = (offsets,
+    widths, heights) by texture id, (0, 1, 1) where untextured, and the
+    model's tex_wide block from ``wide`` = (woff, ww, wh)."""
+    af = np.asarray(mats["albedo_f"], np.float32).reshape(-1, 3)
+    ef = np.asarray(mats["emissive_f"], np.float32).reshape(-1, 3)
+    attr[:, ATTR_ALBEDO_F:ATTR_ALBEDO_F + 3] = af[model_ids]
+    attr[:, ATTR_EMISSIVE_F:ATTR_EMISSIVE_F + 3] = ef[model_ids]
+    for col, key in ((ATTR_OPACITY_F, "opacity_f"), (ATTR_METAL_F, "metal_f"),
+                     (ATTR_ROUGH_F, "rough_f"), (ATTR_IOR, "ior")):
+        attr[:, col] = np.asarray(mats[key], np.float32)[model_ids]
+    offs, ws, hs = (np.asarray(a) for a in atlas)
+    for tcol, gcol, key in ((ATTR_ALBEDO_T, ATTR_ALBEDO_G, "albedo_t"),
+                            (ATTR_EMISSIVE_T, ATTR_EMISSIVE_G, "emissive_t"),
+                            (ATTR_OPACITY_T, ATTR_OPACITY_G, "opacity_t"),
+                            (ATTR_METAL_T, ATTR_METAL_G, "metal_t"),
+                            (ATTR_ROUGH_T, ATTR_ROUGH_G, "rough_t"),
+                            (ATTR_NORMAL_T, ATTR_NORMAL_G, "normal_t")):
+        tids = np.asarray(mats[key], np.int32)[model_ids]
+        attr[:, tcol] = tids.astype(np.float32)
+        safe = np.maximum(tids, 0)
+        has = tids >= 0
+        attr[:, gcol] = np.where(has, offs[safe], 0)
+        attr[:, gcol + 1] = np.where(has, ws[safe], 1)
+        attr[:, gcol + 2] = np.where(has, hs[safe], 1)
+    woff, ww, wh = wide
+    attr[:, ATTR_WIDE_G] = woff[model_ids]
+    attr[:, ATTR_WIDE_G + 1] = ww[model_ids]
+    attr[:, ATTR_WIDE_G + 2] = wh[model_ids]
+
+
+def _attr_rows(sl: dict, geom: dict, tri_model, sph_model, n_real_sph: int,
+               mats, atlas, wide) -> np.ndarray:
+    """``sl_attr``: the packed slots' rows (geometry of the slot's triangle
+    from ``geom``, its model and id, the model's material; unused slots
+    zero, and no material at all in a scene without triangles), then one
+    material row per sphere (padding spheres zero)."""
+    n_slots = sl["sl_map"].shape[0]
+    attr = np.zeros((n_slots, ATTR_W), np.float32)
+    if sl["sl_n_blocks"]:
+        used = sl["slot_used"]
+        ids = sl["sl_map"][used]
+        for c0, key in ((0, "v0"), (3, "e1"), (6, "e2"), (9, "n0"),
+                        (12, "n1"), (15, "n2"), (18, "tangent"), (21, "uv0"),
+                        (23, "uv1"), (25, "uv2")):
+            arr = geom[key]
+            attr[used, c0:c0 + arr.shape[1]] = arr[ids]
+        attr[used, 27] = tri_model[ids]
+        attr[used, 28] = ids
+        _bake_material_rows(attr, attr[:, 27].astype(np.int32), mats, atlas,
+                            wide)
+    sph = np.zeros((sph_model.shape[0], ATTR_W), np.float32)
+    if n_real_sph:
+        sph[:n_real_sph, 27] = sph_model[:n_real_sph]
+        _bake_material_rows(sph[:n_real_sph], sph_model[:n_real_sph], mats,
+                            atlas, wide)
+    return np.concatenate([attr, sph], axis=0)
+
+
 def _baldwin_weber_rows(sl_tris: np.ndarray) -> np.ndarray:
     """[16, n] Baldwin-Weber rows from packed (v0, e1, e2) rows [n, 9], as
     the JAX builder computes them (``_baldwin_weber_rows``).
@@ -479,7 +668,8 @@ def _superleaf_tables(v0, e1, e2, ranges: list, n_pad: int,
                     sl_blkid=np.full((1, 128), -1, np.int32),
                     sl_sbflat=np.zeros((8, 128), np.float32),
                     sl_sbid=np.full((1, 128), -1, np.int32),
-                    part_blocks=[], sl_n_blocks=0, sph_row_base=sl_block)
+                    part_blocks=[], sl_n_blocks=0, sph_row_base=sl_block,
+                    slot_used=np.zeros(sl_block, bool))
     n_tris = ranges[-1][1]
     q0 = v0[:n_tris]
     q1 = q0 + e1[:n_tris]
@@ -494,6 +684,7 @@ def _superleaf_tables(v0, e1, e2, ranges: list, n_pad: int,
     sl_tris = np.zeros((n_blocks * sl_block, 9), np.float32)
     sl_map = np.zeros(n_blocks * sl_block, np.int32)
     sl_inv = np.zeros(n_pad, np.int32)
+    slot_used = np.zeros(n_blocks * sl_block, bool)
     # Opaque blocks fill columns [0, cols_op), transparent ones follow at
     # the next multiple of 128; pad columns carry block id -1.
     col0 = [0]
@@ -516,6 +707,7 @@ def _superleaf_tables(v0, e1, e2, ranges: list, n_pad: int,
             sl_tris[base:base + c] = np.concatenate([v0[ids], e1[ids],
                                                      e2[ids]], axis=1)
             sl_map[base:base + c] = ids
+            slot_used[base:base + c] = True
             sl_inv[ids] = np.arange(base, base + c, dtype=np.int32)
         sl_blkflat[0:3, c0:c0 + len(lv)] = slp.node_min[lv].T
         sl_blkflat[3:6, c0:c0 + len(lv)] = slp.node_max[lv].T
@@ -529,7 +721,7 @@ def _superleaf_tables(v0, e1, e2, ranges: list, n_pad: int,
                 sl_map=sl_map, sl_inv=sl_inv, sl_blkflat=sl_blkflat,
                 sl_blkid=sl_blkid, **_superblocks(sl_blkflat, sl_blkid),
                 part_blocks=part_blocks, sl_n_blocks=n_blocks,
-                sph_row_base=n_blocks * sl_block)
+                sph_row_base=n_blocks * sl_block, slot_used=slot_used)
 
 
 def _superblocks(sl_blkflat, sl_blkid) -> dict:
@@ -832,6 +1024,9 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
     else:  # every triangle possibly transparent
         nblk_op = 0
     atlas_data = np.concatenate(atlas.chunks, axis=0)
+    atlas_geom = (atlas.offsets, atlas.widths, atlas.heights)
+    tex_wide, woff, ww, wh, wide_covered = _build_wide_tex(
+        mats, atlas_data, *atlas_geom)
     tr = _build_tr_walk_tables(
         sl["sl_bw_t"], sl["sl_tris"], sl["sl_map"], uv0, uv1, uv2,
         tri_model_arr, mats["opacity_f"], mats["opacity_t"],
@@ -847,6 +1042,11 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
         radii[:n_real_sph] = np.asarray(sph_radius, np.float32)
         sph_model_arr[:n_real_sph] = np.asarray(sph_model, np.int32)
     sph_blocks = _sphere_blocks(centers, radii)
+    sl_attr = _attr_rows(
+        sl, dict(v0=v0, e1=e1, e2=e2, n0=n0, n1=n1, n2=n2, tangent=tangent,
+                 uv0=uv0, uv1=uv1, uv2=uv2),
+        tri_model_arr, sph_model_arr, n_real_sph, mats, atlas_geom,
+        (woff, ww, wh))
 
     points = [l for l in scene.lights if isinstance(l, isf.PointLight)]
     dirs = [l for l in scene.lights if isinstance(l, isf.DirectionalLight)]
@@ -886,6 +1086,7 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
                                       "sph_smap")},
         **{k: tr[k] for k in ("tr_bw", "tr_rows", "tr_grp", "tr_colmap",
                               "tr_model", "tr_tex8", "tr_lut")},
+        sl_attr=sl_attr, tex_wide=tex_wide,
     )
     statics = dict(
         all_opaque=all(m.material.opacity.factor >= 1.0
@@ -915,6 +1116,10 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
         tr_kernel_ok=tr["tr_kernel_ok"],
         tr_textured=tr["tr_textured"],
         tr_pages=tr["tr_pages"],
+        # The JAX package bakes the atlas geometry's use only under its
+        # PT_BAKED_TEX knob (off by default), which the port does not carry.
+        attr_tex_baked=False,
+        wide_covered=wide_covered,
     )
     return from_numpy(fields, statics, device)
 

@@ -1,9 +1,12 @@
 """Procedural scenes built in code, file-free.
 
-Port of ``path_tracer_tpu/scene/procedural.py``'s sphere grid: an n x n
-grid of analytic spheres varying metalness along one axis and roughness
-along the other, lit by two point lights. ``sphere_grid_scene(70)`` (4,900
-spheres) takes the sphere block walk, as it does in the JAX package.
+Port of ``path_tracer_tpu/scene/procedural.py``: the Cornell-style box
+(``cornell_scene``: coloured walls, a mirror and a diffuse sphere, one
+point light; what ``examples/torch_inverse_rendering.py`` fits) and the
+sphere grid: an n x n grid of analytic spheres varying metalness along
+one axis and roughness along the other, lit by two point lights.
+``sphere_grid_scene(70)`` (4,900 spheres) takes the sphere block walk, as
+it does in the JAX package.
 
 ``duplicate_sphere_scene`` and ``sphere_tie_rays`` are the tie-rule
 check of the sphere block walk: a few spheres each listed 150 times, so
@@ -22,6 +25,19 @@ from __future__ import annotations
 import math
 
 from path_tracer_torch.scene import isf
+
+
+def _quad(a, b, c, d, normal):
+    """Two triangles for the quad a-b-c-d (counter-clockwise), uv 0-1."""
+
+    def vert(p, uv):
+        return isf.Vertex(position=tuple(p), normal=tuple(normal),
+                          tex_coords=uv)
+
+    return [
+        (vert(a, (0.0, 0.0)), vert(b, (1.0, 0.0)), vert(c, (1.0, 1.0))),
+        (vert(a, (0.0, 0.0)), vert(c, (1.0, 1.0)), vert(d, (0.0, 1.0))),
+    ]
 
 
 def _mat(albedo=(1.0, 1.0, 1.0), emissive=(0.0, 0.0, 0.0), opacity=1.0,
@@ -46,6 +62,44 @@ def _camera(pos=(0.0, 1.0, 3.2), fov_deg=60.0) -> isf.Camera:
     ]
     return isf.Camera(transform=t, fov=math.radians(fov_deg), zfar=100.0,
                       znear=0.01)
+
+
+def cornell_scene() -> isf.Scene:
+    """Cornell-style box: coloured walls, two spheres, one point light."""
+    s = 1.5  # half-extent
+    tris = []
+    # floor (y=0), ceiling (y=2s), back wall (z=-s)
+    tris += _quad((-s, 0, s), (s, 0, s), (s, 0, -s), (-s, 0, -s), (0, 1, 0))
+    tris += _quad((-s, 2 * s, -s), (s, 2 * s, -s), (s, 2 * s, s),
+                  (-s, 2 * s, s), (0, -1, 0))
+    tris += _quad((-s, 0, -s), (s, 0, -s), (s, 2 * s, -s), (-s, 2 * s, -s),
+                  (0, 0, 1))
+    white = isf.Mesh(triangles=tris, material=_mat(albedo=(0.73, 0.73, 0.73)))
+    left = isf.Mesh(
+        triangles=_quad((-s, 0, s), (-s, 0, -s), (-s, 2 * s, -s),
+                        (-s, 2 * s, s), (1, 0, 0)),
+        material=_mat(albedo=(0.65, 0.05, 0.05)))
+    right = isf.Mesh(
+        triangles=_quad((s, 0, -s), (s, 0, s), (s, 2 * s, s), (s, 2 * s, -s),
+                        (-1, 0, 0)),
+        material=_mat(albedo=(0.12, 0.45, 0.15)))
+    mirror = isf.Sphere(radius=0.5, center=(-0.55, 0.5, -0.4),
+                        material=_mat(albedo=(0.9, 0.9, 0.9), metalness=1.0,
+                                      roughness=0.05))
+    diffuse = isf.Sphere(radius=0.45, center=(0.6, 0.45, 0.3),
+                         material=_mat(albedo=(0.7, 0.6, 0.2), roughness=0.6))
+    light = isf.PointLight(position=(0.0, 2.6, 0.5),
+                           color=(120.0, 120.0, 120.0))
+    return isf.Scene(models=[white, left, right, mirror, diffuse],
+                     camera=_camera(), lights=[light],
+                     background=(0.0, 0.0, 0.0))
+
+
+def cornell_device_scene(device="cuda"):
+    """``cornell_scene`` built on ``device``."""
+    from path_tracer_torch.scene.device_scene import build_scene
+
+    return build_scene(cornell_scene(), root=".", device=device)
 
 
 def sphere_grid_scene(n: int = 5) -> isf.Scene:

@@ -1,0 +1,431 @@
+"""Baseline JPEG decoder, standard library and numpy only.
+
+Decodes what libjpeg-turbo (the decoder behind Pillow) decodes for a
+sequential Huffman-coded JPEG, to the same samples:
+
+- SOF0 and SOF1 frames of 8-bit samples with 1 (gray) or 3 components,
+  sampling factors 1 or 2 each way, one or several scans, restart
+  intervals;
+- the integer inverse DCT of libjpeg's ``jidctint.c`` (``JDCT_ISLOW``,
+  the default), with its range limit;
+- libjpeg's "fancy" upsampling of 2:1 chroma (``jdsample.c``: the
+  triangle filter for h2v1, h1v2 and h2v2, with its rounding biases);
+  a component 2 samples wide or narrower is replicated instead, as
+  libjpeg does;
+- the fixed-point YCbCr -> RGB of ``jdcolor.c``; a JFIF file is YCbCr, an
+  Adobe file with transform 0 (or, with neither marker, component ids
+  'R', 'G', 'B') is RGB and is not converted.
+
+A progressive (SOF2), lossless, hierarchical or arithmetic-coded image,
+12-bit samples and CMYK raise ``ValueError`` naming the image and its
+marker. Pillow does not apply an EXIF orientation on ``open``, and
+neither does this.
+"""
+from __future__ import annotations
+
+import struct
+from array import array
+
+import numpy as np
+
+# Zigzag position k -> natural (row-major) index of the 8x8 block.
+_ZIGZAG = (
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+_SOF_NAMES = {
+    0xC2: "progressive (SOF2)", 0xC3: "lossless (SOF3)",
+    0xC5: "differential sequential (SOF5)",
+    0xC6: "differential progressive (SOF6)",
+    0xC7: "differential lossless (SOF7)",
+    0xC9: "arithmetic-coded sequential (SOF9)",
+    0xCA: "arithmetic-coded progressive (SOF10)",
+    0xCB: "arithmetic-coded lossless (SOF11)",
+    0xCD: "arithmetic-coded differential sequential (SOF13)",
+    0xCE: "arithmetic-coded differential progressive (SOF14)",
+    0xCF: "arithmetic-coded differential lossless (SOF15)",
+}
+
+
+def _huffman_lut(counts, symbols) -> array:
+    """65,536 entries: for the next 16 bits of the stream, the code's
+    length << 8 | its symbol (0 where no code matches)."""
+    lut = array("H", bytes(2 * 65536))
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            lo = code << (16 - length)
+            n = 1 << (16 - length)
+            lut[lo:lo + n] = array("H", [length << 8 | symbols[k]]) * n
+            code += 1
+            k += 1
+        code <<= 1
+    return lut
+
+
+def _peek16(segment: bytes) -> array:
+    """For each bit position of an entropy-coded segment (its 0xFF00
+    stuffing removed), the 16 bits from there on, zero past the end (the
+    bits libjpeg feeds in at a marker)."""
+    bits = np.unpackbits(np.frombuffer(segment, np.uint8))
+    bits = np.concatenate([bits, np.zeros(48, np.uint8)]).astype(np.uint32)
+    n = bits.size - 16
+    peek = np.zeros(n, np.uint32)
+    for k in range(16):
+        peek = (peek << 1) | bits[k:k + n]
+    return array("H", peek.astype(np.uint16).tobytes())
+
+
+def _entropy_segments(data: bytes, pos: int):
+    """(segments between restart markers with stuffing removed, the
+    position of the marker that ends the scan)."""
+    segments, cur, start = [], bytearray(), pos
+    while True:
+        i = data.find(b"\xff", pos)
+        if i < 0 or i + 1 >= len(data):
+            cur += data[start:]
+            segments.append(bytes(cur))
+            return segments, len(data)
+        nxt = data[i + 1]
+        if nxt == 0x00:
+            cur += data[start:i + 1]
+            pos = start = i + 2
+        elif nxt == 0xFF:  # fill byte before a marker
+            cur += data[start:i]
+            pos = start = i + 1
+        elif 0xD0 <= nxt <= 0xD7:
+            cur += data[start:i]
+            segments.append(bytes(cur))
+            cur = bytearray()
+            pos = start = i + 2
+        else:
+            cur += data[start:i]
+            segments.append(bytes(cur))
+            return segments, i
+
+
+def _decode_scan(segments, scan, mcus, interval, name) -> None:
+    """Huffman-decode one scan's blocks into their components' ``coef``
+    (quantized, natural order), ``interval`` MCUs (all, if 0) a restart
+    segment. ``mcus``: each MCU's blocks in order (``_scan_mcus``)."""
+    per_seg = interval if interval else len(mcus)
+    zz = _ZIGZAG
+    for seg_i, segment in enumerate(segments):
+        todo = mcus[seg_i * per_seg:(seg_i + 1) * per_seg]
+        if not todo:
+            break
+        peek = _peek16(segment)
+        limit = len(peek) - 32
+        pos = 0
+        pred = {c: 0 for c, _, _ in scan}
+        for mcu in todo:
+            for ci, dc_lut, ac_lut, coef, base in mcu:
+                if pos > limit:
+                    raise ValueError(f"{name}: entropy-coded data ends early")
+                e = dc_lut[peek[pos]]
+                if not e:
+                    raise ValueError(f"{name}: bad Huffman code")
+                pos += e >> 8
+                s = e & 255
+                if s:
+                    v = peek[pos] >> (16 - s)
+                    pos += s
+                    pred[ci] += v - (1 << s) + 1 if v < 1 << (s - 1) else v
+                coef[base] = pred[ci]
+                k = 1
+                while k < 64:
+                    e = ac_lut[peek[pos]]
+                    if not e:
+                        raise ValueError(f"{name}: bad Huffman code")
+                    pos += e >> 8
+                    rs = e & 255
+                    s = rs & 15
+                    if s:
+                        k += rs >> 4
+                        if k > 63:
+                            raise ValueError(f"{name}: coefficient past 63")
+                        v = peek[pos] >> (16 - s)
+                        pos += s
+                        coef[base + zz[k]] = (v - (1 << s) + 1
+                                              if v < 1 << (s - 1) else v)
+                        k += 1
+                    elif rs == 0xF0:
+                        k += 16
+                    else:
+                        break
+
+
+# jidctint.c's constants (CONST_BITS 13).
+_C = dict(f0298=2446, f0390=3196, f0541=4433, f0765=6270, f0899=7373,
+          f1175=9633, f1501=12299, f1847=15137, f1961=16069, f2053=16819,
+          f2562=20995, f3072=25172)
+
+
+def _idct_1d(x, shift: int):
+    """One pass of jidctint.c over axis 1 of x [N, 8, M] (int64): the even
+    and odd parts, descaled by ``shift`` with rounding."""
+    c = _C
+    z2, z3 = x[:, 2], x[:, 6]
+    z1 = (z2 + z3) * c["f0541"]
+    tmp2 = z1 + z3 * -c["f1847"]
+    tmp3 = z1 + z2 * c["f0765"]
+    tmp0 = (x[:, 0] + x[:, 4]) << 13
+    tmp1 = (x[:, 0] - x[:, 4]) << 13
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = x[:, 7], x[:, 5], x[:, 3], x[:, 1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * c["f1175"]
+    t0 = t0 * c["f0298"]
+    t1 = t1 * c["f2053"]
+    t2 = t2 * c["f3072"]
+    t3 = t3 * c["f1501"]
+    z1 = z1 * -c["f0899"]
+    z2 = z2 * -c["f2562"]
+    z3 = z3 * -c["f1961"] + z5
+    z4 = z4 * -c["f0390"] + z5
+    t0 = t0 + z1 + z3
+    t1 = t1 + z2 + z4
+    t2 = t2 + z2 + z3
+    t3 = t3 + z1 + z4
+    rnd = 1 << (shift - 1)
+    out = [tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+           tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3]
+    return np.stack([(v + rnd) >> shift for v in out], axis=1)
+
+
+def _idct(blocks: np.ndarray) -> np.ndarray:
+    """jidctint.c's jpeg_idct_islow of dequantized blocks [N, 64] →
+    samples [N, 8, 8] uint8 (rows, columns), through its range limit
+    (value + 128 clamped to 0..255, modulo 1024 beyond +-512)."""
+    x = blocks.reshape(-1, 8, 8).astype(np.int64)  # [N, row(v), col(u)]
+    ws = _idct_1d(x, 13 - 2)  # columns: along the row index
+    out = _idct_1d(ws.transpose(0, 2, 1), 13 + 2 + 3)
+    out = out.transpose(0, 2, 1)  # back to [N, row, col]
+    idx = out & 1023
+    table = np.concatenate([np.arange(128, 256), np.full(384, 255),
+                            np.zeros(384), np.arange(0, 128)]).astype(np.uint8)
+    return table[idx]
+
+
+def _fancy_h(x: np.ndarray) -> np.ndarray:
+    """jdsample.c's h2v1_fancy_upsample over axis 1 (int arrays)."""
+    left = np.concatenate([x[:, :1], x[:, :-1]], axis=1)
+    right = np.concatenate([x[:, 1:], x[:, -1:]], axis=1)
+    out = np.empty((x.shape[0], 2 * x.shape[1]), np.int64)
+    out[:, 0::2] = (3 * x + left + 1) >> 2
+    out[:, 1::2] = (3 * x + right + 2) >> 2
+    out[:, 0] = x[:, 0]
+    out[:, -1] = x[:, -1]
+    return out
+
+
+def _colsums(x: np.ndarray) -> tuple:
+    """(above, below) [H, W]: 3 x + the row above, 3 x + the row below,
+    the edge rows their own neighbours (jdmainct.c's context rows)."""
+    up = np.concatenate([x[:1], x[:-1]], axis=0)
+    down = np.concatenate([x[1:], x[-1:]], axis=0)
+    return 3 * x + up, 3 * x + down
+
+
+def _upsample(plane: np.ndarray, hx: int, vx: int, do_fancy: bool):
+    """A component's real samples [h, w] expanded hx times across and vx
+    down, as jdsample.c does."""
+    x = plane.astype(np.int64)
+    h, w = x.shape
+    if hx == 1 and vx == 1:
+        return x
+    if hx == 2 and vx == 1 and do_fancy and w > 2:
+        return _fancy_h(x)
+    if hx == 2 and vx == 2 and do_fancy and w > 2:
+        rows = []
+        for cs in _colsums(x):
+            left = np.concatenate([cs[:, :1], cs[:, :-1]], axis=1)
+            right = np.concatenate([cs[:, 1:], cs[:, -1:]], axis=1)
+            o = np.empty((h, 2 * w), np.int64)
+            o[:, 0::2] = (3 * cs + left + 8) >> 4
+            o[:, 1::2] = (3 * cs + right + 7) >> 4
+            rows.append(o)
+        out = np.empty((2 * h, 2 * w), np.int64)
+        out[0::2], out[1::2] = rows
+        return out
+    if hx == 1 and vx == 2 and do_fancy:
+        above, below = _colsums(x)
+        out = np.empty((2 * h, w), np.int64)
+        out[0::2] = (above + 1) >> 2
+        out[1::2] = (below + 2) >> 2
+        return out
+    return np.repeat(np.repeat(x, vx, axis=0), hx, axis=1)
+
+
+def _ycc_rgb(y, cb, cr) -> np.ndarray:
+    """jdcolor.c's ycc_rgb_convert: fixed point, SCALEBITS 16."""
+    one_half = 1 << 15
+    fix = lambda v: int(v * 65536 + 0.5)
+    cbx, crx = cb - 128, cr - 128
+    r = y + ((fix(1.40200) * crx + one_half) >> 16)
+    g = y + ((-fix(0.34414) * cbx + one_half - fix(0.71414) * crx) >> 16)
+    b = y + ((fix(1.77200) * cbx + one_half) >> 16)
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+def decode_jpeg(data: bytes, name="<bytes>") -> np.ndarray:
+    """A baseline JPEG's bytes → uint8 [H, W] (one component) or [H, W, 3]
+    (RGB), the samples libjpeg-turbo gives (the module docstring)."""
+    if data[:2] != b"\xff\xd8":
+        raise ValueError(f"{name}: not a JPEG image")
+    qt, dc_tabs, ac_tabs = {}, {}, {}
+    frame, interval, jfif, adobe = None, 0, False, None
+    pos = 2
+    while True:
+        i = data.find(b"\xff", pos)
+        while 0 <= i < len(data) - 1 and data[i + 1] == 0xFF:
+            i += 1
+        if i < 0 or i + 1 >= len(data):
+            raise ValueError(f"{name}: no EOI marker")
+        marker = data[i + 1]
+        pos = i + 2
+        if marker == 0xD9:  # EOI
+            break
+        if marker in (0x01,) or 0xD0 <= marker <= 0xD7:
+            continue
+        (length,) = struct.unpack(">H", data[pos:pos + 2])
+        body = data[pos + 2:pos + length]
+        pos += length
+        if marker in _SOF_NAMES or marker == 0xCC:
+            kind = _SOF_NAMES.get(marker, "arithmetic-coded (DAC)")
+            raise ValueError(f"{name}: {kind} JPEG is not supported, only "
+                             "baseline and extended sequential Huffman "
+                             f"(SOF0, SOF1); marker 0xFF{marker:02X}")
+        if marker == 0xE0 and body[:5] == b"JFIF\x00":
+            jfif = True
+        elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
+            adobe = body[11]
+        elif marker == 0xDB:  # DQT
+            k = 0
+            while k < len(body):
+                pq, tq = body[k] >> 4, body[k] & 15
+                n = 128 if pq else 64
+                vals = np.frombuffer(body[k + 1:k + 1 + n],
+                                     ">u2" if pq else np.uint8)
+                table = np.zeros(64, np.int64)
+                table[list(_ZIGZAG)] = vals
+                qt[tq] = table
+                k += 1 + n
+        elif marker == 0xC4:  # DHT
+            k = 0
+            while k < len(body):
+                tc, th = body[k] >> 4, body[k] & 15
+                counts = body[k + 1:k + 17]
+                n = sum(counts)
+                lut = _huffman_lut(counts, body[k + 17:k + 17 + n])
+                (ac_tabs if tc else dc_tabs)[th] = lut
+                k += 17 + n
+        elif marker == 0xDD:  # DRI
+            (interval,) = struct.unpack(">H", body[:2])
+        elif marker in (0xC0, 0xC1):
+            precision, height, width, nf = struct.unpack(">BHHB", body[:6])
+            if precision != 8:
+                raise ValueError(f"{name}: {precision}-bit JPEG samples are "
+                                 "not supported")
+            if nf not in (1, 3):
+                raise ValueError(f"{name}: {nf}-component JPEG is not "
+                                 "supported (gray or three components)")
+            if height == 0:
+                raise ValueError(f"{name}: JPEG height set by DNL is not "
+                                 "supported")
+            comps = {}
+            for c in range(nf):
+                cid, hv, tq = body[6 + 3 * c:9 + 3 * c]
+                hs, vs = hv >> 4, hv & 15
+                if hs not in (1, 2) or vs not in (1, 2):
+                    raise ValueError(f"{name}: sampling factors {hs}x{vs} "
+                                     "are not supported (1 or 2 each way)")
+                comps[cid] = dict(order=c, h=hs, v=vs, tq=tq)
+            hmax = max(c["h"] for c in comps.values())
+            vmax = max(c["v"] for c in comps.values())
+            mx, my = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+            for c in comps.values():
+                c["bw"], c["bh"] = mx * c["h"], my * c["v"]
+                c["coef"] = array("i", bytes(4 * 64 * c["bw"] * c["bh"]))
+                c["w"] = -(-width * c["h"] // hmax)
+                c["h_px"] = -(-height * c["v"] // vmax)
+            frame = dict(width=width, height=height, comps=comps, hmax=hmax,
+                         vmax=vmax, mx=mx, my=my)
+        elif marker == 0xDA:  # SOS
+            if frame is None:
+                raise ValueError(f"{name}: scan before the frame header")
+            ns = body[0]
+            scan = [(body[1 + 2 * j], body[2 + 2 * j] >> 4,
+                     body[2 + 2 * j] & 15) for j in range(ns)]
+            ss, se = body[1 + 2 * ns], body[2 + 2 * ns]
+            if ss != 0 or se != 63:
+                raise ValueError(f"{name}: scan of coefficients {ss}-{se}: "
+                                 "not a sequential JPEG")
+            segments, pos = _entropy_segments(data, pos)
+            mcus = _scan_mcus(frame, scan, dc_tabs, ac_tabs, name)
+            _decode_scan(segments, scan, mcus, interval, name)
+    if frame is None:
+        raise ValueError(f"{name}: JPEG without a frame header")
+    return _finish(frame, qt, jfif, adobe, name)
+
+
+def _scan_mcus(frame, scan, dc_tabs, ac_tabs, name) -> list:
+    """Each MCU's blocks in scan order: (component id, DC table, AC table,
+    coefficients, block offset)."""
+    comps = frame["comps"]
+    try:
+        specs = [(cid, comps[cid], dc_tabs[td], ac_tabs[ta])
+                 for cid, td, ta in scan]
+    except KeyError:
+        raise ValueError(f"{name}: scan names a missing component or "
+                         "Huffman table") from None
+    mcus = []
+    if len(specs) == 1:  # non-interleaved: the component's own blocks
+        cid, c, dc, ac = specs[0]
+        bw, bh = -(-c["w"] // 8), -(-c["h_px"] // 8)
+        for by in range(bh):
+            for bx in range(bw):
+                mcus.append(((cid, dc, ac, c["coef"],
+                              64 * (by * c["bw"] + bx)),))
+        return mcus
+    for my in range(frame["my"]):
+        for mx in range(frame["mx"]):
+            mcu = []
+            for cid, c, dc, ac in specs:
+                for v in range(c["v"]):
+                    for h in range(c["h"]):
+                        by, bx = my * c["v"] + v, mx * c["h"] + h
+                        mcu.append((cid, dc, ac, c["coef"],
+                                    64 * (by * c["bw"] + bx)))
+            mcus.append(tuple(mcu))
+    return mcus
+
+
+def _finish(frame, qt, jfif: bool, adobe, name) -> np.ndarray:
+    """Dequantize, inverse-DCT, upsample and colour-convert."""
+    planes = []
+    comps = sorted(frame["comps"].items(), key=lambda kv: kv[1]["order"])
+    for _, c in comps:
+        if c["tq"] not in qt:
+            raise ValueError(f"{name}: missing quantization table")
+        coef = np.frombuffer(c["coef"], np.int32).reshape(-1, 64)
+        px = _idct(coef.astype(np.int64) * qt[c["tq"]])
+        px = px.reshape(c["bh"], c["bw"], 8, 8).transpose(0, 2, 1, 3)
+        plane = px.reshape(c["bh"] * 8, c["bw"] * 8)[:c["h_px"], :c["w"]]
+        up = _upsample(plane, frame["hmax"] // c["h"],
+                       frame["vmax"] // c["v"], True)
+        planes.append(up[:frame["height"], :frame["width"]])
+    if len(planes) == 1:
+        return planes[0].astype(np.uint8)
+    ids = [cid for cid, _ in comps]
+    if jfif:
+        rgb = False
+    elif adobe is not None:
+        rgb = adobe == 0
+    else:
+        rgb = ids == [ord("R"), ord("G"), ord("B")]
+    if rgb:
+        return np.stack(planes, axis=-1).astype(np.uint8)
+    return _ycc_rgb(*planes)

@@ -1427,3 +1427,64 @@ def test_compact_on_card_equals_uncompacted(cuda, showcase_tex48, name):
                             IntegratorSpec(bounces=5, compact=True))
     assert want.std() > 0
     np.testing.assert_array_equal(got, want)
+
+
+def test_wide_rows_equal_the_tables_on_card(cuda, showcase_tex48):
+    """The textured showcase at 96x72, 5 bounces, 2 spp on the card,
+    shading from the wide rows (sl_attr, tex_wide) and from the per-model
+    tables (``integrator._uses_rows`` answering False, the route the
+    differentiable path takes): equal on every value, through the same
+    kernels."""
+    from unittest import mock
+
+    from path_tracer_torch.models import integrator
+    from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.ops import cuda_bvh, cuda_trwalk
+
+    spec = integrator.IntegratorSpec(bounces=5)
+    assert integrator._uses_rows(showcase_tex48, spec)
+    before = (cuda_bvh.closest_hit_launches, cuda_trwalk.alpha_launches)
+    got = render_pixel_sums(showcase_tex48, 96, 72, 1, 2, spec)
+    assert cuda_bvh.closest_hit_launches > before[0]
+    assert cuda_trwalk.alpha_launches > before[1]
+    with mock.patch.object(integrator, "_uses_rows",
+                           lambda scene, spec: False):
+        want = render_pixel_sums(showcase_tex48, 96, 72, 1, 2, spec)
+    assert want.std() > 0
+    np.testing.assert_array_equal(got, want)
+
+
+def test_converted_glb_renders_on_card(cuda, tmp_path):
+    """The port's glb generator, ``path-tracer-torch convert``, then a
+    64x48, 2-spp render on the card through the flat and walk kernels,
+    against the same render on the CPU: at most 5% of values beyond rtol
+    1e-3 / atol 1e-4 (an ulp of ATen's CUDA transcendentals can flip an
+    alpha draw, as on the sphere scene above) and the mean within 1%."""
+    import importlib.util
+
+    from path_tracer_torch import cli
+    from path_tracer_torch.models.integrator import IntegratorSpec
+    from path_tracer_torch.models.renderer import render_pixel_sums
+    from path_tracer_torch.ops import cuda_bvh, cuda_trwalk
+    from path_tracer_torch.scene import load_scene
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_gen_test_glb",
+        Path(__file__).parent / "tools" / "torch_gen_test_glb.py")
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    gen.write_glb(tmp_path / "scene.glb")
+    cli.main(["convert", str(tmp_path / "scene.glb"), str(tmp_path / "isf")])
+    path = tmp_path / "isf" / "scene.isf"
+    sc = load_scene(path, cuda)
+    assert sc.use_bvh and not sc.all_opaque
+    spec = IntegratorSpec(bounces=4)
+    before = (cuda_bvh.closest_hit_launches, cuda_trwalk.trans_launches)
+    got = render_pixel_sums(sc, 64, 48, 1, 2, spec)
+    assert cuda_bvh.closest_hit_launches > before[0]
+    assert cuda_trwalk.trans_launches > before[1]
+    want = render_pixel_sums(load_scene(path, "cpu"), 64, 48, 1, 2, spec)
+    assert np.isfinite(got).all() and want.std() > 0
+    outside = np.abs(got - want) > 1e-4 + 1e-3 * np.abs(want)
+    assert outside.mean() <= 0.05
+    assert abs(got.mean() - want.mean()) <= 0.01 * want.mean()

@@ -2,11 +2,14 @@
 Pillow on its main path (a reference scene, the showcase and the textured
 showcase with its textures written and read, built and rendered, a
 training step on the textured showcase through ``path_tracer_torch.parallel``,
-and the render driver's options: samples per wavefront, compaction, a
+the renderer's options: samples per wavefront, compaction, a
 checkpointed render through the viewer, AOVs, the OBJ logger and the
-CLI's profiler trace),
-and its CUDA wrappers never fall back to the plain versions for a tensor on
-the card."""
+CLI's profiler trace; the wide shading rows, the JPEG and PNG decoders and
+the glTF converter, the Cornell box and the package-level API), run in an
+interpreter where ``import jax`` and ``import PIL`` fail; no source of the
+port, its examples or its glb generator imports them; and its CUDA
+wrappers never fall back to the plain versions for a tensor on the
+card."""
 import subprocess
 import sys
 from pathlib import Path
@@ -18,6 +21,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 _RENDER_IN_FRESH_INTERPRETER = """
 import sys
+for name in ("jax", "jaxlib", "PIL"):
+    sys.modules[name] = None  # any import of these now fails
 import numpy as np
 import path_tracer_torch
 from path_tracer_torch.config import Profile, Resolution
@@ -89,9 +94,28 @@ with tempfile.TemporaryDirectory() as tmp:
         render(cube, Profile(resolution=Resolution(8, 6), samples=1,
                              bounces=1))
     assert (Path(tmp) / cli.TRACE_FILE).exists()
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "path_tracer_tpu",
-                                    "yaml", "PIL"))
+
+# The wide rows, the decoders, the converter's modules, the Cornell box and
+# the package-level API.
+from path_tracer_torch.models.integrator import IntegratorSpec, _uses_rows
+assert _uses_rows(textured, IntegratorSpec())
+from path_tracer_torch.scene import gltf  # noqa: F401
+from path_tracer_torch.scene.procedural import cornell_device_scene
+from path_tracer_torch.utils.image_io import decode_image_rgba
+fixtures = Path(sys.argv[1]).parents[2] / "fixtures" / "torch_images"
+for name in ("rgb_420_q50.jpg", "palette_trns.png"):
+    rgba = decode_image_rgba((fixtures / name).read_bytes(), name)
+    assert rgba.shape == (29, 37, 4)
+img = path_tracer_torch.render(
+    cornell_device_scene("cpu"),
+    path_tracer_torch.Profile(resolution=Resolution(8, 6), samples=1,
+                              bounces=1))
+assert img.shape == (6, 8, 3)
+assert path_tracer_torch.load_scene(sys.argv[1], device="cpu").use_bvh is False
+bad = sorted(m for m, mod in sys.modules.items()
+             if mod is not None
+             and m.split(".")[0] in ("jax", "jaxlib", "path_tracer_tpu",
+                                     "yaml", "PIL"))
 print("LOADED:" + ",".join(bad))
 """
 
@@ -106,17 +130,22 @@ def test_port_renders_without_jax_yaml_or_pil():
 
 
 def test_port_sources_import_no_jax():
-    """No module of the port (nor chip_smoke.py) names jax or the JAX
-    package in an import statement."""
+    """No module of the port (nor chip_smoke.py, the port's examples or its
+    glb generator) names jax, the JAX package or Pillow in an import
+    statement."""
     import ast
 
     files = sorted((REPO / "path_tracer_torch").rglob("*.py"))
     for module in ("parallel/train.py", "ops/cuda_khit.py",
                    "scene/bvh_layouts.py", "models/debug_aov.py",
                    "utils/checkpoint.py", "utils/obj_logger.py",
-                   "viewer/http_viewer.py"):
+                   "viewer/http_viewer.py", "scene/gltf.py",
+                   "utils/jpeg.py"):
         assert REPO / "path_tracer_torch" / module in files
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py",
+              REPO / "tests" / "tools" / "torch_gen_test_glb.py"]
+    files += sorted((REPO / "examples").glob("torch_*.py"))
+    assert len(files) > 40
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
@@ -126,7 +155,7 @@ def test_port_sources_import_no_jax():
                 names = [node.module or ""]
             for name in names:
                 assert name.split(".")[0] not in ("jax", "jaxlib",
-                                                  "path_tracer_tpu"), \
+                                                  "path_tracer_tpu", "PIL"), \
                     f"{path}: imports {name}"
 
 

@@ -5,8 +5,10 @@ against Pillow, which the port itself never imports.
   reference scenes, the port's showcase textures, and seeded images of
   each colour type written with each of the five row filters (the test's
   own encoder: Pillow picks its filters itself);
-- anything else (16-bit samples, a palette, Adam7 interlacing) raises
-  ``ValueError`` naming the file;
+- an invalid file raises ``ValueError`` naming the file: a palette at 16
+  bits, a palette without ``PLTE``, an interlace method PNG does not
+  define, not a PNG (16-bit samples, palettes and Adam7 interlacing
+  decode as Pillow's: tests/test_torch_image_decode.py);
 - ``load_texture_rgb`` / ``load_texture_gray`` equal the JAX package's
   Pillow loaders value for value;
 - the showcase textures the port writes hold exactly the u8 values of the
@@ -136,28 +138,40 @@ def test_writers_round_trip_through_pillow(tmp_path):
         encode_png(np.zeros((4, 4, 2), np.uint8))
 
 
-def _interlaced(tmp_path) -> Path:
-    path = tmp_path / "plain.png"
-    Image.fromarray(np.zeros((4, 4), np.uint8), "L").save(path)
+def _patched_ihdr(path: Path, offset: int, value: int) -> None:
+    """Set one byte of the IHDR chunk's body (8: bit depth, 9: colour
+    type, 12: interlace method)."""
     data = bytearray(path.read_bytes())
-    data[8 + 8 + 12] = 1  # IHDR's interlace byte
-    out = tmp_path / "interlaced.png"
-    out.write_bytes(bytes(data))
-    return out
+    data[8 + 8 + offset] = value
+    path.write_bytes(bytes(data))
+
+
+def _without_plte(path: Path) -> None:
+    data = path.read_bytes()
+    pos, out = 8, bytearray(data[:8])
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] != b"PLTE":
+            out += data[pos:pos + 12 + length]
+        pos += 12 + length
+    path.write_bytes(bytes(out))
 
 
 @pytest.mark.parametrize("kind", ["16-bit", "palette", "interlaced",
                                   "not a png"])
 def test_unsupported_pngs_raise_naming_the_file(tmp_path, kind):
     path = tmp_path / f"{kind}.png"
-    if kind == "16-bit":
+    if kind == "16-bit":  # a 16-bit file marked as a palette
         Image.fromarray(np.arange(12, dtype=np.uint16).reshape(3, 4)
                         * 999).save(path)
-    elif kind == "palette":
+        _patched_ihdr(path, 9, 3)
+    elif kind == "palette":  # a palette file without its palette
         Image.fromarray(np.zeros((3, 4), np.uint8), "L").convert(
             "P").save(path)
-    elif kind == "interlaced":
-        path = _interlaced(tmp_path)
+        _without_plte(path)
+    elif kind == "interlaced":  # an interlace method PNG does not define
+        Image.fromarray(np.zeros((4, 4), np.uint8), "L").save(path)
+        _patched_ihdr(path, 12, 2)
     else:
         path.write_bytes(b"GIF89a")
     with pytest.raises(ValueError, match=path.name):
