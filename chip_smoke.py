@@ -217,7 +217,27 @@ any error:
    file without a camera exiting 2, and the JPEG and PNG fixtures of
    ``tests/fixtures/torch_images`` decoding to Pillow's texels; (8c)
    ``examples/torch_render_scene.py`` on ``cube`` and
-   ``examples/torch_inverse_rendering.py``, its loss falling.
+   ``examples/torch_inverse_rendering.py``, its loss falling;
+9. (also alone with ``--only 9``) the multi-device paths
+   (``path_tracer_torch.parallel``) in processes this script launches
+   (``--par-worker``, a ``file://`` rendezvous under ``build/``), on the
+   textured showcase at 1920x1080, 5 bounces, 1 spp, 2^18-lane tiles:
+   (9a) a world of one NCCL rank on cuda:0: ``render_sharded`` with
+   rebalancing off and on and ``render_multihost``, each bit-equal to the
+   one-process ``render_pixel_sums`` of the same sample; (9b) a world of
+   two gloo ranks sharing cuda:0: the same renders, bit-equal to 9a's,
+   the live lanes of each rank at each bounce before and after the
+   exchange (after it within one of the mean), the hand-written launches
+   of each rank (rows 9, 10, 13, 14 and 4 must run on each) and the
+   transport each collective took; (9c) in the 9b world, the sharded
+   ``make_train_step`` over the 2^18-lane backward tile split over the
+   two ranks: the loss equal on both, the loss and ``mat_albedo_factor``
+   after the step within rtol 1e-5 of the one-process step, rows 13L and
+   14L launched on each rank; (9d) ``torchrun --nproc-per-node 1`` of the
+   CLI on ``cube``, its PNG byte-equal to the plain CLI's. Seconds of a
+   1080p sample for one process, 9a and 9b and peak device memory per
+   rank are logged beside the card's name and power limit, and are not a
+   scaling figure: both ranks share one card.
 
 The last lines are a JSON object of kernel numbers, the ``nvidia-smi`` card
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -226,6 +246,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -6064,6 +6085,384 @@ def phase_examples() -> None:
                              "fall")
 
 
+# Phase 9: the multi-device paths on one card. The rows the textured
+# showcase's forward render launches (9, 10, 13, 14, 4) and the training
+# step's (13L, 14L), each of which every rank must launch.
+PAR_ROWS = ("flat_closest_hit", "flat_occluded", "alpha_walk", "trans_walk",
+            "sph_occluded")
+PAR_TRAIN_ROWS = ("alpha_walk_live", "trans_walk_live")
+PAR_LR = 1e-2  # 9c's step (make_train_step's default)
+PAR_TIMEOUT = 300  # seconds a launched world of phase 9 may take
+PAR_DIR = REPO / "build" / "chip_smoke_parallel"  # the worlds' files
+
+
+def par_spec(differentiable: bool = False):
+    from path_tracer_torch.models.integrator import IntegratorSpec
+
+    return IntegratorSpec(bounces=5, differentiable=differentiable)
+
+
+def par_profile():
+    """Phase 9's frame: 1920x1080, 5 bounces, 1 spp, 2^18-lane tiles."""
+    from path_tracer_torch.config import Profile, Resolution
+
+    return Profile(resolution=Resolution(DRIVER_W, DRIVER_H), bounces=5,
+                   samples=1, tile_rays=WAVE)
+
+
+def par_sums(sc, mesh, rebalance: bool) -> np.ndarray:
+    """The 1080p radiance sums of sample 1 (linear order) through
+    render_sharded: the one-process driver's Morton tiles of 2^18 lanes,
+    each rank its contiguous slice of every tile, every tile's sums
+    gathered onto every rank."""
+    import torch
+
+    from path_tracer_torch.ops.sorting import morton_pixel_order
+    from path_tracer_torch.parallel.mesh import (
+        all_gather_into_tensor,
+        mesh_rank,
+    )
+    from path_tracer_torch.parallel.render import render_sharded
+
+    group, me, n = mesh_rank(mesh)
+    n_pix = DRIVER_W * DRIVER_H
+    morton = morton_pixel_order(DRIVER_W, DRIVER_H)
+    n_tiles = -(-n_pix // WAVE)
+    pix = np.zeros(n_tiles * WAVE, np.int32)
+    pix[:n_pix] = morton
+    per = WAVE // n
+    rows = []
+    for t in range(n_tiles):
+        ids = torch.from_numpy(pix[t * WAVE + me * per:][:per]).to(sc.device)
+        acc = render_sharded(sc, mesh, ids, DRIVER_W, DRIVER_H, 1, 1,
+                             par_spec(), rebalance=rebalance)
+        rows.append(all_gather_into_tensor(acc, group))
+    rows = torch.cat(rows).cpu().numpy()[:n_pix]
+    out = np.empty_like(rows)
+    out[morton] = rows
+    return out
+
+
+def par_exchange_live(sc, mesh) -> tuple:
+    """(before, after): this rank's live lanes at each bounce's exchange
+    of one rebalanced sample of the middle tile's slice."""
+    import torch
+
+    from path_tracer_torch.models.integrator import render_wavefront
+    from path_tracer_torch.parallel.mesh import mesh_rank
+    from path_tracer_torch.parallel.render import _alive_first_all_to_all
+
+    group, me, n = mesh_rank(mesh)
+    per = WAVE // n
+    ids = backward_tile(sc.device)[me * per:(me + 1) * per]
+    inner = _alive_first_all_to_all(group, me, n)
+    before, after = [], []
+
+    def counted(state):
+        before.append(int(state[4].sum()))
+        out = inner(state)
+        after.append(int(out[4].sum()))
+        return out
+
+    render_wavefront(sc, ids, DRIVER_W, DRIVER_H, 1, par_spec(),
+                     exchange=counted, lane_ids=me * per + torch.arange(
+                         per, dtype=torch.int32, device=sc.device))
+    return before, after
+
+
+def par_timed(fn):
+    """(seconds, result, launch counts) of fn(), counts set to 0 before."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out, launch_counts()
+
+
+def par_world(kind: str, rank: int, world: int, device) -> dict:
+    """What one rank of 9a or 9b computes (the module docstring)."""
+    import torch
+
+    from path_tracer_torch.models.integrator import render_wavefront
+    from path_tracer_torch.parallel import mesh as pmesh
+    from path_tracer_torch.parallel.multihost import render_multihost
+    from path_tracer_torch.parallel.train import get_params, make_train_step
+    from path_tracer_torch.scene.showcase import showcase_device_scene
+
+    t0 = time.perf_counter()
+    tex = showcase_device_scene(SHOWCASE_GRID, device,
+                                sl_block=SHOWCASE_BLOCK, textured=True)
+    out = {"build_s": time.perf_counter() - t0}
+    mesh = pmesh.default_mesh()
+    per = WAVE // world
+    tile = backward_tile(device)[rank * per:(rank + 1) * per]
+    # Warm-up: the process's first launches and allocations, on this
+    # rank's slice of one tile.
+    render_wavefront(tex, tile, DRIVER_W, DRIVER_H, 1, par_spec())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    # Rebalancing off and on in turns (off, on, on, off); each repeat
+    # must give the same sums.
+    sums = {}
+    for reb in (False, True, True, False):
+        key = "on" if reb else "off"
+        secs, got, counts = par_timed(lambda: par_sums(tex, mesh, reb))
+        out.setdefault(f"{key}_s", []).append(secs)
+        if key in sums:
+            if not np.array_equal(got, sums[key]):
+                raise AssertionError(f"{kind} rank {rank}: rebalance {key} "
+                                     "differs from its repeat")
+            continue
+        sums[key] = got
+        out[f"{key}_counts"] = json.dumps(counts)
+        if rank == 0:
+            np.save(PAR_DIR / f"{kind}_{key}.npy", got)
+    out["peak"] = torch.cuda.max_memory_allocated(device)
+    out["peak_over"] = out["peak"] - base
+    out["live_before"], out["live_after"] = par_exchange_live(tex, mesh)
+    if kind == "9a":
+        secs, img, _ = par_timed(lambda: render_multihost(
+            tex, par_profile(), mesh=mesh))
+        out["multihost_s"] = secs
+        out["multihost"] = img
+    else:
+        step = make_train_step(DRIVER_W, DRIVER_H, par_spec(True),
+                               n_samples=1, lr=PAR_LR, mesh=mesh)
+        params = get_params(tex)
+        secs, (new, loss), counts = par_timed(lambda: step(
+            params, tex, tile, torch.zeros((per, 3), device=device), 1))
+        out.update(step_s=secs, loss=loss.cpu().numpy(),
+                   albedo=new["mat_albedo_factor"].cpu().numpy(),
+                   step_counts=json.dumps(counts),
+                   reduced_bytes=4 * (1 + sum(p.numel()
+                                              for p in params.values())))
+    out["transports"] = json.dumps({":".join(k): v
+                                    for k, v in pmesh.transports.items()})
+    return out
+
+
+def par_worker(argv: list) -> int:
+    """``chip_smoke.py --par-worker KIND RANK WORLD``: one rank of 9a (NCCL,
+    a world of one) or 9b (gloo, two ranks sharing cuda:0), joined through
+    a ``file://`` rendezvous in PAR_DIR; writes PAR_DIR/KIND_rankRANK.npz
+    and leaves the group on exit."""
+    import torch.distributed as dist
+
+    kind, rank, world = argv[0], int(argv[1]), int(argv[2])
+    sys.path.insert(0, str(REPO))
+    from path_tracer_torch import native
+    from path_tracer_torch.parallel import multihost
+
+    native.kernels()  # built by the launching run: loaded from its cache
+    device = multihost.initialize(
+        "cuda:0", backend="nccl" if kind == "9a" else "gloo",
+        init_method=f"file://{PAR_DIR / (kind + '.rdzv')}",
+        world_size=world, rank=rank)
+    try:
+        out = par_world(kind, rank, world, device)
+    finally:
+        dist.destroy_process_group()
+    np.savez(PAR_DIR / f"{kind}_rank{rank}.npz", **out)
+    return 0
+
+
+def par_launch(kind: str, world: int) -> list:
+    """Runs the world of ``kind`` (one process a rank, each logging into
+    PAR_DIR) to its end; its ranks' results. Fails, stopping the other
+    ranks, as soon as a rank exits non-zero, or at PAR_TIMEOUT."""
+    logs = [PAR_DIR / f"{kind}_rank{r}.log" for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--par-worker",
+                 kind, str(r), str(world)], cwd=REPO, stdout=f,
+                stderr=subprocess.STDOUT))
+    deadline = time.perf_counter() + PAR_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.poll()]
+            if failed or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"{kind} rank {r} exited {p.returncode}:\n"
+                                 f"{logs[r].read_text()[-4000:]}")
+    return [dict(np.load(PAR_DIR / f"{kind}_rank{r}.npz"))
+            for r in range(world)]
+
+
+def par_check_rows(label: str, counts: dict, rows) -> None:
+    missing = [k for k in rows if not counts[k]]
+    if missing:
+        raise AssertionError(f"{label}: rows {missing} not launched: "
+                             f"{counts}")
+
+
+def phase_parallel(device, tex) -> None:
+    """9: the multi-device paths on one card (the module docstring)."""
+    import torch
+
+    from path_tracer_torch.models.integrator import render_wavefront
+    from path_tracer_torch.models.renderer import finalize, render_pixel_sums
+    from path_tracer_torch.parallel.train import (
+        get_params,
+        make_train_step,
+        value_and_grad,
+    )
+
+    card = smi()
+    note = f"{card}; not a scaling figure: both ranks share one card"
+    log(f"phase 9: multi-device paths on one card, textured showcase, "
+        f"{DRIVER_W}x{DRIVER_H}, 5 bounces, 1 spp, {WAVE}-lane tiles")
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    PAR_DIR.mkdir(parents=True)
+    try:
+        ids = backward_tile(device)
+        render_wavefront(tex, ids, DRIVER_W, DRIVER_H, 1, par_spec())
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        one_s = []
+        for _ in range(2):
+            secs, ref, _ = par_timed(lambda: render_pixel_sums(
+                tex, DRIVER_W, DRIVER_H, 1, 1, par_spec(), tile_rays=WAVE))
+            one_s.append(secs)
+        peak = torch.cuda.max_memory_allocated(device) - base
+        log(f"  one process: {one_s[0]:.3f}, {one_s[1]:.3f} s a 1080p "
+            f"sample, peak device memory {peak} bytes over what the process "
+            f"held before ({note})")
+        ref_img = finalize(ref, 1, par_profile(), DRIVER_W, DRIVER_H)
+        # 9c's references: the one-process step over the whole tile, and
+        # over its two halves with their losses and gradients summed (the
+        # association of a two-rank all_reduce).
+        p0 = get_params(tex)
+        zeros = torch.zeros((WAVE, 3), device=device)
+        new, loss = make_train_step(DRIVER_W, DRIVER_H, par_spec(True),
+                                    n_samples=1, lr=PAR_LR)(
+            p0, tex, ids, zeros, 1)
+        full_loss = float(loss)
+        full_albedo = new["mat_albedo_factor"].cpu().numpy()
+        half = WAVE // 2
+        parts = [value_and_grad(p0, tex, ids[h:h + half], zeros[:half], 1,
+                                DRIVER_W, DRIVER_H, par_spec(True))
+                 for h in (0, half)]
+        half_loss = float(parts[0][0] + parts[1][0])
+        g = parts[0][1]["mat_albedo_factor"] + parts[1][1][
+            "mat_albedo_factor"]
+        with torch.no_grad():
+            half_albedo = (p0["mat_albedo_factor"] - PAR_LR * g).cpu().numpy()
+        albedo0 = p0["mat_albedo_factor"].cpu().numpy()
+
+        results = {}
+        for kind, world in (("9a", 1), ("9b", 2)):
+            t0 = time.perf_counter()
+            ranks = par_launch(kind, world)
+            results[kind] = ranks
+            what = ("one NCCL rank on cuda:0" if kind == "9a"
+                    else "two gloo ranks sharing cuda:0")
+            log(f"  {kind} ({what}): the world ran in "
+                f"{time.perf_counter() - t0:.1f} s")
+            for key in ("off", "on"):
+                got = np.load(PAR_DIR / f"{kind}_{key}.npy")
+                n_off = int((got != ref).any(axis=1).sum())
+                log(f"    rebalance {key}: pixels off the one-process sums "
+                    f"{n_off} of {ref.shape[0]}")
+                if n_off:
+                    raise AssertionError(f"{kind} rebalance {key}: not "
+                                         "bit-equal to one process")
+            for r, z in enumerate(ranks):
+                counts = {k: json.loads(str(z[f"{k}_counts"]))
+                          for k in ("off", "on")}
+                log(f"    rank {r}: s a 1080p sample in turns, rebalance off "
+                    f"{z['off_s'][0]:.3f}, on {z['on_s'][0]:.3f}, on "
+                    f"{z['on_s'][1]:.3f}, off {z['off_s'][1]:.3f}; peak "
+                    f"device memory {int(z['peak_over'])} bytes over the "
+                    f"scene and warm-up ({int(z['peak'])} in all); scene "
+                    f"built in {float(z['build_s']):.2f} s ({note})")
+                log(f"    rank {r} launches (rebalance off): "
+                    f"{ {k: counts['off'][k] for k in PAR_ROWS} }; "
+                    f"transports {str(z['transports'])}")
+                par_check_rows(f"{kind} rank {r}", counts["off"], PAR_ROWS)
+                par_check_rows(f"{kind} rank {r} rebalanced", counts["on"],
+                               PAR_ROWS)
+            before = np.array([z["live_before"] for z in ranks])
+            after = np.array([z["live_after"] for z in ranks])
+            log(f"    live lanes per rank and bounce, middle tile, before "
+                f"the exchange {before.tolist()}, after {after.tolist()}")
+            if (before.sum(0) != after.sum(0)).any() or (np.abs(
+                    after - after.mean(0)) > 1).any():
+                raise AssertionError(f"{kind}: the exchange lost lanes or "
+                                     "left a rank beyond +-1 of the mean")
+        z = results["9a"][0]
+        if not np.array_equal(z["multihost"], ref_img):
+            raise AssertionError("9a: render_multihost's image is not the "
+                                 "one-process image")
+        log(f"  9a render_multihost: image equal to the one-process image, "
+            f"{float(z['multihost_s']):.3f} s ({note})")
+        for key in ("off", "on"):
+            if not np.array_equal(np.load(PAR_DIR / f"9a_{key}.npy"),
+                                  np.load(PAR_DIR / f"9b_{key}.npy")):
+                raise AssertionError(f"9b rebalance {key}: not 9a's sums")
+        b = results["9b"]
+        losses = [float(z["loss"]) for z in b]
+        upd = b[0]["albedo"].astype(np.float64) - albedo0
+        full_upd = full_albedo.astype(np.float64) - albedo0
+        rel = abs(losses[0] - full_loss) / abs(full_loss)
+        upd_rel = float(np.max(np.abs(upd - full_upd))
+                        / np.max(np.abs(full_upd)))
+        same = (losses[0] == losses[1] == half_loss and all(
+            np.array_equal(z["albedo"], half_albedo) for z in b))
+        step_counts = [json.loads(str(z["step_counts"])) for z in b]
+        step_rows = [{k: c[k] for k in PAR_TRAIN_ROWS} for c in step_counts]
+        log(f"  9c: sharded train step over the {WAVE}-lane backward tile "
+            f"split over 2 ranks (lr {PAR_LR}, {int(b[0]['reduced_bytes'])} "
+            f"bytes all_reduced): losses {losses}; the one-process step over "
+            f"the two halves summed {half_loss}, loss and mat_albedo_factor "
+            f"equal {same}; over the whole tile {full_loss}, relative "
+            f"{rel:.3e}, the update's largest difference over its largest "
+            f"entry {upd_rel:.3e} (float32 sums of a gradient over 2^17 and "
+            f"2^18 lanes); seconds {[float(z['step_s']) for z in b]}; "
+            f"launches {step_rows} ({note})")
+        if not same or rel > 1e-5:
+            raise AssertionError("9c: the sharded step disagrees")
+        for r, c in enumerate(step_counts):
+            par_check_rows(f"9c rank {r}", c, PAR_TRAIN_ROWS)
+
+        # 9d: torchrun with one process of the CLI against the plain CLI.
+        prof = profile_file(PAR_DIR / "p.yaml", 2, 480, 270)
+        plain, ranked = PAR_DIR / "plain.png", PAR_DIR / "torchrun.png"
+        argv = ["render", str(scene_path("cube")), "-p", str(prof), "-q",
+                "--device", "cuda", "-o"]
+        if cli_main(*argv, str(plain)):
+            raise AssertionError("9d: the plain CLI failed")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "path_tracer_torch.cli", *argv,
+             str(ranked)], cwd=REPO, capture_output=True, text=True,
+            timeout=PAR_TIMEOUT, env=dict(os.environ, PYTHONPATH=str(REPO)))
+        same = ranked.exists() and ranked.read_bytes() == plain.read_bytes()
+        log(f"  9d: torchrun --nproc-per-node 1 of the CLI (cube, 480x270, 2 "
+            f"spp): exit {run.returncode} in {time.perf_counter() - t0:.1f} "
+            f"s, PNG byte-equal to the plain CLI's {same}")
+        if run.returncode or not same:
+            raise AssertionError(f"9d failed:\n{run.stdout[-2000:]}\n"
+                                 f"{run.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(PAR_DIR, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -6071,11 +6470,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--par-worker"]:
+        return par_worker(sys.argv[2:])
     sys.path.insert(0, str(REPO))
     from path_tracer_torch import native
 
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
-    alone = ("3i", "3j", "3k", "3l", "3m", "3n", "3o", "3p", "3q", "7", "8")
+    alone = ("3i", "3j", "3k", "3l", "3m", "3n", "3o", "3p", "3q", "7", "8",
+             "9")
     if sys.argv[1:] and (len(sys.argv) != 3 or only not in alone):
         print("usage: chip_smoke.py [--only " + "|".join(alone) + "]",
               file=sys.stderr)
@@ -6112,6 +6514,12 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s; tr_kernel_ok {tex.tr_kernel_ok}")
     if not tex.tr_kernel_ok:
         raise AssertionError("textured showcase: no walk-kernel tables")
+    if only == "9":  # phase 9 alone
+        phase_parallel(device, tex)
+        log(f"chip_smoke: phase 9 passed in "
+            f"{time.perf_counter() - start:.1f} s")
+        print(card)
+        return 0
     if only == "3o":  # phase 3o alone: rows 15, 3 and 15L
         log("phase 3o: rows 15 and 3 (3f's and 3g's checks and turns), then "
             "15L (6a)")
@@ -6257,6 +6665,7 @@ def main() -> int:
     phase_wide_rows(tex, big)
     phase_convert(device, oracle=False)  # phase 5 ran the glb cases
     phase_examples()
+    phase_parallel(device, tex)
 
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda",

@@ -16,6 +16,16 @@ textures (``scene/gltf.py``); it is host tooling with no tensor work, so
 it takes no ``--device``. Errors print one line to stderr and exit with
 code 2, as the reference's CLI does. OUTPUT and PROFILE fall back to
 environment variables.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) ``render`` runs one rank per
+process: it joins the process group (``parallel.multihost.initialize``:
+NCCL on ``cuda:LOCAL_RANK``, gloo on the CPU), renders through
+``render_multihost`` and writes the PNG from rank 0, the same image as
+one process writes. ``--checkpoint``, ``--viewer`` and
+``--debug-textures`` are refused there, and ``--profile-trace`` traces
+rank 0::
+
+    torchrun --nproc-per-node 2 -m path_tracer_torch.cli render scene.isf
 """
 from __future__ import annotations
 
@@ -101,6 +111,9 @@ def _trace(trace_dir, device):
 
 
 def run_render(args) -> None:
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        run_render_ranks(args)
+        return
     from path_tracer_torch.config import Profile
     from path_tracer_torch.models.renderer import render
     from path_tracer_torch.scene import load_scene
@@ -134,6 +147,34 @@ def run_render(args) -> None:
     finally:
         if viewer is not None:
             viewer.close()
+
+
+def run_render_ranks(args) -> None:
+    """``render`` in one rank of a ``torchrun`` world."""
+    import torch.distributed as dist
+
+    from path_tracer_torch.config import Profile
+    from path_tracer_torch.parallel import multihost
+    from path_tracer_torch.scene import load_scene
+    from path_tracer_torch.utils.image_io import save_png
+
+    for flag, given in (("--checkpoint", args.checkpoint),
+                        ("--viewer", args.viewer),
+                        ("--debug-textures", args.debug_textures)):
+        if given:
+            raise RuntimeError(f"{flag} is not supported in a render of "
+                               "more than one rank")
+    profile = Profile.load(args.profile) if args.profile else Profile()
+    device = multihost.initialize(args.device)
+    try:
+        rank = dist.get_rank()
+        scene = load_scene(args.input, device=device)
+        with _trace(args.profile_trace if rank == 0 else None, device):
+            image = multihost.render_multihost(scene, profile)
+        if rank == 0:
+            save_png(image, args.output)
+    finally:
+        dist.destroy_process_group()
 
 
 def run_convert(args) -> None:

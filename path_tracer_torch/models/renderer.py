@@ -1,7 +1,7 @@
 """Render driver: tiles x samples loop around the wavefront integrator.
 
-Port of ``path_tracer_tpu/models/renderer.py`` for one device: pixels are
-fed in the host-computed Morton (16x16 screen tile) order, cut into tiles
+Port of ``path_tracer_tpu/models/renderer.py``: pixels are fed in the
+host-computed Morton (16x16 screen tile) order, cut into tiles
 of ``tile_rays`` lanes (the last tile padded with pixel 0, discarded), and
 each tile's float32 radiance sum is accumulated sample by sample in sample
 order, exactly as the JAX package sums, in pass batches of
@@ -14,6 +14,13 @@ only the float summation order changes.
 Accumulators stay on the device. The only host transfers are the final
 [W*H,3] sum, a resumed render's starting sums, and the snapshot a pass
 callback asks for (the viewer, checkpoints).
+
+In a process group of more than one rank (``parallel/multihost.py``) the
+driver takes the JAX package's multi-device route: the tile is rounded up
+to a multiple of the world size, each rank renders its contiguous slice of
+every tile through ``parallel.render.render_sharded``, and a snapshot
+gathers the slices onto every rank (every rank must then take part in
+each snapshot).
 """
 from __future__ import annotations
 
@@ -22,11 +29,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from path_tracer_torch.config import Profile
 from path_tracer_torch.models.integrator import IntegratorSpec, render_wavefront
 from path_tracer_torch.ops import tonemap as tm
 from path_tracer_torch.ops.sorting import morton_pixel_order
+from path_tracer_torch.parallel.mesh import all_gather_into_tensor, default_mesh
+from path_tracer_torch.parallel.render import render_sharded
 
 # Lanes of a kernel packet, the unit the spw packing fills: the JAX
 # package's default ray tile (``pallas_bvh.RAY_TILE``).
@@ -98,20 +108,27 @@ def render_pixel_sums(scene, width: int, height: int, sample_start: int,
     False stops the render after that batch, and the result covers the
     samples done so far. ``init_accum`` [W*H,3] (linear order) starts the
     sums (a resumed render). ``snapshot=False`` returns the per-tile device
-    accumulators (Morton order) instead of copying them to the host.
+    accumulators (Morton order; this rank's slice of each tile on several
+    ranks) instead of copying them to the host.
     ``samples_per_wavefront`` > 1 packs sample ids per packet where it can,
     and otherwise says so and renders with 1."""
     n_pix = width * height
+    mesh = _world_mesh()
+    n_dev = 1 if mesh is None else mesh.size()
     spw = max(1, samples_per_wavefront)
-    if spw > 1 and (spec.compact or n_samples % spw != 0
+    if spw > 1 and (n_dev > 1 or spec.compact or n_samples % spw != 0
                     or RAY_TILE % spw != 0 or tile_rays % RAY_TILE != 0
                     or tile_rays // spw > n_pix):
-        # Packing needs no lane-permuting compaction, a sample count it
-        # divides, and RAY_TILE-aligned tiles no bigger than the frame.
+        # Packing needs one device (render_sharded shards lanes, not
+        # pixel/sample pairs), no lane-permuting compaction, a sample count
+        # it divides, and RAY_TILE-aligned tiles no bigger than the frame.
         print(f"[renderer] samples_per_wavefront={spw} unsupported for this "
               f"config; falling back to 1", flush=True)
         spw = 1
     tile = min(tile_rays, max(1, n_pix)) if spw == 1 else tile_rays
+    # Every tile shards over the ranks: round it up to a multiple of them
+    # (padded lanes render pixel 0 and are discarded).
+    tile = -(-tile // n_dev) * n_dev
     tpix = tile // spw  # distinct pixels per launch
     n_tiles = (n_pix + tpix - 1) // tpix
     spl = max(1, samples_per_launch)
@@ -123,18 +140,27 @@ def render_pixel_sums(scene, width: int, height: int, sample_start: int,
     all_pix[:n_pix] = morton  # padded lanes re-render pixel 0; discarded
     all_ids = packed_lanes(all_pix, spw)
     dev = scene.device
-    tile_ids = [torch.from_numpy(all_ids[t * tile:(t + 1) * tile]).to(dev)
+    # This rank's slice of each tile, per pixels (the whole tile on one
+    # device; spw is 1 on several, so lanes are pixels there).
+    per = tpix // n_dev
+    lo = 0 if mesh is None else mesh.get_local_rank() * per
+    tile_ids = [torch.from_numpy(all_ids[t * tile + lo:][:per * spw]).to(dev)
                 for t in range(n_tiles)]
     if init_accum is not None:
         padded = np.zeros((n_tiles * tpix, 3), np.float32)
         padded[:n_pix] = np.asarray(init_accum, np.float32)[morton]
-        accs = [torch.from_numpy(padded[t * tpix:(t + 1) * tpix]).to(dev)
-                for t in range(n_tiles)]
+        accs = [torch.from_numpy(padded[t * tpix + lo:t * tpix + lo + per])
+                .to(dev) for t in range(n_tiles)]
     else:
-        accs = [torch.zeros((tpix, 3), device=dev) for _ in range(n_tiles)]
+        accs = [torch.zeros((per, 3), device=dev) for _ in range(n_tiles)]
 
     def take_snapshot() -> np.ndarray:
-        rows = torch.cat(accs).cpu().numpy()[:n_pix]
+        if mesh is None:
+            rows = torch.cat(accs)
+        else:
+            rows = torch.cat([all_gather_into_tensor(a, mesh.get_group())
+                              for a in accs])
+        rows = rows.cpu().numpy()[:n_pix]
         out = np.empty_like(rows)
         out[morton] = rows  # back to linear pixel order
         return out
@@ -144,8 +170,12 @@ def render_pixel_sums(scene, width: int, height: int, sample_start: int,
     while sample < end:
         k = min(spl, end - sample)
         for ti in range(n_tiles):
-            accumulate_tile(accs[ti], scene, tile_ids[ti], width, height,
-                            sample, k, spec, spw=spw)
+            if mesh is not None:
+                render_sharded(scene, mesh, tile_ids[ti], width, height,
+                               sample, k, spec, acc=accs[ti])
+            else:
+                accumulate_tile(accs[ti], scene, tile_ids[ti], width, height,
+                                sample, k, spec, spw=spw)
         sample += k
         if pass_callback is not None:
             if pass_callback(sample - sample_start, take_snapshot) is False:
@@ -153,6 +183,14 @@ def render_pixel_sums(scene, width: int, height: int, sample_start: int,
     if not snapshot:
         return accs
     return take_snapshot()
+
+
+def _world_mesh():
+    """The mesh over every rank where a process group of more than one
+    rank is up, else None (the one-device route)."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        return default_mesh()
+    return None
 
 
 def render(scene, profile: Profile, progress: bool = False, viewer=None,

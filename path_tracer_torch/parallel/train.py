@@ -13,8 +13,10 @@ move the hit point itself.
 
 The JAX package's step is sharded over a device mesh, its pixel tiles
 split across devices and its loss and gradients summed with ``psum``. The
-port's runs on one device; the mesh and the ``psum`` wait for the port's
-multi-device slice.
+port's step runs on one device, or, given a mesh (``parallel/mesh.py``),
+on each rank's shard of the pixels with the loss and the gradients summed
+over the mesh's group before the update, so every rank applies the same
+update.
 """
 from __future__ import annotations
 
@@ -191,16 +193,35 @@ def value_and_grad(params: dict, scene, ids, target, sample_id: int,
 
 
 def make_train_step(width: int, height: int, spec: IntegratorSpec,
-                    n_samples: int = 1, lr: float = 1e-2):
-    """One SGD step on one device: ``step(params, scene, ids, target,
-    sample_id) -> (new_params, loss)``, with ``new = p - lr * grad`` for
-    every parameter (``value_and_grad``)."""
+                    n_samples: int = 1, lr: float = 1e-2, mesh=None):
+    """One SGD step: ``step(params, scene, ids, target, sample_id) ->
+    (new_params, loss)``, with ``new = p - lr * grad`` for every parameter
+    (``value_and_grad``). With a ``mesh`` every rank of it calls the step
+    with its own shard of ``ids`` and ``target``; the loss and every
+    gradient are summed over the mesh's group (one flattened buffer)
+    before the update, so every rank returns the same loss and
+    parameters."""
 
     def step(params, scene, ids, target, sample_id):
         loss, grads = value_and_grad(params, scene, ids, target, sample_id,
                                      width, height, spec, n_samples)
+        if mesh is not None:
+            loss, grads = _sum_over_mesh(mesh, loss, grads)
         with torch.no_grad():
             new = {k: p.detach() - lr * grads[k] for k, p in params.items()}
         return new, loss
 
     return step
+
+
+def _sum_over_mesh(mesh, loss, grads: dict) -> tuple:
+    """(loss, grads) summed over the mesh's group: one all_reduce of the
+    loss and every gradient flattened into one buffer."""
+    from path_tracer_torch.parallel.mesh import all_reduce_sum, mesh_rank
+
+    group, _, _ = mesh_rank(mesh)
+    names = list(grads)
+    total = all_reduce_sum(torch.cat(
+        [loss.reshape(1)] + [grads[k].reshape(-1) for k in names]), group)
+    first, *rest = total.split([1] + [grads[k].numel() for k in names])
+    return first[0], {k: r.view_as(grads[k]) for k, r in zip(names, rest)}

@@ -2,8 +2,9 @@
 
 Port of ``path_tracer_tpu/scene/gltf.py`` without Pillow: images decode
 through ``utils/image_io.decode_image_rgba`` (every PNG, and baseline
-JPEG through ``utils/jpeg.py``: the two image types glTF 2.0 allows, to
-the texels Pillow gives) and textures are written with ``encode_png``.
+and progressive JPEG through ``utils/jpeg.py``: the two image types glTF
+2.0 allows, to the texels Pillow gives) and textures are written with
+``encode_png``.
 The ISF JSON, the texture file names and their texels are the JAX
 converter's; the PNG bytes may differ.
 

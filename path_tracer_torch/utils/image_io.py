@@ -15,7 +15,7 @@ the samples of Pillow's mode for it, ``read_png_rgba`` Pillow's
 - palette indices past the palette read black; ``tRNS`` gives the first
   entries' alpha, the rest 255; gray + alpha and RGBA ignore ``tRNS``.
 
-``decode_image_rgba`` reads a PNG or a baseline JPEG (``utils/jpeg.py``)
+``decode_image_rgba`` reads a PNG or a JPEG (``utils/jpeg.py``)
 as RGBA, as the glTF converter's textures need.
 
 The texture loaders convert as the JAX package's Pillow loaders do: RGB

@@ -1,11 +1,16 @@
-"""Baseline JPEG decoder, standard library and numpy only.
+"""Baseline and progressive JPEG decoder, standard library and numpy only.
 
 Decodes what libjpeg-turbo (the decoder behind Pillow) decodes for a
-sequential Huffman-coded JPEG, to the same samples:
+Huffman-coded JPEG, to the same samples:
 
-- SOF0 and SOF1 frames of 8-bit samples with 1 (gray) or 3 components,
-  sampling factors 1 or 2 each way, one or several scans, restart
-  intervals;
+- SOF0 and SOF1 (sequential) and SOF2 (progressive) frames of 8-bit
+  samples with 1 (gray) or 3 components, sampling factors 1 or 2 each
+  way, one or several scans, restart intervals; a progressive file's
+  spectral selection and successive approximation (DC and AC first and
+  refine scans, end-of-band runs), its coefficients then going through
+  the sequential path's steps below (libjpeg's block smoothing acts only
+  on a file whose last scans are missing, so a whole file decodes to the
+  same samples as its coefficients coded sequentially);
 - the integer inverse DCT of libjpeg's ``jidctint.c`` (``JDCT_ISLOW``,
   the default), with its range limit;
 - libjpeg's "fancy" upsampling of 2:1 chroma (``jdsample.c``: the
@@ -16,8 +21,8 @@ sequential Huffman-coded JPEG, to the same samples:
   Adobe file with transform 0 (or, with neither marker, component ids
   'R', 'G', 'B') is RGB and is not converted.
 
-A progressive (SOF2), lossless, hierarchical or arithmetic-coded image,
-12-bit samples and CMYK raise ``ValueError`` naming the image and its
+A lossless, hierarchical or arithmetic-coded image, 12-bit samples and
+CMYK raise ``ValueError`` naming the image and its
 marker. Pillow does not apply an EXIF orientation on ``open``, and
 neither does this.
 """
@@ -35,7 +40,7 @@ _ZIGZAG = (
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
 _SOF_NAMES = {
-    0xC2: "progressive (SOF2)", 0xC3: "lossless (SOF3)",
+    0xC3: "lossless (SOF3)",
     0xC5: "differential sequential (SOF5)",
     0xC6: "differential progressive (SOF6)",
     0xC7: "differential lossless (SOF7)",
@@ -64,12 +69,18 @@ def _huffman_lut(counts, symbols) -> array:
     return lut
 
 
+# Zero bits past a segment's end: more than one block can read, so a
+# stream that ends early fails the next block's length check.
+_PAD_BITS = 2048
+
+
 def _peek16(segment: bytes) -> array:
     """For each bit position of an entropy-coded segment (its 0xFF00
     stuffing removed), the 16 bits from there on, zero past the end (the
     bits libjpeg feeds in at a marker)."""
     bits = np.unpackbits(np.frombuffer(segment, np.uint8))
-    bits = np.concatenate([bits, np.zeros(48, np.uint8)]).astype(np.uint32)
+    bits = np.concatenate([bits, np.zeros(_PAD_BITS, np.uint8)]).astype(
+        np.uint32)
     n = bits.size - 16
     peek = np.zeros(n, np.uint32)
     for k in range(16):
@@ -116,7 +127,7 @@ def _decode_scan(segments, scan, mcus, interval, name) -> None:
         if not todo:
             break
         peek = _peek16(segment)
-        limit = len(peek) - 32
+        limit = 8 * len(segment)
         pos = 0
         pred = {c: 0 for c, _, _ in scan}
         for mcu in todo:
@@ -154,6 +165,135 @@ def _decode_scan(segments, scan, mcus, interval, name) -> None:
                         k += 16
                     else:
                         break
+
+
+def _decode_progressive_scan(segments, mcus, interval, ss, se, ah, al,
+                             name) -> None:
+    """Huffman-decode one scan of a progressive JPEG into the components'
+    ``coef`` (libjpeg's jdphuff.c): coefficients ``ss``..``se`` (zigzag),
+    a first scan (``ah`` 0) writing them shifted left by ``al``, a refine
+    scan adding bit ``al`` to them. DC scans may interleave components;
+    AC scans hold one, and code runs of blocks with no coefficient left
+    in the band as one end-of-band run. Predictions and runs restart at
+    each restart marker."""
+    per_seg = interval if interval else len(mcus)
+    zz = _ZIGZAG
+    p1, m1 = 1 << al, -1 << al
+    for seg_i, segment in enumerate(segments):
+        todo = mcus[seg_i * per_seg:(seg_i + 1) * per_seg]
+        if not todo:
+            break
+        peek = _peek16(segment)
+        limit = 8 * len(segment)
+        pos = 0
+        if ss == 0:  # DC scans
+            pred = {}
+            for mcu in todo:
+                for ci, dc_lut, _, coef, base in mcu:
+                    if pos > limit:
+                        raise ValueError(f"{name}: entropy-coded data ends "
+                                         "early")
+                    if ah:  # refine: one raw bit
+                        if peek[pos] >> 15:
+                            coef[base] |= p1
+                        pos += 1
+                        continue
+                    e = dc_lut[peek[pos]]
+                    if not e:
+                        raise ValueError(f"{name}: bad Huffman code")
+                    pos += e >> 8
+                    s = e & 255
+                    v = 0
+                    if s:
+                        v = peek[pos] >> (16 - s)
+                        pos += s
+                        if v < 1 << (s - 1):
+                            v += 1 - (1 << s)
+                    pred[ci] = pred.get(ci, 0) + v
+                    coef[base] = pred[ci] << al
+            continue
+        eobrun = 0
+        for ((_, _, ac_lut, coef, base),) in todo:
+            if pos > limit:
+                raise ValueError(f"{name}: entropy-coded data ends early")
+            k = ss
+            if not ah:  # AC first
+                if eobrun:
+                    eobrun -= 1
+                    continue
+                while k <= se:
+                    e = ac_lut[peek[pos]]
+                    if not e:
+                        raise ValueError(f"{name}: bad Huffman code")
+                    pos += e >> 8
+                    r, s = (e & 255) >> 4, e & 15
+                    if s:
+                        k += r
+                        if k > se:
+                            raise ValueError(f"{name}: coefficient past the "
+                                             "band")
+                        v = peek[pos] >> (16 - s)
+                        pos += s
+                        if v < 1 << (s - 1):
+                            v += 1 - (1 << s)
+                        coef[base + zz[k]] = v << al
+                        k += 1
+                    elif r == 15:
+                        k += 16
+                    else:
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += peek[pos] >> (16 - r)
+                            pos += r
+                        eobrun -= 1
+                        break
+                continue
+            # AC refine: new coefficients are +-1 << al; every coefficient
+            # already non-zero that the run passes takes one correction bit.
+            if not eobrun:
+                while k <= se:
+                    e = ac_lut[peek[pos]]
+                    if not e:
+                        raise ValueError(f"{name}: bad Huffman code")
+                    pos += e >> 8
+                    r, s = (e & 255) >> 4, e & 15
+                    if s:
+                        s = p1 if peek[pos] >> 15 else m1
+                        pos += 1
+                    elif r != 15:
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += peek[pos] >> (16 - r)
+                            pos += r
+                        break
+                    while k <= se:
+                        z = base + zz[k]
+                        c = coef[z]
+                        if c:
+                            if peek[pos] >> 15 and not c & p1:
+                                coef[z] = c + p1 if c >= 0 else c + m1
+                            pos += 1
+                        else:
+                            r -= 1
+                            if r < 0:
+                                break
+                        k += 1
+                    if s:
+                        if k > se:
+                            raise ValueError(f"{name}: coefficient past the "
+                                             "band")
+                        coef[base + zz[k]] = s
+                    k += 1
+            if eobrun:
+                while k <= se:
+                    z = base + zz[k]
+                    c = coef[z]
+                    if c:
+                        if peek[pos] >> 15 and not c & p1:
+                            coef[z] = c + p1 if c >= 0 else c + m1
+                        pos += 1
+                    k += 1
+                eobrun -= 1
 
 
 # jidctint.c's constants (CONST_BITS 13).
@@ -271,8 +411,9 @@ def _ycc_rgb(y, cb, cr) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes, name="<bytes>") -> np.ndarray:
-    """A baseline JPEG's bytes → uint8 [H, W] (one component) or [H, W, 3]
-    (RGB), the samples libjpeg-turbo gives (the module docstring)."""
+    """A baseline or progressive JPEG's bytes → uint8 [H, W] (one
+    component) or [H, W, 3] (RGB), the samples libjpeg-turbo gives (the
+    module docstring)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG image")
     qt, dc_tabs, ac_tabs = {}, {}, {}
@@ -296,8 +437,8 @@ def decode_jpeg(data: bytes, name="<bytes>") -> np.ndarray:
         if marker in _SOF_NAMES or marker == 0xCC:
             kind = _SOF_NAMES.get(marker, "arithmetic-coded (DAC)")
             raise ValueError(f"{name}: {kind} JPEG is not supported, only "
-                             "baseline and extended sequential Huffman "
-                             f"(SOF0, SOF1); marker 0xFF{marker:02X}")
+                             "baseline, extended sequential and progressive "
+                             f"Huffman (SOF0-SOF2); marker 0xFF{marker:02X}")
         if marker == 0xE0 and body[:5] == b"JFIF\x00":
             jfif = True
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
@@ -324,7 +465,7 @@ def decode_jpeg(data: bytes, name="<bytes>") -> np.ndarray:
                 k += 17 + n
         elif marker == 0xDD:  # DRI
             (interval,) = struct.unpack(">H", body[:2])
-        elif marker in (0xC0, 0xC1):
+        elif marker in (0xC0, 0xC1, 0xC2):
             precision, height, width, nf = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise ValueError(f"{name}: {precision}-bit JPEG samples are "
@@ -352,7 +493,8 @@ def decode_jpeg(data: bytes, name="<bytes>") -> np.ndarray:
                 c["w"] = -(-width * c["h"] // hmax)
                 c["h_px"] = -(-height * c["v"] // vmax)
             frame = dict(width=width, height=height, comps=comps, hmax=hmax,
-                         vmax=vmax, mx=mx, my=my)
+                         vmax=vmax, mx=mx, my=my,
+                         progressive=marker == 0xC2)
         elif marker == 0xDA:  # SOS
             if frame is None:
                 raise ValueError(f"{name}: scan before the frame header")
@@ -360,27 +502,46 @@ def decode_jpeg(data: bytes, name="<bytes>") -> np.ndarray:
             scan = [(body[1 + 2 * j], body[2 + 2 * j] >> 4,
                      body[2 + 2 * j] & 15) for j in range(ns)]
             ss, se = body[1 + 2 * ns], body[2 + 2 * ns]
-            if ss != 0 or se != 63:
+            ah, al = body[3 + 2 * ns] >> 4, body[3 + 2 * ns] & 15
+            if frame["progressive"]:
+                if (se > 63 or ss > se or (ss == 0) != (se == 0)
+                        or (ss and ns != 1) or al > 13):
+                    raise ValueError(f"{name}: progressive scan of "
+                                     f"coefficients {ss}-{se}, {ns} "
+                                     "components: not a valid scan")
+                need = "dc" if ss == 0 and not ah else (
+                    "ac" if ss else None)
+            elif ss != 0 or se != 63:
                 raise ValueError(f"{name}: scan of coefficients {ss}-{se}: "
                                  "not a sequential JPEG")
+            else:
+                need = "both"
             segments, pos = _entropy_segments(data, pos)
-            mcus = _scan_mcus(frame, scan, dc_tabs, ac_tabs, name)
-            _decode_scan(segments, scan, mcus, interval, name)
+            mcus = _scan_mcus(frame, scan, dc_tabs, ac_tabs, need, name)
+            if frame["progressive"]:
+                _decode_progressive_scan(segments, mcus, interval, ss, se,
+                                         ah, al, name)
+            else:
+                _decode_scan(segments, scan, mcus, interval, name)
     if frame is None:
         raise ValueError(f"{name}: JPEG without a frame header")
     return _finish(frame, qt, jfif, adobe, name)
 
 
-def _scan_mcus(frame, scan, dc_tabs, ac_tabs, name) -> list:
+def _scan_mcus(frame, scan, dc_tabs, ac_tabs, need, name) -> list:
     """Each MCU's blocks in scan order: (component id, DC table, AC table,
-    coefficients, block offset)."""
+    coefficients, block offset). ``need`` names the Huffman tables the
+    scan reads ("dc", "ac", "both" or None); a table it does not read may
+    be missing (None)."""
     comps = frame["comps"]
-    try:
-        specs = [(cid, comps[cid], dc_tabs[td], ac_tabs[ta])
-                 for cid, td, ta in scan]
-    except KeyError:
-        raise ValueError(f"{name}: scan names a missing component or "
-                         "Huffman table") from None
+    specs = []
+    for cid, td, ta in scan:
+        dc, ac = dc_tabs.get(td), ac_tabs.get(ta)
+        if (cid not in comps or (need in ("dc", "both") and dc is None)
+                or (need in ("ac", "both") and ac is None)):
+            raise ValueError(f"{name}: scan names a missing component or "
+                             "Huffman table")
+        specs.append((cid, comps[cid], dc, ac))
     mcus = []
     if len(specs) == 1:  # non-interleaved: the component's own blocks
         cid, c, dc, ac = specs[0]

@@ -1488,3 +1488,96 @@ def test_converted_glb_renders_on_card(cuda, tmp_path):
     outside = np.abs(got - want) > 1e-4 + 1e-3 * np.abs(want)
     assert outside.mean() <= 0.05
     assert abs(got.mean() - want.mean()) <= 0.01 * want.mean()
+
+
+@pytest.mark.parametrize("backend, world", [("gloo", 2), ("nccl", 1)])
+def test_parallel_paths_on_card(cuda, tmp_path, backend, world):
+    """The multi-device paths on the card (tests/test_torch_parallel.py's
+    invariants at its size, on the port's own Cornell box): a world of two
+    gloo ranks sharing cuda:0, and a world of one NCCL rank (NCCL refuses
+    two ranks on one device), launched through
+    tests/tools/torch_parallel_worker.py. The sharded render is bit-equal
+    to the one-process render on the card, rebalanced or not; the exchange
+    loses no lane and leaves each rank within one live lane of the mean;
+    the live counts are each shard's own; the sharded step's loss is the
+    same on every rank and within rtol 1e-5 of the one-process step's;
+    render_multihost and the driver's multi-rank route give the
+    one-process image; every collective takes the CUDA tensors as they
+    are, under gloo as under NCCL."""
+    import os
+    import subprocess
+    import sys
+
+    from path_tracer_torch.models.integrator import (
+        IntegratorSpec,
+        render_wavefront,
+    )
+    from path_tracer_torch.models.renderer import render
+    from path_tracer_torch.parallel.train import get_params, make_train_step
+    from path_tracer_torch.scene import load_scene
+    from path_tracer_torch.scene.procedural import cornell_device_scene
+
+    tools = Path(__file__).parent / "tools"
+    sys.path.insert(0, str(tools))
+    import torch_parallel_worker as worker
+
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, str(tools / "torch_parallel_worker.py"), str(r),
+         str(world), str(tmp_path / "rdzv"), "cornell",
+         str(SCENES / "cube" / "scene.isf"), str(tmp_path), "cuda:0",
+         backend], cwd=repo, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), "\n---\n".join(logs)
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(world)]
+
+    w, h = worker.W, worker.H
+    sc = cornell_device_scene(cuda)
+    ids = torch.arange(w * h, dtype=torch.int32, device=cuda)
+    one = render_wavefront(sc, ids, w, h, 1, worker._spec()).cpu().numpy()
+    assert one.std() > 0
+    np.testing.assert_array_equal(
+        np.concatenate([z["sharded1"] for z in ranks]), one)
+    for z in ranks:
+        np.testing.assert_array_equal(z["rebalanced2"], z["sharded2"])
+    lanes = np.concatenate([z["ex5"] for z in ranks])
+    assert sorted(lanes.tolist()) == list(range(8 * world))
+    live = np.array([z["ex4"].sum() for z in ranks])
+    assert np.abs(live - live.mean()).max() <= 1
+
+    cube = load_scene(SCENES / "cube" / "scene.isf", cuda)
+    cper = 32 * 24 // world
+    want = [render_wavefront(
+        cube, torch.arange(r * cper, (r + 1) * cper, dtype=torch.int32,
+                           device=cuda), 32, 24, 3,
+        IntegratorSpec(bounces=5), collect_live_counts=True)[1]
+        .cpu().numpy() for r in range(world)]
+    for z in ranks:
+        np.testing.assert_array_equal(z["live"], np.stack(want))
+
+    step = make_train_step(w, h, worker._spec(differentiable=True),
+                           n_samples=1, lr=1e-4)
+    p1, loss1 = step(get_params(sc), sc, ids,
+                     torch.zeros((w * h, 3), device=cuda), 1)
+    for z in ranks:
+        np.testing.assert_array_equal(z["loss1"], ranks[0]["loss1"])
+        np.testing.assert_array_equal(z["albedo1"], ranks[0]["albedo1"])
+    np.testing.assert_allclose(ranks[0]["loss1"], loss1.cpu().numpy(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(ranks[0]["albedo1"],
+                               p1["mat_albedo_factor"].cpu().numpy(),
+                               rtol=1e-5)
+    assert float(ranks[0]["loss2"]) < float(ranks[0]["loss1"])
+
+    img = render(sc, worker.profile())
+    for z in ranks:
+        np.testing.assert_array_equal(z["multihost"], img)
+        np.testing.assert_array_equal(z["render_route"], img)
+        ran = {f"all_gather_into_tensor:{backend}:cuda",
+               f"all_reduce:{backend}:cuda"}
+        if world > 1:
+            ran.add(f"all_to_all_single:{backend}:cuda")
+        assert set(z["transports"]) == ran

@@ -8,10 +8,13 @@ itself never imports.
   and ``read_png`` as Pillow's mode; Pillow's quirks pinned: 16-bit gray
   clips to 255, and a ``tRNS`` key's low byte is compared with the 8-bit
   value (gray scaled or clipped, 16-bit RGB's high bytes);
-- JPEG: Pillow's baseline files at 4:4:4, 4:2:2 and 4:2:0, qualities 50,
-  75 and 95, gray, restart intervals, odd and tiny sizes: at most one
-  level off on any texel (the count of texels off is stated, and is 0);
-  a progressive or arithmetic-coded file raises naming its marker;
+- JPEG: Pillow's baseline and progressive files at 4:4:4, 4:2:2 and
+  4:2:0, qualities 50, 75 and 95, gray, restart intervals, optimized
+  Huffman tables, odd and tiny sizes: at most one level off on any texel
+  (the count of texels off is stated, and is 0); a progressive file
+  decodes to the texels of the same image coded as baseline, and a glb
+  with a progressive texture converts as the JAX converter converts it;
+  a lossless or arithmetic-coded file raises naming its marker;
 - the fixtures in tests/fixtures/torch_images (what ``chip_smoke.py``
   checks on the card, where Pillow is absent): Pillow's decode beside
   each image is still Pillow's, and the port decodes each to it.
@@ -234,15 +237,112 @@ def test_gray_and_small_jpegs_decode_as_pillow():
     assert rgba.shape == (61, 83, 4) and (rgba[..., 3] == 255).all()
 
 
+@pytest.mark.parametrize("quality", [50, 75, 95])
+@pytest.mark.parametrize("subsampling", [0, 1, 2])
+def test_progressive_jpeg_decodes_as_pillow(quality, subsampling):
+    """Pillow's progressive files (DC and AC first and refine scans,
+    spectral selection, end-of-band runs), with and without restart
+    markers and with optimized Huffman tables: Pillow's texels, and those
+    of the same image coded as baseline."""
+    img = _image()
+    baseline = decode_jpeg(_jpeg(img, quality=quality,
+                                 subsampling=subsampling))
+    for kw in ({}, {"restart_marker_blocks": 3}, {"restart_marker_rows": 1},
+               {"optimize": True}):
+        data = _jpeg(img, quality=quality, subsampling=subsampling,
+                     progressive=True, **kw)
+        assert b"\xff\xc2" in data
+        assert (b"\xff\xdd" in data) == ("optimize" not in kw and bool(kw))
+        worst, off = _against_pillow(data)
+        assert worst <= 1 and off == 0, (kw, worst, f"{off} texels off")
+        np.testing.assert_array_equal(decode_jpeg(data), baseline)
+
+
+def test_gray_and_small_progressive_jpegs_decode_as_pillow():
+    """test_gray_and_small_jpegs_decode_as_pillow's gray and small odd
+    images, coded progressive."""
+    img = _image()
+    for data in (_jpeg(img[..., 1], quality=75, progressive=True),
+                 _jpeg(img[..., 0], quality=95, progressive=True,
+                       restart_marker_blocks=2)):
+        assert b"\xff\xc2" in data
+        worst, off = _against_pillow(data)
+        assert worst <= 1 and off == 0, f"{off} texels off"
+    g = np.random.default_rng(4)
+    for h, w in ((1, 1), (2, 2), (3, 17), (17, 3), (9, 4), (33, 2)):
+        for sub in (0, 1, 2):
+            data = _jpeg(g.integers(0, 256, (h, w, 3)).astype(np.uint8),
+                         quality=80, subsampling=sub, progressive=True)
+            worst, off = _against_pillow(data)
+            assert worst <= 1 and off == 0, (h, w, sub, f"{off} texels off")
+
+
+def _glb_with_jpeg(tmp_path, jpeg: bytes) -> Path:
+    """tests/test_gltf.py's quad as a .glb whose base colour texture is
+    ``jpeg``, stored in the binary chunk behind a bufferView."""
+    import base64
+    import json
+
+    from tests.test_gltf import _build_gltf
+
+    doc = json.loads(_build_gltf(tmp_path, binary=False).read_text())
+    blob = base64.b64decode(doc["buffers"][0].pop("uri").split(",", 1)[1])
+    doc["bufferViews"].append({"buffer": 0, "byteOffset": len(blob),
+                               "byteLength": len(jpeg)})
+    blob += jpeg + b"\x00" * ((-len(jpeg)) % 4)
+    doc["buffers"][0]["byteLength"] = len(blob)
+    doc["images"] = [{"bufferView": len(doc["bufferViews"]) - 1,
+                      "mimeType": "image/jpeg"}]
+    js = json.dumps(doc).encode()
+    js += b" " * ((-len(js)) % 4)
+    glb = (b"glTF" + struct.pack("<II", 2, 28 + len(js) + len(blob))
+           + struct.pack("<II", len(js), 0x4E4F534A) + js
+           + struct.pack("<II", len(blob), 0x004E4942) + blob)
+    path = tmp_path / "prog.glb"
+    path.write_bytes(glb)
+    return path
+
+
+def test_glb_with_progressive_texture_converts_as_jax(tmp_path):
+    """``path-tracer-torch convert`` of a glb whose texture is a
+    progressive JPEG (4:2:0, restart markers): the JAX converter's ISF
+    bytes and texture names, and its texels."""
+    from path_tracer_torch import cli
+    from path_tracer_tpu.scene.gltf import convert_gltf_to_isf
+
+    jpeg = _jpeg(_image(), quality=85, subsampling=2, progressive=True,
+                 restart_marker_blocks=4)
+    assert b"\xff\xc2" in jpeg
+    src = _glb_with_jpeg(tmp_path, jpeg)
+    cli.main(["convert", str(src), str(tmp_path / "port")])
+    convert_gltf_to_isf(src, tmp_path / "jax")
+    port, want = tmp_path / "port", tmp_path / "jax"
+    names = sorted(p.name for p in want.iterdir())
+    assert sorted(p.name for p in port.iterdir()) == names
+    assert "albedo_tex_0.png" in names
+    assert (port / "scene.isf").read_bytes() == \
+        (want / "scene.isf").read_bytes()
+    for name in names:
+        if name.endswith(".png"):
+            a, b = Image.open(port / name), Image.open(want / name)
+            assert a.mode == b.mode, name
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b), name)
+    texels = read_png(port / "albedo_tex_0.png")
+    np.testing.assert_array_equal(
+        texels.reshape(61, 83, -1)[..., :3],
+        np.asarray(Image.open(io.BytesIO(jpeg)).convert("RGB")))
+
+
 def test_unsupported_jpegs_raise_naming_the_marker():
     img = _image()
-    with pytest.raises(ValueError, match=r"prog\.jpg: progressive \(SOF2\)"):
-        decode_jpeg(_jpeg(img, progressive=True), "prog.jpg")
     data = bytearray(_jpeg(img))
     sof = data.index(b"\xff\xc0")
     data[sof + 1] = 0xC9  # the same frame header, arithmetic-coded
     with pytest.raises(ValueError, match=r"arith\.jpg: .*\(SOF9\)"):
         decode_jpeg(bytes(data), "arith.jpg")
+    data[sof + 1] = 0xC3  # lossless
+    with pytest.raises(ValueError, match=r"ll\.jpg: lossless \(SOF3\)"):
+        decode_jpeg(bytes(data), "ll.jpg")
     with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
         decode_image_rgba(b"GIF89a", "x.gif")
 

@@ -106,6 +106,8 @@ fixtures = Path(sys.argv[1]).parents[2] / "fixtures" / "torch_images"
 for name in ("rgb_420_q50.jpg", "palette_trns.png"):
     rgba = decode_image_rgba((fixtures / name).read_bytes(), name)
     assert rgba.shape == (29, 37, 4)
+from path_tracer_torch.parallel import multihost, render as prender  # noqa
+from path_tracer_torch.parallel.mesh import default_mesh  # noqa: F401
 img = path_tracer_torch.render(
     cornell_device_scene("cpu"),
     path_tracer_torch.Profile(resolution=Resolution(8, 6), samples=1,
@@ -130,20 +132,24 @@ def test_port_renders_without_jax_yaml_or_pil():
 
 
 def test_port_sources_import_no_jax():
-    """No module of the port (nor chip_smoke.py, the port's examples or its
-    glb generator) names jax, the JAX package or Pillow in an import
-    statement."""
+    """No module of the port (its multi-device modules included, nor
+    chip_smoke.py, the port's examples, its glb generator or the worker of
+    its multi-process tests) names jax, the JAX package or Pillow in an
+    import statement."""
     import ast
 
     files = sorted((REPO / "path_tracer_torch").rglob("*.py"))
-    for module in ("parallel/train.py", "ops/cuda_khit.py",
+    for module in ("parallel/train.py", "parallel/mesh.py",
+                   "parallel/render.py", "parallel/multihost.py",
+                   "ops/cuda_khit.py",
                    "scene/bvh_layouts.py", "models/debug_aov.py",
                    "utils/checkpoint.py", "utils/obj_logger.py",
                    "viewer/http_viewer.py", "scene/gltf.py",
                    "utils/jpeg.py"):
         assert REPO / "path_tracer_torch" / module in files
     files += [REPO / "chip_smoke.py",
-              REPO / "tests" / "tools" / "torch_gen_test_glb.py"]
+              REPO / "tests" / "tools" / "torch_gen_test_glb.py",
+              REPO / "tests" / "tools" / "torch_parallel_worker.py"]
     files += sorted((REPO / "examples").glob("torch_*.py"))
     assert len(files) > 40
     for path in files:
