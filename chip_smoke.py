@@ -215,7 +215,14 @@ any error:
    (8b) ``path-tracer-torch convert`` of the port's glb generator's files
    (no Pillow on the card), a 1080p CLI render of the converted scene, a
    file without a camera exiting 2, and the JPEG and PNG fixtures of
-   ``tests/fixtures/torch_images`` decoding to Pillow's texels; (8c)
+   ``tests/fixtures/torch_images`` (lossless, arithmetic-coded, CMYK,
+   YCCK and 4:1:1 among them) decoding to Pillow's texels; the decoder's
+   seconds per megapixel by JPEG kind on the card's host; the generator's
+   glb with the JPEG_KINDS fixtures as its textures and the same glb with
+   their ``.pillow.png`` decodes in their place, converted (every PNG
+   byte-equal) and rendered at 1080p through the CLI (byte-equal, rows 9,
+   10, 13 and 14 launched); ``head`` with its albedo as a lossless JPEG of
+   the same texels rendered byte-equal to the PNG one; (8c)
    ``examples/torch_render_scene.py`` on ``cube`` and
    ``examples/torch_inverse_rendering.py``, its loss falling;
 9. (also alone with ``--only 9``) the multi-device paths
@@ -2549,22 +2556,29 @@ def oracle_scene(spec: str) -> Path:
                                     grid=64, textured=True)
 
 
-def convert_glb(out: Path, multi_opacity: bool) -> dict:
-    """Write the port's test glb (tests/tools/torch_gen_test_glb.py, PNGs by
-    the port's writer) and convert it through ``path-tracer-torch
-    convert`` into ``out``: {triangles, seconds of the conversion,
-    files}."""
+def tool(name: str):
+    """The module tests/tools/<name>.py, loaded by its file path."""
     import importlib.util
 
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "tests" / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def convert_glb(out: Path, multi_opacity: bool, textures=None) -> dict:
+    """Write the port's test glb (tests/tools/torch_gen_test_glb.py, PNGs by
+    the port's writer; ``textures``, image bytes, in place of its own) and
+    convert it through ``path-tracer-torch convert`` into ``out``:
+    {triangles, seconds of the conversion, files}."""
     from path_tracer_torch import cli
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_gen_test_glb", REPO / "tests" / "tools" / "torch_gen_test_glb.py")
-    gen = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(gen)
+    gen = tool("torch_gen_test_glb")
     out.mkdir(parents=True, exist_ok=True)
     glb = out / "scene.glb"
-    n_tris = gen.write_glb(glb, multi_opacity=multi_opacity)
+    n_tris = gen.write_glb(glb, multi_opacity=multi_opacity,
+                           textures=textures)
     t0 = time.perf_counter()
     cli.main(["convert", str(glb), str(out)])
     secs = time.perf_counter() - t0
@@ -6036,8 +6050,101 @@ def phase_convert(device, oracle: bool) -> None:
         n_images += 1
     if n_images < 2:
         raise AssertionError("no image fixtures found")
+    phase_jpeg_kinds()
     if oracle:
         phase_oracle(device, GLB_CASES)
+
+
+# The fixtures of the JPEG kinds beyond baseline and progressive Huffman.
+JPEG_KINDS = ("arith_420_restart.jpg", "arith_prog_422.jpg", "cmyk_q75.jpg",
+              "ll_gray_p7.jpg", "ll_rgb_p4_restart.jpg", "rgb_411_q75.jpg",
+              "ycck_q75.jpg")
+
+
+def rendered_equal(label: str, scenes: dict, want_rows=()) -> None:
+    """Render each of ``scenes`` ({tag: scene file}) at FRAME_W x FRAME_H,
+    1 spp, 4 bounces through the CLI, log seconds and hand-written
+    launches, and require the PNGs byte-equal and ``want_rows`` launched
+    in each."""
+    from path_tracer_torch.utils.image_io import read_png
+
+    pngs = {}
+    for tag, path in scenes.items():
+        png = OUT / f"{tag}_cli.png"
+        secs, counts = cli_frame(path, png, {}, FRAME_W, FRAME_H, 4)
+        img = read_png(png)
+        log(f"  {tag} through the CLI ({FRAME_W}x{FRAME_H}, 1 spp, 4 "
+            f"bounces, load included): {secs:.3f} s, hand-written launches "
+            f"{ {k: v for k, v in counts.items() if v} }, image mean "
+            f"{img.mean():.2f} std {img.std():.2f}")
+        if not (img.std() > 0 and all(counts[k] for k in want_rows)):
+            raise AssertionError(f"{tag}: render {counts}")
+        pngs[tag] = png.read_bytes()
+    same = len(set(pngs.values())) == 1
+    log(f"  {label}: renders byte-equal {same}")
+    if not same:
+        raise AssertionError(f"{label}: the renders differ")
+
+
+def phase_jpeg_kinds() -> None:
+    """8b's JPEG kinds: the port's decoder's seconds per megapixel by kind
+    on this host (tests/tools/torch_jpeg_timing.py); the glb generator's
+    file with the JPEG_KINDS fixtures as its textures, converted and
+    rendered at FRAME_W x FRAME_H through the CLI, against the same glb
+    with Pillow's decodes (``.pillow.png``) in their place: converted PNGs
+    and renders byte-equal, rows 9, 10, 13 and 14 launched; tests/scenes/
+    head with its albedo as a lossless JPEG of the same texels, rendered
+    against the PNG one, byte-equal."""
+    timing = tool("torch_jpeg_timing")
+    t0 = time.perf_counter()
+    head = timing.head_lossless()
+    log(f"  the head's 1024x1024 albedo written as a lossless JPEG "
+        f"({len(head[0])} bytes) in {time.perf_counter() - t0:.2f} s")
+    for r in timing.time_decoders(repeats=3, head=head):
+        log(f"  decode {r['kind']}, {r['file']} ({r['pixels']} px): "
+            f"{r['seconds']:.6f} s, {r['s_per_mp']:.3f} s per megapixel "
+            "(the card's host)")
+    kinds = [FIXTURES / n for n in JPEG_KINDS]
+    outs = {}
+    for tag, files in (("glb_jpeg_kinds", kinds), ("glb_jpeg_kinds_pillow", [
+            p.with_name(p.name + ".pillow.png") for p in kinds])):
+        out = REPO / "build" / f"chip_smoke_{tag}"
+        shutil.rmtree(out, ignore_errors=True)
+        info = convert_glb(out, False, [p.read_bytes() for p in files])
+        log(f"  {tag}: {info['triangles']} triangles converted in "
+            f"{info['seconds']:.3f} s, files {info['files']}")
+        outs[tag] = out
+    a, b = outs["glb_jpeg_kinds"], outs["glb_jpeg_kinds_pillow"]
+    names = sorted(p.name for p in a.iterdir() if p.suffix in (".png",
+                                                               ".isf"))
+    equal = (names == sorted(p.name for p in b.iterdir()
+                             if p.suffix in (".png", ".isf"))
+             and all((a / n).read_bytes() == (b / n).read_bytes()
+                     for n in names))
+    n_albedo = sum(n.startswith("albedo_tex_") for n in names)
+    log(f"  converted files {names}: byte-equal to the Pillow-decoded "
+        f"glb's {equal}")
+    if not equal or n_albedo != len(kinds):
+        raise AssertionError("the glb of JPEG kinds converts differently")
+    rendered_equal("the glb of JPEG kinds against its Pillow-decoded twin",
+                   {t: o / "scene.isf" for t, o in outs.items()},
+                   ("flat_closest_hit", "flat_occluded", "alpha_walk",
+                    "trans_walk"))
+    scenes = {}
+    for tag in ("head_png", "head_lossless_jpeg"):
+        out = REPO / "build" / f"chip_smoke_{tag}"
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.copytree(scene_path("head").parent, out)
+        scenes[tag] = out / "scene.isf"
+    ll = scenes["head_lossless_jpeg"].parent
+    (ll / "albedo_tex_0.jpg").write_bytes(head[0])
+    (ll / "albedo_tex_0.png").unlink()
+    isf = ll / "scene.isf"
+    text = isf.read_text()
+    if text.count('"albedo_tex_0.png"') < 1:
+        raise AssertionError("the head scene names no albedo_tex_0.png")
+    isf.write_text(text.replace('"albedo_tex_0.png"', '"albedo_tex_0.jpg"'))
+    rendered_equal("head, lossless JPEG albedo against the PNG", scenes)
 
 
 def run_example(name: str, argv: list) -> tuple:

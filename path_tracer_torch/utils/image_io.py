@@ -15,14 +15,17 @@ the samples of Pillow's mode for it, ``read_png_rgba`` Pillow's
 - palette indices past the palette read black; ``tRNS`` gives the first
   entries' alpha, the rest 255; gray + alpha and RGBA ignore ``tRNS``.
 
-``decode_image_rgba`` reads a PNG or a JPEG (``utils/jpeg.py``)
-as RGBA, as the glTF converter's textures need.
+``decode_image_rgba`` reads a PNG or a JPEG (``utils/jpeg.py``: every 8-bit
+JPEG Pillow decodes) as RGBA, as the glTF converter's textures need.
 
-The texture loaders convert as the JAX package's Pillow loaders do: RGB
-drops alpha and spreads gray over three channels; gray of a non-gray image
-is the Rec.709 luma the reference's Rust image crate uses
-(floor(0.2126 R + 0.7152 G + 0.0722 B + 0.5), in float32); values are
-divided by 255.
+The texture loaders take the same two formats, told apart by their leading
+bytes, and convert as the JAX package's Pillow loaders do: RGB drops alpha
+and spreads gray over three channels; gray of a non-gray image is the
+Rec.709 luma the reference's Rust image crate uses (floor(0.2126 R +
+0.7152 G + 0.0722 B + 0.5), in float32); values are divided by 255. A
+CMYK JPEG reaches RGB as Pillow's ``convert("RGB")`` takes it there
+(``cmyk_to_rgb``). Any other format raises ``ValueError`` naming the file
+and its leading bytes.
 """
 from __future__ import annotations
 
@@ -224,21 +227,44 @@ def read_png_rgba(path) -> np.ndarray:
     return np.concatenate([rgb, alpha], axis=2)
 
 
-def decode_image_rgba(data: bytes, name="<bytes>") -> np.ndarray:
-    """A PNG or JPEG image's bytes as uint8 [H, W, 4], as Pillow's
-    ``Image.open(...).convert("RGBA")`` gives it: the two image types a
-    glTF 2.0 file may carry. A JPEG is gray or RGB, alpha 255."""
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """uint8 [..., 4] CMYK (Pillow's mode ``CMYK``) → [..., 3] RGB as
+    Pillow's ``convert("RGB")`` (Convert.c's cmyk2rgb): each channel
+    255 - k - (x (255 - k)) / 255, the product rounded as MULDIV255."""
+    x = cmyk.astype(np.int64)
+    nk = 255 - x[..., 3:]
+    t = x[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
+def _image_u8(data: bytes, name) -> np.ndarray:
+    """uint8 [H, W, C] samples of a PNG or JPEG told apart by its leading
+    bytes: a PNG's of its Pillow mode (``read_png``), a JPEG's gray or
+    RGB, CMYK reaching RGB by ``cmyk_to_rgb``."""
     if data[:8] == _SIGNATURE:
-        return read_png_rgba(data)
+        return _mode_u8(_decode_png(data, name))
     if data[:2] == b"\xff\xd8":
         from path_tracer_torch.utils.jpeg import decode_jpeg
 
         px = decode_jpeg(data, name)
         if px.ndim == 2:
-            px = np.repeat(px[:, :, None], 3, axis=2)
-        alpha = np.full(px.shape[:2] + (1,), 255, np.uint8)
-        return np.concatenate([px, alpha], axis=2)
-    raise ValueError(f"{name}: neither a PNG nor a JPEG image")
+            return px[:, :, None]
+        return cmyk_to_rgb(px) if px.shape[2] == 4 else px
+    raise ValueError(f"{name}: neither a PNG nor a JPEG image (leading "
+                     f"bytes {bytes(data[:8])!r}); the port reads those two "
+                     "formats only")
+
+
+def decode_image_rgba(data: bytes, name="<bytes>") -> np.ndarray:
+    """A PNG or JPEG image's bytes as uint8 [H, W, 4], as Pillow's
+    ``Image.open(...).convert("RGBA")`` gives it: the two image types a
+    glTF 2.0 file may carry. A JPEG has alpha 255."""
+    if data[:8] == _SIGNATURE:
+        return read_png_rgba(data)
+    px = _image_u8(data, name)
+    rgb = np.repeat(px, 3, axis=2) if px.shape[2] == 1 else px
+    alpha = np.full(px.shape[:2] + (1,), 255, np.uint8)
+    return np.concatenate([rgb, alpha], axis=2)
 
 
 def _rgb_u8(pixels: np.ndarray) -> np.ndarray:
@@ -249,14 +275,18 @@ def _rgb_u8(pixels: np.ndarray) -> np.ndarray:
 
 
 def load_texture_rgb(path) -> np.ndarray:
-    """PNG as [H,W,3] float32 in [0,1] (raw values, no sRGB decode)."""
-    return _rgb_u8(read_png(path)).astype(np.float32) / 255.0
+    """A PNG or JPEG as [H,W,3] float32 in [0,1] (raw values, no sRGB
+    decode)."""
+    data, name = _read_bytes(path)
+    return _rgb_u8(_image_u8(data, name)).astype(np.float32) / 255.0
 
 
 def load_texture_gray(path) -> np.ndarray:
-    """PNG as [H,W] float32 in [0,1]; a gray PNG passes through, any other
-    is reduced by the Rec.709 luma with round half up."""
-    pixels = read_png(path)
+    """A PNG or JPEG as [H,W] float32 in [0,1]; a gray image passes
+    through, any other is reduced by the Rec.709 luma with round half
+    up."""
+    data, name = _read_bytes(path)
+    pixels = _image_u8(data, name)
     if pixels.shape[2] == 1:
         arr = pixels[:, :, 0]
     else:

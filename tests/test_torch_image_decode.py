@@ -14,7 +14,9 @@ itself never imports.
   (the count of texels off is stated, and is 0); a progressive file
   decodes to the texels of the same image coded as baseline, and a glb
   with a progressive texture converts as the JAX converter converts it;
-  a lossless or arithmetic-coded file raises naming its marker;
+  a hierarchical, 12-bit or DNL file raises naming what it holds, and the
+  texture loaders refuse a GIF (tests/test_torch_jpeg_kinds.py has the
+  lossless, arithmetic-coded, CMYK and YCCK kinds);
 - the fixtures in tests/fixtures/torch_images (what ``chip_smoke.py``
   checks on the card, where Pillow is absent): Pillow's decode beside
   each image is still Pillow's, and the port decodes each to it.
@@ -333,18 +335,38 @@ def test_glb_with_progressive_texture_converts_as_jax(tmp_path):
         np.asarray(Image.open(io.BytesIO(jpeg)).convert("RGB")))
 
 
-def test_unsupported_jpegs_raise_naming_the_marker():
+def test_unsupported_jpegs_raise_naming_the_marker(tmp_path):
+    """What Pillow refuses raises ``ValueError`` naming the image and what
+    it holds: a hierarchical frame (SOF5), 12-bit samples, a height set by
+    DNL; and the ISF texture loaders take PNG and JPEG only, naming a
+    GIF's file and leading bytes (no fallback)."""
     img = _image()
     data = bytearray(_jpeg(img))
     sof = data.index(b"\xff\xc0")
-    data[sof + 1] = 0xC9  # the same frame header, arithmetic-coded
-    with pytest.raises(ValueError, match=r"arith\.jpg: .*\(SOF9\)"):
-        decode_jpeg(bytes(data), "arith.jpg")
-    data[sof + 1] = 0xC3  # lossless
-    with pytest.raises(ValueError, match=r"ll\.jpg: lossless \(SOF3\)"):
-        decode_jpeg(bytes(data), "ll.jpg")
+    hier = bytearray(data)
+    hier[sof + 1] = 0xC5  # the same frame header, differential
+    with pytest.raises(ValueError, match=r"hier\.jpg: differential "
+                       r"sequential \(SOF5\)"):
+        decode_jpeg(bytes(hier), "hier.jpg")
+    twelve = bytearray(data)
+    twelve[sof + 4] = 12  # the frame's sample precision
+    with pytest.raises(ValueError, match=r"p12\.jpg: 12-bit"):
+        decode_jpeg(bytes(twelve), "p12.jpg")
+    dnl = bytearray(data)
+    dnl[sof + 5:sof + 7] = b"\x00\x00"  # the height, left to DNL
+    with pytest.raises(ValueError, match=r"dnl\.jpg: .*DNL"):
+        decode_jpeg(bytes(dnl), "dnl.jpg")
+    for bad in (bytes(hier), bytes(twelve), bytes(dnl)):
+        with pytest.raises(OSError):
+            Image.open(io.BytesIO(bad)).load()
     with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
         decode_image_rgba(b"GIF89a", "x.gif")
+    gif = tmp_path / "t.gif"
+    Image.fromarray(img).save(gif)
+    for loader in (load_texture_rgb, load_texture_gray):
+        with pytest.raises(ValueError, match=r"t\.gif: neither a PNG nor "
+                           r"a JPEG image \(leading bytes b'GIF8"):
+            loader(gif)
 
 
 def test_fixtures_hold_pillows_decode_and_the_port_matches():

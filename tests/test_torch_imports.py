@@ -133,8 +133,9 @@ def test_port_renders_without_jax_yaml_or_pil():
 
 def test_port_sources_import_no_jax():
     """No module of the port (its multi-device modules included, nor
-    chip_smoke.py, the port's examples, its glb generator or the worker of
-    its multi-process tests) names jax, the JAX package or Pillow in an
+    chip_smoke.py, the port's examples, its glb generator, the worker of
+    its multi-process tests, or the JPEG writer and timing tools that
+    chip_smoke.py loads) names jax, the JAX package or Pillow in an
     import statement."""
     import ast
 
@@ -145,11 +146,11 @@ def test_port_sources_import_no_jax():
                    "scene/bvh_layouts.py", "models/debug_aov.py",
                    "utils/checkpoint.py", "utils/obj_logger.py",
                    "viewer/http_viewer.py", "scene/gltf.py",
-                   "utils/jpeg.py"):
+                   "utils/jpeg.py", "utils/jpeg_arith.py"):
         assert REPO / "path_tracer_torch" / module in files
-    files += [REPO / "chip_smoke.py",
-              REPO / "tests" / "tools" / "torch_gen_test_glb.py",
-              REPO / "tests" / "tools" / "torch_parallel_worker.py"]
+    files += [REPO / "chip_smoke.py"]
+    files += [REPO / "tests" / "tools" / f"torch_{name}.py" for name in (
+        "gen_test_glb", "parallel_worker", "jpeg_writer", "jpeg_timing")]
     files += sorted((REPO / "examples").glob("torch_*.py"))
     assert len(files) > 40
     for path in files:

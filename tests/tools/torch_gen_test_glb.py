@@ -134,16 +134,20 @@ def _wall(x0, z0, x1, z1, y0, y1, nx: int = 6, ny: int = 3):
             np.asarray(uvs, np.float32), np.asarray(idx, np.uint32))
 
 
-def write_glb(path, multi_opacity: bool = False) -> int:
+def write_glb(path, multi_opacity: bool = False, textures=None) -> int:
     """Write the GLB; returns the total triangle count.
 
     ``multi_opacity`` adds two cutout walls whose RGBA base-color textures
     carry DIFFERENT alpha patterns: the converted ISF then holds two
     distinct opacity textures (the walk kernels' multi-page path).
+    ``textures``: image files' bytes (PNG or JPEG): the first replaces the
+    terrain's checker, each other is the base colour of an opaque wall of
+    its own in a row behind the terrain's middle.
     """
     tpos, tnrm, tuv, tidx = _terrain()
     dpos, dnrm, duv, didx = _dome()
-    png = _checker_png()
+    textures = list(textures or [])
+    png = textures.pop(0) if textures else _checker_png()
 
     bin_parts = []
     views = []
@@ -177,6 +181,12 @@ def write_glb(path, multi_opacity: bool = False) -> int:
         prims.append((*_wall(-12.0, -4.0, 12.0, -10.0, 0.5, 6.5), 2))
         prims.append((*_wall(-10.0, 8.0, 10.0, 3.0, 0.5, 6.0), 3))
 
+    n_mats = 4 if multi_opacity else 2
+    for k in range(len(textures)):
+        x0 = -18.0 + 36.0 * k / len(textures)
+        x1 = -18.0 + 36.0 * (k + 1) / len(textures) - 0.5
+        prims.append((*_wall(x0, -14.0, x1, -14.0, 0.5, 7.0), n_mats + k))
+
     meshes = []
     for pos, nrm, uv, idx, mat in prims:
         p = add_accessor(pos, 5126, "VEC3", 34962)
@@ -187,10 +197,13 @@ def write_glb(path, multi_opacity: bool = False) -> int:
             "attributes": {"POSITION": p, "NORMAL": n, "TEXCOORD_0": u},
             "indices": i, "material": mat, "mode": 4}]})
 
+    def mime(data: bytes) -> str:
+        return "image/jpeg" if data[:2] == b"\xff\xd8" else "image/png"
+
     img_view = add_blob(png)
 
-    textures = [{"source": 0}]
-    images = [{"bufferView": img_view, "mimeType": "image/png"}]
+    tex_docs = [{"source": 0}]
+    images = [{"bufferView": img_view, "mimeType": mime(png)}]
     materials = [
         {"pbrMetallicRoughness": {
             "baseColorTexture": {"index": 0},
@@ -205,12 +218,19 @@ def write_glb(path, multi_opacity: bool = False) -> int:
         for k, kind in enumerate(("holes", "stripes")):
             v = add_blob(_cutout_png(64, kind))
             images.append({"bufferView": v, "mimeType": "image/png"})
-            textures.append({"source": len(images) - 1})
+            tex_docs.append({"source": len(images) - 1})
             materials.append({"pbrMetallicRoughness": {
-                "baseColorTexture": {"index": len(textures) - 1},
+                "baseColorTexture": {"index": len(tex_docs) - 1},
                 "metallicFactor": 0.0, "roughnessFactor": 0.8},
                 "alphaMode": "BLEND", "doubleSided": True})
             node_meshes.append(2 + k)
+    for data in textures:
+        images.append({"bufferView": add_blob(data), "mimeType": mime(data)})
+        tex_docs.append({"source": len(images) - 1})
+        materials.append({"pbrMetallicRoughness": {
+            "baseColorTexture": {"index": len(tex_docs) - 1},
+            "metallicFactor": 0.0, "roughnessFactor": 0.7}})
+        node_meshes.append(len(node_meshes))
 
     mesh_nodes = [{"mesh": m} for m in node_meshes]
     doc = {
@@ -229,7 +249,7 @@ def write_glb(path, multi_opacity: bool = False) -> int:
                                      "zfar": 200.0}}],
         "materials": materials,
         "meshes": meshes,
-        "textures": textures,
+        "textures": tex_docs,
         "images": images,
         "extensions": {"KHR_lights_punctual": {"lights": [
             {"type": "point", "color": [1.0, 0.95, 0.9],
