@@ -222,7 +222,10 @@ any error:
    their ``.pillow.png`` decodes in their place, converted (every PNG
    byte-equal) and rendered at 1080p through the CLI (byte-equal, rows 9,
    10, 13 and 14 launched); ``head`` with its albedo as a lossless JPEG of
-   the same texels rendered byte-equal to the PNG one; (8c)
+   the same texels rendered byte-equal to the PNG one; whether Pillow
+   imports on the card's host: if it does, ``head`` with its textures
+   re-saved as BMP, LZW TIFF and lossless WebP rendered byte-equal to the
+   PNG one, else a BMP texture raising, naming the file; (8c)
    ``examples/torch_render_scene.py`` on ``cube`` and
    ``examples/torch_inverse_rendering.py``, its loss falling;
 9. (also alone with ``--only 9``) the multi-device paths
@@ -6051,6 +6054,7 @@ def phase_convert(device, oracle: bool) -> None:
     if n_images < 2:
         raise AssertionError("no image fixtures found")
     phase_jpeg_kinds()
+    phase_pillow_formats()
     if oracle:
         phase_oracle(device, GLB_CASES)
 
@@ -6145,6 +6149,67 @@ def phase_jpeg_kinds() -> None:
         raise AssertionError("the head scene names no albedo_tex_0.png")
     isf.write_text(text.replace('"albedo_tex_0.png"', '"albedo_tex_0.jpg"'))
     rendered_equal("head, lossless JPEG albedo against the PNG", scenes)
+
+
+# The writers 8b re-saves head's textures with where Pillow imports
+# (tests/tools/torch_image_formats.py).
+PILLOW_WRITERS = ("bmp", "tiff_lzw", "webp_lossless")
+
+
+def phase_pillow_formats() -> None:
+    """8b's textures in formats other than PNG and JPEG, which the port
+    reads through Pillow as the JAX package's loaders do: whether Pillow
+    imports on this host (asked of a child process); if it does,
+    tests/scenes/head with its textures re-saved by PILLOW_WRITERS
+    (tests/tools/torch_image_formats.py, a child process) rendered at
+    FRAME_W x FRAME_H through the CLI, byte-equal to the PNG scene; if it
+    does not, ``load_texture_rgb`` of a BMP raising ``ValueError`` that
+    names the file and the need for Pillow."""
+    import struct
+
+    from path_tracer_torch.utils.image_io import load_texture_rgb
+
+    probe = subprocess.run(
+        [sys.executable, "-c", "import PIL; print(PIL.__version__)"],
+        capture_output=True, text=True, timeout=120)
+    pillow = probe.returncode == 0
+    log(f"  Pillow imports on the card's host: {pillow}"
+        + (f" (Pillow {probe.stdout.strip()})" if pillow else ""))
+    out = REPO / "build" / "chip_smoke_head_formats"
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        if pillow:
+            t0 = time.perf_counter()
+            subprocess.run(
+                [sys.executable, str(REPO / "tests" / "tools"
+                                     / "torch_image_formats.py"),
+                 str(scene_path("head").parent), str(out), *PILLOW_WRITERS],
+                check=True, capture_output=True, text=True, timeout=600)
+            log(f"  head's textures re-saved by {PILLOW_WRITERS} in "
+                f"{time.perf_counter() - t0:.2f} s")
+            shutil.copytree(scene_path("head").parent, out / "png")
+            rendered_equal(
+                "head, textures as BMP, LZW TIFF and lossless WebP against "
+                "the PNG", {f"head_{w}": out / w / "scene.isf"
+                            for w in ("png",) + PILLOW_WRITERS})
+            return
+        # A 1 x 1 24-bit BMP: the file header, the info header, one row.
+        bmp = out / "tex.bmp"
+        out.mkdir(parents=True)
+        bmp.write_bytes(b"BM" + struct.pack("<IHHI", 58, 0, 0, 54)
+                        + struct.pack("<IiiHHIIiiII", 40, 1, 1, 1, 24, 0, 4,
+                                      2835, 2835, 0, 0) + b"\x00\x00\xff\x00")
+        try:
+            load_texture_rgb(bmp)
+            msg = None
+        except ValueError as e:
+            msg = str(e)
+        log(f"  a BMP texture without Pillow: {msg!r}")
+        if msg is None or str(bmp) not in msg or "need Pillow" not in msg:
+            raise AssertionError("a BMP without Pillow must raise naming "
+                                 "the file")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def run_example(name: str, argv: list) -> tuple:

@@ -13,7 +13,8 @@ counterpart:
 - ``models``  — the wavefront integrator and the render driver
 - ``parallel``— the differentiable render step (scene-parameter gradients,
                 one device)
-- ``utils``   — PNG and JPEG readers, the PNG writer
+- ``utils``   — PNG and JPEG readers (other formats through Pillow), the
+                PNG writer
 - ``cli``     — ``path-tracer-torch render`` and ``convert``
 
 At package level, as in the JAX package: ``Profile``, ``Resolution``,

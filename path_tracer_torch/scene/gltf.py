@@ -1,9 +1,10 @@
 """glTF 2.0 → ISF converter (offline tooling, host-side).
 
-Port of ``path_tracer_tpu/scene/gltf.py`` without Pillow: images decode
-through ``utils/image_io.decode_image_rgba`` (every PNG, and every
-8-bit JPEG Pillow decodes through ``utils/jpeg.py``: the two image types
-glTF 2.0 allows, to the texels Pillow gives) and textures are written with
+Port of ``path_tracer_tpu/scene/gltf.py`` without Pillow on its path:
+images decode through ``utils/image_io.decode_image_rgba`` (every PNG, and
+every 8-bit JPEG Pillow decodes through ``utils/jpeg.py``: the two image
+types glTF 2.0 allows, to the texels Pillow gives; any other image through
+Pillow, as the JAX converter opens it) and textures are written with
 ``encode_png``.
 The ISF JSON, the texture file names and their texels are the JAX
 converter's; the PNG bytes may differ.

@@ -1,4 +1,5 @@
-"""PNG and JPEG readers and a PNG writer, standard library and numpy only.
+"""PNG and JPEG readers and a PNG writer, standard library and numpy only,
+and texture loaders that hand any other format to Pillow.
 
 The PNG reader takes every PNG (colour types 0, 2, 3, 4 and 6 at every bit
 depth the format allows, any of the five row filters, Adam7 interlacing,
@@ -24,11 +25,20 @@ and spreads gray over three channels; gray of a non-gray image is the
 Rec.709 luma the reference's Rust image crate uses (floor(0.2126 R +
 0.7152 G + 0.0722 B + 0.5), in float32); values are divided by 255. A
 CMYK JPEG reaches RGB as Pillow's ``convert("RGB")`` takes it there
-(``cmyk_to_rgb``). Any other format raises ``ValueError`` naming the file
-and its leading bytes.
+(``cmyk_to_rgb``).
+
+Any other image (BMP, GIF, TIFF, WebP, TGA, ...: whatever Pillow opens, as
+the JAX package's loaders take it) is decoded by Pillow, imported only
+then (``_pillow_u8``), with the JAX package's conversions: ``convert("RGB")``
+for the RGB loader; for the gray loader ``convert("L")`` of modes ``L``,
+``I;16`` and ``I``, else ``convert("RGB")`` and the luma above; and
+``convert("RGBA")`` for ``decode_image_rgba``. Without Pillow, or where
+Pillow cannot read the bytes, it raises ``ValueError`` naming the file
+and its leading bytes. PNG and JPEG never need Pillow.
 """
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 from pathlib import Path
@@ -237,10 +247,45 @@ def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
     return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
-def _image_u8(data: bytes, name) -> np.ndarray:
-    """uint8 [H, W, C] samples of a PNG or JPEG told apart by its leading
+# The modes the JAX package's gray loader passes through ``convert("L")``.
+_GRAY_MODES = ("L", "I;16", "I")
+
+
+def _pillow_u8(data: bytes, name, mode: str) -> np.ndarray:
+    """uint8 [H, W, C] of Pillow's ``Image.open(...).convert(mode)`` for an
+    image that is neither PNG nor JPEG; ``mode`` "gray" is the gray
+    loader's choice, "L" for modes ``_GRAY_MODES``, else "RGB". The one
+    place the port imports Pillow."""
+    lead = bytes(data[:8])
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(f"{name}: neither a PNG nor a JPEG image (leading "
+                         f"bytes {lead!r}); other formats need Pillow, which "
+                         "is not installed") from None
+    # What Pillow's plugins raise on a file they cannot read: OSError
+    # (UnidentifiedImageError, truncation), ValueError, SyntaxError,
+    # IndexError and struct.error on malformed headers or data, EOFError,
+    # DecompressionBombError past its pixel limit.
+    unreadable = (OSError, ValueError, SyntaxError, IndexError, EOFError,
+                  struct.error, Image.DecompressionBombError)
+    try:
+        with Image.open(io.BytesIO(data)) as img:
+            if mode == "gray":
+                mode = "L" if img.mode in _GRAY_MODES else "RGB"
+            px = np.asarray(img.convert(mode), np.uint8)
+    except unreadable as e:
+        raise ValueError(f"{name}: Pillow cannot read this image (leading "
+                         f"bytes {lead!r}): {type(e).__name__}: {e}"
+                         ) from None
+    return px if px.ndim == 3 else px[:, :, None]
+
+
+def _image_u8(data: bytes, name, mode: str) -> np.ndarray:
+    """uint8 [H, W, C] samples of an image told apart by its leading
     bytes: a PNG's of its Pillow mode (``read_png``), a JPEG's gray or
-    RGB, CMYK reaching RGB by ``cmyk_to_rgb``."""
+    RGB, CMYK reaching RGB by ``cmyk_to_rgb``; any other image Pillow's
+    conversion to ``mode`` (``_pillow_u8``)."""
     if data[:8] == _SIGNATURE:
         return _mode_u8(_decode_png(data, name))
     if data[:2] == b"\xff\xd8":
@@ -250,18 +295,20 @@ def _image_u8(data: bytes, name) -> np.ndarray:
         if px.ndim == 2:
             return px[:, :, None]
         return cmyk_to_rgb(px) if px.shape[2] == 4 else px
-    raise ValueError(f"{name}: neither a PNG nor a JPEG image (leading "
-                     f"bytes {bytes(data[:8])!r}); the port reads those two "
-                     "formats only")
+    return _pillow_u8(data, name, mode)
 
 
 def decode_image_rgba(data: bytes, name="<bytes>") -> np.ndarray:
-    """A PNG or JPEG image's bytes as uint8 [H, W, 4], as Pillow's
-    ``Image.open(...).convert("RGBA")`` gives it: the two image types a
-    glTF 2.0 file may carry. A JPEG has alpha 255."""
+    """An image's bytes as uint8 [H, W, 4], as Pillow's
+    ``Image.open(...).convert("RGBA")`` gives it (the glTF converter's
+    textures): PNG and JPEG, the two image types a glTF 2.0 file may
+    carry, by the port's decoders (a JPEG has alpha 255), any other
+    through Pillow."""
     if data[:8] == _SIGNATURE:
         return read_png_rgba(data)
-    px = _image_u8(data, name)
+    px = _image_u8(data, name, "RGBA")
+    if px.shape[2] == 4:
+        return px
     rgb = np.repeat(px, 3, axis=2) if px.shape[2] == 1 else px
     alpha = np.full(px.shape[:2] + (1,), 255, np.uint8)
     return np.concatenate([rgb, alpha], axis=2)
@@ -275,18 +322,17 @@ def _rgb_u8(pixels: np.ndarray) -> np.ndarray:
 
 
 def load_texture_rgb(path) -> np.ndarray:
-    """A PNG or JPEG as [H,W,3] float32 in [0,1] (raw values, no sRGB
+    """An image as [H,W,3] float32 in [0,1] (raw values, no sRGB
     decode)."""
     data, name = _read_bytes(path)
-    return _rgb_u8(_image_u8(data, name)).astype(np.float32) / 255.0
+    return _rgb_u8(_image_u8(data, name, "RGB")).astype(np.float32) / 255.0
 
 
 def load_texture_gray(path) -> np.ndarray:
-    """A PNG or JPEG as [H,W] float32 in [0,1]; a gray image passes
-    through, any other is reduced by the Rec.709 luma with round half
-    up."""
+    """An image as [H,W] float32 in [0,1]; a gray image passes through,
+    any other is reduced by the Rec.709 luma with round half up."""
     data, name = _read_bytes(path)
-    pixels = _image_u8(data, name)
+    pixels = _image_u8(data, name, "gray")
     if pixels.shape[2] == 1:
         arr = pixels[:, :, 0]
     else:

@@ -338,8 +338,9 @@ def test_glb_with_progressive_texture_converts_as_jax(tmp_path):
 def test_unsupported_jpegs_raise_naming_the_marker(tmp_path):
     """What Pillow refuses raises ``ValueError`` naming the image and what
     it holds: a hierarchical frame (SOF5), 12-bit samples, a height set by
-    DNL; and the ISF texture loaders take PNG and JPEG only, naming a
-    GIF's file and leading bytes (no fallback)."""
+    DNL, and bytes no decoder reads (a bare GIF header), with their leading
+    bytes; a GIF texture decodes through Pillow, as the JAX loaders read
+    it (without Pillow it raises: tests/test_torch_image_formats.py)."""
     img = _image()
     data = bytearray(_jpeg(img))
     sof = data.index(b"\xff\xc0")
@@ -359,14 +360,14 @@ def test_unsupported_jpegs_raise_naming_the_marker(tmp_path):
     for bad in (bytes(hier), bytes(twelve), bytes(dnl)):
         with pytest.raises(OSError):
             Image.open(io.BytesIO(bad)).load()
-    with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
+    with pytest.raises(ValueError, match=r"x\.gif: Pillow cannot read "
+                       r"this image \(leading bytes b'GIF89a'"):
         decode_image_rgba(b"GIF89a", "x.gif")
     gif = tmp_path / "t.gif"
     Image.fromarray(img).save(gif)
-    for loader in (load_texture_rgb, load_texture_gray):
-        with pytest.raises(ValueError, match=r"t\.gif: neither a PNG nor "
-                           r"a JPEG image \(leading bytes b'GIF8"):
-            loader(gif)
+    want = np.asarray(Image.open(gif).convert("RGB"), np.float32) / 255.0
+    np.testing.assert_array_equal(load_texture_rgb(gif), want)
+    assert load_texture_gray(gif).shape == want.shape[:2]
 
 
 def test_fixtures_hold_pillows_decode_and_the_port_matches():
