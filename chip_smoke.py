@@ -2063,7 +2063,6 @@ def phase_main_path(device):
         integrator_spec,
         render_pixel_sums,
     )
-    from path_tracer_torch.ops import cuda_intersect, cuda_spheres
     from path_tracer_torch.scene import load_scene
     from path_tracer_torch.utils.image_io import save_png
 
@@ -2079,14 +2078,14 @@ def phase_main_path(device):
     reset_launch_counts()
     per_scene = {}
     for name, sc in scenes.items():
-        before = (cuda_intersect.launches, cuda_spheres.launches)
+        before = (launched("mt_closest_hit"), launched("sphere_closest_hit"))
         t0 = time.perf_counter()
         sums = render_pixel_sums(sc, 1920, 1080, 1, spp, spec,
                                  tile_rays=profile.tile_rays)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        per_scene[name] = (cuda_intersect.launches - before[0],
-                           cuda_spheres.launches - before[1])
+        per_scene[name] = (launched("mt_closest_hit") - before[0],
+                           launched("sphere_closest_hit") - before[1])
         img = finalize(sums, spp, profile, 1920, 1080)
         save_png(img, OUT / f"{name}_1080p_{spp}spp.png")
         rays = 1920 * 1080 * spp * 5
@@ -2128,56 +2127,33 @@ def cli_frame_profile() -> Path:
     return prof
 
 
-def launch_counts() -> dict:
-    from path_tracer_torch.ops import (
-        cuda_bvh,
-        cuda_intersect,
-        cuda_khit,
-        cuda_shadow,
-        cuda_spheres,
-        cuda_trwalk,
-    )
+# The hand-written kernels by the names of their launch counters
+# (``utils.telemetry.counters["launch.<kernel>"]``).
+LAUNCH_KERNELS = ("mt_closest_hit", "sphere_closest_hit", "sph_walk",
+                  "flat_closest_hit", "flat_occluded", "flat2_closest_hit",
+                  "flat2_occluded", "alpha_walk", "trans_walk", "sph_occluded",
+                  "sph_occ_walk", "fused_shadow", "alpha_walk_live",
+                  "trans_walk_live", "fused_shadow_live", "k_nearest_tr_hits",
+                  "tree_closest_hit", "tree_occluded")
 
-    return {"mt_closest_hit": cuda_intersect.launches,
-            "sphere_closest_hit": cuda_spheres.launches,
-            "sph_walk": cuda_spheres.sph_walk_launches,
-            "flat_closest_hit": cuda_bvh.closest_hit_launches,
-            "flat_occluded": cuda_bvh.occluded_launches,
-            "flat2_closest_hit": cuda_bvh.flat2_closest_hit_launches,
-            "flat2_occluded": cuda_bvh.flat2_occluded_launches,
-            "alpha_walk": cuda_trwalk.alpha_launches,
-            "trans_walk": cuda_trwalk.trans_launches,
-            "sph_occluded": cuda_spheres.occluded_launches,
-            "sph_occ_walk": cuda_spheres.sph_occ_walk_launches,
-            "fused_shadow": cuda_shadow.launches,
-            "alpha_walk_live": cuda_trwalk.alpha_live_launches,
-            "trans_walk_live": cuda_trwalk.trans_live_launches,
-            "fused_shadow_live": cuda_shadow.live_launches,
-            "k_nearest_tr_hits": cuda_khit.launches,
-            "tree_closest_hit": cuda_bvh.tree_closest_hit_launches,
-            "tree_occluded": cuda_bvh.tree_occluded_launches}
+
+def launched(kernel: str) -> int:
+    """Launches of one hand-written kernel in this process since the last
+    ``reset_launch_counts``."""
+    from path_tracer_torch.utils.telemetry import counters
+
+    return counters["launch." + kernel]
+
+
+def launch_counts() -> dict:
+    return {k: launched(k) for k in LAUNCH_KERNELS}
 
 
 def reset_launch_counts() -> None:
-    from path_tracer_torch.ops import (
-        cuda_bvh,
-        cuda_intersect,
-        cuda_khit,
-        cuda_shadow,
-        cuda_spheres,
-        cuda_trwalk,
-    )
+    from path_tracer_torch.utils.telemetry import counters
 
-    cuda_intersect.launches = cuda_spheres.launches = 0
-    cuda_spheres.sph_walk_launches = 0
-    cuda_spheres.occluded_launches = cuda_spheres.sph_occ_walk_launches = 0
-    cuda_shadow.launches = cuda_shadow.live_launches = 0
-    cuda_bvh.closest_hit_launches = cuda_bvh.occluded_launches = 0
-    cuda_bvh.flat2_closest_hit_launches = cuda_bvh.flat2_occluded_launches = 0
-    cuda_trwalk.alpha_launches = cuda_trwalk.trans_launches = 0
-    cuda_trwalk.alpha_live_launches = cuda_trwalk.trans_live_launches = 0
-    cuda_khit.launches = 0
-    cuda_bvh.tree_closest_hit_launches = cuda_bvh.tree_occluded_launches = 0
+    for k in LAUNCH_KERNELS:
+        counters.pop("launch." + k, None)
 
 
 def phase_showcase(device, showcase):
@@ -3378,9 +3354,9 @@ def phase_tree_kernels(device, showcase, big):
         kill = as_cuda(rng.uniform(size=(len(stms), n)) < 0.1, device, bool)
         stms = [torch.where(k, -1.0, tm) for k, tm in zip(kill, stms)]
         flat = other_occ(so, sds, stms, sc)
-        before = cuda_bvh.tree_occluded_launches
+        before = launched("tree_occluded")
         got = cuda_bvh.occluded_triangles_tree_multi(so, sds, stms, sc)
-        launches = cuda_bvh.tree_occluded_launches - before
+        launches = launched("tree_occluded") - before
         want = cuda_bvh.occluded_triangles_tree_multi_plain(so, sds, stms,
                                                             sc)
         o_err = max(o_err, float((got != want).float().max()))
@@ -4656,13 +4632,13 @@ def rows_5_4_parity(device, tex, grid) -> dict:
     # More sets than the kernel holds per lane: a launch per chunk.
     n_sets = native.SPH_OCC_MAX_SETS + 3
     pick = torch.arange(n_sets, device=device) % dss.shape[0]
-    before = cuda_spheres.occluded_launches
+    before = launched("sph_occluded")
     occ_held(f"{n_sets} sets (the first-bounce sets repeated), a random "
              "prior", so, dss[pick].contiguous(), tmss[pick].contiguous(),
              rand[pick].contiguous())
-    if cuda_spheres.occluded_launches != before + 2:
+    if launched("sph_occluded") != before + 2:
         raise AssertionError(f"row 4: {n_sets} sets took "
-                             f"{cuda_spheres.occluded_launches - before} "
+                             f"{launched('sph_occluded') - before} "
                              "launches, not 2")
     log(f"  row 4 held in {time.perf_counter() - t0:.1f} s")
     return out
@@ -4798,9 +4774,9 @@ def phase_row_6(device, grid) -> dict:
         return sc.sph_blk, sc.sph_blkid, sc.sph_sorted_t
 
     def held6(label, o, ds, tms, sc, prior=None, extra=None):
-        before = cuda_spheres.sph_occ_walk_launches
+        before = launched("sph_occ_walk")
         new = cuda_spheres.occluded_spheres_cuda(o, ds, tms, sc, prior=prior)
-        if cuda_spheres.sph_occ_walk_launches != before + 1 \
+        if launched("sph_occ_walk") != before + 1 \
                 or new.dtype != torch.bool:
             raise AssertionError(f"row 6, {label}: not one bool launch")
         want = {"the plain version": cuda_spheres.occluded_spheres_plain(
@@ -5036,9 +5012,9 @@ def phase_rows_7_8(device, showcase, big) -> dict:
         if plain is None:
             plain = cuda_bvh.occluded_triangles_tree_multi_plain(o, ds, tms,
                                                                  sc)
-        before = cuda_bvh.tree_occluded_launches
+        before = launched("tree_occluded")
         new = cuda_bvh.occluded_triangles_tree_multi(o, ds, tms, sc)
-        launches = cuda_bvh.tree_occluded_launches - before
+        launches = launched("tree_occluded") - before
         off = int((new != plain).sum())
         dead = torch.stack(list(tms)) < 0.0
         log(f"  row 8, {label}: {len(ds)} x {o.shape[0]} lanes in "
@@ -6363,6 +6339,7 @@ def par_world(kind: str, rank: int, world: int, device) -> dict:
     from path_tracer_torch.parallel.multihost import render_multihost
     from path_tracer_torch.parallel.train import get_params, make_train_step
     from path_tracer_torch.scene.showcase import showcase_device_scene
+    from path_tracer_torch.utils import telemetry
 
     t0 = time.perf_counter()
     tex = showcase_device_scene(SHOWCASE_GRID, device,
@@ -6412,8 +6389,9 @@ def par_world(kind: str, rank: int, world: int, device) -> dict:
                    step_counts=json.dumps(counts),
                    reduced_bytes=4 * (1 + sum(p.numel()
                                               for p in params.values())))
-    out["transports"] = json.dumps({":".join(k): v
-                                    for k, v in pmesh.transports.items()})
+    out["transports"] = json.dumps({
+        ":".join(k.split(".")[1:]): v for k, v in telemetry.counters.items()
+        if k.startswith("transport.")})
     return out
 
 

@@ -126,6 +126,7 @@ from path_tracer_torch.scene.device_scene import (
     partitioned,
     transparent_view,
 )
+from path_tracer_torch.utils.telemetry import sync_any, traced
 
 NORMAL_BIAS = 1e-5
 THROUGHPUT_CUTOFF = 1e-5
@@ -362,7 +363,7 @@ def _alpha_cast_walk(scene, cast_scene, o, d, pix, sample_id, bounce, spec,
     sel, seen, accepted, t_prev, active = state
     stride = rng.site_layout(steps)[3]
     for k in range(k0, steps):
-        if not bool(active.any()):
+        if not sync_any(active, "alpha_cast_walk"):
             break
         hit = closest_hit(o, d, t_prev, cast_scene, active=active,
                           include_spheres=t_op is None)
@@ -526,7 +527,9 @@ def _alpha_walk_partitioned(scene, o, d, walking, pix, sample_id, bounce,
     t_op = torch.where(hit_op.valid, hit_op.t, float("inf"))
     # Lanes whose segment to the terminator misses every transparent
     # cluster skip the walk (``walking`` still drives the background).
-    walk_active = walking & trwalk.hits_transparent_bounds(scene, o, d, t_op)
+    with traced("hit.prefilter", dev):
+        walk_active = walking & trwalk.hits_transparent_bounds(scene, o, d,
+                                                               t_op)
     sel = _miss_record(r, dev)
     no = torch.zeros_like(walking)
     seen, accepted, still = no, no, walk_active
@@ -536,7 +539,7 @@ def _alpha_walk_partitioned(scene, o, d, walking, pix, sample_id, bounce,
     if _use_tr_kernel(scene):
         k0 = min(steps, trwalk.TRWALK_K)
         still = no
-        if bool(walk_active.any()):
+        if sync_any(walk_active, "alpha_walk_kernel"):
             uniforms = [rng.uniform(pix, sample_id,
                                     rng.SITE_ALPHA + k + stride * bounce,
                                     spec.seed) for k in range(k0)]
@@ -556,7 +559,7 @@ def _alpha_walk_partitioned(scene, o, d, walking, pix, sample_id, bounce,
                                              w.t_prev)
     elif _use_dense_tr(scene):
         k0 = _dense_k(scene, steps)
-        if bool(walk_active.any()):
+        if sync_any(walk_active, "alpha_walk_dense"):
             ts, pos = _dense_tr_hits(scene, o, d, steps, walk_active, t_op)
             cols = _dense_hit_columns(scene, o, d, ts, pos)
             row = _tri_attr(scene, cols, _uses_rows(scene, spec))
@@ -609,7 +612,7 @@ def _trans_cast_walk(scene, cast_scene, s_o, s_d, pd, is_pt, surf_pos,
     ``prim_base`` as for ``_alpha_cast_walk``; ``rows``: opacities from
     the wide rows (``_uses_rows``)."""
     for _ in range(k0, steps):
-        if not bool(walking.any()):
+        if not sync_any(walking, "trans_cast_walk"):
             break
         hit = closest_hit(s_o, s_d, t_prev, cast_scene, active=walking,
                           include_spheres=include_spheres)
@@ -653,12 +656,13 @@ def _shadow_attenuation(scene, s_o, s_d, active, light_color, steps,
         point_dist = torch.full((r,), float("inf"), device=dev)
         surf_pos, orig_uv = s_o, torch.zeros((r, 2), device=dev)
         orig_simple = torch.zeros_like(active)
-    trans = _trans_cast_walk(
-        scene, scene, s_o, s_d, point_dist, is_pt, surf_pos, orig_uv,
-        orig_simple, steps, 0, torch.ones((r,), device=dev),
-        torch.full((r,), -1.0, device=dev),
-        active & (att0.abs().sum(-1) != 0.0), include_spheres=True,
-        rows=rows)
+    with traced("shadow.walk", dev):
+        trans = _trans_cast_walk(
+            scene, scene, s_o, s_d, point_dist, is_pt, surf_pos, orig_uv,
+            orig_simple, steps, 0, torch.ones((r,), device=dev),
+            torch.full((r,), -1.0, device=dev),
+            active & (att0.abs().sum(-1) != 0.0), include_spheres=True,
+            rows=rows)
     return att0 * trans[:, None]
 
 
@@ -704,32 +708,34 @@ def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, steps,
                               for a, b, att0 in zip(actives, blockeds, att0s)])
         # Segments that miss every transparent cluster keep trans 1 (t_max
         # the distance to the light, with a margin for the shadow bias).
-        walking0 = walking0 & trwalk.hits_transparent_bounds(
-            scene, o3, d3, pd3 * 1.0001 + 1e-3)
-        n = n_l * r
-        trans = torch.ones((n,), device=dev)
-        t_prev = torch.full((n,), -1.0, device=dev)
-        still = walking0
-        k0 = 0
-        if _use_tr_kernel(scene):
-            k0 = min(steps, trwalk.TRWALK_K)
-            still = torch.zeros_like(walking0)
-            if bool(walking0.any()):
-                trans, t_prev, still = cuda_trwalk.trans_walk(
-                    scene, o3, d3, pd3, is_pt, sp3, ouv3, os3, walking0, k0,
-                    live=live)
-        elif _use_dense_tr(scene):
-            k0 = _dense_k(scene, steps)
-            if bool(walking0.any()):
-                trans, t_prev, still = _trans_dense_walk(
-                    scene, o3, d3, pd3, is_pt, sp3, ouv3, os3, walking0,
-                    steps, rows)
-        if k0 < steps:
-            view, base = _residual_view(scene)
-            trans = _trans_cast_walk(scene, view, o3, d3, pd3, is_pt, sp3,
-                                     ouv3, os3, steps, k0, trans, t_prev,
-                                     still, include_spheres=False,
-                                     prim_base=base, rows=rows)
+        with traced("shadow.prefilter", dev):
+            walking0 = walking0 & trwalk.hits_transparent_bounds(
+                scene, o3, d3, pd3 * 1.0001 + 1e-3)
+        with traced("shadow.walk", dev):
+            n = n_l * r
+            trans = torch.ones((n,), device=dev)
+            t_prev = torch.full((n,), -1.0, device=dev)
+            still = walking0
+            k0 = 0
+            if _use_tr_kernel(scene):
+                k0 = min(steps, trwalk.TRWALK_K)
+                still = torch.zeros_like(walking0)
+                if sync_any(walking0, "trans_walk_kernel"):
+                    trans, t_prev, still = cuda_trwalk.trans_walk(
+                        scene, o3, d3, pd3, is_pt, sp3, ouv3, os3, walking0,
+                        k0, live=live)
+            elif _use_dense_tr(scene):
+                k0 = _dense_k(scene, steps)
+                if sync_any(walking0, "trans_walk_dense"):
+                    trans, t_prev, still = _trans_dense_walk(
+                        scene, o3, d3, pd3, is_pt, sp3, ouv3, os3, walking0,
+                        steps, rows)
+            if k0 < steps:
+                view, base = _residual_view(scene)
+                trans = _trans_cast_walk(scene, view, o3, d3, pd3, is_pt,
+                                         sp3, ouv3, os3, steps, k0, trans,
+                                         t_prev, still, include_spheres=False,
+                                         prim_base=base, rows=rows)
     return [torch.where(b[:, None], 0.0, att0 * trans[i * r:(i + 1) * r, None])
             for i, (att0, b) in enumerate(zip(att0s, blockeds))]
 
@@ -790,34 +796,39 @@ def _shadow_attenuation_fused(scene, s_o, dirs, actives, colors, steps,
     att0s = [_light_att0(a, c) for a, c in zip(actives, colors)]
     n_l = len(dirs)
     r = s_o.shape[0]
+    dev = s_o.device
     with torch.no_grad():
         t_maxes, pds = [], []
         for d, a, att0, md in zip(dirs, actives, att0s, point_dists):
             t_maxes.append(torch.where(a, shadow_t_max(s_o, d, surf_pos, md),
                                        -1.0))
-            pd = (torch.full((r,), float("inf"), device=s_o.device)
+            pd = (torch.full((r,), float("inf"), device=dev)
                   if md is None else md)
             # The prefilter of _shadow_attenuation_multi; the any-hit result
             # gates the walk inside the kernel.
-            walk = a & (att0.abs().sum(-1) != 0.0) & \
-                trwalk.hits_transparent_bounds(scene, s_o, d,
-                                               pd * 1.0001 + 1e-3)
+            with traced("shadow.prefilter", dev):
+                walk = a & (att0.abs().sum(-1) != 0.0) & \
+                    trwalk.hits_transparent_bounds(scene, s_o, d,
+                                                   pd * 1.0001 + 1e-3)
             pds.append(torch.where(walk, pd, -1.0))
         k0 = min(steps, trwalk.TRWALK_K)
-        trans, t_prev, still = cuda_shadow.fused_shadow(
-            scene, s_o, dirs, t_maxes, pds,
-            [md is not None for md in point_dists], surf_pos, orig_uv,
-            orig_simple, k0, live=live)
-        if k0 < steps and bool(still.any()):
-            o3, d3, pd3, is_pt, sp3, ouv3, os3 = _stack_lights(
-                s_o, dirs, point_dists, surf_pos, orig_uv, orig_simple)
-            trans = _trans_cast_walk(
-                scene, transparent_view(scene), o3, d3, pd3, is_pt, sp3, ouv3,
-                os3, steps, k0, trans.reshape(n_l * r),
-                t_prev.reshape(n_l * r), still.reshape(n_l * r),
-                include_spheres=False, rows=rows).view(n_l, r)
+        with traced("shadow.anyhit", dev):
+            trans, t_prev, still = cuda_shadow.fused_shadow(
+                scene, s_o, dirs, t_maxes, pds,
+                [md is not None for md in point_dists], surf_pos, orig_uv,
+                orig_simple, k0, live=live)
+        with traced("shadow.walk", dev):
+            if k0 < steps and sync_any(still, "fused_residual"):
+                o3, d3, pd3, is_pt, sp3, ouv3, os3 = _stack_lights(
+                    s_o, dirs, point_dists, surf_pos, orig_uv, orig_simple)
+                trans = _trans_cast_walk(
+                    scene, transparent_view(scene), o3, d3, pd3, is_pt, sp3,
+                    ouv3, os3, steps, k0, trans.reshape(n_l * r),
+                    t_prev.reshape(n_l * r), still.reshape(n_l * r),
+                    include_spheres=False, rows=rows).view(n_l, r)
         if scene.num_real_spheres != 0:
-            sph = occluded_spheres_cuda(s_o, dirs, t_maxes, scene)
+            with traced("shadow.anyhit", dev):
+                sph = occluded_spheres_cuda(s_o, dirs, t_maxes, scene)
             trans = torch.where(sph, 0.0, trans)
     return [att0 * trans[i][:, None] for i, att0 in enumerate(att0s)]
 
@@ -842,7 +853,29 @@ def render_wavefront(scene, pixel_ids, width: int, height: int, sample_id,
     pixel id, so a permutation changes no value; a per-lane ``sample_id``
     does not travel, so lane tracking takes an int. With
     ``collect_live_counts`` the result is ``(out, live)``, live [bounces +
-    1] int32: the live lanes before each bounce's casts."""
+    1] int32: the live lanes before each bounce's casts.
+
+    While a ``torch.profiler`` records, the call records its spans
+    (``utils.telemetry``): ``wavefront`` (attributes ``lanes``,
+    ``sample``) over ``camera`` and one ``bounce`` per bounce (``index``,
+    ``live``: the same count as ``collect_live_counts``), each bounce
+    split into ``compact`` (lane tracking), ``hit`` (the alpha walk),
+    ``shade`` and ``shadow`` (``shadow.anyhit``, ``shadow.prefilter``,
+    ``shadow.walk``)."""
+    with traced("wavefront", pixel_ids.device) as rec:
+        if rec is not None:
+            rec.attrs.update(lanes=int(pixel_ids.shape[0]), sample=(
+                None if isinstance(sample_id, torch.Tensor)
+                and sample_id.dim() > 0 else sample_id))
+        return _render_wavefront(scene, pixel_ids, width, height, sample_id,
+                                 spec, exchange, lane_ids,
+                                 collect_live_counts)
+
+
+def _render_wavefront(scene, pixel_ids, width, height, sample_id, spec,
+                      exchange, lane_ids, collect_live_counts):
+    """The body of ``render_wavefront``."""
+
     from path_tracer_torch.ops.camera import generate_rays
 
     track_origin = spec.compact or exchange is not None
@@ -850,12 +883,14 @@ def render_wavefront(scene, pixel_ids, width: int, height: int, sample_id,
             and sample_id.dim() > 0:
         raise ValueError("per-lane sample ids do not follow permuted lanes: "
                          "compaction and exchange take one sample id")
-    o, d = generate_rays(pixel_ids, width, height, scene, sample_id, spec.seed)
-    r = o.shape[0]
-    dev = o.device
-    color = torch.zeros((r, 3), device=dev)
-    throughput = torch.ones((r, 3), device=dev)
-    alive = torch.ones((r,), dtype=torch.bool, device=dev)
+    dev = pixel_ids.device
+    with traced("camera", dev):
+        o, d = generate_rays(pixel_ids, width, height, scene, sample_id,
+                             spec.seed)
+        r = o.shape[0]
+        color = torch.zeros((r, 3), device=dev)
+        throughput = torch.ones((r, 3), device=dev)
+        alive = torch.ones((r,), dtype=torch.bool, device=dev)
     pix = pixel_ids
     orig = None
     if track_origin:
@@ -878,134 +913,168 @@ def render_wavefront(scene, pixel_ids, width: int, height: int, sample_id,
     rows = _uses_rows(scene, spec)
 
     for bounce in range(spec.bounces + 1):
-        if track_origin:
-            state = (o, d, color, throughput, alive, pix, orig)
-            if exchange is not None:
-                state = exchange(state)
-            else:  # stable: live lanes first, each run in lane order
-                perm = torch.argsort((~alive).to(torch.uint8), stable=True)
-                state = tuple(x[perm] for x in state)
-            o, d, color, throughput, alive, pix, orig = state
-        if collect_live_counts:
-            live_counts.append(alive.sum(dtype=torch.int32))
-        sel, _, first_missed = _alpha_walk(scene, o, d, alive, pix, sample_id,
-                                           bounce, spec, alpha_steps, live)
+        with traced("bounce", dev) as bounce_rec:
+            if track_origin:
+                with traced("compact", dev):
+                    state = (o, d, color, throughput, alive, pix, orig)
+                    if exchange is not None:
+                        state = exchange(state)
+                    else:  # stable: live lanes first, each run in lane order
+                        perm = torch.argsort((~alive).to(torch.uint8),
+                                             stable=True)
+                        state = tuple(x[perm] for x in state)
+                    o, d, color, throughput, alive, pix, orig = state
+            if collect_live_counts or bounce_rec is not None:
+                n_live = alive.sum(dtype=torch.int32)
+                if collect_live_counts:
+                    live_counts.append(n_live)
+                if bounce_rec is not None:
+                    bounce_rec.attrs.update(index=bounce, live=n_live)
+            with traced("hit", dev):
+                sel, _, first_missed = _alpha_walk(
+                    scene, o, d, alive, pix, sample_id, bounce, spec,
+                    alpha_steps, live)
 
-        # Background: only rays whose first cast this bounce missed.
-        color = torch.where(first_missed[:, None],
-                            color + throughput * scene.background, color)
-        alive = alive & ~first_missed
+            with traced("shade", dev):
+                # Background: only rays whose first cast this bounce missed.
+                color = torch.where(first_missed[:, None],
+                                    color + throughput * scene.background,
+                                    color)
+                alive = alive & ~first_missed
 
-        row = _tri_attr(scene, sel, rows)
-        surf = _surface(scene, sel, o, d, spec.differentiable, row)
-        mat = texturing.sample_material(scene, surf.model, surf.uv,
-                                        surf.simple, rows=row)
-        f0 = brdf.compute_f0(mat.metalness, mat.albedo)
-        view = -d
+                row = _tri_attr(scene, sel, rows)
+                surf = _surface(scene, sel, o, d, spec.differentiable, row)
+                mat = texturing.sample_material(scene, surf.model, surf.uv,
+                                                surf.simple, rows=row)
+                f0 = brdf.compute_f0(mat.metalness, mat.albedo)
+                view = -d
 
-        color = torch.where(alive[:, None], color + throughput * mat.emissive,
-                            color)
-        shadow_o = surf.pos + surf.geom_normal * NORMAL_BIAS
+                color = torch.where(alive[:, None],
+                                    color + throughput * mat.emissive, color)
+                shadow_o = surf.pos + surf.geom_normal * NORMAL_BIAS
 
-        # A lane facing AWAY from a light contributes exactly zero unless
-        # its material is emissive (both BRDF terms carry max(n.l, 0)), so
-        # its shadow cast is skipped.
-        emissive_lane = (None if scene.no_emissive
-                         else mat.emissive.abs().sum(-1) != 0.0)
+                # A lane facing AWAY from a light contributes exactly zero
+                # unless its material is emissive (both BRDF terms carry
+                # max(n.l, 0)), so its shadow cast is skipped.
+                emissive_lane = (None if scene.no_emissive
+                                 else mat.emissive.abs().sum(-1) != 0.0)
 
-        def shadow_active(l_dir):
-            facing = _dot(surf.normal, l_dir) > 0.0
-            if emissive_lane is not None:
-                facing = facing | emissive_lane
-            return alive & facing
+                def shadow_active(l_dir):
+                    facing = _dot(surf.normal, l_dir) > 0.0
+                    if emissive_lane is not None:
+                        facing = facing | emissive_lane
+                    return alive & facing
 
-        # Every light's shadow, directional lights (raw, unnormalized
-        # direction) first, then point lights (toward the light).
-        n_dir = scene.num_dir_lights
-        dists = []
-        to_lights = [(-scene.dir_dir[li]).expand_as(d) for li in range(n_dir)]
-        for li in range(scene.num_point_lights):
-            to_surf = surf.pos - scene.point_pos[li]
-            dist = torch.sqrt((to_surf * to_surf).sum(-1))
-            to_lights.append(-(to_surf / dist[:, None]))
-            dists.append(dist)
-        actives = [shadow_active(ld) for ld in to_lights]
-        max_dists = [None] * n_dir + dists
-        colors = ([scene.dir_color[li] for li in range(n_dir)]
-                  + [1.0] * scene.num_point_lights)
-        if part and to_lights and _use_fused_shadow(scene):
-            # Both halves of every light's shadow in one launch.
-            atts = _shadow_attenuation_fused(
-                scene, shadow_o, to_lights, actives, colors, shadow_steps,
-                max_dists, surf.pos, surf.uv, surf.simple, live, rows)
-        elif scene.all_opaque or part:
-            # One any-hit launch for all lights (against the opaque view of
-            # a partitioned scene: any opaque occluder in range zeroes the
-            # product whatever the order).
-            blocked = (occluded_multi(
-                shadow_o, to_lights, opaque_view(scene) if part else scene,
-                surf_pos=surf.pos, max_dists=max_dists, actives=actives)
-                if to_lights else [])
-            if scene.all_opaque:
-                atts = [torch.where(b[:, None], 0.0, _light_att0(a, c))
-                        for a, b, c in zip(actives, blocked, colors)]
-            else:
-                atts = (_shadow_attenuation_multi(
-                    scene, shadow_o, to_lights, actives, colors, shadow_steps,
-                    max_dists, surf.pos, surf.uv, surf.simple, blocked, live,
-                    rows) if to_lights else [])
-        else:
-            atts = [_shadow_attenuation(scene, shadow_o, ld, a, c,
-                                        shadow_steps, md, surf.pos, surf.uv,
-                                        surf.simple, rows)
-                    for ld, a, c, md in zip(to_lights, actives, colors,
-                                            max_dists)]
+                # Every light's shadow, directional lights (raw,
+                # unnormalized direction) first, then point lights (toward
+                # the light).
+                n_dir = scene.num_dir_lights
+                dists = []
+                to_lights = [(-scene.dir_dir[li]).expand_as(d)
+                             for li in range(n_dir)]
+                for li in range(scene.num_point_lights):
+                    to_surf = surf.pos - scene.point_pos[li]
+                    dist = torch.sqrt((to_surf * to_surf).sum(-1))
+                    to_lights.append(-(to_surf / dist[:, None]))
+                    dists.append(dist)
+                actives = [shadow_active(ld) for ld in to_lights]
+                max_dists = [None] * n_dir + dists
+                colors = ([scene.dir_color[li] for li in range(n_dir)]
+                          + [1.0] * scene.num_point_lights)
 
-        for li, to_light in enumerate(to_lights):
-            radiance = atts[li]
-            if li >= n_dir:
-                dist = dists[li - n_dir]
-                radiance = radiance * (scene.point_color[li - n_dir]
-                                       / (4.0 * PI * dist * dist)[:, None])
-            lit = alive & (radiance.sum(-1) != 0.0)
-            ev = brdf.eval_direct(mat, f0, surf.normal, view, to_light)
-            color = torch.where(lit[:, None],
-                                color + throughput * ev * radiance, color)
+            with traced("shadow", dev):
+                atts = _shadows(scene, part, shadow_o, to_lights, actives,
+                                colors, shadow_steps, max_dists, surf, live,
+                                rows)
 
-        # Indirect bounce, masked out on the last bounce.
-        indirect = alive & (bounce < spec.bounces)
-        r1 = rng.uniform(pix, sample_id, s_g1 + s_stride * bounce, spec.seed)
-        r2 = rng.uniform(pix, sample_id, s_g2 + s_stride * bounce, spec.seed)
-        # Detached sampling: the direction is a discrete event.
-        with torch.no_grad():
-            new_d, wm = brdf.sample(mat, surf.normal, view, r1, r2)
-        ind = brdf.eval_indirect(mat, f0, surf.normal, view, new_d, wm)
-        throughput = torch.where(indirect[:, None], throughput * ind,
-                                 throughput)
-        o = torch.where(indirect[:, None],
-                        surf.pos + surf.geom_normal * NORMAL_BIAS, o)
-        d = torch.where(indirect[:, None], new_d, d)
-        alive = alive & (bounce < spec.bounces)
+            with traced("shade", dev):
+                for li, to_light in enumerate(to_lights):
+                    radiance = atts[li]
+                    if li >= n_dir:
+                        dist = dists[li - n_dir]
+                        radiance = radiance * (
+                            scene.point_color[li - n_dir]
+                            / (4.0 * PI * dist * dist)[:, None])
+                    lit = alive & (radiance.sum(-1) != 0.0)
+                    ev = brdf.eval_direct(mat, f0, surf.normal, view,
+                                          to_light)
+                    color = torch.where(lit[:, None],
+                                        color + throughput * ev * radiance,
+                                        color)
 
-        # Throughput cutoff.
-        alive = alive & (_dot(throughput, throughput) >= THROUGHPUT_CUTOFF)
+                # Indirect bounce, masked out on the last bounce.
+                indirect = alive & (bounce < spec.bounces)
+                r1 = rng.uniform(pix, sample_id, s_g1 + s_stride * bounce,
+                                 spec.seed)
+                r2 = rng.uniform(pix, sample_id, s_g2 + s_stride * bounce,
+                                 spec.seed)
+                # Detached sampling: the direction is a discrete event.
+                with torch.no_grad():
+                    new_d, wm = brdf.sample(mat, surf.normal, view, r1, r2)
+                ind = brdf.eval_indirect(mat, f0, surf.normal, view, new_d,
+                                         wm)
+                throughput = torch.where(indirect[:, None], throughput * ind,
+                                         throughput)
+                o = torch.where(indirect[:, None],
+                                surf.pos + surf.geom_normal * NORMAL_BIAS, o)
+                d = torch.where(indirect[:, None], new_d, d)
+                alive = alive & (bounce < spec.bounces)
 
-        # Russian roulette for bounce > 3: T /= p unconditionally, kill when
-        # rand > p (masked with alive, already false past the last bounce).
-        # p keeps its gradient; amax splits it among tied channels, as
-        # jnp.max does (Tensor.max(dim) would give it all to one).
-        rr = alive & (bounce > 3)
-        p = torch.amax(throughput, dim=-1)
-        p_safe = torch.where(rr, torch.clamp(p, min=1e-30), 1.0)
-        throughput = torch.where(rr[:, None], throughput / p_safe[:, None],
-                                 throughput)
-        rnd = rng.uniform(pix, sample_id, s_rr + s_stride * bounce, spec.seed)
-        alive = alive & ~(rr & (rnd > p))
+                # Throughput cutoff.
+                alive = alive & (_dot(throughput, throughput)
+                                 >= THROUGHPUT_CUTOFF)
+
+                # Russian roulette for bounce > 3: T /= p unconditionally,
+                # kill when rand > p (masked with alive, already false past
+                # the last bounce). p keeps its gradient; amax splits it
+                # among tied channels, as jnp.max does (Tensor.max(dim)
+                # would give it all to one).
+                rr = alive & (bounce > 3)
+                p = torch.amax(throughput, dim=-1)
+                p_safe = torch.where(rr, torch.clamp(p, min=1e-30), 1.0)
+                throughput = torch.where(rr[:, None],
+                                         throughput / p_safe[:, None],
+                                         throughput)
+                rnd = rng.uniform(pix, sample_id, s_rr + s_stride * bounce,
+                                  spec.seed)
+                alive = alive & ~(rr & (rnd > p))
     out = color
     if exchange is not None:
         out = (color, orig)  # the caller places the lanes
     elif track_origin:
-        out = torch.zeros_like(color).index_put((orig.long(),), color)
+        with traced("compact", dev):
+            out = torch.zeros_like(color).index_put((orig.long(),), color)
     if collect_live_counts:
         return out, torch.stack(live_counts)
     return out
+
+
+def _shadows(scene, part: bool, shadow_o, to_lights, actives, colors,
+             steps: int, max_dists, surf: Surface, live, rows: bool) -> list:
+    """Every light's attenuation [R,3] at one bounce's surface points:
+    the fused kernel, the any-hit (``shadow.anyhit``) and the partitioned
+    walks, or the whole-scene walks, as the scene takes them."""
+    if part and to_lights and _use_fused_shadow(scene):
+        # Both halves of every light's shadow in one launch.
+        return _shadow_attenuation_fused(
+            scene, shadow_o, to_lights, actives, colors, steps, max_dists,
+            surf.pos, surf.uv, surf.simple, live, rows)
+    if scene.all_opaque or part:
+        # One any-hit launch for all lights (against the opaque view of a
+        # partitioned scene: any opaque occluder in range zeroes the
+        # product whatever the order).
+        with traced("shadow.anyhit", shadow_o.device):
+            blocked = (occluded_multi(
+                shadow_o, to_lights, opaque_view(scene) if part else scene,
+                surf_pos=surf.pos, max_dists=max_dists, actives=actives)
+                if to_lights else [])
+        if scene.all_opaque:
+            return [torch.where(b[:, None], 0.0, _light_att0(a, c))
+                    for a, b, c in zip(actives, blocked, colors)]
+        return (_shadow_attenuation_multi(
+            scene, shadow_o, to_lights, actives, colors, steps, max_dists,
+            surf.pos, surf.uv, surf.simple, blocked, live, rows)
+            if to_lights else [])
+    return [_shadow_attenuation(scene, shadow_o, ld, a, c, steps, md,
+                                surf.pos, surf.uv, surf.simple, rows)
+            for ld, a, c, md in zip(to_lights, actives, colors, max_dists)]

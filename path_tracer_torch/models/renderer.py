@@ -37,6 +37,7 @@ from path_tracer_torch.ops import tonemap as tm
 from path_tracer_torch.ops.sorting import morton_pixel_order
 from path_tracer_torch.parallel.mesh import all_gather_into_tensor, default_mesh
 from path_tracer_torch.parallel.render import render_sharded
+from path_tracer_torch.utils.telemetry import traced
 
 # Lanes of a kernel packet, the unit the spw packing fills: the JAX
 # package's default ray tile (``pallas_bvh.RAY_TILE``).
@@ -111,7 +112,21 @@ def render_pixel_sums(scene, width: int, height: int, sample_start: int,
     accumulators (Morton order; this rank's slice of each tile on several
     ranks) instead of copying them to the host.
     ``samples_per_wavefront`` > 1 packs sample ids per packet where it can,
-    and otherwise says so and renders with 1."""
+    and otherwise says so and renders with 1. While a ``torch.profiler``
+    records, the call records the span ``render`` over ``render.setup``
+    (the pixel order, the tiles' ids, the accumulators), ``render.pass``
+    per pass batch and ``render.callback`` (``utils.telemetry``)."""
+    with traced("render", scene.device):
+        return _render_pixel_sums(
+            scene, width, height, sample_start, n_samples, spec, tile_rays,
+            samples_per_launch, pass_callback, init_accum, snapshot,
+            samples_per_wavefront)
+
+
+def _render_pixel_sums(scene, width, height, sample_start, n_samples, spec,
+                       tile_rays, samples_per_launch, pass_callback,
+                       init_accum, snapshot, samples_per_wavefront):
+    """The body of ``render_pixel_sums``."""
     n_pix = width * height
     mesh = _world_mesh()
     n_dev = 1 if mesh is None else mesh.size()
@@ -135,24 +150,25 @@ def render_pixel_sums(scene, width: int, height: int, sample_start: int,
     if spw > 1:
         spl = max(spw, (spl // spw) * spw)  # batches must divide by spw
 
-    morton = morton_pixel_order(width, height)
-    all_pix = np.zeros(n_tiles * tpix, dtype=np.int32)
-    all_pix[:n_pix] = morton  # padded lanes re-render pixel 0; discarded
-    all_ids = packed_lanes(all_pix, spw)
     dev = scene.device
-    # This rank's slice of each tile, per pixels (the whole tile on one
-    # device; spw is 1 on several, so lanes are pixels there).
-    per = tpix // n_dev
-    lo = 0 if mesh is None else mesh.get_local_rank() * per
-    tile_ids = [torch.from_numpy(all_ids[t * tile + lo:][:per * spw]).to(dev)
-                for t in range(n_tiles)]
-    if init_accum is not None:
-        padded = np.zeros((n_tiles * tpix, 3), np.float32)
-        padded[:n_pix] = np.asarray(init_accum, np.float32)[morton]
-        accs = [torch.from_numpy(padded[t * tpix + lo:t * tpix + lo + per])
-                .to(dev) for t in range(n_tiles)]
-    else:
-        accs = [torch.zeros((per, 3), device=dev) for _ in range(n_tiles)]
+    with traced("render.setup", dev):
+        morton = morton_pixel_order(width, height)
+        all_pix = np.zeros(n_tiles * tpix, dtype=np.int32)
+        all_pix[:n_pix] = morton  # padded lanes re-render pixel 0; discarded
+        all_ids = packed_lanes(all_pix, spw)
+        # This rank's slice of each tile, per pixels (the whole tile on one
+        # device; spw is 1 on several, so lanes are pixels there).
+        per = tpix // n_dev
+        lo = 0 if mesh is None else mesh.get_local_rank() * per
+        tile_ids = [torch.from_numpy(all_ids[t * tile + lo:][:per * spw])
+                    .to(dev) for t in range(n_tiles)]
+        if init_accum is not None:
+            padded = np.zeros((n_tiles * tpix, 3), np.float32)
+            padded[:n_pix] = np.asarray(init_accum, np.float32)[morton]
+            accs = [torch.from_numpy(padded[t * tpix + lo:t * tpix + lo + per])
+                    .to(dev) for t in range(n_tiles)]
+        else:
+            accs = [torch.zeros((per, 3), device=dev) for _ in range(n_tiles)]
 
     def take_snapshot() -> np.ndarray:
         if mesh is None:
@@ -169,16 +185,19 @@ def render_pixel_sums(scene, width: int, height: int, sample_start: int,
     end = sample_start + n_samples
     while sample < end:
         k = min(spl, end - sample)
-        for ti in range(n_tiles):
-            if mesh is not None:
-                render_sharded(scene, mesh, tile_ids[ti], width, height,
-                               sample, k, spec, acc=accs[ti])
-            else:
-                accumulate_tile(accs[ti], scene, tile_ids[ti], width, height,
-                                sample, k, spec, spw=spw)
+        with traced("render.pass", dev):
+            for ti in range(n_tiles):
+                if mesh is not None:
+                    render_sharded(scene, mesh, tile_ids[ti], width, height,
+                                   sample, k, spec, acc=accs[ti])
+                else:
+                    accumulate_tile(accs[ti], scene, tile_ids[ti], width,
+                                    height, sample, k, spec, spw=spw)
         sample += k
         if pass_callback is not None:
-            if pass_callback(sample - sample_start, take_snapshot) is False:
+            with traced("render.callback", dev):
+                go_on = pass_callback(sample - sample_start, take_snapshot)
+            if go_on is False:
                 break
     if not snapshot:
         return accs

@@ -29,12 +29,13 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from path_tracer_torch.utils import telemetry
 
 _PKG = Path(__file__).resolve().parent
 _REPO = _PKG.parent
@@ -118,7 +119,13 @@ def _bvh_library() -> ctypes.CDLL:
 
 def build_bvh(bb_min: np.ndarray, bb_max: np.ndarray,
               leaf_size: int = 4) -> Bvh:
-    """Binned-SAH BVH over n primitive AABBs ([n,3] f32 min/max)."""
+    """Binned-SAH BVH over n primitive AABBs ([n,3] f32 min/max), under
+    a ``scene.bvh`` span (``utils.telemetry``)."""
+    with telemetry.span("scene.bvh", attrs={"prims": len(bb_min)}):
+        return _build_bvh(bb_min, bb_max, leaf_size)
+
+
+def _build_bvh(bb_min, bb_max, leaf_size: int) -> Bvh:
     lib = _bvh_library()
     bb_min = np.ascontiguousarray(bb_min, np.float32)
     bb_max = np.ascontiguousarray(bb_max, np.float32)
@@ -151,8 +158,10 @@ def _nvcc() -> str:
 
 
 class Kernels:
-    """The loaded kernel library, its build time and the compiler's report
-    (``-Xptxas -v``: registers, shared memory, spills per kernel)."""
+    """The loaded kernel library, its build time (the ``native.kernels``
+    span's seconds: the build, or finding it in the cache) and the
+    compiler's report (``-Xptxas -v``: registers, shared memory, spills per
+    kernel)."""
 
     def __init__(self, lib: ctypes.CDLL, seconds: float, log: str):
         self.lib = lib
@@ -180,10 +189,10 @@ def kernels() -> Kernels:
     global _kernels
     if _kernels is None:
         sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-        t0 = time.perf_counter()
-        path, log = _cached_build("ptt_torch_kernels", sources, NVCC_FLAGS,
-                                  _build_kernels)
-        seconds = time.perf_counter() - t0
+        with telemetry.span("native.kernels") as rec:
+            path, log = _cached_build("ptt_torch_kernels", sources,
+                                      NVCC_FLAGS, _build_kernels)
+        seconds = rec.seconds
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         # (o, d, t_prev, table, R, N, fout, iout, device, stream)

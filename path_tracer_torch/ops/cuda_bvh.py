@@ -110,14 +110,7 @@ from path_tracer_torch.ops.slab import (
     padded_slab,
     safe_inv,
 )
-
-# Kernel launches made by the wrappers in this process.
-closest_hit_launches = 0
-occluded_launches = 0
-flat2_closest_hit_launches = 0
-flat2_occluded_launches = 0
-tree_closest_hit_launches = 0
-tree_occluded_launches = 0
+from path_tracer_torch.utils.telemetry import counters
 
 GROUP = 128  # rays of a tree walk's layout group (the Pallas packet)
 _TREE_VISIT_ELEMS = 1 << 22  # (lane, slot) pairs per step of a plain visit
@@ -326,14 +319,13 @@ def closest_hit_triangles_flat(o, d, t_prev, scene,
 
     o, d: [R,3] f32; t_prev: [R] f32 (+inf marks a dead lane). CUDA tensors
     launch the kernel (or raise); CPU tensors take the plain version."""
-    global closest_hit_launches
     if o.device.type == "cpu":
         return closest_hit_triangles_flat_plain(o, d, t_prev, scene, spheres)
     fout, slot = native.launch_flat_closest_hit(
         o, d, t_prev, scene.sl_blkflat, scene.sl_blkid, scene.sl_bw_t,
         scene.sl_block, sph=scene.sph_packed_t if spheres else None,
         sph_row_base=scene.sph_row_base)
-    closest_hit_launches += 1
+    counters["launch.flat_closest_hit"] += 1
     t = fout[0]
     kind = (fout[4] if spheres
             else torch.where(torch.isfinite(t), KIND_TRIANGLE, KIND_NONE))
@@ -348,13 +340,12 @@ def occluded_triangles_flat_multi(o, ds, t_maxes, scene) -> torch.Tensor:
     are taken without a copy. Returns [L,R] bool, the launch's output. CUDA
     tensors launch the kernel (or raise); CPU tensors take the plain
     version, set by set."""
-    global occluded_launches
     if o.device.type == "cpu":
         return occluded_triangles_flat_multi_plain(o, ds, t_maxes, scene)
     out = native.launch_flat_occluded(
         o.contiguous(), stacked(ds), stacked(t_maxes), scene.sl_blkflat,
         scene.sl_blkid, scene.sl_bw_t, scene.sl_block)
-    occluded_launches += 1
+    counters["launch.flat_occluded"] += 1
     return out
 
 
@@ -369,13 +360,12 @@ def closest_hit_triangles_flat2(o, d, t_prev, scene) -> HitRecord:
 
     o, d: [R,3] f32; t_prev: [R] f32 (+inf marks a dead lane). CUDA tensors
     launch the kernel (or raise); CPU tensors take the plain version."""
-    global flat2_closest_hit_launches
     if o.device.type == "cpu":
         return closest_hit_triangles_flat2_plain(o, d, t_prev, scene)
     fout, slot = native.launch_flat2_closest_hit(
         o, d, t_prev, scene.sl_sbflat, scene.sl_sbid, scene.sl_blkflat,
         scene.sl_blkid, scene.sl_bw_t, scene.sl_block)
-    flat2_closest_hit_launches += 1
+    counters["launch.flat2_closest_hit"] += 1
     t = fout[0]
     kind = torch.where(torch.isfinite(t), KIND_TRIANGLE, KIND_NONE)
     return _record(t, fout[1], fout[2], fout[3] != 0.0, slot, kind, scene)
@@ -386,14 +376,13 @@ def occluded_triangles_flat2_multi(o, ds, t_maxes, scene) -> torch.Tensor:
     one launch; arguments and result as ``occluded_triangles_flat_multi``.
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version, set by set."""
-    global flat2_occluded_launches
     if o.device.type == "cpu":
         return occluded_triangles_flat2_multi_plain(o, ds, t_maxes, scene)
     out = native.launch_flat2_occluded(
         o.contiguous(), stacked(ds), stacked(t_maxes), scene.sl_sbflat,
         scene.sl_sbid, scene.sl_blkflat, scene.sl_blkid, scene.sl_bw_t,
         scene.sl_block)
-    flat2_occluded_launches += 1
+    counters["launch.flat2_occluded"] += 1
     return out
 
 
@@ -578,13 +567,12 @@ def closest_hit_triangles_tree(o, d, t_prev, scene) -> HitRecord:
 
     o, d: [R,3] f32; t_prev: [R] f32 (+inf marks a dead lane). CUDA tensors
     launch the kernel (or raise); CPU tensors take the plain version."""
-    global tree_closest_hit_launches
     if o.device.type == "cpu":
         return closest_hit_triangles_tree_plain(o, d, t_prev, scene)
     fout, slot = native.launch_tree_closest_hit(
         o.contiguous(), d.contiguous(), t_prev.contiguous(), scene.sl_nodes6,
         scene.sl_meta6, scene.sl_tris_t, scene.sl_n_nodes, scene.sl_block)
-    tree_closest_hit_launches += 1
+    counters["launch.tree_closest_hit"] += 1
     return tree_record(fout[0], fout[1], fout[2], fout[3] != 0.0, slot, scene)
 
 
@@ -594,13 +582,12 @@ def occluded_triangles_tree_multi(o, ds, t_maxes, scene) -> torch.Tensor:
     (t_max < 0 marks a dead lane, reported occluded). Arguments and result
     as ``occluded_triangles_flat_multi``. CUDA tensors launch the kernel (or
     raise); CPU tensors take the plain version, set by set."""
-    global tree_occluded_launches
     if o.device.type == "cpu":
         return occluded_triangles_tree_multi_plain(o, ds, t_maxes, scene)
     out = native.launch_tree_occluded(
         o.contiguous(), stacked(ds), stacked(t_maxes), scene.sl_nodes6,
         scene.sl_meta6, scene.sl_tris_t, scene.sl_n_nodes, scene.sl_block)
-    tree_occluded_launches += 1
+    counters["launch.tree_occluded"] += 1
     return out
 
 

@@ -25,9 +25,7 @@ from path_tracer_torch.ops.intersect import (
     _kind,
     closest_hit_triangles,
 )
-
-# Kernel launches made by closest_hit_triangles_cuda in this process.
-launches = 0
+from path_tracer_torch.utils.telemetry import counters
 
 
 def closest_hit_triangles_cuda(o, d, t_prev, scene) -> HitRecord:
@@ -36,13 +34,12 @@ def closest_hit_triangles_cuda(o, d, t_prev, scene) -> HitRecord:
     o, d: [R,3] f32; t_prev: [R] f32 (+inf marks a dead lane); reads
     ``scene.tri_packed_t`` [9, N]. CUDA tensors launch the kernel (or
     raise); CPU tensors take the plain version."""
-    global launches
     if o.device.type == "cpu":
         return closest_hit_triangles(o, d, t_prev, scene)
     fout, iout = native.launch_closest_hit(
         "ptt_mt_closest_hit", o, d, t_prev, scene.tri_packed_t,
         table_rows=9, out_rows=4)
-    launches += 1
+    counters["launch.mt_closest_hit"] += 1
     t = fout[0]
     return HitRecord(t=t, kind=_kind(t, KIND_TRIANGLE), prim=iout, u=fout[1],
                      v=fout[2], backface=fout[3] != 0.0)

@@ -44,12 +44,10 @@ from path_tracer_torch import native
 from path_tracer_torch.ops.intersect import mt_rows
 from path_tracer_torch.ops.slab import pad_boxes, pad_slab
 from path_tracer_torch.scene.device_scene import KHIT_GRP, KHIT_SUB
+from path_tracer_torch.utils.telemetry import counters
 
 KHIT_MAX_K = 8  # the kernel's register list
 _PLAIN_LANES = 1 << 12  # lanes per slice of the plain version
-
-# Kernel launches made by k_nearest_tr_hits in this process.
-launches = 0
 
 
 def _group_reach(o, d, t_max, gbox):
@@ -115,7 +113,6 @@ def k_nearest_tr_hits(o, d, active, scene, k: int, t_max=None):
     triangle ``scene.n_tris_opaque + j``. ``active`` [R] bool, ``t_max``
     [R] (None: +inf). CUDA tensors launch the kernel (or raise); CPU
     tensors take the plain version."""
-    global launches
     if not 0 < k <= KHIT_MAX_K:
         raise ValueError(f"k_nearest_tr_hits: k = {k} outside 1.."
                          f"{KHIT_MAX_K}")
@@ -128,5 +125,5 @@ def k_nearest_tr_hits(o, d, active, scene, k: int, t_max=None):
         return k_nearest_tr_hits_plain(o, d, tm, tris, gbox, k, sbox)
     out = native.launch_khit(o.contiguous(), d.contiguous(), tm, tris, gbox,
                              sbox, k)
-    launches += 1
+    counters["launch.k_nearest_tr_hits"] += 1
     return out

@@ -25,10 +25,7 @@ from path_tracer_torch.ops.cuda_bvh import occluded_triangles_flat_multi_plain
 from path_tracer_torch.ops.intersect import _detach_for_kernel
 from path_tracer_torch.ops.trwalk import trans_walk_plain
 from path_tracer_torch.scene.device_scene import opaque_view
-
-# Kernel launches made by fused_shadow in this process, forward and live.
-launches = 0
-live_launches = 0
+from path_tracer_torch.utils.telemetry import counters
 
 
 def fused_shadow_plain(scene, s_o, dirs, t_maxes, pds, is_pt, surf_pos,
@@ -82,7 +79,6 @@ def fused_shadow(scene, s_o, dirs, t_maxes, pds, is_pt, surf_pos, orig_uv,
     lanes included), else the transmittance (1 where pd < 0); lanes still
     walking past ``steps_cap`` go on outside. ``live``: the
     ``trwalk.LiveTables`` of a differentiable render, or None."""
-    global launches, live_launches
     if s_o.device.type == "cpu":
         return fused_shadow_plain(scene, s_o, dirs, t_maxes, pds, is_pt,
                                   surf_pos, orig_uv, orig_simple, steps_cap,
@@ -91,9 +87,7 @@ def fused_shadow(scene, s_o, dirs, t_maxes, pds, is_pt, surf_pos, orig_uv,
     out = native.launch_fused_shadow(
         *launch_operands(scene, s_o, dirs, t_maxes, pds, is_pt, surf_pos,
                          orig_uv, orig_simple), scene, steps_cap, live)
-    if live is None:
-        launches += 1
-    else:
-        live_launches += 1
+    counters["launch.fused_shadow" if live is None
+             else "launch.fused_shadow_live"] += 1
     out = out.view(n_l, 3, r)
     return out[:, 0], out[:, 1], out[:, 2] > 0.0

@@ -82,14 +82,7 @@ from path_tracer_torch.ops.slab import (
     safe_inv,
     slab,
 )
-
-# Kernel launches made in this process by closest_hit_spheres_cuda (the
-# dense kernel and the block walk) and by occluded_spheres_cuda (the dense
-# any-hit and the any-hit walk).
-launches = 0
-sph_walk_launches = 0
-occluded_launches = 0
-sph_occ_walk_launches = 0
+from path_tracer_torch.utils.telemetry import counters
 
 
 def _sqrt_rn(x):
@@ -181,7 +174,6 @@ def closest_hit_spheres_cuda(o, d, t_prev, scene, tri=None) -> HitRecord:
     ``scene.sph_packed_t`` [4, S] or the ``sph_*`` block tables. CUDA
     tensors launch the kernel (or raise), which writes the whole record,
     merge included, in its launch; CPU tensors take the plain version."""
-    global launches, sph_walk_launches
     walk = getattr(scene, "sph_use_blocks", False)
     if o.device.type == "cpu":
         plain = (closest_hit_spheres_walk_merged_plain if walk
@@ -191,11 +183,11 @@ def closest_hit_spheres_cuda(o, d, t_prev, scene, tri=None) -> HitRecord:
         fout, iout, back = native.launch_sph_walk(
             o, d, t_prev, scene.sph_blk, scene.sph_blkid, scene.sph_sorted_t,
             scene.sph_smap, tri)
-        sph_walk_launches += 1
+        counters["launch.sph_walk"] += 1
     else:
         fout, iout, back = native.launch_sphere_closest_hit(
             o, d, t_prev, scene.sph_packed_t, tri)
-        launches += 1
+        counters["launch.sphere_closest_hit"] += 1
     return HitRecord(t=fout[0], kind=iout[0], prim=iout[1], u=fout[1],
                      v=fout[2], backface=back)
 
@@ -273,7 +265,6 @@ def occluded_spheres_cuda(o, ds, t_maxes, scene, prior=None) -> torch.Tensor:
     in one launch, the dense kernel one launch per
     ``native.SPH_OCC_MAX_SETS`` sets; CPU tensors take the plain
     version."""
-    global occluded_launches, sph_occ_walk_launches
     if o.device.type == "cpu":
         return occluded_spheres_plain(o, ds, t_maxes, scene, prior)
     o, ds, t_maxes = o.contiguous(), stacked(ds), stacked(t_maxes)
@@ -288,10 +279,10 @@ def occluded_spheres_cuda(o, ds, t_maxes, scene, prior=None) -> torch.Tensor:
                 for k in range(0, ds.shape[0], step)])
         out = native.launch_sph_occluded(o, ds, t_maxes, scene.sph_packed_t,
                                          scene.num_real_spheres, prior)
-        occluded_launches += 1
+        counters["launch.sph_occluded"] += 1
         return out
     out = native.launch_sph_occ_walk(o, ds, t_maxes, scene.sph_blk,
                                      scene.sph_blkid, scene.sph_sorted_t,
                                      prior)
-    sph_occ_walk_launches += 1
+    counters["launch.sph_occ_walk"] += 1
     return out

@@ -28,12 +28,7 @@ from path_tracer_torch.ops.trwalk import (
     alpha_walk_plain,
     trans_walk_plain,
 )
-
-# Kernel launches made by the wrappers in this process, forward and live.
-alpha_launches = 0
-trans_launches = 0
-alpha_live_launches = 0
-trans_live_launches = 0
+from path_tracer_torch.utils.telemetry import counters
 
 
 @_detach_for_kernel
@@ -42,16 +37,13 @@ def alpha_walk(scene, o, d, t_op, rnd, steps_cap: int,
     """The alpha walk over the transparent table. o, d: [R,3] f32; t_op:
     [R] f32 (< 0 marks a dead lane); rnd: [steps_cap, R] f32; ``live``:
     the tables of a differentiable render, or None."""
-    global alpha_launches, alpha_live_launches
     if o.device.type == "cpu":
         return alpha_walk_plain(scene, o, d, t_op, rnd, steps_cap, live)
     fout, col = native.launch_alpha_walk(
         o.contiguous(), d.contiguous(), t_op.contiguous(),
         rnd.narrow(0, 0, steps_cap).contiguous(), scene, steps_cap, live)
-    if live is None:
-        alpha_launches += 1
-    else:
-        alpha_live_launches += 1
+    counters["launch.alpha_walk" if live is None
+             else "launch.alpha_walk_live"] += 1
     return AlphaWalk(fout[0], fout[1], fout[2], fout[3], fout[4] > 0.0,
                      fout[5] > 0.0, fout[6] > 0.0, fout[7], col)
 
@@ -63,7 +55,6 @@ def trans_walk(scene, o, d, pd, is_pt, surf_pos, orig_uv, orig_simple,
     lanes of all lights). o, d, surf_pos: [R,3]; pd: [R] distance to the
     light (+inf directional); is_pt, orig_simple, walking0: [R] bool;
     orig_uv: [R,2]; ``live`` as for ``alpha_walk``."""
-    global trans_launches, trans_live_launches
     if o.device.type == "cpu":
         return trans_walk_plain(scene, o, d, pd, is_pt, surf_pos, orig_uv,
                                 orig_simple, walking0, steps_cap, live)
@@ -71,10 +62,8 @@ def trans_walk(scene, o, d, pd, is_pt, surf_pos, orig_uv, orig_simple,
         o.contiguous(), d.contiguous(),
         trans_aux(pd, is_pt, surf_pos, orig_uv, orig_simple, walking0),
         scene, steps_cap, live)
-    if live is None:
-        trans_launches += 1
-    else:
-        trans_live_launches += 1
+    counters["launch.trans_walk" if live is None
+             else "launch.trans_walk_live"] += 1
     return TransWalk(fout[0], fout[1], fout[2] > 0.0)
 
 

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from path_tracer_torch.utils.telemetry import sync_nonzero
+
 
 def safe_inv(d):
     zero = d == 0.0
@@ -99,7 +101,7 @@ def occluded_gate(tn, tf, t_max, ids):
 
 def live_columns(gate):
     """Columns of a [R, C] gate some lane passes (one host sync)."""
-    return torch.nonzero(gate.any(dim=0))[:, 0].tolist()
+    return sync_nonzero(gate.any(dim=0), "live_columns")
 
 
 def merge_nearest(t, start: int, lanes, best_t, best_slot):

@@ -67,6 +67,7 @@ import torch
 
 from path_tracer_torch.ops.intersect import DET_EPS, T_MIN
 from path_tracer_torch.ops.slab import pad_boxes, pad_slab
+from path_tracer_torch.utils.telemetry import sync_any
 
 ALPHA_MIN_OPACITY = 0.001
 # Steps the walk kernels take at most; lanes past it continue in the cast
@@ -266,7 +267,7 @@ def alpha_walk_plain(scene, o, d, t_op, rnd, steps_cap: int,
         # still_walking at steps_cap 0).
         active = (top >= 0.0) & torch.isfinite(t_mat.amin(dim=1))
         for k in range(steps_cap):
-            if not bool(active.any()):
+            if not sync_any(active, "alpha_walk_plain"):
                 break
             tmin, col = _next_candidate(t_mat, t_prev)
             found = active & torch.isfinite(tmin)
@@ -318,7 +319,7 @@ def trans_walk_plain(scene, o, d, pd, is_pt, surf_pos, orig_uv, orig_simple,
         t_prev = torch.full((n,), -1.0, device=o.device)
         loop = live & ~ptc if scene.tr_textured else torch.zeros_like(live)
         dense = live & ~loop
-        if bool(dense.any()):
+        if sync_any(dense, "trans_walk_plain_dense"):
             finite = torch.isfinite(t_mat)
             tc = torch.where(finite, t_mat, 0.0)
             sp = surf_pos[rs]
@@ -351,7 +352,7 @@ def trans_walk_plain(scene, o, d, pd, is_pt, surf_pos, orig_uv, orig_simple,
             trans = torch.where(dense, prod, trans)
         walking = loop & torch.isfinite(t_mat.amin(dim=1))
         for _ in range(steps_cap):
-            if not bool(walking.any()):
+            if not sync_any(walking, "trans_walk_plain"):
                 break
             tmin, col = _next_candidate(t_mat, t_prev)
             found = walking & torch.isfinite(tmin)

@@ -13,21 +13,18 @@ Transport. NCCL takes CUDA tensors for every collective here, and so
 does gloo (PyTorch 2.11 on an H100: ``all_reduce``, ``all_to_all_single``
 and ``all_gather_into_tensor``, bool included), which copies them through
 host memory itself; gloo on the CPU takes CPU tensors. So every collective
-gets its tensors as they are, and each call is counted in ``transports``
-by backend and device.
+gets its tensors as they are, and each call is counted in
+``utils.telemetry.counters`` as ``transport.<collective>.<backend>.<device
+type>``.
 """
 from __future__ import annotations
-
-import collections
 
 import torch
 import torch.distributed as dist
 
-DP_AXIS = "dp"
+from path_tracer_torch.utils.telemetry import counters
 
-# (collective, backend, device type of its tensors) -> calls in this
-# process.
-transports: collections.Counter = collections.Counter()
+DP_AXIS = "dp"
 
 
 def default_mesh(n_devices: int | None = None, axis_name: str = DP_AXIS):
@@ -61,7 +58,8 @@ def mesh_rank(mesh) -> tuple:
 
 
 def _count(name: str, group, t: torch.Tensor) -> None:
-    transports[name, dist.get_backend(group), t.device.type] += 1
+    counters[f"transport.{name}.{dist.get_backend(group)}.{t.device.type}"] \
+        += 1
 
 
 def all_to_all_single(inp: torch.Tensor, group) -> torch.Tensor:

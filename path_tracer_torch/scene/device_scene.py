@@ -128,6 +128,7 @@ import numpy as np
 import torch
 
 from path_tracer_torch.scene import isf
+from path_tracer_torch.utils import telemetry
 
 _TRI_PAD = 256  # triangle count padded to a multiple of this
 BVH_MIN_TRIANGLES = 4096  # the JAX package's use_bvh threshold
@@ -885,17 +886,15 @@ def _build_tr_walk_tables(sl_bw, sl_tris, slot_tri, uv0, uv1, uv2,
     return out
 
 
-def _certainly_opaque(model, root: Path) -> list:
+def _certainly_opaque(model, gray: Optional[np.ndarray]) -> list:
     """Per triangle of a transparent-material mesh: True when the opacity
     texture's minimum over the triangle's wrapped UV box, one texel wider
     each way, times the factor is >= 1 (the walks then accept it without a
-    random number, so it behaves as opaque geometry)."""
-    from path_tracer_torch.utils.image_io import load_texture_gray
-
+    random number, so it behaves as opaque geometry). ``gray``: the
+    opacity texture's texels (``load_texture_gray``)."""
     m = model.material
     if m.opacity.factor < 1.0 or m.opacity.texture is None:
         return [False] * len(model.triangles)
-    gray = load_texture_gray(root / m.opacity.texture)
     th, tw = gray.shape
     out = []
     for tri in model.triangles:
@@ -917,41 +916,76 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
     """Flatten an ISF scene into device tensors, as ``build_device_scene``
     of the JAX package does for the fields above (same signature:
     ``use_bvh=None`` walks the BVH from 4,096 triangles on; ``sl_block``
-    triangles per superleaf block, a multiple of 128)."""
-    root = Path(root)
+    triangles per superleaf block, a multiple of 128). The build records
+    the spans ``scene.build``, ``scene.textures`` (the atlas: reading and
+    decoding the images), ``scene.flatten`` (the triangle rows in the
+    leaf-4 BVH's order), ``scene.bvh`` (each ``native.build_bvh``),
+    ``scene.tables`` (superleaf, flat2, wide-texture, walk and shading-row
+    tables) and ``scene.upload`` (``from_numpy``), ``utils.telemetry``."""
+    with telemetry.span("scene.build", device):
+        return _build_scene(scene, Path(root), device, use_bvh, sl_block)
+
+
+def _build_scene(scene: isf.Scene, root: Path, device, use_bvh, sl_block):
+    """The body of ``build_scene``."""
+    from path_tracer_torch.utils.image_io import load_texture_gray
+
     meshes = [m for m in scene.models if isinstance(m, isf.Mesh)]
     n_tris = sum(len(m.triangles) for m in meshes)
     n_real_sph = len(scene.models) - len(meshes)
 
     atlas = _AtlasBuilder(root)
+    mats = {k: [] for k in (
+        "albedo_f", "emissive_f", "opacity_f", "metal_f", "rough_f", "ior",
+        "albedo_t", "emissive_t", "opacity_t", "metal_t", "rough_t",
+        "normal_t")}
+    # The opacity textures _certainly_opaque reads, by path.
+    opacity_gray = {}
+    with telemetry.span("scene.textures"):
+        for model in scene.models:
+            m = model.material
+            mats["albedo_f"].append(m.albedo.factor)
+            mats["emissive_f"].append(m.emissive.factor)
+            mats["opacity_f"].append(m.opacity.factor)
+            mats["metal_f"].append(m.metalness.factor)
+            mats["rough_f"].append(m.roughness.factor)
+            mats["ior"].append(m.ior)
+            mats["albedo_t"].append(atlas.add(m.albedo.texture, "rgb"))
+            mats["emissive_t"].append(atlas.add(m.emissive.texture, "rgb"))
+            mats["opacity_t"].append(atlas.add(m.opacity.texture, "gray"))
+            mats["metal_t"].append(atlas.add(m.metalness.texture, "gray"))
+            mats["rough_t"].append(atlas.add(m.roughness.texture, "gray"))
+            mats["normal_t"].append(atlas.add(m.normal_texture, "rgb"))
+            tex = m.opacity.texture
+            if (isinstance(model, isf.Mesh) and m.opacity.factor >= 1.0
+                    and tex is not None and tex not in opacity_gray):
+                opacity_gray[tex] = load_texture_gray(root / tex)
+    with telemetry.span("scene.flatten"):
+        flat = _flatten(scene, n_tris, opacity_gray)
+    with telemetry.span("scene.tables"):
+        fields, statics = _tables(scene, flat, atlas, mats, n_tris,
+                                  n_real_sph, use_bvh, sl_block)
+    with telemetry.span("scene.upload", device):
+        return from_numpy(fields, statics, device)
+
+
+def _flatten(scene: isf.Scene, n_tris: int, opacity_gray: dict) -> dict:
+    """The triangle rows of every mesh, padded to ``_TRI_PAD``, opaque
+    triangles first and each partition in its leaf-4 BVH's order, and the
+    spheres' rows."""
     keys = ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2")
     tri_rows = {k: [] for k in keys}
     tri_model, tri_transparent = [], []
     sph_center, sph_radius, sph_model = [], [], []
     sph_all_opaque = True
     n_transparent_hits = 0
-    mats = {k: [] for k in (
-        "albedo_f", "emissive_f", "opacity_f", "metal_f", "rough_f", "ior",
-        "albedo_t", "emissive_t", "opacity_t", "metal_t", "rough_t",
-        "normal_t")}
     for model_id, model in enumerate(scene.models):
         m = model.material
         transparent = m.opacity.factor < 1.0 or m.opacity.texture is not None
-        mats["albedo_f"].append(m.albedo.factor)
-        mats["emissive_f"].append(m.emissive.factor)
-        mats["opacity_f"].append(m.opacity.factor)
-        mats["metal_f"].append(m.metalness.factor)
-        mats["rough_f"].append(m.roughness.factor)
-        mats["ior"].append(m.ior)
-        mats["albedo_t"].append(atlas.add(m.albedo.texture, "rgb"))
-        mats["emissive_t"].append(atlas.add(m.emissive.texture, "rgb"))
-        mats["opacity_t"].append(atlas.add(m.opacity.texture, "gray"))
-        mats["metal_t"].append(atlas.add(m.metalness.texture, "gray"))
-        mats["rough_t"].append(atlas.add(m.roughness.texture, "gray"))
-        mats["normal_t"].append(atlas.add(m.normal_texture, "rgb"))
         if isinstance(model, isf.Mesh):
-            certain = (_certainly_opaque(model, root) if transparent
-                       else [True] * len(model.triangles))
+            certain = (_certainly_opaque(model,
+                                         opacity_gray.get(m.opacity.texture))
+                       if transparent else [True] * len(model.triangles))
             for (v0, v1, v2), sure in zip(model.triangles, certain):
                 for k, vert in (("0", v0), ("1", v1), ("2", v2)):
                     tri_rows["v" + k].append(vert.position)
@@ -1017,7 +1051,26 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
         for arr in (v0, e1, e2, uv0, uv1, uv2, tangent, n0, n1, n2):
             arr[:n_tris] = arr[:n_tris][perm]
         tri_model_arr[:n_tris] = tri_model_arr[:n_tris][perm]
-    sl = _superleaf_tables(v0, e1, e2, ranges, n_pad, sl_block)
+    return dict(v0=v0, e1=e1, e2=e2, uv0=uv0, uv1=uv1, uv2=uv2, n0=n0, n1=n1,
+                n2=n2, tangent=tangent, tri_model=tri_model_arr, ranges=ranges,
+                n_pad=n_pad, n_op=n_op, sph_center=sph_center,
+                sph_radius=sph_radius, sph_model=sph_model,
+                sph_all_opaque=sph_all_opaque,
+                n_transparent_hits=n_transparent_hits)
+
+
+def _tables(scene: isf.Scene, flat: dict, atlas: _AtlasBuilder, mats: dict,
+            n_tris: int, n_real_sph: int, use_bvh, sl_block: int):
+    """(fields, statics), ``from_numpy``'s arguments, from the flattened
+    rows (``_flatten``) and the atlas: the superleaf and flat2 tables, the
+    wide textures, the walk tables, the sphere blocks and the shading
+    rows."""
+    v0, e1, e2 = flat["v0"], flat["e1"], flat["e2"]
+    uv0, uv1, uv2 = flat["uv0"], flat["uv1"], flat["uv2"]
+    n0, n1, n2 = flat["n0"], flat["n1"], flat["n2"]
+    tangent, tri_model_arr = flat["tangent"], flat["tri_model"]
+    ranges, n_op = flat["ranges"], flat["n_op"]
+    sl = _superleaf_tables(v0, e1, e2, ranges, flat["n_pad"], sl_block)
     part_blocks = sl["part_blocks"]
     if len(ranges) == 2 or n_op == n_tris:
         nblk_op = part_blocks[0] if part_blocks else 0
@@ -1038,9 +1091,9 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
     radii = np.zeros(n_sph, np.float32)
     sph_model_arr = np.zeros(n_sph, np.int32)
     if n_real_sph:
-        centers[:n_real_sph] = np.asarray(sph_center, np.float32)
-        radii[:n_real_sph] = np.asarray(sph_radius, np.float32)
-        sph_model_arr[:n_real_sph] = np.asarray(sph_model, np.int32)
+        centers[:n_real_sph] = np.asarray(flat["sph_center"], np.float32)
+        radii[:n_real_sph] = np.asarray(flat["sph_radius"], np.float32)
+        sph_model_arr[:n_real_sph] = np.asarray(flat["sph_model"], np.int32)
     sph_blocks = _sphere_blocks(centers, radii)
     sl_attr = _attr_rows(
         sl, dict(v0=v0, e1=e1, e2=e2, n0=n0, n1=n1, n2=n2, tangent=tangent,
@@ -1111,8 +1164,8 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
         n_tris_opaque=n_op,
         sl_n_blocks_opaque=nblk_op,
         sl_cols_opaque=((nblk_op + 127) // 128) * 128,
-        num_transparent_hits=n_transparent_hits,
-        sph_all_opaque=sph_all_opaque,
+        num_transparent_hits=flat["n_transparent_hits"],
+        sph_all_opaque=flat["sph_all_opaque"],
         tr_kernel_ok=tr["tr_kernel_ok"],
         tr_textured=tr["tr_textured"],
         tr_pages=tr["tr_pages"],
@@ -1121,7 +1174,7 @@ def build_scene(scene: isf.Scene, root, device, use_bvh: Optional[bool] = None,
         attr_tex_baked=False,
         wide_covered=wide_covered,
     )
-    return from_numpy(fields, statics, device)
+    return fields, statics
 
 
 # ---------------------------------------------------------------------------

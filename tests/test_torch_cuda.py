@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+from path_tracer_torch.utils.telemetry import counters
+
 pytestmark = pytest.mark.gpu
 
 SCENES = Path(__file__).parent / "scenes"
@@ -64,9 +66,9 @@ def test_mt_kernel_equals_plain(cuda, name):
     o, d = _rays(1, 5003, v.min(0), v.max(0), cuda)
     tp = torch.full((5003,), -1.0, device=cuda)
     tp[::9] = float("inf")  # dead lanes
-    before = cuda_intersect.launches
+    before = counters["launch.mt_closest_hit"]
     got = cuda_intersect.closest_hit_triangles_cuda(o, d, tp, sc)
-    assert cuda_intersect.launches == before + 1
+    assert counters["launch.mt_closest_hit"] == before + 1
     _assert_same(got, intersect.closest_hit_triangles(o, d, tp, sc))
     assert not got.valid[::9].any()
 
@@ -99,9 +101,9 @@ def test_sphere_kernel_equals_plain(cuda):
     from path_tracer_torch.scene.device_scene import _pack_spheres
 
     def check(o, d, tp, sc, tri=None):
-        before = cuda_spheres.launches
+        before = counters["launch.sphere_closest_hit"]
         got = cuda_spheres.closest_hit_spheres_cuda(o, d, tp, sc, tri=tri)
-        assert cuda_spheres.launches == before + 1
+        assert counters["launch.sphere_closest_hit"] == before + 1
         _assert_same(got, cuda_spheres.closest_hit_spheres_merged_plain(
             o, d, tp, sc, tri))
         return got
@@ -142,14 +144,15 @@ def test_sphere_kernel_equals_plain(cuda):
 def test_card_render_matches_cpu(cuda, name):
     from path_tracer_torch.models.integrator import IntegratorSpec
     from path_tracer_torch.models.renderer import render_pixel_sums
-    from path_tracer_torch.ops import cuda_intersect, cuda_spheres
     from path_tracer_torch.scene import load_scene
 
     spec = IntegratorSpec(bounces=2)
     path = SCENES / name / "scene.isf"
-    before = cuda_intersect.launches + cuda_spheres.launches
+    before = (counters["launch.mt_closest_hit"]
+              + counters["launch.sphere_closest_hit"])
     on_card = render_pixel_sums(load_scene(path, cuda), 32, 24, 1, 2, spec)
-    assert cuda_intersect.launches + cuda_spheres.launches > before
+    assert (counters["launch.mt_closest_hit"]
+            + counters["launch.sphere_closest_hit"]) > before
     on_cpu = render_pixel_sums(load_scene(path, "cpu"), 32, 24, 1, 2, spec)
     outside = np.abs(on_card - on_cpu) > 1e-4 + 1e-3 * np.abs(on_cpu)
     if name == "spheres":
@@ -195,9 +198,9 @@ def test_flat_closest_hit_equals_plain(cuda, name):
         for tpv in (-1.0, 0.5):
             tp = torch.full((r,), tpv, device=cuda)
             tp[::9] = float("inf")  # dead lanes
-            before = cuda_bvh.closest_hit_launches
+            before = counters["launch.flat_closest_hit"]
             got = cuda_bvh.closest_hit_triangles_flat(o, d, tp, sc, spheres)
-            assert cuda_bvh.closest_hit_launches == before + 1
+            assert counters["launch.flat_closest_hit"] == before + 1
             want = cuda_bvh.closest_hit_triangles_flat_plain(o, d, tp, sc,
                                                              spheres)
             _assert_same(got, want)
@@ -219,9 +222,9 @@ def test_flat_occluded_equals_plain(cuda, name):
     tm_dead[::3] = -1.0
     ds = [d0, d1, d0]
     tms = [torch.full((r,), float("inf"), device=cuda), tm, tm_dead]
-    before = cuda_bvh.occluded_launches
+    before = counters["launch.flat_occluded"]
     multi = cuda_bvh.occluded_triangles_flat_multi(o, ds, tms, sc)
-    assert cuda_bvh.occluded_launches == before + 1
+    assert counters["launch.flat_occluded"] == before + 1
     for i in range(3):
         single = cuda_bvh.occluded_triangles_flat(o, ds[i], tms[i], sc)
         plain = cuda_bvh.occluded_triangles_flat_plain(o, ds[i], tms[i], sc)
@@ -264,9 +267,9 @@ def test_flat2_kernels_equal_plain(cuda, name):
     for tpv in (-1.0, 0.5):
         tp = torch.full((r,), tpv, device=cuda)
         tp[::9] = float("inf")
-        before = cuda_bvh.flat2_closest_hit_launches
+        before = counters["launch.flat2_closest_hit"]
         got = cuda_bvh.closest_hit_triangles_flat2(o, d, tp, sc)
-        assert cuda_bvh.flat2_closest_hit_launches == before + 1
+        assert counters["launch.flat2_closest_hit"] == before + 1
         for want in (cuda_bvh.closest_hit_triangles_flat2_plain(o, d, tp, sc),
                      cuda_bvh.closest_hit_triangles_flat(o, d, tp, sc)):
             _assert_same(got, want)
@@ -278,9 +281,9 @@ def test_flat2_kernels_equal_plain(cuda, name):
                            tm_dead]
     ds.append(d)
     tms.append(torch.where(torch.isinf(_dead_warps(tm)), -1.0, tm))
-    before = cuda_bvh.flat2_occluded_launches
+    before = counters["launch.flat2_occluded"]
     multi = cuda_bvh.occluded_triangles_flat2_multi(o, ds, tms, sc)
-    assert cuda_bvh.flat2_occluded_launches == before + 1
+    assert counters["launch.flat2_occluded"] == before + 1
     assert torch.equal(multi, cuda_bvh.occluded_triangles_flat2_multi_plain(
         o, ds, tms, sc))
     assert torch.equal(multi, cuda_bvh.occluded_triangles_flat_multi(
@@ -303,9 +306,9 @@ def test_sph_walk_kernel_equals_plain(cuda):
     for tpv in (-1.0, 5.0):
         tp = torch.full((5003,), tpv, device=cuda)
         tp[::9] = float("inf")
-        before = cuda_spheres.sph_walk_launches
+        before = counters["launch.sph_walk"]
         got = cuda_spheres.closest_hit_spheres_cuda(o, d, tp, sc)
-        assert cuda_spheres.sph_walk_launches == before + 1
+        assert counters["launch.sph_walk"] == before + 1
         _assert_same(got, cuda_spheres.closest_hit_spheres_walk_plain(
             o, d, tp, sc))
         assert not got.valid[::9].any() and got.valid.float().mean() > 0.2
@@ -343,9 +346,9 @@ def test_sph_walk_merged_record_equals_plain_and_cta(cuda):
     )
 
     def check(o, d, tp, sc, tri=None):
-        before = cuda_spheres.sph_walk_launches
+        before = counters["launch.sph_walk"]
         got = cuda_spheres.closest_hit_spheres_cuda(o, d, tp, sc, tri=tri)
-        assert cuda_spheres.sph_walk_launches == before + 1
+        assert counters["launch.sph_walk"] == before + 1
         plain = cuda_spheres.closest_hit_spheres_walk_merged_plain
         _held(got, {"plain": plain(o, d, tp, sc, tri)})
         return got
@@ -423,10 +426,10 @@ def test_dense_sphere_any_hit_folds_prior(cuda, showcase_tex48):
             g = torch.Generator(device=cuda).manual_seed(L)
             prior = torch.rand((L, 5003), generator=g, device=cuda) < 0.1
             for p in (None, prior):
-                before = cuda_spheres.occluded_launches
+                before = counters["launch.sph_occluded"]
                 got = cuda_spheres.occluded_spheres_cuda(o, dd, tt, sc,
                                                          prior=p)
-                assert cuda_spheres.occluded_launches == before + 1
+                assert counters["launch.sph_occluded"] == before + 1
                 assert got.dtype == torch.bool and got.shape == (L, 5003)
                 assert torch.equal(got, cuda_spheres.occluded_spheres_plain(
                     o, dd, tt, sc, p))
@@ -451,7 +454,7 @@ def test_occluded_multi_fold_equals_plain(cuda, showcase_tex48):
     """occluded_multi on the card (the flat any-hit's bool output handed to
     the dense sphere kernel as prior) against the same call on the CPU's
     plain versions, three lights with a tenth of each set dead."""
-    from path_tracer_torch.ops import cuda_spheres, intersect
+    from path_tracer_torch.ops import intersect
 
     sc = showcase_tex48
     o, ds, tms = _sphere_shadow_sets(sc, 17, 5003, cuda)
@@ -462,10 +465,10 @@ def test_occluded_multi_fold_equals_plain(cuda, showcase_tex48):
     surf = o - 1e-3 * ds[0]
     dists = [None, torch.rand(5003, generator=g, device=cuda) * 8.0,
              torch.rand(5003, generator=g, device=cuda) * 3.0]
-    before = cuda_spheres.occluded_launches
+    before = counters["launch.sph_occluded"]
     got = intersect.occluded_multi(o, dirs, sc, surf_pos=surf,
                                    max_dists=dists, actives=acts)
-    assert cuda_spheres.occluded_launches == before + 1
+    assert counters["launch.sph_occluded"] == before + 1
     cpu = lambda x: None if x is None else x.cpu()
     want = intersect.occluded_multi(
         o.cpu(), [x.cpu() for x in dirs], _scene_on_cpu(sc),
@@ -494,17 +497,17 @@ def test_dense_sphere_any_hit_chunks_sets(cuda, showcase_tex48, n_sets):
     g = torch.Generator(device=cuda).manual_seed(n_sets)
     prior = torch.rand((n_sets, 5003), generator=g, device=cuda) < 0.1
     for p in (None, prior):
-        before = cuda_spheres.occluded_launches
+        before = counters["launch.sph_occluded"]
         got = cuda_spheres.occluded_spheres_cuda(o, dd, tt, sc, prior=p)
-        assert cuda_spheres.occluded_launches == before + chunks
+        assert counters["launch.sph_occluded"] == before + chunks
         assert got.dtype == torch.bool and got.shape == (n_sets, 5003)
         assert torch.equal(got, cuda_spheres.occluded_spheres_plain(
             o, dd, tt, sc, p))
     acts = [torch.rand(5003, generator=g, device=cuda) > 0.1
             for _ in range(n_sets)]
-    before = cuda_spheres.occluded_launches
+    before = counters["launch.sph_occluded"]
     got = intersect.occluded_multi(o, dd, sc, actives=acts)
-    assert cuda_spheres.occluded_launches == before + chunks
+    assert counters["launch.sph_occluded"] == before + chunks
     want = intersect.occluded_multi(o.cpu(), [x.cpu() for x in dd],
                                     _scene_on_cpu(sc),
                                     actives=[x.cpu() for x in acts])
@@ -587,9 +590,9 @@ def test_alpha_walk_kernel_equals_plain(cuda, showcase_tex48, tie_cards,
     rnd = torch.from_numpy(g.uniform(size=(steps_cap, r)).astype(
         np.float32)).to(cuda)
     rnd[:, ::2] = 0.95  # above every tie card's opacity: no accept
-    before = cuda_trwalk.alpha_launches
+    before = counters["launch.alpha_walk"]
     got = cuda_trwalk.alpha_walk(sc, o, d, t_op, rnd, steps_cap)
-    assert cuda_trwalk.alpha_launches == before + 1
+    assert counters["launch.alpha_walk"] == before + 1
     want = trwalk.alpha_walk_plain(sc, o, d, t_op, rnd, steps_cap)
     _assert_same(got, want)
     if steps_cap:
@@ -632,9 +635,9 @@ def test_trans_walk_kernel_equals_plain(cuda, showcase_tex48, tie_cards,
     osimple = t(g.uniform(size=n) < 0.2, bool)
     walking0 = t(g.uniform(size=n) > 0.1, bool)
     args = (o3, d3, pd3, is_pt, sp3, ouv, osimple, walking0, steps_cap)
-    before = cuda_trwalk.trans_launches
+    before = counters["launch.trans_walk"]
     got = cuda_trwalk.trans_walk(sc, *args)
-    assert cuda_trwalk.trans_launches == before + 1
+    assert counters["launch.trans_walk"] == before + 1
     _assert_same(got, trwalk.trans_walk_plain(sc, *args))
     assert (got.trans < 1.0).float().mean() > 0.02
     assert bool((got.trans[~walking0] == 1.0).all())
@@ -682,11 +685,11 @@ def test_sphere_any_hit_kernels_equal_plain(cuda, name):
     for sc in scenes:
         o, ds, tms = _sphere_shadow_sets(sc, 15, 5003, cuda)
         walk = sc.sph_use_blocks
-        before = (cuda_spheres.occluded_launches,
-                  cuda_spheres.sph_occ_walk_launches)
+        before = (counters["launch.sph_occluded"],
+                  counters["launch.sph_occ_walk"])
         got = cuda_spheres.occluded_spheres_cuda(o, ds, tms, sc)
-        assert (cuda_spheres.occluded_launches,
-                cuda_spheres.sph_occ_walk_launches) == (
+        assert (counters["launch.sph_occluded"],
+                counters["launch.sph_occ_walk"]) == (
                     before[0] + (not walk), before[1] + walk)
         assert torch.equal(got, cuda_spheres.occluded_spheres_plain(
             o, ds, tms, sc))
@@ -702,9 +705,9 @@ def _row6_held(o, ds, tms, sc, prior=None):
     from path_tracer_torch.ops import cuda_spheres
 
     tables = (sc.sph_blk, sc.sph_blkid, sc.sph_sorted_t)
-    before = cuda_spheres.sph_occ_walk_launches
+    before = counters["launch.sph_occ_walk"]
     got = cuda_spheres.occluded_spheres_cuda(o, ds, tms, sc, prior=prior)
-    assert cuda_spheres.sph_occ_walk_launches == before + 1
+    assert counters["launch.sph_occ_walk"] == before + 1
     assert got.dtype == torch.bool
     assert torch.equal(got, cuda_spheres.occluded_spheres_plain(
         o, ds, tms, sc, prior))
@@ -811,10 +814,10 @@ def test_fused_shadow_kernel_equals_plain_and_two_launches(
     sc = showcase_tex48
     r = 2048
     o, ds, tms, pds, is_pt, sp, ouv, osimple = _fused_lanes(sc, 16, r, cuda)
-    before = cuda_shadow.launches
+    before = counters["launch.fused_shadow"]
     got = cuda_shadow.fused_shadow(sc, o, ds, tms, pds, is_pt, sp, ouv,
                                    osimple, steps_cap)
-    assert cuda_shadow.launches == before + 1
+    assert counters["launch.fused_shadow"] == before + 1
     want = cuda_shadow.fused_shadow_plain(sc, o, ds, tms, pds, is_pt, sp, ouv,
                                           osimple, steps_cap)
     for a, b in zip(got, want):
@@ -864,10 +867,11 @@ def test_live_walk_kernels_equal_plain(cuda, showcase_tex48, updated):
     t_op[::7] = -1.0
     t_op = torch.from_numpy(t_op).to(cuda)
     rnd = torch.from_numpy(g.uniform(size=(8, r)).astype(np.float32)).to(cuda)
-    counts = (cuda_trwalk.alpha_live_launches, cuda_trwalk.alpha_launches)
+    counts = (counters["launch.alpha_walk_live"],
+              counters["launch.alpha_walk"])
     got = cuda_trwalk.alpha_walk(sc, o, d, t_op, rnd, 8, live=live)
-    assert (cuda_trwalk.alpha_live_launches,
-            cuda_trwalk.alpha_launches) == (counts[0] + 1, counts[1])
+    assert (counters["launch.alpha_walk_live"],
+            counters["launch.alpha_walk"]) == (counts[0] + 1, counts[1])
     _assert_same(got, trwalk.alpha_walk_plain(sc, o, d, t_op, rnd, 8, live))
     fwd = cuda_trwalk.alpha_walk(sc, o, d, t_op, rnd, 8)
     if updated:
@@ -882,16 +886,16 @@ def test_live_walk_kernels_equal_plain(cuda, showcase_tex48, updated):
     walk = (sc, o.repeat(n_l, 1), torch.cat(ds), torch.cat(pds), is_pt3,
             sp.repeat(n_l, 1), ouv.repeat(n_l, 1), osimple.repeat(n_l),
             torch.ones_like(is_pt3), 8)
-    before = cuda_trwalk.trans_live_launches
+    before = counters["launch.trans_walk_live"]
     got = cuda_trwalk.trans_walk(*walk, live=live)
-    assert cuda_trwalk.trans_live_launches == before + 1
+    assert counters["launch.trans_walk_live"] == before + 1
     _assert_same(got, trwalk.trans_walk_plain(*walk, live))
     if not updated:
         _assert_same(got, cuda_trwalk.trans_walk(*walk))
     fused = (sc, o, ds, tms, pds, is_pt, sp, ouv, osimple, 8)
-    before = cuda_shadow.live_launches
+    before = counters["launch.fused_shadow_live"]
     got = cuda_shadow.fused_shadow(*fused, live=live)
-    assert cuda_shadow.live_launches == before + 1
+    assert counters["launch.fused_shadow_live"] == before + 1
     for a, b in zip(got, cuda_shadow.fused_shadow_plain(*fused, live=live)):
         assert torch.equal(a, b)
     if not updated:
@@ -907,7 +911,6 @@ def test_train_step_on_card(cuda, showcase_tex48):
     flips described above (up to 5% of values); the sum of squares weighs
     the bright lanes such a flip moves (measured 1.6% apart on an H100)."""
     from path_tracer_torch.models.integrator import IntegratorSpec
-    from path_tracer_torch.ops import cuda_trwalk
     from path_tracer_torch.parallel import get_params, make_train_step
     from path_tracer_torch.scene.showcase import showcase_device_scene
 
@@ -919,15 +922,15 @@ def test_train_step_on_card(cuda, showcase_tex48):
                _training_updates(showcase_device_scene(
                    48, "cpu", sl_block=256, textured=True))):
         ids = torch.arange(w * h, dtype=torch.int32, device=sc.device)
-        counts = (cuda_trwalk.alpha_launches, cuda_trwalk.trans_launches,
-                  cuda_trwalk.alpha_live_launches,
-                  cuda_trwalk.trans_live_launches)
+        counts = (counters["launch.alpha_walk"], counters["launch.trans_walk"],
+                  counters["launch.alpha_walk_live"],
+                  counters["launch.trans_walk_live"])
         params = get_params(sc)
         new, loss = step(params, sc, ids, torch.zeros((w * h, 3),
                                                       device=sc.device), 1)
-        after = (cuda_trwalk.alpha_launches, cuda_trwalk.trans_launches,
-                 cuda_trwalk.alpha_live_launches,
-                 cuda_trwalk.trans_live_launches)
+        after = (counters["launch.alpha_walk"], counters["launch.trans_walk"],
+                 counters["launch.alpha_walk_live"],
+                 counters["launch.trans_walk_live"])
         if sc.device.type == "cuda":
             assert after[:2] == counts[:2]
             assert after[2] > counts[2] and after[3] > counts[3]
@@ -953,9 +956,9 @@ def test_khit_kernel_equals_plain(cuda, showcase_tex48, k):
     t_max[::5] = np.inf
     t_max = torch.from_numpy(t_max).to(cuda)
     active = torch.from_numpy(g.uniform(size=r) > 0.1).to(cuda)
-    before = cuda_khit.launches
+    before = counters["launch.k_nearest_tr_hits"]
     ts, pos = cuda_khit.k_nearest_tr_hits(o, d, active, sc, k, t_max=t_max)
-    assert cuda_khit.launches == before + 1
+    assert counters["launch.k_nearest_tr_hits"] == before + 1
     tris, gbox, sbox = sc.khit_tris, sc.khit_gbox, sc.khit_sbox
     enc = torch.where(active, t_max, -1.0)
     want_ts, want_pos = cuda_khit.k_nearest_tr_hits_plain(
@@ -1057,9 +1060,9 @@ def test_tree_kernels_equal_plain(cuda, name, monkeypatch):
     for tpv in (-1.0, 0.5):
         tp = torch.full((r,), tpv, device=cuda)
         tp[::9] = float("inf")
-        before = cuda_bvh.tree_closest_hit_launches
+        before = counters["launch.tree_closest_hit"]
         got = cuda_bvh.closest_hit_triangles_tree(o, d, tp, sc)
-        assert cuda_bvh.tree_closest_hit_launches == before + 1
+        assert counters["launch.tree_closest_hit"] == before + 1
         _assert_same(got, cuda_bvh.closest_hit_triangles_tree_plain(o, d, tp,
                                                                     sc))
         assert not got.valid[::9].any() and got.valid.float().mean() > 0.3
@@ -1084,9 +1087,9 @@ def test_tree_kernels_equal_plain(cuda, name, monkeypatch):
                              40.0)
             tm[k % 3::3] = -1.0
             tms.append(tm)
-        before = cuda_bvh.tree_occluded_launches
+        before = counters["launch.tree_occluded"]
         occ = cuda_bvh.occluded_triangles_tree_multi(o, ds, tms, sc)
-        assert cuda_bvh.tree_occluded_launches == before + 1
+        assert counters["launch.tree_occluded"] == before + 1
         assert occ.dtype == torch.bool and occ.shape == (n_sets, r)
         assert torch.equal(occ, cuda_bvh.occluded_triangles_tree_multi_plain(
             o, ds, tms, sc))
@@ -1110,17 +1113,15 @@ def test_dense_route_launches_khit(cuda, showcase_tex48, monkeypatch):
     kernels' route up to the dense walk's per-column u, v recompute."""
     from path_tracer_torch.models.integrator import IntegratorSpec
     from path_tracer_torch.models.renderer import render_pixel_sums
-    from path_tracer_torch.ops import cuda_khit, cuda_trwalk
-
     spec = IntegratorSpec(bounces=3)
     want = render_pixel_sums(showcase_tex48, 32, 24, 1, 2, spec)
     monkeypatch.setenv("PT_NO_TRWALK_KERNEL", "1")
     monkeypatch.setenv("PT_DENSE_TR", "1")
-    before = (cuda_khit.launches, cuda_trwalk.alpha_launches,
-              cuda_trwalk.trans_launches)
+    before = (counters["launch.k_nearest_tr_hits"],
+              counters["launch.alpha_walk"], counters["launch.trans_walk"])
     got = render_pixel_sums(showcase_tex48, 32, 24, 1, 2, spec)
-    assert cuda_khit.launches > before[0]
-    assert (cuda_trwalk.alpha_launches, cuda_trwalk.trans_launches) \
+    assert counters["launch.k_nearest_tr_hits"] > before[0]
+    assert (counters["launch.alpha_walk"], counters["launch.trans_walk"]) \
         == before[1:]
     diff = np.abs(got - want)
     assert (diff > 1e-3).mean() <= 0.005
@@ -1144,10 +1145,10 @@ def test_tree_route_launches_tree_kernels(cuda, monkeypatch):
     multi = cuda_bvh.occluded_triangles_tree_multi
     monkeypatch.setattr(cuda_bvh, "occluded_triangles_tree_multi",
                         lambda *a: calls.append(len(a[1])) or multi(*a))
-    counts = lambda: (cuda_bvh.tree_closest_hit_launches,
-                      cuda_bvh.tree_occluded_launches,
-                      cuda_bvh.closest_hit_launches,
-                      cuda_bvh.occluded_launches)
+    counts = lambda: (counters["launch.tree_closest_hit"],
+                      counters["launch.tree_occluded"],
+                      counters["launch.flat_closest_hit"],
+                      counters["launch.flat_occluded"])
     before = counts()
     got = render_pixel_sums(sc, 32, 24, 1, 2, spec)
     after = counts()
@@ -1238,9 +1239,9 @@ def test_warp_flat_any_hit_equals_plain_and_cta(cuda, rays):
            for k in (1.5, 0.5)]
     tms.append(torch.where(dead, -1.0, float("inf")))
     ds = [d, d, -d]
-    before = cuda_bvh.occluded_launches
+    before = counters["launch.flat_occluded"]
     got = cuda_bvh.occluded_triangles_flat_multi(o, ds, tms, sc)
-    assert cuda_bvh.occluded_launches == before + 1
+    assert counters["launch.flat_occluded"] == before + 1
     assert torch.equal(got, cuda_bvh.occluded_triangles_flat_multi_plain(
         o, ds, tms, sc))
     assert got[:, dead].all()
@@ -1278,9 +1279,9 @@ def test_warp_flat2_equals_plain_and_cta(cuda, name):
         o, d = _flat_rays(sc, 17, 5003, cuda)
         tp = _dead_warps(torch.full((5003,), -1.0, device=cuda))
     for step in range(2):
-        before = cuda_bvh.flat2_closest_hit_launches
+        before = counters["launch.flat2_closest_hit"]
         got = cuda_bvh.closest_hit_triangles_flat2(o, d, tp, sc)
-        assert cuda_bvh.flat2_closest_hit_launches == before + 1
+        assert counters["launch.flat2_closest_hit"] == before + 1
         want = cuda_bvh.closest_hit_triangles_flat2_plain(o, d, tp, sc)
         _assert_same(got, want)
         assert not got.valid[torch.isinf(tp)].any()
@@ -1315,9 +1316,9 @@ def test_warp_flat2_any_hit_equals_plain_and_cta(cuda, name):
            for k in (1.5, 0.5)]
     tms.append(torch.where(dead, -1.0, float("inf")))
     ds = [d, d, -d]
-    before = cuda_bvh.flat2_occluded_launches
+    before = counters["launch.flat2_occluded"]
     got = cuda_bvh.occluded_triangles_flat2_multi(o, ds, tms, sc)
-    assert cuda_bvh.flat2_occluded_launches == before + 1
+    assert counters["launch.flat2_occluded"] == before + 1
     assert torch.equal(got, cuda_bvh.occluded_triangles_flat2_multi_plain(
         o, ds, tms, sc))
     assert got[:, dead].all()
@@ -1395,17 +1396,16 @@ def test_spw_on_card_matches_unpacked(cuda, showcase_tex48):
     2e-5, atol 2e-6), the walk and flat kernels launched by both."""
     from path_tracer_torch.models.integrator import IntegratorSpec
     from path_tracer_torch.models.renderer import render_pixel_sums
-    from path_tracer_torch.ops import cuda_bvh, cuda_trwalk
-
     spec = IntegratorSpec(bounces=3)
     want = render_pixel_sums(showcase_tex48, 128, 96, 1, 2, spec,
                              tile_rays=4096)
-    before = (cuda_bvh.closest_hit_launches, cuda_trwalk.alpha_launches)
+    before = (counters["launch.flat_closest_hit"],
+              counters["launch.alpha_walk"])
     got = render_pixel_sums(showcase_tex48, 128, 96, 1, 2, spec,
                             tile_rays=4096, samples_per_launch=2,
                             samples_per_wavefront=2)
-    assert cuda_bvh.closest_hit_launches > before[0]
-    assert cuda_trwalk.alpha_launches > before[1]
+    assert counters["launch.flat_closest_hit"] > before[0]
+    assert counters["launch.alpha_walk"] > before[1]
     assert want.std() > 0
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
 
@@ -1439,14 +1439,13 @@ def test_wide_rows_equal_the_tables_on_card(cuda, showcase_tex48):
 
     from path_tracer_torch.models import integrator
     from path_tracer_torch.models.renderer import render_pixel_sums
-    from path_tracer_torch.ops import cuda_bvh, cuda_trwalk
-
     spec = integrator.IntegratorSpec(bounces=5)
     assert integrator._uses_rows(showcase_tex48, spec)
-    before = (cuda_bvh.closest_hit_launches, cuda_trwalk.alpha_launches)
+    before = (counters["launch.flat_closest_hit"],
+              counters["launch.alpha_walk"])
     got = render_pixel_sums(showcase_tex48, 96, 72, 1, 2, spec)
-    assert cuda_bvh.closest_hit_launches > before[0]
-    assert cuda_trwalk.alpha_launches > before[1]
+    assert counters["launch.flat_closest_hit"] > before[0]
+    assert counters["launch.alpha_walk"] > before[1]
     with mock.patch.object(integrator, "_uses_rows",
                            lambda scene, spec: False):
         want = render_pixel_sums(showcase_tex48, 96, 72, 1, 2, spec)
@@ -1465,7 +1464,6 @@ def test_converted_glb_renders_on_card(cuda, tmp_path):
     from path_tracer_torch import cli
     from path_tracer_torch.models.integrator import IntegratorSpec
     from path_tracer_torch.models.renderer import render_pixel_sums
-    from path_tracer_torch.ops import cuda_bvh, cuda_trwalk
     from path_tracer_torch.scene import load_scene
 
     spec = importlib.util.spec_from_file_location(
@@ -1479,10 +1477,11 @@ def test_converted_glb_renders_on_card(cuda, tmp_path):
     sc = load_scene(path, cuda)
     assert sc.use_bvh and not sc.all_opaque
     spec = IntegratorSpec(bounces=4)
-    before = (cuda_bvh.closest_hit_launches, cuda_trwalk.trans_launches)
+    before = (counters["launch.flat_closest_hit"],
+              counters["launch.trans_walk"])
     got = render_pixel_sums(sc, 64, 48, 1, 2, spec)
-    assert cuda_bvh.closest_hit_launches > before[0]
-    assert cuda_trwalk.trans_launches > before[1]
+    assert counters["launch.flat_closest_hit"] > before[0]
+    assert counters["launch.trans_walk"] > before[1]
     want = render_pixel_sums(load_scene(path, "cpu"), 64, 48, 1, 2, spec)
     assert np.isfinite(got).all() and want.std() > 0
     outside = np.abs(got - want) > 1e-4 + 1e-3 * np.abs(want)

@@ -148,7 +148,8 @@ def test_port_sources_import_no_jax():
                    "scene/bvh_layouts.py", "models/debug_aov.py",
                    "utils/checkpoint.py", "utils/obj_logger.py",
                    "viewer/http_viewer.py", "scene/gltf.py",
-                   "utils/jpeg.py", "utils/jpeg_arith.py"):
+                   "utils/jpeg.py", "utils/jpeg_arith.py",
+                   "utils/telemetry.py"):
         assert REPO / "path_tracer_torch" / module in files
     files += [REPO / "chip_smoke.py"]
     files += [REPO / "tests" / "tools" / f"torch_{name}.py" for name in (
@@ -277,25 +278,15 @@ def _fake_fused_scene(mode):
 
 
 def _launch_counts():
-    from path_tracer_torch.ops import (
-        cuda_bvh,
-        cuda_intersect,
-        cuda_khit,
-        cuda_shadow,
-        cuda_spheres,
-        cuda_trwalk,
-    )
+    from path_tracer_torch.utils.telemetry import counters
 
-    return (cuda_khit.launches, cuda_bvh.tree_closest_hit_launches,
-            cuda_bvh.tree_occluded_launches,
-            cuda_intersect.launches, cuda_spheres.launches,
-            cuda_spheres.sph_walk_launches, cuda_bvh.closest_hit_launches,
-            cuda_bvh.occluded_launches, cuda_bvh.flat2_closest_hit_launches,
-            cuda_bvh.flat2_occluded_launches, cuda_trwalk.alpha_launches,
-            cuda_trwalk.trans_launches, cuda_spheres.occluded_launches,
-            cuda_spheres.sph_occ_walk_launches, cuda_shadow.launches,
-            cuda_trwalk.alpha_live_launches, cuda_trwalk.trans_live_launches,
-            cuda_shadow.live_launches)
+    return tuple(counters["launch." + k] for k in (
+        "k_nearest_tr_hits", "tree_closest_hit", "tree_occluded",
+        "mt_closest_hit", "sphere_closest_hit", "sph_walk",
+        "flat_closest_hit", "flat_occluded", "flat2_closest_hit",
+        "flat2_occluded", "alpha_walk", "trans_walk", "sph_occluded",
+        "sph_occ_walk", "fused_shadow", "alpha_walk_live", "trans_walk_live",
+        "fused_shadow_live"))
 
 
 def _fake_live(mode):

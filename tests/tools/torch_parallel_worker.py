@@ -67,7 +67,6 @@ def run(rank: int, world: int, scene, cube) -> dict:
     from path_tracer_torch.models.integrator import IntegratorSpec
     from path_tracer_torch.models.renderer import render
     from path_tracer_torch.parallel import default_mesh, render_sharded
-    from path_tracer_torch.parallel import mesh as pmesh
     from path_tracer_torch.parallel.multihost import (
         local_pixel_slice,
         render_multihost,
@@ -77,6 +76,7 @@ def run(rank: int, world: int, scene, cube) -> dict:
         live_lane_counts,
     )
     from path_tracer_torch.parallel.train import get_params, make_train_step
+    from path_tracer_torch.utils import telemetry
 
     out = {}
     dev = scene.device
@@ -121,8 +121,9 @@ def run(rank: int, world: int, scene, cube) -> dict:
     out["deal_error"] = np.array(_error(lambda: render_sharded(
         scene, mesh, ids[:6], W, H, 1, 1, spec, rebalance=True)))
     out["slice"] = np.array(local_pixel_slice(10))
-    out["transports"] = np.array(sorted(":".join(k)
-                                        for k in pmesh.transports))
+    out["transports"] = np.array(sorted(
+        ":".join(k.split(".")[1:]) for k in telemetry.counters
+        if k.startswith("transport.")))
     return out
 
 
