@@ -133,7 +133,12 @@ any error:
    hit, held also to the ungated walk and the dense any-hit (the
    exact-box mutation's lanes off counted), row 5 on the same rays
    against its ungated plain version; then its device ms a launch with
-   the bound, ptxas's report and scene B's device ms a 1080p sample;
+   the bound, ptxas's report and scene B's device ms a 1080p sample; (3r,
+   also alone with ``--only 3r``) the segment prefilter kernel against its
+   plain version on every lane at the main path's two call shapes (the
+   alpha walk's 2,073,600 camera lanes, the 3 x 2,073,600 stacked shadow
+   lanes, a seeded 28.4% live mask), each timed beside its bound and the
+   plain version's time;
 4. the main path at full size: ``cube``, ``spheres`` and ``reflection`` at
    1920x1080, 4 bounces, MAIN_SPP spp through ``render_pixel_sums``, and
    one frame of ``reflection`` at the reference default's size (1920x1080,
@@ -579,9 +584,10 @@ def alpha_lanes(sc, n: int, device, rng=None):
     return o, d, t_op
 
 
-def shadow_lanes(sc, n: int, device, rng=None):
+def shadow_lanes(sc, n: int, device, rng=None, tile: int = 4):
     """The stacked [3n] shadow lanes of the first bounce of n camera lanes
-    of the middle 1080p wavefront, as the integrator builds them:
+    of the 1080p wavefront ``tile`` (``camera_rays``; the middle one by
+    default), as the integrator builds them:
     directional light first (raw direction, pd = +inf), then the point
     lights (unit direction, pd = the distance); lanes live where the
     camera ray hit, the surface faces the light, no opaque occluder is in
@@ -596,7 +602,7 @@ def shadow_lanes(sc, n: int, device, rng=None):
     from path_tracer_torch.ops.trwalk import hits_transparent_bounds
     from path_tracer_torch.scene.device_scene import opaque_view
 
-    o, d = camera_rays(sc, n, device)
+    o, d = camera_rays(sc, n, device, tile)
     hit = closest_hit(o, d, torch.full((n,), -1.0, device=device), sc)
     surf = _surface(sc, hit, o, d)
     so = (surf.pos + surf.geom_normal * NORMAL_BIAS).contiguous()
@@ -622,6 +628,90 @@ def shadow_lanes(sc, n: int, device, rng=None):
     is_pt = torch.arange(n_l * n, device=device) >= sc.num_dir_lights * n
     return (o3, d3, pd3, is_pt, surf.pos.repeat(n_l, 1),
             surf.uv.repeat(n_l, 1), surf.simple.repeat(n_l), walking0)
+
+
+# Lanes of a 1080p frame, and the share of them live at a traced sample's
+# bounces on the textured showcase (PERF.md, section 5).
+FRAME_LANES, LIVE_SHARE = 1920 * 1080, 0.284
+
+
+def prefilter_tests(sc, o, d, t_max, active, chunk: int = 1 << 20) -> int:
+    """Slab tests the prefilter kernel makes: each live lane's boxes up to
+    its first passing one, all P where none passes (the plain version's
+    arithmetic, box by box)."""
+    import torch
+
+    boxes = sc.tr_prefilter
+    n_box = boxes.shape[0]
+    lanes = active.nonzero().squeeze(1)
+    total = 0
+    for s in range(0, lanes.numel(), chunk):
+        i = lanes[s:s + chunk]
+        oo, inv, tm = o[i][:, None, :], 1.0 / d[i][:, None, :], t_max[i]
+        t0 = (boxes[None, :, 0:3] - oo) * inv
+        t1 = (boxes[None, :, 3:6] - oo) * inv
+        lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        tn = torch.where(torch.isnan(lo), -float("inf"), lo).amax(-1)
+        tf = torch.where(torch.isnan(hi), float("inf"), hi).amin(-1)
+        ok = (tf >= torch.clamp(tn, min=0.0)) & (tn <= tm[:, None])
+        first = torch.where(ok.any(1), ok.int().argmax(1) + 1, n_box)
+        total += int(first.sum())
+    return total
+
+
+def phase_prefilter(device, tex) -> dict:
+    """(3r) The segment prefilter kernel (``csrc/tr_prefilter.cu``) against
+    its plain version at the main path's two call shapes on the textured
+    showcase: the alpha walk's 2,073,600 camera lanes of a 1080p frame
+    (t_max the opaque hit's t) and the shadow phase's 3 x 2,073,600
+    stacked first-bounce lanes (t_max the distance to the light with the
+    integrator's margin), each with a seeded LIVE_SHARE live mask. Equal
+    on every lane, then timed: the kernel through its wrapper (CUDA events
+    over AB_ITERS calls) and its launch's device ms, the plain version
+    masked as the integrator used it, and the bound of the tests and bytes
+    the live lanes need. Returns {shape: numbers}."""
+    import torch
+
+    from path_tracer_torch.ops import cuda_trwalk
+    from path_tracer_torch.ops.intersect import closest_hit
+    from path_tracer_torch.ops.trwalk import hits_transparent_bounds
+    from path_tracer_torch.scene.device_scene import opaque_view
+
+    log("phase 3r: the segment prefilter kernel against its plain version")
+    n = FRAME_LANES
+    o, d = camera_rays(tex, n, device, tile=0)
+    hit = closest_hit(o, d, torch.full((n,), -1.0, device=device),
+                      opaque_view(tex))
+    t_op = torch.where(hit.valid, hit.t, float("inf"))
+    o3, d3, pd3 = shadow_lanes(tex, n, device, tile=0)[:3]
+    rng = np.random.default_rng(25)
+    shapes = {"hit": (o, d, t_op), "shadow": (o3, d3, pd3 * 1.0001 + 1e-3)}
+    out = {}
+    for label, (oo, dd, tm) in shapes.items():
+        r = oo.shape[0]
+        mask = as_cuda(rng.uniform(size=r) < LIVE_SHARE, device, bool)
+        kernel = lambda: cuda_trwalk.prefilter(tex, oo, dd, tm, mask)
+        plain = lambda: hits_transparent_bounds(tex, oo, dd, tm) & mask
+        got, want = kernel(), plain()
+        off = int((got != want).sum())
+        if off:
+            raise AssertionError(f"prefilter {label}: {off} lanes off")
+        live, passed = int(mask.sum()), int(got.sum())
+        tests = prefilter_tests(tex, oo, dd, tm, mask)
+        b_ms, b_by = bound(tests * OPS_SLAB, 2 * r + 28 * live
+                           + nbytes(tex.tr_prefilter))
+        k_ms = wrapper_ms(kernel)
+        launch_ms = launch_device_ms(kernel)
+        plain_ms = min(cuda_ms(plain, 3), cuda_ms(plain, 3))
+        out[label] = dict(lanes=r, live=live, passed=passed, tests=tests,
+                          kernel_ms=k_ms, launch_ms=launch_ms, bound_ms=b_ms,
+                          bound_by=b_by, plain_ms=plain_ms)
+        log(f"  prefilter {label}: {r} lanes, {live} live, {passed} pass, 0 "
+            f"lanes off the plain version; {tests} slab tests "
+            f"({tests / max(live, 1):.2f} a live lane); kernel {k_ms:.4f} ms "
+            f"through the wrapper, {launch_ms:.4f} device ms a launch; bound "
+            f"{b_ms:.4f} ms ({b_by}); plain {plain_ms:.4f} ms")
+    return out
 
 
 def walk_rnd(n: int, cap: int, device):
@@ -6626,8 +6716,8 @@ def main() -> int:
     from path_tracer_torch import native
 
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
-    alone = ("3i", "3j", "3k", "3l", "3m", "3n", "3o", "3p", "3q", "7", "8",
-             "9")
+    alone = ("3i", "3j", "3k", "3l", "3m", "3n", "3o", "3p", "3q", "3r",
+             "7", "8", "9")
     if sys.argv[1:] and (len(sys.argv) != 3 or only not in alone):
         print("usage: chip_smoke.py [--only " + "|".join(alone) + "]",
               file=sys.stderr)
@@ -6664,6 +6754,12 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s; tr_kernel_ok {tex.tr_kernel_ok}")
     if not tex.tr_kernel_ok:
         raise AssertionError("textured showcase: no walk-kernel tables")
+    if only == "3r":  # phase 3r alone: the segment prefilter
+        print(json.dumps({"prefilter": phase_prefilter(device, tex),
+                          "card": card}))
+        log(f"chip_smoke: phase 3r passed in "
+            f"{time.perf_counter() - start:.1f} s")
+        return 0
     if only == "9":  # phase 9 alone
         phase_parallel(device, tex)
         log(f"chip_smoke: phase 9 passed in "
@@ -6779,6 +6875,7 @@ def main() -> int:
     phase_redesigned(device, showcase)
     phase_rows_10_11(device, showcase, tex, big)
     phase_rows_13_14(device, tex, big)
+    phase_prefilter(device, tex)
     rows_12_2 = phase_rows_12_2(device, big, design_counts=False)
     rows_5_4 = phase_rows_5_4(device, tex, grid)
     row_6 = phase_row_6(device, grid)

@@ -528,8 +528,7 @@ def _alpha_walk_partitioned(scene, o, d, walking, pix, sample_id, bounce,
     # Lanes whose segment to the terminator misses every transparent
     # cluster skip the walk (``walking`` still drives the background).
     with traced("hit.prefilter", dev):
-        walk_active = walking & trwalk.hits_transparent_bounds(scene, o, d,
-                                                               t_op)
+        walk_active = cuda_trwalk.prefilter(scene, o, d, t_op, walking)
     sel = _miss_record(r, dev)
     no = torch.zeros_like(walking)
     seen, accepted, still = no, no, walk_active
@@ -709,8 +708,8 @@ def _shadow_attenuation_multi(scene, s_o, dirs, actives, colors, steps,
         # Segments that miss every transparent cluster keep trans 1 (t_max
         # the distance to the light, with a margin for the shadow bias).
         with traced("shadow.prefilter", dev):
-            walking0 = walking0 & trwalk.hits_transparent_bounds(
-                scene, o3, d3, pd3 * 1.0001 + 1e-3)
+            walking0 = cuda_trwalk.prefilter(
+                scene, o3, d3, pd3 * 1.0001 + 1e-3, walking0)
         with traced("shadow.walk", dev):
             n = n_l * r
             trans = torch.ones((n,), device=dev)
@@ -807,9 +806,9 @@ def _shadow_attenuation_fused(scene, s_o, dirs, actives, colors, steps,
             # The prefilter of _shadow_attenuation_multi; the any-hit result
             # gates the walk inside the kernel.
             with traced("shadow.prefilter", dev):
-                walk = a & (att0.abs().sum(-1) != 0.0) & \
-                    trwalk.hits_transparent_bounds(scene, s_o, d,
-                                                   pd * 1.0001 + 1e-3)
+                walk = cuda_trwalk.prefilter(
+                    scene, s_o, d, pd * 1.0001 + 1e-3,
+                    a & (att0.abs().sum(-1) != 0.0))
             pds.append(torch.where(walk, pd, -1.0))
         k0 = min(steps, trwalk.TRWALK_K)
         with traced("shadow.anyhit", dev):

@@ -264,6 +264,9 @@ def kernels() -> Kernels:
         #  n_slots, lane_wise, out, device, stream)
         lib.ptt_tree_occluded.restype = ci
         lib.ptt_tree_occluded.argtypes = [vp] * 6 + [ci] * 7 + [vp, ci, vp]
+        # (o, d, t_max, active, boxes, R, P, out, device, stream)
+        lib.ptt_tr_prefilter.restype = ci
+        lib.ptt_tr_prefilter.argtypes = [vp] * 5 + [ci] * 2 + [vp, ci, vp]
         _kernels = Kernels(lib, seconds, log)
     return _kernels
 
@@ -695,6 +698,43 @@ def launch_trans_walk(o, d, aux, scene, steps_cap: int, live=None):
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     return fout
+
+
+# Boxes the segment prefilter stages (csrc/tr_prefilter.cu's kMaxBoxes;
+# the scene's ``tr_prefilter`` has 32).
+TR_PREFILTER_MAX_BOXES = 32
+
+
+def launch_tr_prefilter(o, d, t_max, active, boxes):
+    """Check the operands of the segment prefilter kernel, allocate its
+    output and launch it on the current stream (no synchronisation; no
+    launch for R = 0).
+
+    o, d: [R,3] f32; t_max: [R] f32; active: [R] bool, or None for every
+    lane; boxes: [P,6] f32 (min xyz, max xyz), P <= TR_PREFILTER_MAX_BOXES.
+    Returns out [R] bool (false off ``active``)."""
+    fn = "ptt_tr_prefilter"
+    device = o.device
+    r = _check_rays(fn, o, d, t_max, device)
+    if active is not None:
+        _check("active", active, (r,), torch.bool, device)
+    p = boxes.shape[0] if boxes.dim() == 2 else -1
+    _check("boxes", boxes, (p, 6), torch.float32, device)
+    if p > TR_PREFILTER_MAX_BOXES:
+        raise ValueError(f"{fn}: {p} boxes, at most "
+                         f"{TR_PREFILTER_MAX_BOXES}")
+    out = torch.empty((r,), dtype=torch.bool, device=device)
+    if r == 0:
+        return out
+    lib = kernels().lib
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.ptt_tr_prefilter(
+        o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
+        None if active is None else active.data_ptr(), boxes.data_ptr(), r,
+        p, out.data_ptr(), device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    return out
 
 
 # Direction sets the dense sphere any-hit takes in one launch (the sets'

@@ -3,7 +3,12 @@
 - ``csrc/alpha_walk.cu`` replaces ``pallas_trwalk._alpha_kernel`` (entry
   ``alpha_walk``);
 - ``csrc/trans_walk.cu`` replaces ``pallas_trwalk._trans_kernel`` and its
-  tile body ``trans_tile`` (entry ``trans_walk``).
+  tile body ``trans_tile`` (entry ``trans_walk``);
+- ``csrc/tr_prefilter.cu`` (``tr_prefilter_kernel``, entry ``prefilter``)
+  is the walks' segment prefilter, ``trwalk.hits_transparent_bounds``
+  masked with the caller's live lanes, in one launch. It replaces no
+  Pallas kernel (the JAX package leaves the test to one fused XLA loop);
+  its CPU route is the plain version, ANDed with the mask.
 
 Both walk the scene's compact transparent table (``tr_*``) and keep the
 contract of their plain versions in ``ops/trwalk.py``. Each has a live
@@ -26,6 +31,7 @@ from path_tracer_torch.ops.trwalk import (
     AlphaWalk,
     TransWalk,
     alpha_walk_plain,
+    hits_transparent_bounds,
     trans_walk_plain,
 )
 from path_tracer_torch.utils.telemetry import counters
@@ -65,6 +71,24 @@ def trans_walk(scene, o, d, pd, is_pt, surf_pos, orig_uv, orig_simple,
     counters["launch.trans_walk" if live is None
              else "launch.trans_walk_live"] += 1
     return TransWalk(fout[0], fout[1], fout[2] > 0.0)
+
+
+@_detach_for_kernel
+def prefilter(scene, o, d, t_max, active=None) -> torch.Tensor:
+    """[R] bool: can the segment o + t d, t in [0, t_max], of a lane of
+    ``active`` enter any of the scene's ``tr_prefilter`` boxes
+    (``trwalk.hits_transparent_bounds``, bit for bit)? False off
+    ``active`` ([R] bool; None: every lane). o, d: [R,3] f32; t_max: [R]
+    f32."""
+    if o.device.type == "cpu":
+        hit = hits_transparent_bounds(scene, o, d, t_max)
+        return hit if active is None else hit & active
+    out = native.launch_tr_prefilter(
+        o.contiguous(), d.contiguous(), t_max.contiguous(),
+        None if active is None else active.contiguous(), scene.tr_prefilter)
+    if o.shape[0]:
+        counters["launch.tr_prefilter"] += 1
+    return out
 
 
 def trans_aux(pd, is_pt, surf_pos, orig_uv, orig_simple, walking0):

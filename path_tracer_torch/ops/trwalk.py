@@ -1,6 +1,9 @@
 """The transparent walks over the compact transparent table: their plain
 PyTorch versions, the contract the CUDA kernels (``ops/cuda_trwalk.py``)
-are held to, and the segment prefilter of the partitioned walks.
+are held to, and the segment prefilter of the partitioned walks
+(``hits_transparent_bounds``: the plain version of
+``csrc/tr_prefilter.cu``, which ``cuda_trwalk.prefilter`` launches on a
+CUDA tensor; on a CPU tensor it runs this function).
 
 Port of ``path_tracer_tpu/ops/pallas_trwalk.py`` (``alpha_walk_kernel``,
 ``trans_walk_kernel``) and ``_hits_transparent_bounds`` of the JAX
@@ -136,7 +139,8 @@ class TransWalk(NamedTuple):
 def hits_transparent_bounds(scene, o, d, t_max) -> torch.Tensor:
     """[R] bool: can the segment o + t d, t in [0, t_max], enter any of
     the scene's ``tr_prefilter`` boxes? A zero direction component inverts
-    to IEEE inf; a NaN slab bound counts as open."""
+    to IEEE inf; a NaN slab bound counts as open. The plain version of the
+    ``tr_prefilter`` kernel (``cuda_trwalk.prefilter``)."""
     boxes = scene.tr_prefilter  # [P, 6]
     inv = 1.0 / d
     t0 = (boxes[None, :, 0:3] - o[:, None, :]) * inv[:, None, :]

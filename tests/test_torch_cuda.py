@@ -643,6 +643,91 @@ def test_trans_walk_kernel_equals_plain(cuda, showcase_tex48, tie_cards,
     assert bool((got.trans[~walking0] == 1.0).all())
 
 
+def _prefilter_lanes(sc, seed, r, device):
+    """(o, d, t_max, rng): foliage rays through the textured showcase with
+    the prefilter's edge cases: zero direction components (one, two and
+    all three), origins on a box's slab planes with a zero component along
+    that axis (0 * inf: a NaN slab bound), t_max +inf, negative and
+    NaN."""
+    o, d, g = _foliage_rays(sc, seed, r, device)
+    box = sc.tr_prefilter
+    d[::9, 0] = 0.0
+    d[::11, 2] = 0.0
+    d[::101] = 0.0
+    o[::13, 1] = box[0, 1]
+    d[::26, 1] = 0.0
+    o[::17, 0] = box[1, 3]
+    d[::34, 0] = 0.0
+    t_max = torch.from_numpy(g.uniform(0.0, 30.0, r).astype(np.float32)).to(
+        device)
+    t_max[::6] = float("inf")
+    t_max[::7] = -0.5
+    t_max[::19] = float("nan")
+    return o, d, t_max, g
+
+
+def _prefilter_plain(sc, o, d, t_max, active):
+    """The plain version ANDed with the mask, on the card and on the CPU."""
+    from path_tracer_torch.ops.trwalk import hits_transparent_bounds
+
+    cpu = SimpleNamespace(tr_prefilter=sc.tr_prefilter.cpu())
+    want = [hits_transparent_bounds(sc, o, d, t_max).cpu(),
+            hits_transparent_bounds(cpu, o.cpu(), d.cpu(), t_max.cpu())]
+    if active is not None:
+        want = [w & active.cpu() for w in want]
+    return want
+
+
+@pytest.mark.parametrize("n", [2**18 + 37, 0])
+@pytest.mark.parametrize("active", [None, "mask"])
+def test_prefilter_kernel_equals_plain(cuda, showcase_tex48, active, n):
+    """The segment prefilter kernel equals the plain version (on the card
+    and on the CPU) on every lane, the edge cases of ``_prefilter_lanes``
+    included, with no mask and with a random 28% live mask (lanes off it
+    false); one launch a call, none for no lanes."""
+    from path_tracer_torch.ops import cuda_trwalk
+
+    sc = showcase_tex48
+    o, d, t_max, g = _prefilter_lanes(sc, 5, n, cuda)
+    mask = (torch.from_numpy(g.uniform(size=n) < 0.28).to(cuda) if active
+            else None)
+    before = counters["launch.tr_prefilter"]
+    got = cuda_trwalk.prefilter(sc, o, d, t_max, mask)
+    torch.cuda.synchronize()
+    assert counters["launch.tr_prefilter"] == before + (1 if n else 0)
+    assert got.dtype == torch.bool and got.shape == (n,)
+    for want in _prefilter_plain(sc, o, d, t_max, mask):
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    if n:
+        live = got if mask is None else got[mask]
+        assert 0.05 < live.float().mean().item() < 0.95
+
+
+def test_prefilter_kernel_stacked_lights(cuda, showcase_tex48):
+    """Three lights' stacked lanes (3 x (2^18 + 37)), as the shadow phase
+    calls it, with a random live mask; and one directional light's
+    expanded (stride 0) direction, as the fused shadow route passes it."""
+    from path_tracer_torch.ops import cuda_trwalk
+
+    sc = showcase_tex48
+    r = 2**18 + 37
+    o, d, t_max, g = _prefilter_lanes(sc, 6, r, cuda)
+    ds = [d, -d, (-sc.dir_dir[0] / sc.dir_dir[0].norm()).expand(r, 3)]
+    o3, d3 = o.repeat(3, 1), torch.cat(ds)
+    tm3 = torch.cat([t_max, t_max * 0.5, torch.full_like(t_max, 1e3)])
+    mask = torch.from_numpy(g.uniform(size=3 * r) < 0.28).to(cuda)
+    before = counters["launch.tr_prefilter"]
+    got = cuda_trwalk.prefilter(sc, o3, d3, tm3, mask)
+    got1 = cuda_trwalk.prefilter(sc, o, ds[2], tm3[2 * r:])
+    torch.cuda.synchronize()
+    assert counters["launch.tr_prefilter"] == before + 2
+    for want in _prefilter_plain(sc, o3, d3, tm3, mask):
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    for want in _prefilter_plain(sc, o, ds[2], tm3[2 * r:], None):
+        np.testing.assert_array_equal(got1.cpu().numpy(), want.numpy())
+    assert 0.05 < got[mask].float().mean().item() < 0.95
+
+
 def _sphere_shadow_sets(sc, seed, r, device):
     """Origins among the spheres (half 1e-5 off a sphere's surface) and
     two sets toward random points: t_max infinite, and the distance to

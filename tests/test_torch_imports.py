@@ -238,7 +238,8 @@ def _fake_tr_scene(mode):
             tr_tex8=torch.empty((128, 128), dtype=torch.uint8, **cuda),
             tr_lut=torch.empty((1, 256), **cuda),
             tr_page_table=torch.empty((1, 3), dtype=torch.int32, **cuda),
-            tr_grp=torch.empty((7, 128), **cuda), tr_textured=True)
+            tr_grp=torch.empty((7, 128), **cuda), tr_textured=True,
+            tr_prefilter=torch.empty((32, 6), **cuda))
 
 
 def _fake_tree_scene(mode):
@@ -286,7 +287,7 @@ def _launch_counts():
         "flat_closest_hit", "flat_occluded", "flat2_closest_hit",
         "flat2_occluded", "alpha_walk", "trans_walk", "sph_occluded",
         "sph_occ_walk", "fused_shadow", "alpha_walk_live", "trans_walk_live",
-        "fused_shadow_live"))
+        "fused_shadow_live", "tr_prefilter"))
 
 
 def _fake_live(mode):
@@ -318,7 +319,7 @@ def _fake_tri(mode, n_rays: int):
                                     "sph_occ_walk", "fused_shadow",
                                     "alpha_walk_live", "trans_walk_live",
                                     "fused_shadow_live", "khit", "tree",
-                                    "tree_occluded"])
+                                    "tree_occluded", "tr_prefilter"])
 def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
     """Handed CUDA tensors where the kernel cannot be built or launched,
     a wrapper raises; it never returns the plain version's result."""
@@ -363,7 +364,8 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
                  "_occluded_walk_plain", "closest_hit_spheres_merged_plain",
                  "merge_hits"):
         monkeypatch.setattr(cuda_spheres, name, _plain_must_not_run)
-    for name in ("alpha_walk_plain", "trans_walk_plain"):
+    for name in ("alpha_walk_plain", "trans_walk_plain",
+                 "hits_transparent_bounds"):
         monkeypatch.setattr(cuda_trwalk, name, _plain_must_not_run)
     monkeypatch.setattr(cuda_shadow, "fused_shadow_plain",
                         _plain_must_not_run)
@@ -408,6 +410,8 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
             o, d, tp > 0, sc, 6, t_max=tp),
         "tree": cuda_bvh.closest_hit_triangles_tree,
         "tree_occluded": cuda_bvh.occluded_triangles_tree,
+        "tr_prefilter": lambda o, d, tp, sc: cuda_trwalk.prefilter(
+            sc, o, d, tp, tp > 0),
     }[kernel]
     if kernel.startswith("flat"):
         scene = _fake_flat_scene(mode)
@@ -422,7 +426,7 @@ def test_cuda_wrappers_raise_instead_of_falling_back(kernel, monkeypatch):
                                 sph_use_blocks=False)
     elif kernel.startswith("fused_shadow"):
         scene = _fake_fused_scene(mode)
-    elif kernel.endswith(("walk", "walk_live")):
+    elif kernel.endswith(("walk", "walk_live")) or kernel == "tr_prefilter":
         scene = _fake_tr_scene(mode)
 
     def _no_toolkit():
@@ -601,6 +605,59 @@ def test_walk_launchers_check_operands():
             native.launch_alpha_walk(o, d, tp, rnd, sc, 2, bad)
         with mode, pytest.raises(ValueError):
             native.launch_trans_walk(o, d, aux, sc, 2, bad)
+
+
+def test_prefilter_checks_operands():
+    """The segment prefilter raises on a wrong lane, mask or box layout
+    before any launch: its wrapper on a wrong dtype or shape, its launcher
+    also on a non-contiguous operand (the wrapper makes o, d, t_max and
+    the mask contiguous, as the walks' wrappers do)."""
+    from types import SimpleNamespace
+
+    from path_tracer_torch import native
+    from path_tracer_torch.ops import cuda_trwalk
+
+    mode, o, d, tp, _ = _fake_cuda_operands(64, 4)
+    sc = _fake_tr_scene(mode)
+    with mode:
+        cuda = dict(device="cuda")
+        mask = torch.empty((64,), dtype=torch.bool, **cuda)
+        bad_wrapper = [
+            (sc, o.double(), d, tp, mask),
+            (sc, o, torch.empty((64, 4), **cuda), tp, mask),
+            (sc, o, d, torch.empty((63,), **cuda), mask),
+            (sc, o, d, tp.half(), None),
+            (sc, o, d, tp, torch.empty((64,), dtype=torch.uint8, **cuda)),
+            (sc, o, d, tp, torch.empty((32,), dtype=torch.bool, **cuda)),
+            (SimpleNamespace(tr_prefilter=torch.empty((33, 6), **cuda)), o,
+             d, tp, mask),  # more boxes than the kernel stages
+            (SimpleNamespace(tr_prefilter=torch.empty((32, 4), **cuda)), o,
+             d, tp, mask),
+            (SimpleNamespace(tr_prefilter=torch.empty(
+                (32, 6), dtype=torch.float64, **cuda)), o, d, tp, mask),
+        ]
+        strided = torch.empty_strided((64, 3), (1, 64), **cuda)
+        bad_launcher = [
+            (strided, d, tp, mask, sc.tr_prefilter),
+            (o, strided, tp, mask, sc.tr_prefilter),
+            (o, d, torch.empty_strided((64,), (2,), **cuda), mask,
+             sc.tr_prefilter),
+            (o, d, tp, torch.empty_strided((64,), (2,), dtype=torch.bool,
+                                           **cuda), sc.tr_prefilter),
+            (o, d, tp, None,
+             torch.empty_strided((32, 6), (1, 32), **cuda)),
+        ]
+    before = _launch_counts()
+    for args in bad_wrapper:
+        with mode, pytest.raises(ValueError):
+            cuda_trwalk.prefilter(*args)
+    for args in bad_launcher:
+        with mode, pytest.raises(ValueError):
+            native.launch_tr_prefilter(*args)
+    with pytest.raises(ValueError):  # CPU tensors are not the kernel's
+        native.launch_tr_prefilter(torch.zeros(4, 3), torch.zeros(4, 3),
+                                   torch.zeros(4), None, torch.zeros(32, 6))
+    assert _launch_counts() == before
 
 
 def test_any_hit_launchers_check_operands():

@@ -280,10 +280,13 @@ def test_trans_walk_plain_matches_pallas(showcase48, two_tex, name,
         assert w_still.any()  # directional lanes past the cap
 
 
-def test_hits_transparent_bounds_matches_jax(showcase48):
+@pytest.mark.parametrize("active", [None, "mask"])
+def test_hits_transparent_bounds_matches_jax(showcase48, active):
     """Zero direction components invert to IEEE inf and a NaN slab bound
-    counts as open, as in the JAX package."""
-    from path_tracer_torch.ops.trwalk import hits_transparent_bounds
+    counts as open, as in the JAX package; the kernel's wrapper
+    (``cuda_trwalk.prefilter``) on CPU tensors gives the plain version
+    ANDed with its ``active`` mask."""
+    from path_tracer_torch.ops.cuda_trwalk import prefilter
     from path_tracer_tpu.models.integrator import _hits_transparent_bounds
 
     js, ts = showcase48
@@ -293,12 +296,15 @@ def test_hits_transparent_bounds_matches_jax(showcase48):
     o[::13, 1] = ts.tr_prefilter[0, 1].item()  # on a slab plane: 0 * inf
     t_max = g.uniform(0.0, 30.0, R).astype(np.float32)
     t_max[::6] = np.inf
-    got = hits_transparent_bounds(ts, torch.from_numpy(o), torch.from_numpy(d),
-                                  torch.from_numpy(t_max)).numpy()
+    mask = g.random(R) < 0.6 if active else np.ones(R, bool)
+    got = prefilter(ts, torch.from_numpy(o), torch.from_numpy(d),
+                    torch.from_numpy(t_max),
+                    torch.from_numpy(mask) if active else None).numpy()
     want = np.asarray(_hits_transparent_bounds(
-        js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max)))
+        js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max))) & mask
     np.testing.assert_array_equal(got, want)
     assert 0.05 < got.mean() < 0.95
+    assert not got[~mask].any()
 
 
 def test_kernel_walk_residual_past_cap(showcase48, monkeypatch):
